@@ -1,0 +1,16 @@
+"""Serving (counterpart of `paddle_tpu.serving`): the paged
+continuous-batching `InferenceEngine` and its request API."""
+from .api import (FAILED, FINISHED, GREEDY, PRIORITY_HIGH, PRIORITY_LOW,
+                  PRIORITY_NORMAL, QUEUED, RUNNING, SAMPLING,
+                  RequestHandle, SamplingParams)
+from .engine import InferenceEngine, sample_rows
+from .kv_pool import (PagedSlotPool, PagePoolExhausted, PromptTooLongError,
+                      default_buckets, scatter_pages)
+from .scheduler import FCFSScheduler
+
+__all__ = ['FAILED', 'FINISHED', 'GREEDY', 'PRIORITY_HIGH', 'PRIORITY_LOW',
+           'PRIORITY_NORMAL', 'QUEUED', 'RUNNING',
+           'SAMPLING', 'RequestHandle', 'SamplingParams', 'InferenceEngine',
+           'sample_rows', 'PagedSlotPool', 'PagePoolExhausted',
+           'PromptTooLongError', 'default_buckets', 'scatter_pages',
+           'FCFSScheduler']

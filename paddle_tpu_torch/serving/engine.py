@@ -1,0 +1,380 @@
+"""Continuous-batching inference engine over the paged KV pool
+(counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
+`kv_page_size` set, unquantized, without prefix cache, chunked prefill,
+draft model or adapters).
+
+One engine is one event loop: `step()` admits queued requests into free
+slots (reserving every page each can touch, and requeueing on
+`PagePoolExhausted`), prefills each admitted prompt whole at its length
+bucket, then advances every active slot one decode round of
+`decode_block` sub-steps. Each sub-step runs the model's paged forward
+(`nlp.generation.cached_forward`): the pending token's K/V rows are
+written into its page, and it attends through the paged-attention
+kernel over the slot's page table, which is the function the JAX engine
+computes by gathering pages, attending densely under a slot-causal mask
+and scattering the touched pages back. Prefill runs the causal flash
+kernel over the right-padded bucket and scatters the slab into the
+slot's pages.
+
+Greedy requests take the raw argmax, so their tokens never depend on
+batch neighbours; sampling requests draw from their own
+`torch.Generator`, seeded from `SamplingParams.seed`.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..nlp.generation import cached_forward
+from ..ops.kernels import NEG_INF
+from ..framework import generator as _generator
+from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
+from .kv_pool import PagePoolExhausted, PagedSlotPool, scatter_pages
+from .scheduler import FCFSScheduler
+
+
+def sample_rows(logits: torch.Tensor, temp: torch.Tensor,
+                topk: torch.Tensor, topp: torch.Tensor,
+                sampling: np.ndarray, generators) -> torch.Tensor:
+    """Next token per row of a [N, V] logits slab.
+
+    Every row starts from the raw argmax (greedy). Rows flagged in the
+    host array `sampling` apply temperature, then top-k, then top-p (the
+    JAX engine's order; `top_k <= 0 or >= V` and `top_p >= 1` disable a
+    filter) and draw from the filtered distribution with their own
+    generator `generators[row]`. temp/topk/topp are [N] tensors on the
+    logits' device."""
+    logits = logits.float()
+    out = logits.argmax(dim=-1)
+    rows = np.flatnonzero(sampling)
+    if rows.size == 0:
+        return out
+    idx = torch.from_numpy(rows).to(logits.device)
+    x = logits[idx] / temp[idx].clamp(min=1e-6)[:, None]
+    v = x.shape[-1]
+    k = topk[idx]
+    k_eff = torch.where((k > 0) & (k < v), k, v).long()
+    srt = x.sort(dim=-1, descending=True).values
+    kth = srt.gather(1, k_eff[:, None] - 1)
+    x = x.masked_fill(x < kth, NEG_INF)
+    p = topp[idx]
+    srt_p = x.sort(dim=-1, descending=True).values
+    probs = torch.softmax(srt_p, dim=-1)
+    cum = probs.cumsum(dim=-1)
+    cutoff_idx = ((cum - probs) < p[:, None]).sum(dim=-1) - 1
+    cutoff = srt_p.gather(1, cutoff_idx.clamp(0, v - 1)[:, None])
+    x = x.masked_fill((p[:, None] < 1.0) & (x < cutoff), NEG_INF)
+    dist = torch.softmax(x, dim=-1)
+    for j, r in enumerate(rows):
+        out[r] = torch.multinomial(dist[j], 1, generator=generators[r])[0]
+    return out
+
+
+class InferenceEngine:
+    """Single-host continuous-batching engine around one causal LM.
+
+    Args:
+        model: a port model with the serving contract: `init_cache`,
+            `prefill_kv(ids)` (per-layer K/V rows of a prompt) and the
+            paged forward behind `cached_forward`. It runs on its own
+            device, and so does the engine.
+        num_slots: KV slots = max concurrently decoding requests.
+        max_length: per-slot cache length; every request needs
+            prompt_len + max_new_tokens <= max_length.
+        decode_block: sub-steps per decode round; a request finishing
+            mid-round wastes at most decode_block - 1 sub-steps.
+        buckets: prefill length buckets (default: powers of two).
+        max_prefill_tokens: per-iteration prefill budget (scheduler).
+        eos_token_id: default eos (-1 = never); per-request params win.
+        kv_page_size: rows per KV page; max_length must be a multiple.
+        kv_pages: total pages including the null page 0. Default
+            num_slots * pages_per_slot + 1; lower oversubscribes, and
+            admission then requeues on page exhaustion.
+    """
+
+    def __init__(self, model, num_slots: int = 8, max_length: int = 256,
+                 decode_block: int = 4,
+                 buckets: Optional[Sequence[int]] = None,
+                 max_prefill_tokens: Optional[int] = None,
+                 eos_token_id: Optional[int] = None,
+                 max_wait_s: Optional[float] = None,
+                 kv_page_size: int = 16, kv_pages: Optional[int] = None):
+        cfg = getattr(model, 'config', None)
+        max_pos = getattr(cfg, 'max_position_embeddings', None)
+        if max_pos is not None and max_length > max_pos:
+            raise ValueError(
+                f'max_length {max_length} exceeds the model\'s '
+                f'max_position_embeddings {max_pos}')
+        if decode_block < 1:
+            raise ValueError('decode_block must be >= 1')
+        model.eval()
+        self.model = model
+        self.device = model.device
+        self._fwd = cached_forward(model)
+        self.eos_token_id = int(
+            getattr(cfg, 'eos_token_id', -1) if eos_token_id is None
+            else eos_token_id)
+        self.decode_block = int(decode_block)
+        self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
+                                  page_size=int(kv_page_size),
+                                  num_pages=kv_pages)
+        self.scheduler = FCFSScheduler(max_prefill_tokens,
+                                       max_wait_s=max_wait_s)
+        n = self.pool.num_slots
+        # per-slot decode state + sampling params, host-authoritative
+        # (tiny arrays staged every round; the KV pages stay on device)
+        self._tok = np.zeros(n, np.int64)       # pending (last emitted)
+        self._pos = np.zeros(n, np.int64)       # its position
+        self._active = np.zeros(n, bool)
+        self._temp = np.ones(n, np.float32)
+        self._topk = np.zeros(n, np.int64)
+        self._topp = np.ones(n, np.float32)
+        self._greedy = np.ones(n, bool)
+        self._gens: List[Optional[torch.Generator]] = [None] * n
+        self._slot_req: dict = {}               # slot -> RequestHandle
+        self._counts = collections.Counter()
+        self._seconds = collections.Counter()
+
+    def _sync(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # submission
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _normalize_prompt(prompt) -> List[int]:
+        arr = np.asarray(prompt.cpu() if isinstance(prompt, torch.Tensor)
+                         else prompt)
+        if arr.ndim == 2 and arr.shape[0] == 1:
+            arr = arr[0]
+        if arr.ndim != 1 or arr.size < 1:
+            raise ValueError(
+                f'prompt must be a non-empty 1-D token sequence, got '
+                f'shape {arr.shape}')
+        return [int(t) for t in arr]
+
+    def submit(self, prompt, params: Optional[SamplingParams] = None,
+               priority: Optional[int] = None, **kwargs) -> RequestHandle:
+        """Queue one request; returns its live handle. Validation errors
+        raise here."""
+        if params is None:
+            params = SamplingParams(**kwargs)
+        elif kwargs:
+            raise TypeError('pass params= or keyword sampling args, '
+                            'not both')
+        toks = self._normalize_prompt(prompt)
+        self.pool.bucket_for(len(toks))   # raises when no bucket fits
+        if len(toks) + params.max_new_tokens > self.pool.max_length:
+            raise ValueError(
+                f'prompt ({len(toks)}) + max_new_tokens '
+                f'({params.max_new_tokens}) exceeds the slot length '
+                f'({self.pool.max_length})')
+        h = RequestHandle(toks, params, engine=self)
+        if priority is not None:
+            h.priority = int(priority)
+        h._eos = int(self.eos_token_id if params.eos_token_id is None
+                     else params.eos_token_id)
+        self._counts['submitted'] += 1
+        self.scheduler.submit(h)
+        return h
+
+    # ------------------------------------------------------------------
+    # the iteration loop
+    # ------------------------------------------------------------------
+    @property
+    def has_work(self) -> bool:
+        return bool(self._slot_req) or self.scheduler.queue_depth > 0
+
+    def step(self) -> int:
+        """One scheduler iteration: admit (and prefill) queued requests
+        into free slots, then advance every active slot one decode round.
+        Returns the number of requests that progressed."""
+        self._admit()
+        n = len(self._slot_req)
+        if not np.any(self._active):
+            return n
+        t0 = time.perf_counter()
+        toks = self._decode_round()
+        now = time.perf_counter()
+        self._seconds['decode'] += now - t0
+        self._counts['decode_rounds'] += 1
+        for slot, h in list(self._slot_req.items()):
+            done = False
+            emitted = 0
+            for j in range(self.decode_block):
+                t = int(toks[slot, j])
+                h._emit(t, now)
+                emitted += 1
+                if len(h.tokens) >= h.params.max_new_tokens or t == h._eos:
+                    done = True
+                    break
+            self._counts['tokens'] += emitted
+            if done:
+                self._retire(slot, h, now)
+            else:
+                self._tok[slot] = toks[slot, -1]
+                self._pos[slot] += self.decode_block
+                self.pool.note_written(slot, self._pos[slot] + 1)
+        return n
+
+    def _decode_round(self) -> np.ndarray:
+        """`decode_block` paged sub-steps over every slot; returns the
+        [num_slots, decode_block] tokens. Inactive slots have their table
+        row redirected to the null page, so their writes land nowhere
+        real."""
+        dev = self.device
+        max_len = self.pool.max_length
+        active = torch.from_numpy(self._active).to(dev)
+        table = torch.from_numpy(np.where(
+            self._active[:, None], self.pool.page_table, 0)).to(dev)
+        tok = torch.from_numpy(self._tok).to(dev)
+        pos = torch.from_numpy(self._pos).to(dev)
+        temp = torch.from_numpy(self._temp).to(dev)
+        topk = torch.from_numpy(self._topk).to(dev)
+        topp = torch.from_numpy(self._topp).to(dev)
+        sampling = self._active & ~self._greedy
+        out = []
+        with torch.inference_mode():
+            for _ in range(self.decode_block):
+                logits = self._fwd(tok[:, None], self.pool.pages, pos,
+                                   table)[:, -1]
+                nxt = sample_rows(logits, temp, topk, topp, sampling,
+                                  self._gens)
+                tok = torch.where(active, nxt, 0)
+                pos = torch.clamp(pos + 1, max=max_len - 1)
+                out.append(tok)
+            toks = torch.stack(out, dim=1).cpu().numpy()
+        self._counts['decode_steps'] += self.decode_block
+        return toks
+
+    def run(self) -> int:
+        """Drive until queue and slots drain; returns iterations."""
+        rounds = 0
+        while self.has_work:
+            self.step()
+            rounds += 1
+        return rounds
+
+    def stream(self, handle: RequestHandle):
+        """Per-token iterator for one request (see RequestHandle.stream)."""
+        return handle.stream()
+
+    def generate_many(self, prompts, params=None) -> List[RequestHandle]:
+        """Submit a batch of prompts and drain the engine. `params` is one
+        SamplingParams for all, or one per prompt."""
+        if params is None or isinstance(params, SamplingParams):
+            params = [params or SamplingParams()] * len(prompts)
+        if len(params) != len(prompts):
+            raise ValueError('one SamplingParams per prompt')
+        handles = [self.submit(p, sp) for p, sp in zip(prompts, params)]
+        self.run()
+        return handles
+
+    # ------------------------------------------------------------------
+    # admission / retirement
+    # ------------------------------------------------------------------
+    def _admit(self):
+        admitted = self.scheduler.admissible(self.pool.free_count,
+                                             self.pool.bucket_for)
+        for idx, h in enumerate(admitted):
+            slot = self.pool.alloc()
+            s = len(h.prompt_tokens)
+            try:
+                self.pool.reserve(slot, min(s + h.params.max_new_tokens,
+                                            self.pool.max_length))
+            except PagePoolExhausted:
+                # not a failure: this handle and everything behind it go
+                # back to the queue front in order; pages free up as
+                # in-flight requests retire
+                self.pool.free(slot)
+                for back in reversed(admitted[idx:]):
+                    self.scheduler.requeue(back)
+                self._counts['requeued'] += len(admitted) - idx
+                break
+            self._slot_req[slot] = h
+            h.status = RUNNING
+            self._whole_prefill(slot, h)
+            self._activate(slot, h)
+
+    def _whole_prefill(self, slot: int, h: RequestHandle):
+        """Prefill the right-padded prompt bucket through the causal flash
+        kernel and scatter its K/V rows into the slot's pages (pad rows
+        past the reservation fall on the null page). No logits: the first
+        token comes from the next decode round, which re-forwards the
+        last prompt token at position s - 1."""
+        s = len(h.prompt_tokens)
+        bucket = self.pool.bucket_for(s)
+        t0 = time.perf_counter()
+        ids = torch.zeros((1, bucket), dtype=torch.int64)
+        ids[0, :s] = torch.tensor(h.prompt_tokens)
+        table = torch.from_numpy(self.pool.page_table[slot:slot + 1])
+        with torch.inference_mode():
+            slab = self.model.prefill_kv(ids.to(self.device))
+            scatter_pages(self.pool.pages, table.to(self.device), slab,
+                          torch.zeros(1, dtype=torch.int64,
+                                      device=self.device))
+        self._sync()
+        self._seconds['prefill'] += time.perf_counter() - t0
+        self.pool.note_written(slot, s)
+        self._counts['prefills'] += 1
+        self._counts['prefill_tokens'] += s
+        self._counts['prefill_bucket_tokens'] += bucket
+
+    def _activate(self, slot: int, h: RequestHandle):
+        """Arm the slot for decode: the pending token is the last prompt
+        token at position s - 1."""
+        p = h.params
+        greedy = p.strategy == GREEDY
+        self._tok[slot] = h.prompt_tokens[-1]
+        self._pos[slot] = len(h.prompt_tokens) - 1
+        self._active[slot] = True
+        self._temp[slot] = p.temperature
+        self._topk[slot] = p.top_k
+        self._topp[slot] = p.top_p
+        self._greedy[slot] = greedy
+        self._gens[slot] = None if greedy else _generator(
+            h.request_id if p.seed is None else p.seed, self.device)
+
+    def _retire(self, slot: int, h: RequestHandle, now: float):
+        h._finish(now)
+        del self._slot_req[slot]
+        self._active[slot] = False
+        self._greedy[slot] = True
+        self._gens[slot] = None
+        self.pool.free(slot)
+        self._counts['completed'] += 1
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+    def stats(self) -> dict:
+        """Host-side counters. `prefill_seconds` is wall time of the
+        prefills (each ends in a device sync), `decode_seconds` wall time
+        of the decode rounds (each ends in the token fetch)."""
+        c = self._counts
+        return {
+            'submitted': c['submitted'],
+            'completed': c['completed'],
+            'requeued': c['requeued'],
+            'tokens': c['tokens'],
+            'prefills': c['prefills'],
+            'prefill_tokens': c['prefill_tokens'],
+            'prefill_bucket_tokens': c['prefill_bucket_tokens'],
+            'decode_rounds': c['decode_rounds'],
+            'decode_steps': c['decode_steps'],
+            'prefill_seconds': self._seconds['prefill'],
+            'decode_seconds': self._seconds['decode'],
+            'queue_depth': self.scheduler.queue_depth,
+            'active_slots': len(self._slot_req),
+            'kv_layout': 'paged',
+            'pool': self.pool.stats(),
+        }
+
+    def reset_stats(self):
+        self._counts.clear()
+        self._seconds.clear()

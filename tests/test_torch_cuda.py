@@ -1,0 +1,138 @@
+"""The port's CUDA kernels and engine on an NVIDIA GPU.
+
+Every test here is marked `cuda` and skips where there is no card; on a
+machine with one run `python -m pytest tests/test_torch_cuda.py -q`.
+This file imports only torch and the port (that machine runs no jax).
+Tolerances: f32 1e-4 (sums in another order), bf16 2e-2 abs + rel (one
+bf16 rounding of unit-scale outputs).
+"""
+import pytest
+import torch
+
+from paddle_tpu_torch import generator
+from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops import kernels as K
+from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the CUDA kernels run only there)')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def _randn(gen, dtype, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('s,hkv', [(1, 8), (63, 2), (130, 8)])
+def test_flash_kernel_matches_plain(cuda, dtype, s, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = _randn(g, dtype, 2, s, 8, 128)
+    k, v = _randn(g, dtype, 2, s, hkv, 128), _randn(g, dtype, 2, s, hkv, 128)
+    before = K.LAUNCHES['flash_attention_fwd']
+    _close(K.flash_attention_fwd(q, k, v, causal=True),
+           K.attention_reference(q, k, v, causal=True), dtype)
+    assert K.LAUNCHES['flash_attention_fwd'] == before + 1
+
+
+def test_flash_kernel_strided_and_rectangular(cuda):
+    """[B, H, S, D] storage viewed as [B, S, H, D] (no copy), and a
+    non-causal sq < sk call."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(g, torch.float32, 1, 4, 70, 128).transpose(1, 2)
+    k = _randn(g, torch.float32, 1, 4, 90, 128).transpose(1, 2)
+    v = _randn(g, torch.float32, 1, 4, 90, 128).transpose(1, 2)
+    assert not q.is_contiguous()
+    _close(K.flash_attention_fwd(q, k, v, causal=False),
+           K.attention_reference(q, k, v, causal=False), torch.float32)
+    _close(K.flash_attention_fwd(q, k, v, causal=True),
+           K.attention_reference(q, k, v, causal=True), torch.float32)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows', [1, 8, 300])
+def test_rms_kernel_matches_plain(cuda, dtype, rows):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x, w = _randn(g, dtype, rows, 4096), _randn(g, dtype, 4096)
+    _close(K.rms_norm(x, w), K.rms_norm_reference(x, w), dtype)
+
+
+@pytest.mark.parametrize('dtype,hkv,quant', [
+    (torch.float32, 4, False), (torch.bfloat16, 4, False),
+    (torch.bfloat16, 1, False), (torch.float32, 2, True),
+    (torch.bfloat16, 4, True)])
+def test_paged_kernel_matches_plain(cuda, dtype, hkv, quant):
+    g = torch.Generator(device=cuda).manual_seed(hkv)
+    n, h, ps, p, num_pages = 5, 8, 16, 6, 31
+    q = _randn(g, dtype, n, h, 128)
+    shape = (num_pages, ps, hkv, 128)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g, device=cuda,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=cuda,
+                           dtype=torch.int8)
+        ks = torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+        vs = torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+    else:
+        kp, vp = _randn(g, dtype, *shape), _randn(g, dtype, *shape)
+        ks = vs = None
+    table = torch.randint(1, num_pages, (n, p), generator=g, device=cuda,
+                          dtype=torch.int32)
+    table[3] = 0                                  # a slot on the null page
+    lengths = torch.tensor([1, 16, 17, 40, 96], device=cuda,
+                           dtype=torch.int32)
+    _close(K.paged_attention(q, kp, vp, table, lengths, k_scales=ks,
+                             v_scales=vs),
+           K.paged_attention_reference(q, kp, vp, table, lengths,
+                                       k_scales=ks, v_scales=vs), dtype)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 8, 2, 64), device=cuda)   # head_dim 64
+    with pytest.raises(ValueError):
+        K.flash_attention_fwd(x, x, x, causal=True)
+    with pytest.raises(ValueError):
+        K.rms_norm(torch.zeros((2, 8), device=cuda, dtype=torch.float16),
+                   torch.ones(8, device=cuda, dtype=torch.float16))
+    q = torch.zeros((1, 16, 128), device=cuda)
+    pages = torch.zeros((3, 16, 1, 128), device=cuda)   # 16 heads per kv
+    with pytest.raises(ValueError):
+        K.paged_attention(q, pages, pages,
+                          torch.ones((1, 1), device=cuda, dtype=torch.int32),
+                          torch.ones(1, device=cuda, dtype=torch.int32))
+
+
+def test_engine_on_card_matches_engine_on_cpu(cuda):
+    """The same f32 model on the card (kernels) and on the CPU (plain
+    versions) gives the same greedy tokens."""
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    on_card = LlamaForCausalLM(cfg, device=cuda,
+                               generator=generator(3, cuda))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, 512, (s,), generator=g).tolist()
+               for s in (3, 17, 40, 9)]
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    K.reset_launch_counts()
+    card = InferenceEngine(on_card, num_slots=3, max_length=128,
+                           decode_block=4).generate_many(prompts, sp)
+    assert all(c > 0 for c in K.LAUNCHES.values())
+    cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
+                          decode_block=4).generate_many(prompts, sp)
+    assert [h.tokens for h in card] == [h.tokens for h in cpu]
