@@ -6,25 +6,43 @@
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
-1. build: compile every kernel of the serving path from
-   `paddle_tpu_torch/csrc/` with nvcc (sm_90a), all sources at once;
+1. build: compile every kernel source under `paddle_tpu_torch/csrc/` with
+   nvcc (sm_90a), all sources at once;
 2. kernels: hold each kernel against its plain PyTorch version on the
-   card, in f32 and bf16, at the serving path's shapes (plus GQA and
-   int8 pages);
+   card, in f32 and bf16, at the serving and training paths' shapes
+   (plus GQA, ragged lengths, int8 pages and ignored CE rows);
 3. consistency: the engine at 2 layers of Llama-2-7B width in f32, greedy;
    each request's first 16 tokens must equal a no-cache full-recompute
    forward of the same model;
-4. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
+4. train consistency: the same width at 2 layers in f32 (TF32 off), one
+   forward and backward of the next-token loss on the card (kernels) and
+   on the CPU (plain versions) with the same weights: the losses and
+   every parameter's gradient must agree, and again on the card with
+   `use_recompute=True`;
+5. train: the JAX bench's `llama2_7b_shape_8L` rung (Llama-2-7B width,
+   8 layers, bf16, recompute, batch 2 x seq 2048, AdamW lr 3e-4 with bf16
+   moments) through `TrainStep`, 2 warm-up and 6 timed steps on 4
+   rotating batches, with every training kernel's launch count read
+   around the timed steps and required to be > 0; then steps on one
+   fixed batch it has not seen: the first loss (held out) must stay near
+   ln(V), as no model that sees only past tokens can predict uniform
+   random tokens, and the loss must then fall by at least
+   OVERFIT_MIN_DROP;
+6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
    the 8-slot paged engine, 12 requests (prompts 13-700 tokens, 32 new
-   tokens; 11 greedy, 1 sampling), with every kernel's launch count read
-   around that run and required to be > 0;
-5. profile: one decode round with every slot busy (wall time, then a
-   torch.profiler breakdown of the next round's device time) and one
-   prefill forward;
-6. timing: each kernel case of phase 2 timed (device time per call from
+   tokens; 11 greedy, 1 sampling), with every serving kernel's launch
+   count read around that run and required to be > 0;
+7. profile: one decode round with every slot busy (wall time, then a
+   torch.profiler breakdown of the next round's device time), one prefill
+   forward, and one training step (forward + backward, then the
+   optimizer update, each profiled);
+8. timing: each kernel case of phase 2 timed (device time per call from
    the profiler, beside CUDA-event time), with its plain version, the one
    PyTorch call that computes the same function where there is one, and
    the card's bound for the same work.
+
+Phases 5 and 6 run before any profiling: once torch.profiler has run in
+a process, every later launch costs the host more.
 
 The last lines are the card's name and power limit, a JSON line with the
 kernel table, and `{"ok": true, "device": {...}}`.
@@ -32,6 +50,7 @@ kernel table, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,18 +69,67 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 REPLACES = {
     'flash_attention_fwd':
         'paddle_tpu/ops/pallas_kernels.py:89 (_flash_fwd_kernel)',
+    'flash_attention_bwd_dq':
+        'paddle_tpu/ops/pallas_kernels.py:226 (_flash_bwd_dq_kernel)',
+    'flash_attention_bwd_dkv':
+        'paddle_tpu/ops/pallas_kernels.py:272 (_flash_bwd_dkv_kernel)',
+    'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
-    'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
+    'softmax_ce_fwd': 'paddle_tpu/ops/pallas_kernels.py:494 (_ce_fwd_kernel)',
+    'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
 }
-SOURCES = {'flash_attention_fwd': 'paddle_tpu_torch/csrc/flash_attention.cu',
-           'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
-           'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu'}
+SOURCES = {
+    'flash_attention_fwd': 'paddle_tpu_torch/csrc/flash_attention.cu',
+    'flash_attention_bwd_dq': 'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'flash_attention_bwd_dkv': 'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
+    'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
+    'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
+}
+SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
+TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv', 'rms_norm', 'softmax_ce_fwd',
+                 'softmax_ce_bwd')
+# training rung: the JAX bench's llama2_7b_shape_8L (bench.py:88-101,
+# _run_config at :116-191)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 2048, 6, 2
+TRAIN_LR = 3e-4
+OVERFIT_STEPS = 10
+OVERFIT_MIN_DROP = 0.5        # nats, first to last loss on one fixed batch
+HELD_OUT_SLACK = 0.5          # nats below ln(V) a held-out loss may fall
+# train consistency (f32, TF32 off): the loss to rel 1e-4, each gradient
+# to a relative norm error of 1e-3 (fp32 sums over 128 tokens in another
+# order on the card and on the CPU)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 DEV = 'cuda'
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _on_card() -> bool:
+    return DEV == 'cuda'
+
+
+def _sync() -> None:
+    if _on_card():
+        torch.cuda.synchronize()
+
+
+def _mem_allocated() -> int:
+    return torch.cuda.memory_allocated() if _on_card() else 0
+
+
+def _reset_peak() -> None:
+    if _on_card():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_mem() -> int:
+    return torch.cuda.max_memory_allocated() if _on_card() else 0
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -126,6 +194,11 @@ def nbytes(*tensors) -> int:
 
 
 def compare(name: str, got, want, dtype) -> float:
+    """Max |kernel - plain| over the output (or each output of a tuple);
+    raises past the dtype's tolerance."""
+    if isinstance(got, tuple):
+        return max(compare(f'{name} [{i}]', g, w, dtype)
+                   for i, (g, w) in enumerate(zip(got, want)))
     atol, rtol = TOL[dtype]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -137,6 +210,15 @@ def compare(name: str, got, want, dtype) -> float:
                              f'{float(err.max()):.3e} exceeds atol {atol} '
                              f'rtol {rtol}')
     return float(err.max())
+
+
+def live_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs attention computes per (batch, head): all of
+    them, or with the bottom-right causal mask those at or below the
+    diagonal."""
+    if not causal:
+        return sq * sk
+    return sq * (sk - sq) + sq * (sq + 1) // 2
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +326,10 @@ def kernel_cases() -> list:
             4 * 128 * h * live_rows,
             rep=dtype == torch.bfloat16 and hkv == 32 and not quant)
 
-    # RMSNorm: decode (8 rows) and prefill (1024 rows), width 4096
+    # RMSNorm: decode (8 rows), prefill (1024 rows) and a training batch
+    # (2 x 2048 rows), width 4096
     for dtype in (torch.float32, torch.bfloat16):
-        for r in (8, 1024):
+        for r in (8, 1024, TRAIN_BATCH * TRAIN_SEQ):
             x = _randn((r, 4096), dtype, gen)
             w = (1 + 0.1 * torch.randn(4096, generator=gen,
                                        device=DEV)).to(dtype)
@@ -257,7 +340,92 @@ def kernel_cases() -> list:
                 lambda x=x, w=w: F.rms_norm(x, (4096,), w, 1e-6),
                 nbytes(x, x, w), 4 * x.numel(),
                 rep=dtype == torch.bfloat16 and r == 1024)
+    _training_cases(add, gen)
     return cases
+
+
+def _training_cases(add, gen) -> None:
+    """The training path's kernels: flash forward with its LSE and the
+    two backward kernels at the training shape (B=2, S=2048, H=32,
+    causal), plus a GQA and a ragged case; the CE forward and backward
+    at [4094, 32000] with ignored rows."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, hkv in ((TRAIN_BATCH, TRAIN_SEQ, 32), (1, 1024, 8),
+                          (1, 1000, 32)):
+            tag = f'{str(dtype)[6:]} B={b} S={s} H=32 HKV={hkv} causal'
+            rep = dtype == torch.bfloat16 and s == TRAIN_SEQ
+            q = _randn((b, s, 32, 128), dtype, gen)
+            k = _randn((b, s, hkv, 128), dtype, gen)
+            v = _randn((b, s, hkv, 128), dtype, gen)
+            dout = _randn((b, s, 32, 128), dtype, gen)
+            out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
+            _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout,
+                                                    True)
+            pairs = b * 32 * live_pairs(s, s, True)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=hkv != 32)
+            dout_t = dout.transpose(1, 2)
+
+            def sdpa_bwd(o=sdpa_out, ins=(qt, kt, vt), g=dout_t):
+                return torch.autograd.grad(o, ins, g, retain_graph=True)
+
+            add('flash_attention_fwd', f'flash fwd+lse {tag}', dtype,
+                lambda q=q, k=k, v=v: K.flash_attention_fwd(
+                    q, k, v, True, return_lse=True),
+                lambda q=q, k=k, v=v: K.attention_reference(
+                    q, k, v, causal=True, return_lse=True),
+                lambda qt=qt, kt=kt, vt=vt, g=hkv != 32:
+                    F.scaled_dot_product_attention(
+                        qt.detach(), kt.detach(), vt.detach(),
+                        is_causal=True, enable_gqa=g),
+                nbytes(q, k, v, q, lse), 2 * 2 * 128 * pairs)
+            add('flash_attention_bwd_dq', f'flash bwd dq {tag}', dtype,
+                lambda a=(q, k, v, out, lse, dout):
+                    K.flash_attention_bwd_dq(*a, True),
+                lambda a=(q, k, v, out, lse, dout):
+                    K.attention_bwd_dq_reference(*a, True),
+                sdpa_bwd,
+                nbytes(q, k, v, out, dout, lse, q, delta),
+                3 * 2 * 128 * pairs, rep=rep)
+            add('flash_attention_bwd_dkv', f'flash bwd dk/dv {tag}', dtype,
+                lambda a=(q, k, v, lse, delta, dout):
+                    K.flash_attention_bwd_dkv(*a, True),
+                lambda a=(q, k, v, lse, delta, dout):
+                    K.attention_bwd_dkv_reference(*a, True),
+                sdpa_bwd,
+                nbytes(q, k, v, dout, lse, delta, k, v),
+                4 * 2 * 128 * pairs, rep=rep)
+
+    n, vocab = TRAIN_BATCH * (TRAIN_SEQ - 1), 32000
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (3 * torch.randn((n, vocab), generator=gen, device=DEV)).to(dtype)
+        lab = torch.randint(0, vocab, (n,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+        lab[::7] = 0                        # ignored rows: safe label 0 ...
+        g = torch.full((n,), 1.0 / n, device=DEV)
+        g[::7] = 0.0                        # ... and no gradient
+        _, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+        xg = x.detach().requires_grad_()
+        lab64 = lab.long()
+        lib_nll = F.cross_entropy(xg, lab64, reduction='none')
+        tag = f'{str(dtype)[6:]} N={n} V={vocab}'
+        rep = dtype == torch.bfloat16
+        add('softmax_ce_fwd', f'ce fwd {tag}', dtype,
+            lambda x=x, lab=lab: K.softmax_cross_entropy_fwd(x, lab),
+            lambda x=x, lab=lab: K.softmax_cross_entropy_fwd_reference(x, lab),
+            lambda x=x, lab=lab64: F.cross_entropy(x, lab, reduction='none'),
+            nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep)
+        add('softmax_ce_bwd', f'ce bwd {tag}', dtype,
+            lambda a=(x, lab, lse, g): K.softmax_cross_entropy_bwd(*a),
+            lambda a=(x, lab, lse, g):
+                K.softmax_cross_entropy_bwd_reference(*a),
+            lambda o=lib_nll, x=xg, g=g:
+                torch.autograd.grad(o, x, g, retain_graph=True),
+            nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
 
 
 def check_kernels(cases) -> None:
@@ -330,7 +498,182 @@ def check_consistency(cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve Llama-2-7B
+# phase 4: training on the card against training on the CPU
+# ---------------------------------------------------------------------------
+
+def next_token_loss(logits, labels):
+    """The JAX bench's loss (bench.py:_run_config): predict token t+1
+    from positions <= t."""
+    from paddle_tpu_torch.nn import functional as PF
+    vocab = logits.shape[-1]
+    return PF.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                            labels[:, 1:].reshape(-1))
+
+
+def _loss_and_grads(model, ids):
+    x = torch.as_tensor(ids, device=model.device)
+    loss = next_token_loss(model(x), x)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """{name: |got - want| / |want|} (Frobenius norms, on got's device)."""
+    out = {}
+    for name, w in want.items():
+        w = w.to(got[name].device, torch.float64)
+        out[name] = float((got[name].double() - w).norm() / w.norm())
+    return out
+
+
+def check_train_consistency(cfg) -> None:
+    """One forward + backward of the next-token loss at 2 layers of
+    Llama-2-7B width in f32 (TF32 off): on the card (kernels) and on the
+    CPU (plain versions) with the same weights, then on the card with
+    use_recompute=True. Fatal if the losses or any gradient disagree."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(5, DEV))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu', dtype='float32')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            model.state_dict().items()})
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (1, 128))
+    loss_card, g_card = _loss_and_grads(model, ids)
+    loss_cpu, g_cpu = _loss_and_grads(on_cpu, ids)
+    del on_cpu
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    errs = _grad_errors(g_card, g_cpu)
+    worst = max(errs, key=errs.get)
+    log(f'[train-consistency] 2 layers f32, 1 x 128 tokens: loss card '
+        f'{loss_card:.6f} cpu {loss_cpu:.6f} (rel {rel:.2e}, limit '
+        f'{TRAIN_LOSS_RTOL}); worst gradient rel error {errs[worst]:.2e} '
+        f'({worst}; limit {TRAIN_GRAD_RTOL})')
+    if rel > TRAIN_LOSS_RTOL or errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError('train consistency: card and CPU disagree')
+    model.config.use_recompute = True
+    loss_remat, g_remat = _loss_and_grads(model, ids)
+    errs = _grad_errors(g_remat, g_card)
+    worst = max(errs, key=errs.get)
+    log(f'[train-consistency] use_recompute=True on the card: loss '
+        f'{loss_remat:.6f}, worst gradient rel error vs no recompute '
+        f'{errs[worst]:.2e} ({worst}) in {time.perf_counter() - t0:.1f} s')
+    if abs(loss_remat - loss_card) > TRAIN_LOSS_RTOL * abs(loss_card) \
+            or errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError('train consistency: recompute changes the '
+                             'gradients')
+    del model, g_card, g_cpu, g_remat
+    if _on_card():
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train the llama2_7b_shape_8L rung
+# ---------------------------------------------------------------------------
+
+def train_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """bench.py:169-180: 3x the forward's weight-matmul and attention
+    flops (recompute not counted)."""
+    h, layers = cfg.hidden_size, cfg.num_hidden_layers
+    qkvo = h * (cfg.num_attention_heads * cfg.head_dim) * 2 \
+        + h * (cfg.num_key_value_heads * cfg.head_dim) * 2
+    n_matmul = layers * (qkvo + 3 * h * cfg.intermediate_size) \
+        + h * cfg.vocab_size
+    fwd = 2 * n_matmul * batch * seq + layers * 4 * batch * seq * seq * h
+    return 3 * fwd
+
+
+def train(cfg) -> dict:
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    _sync()
+    base = _mem_allocated()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(0, DEV))
+    n_params = sum(p.numel() for p in model.parameters())
+    big = n_params > 1e9            # bench.py: bf16 moments above 1e9
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                multi_precision=not big,
+                moment_dtype='bfloat16' if big else None)
+    step = TrainStep(model, next_token_loss, opt)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+               for _ in range(4)]
+    log(f'[train] Llama {cfg.num_hidden_layers} layers x '
+        f'{cfg.hidden_size}, {n_params / 1e9:.3f} B params bf16, '
+        f'recompute {cfg.use_recompute}, AdamW lr {TRAIN_LR} moments '
+        f'{"bf16" if big else "fp32"}, batch {TRAIN_BATCH} x {TRAIN_SEQ}; '
+        f'built in {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        loss = step(batches[i % 4], batches[i % 4])
+    warm = float(loss)
+    log(f'[train] {TRAIN_WARMUP} warm-up steps in '
+        f'{time.perf_counter() - t0:.2f} s, loss {warm:.4f}')
+    _reset_peak()
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss = step(batches[i % 4], batches[i % 4])
+    final = float(loss)             # waits for the last step
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(K.LAUNCHES)
+    peak = _peak_mem()
+
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f'train: kernels never launched on the main '
+                             f'path: {missing}')
+    if not np.isfinite(final):
+        raise AssertionError(f'train: loss {final} is not finite')
+    flops = train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    res = {'step_s': dt, 'tokens_per_s': TRAIN_BATCH * TRAIN_SEQ / dt,
+           'mfu': flops / dt / PEAK_OPS_PER_S[torch.bfloat16],
+           'loss': final, 'peak_mem_gb': (peak - base) / 1e9,
+           'peak_mem_raw_gb': peak / 1e9, 'launches': launches,
+           'params_b': n_params / 1e9}
+    log(f'[train] {TRAIN_STEPS} steps: {dt * 1e3:.1f} ms/step, '
+        f'{res["tokens_per_s"]:.0f} tokens/s, MFU {res["mfu"]:.4f} '
+        f'(bench.py FLOP count {flops / 1e12:.1f} TFLOP/step vs 989 '
+        f'TFLOP/s), loss {final:.4f}, peak device memory '
+        f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
+        f'before the phase ({res["peak_mem_raw_gb"]:.2f} GB in all)')
+    log(f'[train] kernel launches on the timed steps: {launches}')
+
+    # a fifth batch, never trained on: its first loss is held out. The
+    # tokens are uniform and independent, so a model that sees no future
+    # token cannot beat ln(V) on them (a causal-mask leak would)
+    fixed = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    losses = [float(step(fixed, fixed)) for _ in range(OVERFIT_STEPS)]
+    floor = math.log(cfg.vocab_size) - HELD_OUT_SLACK
+    drop = losses[0] - losses[-1]
+    log(f'[train] one fixed unseen batch: held-out loss {losses[0]:.4f} '
+        f'(required >= ln(V) - {HELD_OUT_SLACK} = {floor:.4f}), then '
+        + ' '.join(f'{x:.4f}' for x in losses[1:])
+        + f'; drop {drop:.4f} nats (required >= {OVERFIT_MIN_DROP})')
+    if not all(np.isfinite(losses)) or losses[0] < floor:
+        raise AssertionError(f'train: held-out loss {losses[0]:.4f} below '
+                             f'{floor:.4f}: the model sees future tokens')
+    if drop < OVERFIT_MIN_DROP:
+        raise AssertionError(f'train: the loss on one fixed batch fell by '
+                             f'{drop:.4f} < {OVERFIT_MIN_DROP} nats')
+    res.update(overfit_losses=losses, step=step, batch=fixed)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve Llama-2-7B
 # ---------------------------------------------------------------------------
 
 def serve(cfg) -> dict:
@@ -339,6 +682,8 @@ def serve(cfg) -> dict:
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import (FINISHED, SAMPLING,
                                           InferenceEngine, SamplingParams)
+    _sync()
+    base = _mem_allocated()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
                              generator=ptt.generator(1234, DEV))
@@ -360,12 +705,13 @@ def serve(cfg) -> dict:
     eng.generate_many([prompts[0][:8]],
                       SamplingParams(max_new_tokens=8, eos_token_id=-1))
     eng.reset_stats()
+    _reset_peak()
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
     handles = eng.generate_many(prompts, params)
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
 
     st = eng.stats()
     for h in handles:
@@ -391,8 +737,7 @@ def serve(cfg) -> dict:
         'decode_steps': st['decode_steps'],
         'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
         'ttft_p50_s': ttft[len(ttft) // 2],
-        'peak_mem_gb': (torch.cuda.max_memory_allocated() / 1e9
-                        if DEV == 'cuda' else None),
+        'peak_mem_gb': (_peak_mem() - base) / 1e9,
         'launches': launches,
     }
     log(f'[serve] {len(handles)} requests in {wall:.2f} s: prefill '
@@ -402,36 +747,43 @@ def serve(cfg) -> dict:
         f'{st["decode_seconds"]:.3f} s, {st["decode_rounds"]} rounds), TTFT '
         f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
         f'{res["ttft_max_s"]:.3f} s, peak device memory '
-        f'{res["peak_mem_gb"]} GB')
+        f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
+        f'before the phase')
     log(f'[serve] kernel launches on this run: {launches}')
     res.update(engine=eng, prompts=prompts)
     return res
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where the serving time goes (torch.profiler, device activity)
+# phase 7: where the time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
 
 _GROUPS = (('paged_attention', ('paged_attn_kernel',)),
+           ('flash_attention_bwd', ('flash_bwd_dq_kernel',
+                                    'flash_bwd_dkv_kernel')),
            ('flash_attention', ('flash_fwd_kernel',)),
+           ('cross_entropy', ('ce_fwd_kernel', 'ce_bwd_kernel')),
            ('rms_norm', ('rms_norm_kernel',)),
            ('matmul', ('gemm', 'gemv', 'xmma', 'cutlass', 'splitk',
                        'nvjet')))
 
 
-def _breakdown(prof, wall_s: float, label: str) -> None:
-    """Log a profiled window: device time by group and the top kernels,
-    and the device's idle share of `wall_s`."""
+def _breakdown(windows, wall_s: float, label: str) -> None:
+    """Log profiled windows [(prof, group or None)]: device time by group
+    (a window with a group puts all its device time there; otherwise
+    kernels are grouped by name) and the top kernels, and the device's
+    idle share of `wall_s`."""
     groups, names = {}, {}
-    for e in _device_events(prof):
-        ms = e.time_range.elapsed_us() / 1e3
-        low = e.name.lower()
-        g = next((g for g, keys in _GROUPS
-                  if any(k in low for k in keys)), 'other')
-        for table, key in ((groups, g), (names, e.name[:70])):
-            c = table.setdefault(key, [0, 0.0])
-            c[0] += 1
-            c[1] += ms
+    for prof, forced in windows:
+        for e in _device_events(prof):
+            ms = e.time_range.elapsed_us() / 1e3
+            low = e.name.lower()
+            g = forced or next((g for g, keys in _GROUPS
+                                if any(k in low for k in keys)), 'other')
+            for table, key in ((groups, g), (names, e.name[:70])):
+                c = table.setdefault(key, [0, 0.0])
+                c[0] += 1
+                c[1] += ms
     busy = sum(v[1] for v in groups.values())
     if not busy:
         log(f'[profile] {label}: the profiler recorded no device time '
@@ -440,7 +792,7 @@ def _breakdown(prof, wall_s: float, label: str) -> None:
     log(f'[profile] {label}: wall {wall_s * 1e3:.2f} ms, device busy '
         f'{busy:.2f} ms, idle share {1 - busy / (wall_s * 1e3):.3f}')
     for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
-        log(f'[profile]   {g:16s} {n:6d} launches {ms:9.3f} ms')
+        log(f'[profile]   {g:20s} {n:6d} launches {ms:9.3f} ms')
     for name, (n, ms) in sorted(names.items(),
                                 key=lambda kv: -kv[1][1])[:8]:
         log(f'[profile]   top: {ms:8.3f} ms {n:5d}x {name}')
@@ -462,8 +814,9 @@ def profile_serve(eng, prompts) -> None:
         t0 = time.perf_counter()
         eng.step()              # the next decode round, profiled
         wall_prof = time.perf_counter() - t0
-    _breakdown(prof, wall, f'decode round ({eng.pool.num_slots} slots x '
-                           f'{eng.decode_block} sub-steps)')
+    _breakdown([(prof, None)], wall,
+               f'decode round ({eng.pool.num_slots} slots x '
+               f'{eng.decode_block} sub-steps)')
     log(f'[profile]   (the profiled round took {wall_prof * 1e3:.2f} ms; '
         f'the idle share uses the unprofiled round)')
     eng.run()
@@ -478,8 +831,35 @@ def profile_serve(eng, prompts) -> None:
             eng.model.prefill_kv(ids)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _breakdown(prof, wall, f'prefill forward, bucket {bucket} '
-                           f'({len(prompts[1])} prompt tokens)')
+    _breakdown([(prof, None)], wall, f'prefill forward, bucket {bucket} '
+                                     f'({len(prompts[1])} prompt tokens)')
+
+
+def profile_train(step, batch, step_s: float) -> None:
+    """One training step of the train phase's model in two profiled
+    windows: the forward and backward, and the optimizer update (whose
+    elementwise kernels have no name of their own). The idle share is
+    taken against `step_s`, the step time measured before any profiling
+    (a step run after the profiler has been used costs the host more;
+    its wall is logged beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync()
+    t0 = time.perf_counter()
+    float(step(batch, batch))
+    wall_now = time.perf_counter() - t0
+    x = torch.as_tensor(batch, device=DEV)
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd_bwd:
+        next_token_loss(step.layer(x), x).backward()
+        _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as update:
+        step.optimizer.step()
+        step.optimizer.clear_grad()
+        _sync()
+    _breakdown([(fwd_bwd, None), (update, 'optimizer')], step_s,
+               f'training step (batch {TRAIN_BATCH} x {TRAIN_SEQ}; wall = '
+               f'the train phase\'s step time)')
+    log(f'[profile]   (an unprofiled step run now, after the serve '
+        f'profile, took {wall_now * 1e3:.2f} ms)')
 
 
 def main() -> int:
@@ -489,24 +869,34 @@ def main() -> int:
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
     log(f'[env] torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
+    # every comparison below runs fp32 products in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log('[env] TF32 off for matmul and cuDNN')
     t0 = time.perf_counter()
     build()
     cases = kernel_cases()
     check_kernels(cases)
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    trained = train(LlamaConfig.llama2_7b(num_hidden_layers=8,
+                                          use_recompute=True))
     res = serve(LlamaConfig.llama2_7b())
     profile_serve(res['engine'], res['prompts'])
+    profile_train(trained['step'], trained['batch'], trained['step_s'])
     rows = time_kernels(cases)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     table = []
-    for name in ('flash_attention_fwd', 'paged_attention', 'rms_norm'):
+    for name in REPLACES:
         r = rows[name]
+        launches = (res['launches'].get(name, 0)
+                    + trained['launches'].get(name, 0))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
-            'replaces': REPLACES[name], 'launches': res['launches'][name],
+            'replaces': REPLACES[name], 'launches': launches,
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],

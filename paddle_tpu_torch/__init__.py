@@ -7,11 +7,14 @@ Paddle-style names. It imports torch and never jax, nor anything of
 is, on this package's path, a kernel written by hand for Hopper
 (`ops/kernels.py`, sources under `csrc/`).
 
-This slice serves Llama through the paged continuous-batching engine:
-`nlp.LlamaForCausalLM` + `serving.InferenceEngine`.
+It serves Llama through the paged continuous-batching engine
+(`nlp.LlamaForCausalLM` + `serving.InferenceEngine`) and trains it
+(`jit.TrainStep` + `optimizer.AdamW`, with `F.cross_entropy` and
+`use_recompute`).
 """
-from . import dtype, framework, nlp, nn, ops, serving, weights
+from . import (dtype, framework, jit, nlp, nn, ops, optimizer, serving,
+               weights)
 from .framework import generator, resolve_device, seed
 
-__all__ = ['dtype', 'framework', 'nlp', 'nn', 'ops', 'serving', 'weights',
-           'generator', 'resolve_device', 'seed']
+__all__ = ['dtype', 'framework', 'jit', 'nlp', 'nn', 'ops', 'optimizer',
+           'serving', 'weights', 'generator', 'resolve_device', 'seed']

@@ -7,7 +7,10 @@
 // JAX package's _attention_xla convention and equals the Pallas kernel's
 // top-left one when Sq == Sk), GQA by reading kv head h / G directly
 // (no repeat copy), fp32 statistics and accumulators, output in the
-// input dtype.
+// input dtype. With a non-null `lse` it also writes each row's fp32
+// logsumexp of the scaled logits, m + log(l), as [B, H, Sq] contiguous
+// (the training path's residual; the Pallas kernel's [B, H, Sq, 128]
+// lane-replicated layout is TPU tiling and is not carried over).
 //
 // Bound on the H100: at the serving path's prefill shapes (S <= 1024,
 // 32 heads) the causal work is 2 * 2 * D * S(S+1)/2 flops per head,
@@ -45,6 +48,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] or null
   int sq, sk, h, hkv;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -213,6 +217,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 8; ++j)
       orow[tx + 16 * j] = ptt_from_float<T>(acc[i][j] * inv_l);
   }
+  if (a.lse != nullptr && tid < kBQ && q0 + tid < a.sq) {
+    a.lse[(static_cast<int64_t>(b) * a.h + h) * a.sq + q0 + tid] =
+        m_s[tid] + logf(l_s[tid]);
+  }
 }
 
 template <typename T>
@@ -231,14 +239,15 @@ int launch(const FlashArgs& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 PTT_EXPORT int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int batch, int sq,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int batch, int sq,
     int sk, int h, int hkv, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, int causal, int dtype, void* stream) {
-  FlashArgs a{q,    k,    v,    o,    sq,   sk,   h,    hkv,   q_sb, q_ss,
-              q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,  o_ss, o_sh,
-              scale, causal};
+  FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
+              sq,   sk,   h,    hkv,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+              v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == PTT_F32) return launch<float>(a, batch, s);
   if (dtype == PTT_BF16) return launch<__nv_bfloat16>(a, batch, s);

@@ -10,12 +10,19 @@ Two forward modes:
   pending token sits at `position_offset[n]`: its K/V rows are written
   into the slot's pages and it attends through the paged-attention
   kernel to positions [0, position_offset[n]].
+
+Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
+(loss, logits) with the loss from `F.cross_entropy` (the fused CE
+kernels), and `config.use_recompute=True` recomputes each decoder layer
+in the backward (`torch.utils.checkpoint`), trading one more forward of
+each layer for holding only the layer inputs.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import dtype as _dtype
 from ..framework import resolve_device
@@ -35,7 +42,13 @@ class LlamaConfig:
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-6,
                  rope_theta=10000.0, tie_word_embeddings=False,
-                 pad_token_id=0, bos_token_id=1, eos_token_id=2, **kwargs):
+                 pad_token_id=0, bos_token_id=1, eos_token_id=2,
+                 use_recompute=False, **kwargs):
+        if isinstance(use_recompute, str):
+            raise NotImplementedError(
+                f'use_recompute={use_recompute!r}: selective recompute '
+                f'policies are not ported yet (ROADMAP.md, Queue 1); use '
+                f'True (whole decoder layers) or False')
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -49,6 +62,7 @@ class LlamaConfig:
         self.pad_token_id = pad_token_id
         self.bos_token_id = bos_token_id
         self.eos_token_id = eos_token_id
+        self.use_recompute = bool(use_recompute)
         for k, v in kwargs.items():
             setattr(self, k, v)
 
@@ -198,13 +212,23 @@ class LlamaModel(Layer):
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
                 table=None) -> Tuple[torch.Tensor, List[tuple]]:
-        """Returns (final hidden states, per-layer (k, v) new rows)."""
+        """Returns (final hidden states, per-layer (k, v) new rows).
+
+        With `config.use_recompute` and grad enabled (training, no pages)
+        each layer runs under `torch.utils.checkpoint`: its activations
+        are dropped after the forward and recomputed in the backward."""
         h = self.embed_tokens(input_ids)
+        remat = (self.config.use_recompute and kv_pages is None
+                 and torch.is_grad_enabled())
         kvs = []
         for i, layer in enumerate(self.layers):
-            h, kv = layer(h, position_offset=position_offset,
-                          kv_pages=None if kv_pages is None else kv_pages[i],
-                          table=table)
+            if remat:
+                h, kv = checkpoint(layer, h, position_offset,
+                                   use_reentrant=False)
+            else:
+                h, kv = layer(h, position_offset=position_offset,
+                              kv_pages=None if kv_pages is None
+                              else kv_pages[i], table=table)
             kvs.append(kv)
         return self.norm(h), kvs
 
@@ -234,11 +258,19 @@ class LlamaForCausalLM(Layer):
         return self.llama.embed_tokens.weight.dtype
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
-                table=None):
-        """Logits [B, S, V]; see the module docstring for the two modes."""
+                table=None, labels=None):
+        """Logits [B, S, V]; see the module docstring for the two modes.
+        With `labels` [B, S] returns (loss, logits), the loss being the
+        mean cross-entropy of every position against its label (no
+        shift, as in the JAX package)."""
         h, _ = self.llama(input_ids, position_offset=position_offset,
                           kv_pages=kv_pages, table=table)
-        return self.lm_head(h)
+        logits = self.lm_head(h)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1))
+        return loss, logits
 
     def prefill_kv(self, input_ids) -> List[tuple]:
         """The serving engine's prefill: the causal no-cache forward of a

@@ -1,6 +1,8 @@
 from . import functional
 from .common_layers import Embedding, Linear
 from .layer import Layer
+from .loss_layers import CrossEntropyLoss
 from .norm import RMSNorm
 
-__all__ = ['functional', 'Embedding', 'Layer', 'Linear', 'RMSNorm']
+__all__ = ['functional', 'CrossEntropyLoss', 'Embedding', 'Layer', 'Linear',
+           'RMSNorm']

@@ -3,7 +3,9 @@
 A `torch.nn.Module` whose parameters are created directly on their
 device and dtype, with Paddle's layouts, so that `state_dict()` has the
 JAX package's key names and shapes (`llama.layers.0.self_attn.q_proj.weight`
-is `[in, out]` in both) and weights copy across by name.
+is `[in, out]` in both) and weights copy across by name. Parameters are
+trainable, as Paddle's are (`stop_gradient=False`); the serving engine
+runs under `torch.inference_mode`.
 """
 from __future__ import annotations
 
@@ -29,4 +31,4 @@ class Layer(nn.Module):
                 t.fill_(fill)
             else:
                 t.normal_(0.0, std, generator=generator)
-        return nn.Parameter(t, requires_grad=False)
+        return nn.Parameter(t)

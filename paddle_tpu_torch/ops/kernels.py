@@ -1,12 +1,22 @@
 """The port's kernels: wrappers, plain versions and launch counts.
 
 Counterpart of `paddle_tpu/ops/pallas_kernels.py`. Each TPU kernel on
-the serving path has a hand-written Hopper kernel here (CUDA C++ under
-`paddle_tpu_torch/csrc/`, built by `ops/_build.py`):
+the serving and training paths has a hand-written Hopper kernel here
+(CUDA C++ under `paddle_tpu_torch/csrc/`, built by `ops/_build.py`):
 
-- `flash_attention_fwd` replaces `_flash_fwd_kernel`,
+- `flash_attention_fwd` replaces `_flash_fwd_kernel` (with the LSE),
+- `flash_attention_bwd_dq` replaces `_flash_bwd_dq_kernel`,
+- `flash_attention_bwd_dkv` replaces `_flash_bwd_dkv_kernel`,
 - `paged_attention` replaces `_paged_attn_kernel`,
-- `rms_norm` replaces `_rms_fwd_kernel`.
+- `rms_norm_fwd` replaces `_rms_fwd_kernel`,
+- `softmax_cross_entropy_fwd` replaces `_ce_fwd_kernel`,
+- `softmax_cross_entropy_bwd` replaces `_ce_bwd_kernel`.
+
+The gradients are `torch.autograd.Function`s around them, the
+counterparts of the JAX package's custom VJPs: `FlashAttention`
+(`flash_attention_own`), `SoftmaxCrossEntropy` (`softmax_cross_entropy`)
+and `RMSNormFunction`, whose backward is plain torch because the JAX
+model's RMSNorm backward is XLA code, not a Pallas kernel.
 
 Beside each wrapper sits its plain PyTorch version (`*_reference`), the
 same function written as tensor code. A wrapper takes the plain version
@@ -31,7 +41,9 @@ from . import _build
 # the JAX package's masked-logit value (jnp.finfo(float32).min)
 NEG_INF = torch.finfo(torch.float32).min
 
-LAUNCHES = {'flash_attention_fwd': 0, 'paged_attention': 0, 'rms_norm': 0}
+LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
+            'flash_attention_bwd_dkv': 0, 'paged_attention': 0,
+            'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
@@ -43,8 +55,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
     'rms_norm_fwd': [_P, _P, _P, _I, _I, _F, _I, _P],
-    'flash_attention_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_F, _I, _I, _P],
+    'flash_attention_fwd': [_P] * 5 + [_I] * 5 + [_L] * 12
+    + [_F, _I, _I, _P],
+    'flash_attention_bwd_dq': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
+    'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
     'paged_attention_fwd': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
@@ -87,6 +103,11 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
@@ -100,9 +121,10 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * weight
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim of x (any leading shape), weight [width]."""
+def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim of x (any leading shape), weight [width],
+    through the kernel (no gradient)."""
     if _on_cpu(x, weight):
         return rms_norm_reference(x, weight, eps)
     width = x.shape[-1]
@@ -124,19 +146,62 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def rms_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                           g: torch.Tensor, eps: float = 1e-6):
+    """(dx, dweight) of `rms_norm_reference`, in its order of rounding:
+    the weight product's gradients in x.dtype, then the normalisation's
+    in fp32 (what `jax.grad` of the JAX model's `F.rms_norm` computes)."""
+    width = x.shape[-1]
+    xf = x.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    normed = (xf * inv).to(x.dtype)
+    dw = (g * normed).reshape(-1, width).sum(dim=0)
+    dn = (g * weight).float()
+    dx = inv * dn - xf * (inv ** 3 / width) * (dn * xf).sum(dim=-1,
+                                                           keepdim=True)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """Differentiable RMSNorm: the forward kernel, and the plain backward
+    (the JAX model differentiates its RMSNorm with XLA, not a kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rms_norm_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd_reference(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim of x, differentiable when a gradient is
+    needed (`RMSNormFunction`), else the forward kernel alone."""
+    if _needs_grad(x, weight):
+        return RMSNormFunction.apply(x, weight, eps)
+    return rms_norm_fwd(x, weight, eps)
+
+
 # ---------------------------------------------------------------------------
 # flash attention forward
 # ---------------------------------------------------------------------------
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        causal: bool = False) -> torch.Tensor:
+                        causal: bool = False, return_lse: bool = False):
     """Plain version, the JAX package's `_attention_xla` in torch.
 
     q [B, Sq, H, D], k/v [B, Sk, HKV, D]. GQA repeats kv heads as
     [HKV, G]; logits and softmax in fp32; the causal mask is aligned
     bottom-right; probabilities are cast to q.dtype before PV. A boolean
-    mask keeps True entries, another mask is added to the logits."""
+    mask keeps True entries, another mask is added to the logits. With
+    `return_lse` also returns the fp32 logsumexp of the logits [B, H, Sq]."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hkv != h:
@@ -154,14 +219,20 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum('bhqk,bkhd->bqhd', probs.to(q.dtype), v)
+    out = torch.einsum('bhqk,bkhd->bqhd', probs.to(q.dtype), v)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False) -> torch.Tensor:
-    """Attention over [B, S, H, D] (strided; the last dim contiguous)."""
+                        causal: bool = False, return_lse: bool = False):
+    """Attention over [B, S, H, D] (strided; the last dim contiguous).
+    With `return_lse` returns (out, lse) with the fp32 logsumexp of each
+    row's scaled logits as [B, H, Sq], the backward's residual."""
     if _on_cpu(q, k, v):
-        return attention_reference(q, k, v, causal=causal)
+        return attention_reference(q, k, v, causal=causal,
+                                   return_lse=return_lse)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     _require(q.dtype in (torch.float32, torch.bfloat16)
@@ -177,11 +248,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              'flash kernel needs the head dim contiguous')
     _require(not causal or sq <= sk, 'causal flash needs sq <= sk')
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib, fn = _entry('flash_attention', 'flash_attention_fwd')
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, sq, sk, h, hkv,
+            lse.data_ptr() if return_lse else None, b, sq, sk, h, hkv,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -190,7 +263,175 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _stream(q))
     _build.check(lib, rc, 'flash_attention_fwd')
     LAUNCHES['flash_attention_fwd'] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+def _bwd_terms(q, k, v, lse, dout, delta, causal):
+    """P and dS of the FlashAttention-2 backward in fp32, [B, H, Sq, Sk],
+    with K/V repeated over each GQA group: P = exp(S * scale - lse),
+    dS = P * (dO V^T - delta) * scale."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    if hkv != h:
+        kf = kf.repeat_interleave(h // hkv, dim=2)
+        vf = vf.repeat_interleave(h // hkv, dim=2)
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = q.float(), dout.float()
+    s = torch.einsum('bqhd,bkhd->bhqk', qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        idx_q = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        idx_k = torch.arange(sk, device=q.device)[None, :]
+        p = p.masked_fill(idx_k > idx_q, 0.0)
+    dp = torch.einsum('bqhd,bkhd->bhqk', dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, qf, kf, dof
+
+
+def _fold_group(t: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[B, Sk, H, D] per query head -> [B, Sk, HKV, D] summed over each
+    kv head's group of H / HKV query heads."""
+    b, sk, h, d = t.shape
+    return t.reshape(b, sk, hkv, h // hkv, d).sum(dim=3)
+
+
+def attention_bwd_dq_reference(q, k, v, out, lse, dout, causal=False):
+    """Plain version of the dq kernel: (dq in q.dtype, delta [B, H, Sq]
+    fp32 with delta = rowsum(dO * O))."""
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    _, ds, _, kf, _ = _bwd_terms(q, k, v, lse, dout, delta, causal)
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, kf)
+    return dq.to(q.dtype), delta.contiguous()
+
+
+def attention_bwd_dkv_reference(q, k, v, lse, delta, dout, causal=False):
+    """Plain version of the dk/dv kernel: (dk, dv) per kv head, each
+    summed over its query group, in k.dtype."""
+    p, ds, qf, _, dof = _bwd_terms(q, k, v, lse, dout, delta, causal)
+    hkv = k.shape[2]
+    dk = _fold_group(torch.einsum('bhqk,bqhd->bkhd', ds, qf), hkv)
+    dv = _fold_group(torch.einsum('bhqk,bqhd->bkhd', p, dof), hkv)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_reference(q, k, v, out, lse, dout, causal=False):
+    """Plain version of the flash backward: the FlashAttention-2
+    arithmetic in torch, with P recomputed from the LSE. Returns
+    (dq, dk, dv) in [B, S, H(KV), D] and the input dtype."""
+    dq, delta = attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
+    dk, dv = attention_bwd_dkv_reference(q, k, v, lse, delta, dout, causal)
+    return dq, dk, dv
+
+
+def _check_bwd(q, k, v, lse, dout, causal):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    _require(q.dtype in (torch.float32, torch.bfloat16)
+             and all(t.dtype == q.dtype for t in (k, v, dout)),
+             'flash backward takes q, k, v, dout all f32 or all bf16')
+    _require(d == _HEAD_DIM and k.shape[3] == d
+             and tuple(v.shape) == tuple(k.shape) and k.shape[0] == b
+             and hkv >= 1 and h % hkv == 0
+             and tuple(dout.shape) == tuple(q.shape),
+             f'flash backward shapes q {tuple(q.shape)} k {tuple(k.shape)} '
+             f'v {tuple(v.shape)} dout {tuple(dout.shape)} (head_dim '
+             f'{_HEAD_DIM})')
+    _require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, sq),
+             'flash backward takes lse as f32 [B, H, Sq]')
+    _require(all(t.is_contiguous() for t in (q, k, v, lse, dout)),
+             'flash backward takes contiguous tensors')
+    _require(not causal or sq <= sk, 'causal flash needs sq <= sk')
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
+    """The dq kernel: (dq [B, Sq, H, D] in q.dtype, delta [B, H, Sq]
+    fp32). Contiguous inputs; out and lse from `flash_attention_fwd`."""
+    if _on_cpu(q, k, v, out, lse, dout):
+        return attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
+    _check_bwd(q, k, v, lse, dout, causal)
+    _require(tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype
+             and out.is_contiguous(), 'flash backward: out like q')
+    b, sq, h, _ = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    lib, fn = _entry('flash_attention_bwd', 'flash_attention_bwd_dq')
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
+            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check(lib, rc, 'flash_attention_bwd_dq')
+    LAUNCHES['flash_attention_bwd_dq'] += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
+    """The dk/dv kernel: (dk, dv) [B, Sk, HKV, D] in k.dtype, each summed
+    over its kv head's query group. `delta` comes from the dq kernel."""
+    if _on_cpu(q, k, v, lse, delta, dout):
+        return attention_bwd_dkv_reference(q, k, v, lse, delta, dout,
+                                           causal)
+    _check_bwd(q, k, v, lse, dout, causal)
+    _require(delta.dtype == torch.float32 and delta.shape == lse.shape
+             and delta.is_contiguous(),
+             'flash backward takes delta as f32 [B, H, Sq]')
+    b, sq, h, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0 or sq == 0:
+        return dk.zero_(), dv.zero_()
+    lib, fn = _entry('flash_attention_bwd', 'flash_attention_bwd_dkv')
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
+            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
+    _build.check(lib, rc, 'flash_attention_bwd_dkv')
+    LAUNCHES['flash_attention_bwd_dkv'] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False):
+    """(dq, dk, dv) of flash attention, [B, S, H(KV), D] in the input
+    dtype: the dq kernel (which also computes delta), then the dk/dv
+    kernel. Contiguous inputs."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over [B, S, H, D] (counterpart of
+    the JAX package's `flash_attention_own` custom VJP): the forward
+    kernel with its LSE, and the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
+    """Flash attention over [B, S, H, D]: differentiable through
+    `FlashAttention` when a gradient is needed, else the forward kernel
+    alone (no LSE written)."""
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_fwd(q, k, v, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -285,3 +526,116 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     _build.check(lib, rc, 'paged_attention_fwd')
     LAUNCHES['paged_attention'] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy_fwd_reference(logits: torch.Tensor,
+                                        labels: torch.Tensor):
+    """Plain version of the CE forward: (nll [N], lse [N]) in fp32. A
+    label outside [0, V) has no target logit (nll = lse)."""
+    v = logits.shape[-1]
+    xf = logits.float()
+    lse = torch.logsumexp(xf, dim=-1)
+    lab = labels.long()
+    hit = (lab >= 0) & (lab < v)
+    target = xf.gather(1, lab.clamp(0, max(v - 1, 0))[:, None])[:, 0]
+    return lse - torch.where(hit, target, 0.0), lse
+
+
+def softmax_cross_entropy_bwd_reference(logits, labels, lse, g):
+    """Plain version of the CE backward: (softmax - onehot) * g in fp32,
+    in the logits dtype."""
+    xf = logits.float()
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (cols[None, :] == labels.long()[:, None]).float()
+    dx = (torch.exp(xf - lse[:, None]) - onehot) * g[:, None]
+    return dx.to(logits.dtype)
+
+
+def _check_ce(logits, labels):
+    _require(logits.dim() == 2 and logits.shape[1] >= 1,
+             f'CE kernel takes logits [N, V >= 1], got {tuple(logits.shape)}')
+    n, v = logits.shape
+    _require(logits.dtype in (torch.float32, torch.bfloat16),
+             f'CE kernel takes f32 or bf16 logits, got {logits.dtype}')
+    _require(labels.dtype == torch.int32 and tuple(labels.shape) == (n,),
+             'CE kernel takes labels as int32 [N]')
+    _require(logits.is_contiguous() and labels.is_contiguous(),
+             'CE kernel takes contiguous logits and labels')
+    return n, v
+
+
+def _rows_aligned(v: int, *tensors) -> bool:
+    """Every row of these [N, V] tensors starts 16-byte aligned and holds
+    a whole number of 8-element vectors (the kernels' wide loads)."""
+    return v % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def softmax_cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor):
+    """(nll [N] f32, lse [N] f32) for contiguous logits [N, V] and int32
+    labels [N], reading the logits once."""
+    if _on_cpu(logits, labels):
+        return softmax_cross_entropy_fwd_reference(logits, labels)
+    n, v = _check_ce(logits, labels)
+    nll = torch.empty(n, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n == 0:
+        return nll, lse
+    lib, fn = _entry('cross_entropy', 'softmax_ce_fwd')
+    rc = fn(logits.data_ptr(), labels.data_ptr(), nll.data_ptr(),
+            lse.data_ptr(), n, v, int(_rows_aligned(v, logits)),
+            _DTYPE_CODE[logits.dtype], _stream(logits))
+    _build.check(lib, rc, 'softmax_ce_fwd')
+    LAUNCHES['softmax_ce_fwd'] += 1
+    return nll, lse
+
+
+def softmax_cross_entropy_bwd(logits, labels, lse, g):
+    """dlogits [N, V] in the logits dtype: (softmax - onehot) * g, with
+    lse from the forward and g [N] f32."""
+    if _on_cpu(logits, labels, lse, g):
+        return softmax_cross_entropy_bwd_reference(logits, labels, lse, g)
+    n, v = _check_ce(logits, labels)
+    _require(all(t.dtype == torch.float32 and tuple(t.shape) == (n,)
+                 and t.is_contiguous() for t in (lse, g)),
+             'CE backward takes lse and g as contiguous f32 [N]')
+    dx = torch.empty_like(logits)
+    if n == 0:
+        return dx
+    lib, fn = _entry('cross_entropy', 'softmax_ce_bwd')
+    rc = fn(logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), n, v,
+            int(_rows_aligned(v, logits, dx)), _DTYPE_CODE[logits.dtype],
+            _stream(logits))
+    _build.check(lib, rc, 'softmax_ce_bwd')
+    LAUNCHES['softmax_ce_bwd'] += 1
+    return dx
+
+
+class SoftmaxCrossEntropy(torch.autograd.Function):
+    """Differentiable fused CE, per-row nll [N] of logits [N, V]
+    (counterpart of the JAX package's `softmax_cross_entropy` custom
+    VJP). The residuals are the logits and the fp32 lse: no fp32 [N, V]
+    buffer exists; the backward recomputes the softmax."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        nll, lse = softmax_cross_entropy_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return softmax_cross_entropy_bwd(
+            logits, labels, lse, g.float().contiguous()), None
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Per-row nll [N] of contiguous logits [N, V] for int32 labels [N],
+    differentiable in the logits."""
+    return SoftmaxCrossEntropy.apply(logits, labels)

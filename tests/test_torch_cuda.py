@@ -11,6 +11,7 @@ import torch
 
 from paddle_tpu_torch import generator
 from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
 
@@ -23,6 +24,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the CUDA kernels run only there)')
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda')
 
 
@@ -132,7 +134,107 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     K.reset_launch_counts()
     card = InferenceEngine(on_card, num_slots=3, max_length=128,
                            decode_block=4).generate_many(prompts, sp)
-    assert all(c > 0 for c in K.LAUNCHES.values())
+    assert all(K.LAUNCHES[k] > 0 for k in ('flash_attention_fwd',
+                                           'paged_attention', 'rms_norm'))
     cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
                           decode_block=4).generate_many(prompts, sp)
     assert [h.tokens for h in card] == [h.tokens for h in cpu]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('sq,sk,hkv,causal', [
+    (130, 130, 8, True), (64, 64, 2, True), (70, 90, 4, True),
+    (100, 100, 8, False)])
+def test_flash_backward_kernels_match_plain(cuda, dtype, sq, sk, hkv,
+                                            causal):
+    """The forward's LSE and the dq and dk/dv kernels against the plain
+    FA-2 backward: ragged S, GQA, sq < sk, causal or not."""
+    g = torch.Generator(device=cuda).manual_seed(sq + hkv)
+    q, dout = _randn(g, dtype, 2, sq, 8, 128), _randn(g, dtype, 2, sq, 8, 128)
+    k, v = _randn(g, dtype, 2, sk, hkv, 128), _randn(g, dtype, 2, sk, hkv, 128)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    _, want_lse = K.attention_reference(q, k, v, causal=causal,
+                                        return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    before = dict(K.LAUNCHES)
+    got = K.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    want = K.attention_bwd_reference(q, k, v, out, lse, dout, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+    assert K.LAUNCHES['flash_attention_bwd_dq'] == \
+        before['flash_attention_bwd_dq'] + 1
+    assert K.LAUNCHES['flash_attention_bwd_dkv'] == \
+        before['flash_attention_bwd_dkv'] + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,v', [(1, 8), (37, 1000), (300, 32000), (5, 129)])
+def test_ce_kernels_match_plain(cuda, dtype, n, v):
+    """CE forward and backward, aligned and ragged vocab, with ignored
+    rows (label 0 after masking, g = 0)."""
+    g = torch.Generator(device=cuda).manual_seed(n + v)
+    x = (3 * _randn(g, torch.float32, n, v)).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    up = torch.randn(n, generator=g, device=cuda)
+    up[::3] = 0.0
+    nll, lse = K.softmax_cross_entropy_fwd(x, lab)
+    want_nll, want_lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+    torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    _close(K.softmax_cross_entropy_bwd(x, lab, lse, up),
+           K.softmax_cross_entropy_bwd_reference(x, lab, lse, up), dtype)
+
+
+def test_training_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 128), device=cuda)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError):          # strided q
+        K.flash_attention_bwd(q.transpose(1, 2).contiguous().transpose(
+            1, 2), q, q, q, lse, q, True)
+    with pytest.raises(ValueError):          # lse in the wrong layout
+        K.flash_attention_bwd(q, q, q, q, lse.transpose(1, 2), q, True)
+    x = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(ValueError):          # int64 labels
+        K.softmax_cross_entropy_fwd(x, torch.zeros(4, device=cuda,
+                                                   dtype=torch.int64))
+    with pytest.raises(ValueError):          # strided logits
+        K.softmax_cross_entropy_fwd(x[:, :8], torch.zeros(
+            4, device=cuda, dtype=torch.int32))
+    with pytest.raises(ValueError):          # fp16 logits
+        K.softmax_cross_entropy_fwd(x.half(), torch.zeros(
+            4, device=cuda, dtype=torch.int32))
+
+
+def test_training_on_card_matches_training_on_cpu(cuda):
+    """Two f32 AdamW steps of the same model on the card (kernels) and on
+    the CPU (plain versions), with recompute: losses agree to 1e-4."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, use_recompute=True)
+    on_card = LlamaForCausalLM(cfg, device=cuda, generator=generator(4, cuda))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits[:, :-1].reshape(-1, 512),
+                               labels[:, 1:].reshape(-1))
+
+    ids = torch.randint(0, 512, (2, 96), generator=torch.Generator()
+                        .manual_seed(0))
+    K.reset_launch_counts()
+    losses = []
+    for model in (on_card, on_cpu):
+        step = TrainStep(model, loss_fn, AdamW(learning_rate=1e-3,
+                                               parameters=model.parameters()))
+        losses.append([float(step(ids, ids)) for _ in range(2)])
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv', 'rms_norm', 'softmax_ce_fwd',
+                 'softmax_ce_bwd'):
+        assert K.LAUNCHES[name] > 0, name
+    torch.testing.assert_close(torch.tensor(losses[0]),
+                               torch.tensor(losses[1]), rtol=1e-4, atol=0)

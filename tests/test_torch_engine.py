@@ -9,6 +9,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.nlp import llama as jllama
+from paddle_tpu.observability import metrics as jax_metrics
 from paddle_tpu.serving import InferenceEngine as JaxEngine
 from paddle_tpu.serving import SamplingParams as JaxParams
 from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
@@ -18,6 +19,15 @@ from paddle_tpu_torch.serving import (FINISHED, SAMPLING, InferenceEngine,
 from paddle_tpu_torch.weights import from_jax_state
 
 NO_EOS = -1
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _reset_jax_metrics():
+    """The JAX engine records into the JAX package's process-global
+    metrics registry (TTFT, tokens, ...); zero it after this module so
+    later test files in the same process start from a clean registry."""
+    yield
+    jax_metrics.get_registry().reset()
 
 
 @pytest.fixture(scope='module')

@@ -5,13 +5,17 @@ On the CPU every wrapper takes its kernel's plain PyTorch version, so
 these tests hold the plain versions to the functions the TPU kernels
 compute: `_attention_xla` for flash attention, `F.rms_norm` and the
 Pallas `rms_norm` (interpret mode) for RMSNorm, and
-`paged_attention_reference` for paged attention. The same inputs, made
+`paged_attention_reference` for paged attention; and the training
+kernels' plain versions to the Pallas flash backward and fused
+cross-entropy kernels (interpret mode), `_ce_xla`, `F.cross_entropy` and
+`jax.grad`. The same inputs, made
 from a seed with numpy, go to both packages. fp32 tolerance: rtol 2e-4,
 atol 2e-5 (the sums run in another order in each framework).
 
 The CUDA kernels themselves are held to their plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu.ops.pallas import _attention_xla
 from paddle_tpu.tensor import Tensor
+from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import kernels as K
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -193,3 +199,269 @@ def test_wrappers_raise_off_cpu_and_cuda(call):
 def test_mixed_devices_raise():
     with pytest.raises(ValueError):
         K.rms_norm(torch.zeros(2, 4), torch.ones(4, device='meta'))
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward: plain version vs the Pallas kernels (interpret
+# mode) and jax.grad
+# ---------------------------------------------------------------------------
+
+def _flash_case(seed, b=1, sq=256, sk=256, h=4, hkv=2, d=128):
+    rng = np.random.default_rng(seed)
+    return (_np((b, sq, h, d), rng), _np((b, sk, hkv, d), rng),
+            _np((b, sk, hkv, d), rng), _np((b, sq, h, d), rng))
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_bwd_plain_matches_pallas_interpret(causal):
+    """[1, 256, 4 heads, 2 kv heads, 128], f32: the port's forward LSE and
+    backward (plain versions on the CPU) against the Pallas forward with
+    return_lse and the Pallas dq and dk/dv kernels in interpret mode, and
+    against jax.grad of `flash_attention_own`. Tolerance: rtol 2e-4,
+    atol 2e-5 (fp32 sums in another order)."""
+    q, k, v, g = _flash_case(seed=int(causal))
+    hkv, rep = k.shape[2], q.shape[2] // k.shape[2]
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = K.flash_attention_fwd(tq, tk, tv, causal=causal,
+                                     return_lse=True)
+    dq, dk, dv = K.flash_attention_bwd(tq, tk, tv, out, lse, tg,
+                                       causal=causal)
+
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    jout, jlse = pk.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                        interpret=True, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               rtol=RTOL, atol=ATOL)
+    tr = lambda x: x.transpose(0, 2, 1, 3)
+    jdq, jdk, jdv = pk.flash_attention_bwd(
+        tr(jq), tr(jnp.repeat(jk, rep, axis=2)),
+        tr(jnp.repeat(jv, rep, axis=2)), tr(jout), jlse, tr(jg),
+        causal=causal, interpret=True)
+    fold = lambda x: np.asarray(tr(x)).reshape(1, 256, hkv, rep, 128).sum(3)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(tr(jdq)), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dk.numpy(), fold(jdk), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dv.numpy(), fold(jdv), rtol=RTOL, atol=ATOL)
+
+    _, vjp = jax.vjp(lambda a, b_, c: pk.flash_attention_own(
+        a, b_, c, causal, 128, 128, True), jq, jk, jv)
+    for got, want in zip((dq, dk, dv), vjp(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize('sq,sk,h,hkv,causal', [
+    (33, 33, 4, 2, True),      # GQA, ragged
+    (5, 12, 4, 1, True),       # sq < sk: bottom-right causal alignment
+    (20, 20, 2, 2, False),
+])
+def test_flash_attention_function_grads_match_attention_xla(sq, sk, h, hkv,
+                                                            causal):
+    """`FlashAttention.apply` (forward with LSE, FA-2 backward) against
+    jax.grad of `_attention_xla`, f32, head dim 16."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = _np((2, sq, h, 16), rng), _np((2, sk, hkv, 16), rng), \
+        _np((2, sk, hkv, 16), rng)
+    g = _np((2, sq, h, 16), rng)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = K.FlashAttention.apply(tq, tk, tv, causal)
+    out.backward(torch.from_numpy(g))
+    want_out, vjp = jax.vjp(
+        lambda a, b_, c: _attention_xla(a, b_, c, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=RTOL, atol=ATOL)
+    for got, want in zip((tq, tk, tv), vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_sdpa_takes_the_function_only_when_a_grad_is_needed():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_np((1, 6, 2, 16), rng))
+    assert TF.scaled_dot_product_attention(x, x, x, is_causal=True) \
+        .grad_fn is None
+    xg = x.clone().requires_grad_()
+    out = TF.scaled_dot_product_attention(xg, x, x, is_causal=True)
+    assert type(out.grad_fn).__name__ == 'FlashAttentionBackward'
+    with torch.no_grad():
+        assert TF.scaled_dot_product_attention(xg, x, x).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# fused cross-entropy: plain versions vs the Pallas kernels and _ce_xla
+# ---------------------------------------------------------------------------
+
+def _ce_case(seed, n, v):
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal((n, v))).astype(np.float32)
+    lab = rng.integers(0, v, (n,)).astype(np.int32)
+    g = rng.standard_normal(n).astype(np.float32)
+    return x, lab, g
+
+
+@pytest.mark.parametrize('n,v', [(37, 300), (5, 2500)])
+def test_ce_plain_matches_pallas_interpret_and_ce_xla(n, v):
+    """Ragged N and V (neither a block multiple), f32: nll, lse and
+    dlogits of the plain versions against the Pallas kernels in
+    interpret mode and against `_ce_xla`. Tolerance rtol 2e-4, atol
+    2e-5."""
+    x, lab, g = _ce_case(n + v, n, v)
+    tx, tl, tg = torch.from_numpy(x), torch.from_numpy(lab), \
+        torch.from_numpy(g)
+    nll, lse = K.softmax_cross_entropy_fwd(tx, tl)
+    dx = K.softmax_cross_entropy_bwd(tx, tl, lse, tg)
+
+    jx, jl, jg = jnp.asarray(x), jnp.asarray(lab), jnp.asarray(g)
+    jnll, jlse = pk.softmax_cross_entropy_fwd(jx, jl, interpret=True)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=RTOL,
+                               atol=ATOL)
+    _, vjp = jax.vjp(lambda a: pk.softmax_cross_entropy(a, jl, True), jx)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jg)[0]),
+                               rtol=RTOL, atol=ATOL)
+    valid = jnp.ones((n,), bool)
+    xla_nll, vjp = jax.vjp(lambda a: JF._ce_xla(a, jl, valid), jx)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(xla_nll), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jg)[0]),
+                               rtol=RTOL, atol=ATOL)
+
+    tx.requires_grad_()
+    K.SoftmaxCrossEntropy.apply(tx, tl).backward(tg)
+    np.testing.assert_allclose(tx.grad.numpy(), dx.numpy(), rtol=0, atol=0)
+
+
+def test_ce_label_outside_vocab_has_no_target():
+    """As in the Pallas kernel, a label outside [0, V) picks no logit."""
+    x, lab, _ = _ce_case(7, 4, 50)
+    lab[1], lab[2] = -100, 50
+    nll, lse = K.softmax_cross_entropy_fwd(torch.from_numpy(x),
+                                           torch.from_numpy(lab))
+    jnll, _ = pk.softmax_cross_entropy_fwd(jnp.asarray(x), jnp.asarray(lab),
+                                           interpret=True)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), rtol=RTOL,
+                               atol=ATOL)
+    assert nll[1] == lse[1] and nll[2] == lse[2]
+
+
+def _jax_ce(x, lab, dtype, **kw):
+    """(loss, dlogits) of the JAX package's F.cross_entropy, through its
+    eager tape."""
+    xt = Tensor(jnp.asarray(x, dtype))
+    xt.stop_gradient = False
+    loss = JF.cross_entropy(xt, Tensor(jnp.asarray(lab)), **kw)
+    loss.backward()
+    return (np.asarray(loss.value, np.float32),
+            np.asarray(xt.grad.value, np.float32))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('reduction,label_shape', [
+    ('mean', 'flat'), ('sum', 'flat'), ('mean', 'column')])
+def test_cross_entropy_matches_jax(dtype, reduction, label_shape):
+    """F.cross_entropy on [N, V] hard labels with ignore_index rows, value
+    and gradient, against the JAX package's. f32: rtol 2e-4, atol 2e-5;
+    bf16: the gradient carries one bf16 rounding (2^-8 relative), so
+    rtol 1e-2, atol 1e-3 (|dlogit| <= 1)."""
+    x, lab, _ = _ce_case(11, 24, 96)
+    lab[[2, 9, 10]] = -100
+    if label_shape == 'column':
+        lab = lab[:, None]
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    want_loss, want_dx = _jax_ce(x, lab, jdt, reduction=reduction)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    loss = TF.cross_entropy(tx, torch.from_numpy(lab), reduction=reduction)
+    loss.backward()
+    tol = (RTOL, ATOL) if dtype == 'float32' else (1e-2, 1e-3)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=tol[0],
+                               atol=tol[1])
+    assert tx.grad.dtype == tx.dtype
+    np.testing.assert_allclose(tx.grad.float().numpy(), want_dx,
+                               rtol=tol[0], atol=tol[1])
+    assert not tx.grad.float()[[2, 9, 10]].any()
+
+
+@pytest.mark.parametrize('kw', [
+    dict(label_smoothing=0.1), dict(reduction='none'),
+    dict(weight=np.linspace(0.5, 1.5, 96).astype(np.float32)),
+    dict(soft_label=True)])
+def test_cross_entropy_plain_branches_match_jax(kw):
+    """Class weights, label smoothing, soft labels and reduction='none'
+    (plain torch, outside the kernels, as in the JAX package)."""
+    x, lab, _ = _ce_case(12, 16, 96)
+    lab[3] = -100
+    if kw.get('soft_label'):
+        lab = np.random.default_rng(0).dirichlet(np.ones(96), 16).astype(
+            np.float32)
+    jkw = dict(kw)
+    if 'weight' in kw:
+        jkw['weight'] = Tensor(jnp.asarray(kw['weight']))
+    want_loss, want_dx = _jax_ce(x, lab, jnp.float32, **jkw) \
+        if kw.get('reduction') != 'none' else (None, None)
+    tkw = dict(kw)
+    if 'weight' in kw:
+        tkw['weight'] = torch.from_numpy(kw['weight'])
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = TF.cross_entropy(tx, torch.from_numpy(lab), **tkw)
+    if kw.get('reduction') == 'none':
+        want = JF.cross_entropy(Tensor(jnp.asarray(x)),
+                                Tensor(jnp.asarray(lab)),
+                                reduction='none').numpy()
+        np.testing.assert_allclose(loss.detach().numpy(), want, rtol=RTOL,
+                                   atol=ATOL)
+        return
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tx.grad.numpy(), want_dx, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_cross_entropy_loss_layer():
+    x, lab, _ = _ce_case(13, 8, 40)
+    layer = CrossEntropyLoss(ignore_index=lab[0])
+    got = layer(torch.from_numpy(x), torch.from_numpy(lab))
+    want = TF.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
+                            ignore_index=int(lab[0]))
+    assert float(got) == float(want)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm gradient vs jax.grad of the JAX model's F.rms_norm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_rms_norm_grad_matches_jax(dtype):
+    """dx and dweight of the port's RMSNorm against jax.grad of the JAX
+    `F.rms_norm` (normalise in fp32, cast, multiply by the weight), on the
+    same inputs. f32: rtol 2e-4, atol 2e-5. bf16 inputs: held to the JAX
+    gradient taken in f32 of the same bf16 values; dx carries two bf16
+    roundings (atol 3e-2 at |dx| <= 4), dweight a bf16 rounding of a sum
+    of 48 terms (atol 0.1 at |dw| <= 15). (JAX's own bf16 gradient sums
+    dweight in bf16 and lands 0.18 off that reference on these inputs;
+    the port sums in fp32 and lands 0.055 off.)"""
+    rng = np.random.default_rng(21)
+    x, w, g = _np((3, 16, 64), rng), 1 + 0.1 * _np((64,), rng), \
+        _np((3, 16, 64), rng)
+    tdt = getattr(torch, dtype)
+    tx, tw, tg = (torch.from_numpy(a).to(tdt) for a in (x, w, g))
+    jx, jw, jg = (jnp.asarray(t.float().numpy()) for t in (tx, tw, tg))
+
+    def f(a, b_):
+        return JF.rms_norm(Tensor(a), Tensor(b_), epsilon=1e-6).value
+
+    _, vjp = jax.vjp(f, jx, jw)
+    want_dx, want_dw = (np.asarray(t) for t in vjp(jg))
+    tx.requires_grad_()
+    tw.requires_grad_()
+    K.rms_norm(tx, tw, 1e-6).backward(tg)
+    assert tx.grad.dtype == tdt and tw.grad.dtype == tdt
+    tol_dx, tol_dw = ((RTOL, ATOL), (RTOL, ATOL)) if dtype == 'float32' \
+        else ((0, 3e-2), (0, 0.1))
+    np.testing.assert_allclose(tx.grad.float().numpy(), want_dx,
+                               rtol=tol_dx[0], atol=tol_dx[1])
+    np.testing.assert_allclose(tw.grad.float().numpy(), want_dw,
+                               rtol=tol_dw[0], atol=tol_dw[1])

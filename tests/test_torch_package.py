@@ -84,3 +84,40 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, 'isfile', lambda path: False)
     with pytest.raises(RuntimeError, match='nvcc not found'):
         _build.build_all()
+
+
+def test_training_modules_import_no_jax():
+    """The training slice's modules (optimizer, TrainStep, the loss layer,
+    the backward kernels' sources) are held to the same rule: imported
+    alone, they pull in no jax and nothing of `paddle_tpu`."""
+    mods = ('paddle_tpu_torch.optimizer', 'paddle_tpu_torch.jit',
+            'paddle_tpu_torch.nn.loss_layers')
+    code = ('import sys\n'
+            + ''.join(f'import {m}\n' for m in mods)
+            + 'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "jaxlib", "paddle_tpu"))\n'
+              'sys.exit(1 if bad else 0)\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    sources = {p.stem for p in (ROOT / 'paddle_tpu_torch' / 'csrc')
+               .glob('*.cu')}
+    assert set(_build.SOURCES) == sources
+
+
+def test_training_entry_points_run_where_the_model_is(monkeypatch):
+    """TrainStep and the optimizers follow the model's device: `cuda`
+    unless the model was made with device='cpu'."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig.tiny(use_recompute=True))
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device='cpu')
+    step = TrainStep(model, lambda logits, labels: logits.mean(),
+                     AdamW(parameters=model.parameters()))
+    assert step.device.type == 'cpu'
+    step(torch.zeros((1, 4), dtype=torch.int64), None)
+    assert step.optimizer._slots and all(
+        s['moment1'].device.type == 'cpu'
+        for s in step.optimizer._slots.values())
