@@ -61,11 +61,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, published
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
                   torch.float32: 67e12}     # fp32 outside the tensor cores
-# kernel vs plain: sums run in another order on the card, so fp32 agrees
-# to ~1e-6 on unit-scale inputs (limit 1e-4); bf16 outputs carry one
-# rounding of 2^-8 relative, i.e. up to ~2e-2 at |y| ~ 4 (limit 2e-2
-# absolute + 2e-2 relative)
-TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+# kernel vs plain, per output and by the output's dtype, two readings:
+# rel_max = max|kernel - plain| / max|plain| and rel_norm = |kernel -
+# plain| / |plain| (Frobenius norms). A correct kernel sums in another
+# order than its plain version, which moves an f32 output by about 1e-6
+# of its scale; a bf16 output then differs by one bf16 ulp on a few
+# elements, and the plain attention forward also rounds its
+# probabilities to bf16 (as the JAX package's does), about 3e-3 of the
+# output's norm. A kernel that leaves out a term (delta, the softmax
+# term of CE) or is off by 2% fails the limits (tests/test_torch_smoke.py
+# holds this check to such kernels on the CPU). The readings that set
+# each limit are in PERF.md, section 2.
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -7)}
 REPLACES = {
     'flash_attention_fwd':
         'paddle_tpu/ops/pallas_kernels.py:89 (_flash_fwd_kernel)',
@@ -108,28 +115,6 @@ DEV = 'cuda'
 
 def log(*a):
     print(*a, flush=True)
-
-
-def _on_card() -> bool:
-    return DEV == 'cuda'
-
-
-def _sync() -> None:
-    if _on_card():
-        torch.cuda.synchronize()
-
-
-def _mem_allocated() -> int:
-    return torch.cuda.memory_allocated() if _on_card() else 0
-
-
-def _reset_peak() -> None:
-    if _on_card():
-        torch.cuda.reset_peak_memory_stats()
-
-
-def _peak_mem() -> int:
-    return torch.cuda.max_memory_allocated() if _on_card() else 0
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -193,23 +178,31 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def compare(name: str, got, want, dtype) -> float:
-    """Max |kernel - plain| over the output (or each output of a tuple);
-    raises past the dtype's tolerance."""
+def compare(name: str, got, want) -> dict:
+    """{max_abs_err, rel_max, rel_norm} of the kernel's output against the
+    plain version's (the worst over the outputs of a tuple, each held to
+    the limits of its own dtype); raises past a limit."""
     if isinstance(got, tuple):
-        return max(compare(f'{name} [{i}]', g, w, dtype)
-                   for i, (g, w) in enumerate(zip(got, want)))
-    atol, rtol = TOL[dtype]
-    got, want = got.float(), want.float()
+        readings = [compare(f'{name} [{i}]', g, w)
+                    for i, (g, w) in enumerate(zip(got, want))]
+        return {k: max(r[k] for r in readings) for k in readings[0]}
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f'{name}: kernel gives {got.dtype} '
+                             f'{tuple(got.shape)}, plain {want.dtype} '
+                             f'{tuple(want.shape)}')
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: kernel output has non-finite values')
-    err = (got - want).abs()
-    limit = atol + rtol * want.abs()
-    if bool((err > limit).any()):
-        raise AssertionError(f'{name}: max |kernel - plain| '
-                             f'{float(err.max()):.3e} exceeds atol {atol} '
-                             f'rtol {rtol}')
-    return float(err.max())
+    lim_max, lim_norm = TOL[want.dtype]
+    got, want = got.double(), want.double()
+    diff = got - want
+    max_abs = float(diff.abs().max())
+    rel_max = max_abs / max(float(want.abs().max()), 1e-30)
+    rel_norm = float(diff.norm()) / max(float(want.norm()), 1e-30)
+    if rel_max > lim_max or rel_norm > lim_norm:
+        raise AssertionError(f'{name}: kernel vs plain rel_max {rel_max:.3e}'
+                             f' (limit {lim_max:.3e}), rel_norm '
+                             f'{rel_norm:.3e} (limit {lim_norm:.3e})')
+    return dict(max_abs_err=max_abs, rel_max=rel_max, rel_norm=rel_norm)
 
 
 def live_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -406,7 +399,9 @@ def _training_cases(add, gen) -> None:
         lab = torch.randint(0, vocab, (n,), generator=gen, device=DEV,
                             dtype=torch.int32)
         lab[::7] = 0                        # ignored rows: safe label 0 ...
-        g = torch.full((n,), 1.0 / n, device=DEV)
+        # an O(1) upstream gradient of either sign, so that both the
+        # softmax and the one-hot term of dlogits stand far above the limit
+        g = torch.randn((n,), generator=gen, device=DEV)
         g[::7] = 0.0                        # ... and no gradient
         _, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
         xg = x.detach().requires_grad_()
@@ -431,10 +426,10 @@ def _training_cases(add, gen) -> None:
 def check_kernels(cases) -> None:
     """Hold every kernel against its plain version (fatal on a miss)."""
     for c in cases:
-        c['max_abs_err'] = compare(c['name'], c['run'](), c['plain'](),
-                                   c['dtype'])
-        log(f'[kernels] {c["name"]}: max_abs_err {c["max_abs_err"]:.3e} '
-            f'(limit atol {TOL[c["dtype"]][0]} rtol {TOL[c["dtype"]][1]})')
+        r = compare(c['name'], c['run'](), c['plain']())
+        c['max_abs_err'] = r['max_abs_err']
+        log(f'[kernels] {c["name"]}: max_abs_err {r["max_abs_err"]:.3e} '
+            f'rel_max {r["rel_max"]:.3e} rel_norm {r["rel_norm"]:.3e}')
 
 
 def time_kernels(cases) -> dict:
@@ -493,8 +488,7 @@ def check_consistency(cfg):
     log(f'[consistency] 2 layers f32, {len(prompts)} requests x {n_new} '
         f'greedy tokens: paged engine == no-cache full recompute')
     del eng, model
-    if DEV == 'cuda':
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -569,8 +563,7 @@ def check_train_consistency(cfg) -> None:
         raise AssertionError('train consistency: recompute changes the '
                              'gradients')
     del model, g_card, g_cpu, g_remat
-    if _on_card():
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -595,8 +588,8 @@ def train(cfg) -> dict:
     from paddle_tpu_torch.nlp import LlamaForCausalLM
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.optimizer import AdamW
-    _sync()
-    base = _mem_allocated()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
                              generator=ptt.generator(0, DEV))
@@ -620,7 +613,7 @@ def train(cfg) -> dict:
     warm = float(loss)
     log(f'[train] {TRAIN_WARMUP} warm-up steps in '
         f'{time.perf_counter() - t0:.2f} s, loss {warm:.4f}')
-    _reset_peak()
+    torch.cuda.reset_peak_memory_stats()
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -629,7 +622,7 @@ def train(cfg) -> dict:
     final = float(loss)             # waits for the last step
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
     launches = dict(K.LAUNCHES)
-    peak = _peak_mem()
+    peak = torch.cuda.max_memory_allocated()
 
     missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
     if missing:
@@ -682,8 +675,8 @@ def serve(cfg) -> dict:
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import (FINISHED, SAMPLING,
                                           InferenceEngine, SamplingParams)
-    _sync()
-    base = _mem_allocated()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
                              generator=ptt.generator(1234, DEV))
@@ -705,7 +698,7 @@ def serve(cfg) -> dict:
     eng.generate_many([prompts[0][:8]],
                       SamplingParams(max_new_tokens=8, eos_token_id=-1))
     eng.reset_stats()
-    _reset_peak()
+    torch.cuda.reset_peak_memory_stats()
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -737,7 +730,7 @@ def serve(cfg) -> dict:
         'decode_steps': st['decode_steps'],
         'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
         'ttft_p50_s': ttft[len(ttft) // 2],
-        'peak_mem_gb': (_peak_mem() - base) / 1e9,
+        'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
         'launches': launches,
     }
     log(f'[serve] {len(handles)} requests in {wall:.2f} s: prefill '
@@ -843,18 +836,18 @@ def profile_train(step, batch, step_s: float) -> None:
     (a step run after the profiler has been used costs the host more;
     its wall is logged beside it)."""
     from torch.profiler import ProfilerActivity, profile
-    _sync()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step(batch, batch))
     wall_now = time.perf_counter() - t0
     x = torch.as_tensor(batch, device=DEV)
     with profile(activities=[ProfilerActivity.CUDA]) as fwd_bwd:
         next_token_loss(step.layer(x), x).backward()
-        _sync()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as update:
         step.optimizer.step()
         step.optimizer.clear_grad()
-        _sync()
+        torch.cuda.synchronize()
     _breakdown([(fwd_bwd, None), (update, 'optimizer')], step_s,
                f'training step (batch {TRAIN_BATCH} x {TRAIN_SEQ}; wall = '
                f'the train phase\'s step time)')

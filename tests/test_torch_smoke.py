@@ -1,0 +1,159 @@
+"""The kernel check of `chip_smoke.py` can fail a wrong kernel.
+
+`chip_smoke.compare` holds each kernel's output to its plain version by
+two relative readings (`rel_max`, `rel_norm`) under limits set per
+dtype. Here, on the CPU, the plain versions stand in for the card's
+kernels: the same function computed in fp64 and rounded once to the
+output dtype (what a correct kernel that sums in another order gives)
+must pass, and the same function with a term left out, or off by 2%,
+must fail. Inputs come from numpy with a seed, at a small training-like
+shape (B=1, S=256, 4 query heads over 2 kv heads, D=128; CE at
+[64, 1000] with ignored rows and an O(1) upstream gradient).
+"""
+import importlib.util
+import math
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import kernels as K
+
+_spec = importlib.util.spec_from_file_location(
+    'chip_smoke', pathlib.Path(__file__).resolve().parent.parent
+    / 'chip_smoke.py')
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+B, S, H, HKV, D = 1, 256, 4, 2, 128
+N, V = 64, 1000
+
+
+def _randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dtype)
+
+
+def _attention(dtype):
+    rng = np.random.RandomState(0)
+    q = _randn(rng, (B, S, H, D), dtype)
+    k = _randn(rng, (B, S, HKV, D), dtype)
+    v = _randn(rng, (B, S, HKV, D), dtype)
+    dout = _randn(rng, (B, S, H, D), dtype)
+    out, lse = K.attention_reference(q, k, v, causal=True, return_lse=True)
+    dq, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, True)
+    dk, dv = K.attention_bwd_dkv_reference(q, k, v, lse, delta, dout, True)
+    return dict(q=q, k=k, v=v, dout=dout, out=out, lse=lse, delta=delta,
+                dq=dq, dk=dk, dv=dv)
+
+
+def _attention_fp64(a, delta_term=True):
+    """Forward and FlashAttention-2 backward in fp64 with the plain
+    versions' bottom-right causal mask, each output rounded once. The
+    backward takes the forward's residuals (out, lse) as given, as the
+    kernels do."""
+    dtype = a['q'].dtype
+    q, k, v, do = (a[n].double() for n in ('q', 'k', 'v', 'dout'))
+    k = k.repeat_interleave(H // HKV, dim=2)
+    v = v.repeat_interleave(H // HKV, dim=2)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(D)
+    s = s.masked_fill(~keep, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum('bhqk,bkhd->bqhd', torch.exp(s - lse[..., None]), v)
+    p = torch.exp(s - a['lse'].double()[..., None])
+    delta = (do * a['out'].double()).sum(-1).transpose(1, 2)
+    if not delta_term:
+        delta = torch.zeros_like(delta)
+    dp = torch.einsum('bqhd,bkhd->bhqk', do, v)
+    ds = p * (dp - delta[..., None]) / math.sqrt(D)
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds, k)
+    dk = K._fold_group(torch.einsum('bhqk,bqhd->bkhd', ds, q), HKV)
+    dv = K._fold_group(torch.einsum('bhqk,bqhd->bkhd', p, do), HKV)
+    return dict(out=out.to(dtype), lse=lse.float(), dq=dq.to(dtype),
+                dk=dk.to(dtype), dv=dv.to(dtype))
+
+
+def _cross_entropy(dtype):
+    rng = np.random.RandomState(1)
+    x = (3 * _randn(rng, (N, V), torch.float32)).to(dtype)
+    lab = torch.from_numpy(rng.randint(0, V, (N,)).astype(np.int32))
+    lab[::7] = 0
+    g = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    g[::7] = 0.0
+    nll, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+    dx = K.softmax_cross_entropy_bwd_reference(x, lab, lse, g)
+    xf = x.double()
+    lse64 = torch.logsumexp(xf, dim=-1)
+    onehot = torch.zeros_like(xf)
+    onehot[torch.arange(N), lab.long()] = 1.0
+    soft = torch.exp(xf - lse64[:, None])
+    gd = g.double()[:, None]
+    return dict(
+        nll=nll, lse=lse, dx=dx,
+        nll64=(lse64 - xf[torch.arange(N), lab.long()]).float(),
+        lse64=lse64.float(),
+        dx64=((soft - onehot) * gd).to(dtype),
+        dx_onehot_only=(-onehot * gd).to(dtype))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_compare_accepts_a_correct_kernel(dtype):
+    """One rounding of the exact result passes every output's limits."""
+    a = _attention(dtype)
+    e = _attention_fp64(a)
+    for name in ('dq', 'dk', 'dv'):
+        smoke.compare(name, e[name], a[name])
+    smoke.compare('forward', (e['out'], e['lse']), (a['out'], a['lse']))
+    c = _cross_entropy(dtype)
+    smoke.compare('ce fwd', (c['nll64'], c['lse64']), (c['nll'], c['lse']))
+    smoke.compare('ce bwd', c['dx64'], c['dx'])
+
+
+def _mutant(case, dtype):
+    """(kernel output with a fault, plain output)."""
+    if case.startswith('ce'):
+        c = _cross_entropy(dtype)
+        got = {'ce_bwd_zeros': torch.zeros_like(c['dx']),
+               'ce_bwd_onehot_only': c['dx_onehot_only']}[case]
+        return got, c['dx']
+    a = _attention(dtype)
+    if case == 'dq_gain_2pct':
+        return (a['dq'].double() * 1.02).to(dtype), a['dq']
+    if case == 'forward_probs_rounded_to_bf16':
+        # f32 inputs: a forward that rounds P to bf16 before P V
+        kr = a['k'].float().repeat_interleave(H // HKV, dim=2)
+        vr = a['v'].float().repeat_interleave(H // HKV, dim=2)
+        s = torch.einsum('bqhd,bkhd->bhqk', a['q'].float(), kr) / math.sqrt(D)
+        p = torch.exp(s - a['lse'][..., None]).tril()
+        out = torch.einsum('bhqk,bkhd->bqhd',
+                           p.to(torch.bfloat16).float(), vr)
+        return out.to(dtype), a['out']
+    e = _attention_fp64(a, delta_term=False)
+    name = {'dq_without_delta': 'dq', 'dk_without_delta': 'dk'}[case]
+    return e[name], a[name]
+
+
+@pytest.mark.parametrize('case,dtype', [
+    ('dq_without_delta', torch.bfloat16),
+    ('dk_without_delta', torch.bfloat16),
+    ('dq_gain_2pct', torch.bfloat16),
+    ('ce_bwd_zeros', torch.bfloat16),
+    ('ce_bwd_onehot_only', torch.bfloat16),
+    ('dq_without_delta', torch.float32),
+    ('ce_bwd_onehot_only', torch.float32),
+    ('forward_probs_rounded_to_bf16', torch.float32),
+])
+def test_compare_rejects_a_wrong_kernel(case, dtype):
+    got, want = _mutant(case, dtype)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare(case, got, want)
+
+
+def test_compare_rejects_a_dtype_or_shape_change():
+    x = torch.ones(4, 8, dtype=torch.bfloat16)
+    with pytest.raises(AssertionError, match='kernel gives'):
+        smoke.compare('dtype', x.float(), x)
+    with pytest.raises(AssertionError, match='kernel gives'):
+        smoke.compare('shape', x[:2], x)

@@ -24,7 +24,6 @@ import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.nlp import llama as jllama
-from paddle_tpu.observability import metrics as jax_metrics
 from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
@@ -35,15 +34,6 @@ from paddle_tpu_torch.weights import from_jax_state
 LR = 1e-3
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 4e-5
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _reset_jax_metrics():
-    """The JAX TrainStep records into the JAX package's process-global
-    metrics registry; zero it after this module so later test files in
-    the same process start from a clean registry."""
-    yield
-    jax_metrics.get_registry().reset()
 
 
 def _models(use_recompute, seed=7, layers=2):
