@@ -10,10 +10,15 @@ result line):
    nvcc (sm_90a), all sources at once;
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
-   (plus GQA, ragged lengths, int8 pages and ignored CE rows);
+   (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
+   rows on slot 0, whose delta must be exactly zero);
 3. consistency: the engine at 2 layers of Llama-2-7B width in f32, greedy;
    each request's first 16 tokens must equal a no-cache full-recompute
-   forward of the same model;
+   forward of the same model; then adapter consistency at the same size:
+   with a bank of two LoRA adapters, a mixed wave [base, ad0, ad1, ad0]
+   gives each request the tokens it gets served alone under its adapter
+   on a fresh engine and bank, base requests the tokens of a bank-less
+   engine, and an adapter changes some tokens;
 4. train consistency: the same width at 2 layers in f32 (TF32 off), one
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
@@ -31,11 +36,17 @@ result line):
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
    the 8-slot paged engine, 12 requests (prompts 13-700 tokens, 32 new
    tokens; 11 greedy, 1 sampling), with every serving kernel's launch
-   count read around that run and required to be > 0;
+   count read around that run and required to be > 0; then the same
+   model, prompts and settings behind an engine with an `AdapterBank` of
+   three rank-8 adapters on q/k/v/o_proj, request i under
+   [base, ad0, ad1, ad2][i % 4]: every request finishes, the adapter
+   kernel runs exactly once per adapted projection of every prefill and
+   decode forward, base requests get phase 6's tokens and adapted ones
+   differ;
 7. profile: one decode round with every slot busy (wall time, then a
-   torch.profiler breakdown of the next round's device time), one prefill
-   forward, and one training step (forward + backward, then the
-   optimizer update, each profiled);
+   torch.profiler breakdown of the next round's device time) on the
+   plain and on the banked engine, one prefill forward, and one training
+   step (forward + backward, then the optimizer update, each profiled);
 8. timing: each kernel case of phase 2 timed (device time per call from
    the profiler, beside CUDA-event time), with its plain version, the one
    PyTorch call that computes the same function where there is one, and
@@ -85,6 +96,8 @@ REPLACES = {
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
     'softmax_ce_fwd': 'paddle_tpu/ops/pallas_kernels.py:494 (_ce_fwd_kernel)',
     'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
+    'adapter_matmul':
+        'paddle_tpu/ops/pallas_kernels.py:851 (_adapter_matmul_kernel)',
 }
 SOURCES = {
     'flash_attention_fwd': 'paddle_tpu_torch/csrc/flash_attention.cu',
@@ -94,8 +107,13 @@ SOURCES = {
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
+    'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
 }
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
+ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
+# Llama's projections; the bank's default targets name the JAX package's
+# qkv_proj/out_proj
+ADAPTER_TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj')
 TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'rms_norm', 'softmax_ce_fwd',
                  'softmax_ce_bwd')
@@ -249,11 +267,12 @@ def kernel_cases() -> list:
     gen = torch.Generator(device=DEV).manual_seed(0)
     cases = []
 
-    def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False):
+    def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False,
+            zero_rows=None):
         b_ms, by = bound_ms(moved, ops, dtype)
         cases.append(dict(kernel=kernel, name=name, dtype=dtype, run=run,
                           plain=plain, lib=lib, bound_ms=b_ms, bound_by=by,
-                          rep=rep))
+                          rep=rep, zero_rows=zero_rows))
 
     # flash attention: prefill shapes (buckets 8 .. 1024), causal, D = 128
     for dtype in (torch.float32, torch.bfloat16):
@@ -334,6 +353,7 @@ def kernel_cases() -> list:
                 nbytes(x, x, w), 4 * x.numel(),
                 rep=dtype == torch.bfloat16 and r == 1024)
     _training_cases(add, gen)
+    _adapter_cases(add, gen)
     return cases
 
 
@@ -423,10 +443,56 @@ def _training_cases(add, gen) -> None:
             nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
 
 
+def _adapter_cases(add, gen) -> None:
+    """adapter_matmul at the serve path's shapes: decode (8 slots, T=1)
+    and prefill (one row, T=1024) at H = O = 4096 and rank 8, with rows
+    mixing slot 0 and repeated slots, x and the bank each in f32 and
+    bf16; and a ragged case (H=4000, O=1000, rank 16). The bytes count
+    the factors of the distinct slots the rows use, once each."""
+    from paddle_tpu_torch.ops import kernels as K
+    slots = 5
+    for b, t, h, r, o, rows in ((8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),
+                                (1, 1024, 4096, 8, 4096, [3]),
+                                (6, 5, 4000, 16, 1000, [0, 2, 2, 1, 0, 4])):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for w_dtype in (torch.float32, torch.bfloat16):
+                x = _randn((b, t, h), x_dtype, gen)
+                a = (0.05 * torch.randn((slots, h, r), generator=gen,
+                                        device=DEV)).to(w_dtype)
+                bb = (0.05 * torch.randn((slots, r, o), generator=gen,
+                                         device=DEV)).to(w_dtype)
+                a[0], bb[0] = 0, 0
+                scale = torch.rand(slots, generator=gen, device=DEV) + 0.5
+                scale[0] = 0.0
+                rows_t = torch.tensor(rows, dtype=torch.int32, device=DEV)
+                used = len(set(rows))
+                moved = (nbytes(x, rows_t) + b * t * o * x.element_size()
+                         + used * ((h * r + r * o) * a.element_size() + 4))
+                args = (x, a, bb, rows_t, scale)
+                add('adapter_matmul',
+                    f'adapter x {str(x_dtype)[6:]} bank {str(w_dtype)[6:]} '
+                    f'B={b} T={t} H={h} R={r} O={o}',
+                    torch.bfloat16 if torch.float32 not in (x_dtype, w_dtype)
+                    else torch.float32,
+                    lambda a=args: K.adapter_matmul(*a),
+                    lambda a=args: K.adapter_matmul_reference(*a), None,
+                    moved, 2 * b * t * r * (h + o),
+                    rep=(t == 1 and x_dtype == torch.bfloat16
+                         and w_dtype == torch.float32),
+                    zero_rows=rows_t == 0)
+
+
 def check_kernels(cases) -> None:
-    """Hold every kernel against its plain version (fatal on a miss)."""
+    """Hold every kernel against its plain version, and adapter rows on
+    slot 0 to an exact zero (fatal on a miss)."""
     for c in cases:
-        r = compare(c['name'], c['run'](), c['plain']())
+        got = c['run']()
+        r = compare(c['name'], got, c['plain']())
+        if c['zero_rows'] is not None:
+            base = got[c['zero_rows']]
+            if not torch.equal(base, torch.zeros_like(base)):
+                raise AssertionError(f'{c["name"]}: rows on slot 0 have a '
+                                     f'non-zero delta')
         c['max_abs_err'] = r['max_abs_err']
         log(f'[kernels] {c["name"]}: max_abs_err {r["max_abs_err"]:.3e} '
             f'rel_max {r["rel_max"]:.3e} rel_norm {r["rel_norm"]:.3e}')
@@ -488,6 +554,66 @@ def check_consistency(cfg):
     log(f'[consistency] 2 layers f32, {len(prompts)} requests x {n_new} '
         f'greedy tokens: paged engine == no-cache full recompute')
     del eng, model
+    torch.cuda.empty_cache()
+
+
+def adapter_bank(model, n_adapters: int, capacity: int, scale: float = 0.02):
+    """An f32 rank-8 bank on Llama's q/k/v/o projections holding
+    ad0..ad{n-1}, with factors `make_adapter_factors(bank, seed=i + 1)`."""
+    from paddle_tpu_torch.serving import AdapterBank, make_adapter_factors
+    bank = AdapterBank(model, capacity=capacity, rank=8,
+                       targets=ADAPTER_TARGETS, dtype='float32')
+    for i in range(n_adapters):
+        bank.load(f'ad{i}', make_adapter_factors(bank, seed=i + 1,
+                                                 scale=scale))
+    return bank
+
+
+def check_adapter_consistency(cfg):
+    """The tests/test_adapters.py acceptance bar on the card, at 2
+    layers of Llama-2-7B width in f32, greedy: in a mixed wave
+    [base, ad0, ad1, ad0] each request gets the tokens it gets served
+    alone under its adapter (fresh engine and bank), base requests those
+    of a bank-less engine, and the adapters change some tokens. Factors
+    at scale 0.05, large enough to move greedy tokens at this depth."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(7, DEV))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+               for s in (5, 16, 37, 130)]
+    ids = [None, 'ad0', 'ad1', 'ad0']
+    sp = SamplingParams(max_new_tokens=16, eos_token_id=-1)
+
+    def tokens(adapter_ids, banked=True):
+        eng = InferenceEngine(
+            model, num_slots=8, max_length=1024, decode_block=8,
+            kv_page_size=16,
+            adapter_bank=adapter_bank(model, 2, 2, 0.05) if banked else None)
+        return [h.tokens for h in eng.generate_many(prompts, sp,
+                                                    adapter_ids=adapter_ids)]
+
+    base = tokens(None, banked=False)
+    alone = {aid: tokens(aid) for aid in ('ad0', 'ad1')}
+    mixed = tokens(ids)
+    for j, aid in enumerate(ids):
+        want = base[j] if aid is None else alone[aid][j]
+        if mixed[j] != want:
+            raise AssertionError(f'adapter consistency: request {j} under '
+                                 f'{aid}: mixed wave {mixed[j]} != '
+                                 f'{"bank-less" if aid is None else "alone"}'
+                                 f' {want}')
+    changed = sum(alone[aid][j] != base[j] for aid in alone
+                  for j in range(len(prompts)))
+    if not changed:
+        raise AssertionError('adapter consistency: no adapter changed a '
+                             'token')
+    log(f'[adapter-consistency] 2 layers f32, mixed wave {ids} x 16 greedy '
+        f'tokens == each adapter alone, base == bank-less engine; '
+        f'{changed} of {2 * len(prompts)} adapted requests differ from base')
+    del model
     torch.cuda.empty_cache()
 
 
@@ -669,12 +795,78 @@ def train(cfg) -> dict:
 # phase 6: serve Llama-2-7B
 # ---------------------------------------------------------------------------
 
+SERVE_LENS = (13, 700, 48, 311, 96, 650, 27, 205, 512, 64, 400, 150)
+
+
+def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
+               base: int) -> dict:
+    """One counted run of the 12 requests on `eng` after a warm-up
+    request (first cuBLAS handles and plans; under the mix's first
+    adapter, if any), with each of `kernels`' launch counts read around
+    it and required to be > 0. Every request must finish with 32 tokens.
+    Peak memory is counted above `base` bytes."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import FINISHED, SamplingParams
+    vocab = eng.model.config.vocab_size
+    warm_adapter = next((a for a in adapter_ids or () if a), None)
+    eng.generate_many([prompts[0][:8]],
+                      SamplingParams(max_new_tokens=8, eos_token_id=-1),
+                      adapter_ids=warm_adapter)
+    eng.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = eng.generate_many(prompts, params, adapter_ids=adapter_ids)
+    wall = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in kernels}
+
+    st = eng.stats()
+    for h in handles:
+        if h.status != FINISHED or len(h.tokens) != 32:
+            raise AssertionError(f'{tag}: request {h} did not finish with '
+                                 f'32 tokens')
+        if not all(0 <= t < vocab for t in h.tokens):
+            raise AssertionError(f'{tag}: token out of range in {h.tokens}')
+    missing = [k for k, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f'{tag}: kernels never launched on the main '
+                             f'path: {missing}')
+    ttft = sorted(h.ttft for h in handles)
+    res = {
+        'requests': len(handles), 'wall_s': wall,
+        'prefills': st['prefills'],
+        'prefill_tokens': st['prefill_tokens'],
+        'prefill_bucket_tokens': st['prefill_bucket_tokens'],
+        'prefill_s': st['prefill_seconds'],
+        'prefill_tok_per_s': st['prefill_tokens'] / st['prefill_seconds'],
+        'decode_tokens': st['tokens'], 'decode_s': st['decode_seconds'],
+        'decode_tok_per_s': st['tokens'] / st['decode_seconds'],
+        'decode_rounds': st['decode_rounds'],
+        'decode_steps': st['decode_steps'],
+        'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
+        'ttft_p50_s': ttft[len(ttft) // 2],
+        'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+        'launches': launches, 'tokens': [h.tokens for h in handles],
+    }
+    log(f'[{tag}] {len(handles)} requests in {wall:.2f} s: prefill '
+        f'{res["prefill_tok_per_s"]:.0f} tok/s ({st["prefill_tokens"]} '
+        f'prompt tokens in {st["prefill_seconds"]:.3f} s), decode '
+        f'{res["decode_tok_per_s"]:.1f} tok/s ({st["tokens"]} tokens in '
+        f'{st["decode_seconds"]:.3f} s, {st["decode_rounds"]} rounds), TTFT '
+        f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
+        f'{res["ttft_max_s"]:.3f} s, peak device memory '
+        f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
+        f'before the phase')
+    log(f'[{tag}] kernel launches on this run: {launches}')
+    return res
+
+
 def serve(cfg) -> dict:
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.nlp import LlamaForCausalLM
-    from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.serving import (FINISHED, SAMPLING,
-                                          InferenceEngine, SamplingParams)
+    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
+                                          SamplingParams)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -687,63 +879,66 @@ def serve(cfg) -> dict:
         f' KV pool {eng.pool.num_pages} pages, '
         f'{eng.pool.pool_bytes / 1e9:.2f} GB')
     rng = np.random.RandomState(2)
-    lens = [13, 700, 48, 311, 96, 650, 27, 205, 512, 64, 400, 150]
-    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist() for s in lens]
+    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+               for s in SERVE_LENS]
     params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
               for _ in prompts]
     params[5] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
                                strategy=SAMPLING, temperature=0.8,
                                top_p=0.9, seed=7)
-    # warm-up outside the counted run (first cuBLAS handles and plans)
-    eng.generate_many([prompts[0][:8]],
-                      SamplingParams(max_new_tokens=8, eos_token_id=-1))
-    eng.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
+    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve',
+                     base)
+    res.update(engine=eng, prompts=prompts, params=params)
+    return res
 
-    K.reset_launch_counts()
+
+def serve_adapters(served) -> dict:
+    """Phase 6's model, prompts, parameters and engine settings behind an
+    engine with a bank of three adapters (capacity 4, rank 8, f32, on
+    q/k/v/o_proj), request i under [base, ad0, ad1, ad2][i % 4], as
+    bench.py mixes adapters. Requires the adapter kernel once per adapted
+    projection of every prefill and decode forward, base requests to get
+    phase 6's tokens, and some adapted request to differ from them."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    model = served['engine'].model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    handles = eng.generate_many(prompts, params)
-    wall = time.perf_counter() - t0
-    launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
-
-    st = eng.stats()
-    for h in handles:
-        if h.status != FINISHED or len(h.tokens) != 32:
-            raise AssertionError(f'serve: request {h} did not finish with '
-                                 f'32 tokens')
-        if not all(0 <= t < cfg.vocab_size for t in h.tokens):
-            raise AssertionError(f'serve: token out of range in {h.tokens}')
-    missing = [k for k, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f'serve: kernels never launched on the main '
-                             f'path: {missing}')
-    ttft = sorted(h.ttft for h in handles)
-    res = {
-        'requests': len(handles), 'wall_s': wall,
-        'prefill_tokens': st['prefill_tokens'],
-        'prefill_bucket_tokens': st['prefill_bucket_tokens'],
-        'prefill_s': st['prefill_seconds'],
-        'prefill_tok_per_s': st['prefill_tokens'] / st['prefill_seconds'],
-        'decode_tokens': st['tokens'], 'decode_s': st['decode_seconds'],
-        'decode_tok_per_s': st['tokens'] / st['decode_seconds'],
-        'decode_rounds': st['decode_rounds'],
-        'decode_steps': st['decode_steps'],
-        'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
-        'ttft_p50_s': ttft[len(ttft) // 2],
-        'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
-        'launches': launches,
-    }
-    log(f'[serve] {len(handles)} requests in {wall:.2f} s: prefill '
-        f'{res["prefill_tok_per_s"]:.0f} tok/s ({st["prefill_tokens"]} '
-        f'prompt tokens in {st["prefill_seconds"]:.3f} s), decode '
-        f'{res["decode_tok_per_s"]:.1f} tok/s ({st["tokens"]} tokens in '
-        f'{st["decode_seconds"]:.3f} s, {st["decode_rounds"]} rounds), TTFT '
-        f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
-        f'{res["ttft_max_s"]:.3f} s, peak device memory '
-        f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
-        f'before the phase')
-    log(f'[serve] kernel launches on this run: {launches}')
-    res.update(engine=eng, prompts=prompts)
+    bank = adapter_bank(model, 3, 4)
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, adapter_bank=bank)
+    log(f'[serve-adapters] bank of 3 adapters over {len(bank.sites)} '
+        f'projections built in {time.perf_counter() - t0:.1f} s')
+    prompts = served['prompts']
+    ids = [(None, 'ad0', 'ad1', 'ad2')[i % 4] for i in range(len(prompts))]
+    res = _run_serve(eng, prompts, served['params'], ids, ADAPTER_KERNELS,
+                     'serve-adapters', base)
+    want = len(bank.sites) * (res['prefills'] + res['decode_steps'])
+    if res['launches']['adapter_matmul'] != want:
+        raise AssertionError(
+            f'serve-adapters: {res["launches"]["adapter_matmul"]} adapter '
+            f'launches, want {len(bank.sites)} x ({res["prefills"]} '
+            f'prefills + {res["decode_steps"]} decode sub-steps) = {want}')
+    base = [j for j, aid in enumerate(ids) if aid is None]
+    wrong = [j for j in base if res['tokens'][j] != served['tokens'][j]]
+    if wrong:
+        raise AssertionError(f'serve-adapters: base requests {wrong} differ '
+                             f'from phase 6')
+    changed = [j for j, aid in enumerate(ids)
+               if aid is not None and res['tokens'][j] != served['tokens'][j]]
+    if not changed:
+        raise AssertionError('serve-adapters: no adapted request differs '
+                             'from phase 6')
+    log(f'[serve-adapters] {want} adapter launches = {len(bank.sites)} x '
+        f'({res["prefills"]} prefills + {res["decode_steps"]} decode '
+        f'sub-steps); base requests {base} == phase 6; adapted requests '
+        f'{changed} differ from it')
+    log(f'[serve-adapters] beside phase 6 (same process): decode '
+        f'{res["decode_tok_per_s"]:.1f} vs {served["decode_tok_per_s"]:.1f} '
+        f'tok/s, prefill {res["prefill_tok_per_s"]:.0f} vs '
+        f'{served["prefill_tok_per_s"]:.0f} tok/s, TTFT mean '
+        f'{res["ttft_mean_s"]:.3f} vs {served["ttft_mean_s"]:.3f} s')
+    res.update(engine=eng, prompts=prompts, ids=ids)
     return res
 
 
@@ -752,6 +947,7 @@ def serve(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 _GROUPS = (('paged_attention', ('paged_attn_kernel',)),
+           ('adapter_matmul', ('adapter_matmul_kernel',)),
            ('flash_attention_bwd', ('flash_bwd_dq_kernel',
                                     'flash_bwd_dkv_kernel')),
            ('flash_attention', ('flash_fwd_kernel',)),
@@ -791,28 +987,35 @@ def _breakdown(windows, wall_s: float, label: str) -> None:
         log(f'[profile]   top: {ms:8.3f} ms {n:5d}x {name}')
 
 
-def profile_serve(eng, prompts) -> None:
-    """On the serve engine after its counted run: time one decode round
-    with every slot busy (no profiler yet), profile the next one, and
-    profile one prefill forward of the longest prompt's bucket."""
+def profile_serve(eng, banked, prompts, adapter_ids) -> None:
+    """On the serve engine and the banked engine after their counted
+    runs: time one decode round of each with every slot busy (no profiler
+    yet; the banked engine's requests under `adapter_ids`), then profile
+    the next round of each, and one prefill forward of the longest
+    prompt's bucket."""
     from torch.profiler import ProfilerActivity, profile
-    for p in prompts[:eng.pool.num_slots]:
-        eng.submit(p, max_new_tokens=4 * eng.decode_block, eos_token_id=-1)
-    eng.step()                  # admit + prefill all, first round
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.step()                  # a pure decode round, not profiled
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    rounds = []
+    for e, ids, label in ((eng, None, 'decode round'),
+                          (banked, adapter_ids, 'decode round with adapters')):
+        n = e.pool.num_slots
+        for p, aid in zip(prompts[:n], ids or [None] * n):
+            e.submit(p, max_new_tokens=4 * e.decode_block, eos_token_id=-1,
+                     adapter_id=aid)
+        e.step()                # admit + prefill all, first round
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.step()              # the next decode round, profiled
-        wall_prof = time.perf_counter() - t0
-    _breakdown([(prof, None)], wall,
-               f'decode round ({eng.pool.num_slots} slots x '
-               f'{eng.decode_block} sub-steps)')
-    log(f'[profile]   (the profiled round took {wall_prof * 1e3:.2f} ms; '
-        f'the idle share uses the unprofiled round)')
-    eng.run()
+        e.step()                # a pure decode round, not profiled
+        rounds.append((e, time.perf_counter() - t0,
+                       f'{label} ({n} slots x {e.decode_block} sub-steps)'))
+    for e, wall, label in rounds:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            e.step()            # the next decode round, profiled
+            wall_prof = time.perf_counter() - t0
+        _breakdown([(prof, None)], wall, label)
+        log(f'[profile]   (the profiled round took {wall_prof * 1e3:.2f} '
+            f'ms; the idle share uses the unprofiled round)')
+        e.run()
     bucket = eng.pool.bucket_for(len(prompts[1]))
     ids = torch.zeros((1, bucket), dtype=torch.int64, device=DEV)
     ids[0, :len(prompts[1])] = torch.tensor(prompts[1], device=DEV)
@@ -871,11 +1074,14 @@ def main() -> int:
     cases = kernel_cases()
     check_kernels(cases)
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     trained = train(LlamaConfig.llama2_7b(num_hidden_layers=8,
                                           use_recompute=True))
     res = serve(LlamaConfig.llama2_7b())
-    profile_serve(res['engine'], res['prompts'])
+    adapted = serve_adapters(res)
+    profile_serve(res['engine'], adapted['engine'], res['prompts'],
+                  adapted['ids'])
     profile_train(trained['step'], trained['batch'], trained['step_s'])
     rows = time_kernels(cases)
     smi = subprocess.run(
@@ -885,8 +1091,8 @@ def main() -> int:
     table = []
     for name in REPLACES:
         r = rows[name]
-        launches = (res['launches'].get(name, 0)
-                    + trained['launches'].get(name, 0))
+        launches = sum(run['launches'].get(name, 0)
+                       for run in (res, trained, adapted))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -32,7 +32,13 @@ class Linear(Layer):
             if bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight, self.bias)
+        # serving.adapters tags target projections with a per-instance
+        # hook, inert unless an adapter scope is active
+        hook = self.__dict__.get('_adapter_hook')
+        if hook is not None:
+            y = hook(self, x, y)
+        return y
 
     def extra_repr(self):
         return f'in={self.in_features}, out={self.out_features}'

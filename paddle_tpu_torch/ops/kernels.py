@@ -10,7 +10,8 @@ the serving and training paths has a hand-written Hopper kernel here
 - `paged_attention` replaces `_paged_attn_kernel`,
 - `rms_norm_fwd` replaces `_rms_fwd_kernel`,
 - `softmax_cross_entropy_fwd` replaces `_ce_fwd_kernel`,
-- `softmax_cross_entropy_bwd` replaces `_ce_bwd_kernel`.
+- `softmax_cross_entropy_bwd` replaces `_ce_bwd_kernel`,
+- `adapter_matmul` replaces `_adapter_matmul_kernel` (per-row LoRA delta).
 
 The gradients are `torch.autograd.Function`s around them, the
 counterparts of the JAX package's custom VJPs: `FlashAttention`
@@ -43,11 +44,13 @@ NEG_INF = torch.finfo(torch.float32).min
 
 LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'paged_attention': 0,
-            'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0}
+            'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
+            'adapter_matmul': 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
 _MAX_GROUP = 8           # paged kernel: query heads per kv head, at most
+ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +65,7 @@ _ARGTYPES = {
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
     'paged_attention_fwd': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    'adapter_matmul_fwd': [_P] * 6 + [_I] * 8 + [_P],
 }
 
 
@@ -639,3 +643,68 @@ def softmax_cross_entropy(logits: torch.Tensor,
     """Per-row nll [N] of contiguous logits [N, V] for int32 labels [N],
     differentiable in the logits."""
     return SoftmaxCrossEntropy.apply(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# segmented adapter (LoRA) matmul
+# ---------------------------------------------------------------------------
+
+def adapter_matmul_reference(x, a_bank, b_bank, rows, scale):
+    """Plain version, the JAX package's `adapter_matmul_reference` in
+    torch, in its order: x, the gathered factors and the scale in fp32,
+    h1 = x A, out = h1 B, times scale[rows[b]], cast to x.dtype.
+
+    x [B, T, H]; a_bank [C, H, R]; b_bank [C, R, O]; rows [B] (bank slot
+    of each row; slot 0 is the zero base adapter); scale [C] f32.
+    Returns the [B, T, O] delta in x.dtype."""
+    idx = rows.long()
+    a = a_bank[idx].float()                       # [B, H, R]
+    b = b_bank[idx].float()                       # [B, R, O]
+    s = scale[idx].float()                        # [B]
+    h1 = torch.einsum('bth,bhr->btr', x.float(), a)
+    out = torch.einsum('btr,bro->bto', h1, b)
+    return (out * s[:, None, None]).to(x.dtype)
+
+
+def adapter_matmul(x, a_bank, b_bank, rows, scale):
+    """Per-row LoRA delta over a packed adapter bank (shapes as in
+    `adapter_matmul_reference`). The kernel reads each row's slot and
+    gathers its factors in the same launch. It takes x and the bank in
+    f32 or bf16 (independently), rows int32 in [0, C), scale f32, all
+    contiguous, and a rank of at most ADAPTER_MAX_RANK."""
+    _require(x.dim() == 3 and a_bank.dim() == 3 and b_bank.dim() == 3,
+             'adapter_matmul takes x [B, T, H], a_bank [C, H, R] and '
+             'b_bank [C, R, O]')
+    bsz, t, h = x.shape
+    c, _, r = a_bank.shape
+    o = b_bank.shape[2]
+    _require(tuple(a_bank.shape) == (c, h, r)
+             and tuple(b_bank.shape) == (c, r, o)
+             and tuple(rows.shape) == (bsz,) and tuple(scale.shape) == (c,)
+             and c >= 1, f'adapter_matmul shapes x {tuple(x.shape)} a_bank '
+                         f'{tuple(a_bank.shape)} b_bank {tuple(b_bank.shape)}'
+                         f' rows {tuple(rows.shape)} scale '
+                         f'{tuple(scale.shape)}')
+    _require(1 <= r <= ADAPTER_MAX_RANK,
+             f'adapter kernel takes a rank of 1..{ADAPTER_MAX_RANK}, got {r}')
+    if _on_cpu(x, a_bank, b_bank, rows, scale):
+        return adapter_matmul_reference(x, a_bank, b_bank, rows, scale)
+    _require(x.dtype in (torch.float32, torch.bfloat16)
+             and a_bank.dtype in (torch.float32, torch.bfloat16)
+             and b_bank.dtype == a_bank.dtype,
+             f'adapter kernel takes x and the bank in f32 or bf16, got '
+             f'{x.dtype}, {a_bank.dtype}, {b_bank.dtype}')
+    _require(rows.dtype == torch.int32 and scale.dtype == torch.float32,
+             'adapter kernel takes rows int32 and scale f32')
+    _require(all(u.is_contiguous() for u in (x, a_bank, b_bank, rows, scale)),
+             'adapter kernel takes contiguous tensors')
+    out = torch.empty((bsz, t, o), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib, fn = _entry('adapter_matmul', 'adapter_matmul_fwd')
+    rc = fn(x.data_ptr(), a_bank.data_ptr(), b_bank.data_ptr(),
+            rows.data_ptr(), scale.data_ptr(), out.data_ptr(), bsz, t, h, r,
+            o, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_bank.dtype], _stream(x))
+    _build.check(lib, rc, 'adapter_matmul_fwd')
+    LAUNCHES['adapter_matmul'] += 1
+    return out

@@ -1,5 +1,7 @@
 """Serving (counterpart of `paddle_tpu.serving`): the paged
-continuous-batching `InferenceEngine` and its request API."""
+continuous-batching `InferenceEngine`, its request API and multi-tenant
+LoRA adapters (`AdapterBank`)."""
+from .adapters import AdapterBank, AdapterUnavailable, make_adapter_factors
 from .api import (FAILED, FINISHED, GREEDY, PRIORITY_HIGH, PRIORITY_LOW,
                   PRIORITY_NORMAL, QUEUED, RUNNING, SAMPLING,
                   RequestHandle, SamplingParams)
@@ -13,4 +15,5 @@ __all__ = ['FAILED', 'FINISHED', 'GREEDY', 'PRIORITY_HIGH', 'PRIORITY_LOW',
            'SAMPLING', 'RequestHandle', 'SamplingParams', 'InferenceEngine',
            'sample_rows', 'PagedSlotPool', 'PagePoolExhausted',
            'PromptTooLongError', 'default_buckets', 'scatter_pages',
-           'FCFSScheduler']
+           'FCFSScheduler', 'AdapterBank', 'AdapterUnavailable',
+           'make_adapter_factors']

@@ -94,6 +94,11 @@ class RequestHandle:
         self.status = QUEUED
         self.error: Optional[BaseException] = None
         self._engine = engine
+        # LoRA adapter this request decodes under (None = base model), the
+        # version it pinned at admission, and its bank slot while pinned
+        self.adapter_id: Optional[str] = None
+        self.adapter_version: Optional[int] = None
+        self._adapter_pin: Optional[int] = None
         self._eos = -1
         self._t_submit = time.perf_counter()
         self._t_first: Optional[float] = None

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV pool
 (counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
-`kv_page_size` set, unquantized, without prefix cache, chunked prefill,
-draft model or adapters).
+`kv_page_size` set, unquantized, without prefix cache, chunked prefill
+or draft model).
 
 One engine is one event loop: `step()` admits queued requests into free
 slots (reserving every page each can touch, and requeueing on
@@ -19,6 +19,13 @@ slot's pages.
 Greedy requests take the raw argmax, so their tokens never depend on
 batch neighbours; sampling requests draw from their own
 `torch.Generator`, seeded from `SamplingParams.seed`.
+
+With an `AdapterBank`, each request may decode under its own LoRA
+adapter (`submit(..., adapter_id=)`): admission pins the adapter's bank
+slot into the host row vector `_adapter_rows` (0 = the zero base
+adapter), and every prefill and decode forward runs inside
+`adapter_scope` over the bank's tensors and those rows, so one batch
+mixes base and adapted requests.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import torch
 from ..nlp.generation import cached_forward
 from ..ops.kernels import NEG_INF
 from ..framework import generator as _generator
+from .adapters.apply import adapter_scope
+from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
 from .kv_pool import PagePoolExhausted, PagedSlotPool, scatter_pages
 from .scheduler import FCFSScheduler
@@ -94,6 +103,9 @@ class InferenceEngine:
         kv_pages: total pages including the null page 0. Default
             num_slots * pages_per_slot + 1; lower oversubscribes, and
             admission then requeues on page exhaustion.
+        adapter_bank: a `serving.AdapterBank` attached to this model;
+            enables `submit(..., adapter_id=)`. A request pins its
+            adapter at admission and unpins it at retirement.
     """
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 256,
@@ -102,7 +114,8 @@ class InferenceEngine:
                  max_prefill_tokens: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
                  max_wait_s: Optional[float] = None,
-                 kv_page_size: int = 16, kv_pages: Optional[int] = None):
+                 kv_page_size: int = 16, kv_pages: Optional[int] = None,
+                 adapter_bank=None):
         cfg = getattr(model, 'config', None)
         max_pos = getattr(cfg, 'max_position_embeddings', None)
         if max_pos is not None and max_length > max_pos:
@@ -119,6 +132,7 @@ class InferenceEngine:
             getattr(cfg, 'eos_token_id', -1) if eos_token_id is None
             else eos_token_id)
         self.decode_block = int(decode_block)
+        self.adapter_bank = adapter_bank
         self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
                                   page_size=int(kv_page_size),
                                   num_pages=kv_pages)
@@ -135,6 +149,7 @@ class InferenceEngine:
         self._topp = np.ones(n, np.float32)
         self._greedy = np.ones(n, bool)
         self._gens: List[Optional[torch.Generator]] = [None] * n
+        self._adapter_rows = np.zeros(n, np.int32)  # 0 = base adapter
         self._slot_req: dict = {}               # slot -> RequestHandle
         self._counts = collections.Counter()
         self._seconds = collections.Counter()
@@ -159,14 +174,24 @@ class InferenceEngine:
         return [int(t) for t in arr]
 
     def submit(self, prompt, params: Optional[SamplingParams] = None,
-               priority: Optional[int] = None, **kwargs) -> RequestHandle:
+               priority: Optional[int] = None,
+               adapter_id: Optional[str] = None, **kwargs) -> RequestHandle:
         """Queue one request; returns its live handle. Validation errors
-        raise here."""
+        raise here. `adapter_id` decodes the request under that LoRA
+        adapter of the engine's bank (None = base model); an adapter the
+        bank does not hold raises `AdapterUnavailable` here."""
         if params is None:
             params = SamplingParams(**kwargs)
         elif kwargs:
             raise TypeError('pass params= or keyword sampling args, '
                             'not both')
+        if adapter_id is not None:
+            if self.adapter_bank is None:
+                raise ValueError(
+                    f'adapter_id={adapter_id!r} needs an engine built '
+                    f'with adapter_bank=')
+            if not self.adapter_bank.available(adapter_id):
+                raise AdapterUnavailable(adapter_id, 'not resident')
         toks = self._normalize_prompt(prompt)
         self.pool.bucket_for(len(toks))   # raises when no bucket fits
         if len(toks) + params.max_new_tokens > self.pool.max_length:
@@ -175,6 +200,7 @@ class InferenceEngine:
                 f'({params.max_new_tokens}) exceeds the slot length '
                 f'({self.pool.max_length})')
         h = RequestHandle(toks, params, engine=self)
+        h.adapter_id = adapter_id
         if priority is not None:
             h.priority = int(priority)
         h._eos = int(self.eos_token_id if params.eos_token_id is None
@@ -238,11 +264,13 @@ class InferenceEngine:
         topk = torch.from_numpy(self._topk).to(dev)
         topp = torch.from_numpy(self._topp).to(dev)
         sampling = self._active & ~self._greedy
+        adapters, rows = self._adapter_args()
         out = []
         with torch.inference_mode():
             for _ in range(self.decode_block):
-                logits = self._fwd(tok[:, None], self.pool.pages, pos,
-                                   table)[:, -1]
+                with adapter_scope(adapters, rows):
+                    logits = self._fwd(tok[:, None], self.pool.pages, pos,
+                                       table)[:, -1]
                 nxt = sample_rows(logits, temp, topk, topp, sampling,
                                   self._gens)
                 tok = torch.where(active, nxt, 0)
@@ -264,14 +292,21 @@ class InferenceEngine:
         """Per-token iterator for one request (see RequestHandle.stream)."""
         return handle.stream()
 
-    def generate_many(self, prompts, params=None) -> List[RequestHandle]:
+    def generate_many(self, prompts, params=None,
+                      adapter_ids=None) -> List[RequestHandle]:
         """Submit a batch of prompts and drain the engine. `params` is one
-        SamplingParams for all, or one per prompt."""
+        SamplingParams for all, or one per prompt; `adapter_ids` is one
+        adapter id (or None) for all, or one per prompt."""
         if params is None or isinstance(params, SamplingParams):
             params = [params or SamplingParams()] * len(prompts)
         if len(params) != len(prompts):
             raise ValueError('one SamplingParams per prompt')
-        handles = [self.submit(p, sp) for p, sp in zip(prompts, params)]
+        if adapter_ids is None or isinstance(adapter_ids, str):
+            adapter_ids = [adapter_ids] * len(prompts)
+        if len(adapter_ids) != len(prompts):
+            raise ValueError('one adapter id (or None) per prompt')
+        handles = [self.submit(p, sp, adapter_id=aid)
+                   for p, sp, aid in zip(prompts, params, adapter_ids)]
         self.run()
         return handles
 
@@ -285,12 +320,24 @@ class InferenceEngine:
             slot = self.pool.alloc()
             s = len(h.prompt_tokens)
             try:
+                # pin before reserving pages: the pin rolls back with a
+                # requeue
+                self._pin_adapter(slot, h)
+            except AdapterUnavailable as exc:
+                # evicted since submit: a request-level failure; the
+                # engine keeps serving everyone else
+                self.pool.free(slot)
+                h._fail(exc)
+                self._counts['failed'] += 1
+                continue
+            try:
                 self.pool.reserve(slot, min(s + h.params.max_new_tokens,
                                             self.pool.max_length))
             except PagePoolExhausted:
                 # not a failure: this handle and everything behind it go
                 # back to the queue front in order; pages free up as
                 # in-flight requests retire
+                self._unpin_adapter(slot, h)
                 self.pool.free(slot)
                 for back in reversed(admitted[idx:]):
                     self.scheduler.requeue(back)
@@ -313,7 +360,7 @@ class InferenceEngine:
         ids = torch.zeros((1, bucket), dtype=torch.int64)
         ids[0, :s] = torch.tensor(h.prompt_tokens)
         table = torch.from_numpy(self.pool.page_table[slot:slot + 1])
-        with torch.inference_mode():
+        with torch.inference_mode(), adapter_scope(*self._adapter_args(slot)):
             slab = self.model.prefill_kv(ids.to(self.device))
             scatter_pages(self.pool.pages, table.to(self.device), slab,
                           torch.zeros(1, dtype=torch.int64,
@@ -340,8 +387,40 @@ class InferenceEngine:
         self._gens[slot] = None if greedy else _generator(
             h.request_id if p.seed is None else p.seed, self.device)
 
+    def _pin_adapter(self, slot: int, h: RequestHandle):
+        """Pin the request's adapter and point the slot's row at its bank
+        slot (0, the zero base adapter, for a base request). Raises
+        `AdapterUnavailable` when the adapter was evicted since submit."""
+        if h.adapter_id is None:
+            self._adapter_rows[slot] = 0
+            return
+        pin, version = self.adapter_bank.pin(h.adapter_id)
+        h._adapter_pin = pin
+        h.adapter_version = version
+        self._adapter_rows[slot] = pin
+
+    def _unpin_adapter(self, slot: int, h: RequestHandle):
+        """Release the request's bank pin (idempotent) and point the slot's
+        row back at the zero base adapter."""
+        if h._adapter_pin is not None:
+            self.adapter_bank.unpin(h._adapter_pin)
+            h._adapter_pin = None
+        self._adapter_rows[slot] = 0
+
+    def _adapter_args(self, slot: Optional[int] = None) -> tuple:
+        """(bank tensors, per-row bank slots on the device) for
+        `adapter_scope`: every slot's row for a decode round, or one slot's
+        for its prefill; (None, None), an inert scope, without a bank."""
+        if self.adapter_bank is None:
+            return None, None
+        rows = (self._adapter_rows if slot is None
+                else self._adapter_rows[slot:slot + 1])
+        return (self.adapter_bank.device_arrays(),
+                torch.from_numpy(rows.copy()).to(self.device))
+
     def _retire(self, slot: int, h: RequestHandle, now: float):
         h._finish(now)
+        self._unpin_adapter(slot, h)
         del self._slot_req[slot]
         self._active[slot] = False
         self._greedy[slot] = True
@@ -357,9 +436,10 @@ class InferenceEngine:
         prefills (each ends in a device sync), `decode_seconds` wall time
         of the decode rounds (each ends in the token fetch)."""
         c = self._counts
-        return {
+        out = {
             'submitted': c['submitted'],
             'completed': c['completed'],
+            'failed': c['failed'],
             'requeued': c['requeued'],
             'tokens': c['tokens'],
             'prefills': c['prefills'],
@@ -374,6 +454,9 @@ class InferenceEngine:
             'kv_layout': 'paged',
             'pool': self.pool.stats(),
         }
+        if self.adapter_bank is not None:
+            out['adapters'] = self.adapter_bank.stats()
+        return out
 
     def reset_stats(self):
         self._counts.clear()

@@ -238,3 +238,87 @@ def test_training_on_card_matches_training_on_cpu(cuda):
         assert K.LAUNCHES[name] > 0, name
     torch.testing.assert_close(torch.tensor(losses[0]),
                                torch.tensor(losses[1]), rtol=1e-4, atol=0)
+
+
+def _adapter_case(gen, b, t, h, r, o, c, x_dtype, w_dtype, rows):
+    """x [b, t, h], banks [c, h, r] / [c, r, o] with a zero slot 0, scales
+    (0 for slot 0) and the given rows, on the card."""
+    x = _randn(gen, x_dtype, b, t, h)
+    a = (0.05 * _randn(gen, torch.float32, c, h, r)).to(w_dtype)
+    bb = (0.05 * _randn(gen, torch.float32, c, r, o)).to(w_dtype)
+    a[0], bb[0] = 0, 0
+    scale = torch.rand(c, generator=gen, device=gen.device) + 0.5
+    scale[0] = 0.0
+    return x, a, bb, torch.tensor(rows, dtype=torch.int32,
+                                  device=gen.device), scale
+
+
+@pytest.mark.parametrize('w_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('x_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,t,h,r,o,rows', [
+    (8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),     # decode
+    (1, 1024, 4096, 8, 4096, [3]),                       # prefill
+    (6, 5, 4000, 16, 1000, [0, 2, 2, 1, 0, 4]),          # ragged
+    (3, 2, 64, 64, 32, [1, 0, 2])])                      # widest rank
+def test_adapter_kernel_matches_plain(cuda, x_dtype, w_dtype, b, t, h, r, o,
+                                      rows):
+    g = torch.Generator(device=cuda).manual_seed(b * t + r)
+    args = _adapter_case(g, b, t, h, r, o, 5, x_dtype, w_dtype, rows)
+    before = K.LAUNCHES['adapter_matmul']
+    got = K.adapter_matmul(*args)
+    assert K.LAUNCHES['adapter_matmul'] == before + 1
+    want = K.adapter_matmul_reference(*args)
+    assert got.dtype == x_dtype and got.shape == want.shape
+    _close(got, want, x_dtype)
+    base = got[args[3] == 0]
+    assert torch.equal(base, torch.zeros_like(base))   # slot 0: exact zero
+
+
+def test_adapter_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, a, b, rows, scale = _adapter_case(g, 2, 1, 64, 4, 32, 3,
+                                         torch.float32, torch.float32, [0, 1])
+    with pytest.raises(ValueError):          # fp16 x
+        K.adapter_matmul(x.half(), a, b, rows, scale)
+    with pytest.raises(ValueError):          # int64 rows
+        K.adapter_matmul(x, a, b, rows.long(), scale)
+    with pytest.raises(ValueError):          # strided x
+        K.adapter_matmul(torch.zeros((2, 1, 128), device=cuda)[:, :, ::2],
+                         a, b, rows, scale)
+    with pytest.raises(ValueError):          # rank above the kernel's
+        K.adapter_matmul(x, torch.zeros((3, 64, 65), device=cuda),
+                         torch.zeros((3, 65, 32), device=cuda), rows, scale)
+
+
+def test_banked_engine_on_card_matches_engine_on_cpu(cuda):
+    """The same f32 model and adapters on the card (kernels) and on the
+    CPU (plain versions): a mixed base/adapter wave gives the same greedy
+    tokens, and the adapter kernel ran on the card."""
+    from paddle_tpu_torch.serving import AdapterBank, make_adapter_factors
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    on_card = LlamaForCausalLM(cfg, device=cuda,
+                               generator=generator(6, cuda))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, 512, (s,), generator=g).tolist()
+               for s in (3, 17, 40, 9)]
+    ids = [None, 'ad0', 'ad1', 'ad0']
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    tokens = []
+    for model in (on_card, on_cpu):
+        bank = AdapterBank(model, capacity=2, rank=8,
+                           targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+        for i in range(2):
+            bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
+        K.reset_launch_counts()
+        hs = InferenceEngine(model, num_slots=3, max_length=128,
+                             decode_block=4, adapter_bank=bank
+                             ).generate_many(prompts, sp, adapter_ids=ids)
+        tokens.append([h.tokens for h in hs])
+        if model is on_card:
+            assert K.LAUNCHES['adapter_matmul'] > 0
+    assert tokens[0] == tokens[1]

@@ -8,7 +8,8 @@ output dtype (what a correct kernel that sums in another order gives)
 must pass, and the same function with a term left out, or off by 2%,
 must fail. Inputs come from numpy with a seed, at a small training-like
 shape (B=1, S=256, 4 query heads over 2 kv heads, D=128; CE at
-[64, 1000] with ignored rows and an O(1) upstream gradient).
+[64, 1000] with ignored rows and an O(1) upstream gradient; the adapter
+delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots).
 """
 import importlib.util
 import math
@@ -147,6 +148,60 @@ def _mutant(case, dtype):
 ])
 def test_compare_rejects_a_wrong_kernel(case, dtype):
     got, want = _mutant(case, dtype)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare(case, got, want)
+
+
+def _adapter(dtype):
+    """(x, a_bank, b_bank, rows, scale) with an f32 bank whose slot 0 is
+    zero, rows mixing slot 0 with repeated slots, and x in `dtype`."""
+    rng = np.random.RandomState(2)
+    x = _randn(rng, (8, 2, 256), dtype)
+    a = 0.05 * _randn(rng, (5, 256, 8), torch.float32)
+    b = 0.05 * _randn(rng, (5, 8, 192), torch.float32)
+    a[0], b[0] = 0.0, 0.0
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 5).astype(np.float32))
+    scale[0] = 0.0
+    rows = torch.tensor([0, 1, 2, 1, 0, 3, 3, 4], dtype=torch.int32)
+    return x, a, b, rows, scale
+
+
+def _adapter_fp64(x, a, b, rows, scale):
+    idx = rows.long()
+    out = torch.einsum('bth,bhr,bro->bto', x.double(), a[idx].double(),
+                       b[idx].double())
+    return (out * scale.double()[idx][:, None, None]).to(x.dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_compare_accepts_a_correct_adapter_kernel(dtype):
+    args = _adapter(dtype)
+    smoke.compare('adapter', _adapter_fp64(*args),
+                  K.adapter_matmul_reference(*args))
+
+
+@pytest.mark.parametrize('case,dtype', [
+    ('neighbour_slot', torch.bfloat16),
+    ('scale_dropped', torch.bfloat16),
+    ('gain_2pct', torch.bfloat16),
+    ('neighbour_slot', torch.float32),
+    ('bank_rounded_to_bf16', torch.float32),
+])
+def test_compare_rejects_a_wrong_adapter_kernel(case, dtype):
+    """A kernel that reads the next slot's factors, leaves out the scale,
+    is off by 2%, or rounds an f32 bank to bf16 fails the limits."""
+    x, a, b, rows, scale = _adapter(dtype)
+    want = K.adapter_matmul_reference(x, a, b, rows, scale)
+    if case == 'neighbour_slot':
+        got = _adapter_fp64(x, a, b, torch.where(rows > 0, rows % 4 + 1, 0),
+                            scale)
+    elif case == 'scale_dropped':
+        got = _adapter_fp64(x, a, b, rows, (scale > 0).float())
+    elif case == 'gain_2pct':
+        got = (_adapter_fp64(x, a, b, rows, scale).double() * 1.02).to(dtype)
+    else:
+        got = _adapter_fp64(x, a.bfloat16().float(), b.bfloat16().float(),
+                            rows, scale)
     with pytest.raises(AssertionError, match='rel_max'):
         smoke.compare(case, got, want)
 
