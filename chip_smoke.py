@@ -7,7 +7,9 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. build: compile every kernel source under `paddle_tpu_torch/csrc/` with
-   nvcc (sm_90a), all sources at once;
+   nvcc (sm_90a), all sources at once; log each kernel's registers and
+   spills, and require HGMMA (wgmma) instructions in the bf16 flash
+   forward and dk/dv kernels (`cuobjdump -sass`);
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
    (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
@@ -47,10 +49,13 @@ result line):
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, one prefill forward, and one training
    step (forward + backward, then the optimizer update, each profiled);
+   the prefill must run the wgmma forward kernel, the training step the
+   wgmma forward and dk/dv kernels;
 8. timing: each kernel case of phase 2 timed (device time per call from
-   the profiler, beside CUDA-event time), with its plain version, the one
-   PyTorch call that computes the same function where there is one, and
-   the card's bound for the same work.
+   the profiler, beside CUDA-event time, which it takes where the
+   profiler's reading contradicts the events twice), with its plain
+   version, the one PyTorch call that computes the same function where
+   there is one, and the card's bound for the same work.
 
 Phases 5 and 6 run before any profiling: once torch.profiler has run in
 a process, every later launch costs the host more.
@@ -65,6 +70,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,6 +115,9 @@ SOURCES = {
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
 }
+# the tensor-core (wgmma) kernels that bf16 inputs run on, by source
+WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
+                 'flash_attention_bwd': ('flash_bwd_dkv_wgmma_kernel',)}
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
 ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
 # Llama's projections; the bank's default targets name the JAX package's
@@ -157,11 +166,11 @@ def _device_events(prof):
 
 
 def device_ms(fn, iters: int = 10, attempts: int = 3):
-    """Mean device time per call of fn(): the summed durations of the GPU
+    """(mean device time per call of fn(): the summed durations of the GPU
     activity it causes (torch.profiler / CUPTI), without the host's gaps
-    between launches. A window whose device-event count is not a whole
-    multiple of `iters` lost events and is measured again; None when no
-    window is whole."""
+    between launches; device events per call). A window whose
+    device-event count is not a whole multiple of `iters` lost events and
+    is measured again; (None, 0) when no window is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -172,16 +181,46 @@ def device_ms(fn, iters: int = 10, attempts: int = 3):
             torch.cuda.synchronize()
         events = _device_events(prof)
         if events and len(events) % iters == 0:
-            return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
-    return None
+            return (sum(e.time_range.elapsed_us() for e in events) / 1e3
+                    / iters, len(events) // iters)
+    return None, 0
+
+
+# The profiler has read a single long kernel at half its CUDA-event time
+# and another kernel at 1.5 times it (PERF.md, section 7). Events around
+# back-to-back calls bound the device time from above, so a profiler
+# reading above ev / PROFILER_MIN_SHARE is wrong; where the event time
+# per device event is above EVENT_MS_PER_LAUNCH, the host's launch gaps
+# cannot explain one below PROFILER_MIN_SHARE * ev either.
+EVENT_MS_PER_LAUNCH, PROFILER_MIN_SHARE = 0.1, 0.8
+
+
+def profiler_disagrees(dev, per_call: int, ev: float) -> bool:
+    """Whether a profiler reading of `dev` ms in `per_call` device events
+    per call contradicts the call's CUDA-event time of `ev` ms."""
+    if dev is None:
+        return False
+    return (dev * PROFILER_MIN_SHARE > ev
+            or (ev / per_call > EVENT_MS_PER_LAUNCH
+                and dev < PROFILER_MIN_SHARE * ev))
 
 
 def timed(fn):
-    """(device ms per call from the profiler, or the CUDA-event ms when
-    the profiler saw no device time; the CUDA-event ms of back-to-back
-    calls, which for a small kernel is the host's launch rate)."""
+    """(device ms per call: the profiler's, or the CUDA-event ms when the
+    profiler saw no device time or, measured twice, disagreed with the
+    events by `profiler_disagrees`; the CUDA-event ms of back-to-back calls, which
+    for a small kernel is the host's launch rate)."""
     ev = time_ms(fn)
-    dev = device_ms(fn)
+    dev, per_call = device_ms(fn)
+    if profiler_disagrees(dev, per_call, ev):
+        log(f'[timing]   profiler {dev:.4f} ms against events {ev:.4f} ms '
+            f'({per_call} device event(s) per call); measuring again')
+        ev = time_ms(fn)
+        dev, per_call = device_ms(fn)
+        if profiler_disagrees(dev, per_call, ev):
+            log(f'[timing]   again profiler {dev:.4f} ms, events {ev:.4f} '
+                f'ms; taking the events')
+            dev = None
     return (ev if dev is None else dev), ev
 
 
@@ -236,16 +275,46 @@ def live_pairs(sq: int, sk: int, causal: bool) -> int:
 # phase 1: build
 # ---------------------------------------------------------------------------
 
+def hgmma_counts(lib_path, kernels) -> dict:
+    """{kernel: count of HGMMA (wgmma) instructions} in `cuobjdump -sass`
+    of a built kernel library, over the functions whose symbol contains
+    each of `kernels`."""
+    from paddle_tpu_torch.ops import _build
+    cuobjdump = str(Path(_build._nvcc()).parent / 'cuobjdump')
+    sass = subprocess.run([cuobjdump, '-sass', str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, owners = dict.fromkeys(kernels, 0), []
+    for line in sass.splitlines():
+        if 'Function : ' in line:
+            owners = [k for k in kernels if k in line]
+        elif 'HGMMA' in line:
+            for k in owners:
+                counts[k] += 1
+    return counts
+
+
 def build():
+    """Compile every kernel source; log each kernel's registers and
+    spills, and require the tensor-core kernels' libraries to hold HGMMA
+    instructions."""
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f'[build] {len(logs)} kernel source(s) compiled in '
         f'{time.perf_counter() - t0:.1f} s')
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if 'registers' in line or 'spill' in line:
+    for name in _build.SOURCES:    # ptxas -v of this build or the cached one
+        for line in _build.build_log(name).splitlines():
+            if ('entry function' in line or 'registers' in line
+                    or 'spill' in line or 'Performance Loss' in line):
                 log(f'[build] {name}: {line.strip()}')
+    lib_dir = _build._build_dir(_build._nvcc())
+    for source, kernels in WGMMA_KERNELS.items():
+        counts = hgmma_counts(lib_dir / f'lib{source}.so', kernels)
+        log(f'[build] {source}: HGMMA instructions per kernel {counts}')
+        for fn, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f'build: {fn} in lib{source}.so holds '
+                                     f'no HGMMA instruction')
 
 
 # ---------------------------------------------------------------------------
@@ -949,8 +1018,10 @@ def serve_adapters(served) -> dict:
 _GROUPS = (('paged_attention', ('paged_attn_kernel',)),
            ('adapter_matmul', ('adapter_matmul_kernel',)),
            ('flash_attention_bwd', ('flash_bwd_dq_kernel',
-                                    'flash_bwd_dkv_kernel')),
-           ('flash_attention', ('flash_fwd_kernel',)),
+                                    'flash_bwd_dkv_kernel',
+                                    'flash_bwd_dkv_wgmma_kernel')),
+           ('flash_attention', ('flash_fwd_kernel',
+                                'flash_fwd_wgmma_kernel')),
            ('cross_entropy', ('ce_fwd_kernel', 'ce_bwd_kernel')),
            ('rms_norm', ('rms_norm_kernel',)),
            ('matmul', ('gemm', 'gemv', 'xmma', 'cutlass', 'splitk',
@@ -985,6 +1056,17 @@ def _breakdown(windows, wall_s: float, label: str) -> None:
     for name, (n, ms) in sorted(names.items(),
                                 key=lambda kv: -kv[1][1])[:8]:
         log(f'[profile]   top: {ms:8.3f} ms {n:5d}x {name}')
+
+
+def require_kernels(prof, kernels, label: str) -> None:
+    """Fail unless the profiled window ran a device event of each of
+    `kernels` (by name)."""
+    seen = {e.name for e in _device_events(prof)}
+    missing = [k for k in kernels if not any(k in n for n in seen)]
+    if missing:
+        raise AssertionError(f'profile: the {label} ran no device event of '
+                             f'{missing}')
+    log(f'[profile]   {label} ran ' + ', '.join(kernels))
 
 
 def profile_serve(eng, banked, prompts, adapter_ids) -> None:
@@ -1029,6 +1111,7 @@ def profile_serve(eng, banked, prompts, adapter_ids) -> None:
             wall = time.perf_counter() - t0
     _breakdown([(prof, None)], wall, f'prefill forward, bucket {bucket} '
                                      f'({len(prompts[1])} prompt tokens)')
+    require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'prefill forward')
 
 
 def profile_train(step, batch, step_s: float) -> None:
@@ -1056,6 +1139,9 @@ def profile_train(step, batch, step_s: float) -> None:
                f'the train phase\'s step time)')
     log(f'[profile]   (an unprofiled step run now, after the serve '
         f'profile, took {wall_now * 1e3:.2f} ms)')
+    require_kernels(fwd_bwd, ('flash_fwd_wgmma_kernel',
+                              'flash_bwd_dkv_wgmma_kernel'),
+                    'training step')
 
 
 def main() -> int:

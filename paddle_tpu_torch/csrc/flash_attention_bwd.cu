@@ -21,25 +21,49 @@
 // H = 32, causal) that is 34 GFLOP per product. The dq kernel does three
 // (dP, S, dQ: 103 GFLOP, 0.10 ms at 989 TFLOP/s bf16), the dk/dv kernel
 // four (S, dP, dV, dK: 137 GFLOP, 0.14 ms), against about 0.06 ms each to
-// move their tensors once. This first version runs every product as
-// fp32 FMAs on the CUDA cores (67 TFLOP/s peak), like the port's forward
-// kernel; wgmma and TMA are later work.
-// Design: 256 threads per block, 64-row tiles staged in shared memory as
-// fp32 (row stride D + 1, conflict-free column reads), 4 x 4 (scores)
-// and 4 x 8 (gradients) micro-tiles per thread in registers.
-// - dq kernel: one block per (64-row q tile, head, batch). Its prologue
-//   computes delta for its rows (dO is staged anyway; O is read once) and
-//   stores it for the dk/dv kernel. It loops over the k tiles up to the
-//   diagonal: V into the K/V tile, dP = dO V^T; K into the same tile,
-//   S = Q K^T, dS into shared memory; dQ += dS K in registers. Heavy
-//   causal tiles are scheduled first. About 116 KB of shared memory.
-// - dk/dv kernel: one block per (64-row k tile, kv head, batch); K and V
-//   stay in shared memory. It loops over the G query heads of the kv
-//   head and, for each, over the q tiles from the diagonal to the end:
+// move their tensors once.
+//
+// - dq kernel (f32 and bf16): fp32 FMAs on the CUDA cores (67 TFLOP/s
+//   peak). One block of 256 threads per (64-row q tile, head, batch),
+//   64-row tiles staged in shared memory as fp32 (row stride D + 1,
+//   conflict-free column reads), 4 x 4 (scores) and 4 x 8 (gradients)
+//   micro-tiles per thread in registers. Its prologue computes delta for
+//   its rows (dO is staged anyway; O is read once) and stores it for the
+//   dk/dv kernel. It loops over the k tiles up to the diagonal: V into
+//   the K/V tile, dP = dO V^T; K into the same tile, S = Q K^T, dS into
+//   shared memory; dQ += dS K in registers. Heavy causal tiles are
+//   scheduled first. About 116 KB of shared memory.
+// - dk/dv kernel, bf16: flash_bwd_dkv_wgmma_kernel, on the tensor cores
+//   (the FlashAttention-2/3 scheme). One block of two warpgroups per
+//   (128 keys, kv head, batch); each warpgroup owns 64 keys and keeps
+//   its dK and dV accumulators (64 x 128 fp32 each) in registers across
+//   the whole loop. K and V sit in shared memory in hopper.cuh's
+//   128-byte-swizzled layout; the loop runs over the G query heads of
+//   the kv head and, for each, over the 64-row q tiles from the first
+//   one that sees the block's keys to the end, with the Q and dO tiles
+//   and the tile's lse and delta rows double-buffered by cp.async (the
+//   next pair of tiles is in flight while the current one computes).
+//   Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16, both
+//   operands from shared memory; P^T = exp(S^T scale - lse) and
+//   dS^T = P^T (dP^T - delta) scale in fp32 registers (masked only on
+//   tiles that the diagonal or a tail cuts); then dV += P^T dO and
+//   dK += dS^T Q by wgmma m64n128k16 with P^T and dS^T rounded to bf16
+//   as the register A operand and dO and Q read in the transposed-B
+//   (MN-major) mode from the same tiles. The GQA sum stays inside the
+//   block: no atomics, no repeated K/V. About 130 KB of shared memory.
+//   Rounding P^T and dS^T to bf16 before the second products departs
+//   from the fp32 plain version as FlashAttention-2/3 and SDPA do; it
+//   stays within chip_smoke.py's bf16 limits (tests/test_torch_smoke.py
+//   checks that order on the CPU).
+// - dk/dv kernel, f32: flash_bwd_dkv_kernel, fp32 FMAs as in the dq
+//   kernel (the f32 consistency checks hold it to a relative 1e-5,
+//   which TF32 tensor-core products cannot meet). One block per (64-row
+//   k tile, kv head, batch); K and V stay in shared memory; per q tile
 //   S^T = K Q^T and dP^T = V dO^T together, P^T and dS^T into shared
 //   memory, then dV += P^T dO and dK += dS^T Q in registers. About
 //   166 KB of shared memory, one block per SM.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -395,6 +419,186 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dk/dv in bf16 on the tensor cores (see the note at the top)
+constexpr int kWBKV = 128;            // keys per block: two warpgroups x 64
+constexpr int kWBQ = 64;              // queries per Q / dO tile
+constexpr int kWThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint32_t kWKVBytes = kWBKV * kD * 2;
+constexpr uint32_t kWQBytes = kWBQ * kD * 2;
+// a stage holds the Q and dO tiles (each 1024-byte aligned, as the
+// swizzle needs); the stages' lse[64] and delta[64] rows follow them
+constexpr uint32_t kWStageBytes = 2 * kWQBytes;
+constexpr uint32_t kWStatBytes = 2 * kWBQ * 4;
+constexpr size_t kWDkvSmemBytes =
+    2 * kWKVBytes + 2 * (kWStageBytes + kWStatBytes) + 1024;
+
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(BwdArgs a) {
+  using namespace hopper;
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  const uint32_t k_s = aligned_smem_base(smem_w);
+  const uint32_t v_s = k_s + kWKVBytes;
+  const uint32_t st_s = v_s + kWKVBytes;
+  const uint32_t stat_s = st_s + 2 * kWStageBytes;
+  const uint8_t* k_at = smem_w + (k_s - smem_u32(smem_w));  // generic k_s
+
+  const int kt = blockIdx.x;        // low key tiles carry the most causal work
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = a.h / a.hkv;
+  const int k0 = kt * kWBKV;
+  const int offset = a.sk - a.sq;
+  const int64_t q_row = static_cast<int64_t>(a.h) * kD;
+  const int64_t kv_row = static_cast<int64_t>(a.hkv) * kD;
+  const int64_t kv_base = static_cast<int64_t>(b) * a.sk * kv_row +
+                          static_cast<int64_t>(hk) * kD;
+  const auto* qg = static_cast<const __nv_bfloat16*>(a.q);
+  const auto* dog = static_cast<const __nv_bfloat16*>(a.dout);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int kw = k0 + wg * 64;                     // first key of the warpgroup
+  const int key0 = kw + warp * 16 + (lane >> 2);   // this thread: key0, +8
+  const int col = 2 * (lane & 3);
+
+  load_tile_async<kWBKV, kWThreads>(
+      k_s, static_cast<const __nv_bfloat16*>(a.k) + kv_base, kv_row, k0, a.sk);
+  load_tile_async<kWBKV, kWThreads>(
+      v_s, static_cast<const __nv_bfloat16*>(a.v) + kv_base, kv_row, k0, a.sk);
+
+  // the (query head of the group, q tile) pairs this block visits: for
+  // each head, the q tiles from the first one that sees key k0
+  const int n_qt = (a.sq + kWBQ - 1) / kWBQ;
+  const int first_qt = a.causal ? max(0, k0 - offset) / kWBQ : 0;
+  const int per_head = n_qt - first_qt;
+  const int n_it = group * per_head;
+
+  auto load_stage = [&](int it, int stage) {
+    const int h = hk * group + it / per_head;
+    const int q0 = (first_qt + it % per_head) * kWBQ;
+    const int64_t q_base = static_cast<int64_t>(b) * a.sq * q_row +
+                           static_cast<int64_t>(h) * kD;
+    const uint32_t st = st_s + stage * kWStageBytes;
+    load_tile_async<kWBQ, kWThreads>(st, qg + q_base, q_row, q0, a.sq);
+    load_tile_async<kWBQ, kWThreads>(st + kWQBytes, dog + q_base, q_row, q0,
+                                     a.sq);
+    if (tid < 2 * kWBQ) {   // lse (threads 0..63) and delta (64..127)
+      const int r = tid & (kWBQ - 1);
+      const bool valid = q0 + r < a.sq;
+      const float* src = (tid < kWBQ ? a.lse : a.delta) +
+                         (static_cast<int64_t>(b) * a.h + h) * a.sq +
+                         (valid ? q0 + r : 0);
+      cp_async_4(stat_s + stage * kWStatBytes + tid * 4, src, valid);
+    }
+  };
+  load_stage(0, 0);
+  cp_async_commit();
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  const float scale_log2 = a.scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) load_stage(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+
+    const int q0 = (first_qt + it % per_head) * kWBQ;
+    const uint32_t q_t = st_s + stage * kWStageBytes;
+    const uint32_t do_t = q_t + kWQBytes;
+    const float* lse_t = reinterpret_cast<const float*>(
+        k_at + (stat_s - k_s) + stage * kWStatBytes);
+    const float* delta_t = lse_t + kWBQ;
+
+    // skip when no key of this warpgroup is visible to any query here
+    if (!(a.causal && kw > q0 + kWBQ - 1 + offset)) {
+      // S^T = K Q^T and dP^T = V dO^T: rows = this warpgroup's 64 keys,
+      // columns = the tile's 64 queries
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        wgmma_m64n64k16_ss(s, desc_kmajor(k_s, kWBKV, wg * 64, k),
+                           desc_kmajor(q_t, kWBQ, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        wgmma_m64n64k16_ss(dp, desc_kmajor(v_s, kWBKV, wg * 64, k),
+                           desc_kmajor(do_t, kWBQ, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale
+      const bool edge = q0 + kWBQ > a.sq || kw + 64 > a.sk ||
+                        (a.causal && kw + 63 > q0 + offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + col + (e & 1);
+          float p = exp2f(fmaf(s[4 * j + e], scale_log2,
+                               -lse_t[qi] * kLog2e));
+          if (edge) {
+            const int key = e < 2 ? key0 : key0 + 8;
+            const int qpos = q0 + qi;
+            if (qpos >= a.sq || key >= a.sk ||
+                (a.causal && key > qpos + offset))
+              p = 0.f;
+          }
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - delta_t[qi]) * a.scale;
+        }
+      uint32_t pa[4][4], da[4][4];
+      acc_to_a(s, pa);
+      acc_to_a(dp, da);
+
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kWBQ / 16; ++k)
+        wgmma_m64n128k16_rs(dv, pa[k], desc_mnmajor(do_t, kWBQ, k));
+#pragma unroll
+      for (int k = 0; k < kWBQ / 16; ++k)
+        wgmma_m64n128k16_rs(dk, da[k], desc_mnmajor(q_t, kWBQ, k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    __syncthreads();   // every warpgroup is done with this stage
+  }
+
+  auto* dkb = static_cast<__nv_bfloat16*>(a.dk) + kv_base;
+  auto* dvb = static_cast<__nv_bfloat16*>(a.dv) + kv_base;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + col;
+    if (key0 < a.sk) {
+      const int64_t at = key0 * kv_row + c;
+      *reinterpret_cast<uint32_t*>(dkb + at) =
+          pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + at) =
+          pack_bf16(dv[4 * j], dv[4 * j + 1]);
+    }
+    if (key0 + 8 < a.sk) {
+      const int64_t at = (key0 + 8) * kv_row + c;
+      *reinterpret_cast<uint32_t*>(dkb + at) =
+          pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dvb + at) =
+          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
 template <typename T>
 int launch_dq(const BwdArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;
@@ -408,17 +612,29 @@ int launch_dq(const BwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dkv(const BwdArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dkv_kernel<T>, kDkvSmemBytes);
+        ptt_allow_smem(flash_bwd_dkv_kernel<float>, kDkvSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sk + kB - 1) / kB, a.hkv, batch);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, kDkvSmemBytes, stream>>>(a);
+  flash_bwd_dkv_kernel<float><<<grid, kThreads, kDkvSmemBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e =
+        ptt_allow_smem(flash_bwd_dkv_wgmma_kernel, kWDkvSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const dim3 grid((a.sk + kWBKV - 1) / kWBKV, a.hkv, batch);
+  flash_bwd_dkv_wgmma_kernel<<<grid, kWThreads, kWDkvSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,7 +677,7 @@ PTT_EXPORT int flash_attention_bwd_dkv(const void* q, const void* k,
                               const_cast<void*>(delta), nullptr, dk, dv, sq,
                               sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32) return launch_dkv<float>(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dkv<__nv_bfloat16>(a, batch, s);
+  if (dtype == PTT_F32) return launch_dkv(a, batch, s);
+  if (dtype == PTT_BF16) return launch_dkv_wgmma(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

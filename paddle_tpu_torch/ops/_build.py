@@ -55,8 +55,9 @@ def build_all() -> Dict[str, str]:
 
     Returns {source name: nvcc's output} for the sources compiled by this
     call (`-Xptxas=-v` makes that the registers, shared memory and spills
-    of each kernel). Raises RuntimeError with the compiler's output if a
-    source fails to build.
+    of each kernel); the output is also kept beside each library as
+    `lib<name>.log` (see `build_log`). Raises RuntimeError with the
+    compiler's output if a source fails to build.
     """
     nvcc = _nvcc()
     out_dir = _build_dir(nvcc)
@@ -77,11 +78,19 @@ def build_all() -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(name)
             continue
+        lib.with_suffix('.log').write_text(logs[name])
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError('nvcc failed for ' + ', '.join(failed) + ':\n'
                            + '\n'.join(logs[n] for n in failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of kernel source `name` ('' if it is
+    not built)."""
+    path = _build_dir(_nvcc()) / f'lib{name}.log'
+    return path.read_text() if path.exists() else ''
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,7 +27,9 @@ back. `LAUNCHES` counts kernel launches, one per launch and nowhere
 else, so a run can show that its path went through the kernels.
 
 Each CUDA source starts with a note: the TPU kernel it replaces, what
-bounds it on the H100, and what its design does about that.
+bounds it on the H100, and what its design does about that. The flash
+forward and dk/dv wrappers launch by dtype: bf16 on the tensor-core
+(wgmma) kernels, f32 on fp32 FMA kernels; any other dtype raises.
 """
 from __future__ import annotations
 
@@ -105,6 +107,14 @@ def _on_cpu(*tensors) -> bool:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _aligned16(*tensors) -> bool:
+    """Every tensor's base pointer and every stride but the last are
+    16-byte multiples (the bf16 attention kernels' cp.async copies)."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st * t.element_size() % 16 == 0
+                       for st in t.stride()[:-1]) for t in tensors)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -233,7 +243,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, return_lse: bool = False):
     """Attention over [B, S, H, D] (strided; the last dim contiguous).
     With `return_lse` returns (out, lse) with the fp32 logsumexp of each
-    row's scaled logits as [B, H, Sq], the backward's residual."""
+    row's scaled logits as [B, H, Sq], the backward's residual. bf16
+    runs on the tensor-core kernel, which needs 16-byte-aligned base
+    pointers and strides; f32 on the FMA kernel."""
     if _on_cpu(q, k, v):
         return attention_reference(q, k, v, causal=causal,
                                    return_lse=return_lse)
@@ -251,6 +263,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1,
              'flash kernel needs the head dim contiguous')
     _require(not causal or sq <= sk, 'causal flash needs sq <= sk')
+    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v),
+             'bf16 flash kernel needs 16-byte-aligned q, k, v base pointers '
+             'and strides')
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -377,7 +392,9 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     """The dk/dv kernel: (dk, dv) [B, Sk, HKV, D] in k.dtype, each summed
-    over its kv head's query group. `delta` comes from the dq kernel."""
+    over its kv head's query group. `delta` comes from the dq kernel.
+    bf16 runs on the tensor-core kernel (16-byte-aligned inputs), f32 on
+    the FMA kernel."""
     if _on_cpu(q, k, v, lse, delta, dout):
         return attention_bwd_dkv_reference(q, k, v, lse, delta, dout,
                                            causal)
@@ -385,6 +402,9 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     _require(delta.dtype == torch.float32 and delta.shape == lse.shape
              and delta.is_contiguous(),
              'flash backward takes delta as f32 [B, H, Sq]')
+    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v, dout),
+             'bf16 dk/dv kernel needs 16-byte-aligned q, k, v, dout base '
+             'pointers')
     b, sq, h, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0 or sq == 0:

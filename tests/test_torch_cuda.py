@@ -4,7 +4,10 @@ Every test here is marked `cuda` and skips where there is no card; on a
 machine with one run `python -m pytest tests/test_torch_cuda.py -q`.
 This file imports only torch and the port (that machine runs no jax).
 Tolerances: f32 1e-4 (sums in another order), bf16 2e-2 abs + rel (one
-bf16 rounding of unit-scale outputs).
+bf16 rounding of unit-scale outputs, and the wgmma kernels' bf16 P and
+dS before the second products). Attention outputs at long S are far
+below unit scale, so bf16 attention is also held to `chip_smoke.py`'s
+relative limits (REL_BF16).
 """
 import pytest
 import torch
@@ -17,6 +20,8 @@ from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# chip_smoke.TOL[bf16]: max|got - want| / max|want| and the same in norms
+REL_BF16 = (2 ** -6, 2 ** -7)
 
 
 @pytest.fixture
@@ -37,16 +42,36 @@ def _close(got, want, dtype):
                                rtol=TOL[dtype])
 
 
+def _close_attention(got, want, dtype):
+    """`_close`, and for bf16 also REL_BF16 against the plain output's own
+    scale."""
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        diff, want = got.double() - want.double(), want.double()
+        assert diff.abs().max() <= REL_BF16[0] * want.abs().max()
+        assert diff.norm() <= REL_BF16[1] * want.norm()
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('s,hkv', [(1, 8), (63, 2), (130, 8)])
+@pytest.mark.parametrize('s,hkv', [(1, 8), (63, 2), (130, 8), (1000, 1),
+                                   (1, 1), (130, 2)])
 def test_flash_kernel_matches_plain(cuda, dtype, s, hkv):
+    """Causal self-attention at ragged S and GQA groups of 1, 4 and 8
+    (bf16 on the wgmma kernel, f32 on the FMA kernel); the output and,
+    with `return_lse`, the LSE; one launch per call."""
     g = torch.Generator(device=cuda).manual_seed(s)
     q = _randn(g, dtype, 2, s, 8, 128)
     k, v = _randn(g, dtype, 2, s, hkv, 128), _randn(g, dtype, 2, s, hkv, 128)
     before = K.LAUNCHES['flash_attention_fwd']
-    _close(K.flash_attention_fwd(q, k, v, causal=True),
-           K.attention_reference(q, k, v, causal=True), dtype)
+    _close_attention(K.flash_attention_fwd(q, k, v, causal=True),
+                     K.attention_reference(q, k, v, causal=True), dtype)
     assert K.LAUNCHES['flash_attention_fwd'] == before + 1
+    out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
+    want, want_lse = K.attention_reference(q, k, v, causal=True,
+                                           return_lse=True)
+    assert K.LAUNCHES['flash_attention_fwd'] == before + 2
+    _close_attention(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
 
 
 def test_flash_kernel_strided_and_rectangular(cuda):
@@ -61,6 +86,52 @@ def test_flash_kernel_strided_and_rectangular(cuda):
            K.attention_reference(q, k, v, causal=False), torch.float32)
     _close(K.flash_attention_fwd(q, k, v, causal=True),
            K.attention_reference(q, k, v, causal=True), torch.float32)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_kernel_bf16_strided_view(cuda, causal):
+    """bf16 [B, H, S, D] storage viewed as [B, S, H, D] on the wgmma
+    kernel, rectangular sq < sk, with the LSE."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(g, torch.bfloat16, 2, 8, 70, 128).transpose(1, 2)
+    k = _randn(g, torch.bfloat16, 2, 2, 200, 128).transpose(1, 2)
+    v = _randn(g, torch.bfloat16, 2, 2, 200, 128).transpose(1, 2)
+    assert not q.is_contiguous()
+    out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    want, want_lse = K.attention_reference(q, k, v, causal=causal,
+                                           return_lse=True)
+    _close_attention(out, want, torch.bfloat16)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+def test_bf16_attention_raises_on_a_misaligned_view(cuda):
+    """The wgmma kernels copy 16 bytes at a time: a bf16 view whose
+    storage starts one element past an aligned buffer is refused, by the
+    forward and by the dk/dv kernel, as is fp16; the same bf16 values
+    aligned are taken, one launch per call."""
+    b, s, h = 1, 16, 2
+    buf = torch.zeros(b * s * h * 128 + 1, device=cuda, dtype=torch.bfloat16)
+    x = buf[1:].view(b, s, h, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    lse = torch.zeros((b, h, s), device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_fwd(x, x, x, causal=True)
+    with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_bwd_dkv(x, x, x, lse, lse, x, True)
+    assert K.LAUNCHES == before
+    y = x.clone()
+    with pytest.raises(ValueError):          # fp16: neither kernel takes it
+        K.flash_attention_fwd(y.half(), y.half(), y.half(), causal=True)
+    with pytest.raises(ValueError):
+        K.flash_attention_bwd_dkv(y.half(), y.half(), y.half(), lse, lse,
+                                  y.half(), True)
+    K.flash_attention_fwd(y, y, y, causal=True)
+    K.flash_attention_bwd_dkv(y, y, y, lse, lse, y, True)
+    assert K.LAUNCHES['flash_attention_fwd'] == \
+        before['flash_attention_fwd'] + 1
+    assert K.LAUNCHES['flash_attention_bwd_dkv'] == \
+        before['flash_attention_bwd_dkv'] + 1
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -144,11 +215,16 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('sq,sk,hkv,causal', [
     (130, 130, 8, True), (64, 64, 2, True), (70, 90, 4, True),
-    (100, 100, 8, False)])
+    (100, 100, 8, False), (1, 1, 8, True), (63, 63, 2, True),
+    (1000, 1000, 1, True), (63, 200, 2, False), (1, 130, 1, True),
+    (130, 300, 8, False)])
 def test_flash_backward_kernels_match_plain(cuda, dtype, sq, sk, hkv,
                                             causal):
     """The forward's LSE and the dq and dk/dv kernels against the plain
-    FA-2 backward: ragged S, GQA, sq < sk, causal or not."""
+    FA-2 backward: ragged S, GQA groups of 1, 4 and 8, sq < sk, causal
+    or not (bf16 dk/dv on the wgmma kernel, f32 on the FMA kernel). With
+    one key, dq and dk are zero up to rounding and have no scale of their
+    own to hold them to."""
     g = torch.Generator(device=cuda).manual_seed(sq + hkv)
     q, dout = _randn(g, dtype, 2, sq, 8, 128), _randn(g, dtype, 2, sq, 8, 128)
     k, v = _randn(g, dtype, 2, sk, hkv, 128), _randn(g, dtype, 2, sk, hkv, 128)
@@ -159,9 +235,9 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, sq, sk, hkv,
     before = dict(K.LAUNCHES)
     got = K.flash_attention_bwd(q, k, v, out, lse, dout, causal)
     want = K.attention_bwd_reference(q, k, v, out, lse, dout, causal)
-    for a, b in zip(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == dtype
-        _close(a, b, dtype)
+        (_close_attention if sk > 1 or i == 2 else _close)(a, b, dtype)
     assert K.LAUNCHES['flash_attention_bwd_dq'] == \
         before['flash_attention_bwd_dq'] + 1
     assert K.LAUNCHES['flash_attention_bwd_dkv'] == \

@@ -9,7 +9,13 @@ must pass, and the same function with a term left out, or off by 2%,
 must fail. Inputs come from numpy with a seed, at a small training-like
 shape (B=1, S=256, 4 query heads over 2 kv heads, D=128; CE at
 [64, 1000] with ignored rows and an O(1) upstream gradient; the adapter
-delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots).
+delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots). The
+bf16 tensor-core kernels round in their own order (P to bf16 before
+P V over 64-key tiles of an online softmax; P^T and dS^T to bf16 before
+the dV and dK products): that order must pass the bf16 limits, and the
+redesign's likely faults must not. The timing phase's guard against a
+profiler reading that contradicts the CUDA events is checked on given
+readings.
 """
 import importlib.util
 import math
@@ -112,6 +118,66 @@ def test_compare_accepts_a_correct_kernel(dtype):
     smoke.compare('ce bwd', c['dx64'], c['dx'])
 
 
+def _repeat_kv(a):
+    return (a[n].float().repeat_interleave(H // HKV, dim=2)
+            for n in ('k', 'v'))
+
+
+def _forward_tensor_core(a, rescale=True, tile=64):
+    """The bf16 tensor-core forward's arithmetic: fp32 logits, an online
+    softmax over `tile`-key blocks (the running max rescales the sums
+    and the output by alpha unless `rescale` is False), P rounded to
+    bf16 before P V, fp32 sums, O / l rounded once; the LSE m + log l."""
+    k, v = _repeat_kv(a)
+    s = torch.einsum('bqhd,bkhd->bhqk', a['q'].float(), k) / math.sqrt(D)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
+    m = torch.full((B, H, S), -math.inf)
+    l = torch.zeros(B, H, S)
+    o = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        alpha = torch.exp(m - m_new) if rescale else torch.ones_like(m)
+        p = torch.exp(st - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            'bhqk,bkhd->bhqd', p.bfloat16().float(), v[:, k0:k0 + tile])
+        m = m_new
+    out = (o / l[..., None]).transpose(1, 2).to(a['q'].dtype)
+    return out, m + torch.log(l)
+
+
+def _dkv_tensor_core(a, first_head_only=False):
+    """The bf16 tensor-core dk/dv kernel's arithmetic: P^T and dS^T in
+    fp32, rounded to bf16 before the dV and dK products, fp32 sums over
+    every query head of each GQA group (or, as a fault, only the first
+    head of each group), each gradient rounded once."""
+    k, v = _repeat_kv(a)
+    q, do = a['q'].float(), a['dout'].float()
+    s = torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(D)
+    p = torch.exp(s - a['lse'][..., None]).tril()
+    dp = torch.einsum('bqhd,bkhd->bhqk', do, v)
+    ds = p * (dp - a['delta'][..., None]) / math.sqrt(D)
+    if first_head_only:
+        first = (torch.arange(H) % (H // HKV) == 0).float()[None, :, None, None]
+        p, ds = p * first, ds * first
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds.bfloat16().float(), q)
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.bfloat16().float(), do)
+    return (K._fold_group(dk, HKV).to(a['k'].dtype),
+            K._fold_group(dv, HKV).to(a['v'].dtype))
+
+
+@pytest.mark.parametrize('kernel', ['forward', 'dkv'])
+def test_compare_accepts_the_tensor_core_rounding_order(kernel):
+    """The bf16 wgmma kernels' order of rounding passes the bf16 limits
+    against the plain versions."""
+    a = _attention(torch.bfloat16)
+    if kernel == 'forward':
+        smoke.compare(kernel, _forward_tensor_core(a), (a['out'], a['lse']))
+    else:
+        smoke.compare(kernel, _dkv_tensor_core(a), (a['dk'], a['dv']))
+
+
 def _mutant(case, dtype):
     """(kernel output with a fault, plain output)."""
     if case.startswith('ce'):
@@ -131,6 +197,10 @@ def _mutant(case, dtype):
         out = torch.einsum('bhqk,bkhd->bqhd',
                            p.to(torch.bfloat16).float(), vr)
         return out.to(dtype), a['out']
+    if case == 'forward_without_rescale':
+        return _forward_tensor_core(a, rescale=False), (a['out'], a['lse'])
+    if case == 'dkv_first_head_of_each_group_only':
+        return _dkv_tensor_core(a, first_head_only=True), (a['dk'], a['dv'])
     e = _attention_fp64(a, delta_term=False)
     name = {'dq_without_delta': 'dq', 'dk_without_delta': 'dk'}[case]
     return e[name], a[name]
@@ -145,6 +215,8 @@ def _mutant(case, dtype):
     ('dq_without_delta', torch.float32),
     ('ce_bwd_onehot_only', torch.float32),
     ('forward_probs_rounded_to_bf16', torch.float32),
+    ('forward_without_rescale', torch.bfloat16),
+    ('dkv_first_head_of_each_group_only', torch.bfloat16),
 ])
 def test_compare_rejects_a_wrong_kernel(case, dtype):
     got, want = _mutant(case, dtype)
@@ -212,3 +284,36 @@ def test_compare_rejects_a_dtype_or_shape_change():
         smoke.compare('dtype', x.float(), x)
     with pytest.raises(AssertionError, match='kernel gives'):
         smoke.compare('shape', x[:2], x)
+
+
+@pytest.mark.parametrize('dev,per_call,ev,wrong', [
+    (0.232, 1, 0.470, True),    # one long kernel read at half its time
+    (0.850, 1, 0.574, True),    # above the events, which bound it
+    (0.850, 3, 0.574, True),
+    (0.450, 1, 0.470, False),   # within PROFILER_MIN_SHARE of the events
+    (0.500, 1, 0.470, False),
+    (0.004, 1, 0.012, False),   # a short kernel: events read the launch rate
+    (0.300, 8, 0.600, False),   # 0.075 ms per launch: gaps may explain it
+    (None, 0, 0.470, False),    # no profiler reading to doubt
+])
+def test_profiler_disagrees(dev, per_call, ev, wrong):
+    assert smoke.profiler_disagrees(dev, per_call, ev) is wrong
+
+
+@pytest.mark.parametrize('readings,want', [
+    ([(0.470, (0.232, 1)), (0.468, (0.233, 1))], 0.468),   # lost twice
+    ([(0.470, (0.232, 1)), (0.471, (0.466, 1))], 0.466),   # lost once
+    ([(0.574, (0.850, 1)), (0.571, (0.849, 1))], 0.571),   # above, twice
+    ([(0.470, (0.466, 1))], 0.466),
+    ([(0.012, (None, 0))], 0.012),
+])
+def test_timed_takes_the_events_when_the_profiler_disagrees(
+        monkeypatch, readings, want):
+    """`timed` measures again once when the profiler's reading contradicts
+    the CUDA events, and reports the event time if it does so again."""
+    evs = iter([ev for ev, _ in readings])
+    devs = iter([dev for _, dev in readings])
+    monkeypatch.setattr(smoke, 'time_ms', lambda fn: next(evs))
+    monkeypatch.setattr(smoke, 'device_ms', lambda fn: next(devs))
+    assert smoke.timed(lambda: None) == (want, readings[-1][0])
+    assert next(evs, None) is None
