@@ -9,7 +9,7 @@ result line):
 1. build: compile every kernel source under `paddle_tpu_torch/csrc/` with
    nvcc (sm_90a), all sources at once; log each kernel's registers and
    spills, and require HGMMA (wgmma) instructions in the bf16 flash
-   forward and dk/dv kernels (`cuobjdump -sass`);
+   forward, dq and dk/dv kernels (`cuobjdump -sass`);
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
    (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
@@ -49,11 +49,13 @@ result line):
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, one prefill forward, and one training
    step (forward + backward, then the optimizer update, each profiled);
-   the prefill must run the wgmma forward kernel, the training step the
-   wgmma forward and dk/dv kernels;
-8. timing: each kernel case of phase 2 timed (device time per call from
-   the profiler, beside CUDA-event time, which it takes where the
-   profiler's reading contradicts the events twice), with its plain
+   each decode round must run the split-context paged kernels and not
+   the first design's `paged_attn_kernel`, the prefill the wgmma forward
+   kernel, the training step the wgmma forward, dq and dk/dv kernels;
+8. timing: each kernel case of phase 2 timed (device time per call:
+   CUDA events around calls queued behind a GPU-side sleep, which hides
+   the host's launch gaps; beside it the event time of back-to-back
+   calls, the host's launch rate for a small kernel), with its plain
    version, the one PyTorch call that computes the same function where
    there is one, and the card's bound for the same work.
 
@@ -117,7 +119,10 @@ SOURCES = {
 }
 # the tensor-core (wgmma) kernels that bf16 inputs run on, by source
 WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
-                 'flash_attention_bwd': ('flash_bwd_dkv_wgmma_kernel',)}
+                 'flash_attention_bwd': ('flash_bwd_dq_wgmma_kernel',
+                                         'flash_bwd_dkv_wgmma_kernel')}
+# the device kernels of one paged_attention call
+PAGED_KERNELS = ('paged_attn_split_kernel', 'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
 ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
 # Llama's projections; the bank's default targets name the JAX package's
@@ -160,67 +165,54 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 20, attempts: int = 2):
+    """Device ms per call of fn() without the host's launch gaps: the
+    calls are queued behind a GPU-side sleep longer than the host takes
+    to launch them, and CUDA events time them back to back on the device.
+    None when the sleep ended before the host had launched them all (a
+    call that waits for the device), `attempts` times with a longer
+    sleep each time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    launch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(launch_s, 0.25) * 4e9) + 100_000   # ~2x at ~2 GHz
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()     # still sleeping: no call waited
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return None
+
+
 def _device_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int = 10, attempts: int = 3):
-    """(mean device time per call of fn(): the summed durations of the GPU
-    activity it causes (torch.profiler / CUPTI), without the host's gaps
-    between launches; device events per call). A window whose
-    device-event count is not a whole multiple of `iters` lost events and
-    is measured again; (None, 0) when no window is whole."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = _device_events(prof)
-        if events and len(events) % iters == 0:
-            return (sum(e.time_range.elapsed_us() for e in events) / 1e3
-                    / iters, len(events) // iters)
-    return None, 0
-
-
-# The profiler has read a single long kernel at half its CUDA-event time
-# and another kernel at 1.5 times it (PERF.md, section 7). Events around
-# back-to-back calls bound the device time from above, so a profiler
-# reading above ev / PROFILER_MIN_SHARE is wrong; where the event time
-# per device event is above EVENT_MS_PER_LAUNCH, the host's launch gaps
-# cannot explain one below PROFILER_MIN_SHARE * ev either.
-EVENT_MS_PER_LAUNCH, PROFILER_MIN_SHARE = 0.1, 0.8
-
-
-def profiler_disagrees(dev, per_call: int, ev: float) -> bool:
-    """Whether a profiler reading of `dev` ms in `per_call` device events
-    per call contradicts the call's CUDA-event time of `ev` ms."""
-    if dev is None:
-        return False
-    return (dev * PROFILER_MIN_SHARE > ev
-            or (ev / per_call > EVENT_MS_PER_LAUNCH
-                and dev < PROFILER_MIN_SHARE * ev))
-
-
 def timed(fn):
-    """(device ms per call: the profiler's, or the CUDA-event ms when the
-    profiler saw no device time or, measured twice, disagreed with the
-    events by `profiler_disagrees`; the CUDA-event ms of back-to-back calls, which
-    for a small kernel is the host's launch rate)."""
+    """(device ms per call: the calls queued behind a sleep (`queued_ms`),
+    or the CUDA-event ms if the host could not keep ahead of the device;
+    the CUDA-event ms of back-to-back calls, which for a small kernel is
+    the host's launch rate). The profiler is not read here: in some
+    processes it lost the device events of most windows, and it has read
+    whole kernels at half and at 1.5 times their event time."""
     ev = time_ms(fn)
-    dev, per_call = device_ms(fn)
-    if profiler_disagrees(dev, per_call, ev):
-        log(f'[timing]   profiler {dev:.4f} ms against events {ev:.4f} ms '
-            f'({per_call} device event(s) per call); measuring again')
-        ev = time_ms(fn)
-        dev, per_call = device_ms(fn)
-        if profiler_disagrees(dev, per_call, ev):
-            log(f'[timing]   again profiler {dev:.4f} ms, events {ev:.4f} '
-                f'ms; taking the events')
-            dev = None
+    dev = queued_ms(fn)
+    if dev is None:
+        log('[timing]   the host could not keep ahead of the device; '
+            'taking the events')
     return (ev if dev is None else dev), ev
 
 
@@ -1015,9 +1007,10 @@ def serve_adapters(served) -> dict:
 # phase 7: where the time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
 
-_GROUPS = (('paged_attention', ('paged_attn_kernel',)),
+_GROUPS = (('paged_attention', PAGED_KERNELS),
            ('adapter_matmul', ('adapter_matmul_kernel',)),
            ('flash_attention_bwd', ('flash_bwd_dq_kernel',
+                                    'flash_bwd_dq_wgmma_kernel',
                                     'flash_bwd_dkv_kernel',
                                     'flash_bwd_dkv_wgmma_kernel')),
            ('flash_attention', ('flash_fwd_kernel',
@@ -1058,15 +1051,19 @@ def _breakdown(windows, wall_s: float, label: str) -> None:
         log(f'[profile]   top: {ms:8.3f} ms {n:5d}x {name}')
 
 
-def require_kernels(prof, kernels, label: str) -> None:
+def require_kernels(prof, kernels, label: str, absent=()) -> None:
     """Fail unless the profiled window ran a device event of each of
-    `kernels` (by name)."""
+    `kernels`, and none of `absent` (by name)."""
     seen = {e.name for e in _device_events(prof)}
     missing = [k for k in kernels if not any(k in n for n in seen)]
     if missing:
         raise AssertionError(f'profile: the {label} ran no device event of '
                              f'{missing}')
-    log(f'[profile]   {label} ran ' + ', '.join(kernels))
+    stale = [k for k in absent if any(k in n for n in seen)]
+    if stale:
+        raise AssertionError(f'profile: the {label} ran {stale}')
+    log(f'[profile]   {label} ran ' + ', '.join(kernels)
+        + (' and no ' + ', '.join(absent) if absent else ''))
 
 
 def profile_serve(eng, banked, prompts, adapter_ids) -> None:
@@ -1097,6 +1094,8 @@ def profile_serve(eng, banked, prompts, adapter_ids) -> None:
         _breakdown([(prof, None)], wall, label)
         log(f'[profile]   (the profiled round took {wall_prof * 1e3:.2f} '
             f'ms; the idle share uses the unprofiled round)')
+        require_kernels(prof, PAGED_KERNELS, label,
+                        absent=('paged_attn_kernel',))
         e.run()
     bucket = eng.pool.bucket_for(len(prompts[1]))
     ids = torch.zeros((1, bucket), dtype=torch.int64, device=DEV)
@@ -1140,6 +1139,7 @@ def profile_train(step, batch, step_s: float) -> None:
     log(f'[profile]   (an unprofiled step run now, after the serve '
         f'profile, took {wall_now * 1e3:.2f} ms)')
     require_kernels(fwd_bwd, ('flash_fwd_wgmma_kernel',
+                              'flash_bwd_dq_wgmma_kernel',
                               'flash_bwd_dkv_wgmma_kernel'),
                     'training step')
 

@@ -23,16 +23,32 @@
 // four (S, dP, dV, dK: 137 GFLOP, 0.14 ms), against about 0.06 ms each to
 // move their tensors once.
 //
-// - dq kernel (f32 and bf16): fp32 FMAs on the CUDA cores (67 TFLOP/s
-//   peak). One block of 256 threads per (64-row q tile, head, batch),
-//   64-row tiles staged in shared memory as fp32 (row stride D + 1,
-//   conflict-free column reads), 4 x 4 (scores) and 4 x 8 (gradients)
-//   micro-tiles per thread in registers. Its prologue computes delta for
-//   its rows (dO is staged anyway; O is read once) and stores it for the
-//   dk/dv kernel. It loops over the k tiles up to the diagonal: V into
-//   the K/V tile, dP = dO V^T; K into the same tile, S = Q K^T, dS into
-//   shared memory; dQ += dS K in registers. Heavy causal tiles are
-//   scheduled first. About 116 KB of shared memory.
+// - dq kernel, bf16: flash_bwd_dq_wgmma_kernel, on the tensor cores. One
+//   block of two warpgroups per (128 query rows, head, batch); each
+//   warpgroup owns 64 rows and keeps its dQ accumulator (64 x 128 fp32)
+//   in registers across the whole loop. The Q and dO tiles are staged
+//   once into hopper.cuh's 128-byte-swizzled layout; the 64-key K and V
+//   tiles run through a two-stage cp.async ring (the next pair flies
+//   while the current one computes). The prologue computes delta =
+//   rowsum(dO * O) for the block's rows from 16-byte loads while the
+//   tiles fly, and stores it for the dk/dv kernel. Per k tile: S = Q K^T
+//   and dP = dO V^T by wgmma m64n64k16, both operands K-major from
+//   shared memory; P = exp(S scale - lse) and dS = P (dP - delta) scale
+//   in fp32 registers (exp2f with lse * log2 e; masked only on tiles that
+//   the diagonal or a tail cuts); then dQ += dS K by wgmma m64n128k16
+//   with dS rounded to bf16 as the register A operand and K read in the
+//   transposed-B (MN-major) mode from the same tile. Heavy causal tiles
+//   are scheduled first. About 130 KB of shared memory. Rounding dS to
+//   bf16 before dS K departs from the fp32 plain version as SDPA and
+//   FlashAttention-2/3 do (tests/test_torch_smoke.py checks that order).
+// - dq kernel, f32: flash_bwd_dq_kernel, fp32 FMAs on the CUDA cores
+//   (the f32 checks' relative 1e-5 is beyond TF32). One block of 256
+//   threads per (64-row q tile, head, batch), fp32 tiles in shared
+//   memory (row stride D + 1, conflict-free column reads), 4 x 4
+//   (scores) and 4 x 8 (gradients) micro-tiles per thread in registers;
+//   delta in its prologue; per k tile V into the K/V tile, dP = dO V^T;
+//   K into the same tile, S = Q K^T, dS into shared memory; dQ += dS K.
+//   About 116 KB of shared memory.
 // - dk/dv kernel, bf16: flash_bwd_dkv_wgmma_kernel, on the tensor cores
 //   (the FlashAttention-2/3 scheme). One block of two warpgroups per
 //   (128 keys, kv head, batch); each warpgroup owns 64 keys and keeps
@@ -419,11 +435,196 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kWThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dq in bf16 on the tensor cores (see the note at the top)
+constexpr int kWDqRows = 128;         // queries per block: two warpgroups x 64
+constexpr int kWDqKeys = 64;          // keys per K / V tile
+constexpr uint32_t kWDqTileBytes = kWDqRows * kD * 2;
+constexpr uint32_t kWDqKVBytes = kWDqKeys * kD * 2;
+// Q, dO, then the two K/V stages (each tile 1024-byte aligned, as the
+// swizzle needs), then lse[128] and delta[128]
+constexpr size_t kWDqSmemBytes =
+    2 * kWDqTileBytes + 4 * kWDqKVBytes + 2 * kWDqRows * 4 + 1024;
+
+// sum of the eight products of two rows of 8 bf16 values, in fp32
+__device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y) {
+  const auto* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const auto* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(xs[i]);
+    const float2 yf = __bfloat1622float2(ys[i]);
+    sum = fmaf(xf.x, yf.x, sum);
+    sum = fmaf(xf.y, yf.y, sum);
+  }
+  return sum;
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_bwd_dq_wgmma_kernel(BwdArgs a) {
+  using namespace hopper;
+  extern __shared__ __align__(16) uint8_t smem_w[];
+  const uint32_t q_s = aligned_smem_base(smem_w);
+  const uint32_t do_s = q_s + kWDqTileBytes;
+  const uint32_t kv_s = do_s + kWDqTileBytes;   // stage s: K, then V
+  float* lse_s = reinterpret_cast<float*>(
+      smem_w + (kv_s + 4 * kWDqKVBytes - smem_u32(smem_w)));
+  float* delta_s = lse_s + kWDqRows;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.h / a.hkv);
+  const int q0 = qt * kWDqRows;
+  const int offset = a.sk - a.sq;
+  const int64_t q_row = static_cast<int64_t>(a.h) * kD;
+  const int64_t kv_row = static_cast<int64_t>(a.hkv) * kD;
+  const int64_t q_base = static_cast<int64_t>(b) * a.sq * q_row +
+                         static_cast<int64_t>(h) * kD;
+  const int64_t kv_base = static_cast<int64_t>(b) * a.sk * kv_row +
+                          static_cast<int64_t>(hk) * kD;
+  const int64_t row_base = (static_cast<int64_t>(b) * a.h + h) * a.sq + q0;
+  const auto* qg = static_cast<const __nv_bfloat16*>(a.q) + q_base;
+  const auto* og = static_cast<const __nv_bfloat16*>(a.o) + q_base;
+  const auto* dog = static_cast<const __nv_bfloat16*>(a.dout) + q_base;
+  const auto* kg = static_cast<const __nv_bfloat16*>(a.k) + kv_base;
+  const auto* vg = static_cast<const __nv_bfloat16*>(a.v) + kv_base;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int qw = q0 + wg * 64;                    // first row of the warpgroup
+  const int row0 = qw + warp * 16 + (lane >> 2);  // this thread: row0, +8
+  const int col = 2 * (lane & 3);
+
+  int n_kt = (a.sk + kWDqKeys - 1) / kWDqKeys;
+  if (a.causal) n_kt = min(n_kt, (q0 + kWDqRows - 1 + offset) / kWDqKeys + 1);
+  const int wg_last_key = a.causal ? qw + 63 + offset : a.sk - 1;
+
+  load_tile_async<kWDqRows, kWThreads>(q_s, qg, q_row, q0, a.sq);
+  load_tile_async<kWDqRows, kWThreads>(do_s, dog, q_row, q0, a.sq);
+  load_tile_async<kWDqKeys, kWThreads>(kv_s, kg, kv_row, 0, a.sk);
+  load_tile_async<kWDqKeys, kWThreads>(kv_s + kWDqKVBytes, vg, kv_row, 0,
+                                       a.sk);
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) in fp32 while the tiles fly: two threads per
+  // row, 64 columns each, by 16-byte loads
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const bool valid = q0 + r < a.sq;
+    float part = 0.f;
+    if (valid) {
+      const int64_t at = static_cast<int64_t>(q0 + r) * q_row + half * 64;
+      const uint4* o16 = reinterpret_cast<const uint4*>(og + at);
+      const uint4* do16 = reinterpret_cast<const uint4*>(dog + at);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part += dot8_bf16(do16[i], o16[i]);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      delta_s[r] = part;
+      lse_s[r] = valid ? a.lse[row_base + r] : 0.f;
+      if (valid) a.delta[row_base + r] = part;
+    }
+  }
+  __syncthreads();
+  const float nlse0 = -lse_s[row0 - q0] * kLog2e;
+  const float nlse1 = -lse_s[row0 + 8 - q0] * kLog2e;
+  const float delta0 = delta_s[row0 - q0];
+  const float delta1 = delta_s[row0 + 8 - q0];
+
+  float dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kWDqKeys;
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kWDqKVBytes;
+    const uint32_t v_s = k_s + kWDqKVBytes;
+    if (kt + 1 < n_kt) {   // the next tile flies while this one computes
+      const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kWDqKVBytes;
+      load_tile_async<kWDqKeys, kWThreads>(nk, kg, kv_row, k0 + kWDqKeys,
+                                           a.sk);
+      load_tile_async<kWDqKeys, kWThreads>(nk + kWDqKVBytes, vg, kv_row,
+                                           k0 + kWDqKeys, a.sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+
+    if (k0 <= wg_last_key) {   // uniform over the warpgroup
+      // S = Q K^T and dP = dO V^T: rows = this warpgroup's 64 queries,
+      // columns = the tile's 64 keys
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        wgmma_m64n64k16_ss(s, desc_kmajor(q_s, kWDqRows, wg * 64, k),
+                           desc_kmajor(k_s, kWDqKeys, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < kD / 16; ++k)
+        wgmma_m64n64k16_ss(dp, desc_kmajor(do_s, kWDqRows, wg * 64, k),
+                           desc_kmajor(v_s, kWDqKeys, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = exp(S scale - lse), dS = P (dP - delta) scale, into s
+      const bool edge = qw + 64 > a.sq || k0 + kWDqKeys > a.sk ||
+                        (a.causal && k0 + kWDqKeys - 1 > qw + offset);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          float p = exp2f(fmaf(s[4 * j + e], scale_log2, hi ? nlse1 : nlse0));
+          if (edge) {
+            const int key = k0 + 8 * j + col + (e & 1);
+            const int row = hi ? row0 + 8 : row0;
+            if (row >= a.sq || key >= a.sk ||
+                (a.causal && key > row + offset))
+              p = 0.f;
+          }
+          s[4 * j + e] =
+              p * (dp[4 * j + e] - (hi ? delta1 : delta0)) * a.scale;
+        }
+      uint32_t da[4][4];
+      acc_to_a(s, da);
+
+      // dQ += dS K, K read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kWDqKeys / 16; ++k)
+        wgmma_m64n128k16_rs(dq, da[k], desc_mnmajor(k_s, kWDqKeys, k));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    __syncthreads();   // every warpgroup is done with this stage
+  }
+
+  auto* dqb = static_cast<__nv_bfloat16*>(a.dq) + q_base;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + col;
+    if (row0 < a.sq)
+      *reinterpret_cast<uint32_t*>(dqb + row0 * q_row + c) =
+          pack_bf16(dq[4 * j], dq[4 * j + 1]);
+    if (row0 + 8 < a.sq)
+      *reinterpret_cast<uint32_t*>(dqb + (row0 + 8) * q_row + c) =
+          pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
+  }
+}
+
 // dk/dv in bf16 on the tensor cores (see the note at the top)
 constexpr int kWBKV = 128;            // keys per block: two warpgroups x 64
 constexpr int kWBQ = 64;              // queries per Q / dO tile
-constexpr int kWThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kWKVBytes = kWBKV * kD * 2;
 constexpr uint32_t kWQBytes = kWBQ * kD * 2;
 // a stage holds the Q and dO tiles (each 1024-byte aligned, as the
@@ -599,16 +800,29 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
-template <typename T>
 int launch_dq(const BwdArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t e = ptt_allow_smem(flash_bwd_dq_kernel<T>, kDqSmemBytes);
+    const cudaError_t e =
+        ptt_allow_smem(flash_bwd_dq_kernel<float>, kDqSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kB - 1) / kB, a.h, batch);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, kDqSmemBytes, stream>>>(a);
+  flash_bwd_dq_kernel<float><<<grid, kThreads, kDqSmemBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e =
+        ptt_allow_smem(flash_bwd_dq_wgmma_kernel, kWDqSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const dim3 grid((a.sq + kWDqRows - 1) / kWDqRows, a.h, batch);
+  flash_bwd_dq_wgmma_kernel<<<grid, kWThreads, kWDqSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,8 +874,8 @@ PTT_EXPORT int flash_attention_bwd_dq(const void* q, const void* k,
   const BwdArgs a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr,
                               nullptr, sq, sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32) return launch_dq<float>(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dq<__nv_bfloat16>(a, batch, s);
+  if (dtype == PTT_F32) return launch_dq(a, batch, s);
+  if (dtype == PTT_BF16) return launch_dq_wgmma(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,34 +7,60 @@
 // in f32, bf16 or int8 (int8 dequantized by a per-(page, kv head) f32
 // scale), table [N, P] int32 (page 0 is the null page), lengths [N]
 // int32; GQA folds query heads as [HKV, G] (head = hkv * G + g); keys at
-// or past lengths[n] are masked; pages wholly past the length are
-// skipped, but the slot's first page is always computed so an idle slot
+// or past lengths[n] are masked; pages wholly past the length are not
+// read, but the slot's first page is always computed so an idle slot
 // still finishes with finite values. Output is q.dtype.
 //
 // Bound on the H100: bytes. Each live KV row is read once and used for
 // G query heads (2 * 2 * G * D flops per row against 2 * D * sizeof(KV)
 // bytes), far below the ~295 flops/byte where the tensor cores would
-// become the limit. At the serving path's decode shape (8 slots, 32
-// heads, context up to 1024, bf16) the bound is a few tens of
-// microseconds.
-// Design: one block of D = 128 threads per (slot, kv head). The block
-// reads its slot's page ids from the table itself (the CUDA counterpart
-// of scalar prefetch), stages one [ps, D] K tile and one V tile per page
-// in shared memory as fp32 (dequantized on load), computes the G x ps
-// scores one warp per (head, row) with a shuffle reduction, runs the
-// online softmax for the G heads of the group, and accumulates P V with
-// thread t owning output dimension t for every head of the group, in
-// registers. Loads are coalesced rows of D contiguous elements. This
-// first kernel walks a slot's pages in order within one block; splitting
-// a long context across blocks is later work.
+// become the limit, so the kernels stay on fp32 FMAs. At the serving
+// path's decode shape (8 slots, 32 heads, context up to 1024, bf16) the
+// bound is about 18 microseconds: the time to read 60 MB of live K/V.
+// Reaching it takes many bytes in flight on every SM, so the design
+// splits each slot's context across blocks (the FlashDecoding / vLLM v2
+// scheme). Two kernels per call:
+//
+// - paged_attn_split_kernel, grid (N, HKV, splits), 128 threads. Each
+//   block owns a fixed run of `pps` pages (at most kSplitKeys = 64 keys:
+//   4 pages at ps = 16) of one (slot, kv head); the split count comes
+//   from the table width P, never from the lengths, so the host reads
+//   nothing from the device. A block whose run starts past its slot's
+//   last page writes an empty partial (m = -inf, l = 0) and exits; split
+//   0 always holds the slot's first page. The block reads its page ids
+//   from the table itself and puts every K and V row of its run in
+//   flight at once: 16-byte cp.async copies (4 f32, 8 bf16 or 16 int8
+//   values each) into shared memory, chunk c of row t stored at chunk
+//   c ^ (t % 8), so that the 16-byte reads below are free of bank
+//   conflicts. Thread (row slot r = tid / 16, 8-column group tid % 16)
+//   then takes rows r, r + 8, ...: the scores q . k of the G query heads,
+//   summed over each row's 16 threads by shuffles (int8 dequantized per
+//   element, as it is read); the split's max and sum per head, one warp
+//   per head across the block; P V into 8 x G fp32 registers, summed
+//   over the 8 row slots by a shuffle and shared memory. It writes fp32
+//   (acc[G][D], m, l) to the workspace [N, HKV, splits, G, D + 2].
+// - paged_attn_combine_kernel, grid (N, H), one thread per output
+//   column: out = sum_s acc_s exp(m_s - M) / sum_s l_s exp(m_s - M) over
+//   the splits with l_s > 0 (M their largest m_s), in q's dtype. The
+//   splits' weights are computed all at once and reduced across the
+//   block, so the kernel waits on device memory about twice, not once
+//   per split.
+//
+// Neither kernel syncs with the host or allocates memory: the wrapper
+// takes the workspace from PyTorch's caching allocator, so a call can be
+// captured by a CUDA graph.
+#include <cmath>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kD = 128;
-constexpr int kThreads = kD;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kSplitKeys = 64;             // K (and V) rows of a split, at most
+constexpr int kRowSlots = kThreads / 16;   // 16 threads x 8 columns per row
 
 struct PagedArgs {
   const void* q;
@@ -44,136 +70,340 @@ struct PagedArgs {
   const int* lengths;
   const float* k_scales;
   const float* v_scales;
+  float* ws;       // [N, HKV, splits, G, D + 2]: acc[D], m, l per head
   void* out;
-  int h, hkv, p, ps;
+  int h, hkv, p, ps, pps, splits;
   float scale;
 };
 
-template <typename TQ, typename TKV, bool kQuant>
+// byte offset of 16-byte chunk c of row t in a [kSplitKeys][D] tile of T
+template <typename T>
+__device__ __forceinline__ int chunk_at(int t, int c) {
+  return t * kD * static_cast<int>(sizeof(T)) + ((c ^ (t & 7)) << 4);
+}
+
+// The 8 columns a thread of column group dg (0..15) owns: 8 dg .. 8 dg + 7,
+// except in f32 tiles (4 values per chunk), where they are chunks dg and
+// dg + 16, so that 8 neighbouring threads read 8 distinct bank groups.
+template <typename T>
+__device__ __forceinline__ int group_col(int dg, int e) {
+  if (sizeof(T) == 4) return (e < 4 ? 4 * dg : 64 + 4 * dg) + (e & 3);
+  return 8 * dg + e;
+}
+
+// the 8 values of row t, column group dg, of a tile, as float
+__device__ __forceinline__ void row8(const float* tile, int t, int dg,
+                                     float (&x)[8]) {
+  const auto* base = reinterpret_cast<const uint8_t*>(tile);
+  const float4 lo = *reinterpret_cast<const float4*>(
+      base + chunk_at<float>(t, dg));
+  const float4 hi = *reinterpret_cast<const float4*>(
+      base + chunk_at<float>(t, dg + 16));
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+__device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
+                                     int dg, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(
+      reinterpret_cast<const uint8_t*>(tile) + chunk_at<__nv_bfloat16>(t, dg));
+  const auto* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(pairs[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void row8(const int8_t* tile, int t, int dg,
+                                     float (&x)[8]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(
+      reinterpret_cast<const uint8_t*>(tile) + chunk_at<int8_t>(t, dg >> 1) +
+      (dg & 1) * 8);
+  const auto* bytes = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = static_cast<float>(bytes[e]);
+}
+
+template <typename TKV, int kG>
+constexpr size_t split_smem_bytes() {
+  // K and V tiles, the warps' partial P V [kWarps][kG][D], scores then
+  // probabilities [kG][kSplitKeys], and the rows' k and v scales
+  return 2 * kSplitKeys * kD * sizeof(TKV) +
+         (kWarps * kG * kD + kG * kSplitKeys + 2 * kSplitKeys) *
+             sizeof(float);
+}
+
+// kG: the group size G rounded up to 1, 2, 4 or 8 (register arrays)
+template <typename TQ, typename TKV, bool kQuant, int kG>
 __global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(PagedArgs a) {
-  extern __shared__ float smem[];
-  const int g_size = a.h / a.hkv;
-  float* qs = smem;                        // [G][D], pre-scaled by sm_scale
-  float* kt = qs + g_size * kD;            // [ps][D]
-  float* vt = kt + a.ps * kD;              // [ps][D]
-  float* sc = vt + a.ps * kD;              // [G][ps] scores, then probs
-  float* m_s = sc + g_size * a.ps;         // [G]
-  float* l_s = m_s + g_size;               // [G]
-  float* al_s = l_s + g_size;              // [G]
+    paged_attn_split_kernel(PagedArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kRowBytes = kD * sizeof(TKV);
+  constexpr int kChunks = kRowBytes / 16;
+  const TKV* k_t = reinterpret_cast<const TKV*>(smem);
+  const TKV* v_t = reinterpret_cast<const TKV*>(smem + kSplitKeys * kRowBytes);
+  float* red = reinterpret_cast<float*>(smem + 2 * kSplitKeys * kRowBytes);
+  float* sp = red + kWarps * kG * kD;
+  float* row_scale = sp + kG * kSplitKeys;     // [2][kSplitKeys]: k, v
 
   const int n = blockIdx.x;
   const int hk = blockIdx.y;
-  const int t = threadIdx.x;
-  const int warp = t / 32, lane = t % 32;
+  const int split = blockIdx.z;
+  const int g_size = a.h / a.hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int len = a.lengths[n];
+  // the slot's pages: those holding a key below len, and at least one
+  const int n_pages = min(max((len + a.ps - 1) / a.ps, 1), a.p);
+  const int first_page = split * a.pps;
+  float* part = a.ws + ((static_cast<int64_t>(n) * a.hkv + hk) * a.splits +
+                        split) * g_size * (kD + 2);
+  if (first_page >= n_pages) {                 // an empty partial
+    if (tid < g_size) {
+      part[tid * (kD + 2) + kD] = -INFINITY;
+      part[tid * (kD + 2) + kD + 1] = 0.f;
+    }
+    return;
+  }
+  const int t_live = min(a.pps, n_pages - first_page) * a.ps;
+  const int key0 = first_page * a.ps;
 
+  // every K and V row of the run in flight at once
+  const int* pages = a.table + static_cast<int64_t>(n) * a.p + first_page;
+  const int64_t row_stride = static_cast<int64_t>(a.hkv) * kD;
+  const uint32_t k_sm = hopper::smem_u32(k_t);
+  const uint32_t v_sm = hopper::smem_u32(v_t);
+  for (int i = tid; i < t_live * kChunks; i += kThreads) {
+    const int t = i / kChunks, c = i % kChunks;
+    const int64_t at =
+        (static_cast<int64_t>(pages[t / a.ps]) * a.ps + t % a.ps) *
+            row_stride + hk * kD + c * (16 / static_cast<int>(sizeof(TKV)));
+    const uint32_t off = chunk_at<TKV>(t, c);
+    hopper::cp_async_16(k_sm + off, static_cast<const TKV*>(a.k_pages) + at,
+                        true);
+    hopper::cp_async_16(v_sm + off, static_cast<const TKV*>(a.v_pages) + at,
+                        true);
+  }
+  hopper::cp_async_commit();
+  if (kQuant && tid < t_live) {
+    const int64_t at = static_cast<int64_t>(pages[tid / a.ps]) * a.hkv + hk;
+    row_scale[tid] = a.k_scales[at];
+    row_scale[kSplitKeys + tid] = a.v_scales[at];
+  }
+
+  // this thread's 8 columns of each query head of the group, times scale
+  const int dg = tid & 15, rs = tid >> 4;
   const TQ* qn = static_cast<const TQ*>(a.q) +
                  (static_cast<int64_t>(n) * a.h + hk * g_size) * kD;
-  for (int g = 0; g < g_size; ++g)
-    qs[g * kD + t] = ptt_to_float(qn[g * kD + t]) * a.scale;
-  if (t < g_size) {
-    m_s[t] = PTT_NEG_INF;
-    l_s[t] = 0.f;
-  }
-
-  float acc[kMaxG];
+  float qf[kG][8];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      qf[g][e] = g < g_size
+                     ? ptt_to_float(qn[g * kD + group_col<TKV>(dg, e)]) *
+                           a.scale
+                     : 0.f;
 
-  int n_pages = (len + a.ps - 1) / a.ps;
-  if (n_pages < 1) n_pages = 1;            // the first page always computes
-  if (n_pages > a.p) n_pages = a.p;
+  hopper::cp_async_wait<0>();
+  __syncthreads();
 
-  const TKV* kp = static_cast<const TKV*>(a.k_pages);
-  const TKV* vp = static_cast<const TKV*>(a.v_pages);
-  const int64_t row_stride = static_cast<int64_t>(a.hkv) * kD;
+  // scores of rows rs, rs + 8, ...: each row's 16 threads sum by shuffles
+  // (a trip count uniform over the block, so every lane shuffles)
+  const int n_iter = (t_live + kRowSlots - 1) / kRowSlots;
+  for (int i = 0; i < n_iter; ++i) {
+    const int t = rs + kRowSlots * i;
+    const bool valid = t < t_live;
+    float kf[8];
+    if (valid) {
+      row8(k_t, t, dg, kf);
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] *= row_scale[t];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kf[e] = 0.f;
+    }
+    float s[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      float v = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v = fmaf(qf[g][e], kf[e], v);
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      s[g] = v;
+    }
+    if (valid && dg == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+        if (g < g_size)
+          sp[g * kSplitKeys + t] = key0 + t < len ? s[g] : PTT_NEG_INF;
+    }
+  }
+  __syncthreads();
 
-  for (int ip = 0; ip < n_pages; ++ip) {
-    const int pid = a.table[static_cast<int64_t>(n) * a.p + ip];
-    float k_scale = 1.f, v_scale = 1.f;
+  // the split's max and sum per query head, one warp per head; the
+  // probabilities replace the scores
+  for (int g = warp; g < g_size; g += kWarps) {
+    float* row = sp + g * kSplitKeys;
+    const float s0 = lane < t_live ? row[lane] : -INFINITY;
+    const float s1 = lane + 32 < t_live ? row[lane + 32] : -INFINITY;
+    const float m = ptt_warp_max(fmaxf(s0, s1));
+    const float p0 = expf(s0 - m), p1 = expf(s1 - m);
+    row[lane] = p0;
+    row[lane + 32] = p1;
+    const float l = ptt_warp_sum(p0 + p1);
+    if (lane == 0) {
+      part[g * (kD + 2) + kD] = m;
+      part[g * (kD + 2) + kD + 1] = l;
+    }
+  }
+  __syncthreads();
+
+  // P V over the same rows, then summed over the 8 row slots
+  float acc[kG][8];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  for (int t = rs; t < t_live; t += kRowSlots) {
+    float vf[8];
+    row8(v_t, t, dg, vf);
     if (kQuant) {
-      k_scale = a.k_scales[static_cast<int64_t>(pid) * a.hkv + hk];
-      v_scale = a.v_scales[static_cast<int64_t>(pid) * a.hkv + hk];
-    }
-    const int64_t base = static_cast<int64_t>(pid) * a.ps * row_stride +
-                         static_cast<int64_t>(hk) * kD + t;
-    __syncthreads();  // previous page's PV is done with kt / vt / sc
-    for (int j = 0; j < a.ps; ++j) {
-      kt[j * kD + t] = ptt_to_float(kp[base + j * row_stride]) * k_scale;
-      vt[j * kD + t] = ptt_to_float(vp[base + j * row_stride]) * v_scale;
-    }
-    __syncthreads();
-
-    for (int idx = warp; idx < g_size * a.ps; idx += kWarps) {
-      const int g = idx / a.ps, j = idx % a.ps;
-      float part = 0.f;
 #pragma unroll
-      for (int c = lane; c < kD; c += 32) part += qs[g * kD + c] * kt[j * kD + c];
-      part = ptt_warp_sum(part);
-      if (lane == 0)
-        sc[g * a.ps + j] = (ip * a.ps + j < len) ? part : PTT_NEG_INF;
+      for (int e = 0; e < 8; ++e) vf[e] *= row_scale[kSplitKeys + t];
     }
-    __syncthreads();
-
-    if (t < g_size) {
-      float* row = sc + t * a.ps;
-      const float m_old = m_s[t];
-      float m_new = m_old;
-      for (int j = 0; j < a.ps; ++j) m_new = fmaxf(m_new, row[j]);
-      float sum = 0.f;
-      for (int j = 0; j < a.ps; ++j) {
-        const float pj = expf(row[j] - m_new);
-        row[j] = pj;
-        sum += pj;
-      }
-      const float alpha = expf(m_old - m_new);
-      al_s[t] = alpha;
-      l_s[t] = l_s[t] * alpha + sum;
-      m_s[t] = m_new;
-    }
-    __syncthreads();
-
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+    for (int g = 0; g < kG; ++g) {
       if (g < g_size) {
-        float v_acc = acc[g] * al_s[g];
-        for (int j = 0; j < a.ps; ++j) v_acc = fmaf(sc[g * a.ps + j], vt[j * kD + t], v_acc);
-        acc[g] = v_acc;
+        const float p = sp[g * kSplitKeys + t];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
   }
-
-  TQ* on = static_cast<TQ*>(a.out) +
-           (static_cast<int64_t>(n) * a.h + hk * g_size) * kD;
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
-    if (g < g_size) on[g * kD + t] = ptt_from_float<TQ>(acc[g] / l_s[g]);
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
+  if (lane < 16) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      if (g < g_size) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          red[(warp * kG + g) * kD + group_col<TKV>(dg, e)] = acc[g][e];
+      }
+  }
+  __syncthreads();
+  for (int g = 0; g < g_size; ++g) {           // thread tid: column tid
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o += red[(w * kG + g) * kD + tid];
+    part[g * (kD + 2) + tid] = o;
+  }
+}
+
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_combine_kernel(PagedArgs a) {
+  extern __shared__ float w_s[];                // [splits]: exp(m_s - M)
+  __shared__ float warp_part[kWarps];
+  const int n = blockIdx.x;
+  const int h = blockIdx.y;                     // query head
+  const int tid = threadIdx.x;                  // output column
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g_size = a.h / a.hkv;
+  const int64_t stride = static_cast<int64_t>(g_size) * (kD + 2);  // a split
+  const float* head =
+      a.ws + (static_cast<int64_t>(n) * a.hkv + h / g_size) * a.splits *
+                 stride + (h % g_size) * (kD + 2);
+
+  // M: the largest m_s of the splits with l_s > 0, every split at once
+  float m = -INFINITY;
+  for (int s = tid; s < a.splits; s += kThreads)
+    if (head[s * stride + kD + 1] > 0.f) m = fmaxf(m, head[s * stride + kD]);
+  m = ptt_warp_max(m);
+  if (lane == 0) warp_part[warp] = m;
+  __syncthreads();
+  m = warp_part[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_part[w]);
+  __syncthreads();
+
+  // each split's weight, and L = sum_s l_s w_s
+  float l = 0.f;
+  for (int s = tid; s < a.splits; s += kThreads) {
+    const float ls = head[s * stride + kD + 1];
+    const float w = ls > 0.f ? expf(head[s * stride + kD] - m) : 0.f;
+    w_s[s] = w;
+    l = fmaf(ls, w, l);
+  }
+  l = ptt_warp_sum(l);
+  if (lane == 0) warp_part[warp] = l;
+  __syncthreads();
+  l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) l += warp_part[w];
+
+  float o = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < a.splits; ++s) {
+    const float w = w_s[s];
+    if (w > 0.f) o = fmaf(head[s * stride + tid], w, o);
+  }
+  static_cast<TQ*>(a.out)[(static_cast<int64_t>(n) * a.h + h) * kD + tid] =
+      ptt_from_float<TQ>(o / l);
+}
+
+template <typename TQ, typename TKV, bool kQuant, int kG>
+int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
+  constexpr size_t smem = split_smem_bytes<TKV, kG>();
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e =
+        ptt_allow_smem(paged_attn_split_kernel<TQ, TKV, kQuant, kG>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  paged_attn_split_kernel<TQ, TKV, kQuant, kG>
+      <<<dim3(n, a.hkv, a.splits), kThreads, smem, stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  paged_attn_combine_kernel<TQ>
+      <<<dim3(n, a.h), kThreads, a.splits * sizeof(float), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV, bool kQuant>
 int launch(const PagedArgs& a, int n, cudaStream_t stream) {
-  const int g_size = a.h / a.hkv;
-  const size_t smem =
-      (static_cast<size_t>(g_size) * kD + 2 * static_cast<size_t>(a.ps) * kD +
-       static_cast<size_t>(g_size) * a.ps + 3 * g_size) *
-      sizeof(float);
-  const cudaError_t e =
-      ptt_allow_smem(paged_attn_kernel<TQ, TKV, kQuant>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n, a.hkv);
-  paged_attn_kernel<TQ, TKV, kQuant><<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int g = a.h / a.hkv;
+  if (g == 1) return launch_split<TQ, TKV, kQuant, 1>(a, n, stream);
+  if (g == 2) return launch_split<TQ, TKV, kQuant, 2>(a, n, stream);
+  if (g <= 4) return launch_split<TQ, TKV, kQuant, 4>(a, n, stream);
+  if (g <= 8) return launch_split<TQ, TKV, kQuant, 8>(a, n, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// `pps` pages per split (pps * ps <= 64) and `splits` = ceil(p / pps)
+// blocks per (slot, kv head); `ws` is the fp32 workspace
+// [n, hkv, splits, h / hkv, 130].
 PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, const void* k_scales,
-                                   const void* v_scales, void* out, int n,
-                                   int h, int hkv, int p, int ps, float scale,
+                                   const void* v_scales, void* ws, void* out,
+                                   int n, int h, int hkv, int p, int ps,
+                                   int pps, int splits, float scale,
                                    int q_dtype, int kv_dtype, void* stream) {
+  if (pps < 1 || pps * ps > kSplitKeys || splits != (p + pps - 1) / pps)
+    return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
               v_pages,
@@ -181,11 +411,14 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               static_cast<const int*>(lengths),
               static_cast<const float*>(k_scales),
               static_cast<const float*>(v_scales),
+              static_cast<float*>(ws),
               out,
               h,
               hkv,
               p,
               ps,
+              pps,
+              splits,
               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == PTT_F32 && kv_dtype == PTT_F32)

@@ -28,8 +28,10 @@ else, so a run can show that its path went through the kernels.
 
 Each CUDA source starts with a note: the TPU kernel it replaces, what
 bounds it on the H100, and what its design does about that. The flash
-forward and dk/dv wrappers launch by dtype: bf16 on the tensor-core
-(wgmma) kernels, f32 on fp32 FMA kernels; any other dtype raises.
+forward, dq and dk/dv wrappers launch by dtype: bf16 on the tensor-core
+(wgmma) kernels, f32 on fp32 FMA kernels; any other dtype raises. One
+`paged_attention` call launches two device kernels (the split-context
+pass and its combine) and counts once.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
 _MAX_GROUP = 8           # paged kernel: query heads per kv head, at most
+PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
 ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
 
 _P = ctypes.c_void_p
@@ -66,7 +69,7 @@ _ARGTYPES = {
     'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
-    'paged_attention_fwd': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    'paged_attention_fwd': [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
     'adapter_matmul_fwd': [_P] * 6 + [_I] * 8 + [_P],
 }
 
@@ -369,12 +372,17 @@ def _check_bwd(q, k, v, lse, dout, causal):
 
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
     """The dq kernel: (dq [B, Sq, H, D] in q.dtype, delta [B, H, Sq]
-    fp32). Contiguous inputs; out and lse from `flash_attention_fwd`."""
+    fp32). Contiguous inputs; out and lse from `flash_attention_fwd`.
+    bf16 runs on the tensor-core kernel (16-byte-aligned inputs), f32 on
+    the FMA kernel."""
     if _on_cpu(q, k, v, out, lse, dout):
         return attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
     _check_bwd(q, k, v, lse, dout, causal)
     _require(tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype
              and out.is_contiguous(), 'flash backward: out like q')
+    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v, out, dout),
+             'bf16 dq kernel needs 16-byte-aligned q, k, v, out, dout base '
+             'pointers')
     b, sq, h, _ = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -494,12 +502,24 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
     return o.reshape(n, h, d).to(q.dtype)
 
 
+def paged_split(p: int, ps: int):
+    """(pages per split, splits) of the paged kernel for a table of `p`
+    pages of `ps` rows: each split holds at most PAGED_SPLIT_KEYS keys,
+    and the count comes from the table's width, never from the lengths."""
+    pps = max(1, PAGED_SPLIT_KEYS // ps)
+    return pps, -(-p // pps)
+
+
 def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
                     v_scales=None, sm_scale=None):
     """Decode attention over a page-table KV pool (shapes as in
     `paged_attention_reference`). On the card a slot with length 0
     computes its first page only (finite, meaningless: callers mask
-    such slots), where the plain version averages all its pages."""
+    such slots), where the plain version averages all its pages. The
+    kernel splits each slot's context into runs of at most
+    PAGED_SPLIT_KEYS keys (`paged_split`) and combines them in a second
+    kernel, over an fp32 workspace it takes from the caching allocator;
+    it takes pages of at most PAGED_SPLIT_KEYS rows."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
     if sm_scale is None:
@@ -533,19 +553,27 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
                  and tuple(k_scales.shape) == (num_pages, hkv)
                  and tuple(v_scales.shape) == (num_pages, hkv),
                  'scales must be f32 [num_pages, HKV]')
+    _require(1 <= ps <= PAGED_SPLIT_KEYS and p >= 1,
+             f'paged kernel takes pages of 1..{PAGED_SPLIT_KEYS} rows and a '
+             f'table of >= 1 page, got ps={ps} P={p}')
     tensors = [q, k_pages, v_pages, table, lengths] + (
         [k_scales, v_scales] if quant else [])
     _require(all(t.is_contiguous() for t in tensors),
              'paged kernel takes contiguous tensors')
+    _require(_aligned16(k_pages, v_pages),
+             'paged kernel needs 16-byte-aligned page pools')
     out = torch.empty_like(q)
     if n == 0:
         return out
+    pps, splits = paged_split(p, ps)
+    ws = torch.empty((n, hkv, splits, h // hkv, d + 2), dtype=torch.float32,
+                     device=q.device)
     lib, fn = _entry('paged_attention', 'paged_attention_fwd')
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lengths.data_ptr(),
             k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None,
-            out.data_ptr(), n, h, hkv, p, ps, float(sm_scale),
+            v_scales.data_ptr() if quant else None, ws.data_ptr(),
+            out.data_ptr(), n, h, hkv, p, ps, pps, splits, float(sm_scale),
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
     LAUNCHES['paged_attention'] += 1

@@ -107,8 +107,8 @@ def test_flash_kernel_bf16_strided_view(cuda, causal):
 def test_bf16_attention_raises_on_a_misaligned_view(cuda):
     """The wgmma kernels copy 16 bytes at a time: a bf16 view whose
     storage starts one element past an aligned buffer is refused, by the
-    forward and by the dk/dv kernel, as is fp16; the same bf16 values
-    aligned are taken, one launch per call."""
+    forward, the dq and the dk/dv kernel, as is fp16; the same bf16
+    values aligned are taken, one launch per call."""
     b, s, h = 1, 16, 2
     buf = torch.zeros(b * s * h * 128 + 1, device=cuda, dtype=torch.bfloat16)
     x = buf[1:].view(b, s, h, 128)
@@ -118,18 +118,26 @@ def test_bf16_attention_raises_on_a_misaligned_view(cuda):
     with pytest.raises(ValueError, match='16-byte'):
         K.flash_attention_fwd(x, x, x, causal=True)
     with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_bwd_dq(x, x, x, x, lse, x, True)
+    with pytest.raises(ValueError, match='16-byte'):
         K.flash_attention_bwd_dkv(x, x, x, lse, lse, x, True)
     assert K.LAUNCHES == before
     y = x.clone()
     with pytest.raises(ValueError):          # fp16: neither kernel takes it
         K.flash_attention_fwd(y.half(), y.half(), y.half(), causal=True)
     with pytest.raises(ValueError):
+        K.flash_attention_bwd_dq(y.half(), y.half(), y.half(), y.half(),
+                                 lse, y.half(), True)
+    with pytest.raises(ValueError):
         K.flash_attention_bwd_dkv(y.half(), y.half(), y.half(), lse, lse,
                                   y.half(), True)
     K.flash_attention_fwd(y, y, y, causal=True)
+    K.flash_attention_bwd_dq(y, y, y, y, lse, y, True)
     K.flash_attention_bwd_dkv(y, y, y, lse, lse, y, True)
     assert K.LAUNCHES['flash_attention_fwd'] == \
         before['flash_attention_fwd'] + 1
+    assert K.LAUNCHES['flash_attention_bwd_dq'] == \
+        before['flash_attention_bwd_dq'] + 1
     assert K.LAUNCHES['flash_attention_bwd_dkv'] == \
         before['flash_attention_bwd_dkv'] + 1
 
@@ -170,6 +178,69 @@ def test_paged_kernel_matches_plain(cuda, dtype, hkv, quant):
                              v_scales=vs),
            K.paged_attention_reference(q, kp, vp, table, lengths,
                                        k_scales=ks, v_scales=vs), dtype)
+
+
+_PAGED_SPLIT_CASES = {
+    # (H, HKV, lengths) over tables of P = 10 pages of 16 rows: splits of
+    # 4 pages (64 keys), so P is not a multiple of the split size
+    'split_boundary': (8, 4, [63, 64, 65, 127, 128, 129]),
+    'full_table': (8, 4, [160, 1, 159, 33]),
+    'length_0': (8, 4, [0, 5, 70, 160]),
+    'group_8': (16, 2, [1, 64, 65, 100, 160]),
+}
+
+
+@pytest.mark.parametrize('dtype,quant', [
+    (torch.float32, False), (torch.bfloat16, False),
+    (torch.float32, True), (torch.bfloat16, True)])
+@pytest.mark.parametrize('case', sorted(_PAGED_SPLIT_CASES))
+def test_paged_split_kernel_matches_plain(cuda, dtype, quant, case):
+    """The split-context kernel at the edges of its splits, in every
+    dtype pair the wrapper takes: lengths one below, at and one past a
+    split boundary, a slot filling all P pages, a length-0 slot (its
+    table row on one page, where the kernel's first page and the plain
+    version's average of all pages agree) and G = 8; one call counts one
+    launch."""
+    h, hkv, lengths = _PAGED_SPLIT_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case) + h)
+    n, p, ps = len(lengths), 10, 16
+    num_pages = n * p + 1
+    q = _randn(g, dtype, n, h, 128)
+    shape = (num_pages, ps, hkv, 128)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g, device=cuda,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device=cuda,
+                           dtype=torch.int8)
+        ks = torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+        vs = torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+    else:
+        kp, vp = _randn(g, dtype, *shape), _randn(g, dtype, *shape)
+        ks = vs = None
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    if case == 'length_0':
+        table[0] = table[0, 0]
+    lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
+    before = K.LAUNCHES['paged_attention']
+    got = K.paged_attention(q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
+    assert K.LAUNCHES['paged_attention'] == before + 1
+    _close(got, K.paged_attention_reference(q, kp, vp, table, lens,
+                                            k_scales=ks, v_scales=vs), dtype)
+
+
+def test_paged_wrapper_raises_on_pages_past_a_split(cuda):
+    """A page of more rows than a split holds (PAGED_SPLIT_KEYS) has no
+    kernel: the wrapper raises and launches nothing."""
+    ps = K.PAGED_SPLIT_KEYS * 2
+    q = torch.zeros((1, 4, 128), device=cuda)
+    pages = torch.zeros((2, ps, 4, 128), device=cuda)
+    before = K.LAUNCHES['paged_attention']
+    with pytest.raises(ValueError, match='rows'):
+        K.paged_attention(q, pages, pages,
+                          torch.ones((1, 1), device=cuda, dtype=torch.int32),
+                          torch.ones(1, device=cuda, dtype=torch.int32))
+    assert K.LAUNCHES['paged_attention'] == before
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -222,7 +293,8 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, sq, sk, hkv,
                                             causal):
     """The forward's LSE and the dq and dk/dv kernels against the plain
     FA-2 backward: ragged S, GQA groups of 1, 4 and 8, sq < sk, causal
-    or not (bf16 dk/dv on the wgmma kernel, f32 on the FMA kernel). With
+    or not (bf16 dq and dk/dv on the wgmma kernels, f32 on the FMA
+    kernels). With
     one key, dq and dk are zero up to rounding and have no scale of their
     own to hold them to."""
     g = torch.Generator(device=cuda).manual_seed(sq + hkv)
@@ -398,3 +470,23 @@ def test_banked_engine_on_card_matches_engine_on_cpu(cuda):
         if model is on_card:
             assert K.LAUNCHES['adapter_matmul'] > 0
     assert tokens[0] == tokens[1]
+
+
+def test_queued_calls_hide_the_launch_gaps(cuda):
+    """`chip_smoke.queued_ms` times calls queued behind a GPU-side sleep:
+    a kernel longer than its launch reads as the back-to-back CUDA events
+    do, and a tiny one no slower than the host's launch rate."""
+    import importlib.util
+    import pathlib
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', pathlib.Path(__file__).resolve().parent.parent
+        / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    long_call = lambda: torch.cuda._sleep(1_000_000)    # ~0.5 ms
+    ev, queued = smoke.time_ms(long_call), smoke.queued_ms(long_call)
+    assert queued is not None and abs(queued - ev) <= 0.05 * ev
+    x = torch.zeros(1024, device=cuda)
+    tiny = lambda: x.add_(1.0)
+    queued = smoke.queued_ms(tiny)
+    assert queued is not None and queued <= smoke.time_ms(tiny)

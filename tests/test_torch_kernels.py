@@ -150,6 +150,32 @@ def test_paged_plain_matches_reference(case):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('case', ['f32', 'gqa', 'int8', 'gqa_int8',
+                                  'page_16'])
+def test_paged_split_model_matches_reference(case):
+    """The card kernel's split-and-combine arithmetic (per split m, l and
+    P V, then the exp(m_s - M) rescale; `test_torch_smoke.
+    paged_split_model`) against the JAX `paged_attention_reference`, over
+    tables of 20 pages of 8 rows (splits of 8 pages; of 16 rows: splits
+    of 4 pages): lengths at a split boundary and one on either side, a
+    full table and length 1."""
+    from test_torch_smoke import paged_split_model
+    kw = {'gqa': dict(hkv=1), 'int8': dict(quant=True),
+          'gqa_int8': dict(hkv=1, quant=True),
+          'page_16': dict(ps=16)}.get(case, {})
+    q, kp, vp, table, lengths, ks, vs = _paged_case(
+        seed=len(case) + 20, n=7, p=20, num_pages=60, **kw)
+    lengths[:] = [63, 64, 65, 128, 129, 160, 1]
+    j = lambda a: None if a is None else jnp.asarray(a)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    want = np.asarray(pk.paged_attention_reference(
+        j(q), j(kp), j(vp), j(table), j(lengths), k_scales=j(ks),
+        v_scales=j(vs)))
+    got = paged_split_model(t(q), t(kp), t(vp), t(table), t(lengths),
+                            k_scales=t(ks), v_scales=t(vs)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_paged_entries_past_length_are_inert():
     """Table entries past a slot's length may point anywhere: the output
     does not change when they move to the null page."""

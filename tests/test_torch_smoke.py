@@ -12,10 +12,14 @@ shape (B=1, S=256, 4 query heads over 2 kv heads, D=128; CE at
 delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots). The
 bf16 tensor-core kernels round in their own order (P to bf16 before
 P V over 64-key tiles of an online softmax; P^T and dS^T to bf16 before
-the dV and dK products): that order must pass the bf16 limits, and the
-redesign's likely faults must not. The timing phase's guard against a
-profiler reading that contradicts the CUDA events is checked on given
-readings.
+the dV and dK products; dS to bf16 before the dQ product): that order
+must pass the bf16 limits, and the redesign's likely faults must not.
+The split-context paged kernel's arithmetic (`paged_split_model`: per
+split m, l and P V, then the exp(m_s - M) rescale) must equal the plain
+version to the f32 limits, and a combine without the rescale or without
+the last live split must fail them. The timing phase's reading (calls
+queued behind a GPU-side sleep, else the CUDA events) is checked on
+given readings.
 """
 import importlib.util
 import math
@@ -167,19 +171,132 @@ def _dkv_tensor_core(a, first_head_only=False):
             K._fold_group(dv, HKV).to(a['v'].dtype))
 
 
-@pytest.mark.parametrize('kernel', ['forward', 'dkv'])
+def _dq_tensor_core(a):
+    """The bf16 tensor-core dq kernel's arithmetic: S and dP in fp32, dS
+    rounded to bf16 before dQ += dS K, fp32 sums, dQ rounded once."""
+    k, v = _repeat_kv(a)
+    q, do = a['q'].float(), a['dout'].float()
+    s = torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(D)
+    p = torch.exp(s - a['lse'][..., None]).tril()
+    dp = torch.einsum('bqhd,bkhd->bhqk', do, v)
+    ds = p * (dp - a['delta'][..., None]) / math.sqrt(D)
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds.bfloat16().float(), k)
+    return dq.to(a['q'].dtype)
+
+
+@pytest.mark.parametrize('kernel', ['forward', 'dkv', 'dq'])
 def test_compare_accepts_the_tensor_core_rounding_order(kernel):
     """The bf16 wgmma kernels' order of rounding passes the bf16 limits
     against the plain versions."""
     a = _attention(torch.bfloat16)
     if kernel == 'forward':
         smoke.compare(kernel, _forward_tensor_core(a), (a['out'], a['lse']))
-    else:
+    elif kernel == 'dkv':
         smoke.compare(kernel, _dkv_tensor_core(a), (a['dk'], a['dv']))
+    else:
+        smoke.compare(kernel, _dq_tensor_core(a), a['dq'])
+
+
+def paged_split_model(q, k_pages, v_pages, table, lengths, k_scales=None,
+                      v_scales=None, rescale=True, drop_last_split=False,
+                      late_mask=False):
+    """The split-context paged kernel's arithmetic in plain torch, fp32.
+
+    Each slot's pages run in splits of `K.paged_split` pages; a split
+    past the slot's last page (ceil(length / ps), at least 1) holds
+    nothing. Per live split and query head: the scores (keys at or past
+    the length masked), m = their max, l = sum exp(s - m), acc = the
+    exp(s - m)-weighted sum of V rows. The combine: out = sum_s acc_s
+    w_s / sum_s l_s w_s with w_s = exp(m_s - M), M = max_s m_s. As
+    faults: `rescale=False` takes w_s = 1, `drop_last_split` leaves out
+    each slot's last live split, `late_mask` masks from one key past the
+    length."""
+    n, h, d = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    p = table.shape[1]
+    g = h // hkv
+    pps, splits = K.paged_split(p, ps)
+    qf = q.float().reshape(n, hkv, g, d) / math.sqrt(d)
+    out = torch.empty(n, hkv, g, d)
+    for i in range(n):
+        length = int(lengths[i])
+        n_pages = min(max(-(-length // ps), 1), p)
+        parts = []
+        for first in range(0, min(splits * pps, n_pages), pps):
+            ids = table[i, first:min(first + pps, n_pages)].long()
+            k, v = k_pages[ids].float(), v_pages[ids].float()
+            if k_scales is not None:
+                k = k * k_scales[ids][:, None, :, None]
+                v = v * v_scales[ids][:, None, :, None]
+            k, v = k.reshape(-1, hkv, d), v.reshape(-1, hkv, d)
+            keys = first * ps + torch.arange(k.shape[0])
+            s = torch.einsum('kgd,tkd->kgt', qf[i], k)
+            s = s.masked_fill(keys >= length + late_mask, K.NEG_INF)
+            m = s.amax(dim=-1)
+            e = torch.exp(s - m[..., None])
+            parts.append((m, e.sum(dim=-1), torch.einsum('kgt,tkd->kgd', e,
+                                                         v)))
+        if drop_last_split and len(parts) > 1:
+            parts = parts[:-1]
+        m, l, acc = (torch.stack(x) for x in zip(*parts))
+        w = torch.exp(m - m.amax(dim=0)) if rescale else torch.ones_like(m)
+        out[i] = (acc * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+    return out.reshape(n, h, d).to(q.dtype)
+
+
+_PAGED_CASES = {
+    # (H, HKV, page size, lengths) over tables of 10 pages. Pages of 16
+    # rows: splits of 4 pages (64 keys), the last split of a full table
+    # holding 2 pages; of 8 rows: 2 splits of 8 pages; of 64 rows: 10
+    # splits of 1 page; of 5 rows: one split of 12 pages, past the table
+    'split_boundary': (4, 4, 16, [63, 64, 65, 127, 128, 129]),
+    'full_table': (4, 4, 16, [160, 100, 159]),
+    'length_1': (4, 4, 16, [1, 2, 17]),
+    'one_split': (4, 4, 16, [1, 17, 64]),
+    'group_4': (8, 2, 16, [1, 64, 65, 160]),
+    'group_8': (16, 2, 16, [1, 64, 65, 160]),
+    'page_8': (4, 4, 8, [7, 8, 63, 64, 65, 80]),
+    'page_64': (4, 2, 64, [1, 63, 64, 65, 640]),
+    'page_5': (4, 2, 5, [1, 5, 49, 50]),
+}
+
+
+def _paged(case):
+    """(q, k_pages, v_pages, table, lengths) in f32 for a case of
+    _PAGED_CASES, D = 128, each slot on its own 10 pages."""
+    h, hkv, ps, lengths = _PAGED_CASES[case]
+    rng = np.random.RandomState(3)
+    n, p = len(lengths), 10
+    num_pages = n * p + 1
+    q = _randn(rng, (n, h, D), torch.float32)
+    kp = _randn(rng, (num_pages, ps, hkv, D), torch.float32)
+    vp = _randn(rng, (num_pages, ps, hkv, D), torch.float32)
+    table = torch.from_numpy(
+        (rng.permutation(num_pages - 1)[:n * p] + 1).astype(np.int32)
+        .reshape(n, p))
+    return q, kp, vp, table, torch.tensor(lengths, dtype=torch.int32)
+
+
+@pytest.mark.parametrize('case', sorted(_PAGED_CASES))
+def test_paged_split_model_matches_plain(case):
+    """The split-and-combine arithmetic equals the plain version within
+    the f32 limits, across split boundaries, a full table, length 1, one
+    split, GQA groups of 4 and 8, and pages of 5, 8 and 64 rows."""
+    args = _paged(case)
+    smoke.compare(case, paged_split_model(*args),
+                  K.paged_attention_reference(*args))
 
 
 def _mutant(case, dtype):
     """(kernel output with a fault, plain output)."""
+    if case.startswith('paged'):
+        args = _paged('split_boundary')
+        fault = {'paged_combine_without_rescale': dict(rescale=False),
+                 'paged_combine_drops_last_live_split':
+                     dict(drop_last_split=True),
+                 'paged_mask_one_key_late': dict(late_mask=True)}[case]
+        return (paged_split_model(*args, **fault),
+                K.paged_attention_reference(*args))
     if case.startswith('ce'):
         c = _cross_entropy(dtype)
         got = {'ce_bwd_zeros': torch.zeros_like(c['dx']),
@@ -201,6 +318,15 @@ def _mutant(case, dtype):
         return _forward_tensor_core(a, rescale=False), (a['out'], a['lse'])
     if case == 'dkv_first_head_of_each_group_only':
         return _dkv_tensor_core(a, first_head_only=True), (a['dk'], a['dv'])
+    if case == 'dq_without_the_causal_mask':
+        # dS from P without the causal mask (a diagonal tile left unmasked)
+        k, v = _repeat_kv(a)
+        s = torch.einsum('bqhd,bkhd->bhqk', a['q'].float(), k) / math.sqrt(D)
+        p = torch.exp(s - a['lse'][..., None])
+        dp = torch.einsum('bqhd,bkhd->bhqk', a['dout'].float(), v)
+        ds = p * (dp - a['delta'][..., None]) / math.sqrt(D)
+        dq = torch.einsum('bhqk,bkhd->bqhd', ds.bfloat16().float(), k)
+        return dq.to(dtype), a['dq']
     e = _attention_fp64(a, delta_term=False)
     name = {'dq_without_delta': 'dq', 'dk_without_delta': 'dk'}[case]
     return e[name], a[name]
@@ -217,6 +343,10 @@ def _mutant(case, dtype):
     ('forward_probs_rounded_to_bf16', torch.float32),
     ('forward_without_rescale', torch.bfloat16),
     ('dkv_first_head_of_each_group_only', torch.bfloat16),
+    ('dq_without_the_causal_mask', torch.bfloat16),
+    ('paged_combine_without_rescale', torch.float32),
+    ('paged_combine_drops_last_live_split', torch.float32),
+    ('paged_mask_one_key_late', torch.float32),
 ])
 def test_compare_rejects_a_wrong_kernel(case, dtype):
     got, want = _mutant(case, dtype)
@@ -286,34 +416,51 @@ def test_compare_rejects_a_dtype_or_shape_change():
         smoke.compare('shape', x[:2], x)
 
 
-@pytest.mark.parametrize('dev,per_call,ev,wrong', [
-    (0.232, 1, 0.470, True),    # one long kernel read at half its time
-    (0.850, 1, 0.574, True),    # above the events, which bound it
-    (0.850, 3, 0.574, True),
-    (0.450, 1, 0.470, False),   # within PROFILER_MIN_SHARE of the events
-    (0.500, 1, 0.470, False),
-    (0.004, 1, 0.012, False),   # a short kernel: events read the launch rate
-    (0.300, 8, 0.600, False),   # 0.075 ms per launch: gaps may explain it
-    (None, 0, 0.470, False),    # no profiler reading to doubt
+@pytest.mark.parametrize('queued,ev,want', [
+    (0.029, 0.060, 0.029),    # a small kernel: the events read the launches
+    (0.466, 0.470, 0.466),    # a long kernel: both read the device
+    (None, 0.470, 0.470),     # the host could not keep ahead: the events
 ])
-def test_profiler_disagrees(dev, per_call, ev, wrong):
-    assert smoke.profiler_disagrees(dev, per_call, ev) is wrong
+def test_timed_takes_the_queued_calls_or_else_the_events(
+        monkeypatch, queued, ev, want):
+    """`timed` reports the calls queued behind a sleep (the device time
+    without the host's launch gaps), beside the back-to-back event time,
+    which it reports instead only when the calls could not be queued."""
+    monkeypatch.setattr(smoke, 'time_ms', lambda fn: ev)
+    monkeypatch.setattr(smoke, 'queued_ms', lambda fn: queued)
+    assert smoke.timed(lambda: None) == (want, ev)
 
 
-@pytest.mark.parametrize('readings,want', [
-    ([(0.470, (0.232, 1)), (0.468, (0.233, 1))], 0.468),   # lost twice
-    ([(0.470, (0.232, 1)), (0.471, (0.466, 1))], 0.466),   # lost once
-    ([(0.574, (0.850, 1)), (0.571, (0.849, 1))], 0.571),   # above, twice
-    ([(0.470, (0.466, 1))], 0.466),
-    ([(0.012, (None, 0))], 0.012),
+@pytest.mark.parametrize('queries,want,sleeps', [
+    ([False], 0.1, 1),          # still asleep when the host was done
+    ([True, False], 0.1, 2),    # a call waited: again, sleeping 4x longer
+    ([True, True], None, 2),    # a call waited twice: no reading
 ])
-def test_timed_takes_the_events_when_the_profiler_disagrees(
-        monkeypatch, readings, want):
-    """`timed` measures again once when the profiler's reading contradicts
-    the CUDA events, and reports the event time if it does so again."""
-    evs = iter([ev for ev, _ in readings])
-    devs = iter([dev for _, dev in readings])
-    monkeypatch.setattr(smoke, 'time_ms', lambda fn: next(evs))
-    monkeypatch.setattr(smoke, 'device_ms', lambda fn: next(devs))
-    assert smoke.timed(lambda: None) == (want, readings[-1][0])
-    assert next(evs, None) is None
+def test_queued_ms_keeps_only_calls_the_sleep_held(monkeypatch, queries,
+                                                   want, sleeps):
+    """`queued_ms` keeps a timing only when the GPU was still asleep after
+    the host had launched every call (the event after the sleep not yet
+    reached), so that no launch gap is in it; it gives None rather than a
+    reading with gaps."""
+    answers, slept, calls = iter(queries), [], []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def query(self):
+            return next(answers)
+
+        def elapsed_time(self, end):
+            return 2.0                 # ms over 20 calls
+
+    monkeypatch.setattr(smoke.torch.cuda, 'Event', Event)
+    monkeypatch.setattr(smoke.torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(smoke.torch.cuda, '_sleep', slept.append)
+    assert smoke.queued_ms(lambda: calls.append(1)) == want
+    assert len(slept) == sleeps
+    assert all(b == 4 * a for a, b in zip(slept, slept[1:]))
+    assert len(calls) == 21 + 20 * sleeps
