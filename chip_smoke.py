@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --hook-us TREE   # host us of one adapted
+                                           # projection, port in TREE
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -13,7 +15,8 @@ result line):
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
    (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
-   rows on slot 0, whose delta must be exactly zero);
+   rows on slot 0, whose delta must be exactly zero and whose fused
+   y + delta must equal y bit for bit);
 3. consistency: the engine at 2 layers of Llama-2-7B width in f32, greedy;
    each request's first 16 tokens must equal a no-cache full-recompute
    forward of the same model; then adapter consistency at the same size:
@@ -44,20 +47,25 @@ result line):
    [base, ad0, ad1, ad2][i % 4]: every request finishes, the adapter
    kernel runs exactly once per adapted projection of every prefill and
    decode forward, base requests get phase 6's tokens and adapted ones
-   differ;
+   differ; then the host time of one adapted projection (hook, wrapper
+   and launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, one prefill forward, and one training
    step (forward + backward, then the optimizer update, each profiled);
    each decode round must run the split-context paged kernels and not
-   the first design's `paged_attn_kernel`, the prefill the wgmma forward
+   the first design's `paged_attn_kernel` (the banked one also the
+   cluster adapter kernel and not the first design's
+   `adapter_matmul_kernel`), the prefill the wgmma forward
    kernel, the training step the wgmma forward, dq and dk/dv kernels;
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
    calls, the host's launch rate for a small kernel), with its plain
    version, the one PyTorch call that computes the same function where
-   there is one, and the card's bound for the same work.
+   there is one, and the card's bound for the same work; the adapter
+   cases also beside a composite of several PyTorch calls, and the
+   decode ones also with L2 flushed before each call.
 
 Phases 5 and 6 run before any profiling: once torch.profiler has run in
 a process, every later launch costs the host more.
@@ -165,33 +173,48 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def queued_ms(fn, iters: int = 20, attempts: int = 2):
+def queued_ms(fn, iters: int = 20, attempts: int = 2, before=None):
     """Device ms per call of fn() without the host's launch gaps: the
     calls are queued behind a GPU-side sleep longer than the host takes
     to launch them, and CUDA events time them back to back on the device.
-    None when the sleep ended before the host had launched them all (a
-    call that waits for the device), `attempts` times with a longer
-    sleep each time."""
-    fn()
+    With `before`, before() runs ahead of each call, untimed (e.g. writing
+    a buffer larger than L2, so that fn's inputs come from device memory),
+    and events around each call alone time it. None when the sleep ended
+    before the host had launched them all (a call that waits for the
+    device), `attempts` times with a longer sleep each time."""
+    def step():
+        if before is not None:
+            before()
+        fn()
+
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        fn()
+        step()
     launch_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     cycles = int(min(launch_s, 0.25) * 4e9) + 100_000   # ~2x at ~2 GHz
     for _ in range(attempts):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(1 if before is None else iters)]
         torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued = not start.query()     # still sleeping: no call waited
+        if before is None:
+            events[0][0].record()
+            for _ in range(iters):
+                fn()
+            events[0][1].record()
+        else:
+            for start, end in events:
+                before()
+                start.record()
+                fn()
+                end.record()
+        queued = not events[0][0].query()   # still sleeping: no call waited
         torch.cuda.synchronize()
         if queued:
-            return start.elapsed_time(end) / iters
+            return sum(a.elapsed_time(b) for a, b in events) / iters
         cycles *= 4
     return None
 
@@ -299,6 +322,16 @@ def build():
             if ('entry function' in line or 'registers' in line
                     or 'spill' in line or 'Performance Loss' in line):
                 log(f'[build] {name}: {line.strip()}')
+    regs, spills = [], []
+    for line in _build.build_log('adapter_matmul').splitlines():
+        if 'Used' in line and 'registers' in line:
+            regs.append(int(line.split('Used')[1].split()[0]))
+        elif 'spill stores' in line:
+            spills.append(int(line.split('bytes spill stores')[0].split(',')
+                              [-1]))
+    log(f'[build] adapter_sgmv_kernel: {len(regs)} instantiations (x and bank'
+        f' dtype x padded rank x vector path), registers {min(regs, default=0)}-'
+        f'{max(regs, default=0)}, spill stores {sum(spills)} bytes in all')
     lib_dir = _build._build_dir(_build._nvcc())
     for source, kernels in WGMMA_KERNELS.items():
         counts = hgmma_counts(lib_dir / f'lib{source}.so', kernels)
@@ -322,18 +355,21 @@ def kernel_cases() -> list:
     one PyTorch call computing the same function (or None) as closures
     over inputs made on the card from a seed, at the serving path's
     shapes, with the bytes and operations the work needs. `rep` marks the
-    case each kernel's JSON entry reports."""
+    case each kernel's JSON entry reports; `zero_rows` rows whose output
+    must equal `zero_base` bit for bit; `composite` a yardstick made of
+    several PyTorch calls; `cold` a case also timed with L2 flushed."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
     gen = torch.Generator(device=DEV).manual_seed(0)
     cases = []
 
     def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False,
-            zero_rows=None):
+            zero_rows=None, zero_base=None, composite=None, cold=False):
         b_ms, by = bound_ms(moved, ops, dtype)
         cases.append(dict(kernel=kernel, name=name, dtype=dtype, run=run,
                           plain=plain, lib=lib, bound_ms=b_ms, bound_by=by,
-                          rep=rep, zero_rows=zero_rows))
+                          rep=rep, zero_rows=zero_rows, zero_base=zero_base,
+                          composite=composite, cold=cold))
 
     # flash attention: prefill shapes (buckets 8 .. 1024), causal, D = 128
     for dtype in (torch.float32, torch.bfloat16):
@@ -504,12 +540,26 @@ def _training_cases(add, gen) -> None:
             nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
 
 
+def adapter_composite(x, a_bank, b_bank, rows, scale):
+    """The adapter delta from several PyTorch calls (two index_selects, two
+    bmms, casts and the scale): the nearest library yardstick, since no one
+    PyTorch call computes it. Timed only; the port never calls it."""
+    idx = rows.long()
+    h1 = torch.bmm(x.float(), a_bank.index_select(0, idx).float())
+    out = torch.bmm(h1, b_bank.index_select(0, idx).float())
+    return (out * scale.index_select(0, idx)[:, None, None]).to(x.dtype)
+
+
 def _adapter_cases(add, gen) -> None:
-    """adapter_matmul at the serve path's shapes: decode (8 slots, T=1)
-    and prefill (one row, T=1024) at H = O = 4096 and rank 8, with rows
-    mixing slot 0 and repeated slots, x and the bank each in f32 and
-    bf16; and a ragged case (H=4000, O=1000, rank 16). The bytes count
-    the factors of the distinct slots the rows use, once each."""
+    """adapter_matmul (the delta) and adapter_matmul_add (y + delta, what
+    the serve path's hook calls) at the serve path's shapes: decode (8
+    slots, T=1) and prefill (one row, T=1024) at H = O = 4096 and rank 8,
+    with rows mixing slot 0 and repeated slots, x and the bank each in f32
+    and bf16; and a ragged case (H=4000, O=1000, rank 16). y is of the
+    delta's scale, so that an add that drops or doubles the delta fails.
+    The bytes count the factors and scale of each distinct adapted slot
+    the rows use, once (slot 0's rows read none), and x, rows and the
+    output of every row. The decode cases are also timed with L2 flushed."""
     from paddle_tpu_torch.ops import kernels as K
     slots = 5
     for b, t, h, r, o, rows in ((8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),
@@ -525,35 +575,50 @@ def _adapter_cases(add, gen) -> None:
                 a[0], bb[0] = 0, 0
                 scale = torch.rand(slots, generator=gen, device=DEV) + 0.5
                 scale[0] = 0.0
+                y = (0.5 * torch.randn((b, t, o), generator=gen,
+                                       device=DEV)).to(x_dtype)
                 rows_t = torch.tensor(rows, dtype=torch.int32, device=DEV)
-                used = len(set(rows))
+                used = len(set(rows) - {0})   # slot 0 reads no factors
                 moved = (nbytes(x, rows_t) + b * t * o * x.element_size()
                          + used * ((h * r + r * o) * a.element_size() + 4))
                 args = (x, a, bb, rows_t, scale)
-                add('adapter_matmul',
-                    f'adapter x {str(x_dtype)[6:]} bank {str(w_dtype)[6:]} '
-                    f'B={b} T={t} H={h} R={r} O={o}',
-                    torch.bfloat16 if torch.float32 not in (x_dtype, w_dtype)
-                    else torch.float32,
+                tag = (f'x {str(x_dtype)[6:]} bank {str(w_dtype)[6:]} '
+                       f'B={b} T={t} H={h} R={r} O={o}')
+                dtype = (torch.bfloat16 if torch.float32 not in
+                         (x_dtype, w_dtype) else torch.float32)
+                decode_rep = (t == 1 and x_dtype == torch.bfloat16
+                              and w_dtype == torch.float32)
+                add('adapter_matmul', f'adapter {tag}', dtype,
                     lambda a=args: K.adapter_matmul(*a),
                     lambda a=args: K.adapter_matmul_reference(*a), None,
-                    moved, 2 * b * t * r * (h + o),
-                    rep=(t == 1 and x_dtype == torch.bfloat16
-                         and w_dtype == torch.float32),
-                    zero_rows=rows_t == 0)
+                    moved, 2 * b * t * r * (h + o), zero_rows=rows_t == 0,
+                    zero_base=torch.zeros_like(y),
+                    composite=lambda a=args: adapter_composite(*a),
+                    cold=t == 1)
+                add('adapter_matmul', f'adapter + y {tag}', dtype,
+                    lambda a=args, y=y: K.adapter_matmul_add(y, *a),
+                    lambda a=args, y=y: K.adapter_matmul_add_reference(y, *a),
+                    None, moved + nbytes(y), 2 * b * t * r * (h + o),
+                    rep=decode_rep, zero_rows=rows_t == 0, zero_base=y,
+                    composite=lambda a=args, y=y: y + adapter_composite(*a),
+                    cold=t == 1)
 
 
 def check_kernels(cases) -> None:
     """Hold every kernel against its plain version, and adapter rows on
-    slot 0 to an exact zero (fatal on a miss)."""
+    slot 0 to an exact zero delta (y bit for bit with the add; fatal on a
+    miss)."""
     for c in cases:
         got = c['run']()
         r = compare(c['name'], got, c['plain']())
         if c['zero_rows'] is not None:
-            base = got[c['zero_rows']]
-            if not torch.equal(base, torch.zeros_like(base)):
-                raise AssertionError(f'{c["name"]}: rows on slot 0 have a '
-                                     f'non-zero delta')
+            rows = c['zero_rows']
+            if not torch.equal(got[rows], c['zero_base'][rows]):
+                raise AssertionError(f'{c["name"]}: rows on slot 0 are not '
+                                     f'left unchanged (delta not exactly 0)')
+            log(f'[kernels] {c["name"]}: {int(rows.sum())} rows on slot 0 '
+                f'bit-equal to ' + ('y' if c['zero_base'].any()
+                                    else 'zero'))
         c['max_abs_err'] = r['max_abs_err']
         log(f'[kernels] {c["name"]}: max_abs_err {r["max_abs_err"]:.3e} '
             f'rel_max {r["rel_max"]:.3e} rel_norm {r["rel_norm"]:.3e}')
@@ -565,6 +630,8 @@ def time_kernels(cases) -> dict:
     costs the host more, so the serve phase and the unprofiled decode
     round are measured before any profiler use."""
     rows = {}
+    # written before each cold call: more than the H100's 50 MB of L2
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for c in cases:
         ms, ev = timed(c['run'])
         plain, _ = timed(c['plain'])
@@ -573,6 +640,16 @@ def time_kernels(cases) -> dict:
             f'plain {plain:.4f} ms  library '
             + (f'{lib:.4f} ms' if lib is not None else 'none')
             + f'  bound {c["bound_ms"]:.4f} ms ({c["bound_by"]})')
+        if c['composite'] is not None:
+            comp = timed(c['composite'])[0]
+            log(f'[timing]   {c["name"]}: composite of several PyTorch calls'
+                f' (index_select x2, bmm x2, casts; not one library call) '
+                f'{comp:.4f} ms')
+        if c['cold']:
+            cold = queued_ms(c['run'], before=flush.zero_)
+            log(f'[timing]   {c["name"]}: kernel with L2 flushed before '
+                f'each call ' + (f'{cold:.4f} ms' if cold is not None else
+                                 'not measured (the host fell behind)'))
         if c['rep']:
             rows[c['kernel']] = dict(
                 shape=c['name'], max_abs_err=c['max_abs_err'], ms=ms,
@@ -1003,12 +1080,44 @@ def serve_adapters(served) -> dict:
     return res
 
 
+def hook_host_us(calls: int = 200) -> float:
+    """Host µs of one adapted projection at the serve path's decode shape:
+    the hook, its wrapper and its launch(es) (`linear_hook` on a tagged
+    4096 x 4096 bf16 Linear inside an adapter scope: x [8, 4096] bf16, a
+    rank-8 f32 bank of 5 slots, rows [0, 1, 2, 1, 0, 3, 3, 1]), host clock
+    over `calls` calls after a warm-up, the device not waited for. Uses
+    only the port's public hook API, so it also times an earlier tree."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.serving.adapters import apply
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    lin = Linear(4096, 4096, device=DEV, dtype=torch.bfloat16, generator=gen)
+    lin._adapter_site = 'site'
+    arrays = {'factors': {'site': {
+        'a': 0.05 * torch.randn((5, 4096, 8), generator=gen, device=DEV),
+        'b': 0.05 * torch.randn((5, 8, 4096), generator=gen, device=DEV)}},
+        'scale': torch.rand(5, generator=gen, device=DEV)}
+    rows = torch.tensor([0, 1, 2, 1, 0, 3, 3, 1], dtype=torch.int32,
+                        device=DEV)
+    x = torch.randn((8, 4096), generator=gen, device=DEV).bfloat16()
+    y = lin(x)
+    with torch.inference_mode(), apply.adapter_scope(arrays, rows):
+        for _ in range(20):
+            apply.linear_hook(lin, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            apply.linear_hook(lin, x, y)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
 # ---------------------------------------------------------------------------
 # phase 7: where the time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
 
 _GROUPS = (('paged_attention', PAGED_KERNELS),
-           ('adapter_matmul', ('adapter_matmul_kernel',)),
+           ('adapter_matmul', ('adapter_sgmv_kernel',)),
            ('flash_attention_bwd', ('flash_bwd_dq_kernel',
                                     'flash_bwd_dq_wgmma_kernel',
                                     'flash_bwd_dkv_kernel',
@@ -1071,7 +1180,8 @@ def profile_serve(eng, banked, prompts, adapter_ids) -> None:
     runs: time one decode round of each with every slot busy (no profiler
     yet; the banked engine's requests under `adapter_ids`), then profile
     the next round of each, and one prefill forward of the longest
-    prompt's bucket."""
+    prompt's bucket. The banked round must run the cluster adapter kernel
+    and not the first design's `adapter_matmul_kernel`."""
     from torch.profiler import ProfilerActivity, profile
     rounds = []
     for e, ids, label in ((eng, None, 'decode round'),
@@ -1096,6 +1206,9 @@ def profile_serve(eng, banked, prompts, adapter_ids) -> None:
             f'ms; the idle share uses the unprofiled round)')
         require_kernels(prof, PAGED_KERNELS, label,
                         absent=('paged_attn_kernel',))
+        if e is banked:
+            require_kernels(prof, ('adapter_sgmv_kernel',), label,
+                            absent=('adapter_matmul_kernel',))
         e.run()
     bucket = eng.pool.bucket_for(len(prompts[1]))
     ids = torch.zeros((1, bucket), dtype=torch.int64, device=DEV)
@@ -1148,6 +1261,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--hook-us']:
+        # python3 chip_smoke.py --hook-us TREE: hook_host_us() of the port
+        # in the checkout TREE (to set an earlier tree beside this one)
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        from paddle_tpu_torch.ops import _build
+        _build.build_all()
+        log(f'[host] {sys.argv[2]}: one adapted projection {hook_host_us():.2f}'
+            f' us of host time per call')
+        return 0
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
     log(f'[env] torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
@@ -1166,6 +1288,8 @@ def main() -> int:
                                           use_recompute=True))
     res = serve(LlamaConfig.llama2_7b())
     adapted = serve_adapters(res)
+    log(f'[host] one adapted projection (hook + wrapper + launch, decode '
+        f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res['engine'], adapted['engine'], res['prompts'],
                   adapted['ids'])
     profile_train(trained['step'], trained['batch'], trained['step_s'])

@@ -11,7 +11,8 @@ the serving and training paths has a hand-written Hopper kernel here
 - `rms_norm_fwd` replaces `_rms_fwd_kernel`,
 - `softmax_cross_entropy_fwd` replaces `_ce_fwd_kernel`,
 - `softmax_cross_entropy_bwd` replaces `_ce_bwd_kernel`,
-- `adapter_matmul` replaces `_adapter_matmul_kernel` (per-row LoRA delta).
+- `adapter_matmul` replaces `_adapter_matmul_kernel` (per-row LoRA delta);
+  `adapter_matmul_add` fuses the hook's add into the same kernel.
 
 The gradients are `torch.autograd.Function`s around them, the
 counterparts of the JAX package's custom VJPs: `FlashAttention`
@@ -56,6 +57,7 @@ _HEAD_DIM = 128          # the kernels are compiled for D = 128
 _MAX_GROUP = 8           # paged kernel: query heads per kv head, at most
 PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
 ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
+ADAPTER_MAX_BATCH = 1024  # adapter kernel: rows per call, at most
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,7 +72,7 @@ _ARGTYPES = {
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
     'paged_attention_fwd': [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
-    'adapter_matmul_fwd': [_P] * 6 + [_I] * 8 + [_P],
+    'adapter_matmul_fwd': [_P] * 7 + [_I] * 8 + [_P],
 }
 
 
@@ -714,45 +716,102 @@ def adapter_matmul_reference(x, a_bank, b_bank, rows, scale):
     return (out * s[:, None, None]).to(x.dtype)
 
 
-def adapter_matmul(x, a_bank, b_bank, rows, scale):
-    """Per-row LoRA delta over a packed adapter bank (shapes as in
-    `adapter_matmul_reference`). The kernel reads each row's slot and
-    gathers its factors in the same launch. It takes x and the bank in
-    f32 or bf16 (independently), rows int32 in [0, C), scale f32, all
-    contiguous, and a rank of at most ADAPTER_MAX_RANK."""
-    _require(x.dim() == 3 and a_bank.dim() == 3 and b_bank.dim() == 3,
-             'adapter_matmul takes x [B, T, H], a_bank [C, H, R] and '
-             'b_bank [C, R, O]')
+def adapter_matmul_add_reference(y, x, a_bank, b_bank, rows, scale):
+    """Plain version of `adapter_matmul_add`: y plus the delta rounded to
+    x.dtype, added in y's dtype (the JAX hook's `y + Tensor(delta)`)."""
+    return y + adapter_matmul_reference(x, a_bank, b_bank, rows,
+                                        scale).reshape(y.shape)
+
+
+_ADAPTER_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _adapter_dims(x, a_bank, b_bank, rows, scale) -> tuple:
+    """(B, T, H, C, R, O) of an adapter call; raises on shapes the
+    function does not take. Messages are built only when a check fails:
+    the hook calls this 128 times per decode sub-step."""
+    if x.dim() != 3 or a_bank.dim() != 3 or b_bank.dim() != 3:
+        raise ValueError('adapter_matmul takes x [B, T, H], a_bank [C, H, R]'
+                         ' and b_bank [C, R, O]')
     bsz, t, h = x.shape
-    c, _, r = a_bank.shape
-    o = b_bank.shape[2]
-    _require(tuple(a_bank.shape) == (c, h, r)
-             and tuple(b_bank.shape) == (c, r, o)
-             and tuple(rows.shape) == (bsz,) and tuple(scale.shape) == (c,)
-             and c >= 1, f'adapter_matmul shapes x {tuple(x.shape)} a_bank '
-                         f'{tuple(a_bank.shape)} b_bank {tuple(b_bank.shape)}'
-                         f' rows {tuple(rows.shape)} scale '
-                         f'{tuple(scale.shape)}')
-    _require(1 <= r <= ADAPTER_MAX_RANK,
-             f'adapter kernel takes a rank of 1..{ADAPTER_MAX_RANK}, got {r}')
-    if _on_cpu(x, a_bank, b_bank, rows, scale):
-        return adapter_matmul_reference(x, a_bank, b_bank, rows, scale)
-    _require(x.dtype in (torch.float32, torch.bfloat16)
-             and a_bank.dtype in (torch.float32, torch.bfloat16)
-             and b_bank.dtype == a_bank.dtype,
-             f'adapter kernel takes x and the bank in f32 or bf16, got '
-             f'{x.dtype}, {a_bank.dtype}, {b_bank.dtype}')
-    _require(rows.dtype == torch.int32 and scale.dtype == torch.float32,
-             'adapter kernel takes rows int32 and scale f32')
-    _require(all(u.is_contiguous() for u in (x, a_bank, b_bank, rows, scale)),
-             'adapter kernel takes contiguous tensors')
-    out = torch.empty((bsz, t, o), dtype=x.dtype, device=x.device)
+    c, ah, r = a_bank.shape
+    bc, br, o = b_bank.shape
+    if not (ah == h and bc == c and br == r and c >= 1
+            and rows.shape == (bsz,) and scale.shape == (c,)):
+        raise ValueError(
+            f'adapter_matmul shapes x {tuple(x.shape)} a_bank '
+            f'{tuple(a_bank.shape)} b_bank {tuple(b_bank.shape)} rows '
+            f'{tuple(rows.shape)} scale {tuple(scale.shape)}')
+    if not 1 <= r <= ADAPTER_MAX_RANK:
+        raise ValueError(f'adapter kernel takes a rank of '
+                         f'1..{ADAPTER_MAX_RANK}, got {r}')
+    return bsz, t, h, c, r, o
+
+
+def _adapter_launch(x, a_bank, b_bank, rows, scale, y, out, dims) -> None:
+    """Check what the kernel takes and launch it: out = delta (y None) or
+    y + delta. One launch, counted once."""
+    bsz, t, h, c, r, o = dims
+    if not (x.dtype in _ADAPTER_DTYPES and a_bank.dtype in _ADAPTER_DTYPES
+            and b_bank.dtype == a_bank.dtype):
+        raise ValueError(f'adapter kernel takes x and the bank in f32 or '
+                         f'bf16, got {x.dtype}, {a_bank.dtype}, '
+                         f'{b_bank.dtype}')
+    if rows.dtype != torch.int32 or scale.dtype != torch.float32:
+        raise ValueError('adapter kernel takes rows int32 and scale f32')
+    if not (x.is_contiguous() and a_bank.is_contiguous()
+            and b_bank.is_contiguous() and rows.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError('adapter kernel takes contiguous tensors')
+    if bsz > ADAPTER_MAX_BATCH:
+        raise ValueError(f'adapter kernel takes at most {ADAPTER_MAX_BATCH} '
+                         f'rows, got {bsz}')
     if out.numel() == 0:
-        return out
+        return
     lib, fn = _entry('adapter_matmul', 'adapter_matmul_fwd')
     rc = fn(x.data_ptr(), a_bank.data_ptr(), b_bank.data_ptr(),
-            rows.data_ptr(), scale.data_ptr(), out.data_ptr(), bsz, t, h, r,
-            o, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_bank.dtype], _stream(x))
+            rows.data_ptr(), scale.data_ptr(),
+            None if y is None else y.data_ptr(), out.data_ptr(), bsz, t, h,
+            r, o, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_bank.dtype],
+            _stream(x))
     _build.check(lib, rc, 'adapter_matmul_fwd')
     LAUNCHES['adapter_matmul'] += 1
+
+
+def adapter_matmul(x, a_bank, b_bank, rows, scale):
+    """Per-row LoRA delta over a packed adapter bank (shapes as in
+    `adapter_matmul_reference`; the JAX package's signature). The kernel
+    reads each row's slot on the device and groups the rows by slot. It
+    takes x and the bank in f32 or bf16 (independently), rows int32 in
+    [0, C) (outside it the row's delta is NaN), scale f32, all
+    contiguous, a rank of at most ADAPTER_MAX_RANK and at most
+    ADAPTER_MAX_BATCH rows."""
+    dims = _adapter_dims(x, a_bank, b_bank, rows, scale)
+    if _on_cpu(x, a_bank, b_bank, rows, scale):
+        return adapter_matmul_reference(x, a_bank, b_bank, rows, scale)
+    bsz, t, _, _, _, o = dims
+    out = torch.empty((bsz, t, o), dtype=x.dtype, device=x.device)
+    _adapter_launch(x, a_bank, b_bank, rows, scale, None, out, dims)
+    return out
+
+
+def adapter_matmul_add(y, x, a_bank, b_bank, rows, scale):
+    """A new tensor y + adapter_matmul(x, a_bank, b_bank, rows, scale), the
+    delta rounded to x.dtype before the add, from one kernel pass. y is
+    the projection's output: x.dtype, [B, T, O] (or [B, O] when T = 1),
+    contiguous on the card. The result has y's shape."""
+    dims = _adapter_dims(x, a_bank, b_bank, rows, scale)
+    bsz, t, _, _, _, o = dims
+    if y.dtype != x.dtype or not (y.shape == (bsz, t, o)
+                                  or (t == 1 and y.shape == (bsz, o))):
+        raise ValueError(f'adapter_matmul_add takes y in x.dtype '
+                         f'{x.dtype} as [{bsz}, {t}, {o}] (or [{bsz}, {o}] '
+                         f'for one token), got {y.dtype} {tuple(y.shape)}')
+    if _on_cpu(y, x, a_bank, b_bank, rows, scale):
+        return adapter_matmul_add_reference(y, x, a_bank, b_bank, rows,
+                                            scale)
+    if not y.is_contiguous():
+        raise ValueError('adapter_matmul_add takes a contiguous y')
+    out = torch.empty_like(y)
+    _adapter_launch(x, a_bank, b_bank, rows, scale, y, out, dims)
     return out

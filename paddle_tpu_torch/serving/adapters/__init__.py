@@ -7,7 +7,8 @@ adapters, decoded together in one batch.
   (reference-count pinning, LRU eviction).
 - `apply.adapter_scope` / `apply.linear_hook`: per-row bank slots flow
   as a tensor into each forward, and every adapted projection adds its
-  delta through the `adapter_matmul` kernel.
+  delta through the `adapter_matmul_add` kernel (delta and add in one
+  pass).
 
     from paddle_tpu_torch.serving import AdapterBank, InferenceEngine
     bank = AdapterBank(model, capacity=8, rank=8,

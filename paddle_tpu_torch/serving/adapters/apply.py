@@ -14,11 +14,11 @@ never by Python branches per request:
   Where the JAX package sets the scope at trace time, the port sets it
   at run time, around the eager forward.
 - `linear_hook(linear, x, y)`, installed on target `Linear`s by
-  `AdapterBank`, adds the segmented delta
-  `kernels.adapter_matmul(x, A, B, rows, scale)` to the projection's
-  output while a scope is active. Rows on bank slot 0 (the reserved
-  all-zero base adapter) get an exactly-zero delta, so requests without
-  an adapter stay bit-identical to a bank-less engine.
+  `AdapterBank`, returns the projection's output plus the segmented
+  delta, `kernels.adapter_matmul_add(y, x, A, B, rows, scale)` (one
+  kernel pass), while a scope is active. Rows on bank slot 0 (the
+  reserved all-zero base adapter) get an exactly-zero delta, so requests
+  without an adapter stay bit-identical to a bank-less engine.
 """
 from __future__ import annotations
 
@@ -79,19 +79,16 @@ def active_scope() -> Optional[_Scope]:
 
 
 def linear_hook(linear, x, y):
-    """Adds the per-row LoRA delta to a tagged Linear's output while an
-    adapter scope is active; returns y unchanged otherwise. The delta is
-    cast to x.dtype before the add, as in the JAX package."""
+    """Returns y plus the per-row LoRA delta of a tagged Linear while an
+    adapter scope is active, and y unchanged otherwise. One kernel pass,
+    `kernels.adapter_matmul_add`, computes the delta, rounds it to
+    x.dtype and adds it to y, as the JAX package's `y + Tensor(delta)`."""
     sc = _state.scope
     if sc is None:
         return y
     fac = sc.factors.get(linear._adapter_site)
     if fac is None:
         return y
-    squeeze = x.dim() == 2                 # [B, H] -> [B, 1, H]
-    xv = x[:, None, :] if squeeze else x
-    delta = kernels.adapter_matmul(xv.contiguous(), fac['a'], fac['b'],
-                                   sc.rows, sc.scale)
-    if squeeze:
-        delta = delta[:, 0, :]
-    return y + delta
+    xv = x[:, None, :] if x.dim() == 2 else x   # [B, H] -> [B, 1, H]
+    return kernels.adapter_matmul_add(y, xv.contiguous(), fac['a'],
+                                      fac['b'], sc.rows, sc.scale)

@@ -5,7 +5,9 @@ and the engine's adapter_id path) against the JAX package, on the CPU.
   (which takes the plain version for CPU tensors) against the JAX
   `adapter_matmul` in interpret mode and `adapter_matmul_reference`:
   f32 to rtol/atol 2e-5 (sums in another order), bf16 to one bf16 ulp
-  (both round one fp32 result once).
+  (both round one fp32 result once); `adapter_matmul_add` and its plain
+  version against the JAX hook's `y + adapter_matmul(...)` to the same
+  tolerance, and rows on slot 0 returning y bit for bit.
 - The bank's slot table, pinning, LRU eviction and validation, mirroring
   the non-store tests of tests/test_adapters.py.
 - The port's engine with a bank against the JAX
@@ -133,6 +135,66 @@ def test_slot_zero_rows_are_exactly_zero(x_dtype):
         base = out[torch.from_numpy(rows == 0)]
         assert base.numel() > 0 and torch.equal(base, torch.zeros_like(base))
         assert out[torch.from_numpy(rows != 0)].abs().sum() > 0
+
+
+def _y(b, t, o, seed):
+    """f32 numpy y of the delta's scale (so an add that drops or doubles
+    the delta is far outside the tolerance)."""
+    y = np.random.RandomState(seed).standard_normal((b, t, o))
+    return (0.1 * y).astype(np.float32)
+
+
+@pytest.mark.parametrize('w_dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('x_dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t', [1, 8])
+def test_add_plain_and_wrapper_match_jax(t, x_dtype, w_dtype):
+    """adapter_matmul_add (y + delta in one pass) and its plain version
+    against the JAX hook's sum: y + adapter_matmul(..., interpret=True),
+    the delta in x.dtype added in y's dtype (= x.dtype)."""
+    case = _kernel_case(t=t, seed=17 + t)
+    y = _y(4, t, 96, seed=t)
+    tx = _to_torch(*case, x_dtype, w_dtype)
+    jx = _to_jax(*case, x_dtype, w_dtype)
+    yt = torch.from_numpy(y).to(TORCH_DTYPE[x_dtype])
+    yj = jnp.asarray(y, JAX_DTYPE[x_dtype])
+    want = yj + pk.adapter_matmul(*jx, interpret=True)
+    assert want.dtype == JAX_DTYPE[x_dtype]
+    got = K.adapter_matmul_add(yt, *tx)
+    got_ref = K.adapter_matmul_add_reference(yt, *tx)
+    assert got.dtype == got_ref.dtype == TORCH_DTYPE[x_dtype]
+    assert tuple(got.shape) == (4, t, 96)
+    for g in (got, got_ref):
+        _assert_close(g, want, x_dtype)
+    if t == 1:       # a decode call's 2-D y gives a 2-D result
+        flat = K.adapter_matmul_add(yt[:, 0], *tx)
+        assert flat.shape == (4, 96) and torch.equal(flat, got[:, 0])
+
+
+@pytest.mark.parametrize('x_dtype', ['float32', 'bfloat16'])
+def test_add_slot_zero_rows_return_y_bit_for_bit(x_dtype):
+    x, a, b, rows, scale = _kernel_case(b=6, t=3, seed=19)
+    tx = _to_torch(x, a, b, rows, scale, x_dtype, 'float32')
+    y = torch.from_numpy(_y(6, 3, 96, seed=5)).to(
+        TORCH_DTYPE[x_dtype])
+    base = torch.from_numpy(rows == 0)
+    for out in (K.adapter_matmul_add(y, *tx),
+                K.adapter_matmul_add_reference(y, *tx)):
+        assert base.any() and torch.equal(out[base], y[base])
+        assert not torch.equal(out[~base], y[~base])
+
+
+def test_add_wrapper_raises_on_a_y_it_does_not_take():
+    x, a, b, rows, scale = _kernel_case(t=2, seed=3)
+    tx = _to_torch(x, a, b, rows, scale, 'float32', 'float32')
+    y = torch.zeros((4, 2, 96))
+    with pytest.raises(ValueError, match='takes y'):       # y's dtype
+        K.adapter_matmul_add(y.bfloat16(), *tx)
+    with pytest.raises(ValueError, match='takes y'):       # y's width
+        K.adapter_matmul_add(y[:, :, :95], *tx)
+    with pytest.raises(ValueError, match='takes y'):       # 2-D y, T = 2
+        K.adapter_matmul_add(y[:, 0], *tx)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        K.adapter_matmul_add(y.to('meta'), *(u.to('meta') for u in tx))
 
 
 def test_rows_match_per_row_product():

@@ -401,25 +401,102 @@ def _adapter_case(gen, b, t, h, r, o, c, x_dtype, w_dtype, rows):
                                   device=gen.device), scale
 
 
+# (b, t, h, rank, o, rows): the serve path's decode and prefill calls,
+# ragged widths, ranks 1, 33 and 64 (padded to 8 and 64; 64 leaves one
+# row per row group, so 6 entries take two rounds), widths with no
+# 16-byte chunk (scalar loads), 64 rows on one slot (one group in
+# four rounds) or on 64 distinct slots (64 clusters), and more clusters of
+# 16 tokens than the card holds at once (several rounds per cluster, two
+# rows in a group, a short last tile)
+_ADAPTER_SHAPES = {
+    'decode': (8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),
+    'prefill': (1, 1024, 4096, 8, 4096, [3]),
+    'ragged': (6, 5, 4000, 16, 1000, [0, 2, 2, 1, 0, 4]),
+    'rank_1': (4, 5, 256, 1, 96, [1, 1, 0, 2]),
+    'rank_33': (4, 1, 520, 33, 300, [2, 0, 2, 1]),
+    'rank_64': (3, 2, 64, 64, 32, [1, 0, 2]),
+    'unaligned': (3, 3, 37, 8, 29, [1, 2, 1]),
+    'b64_one_slot': (64, 1, 1024, 8, 512, [3] * 64),
+    'b64_distinct': (64, 1, 1024, 8, 512, list(range(64))),
+    'tiled_rounds': (4, 300, 1024, 8, 512, [1, 0, 2, 1]),
+}
+
+
+@pytest.mark.parametrize('fused', [False, True])
 @pytest.mark.parametrize('w_dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('x_dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('b,t,h,r,o,rows', [
-    (8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),     # decode
-    (1, 1024, 4096, 8, 4096, [3]),                       # prefill
-    (6, 5, 4000, 16, 1000, [0, 2, 2, 1, 0, 4]),          # ragged
-    (3, 2, 64, 64, 32, [1, 0, 2])])                      # widest rank
-def test_adapter_kernel_matches_plain(cuda, x_dtype, w_dtype, b, t, h, r, o,
-                                      rows):
+@pytest.mark.parametrize('shape', sorted(_ADAPTER_SHAPES))
+def test_adapter_kernel_matches_plain(cuda, shape, x_dtype, w_dtype, fused):
+    """adapter_matmul (the delta) and adapter_matmul_add (y + delta) against
+    their plain versions, one launch per call; rows on slot 0 get an exact
+    zero delta and y bit for bit."""
+    b, t, h, r, o, rows = _ADAPTER_SHAPES[shape]
     g = torch.Generator(device=cuda).manual_seed(b * t + r)
-    args = _adapter_case(g, b, t, h, r, o, 5, x_dtype, w_dtype, rows)
+    args = _adapter_case(g, b, t, h, r, o, max(5, max(rows) + 1), x_dtype,
+                         w_dtype, rows)
+    y = _randn(g, x_dtype, b, t, o)
     before = K.LAUNCHES['adapter_matmul']
-    got = K.adapter_matmul(*args)
+    if fused:
+        got, want = (K.adapter_matmul_add(y, *args),
+                     K.adapter_matmul_add_reference(y, *args))
+    else:
+        got, want = K.adapter_matmul(*args), K.adapter_matmul_reference(*args)
     assert K.LAUNCHES['adapter_matmul'] == before + 1
-    want = K.adapter_matmul_reference(*args)
     assert got.dtype == x_dtype and got.shape == want.shape
     _close(got, want, x_dtype)
-    base = got[args[3] == 0]
-    assert torch.equal(base, torch.zeros_like(base))   # slot 0: exact zero
+    base = args[3] == 0
+    assert torch.equal(got[base], (y if fused else torch.zeros_like(y))[base])
+
+
+def test_adapter_add_takes_two_dim_y_and_bad_slots_write_nan(cuda):
+    """A decode call's [B, O] y gives a [B, O] result; a row whose slot is
+    outside [0, C) gets NaN (delta and sum), the other rows stay right."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, a, b, _, scale = _adapter_case(g, 5, 1, 512, 8, 256, 4,
+                                      torch.bfloat16, torch.float32, [0] * 5)
+    rows = torch.tensor([1, -1, 3, 4, 0], dtype=torch.int32, device=cuda)
+    y = _randn(g, torch.bfloat16, 5, 256)
+    got = K.adapter_matmul_add(y, x, a, b, rows, scale)
+    assert got.shape == y.shape
+    delta = K.adapter_matmul(x, a, b, rows, scale)[:, 0]
+    for out in (got, delta):
+        assert torch.isnan(out[1:4:2]).all()
+        assert not torch.isnan(out[[0, 2, 4]]).any()
+    ok = torch.tensor([0, 2, 4], device=cuda)
+    _close(got[ok], K.adapter_matmul_add_reference(
+        y[ok], x[ok], a, b, rows[ok], scale), torch.bfloat16)
+    assert torch.equal(got[4], y[4])
+
+
+def test_adapter_add_replays_in_a_cuda_graph(cuda):
+    """adapter_matmul_add captured in a CUDA graph (the kernel reads rows
+    on the device, allocates no scratch): replayed after new rows and x
+    are copied into the static inputs, it gives the eager call's result."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, a, b, rows, scale = _adapter_case(
+        g, 8, 1, 4096, 8, 4096, 5, torch.bfloat16, torch.float32,
+        [0, 1, 2, 1, 0, 3, 3, 1])
+    y = _randn(g, torch.bfloat16, 8, 4096)
+    K.adapter_matmul_add(y, x, a, b, rows, scale)        # build and load
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.adapter_matmul_add(y, x, a, b, rows, scale)    # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = K.adapter_matmul_add(y, x, a, b, rows, scale)
+    new_rows = torch.tensor([4, 4, 0, 2, 1, 1, 3, 0], dtype=torch.int32,
+                            device=cuda)
+    new_x = _randn(g, torch.bfloat16, 8, 1, 4096)
+    rows.copy_(new_rows)
+    x.copy_(new_x)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = K.adapter_matmul_add(y, new_x, a, b, new_rows, scale)
+    assert torch.equal(static_out, eager)
+    _close(static_out, K.adapter_matmul_add_reference(
+        y, new_x, a, b, new_rows, scale), torch.bfloat16)
 
 
 def test_adapter_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
@@ -436,6 +513,19 @@ def test_adapter_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):          # rank above the kernel's
         K.adapter_matmul(x, torch.zeros((3, 64, 65), device=cuda),
                          torch.zeros((3, 65, 32), device=cuda), rows, scale)
+    y = torch.zeros((2, 1, 32), device=cuda)
+    with pytest.raises(ValueError, match='contiguous y'):
+        K.adapter_matmul_add(torch.zeros((2, 1, 64), device=cuda)[:, :, ::2],
+                             x, a, b, rows, scale)
+    with pytest.raises(ValueError, match='takes y'):   # y not in x.dtype
+        K.adapter_matmul_add(y.bfloat16(), x, a, b, rows, scale)
+    with pytest.raises(ValueError, match='takes y'):   # y of another width
+        K.adapter_matmul_add(y[:, :, :16], x, a, b, rows, scale)
+    many = K.ADAPTER_MAX_BATCH + 1
+    with pytest.raises(ValueError, match='at most'):
+        K.adapter_matmul(torch.zeros((many, 1, 64), device=cuda), a, b,
+                         torch.zeros(many, dtype=torch.int32, device=cuda),
+                         scale)
 
 
 def test_banked_engine_on_card_matches_engine_on_cpu(cuda):

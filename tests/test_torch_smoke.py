@@ -9,11 +9,16 @@ must pass, and the same function with a term left out, or off by 2%,
 must fail. Inputs come from numpy with a seed, at a small training-like
 shape (B=1, S=256, 4 query heads over 2 kv heads, D=128; CE at
 [64, 1000] with ignored rows and an O(1) upstream gradient; the adapter
-delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots). The
+delta at B=8, T=2, H=256, rank 8, O=192 over a bank of 5 slots, and y +
+delta with y of the delta's scale). The
 bf16 tensor-core kernels round in their own order (P to bf16 before
 P V over 64-key tiles of an online softmax; P^T and dS^T to bf16 before
 the dV and dK products; dS to bf16 before the dQ product): that order
 must pass the bf16 limits, and the redesign's likely faults must not.
+The cluster adapter kernel's arithmetic (`adapter_cluster_model`: H in
+8 slices summed in rank order) must pass, and an H slice left out, a
+slot group's later row given its first row's delta or none, y + 2 delta
+and the delta without y must fail.
 The split-context paged kernel's arithmetic (`paged_split_model`: per
 split m, l and P V, then the exp(m_s - M) rescale) must equal the plain
 version to the f32 limits, and a combine without the rescale or without
@@ -408,6 +413,91 @@ def test_compare_rejects_a_wrong_adapter_kernel(case, dtype):
         smoke.compare(case, got, want)
 
 
+def adapter_cluster_model(x, a, b, rows, scale, y=None, drop_slice=None,
+                          later_rows=None, gain=1.0):
+    """The cluster adapter kernel's arithmetic in plain torch, fp32: H cut
+    into the 8 blocks' slices (ceil(H / 8) rounded up to 8), each slice's
+    partial x A summed in rank order, then h1 B, the scale, one rounding to
+    x.dtype and, with y, the add in y's dtype. As faults: `drop_slice`
+    leaves one block's H slice out of the cluster's sum; `later_rows`
+    'leader' gives every later row of a slot group its first row's delta,
+    'zero' a zero delta; `gain` scales the delta (2: y + 2 delta)."""
+    h = x.shape[2]
+    hs = -(-(-(-h // 8)) // 8) * 8
+    idx = rows.long()
+    af, bf = a[idx].float(), b[idx].float()
+    h1 = torch.zeros(x.shape[0], x.shape[1], a.shape[2])
+    for k in range(8):
+        if k != drop_slice:
+            part = slice(k * hs, min(h, (k + 1) * hs))
+            h1 += torch.einsum('bth,bhr->btr', x[:, :, part].float(),
+                               af[:, part])
+    d = (torch.einsum('btr,bro->bto', h1, bf)
+         * scale[idx][:, None, None] * gain).to(x.dtype)
+    first = {}
+    for i, s in enumerate(rows.tolist()):
+        if s not in first:
+            first[s] = i
+        elif later_rows == 'leader':
+            d[i] = d[first[s]]
+        elif later_rows == 'zero':
+            d[i] = 0
+    return d if y is None else y + d
+
+
+def _adapter_y(x):
+    rng = np.random.RandomState(4)
+    return (0.5 * _randn(rng, (x.shape[0], x.shape[1], 192),
+                         torch.float32)).to(x.dtype)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_compare_accepts_the_cluster_adapter_kernel(dtype, fused):
+    """The cluster kernel's order of sums, and fp64 rounded once, pass
+    against the plain delta and the plain y + delta."""
+    args = _adapter(dtype)
+    if fused:
+        y = _adapter_y(args[0])
+        want = K.adapter_matmul_add_reference(y, *args)
+        smoke.compare('adapter + y', adapter_cluster_model(*args, y=y), want)
+        smoke.compare('adapter + y fp64', y + _adapter_fp64(*args), want)
+    else:
+        smoke.compare('adapter', adapter_cluster_model(*args),
+                      K.adapter_matmul_reference(*args))
+
+
+@pytest.mark.parametrize('case,dtype', [
+    ('h_slice_missing', torch.bfloat16),
+    ('h_slice_missing', torch.float32),
+    ('later_row_gets_leader_delta', torch.bfloat16),
+    ('later_row_gets_zero_delta', torch.bfloat16),
+    ('later_row_gets_leader_delta', torch.float32),
+    ('y_plus_twice_delta', torch.bfloat16),
+    ('y_plus_twice_delta', torch.float32),
+    ('delta_without_y', torch.bfloat16),
+])
+def test_compare_rejects_a_wrong_cluster_adapter_kernel(case, dtype):
+    """The redesign's likely faults fail the limits against y + delta: an
+    H slice left out of the cluster reduction, a slot group's later row
+    given the first row's delta or none, the delta added twice, or the
+    delta returned without y."""
+    args = _adapter(dtype)
+    y = _adapter_y(args[0])
+    want = K.adapter_matmul_add_reference(y, *args)
+    if case == 'h_slice_missing':
+        got = adapter_cluster_model(*args, y=y, drop_slice=3)
+    elif case.startswith('later_row'):
+        got = adapter_cluster_model(
+            *args, y=y, later_rows='zero' if 'zero' in case else 'leader')
+    elif case == 'y_plus_twice_delta':
+        got = adapter_cluster_model(*args, y=y, gain=2.0)
+    else:
+        got = adapter_cluster_model(*args)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare(case, got, want)
+
+
 def test_compare_rejects_a_dtype_or_shape_change():
     x = torch.ones(4, 8, dtype=torch.bfloat16)
     with pytest.raises(AssertionError, match='kernel gives'):
@@ -464,3 +554,35 @@ def test_queued_ms_keeps_only_calls_the_sleep_held(monkeypatch, queries,
     assert len(slept) == sleeps
     assert all(b == 4 * a for a, b in zip(slept, slept[1:]))
     assert len(calls) == 21 + 20 * sleeps
+
+
+def test_queued_ms_with_before_times_each_call_alone(monkeypatch):
+    """With `before` (the smoke's L2 flush), `queued_ms` runs before()
+    ahead of every call, warm-up and launch-rate calls too, and times each
+    call alone between its own pair of events, never before() itself:
+    the reading is the mean of the pairs."""
+    order, pairs = [], []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            self.t = len(order)
+            order.append('event')
+
+        def query(self):
+            return False               # still asleep: every call queued
+
+        def elapsed_time(self, end):
+            pairs.append(order[self.t + 1:end.t])
+            return 0.5 * len(pairs)    # ms: 0.5, 1.0, ..., 10.0
+
+    monkeypatch.setattr(smoke.torch.cuda, 'Event', Event)
+    monkeypatch.setattr(smoke.torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(smoke.torch.cuda, '_sleep', lambda cycles: None)
+    got = smoke.queued_ms(lambda: order.append('call'),
+                          before=lambda: order.append('before'))
+    assert got == pytest.approx(sum(0.5 * i for i in range(1, 21)) / 20)
+    assert pairs == [['call']] * 20
+    assert order.count('before') == order.count('call') == 41
