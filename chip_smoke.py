@@ -17,7 +17,8 @@ result line):
    (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit);
-3. consistency: the engine at 2 layers of Llama-2-7B width in f32, greedy;
+3. consistency: the engine (its decode sub-step replayed from a CUDA
+   graph) at 2 layers of Llama-2-7B width in f32, greedy;
    each request's first 16 tokens must equal a no-cache full-recompute
    forward of the same model; then adapter consistency at the same size:
    with a bank of two LoRA adapters, a mixed wave [base, ad0, ad1, ad0]
@@ -39,25 +40,31 @@ result line):
    random tokens, and the loss must then fall by at least
    OVERFIT_MIN_DROP;
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
-   the 8-slot paged engine, 12 requests (prompts 13-700 tokens, 32 new
+   the 8-slot paged engine, which replays its decode sub-step from a
+   captured CUDA graph, 12 requests (prompts 13-700 tokens, 32 new
    tokens; 11 greedy, 1 sampling), with every serving kernel's launch
-   count read around that run and required to be > 0; then the same
-   model, prompts and settings behind an engine with an `AdapterBank` of
-   three rank-8 adapters on q/k/v/o_proj, request i under
-   [base, ad0, ad1, ad2][i % 4]: every request finishes, the adapter
-   kernel runs exactly once per adapted projection of every prefill and
-   decode forward, base requests get phase 6's tokens and adapted ones
+   count read around that run (replays counted) and required to be > 0,
+   and one capture; then the same requests on an engine that runs the
+   sub-step uncaptured (the eager loop): every request's tokens must be
+   equal, and both runs are logged side by side; then the same model,
+   prompts and settings behind an engine with an `AdapterBank` of three
+   rank-8 adapters on q/k/v/o_proj, request i under
+   [base, ad0, ad1, ad2][i % 4], graph and eager alike: every request
+   finishes with the same tokens in both, the adapter kernel runs
+   exactly once per adapted projection of every prefill and decode
+   sub-step, base requests get phase 6's tokens and adapted ones
    differ; then the host time of one adapted projection (hook, wrapper
    and launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
-   plain and on the banked engine, one prefill forward, and one training
-   step (forward + backward, then the optimizer update, each profiled);
-   each decode round must run the split-context paged kernels and not
-   the first design's `paged_attn_kernel` (the banked one also the
+   plain and on the banked engine, each replayed from its graph and run
+   eagerly, one prefill forward, and one training step (forward +
+   backward, then the optimizer update, each profiled); each decode
+   round must run the split-context paged kernels and RMSNorm and not
+   the first design's `paged_attn_kernel` (the banked ones also the
    cluster adapter kernel and not the first design's
-   `adapter_matmul_kernel`), the prefill the wgmma forward
-   kernel, the training step the wgmma forward, dq and dk/dv kernels;
+   `adapter_matmul_kernel`), the prefill the wgmma forward kernel, the
+   training step the wgmma forward, dq and dk/dv kernels;
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
@@ -938,18 +945,21 @@ SERVE_LENS = (13, 700, 48, 311, 96, 650, 27, 205, 512, 64, 400, 150)
 
 def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
                base: int) -> dict:
-    """One counted run of the 12 requests on `eng` after a warm-up
-    request (first cuBLAS handles and plans; under the mix's first
-    adapter, if any), with each of `kernels`' launch counts read around
-    it and required to be > 0. Every request must finish with 32 tokens.
-    Peak memory is counted above `base` bytes."""
+    """One counted run of the 12 requests on `eng` after a warm-up: one
+    short request (a graph engine captures its decode sub-step at its
+    first round, and the capture empties the allocator's cache), then
+    the same requests for one token each (every prefill bucket's first
+    cuBLAS plans, kernel shapes and cached blocks). Each of `kernels`'
+    launch counts is read around the counted run (graph replays counted)
+    and required to be > 0. Every request must finish with 32 tokens; a
+    graph engine must have captured its sub-step once, an eager one
+    never. Peak memory is counted above `base` bytes."""
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import FINISHED, SamplingParams
     vocab = eng.model.config.vocab_size
-    warm_adapter = next((a for a in adapter_ids or () if a), None)
-    eng.generate_many([prompts[0][:8]],
-                      SamplingParams(max_new_tokens=8, eos_token_id=-1),
-                      adapter_ids=warm_adapter)
+    one = SamplingParams(max_new_tokens=1, eos_token_id=-1)
+    eng.generate_many([prompts[0][:8]], one)
+    eng.generate_many(prompts, one, adapter_ids=adapter_ids)
     eng.reset_stats()
     torch.cuda.reset_peak_memory_stats()
 
@@ -970,6 +980,10 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
     if missing:
         raise AssertionError(f'{tag}: kernels never launched on the main '
                              f'path: {missing}')
+    want_traces = {'paged_decode_step': 1} if eng._capture_decode else {}
+    if st['traces'] != want_traces:
+        raise AssertionError(f'{tag}: decode captures {st["traces"]}, want '
+                             f'{want_traces}')
     ttft = sorted(h.ttft for h in handles)
     res = {
         'requests': len(handles), 'wall_s': wall,
@@ -995,9 +1009,54 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
         f'{res["ttft_max_s"]:.3f} s, peak device memory '
         f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
-        f'before the phase')
+        f'before the engine was built; decode captures {st["traces"]}')
     log(f'[{tag}] kernel launches on this run: {launches}')
     return res
+
+
+def eager_twin(eng):
+    """An engine with `eng`'s model, bank and settings that runs its
+    decode sub-steps uncaptured: the eager reference of a graph engine."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    twin = InferenceEngine(eng.model, num_slots=eng.pool.num_slots,
+                           max_length=eng.pool.max_length,
+                           decode_block=eng.decode_block,
+                           kv_page_size=eng.pool.page_size,
+                           adapter_bank=eng.adapter_bank)
+    twin._capture_decode = False
+    return twin
+
+
+def serve_eager(eng, res, prompts, params, adapter_ids, kernels,
+                tag: str) -> dict:
+    """The counted run of `_run_serve` on `eager_twin(eng)`: every request
+    must get the graph run's (`res`) tokens, the seeded sampling one
+    included. Logs both runs side by side; the result holds the eager
+    engine under 'engine'."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    twin = eager_twin(eng)
+    eager = _run_serve(twin, prompts, params, adapter_ids, kernels,
+                       f'{tag} eager', base)
+    for j, (a, b) in enumerate(zip(res['tokens'], eager['tokens'])):
+        if a != b:
+            at = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(
+                f'{tag}: request {j}: graph and eager tokens differ first at '
+                f'position {at} ({a[at]} vs {b[at]}): graph {a} eager {b}')
+    log(f'[{tag}] graph == eager: the tokens of all {len(res["tokens"])} '
+        f'requests are equal (sampling included)')
+    for key, unit, fmt in (('decode_tok_per_s', 'tok/s', '.1f'),
+                           ('prefill_tok_per_s', 'tok/s', '.0f'),
+                           ('ttft_mean_s', 's', '.3f'),
+                           ('ttft_p50_s', 's', '.3f'),
+                           ('ttft_max_s', 's', '.3f'),
+                           ('peak_mem_gb', 'GB', '.3f'),
+                           ('wall_s', 's', '.3f')):
+        log(f'[{tag}]   {key}: graph {res[key]:{fmt}} {unit}, eager '
+            f'{eager[key]:{fmt}} {unit}')
+    eager['engine'] = twin
+    return eager
 
 
 def serve(cfg) -> dict:
@@ -1006,14 +1065,16 @@ def serve(cfg) -> dict:
     from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
                                           SamplingParams)
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
                              generator=ptt.generator(1234, DEV))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     eng = InferenceEngine(model, num_slots=8, max_length=1024,
                           decode_block=8, kv_page_size=16)
     log(f'[serve] Llama {cfg.num_hidden_layers} layers x {cfg.hidden_size} '
-        f'bf16 built in {time.perf_counter() - t0:.1f} s;'
+        f'bf16 built in {time.perf_counter() - t0:.1f} s, '
+        f'{nbytes(*model.parameters()) / 1e9:.2f} GB of weights;'
         f' KV pool {eng.pool.num_pages} pages, '
         f'{eng.pool.pool_bytes / 1e9:.2f} GB')
     rng = np.random.RandomState(2)
@@ -1026,7 +1087,9 @@ def serve(cfg) -> dict:
                                top_p=0.9, seed=7)
     res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve',
                      base)
-    res.update(engine=eng, prompts=prompts, params=params)
+    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
+                        'serve')
+    res.update(engine=eng, eager=eager, prompts=prompts, params=params)
     return res
 
 
@@ -1035,8 +1098,9 @@ def serve_adapters(served) -> dict:
     engine with a bank of three adapters (capacity 4, rank 8, f32, on
     q/k/v/o_proj), request i under [base, ad0, ad1, ad2][i % 4], as
     bench.py mixes adapters. Requires the adapter kernel once per adapted
-    projection of every prefill and decode forward, base requests to get
-    phase 6's tokens, and some adapted request to differ from them."""
+    projection of every prefill and decode forward (replays counted),
+    base requests to get phase 6's tokens, some adapted request to differ
+    from them, and the eager loop to give the same tokens."""
     from paddle_tpu_torch.serving import InferenceEngine
     model = served['engine'].model
     torch.cuda.synchronize()
@@ -1051,12 +1115,16 @@ def serve_adapters(served) -> dict:
     ids = [(None, 'ad0', 'ad1', 'ad2')[i % 4] for i in range(len(prompts))]
     res = _run_serve(eng, prompts, served['params'], ids, ADAPTER_KERNELS,
                      'serve-adapters', base)
-    want = len(bank.sites) * (res['prefills'] + res['decode_steps'])
-    if res['launches']['adapter_matmul'] != want:
-        raise AssertionError(
-            f'serve-adapters: {res["launches"]["adapter_matmul"]} adapter '
-            f'launches, want {len(bank.sites)} x ({res["prefills"]} '
-            f'prefills + {res["decode_steps"]} decode sub-steps) = {want}')
+    eager = serve_eager(eng, res, prompts, served['params'], ids,
+                        ADAPTER_KERNELS, 'serve-adapters')
+    for run, tag in ((res, 'graph'), (eager, 'eager')):
+        want = len(bank.sites) * (run['prefills'] + run['decode_steps'])
+        if run['launches']['adapter_matmul'] != want:
+            raise AssertionError(
+                f'serve-adapters ({tag}): {run["launches"]["adapter_matmul"]}'
+                f' adapter launches, want {len(bank.sites)} x '
+                f'({run["prefills"]} prefills + {run["decode_steps"]} decode '
+                f'sub-steps) = {want}')
     base = [j for j, aid in enumerate(ids) if aid is None]
     wrong = [j for j in base if res['tokens'][j] != served['tokens'][j]]
     if wrong:
@@ -1067,16 +1135,17 @@ def serve_adapters(served) -> dict:
     if not changed:
         raise AssertionError('serve-adapters: no adapted request differs '
                              'from phase 6')
-    log(f'[serve-adapters] {want} adapter launches = {len(bank.sites)} x '
-        f'({res["prefills"]} prefills + {res["decode_steps"]} decode '
-        f'sub-steps); base requests {base} == phase 6; adapted requests '
-        f'{changed} differ from it')
+    log(f'[serve-adapters] {res["launches"]["adapter_matmul"]} adapter '
+        f'launches = {len(bank.sites)} x ({res["prefills"]} prefills + '
+        f'{res["decode_steps"]} decode sub-steps, replays counted), and so '
+        f'for the eager run; base requests {base} == phase 6; adapted '
+        f'requests {changed} differ from it')
     log(f'[serve-adapters] beside phase 6 (same process): decode '
         f'{res["decode_tok_per_s"]:.1f} vs {served["decode_tok_per_s"]:.1f} '
         f'tok/s, prefill {res["prefill_tok_per_s"]:.0f} vs '
         f'{served["prefill_tok_per_s"]:.0f} tok/s, TTFT mean '
         f'{res["ttft_mean_s"]:.3f} vs {served["ttft_mean_s"]:.3f} s')
-    res.update(engine=eng, prompts=prompts, ids=ids)
+    res.update(engine=eng, eager=eager, prompts=prompts, ids=ids)
     return res
 
 
@@ -1130,11 +1199,11 @@ _GROUPS = (('paged_attention', PAGED_KERNELS),
                        'nvjet')))
 
 
-def _breakdown(windows, wall_s: float, label: str) -> None:
+def _breakdown(windows, wall_s: float, label: str) -> float:
     """Log profiled windows [(prof, group or None)]: device time by group
     (a window with a group puts all its device time there; otherwise
     kernels are grouped by name) and the top kernels, and the device's
-    idle share of `wall_s`."""
+    idle share of `wall_s`. Returns the device busy ms."""
     groups, names = {}, {}
     for prof, forced in windows:
         for e in _device_events(prof):
@@ -1150,7 +1219,7 @@ def _breakdown(windows, wall_s: float, label: str) -> None:
     if not busy:
         log(f'[profile] {label}: the profiler recorded no device time '
             f'(device busy share not measured)')
-        return
+        return busy
     log(f'[profile] {label}: wall {wall_s * 1e3:.2f} ms, device busy '
         f'{busy:.2f} ms, idle share {1 - busy / (wall_s * 1e3):.3f}')
     for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
@@ -1158,6 +1227,7 @@ def _breakdown(windows, wall_s: float, label: str) -> None:
     for name, (n, ms) in sorted(names.items(),
                                 key=lambda kv: -kv[1][1])[:8]:
         log(f'[profile]   top: {ms:8.3f} ms {n:5d}x {name}')
+    return busy
 
 
 def require_kernels(prof, kernels, label: str, absent=()) -> None:
@@ -1175,17 +1245,26 @@ def require_kernels(prof, kernels, label: str, absent=()) -> None:
         + (' and no ' + ', '.join(absent) if absent else ''))
 
 
-def profile_serve(eng, banked, prompts, adapter_ids) -> None:
-    """On the serve engine and the banked engine after their counted
-    runs: time one decode round of each with every slot busy (no profiler
-    yet; the banked engine's requests under `adapter_ids`), then profile
-    the next round of each, and one prefill forward of the longest
-    prompt's bucket. The banked round must run the cluster adapter kernel
-    and not the first design's `adapter_matmul_kernel`."""
+def profile_serve(served, adapted) -> None:
+    """On the serve and banked engines, graph and eager, after their
+    counted runs: time one decode round of each with every slot busy (no
+    profiler yet; the banked engines' requests under the serve-adapters
+    mix), then profile the next round of each, and one prefill forward of
+    the longest prompt's bucket. Every round must run the split-context
+    paged kernels and not the first design's `paged_attn_kernel`; the
+    banked ones the cluster adapter kernel and not the first design's
+    `adapter_matmul_kernel`. The graph rounds' kernels are read from the
+    profile of a replayed round."""
     from torch.profiler import ProfilerActivity, profile
+    prompts, adapter_ids = served['prompts'], adapted['ids']
     rounds = []
-    for e, ids, label in ((eng, None, 'decode round'),
-                          (banked, adapter_ids, 'decode round with adapters')):
+    for e, ids, label in (
+            (served['engine'], None, 'decode round, graph'),
+            (served['eager']['engine'], None, 'decode round, eager'),
+            (adapted['engine'], adapter_ids,
+             'decode round with adapters, graph'),
+            (adapted['eager']['engine'], adapter_ids,
+             'decode round with adapters, eager')):
         n = e.pool.num_slots
         for p, aid in zip(prompts[:n], ids or [None] * n):
             e.submit(p, max_new_tokens=4 * e.decode_block, eos_token_id=-1,
@@ -1201,15 +1280,17 @@ def profile_serve(eng, banked, prompts, adapter_ids) -> None:
             t0 = time.perf_counter()
             e.step()            # the next decode round, profiled
             wall_prof = time.perf_counter() - t0
-        _breakdown([(prof, None)], wall, label)
+        busy = _breakdown([(prof, None)], wall, label)
         log(f'[profile]   (the profiled round took {wall_prof * 1e3:.2f} '
-            f'ms; the idle share uses the unprofiled round)')
-        require_kernels(prof, PAGED_KERNELS, label,
+            f'ms, idle share {1 - busy / (wall_prof * 1e3):.3f} of it; the '
+            f'idle share above uses the unprofiled round)')
+        require_kernels(prof, PAGED_KERNELS + ('rms_norm_kernel',), label,
                         absent=('paged_attn_kernel',))
-        if e is banked:
+        if e.adapter_bank is not None:
             require_kernels(prof, ('adapter_sgmv_kernel',), label,
                             absent=('adapter_matmul_kernel',))
         e.run()
+    eng = served['engine']
     bucket = eng.pool.bucket_for(len(prompts[1]))
     ids = torch.zeros((1, bucket), dtype=torch.int64, device=DEV)
     ids[0, :len(prompts[1])] = torch.tensor(prompts[1], device=DEV)
@@ -1290,8 +1371,7 @@ def main() -> int:
     adapted = serve_adapters(res)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
-    profile_serve(res['engine'], adapted['engine'], res['prompts'],
-                  adapted['ids'])
+    profile_serve(res, adapted)
     profile_train(trained['step'], trained['batch'], trained['step_s'])
     rows = time_kernels(cases)
     smi = subprocess.run(

@@ -25,7 +25,8 @@ same function written as tensor code. A wrapper takes the plain version
 only for tensors that lie on the CPU, which is how the CPU tests run;
 for a CUDA tensor it launches its kernel or raises, and never falls
 back. `LAUNCHES` counts kernel launches, one per launch and nowhere
-else, so a run can show that its path went through the kernels.
+else, so a run can show that its path went through the kernels; a CUDA
+graph's replays count through `CapturedLaunches`.
 
 Each CUDA source starts with a note: the TPU kernel it replaces, what
 bounds it on the H100, and what its design does about that. The flash
@@ -79,6 +80,28 @@ _ARGTYPES = {
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class CapturedLaunches:
+    """The kernel launches a CUDA graph holds, so that `LAUNCHES` counts
+    replays: `with CapturedLaunches() as held: <capture>` takes the
+    change in `LAUNCHES` over the capture (the wrappers count what they
+    record) and undoes it, since a capture launches nothing; each
+    `held.replayed()` adds it back."""
+
+    def __enter__(self) -> 'CapturedLaunches':
+        self._before = dict(LAUNCHES)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.counts = {k: n - self._before[k] for k, n in LAUNCHES.items()
+                       if n != self._before[k]}
+        LAUNCHES.update(self._before)
+        return False
+
+    def replayed(self) -> None:
+        for name, n in self.counts.items():
+            LAUNCHES[name] += n
 
 
 def _entry(source: str, fn: str):

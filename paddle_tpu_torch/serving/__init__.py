@@ -5,7 +5,8 @@ from .adapters import AdapterBank, AdapterUnavailable, make_adapter_factors
 from .api import (FAILED, FINISHED, GREEDY, PRIORITY_HIGH, PRIORITY_LOW,
                   PRIORITY_NORMAL, QUEUED, RUNNING, SAMPLING,
                   RequestHandle, SamplingParams)
-from .engine import InferenceEngine, sample_rows
+from .decode_graph import sample_rows
+from .engine import InferenceEngine
 from .kv_pool import (PagedSlotPool, PagePoolExhausted, PromptTooLongError,
                       default_buckets, scatter_pages)
 from .scheduler import FCFSScheduler

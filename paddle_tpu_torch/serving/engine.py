@@ -16,15 +16,23 @@ and scattering the touched pages back. Prefill runs the causal flash
 kernel over the right-padded bucket and scatters the slab into the
 slot's pages.
 
+The sub-step runs over static device buffers (`decode_graph.
+DecodeStep`), and on the card it is captured as a CUDA graph at the
+first decode round and replayed `decode_block` times a round, where the
+JAX engine compiles the round once (`stats()['traces']
+['paged_decode_step']` counts the capture, as the JAX engine counts its
+trace).
+
 Greedy requests take the raw argmax, so their tokens never depend on
 batch neighbours; sampling requests draw from their own
-`torch.Generator`, seeded from `SamplingParams.seed`.
+`torch.Generator`, seeded from `SamplingParams.seed`, between replays.
 
 With an `AdapterBank`, each request may decode under its own LoRA
 adapter (`submit(..., adapter_id=)`): admission pins the adapter's bank
 slot into the host row vector `_adapter_rows` (0 = the zero base
-adapter), and every prefill and decode forward runs inside
-`adapter_scope` over the bank's tensors and those rows, so one batch
+adapter), which each round stages into the sub-step's static rows; the
+sub-step runs inside `adapter_scope` over the bank's tensors and those
+rows, and each prefill inside a scope over its slot's row, so one batch
 mixes base and adapted requests.
 """
 from __future__ import annotations
@@ -37,50 +45,13 @@ import numpy as np
 import torch
 
 from ..nlp.generation import cached_forward
-from ..ops.kernels import NEG_INF
 from ..framework import generator as _generator
 from .adapters.apply import adapter_scope
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
+from .decode_graph import DecodeStep
 from .kv_pool import PagePoolExhausted, PagedSlotPool, scatter_pages
 from .scheduler import FCFSScheduler
-
-
-def sample_rows(logits: torch.Tensor, temp: torch.Tensor,
-                topk: torch.Tensor, topp: torch.Tensor,
-                sampling: np.ndarray, generators) -> torch.Tensor:
-    """Next token per row of a [N, V] logits slab.
-
-    Every row starts from the raw argmax (greedy). Rows flagged in the
-    host array `sampling` apply temperature, then top-k, then top-p (the
-    JAX engine's order; `top_k <= 0 or >= V` and `top_p >= 1` disable a
-    filter) and draw from the filtered distribution with their own
-    generator `generators[row]`. temp/topk/topp are [N] tensors on the
-    logits' device."""
-    logits = logits.float()
-    out = logits.argmax(dim=-1)
-    rows = np.flatnonzero(sampling)
-    if rows.size == 0:
-        return out
-    idx = torch.from_numpy(rows).to(logits.device)
-    x = logits[idx] / temp[idx].clamp(min=1e-6)[:, None]
-    v = x.shape[-1]
-    k = topk[idx]
-    k_eff = torch.where((k > 0) & (k < v), k, v).long()
-    srt = x.sort(dim=-1, descending=True).values
-    kth = srt.gather(1, k_eff[:, None] - 1)
-    x = x.masked_fill(x < kth, NEG_INF)
-    p = topp[idx]
-    srt_p = x.sort(dim=-1, descending=True).values
-    probs = torch.softmax(srt_p, dim=-1)
-    cum = probs.cumsum(dim=-1)
-    cutoff_idx = ((cum - probs) < p[:, None]).sum(dim=-1) - 1
-    cutoff = srt_p.gather(1, cutoff_idx.clamp(0, v - 1)[:, None])
-    x = x.masked_fill((p[:, None] < 1.0) & (x < cutoff), NEG_INF)
-    dist = torch.softmax(x, dim=-1)
-    for j, r in enumerate(rows):
-        out[r] = torch.multinomial(dist[j], 1, generator=generators[r])[0]
-    return out
 
 
 class InferenceEngine:
@@ -153,6 +124,15 @@ class InferenceEngine:
         self._slot_req: dict = {}               # slot -> RequestHandle
         self._counts = collections.Counter()
         self._seconds = collections.Counter()
+        self._trace_counts = collections.Counter()
+        self._decode = DecodeStep(
+            self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
+            self.pool.max_length, self.decode_block, self.device,
+            None if adapter_bank is None else adapter_bank.device_arrays())
+        # on the card the sub-step is captured at the first decode round;
+        # False runs it uncaptured there (the eager reference of the
+        # tests and chip_smoke.py)
+        self._capture_decode = self.device.type == 'cuda'
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -250,35 +230,32 @@ class InferenceEngine:
 
     def _decode_round(self) -> np.ndarray:
         """`decode_block` paged sub-steps over every slot; returns the
-        [num_slots, decode_block] tokens. Inactive slots have their table
-        row redirected to the null page, so their writes land nowhere
-        real."""
-        dev = self.device
-        max_len = self.pool.max_length
-        active = torch.from_numpy(self._active).to(dev)
-        table = torch.from_numpy(np.where(
-            self._active[:, None], self.pool.page_table, 0)).to(dev)
-        tok = torch.from_numpy(self._tok).to(dev)
-        pos = torch.from_numpy(self._pos).to(dev)
-        temp = torch.from_numpy(self._temp).to(dev)
-        topk = torch.from_numpy(self._topk).to(dev)
-        topp = torch.from_numpy(self._topp).to(dev)
-        sampling = self._active & ~self._greedy
-        adapters, rows = self._adapter_args()
-        out = []
+        [num_slots, decode_block] tokens (the fetch waits for the
+        round)."""
         with torch.inference_mode():
-            for _ in range(self.decode_block):
-                with adapter_scope(adapters, rows):
-                    logits = self._fwd(tok[:, None], self.pool.pages, pos,
-                                       table)[:, -1]
-                nxt = sample_rows(logits, temp, topk, topp, sampling,
-                                  self._gens)
-                tok = torch.where(active, nxt, 0)
-                pos = torch.clamp(pos + 1, max=max_len - 1)
-                out.append(tok)
-            toks = torch.stack(out, dim=1).cpu().numpy()
+            toks = self._queue_round().to('cpu', copy=True).numpy()
         self._counts['decode_steps'] += self.decode_block
         return toks
+
+    def _queue_round(self) -> torch.Tensor:
+        """Stage the round's host state into the sub-step's static
+        buffers and queue its sub-steps (`DecodeStep`); returns the
+        device [num_slots, decode_block] token buffer. Inactive slots
+        have their table row redirected to the null page, so their
+        writes land nowhere real. Captures the sub-step first when this
+        is the engine's first round on the card."""
+        step = self._decode
+        if self._capture_decode and step.graph is None:
+            step.capture()
+            self._trace_counts['paged_decode_step'] += 1
+        staged = dict(
+            tok=self._tok, pos=self._pos, active=self._active,
+            table=np.where(self._active[:, None], self.pool.page_table, 0),
+            temp=self._temp, topk=self._topk, topp=self._topp)
+        if self.adapter_bank is not None:
+            staged['rows'] = self._adapter_rows
+        step.stage(**staged)
+        return step.run(self._active & ~self._greedy, self._gens)
 
     def run(self) -> int:
         """Drive until queue and slots drain; returns iterations."""
@@ -407,16 +384,15 @@ class InferenceEngine:
             h._adapter_pin = None
         self._adapter_rows[slot] = 0
 
-    def _adapter_args(self, slot: Optional[int] = None) -> tuple:
-        """(bank tensors, per-row bank slots on the device) for
-        `adapter_scope`: every slot's row for a decode round, or one slot's
-        for its prefill; (None, None), an inert scope, without a bank."""
+    def _adapter_args(self, slot: int) -> tuple:
+        """(bank tensors, the slot's bank slot on the device) for the
+        prefill's `adapter_scope`; (None, None), an inert scope, without a
+        bank."""
         if self.adapter_bank is None:
             return None, None
-        rows = (self._adapter_rows if slot is None
-                else self._adapter_rows[slot:slot + 1])
         return (self.adapter_bank.device_arrays(),
-                torch.from_numpy(rows.copy()).to(self.device))
+                torch.from_numpy(self._adapter_rows[slot:slot + 1].copy()
+                                 ).to(self.device))
 
     def _retire(self, slot: int, h: RequestHandle, now: float):
         h._finish(now)
@@ -452,6 +428,7 @@ class InferenceEngine:
             'queue_depth': self.scheduler.queue_depth,
             'active_slots': len(self._slot_req),
             'kv_layout': 'paged',
+            'traces': dict(self._trace_counts),
             'pool': self.pool.stats(),
         }
         if self.adapter_bank is not None:
@@ -459,5 +436,7 @@ class InferenceEngine:
         return out
 
     def reset_stats(self):
+        """Zero the host-side counters (the capture count survives, as
+        the JAX engine's trace counts do)."""
         self._counts.clear()
         self._seconds.clear()

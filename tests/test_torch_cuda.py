@@ -580,3 +580,105 @@ def test_queued_calls_hide_the_launch_gaps(cuda):
     tiny = lambda: x.add_(1.0)
     queued = smoke.queued_ms(tiny)
     assert queued is not None and queued <= smoke.time_ms(tiny)
+
+
+# ---------------------------------------------------------------------------
+# the decode sub-step replayed from a CUDA graph against the eager loop
+# ---------------------------------------------------------------------------
+
+def _graph_cfg():
+    return LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_hidden_layers=2, num_attention_heads=2,
+                       num_key_value_heads=1, max_position_embeddings=256)
+
+
+def _serve_counted(model, bank, capture, prompts, params, ids):
+    """Serve one warm-up request (the graph engine captures at its first
+    round), then `prompts` with LAUNCHES counted; returns (tokens,
+    LAUNCHES, engine)."""
+    eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
+                          adapter_bank=bank)
+    eng._capture_decode = capture
+    eng.generate_many([prompts[0][:3]],
+                      SamplingParams(max_new_tokens=4, eos_token_id=-1))
+    eng.reset_stats()
+    K.reset_launch_counts()
+    hs = eng.generate_many(prompts, params, adapter_ids=ids)
+    return [h.tokens for h in hs], dict(K.LAUNCHES), eng
+
+
+@pytest.mark.parametrize('banked', [False, True])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_decode_graph_equals_the_eager_loop(cuda, dtype, banked):
+    """Seven requests through 3 slots at decode_block=4 (greedy ones that
+    stop on eos mid-round, one seeded sampling request; with the bank
+    base and two adapters mixed, so a slot is re-admitted under another
+    adapter and the rows change between rounds): the engine that replays
+    its captured sub-step gives the eager loop's tokens and launch counts
+    (replays counted), and captures once over many rounds."""
+    from paddle_tpu_torch.serving import (SAMPLING, AdapterBank,
+                                          make_adapter_factors)
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype=dtype,
+                             generator=generator(8, cuda))
+    bank = None
+    ids = None
+    if banked:
+        bank = AdapterBank(model, capacity=2, rank=8,
+                           targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+        for i in range(2):
+            bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
+        ids = ['ad0', None, 'ad1', 'ad0', 'ad1', None, 'ad1']
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, 512, (s,), generator=g).tolist()
+               for s in (3, 17, 40, 9, 25, 5, 12)]
+    free, _, _ = _serve_counted(model, bank, False, prompts, SamplingParams(
+        max_new_tokens=24, eos_token_id=-1), ids)
+    params = [SamplingParams(max_new_tokens=24, eos_token_id=t[k])
+              for t, k in zip(free, (1, 2, 5, 6, 9, 1, 2))]
+    params[3] = SamplingParams(max_new_tokens=24, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=7)
+    graph_toks, graph_launches, graph_eng = _serve_counted(
+        model, bank, True, prompts, params, ids)
+    eager_toks, eager_launches, eager_eng = _serve_counted(
+        model, bank, False, prompts, params, ids)
+    assert graph_toks == eager_toks
+    assert any(len(t) % 4 for t in graph_toks)     # some retired mid-round
+    assert graph_launches == eager_launches
+    assert graph_launches['paged_attention'] > 0
+    st = graph_eng.stats()
+    assert graph_launches['adapter_matmul'] == (
+        8 * (st['prefills'] + st['decode_steps']) if banked else 0)
+    assert st['decode_rounds'] >= 6         # the sampling request alone
+    assert st['traces'] == {'paged_decode_step': 1}
+    assert eager_eng.stats()['traces'] == {}
+
+
+@pytest.mark.parametrize('capture', [True, False])
+def test_decode_round_syncs_nothing(cuda, capture):
+    """A greedy round, replayed from the graph or run eagerly, queues its
+    staging copies and sub-steps without one host sync (the token fetch
+    after it is the round's only wait)."""
+    from paddle_tpu_torch.serving import AdapterBank, make_adapter_factors
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(9, cuda))
+    bank = AdapterBank(model, capacity=2, rank=8,
+                       targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+    bank.load('ad0', make_adapter_factors(bank, 1, scale=0.1))
+    eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
+                          adapter_bank=bank)
+    eng._capture_decode = capture
+    for s, aid in ((5, 'ad0'), (9, None)):
+        eng.submit(list(range(1, s + 1)), max_new_tokens=12,
+                   eos_token_id=-1, adapter_id=aid)
+    eng.step()                 # admit, prefill, capture, first round
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = eng._queue_round()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert out.shape == (3, 4) and bool((out[2] == 0).all())
+    assert eng.stats()['traces'] == ({'paged_decode_step': 1} if capture
+                                     else {})
