@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --hook-us TREE   # host us of one adapted
                                            # projection, port in TREE
+    python3 chip_smoke.py --train-ms TREE  # the training rung's step
+                                           # time, port in TREE
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -16,7 +18,12 @@ result line):
    card, in f32 and bf16, at the serving and training paths' shapes
    (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
-   y + delta must equal y bit for bit);
+   y + delta must equal y bit for bit); then the multi-tensor sum of
+   squares and Adam update over the training rung's tensors of one
+   decoder layer plus lm_head (bf16 with bf16 moments, and bf16 with
+   fp32 masters and moments; a global-norm clip scale below 1, and
+   amsgrad), every updated p, m, v (master, max) held to the plain
+   version (the cases are freed after the check and rebuilt for 8);
 3. consistency: the engine (its decode sub-step replayed from a CUDA
    graph) at 2 layers of Llama-2-7B width in f32, greedy;
    each request's first 16 tokens must equal a no-cache full-recompute
@@ -29,16 +36,26 @@ result line):
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
    every parameter's gradient must agree, and again on the card with
-   `use_recompute=True`;
+   `use_recompute=True`; then two `TrainStep`s on each under Llama 2's
+   AdamW recipe (global-norm clip, LinearWarmup around a cosine stepped
+   after each step): the losses, and each parameter's update over the
+   two steps, must agree;
 5. train: the JAX bench's `llama2_7b_shape_8L` rung (Llama-2-7B width,
    8 layers, bf16, recompute, batch 2 x seq 2048, AdamW lr 3e-4 with bf16
    moments) through `TrainStep`, 2 warm-up and 6 timed steps on 4
    rotating batches, with every training kernel's launch count read
-   around the timed steps and required to be > 0; then steps on one
-   fixed batch it has not seen: the first loss (held out) must stay near
-   ln(V), as no model that sees only past tokens can predict uniform
-   random tokens, and the loss must then fall by at least
-   OVERFIT_MIN_DROP;
+   around the timed steps and required to be > 0 (the multi-tensor Adam
+   update included); then steps on one fixed batch it has not seen: the
+   first loss (held out) must stay near ln(V), as no model that sees
+   only past tokens can predict uniform random tokens, and the loss must
+   then fall by at least OVERFIT_MIN_DROP;
+5b. pretrain: the same model and rung under Llama 2's pretraining
+   optimizer (AdamW 0.9/0.95/1e-5, decay 0.1 except on norms,
+   ClipGradByGlobalNorm(1.0), 2000 warm-up steps into a cosine from
+   3e-4 to 3e-5 over 498,000), phase 5's optimizer state freed first: 2
+   warm-up and 6 timed steps, the scheduler stepped after each; each
+   step's lr must be the schedule's, the loss finite, and the sum of
+   squares and Adam kernels must both launch;
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
    the 8-slot paged engine, which replays its decode sub-step from a
    captured CUDA graph, 12 requests (prompts 13-700 tokens, 32 new
@@ -64,24 +81,30 @@ result line):
    the first design's `paged_attn_kernel` (the banked ones also the
    cluster adapter kernel and not the first design's
    `adapter_matmul_kernel`), the prefill the wgmma forward kernel, the
-   training step the wgmma forward, dq and dk/dv kernels;
+   training step the wgmma forward, dq and dk/dv kernels, and its update
+   window (phase 5b's optimizer, then phase 5's) the multi-tensor Adam
+   kernel (5b's also the sum of squares), its device ms logged beside
+   the bound of the bytes the update must move;
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
    calls, the host's launch rate for a small kernel), with its plain
    version, the one PyTorch call that computes the same function where
    there is one, and the card's bound for the same work; the adapter
-   cases also beside a composite of several PyTorch calls, and the
-   decode ones also with L2 flushed before each call.
+   cases also beside a composite of several PyTorch calls, the
+   multi-tensor ones beside PyTorch's nearest calls (`_foreach_norm`, the
+   fused `torch.optim.AdamW`; neither computes the same function), and
+   the decode ones also with L2 flushed before each call.
 
-Phases 5 and 6 run before any profiling: once torch.profiler has run in
-a process, every later launch costs the host more.
+Phases 5, 5b and 6 run before any profiling: once torch.profiler has
+run in a process, every later launch costs the host more.
 
 The last lines are the card's name and power limit, a JSON line with the
 kernel table, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -121,6 +144,14 @@ REPLACES = {
     'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
     'adapter_matmul':
         'paddle_tpu/ops/pallas_kernels.py:851 (_adapter_matmul_kernel)',
+    'multi_tensor_adam':
+        'no Pallas site: the Adam/AdamW update XLA fuses inside the JAX '
+        'TrainStep (paddle_tpu/jit/__init__.py:269-273, '
+        'paddle_tpu/optimizer/__init__.py:114-133)',
+    'multi_tensor_sumsq':
+        'no Pallas site: the global-norm clip XLA fuses inside the JAX '
+        'TrainStep (paddle_tpu/jit/__init__.py:269-273, '
+        'paddle_tpu/optimizer/__init__.py:114-133)',
 }
 SOURCES = {
     'flash_attention_fwd': 'paddle_tpu_torch/csrc/flash_attention.cu',
@@ -131,6 +162,8 @@ SOURCES = {
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
+    'multi_tensor_adam': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
+    'multi_tensor_sumsq': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
 }
 # the tensor-core (wgmma) kernels that bf16 inputs run on, by source
 WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
@@ -145,11 +178,16 @@ ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
 ADAPTER_TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj')
 TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv', 'rms_norm', 'softmax_ce_fwd',
-                 'softmax_ce_bwd')
+                 'softmax_ce_bwd', 'multi_tensor_adam')
+PRETRAIN_KERNELS = TRAIN_KERNELS + ('multi_tensor_sumsq',)
 # training rung: the JAX bench's llama2_7b_shape_8L (bench.py:88-101,
 # _run_config at :116-191)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 2048, 6, 2
 TRAIN_LR = 3e-4
+# Llama 2's pretraining optimizer (Touvron et al. 2023, section 2.2 and
+# Table 1): AdamW(0.9, 0.95, eps 1e-5), decay 0.1, global-norm clip 1.0,
+# 2000 warm-up steps, cosine to 10% of the peak lr
+PRETRAIN_PEAK_LR, PRETRAIN_WARMUP, PRETRAIN_T_MAX = 3e-4, 2000, 498000
 OVERFIT_STEPS = 10
 OVERFIT_MIN_DROP = 0.5        # nats, first to last loss on one fixed batch
 HELD_OUT_SLACK = 0.5          # nats below ln(V) a held-out loss may fall
@@ -329,16 +367,22 @@ def build():
             if ('entry function' in line or 'registers' in line
                     or 'spill' in line or 'Performance Loss' in line):
                 log(f'[build] {name}: {line.strip()}')
-    regs, spills = [], []
-    for line in _build.build_log('adapter_matmul').splitlines():
-        if 'Used' in line and 'registers' in line:
-            regs.append(int(line.split('Used')[1].split()[0]))
-        elif 'spill stores' in line:
-            spills.append(int(line.split('bytes spill stores')[0].split(',')
-                              [-1]))
-    log(f'[build] adapter_sgmv_kernel: {len(regs)} instantiations (x and bank'
-        f' dtype x padded rank x vector path), registers {min(regs, default=0)}-'
-        f'{max(regs, default=0)}, spill stores {sum(spills)} bytes in all')
+    for source, label in (
+            ('adapter_matmul', 'adapter_sgmv_kernel: {n} instantiations (x '
+                               'and bank dtype x padded rank x vector path)'),
+            ('multi_tensor_adam', 'multi_tensor_adam.cu: {n} kernels (param '
+                                  'dtype x moment dtype x master x amsgrad,'
+                                  ' the sum of squares and its finish)')):
+        regs, spills = [], []
+        for line in _build.build_log(source).splitlines():
+            if 'Used' in line and 'registers' in line:
+                regs.append(int(line.split('Used')[1].split()[0]))
+            elif 'spill stores' in line:
+                spills.append(int(line.split('bytes spill stores')[0]
+                                  .split(',')[-1]))
+        log(f'[build] {label.format(n=len(regs))}, registers '
+            f'{min(regs, default=0)}-{max(regs, default=0)}, spill stores '
+            f'{sum(spills)} bytes in all')
     lib_dir = _build._build_dir(_build._nvcc())
     for source, kernels in WGMMA_KERNELS.items():
         counts = hgmma_counts(lib_dir / f'lib{source}.so', kernels)
@@ -357,26 +401,36 @@ def _randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
-def kernel_cases() -> list:
-    """Every kernel check: the kernel's wrapper, its plain version and the
-    one PyTorch call computing the same function (or None) as closures
-    over inputs made on the card from a seed, at the serving path's
-    shapes, with the bytes and operations the work needs. `rep` marks the
-    case each kernel's JSON entry reports; `zero_rows` rows whose output
-    must equal `zero_base` bit for bit; `composite` a yardstick made of
-    several PyTorch calls; `cold` a case also timed with L2 flushed."""
-    from paddle_tpu_torch.ops import kernels as K
-    F = torch.nn.functional
-    gen = torch.Generator(device=DEV).manual_seed(0)
+def _case_list():
+    """(cases, add): `add(kernel, name, dtype, run, plain, lib, moved, ops,
+    ...)` appends one kernel check to `cases`, its bound from the bytes
+    moved and the operations at the peak rate of `dtype`'s arithmetic."""
     cases = []
 
     def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False,
-            zero_rows=None, zero_base=None, composite=None, cold=False):
+            zero_rows=None, zero_base=None, yardstick=None, cold=False):
         b_ms, by = bound_ms(moved, ops, dtype)
         cases.append(dict(kernel=kernel, name=name, dtype=dtype, run=run,
                           plain=plain, lib=lib, bound_ms=b_ms, bound_by=by,
                           rep=rep, zero_rows=zero_rows, zero_base=zero_base,
-                          composite=composite, cold=cold))
+                          yardstick=yardstick, cold=cold))
+    return cases, add
+
+
+def kernel_cases() -> list:
+    """Every kernel check of the serving and training paths: the kernel's
+    wrapper, its plain version and the one PyTorch call computing the same
+    function (or None) as closures over inputs made on the card from a
+    seed, at the paths' shapes, with the bytes and operations the work
+    needs. `rep` marks the case each kernel's JSON entry reports;
+    `zero_rows` rows whose output must equal `zero_base` bit for bit;
+    `yardstick` a (label, call) of PyTorch that is timed beside the kernel
+    though it is not one call of the same function; `cold` a case also
+    timed with L2 flushed."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    cases, add = _case_list()
 
     # flash attention: prefill shapes (buckets 8 .. 1024), causal, D = 128
     for dtype in (torch.float32, torch.bfloat16):
@@ -547,6 +601,10 @@ def _training_cases(add, gen) -> None:
             nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
 
 
+ADAPTER_COMPOSITE = ('composite of several PyTorch calls (index_select x2, '
+                     'bmm x2, casts; not one library call)')
+
+
 def adapter_composite(x, a_bank, b_bank, rows, scale):
     """The adapter delta from several PyTorch calls (two index_selects, two
     bmms, casts and the scale): the nearest library yardstick, since no one
@@ -600,15 +658,134 @@ def _adapter_cases(add, gen) -> None:
                     lambda a=args: K.adapter_matmul_reference(*a), None,
                     moved, 2 * b * t * r * (h + o), zero_rows=rows_t == 0,
                     zero_base=torch.zeros_like(y),
-                    composite=lambda a=args: adapter_composite(*a),
+                    yardstick=(ADAPTER_COMPOSITE,
+                               lambda a=args: adapter_composite(*a)),
                     cold=t == 1)
                 add('adapter_matmul', f'adapter + y {tag}', dtype,
                     lambda a=args, y=y: K.adapter_matmul_add(y, *a),
                     lambda a=args, y=y: K.adapter_matmul_add_reference(y, *a),
                     None, moved + nbytes(y), 2 * b * t * r * (h + o),
                     rep=decode_rep, zero_rows=rows_t == 0, zero_base=y,
-                    composite=lambda a=args, y=y: y + adapter_composite(*a),
+                    yardstick=(ADAPTER_COMPOSITE, lambda a=args, y=y:
+                               y + adapter_composite(*a)),
                     cold=t == 1)
+
+
+FOREACH_NORM = ('torch._foreach_norm, then the sum of the squared norms '
+                '(not the same function: a norm per tensor; library_ms null)')
+FUSED_ADAMW = ('torch.optim.AdamW(fused=True) on the same tensors (not the '
+               'same function: epsilon inside the bias correction, no clip '
+               'scale; library_ms null)')
+
+
+def rung_tensor_shapes(cfg) -> list:
+    """[(name, shape)] of one decoder layer of `cfg` plus lm_head, named
+    and laid out as the port's Llama holds them (Linear weights [in, out])."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, \
+        cfg.num_key_value_heads * cfg.head_dim
+    return [('self_attn.q_proj.weight', (h, q)),
+            ('self_attn.k_proj.weight', (h, kv)),
+            ('self_attn.v_proj.weight', (h, kv)),
+            ('self_attn.o_proj.weight', (q, h)),
+            ('mlp.gate_proj.weight', (h, inter)),
+            ('mlp.up_proj.weight', (h, inter)),
+            ('mlp.down_proj.weight', (inter, h)),
+            ('input_layernorm.weight', (h,)),
+            ('post_attention_layernorm.weight', (h,)),
+            ('lm_head.weight', (h, cfg.vocab_size))]
+
+
+def optimizer_cases() -> list:
+    """The multi-tensor kernels at the training rung's tensors: one
+    decoder layer of Llama-2-7B width plus lm_head (333.5 M elements),
+    bf16 grads whose global norm (~180) puts phase 5b's clip of 1.0 at a
+    scale below 1. The sum of squares; and one AdamW step of phase 5b's
+    settings (step 10, lr 3e-4, decay 0.1 except on norms) in four
+    variants: bf16 params and moments under the clip (the rung's, the
+    JSON row), the same with amsgrad and no clip, and bf16 params with
+    fp32 masters and moments, with the clip and with amsgrad. The kernel
+    and the plain version each update their own copy of the same state
+    in place and return it; every output is compared."""
+    from paddle_tpu_torch.nlp import LlamaConfig
+    from paddle_tpu_torch.ops import kernels as K
+    shapes = rung_tensor_shapes(LlamaConfig.llama2_7b())
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    cases, add = _case_list()
+    grads = [(0.01 * torch.randn(s, generator=gen, device=DEV)).bfloat16()
+             for _, s in shapes]
+    n = sum(g.numel() for g in grads)
+    add('multi_tensor_sumsq', f'sumsq bf16 grads, one layer + lm_head '
+        f'({n / 1e6:.1f} M)', torch.float32,
+        lambda: K.multi_tensor_sumsq(grads),
+        lambda: K.multi_tensor_sumsq_reference(grads), None,
+        nbytes(*grads) + 4, 2 * n, rep=True,
+        yardstick=(FOREACH_NORM, lambda: torch.stack(
+            torch._foreach_norm(grads)).square().sum()))
+    clip = torch.clamp_max(1.0 / K.multi_tensor_sumsq(grads).sqrt()
+                           .clamp_min(1e-12), 1.0)
+    if not float(clip) < 1.0:
+        raise AssertionError(f'optimizer cases: clip scale {float(clip)}')
+    lr, t = np.float32(PRETRAIN_PEAK_LR), np.float32(10)
+    lr_t = lr * np.sqrt(np.float32(1) - np.power(np.float32(0.95), t)) \
+        / (np.float32(1) - np.power(np.float32(0.9), t))
+    kw = dict(lr_t=float(lr_t), beta1=0.9, beta2=0.95, epsilon=1e-5,
+              decay=[0.0 if 'norm' in name else float(lr * np.float32(0.1))
+                     for name, _ in shapes], decay_mode='decoupled')
+
+    def make_state(m_dtype, master, ams):
+        """(params, m, v, masters, vmax) as after some steps, the same
+        values at every call."""
+        g = torch.Generator(device=DEV).manual_seed(9)
+
+        def rand(shape, dtype, scale, positive=False):
+            x = scale * torch.randn(shape, generator=g, device=DEV)
+            return (x.abs() if positive else x).to(dtype)
+
+        ps = [rand(s, torch.bfloat16, 0.02) for _, s in shapes]
+        return (ps, [rand(s, m_dtype, 1e-3) for _, s in shapes],
+                [rand(s, m_dtype, 1e-4, True) for _, s in shapes],
+                [p.float() for p in ps] if master else [None] * len(ps),
+                [rand(s, m_dtype, 1e-4, True) for _, s in shapes] if ams
+                else None)
+
+    def step(fn, state, scale):
+        ps, m, v, masters, vmax = state
+        fn(ps, grads, m, v, masters, vmax or [None] * len(ps),
+           clip_scale=scale, **kw)
+        return tuple(x for ts in (ps, m, v, masters, vmax or ())
+                     for x in ts if x is not None)
+
+    for m_dtype, master, ams in ((torch.bfloat16, False, False),
+                                 (torch.bfloat16, False, True),
+                                 (torch.float32, True, False),
+                                 (torch.float32, True, True)):
+        scale = None if ams else clip
+        mine, ref = (make_state(m_dtype, master, ams) for _ in range(2))
+        moved = (2 * nbytes(*(x for ts in mine[1:] if ts for x in ts
+                              if x is not None))
+                 + nbytes(*mine[0]) * (1 if master else 2) + nbytes(*grads)
+                 + (4 if scale is not None else 0))
+        tag = (f'adam bf16 params, {str(m_dtype)[6:]} moments'
+               + (', fp32 masters' if master else '')
+               + (', amsgrad' if ams else ', global clip scale < 1')
+               + f', one layer + lm_head ({n / 1e6:.1f} M)')
+        rep = m_dtype == torch.bfloat16 and not ams
+        yard = None
+        if rep:
+            held = [torch.nn.Parameter(p.clone()) for p in mine[0]]
+            for p, gr in zip(held, grads):
+                p.grad = gr
+            fused = torch.optim.AdamW(held, lr=PRETRAIN_PEAK_LR,
+                                      betas=(0.9, 0.95), eps=1e-5,
+                                      weight_decay=0.1, fused=True)
+            yard = (FUSED_ADAMW, fused.step)
+        add('multi_tensor_adam', tag, torch.float32,
+            lambda st=mine, sc=scale: step(K.multi_tensor_adam, st, sc),
+            lambda st=ref, sc=scale: step(K.multi_tensor_adam_reference,
+                                          st, sc),
+            None, moved, 15 * n, rep=rep, yardstick=yard)
+    return cases
 
 
 def check_kernels(cases) -> None:
@@ -647,11 +824,9 @@ def time_kernels(cases) -> dict:
             f'plain {plain:.4f} ms  library '
             + (f'{lib:.4f} ms' if lib is not None else 'none')
             + f'  bound {c["bound_ms"]:.4f} ms ({c["bound_by"]})')
-        if c['composite'] is not None:
-            comp = timed(c['composite'])[0]
-            log(f'[timing]   {c["name"]}: composite of several PyTorch calls'
-                f' (index_select x2, bmm x2, casts; not one library call) '
-                f'{comp:.4f} ms')
+        if c['yardstick'] is not None:
+            label, call = c['yardstick']
+            log(f'[timing]   {c["name"]}: {label} {timed(call)[0]:.4f} ms')
         if c['cold']:
             cold = queued_ms(c['run'], before=flush.zero_)
             log(f'[timing]   {c["name"]}: kernel with L2 flushed before '
@@ -837,6 +1012,90 @@ def check_train_consistency(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def pretraining_optimizer(named, peak_lr: float, warmup: int, t_max: int,
+                          start_lr: float, **kw):
+    """(AdamW, its scheduler): Llama 2's pretraining optimizer over the
+    (name, parameter) pairs `named`: betas 0.9 / 0.95, epsilon 1e-5,
+    decoupled decay 0.1 on every parameter whose name holds no `norm`
+    (as PaddleNLP's Trainer exempts norms), ClipGradByGlobalNorm(1.0),
+    and LinearWarmup from start_lr to peak_lr over `warmup` steps into a
+    cosine to peak_lr / 10 over t_max steps."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    sched = LinearWarmup(CosineAnnealingDecay(peak_lr, T_max=t_max,
+                                              eta_min=peak_lr / 10),
+                         warmup_steps=warmup, start_lr=start_lr,
+                         end_lr=peak_lr)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-5,
+                weight_decay=0.1, parameters=named,
+                apply_decay_param_fun=lambda name: 'norm' not in name,
+                grad_clip=ClipGradByGlobalNorm(1.0), **kw)
+    return opt, sched
+
+
+def check_train_steps(cfg) -> None:
+    """Two `TrainStep`s under Llama 2's optimizer (a 2-step warm-up from
+    1e-4 into a cosine, so both steps move) at 2 layers of Llama-2-7B
+    width in f32 (TF32 off), on the card (kernels, the update through the
+    multi-tensor sum of squares and Adam) and on the CPU (plain versions),
+    from the same weights on the same two batches. Fatal unless each
+    step's loss agrees to TRAIN_LOSS_RTOL and each parameter's update over
+    the two steps to a relative norm error of TRAIN_GRAD_RTOL (epsilon
+    1e-5 damps the step of an element whose grad is near 0, where the two
+    devices' grads differ most)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(6, DEV))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu', dtype='float32')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            model.state_dict().items()})
+    start = {k: v.clone() for k, v in on_cpu.state_dict().items()}
+    rng = np.random.RandomState(9)
+    batches = [rng.randint(0, cfg.vocab_size, (1, 128)) for _ in range(2)]
+    losses, lrs = {}, {}
+    K.reset_launch_counts()
+    for tag, m in (('card', model), ('cpu', on_cpu)):
+        opt, sched = pretraining_optimizer(m.named_parameters(), 3e-4, 2,
+                                           1000, start_lr=1e-4)
+        step = TrainStep(m, next_token_loss, opt)
+        losses[tag], lrs[tag] = [], []
+        for ids in batches:
+            lrs[tag].append(opt.get_lr())
+            losses[tag].append(float(step(ids, ids)))
+            sched.step()
+        if tag == 'card':
+            launches = {k: K.LAUNCHES[k] for k in ('multi_tensor_adam',
+                                                   'multi_tensor_sumsq')}
+        del opt, step
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'train steps: the card skipped a kernel: '
+                             f'{launches}')
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses['card'], losses['cpu'])]
+    got = {k: v.cpu() - start[k] for k, v in model.state_dict().items()}
+    want = {k: v - start[k] for k, v in on_cpu.state_dict().items()}
+    errs = _grad_errors(got, want)
+    worst = max(errs, key=errs.get)
+    log(f'[train-steps] 2 layers f32, 2 TrainSteps of Llama 2\'s AdamW '
+        f'(lr {lrs["card"]}, clip 1.0, decay 0.1 but norms): losses card '
+        f'{losses["card"]} cpu {losses["cpu"]} (rel {max(rel):.2e}, limit '
+        f'{TRAIN_LOSS_RTOL}); worst update rel error {errs[worst]:.2e} '
+        f'({worst}; limit {TRAIN_GRAD_RTOL}); kernel launches on the card '
+        f'{launches}; {time.perf_counter() - t0:.1f} s')
+    if lrs['card'] != lrs['cpu'] or max(rel) > TRAIN_LOSS_RTOL \
+            or errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError('train steps: card and CPU disagree')
+    del model, on_cpu, got, want, start
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 5: train the llama2_7b_shape_8L rung
 # ---------------------------------------------------------------------------
@@ -932,7 +1191,81 @@ def train(cfg) -> dict:
     if drop < OVERFIT_MIN_DROP:
         raise AssertionError(f'train: the loss on one fixed batch fell by '
                              f'{drop:.4f} < {OVERFIT_MIN_DROP} nats')
-    res.update(overfit_losses=losses, step=step, batch=fixed)
+    res.update(overfit_losses=losses, step=step, batch=fixed,
+               batches=batches, base=base)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the rung under Llama 2's pretraining optimizer
+# ---------------------------------------------------------------------------
+
+def pretrain(trained: dict, cfg) -> dict:
+    """Phase 5's model and batches under Llama 2's pretraining optimizer
+    (`pretraining_optimizer`, bf16 moments as the rung keeps them), phase
+    5's optimizer state freed first: 2 warm-up and 6 timed steps, the
+    scheduler stepped after each. Each step's lr must be LinearWarmup's
+    value after that many scheduler steps, the loss finite, and every
+    kernel of PRETRAIN_KERNELS must launch on the timed steps. The peak
+    memory is counted above phase 5's base, so the two read alike; the
+    optimizer state is freed at the end (phase 7 makes it anew)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels as K
+    model = trained['step'].layer
+    trained['step'].optimizer._slots.clear()
+    torch.cuda.empty_cache()
+    opt, sched = pretraining_optimizer(
+        model.named_parameters(), PRETRAIN_PEAK_LR, PRETRAIN_WARMUP,
+        PRETRAIN_T_MAX, start_lr=0.0, moment_dtype='bfloat16')
+    step = TrainStep(model, next_token_loss, opt)
+    batches = trained['batches']
+
+    def one(i):
+        want = PRETRAIN_PEAK_LR * (i / PRETRAIN_WARMUP)   # LinearWarmup
+        if opt.get_lr() != want:
+            raise AssertionError(f'pretrain: step {i} lr {opt.get_lr()} != '
+                                 f'the schedule\'s {want}')
+        loss = step(batches[i % 4], batches[i % 4])
+        sched.step()
+        return loss
+
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP):
+        loss = one(i)
+    warm = float(loss)
+    log(f'[pretrain] {TRAIN_WARMUP} warm-up steps in '
+        f'{time.perf_counter() - t0:.2f} s, loss {warm:.4f}')
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        loss = one(i)
+    final = float(loss)
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in PRETRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f'pretrain: kernels never launched on the main '
+                             f'path: {missing}')
+    if not np.isfinite(final):
+        raise AssertionError(f'pretrain: loss {final} is not finite')
+    mfu = train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ) / dt \
+        / PEAK_OPS_PER_S[torch.bfloat16]
+    res = {'step_s': dt, 'tokens_per_s': TRAIN_BATCH * TRAIN_SEQ / dt,
+           'mfu': mfu, 'loss': final,
+           'peak_mem_gb': (peak - trained['base']) / 1e9,
+           'launches': launches, 'step': step}
+    log(f'[pretrain] Llama 2\'s optimizer (clip 1.0, decay 0.1 but norms, '
+        f'lr {PRETRAIN_PEAK_LR} x i / {PRETRAIN_WARMUP} in warm-up, each '
+        f'step\'s lr checked), {TRAIN_STEPS} steps: {dt * 1e3:.1f} ms/step '
+        f'beside phase 5\'s {trained["step_s"] * 1e3:.1f} (same process), '
+        f'{res["tokens_per_s"]:.0f} tokens/s, MFU {mfu:.4f}, loss '
+        f'{final:.4f}, peak device memory {res["peak_mem_gb"]:.2f} GB above '
+        f'phase 5\'s base (phase 5: {trained["peak_mem_gb"]:.2f})')
+    log(f'[pretrain] kernel launches on the timed steps: {launches}')
+    opt._slots.clear()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1307,14 +1640,32 @@ def profile_serve(served, adapted) -> None:
     require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'prefill forward')
 
 
-def profile_train(step, batch, step_s: float) -> None:
-    """One training step of the train phase's model in two profiled
-    windows: the forward and backward, and the optimizer update (whose
-    elementwise kernels have no name of their own). The idle share is
-    taken against `step_s`, the step time measured before any profiling
-    (a step run after the profiler has been used costs the host more;
-    its wall is logged beside it)."""
+def update_bound_ms(opt, named) -> float:
+    """The least time of one Adam/AdamW update of `named` parameters under
+    `opt` at 3.35 TB/s: each parameter read and written (only written when
+    an fp32 master is read instead), its grad (of its dtype) read, twice
+    under a global-norm clip (the norm, then the update), each slot read
+    and written."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    reads = 2 if isinstance(opt._grad_clip, ClipGradByGlobalNorm) else 1
+    total = 0
+    for _, p in named:
+        slots = opt._slots[p]
+        total += (nbytes(p) * ((1 if 'master' in slots else 2) + reads)
+                  + 2 * nbytes(*slots.values()))
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def profile_train(step, batch, step_s: float, label: str) -> None:
+    """One training step of `step` (phase 5's or 5b's) in two profiled
+    windows: the forward and backward, and the optimizer update. The
+    update window must run the multi-tensor Adam kernel (and, under a
+    global-norm clip, the sum of squares); its device ms is logged beside
+    `update_bound_ms`. The idle share is taken against `step_s`, the step
+    time measured before any profiling (a step run after the profiler has
+    been used costs the host more; its wall is logged beside it)."""
     from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step(batch, batch))
@@ -1324,18 +1675,74 @@ def profile_train(step, batch, step_s: float) -> None:
         next_token_loss(step.layer(x), x).backward()
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as update:
-        step.optimizer.step()
-        step.optimizer.clear_grad()
+        # CUPTI has missed a window's first kernel (the sum of squares
+        # here): a marker of ~1 us goes first
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        step.optimizer.update(step._params)
+        for _, p in step._params:
+            p.grad = None
         torch.cuda.synchronize()
     _breakdown([(fwd_bwd, None), (update, 'optimizer')], step_s,
-               f'training step (batch {TRAIN_BATCH} x {TRAIN_SEQ}; wall = '
-               f'the train phase\'s step time)')
+               f'training step, {label} (batch {TRAIN_BATCH} x {TRAIN_SEQ}; '
+               f'wall = the step time of its phase)')
     log(f'[profile]   (an unprofiled step run now, after the serve '
         f'profile, took {wall_now * 1e3:.2f} ms)')
     require_kernels(fwd_bwd, ('flash_fwd_wgmma_kernel',
                               'flash_bwd_dq_wgmma_kernel',
                               'flash_bwd_dkv_wgmma_kernel'),
                     'training step')
+    clipped = isinstance(step.optimizer._grad_clip, ClipGradByGlobalNorm)
+    require_kernels(update, ('multi_tensor_adam_kernel',)
+                    + (('multi_tensor_sumsq_kernel',) if clipped else ()),
+                    f'update window ({label})')
+    dev = sum(e.time_range.elapsed_us() for e in _device_events(update)
+              if 'spin_kernel' not in e.name) / 1e3
+    log(f'[profile]   update window ({label}): device {dev:.3f} ms, bound '
+        f'{update_bound_ms(step.optimizer, step._params):.3f} ms (the bytes '
+        f'of params, grads{" read twice" if clipped else ""} and optimizer '
+        f'state at 3.35 TB/s)')
+
+
+def rung_step_s(steps: int = TRAIN_STEPS) -> tuple:
+    """(seconds per step, peak device bytes) of phase 5's rung and recipe
+    (AdamW lr 3e-4, bf16 moments), host clock over `steps` steps after
+    TRAIN_WARMUP. Uses only the port's public API, so it also times an
+    earlier tree."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(0, DEV))
+    step = TrainStep(model, next_token_loss, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        moment_dtype='bfloat16'))
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+               for _ in range(4)]
+    for i in range(TRAIN_WARMUP):
+        float(step(batches[i % 4], batches[i % 4]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step(batches[i % 4], batches[i % 4])
+    float(loss)
+    return ((time.perf_counter() - t0) / steps,
+            torch.cuda.max_memory_allocated())
+
+
+def release(*runs) -> None:
+    """Drop the engines and train steps that the phases' results hold on
+    the card (and the eager twins'), keeping their numbers."""
+    for run in runs:
+        for key in ('engine', 'step'):
+            run.pop(key, None)
+        if isinstance(run.get('eager'), dict):
+            release(run['eager'])
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1351,6 +1758,21 @@ def main() -> int:
         log(f'[host] {sys.argv[2]}: one adapted projection {hook_host_us():.2f}'
             f' us of host time per call')
         return 0
+    if sys.argv[1:2] == ['--train-ms']:
+        # python3 chip_smoke.py --train-ms TREE: rung_step_s() of the port
+        # in the checkout TREE
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.nlp import LlamaConfig
+        _build.build_all()
+        dt, peak = rung_step_s()
+        flops = train_flops_per_step(
+            LlamaConfig.llama2_7b(num_hidden_layers=8), TRAIN_BATCH,
+            TRAIN_SEQ)
+        log(f'[train] {sys.argv[2]}: {dt * 1e3:.1f} ms/step, MFU '
+            f'{flops / dt / PEAK_OPS_PER_S[torch.bfloat16]:.4f}, peak device '
+            f'memory {peak / 1e9:.2f} GB in all')
+        return 0
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
     log(f'[env] torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
@@ -1362,18 +1784,30 @@ def main() -> int:
     build()
     cases = kernel_cases()
     check_kernels(cases)
+    check_kernels(optimizer_cases())    # freed here, rebuilt for phase 8
+    torch.cuda.empty_cache()
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
-    trained = train(LlamaConfig.llama2_7b(num_hidden_layers=8,
-                                          use_recompute=True))
+    check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
+    trained = train(rung)
+    pretrained = pretrain(trained, rung)
     res = serve(LlamaConfig.llama2_7b())
     adapted = serve_adapters(res)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res, adapted)
-    profile_train(trained['step'], trained['batch'], trained['step_s'])
-    rows = time_kernels(cases)
+    release(res, adapted)
+    profile_train(pretrained['step'], trained['batch'],
+                  pretrained['step_s'], 'Llama 2 pretraining optimizer')
+    pretrained['step'].optimizer._slots.clear()
+    profile_train(trained['step'], trained['batch'], trained['step_s'],
+                  'bench optimizer')
+    release(trained, pretrained)
+    opt_cases = optimizer_cases()
+    check_kernels(opt_cases)
+    rows = time_kernels(cases + opt_cases)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -1382,7 +1816,7 @@ def main() -> int:
     for name in REPLACES:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
-                       for run in (res, trained, adapted))
+                       for run in (res, trained, pretrained, adapted))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

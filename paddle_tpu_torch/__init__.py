@@ -9,12 +9,14 @@ is, on this package's path, a kernel written by hand for Hopper
 
 It serves Llama through the paged continuous-batching engine
 (`nlp.LlamaForCausalLM` + `serving.InferenceEngine`) and trains it
-(`jit.TrainStep` + `optimizer.AdamW`, with `F.cross_entropy` and
-`use_recompute`).
+(`jit.TrainStep` + the optimizers of `optimizer`, LR schedules from
+`optimizer.lr` and gradient clips from `nn`, with `F.cross_entropy` and
+`use_recompute`; Adam/AdamW update through one multi-tensor kernel).
 """
-from . import (dtype, framework, jit, nlp, nn, ops, optimizer, serving,
-               weights)
+from . import (dtype, framework, jit, nlp, nn, ops, optimizer, regularizer,
+               serving, weights)
 from .framework import generator, resolve_device, seed
 
 __all__ = ['dtype', 'framework', 'jit', 'nlp', 'nn', 'ops', 'optimizer',
-           'serving', 'weights', 'generator', 'resolve_device', 'seed']
+           'regularizer', 'serving', 'weights', 'generator', 'resolve_device',
+           'seed']

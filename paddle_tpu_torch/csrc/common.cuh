@@ -10,7 +10,7 @@
 #include <cuda_runtime.h>
 
 // dtype codes shared with paddle_tpu_torch/ops/kernels.py
-enum PttDtype { PTT_F32 = 0, PTT_BF16 = 1, PTT_INT8 = 2 };
+enum PttDtype { PTT_F32 = 0, PTT_BF16 = 1, PTT_INT8 = 2, PTT_F16 = 3 };
 
 // the JAX package's masked-logit value (jnp.finfo(float32).min), so a
 // fully masked row softmaxes to the same uniform weights as the reference

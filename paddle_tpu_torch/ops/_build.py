@@ -21,7 +21,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'paddle_tpu_torch'
 SOURCES = ('rms_norm', 'flash_attention', 'flash_attention_bwd',
-           'paged_attention', 'cross_entropy', 'adapter_matmul')
+           'paged_attention', 'cross_entropy', 'adapter_matmul',
+           'multi_tensor_adam')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

@@ -14,6 +14,11 @@ the serving and training paths has a hand-written Hopper kernel here
 - `adapter_matmul` replaces `_adapter_matmul_kernel` (per-row LoRA delta);
   `adapter_matmul_add` fuses the hook's add into the same kernel.
 
+Two kernels have no Pallas counterpart: `multi_tensor_adam` and
+`multi_tensor_sumsq` are the optimizer update that XLA fuses inside the
+JAX `TrainStep`'s one jitted program (Adam/AdamW with the global-norm
+clip), as one pass over many tensors per launch.
+
 The gradients are `torch.autograd.Function`s around them, the
 counterparts of the JAX package's custom VJPs: `FlashAttention`
 (`flash_attention_own`), `SoftmaxCrossEntropy` (`softmax_cross_entropy`)
@@ -51,9 +56,12 @@ NEG_INF = torch.finfo(torch.float32).min
 LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'paged_attention': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
-            'adapter_matmul': 0}
+            'adapter_matmul': 0, 'multi_tensor_adam': 0,
+            'multi_tensor_sumsq': 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# csrc/common.cuh: PttDtype
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
 _MAX_GROUP = 8           # paged kernel: query heads per kv head, at most
 PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
@@ -74,6 +82,10 @@ _ARGTYPES = {
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
     'paged_attention_fwd': [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
     'adapter_matmul_fwd': [_P] * 7 + [_I] * 8 + [_P],
+    'multi_tensor_adam': [_I] + [_P] * 4 + [_F] * 6 + [_I, _P] + [_I] * 4
+    + [_P],
+    'multi_tensor_sumsq_partial': [_I] + [_P] * 6,
+    'multi_tensor_sumsq_finish': [_P, _I, _P, _P],
 }
 
 
@@ -838,3 +850,210 @@ def adapter_matmul_add(y, x, a_bank, b_bank, rows, scale):
     out = torch.empty_like(y)
     _adapter_launch(x, a_bank, b_bank, rows, scale, y, out, dims)
     return out
+
+
+# ---------------------------------------------------------------------------
+# multi-tensor optimizer update (Adam/AdamW) and sum of squares
+# ---------------------------------------------------------------------------
+
+MT_CHUNK = 16384              # elements per block (csrc: kChunk)
+MT_ADAM_MAX_TENSORS = 48      # tensors per update launch (kAdamMaxTensors)
+MT_SUMSQ_MAX_TENSORS = 96     # tensors per sum-of-squares launch
+_MT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+_DECAY_MODES = {'l2': 0, 'l1': 1, 'decoupled': 2}
+
+
+def mt_batches(numels, max_tensors: int) -> list:
+    """The launches of a multi-tensor kernel over tensors of these element
+    counts: [(indices, first chunks)], at most `max_tensors` tensors each,
+    empty tensors left out; first chunks[j] is the first block of the j-th
+    tensor of the launch and first chunks[-1] the launch's block count.
+    Computed from shapes alone, so building it reads nothing from the
+    device."""
+    launches, idx, first = [], [], [0]
+    for i, n in enumerate(numels):
+        if n == 0:
+            continue
+        idx.append(i)
+        first.append(first[-1] + -(-n // MT_CHUNK))
+        if len(idx) == max_tensors:
+            launches.append((idx, first))
+            idx, first = [], [0]
+    if idx:
+        launches.append((idx, first))
+    return launches
+
+
+def _mt_check(tensors, what: str) -> None:
+    """The multi-tensor kernels take contiguous fp32/bf16/fp16 tensors
+    whose storage starts 16-byte aligned (their 16-byte vectors)."""
+    for t in tensors:
+        _require(t.dtype in _MT_DTYPES,
+                 f'{what} takes fp32, bf16 or fp16 tensors, got {t.dtype}')
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f'{what} takes contiguous tensors that start 16-byte '
+                 f'aligned (got a view at {t.data_ptr() % 16} bytes past '
+                 f'an aligned address, or a strided one)')
+
+
+def _c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def multi_tensor_sumsq_reference(tensors) -> torch.Tensor:
+    """Plain version: the sum of squares of every element, each tensor
+    summed in fp32, then the tensors' sums in order (the JAX clip's
+    `sum(jnp.sum(jnp.square(g.astype(f32))) for g in leaves)`)."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tensors[0].device if tensors else 'cpu')
+    for t in tensors:
+        total = total + t.float().square().sum()
+    return total
+
+
+def multi_tensor_sumsq(tensors) -> torch.Tensor:
+    """The sum of squares over every element of `tensors`, accumulated in
+    fp32, as a 0-d fp32 tensor on their device; on the card the value is
+    never read by the host. An empty list gives a CPU zero."""
+    tensors = list(tensors)
+    if not tensors or _on_cpu(*tensors):
+        return multi_tensor_sumsq_reference(tensors)
+    _mt_check(tensors, 'multi_tensor_sumsq')
+    dev = tensors[0].device
+    launches = mt_batches([t.numel() for t in tensors], MT_SUMSQ_MAX_TENSORS)
+    blocks = sum(first[-1] for _, first in launches)
+    partial = torch.empty(max(blocks, 1), dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    stream = _stream(out)
+    lib, fn = _entry('multi_tensor_adam', 'multi_tensor_sumsq_partial')
+    offset = partial.data_ptr()
+    for idx, first in launches:
+        ts = [tensors[i] for i in idx]
+        ptrs = _c_array(_P, [t.data_ptr() for t in ts])
+        numel = _c_array(_L, [t.numel() for t in ts])
+        codes = _c_array(_I, [_DTYPE_CODE[t.dtype] for t in ts])
+        starts = _c_array(_I, first)
+        rc = fn(len(ts), ctypes.addressof(ptrs), ctypes.addressof(numel),
+                ctypes.addressof(codes), ctypes.addressof(starts), offset,
+                stream)
+        _build.check(lib, rc, 'multi_tensor_sumsq')
+        LAUNCHES['multi_tensor_sumsq'] += 1
+        offset += first[-1] * 4
+    _, finish = _entry('multi_tensor_adam', 'multi_tensor_sumsq_finish')
+    _build.check(lib, finish(partial.data_ptr(), blocks, out.data_ptr(),
+                             stream), 'multi_tensor_sumsq (finish)')
+    return out
+
+
+@torch.no_grad()
+def multi_tensor_adam_reference(params, grads, m, v, masters, vmax, *, lr_t,
+                                beta1, beta2, epsilon, decay, decay_mode,
+                                clip_scale=None) -> None:
+    """Plain version: Paddle's Adam step of each tensor in turn, in place,
+    as the JAX package's `_leaf_apply` + `Adam._rule` compute it: the grad
+    in fp32 (scaled by `clip_scale` and rounded back to its dtype first, as
+    the JAX clip leaves it), L2 (`coeff * p`) or L1 (`coeff * sign(p)`)
+    decay added to it, m and v updated in fp32 and stored in their dtype,
+    the step from the fp32 values, decoupled decay `p - decay * p` with
+    `decay` = lr * coeff and p from before the step."""
+    for p, g, m_i, v_i, master, vm, coeff in zip(params, grads, m, v,
+                                                 masters, vmax, decay):
+        p32 = master if master is not None else p.float()
+        g32 = g.float()
+        if clip_scale is not None:
+            g32 = (g32 * clip_scale).to(g.dtype).float()
+        if coeff and decay_mode != 'decoupled':
+            g32 = g32 + (p32.sign() if decay_mode == 'l1' else p32) * coeff
+        m32 = m_i.float() * beta1 + g32 * (1 - beta1)
+        v32 = v_i.float() * beta2 + g32.square() * (1 - beta2)
+        m_i.copy_(m32)
+        v_i.copy_(v32)
+        if vm is not None:
+            v32 = torch.maximum(vm.float(), v32)
+            vm.copy_(v32)
+        new = p32 - (m32 * float(lr_t)) / (v32.sqrt() + epsilon)
+        if coeff and decay_mode == 'decoupled':
+            new = new - p32 * coeff
+        if master is not None:
+            master.copy_(new)
+        p.copy_(new)
+
+
+def multi_tensor_adam(params, grads, m, v, masters=None, vmax=None, *,
+                      lr_t, beta1, beta2, epsilon, decay, decay_mode,
+                      clip_scale=None) -> None:
+    """One Paddle Adam/AdamW step of every tensor in the lists, in place.
+
+    params, grads, m, v: equal-length lists (grads in the params' dtypes;
+    m and v fp32 or bf16). masters: fp32 master copies or None entries (or
+    None); vmax: amsgrad's running max of v, in m's dtype (or None).
+    lr_t: the bias-corrected step size in fp32; decay: one coefficient per
+    tensor, for 'decoupled' already lr * coeff rounded to fp32;
+    decay_mode: 'l2', 'l1' or 'decoupled'; clip_scale: None or a 0-d fp32
+    tensor on the params' device (the global-norm clip's scale). On the
+    card one launch covers up to MT_ADAM_MAX_TENSORS tensors of one (param
+    dtype, moment dtype, master, amsgrad) group; a tensor the kernel cannot
+    take raises."""
+    n = len(params)
+    masters = [None] * n if masters is None else list(masters)
+    vmax = [None] * n if vmax is None else list(vmax)
+    decay = [float(c) for c in decay]
+    _require(all(len(x) == n for x in (grads, m, v, masters, vmax, decay)),
+             'multi_tensor_adam: lists of unequal length')
+    _require(decay_mode in _DECAY_MODES,
+             f'multi_tensor_adam: decay_mode {decay_mode!r}')
+    if n == 0:
+        return
+    held = [t for ts in (params, grads, m, v, masters, vmax) for t in ts
+            if t is not None]
+    if _on_cpu(*held, clip_scale):
+        return multi_tensor_adam_reference(
+            params, grads, m, v, masters, vmax, lr_t=lr_t, beta1=beta1,
+            beta2=beta2, epsilon=epsilon, decay=decay, decay_mode=decay_mode,
+            clip_scale=clip_scale)
+    _mt_check(held, 'multi_tensor_adam')
+    _require(clip_scale is None or (clip_scale.dtype == torch.float32
+                                    and clip_scale.numel() == 1),
+             'multi_tensor_adam: clip_scale must be one fp32 element')
+    groups = {}
+    for i, p in enumerate(params):
+        same = [grads[i], m[i], v[i]] + [t for t in (masters[i], vmax[i])
+                                         if t is not None]
+        _require(all(t.numel() == p.numel() for t in same),
+                 f'multi_tensor_adam: tensor {i}: sizes differ')
+        _require(grads[i].dtype == p.dtype,
+                 f'multi_tensor_adam: tensor {i}: grad {grads[i].dtype} vs '
+                 f'param {p.dtype}')
+        _require(m[i].dtype in _MOMENT_DTYPES and v[i].dtype == m[i].dtype
+                 and (vmax[i] is None or vmax[i].dtype == m[i].dtype),
+                 f'multi_tensor_adam: tensor {i}: moments must share one '
+                 f'dtype, fp32 or bf16')
+        _require(masters[i] is None or masters[i].dtype == torch.float32,
+                 f'multi_tensor_adam: tensor {i}: the master must be fp32')
+        key = (p.dtype, m[i].dtype, masters[i] is not None,
+               vmax[i] is not None)
+        groups.setdefault(key, []).append(i)
+    lib, fn = _entry('multi_tensor_adam', 'multi_tensor_adam')
+    stream = _stream(params[0])
+    scale_ptr = None if clip_scale is None else clip_scale.data_ptr()
+    for (p_dtype, m_dtype, has_master, ams), idx in groups.items():
+        for sel, first in mt_batches([params[i].numel() for i in idx],
+                                     MT_ADAM_MAX_TENSORS):
+            sel = [idx[j] for j in sel]
+            ptrs = _c_array(_P, [
+                None if t is None else t.data_ptr() for i in sel
+                for t in (params[i], grads[i], m[i], v[i], masters[i],
+                          vmax[i])])
+            numel = _c_array(_L, [params[i].numel() for i in sel])
+            starts = _c_array(_I, first)
+            coeffs = _c_array(_F, [decay[i] for i in sel])
+            rc = fn(len(sel), ctypes.addressof(ptrs), ctypes.addressof(numel),
+                    ctypes.addressof(starts), ctypes.addressof(coeffs),
+                    float(lr_t), float(beta1), float(beta2),
+                    float(1 - beta1), float(1 - beta2), float(epsilon),
+                    _DECAY_MODES[decay_mode], scale_ptr,
+                    _DTYPE_CODE[p_dtype], _DTYPE_CODE[m_dtype],
+                    int(has_master), int(ams), stream)
+            _build.check(lib, rc, 'multi_tensor_adam')
+            LAUNCHES['multi_tensor_adam'] += 1

@@ -682,3 +682,219 @@ def test_decode_round_syncs_nothing(cuda, capture):
         assert out.shape == (3, 4) and bool((out[2] == 0).all())
     assert eng.stats()['traces'] == ({'paged_decode_step': 1} if capture
                                      else {})
+
+
+# ---------------------------------------------------------------------------
+# multi-tensor Adam/AdamW update and sum of squares
+# ---------------------------------------------------------------------------
+
+# element counts: 1, not a multiple of 8, a whole chunk, several chunks
+# with a tail, and an empty tensor (no block)
+_MT_SIZES = (1, 7, 13, 1000, K.MT_CHUNK, 3 * K.MT_CHUNK + 5, 0)
+# (param dtype, moment dtype, fp32 master): masters only for 2-byte params
+_MT_KINDS = [(torch.float32, torch.float32, False),
+             (torch.float32, torch.bfloat16, False),
+             (torch.bfloat16, torch.bfloat16, False),
+             (torch.bfloat16, torch.float32, True),
+             (torch.bfloat16, torch.bfloat16, True),
+             (torch.float16, torch.float32, False),
+             (torch.float16, torch.float32, True)]
+# fp32 outputs agree to a few fp32 roundings (the kernel rounds each
+# operation as the plain version's kernels do; sqrt and division may
+# differ by an ulp); a bf16/fp16 output rounded from such values may
+# then fall one ulp apart
+_MT_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7,
+            torch.float16: 2 ** -10}
+
+
+def _mt_state(gen, sizes, p_dtype, m_dtype, master, ams):
+    """(params, grads, m, v, masters, vmax) on the card, as after a few
+    steps: params and grads of unit scale, m of the grads' scale, v > 0."""
+    def t(n, dtype, scale=1.0, positive=False):
+        x = torch.randn(n, generator=gen, device=gen.device) * scale
+        return (x.abs() if positive else x).to(dtype)
+
+    params = [t(n, p_dtype) for n in sizes]
+    return (params, [t(n, p_dtype) for n in sizes],
+            [t(n, m_dtype, 0.1) for n in sizes],
+            [t(n, m_dtype, 0.01, True) for n in sizes],
+            [p.float() if master else None for p in params],
+            [t(n, m_dtype, 0.01, True) for n in sizes] if ams else None)
+
+
+def _mt_clone(state):
+    return tuple(None if ts is None else
+                 [None if x is None else x.clone() for x in ts]
+                 for ts in state)
+
+
+def _mt_close(got, want):
+    for ts_got, ts_want in zip(got, want):
+        for a, b in zip(ts_got or (), ts_want or ()):
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=_MT_RTOL[a.dtype],
+                                           atol=1e-7)
+
+
+@pytest.mark.parametrize('mode,scale', [('decoupled', None),
+                                        ('decoupled', 0.3), ('l2', 1.0),
+                                        ('l1', 0.5)])
+@pytest.mark.parametrize('ams', [False, True])
+@pytest.mark.parametrize('p_dtype,m_dtype,master', _MT_KINDS)
+def test_multi_tensor_adam_matches_plain(cuda, p_dtype, m_dtype, master, ams,
+                                         mode, scale):
+    """One step over every size, per-tensor decay (0 on one tensor), the
+    clip scale below 1, at 1 and absent; one launch for the group."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    state = _mt_state(gen, _MT_SIZES, p_dtype, m_dtype, master, ams)
+    ref = _mt_clone(state)
+    decay = [0.01 * (i % 3) for i in range(len(_MT_SIZES))]
+    kw = dict(lr_t=1e-3, beta1=0.9, beta2=0.95, epsilon=1e-5, decay=decay,
+              decay_mode=mode)
+    clip = None if scale is None else torch.tensor(scale, device=cuda)
+    p_before = state[0][3].clone()
+    before = K.LAUNCHES['multi_tensor_adam']
+    K.multi_tensor_adam(*state, clip_scale=clip, **kw)
+    assert K.LAUNCHES['multi_tensor_adam'] == before + 1
+    K.multi_tensor_adam_reference(*ref[:4], ref[4], ref[5] or
+                                  [None] * len(_MT_SIZES), clip_scale=clip,
+                                  **kw)
+    _mt_close(state, ref)
+    assert not torch.equal(state[0][3], p_before)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_multi_tensor_sumsq_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xs = [_randn(gen, dtype, n) for n in _MT_SIZES]
+    mixed = xs + [_randn(gen, torch.float32, 9), _randn(gen, torch.bfloat16,
+                                                        17)]
+    for ts in (xs, mixed, xs[:1]):
+        got = K.multi_tensor_sumsq(ts)
+        assert got.device.type == 'cuda' and got.shape == ()
+        torch.testing.assert_close(got, K.multi_tensor_sumsq_reference(ts),
+                                   rtol=1e-5, atol=0)
+    assert float(K.multi_tensor_sumsq([])) == 0.0
+    assert float(K.multi_tensor_sumsq([xs[-1]])) == 0.0     # empty tensor
+
+
+def test_multi_tensor_kernels_take_300_tensors(cuda):
+    """More tensors than one launch's table: several launches, each
+    counted, the same result as the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    sizes = [int(n) for n in torch.randint(1, 3000, (300,), generator=gen,
+                                           device=cuda).tolist()]
+    state = _mt_state(gen, sizes, torch.bfloat16, torch.bfloat16, False,
+                      False)
+    ref = _mt_clone(state)
+    kw = dict(lr_t=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+              decay=[1e-4] * 300, decay_mode='decoupled')
+    K.reset_launch_counts()
+    K.multi_tensor_adam(*state, **kw)
+    K.multi_tensor_adam_reference(*ref[:4], [None] * 300, [None] * 300, **kw)
+    _mt_close(state, ref)
+    got = K.multi_tensor_sumsq(state[1])
+    torch.testing.assert_close(got, K.multi_tensor_sumsq_reference(state[1]),
+                               rtol=1e-5, atol=0)
+    assert K.LAUNCHES['multi_tensor_adam'] == -(-300 // K.MT_ADAM_MAX_TENSORS)
+    assert K.LAUNCHES['multi_tensor_sumsq'] == \
+        -(-300 // K.MT_SUMSQ_MAX_TENSORS)
+
+
+def test_multi_tensor_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    buf = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    view = buf[1:33]                     # 2 bytes past an aligned address
+    ok = torch.zeros(32, dtype=torch.bfloat16, device=cuda)
+    kw = dict(lr_t=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, decay=[0.0],
+              decay_mode='l2')
+    with pytest.raises(ValueError, match='aligned'):
+        K.multi_tensor_adam([view], [ok], [ok.float()], [ok.float()], **kw)
+    with pytest.raises(ValueError, match='aligned'):
+        K.multi_tensor_sumsq([view])
+    f64 = torch.zeros(8, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        K.multi_tensor_adam([f64], [f64], [f64], [f64], **kw)
+    with pytest.raises(ValueError):
+        K.multi_tensor_adam([ok], [ok.float()], [ok], [ok], **kw)
+    K.multi_tensor_adam([], [], [], [], **dict(kw, decay=[]))   # no launch
+    from paddle_tpu_torch.optimizer import AdamW
+    p = torch.nn.Parameter(buf[1:33].clone()[1:17])  # a misaligned param
+    p.grad = torch.zeros_like(p)
+    with pytest.raises(ValueError):
+        AdamW(parameters=[p]).step()
+
+
+def _opt_pair(cuda, make, sizes=(1, 7, 4096, 3 * K.MT_CHUNK + 5)):
+    """The same bf16 parameters on the card and on the CPU, each under
+    its own optimizer from make(named parameters)."""
+    gen = torch.Generator().manual_seed(3)
+    vals = [torch.randn(n, generator=gen).bfloat16() for n in sizes]
+    names = ['w', 'norm.weight', 'b', 'lm_head']
+    card = [(n, v.to(cuda).requires_grad_()) for n, v in zip(names, vals)]
+    cpu = [(n, v.clone().requires_grad_()) for n, v in zip(names, vals)]
+    return card, cpu, make(card), make(cpu)
+
+
+def test_adamw_on_card_matches_cpu_over_fresh_grads(cuda):
+    """Phase 5b's optimizer (clip, schedule, decay exemption, bf16 moments)
+    takes two steps with new grad tensors each (so the launch table is
+    rebuilt) on the card and on the CPU: the parameters agree to one bf16
+    rounding, and the card ran the kernels."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    def make(named):
+        return AdamW(learning_rate=LinearWarmup(
+            CosineAnnealingDecay(3e-4, T_max=100, eta_min=3e-5),
+            warmup_steps=2, start_lr=1e-4, end_lr=3e-4),
+            beta2=0.95, epsilon=1e-5, weight_decay=0.1,
+            apply_decay_param_fun=lambda n: 'norm' not in n,
+            grad_clip=ClipGradByGlobalNorm(1.0), moment_dtype='bfloat16',
+            parameters=named)
+
+    card, cpu, opt_card, opt_cpu = _opt_pair(cuda, make)
+    gen = torch.Generator().manual_seed(4)
+    K.reset_launch_counts()
+    for _ in range(2):
+        for (_, pc), (_, pp) in zip(card, cpu):
+            g = (3 * torch.randn(pp.shape, generator=gen)).bfloat16()
+            pp.grad, pc.grad = g, g.to(cuda)
+        for opt in (opt_card, opt_cpu):
+            opt.step()
+            opt._learning_rate.step()
+    assert K.LAUNCHES['multi_tensor_adam'] == 2
+    assert K.LAUNCHES['multi_tensor_sumsq'] == 2
+    for (n, pc), (_, pp) in zip(card, cpu):
+        torch.testing.assert_close(pc.detach().cpu(), pp.detach(),
+                                   rtol=2 ** -7, atol=1e-6, msg=n)
+
+
+@pytest.mark.parametrize('amsgrad', [False, True])
+def test_adamw_update_syncs_nothing(cuda, amsgrad):
+    """An AdamW update under a global-norm clip and a scheduler, its
+    slots made on this step, never waits for the card: the norm stays on
+    the device, the launch table is built from shapes."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+
+    def make(named):
+        return AdamW(learning_rate=CosineAnnealingDecay(1e-3, T_max=10),
+                     grad_clip=ClipGradByGlobalNorm(1.0), amsgrad=amsgrad,
+                     multi_precision=True, parameters=named)
+
+    card, _, opt, _ = _opt_pair(cuda, make)
+    for _, p in card:
+        p.grad = torch.ones_like(p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        opt.step()
+        opt.clear_grad()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(p).all() for _, p in card)

@@ -204,7 +204,7 @@ def test_cpu_dispatch_counts_no_launch():
     assert K.LAUNCHES == {name: 0 for name in K.LAUNCHES}
 
 
-@pytest.mark.parametrize('call', ['flash', 'rms', 'paged'])
+@pytest.mark.parametrize('call', ['flash', 'rms', 'paged', 'sumsq', 'adam'])
 def test_wrappers_raise_off_cpu_and_cuda(call):
     """A tensor that is neither on the CPU nor on a CUDA device has no
     kernel and no fallback: the wrapper raises."""
@@ -214,6 +214,12 @@ def test_wrappers_raise_off_cpu_and_cuda(call):
             K.flash_attention_fwd(x, x, x, causal=True)
         elif call == 'rms':
             K.rms_norm(x, torch.ones(128, device='meta'))
+        elif call == 'sumsq':
+            K.multi_tensor_sumsq([x])
+        elif call == 'adam':
+            K.multi_tensor_adam([x], [x], [x], [x], lr_t=1e-3, beta1=0.9,
+                                beta2=0.999, epsilon=1e-8, decay=[0.0],
+                                decay_mode='l2')
         else:
             K.paged_attention(x[:, 0], x, x,
                               torch.zeros((1, 1), dtype=torch.int32,
@@ -491,3 +497,143 @@ def test_rms_norm_grad_matches_jax(dtype):
                                rtol=tol_dx[0], atol=tol_dx[1])
     np.testing.assert_allclose(tw.grad.float().numpy(), want_dw,
                                rtol=tol_dw[0], atol=tol_dw[1])
+
+
+# ---------------------------------------------------------------------------
+# multi-tensor Adam and sum of squares: launch plan, checks, plain version
+# ---------------------------------------------------------------------------
+
+def test_mt_batches_plan_launches_from_shapes():
+    """300 tensors (some empty, one of several chunks) make launches of at
+    most 48 tensors; each launch's first-chunk table is the prefix sum of
+    its tensors' chunk counts, and every non-empty tensor is in one."""
+    rng = np.random.default_rng(0)
+    numels = [int(n) for n in rng.integers(0, 3 * K.MT_CHUNK, 300)]
+    numels[5] = 0
+    numels[7] = 1
+    numels[9] = 10 * K.MT_CHUNK + 3
+    launches = K.mt_batches(numels, K.MT_ADAM_MAX_TENSORS)
+    seen = []
+    for idx, first in launches:
+        assert 1 <= len(idx) <= K.MT_ADAM_MAX_TENSORS
+        assert len(first) == len(idx) + 1 and first[0] == 0
+        for j, i in enumerate(idx):
+            assert first[j + 1] - first[j] == -(-numels[i] // K.MT_CHUNK)
+        seen += idx
+    assert seen == [i for i, n in enumerate(numels) if n]
+    assert len(launches) == -(-len(seen) // K.MT_ADAM_MAX_TENSORS)
+    assert K.mt_batches([0, 0], 48) == [] and K.mt_batches([], 48) == []
+
+
+def test_mt_check_refuses_what_the_kernels_cannot_take():
+    buf = torch.zeros(64, dtype=torch.bfloat16)
+    K._mt_check([buf, buf[8:]], 'k')              # 16 bytes in: aligned
+    for bad in (buf[1:], buf.view(8, 8).t(), torch.zeros(4, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            K._mt_check([bad], 'k')
+
+
+def _jax_adam_leaf(p, g, slots, lr, step, *, coeff=0.0, mode='l2',
+                   decoupled=False, amsgrad=False, moment_dtype='float32',
+                   scale=None):
+    """One JAX `_leaf_apply` of Adam/AdamW, after the JAX clip's rounding
+    of g * scale to g's dtype."""
+    from paddle_tpu.optimizer import Adam as JAdam, AdamW as JAdamW
+    from paddle_tpu.optimizer import L1Decay
+    wd = L1Decay(coeff) if mode == 'l1' else coeff
+    opt = (JAdamW if decoupled else JAdam)(
+        learning_rate=lr, weight_decay=wd, amsgrad=amsgrad,
+        moment_dtype=moment_dtype)
+    if scale is not None:
+        g = (g.astype(jnp.float32) * scale).astype(g.dtype)
+    return opt._leaf_apply(g, p, slots, jnp.float32(lr),
+                           jnp.asarray(step, jnp.int32))
+
+
+@pytest.mark.parametrize('mode', ['l2', 'l1', 'decoupled'])
+@pytest.mark.parametrize('amsgrad', [False, True])
+@pytest.mark.parametrize('scale', [None, 0.3])
+def test_multi_tensor_adam_plain_matches_jax_leaf(mode, amsgrad, scale):
+    """The plain version over a mixed list (fp32 params with fp32
+    moments; bf16 params with fp32 masters and bf16 moments) against the
+    JAX package's per-leaf Adam step, two steps, with a clip scale and
+    per-tensor decay coefficients (0 on one tensor)."""
+    rng = np.random.default_rng(3)
+    lr, coeffs = 1e-2, [0.1, 0.0, 0.05]
+    specs = [((7, 5), torch.float32, torch.float32, False),
+             ((13,), torch.bfloat16, torch.bfloat16, True),
+             ((3, 3), torch.float32, torch.float32, False)]
+    tp, jstate = [], []
+    for shape, pdt, mdt, master in specs:
+        v = rng.standard_normal(shape).astype(np.float32)
+        t = torch.tensor(v, dtype=pdt)     # a copy: updated in place below
+        slots = {'moment1': torch.zeros(shape, dtype=mdt),
+                 'moment2': torch.zeros(shape, dtype=mdt)}
+        if amsgrad:
+            slots['moment2_max'] = torch.zeros(shape, dtype=mdt)
+        if master:
+            slots['master'] = t.float()
+        tp.append((t, slots))
+        jdt = jnp.float32 if pdt == torch.float32 else jnp.bfloat16
+        js = {k: jnp.zeros(shape, jnp.float32 if mdt == torch.float32
+                           else jnp.bfloat16) for k in slots if k != 'master'}
+        if master:
+            js['master'] = jnp.asarray(np.array(t.float().numpy()))
+        jstate.append([jnp.asarray(v, jdt), js, mdt])
+    for step in (1, 2):
+        grads = [rng.standard_normal(t.shape).astype(np.float32)
+                 for t, _ in tp]
+        one = np.float32(1)
+        lr_t = np.float32(lr) * np.sqrt(one - np.power(np.float32(0.999),
+                                                       np.float32(step))) \
+            / (one - np.power(np.float32(0.9), np.float32(step)))
+        decay = [float(np.float32(lr) * np.float32(c)) if mode == 'decoupled'
+                 else c for c in coeffs]
+        K.multi_tensor_adam(
+            [t for t, _ in tp],
+            [torch.from_numpy(g).to(t.dtype) for g, (t, _) in zip(grads, tp)],
+            [s['moment1'] for _, s in tp], [s['moment2'] for _, s in tp],
+            [s.get('master') for _, s in tp],
+            [s['moment2_max'] for _, s in tp] if amsgrad else None,
+            lr_t=float(lr_t), beta1=0.9, beta2=0.999, epsilon=1e-8,
+            decay=decay, decay_mode=mode,
+            clip_scale=None if scale is None else torch.tensor(scale))
+        for j, (g, c) in enumerate(zip(grads, coeffs)):
+            p, js, mdt = jstate[j]
+            new_p, new_s = _jax_adam_leaf(
+                p, jnp.asarray(g, p.dtype), js, lr, step, coeff=c,
+                mode='l2' if mode == 'decoupled' else mode,
+                decoupled=mode == 'decoupled', amsgrad=amsgrad,
+                moment_dtype='bfloat16' if mdt == torch.bfloat16
+                else 'float32',
+                scale=None if scale is None else jnp.float32(scale))
+            jstate[j][:2] = [new_p, new_s]
+    for (t, slots), (p, js, _) in zip(tp, jstate):
+        low = t.dtype == torch.bfloat16
+        tol = dict(rtol=2 ** -7, atol=1e-6) if low else dict(rtol=1e-6,
+                                                             atol=1e-7)
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(p, np.float32), **tol)
+        for k, v in slots.items():
+            np.testing.assert_allclose(
+                v.float().numpy(), np.asarray(js[k], np.float32), err_msg=k,
+                **(tol if v.dtype == torch.bfloat16 else dict(rtol=1e-6,
+                                                                atol=1e-7)))
+
+
+def test_multi_tensor_cpu_takes_the_plain_version_and_counts_nothing():
+    K.reset_launch_counts()
+    p, g = torch.ones(4), torch.full((4,), 0.5)
+    m, v = torch.zeros(4), torch.zeros(4)
+    assert float(K.multi_tensor_sumsq([g, g])) == 2.0
+    K.multi_tensor_adam([p], [g], [m], [v], lr_t=0.1, beta1=0.9,
+                        beta2=0.999, epsilon=1e-8, decay=[0.0],
+                        decay_mode='l2')
+    K.multi_tensor_adam([], [], [], [], lr_t=0.1, beta1=0.9, beta2=0.999,
+                        epsilon=1e-8, decay=[], decay_mode='l2')
+    assert (p < 1).all() and (m > 0).all()
+    assert K.LAUNCHES == {name: 0 for name in K.LAUNCHES}
+    with pytest.raises(ValueError):
+        K.multi_tensor_adam([p], [g], [m], [v], lr_t=0.1, beta1=0.9,
+                            beta2=0.999, epsilon=1e-8, decay=[0.0],
+                            decay_mode='l3')

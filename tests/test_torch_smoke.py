@@ -586,3 +586,109 @@ def test_queued_ms_with_before_times_each_call_alone(monkeypatch):
     assert got == pytest.approx(sum(0.5 * i for i in range(1, 21)) / 20)
     assert pairs == [['call']] * 20
     assert order.count('before') == order.count('call') == 41
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor Adam cases and the pretraining phase's helpers
+# ---------------------------------------------------------------------------
+
+def _adam_state(master_moments):
+    """bf16 params with fp32 masters and moments (or bf16 moments and no
+    masters), bf16 grads, a clip scale < 1: the smoke's optimizer case at
+    a small size."""
+    rng = np.random.RandomState(6)
+    shapes = [(64, 48), (48,), (300,)]
+    ps = [0.02 * _randn(rng, s, torch.float32) for s in shapes]
+    m_dtype = torch.float32 if master_moments else torch.bfloat16
+    return dict(
+        params=[p.bfloat16() for p in ps],
+        grads=[(0.01 * _randn(rng, s, torch.float32)).bfloat16()
+               for s in shapes],
+        m=[(1e-3 * _randn(rng, s, torch.float32)).to(m_dtype)
+           for s in shapes],
+        v=[(1e-4 * _randn(rng, s, torch.float32).abs()).to(m_dtype)
+           for s in shapes],
+        masters=[p.clone() if master_moments else None for p in ps])
+
+
+_ADAM_KW = dict(lr_t=1e-3, beta1=0.9, beta2=0.95, epsilon=1e-5,
+                decay=[3e-5, 0.0, 3e-5], decay_mode='decoupled')
+
+
+def _adam_outputs(st, fault=None):
+    """One step of the plain version (or of a kernel with `fault`) on a
+    copy of `st`; returns every updated tensor, as the smoke's case."""
+    st = {k: [None if x is None else x.clone() for x in v]
+          for k, v in st.items()}
+    scale = torch.tensor(0.37)
+    kw = dict(_ADAM_KW)
+    grads = st['grads']
+    if fault == 'clip_scale_not_rounded_to_the_grad_dtype':
+        grads = [g.float() * scale for g in grads]
+        scale = None
+    elif fault == 'no_decay':
+        kw['decay'] = [0.0] * 3
+    elif fault == 'clip_scale_ignored':
+        scale = None
+    elif fault == 'beta2_for_beta1':
+        kw['beta1'] = kw['beta2']
+    if grads is not st['grads']:    # fp32 grads: widen the params too
+        st['params'] = [p.float() for p in st['params']]
+    K.multi_tensor_adam_reference(st['params'], grads, st['m'], st['v'],
+                                  st['masters'], [None] * 3,
+                                  clip_scale=scale, **kw)
+    params = [p.bfloat16() for p in st['params']]
+    return tuple(x for ts in (params, st['m'], st['v'], st['masters'])
+                 for x in ts if x is not None)
+
+
+@pytest.mark.parametrize('fault', ['clip_scale_not_rounded_to_the_grad_dtype',
+                                   'no_decay', 'clip_scale_ignored',
+                                   'beta2_for_beta1'])
+def test_compare_rejects_a_wrong_adam_kernel(fault):
+    """With fp32 masters and moments (the smoke's second size), each
+    fault moves an fp32 output past the f32 limits; a correct kernel
+    passes."""
+    st = _adam_state(master_moments=True)
+    want = _adam_outputs(st)
+    smoke.compare('adam', _adam_outputs(st), want)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare(fault, _adam_outputs(st, fault), want)
+
+
+def test_rung_tensor_shapes_are_the_models():
+    """One decoder layer plus lm_head of Llama-2-7B: 333.5 M elements,
+    under the names and shapes the port's Llama gives them."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    shapes = smoke.rung_tensor_shapes(LlamaConfig.llama2_7b())
+    assert sum(math.prod(s) for _, s in shapes) == 333_455_360
+    cfg = LlamaConfig.tiny(num_key_value_heads=2, num_hidden_layers=1)
+    params = dict(LlamaForCausalLM(cfg, device='cpu').named_parameters())
+    for name, shape in smoke.rung_tensor_shapes(cfg):
+        full = name if name.startswith('lm_head') else f'llama.layers.0.{name}'
+        assert tuple(params[full].shape) == shape, name
+
+
+def test_pretraining_optimizer_and_update_bound():
+    """Llama 2's recipe: decay on all but norms, the clip, the warm-up's
+    lr; and the update's bound counts 14 bytes a bf16 parameter (16 under
+    the clip, which reads the grads twice)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    named = [('w', torch.zeros(10, dtype=torch.bfloat16)),
+             ('input_layernorm.weight', torch.zeros(6, dtype=torch.bfloat16))]
+    opt, sched = smoke.pretraining_optimizer(
+        named, 3e-4, 2000, 498000, start_lr=0.0, moment_dtype='bfloat16')
+    assert isinstance(opt._grad_clip, ClipGradByGlobalNorm)
+    assert opt._coeff_for('w') == 0.1
+    assert opt._coeff_for('input_layernorm.weight') == 0.0
+    for k in range(5):
+        assert opt.get_lr() == 3e-4 * k / 2000
+        sched.step()
+    for _, p in named:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    assert smoke.update_bound_ms(opt, named) == pytest.approx(
+        16 * 16 / smoke.HBM_BYTES_PER_S * 1e3)
+    opt._grad_clip = None
+    assert smoke.update_bound_ms(opt, named) == pytest.approx(
+        14 * 16 / smoke.HBM_BYTES_PER_S * 1e3)

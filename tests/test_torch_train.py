@@ -22,13 +22,18 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
+from paddle_tpu import programs
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.nlp import llama as jllama
+from paddle_tpu.nn import clip as jclip
 from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu.optimizer import lr as jlr
+from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.weights import from_jax_state
 
 LR = 1e-3
@@ -80,6 +85,53 @@ def test_train_step_matches_jax(use_recompute):
         np.testing.assert_allclose(p.numpy(), jsd[name], rtol=0,
                                    atol=PARAM_ATOL, err_msg=name)
         assert tm.get_parameter(name).grad is None
+
+
+def _pretraining_optimizer(lr_mod, clip_mod, opt_cls, params, clip_norm):
+    """Llama 2's pretraining optimizer (chip_smoke.py phase 5b), at a
+    warm-up and cosine short enough for 3 steps: AdamW(0.9, 0.95, 1e-5),
+    decay 0.1 except on norms, a global-norm clip."""
+    sched = lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(LR, T_max=10, eta_min=LR / 10),
+        warmup_steps=2, start_lr=LR / 4, end_lr=LR)
+    return sched, opt_cls(
+        learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-5,
+        weight_decay=0.1, apply_decay_param_fun=lambda n: 'norm' not in n,
+        grad_clip=clip_mod.ClipGradByGlobalNorm(clip_norm),
+        parameters=params)
+
+
+@pytest.mark.parametrize('clip_norm', [0.5, 1.0])
+def test_train_step_pretraining_recipe_matches_jax(clip_norm):
+    """3 steps of both TrainSteps under the clip, the scheduler (stepped
+    by the caller after each step, read by each step) and the decay
+    exemption. The first batch's grads have a global norm of ~4.0, so
+    both limits clip."""
+    jm, tm = _models(False)
+    # the JAX program store keys a TrainStep's program by the optimizer's
+    # public scalar attributes, and an optimizer's hyperparameters are all
+    # private: without this, the JAX step would reuse the program traced
+    # for an earlier AdamW of other betas, epsilon, decay and clip
+    programs.get_store().clear_memory()
+    jsched, jopt = _pretraining_optimizer(jlr, jclip, JaxAdamW,
+                                          jm.parameters(), clip_norm)
+    tsched, topt = _pretraining_optimizer(tlr, tnn, AdamW,
+                                          tm.parameters(), clip_norm)
+    jstep = JaxTrainStep(jm, _jax_loss, jopt)
+    tstep = TrainStep(tm, _torch_loss, topt)
+    lrs = []
+    for ids in _batches():
+        lrs.append(topt.get_lr())
+        want = float(jstep(ids, ids).numpy())
+        np.testing.assert_allclose(float(tstep(ids, ids)), want,
+                                   rtol=LOSS_RTOL)
+        jsched.step()
+        tsched.step()
+    assert lrs == [LR / 4, LR / 4 + (LR - LR / 4) / 2, LR]
+    jsd = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    for name, p in tm.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), jsd[name], rtol=0,
+                                   atol=PARAM_ATOL, err_msg=name)
 
 
 def test_recompute_gives_the_same_gradients():
