@@ -16,7 +16,8 @@ result line):
    forward, dq and dk/dv kernels (`cuobjdump -sass`);
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
-   (plus GQA, ragged lengths, int8 pages, ignored CE rows, and adapter
+   (plus GQA, ragged lengths, the flash forward at the chunk shapes sq <
+   sk of CHUNK_SHAPES, int8 pages, ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit); then the multi-tensor sum of
    squares and Adam update over the training rung's tensors of one
@@ -31,7 +32,12 @@ result line):
    with a bank of two LoRA adapters, a mixed wave [base, ad0, ad1, ad0]
    gives each request the tokens it gets served alone under its adapter
    on a fresh engine and bank, base requests the tokens of a bank-less
-   engine, and an adapter changes some tokens;
+   engine, and an adapter changes some tokens; then the prefix cache and
+   chunked prefill at the same size: after a warm-up prompt, suffix hits
+   (one in two chunks), a cold 900-token prompt in four chunks and a full
+   hit (COW split) give the tokens of an engine without cache or
+   chunking and of a no-cache recompute, and every page is free after a
+   forced clear;
 4. train consistency: the same width at 2 layers in f32 (TF32 off), one
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
@@ -70,12 +76,28 @@ result line):
    finishes with the same tokens in both, the adapter kernel runs
    exactly once per adapted projection of every prefill and decode
    sub-step, base requests get phase 6's tokens and adapted ones
-   differ; then the host time of one adapted projection (hook, wrapper
-   and launch) at the decode shape;
+   differ; then serve-prefix: the same model behind an engine with
+   `prefix_cache=0.25, prefill_chunk_tokens=256` on bench.py:stack_ab's
+   shared-system-prompt trace at these lengths (a warm-up prompt of the
+   512-token system prompt + 32 alone, then 16 requests: 13 suffix hits,
+   the warm-up's exact repeat, two cold 900-token prompts; one sampling),
+   graph, eager and a cold twin without cache or chunking, logged side by
+   side (hits, reused tokens, chunk rounds, COW splits, prompt tokens
+   computed, TTFT, decode tok/s, the pool's peak pages, flash calls by
+   (sq, sk)); graph and eager tokens must be equal, hits >= 13, one COW
+   split, the flash forward must run at sq < sk, a suffix hit's last
+   logits through attached pages and the chunk forward equal to the same
+   split without the cache and the whole prompt's chunk forward equal to
+   a cold forward (bit for bit; the prefix path against the cold forward
+   logged), and every page free after a forced clear;
+   then the host time of one adapted projection (hook, wrapper and
+   launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, each replayed from its graph and run
-   eagerly, one prefill forward, and one training step (forward +
+   eagerly, one prefill forward, one chunk prefill forward of the
+   serve-prefix engine (wgmma flash at sq < sk, no SDPA kernel), and one
+   training step (forward +
    backward, then the optimizer update, each profiled); each decode
    round must run the split-context paged kernels and RMSNorm and not
    the first design's `paged_attn_kernel` (the banked ones also the
@@ -104,7 +126,9 @@ kernel table, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import collections
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -169,6 +193,10 @@ SOURCES = {
 WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
                  'flash_attention_bwd': ('flash_bwd_dq_wgmma_kernel',
                                          'flash_bwd_dkv_wgmma_kernel')}
+# (sq, sk) of the flash forward on the suffix / chunk prefill path: a
+# 256-token chunk after a 512-row prefix and after 768 rows, a 64-token
+# suffix after 512, and an 8-token one
+CHUNK_SHAPES = ((256, 768), (256, 1024), (64, 576), (8, 520))
 # the device kernels of one paged_attention call
 PAGED_KERNELS = ('paged_attn_split_kernel', 'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
@@ -300,9 +328,9 @@ def compare(name: str, got, want) -> dict:
     plain version's (the worst over the outputs of a tuple, each held to
     the limits of its own dtype); raises past a limit."""
     if isinstance(got, tuple):
-        readings = [compare(f'{name} [{i}]', g, w)
-                    for i, (g, w) in enumerate(zip(got, want))]
-        return {k: max(r[k] for r in readings) for k in readings[0]}
+        parts = [compare(f'{name} [{i}]', g, w)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        return {k: max(r[k] for r in parts) for k in parts[0]}
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f'{name}: kernel gives {got.dtype} '
                              f'{tuple(got.shape)}, plain {want.dtype} '
@@ -310,16 +338,23 @@ def compare(name: str, got, want) -> dict:
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: kernel output has non-finite values')
     lim_max, lim_norm = TOL[want.dtype]
+    r = readings(got, want)
+    if r['rel_max'] > lim_max or r['rel_norm'] > lim_norm:
+        raise AssertionError(f'{name}: kernel vs plain rel_max '
+                             f'{r["rel_max"]:.3e} (limit {lim_max:.3e}), '
+                             f'rel_norm {r["rel_norm"]:.3e} (limit '
+                             f'{lim_norm:.3e})')
+    return r
+
+
+def readings(got, want) -> dict:
+    """{max_abs_err, rel_max, rel_norm} of `got` against `want`, in fp64."""
     got, want = got.double(), want.double()
     diff = got - want
     max_abs = float(diff.abs().max())
-    rel_max = max_abs / max(float(want.abs().max()), 1e-30)
-    rel_norm = float(diff.norm()) / max(float(want.norm()), 1e-30)
-    if rel_max > lim_max or rel_norm > lim_norm:
-        raise AssertionError(f'{name}: kernel vs plain rel_max {rel_max:.3e}'
-                             f' (limit {lim_max:.3e}), rel_norm '
-                             f'{rel_norm:.3e} (limit {lim_norm:.3e})')
-    return dict(max_abs_err=max_abs, rel_max=rel_max, rel_norm=rel_norm)
+    return dict(max_abs_err=max_abs,
+                rel_max=max_abs / max(float(want.abs().max()), 1e-30),
+                rel_norm=float(diff.norm()) / max(float(want.norm()), 1e-30))
 
 
 def live_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -452,6 +487,32 @@ def kernel_cases() -> list:
                                                    enable_gqa=g),
                 nbytes(q, k, v, q), 4 * 128 * 32 * (s * (s + 1) // 2),
                 rep=dtype == torch.bfloat16 and s == 1024 and hkv == 32)
+
+    # flash attention at the chunk shapes: a suffix or chunk of sq queries
+    # over the slot's sk = start + sq rows, causal aligned bottom-right;
+    # the library's counterpart is SDPA under a lower-right causal bias
+    # (is_causal=True aligns top-left, another function when sq < sk),
+    # over K/V repeated to 32 heads
+    from torch.nn.attention.bias import causal_lower_right
+    for dtype in (torch.float32, torch.bfloat16):
+        for (sq, sk), hkv in itertools.product(CHUNK_SHAPES, (32, 8)):
+            q = _randn((1, sq, 32, 128), dtype, gen)
+            k = _randn((1, sk, hkv, 128), dtype, gen)
+            v = _randn((1, sk, hkv, 128), dtype, gen)
+            qt, kt, vt = (t.transpose(1, 2) for t in
+                          (q, k.repeat_interleave(32 // hkv, dim=2),
+                           v.repeat_interleave(32 // hkv, dim=2)))
+            add('flash_attention_fwd',
+                f'flash {str(dtype)[6:]} chunk sq={sq} sk={sk} H=32 '
+                f'HKV={hkv}', dtype,
+                lambda q=q, k=k, v=v: K.flash_attention_fwd(q, k, v,
+                                                            causal=True),
+                lambda q=q, k=k, v=v: K.attention_reference(q, k, v,
+                                                            causal=True),
+                lambda qt=qt, kt=kt, vt=vt, sq=sq, sk=sk:
+                    F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=causal_lower_right(sq, sk)),
+                nbytes(q, k, v, q), 4 * 128 * 32 * live_pairs(sq, sk, True))
 
     # paged attention: decode shapes, 8 slots, context up to 1024, ps 16
     n, h, ps, p = 8, 32, 16, 64
@@ -1347,15 +1408,16 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
     return res
 
 
-def eager_twin(eng):
-    """An engine with `eng`'s model, bank and settings that runs its
-    decode sub-steps uncaptured: the eager reference of a graph engine."""
+def eager_twin(eng, **kw):
+    """An engine with `eng`'s model, bank and settings (and `kw`) that runs
+    its decode sub-steps uncaptured: the eager reference of a graph
+    engine."""
     from paddle_tpu_torch.serving import InferenceEngine
     twin = InferenceEngine(eng.model, num_slots=eng.pool.num_slots,
                            max_length=eng.pool.max_length,
                            decode_block=eng.decode_block,
                            kv_page_size=eng.pool.page_size,
-                           adapter_bank=eng.adapter_bank)
+                           adapter_bank=eng.adapter_bank, **kw)
     twin._capture_decode = False
     return twin
 
@@ -1482,6 +1544,316 @@ def serve_adapters(served) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: serve with the prefix cache and chunked prefill
+# ---------------------------------------------------------------------------
+
+# bench.py:stack_ab's shared-system-prompt trace (:1480) at the serve
+# cell's lengths, with paged_ab's / stack_ab's engine options
+PREFIX_SYSTEM, PREFIX_COLD = 512, 900
+PREFIX_SUFFIXES = (3, 30, 9, 44, 200, 380)
+PREFIX_ENGINE = dict(num_slots=8, max_length=1024, decode_block=8,
+                     kv_page_size=16)
+PREFIX_OPTS = dict(prefix_cache=0.25, prefill_chunk_tokens=256)
+PREFIX_MIN_HITS = 13
+
+
+def prefix_trace(vocab: int, rng) -> tuple:
+    """(warm-up prompt, 16 prompts). The warm-up is the 512-token system
+    prompt + 32 tokens: 34 whole pages, which it leaves in the cache at
+    retirement. The 16: 13 with the system prompt and a suffix of
+    PREFIX_SUFFIXES[i % 6] tokens, an exact repeat of the warm-up (the
+    only full hit: the cache holds whole pages only), and two cold
+    900-token prompts (4 chunk rounds of 256 each)."""
+    system = rng.randint(3, vocab, (PREFIX_SYSTEM,)).tolist()
+    warm = system + rng.randint(3, vocab, (32,)).tolist()
+    shared = [system + rng.randint(3, vocab, (n,)).tolist()
+              for n in (PREFIX_SUFFIXES * 3)[:13]]
+    cold = [rng.randint(3, vocab, (PREFIX_COLD,)).tolist() for _ in range(2)]
+    return warm, (shared[:6] + cold[:1] + shared[6:10] + [warm]
+                  + shared[10:] + cold[1:])
+
+
+def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
+    """The warm-up prompt alone (it seeds the cache, and a graph engine
+    captures its decode sub-step), then the counted run of `prompts`,
+    stepped by hand to read the pool's peak of used pages; launches of
+    SERVE_KERNELS and the flash forward's calls by (sq, sk) are read
+    around it. Every request must finish with 32 tokens in range."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import FINISHED, SamplingParams
+    vocab = eng.model.config.vocab_size
+    eng.generate_many([warm], SamplingParams(max_new_tokens=32,
+                                             eos_token_id=-1))
+    eng.reset_stats()
+    cache0 = eng.prefix_cache.stats() if eng.prefix_cache else {}
+    cow0 = eng.pool.stats()['cow_splits']
+    torch.cuda.reset_peak_memory_stats()
+    shapes = collections.Counter()
+    flash = K.flash_attention_fwd
+
+    def counted(q, k, v, *a, **kw):
+        shapes[(q.shape[1], k.shape[1])] += 1
+        return flash(q, k, v, *a, **kw)
+
+    K.reset_launch_counts()
+    K.flash_attention_fwd = counted
+    try:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+        peak_pages = 0
+        while eng.has_work:
+            eng.step()
+            peak_pages = max(peak_pages, eng.pool.used_page_count)
+        wall = time.perf_counter() - t0
+    finally:
+        K.flash_attention_fwd = flash
+    launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
+    for h in handles:
+        if h.status != FINISHED or len(h.tokens) != 32 or \
+                not all(0 <= t < vocab for t in h.tokens):
+            raise AssertionError(f'{tag}: request {h} did not finish with '
+                                 f'32 tokens in range')
+    missing = [k for k, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f'{tag}: kernels never launched on the main '
+                             f'path: {missing}')
+    st = eng.stats()
+    want_traces = {'paged_decode_step': 1} if eng._capture_decode else {}
+    if st['traces'] != want_traces:
+        raise AssertionError(f'{tag}: decode captures {st["traces"]}, want '
+                             f'{want_traces}')
+    cache = st.get('prefix_cache', {})
+    ttft = sorted(h.ttft for h in handles)
+    res = {
+        'requests': len(handles), 'wall_s': wall,
+        'hits': cache.get('hits', 0) - cache0.get('hits', 0),
+        'tokens_reused': (cache.get('tokens_reused', 0)
+                          - cache0.get('tokens_reused', 0)),
+        'evictions': cache.get('evictions', 0) - cache0.get('evictions', 0),
+        'chunk_rounds': st['chunk_rounds'],
+        'chunked_prefills': st['chunked_prefills'],
+        'cow_splits': st['pool']['cow_splits'] - cow0,
+        'prefills': st['prefills'], 'requeued': st['requeued'],
+        'prefill_tokens': st['prefill_tokens'],
+        'prefill_s': st['prefill_seconds'],
+        'decode_tokens': st['tokens'], 'decode_s': st['decode_seconds'],
+        'decode_tok_per_s': st['tokens'] / st['decode_seconds'],
+        'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
+        'ttft_p50_s': ttft[len(ttft) // 2],
+        'peak_pages': peak_pages,
+        'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+        'launches': launches, 'flash_shapes': dict(sorted(shapes.items())),
+        'tokens': [h.tokens for h in handles],
+    }
+    log(f'[{tag}] {len(handles)} requests in {wall:.2f} s: prefix hits '
+        f'{res["hits"]}, tokens reused {res["tokens_reused"]}, chunk rounds '
+        f'{res["chunk_rounds"]} ({res["chunked_prefills"]} chunked '
+        f'prefills), COW splits {res["cow_splits"]}, whole prefills '
+        f'{res["prefills"]}, prompt tokens computed {res["prefill_tokens"]}'
+        f' in {res["prefill_s"]:.3f} s, decode {res["decode_tok_per_s"]:.1f}'
+        f' tok/s, TTFT mean {res["ttft_mean_s"]:.3f} s p50 '
+        f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s, pool '
+        f'peak {peak_pages} of {eng.pool.num_pages - 1} pages, requeued '
+        f'{res["requeued"]}, peak device memory {res["peak_mem_gb"]:.2f} GB '
+        f'above {base / 1e9:.2f} GB')
+    log(f'[{tag}] kernel launches {launches}; flash forward calls by '
+        f'(sq, sk) {res["flash_shapes"]}')
+    return res
+
+
+def prefix_logits(eng, prompt) -> dict:
+    """The last prompt position's logits of `prompt` (a suffix hit)
+    through the prefix path, on a slot of `eng`'s pool: the cached pages
+    attached, then the suffix through the chunk forward. They must equal,
+    bit for bit, the same split computed without the cache (the prompt's
+    prefix prefilled into a second slot's own pages, then the same suffix
+    chunk): the attached pages hold what a prefill writes. And the chunk
+    forward of the whole prompt from row 0 must equal a cold whole-prompt
+    forward (no pages) bit for bit. Together they leave, between the
+    prefix path and the cold forward, only the split of one forward into
+    a prefix and a suffix chunk, whose bf16 sums (products over 44 rows
+    instead of 556) run in another order through 32 layers: that reading
+    is logged, not held to `compare`'s limits (PERF.md, section 6)."""
+    from paddle_tpu_torch.nlp import chunk_forward
+    from paddle_tpu_torch.serving import scatter_pages
+    pool, ps, model = eng.pool, eng.pool.page_size, eng.model
+    node, matched = eng.prefix_cache.lookup(prompt)
+    if node is None:
+        raise AssertionError('serve-prefix: the logits check found no '
+                             'cached prefix')
+    cursor = min(matched, node.slot.kv_len) // ps * ps
+    fwd = chunk_forward(model)
+    ids = torch.tensor([prompt], device=DEV)
+    slots = [pool.alloc(), pool.alloc()]
+    try:
+        pool.attach_prefix(slots[0], node.slot, cursor // ps)
+        tables = []
+        for slot in slots:
+            pool.reserve(slot, len(prompt))
+            tables.append(torch.from_numpy(
+                pool.page_table[slot:slot + 1]).to(DEV))
+        with torch.inference_mode():
+            got = fwd(ids[:, cursor:], pool.pages, cursor, tables[0],
+                      cursor)[0, -1]
+            scatter_pages(pool.pages, tables[1],
+                          model.prefill_kv(ids[:, :cursor]),
+                          torch.zeros(1, dtype=torch.long, device=DEV))
+            split = fwd(ids[:, cursor:], pool.pages, cursor, tables[1],
+                        0)[0, -1]
+            whole = fwd(ids, pool.pages, 0, tables[1], 0)[0, -1]
+            cold = model(ids)[0, -1]
+    finally:
+        for slot in slots:
+            pool.free(slot)
+    if not torch.equal(got, split):
+        raise AssertionError(f'serve-prefix: logits through the attached '
+                             f'pages differ from the same split without '
+                             f'the cache: {readings(got, split)}')
+    if not torch.equal(whole, cold):
+        raise AssertionError(f'serve-prefix: the chunk forward of the whole '
+                             f'prompt differs from the cold forward: '
+                             f'{readings(whole, cold)}')
+    r = readings(got, cold)
+    log(f'[serve-prefix] logits of a {len(prompt)}-token prompt through '
+        f'{cursor} attached rows + its {len(prompt) - cursor}-token suffix '
+        f'== the same split without the cache, bit for bit; the whole '
+        f'prompt through the chunk forward == the cold forward, bit for '
+        f'bit; the prefix path vs the cold forward: max_abs_err '
+        f'{r["max_abs_err"]:.3e} rel_max {r["rel_max"]:.3e} rel_norm '
+        f'{r["rel_norm"]:.3e} (bf16 summation order, not a limit), argmax '
+        f'{int(got.argmax())} vs {int(cold.argmax())}')
+    return r
+
+
+def pages_free_after_clear(eng, tag: str) -> None:
+    eng.prefix_cache.clear(force=True)
+    pool = eng.pool
+    if pool.free_page_count != pool.num_pages - 1 or \
+            pool.stats()['holds_live']:
+        raise AssertionError(f'{tag}: after clear(force=True) '
+                             f'{pool.used_page_count} pages are still used '
+                             f'({pool.stats()["holds_live"]} holds)')
+    log(f'[{tag}] after prefix_cache.clear(force=True) all '
+        f'{pool.num_pages - 1} pages are free')
+
+
+def check_prefix_consistency(cfg) -> None:
+    """At 2 layers of Llama-2-7B width in f32: the prefix/chunk engine
+    (the serve-prefix settings) after the warm-up prompt, over a suffix
+    hit of 3, 44 and 380 tokens (two chunks), a cold 900-token prompt
+    (four) and the warm-up's exact repeat (a full hit, COW), gives each
+    request the tokens of an engine without cache or chunking and of a
+    no-cache full recompute (16 greedy tokens)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(0, DEV))
+    warm, trace = prefix_trace(cfg.vocab_size, np.random.RandomState(6))
+    prompts = [trace[i] for i in (0, 3, 5, 6, 11)]
+    sp = SamplingParams(max_new_tokens=16, eos_token_id=-1)
+    runs = []
+    for opts in (PREFIX_OPTS, {}):
+        eng = InferenceEngine(model, **PREFIX_ENGINE, **opts)
+        eng.generate_many([warm], sp)
+        runs.append([h.tokens for h in eng.generate_many(prompts, sp)])
+        st = eng.stats()
+        if opts:
+            pc = st['prefix_cache']
+            if pc['hits'] < 4 or st['pool']['cow_splits'] != 1 or \
+                    st['chunk_rounds'] < 7:
+                raise AssertionError(
+                    f'prefix consistency: hits {pc["hits"]}, COW '
+                    f'{st["pool"]["cow_splits"]}, chunk rounds '
+                    f'{st["chunk_rounds"]}: the trace missed a path')
+            pages_free_after_clear(eng, 'prefix-consistency')
+        del eng
+    with torch.inference_mode():
+        for j, prompt in enumerate(prompts):
+            seq = list(prompt)
+            for _ in range(16):
+                seq.append(int(model(torch.tensor([seq], device=DEV))
+                               [0, -1].argmax()))
+            ref = seq[len(prompt):]
+            if not runs[0][j] == runs[1][j] == ref:
+                raise AssertionError(
+                    f'prefix consistency: prompt len {len(prompt)}: '
+                    f'prefix/chunk engine {runs[0][j]}, cold engine '
+                    f'{runs[1][j]}, full recompute {ref}')
+    log(f'[prefix-consistency] 2 layers f32, {len(prompts)} requests x 16 '
+        f'greedy tokens (suffix hits of 3/44/380 tokens, a cold 900-token '
+        f'prompt in chunks, a full hit with its COW split): prefix/chunk '
+        f'engine == cold engine == no-cache full recompute')
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_prefix(served) -> dict:
+    """Phase 6's Llama-2-7B behind the serve-prefix engine (PREFIX_ENGINE
+    + PREFIX_OPTS, graph), its eager twin and a cold twin (no cache, no
+    chunking), each after the warm-up prompt alone; one request samples
+    (seeded). Gates: graph == eager tokens, prefix hits >= 13, one COW
+    split, flash launched at sq < sk, the prefix path's logits
+    (`prefix_logits`), and every page free after a forced clear. The cold twin's numbers are logged beside."""
+    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
+                                          SamplingParams)
+    model = served['engine'].model
+    warm, prompts = prefix_trace(model.config.vocab_size,
+                                 np.random.RandomState(5))
+    params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
+              for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=11)
+    runs = {}
+    for tag, opts, graph in (('serve-prefix', PREFIX_OPTS, True),
+                             ('serve-prefix eager', PREFIX_OPTS, False),
+                             ('serve-prefix cold', {}, True)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = InferenceEngine(model, **PREFIX_ENGINE, **opts)
+        eng._capture_decode = graph
+        runs[tag] = _run_prefix(eng, warm, prompts, params, tag, base)
+        runs[tag]['engine'] = eng
+    res, eager, cold = (runs[t] for t in ('serve-prefix',
+                                          'serve-prefix eager',
+                                          'serve-prefix cold'))
+    for j, (a, b) in enumerate(zip(res['tokens'], eager['tokens'])):
+        if a != b:
+            raise AssertionError(f'serve-prefix: request {j}: graph {a} != '
+                                 f'eager {b}')
+    if res['hits'] < PREFIX_MIN_HITS or res['cow_splits'] != 1:
+        raise AssertionError(f'serve-prefix: {res["hits"]} prefix hits '
+                             f'(want >= {PREFIX_MIN_HITS}), '
+                             f'{res["cow_splits"]} COW splits (want 1)')
+    chunked = {k: n for k, n in res['flash_shapes'].items() if k[0] < k[1]}
+    if not chunked:
+        raise AssertionError('serve-prefix: the flash forward never ran at '
+                             'sq < sk')
+    same = sum(a == b for a, b in zip(res['tokens'], cold['tokens']))
+    log(f'[serve-prefix] graph == eager: the tokens of all '
+        f'{len(prompts)} requests are equal (sampling included); '
+        f'{same} of {len(prompts)} equal the cold twin\'s (bf16: a '
+        f'suffix chunk sums its projections in another order than a whole '
+        f'prefill)')
+    for key, fmt in (('hits', 'd'), ('tokens_reused', 'd'),
+                     ('chunk_rounds', 'd'), ('cow_splits', 'd'),
+                     ('prefill_tokens', 'd'), ('prefill_s', '.3f'),
+                     ('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
+                     ('ttft_p50_s', '.3f'), ('ttft_max_s', '.3f'),
+                     ('peak_pages', 'd'), ('wall_s', '.3f')):
+        log(f'[serve-prefix]   {key}: prefix/chunk {res[key]:{fmt}}, eager '
+            f'{eager[key]:{fmt}}, cold twin {cold[key]:{fmt}}')
+    eng = res['engine']
+    res['logits'] = prefix_logits(eng, prompts[3])
+    for tag in ('serve-prefix', 'serve-prefix eager'):
+        pages_free_after_clear(runs[tag]['engine'], tag)
+    res['eager'], res['cold'] = eager, cold
+    release(eager, cold)
+    return res
+
+
 def hook_host_us(calls: int = 200) -> float:
     """Host µs of one adapted projection at the serve path's decode shape:
     the hook, its wrapper and its launch(es) (`linear_hook` on a tagged
@@ -1578,7 +1950,7 @@ def require_kernels(prof, kernels, label: str, absent=()) -> None:
         + (' and no ' + ', '.join(absent) if absent else ''))
 
 
-def profile_serve(served, adapted) -> None:
+def profile_serve(served, adapted, prefixed) -> None:
     """On the serve and banked engines, graph and eager, after their
     counted runs: time one decode round of each with every slot busy (no
     profiler yet; the banked engines' requests under the serve-adapters
@@ -1638,6 +2010,42 @@ def profile_serve(served, adapted) -> None:
     _breakdown([(prof, None)], wall, f'prefill forward, bucket {bucket} '
                                      f'({len(prompts[1])} prompt tokens)')
     require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'prefill forward')
+    profile_chunk(prefixed['engine'])
+
+
+def profile_chunk(eng, start: int = 512, bucket: int = 256) -> None:
+    """One chunk prefill forward of the serve-prefix engine (a 256-token
+    bucket at rows [512, 768) of a fresh slot, the prefix cache's page
+    boundary below it), profiled: it must run the wgmma flash kernel and
+    no kernel of PyTorch's own attention (flash, memory-efficient or
+    cuDNN SDPA)."""
+    from torch.profiler import ProfilerActivity, profile
+    pool = eng.pool
+    slot = pool.alloc()
+    try:
+        pool.reserve(slot, start + bucket)
+        table = torch.from_numpy(pool.page_table[slot:slot + 1]).to(DEV)
+        ids = torch.randint(3, eng.model.config.vocab_size, (1, bucket),
+                            device=DEV)
+
+        def chunk():
+            eng.model.prefill_kv(ids, start=start, kv_pages=pool.pages,
+                                 table=table, floor=start)
+        with torch.inference_mode():
+            chunk()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                chunk()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+    finally:
+        pool.free(slot)
+    _breakdown([(prof, None)], wall, f'chunk prefill forward, bucket '
+                                     f'{bucket} at start {start} (sq '
+                                     f'{bucket} < sk {start + bucket})')
+    require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'chunk prefill',
+                    absent=('pytorch_flash', 'fmha', 'cudnn'))
 
 
 def update_bound_ms(opt, named) -> float:
@@ -1788,6 +2196,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_prefix_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
     rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
@@ -1795,10 +2204,11 @@ def main() -> int:
     pretrained = pretrain(trained, rung)
     res = serve(LlamaConfig.llama2_7b())
     adapted = serve_adapters(res)
+    prefixed = serve_prefix(res)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
-    profile_serve(res, adapted)
-    release(res, adapted)
+    profile_serve(res, adapted, prefixed)
+    release(res, adapted, prefixed)
     profile_train(pretrained['step'], trained['batch'],
                   pretrained['step_s'], 'Llama 2 pretraining optimizer')
     pretrained['step'].optimizer._slots.clear()
@@ -1816,7 +2226,8 @@ def main() -> int:
     for name in REPLACES:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
-                       for run in (res, trained, pretrained, adapted))
+                       for run in (res, trained, pretrained, adapted,
+                                   prefixed))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -2,8 +2,10 @@
 of `paddle_tpu/nlp/generation.py:55-181`).
 
 The port keeps its KV in pages (`serving/kv_pool.py`): `update_kv_cache`
-writes new K/V rows into their pages through a page table, and
-`cached_forward` is the one decode-forward contract the engine calls.
+writes new K/V rows into their pages through a page table and
+`gather_rows` reads a slot's rows back; `cached_forward` is the decode
+forward the engine calls, `chunk_forward` the forward of one prompt
+chunk against the rows already in a slot's pages.
 """
 from __future__ import annotations
 
@@ -39,14 +41,16 @@ def decode_mask(q: torch.Tensor, k_cache: torch.Tensor,
 
 def update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
-                    offset) -> None:
+                    offset, floor=None) -> None:
     """Write K/V rows into their pages, in place.
 
     k/v [B, S, HKV, D] are the rows at positions offset[b] + i of batch
     row b; pages are [num_pages, page_size, HKV, D]; table [B, P] maps a
     row's page index (position // page_size) to a page id. Positions past
     the table, and unreserved entries, land on the null page 0, which no
-    attention reads unmasked."""
+    attention reads unmasked. With `floor` (rows, scalar or [B]) a row
+    whose page ends at or below it lands there too: the pages under a
+    slot's attached prefix are shared and never rewritten."""
     b, s = k.shape[:2]
     ps = k_pages.shape[1]
     p = table.shape[1]
@@ -54,10 +58,25 @@ def update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
     pos = offset_grid(off, s).expand(b, s)
     idx = torch.div(pos, ps, rounding_mode='floor')
     page = torch.gather(table.long(), 1, idx.clamp(max=p - 1))
-    page = torch.where(idx < p, page, 0)
+    keep = idx < p
+    if floor is not None:
+        fl = as_offset(floor, k.device)
+        keep = keep & ((idx + 1) * ps > (fl[:, None] if fl.dim() else fl))
+    page = torch.where(keep, page, 0)
     row = pos % ps
     k_pages[page, row] = k.to(k_pages.dtype)
     v_pages[page, row] = v.to(v_pages.dtype)
+
+
+def gather_rows(pages: torch.Tensor, table_row: torch.Tensor,
+                length: int) -> torch.Tensor:
+    """Rows [0, length) of one slot as a contiguous [1, length, HKV, D]
+    tensor, read from `pages` [num_pages, page_size, HKV, D] through the
+    slot's page table row `table_row` [1, P]."""
+    ps = pages.shape[1]
+    n = -(-int(length) // ps)
+    rows = pages[table_row[0, :n].long()]            # [n, ps, HKV, D]
+    return rows.reshape(1, n * ps, *pages.shape[2:])[:, :length]
 
 
 def cached_forward(model):
@@ -69,4 +88,20 @@ def cached_forward(model):
     (k_pages, v_pages) and is updated in place."""
     def fwd(tok, pages, pos, table):
         return model(tok, position_offset=pos, kv_pages=pages, table=table)
+    return fwd
+
+
+def chunk_forward(model):
+    """The chunk-forward contract (the JAX engine's `cached_forward` with
+    a slot-causal mask, `paddle_tpu/serving/engine.py:763-790`): returns
+    ``fwd(ids [1, S], pages, start, table [1, P], floor) -> logits
+    [1, S, V]``. The S tokens of one slot sit at positions start + i: each
+    layer writes their K/V rows into the slot's pages (rows whose page
+    ends at or below `floor` go to the null page instead) and attends
+    through the causal flash kernel over the slot's rows [0, start) read
+    from its pages followed by the chunk's own rows, so token i sees the
+    slot's rows <= start + i. `pages` is updated in place."""
+    def fwd(ids, pages, start, table, floor=0):
+        return model(ids, position_offset=int(start), kv_pages=pages,
+                     table=table, floor=int(floor))
     return fwd

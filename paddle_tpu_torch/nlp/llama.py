@@ -1,15 +1,23 @@
 """Llama (RMSNorm + SwiGLU + RoPE + GQA), counterpart of
 `paddle_tpu/nlp/llama.py`, with the same `state_dict` keys and shapes.
 
-Two forward modes:
+Three forward modes:
 - without pages, the whole sequence attends causally to itself through
   the flash-attention kernel (`scaled_dot_product_attention`); this is
-  also the serving engine's prefill, which takes each layer's new K/V
-  rows (`LlamaModel.forward` returns them) and scatters them into pages;
-- with `kv_pages` and `table`, each batch row is one decode slot whose
-  pending token sits at `position_offset[n]`: its K/V rows are written
-  into the slot's pages and it attends through the paged-attention
-  kernel to positions [0, position_offset[n]].
+  also the serving engine's whole prefill, which takes each layer's new
+  K/V rows (`LlamaModel.forward` returns them) and scatters them into
+  pages;
+- with `kv_pages`, `table` and a [N] `position_offset`, each batch row is
+  one decode slot whose pending token sits at `position_offset[n]`: its
+  K/V rows are written into the slot's pages and it attends through the
+  paged-attention kernel to positions [0, position_offset[n]];
+- with `kv_pages`, a [1, P] `table` and a scalar (int) `position_offset`
+  `start`, the S tokens are one prompt chunk of one slot at positions
+  [start, start + S) (the engine's suffix and chunked prefill): their K/V
+  rows are written into the slot's pages (below `floor`, which guards
+  the shared prefix pages, to the null page) and they attend through the
+  causal flash kernel over the slot's rows [0, start) followed by their
+  own rows, bottom-right aligned, so token i sees positions <= start + i.
 
 Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
 (loss, logits) with the loss from `F.cross_entropy` (the fused CE
@@ -31,7 +39,8 @@ from ..nn.common_layers import Embedding, Linear
 from ..nn.layer import Layer
 from ..nn.norm import RMSNorm
 from ..ops import kernels
-from .generation import as_offset, offset_grid, update_kv_cache
+from .generation import (as_offset, gather_rows, offset_grid,
+                         update_kv_cache)
 
 
 class LlamaConfig:
@@ -123,7 +132,7 @@ class LlamaAttention(Layer):
         self.o_proj = Linear(self.num_heads * hd, h, **init)
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
-                table=None):
+                table=None, floor=None):
         """Returns (output, (k, v)): k/v are this call's new rows after
         RoPE, [B, S, HKV, D]."""
         b, s, _ = hidden.shape
@@ -137,10 +146,21 @@ class LlamaAttention(Layer):
         v = self.v_proj(hidden).view(b, s, nkv, hd)
         if kv_pages is None:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        elif offset.dim() == 0:
+            if b != 1:
+                raise ValueError('a paged chunk forward takes one slot')
+            start = int(position_offset)   # a host int: sizes the gather
+            k_pages, v_pages = kv_pages
+            update_kv_cache(k_pages, v_pages, k, v, table, offset, floor)
+            k_all, v_all = k, v
+            if start:
+                k_all = torch.cat([gather_rows(k_pages, table, start), k], 1)
+                v_all = torch.cat([gather_rows(v_pages, table, start), v], 1)
+            out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True)
         else:
             if s != 1 or offset.dim() != 1:
-                raise ValueError('the paged forward takes one token per '
-                                 'slot and a [N] position offset')
+                raise ValueError('the paged decode forward takes one token '
+                                 'per slot and a [N] position offset')
             k_pages, v_pages = kv_pages
             update_kv_cache(k_pages, v_pages, k, v, table, offset)
             lengths = (offset + 1).to(torch.int32)
@@ -176,10 +196,10 @@ class LlamaDecoderLayer(Layer):
             config.hidden_size, epsilon=config.rms_norm_eps, **norm_init)
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
-                table=None):
+                table=None, floor=None):
         attn_out, kv = self.self_attn(
             self.input_layernorm(hidden), position_offset=position_offset,
-            kv_pages=kv_pages, table=table)
+            kv_pages=kv_pages, table=table, floor=floor)
         h = hidden + attn_out
         h = h + self.mlp(self.post_attention_layernorm(h))
         return h, kv
@@ -211,7 +231,7 @@ class LlamaModel(Layer):
                             device=init['device'], dtype=init['dtype'])
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
-                table=None) -> Tuple[torch.Tensor, List[tuple]]:
+                table=None, floor=None) -> Tuple[torch.Tensor, List[tuple]]:
         """Returns (final hidden states, per-layer (k, v) new rows).
 
         With `config.use_recompute` and grad enabled (training, no pages)
@@ -228,7 +248,7 @@ class LlamaModel(Layer):
             else:
                 h, kv = layer(h, position_offset=position_offset,
                               kv_pages=None if kv_pages is None
-                              else kv_pages[i], table=table)
+                              else kv_pages[i], table=table, floor=floor)
             kvs.append(kv)
         return self.norm(h), kvs
 
@@ -258,13 +278,13 @@ class LlamaForCausalLM(Layer):
         return self.llama.embed_tokens.weight.dtype
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
-                table=None, labels=None):
-        """Logits [B, S, V]; see the module docstring for the two modes.
+                table=None, labels=None, floor=None):
+        """Logits [B, S, V]; see the module docstring for the three modes.
         With `labels` [B, S] returns (loss, logits), the loss being the
         mean cross-entropy of every position against its label (no
         shift, as in the JAX package)."""
         h, _ = self.llama(input_ids, position_offset=position_offset,
-                          kv_pages=kv_pages, table=table)
+                          kv_pages=kv_pages, table=table, floor=floor)
         logits = self.lm_head(h)
         if labels is None:
             return logits
@@ -272,11 +292,16 @@ class LlamaForCausalLM(Layer):
                                labels.reshape(-1))
         return loss, logits
 
-    def prefill_kv(self, input_ids) -> List[tuple]:
-        """The serving engine's prefill: the causal no-cache forward of a
-        prompt from position 0, returning each layer's (k, v) rows
-        [B, S, HKV, D] (after RoPE) for the page pool; no logits."""
-        return self.llama(input_ids)[1]
+    def prefill_kv(self, input_ids, start=None, kv_pages=None, table=None,
+                   floor=None) -> List[tuple]:
+        """The serving engine's prefill, without logits: the causal
+        no-cache forward of a prompt from position 0, returning each
+        layer's (k, v) rows [B, S, HKV, D] (after RoPE) for the page pool;
+        or, with `kv_pages`, `table` [1, P] and an int `start`, the chunk
+        forward of the module docstring, which writes its rows into the
+        pages itself."""
+        return self.llama(input_ids, position_offset=start,
+                          kv_pages=kv_pages, table=table, floor=floor)[1]
 
     def init_cache(self, batch_size: int, max_length: int):
         """Per-layer (K, V) zeros [batch_size, max_length, HKV, D] on the

@@ -99,6 +99,10 @@ class RequestHandle:
         self.adapter_id: Optional[str] = None
         self.adapter_version: Optional[int] = None
         self._adapter_pin: Optional[int] = None
+        # the prefix-cache node this request attached pages from (pinned
+        # while it runs) and the rows attached
+        self._prefix_node = None
+        self._prefix_len = 0
         self._eos = -1
         self._t_submit = time.perf_counter()
         self._t_first: Optional[float] = None

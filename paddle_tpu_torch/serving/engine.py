@@ -1,20 +1,41 @@
 """Continuous-batching inference engine over the paged KV pool
 (counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
-`kv_page_size` set, unquantized, without prefix cache, chunked prefill
-or draft model).
+`kv_page_size` set, unquantized, with the prefix cache and chunked
+prefill, without int8 KV or a draft model).
 
 One engine is one event loop: `step()` admits queued requests into free
 slots (reserving every page each can touch, and requeueing on
-`PagePoolExhausted`), prefills each admitted prompt whole at its length
-bucket, then advances every active slot one decode round of
+`PagePoolExhausted`), advances every slot that is mid-prefill by one
+chunk, then advances every active slot one decode round of
 `decode_block` sub-steps. Each sub-step runs the model's paged forward
 (`nlp.generation.cached_forward`): the pending token's K/V rows are
 written into its page, and it attends through the paged-attention
 kernel over the slot's page table, which is the function the JAX engine
 computes by gathering pages, attending densely under a slot-causal mask
-and scattering the touched pages back. Prefill runs the causal flash
-kernel over the right-padded bucket and scatters the slab into the
-slot's pages.
+and scattering the touched pages back.
+
+Admission (`_begin_request`) takes one of three paths:
+- a short cold prompt is prefilled whole at its length bucket: the
+  causal flash kernel over the right-padded bucket, its K/V slab
+  scattered into the slot's pages;
+- with `prefix_cache`, the longest cached prefix of the prompt, cut to
+  whole pages, is attached read-only into the slot's table (the pages
+  are shared, not copied); the suffix, like any prompt longer than
+  `prefill_chunk_tokens`, is prefilled one bucket-shaped chunk per
+  `step()` (`_prefill_chunk`). The chunk forward writes its rows into
+  the slot's pages and attends through the causal flash kernel over the
+  slot's rows before it plus its own, bottom-right aligned, which is the
+  JAX chunk's mask `k_slot <= start + i`. A slot mid-prefill is parked
+  (inactive for decode, its table redirected to the null page), and a
+  window whose bucket would overrun the slot shifts down, its writes
+  below the attach boundary (`floor`) sent to the null page so a shared
+  page is never rewritten;
+- a prompt whose every token is cached in whole pages (a full hit)
+  prefills nothing: the page holding its last row is split off first
+  (copy-on-write), since the first decode round re-forwards that row.
+At retirement the prompt's full pages are held by the prefix cache and
+the slot is freed; adapter requests are cached under their own
+`(adapter_id, adapter_version)` namespace.
 
 The sub-step runs over static device buffers (`decode_graph.
 DecodeStep`), and on the card it is captured as a CUDA graph at the
@@ -32,8 +53,8 @@ adapter (`submit(..., adapter_id=)`): admission pins the adapter's bank
 slot into the host row vector `_adapter_rows` (0 = the zero base
 adapter), which each round stages into the sub-step's static rows; the
 sub-step runs inside `adapter_scope` over the bank's tensors and those
-rows, and each prefill inside a scope over its slot's row, so one batch
-mixes base and adapted requests.
+rows, and each prefill or chunk inside a scope over its slot's row, so
+one batch mixes base and adapted requests.
 """
 from __future__ import annotations
 
@@ -51,6 +72,7 @@ from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
 from .decode_graph import DecodeStep
 from .kv_pool import PagePoolExhausted, PagedSlotPool, scatter_pages
+from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .scheduler import FCFSScheduler
 
 
@@ -77,6 +99,12 @@ class InferenceEngine:
         adapter_bank: a `serving.AdapterBank` attached to this model;
             enables `submit(..., adapter_id=)`. A request pins its
             adapter at admission and unpins it at retirement.
+        prefix_cache: a `PagedPrefixCache` over this engine's pool, or a
+            fraction of the pool's pages it may hold (True = 0.5); None
+            or False = no cache.
+        prefill_chunk_tokens: prompts longer than this prefill one chunk
+            (at its length bucket) per `step()`; None = whole prefills
+            (a prefix hit's suffix is then one chunk).
     """
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 256,
@@ -86,7 +114,8 @@ class InferenceEngine:
                  eos_token_id: Optional[int] = None,
                  max_wait_s: Optional[float] = None,
                  kv_page_size: int = 16, kv_pages: Optional[int] = None,
-                 adapter_bank=None):
+                 adapter_bank=None, prefix_cache=None,
+                 prefill_chunk_tokens: Optional[int] = None):
         cfg = getattr(model, 'config', None)
         max_pos = getattr(cfg, 'max_position_embeddings', None)
         if max_pos is not None and max_length > max_pos:
@@ -109,6 +138,32 @@ class InferenceEngine:
                                   num_pages=kv_pages)
         self.scheduler = FCFSScheduler(max_prefill_tokens,
                                        max_wait_s=max_wait_s)
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
+            raise ValueError('prefill_chunk_tokens must be >= 1')
+        self.prefill_chunk_tokens = (int(prefill_chunk_tokens)
+                                     if prefill_chunk_tokens else None)
+        if isinstance(prefix_cache, RadixPrefixCache):
+            if not isinstance(prefix_cache, PagedPrefixCache):
+                raise ValueError(
+                    'prefix cache layout does not match the pool: a '
+                    'paged engine needs a PagedPrefixCache (and a row '
+                    'engine a RadixPrefixCache)')
+            self.prefix_cache: Optional[PagedPrefixCache] = prefix_cache
+        elif prefix_cache:
+            self.prefix_cache = PagedPrefixCache(
+                self.pool, 0.5 if prefix_cache is True
+                else float(prefix_cache))
+        else:
+            self.prefix_cache = None
+        if self.prefix_cache is not None and \
+                self.prefix_cache.budget_pages < 1:
+            raise ValueError(
+                'prefix cache budget rounds to zero pages; raise the '
+                'fraction or the pool size (retention must leave capacity '
+                'for decode)')
+        # slot -> [handle, prefill cursor]: slots mid-chunked-prefill
+        # (inactive for decode until the cursor reaches the prompt end)
+        self._prefilling: dict = {}
         n = self.pool.num_slots
         # per-slot decode state + sampling params, host-authoritative
         # (tiny arrays staged every round; the KV pages stay on device)
@@ -197,19 +252,23 @@ class InferenceEngine:
         return bool(self._slot_req) or self.scheduler.queue_depth > 0
 
     def step(self) -> int:
-        """One scheduler iteration: admit (and prefill) queued requests
-        into free slots, then advance every active slot one decode round.
-        Returns the number of requests that progressed."""
+        """One scheduler iteration: admit queued requests into free slots
+        (prefilling the whole ones), advance every mid-prefill slot one
+        chunk, then advance every active slot one decode round. Returns
+        the number of requests that progressed."""
         self._admit()
+        self._advance_prefills()
         n = len(self._slot_req)
         if not np.any(self._active):
-            return n
+            return n            # chunk-prefill-only progress this round
         t0 = time.perf_counter()
         toks = self._decode_round()
         now = time.perf_counter()
         self._seconds['decode'] += now - t0
         self._counts['decode_rounds'] += 1
         for slot, h in list(self._slot_req.items()):
+            if not self._active[slot]:
+                continue            # mid-chunked-prefill: no tokens yet
             done = False
             emitted = 0
             for j in range(self.decode_block):
@@ -290,16 +349,22 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # admission / retirement
     # ------------------------------------------------------------------
+    def _admission_cost(self, prompt_len: int) -> int:
+        """Prefill cost charged against the scheduler's per-iteration
+        budget: with chunking, one chunk bucket this round (the rest
+        spreads over later rounds); without, the whole prompt's
+        bucket."""
+        if self.prefill_chunk_tokens:
+            prompt_len = min(prompt_len, self.prefill_chunk_tokens)
+        return self.pool.bucket_for(prompt_len)
+
     def _admit(self):
         admitted = self.scheduler.admissible(self.pool.free_count,
-                                             self.pool.bucket_for)
+                                             self._admission_cost)
         for idx, h in enumerate(admitted):
             slot = self.pool.alloc()
-            s = len(h.prompt_tokens)
             try:
-                # pin before reserving pages: the pin rolls back with a
-                # requeue
-                self._pin_adapter(slot, h)
+                self._begin_request(slot, h)
             except AdapterUnavailable as exc:
                 # evicted since submit: a request-level failure; the
                 # engine keeps serving everyone else
@@ -307,23 +372,122 @@ class InferenceEngine:
                 h._fail(exc)
                 self._counts['failed'] += 1
                 continue
-            try:
-                self.pool.reserve(slot, min(s + h.params.max_new_tokens,
-                                            self.pool.max_length))
             except PagePoolExhausted:
-                # not a failure: this handle and everything behind it go
-                # back to the queue front in order; pages free up as
-                # in-flight requests retire
-                self._unpin_adapter(slot, h)
+                # not a failure: free the slot (which drops any attached
+                # prefix pages) and send this handle and everything
+                # behind it back to the queue front in order; pages free
+                # up as in-flight requests retire
                 self.pool.free(slot)
                 for back in reversed(admitted[idx:]):
                     self.scheduler.requeue(back)
                 self._counts['requeued'] += len(admitted) - idx
                 break
-            self._slot_req[slot] = h
-            h.status = RUNNING
+
+    def _prefix_ns(self, h: RequestHandle):
+        """The prefix-cache namespace of this request's KV: an adapter
+        request's prefill KV holds its LoRA deltas, so it is keyed on
+        (adapter_id, adapter_version); base requests share None."""
+        if h.adapter_id is None:
+            return None
+        return (h.adapter_id, h.adapter_version)
+
+    def _seat_paged(self, slot: int, h: RequestHandle, s: int) -> tuple:
+        """Attach the longest page-aligned cached prefix read-only, then
+        reserve every page the request can touch (prompt + token budget)
+        all-or-nothing, reclaiming zero-ref cache holds under pressure;
+        on a full-prompt hit split off the page of the last prompt row.
+        Raises PagePoolExhausted with the prefix node released (the
+        caller frees the slot, which drops the attached pages). Returns
+        (node, cursor): cursor is the page-aligned count of prefix rows
+        seated; the suffix [cursor, s) prefills into fresh pages."""
+        ps = self.pool.page_size
+        node, cursor = None, 0
+        if self.prefix_cache is not None:
+            node, matched = self.prefix_cache.lookup(
+                h.prompt_tokens, namespace=self._prefix_ns(h))
+            if node is not None:
+                # whole pages only: no suffix or decode write ever falls
+                # in a shared page
+                cursor = (min(matched, node.slot.kv_len) // ps) * ps
+                if cursor < 1:
+                    node = None
+                else:
+                    self.prefix_cache.acquire(node)
+        try:
+            if node is not None:
+                self.pool.attach_prefix(slot, node.slot, cursor // ps)
+            self._reserve_pages(slot, min(s + h.params.max_new_tokens,
+                                          self.pool.max_length))
+            if cursor >= s:
+                # full hit: the pending-token re-forward at s - 1 writes
+                # into the last shared page; copy-on-write it first
+                while True:
+                    try:
+                        self.pool.ensure_exclusive(slot, s - 1)
+                        break
+                    except PagePoolExhausted:
+                        if self.prefix_cache is None or \
+                                not self.prefix_cache.evict_lru():
+                            raise
+        except PagePoolExhausted:
+            if node is not None:
+                self.prefix_cache.release(node)
+            raise
+        return node, cursor
+
+    def _reserve_pages(self, slot: int, total: int):
+        """`PagedSlotPool.reserve`, with zero-ref cache holds yielding
+        their pages LRU-first until the reservation fits or nothing is
+        left to evict."""
+        while True:
+            try:
+                self.pool.reserve(slot, total)
+                return
+            except PagePoolExhausted:
+                if self.prefix_cache is None or \
+                        not self.prefix_cache.evict_lru():
+                    raise
+
+    def _begin_request(self, slot: int, h: RequestHandle):
+        """Seat `h` in `slot`: pin its adapter (before the lookup: the
+        namespace needs the version it decodes under), attach its cached
+        prefix and reserve its pages, then prefill nothing (full hit),
+        the whole prompt (short and cold), or enter the chunked-prefill
+        state machine (a suffix, or a long prompt). Raises
+        AdapterUnavailable or PagePoolExhausted with nothing of the
+        request left in the engine."""
+        s = len(h.prompt_tokens)
+        self._pin_adapter(slot, h)
+        try:
+            node, cursor = self._seat_paged(slot, h, s)
+        except PagePoolExhausted:
+            self._unpin_adapter(slot, h)
+            raise
+        if node is not None:
+            h._prefix_node = node
+            h._prefix_len = cursor
+        self._slot_req[slot] = h
+        h.status = RUNNING
+        if cursor >= s:
+            # full hit: the pages are shared already; the first decode
+            # round re-forwards the last prompt token
+            self.pool.note_written(slot, s)
+            self._activate(slot, h)
+            return
+        chunk = self.prefill_chunk_tokens
+        if cursor == 0 and (chunk is None or s <= chunk):
             self._whole_prefill(slot, h)
             self._activate(slot, h)
+            return
+        # a suffix or a long prompt: one bucket-shaped chunk per step
+        # from the cursor (the first in this step's _advance_prefills);
+        # parked until then, inactive for decode, its position at the
+        # last row
+        self._pos[slot] = self.pool.max_length - 1
+        self._tok[slot] = 0
+        self._active[slot] = False
+        self._prefilling[slot] = [h, cursor]
+        self._counts['chunked_prefills'] += 1
 
     def _whole_prefill(self, slot: int, h: RequestHandle):
         """Prefill the right-padded prompt bucket through the causal flash
@@ -348,6 +512,48 @@ class InferenceEngine:
         self._counts['prefills'] += 1
         self._counts['prefill_tokens'] += s
         self._counts['prefill_bucket_tokens'] += bucket
+
+    def _advance_prefills(self):
+        """Drive every mid-prefill slot forward one chunk (in admission
+        order). A slot whose cursor reaches the prompt end activates for
+        decode in the same step."""
+        for slot in list(self._prefilling):
+            h, cursor = self._prefilling[slot]
+            self._prefill_chunk(slot, h, cursor)
+
+    def _prefill_chunk(self, slot: int, h: RequestHandle, cursor: int):
+        """Prefill the prompt window [start, start + bucket) of `slot`
+        through the chunk forward (`LlamaForCausalLM.prefill_kv` with the
+        pool's pages): the chunk of up to `prefill_chunk_tokens` tokens
+        from the cursor, at its length bucket. A window whose bucket
+        would overrun the slot shifts its start down and forwards rows
+        below the cursor again; the floor (the attach boundary) keeps
+        those writes out of the shared pages."""
+        s = len(h.prompt_tokens)
+        c = min(self.prefill_chunk_tokens or s, s - cursor)
+        bucket = self.pool.bucket_for(c)
+        start = min(cursor, self.pool.max_length - bucket)
+        window = h.prompt_tokens[start:start + bucket]
+        t0 = time.perf_counter()
+        ids = torch.zeros((1, bucket), dtype=torch.int64)
+        ids[0, :len(window)] = torch.tensor(window)
+        table = torch.from_numpy(self.pool.page_table[slot:slot + 1])
+        with torch.inference_mode(), adapter_scope(*self._adapter_args(slot)):
+            self.model.prefill_kv(ids.to(self.device), start=start,
+                                  kv_pages=self.pool.pages,
+                                  table=table.to(self.device),
+                                  floor=h._prefix_len)
+        self._sync()
+        self._seconds['prefill'] += time.perf_counter() - t0
+        new_cursor = min(start + bucket, s)
+        self.pool.note_written(slot, new_cursor)
+        self._prefilling[slot][1] = new_cursor
+        self._counts['chunk_rounds'] += 1
+        self._counts['prefill_tokens'] += new_cursor - cursor
+        self._counts['prefill_bucket_tokens'] += bucket
+        if new_cursor >= s:
+            del self._prefilling[slot]
+            self._activate(slot, h)
 
     def _activate(self, slot: int, h: RequestHandle):
         """Arm the slot for decode: the pending token is the last prompt
@@ -395,12 +601,22 @@ class InferenceEngine:
                                  ).to(self.device))
 
     def _retire(self, slot: int, h: RequestHandle, now: float):
+        """Finish `h`, release its prefix pin and adapter, hand the
+        prompt's full pages to the prefix cache (a `PageHold`: its rows
+        [0, prompt_len) are the prompt's prefill KV, under the request's
+        namespace) and free the slot; held pages survive the free."""
         h._finish(now)
+        if h._prefix_node is not None:
+            self.prefix_cache.release(h._prefix_node)
+            h._prefix_node = None
         self._unpin_adapter(slot, h)
         del self._slot_req[slot]
         self._active[slot] = False
         self._greedy[slot] = True
         self._gens[slot] = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(h.prompt_tokens, slot,
+                                     namespace=self._prefix_ns(h))
         self.pool.free(slot)
         self._counts['completed'] += 1
 
@@ -409,8 +625,10 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def stats(self) -> dict:
         """Host-side counters. `prefill_seconds` is wall time of the
-        prefills (each ends in a device sync), `decode_seconds` wall time
-        of the decode rounds (each ends in the token fetch)."""
+        prefills and chunks (each ends in a device sync),
+        `decode_seconds` wall time of the decode rounds (each ends in the
+        token fetch). `prefill_tokens` counts prompt tokens computed
+        (whole prefills and chunks; attached prefix rows are not)."""
         c = self._counts
         out = {
             'submitted': c['submitted'],
@@ -423,6 +641,8 @@ class InferenceEngine:
             'prefill_bucket_tokens': c['prefill_bucket_tokens'],
             'decode_rounds': c['decode_rounds'],
             'decode_steps': c['decode_steps'],
+            'chunked_prefills': c['chunked_prefills'],
+            'chunk_rounds': c['chunk_rounds'],
             'prefill_seconds': self._seconds['prefill'],
             'decode_seconds': self._seconds['decode'],
             'queue_depth': self.scheduler.queue_depth,
@@ -431,6 +651,8 @@ class InferenceEngine:
             'traces': dict(self._trace_counts),
             'pool': self.pool.stats(),
         }
+        if self.prefix_cache is not None:
+            out['prefix_cache'] = self.prefix_cache.stats()
         if self.adapter_bank is not None:
             out['adapters'] = self.adapter_bank.stats()
         return out

@@ -1,5 +1,5 @@
 """Paged KV pool (counterpart of `paddle_tpu/serving/kv_pool.py`, the
-unquantized `PagedSlotPool` without prefix sharing).
+unquantized `PagedSlotPool`).
 
 KV storage is one [num_pages, page_size, HKV, D] tensor per layer for K
 and one for V, on the model's device. A slot owns a page list (a row of
@@ -10,6 +10,14 @@ attention reads unmasked. Admission reserves every page a request can
 touch up front (`reserve`), so a seated request never runs out of pages
 mid-decode; exhaustion surfaces at admission as `PagePoolExhausted` and
 the engine requeues.
+
+Sharing is per page with refcounts: the prefix cache pins a prompt's
+full pages once (`hold_pages` -> `PageHold`) and every request that hits
+it maps the same page ids into its table read-only (`attach_prefix`).
+The one write into a shared page (a full-prompt hit re-forwarding its
+last token) is split off first (`ensure_exclusive`, copy-on-write), and
+a chunk's writes carry a `floor` below which they go to the null page,
+so a tail-shifted window never rewrites a shared page.
 
 Prefill shapes are length-bucketed: a prompt of length s runs at the
 smallest bucket >= s (right-padded; pad KV lands above the live position,
@@ -24,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..nlp.generation import update_kv_cache
+from ..nlp.generation import gather_rows, update_kv_cache
 
 
 class PromptTooLongError(ValueError):
@@ -58,20 +66,54 @@ def _normalize_buckets(buckets, max_length: int) -> Tuple[int, ...]:
     return out
 
 
-def scatter_pages(pages, table: torch.Tensor, slab, start) -> None:
+def scatter_pages(pages, table: torch.Tensor, slab, start,
+                  floor=None) -> None:
     """Write a contiguous per-layer K/V slab into the pool, in place.
 
     `pages` is the pool's per-layer [(k_pages, v_pages)], `slab` the
     per-layer [(k, v)] rows [N, L, HKV, D] starting at position start[n]
     of slot row n of `table` [N, P]. Rows on unreserved entries fall on
-    the null page."""
+    the null page, and so do rows whose page ends at or below `floor`
+    (rows, scalar or [N]; the prefix-attach boundary)."""
     for (k_pages, v_pages), (k, v) in zip(pages, slab):
-        update_kv_cache(k_pages, v_pages, k, v, table, start)
+        update_kv_cache(k_pages, v_pages, k, v, table, start, floor)
+
+
+def gather_pages(pages, table_row: torch.Tensor, length: int) -> list:
+    """The slot's rows [0, length) as contiguous per-layer (k, v)
+    [1, length, HKV, D], read through its page table row `table_row`
+    [1, P] (counterpart of the JAX `gather_pages`, unquantized)."""
+    return [(gather_rows(k_pages, table_row, length),
+             gather_rows(v_pages, table_row, length))
+            for k_pages, v_pages in pages]
+
+
+class PageHold:
+    """A reference-counted pin on a set of pages (the prefix cache's
+    retained resource): the first `kv_len` rows across `pages` are a
+    prompt prefix's prefill KV. Made by `PagedSlotPool.hold_pages`,
+    released by `release_hold`; the pages outlive the slot they came
+    from for as long as the hold lives."""
+
+    __slots__ = ('pages', 'kv_len', 'released')
+
+    def __init__(self, pages: Tuple[int, ...], kv_len: int):
+        self.pages = tuple(int(p) for p in pages)
+        self.kv_len = int(kv_len)
+        self.released = False
+
+    def __len__(self):
+        return len(self.pages)
+
+    def __repr__(self):
+        return (f'PageHold(pages={len(self.pages)}, kv_len={self.kv_len}'
+                f'{", released" if self.released else ""})')
 
 
 class PagedSlotPool:
     """Page-table KV pool: fixed-size pages, per-slot page lists,
-    free-list allocation with refcounts, page 0 as the null page.
+    free-list allocation, copy-on-write refcounts, page 0 as the null
+    page.
 
     Storage is `model.init_cache(num_pages, page_size)`, in the model's
     dtype."""
@@ -115,6 +157,8 @@ class PagedSlotPool:
             range(self.num_pages - 1, 0, -1))
         self._free = sorted(range(self.num_slots), reverse=True)
         self._written = [0] * self.num_slots
+        self._cow_splits = 0
+        self._holds_live = 0
 
     # -- slot lifecycle ----------------------------------------------------
     @property
@@ -145,7 +189,9 @@ class PagedSlotPool:
         return self._free.pop()
 
     def free(self, slot: int):
-        """Release the slot and its page references."""
+        """Release the slot and its page references: exclusive pages go
+        back to the free list, shared ones (a live `PageHold` or another
+        slot's attach) survive at refs >= 1."""
         if not 0 <= slot < self.num_slots:
             raise ValueError(f'slot {slot} out of range')
         if slot in self._free:
@@ -165,6 +211,10 @@ class PagedSlotPool:
             raise RuntimeError(f'page {pid} freed more than referenced')
         if self._page_refs[pid] == 0:
             self._free_pages.append(pid)
+
+    def _incref(self, pid: int):
+        if pid != 0:
+            self._page_refs[pid] += 1
 
     # -- page lifecycle ----------------------------------------------------
     def reserve(self, slot: int, total_len: int):
@@ -187,6 +237,79 @@ class PagedSlotPool:
             pid = self._free_pages.pop()
             self._page_refs[pid] = 1
             self.page_table[slot, i] = pid
+
+    def attach_prefix(self, slot: int, hold: PageHold, npages: int):
+        """Map the first `npages` of a retained hold into `slot`'s table
+        read-only (refcounts shared). The engine attaches whole pages
+        only and writes strictly above them, except the full-hit
+        re-forward of the last prompt token, which `ensure_exclusive`
+        splits off first."""
+        if hold.released:
+            raise RuntimeError('attach_prefix on a released PageHold')
+        if npages > len(hold.pages):
+            raise ValueError(
+                f'attach of {npages} pages exceeds the hold '
+                f'({len(hold.pages)})')
+        for i in range(npages):
+            if self.page_table[slot, i] != 0:
+                raise RuntimeError(
+                    f'slot {slot} table entry {i} already mapped')
+            pid = hold.pages[i]
+            self._incref(pid)
+            self.page_table[slot, i] = pid
+
+    def ensure_exclusive(self, slot: int, pos: int) -> bool:
+        """Copy-on-write split: if the page holding row `pos` of `slot`
+        is shared (refs > 1), copy it (K and V of every layer, one page
+        each) into a fresh page and repoint the table entry, so writes at
+        `pos` never touch the shared original. True when it split;
+        `PagePoolExhausted` when no page is free for the copy."""
+        i = int(pos) // self.page_size
+        pid = int(self.page_table[slot, i])
+        if pid == 0:
+            raise RuntimeError(
+                f'ensure_exclusive on unreserved page {i} of slot {slot}')
+        if self._page_refs[pid] <= 1:
+            return False
+        if not self._free_pages:
+            raise PagePoolExhausted(
+                'no free page for a copy-on-write split')
+        npid = self._free_pages.pop()
+        for k_pages, v_pages in self.pages:
+            k_pages[npid].copy_(k_pages[pid])
+            v_pages[npid].copy_(v_pages[pid])
+        self._page_refs[npid] = 1
+        self.page_table[slot, i] = npid
+        self._decref(pid)
+        self._cow_splits += 1
+        return True
+
+    def hold_pages(self, slot: int, kv_len: int) -> Optional[PageHold]:
+        """Pin the full pages covering `slot`'s first `kv_len` rows as a
+        `PageHold` (the prefix cache's retention). A trailing partial
+        page stays with the slot: on a hit its rows are prefilled again,
+        into the new slot's own page. None when no full page is
+        covered."""
+        npages = int(kv_len) // self.page_size
+        if npages < 1:
+            return None
+        pids = [int(p) for p in self.page_table[slot, :npages]]
+        if any(p == 0 for p in pids):
+            raise RuntimeError(
+                f'hold_pages: slot {slot} has unreserved pages below '
+                f'kv_len {kv_len}')
+        for pid in pids:
+            self._incref(pid)
+        self._holds_live += 1
+        return PageHold(tuple(pids), npages * self.page_size)
+
+    def release_hold(self, hold: PageHold):
+        if hold.released:
+            raise RuntimeError('PageHold released twice')
+        hold.released = True
+        for pid in hold.pages:
+            self._decref(pid)
+        self._holds_live -= 1
 
     def note_written(self, slot: int, rows) -> None:
         """High-water mark of the KV rows `slot` holds."""
@@ -219,6 +342,9 @@ class PagedSlotPool:
                 'pages_per_slot': self.pages_per_slot,
                 'free_pages': len(self._free_pages),
                 'used_pages': self.used_page_count,
+                'shared_pages': int(np.sum(self._page_refs[1:] > 1)),
+                'holds_live': self._holds_live,
+                'cow_splits': self._cow_splits,
                 'buckets': list(self.buckets),
                 'page_bytes': self.page_bytes,
                 'pool_bytes': self.pool_bytes,

@@ -284,6 +284,60 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hkv', [32, 8])
+@pytest.mark.parametrize('sq,sk', [(256, 768), (256, 1024), (64, 576),
+                                   (8, 520), (13, 29), (100, 101)])
+def test_flash_kernel_at_chunk_shapes_matches_plain(cuda, dtype, hkv, sq, sk):
+    """The suffix / chunk prefill's shapes: sq queries over the slot's
+    sk = start + sq rows, causal aligned bottom-right (query i sees keys
+    <= i + sk - sq), at Llama-2-7B's 32 heads over 32 or 8 kv heads; one
+    launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = _randn(g, dtype, 1, sq, 32, 128)
+    k, v = _randn(g, dtype, 1, sk, hkv, 128), _randn(g, dtype, 1, sk, hkv, 128)
+    before = K.LAUNCHES['flash_attention_fwd']
+    _close_attention(K.flash_attention_fwd(q, k, v, causal=True),
+                     K.attention_reference(q, k, v, causal=True), dtype)
+    assert K.LAUNCHES['flash_attention_fwd'] == before + 1
+
+
+def test_prefix_chunk_engine_matches_cold_engine(cuda):
+    """f32: a shared 48-token system prompt behind suffixes (one in two
+    chunks), a cold 100-token prompt in four 32-token chunks and an
+    exact repeat of a 64-token prompt (a full hit and its COW split),
+    through the graph engine with `prefix_cache` and
+    `prefill_chunk_tokens`: the tokens of an engine without either, and
+    every page free after a forced clear."""
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=cuda, generator=generator(5, cuda))
+    g = torch.Generator().manual_seed(3)
+    rand = lambda n: torch.randint(1, 512, (n,), generator=g).tolist()
+    system = rand(48)
+    first = system + rand(16)
+    wave = [system + rand(n) for n in (3, 40, 9)] + [rand(100), first]
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    out = []
+    for kw in (dict(prefix_cache=0.5, prefill_chunk_tokens=32), {}):
+        eng = InferenceEngine(model, num_slots=3, max_length=128,
+                              decode_block=4, **kw)
+        eng.generate_many([first], sp)
+        K.reset_launch_counts()
+        out.append([h.tokens for h in eng.generate_many(wave, sp)])
+        st = eng.stats()
+        assert st['traces'] == {'paged_decode_step': 1}
+        if kw:
+            assert K.LAUNCHES['flash_attention_fwd'] > 0
+            assert st['prefix_cache']['hits'] >= 4
+            assert st['pool']['cow_splits'] == 1
+            assert st['chunk_rounds'] >= 6
+            eng.prefix_cache.clear(force=True)
+            assert eng.pool.free_page_count == eng.pool.num_pages - 1
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('sq,sk,hkv,causal', [
     (130, 130, 8, True), (64, 64, 2, True), (70, 90, 4, True),
     (100, 100, 8, False), (1, 1, 8, True), (63, 63, 2, True),

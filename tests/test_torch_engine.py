@@ -181,3 +181,54 @@ def test_stream_yields_every_token(models):
     st = eng.stats()
     assert st['prefills'] == 2 and st['prefill_tokens'] == 11
     assert st['tokens'] == 15 and not eng.has_work
+
+
+# ---------------------------------------------------------------------------
+# the chunk forward (suffix and chunked prefill) against the JAX
+# cached_forward with the slot-causal mask
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('prefix,start,chunk,floor', [
+    (0, 0, 16, 0),        # a first chunk
+    (16, 16, 16, 16),     # the chunk after an attached page
+    (20, 20, 12, 16),     # a chunk from mid-page
+    (32, 16, 24, 16),     # a tail-shifted window over rows already there
+    (40, 40, 8, 32)])
+def test_chunk_forward_matches_jax_cached_forward(models, prefix, start,
+                                                  chunk, floor):
+    """Rows [0, prefix) are in the slot (pages / the JAX row), then the
+    chunk prompt[start:start + chunk] runs at offset `start`: the port's
+    chunk forward gives the logits of the JAX `cached_forward` with the
+    mask k_slot <= start + i (`engine.py:_paged_chunk_prefill_fn`), to
+    the f32 parity bar of tests/test_torch_llama.py (2e-4), and leaves
+    the pages below the floor untouched."""
+    import jax.numpy as jnp
+    from paddle_tpu.jit import functional_state
+    from paddle_tpu.nlp.generation import cached_forward as jax_cached
+    from paddle_tpu_torch.nlp import chunk_forward
+    from paddle_tpu_torch.serving import gather_pages, scatter_pages
+    jm, tm = models
+    max_len, ps = 64, 16
+    prompt = np.random.RandomState(prefix + start).randint(1, 128, (64,))
+    fwd = jax_cached(jm, *functional_state(jm))
+    row = jm.init_cache(1, max_len)
+    if prefix:
+        _, row = fwd(jnp.asarray(prompt[None, :prefix]), row, 0, 0, None)
+    k_slot = jnp.arange(max_len)
+    mask = (k_slot[None, :] <= start + jnp.arange(chunk)[:, None])[None, None]
+    want, _ = fwd(jnp.asarray(prompt[None, start:start + chunk]), row,
+                  jnp.int32(start), jnp.int32(start), mask)
+    pages = tm.init_cache(6, ps)
+    table = torch.tensor([[4, 2, 5, 1]], dtype=torch.int32)
+    with torch.no_grad():
+        if prefix:
+            slab = tm.prefill_kv(torch.from_numpy(prompt[None, :prefix]))
+            scatter_pages(pages, table, slab, torch.zeros(1).long())
+        before = gather_pages(pages, table, floor)
+        got = chunk_forward(tm)(
+            torch.from_numpy(prompt[None, start:start + chunk]), pages,
+            start, table, floor)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+    for (k0, v0), (k, v) in zip(before, gather_pages(pages, table, floor)):
+        assert torch.equal(k0, k) and torch.equal(v0, v)

@@ -22,7 +22,9 @@ and the delta without y must fail.
 The split-context paged kernel's arithmetic (`paged_split_model`: per
 split m, l and P V, then the exp(m_s - M) rescale) must equal the plain
 version to the f32 limits, and a combine without the rescale or without
-the last live split must fail them. The timing phase's reading (calls
+the last live split must fail them. At a chunk shape (sq < sk) the
+flash forward must pass with the bottom-right causal mask and fail
+aligned top-left. The timing phase's reading (calls
 queued behind a GPU-side sleep, else the CUDA events) is checked on
 given readings.
 """
@@ -496,6 +498,57 @@ def test_compare_rejects_a_wrong_cluster_adapter_kernel(case, dtype):
         got = adapter_cluster_model(*args)
     with pytest.raises(AssertionError, match='rel_max'):
         smoke.compare(case, got, want)
+
+
+def _chunk_attention(dtype, top_left=False):
+    """(plain output, the same function in fp64 rounded once) of causal
+    attention at a chunk shape of the smoke (64 queries over 576 keys,
+    the suffix's rows after 512 cached ones); with `top_left` the fp64
+    one masks key j > i instead of j > i + sk - sq: the mask SDPA's
+    is_causal gives, another function when sq < sk."""
+    sq, sk = 64, 576
+    assert (sq, sk) in smoke.CHUNK_SHAPES
+    rng = np.random.RandomState(7)
+    q = _randn(rng, (B, sq, H, D), dtype)
+    k = _randn(rng, (B, sk, HKV, D), dtype)
+    v = _randn(rng, (B, sk, HKV, D), dtype)
+    want = K.attention_reference(q, k, v, causal=True)
+    kr = k.double().repeat_interleave(H // HKV, dim=2)
+    vr = v.double().repeat_interleave(H // HKV, dim=2)
+    s = torch.einsum('bqhd,bkhd->bhqk', q.double(), kr) / math.sqrt(D)
+    shift = 0 if top_left else sk - sq
+    keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + shift
+    p = torch.softmax(s.masked_fill(~keep, -math.inf), dim=-1)
+    return want, torch.einsum('bhqk,bkhd->bqhd', p, vr).to(dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_compare_takes_the_chunk_shape_and_rejects_top_left(dtype):
+    """At sq < sk the bottom-right causal mask, rounded once, passes; a
+    kernel aligned top-left (query i sees keys <= i) fails."""
+    want, right = _chunk_attention(dtype)
+    smoke.compare('flash chunk', right, want)
+    _, top_left = _chunk_attention(dtype, top_left=True)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare('flash chunk, top-left', top_left, want)
+
+
+def test_prefix_trace_is_the_shared_system_prompt_mix():
+    """16 prompts: 13 with the 512-token system prompt and a suffix from
+    PREFIX_SUFFIXES in turn, the warm-up's exact repeat (544 tokens, a
+    whole number of pages: the only possible full hit), two cold
+    900-token prompts, none sharing the system prompt."""
+    warm, prompts = smoke.prefix_trace(32000, np.random.RandomState(5))
+    system = warm[:smoke.PREFIX_SYSTEM]
+    assert len(prompts) == 16 and len(warm) == 544 and len(warm) % 16 == 0
+    shared = [p for p in prompts if p[:512] == system and p != warm]
+    assert [len(p) - 512 for p in shared] == \
+        list((smoke.PREFIX_SUFFIXES * 3)[:13])
+    assert prompts.count(warm) == 1
+    cold = [p for p in prompts if p[:512] != system]
+    assert [len(p) for p in cold] == [smoke.PREFIX_COLD] * 2
+    assert all(len(p) + 32 <= smoke.PREFIX_ENGINE['max_length']
+               for p in prompts)
 
 
 def test_compare_rejects_a_dtype_or_shape_change():
