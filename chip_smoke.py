@@ -17,7 +17,9 @@ result line):
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
    (plus GQA, ragged lengths, the flash forward at the chunk shapes sq <
-   sk of CHUNK_SHAPES, int8 pages, ignored CE rows, and adapter
+   sk of CHUNK_SHAPES, and again with the key count sk read from device
+   memory over a 1024-row buffer whose rows past it are NaN (the
+   captured chunk's call), int8 pages, ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit); then the multi-tensor sum of
    squares and Adam update over the training rung's tensors of one
@@ -25,19 +27,22 @@ result line):
    fp32 masters and moments; a global-norm clip scale below 1, and
    amsgrad), every updated p, m, v (master, max) held to the plain
    version (the cases are freed after the check and rebuilt for 8);
-3. consistency: the engine (its decode sub-step replayed from a CUDA
-   graph) at 2 layers of Llama-2-7B width in f32, greedy;
-   each request's first 16 tokens must equal a no-cache full-recompute
-   forward of the same model; then adapter consistency at the same size:
+3. consistency: the engine (its decode sub-step and each prefill bucket
+   replayed from a CUDA graph) at 2 layers of Llama-2-7B width in f32,
+   greedy; each request's first 16 tokens must equal a no-cache
+   full-recompute forward of the same model, and with a seeded sampling
+   request added its eager twin (nothing captured) must give the same
+   tokens; then adapter consistency at the same size:
    with a bank of two LoRA adapters, a mixed wave [base, ad0, ad1, ad0]
    gives each request the tokens it gets served alone under its adapter
-   on a fresh engine and bank, base requests the tokens of a bank-less
-   engine, and an adapter changes some tokens; then the prefix cache and
+   on a fresh engine and bank (and on the eager twin), base requests the
+   tokens of a bank-less engine, and an adapter changes some tokens;
+   then the prefix cache and
    chunked prefill at the same size: after a warm-up prompt, suffix hits
    (one in two chunks), a cold 900-token prompt in four chunks and a full
-   hit (COW split) give the tokens of an engine without cache or
-   chunking and of a no-cache recompute, and every page is free after a
-   forced clear;
+   hit (COW split) give the tokens of its eager twin, of an engine
+   without cache or chunking and of a no-cache recompute, and every page
+   is free after a forced clear;
 4. train consistency: the same width at 2 layers in f32 (TF32 off), one
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
@@ -63,13 +68,15 @@ result line):
    step's lr must be the schedule's, the loss finite, and the sum of
    squares and Adam kernels must both launch;
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
-   the 8-slot paged engine, which replays its decode sub-step from a
-   captured CUDA graph, 12 requests (prompts 13-700 tokens, 32 new
-   tokens; 11 greedy, 1 sampling), with every serving kernel's launch
-   count read around that run (replays counted) and required to be > 0,
-   and one capture; then the same requests on an engine that runs the
-   sub-step uncaptured (the eager loop): every request's tokens must be
-   equal, and both runs are logged side by side; then the same model,
+   the 8-slot paged engine, which replays its decode sub-step and each
+   prefill bucket from captured CUDA graphs, 12 requests (prompts 13-700
+   tokens, 32 new tokens; 11 greedy, 1 sampling), with every serving
+   kernel's launch count read around that run (replays counted) and
+   required to be > 0, and `traces` exactly one capture of the sub-step
+   and of each bucket the run used; then the same requests on an engine
+   that runs both uncaptured (the eager loop): every request's tokens
+   must be equal, and both runs are logged side by side; then the same
+   model,
    prompts and settings behind an engine with an `AdapterBank` of three
    rank-8 adapters on q/k/v/o_proj, request i under
    [base, ad0, ad1, ad2][i % 4], graph and eager alike: every request
@@ -81,28 +88,38 @@ result line):
    shared-system-prompt trace at these lengths (a warm-up prompt of the
    512-token system prompt + 32 alone, then 16 requests: 13 suffix hits,
    the warm-up's exact repeat, two cold 900-token prompts; one sampling),
-   graph, eager and a cold twin without cache or chunking, logged side by
-   side (hits, reused tokens, chunk rounds, COW splits, prompt tokens
-   computed, TTFT, decode tok/s, the pool's peak pages, flash calls by
-   (sq, sk)); graph and eager tokens must be equal, hits >= 13, one COW
-   split, the flash forward must run at sq < sk, a suffix hit's last
-   logits through attached pages and the chunk forward equal to the same
-   split without the cache and the whole prompt's chunk forward equal to
-   a cold forward (bit for bit; the prefix path against the cold forward
-   logged), and every page free after a forced clear;
+   on five engines in one process: graph (decode and prefill captured),
+   eager, eager prefill (the decode graph only: the configuration before
+   the prefill was captured) and two cold twins without cache or
+   chunking (prefill captured and eager), each warmed by the trace once
+   so its counted run captures nothing, logged side by side (hits, reused
+   tokens, chunk rounds, COW splits, prompt tokens computed, prefill
+   wall, TTFT, decode tok/s, the pool's peak pages, prefills by (kind,
+   bucket), capture seconds, device memory held after the captures);
+   graph, eager and eager-prefill tokens must be equal, hits >= 13, one
+   COW split, a chunk run, the flash forward once per layer of every
+   prefill and chunk, `traces` exactly the buckets run, a suffix hit's
+   last logits through attached pages and the chunk forward equal to the
+   same split without the cache and the whole prompt's chunk forward
+   equal to a cold forward (bit for bit; the prefix path against the
+   cold forward logged), and every page free after a forced clear; then
+   the walls of a whole prefill at bucket 1024 and a 256-token chunk at
+   start 512, captured and eager, and the device time of the captured
+   chunk's whole-row gather;
    then the host time of one adapted projection (hook, wrapper and
    launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, each replayed from its graph and run
-   eagerly, one prefill forward, one chunk prefill forward of the
-   serve-prefix engine (wgmma flash at sq < sk, no SDPA kernel), and one
-   training step (forward +
+   eagerly, a whole prefill at bucket 1024 and a 256-token chunk at start
+   512 on the serve-prefix engine, each replayed from its graph and run
+   eagerly (wgmma flash, no SDPA kernel; idle share against phase 6c's
+   walls), and one training step (forward +
    backward, then the optimizer update, each profiled); each decode
    round must run the split-context paged kernels and RMSNorm and not
    the first design's `paged_attn_kernel` (the banked ones also the
    cluster adapter kernel and not the first design's
-   `adapter_matmul_kernel`), the prefill the wgmma forward kernel, the
+   `adapter_matmul_kernel`), the prefills the wgmma forward kernel, the
    training step the wgmma forward, dq and dk/dv kernels, and its update
    window (phase 5b's optimizer, then phase 5's) the multi-tensor Adam
    kernel (5b's also the sum of squares), its device ms logged beside
@@ -197,6 +214,9 @@ WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
 # 256-token chunk after a 512-row prefix and after 768 rows, a 64-token
 # suffix after 512, and an 8-token one
 CHUNK_SHAPES = ((256, 768), (256, 1024), (64, 576), (8, 520))
+# the rows of a slot of the serve engines (max_length): the captured chunk
+# prefill gathers them all and attends to the first start + sq
+SLOT_ROWS = 1024
 # the device kernels of one paged_attention call
 PAGED_KERNELS = ('paged_attn_split_kernel', 'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
@@ -513,6 +533,35 @@ def kernel_cases() -> list:
                     F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=causal_lower_right(sq, sk)),
                 nbytes(q, k, v, q), 4 * 128 * 32 * live_pairs(sq, sk, True))
+
+    # the same shapes as the captured chunk prefill calls them: sq queries
+    # over the slot's whole 1024-row K/V buffer, the key count sk read
+    # from device memory (seqused_k); the rows past it are NaN, so a
+    # kernel that read one would fail the check. The bytes moved are the
+    # rows the count covers; the library call is SDPA on them (a view)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (sq, sk), hkv in itertools.product(CHUNK_SHAPES, (32, 8)):
+            q = _randn((1, sq, 32, 128), dtype, gen)
+            k = _randn((1, SLOT_ROWS, hkv, 128), dtype, gen)
+            v = _randn((1, SLOT_ROWS, hkv, 128), dtype, gen)
+            k[:, sk:] = float('nan')
+            v[:, sk:] = float('nan')
+            used = torch.tensor([sk], dtype=torch.int32, device=DEV)
+            qt, kt, vt = (t.transpose(1, 2) for t in
+                          (q, k[:, :sk].repeat_interleave(32 // hkv, dim=2),
+                           v[:, :sk].repeat_interleave(32 // hkv, dim=2)))
+            add('flash_attention_fwd',
+                f'flash {str(dtype)[6:]} seqused_k chunk sq={sq} sk={sk} of '
+                f'{SLOT_ROWS} rows H=32 HKV={hkv}', dtype,
+                lambda q=q, k=k, v=v, u=used: K.flash_attention_fwd(
+                    q, k, v, causal=True, seqused_k=u),
+                lambda q=q, k=k, v=v, u=used: K.attention_reference(
+                    q, k, v, causal=True, seqused_k=u),
+                lambda qt=qt, kt=kt, vt=vt, sq=sq, sk=sk:
+                    F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=causal_lower_right(sq, sk)),
+                nbytes(q, q, used) + 2 * sk * hkv * 128 * k.element_size(),
+                4 * 128 * 32 * live_pairs(sq, sk, True))
 
     # paged attention: decode shapes, 8 slots, context up to 1024, ps 16
     n, h, ps, p = 8, 32, 16, 64
@@ -906,9 +955,13 @@ def time_kernels(cases) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_consistency(cfg):
+    """The graph engine's greedy tokens equal a no-cache full recompute;
+    with a seeded sampling request added, its eager twin (decode and
+    prefill uncaptured) gives the same tokens."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.nlp import LlamaForCausalLM
-    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
+                                          SamplingParams)
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
     model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
@@ -934,6 +987,11 @@ def check_consistency(cfg):
                     f'{h.tokens} != full recompute {ref}')
     log(f'[consistency] 2 layers f32, {len(prompts)} requests x {n_new} '
         f'greedy tokens: paged engine == no-cache full recompute')
+    params = [SamplingParams(max_new_tokens=n_new, eos_token_id=-1)
+              for _ in prompts] + [SamplingParams(
+                  max_new_tokens=n_new, eos_token_id=-1, strategy=SAMPLING,
+                  temperature=0.8, top_p=0.9, seed=5)]
+    graph_equals_eager(eng, prompts + prompts[2:3], params, 'consistency')
     del eng, model
     torch.cuda.empty_cache()
 
@@ -968,17 +1026,21 @@ def check_adapter_consistency(cfg):
     ids = [None, 'ad0', 'ad1', 'ad0']
     sp = SamplingParams(max_new_tokens=16, eos_token_id=-1)
 
-    def tokens(adapter_ids, banked=True):
+    def tokens(adapter_ids, banked=True, graph=True):
         eng = InferenceEngine(
             model, num_slots=8, max_length=1024, decode_block=8,
             kv_page_size=16,
             adapter_bank=adapter_bank(model, 2, 2, 0.05) if banked else None)
+        eng._capture_decode = eng._capture_prefill = graph
         return [h.tokens for h in eng.generate_many(prompts, sp,
                                                     adapter_ids=adapter_ids)]
 
     base = tokens(None, banked=False)
     alone = {aid: tokens(aid) for aid in ('ad0', 'ad1')}
     mixed = tokens(ids)
+    if tokens(ids, graph=False) != mixed:
+        raise AssertionError('adapter consistency: the mixed wave on the '
+                             'eager twin differs from the graph engine')
     for j, aid in enumerate(ids):
         want = base[j] if aid is None else alone[aid][j]
         if mixed[j] != want:
@@ -992,8 +1054,9 @@ def check_adapter_consistency(cfg):
         raise AssertionError('adapter consistency: no adapter changed a '
                              'token')
     log(f'[adapter-consistency] 2 layers f32, mixed wave {ids} x 16 greedy '
-        f'tokens == each adapter alone, base == bank-less engine; '
-        f'{changed} of {2 * len(prompts)} adapted requests differ from base')
+        f'tokens == each adapter alone == the eager twin\'s, base == '
+        f'bank-less engine; {changed} of {2 * len(prompts)} adapted '
+        f'requests differ from base')
     del model
     torch.cuda.empty_cache()
 
@@ -1341,13 +1404,15 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
                base: int) -> dict:
     """One counted run of the 12 requests on `eng` after a warm-up: one
     short request (a graph engine captures its decode sub-step at its
-    first round, and the capture empties the allocator's cache), then
-    the same requests for one token each (every prefill bucket's first
-    cuBLAS plans, kernel shapes and cached blocks). Each of `kernels`'
-    launch counts is read around the counted run (graph replays counted)
-    and required to be > 0. Every request must finish with 32 tokens; a
-    graph engine must have captured its sub-step once, an eager one
-    never. Peak memory is counted above `base` bytes."""
+    first round, and a capture empties the allocator's cache), then
+    the same requests for one token each (a graph engine captures each
+    prefill bucket's graph; every bucket's first cuBLAS plans, kernel
+    shapes and cached blocks), so the counted run captures nothing. Each
+    of `kernels`' launch counts is read around the counted run (graph
+    replays counted) and required to be > 0. Every request must finish
+    with 32 tokens; a graph engine must have captured its decode
+    sub-step and each prefill bucket it used once, an eager one nothing.
+    Peak memory is counted above `base` bytes."""
     from paddle_tpu_torch.ops import kernels as K
     from paddle_tpu_torch.serving import FINISHED, SamplingParams
     vocab = eng.model.config.vocab_size
@@ -1374,9 +1439,11 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
     if missing:
         raise AssertionError(f'{tag}: kernels never launched on the main '
                              f'path: {missing}')
-    want_traces = {'paged_decode_step': 1} if eng._capture_decode else {}
+    want_traces = expected_traces(eng, {
+        ('whole', eng.pool.bucket_for(len(p)))
+        for p in prompts + [prompts[0][:8]]})
     if st['traces'] != want_traces:
-        raise AssertionError(f'{tag}: decode captures {st["traces"]}, want '
+        raise AssertionError(f'{tag}: captures {st["traces"]}, want '
                              f'{want_traces}')
     ttft = sorted(h.ttft for h in handles)
     res = {
@@ -1403,23 +1470,50 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
         f'{res["ttft_max_s"]:.3f} s, peak device memory '
         f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
-        f'before the engine was built; decode captures {st["traces"]}')
+        f'before the engine was built; captures {st["traces"]}')
     log(f'[{tag}] kernel launches on this run: {launches}')
     return res
 
 
 def eager_twin(eng, **kw):
     """An engine with `eng`'s model, bank and settings (and `kw`) that runs
-    its decode sub-steps uncaptured: the eager reference of a graph
-    engine."""
+    its decode sub-steps and its prefills uncaptured: the eager
+    reference of a graph engine."""
     from paddle_tpu_torch.serving import InferenceEngine
     twin = InferenceEngine(eng.model, num_slots=eng.pool.num_slots,
                            max_length=eng.pool.max_length,
                            decode_block=eng.decode_block,
                            kv_page_size=eng.pool.page_size,
                            adapter_bank=eng.adapter_bank, **kw)
-    twin._capture_decode = False
+    twin._capture_decode = twin._capture_prefill = False
     return twin
+
+
+def graph_equals_eager(eng, prompts, params, tag: str, **kw) -> list:
+    """Serve `prompts` on `eng` (decode and prefill captured) and on its
+    eager twin (with `kw`); every request's tokens must be equal.
+    Returns them."""
+    got = [h.tokens for h in eng.generate_many(prompts, params)]
+    want = [h.tokens for h in eager_twin(eng, **kw).generate_many(
+        prompts, params)]
+    if got != want:
+        raise AssertionError(f'{tag}: graph engine {got} != eager twin '
+                             f'{want}')
+    log(f'[{tag}] graph engine (captures {eng.stats()["traces"]}) == its '
+        f'eager twin: {len(prompts)} requests, sampling included')
+    return got
+
+
+def expected_traces(eng, buckets) -> dict:
+    """The `traces` of `eng` after its prefills ran at `buckets`
+    ({(kind, bucket)}): one capture of the decode sub-step and one per
+    prefill bucket and kind (the JAX engine's names), or none at all for
+    what runs eagerly."""
+    out = {'paged_decode_step': 1} if eng._capture_decode else {}
+    if eng._capture_prefill:
+        out.update({(f'paged_chunk_prefill_{b}' if kind == 'chunk'
+                     else f'paged_prefill_{b}'): 1 for kind, b in buckets})
+    return out
 
 
 def serve_eager(eng, res, prompts, params, adapter_ids, kernels,
@@ -1575,30 +1669,52 @@ def prefix_trace(vocab: int, rng) -> tuple:
 
 
 def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
-    """The warm-up prompt alone (it seeds the cache, and a graph engine
-    captures its decode sub-step), then the counted run of `prompts`,
-    stepped by hand to read the pool's peak of used pages; launches of
-    SERVE_KERNELS and the flash forward's calls by (sq, sk) are read
-    around it. Every request must finish with 32 tokens in range."""
+    """The warm-up prompt alone (it seeds the cache), then the trace once
+    (a graph engine captures the prefill buckets the trace uses, and a
+    capture's warm-up launches count), then a fresh cache and the
+    warm-up prompt again, so that the counted run starts from the same
+    state, runs the same buckets and captures nothing. The counted run
+    of `prompts` is stepped by hand to read the pool's peak of used
+    pages; launches of SERVE_KERNELS are read around it, and the flash
+    forward must have launched once per layer of every whole prefill and
+    chunk (graph replays counted). Every request must finish with 32
+    tokens in range, and `traces` must name exactly the decode sub-step
+    and the (kind, bucket) of every prefill the runs ran, for what the
+    engine captures."""
     from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.serving import FINISHED, SamplingParams
+    from paddle_tpu_torch.serving import (FINISHED, PagedPrefixCache,
+                                          SamplingParams)
     vocab = eng.model.config.vocab_size
-    eng.generate_many([warm], SamplingParams(max_new_tokens=32,
-                                             eos_token_id=-1))
-    eng.reset_stats()
-    cache0 = eng.prefix_cache.stats() if eng.prefix_cache else {}
-    cow0 = eng.pool.stats()['cow_splits']
-    torch.cuda.reset_peak_memory_stats()
-    shapes = collections.Counter()
-    flash = K.flash_attention_fwd
+    sp_warm = SamplingParams(max_new_tokens=32, eos_token_id=-1)
+    buckets = collections.Counter()
+    run_prefill = eng._run_prefill
 
-    def counted(q, k, v, *a, **kw):
-        shapes[(q.shape[1], k.shape[1])] += 1
-        return flash(q, k, v, *a, **kw)
+    def recorded(slot, kind, window, bucket, **staged):
+        buckets[(kind, bucket)] += 1
+        run_prefill(slot, kind, window, bucket, **staged)
 
-    K.reset_launch_counts()
-    K.flash_attention_fwd = counted
+    eng._run_prefill = recorded
     try:
+        t0 = time.perf_counter()
+        eng.generate_many([warm], sp_warm)
+        eng.generate_many(prompts, params)
+        warm_s = time.perf_counter() - t0
+        capture_s = eng.stats()['capture_seconds']
+        if eng.prefix_cache is not None:
+            # a fresh cache: clear() leaves the trie's bare nodes behind,
+            # which change later inserts and so the hits
+            eng.prefix_cache.clear(force=True)
+            eng.prefix_cache = PagedPrefixCache(
+                eng.pool, PREFIX_OPTS['prefix_cache'])
+        eng.generate_many([warm], sp_warm)
+        traces = eng.stats()['traces']
+        warm_buckets = set(buckets)
+        buckets.clear()
+        eng.reset_stats()
+        cache0 = eng.prefix_cache.stats() if eng.prefix_cache else {}
+        cow0 = eng.pool.stats()['cow_splits']
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         handles = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
         peak_pages = 0
@@ -1607,7 +1723,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
             peak_pages = max(peak_pages, eng.pool.used_page_count)
         wall = time.perf_counter() - t0
     finally:
-        K.flash_attention_fwd = flash
+        del eng._run_prefill
     launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
     for h in handles:
         if h.status != FINISHED or len(h.tokens) != 32 or \
@@ -1619,10 +1735,22 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         raise AssertionError(f'{tag}: kernels never launched on the main '
                              f'path: {missing}')
     st = eng.stats()
-    want_traces = {'paged_decode_step': 1} if eng._capture_decode else {}
-    if st['traces'] != want_traces:
-        raise AssertionError(f'{tag}: decode captures {st["traces"]}, want '
+    want_traces = expected_traces(eng, warm_buckets)
+    if traces != want_traces or st['traces'] != traces:
+        raise AssertionError(f'{tag}: captures {traces} before the counted '
+                             f'run and {st["traces"]} after it, want '
                              f'{want_traces}')
+    if not set(buckets) <= warm_buckets:
+        raise AssertionError(f'{tag}: the counted run ran prefills at '
+                             f'{sorted(set(buckets) - warm_buckets)}, which '
+                             f'the warm-up did not')
+    layers = eng.model.config.num_hidden_layers
+    want_flash = layers * (st['prefills'] + st['chunk_rounds'])
+    if launches['flash_attention_fwd'] != want_flash:
+        raise AssertionError(
+            f'{tag}: {launches["flash_attention_fwd"]} flash launches, want '
+            f'{layers} x ({st["prefills"]} prefills + {st["chunk_rounds"]} '
+            f'chunks) = {want_flash}')
     cache = st.get('prefix_cache', {})
     ttft = sorted(h.ttft for h in handles)
     res = {
@@ -1643,7 +1771,8 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         'ttft_p50_s': ttft[len(ttft) // 2],
         'peak_pages': peak_pages,
         'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
-        'launches': launches, 'flash_shapes': dict(sorted(shapes.items())),
+        'launches': launches, 'buckets': dict(sorted(buckets.items())),
+        'capture_s': capture_s, 'warm_s': warm_s,
         'tokens': [h.tokens for h in handles],
     }
     log(f'[{tag}] {len(handles)} requests in {wall:.2f} s: prefix hits '
@@ -1657,8 +1786,10 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         f'peak {peak_pages} of {eng.pool.num_pages - 1} pages, requeued '
         f'{res["requeued"]}, peak device memory {res["peak_mem_gb"]:.2f} GB '
         f'above {base / 1e9:.2f} GB')
-    log(f'[{tag}] kernel launches {launches}; flash forward calls by '
-        f'(sq, sk) {res["flash_shapes"]}')
+    log(f'[{tag}] kernel launches {launches} (flash = {layers} x every '
+        f'prefill and chunk); prefills by (kind, bucket) {res["buckets"]}; '
+        f'captures {traces} in {capture_s:.2f} s of the {warm_s:.2f} s '
+        f'warm-up')
     return res
 
 
@@ -1754,8 +1885,9 @@ def check_prefix_consistency(cfg) -> None:
     prompts = [trace[i] for i in (0, 3, 5, 6, 11)]
     sp = SamplingParams(max_new_tokens=16, eos_token_id=-1)
     runs = []
-    for opts in (PREFIX_OPTS, {}):
+    for opts, graph in ((PREFIX_OPTS, True), (PREFIX_OPTS, False), ({}, True)):
         eng = InferenceEngine(model, **PREFIX_ENGINE, **opts)
+        eng._capture_decode = eng._capture_prefill = graph
         eng.generate_many([warm], sp)
         runs.append([h.tokens for h in eng.generate_many(prompts, sp)])
         st = eng.stats()
@@ -1776,26 +1908,81 @@ def check_prefix_consistency(cfg) -> None:
                 seq.append(int(model(torch.tensor([seq], device=DEV))
                                [0, -1].argmax()))
             ref = seq[len(prompt):]
-            if not runs[0][j] == runs[1][j] == ref:
+            if not runs[0][j] == runs[1][j] == runs[2][j] == ref:
                 raise AssertionError(
                     f'prefix consistency: prompt len {len(prompt)}: '
-                    f'prefix/chunk engine {runs[0][j]}, cold engine '
-                    f'{runs[1][j]}, full recompute {ref}')
+                    f'prefix/chunk engine {runs[0][j]}, its eager twin '
+                    f'{runs[1][j]}, cold engine {runs[2][j]}, full '
+                    f'recompute {ref}')
     log(f'[prefix-consistency] 2 layers f32, {len(prompts)} requests x 16 '
         f'greedy tokens (suffix hits of 3/44/380 tokens, a cold 900-token '
         f'prompt in chunks, a full hit with its COW split): prefix/chunk '
-        f'engine == cold engine == no-cache full recompute')
+        f'engine (prefill captured per bucket) == its eager twin == cold '
+        f'engine == no-cache full recompute')
     del model
     torch.cuda.empty_cache()
 
 
+# the serve-prefix engines: (tag, options, decode captured, prefill
+# captured). 'eager-prefill' is the configuration before the prefill was
+# captured (decode graph, eager prefill), beside the same engine now
+PREFIX_RUNS = (
+    ('serve-prefix', PREFIX_OPTS, True, True),
+    ('serve-prefix eager', PREFIX_OPTS, False, False),
+    ('serve-prefix eager-prefill', PREFIX_OPTS, True, False),
+    ('serve-prefix cold', {}, True, True),
+    ('serve-prefix cold eager-prefill', {}, True, False))
+# the prefills phase 7 profiles, with their walls taken here:
+# (kind, bucket, start)
+PROFILED_PREFILLS = (('whole', 1024, 0), ('chunk', 256, 512))
+
+
+def reserved_gb() -> float:
+    """The device memory PyTorch holds after a collection and the release
+    of its cached free blocks (a graph's pool stays held), GB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def prefill_wall(eng, kind: str, bucket: int, start: int = 0,
+                 reps: int = 5) -> float:
+    """Median host seconds of one prefill of `eng` of `kind` at `bucket`
+    (a chunk at `start`, its floor there) into a fresh slot through the
+    engine's own call (staging, the step, a device sync), after one
+    untimed call (a graph engine captures the bucket there if it has
+    not)."""
+    pool = eng.pool
+    slot = pool.alloc()
+    try:
+        pool.reserve(slot, start + bucket)
+        ids = np.random.RandomState(bucket).randint(
+            3, eng.model.config.vocab_size, (bucket,))
+        staged = dict(start=start, floor=start) if kind == 'chunk' else {}
+        walls = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            eng._run_prefill(slot, kind, ids, bucket, **staged)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        pool.free(slot)
+    return sorted(walls[1:])[reps // 2]
+
+
 def serve_prefix(served) -> dict:
     """Phase 6's Llama-2-7B behind the serve-prefix engine (PREFIX_ENGINE
-    + PREFIX_OPTS, graph), its eager twin and a cold twin (no cache, no
-    chunking), each after the warm-up prompt alone; one request samples
-    (seeded). Gates: graph == eager tokens, prefix hits >= 13, one COW
-    split, flash launched at sq < sk, the prefix path's logits
-    (`prefix_logits`), and every page free after a forced clear. The cold twin's numbers are logged beside."""
+    + PREFIX_OPTS, decode and prefill captured), its eager twin, the
+    same engine with its prefill eager (the configuration before the
+    prefill was captured) and two cold twins (no cache, no chunking;
+    prefill captured and eager), each warmed as `_run_prefix` says; one
+    request samples (seeded). Gates: graph == eager == eager-prefill
+    tokens, prefix hits >= 13, one COW split, the flash forward once per
+    layer of every prefill and chunk, a chunk bucket run, the prefix
+    path's logits (`prefix_logits`), and every page free after a forced
+    clear. Logs each engine beside the cold twins, the device memory
+    each engine holds after its captures, and the walls of the prefills
+    phase 7 profiles, captured and eager."""
     from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
                                           SamplingParams)
     model = served['engine'].model
@@ -1807,32 +1994,35 @@ def serve_prefix(served) -> dict:
                                strategy=SAMPLING, temperature=0.8,
                                top_p=0.9, seed=11)
     runs = {}
-    for tag, opts, graph in (('serve-prefix', PREFIX_OPTS, True),
-                             ('serve-prefix eager', PREFIX_OPTS, False),
-                             ('serve-prefix cold', {}, True)):
-        torch.cuda.synchronize()
+    for tag, opts, decode_graph, prefill_graph in PREFIX_RUNS:
+        r0 = reserved_gb()
         base = torch.cuda.memory_allocated()
         eng = InferenceEngine(model, **PREFIX_ENGINE, **opts)
-        eng._capture_decode = graph
-        runs[tag] = _run_prefix(eng, warm, prompts, params, tag, base)
-        runs[tag]['engine'] = eng
-    res, eager, cold = (runs[t] for t in ('serve-prefix',
-                                          'serve-prefix eager',
-                                          'serve-prefix cold'))
-    for j, (a, b) in enumerate(zip(res['tokens'], eager['tokens'])):
-        if a != b:
-            raise AssertionError(f'serve-prefix: request {j}: graph {a} != '
-                                 f'eager {b}')
+        eng._capture_decode, eng._capture_prefill = decode_graph, prefill_graph
+        runs[tag] = run = _run_prefix(eng, warm, prompts, params, tag, base)
+        run['reserved_gb'] = reserved_gb() - r0
+        log(f'[{tag}] device memory the engine holds after its captures '
+            f'(reserved): {run["reserved_gb"]:.3f} GB (its KV pool: '
+            f'{eng.pool.pool_bytes / 1e9:.3f} GB)')
+        if 'cold' not in tag:
+            run['engine'] = eng
+        del eng      # a cold twin goes here, before the next baseline
+    res, eager, parent = (runs[t] for t in (
+        'serve-prefix', 'serve-prefix eager', 'serve-prefix eager-prefill'))
+    for j, (a, b, c) in enumerate(zip(res['tokens'], eager['tokens'],
+                                      parent['tokens'])):
+        if not a == b == c:
+            raise AssertionError(f'serve-prefix: request {j}: graph {a}, '
+                                 f'eager {b}, eager prefill {c}')
     if res['hits'] < PREFIX_MIN_HITS or res['cow_splits'] != 1:
         raise AssertionError(f'serve-prefix: {res["hits"]} prefix hits '
                              f'(want >= {PREFIX_MIN_HITS}), '
                              f'{res["cow_splits"]} COW splits (want 1)')
-    chunked = {k: n for k, n in res['flash_shapes'].items() if k[0] < k[1]}
-    if not chunked:
-        raise AssertionError('serve-prefix: the flash forward never ran at '
-                             'sq < sk')
+    if not any(kind == 'chunk' for kind, _ in res['buckets']):
+        raise AssertionError('serve-prefix: no chunk prefill ran')
+    cold = runs['serve-prefix cold']
     same = sum(a == b for a, b in zip(res['tokens'], cold['tokens']))
-    log(f'[serve-prefix] graph == eager: the tokens of all '
+    log(f'[serve-prefix] graph == eager == eager prefill: the tokens of all '
         f'{len(prompts)} requests are equal (sampling included); '
         f'{same} of {len(prompts)} equal the cold twin\'s (bf16: a '
         f'suffix chunk sums its projections in another order than a whole '
@@ -1842,15 +2032,46 @@ def serve_prefix(served) -> dict:
                      ('prefill_tokens', 'd'), ('prefill_s', '.3f'),
                      ('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
                      ('ttft_p50_s', '.3f'), ('ttft_max_s', '.3f'),
-                     ('peak_pages', 'd'), ('wall_s', '.3f')):
-        log(f'[serve-prefix]   {key}: prefix/chunk {res[key]:{fmt}}, eager '
-            f'{eager[key]:{fmt}}, cold twin {cold[key]:{fmt}}')
+                     ('peak_pages', 'd'), ('wall_s', '.3f'),
+                     ('capture_s', '.3f'), ('reserved_gb', '.3f')):
+        log(f'[serve-prefix]   {key}: ' + ', '.join(
+            f'{tag[13:] or "prefix/chunk"} {run[key]:{fmt}}'
+            for tag, run in runs.items()))
+    for tag in ('serve-prefix', 'serve-prefix eager-prefill'):
+        for cold_tag in ('serve-prefix cold', 'serve-prefix cold '
+                                              'eager-prefill'):
+            run, c = runs[tag], runs[cold_tag]
+            log(f'[serve-prefix]   {tag[13:] or "prefix/chunk"} against '
+                f'{cold_tag[13:]}: prefill wall {run["prefill_s"]:.3f} vs '
+                f'{c["prefill_s"]:.3f} s, TTFT mean {run["ttft_mean_s"]:.3f}'
+                f' vs {c["ttft_mean_s"]:.3f} s (p50 {run["ttft_p50_s"]:.3f} '
+                f'vs {c["ttft_p50_s"]:.3f}, max {run["ttft_max_s"]:.3f} vs '
+                f'{c["ttft_max_s"]:.3f}), decode '
+                f'{run["decode_tok_per_s"]:.1f} vs '
+                f'{c["decode_tok_per_s"]:.1f} tok/s')
     eng = res['engine']
     res['logits'] = prefix_logits(eng, prompts[3])
-    for tag in ('serve-prefix', 'serve-prefix eager'):
+    for tag in ('serve-prefix', 'serve-prefix eager',
+                'serve-prefix eager-prefill'):
         pages_free_after_clear(runs[tag]['engine'], tag)
-    res['eager'], res['cold'] = eager, cold
-    release(eager, cold)
+    # before any profiling: the walls phase 7 sets its device times beside
+    res['walls'] = {}
+    for kind, bucket, start in PROFILED_PREFILLS:
+        for label, e in (('captured', eng), ('eager', parent['engine'])):
+            res['walls'][(kind, bucket, label)] = w = prefill_wall(
+                e, kind, bucket, start)
+            log(f'[serve-prefix] {kind} prefill at bucket {bucket}'
+                + (f' (start {start})' if kind == 'chunk' else '')
+                + f', {label}: wall {w * 1e3:.2f} ms (median of 5)')
+    ms = whole_row_gather_ms(eng)
+    layers = model.config.num_hidden_layers
+    log(f'[serve-prefix] the captured chunk\'s whole-row gather: '
+        f'{ms:.4f} ms of device time per layer (K and V, '
+        f'{eng.pool.max_length} rows), {layers * ms:.3f} ms per chunk '
+        f'forward of {layers} layers')
+    res['gather_ms'] = ms
+    res['eager'], res['eager_prefill'] = eager, parent
+    release(eager)
     return res
 
 
@@ -1954,8 +2175,8 @@ def profile_serve(served, adapted, prefixed) -> None:
     """On the serve and banked engines, graph and eager, after their
     counted runs: time one decode round of each with every slot busy (no
     profiler yet; the banked engines' requests under the serve-adapters
-    mix), then profile the next round of each, and one prefill forward of
-    the longest prompt's bucket. Every round must run the split-context
+    mix), then profile the next round of each, then the prefills of
+    `profile_prefills`. Every round must run the split-context
     paged kernels and not the first design's `paged_attn_kernel`; the
     banked ones the cluster adapter kernel and not the first design's
     `adapter_matmul_kernel`. The graph rounds' kernels are read from the
@@ -1995,57 +2216,68 @@ def profile_serve(served, adapted, prefixed) -> None:
             require_kernels(prof, ('adapter_sgmv_kernel',), label,
                             absent=('adapter_matmul_kernel',))
         e.run()
-    eng = served['engine']
-    bucket = eng.pool.bucket_for(len(prompts[1]))
-    ids = torch.zeros((1, bucket), dtype=torch.int64, device=DEV)
-    ids[0, :len(prompts[1])] = torch.tensor(prompts[1], device=DEV)
-    with torch.inference_mode():
-        eng.model.prefill_kv(ids)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.model.prefill_kv(ids)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    _breakdown([(prof, None)], wall, f'prefill forward, bucket {bucket} '
-                                     f'({len(prompts[1])} prompt tokens)')
-    require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'prefill forward')
-    profile_chunk(prefixed['engine'])
+    profile_prefills(prefixed)
 
 
-def profile_chunk(eng, start: int = 512, bucket: int = 256) -> None:
-    """One chunk prefill forward of the serve-prefix engine (a 256-token
-    bucket at rows [512, 768) of a fresh slot, the prefix cache's page
-    boundary below it), profiled: it must run the wgmma flash kernel and
-    no kernel of PyTorch's own attention (flash, memory-efficient or
-    cuDNN SDPA)."""
+def profile_prefills(prefixed) -> None:
+    """Each of PROFILED_PREFILLS (a whole prefill at bucket 1024, a
+    256-token chunk at start 512 over its slot's 1024 rows) on the
+    serve-prefix engine, replayed from its captured graph, and on the
+    same engine with its prefill eager, each profiled once into a fresh
+    slot: device time by group beside the wall that phase 6c measured
+    before any profiling (the idle share is taken against it; the
+    profiled call's own wall is logged too). Each must run the wgmma
+    flash kernel and none of PyTorch's own attention (flash,
+    memory-efficient or cuDNN SDPA)."""
     from torch.profiler import ProfilerActivity, profile
+    for kind, bucket, start in PROFILED_PREFILLS:
+        for label, eng in (('captured', prefixed['engine']),
+                           ('eager', prefixed['eager_prefill']['engine'])):
+            pool = eng.pool
+            slot = pool.alloc()
+            try:
+                pool.reserve(slot, start + bucket)
+                ids = np.random.RandomState(bucket + 1).randint(
+                    3, eng.model.config.vocab_size, (bucket,))
+                staged = (dict(start=start, floor=start)
+                          if kind == 'chunk' else {})
+                eng._run_prefill(slot, kind, ids, bucket, **staged)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    eng._run_prefill(slot, kind, ids, bucket, **staged)
+                    wall_prof = time.perf_counter() - t0
+            finally:
+                pool.free(slot)
+            what = (f'{kind} prefill, bucket {bucket}'
+                    + (f' at start {start} (sq {bucket}, key count '
+                       f'{start + bucket} of {pool.max_length} rows)'
+                       if kind == 'chunk' else '') + f', {label}')
+            busy = _breakdown([(prof, None)],
+                              prefixed['walls'][(kind, bucket, label)], what)
+            log(f'[profile]   (the profiled call took {wall_prof * 1e3:.2f} '
+                f'ms, idle share {1 - busy / (wall_prof * 1e3):.3f} of it; '
+                f'the idle share above uses the unprofiled wall of phase '
+                f'6c)')
+            require_kernels(prof, ('flash_fwd_wgmma_kernel',), what,
+                            absent=('pytorch_flash', 'fmha', 'cudnn'))
+
+
+def whole_row_gather_ms(eng) -> float:
+    """Device ms of the captured chunk's whole-row gather for one layer:
+    K and V of every row of one slot's table (`gather_rows` over
+    max_length rows), queued behind a GPU sleep."""
+    from paddle_tpu_torch.nlp import gather_rows
     pool = eng.pool
     slot = pool.alloc()
     try:
-        pool.reserve(slot, start + bucket)
+        pool.reserve(slot, pool.max_length)
         table = torch.from_numpy(pool.page_table[slot:slot + 1]).to(DEV)
-        ids = torch.randint(3, eng.model.config.vocab_size, (1, bucket),
-                            device=DEV)
-
-        def chunk():
-            eng.model.prefill_kv(ids, start=start, kv_pages=pool.pages,
-                                 table=table, floor=start)
-        with torch.inference_mode():
-            chunk()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                chunk()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+        k_pages, v_pages = pool.pages[0]
+        ms = timed(lambda: (gather_rows(k_pages, table),
+                            gather_rows(v_pages, table)))[0]
     finally:
         pool.free(slot)
-    _breakdown([(prof, None)], wall, f'chunk prefill forward, bucket '
-                                     f'{bucket} at start {start} (sq '
-                                     f'{bucket} < sk {start + bucket})')
-    require_kernels(prof, ('flash_fwd_wgmma_kernel',), 'chunk prefill',
-                    absent=('pytorch_flash', 'fmha', 'cudnn'))
+    return ms
 
 
 def update_bound_ms(opt, named) -> float:
@@ -2208,7 +2440,7 @@ def main() -> int:
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res, adapted, prefixed)
-    release(res, adapted, prefixed)
+    release(res, adapted, prefixed, prefixed['eager_prefill'])
     profile_train(pretrained['step'], trained['batch'],
                   pretrained['step_s'], 'Llama 2 pretraining optimizer')
     pretrained['step'].optimizer._slots.clear()

@@ -45,6 +45,16 @@
 // the two stay within chip_smoke.py's bf16 limits
 // (tests/test_torch_smoke.py checks that order on the CPU).
 //
+// Key counts from device memory: with a non-null `sk_dev` (int32 [B], in
+// the sense of FlashAttention's seqused_k) batch b attends to its first
+// sk_dev[b] keys and aligns its causal mask at sk_dev[b] - Sq; the host
+// `sk` is then the K/V buffer's row count and an upper limit. Keys at or
+// past the count are never loaded (the tile loads zero-fill them as they
+// do past `sk`). The grid depends on Sq only, so a captured CUDA graph
+// replays one launch at any count its device array holds: the serving
+// engine's captured chunk prefill attends over the slot's whole gathered
+// row with sk_dev = start + Sq.
+//
 // f32: flash_fwd_kernel, fp32 FMAs on the CUDA cores (the port's first
 // design, kept for f32 only): the f32 consistency checks hold it to a
 // relative 1e-5, which TF32 tensor-core products (10-bit mantissa)
@@ -65,7 +75,8 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
-  float* lse;  // [B, H, Sq] or null
+  float* lse;          // [B, H, Sq] or null
+  const int* sk_dev;   // [B] key counts <= sk, or null (every batch: sk)
   int sq, sk, h, hkv;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -85,6 +96,11 @@ constexpr int kWThreads = 256;
 constexpr uint32_t kWQBytes = kWBQ * kD * 2;
 constexpr uint32_t kWKVBytes = kWBK * kD * 2;
 constexpr size_t kWSmemBytes = kWQBytes + 4 * kWKVBytes + 1024;
+
+// batch b's key count: sk_dev[b], or the host sk
+__device__ __forceinline__ int keys_of(const FlashArgs& a, int b) {
+  return a.sk_dev != nullptr ? a.sk_dev[b] : a.sk;
+}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -108,7 +124,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int b = blockIdx.z;
   const int hk = h / (a.h / a.hkv);
   const int q0 = qt * kWBQ;
-  const int offset = a.sk - a.sq;              // bottom-right causal alignment
+  const int sk = keys_of(a, b);
+  const int offset = sk - a.sq;                // bottom-right causal alignment
   const auto* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb +
                    h * a.q_sh;
   const auto* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb +
@@ -123,13 +140,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int row0 = qw + warp * 16 + (lane >> 2);  // this thread: row0, +8
   const int col = 2 * (lane & 3);
 
-  int n_kt = (a.sk + kWBK - 1) / kWBK;
+  int n_kt = (sk + kWBK - 1) / kWBK;
   if (a.causal) n_kt = min(n_kt, (q0 + kWBQ - 1 + offset) / kWBK + 1);
-  const int wg_last_key = a.causal ? qw + 63 + offset : a.sk - 1;
+  const int wg_last_key = a.causal ? qw + 63 + offset : sk - 1;
 
   load_tile_async<kWBQ, kWThreads>(q_s, qb, a.q_ss, q0, a.sq);
-  load_tile_async<kWBK, kWThreads>(kv_s, kb, a.k_ss, 0, a.sk);
-  load_tile_async<kWBK, kWThreads>(kv_s + kWKVBytes, vb, a.v_ss, 0, a.sk);
+  load_tile_async<kWBK, kWThreads>(kv_s, kb, a.k_ss, 0, sk);
+  load_tile_async<kWBK, kWThreads>(kv_s + kWKVBytes, vb, a.v_ss, 0, sk);
   cp_async_commit();
 
   float o[64];
@@ -145,9 +162,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const uint32_t v_s = k_s + kWKVBytes;
     if (kt + 1 < n_kt) {   // the next tile flies while this one computes
       const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kWKVBytes;
-      load_tile_async<kWBK, kWThreads>(nk, kb, a.k_ss, k0 + kWBK, a.sk);
+      load_tile_async<kWBK, kWThreads>(nk, kb, a.k_ss, k0 + kWBK, sk);
       load_tile_async<kWBK, kWThreads>(nk + kWKVBytes, vb, a.v_ss,
-                                       k0 + kWBK, a.sk);
+                                       k0 + kWBK, sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -165,7 +182,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_wait<0>();
       fence_regs(s);
 
-      const bool edge = k0 + kWBK > a.sk ||
+      const bool edge = k0 + kWBK > sk ||
                         (a.causal && k0 + kWBK - 1 > qw + offset);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -176,7 +193,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
           if (edge) {
             const int key = k0 + 8 * j + col + (e & 1);
             const int row = e < 2 ? row0 : row0 + 8;
-            if (key >= a.sk || (a.causal && key > row + offset))
+            if (key >= sk || (a.causal && key > row + offset))
               x = PTT_NEG_INF;
           }
           s[4 * j + e] = x;
@@ -297,7 +314,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int hk = h / (a.h / a.hkv);
   const int q0 = qt * kBQ;
-  const int offset = a.sk - a.sq;           // bottom-right causal alignment
+  const int sk = keys_of(a, b);
+  const int offset = sk - a.sq;             // bottom-right causal alignment
 
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
@@ -321,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  int n_kt = (a.sk + kBK - 1) / kBK;
+  int n_kt = (sk + kBK - 1) / kBK;
   if (a.causal) {
     // last key any row of this tile may see: q0 + BQ - 1 + offset
     const int last_key = q0 + kBQ - 1 + offset;
@@ -333,7 +351,7 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kt * kBK;
     __syncthreads();  // previous PV done with kv and ps
     load_tile(kv, kKVStride, kb + static_cast<int64_t>(k0) * a.k_ss, a.k_ss,
-              0, a.sk - k0);
+              0, sk - k0);
     __syncthreads();
 
     // S = Q K^T on a 4x4 micro-tile: rows ty + 16i, cols tx + 16j
@@ -363,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
         const int c = tx + 16 * j;
         const int kpos = k0 + c;
         float val = s[i][j] * a.scale;
-        if (kpos >= a.sk || (a.causal && kpos > qpos + offset))
+        if (kpos >= sk || (a.causal && kpos > qpos + offset))
           val = PTT_NEG_INF;
         ps[r * kPStride + c] = val;
       }
@@ -372,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // V into the shared K/V tile while each warp runs the row softmax
     load_tile(kv, kKVStride, vb + static_cast<int64_t>(k0) * a.v_ss, a.v_ss,
-              0, a.sk - k0);
+              0, sk - k0);
     for (int r = warp * (kBQ / 8); r < (warp + 1) * (kBQ / 8); ++r) {
       const float s0 = ps[r * kPStride + lane];
       const float s1 = ps[r * kPStride + lane + 32];
@@ -446,12 +464,13 @@ int launch_fma(const FlashArgs& a, int batch, cudaStream_t stream) {
 
 PTT_EXPORT int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int batch, int sq,
+    const void* sk_dev, int batch, int sq,
     int sk, int h, int hkv, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, int causal, int dtype, void* stream) {
   FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
+              static_cast<const int*>(sk_dev),
               sq,   sk,   h,    hkv,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
               v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

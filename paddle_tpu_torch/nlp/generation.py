@@ -3,9 +3,10 @@ of `paddle_tpu/nlp/generation.py:55-181`).
 
 The port keeps its KV in pages (`serving/kv_pool.py`): `update_kv_cache`
 writes new K/V rows into their pages through a page table and
-`gather_rows` reads a slot's rows back; `cached_forward` is the decode
-forward the engine calls, `chunk_forward` the forward of one prompt
-chunk against the rows already in a slot's pages.
+`gather_rows` reads a slot's rows back; `chunk_rows` builds a prompt
+chunk's attention rows; `cached_forward` is the decode forward the
+engine calls, `chunk_forward` the forward of one prompt chunk against
+the rows already in a slot's pages.
 """
 from __future__ import annotations
 
@@ -69,14 +70,38 @@ def update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 
 def gather_rows(pages: torch.Tensor, table_row: torch.Tensor,
-                length: int) -> torch.Tensor:
+                length=None) -> torch.Tensor:
     """Rows [0, length) of one slot as a contiguous [1, length, HKV, D]
     tensor, read from `pages` [num_pages, page_size, HKV, D] through the
-    slot's page table row `table_row` [1, P]."""
-    ps = pages.shape[1]
-    n = -(-int(length) // ps)
+    slot's page table row `table_row` [1, P]; with `length` None, every
+    row the table maps, [1, P * page_size, HKV, D] (a fixed shape: no
+    host value sizes it)."""
+    ps, p = pages.shape[1], table_row.shape[1]
+    n = p if length is None else -(-int(length) // ps)
     rows = pages[table_row[0, :n].long()]            # [n, ps, HKV, D]
     return rows.reshape(1, n * ps, *pages.shape[2:])[:, :length]
+
+
+def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+               start: torch.Tensor, floor=None) -> tuple:
+    """The attention rows of one prompt chunk (the JAX engine's
+    `_paged_chunk_prefill_fn`, `paddle_tpu/serving/engine.py:763-790`),
+    with no host value: the chunk's fresh K/V rows k/v [1, S, HKV, D] at
+    positions start + i (`start` a 0-d device tensor) are written into
+    the slot's pages through `table` [1, P] (rows whose page ends at or
+    below `floor` go to the null page), and returned is the slot's whole
+    table row gathered [1, P * page_size, HKV, D] with the fresh rows
+    written over [start, start + S), even below the floor: the chunk
+    attends its own rows, and rows [0, start) from the pages. Rows past
+    start + S hold whatever the pages hold; the caller attends to the
+    first start + S only (`flash_attention_fwd(seqused_k=)`).
+    start + S <= P * page_size."""
+    pos = offset_grid(start, k.shape[1])
+    k_all = gather_rows(k_pages, table).index_copy_(1, pos, k)
+    v_all = gather_rows(v_pages, table).index_copy_(1, pos, v)
+    update_kv_cache(k_pages, v_pages, k, v, table, start, floor)
+    return k_all, v_all
 
 
 def cached_forward(model):
@@ -99,9 +124,11 @@ def chunk_forward(model):
     layer writes their K/V rows into the slot's pages (rows whose page
     ends at or below `floor` go to the null page instead) and attends
     through the causal flash kernel over the slot's rows [0, start) read
-    from its pages followed by the chunk's own rows, so token i sees the
-    slot's rows <= start + i. `pages` is updated in place."""
+    from its pages followed by the chunk's own rows (`chunk_rows`), so
+    token i sees the slot's rows <= start + i. `start` and `floor` are
+    ints or 0-d tensors (on the model's device, the forward reads no
+    host value). `pages` is updated in place."""
     def fwd(ids, pages, start, table, floor=0):
-        return model(ids, position_offset=int(start), kv_pages=pages,
-                     table=table, floor=int(floor))
+        return model(ids, position_offset=start, kv_pages=pages,
+                     table=table, floor=floor)
     return fwd

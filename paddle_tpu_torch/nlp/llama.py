@@ -11,13 +11,17 @@ Three forward modes:
   one decode slot whose pending token sits at `position_offset[n]`: its
   K/V rows are written into the slot's pages and it attends through the
   paged-attention kernel to positions [0, position_offset[n]];
-- with `kv_pages`, a [1, P] `table` and a scalar (int) `position_offset`
-  `start`, the S tokens are one prompt chunk of one slot at positions
-  [start, start + S) (the engine's suffix and chunked prefill): their K/V
-  rows are written into the slot's pages (below `floor`, which guards
-  the shared prefix pages, to the null page) and they attend through the
-  causal flash kernel over the slot's rows [0, start) followed by their
-  own rows, bottom-right aligned, so token i sees positions <= start + i.
+- with `kv_pages`, a [1, P] `table` and a scalar `position_offset`
+  `start` (an int or a 0-d tensor), the S tokens are one prompt chunk of
+  one slot at positions [start, start + S) (the engine's suffix and
+  chunked prefill): their K/V rows are written into the slot's pages
+  (below `floor`, which guards the shared prefix pages, to the null
+  page) and they attend through the causal flash kernel over the slot's
+  whole gathered row, their own rows written at [start, start + S), with
+  the key count start + S read from device memory (`seqused_k`), bottom-
+  right aligned, so token i sees positions <= start + i. No host value
+  depends on `start`, so the chunk replays from a CUDA graph at any
+  start (`serving/prefill_graph.py`).
 
 Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
 (loss, logits) with the loss from `F.cross_entropy` (the fused CE
@@ -39,7 +43,7 @@ from ..nn.common_layers import Embedding, Linear
 from ..nn.layer import Layer
 from ..nn.norm import RMSNorm
 from ..ops import kernels
-from .generation import (as_offset, gather_rows, offset_grid,
+from .generation import (as_offset, chunk_rows, offset_grid,
                          update_kv_cache)
 
 
@@ -149,14 +153,10 @@ class LlamaAttention(Layer):
         elif offset.dim() == 0:
             if b != 1:
                 raise ValueError('a paged chunk forward takes one slot')
-            start = int(position_offset)   # a host int: sizes the gather
-            k_pages, v_pages = kv_pages
-            update_kv_cache(k_pages, v_pages, k, v, table, offset, floor)
-            k_all, v_all = k, v
-            if start:
-                k_all = torch.cat([gather_rows(k_pages, table, start), k], 1)
-                v_all = torch.cat([gather_rows(v_pages, table, start), v], 1)
-            out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True)
+            k_all, v_all = chunk_rows(*kv_pages, k, v, table, offset, floor)
+            used = (offset + s).to(torch.int32).reshape(1)
+            out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True,
+                                              seqused_k=used)
         else:
             if s != 1 or offset.dim() != 1:
                 raise ValueError('the paged decode forward takes one token '
@@ -297,9 +297,9 @@ class LlamaForCausalLM(Layer):
         """The serving engine's prefill, without logits: the causal
         no-cache forward of a prompt from position 0, returning each
         layer's (k, v) rows [B, S, HKV, D] (after RoPE) for the page pool;
-        or, with `kv_pages`, `table` [1, P] and an int `start`, the chunk
-        forward of the module docstring, which writes its rows into the
-        pages itself."""
+        or, with `kv_pages`, `table` [1, P] and a scalar `start` (an int or
+        a 0-d tensor), the chunk forward of the module docstring, which
+        writes its rows into the pages itself."""
         return self.llama(input_ids, position_offset=start,
                           kv_pages=kv_pages, table=table, floor=floor)[1]
 

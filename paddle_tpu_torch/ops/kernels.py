@@ -74,7 +74,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
     'rms_norm_fwd': [_P, _P, _P, _I, _I, _F, _I, _P],
-    'flash_attention_fwd': [_P] * 5 + [_I] * 5 + [_L] * 12
+    'flash_attention_fwd': [_P] * 6 + [_I] * 5 + [_L] * 12
     + [_F, _I, _I, _P],
     'flash_attention_bwd_dq': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
@@ -248,14 +248,31 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        causal: bool = False, return_lse: bool = False):
+                        causal: bool = False, return_lse: bool = False,
+                        seqused_k: Optional[torch.Tensor] = None):
     """Plain version, the JAX package's `_attention_xla` in torch.
 
     q [B, Sq, H, D], k/v [B, Sk, HKV, D]. GQA repeats kv heads as
     [HKV, G]; logits and softmax in fp32; the causal mask is aligned
     bottom-right; probabilities are cast to q.dtype before PV. A boolean
     mask keeps True entries, another mask is added to the logits. With
-    `return_lse` also returns the fp32 logsumexp of the logits [B, H, Sq]."""
+    `return_lse` also returns the fp32 logsumexp of the logits [B, H, Sq].
+    With `seqused_k` ([B] ints <= Sk, no mask) batch b attends to its
+    first seqused_k[b] keys only, causal aligned at seqused_k[b] - Sq:
+    each batch is this function on its sliced keys (rows past the count
+    are never read). Reads the counts on the host."""
+    if seqused_k is not None:
+        if mask is not None:
+            raise ValueError('attention_reference takes seqused_k or a '
+                             'mask, not both')
+        outs = [attention_reference(q[i:i + 1], k[i:i + 1, :n],
+                                    v[i:i + 1, :n], causal=causal,
+                                    return_lse=return_lse)
+                for i, n in enumerate(seqused_k.tolist())]
+        if return_lse:
+            return (torch.cat([o for o, _ in outs]),
+                    torch.cat([lse for _, lse in outs]))
+        return torch.cat(outs)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hkv != h:
@@ -280,15 +297,25 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False, return_lse: bool = False):
+                        causal: bool = False, return_lse: bool = False,
+                        seqused_k: Optional[torch.Tensor] = None):
     """Attention over [B, S, H, D] (strided; the last dim contiguous).
     With `return_lse` returns (out, lse) with the fp32 logsumexp of each
     row's scaled logits as [B, H, Sq], the backward's residual. bf16
     runs on the tensor-core kernel, which needs 16-byte-aligned base
-    pointers and strides; f32 on the FMA kernel."""
-    if _on_cpu(q, k, v):
+    pointers and strides; f32 on the FMA kernel.
+
+    `seqused_k`, an int32 [B] tensor on q's device, gives each batch its
+    key count (FlashAttention's seqused_k): batch b attends to keys
+    [0, seqused_k[b]) of the Sk-row K/V buffers, causal aligned at
+    seqused_k[b] - Sq. The kernel reads the counts on the device, so the
+    call waits for nothing and replays in a CUDA graph at any counts;
+    the caller keeps Sq <= seqused_k[b] <= Sk (causal) or
+    1 <= seqused_k[b] <= Sk."""
+    if _on_cpu(q, k, v, seqused_k):
         return attention_reference(q, k, v, causal=causal,
-                                   return_lse=return_lse)
+                                   return_lse=return_lse,
+                                   seqused_k=seqused_k)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     _require(q.dtype in (torch.float32, torch.bfloat16)
@@ -306,6 +333,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v),
              'bf16 flash kernel needs 16-byte-aligned q, k, v base pointers '
              'and strides')
+    _require(seqused_k is None
+             or (seqused_k.dtype == torch.int32
+                 and tuple(seqused_k.shape) == (b,)
+                 and seqused_k.is_contiguous()),
+             'flash seqused_k must be a contiguous int32 [B] tensor')
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -313,7 +345,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (out, lse) if return_lse else out
     lib, fn = _entry('flash_attention', 'flash_attention_fwd')
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, b, sq, sk, h, hkv,
+            lse.data_ptr() if return_lse else None,
+            None if seqused_k is None else seqused_k.data_ptr(),
+            b, sq, sk, h, hkv,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

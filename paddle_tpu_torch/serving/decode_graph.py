@@ -31,6 +31,10 @@ tensors (written in place) are fixed per engine, so it is captured once.
 A failed capture or replay raises; nothing falls back to the uncaptured
 body on the card. On the CPU nothing is captured and the same body is
 called directly, so the CPU tests run the code the card replays.
+
+`GraphStep` is what the sub-step shares with the captured prefill
+(`prefill_graph.PrefillStep`): the static buffers and their pinned
+staging, the capture and the replay.
 """
 from __future__ import annotations
 
@@ -86,7 +90,82 @@ def sample_rows(logits: torch.Tensor, temp: torch.Tensor,
     return out
 
 
-class DecodeStep:
+class GraphStep:
+    """A body over static device buffers, run directly or replayed from
+    a CUDA graph captured once (the shared part of `DecodeStep` and
+    `prefill_graph.PrefillStep`).
+
+    `spec` maps each buffer's name to its (shape, dtype): `buf[name]` on
+    `device`, refilled by `stage` from a pinned host twin. A subclass
+    names itself in `what` (for errors) and defines `_body()`, which
+    reads and writes only the buffers and tensors fixed per engine.
+    """
+
+    what = 'step'
+
+    def __init__(self, spec: dict, device: torch.device):
+        pin = device.type == 'cuda'
+        self.device = device
+        self.buf = {k: torch.zeros(s, dtype=d, device=device)
+                    for k, (s, d) in spec.items()}
+        self._host = {k: torch.zeros(s, dtype=d, pin_memory=pin)
+                      for k, (s, d) in spec.items()}
+        self.graph = None
+        self._out = None             # the body's output at capture
+        self._launches = None
+
+    def stage(self, **host) -> None:
+        """Copy each named host value into its pinned staging buffer and
+        from there into its device buffer (queued, no sync). Call only
+        once the copies of the previous staging have run (the caller's
+        fetch or sync waits for them)."""
+        for name, arr in host.items():
+            staged = self._host[name]
+            staged.numpy()[...] = arr
+            self.buf[name].copy_(staged, non_blocking=True)
+
+    def _body(self):
+        raise NotImplementedError
+
+    def capture(self, pool=None) -> None:
+        """Capture the body as a CUDA graph, its memory from `pool` (a
+        `torch.cuda.graph_pool_handle()` shared with other graphs, or
+        None for a pool of its own): a warm-up over zeroed buffers on a
+        side stream, then the capture on that stream."""
+        for t in self.buf.values():
+            t.zero_()        # the warm-up writes only the null page
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                self._body()
+            with kernels.CapturedLaunches() as held, \
+                    torch.cuda.graph(graph, pool=pool, stream=side):
+                out = self._body()
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f'capturing the {self.what} as a CUDA graph failed: '
+                f'{exc}') from exc
+        self.graph, self._out, self._launches = graph, out, held
+
+    def run_once(self):
+        """Queue the body once: a replay of the graph when captured (its
+        output is the capture's static output), else the body itself.
+        Waits for nothing."""
+        if self.graph is None:
+            return self._body()
+        try:
+            self.graph.replay()
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f'replaying the {self.what} graph failed: {exc}') from exc
+        self._launches.replayed()
+        return self._out
+
+
+class DecodeStep(GraphStep):
     """One engine's decode sub-step over static buffers on `device`.
 
     Args:
@@ -99,6 +178,8 @@ class DecodeStep:
             bank.
     """
 
+    what = 'decode sub-step'
+
     def __init__(self, fwd, pages, num_slots: int, table_width: int,
                  max_length: int, decode_block: int, device: torch.device,
                  adapter_arrays=None):
@@ -106,7 +187,6 @@ class DecodeStep:
         self._pages = pages
         self._max_len = int(max_length)
         self._arrays = adapter_arrays
-        self.device = device
         n = num_slots
         spec = {'tok': ((n,), torch.int64), 'pos': ((n,), torch.int64),
                 'active': ((n,), torch.bool),
@@ -115,26 +195,9 @@ class DecodeStep:
                 'topp': ((n,), torch.float32)}
         if adapter_arrays is not None:
             spec['rows'] = ((n,), torch.int32)
-        pin = device.type == 'cuda'
-        self.buf = {k: torch.zeros(s, dtype=d, device=device)
-                    for k, (s, d) in spec.items()}
-        self._host = {k: torch.zeros(s, dtype=d, pin_memory=pin)
-                      for k, (s, d) in spec.items()}
+        super().__init__(spec, device)
         self.out = torch.zeros((n, decode_block), dtype=torch.int64,
                                device=device)
-        self.graph = None
-        self._logits = None          # the graph's static output
-        self._launches = None
-
-    def stage(self, **host) -> None:
-        """Copy each named host array into its pinned staging buffer and
-        from there into its device buffer (queued, no sync). Call only
-        after the previous round's tokens were fetched: the fetch waits
-        for the copies that read the staging."""
-        for name, arr in host.items():
-            staged = self._host[name]
-            staged.numpy()[...] = arr
-            self.buf[name].copy_(staged, non_blocking=True)
 
     def _body(self) -> torch.Tensor:
         b = self.buf
@@ -145,26 +208,6 @@ class DecodeStep:
         b['pos'].copy_(torch.clamp(b['pos'] + 1, max=self._max_len - 1))
         return logits
 
-    def capture(self) -> None:
-        """Capture the body as a CUDA graph (once per engine)."""
-        for t in self.buf.values():
-            t.zero_()        # the warm-up writes only the null page
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.stream(side):
-                self._body()
-            with kernels.CapturedLaunches() as held, \
-                    torch.cuda.graph(graph, stream=side):
-                logits = self._body()
-        except RuntimeError as exc:
-            raise RuntimeError(
-                f'capturing the decode sub-step as a CUDA graph failed: '
-                f'{exc}') from exc
-        self.graph, self._logits, self._launches = graph, logits, held
-
     def run(self, sampling: np.ndarray, generators) -> torch.Tensor:
         """Queue `decode_block` sub-steps over the staged buffers (graph
         replays once captured, else the body itself); rows flagged in
@@ -174,17 +217,7 @@ class DecodeStep:
         b = self.buf
         rows = np.flatnonzero(sampling)
         for j in range(self.out.shape[1]):
-            if self.graph is None:
-                logits = self._body()
-            else:
-                try:
-                    self.graph.replay()
-                except RuntimeError as exc:
-                    raise RuntimeError(
-                        f'replaying the decode sub-step graph failed: '
-                        f'{exc}') from exc
-                self._launches.replayed()
-                logits = self._logits
+            logits = self.run_once()
             draw_rows(logits, b['tok'], b['temp'], b['topk'], b['topp'],
                       rows, generators)
             self.out[:, j].copy_(b['tok'])

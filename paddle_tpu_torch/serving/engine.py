@@ -42,7 +42,15 @@ DecodeStep`), and on the card it is captured as a CUDA graph at the
 first decode round and replayed `decode_block` times a round, where the
 JAX engine compiles the round once (`stats()['traces']
 ['paged_decode_step']` counts the capture, as the JAX engine counts its
-trace).
+trace). Prefill is captured too, one graph per (kind, bucket) at its
+first use (`prefill_graph.PrefillStep`, all sharing one memory pool):
+a whole prefill replays `paged_prefill_<bucket>` and a chunk
+`paged_chunk_prefill_<bucket>`, the JAX engine's per-bucket programs
+and trace names, each counted once in `traces`; a chunk's start and
+floor are device buffers, so one chunk graph serves every start.
+`_capture_decode = False` and `_capture_prefill = False` run the same
+bodies uncaptured on the card (the eager twin of the tests and
+`chip_smoke.py`); on the CPU nothing is captured.
 
 Greedy requests take the raw argmax, so their tokens never depend on
 batch neighbours; sampling requests draw from their own
@@ -53,8 +61,9 @@ adapter (`submit(..., adapter_id=)`): admission pins the adapter's bank
 slot into the host row vector `_adapter_rows` (0 = the zero base
 adapter), which each round stages into the sub-step's static rows; the
 sub-step runs inside `adapter_scope` over the bank's tensors and those
-rows, and each prefill or chunk inside a scope over its slot's row, so
-one batch mixes base and adapted requests.
+rows, and each prefill or chunk inside a scope over its step's static
+row, staged with the slot's, so one batch mixes base and adapted
+requests.
 """
 from __future__ import annotations
 
@@ -67,11 +76,11 @@ import torch
 
 from ..nlp.generation import cached_forward
 from ..framework import generator as _generator
-from .adapters.apply import adapter_scope
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
 from .decode_graph import DecodeStep
-from .kv_pool import PagePoolExhausted, PagedSlotPool, scatter_pages
+from .kv_pool import PagePoolExhausted, PagedSlotPool
+from .prefill_graph import PrefillStep
 from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .scheduler import FCFSScheduler
 
@@ -184,10 +193,15 @@ class InferenceEngine:
             self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
             self.pool.max_length, self.decode_block, self.device,
             None if adapter_bank is None else adapter_bank.device_arrays())
-        # on the card the sub-step is captured at the first decode round;
-        # False runs it uncaptured there (the eager reference of the
-        # tests and chip_smoke.py)
+        # (kind, bucket) -> PrefillStep, built at first use
+        self._prefill_steps: dict = {}
+        self._prefill_pool = None       # the prefill graphs' memory pool
+        # on the card the sub-step is captured at the first decode round
+        # and each prefill step at its first use; False runs them
+        # uncaptured there (the eager reference of the tests and
+        # chip_smoke.py)
         self._capture_decode = self.device.type == 'cuda'
+        self._capture_prefill = self.device.type == 'cuda'
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -305,7 +319,9 @@ class InferenceEngine:
         is the engine's first round on the card."""
         step = self._decode
         if self._capture_decode and step.graph is None:
+            t0 = time.perf_counter()
             step.capture()
+            self._seconds['capture'] += time.perf_counter() - t0
             self._trace_counts['paged_decode_step'] += 1
         staged = dict(
             tok=self._tok, pos=self._pos, active=self._active,
@@ -489,24 +505,54 @@ class InferenceEngine:
         self._prefilling[slot] = [h, cursor]
         self._counts['chunked_prefills'] += 1
 
+    def _prefill_step(self, kind: str, bucket: int) -> PrefillStep:
+        """The `PrefillStep` of (kind, bucket), built at its first use and,
+        on the card, captured then (counted in `traces` under the JAX
+        engine's name, once)."""
+        step = self._prefill_steps.get((kind, bucket))
+        if step is None:
+            step = self._prefill_steps[(kind, bucket)] = PrefillStep(
+                kind, bucket, self.model, self.pool.pages,
+                self.pool.pages_per_slot, self.device,
+                None if self.adapter_bank is None
+                else self.adapter_bank.device_arrays())
+        if self._capture_prefill and step.graph is None:
+            if self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            t0 = time.perf_counter()
+            step.capture(self._prefill_pool)
+            self._seconds['capture'] += time.perf_counter() - t0
+            self._trace_counts[step.name] += 1
+        return step
+
+    def _run_prefill(self, slot: int, kind: str, window, bucket: int,
+                     **staged):
+        """Stage the right-padded `window` of prompt tokens, the slot's
+        table row, its bank row (with a bank) and `staged` into the
+        (kind, bucket) step and run it; returns when the device is done
+        (the prefill's wall is timed over it)."""
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :len(window)] = window
+        if self.adapter_bank is not None:
+            staged['rows'] = self._adapter_rows[slot:slot + 1]
+        with torch.inference_mode():
+            step = self._prefill_step(kind, bucket)
+            step.stage(ids=ids, table=self.pool.page_table[slot:slot + 1],
+                       **staged)
+            step.run_once()
+        self._sync()
+
     def _whole_prefill(self, slot: int, h: RequestHandle):
         """Prefill the right-padded prompt bucket through the causal flash
         kernel and scatter its K/V rows into the slot's pages (pad rows
-        past the reservation fall on the null page). No logits: the first
-        token comes from the next decode round, which re-forwards the
-        last prompt token at position s - 1."""
+        past the reservation fall on the null page), through the whole
+        `PrefillStep` of its bucket. No logits: the first token comes
+        from the next decode round, which re-forwards the last prompt
+        token at position s - 1."""
         s = len(h.prompt_tokens)
         bucket = self.pool.bucket_for(s)
         t0 = time.perf_counter()
-        ids = torch.zeros((1, bucket), dtype=torch.int64)
-        ids[0, :s] = torch.tensor(h.prompt_tokens)
-        table = torch.from_numpy(self.pool.page_table[slot:slot + 1])
-        with torch.inference_mode(), adapter_scope(*self._adapter_args(slot)):
-            slab = self.model.prefill_kv(ids.to(self.device))
-            scatter_pages(self.pool.pages, table.to(self.device), slab,
-                          torch.zeros(1, dtype=torch.int64,
-                                      device=self.device))
-        self._sync()
+        self._run_prefill(slot, 'whole', h.prompt_tokens, bucket)
         self._seconds['prefill'] += time.perf_counter() - t0
         self.pool.note_written(slot, s)
         self._counts['prefills'] += 1
@@ -523,27 +569,20 @@ class InferenceEngine:
 
     def _prefill_chunk(self, slot: int, h: RequestHandle, cursor: int):
         """Prefill the prompt window [start, start + bucket) of `slot`
-        through the chunk forward (`LlamaForCausalLM.prefill_kv` with the
-        pool's pages): the chunk of up to `prefill_chunk_tokens` tokens
-        from the cursor, at its length bucket. A window whose bucket
-        would overrun the slot shifts its start down and forwards rows
-        below the cursor again; the floor (the attach boundary) keeps
-        those writes out of the shared pages."""
+        through the chunk `PrefillStep` of its bucket (the chunk forward,
+        `LlamaForCausalLM.prefill_kv` with the pool's pages): the chunk of
+        up to `prefill_chunk_tokens` tokens from the cursor, at its length
+        bucket. A window whose bucket would overrun the slot shifts its
+        start down and forwards rows below the cursor again; the floor
+        (the attach boundary) keeps those writes out of the shared
+        pages."""
         s = len(h.prompt_tokens)
         c = min(self.prefill_chunk_tokens or s, s - cursor)
         bucket = self.pool.bucket_for(c)
         start = min(cursor, self.pool.max_length - bucket)
-        window = h.prompt_tokens[start:start + bucket]
         t0 = time.perf_counter()
-        ids = torch.zeros((1, bucket), dtype=torch.int64)
-        ids[0, :len(window)] = torch.tensor(window)
-        table = torch.from_numpy(self.pool.page_table[slot:slot + 1])
-        with torch.inference_mode(), adapter_scope(*self._adapter_args(slot)):
-            self.model.prefill_kv(ids.to(self.device), start=start,
-                                  kv_pages=self.pool.pages,
-                                  table=table.to(self.device),
-                                  floor=h._prefix_len)
-        self._sync()
+        self._run_prefill(slot, 'chunk', h.prompt_tokens[start:start + bucket],
+                          bucket, start=start, floor=h._prefix_len)
         self._seconds['prefill'] += time.perf_counter() - t0
         new_cursor = min(start + bucket, s)
         self.pool.note_written(slot, new_cursor)
@@ -590,16 +629,6 @@ class InferenceEngine:
             h._adapter_pin = None
         self._adapter_rows[slot] = 0
 
-    def _adapter_args(self, slot: int) -> tuple:
-        """(bank tensors, the slot's bank slot on the device) for the
-        prefill's `adapter_scope`; (None, None), an inert scope, without a
-        bank."""
-        if self.adapter_bank is None:
-            return None, None
-        return (self.adapter_bank.device_arrays(),
-                torch.from_numpy(self._adapter_rows[slot:slot + 1].copy()
-                                 ).to(self.device))
-
     def _retire(self, slot: int, h: RequestHandle, now: float):
         """Finish `h`, release its prefix pin and adapter, hand the
         prompt's full pages to the prefix cache (a `PageHold`: its rows
@@ -627,8 +656,10 @@ class InferenceEngine:
         """Host-side counters. `prefill_seconds` is wall time of the
         prefills and chunks (each ends in a device sync),
         `decode_seconds` wall time of the decode rounds (each ends in the
-        token fetch). `prefill_tokens` counts prompt tokens computed
-        (whole prefills and chunks; attached prefix rows are not)."""
+        token fetch); `capture_seconds` is the part of both spent
+        capturing CUDA graphs. `prefill_tokens` counts prompt tokens
+        computed (whole prefills and chunks; attached prefix rows are
+        not)."""
         c = self._counts
         out = {
             'submitted': c['submitted'],
@@ -645,6 +676,7 @@ class InferenceEngine:
             'chunk_rounds': c['chunk_rounds'],
             'prefill_seconds': self._seconds['prefill'],
             'decode_seconds': self._seconds['decode'],
+            'capture_seconds': self._seconds['capture'],
             'queue_depth': self.scheduler.queue_depth,
             'active_slots': len(self._slot_req),
             'kv_layout': 'paged',

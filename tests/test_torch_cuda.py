@@ -326,7 +326,7 @@ def test_prefix_chunk_engine_matches_cold_engine(cuda):
         K.reset_launch_counts()
         out.append([h.tokens for h in eng.generate_many(wave, sp)])
         st = eng.stats()
-        assert st['traces'] == {'paged_decode_step': 1}
+        assert st['traces'] == _traces(eng)
         if kw:
             assert K.LAUNCHES['flash_attention_fwd'] > 0
             assert st['prefix_cache']['hits'] >= 4
@@ -646,15 +646,29 @@ def _graph_cfg():
                        num_key_value_heads=1, max_position_embeddings=256)
 
 
+def _traces(eng) -> dict:
+    """The `traces` a card engine must show: one capture of the decode
+    sub-step and one of each prefill step it built, under the JAX
+    engine's names."""
+    return {'paged_decode_step': 1,
+            **{step.name: 1 for step in eng._prefill_steps.values()}}
+
+
 def _serve_counted(model, bank, capture, prompts, params, ids):
-    """Serve one warm-up request (the graph engine captures at its first
-    round), then `prompts` with LAUNCHES counted; returns (tokens,
-    LAUNCHES, engine)."""
+    """Serve one warm-up request (the graph engine captures its decode
+    sub-step at its first round), then `prompts` for one token each (a
+    capture's warm-up launches count, so every prefill bucket is
+    captured before the count), then `prompts` with LAUNCHES counted;
+    returns (tokens, LAUNCHES, engine). `capture` sets the decode and
+    the prefill capture."""
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
                           adapter_bank=bank)
-    eng._capture_decode = capture
+    eng._capture_decode = eng._capture_prefill = capture
     eng.generate_many([prompts[0][:3]],
                       SamplingParams(max_new_tokens=4, eos_token_id=-1))
+    eng.generate_many(prompts, SamplingParams(max_new_tokens=1,
+                                              eos_token_id=-1),
+                      adapter_ids=ids)
     eng.reset_stats()
     K.reset_launch_counts()
     hs = eng.generate_many(prompts, params, adapter_ids=ids)
@@ -704,7 +718,7 @@ def test_decode_graph_equals_the_eager_loop(cuda, dtype, banked):
     assert graph_launches['adapter_matmul'] == (
         8 * (st['prefills'] + st['decode_steps']) if banked else 0)
     assert st['decode_rounds'] >= 6         # the sampling request alone
-    assert st['traces'] == {'paged_decode_step': 1}
+    assert st['traces'] == _traces(graph_eng)
     assert eager_eng.stats()['traces'] == {}
 
 
@@ -721,7 +735,7 @@ def test_decode_round_syncs_nothing(cuda, capture):
     bank.load('ad0', make_adapter_factors(bank, 1, scale=0.1))
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
                           adapter_bank=bank)
-    eng._capture_decode = capture
+    eng._capture_decode = eng._capture_prefill = capture
     for s, aid in ((5, 'ad0'), (9, None)):
         eng.submit(list(range(1, s + 1)), max_new_tokens=12,
                    eos_token_id=-1, adapter_id=aid)
@@ -734,8 +748,197 @@ def test_decode_round_syncs_nothing(cuda, capture):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert out.shape == (3, 4) and bool((out[2] == 0).all())
-    assert eng.stats()['traces'] == ({'paged_decode_step': 1} if capture
-                                     else {})
+    assert eng.stats()['traces'] == (_traces(eng) if capture else {})
+
+
+# ---------------------------------------------------------------------------
+# the flash forward's device key count, and the prefill replayed from one
+# CUDA graph per (kind, bucket) against the eager prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hkv', [32, 8])
+@pytest.mark.parametrize('sq,used', [(256, 768), (256, 1024), (64, 576),
+                                     (8, 520), (13, 29)])
+def test_flash_kernel_with_seqused_k_matches_plain(cuda, dtype, hkv, sq,
+                                                   used):
+    """The captured chunk's call: sq queries over a 1024-row K/V buffer of
+    which the first `used` rows count (read from device memory), causal
+    aligned at used - sq; the rows past the count are NaN, so a read of
+    one shows. Equals the host-count call on the sliced rows."""
+    g = torch.Generator(device=cuda).manual_seed(sq + used)
+    q = _randn(g, dtype, 1, sq, 32, 128)
+    k, v = (_randn(g, dtype, 1, 1024, hkv, 128) for _ in range(2))
+    k[:, used:] = float('nan')
+    v[:, used:] = float('nan')
+    counts = torch.tensor([used], dtype=torch.int32, device=cuda)
+    before = K.LAUNCHES['flash_attention_fwd']
+    got = K.flash_attention_fwd(q, k, v, causal=True, seqused_k=counts)
+    assert K.LAUNCHES['flash_attention_fwd'] == before + 1
+    _close_attention(got, K.attention_reference(q, k, v, causal=True,
+                                                seqused_k=counts), dtype)
+    assert torch.equal(got, K.flash_attention_fwd(
+        q, k[:, :used], v[:, :used], causal=True))
+
+
+def test_flash_kernel_with_seqused_k_replays_at_new_counts(cuda):
+    """Captured once, the call attends to whatever counts its device
+    array holds at each replay (two batches, other counts each time)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(g, torch.bfloat16, 2, 64, 32, 128)
+    k, v = (_randn(g, torch.bfloat16, 2, 512, 8, 128) for _ in range(2))
+    counts = torch.tensor([64, 64], dtype=torch.int32, device=cuda)
+    K.flash_attention_fwd(q, k, v, causal=True, seqused_k=counts)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.flash_attention_fwd(q, k, v, causal=True, seqused_k=counts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.flash_attention_fwd(q, k, v, causal=True, seqused_k=counts)
+    for used in ((512, 100), (64, 333), (200, 64)):
+        counts.copy_(torch.tensor(used, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close_attention(out, K.attention_reference(
+            q, k, v, causal=True, seqused_k=counts), torch.bfloat16)
+
+
+@pytest.mark.parametrize('banked', [False, True])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_prefill_graph_equals_the_eager_prefill(cuda, dtype, banked):
+    """Both engines replay their decode graph; one replays a captured
+    graph per prefill bucket, whole and chunk (a 40-token system prompt
+    behind suffixes, a cold 100-token prompt in 32-token chunks, a
+    seeded sampling request; with the bank, base and two adapters
+    mixed), the other runs the same prefill bodies eagerly: equal tokens
+    and launch counts, and `traces` names each bucket used once."""
+    from paddle_tpu_torch.serving import (SAMPLING, AdapterBank,
+                                          make_adapter_factors)
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype=dtype,
+                             generator=generator(10, cuda))
+    bank = ids = None
+    if banked:
+        bank = AdapterBank(model, capacity=2, rank=8,
+                           targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+        for i in range(2):
+            bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
+        ids = ['ad0', None, 'ad1', 'ad0', None, 'ad1']
+    g = torch.Generator().manual_seed(6)
+    rand = lambda n: torch.randint(1, 512, (n,), generator=g).tolist()
+    system = rand(40)
+    prompts = [system + rand(n) for n in (3, 20, 9)] + [rand(100), rand(5),
+                                                         system + rand(50)]
+    params = [SamplingParams(max_new_tokens=12, eos_token_id=-1)
+              for _ in prompts]
+    params[2] = SamplingParams(max_new_tokens=12, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=3)
+    runs = []
+    for graph in (True, False):
+        eng = InferenceEngine(model, num_slots=3, max_length=128,
+                              decode_block=4, adapter_bank=bank,
+                              prefix_cache=0.5, prefill_chunk_tokens=32)
+        eng._capture_prefill = graph
+        toks = []
+        # the first pass captures what the trace uses (a capture's
+        # warm-up launches count); the cache is emptied before each
+        # pass, so the counted second pass runs the same buckets
+        for _ in range(2):
+            eng.prefix_cache.clear(force=True)
+            eng.reset_stats()
+            K.reset_launch_counts()
+            toks.append([h.tokens for h in eng.generate_many(
+                prompts, params, adapter_ids=ids)])
+        assert toks[0] == toks[1]
+        runs.append((toks[1], dict(K.LAUNCHES), eng))
+    (graph_toks, graph_launches, graph_eng), (eager_toks, eager_launches,
+                                              eager_eng) = runs
+    assert graph_toks == eager_toks
+    assert graph_launches == eager_launches
+    st = graph_eng.stats()
+    assert st['chunk_rounds'] > 0 and st['prefix_cache']['hits'] > 0
+    kinds = {kind for kind, _ in graph_eng._prefill_steps}
+    assert kinds == {'whole', 'chunk'}
+    assert st['traces'] == _traces(graph_eng)
+    assert eager_eng.stats()['traces'] == {'paged_decode_step': 1}
+    assert set(eager_eng._prefill_steps) == set(graph_eng._prefill_steps)
+    if banked:
+        assert graph_launches['adapter_matmul'] == 8 * (
+            st['prefills'] + st['chunk_rounds'] + st['decode_steps'])
+
+
+def test_one_chunk_graph_at_three_starts_equals_the_eager_body(cuda):
+    """One captured chunk step (bucket 32) replayed at start 0, at a
+    page-aligned start after an attached prefix, and in a tail-shifted
+    window under a floor, each from the same pages: the pages equal
+    those the eager body writes, and the pages under the floor keep
+    their bytes."""
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda,
+                             generator=generator(11, cuda))
+    engines = []
+    for capture in (True, False):
+        eng = InferenceEngine(model, num_slots=2, max_length=128)
+        eng._capture_prefill = capture
+        slot = eng.pool.alloc()
+        eng.pool.reserve(slot, 128)
+        engines.append(eng)
+    table = engines[0].pool.page_table[slot:slot + 1]
+    assert (table == engines[1].pool.page_table[slot:slot + 1]).all()
+    g = torch.Generator(device=cuda).manual_seed(12)
+    init = [(torch.randn(k.shape, generator=g, device=cuda),
+             torch.randn(v.shape, generator=g, device=cuda))
+            for k, v in engines[0].pool.pages]
+    steps = set()
+    for i, (start, floor) in enumerate(((0, 0), (48, 48), (80, 96))):
+        ids = torch.randint(1, 512, (1, 32), generator=g, device=cuda)
+        pages = []
+        for eng in engines:
+            for (k, v), (k0, v0) in zip(eng.pool.pages, init):
+                k.copy_(k0)
+                v.copy_(v0)
+            with torch.inference_mode():
+                step = eng._prefill_step('chunk', 32)
+                step.stage(ids=ids.cpu().numpy(), table=table,
+                           start=start, floor=floor)
+                step.run_once()
+            torch.cuda.synchronize()
+            pages.append(eng.pool.pages)
+        steps.add(step)
+        for (k, v), (ek, ev), (k0, v0) in zip(*pages, init):
+            _close(k[1:], ek[1:], torch.float32)
+            _close(v[1:], ev[1:], torch.float32)
+            for pid in table[0, :floor // 16]:
+                assert torch.equal(k[pid], k0[pid])
+                assert torch.equal(v[pid], v0[pid])
+    assert engines[0]._prefill_steps[('chunk', 32)].graph is not None
+    assert engines[1]._prefill_steps[('chunk', 32)].graph is None
+    assert engines[0].stats()['traces'] == {'paged_chunk_prefill_32': 1}
+
+
+def test_a_failed_prefill_capture_raises(cuda, monkeypatch):
+    """A host read inside the prefill body (the sync a capture refuses)
+    makes the capture fail: the engine raises, counts no capture, and
+    never falls back to the uncaptured body."""
+    from paddle_tpu_torch.serving import prefill_graph
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda,
+                             generator=generator(13, cuda))
+    body = prefill_graph.PrefillStep._body
+
+    def body_with_a_host_read(self):
+        int(self.buf['ids'][0, 0])
+        body(self)
+
+    monkeypatch.setattr(prefill_graph.PrefillStep, '_body',
+                        body_with_a_host_read)
+    eng = InferenceEngine(model, num_slots=2, max_length=128)
+    eng.submit(list(range(1, 6)), max_new_tokens=2, eos_token_id=-1)
+    with pytest.raises(RuntimeError, match='capturing the whole prefill'):
+        eng.step()
+    assert eng.stats()['traces'] == {}
+    assert eng._prefill_steps[('whole', 8)].graph is None
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
