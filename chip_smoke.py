@@ -6,6 +6,10 @@
                                            # projection, port in TREE
     python3 chip_smoke.py --train-ms TREE  # the training rung's step
                                            # time, port in TREE
+    python3 chip_smoke.py --int8-rmse      # int8 KV's logit error by
+                                           # depth
+    python3 chip_smoke.py --paged-ms TREE  # the paged kernel over float
+                                           # pages, port in TREE
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -19,7 +23,10 @@ result line):
    (plus GQA, ragged lengths, the flash forward at the chunk shapes sq <
    sk of CHUNK_SHAPES, and again with the key count sk read from device
    memory over a 1024-row buffer whose rows past it are NaN (the
-   captured chunk's call), int8 pages, ignored CE rows, and adapter
+   captured chunk's call), int8 pages, int8 pages with the decode
+   round's float window (window starts at row offsets 0, 9 and 15 of a
+   page, a length-1 slot, an inactive slot on the null page; f32 and
+   bf16, HKV 32 and 8), ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit); then the multi-tensor sum of
    squares and Adam update over the training rung's tensors of one
@@ -42,7 +49,14 @@ result line):
    (one in two chunks), a cold 900-token prompt in four chunks and a full
    hit (COW split) give the tokens of its eager twin, of an engine
    without cache or chunking and of a no-cache recompute, and every page
-   is free after a forced clear;
+   is free after a forced clear; then the same with `kv_quant='int8'`:
+   the graph engine's tokens equal its eager twin's, greedy and with a
+   seeded sampling request, and with the prefix cache and chunking over
+   the same paths, and every page is free after a forced clear; the
+   first decode sub-step's logits equal (to 1e-4) those of the float
+   engine over its pages roundtripped through int8 (the JAX bench's
+   int8 arm) and lie within the bench's relative RMSE bound of 0.05 of
+   float KV;
 4. train consistency: the same width at 2 layers in f32 (TF32 off), one
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
@@ -106,6 +120,17 @@ result line):
    the walls of a whole prefill at bucket 1024 and a 256-token chunk at
    start 512, captured and eager, and the device time of the captured
    chunk's whole-row gather;
+6d. serve-int8: phase 6's model, requests and engine with
+   `kv_quant='int8'`, graph and eager twin, then phase 6c's serve-prefix
+   trace on the int8 prefix/chunk engine, graph and eager twin: tokens
+   equal between the twins, `traces` exactly the buckets run, the paged
+   kernel once per layer of every decode sub-step, the first decode
+   sub-step's relative logit RMSE of phase 6's prompts against phase 6's
+   bf16-KV engine at most 1.25 times the JAX bench's int8 arm's (phase
+   6's engine over its pages roundtripped through int8; the bench's 0.05
+   holds at its 4 layers, not at 32), every page free after a forced
+   clear; pool bytes, decode tok/s, TTFT and peak used
+   pages logged beside phases 6 and 6c;
    then the host time of one adapted projection (hook, wrapper and
    launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
@@ -123,7 +148,11 @@ result line):
    training step the wgmma forward, dq and dk/dv kernels, and its update
    window (phase 5b's optimizer, then phase 5's) the multi-tensor Adam
    kernel (5b's also the sum of squares), its device ms logged beside
-   the bound of the bytes the update must move;
+   the bound of the bytes the update must move; then one int8 decode
+   round, graph and eager, profiled in three windows (the window's
+   fill, the sub-steps, the requantize of the touched pages): the
+   sub-steps must run the int8 split, window and combine kernels, and
+   the fill and requantize device work;
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
@@ -181,6 +210,10 @@ REPLACES = {
     'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
+    'paged_attention_int8_window':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, int8 '
+        'pages; the float window is the JAX decode round\'s float view, '
+        'paddle_tpu/serving/engine.py:698-741)',
     'softmax_ce_fwd': 'paddle_tpu/ops/pallas_kernels.py:494 (_ce_fwd_kernel)',
     'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
     'adapter_matmul':
@@ -200,6 +233,7 @@ SOURCES = {
     'flash_attention_bwd_dkv': 'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
@@ -219,6 +253,9 @@ CHUNK_SHAPES = ((256, 768), (256, 1024), (64, 576), (8, 520))
 SLOT_ROWS = 1024
 # the device kernels of one paged_attention call
 PAGED_KERNELS = ('paged_attn_split_kernel', 'paged_attn_combine_kernel')
+# ... and of one call over int8 pages with the decode round's window
+INT8_KERNELS = ('paged_attn_int8_split_kernel', 'paged_attn_window_kernel',
+                'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
 ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
 # Llama's projections; the bank's default targets name the JAX package's
@@ -606,6 +643,8 @@ def kernel_cases() -> list:
             4 * 128 * h * live_rows,
             rep=dtype == torch.bfloat16 and hkv == 32 and not quant)
 
+    _paged_window_cases(add, gen, table, lengths)
+
     # RMSNorm: decode (8 rows), prefill (1024 rows) and a training batch
     # (2 x 2048 rows), width 4096
     for dtype in (torch.float32, torch.bfloat16):
@@ -623,6 +662,64 @@ def kernel_cases() -> list:
     _training_cases(add, gen)
     _adapter_cases(add, gen)
     return cases
+
+
+# the int8 decode round's window: W pages per slot at decode_block 8,
+# ps 16 (`window_count`); row offsets 0, 9 and 15 of the round's first
+# row in its page, a length-1 slot, and an inactive slot (its table row
+# the null page) parked at the slot's last row
+WINDOW_PAGES = 2
+WINDOW_POS = (1023, 1001, 768, 521, 255, 96, 0, 1023)
+
+
+def _paged_window_cases(add, gen, serve_table, serve_lengths) -> None:
+    """The paged kernel over int8 pages with the decode round's float
+    window (f32 and bf16, HKV 32 and 8): the window holds the slot's
+    logical pages pos // 16 .. + 1, filled with other values than the
+    int8 pages there, so a kernel that read those pages fails. Then the
+    case phase 8 reports: bf16 at the serve shape of the bf16 case above
+    (its table and lengths, the window at each slot's last row). Bytes:
+    the live int8 rows below the window and their scales, the window's
+    live rows in q's dtype, q, out, table, lengths and win_first."""
+    from paddle_tpu_torch.ops import kernels as K
+    n, h, ps, p = 8, 32, 16, 64
+    num_pages = n * p + 1
+    table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0                        # the inactive slot: the null page
+    pos = torch.tensor(WINDOW_POS, dtype=torch.int32, device=DEV)
+    cases = [(dtype, hkv, table.contiguous(), pos, False)
+             for dtype, hkv in ((torch.float32, 32), (torch.bfloat16, 32),
+                                (torch.float32, 8), (torch.bfloat16, 8))]
+    cases.append((torch.bfloat16, 32, serve_table, serve_lengths - 1, True))
+    for dtype, hkv, tbl, pos, rep in cases:
+        lengths = (pos + 1).to(torch.int32)
+        win_first = (pos // ps).to(torch.int32)
+        q = _randn((n, h, 128), dtype, gen)
+        shape = (num_pages, ps, hkv, 128)
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, hkv), generator=gen, device=DEV)
+                  / 127 + 1e-3 for _ in range(2))
+        wshape = (n, WINDOW_PAGES, ps, hkv, 128)
+        kw, vw = _randn(wshape, dtype, gen), _randn(wshape, dtype, gen)
+        args = (q, kp, vp, tbl, lengths)
+        kw_args = dict(k_scales=ks, v_scales=vs, k_win=kw, v_win=vw,
+                       win_first=win_first)
+        below = int((win_first.long() * ps).sum())       # int8 rows
+        in_win = int((lengths - win_first * ps).sum())   # window rows
+        add('paged_attention_int8_window',
+            f'paged {str(dtype)[6:]} N=8 H=32 HKV={hkv} int8 pages + '
+            f'{str(dtype)[6:]} window W={WINDOW_PAGES} '
+            + ('ctx<=1024 (serve)' if rep else
+               'offsets 0/9/15, len 1, inactive slot'), dtype,
+            lambda a=args, kw=kw_args: K.paged_attention(*a, **kw),
+            lambda a=args, kw=kw_args: K.paged_attention_reference(*a, **kw),
+            None,
+            nbytes(q, q, tbl, lengths, win_first)
+            + below * hkv * 128 * 2 + 2 * int(win_first.sum()) * hkv * 4
+            + in_win * hkv * 128 * kw.element_size() * 2,
+            4 * 128 * h * int(lengths.sum()), rep=rep)
 
 
 def _training_cases(add, gen) -> None:
@@ -993,6 +1090,93 @@ def check_consistency(cfg):
                   temperature=0.8, top_p=0.9, seed=5)]
     graph_equals_eager(eng, prompts + prompts[2:3], params, 'consistency')
     del eng, model
+    torch.cuda.empty_cache()
+
+
+def check_int8_consistency(cfg):
+    """With `kv_quant='int8'` at 2 layers in f32: the graph engine's
+    tokens equal its eager twin's, greedy and with a seeded sampling
+    request; the same with the prefix cache and chunked prefill over the
+    serve-prefix trace's paths (suffix hits in chunks, a cold prompt in
+    four chunks, a full hit with its COW split); and every page is free
+    after a forced clear. The first decode sub-step's logits of phase 6's
+    prompts must equal, to INT8_EXACT, those of the float engine over
+    its pages roundtripped through int8 (the JAX bench's int8 arm), and
+    lie within INT8_RMSE_BOUND of float KV. The greedy tokens against
+    float KV are logged (int8 rounding may move an argmax)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
+                                          SamplingParams)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(0, DEV))
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+               for s in (5, 16, 37, 130)]
+    greedy = SamplingParams(max_new_tokens=16, eos_token_id=-1)
+    params = [greedy] * len(prompts) + [SamplingParams(
+        max_new_tokens=16, eos_token_id=-1, strategy=SAMPLING,
+        temperature=0.8, top_p=0.9, seed=5)]
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, kv_quant='int8')
+    got = graph_equals_eager(eng, prompts + prompts[2:3], params,
+                             'int8-consistency')
+    dense = InferenceEngine(model, num_slots=8, max_length=1024,
+                            decode_block=8, kv_page_size=16)
+    ref = [h.tokens for h in dense.generate_many(prompts, greedy)]
+    same = sum(a == b for a, b in zip(got, ref))
+    log(f'[int8-consistency] {same} of {len(prompts)} greedy requests get '
+        f'the float-KV engine\'s 16 tokens')
+    # the first decode sub-step of phase 6's prompts: the int8 engine
+    # against the float engine over its pages roundtripped through int8
+    # (the JAX bench's int8 arm), and against float KV
+    rng = np.random.RandomState(2)
+    serve_prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+                     for s in SERVE_LENS]
+    q = first_step_logits(eng, serve_prompts)
+    f = first_step_logits(dense, serve_prompts)
+    rt = first_step_logits(dense, serve_prompts, roundtrip=True)
+    exact, rmse = rel_rmse(q, rt), rel_rmse(q, f)
+    log(f'[int8-consistency] first decode sub-step of {len(serve_prompts)} '
+        f'prompts: relative logit RMSE {exact:.3e} against the float engine '
+        f'over int8-roundtripped pages (limit {INT8_EXACT}), {rmse:.4e} '
+        f'against float KV (the JAX bench\'s bound {INT8_RMSE_BOUND}; the '
+        f'roundtripped pages: {rel_rmse(rt, f):.4e})')
+    if not (exact <= INT8_EXACT and rmse <= INT8_RMSE_BOUND):
+        raise AssertionError(f'int8 consistency: relative logit RMSE '
+                             f'{exact:.3e} against the roundtripped pages, '
+                             f'{rmse:.4e} against float KV')
+    del eng, dense
+    warm, trace = prefix_trace(cfg.vocab_size, np.random.RandomState(6))
+    prompts = [trace[i] for i in (0, 3, 5, 6, 11)]
+    params = [greedy] * len(prompts)
+    params[1] = SamplingParams(max_new_tokens=16, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=3)
+    eng = InferenceEngine(model, **PREFIX_ENGINE, **PREFIX_OPTS,
+                          kv_quant='int8')
+    twin = eager_twin(eng, **PREFIX_OPTS)
+    runs = []
+    for e in (eng, twin):
+        e.generate_many([warm], greedy)
+        runs.append([h.tokens for h in e.generate_many(prompts, params)])
+        st = e.stats()
+        if st['prefix_cache']['hits'] < 4 or st['pool']['cow_splits'] != 1 \
+                or st['chunk_rounds'] < 7:
+            raise AssertionError(
+                f'int8 prefix consistency: hits '
+                f'{st["prefix_cache"]["hits"]}, COW '
+                f'{st["pool"]["cow_splits"]}, chunk rounds '
+                f'{st["chunk_rounds"]}: the trace missed a path')
+        pages_free_after_clear(e, 'int8-prefix-consistency')
+    if runs[0] != runs[1]:
+        raise AssertionError(f'int8 prefix consistency: graph engine '
+                             f'{runs[0]} != eager twin {runs[1]}')
+    log(f'[int8-prefix-consistency] 2 layers f32, int8 KV, {len(prompts)} '
+        f'requests x 16 tokens (suffix hits in chunks, a cold prompt in '
+        f'chunks, a full hit with its COW split, one sampling): graph '
+        f'engine (captures {eng.stats()["traces"]}) == its eager twin')
+    del eng, twin, model
     torch.cuda.empty_cache()
 
 
@@ -1424,7 +1608,12 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    handles = eng.generate_many(prompts, params, adapter_ids=adapter_ids)
+    handles = [eng.submit(p, sp, adapter_id=aid) for p, sp, aid in
+               zip(prompts, params, adapter_ids or [None] * len(prompts))]
+    peak_pages = 0
+    while eng.has_work:
+        eng.step()
+        peak_pages = max(peak_pages, eng.pool.used_page_count)
     wall = time.perf_counter() - t0
     launches = {k: K.LAUNCHES[k] for k in kernels}
 
@@ -1458,7 +1647,7 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         'decode_rounds': st['decode_rounds'],
         'decode_steps': st['decode_steps'],
         'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
-        'ttft_p50_s': ttft[len(ttft) // 2],
+        'ttft_p50_s': ttft[len(ttft) // 2], 'peak_pages': peak_pages,
         'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
         'launches': launches, 'tokens': [h.tokens for h in handles],
     }
@@ -1468,7 +1657,8 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         f'{res["decode_tok_per_s"]:.1f} tok/s ({st["tokens"]} tokens in '
         f'{st["decode_seconds"]:.3f} s, {st["decode_rounds"]} rounds), TTFT '
         f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
-        f'{res["ttft_max_s"]:.3f} s, peak device memory '
+        f'{res["ttft_max_s"]:.3f} s, pool peak {peak_pages} of '
+        f'{eng.pool.num_pages - 1} pages, peak device memory '
         f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
         f'before the engine was built; captures {st["traces"]}')
     log(f'[{tag}] kernel launches on this run: {launches}')
@@ -1484,7 +1674,8 @@ def eager_twin(eng, **kw):
                            max_length=eng.pool.max_length,
                            decode_block=eng.decode_block,
                            kv_page_size=eng.pool.page_size,
-                           adapter_bank=eng.adapter_bank, **kw)
+                           adapter_bank=eng.adapter_bank,
+                           kv_quant=eng.pool.quant, **kw)
     twin._capture_decode = twin._capture_prefill = False
     return twin
 
@@ -1701,8 +1892,11 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         warm_s = time.perf_counter() - t0
         capture_s = eng.stats()['capture_seconds']
         if eng.prefix_cache is not None:
-            # a fresh cache: clear() leaves the trie's bare nodes behind,
-            # which change later inserts and so the hits
+            # a fresh cache: the warm-up pass's refused inserts (every
+            # entry pinned, the budget full) leave bare trie nodes, which
+            # clear() does not prune and later lookups descend into, so
+            # they change the hits (tests/test_torch_prefix_cache.py:
+            # test_refused_insert_leaves_the_same_trie_as_jax)
             eng.prefix_cache.clear(force=True)
             eng.prefix_cache = PagedPrefixCache(
                 eng.pool, PREFIX_OPTS['prefix_cache'])
@@ -1767,6 +1961,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         'prefill_s': st['prefill_seconds'],
         'decode_tokens': st['tokens'], 'decode_s': st['decode_seconds'],
         'decode_tok_per_s': st['tokens'] / st['decode_seconds'],
+        'decode_steps': st['decode_steps'],
         'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
         'ttft_p50_s': ttft[len(ttft) // 2],
         'peak_pages': peak_pages,
@@ -2071,8 +2266,255 @@ def serve_prefix(served) -> dict:
         f'forward of {layers} layers')
     res['gather_ms'] = ms
     res['eager'], res['eager_prefill'] = eager, parent
+    res['params'] = params
     release(eager)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: serve with int8 paged KV
+# ---------------------------------------------------------------------------
+
+# the JAX package's int8 KV quality bound: relative decode-logit RMSE
+# against float KV (bench.py:1537, PAGED_INT8_RMSE_BOUND; a copy, as
+# bench.py is the JAX side's), set on the bench's 4-layer f32 GPT
+# (bench.py:1153-1165, paged_int8_rmse :1540). The scheme's own error
+# grows with depth: on random-weight Llama-2-7B width, the bench's int8
+# arm (pages roundtripped through int8) is 0.025 at 2 f32 layers and
+# 0.081 at 32 (`python3 chip_smoke.py --int8-rmse`; PERF.md). So
+# the bound gates phase 3 (2 f32 layers); at 32 layers (phase 6d) the
+# port's int8 KV must cost no more than INT8_REF_SLACK times the
+# bench's int8 arm on the same model and prompts.
+INT8_RMSE_BOUND = 0.05
+INT8_REF_SLACK = 1.25
+# f32: the int8 engine against the float engine over int8-roundtripped
+# pages (the same function, sums in another order; 1.2e-6 measured)
+INT8_EXACT = 1e-4
+
+
+def roundtrip_pages(pool) -> None:
+    """Every page of a float pool through int8 and back, in place, each
+    at its own per-(page, kv head) absmax scale: the JAX bench's int8 arm
+    (bench.py:paged_int8_rmse's `roundtrip`)."""
+    from paddle_tpu_torch.quantization import (kv_dequantize_page,
+                                               kv_page_scales,
+                                               kv_quantize_page)
+    for kv in pool.pages:
+        for t in kv:
+            sc = kv_page_scales(t)
+            t.copy_(kv_dequantize_page(kv_quantize_page(t, sc), sc, t.dtype))
+
+
+def first_step_logits(eng, prompts, roundtrip=False) -> torch.Tensor:
+    """[len(prompts), V] f32 logits of each prompt's first decode sub-step
+    on `eng`: its whole prefill as the engine runs it (captured or
+    eager), then one sub-step of a staged round (after the round's window
+    fill over int8 pages), as many prompts at once as the engine has
+    slots; the slots are freed after, and no token is emitted. With
+    `roundtrip` (a float pool) the pages go through int8 and back
+    between the prefill and the sub-step (`roundtrip_pages`)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    one = SamplingParams(max_new_tokens=1, eos_token_id=-1)
+    out = []
+    for i in range(0, len(prompts), eng.pool.num_slots):
+        handles = [eng.submit(p, one) for p in
+                   prompts[i:i + eng.pool.num_slots]]
+        eng._admit()
+        slot_of = {id(h): s for s, h in eng._slot_req.items()}
+        with torch.inference_mode():
+            if roundtrip:
+                roundtrip_pages(eng.pool)
+            step = eng._stage_round()
+            if step.side:
+                step.run_side('_round_begin')
+            logits = step.run_once().clone()
+        for h in handles:
+            slot = slot_of[id(h)]
+            out.append(logits[slot])
+            eng._detach_slot(slot, h)
+            eng.pool.free(slot)
+    eng.reset_stats()
+    return torch.stack(out)
+
+
+def rel_rmse(got, want) -> float:
+    """The JAX bench's relative logit RMSE (bench.py:paged_int8_rmse):
+    |got - want| over the norm of `want` about each row's mean, fp64."""
+    got, want = got.double(), want.double()
+    ref = want - want.mean(dim=-1, keepdim=True)
+    return float((got - want).norm() / ref.norm())
+
+
+def serve_int8(served, prefixed) -> dict:
+    """Phase 6's Llama-2-7B behind the same engine with `kv_quant='int8'`:
+    phase 6's 12 requests (graph and eager twin), then phase 6c's
+    serve-prefix trace (`PREFIX_OPTS`, graph and eager twin, each warmed
+    as `_run_prefix` says). Gates: graph tokens equal eager tokens in
+    both; `traces` exactly the buckets run; the paged kernel launched
+    once per layer of every decode sub-step (replays counted); the first
+    decode sub-step's relative logit RMSE of phase 6's prompts against
+    phase 6's bf16-KV engine at most INT8_REF_SLACK times that of the
+    JAX bench's int8 arm (the bf16 engine over its pages roundtripped
+    through int8). Logs each beside phase 6 and 6c: pool bytes, decode
+    tok/s, TTFT, peak used pages."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    bf16 = served['engine']
+    model = bf16.model
+    layers = model.config.num_hidden_layers
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, kv_quant='int8')
+    log(f'[serve-int8] KV pool {eng.pool.num_pages} pages, '
+        f'{eng.pool.pool_bytes / 1e9:.3f} GB int8 with scales, against '
+        f'{bf16.pool.pool_bytes / 1e9:.3f} GB bf16 (phase 6); window '
+        f'{sum(t.nbytes for kv in eng._decode._windows for t in kv) / 1e6:.1f}'
+        f' MB')
+    prompts, params = served['prompts'], served['params']
+    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve-int8',
+                     base)
+    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
+                        'serve-int8')
+    want = first_step_logits(bf16, prompts)
+    got = first_step_logits(eng, prompts)
+    ref = first_step_logits(bf16, prompts, roundtrip=True)
+    rmse, ref_rmse = rel_rmse(got, want), rel_rmse(ref, want)
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    log(f'[serve-int8] first decode sub-step of the {len(prompts)} prompts: '
+        f'relative logit RMSE {rmse:.4e} against the bf16-KV engine, the '
+        f'JAX bench\'s int8 arm (its pages roundtripped through int8) '
+        f'{ref_rmse:.4e} (limit {INT8_REF_SLACK} x that; the bench\'s '
+        f'4-layer bound {INT8_RMSE_BOUND}), against each other '
+        f'{rel_rmse(got, ref):.4e}; argmax equal on {agree} of '
+        f'{len(prompts)}')
+    if not rmse <= INT8_REF_SLACK * ref_rmse:
+        raise AssertionError(f'serve-int8: relative logit RMSE {rmse:.4e} '
+                             f'> {INT8_REF_SLACK} x the bench\'s int8 arm\'s '
+                             f'{ref_rmse:.4e}')
+    same = sum(a == b for a, b in zip(res['tokens'], served['tokens']))
+    log(f'[serve-int8] {same} of {len(prompts)} requests get the bf16-KV '
+        f'engine\'s 32 tokens')
+    # the serve-prefix trace
+    warm, trace = prefix_trace(model.config.vocab_size,
+                               np.random.RandomState(5))
+    pparams = prefixed['params']
+    runs = {}
+    for tag, graph in (('serve-int8-prefix', True),
+                       ('serve-int8-prefix eager', False)):
+        torch.cuda.synchronize()
+        pbase = torch.cuda.memory_allocated()
+        e = InferenceEngine(model, **PREFIX_ENGINE, **PREFIX_OPTS,
+                            kv_quant='int8')
+        e._capture_decode = e._capture_prefill = graph
+        runs[tag] = _run_prefix(e, warm, trace, pparams, tag, pbase)
+        pages_free_after_clear(e, tag)
+        del e
+    pre, pre_eager = runs['serve-int8-prefix'], runs['serve-int8-prefix eager']
+    if pre['tokens'] != pre_eager['tokens']:
+        diff = {j: next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                for j, (a, b) in enumerate(zip(pre['tokens'],
+                                               pre_eager['tokens'])) if a != b}
+        raise AssertionError(f'serve-int8-prefix: graph and eager tokens '
+                             f'differ in requests {diff} ({{request: first '
+                             f'position}}): graph {pre["tokens"]} eager '
+                             f'{pre_eager["tokens"]}')
+    log(f'[serve-int8-prefix] graph == eager: the tokens of all '
+        f'{len(trace)} requests are equal (sampling included)')
+    for tag, run in (('serve-int8', res), ('serve-int8 eager', eager),
+                     ('serve-int8-prefix', pre),
+                     ('serve-int8-prefix eager', pre_eager)):
+        want_paged = layers * run['decode_steps']
+        if run['launches']['paged_attention'] != want_paged:
+            raise AssertionError(
+                f'{tag}: {run["launches"]["paged_attention"]} paged launches,'
+                f' want {layers} x {run["decode_steps"]} decode sub-steps = '
+                f'{want_paged}')
+    log(f'[serve-int8] int8 paged launches = {layers} x decode sub-steps on '
+        f'all four runs ({res["launches"]["paged_attention"]} on the graph '
+        f'serve run, replays counted)')
+    for key, fmt in (('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
+                     ('ttft_p50_s', '.3f'), ('ttft_max_s', '.3f'),
+                     ('peak_pages', 'd'), ('prefill_s', '.3f'),
+                     ('peak_mem_gb', '.3f')):
+        log(f'[serve-int8]   {key}: serve int8 {res[key]:{fmt}} (eager '
+            f'{eager[key]:{fmt}}) vs bf16 {served[key]:{fmt}}; serve-prefix '
+            f'int8 {pre[key]:{fmt}} (eager {pre_eager[key]:{fmt}}) vs bf16 '
+            f'{prefixed[key]:{fmt}}')
+    prefix_same = sum(a == b for a, b in zip(pre['tokens'],
+                                             prefixed['tokens']))
+    log(f'[serve-int8-prefix] hits {pre["hits"]}, COW splits '
+        f'{pre["cow_splits"]}, chunk rounds {pre["chunk_rounds"]} (bf16: '
+        f'{prefixed["hits"]}, {prefixed["cow_splits"]}, '
+        f'{prefixed["chunk_rounds"]}); {prefix_same} of {len(trace)} '
+        f'requests get the bf16-KV tokens')
+    res.update(engine=eng, eager=eager, prefix=pre, rmse=rmse,
+               ref_rmse=ref_rmse, prompts=prompts)
+    res['launches']['paged_attention_int8_window'] = \
+        res['launches'].pop('paged_attention')
+    return res
+
+
+def paged_float_ms(readings: int = 5) -> list:
+    """[(case, [device ms per call] x readings)] of the paged kernel over
+    pages in q's dtype at phase 2's serve shape (8 slots, H 32, context
+    up to 1024): bf16 and f32 at HKV 32, bf16 at HKV 8 (`queued_ms`)."""
+    from paddle_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    n, h, ps, p = 8, 32, 16, 64
+    num_pages = n * p + 1
+    table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
+                           dtype=torch.int32, device=DEV)
+    out = []
+    for dtype, hkv in ((torch.bfloat16, 32), (torch.float32, 32),
+                       (torch.bfloat16, 8)):
+        q = _randn((n, h, 128), dtype, gen)
+        kp, vp = (_randn((num_pages, ps, hkv, 128), dtype, gen)
+                  for _ in range(2))
+        call = (lambda q=q, kp=kp, vp=vp:
+                K.paged_attention(q, kp, vp, table, lengths))
+        out.append((f'{str(dtype)[6:]} HKV={hkv}',
+                    [queued_ms(call) for _ in range(readings)]))
+    return out
+
+
+def int8_rmse_by_depth() -> None:
+    """The first decode sub-step's relative logit RMSE of phase 6's
+    prompts at Llama-2-7B width and 1-32 layers (bf16, and f32 at 2, 8
+    and 32; random weights from phase 6's seed; eager engines): the int8
+    engine (q) and the float engine over its pages roundtripped through
+    int8 (rt, the JAX bench's int8 arm) against the float-KV engine (f),
+    and q against rt."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(3, 32000, (s,)).tolist() for s in SERVE_LENS]
+    for dtype, depths in (('bfloat16', (1, 2, 4, 8, 16, 32)),
+                          ('float32', (2, 8, 32))):
+        for d in depths:
+            model = LlamaForCausalLM(
+                LlamaConfig.llama2_7b(num_hidden_layers=d), device=DEV,
+                dtype=dtype, generator=ptt.generator(1234, DEV))
+            out = {}
+            for tag, quant in (('f', None), ('rt', None), ('q', 'int8')):
+                eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                                      decode_block=8, kv_quant=quant)
+                eng._capture_decode = eng._capture_prefill = False
+                out[tag] = first_step_logits(eng, prompts,
+                                             roundtrip=tag == 'rt')
+                del eng
+            f, rt, q = out['f'], out['rt'], out['q']
+            log(f'[int8-rmse] {dtype} {d} layers: q vs f '
+                f'{rel_rmse(q, f):.4e}, rt vs f {rel_rmse(rt, f):.4e}, q vs '
+                f'rt {rel_rmse(q, rt):.4e}; argmax q == f on '
+                f'{int((q.argmax(-1) == f.argmax(-1)).sum())} of '
+                f'{len(prompts)}')
+            del model, out
+            gc.collect()
+            torch.cuda.empty_cache()
 
 
 def hook_host_us(calls: int = 200) -> float:
@@ -2111,7 +2553,7 @@ def hook_host_us(calls: int = 200) -> float:
 # phase 7: where the time goes (torch.profiler, device activity)
 # ---------------------------------------------------------------------------
 
-_GROUPS = (('paged_attention', PAGED_KERNELS),
+_GROUPS = (('paged_attention', PAGED_KERNELS + INT8_KERNELS),
            ('adapter_matmul', ('adapter_sgmv_kernel',)),
            ('flash_attention_bwd', ('flash_bwd_dq_kernel',
                                     'flash_bwd_dq_wgmma_kernel',
@@ -2217,6 +2659,58 @@ def profile_serve(served, adapted, prefixed) -> None:
                             absent=('adapter_matmul_kernel',))
         e.run()
     profile_prefills(prefixed)
+
+
+def profile_int8(run) -> None:
+    """On the int8 serve engine and its eager twin: one decode round with
+    every slot busy, timed unprofiled, then the next round in three
+    profiled windows: the round's begin (the window's fill), its
+    decode_block sub-steps, its end (the touched pages requantized).
+    The sub-steps must run the int8 split, window and combine kernels and
+    RMSNorm, and not the float split kernel; the fill and the requantize
+    must run device work. Device ms by group, the two bodies each a group
+    of their own."""
+    from torch.profiler import ProfilerActivity, profile
+    for e, label in ((run['engine'], 'int8 decode round, graph'),
+                     (run['eager']['engine'], 'int8 decode round, eager')):
+        n = e.pool.num_slots
+        for p in run['prompts'][:n]:
+            e.submit(p, max_new_tokens=4 * e.decode_block, eos_token_id=-1)
+        e.step()                # admit + prefill all, first round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.step()                # a pure decode round, not profiled
+        wall = time.perf_counter() - t0
+        windows = []
+        with torch.inference_mode():
+            step = e._stage_round()
+            for group, body in (
+                    ('int8 window fill',
+                     lambda: step.run_side('_round_begin')),
+                    (None, lambda: [step.run_once()
+                                    for _ in range(e.decode_block)]),
+                    ('int8 window requantize',
+                     lambda: step.run_side('_round_end'))):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    # CUPTI has missed a window's first kernel: a marker
+                    # of ~1 us goes first
+                    torch.cuda._sleep(1000)
+                    torch.cuda.synchronize()
+                    body()
+                    torch.cuda.synchronize()
+                windows.append((prof, group))
+                if group is not None and not any(
+                        'spin_kernel' not in ev.name
+                        for ev in _device_events(prof)):
+                    raise AssertionError(f'profile: the {label}\'s {group} '
+                                         f'ran no device work')
+        _breakdown(windows, wall,
+                   f'{label} ({n} slots x {e.decode_block} sub-steps; wall '
+                   f'of an unprofiled round)')
+        require_kernels(windows[1][0], INT8_KERNELS + ('rms_norm_kernel',),
+                        label, absent=('paged_attn_split_kernel',
+                                       'paged_attn_kernel'))
+        e.run()
 
 
 def profile_prefills(prefixed) -> None:
@@ -2398,6 +2892,24 @@ def main() -> int:
         log(f'[host] {sys.argv[2]}: one adapted projection {hook_host_us():.2f}'
             f' us of host time per call')
         return 0
+    if sys.argv[1:2] == ['--paged-ms']:
+        # python3 chip_smoke.py --paged-ms TREE: paged_float_ms() of the
+        # port in TREE (to set an earlier tree beside this one)
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        from paddle_tpu_torch.ops import _build
+        _build.SOURCES = ('paged_attention',)     # the one source it runs
+        _build.build_all()
+        log(f'[paged] {sys.argv[2]}: ' + '; '.join(
+            f'{label}: ' + ' '.join('not measured' if ms is None else
+                                    f'{ms:.4f}' for ms in times)
+            for label, times in paged_float_ms()) + ' ms per call')
+        return 0
+    if sys.argv[1:2] == ['--int8-rmse']:
+        # python3 chip_smoke.py --int8-rmse: int8 KV's logit error by depth
+        from paddle_tpu_torch.ops import _build
+        _build.build_all()
+        int8_rmse_by_depth()
+        return 0
     if sys.argv[1:2] == ['--train-ms']:
         # python3 chip_smoke.py --train-ms TREE: rung_step_s() of the port
         # in the checkout TREE
@@ -2429,6 +2941,7 @@ def main() -> int:
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_prefix_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_int8_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
     rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
@@ -2437,10 +2950,12 @@ def main() -> int:
     res = serve(LlamaConfig.llama2_7b())
     adapted = serve_adapters(res)
     prefixed = serve_prefix(res)
+    int8 = serve_int8(res, prefixed)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res, adapted, prefixed)
-    release(res, adapted, prefixed, prefixed['eager_prefill'])
+    profile_int8(int8)
+    release(res, adapted, prefixed, prefixed['eager_prefill'], int8)
     profile_train(pretrained['step'], trained['batch'],
                   pretrained['step_s'], 'Llama 2 pretraining optimizer')
     pretrained['step'].optimizer._slots.clear()
@@ -2459,7 +2974,7 @@ def main() -> int:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
-                                   prefixed))
+                                   prefixed, int8))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -21,7 +21,8 @@
 // splits each slot's context across blocks (the FlashDecoding / vLLM v2
 // scheme). Two kernels per call:
 //
-// - paged_attn_split_kernel, grid (N, HKV, splits), 128 threads. Each
+// - paged_attn_split_kernel (paged_attn_int8_split_kernel for int8
+//   pages), grid (N, HKV, splits), 128 threads. Each
 //   block owns a fixed run of `pps` pages (at most kSplitKeys = 64 keys:
 //   4 pages at ps = 16) of one (slot, kv head); the split count comes
 //   from the table width P, never from the lengths, so the host reads
@@ -46,8 +47,25 @@
 //   block, so the kernel waits on device memory about twice, not once
 //   per split.
 //
-// Neither kernel syncs with the host or allocates memory: the wrapper
-// takes the workspace from PyTorch's caching allocator, so a call can be
+// The float window (int8 pages in a decode round, kv_quant='int8'): the
+// JAX round gathers every slot's pages into a float view, writes the
+// round's new rows there and requantizes only the touched pages at the
+// round's end (paddle_tpu/serving/engine.py:698-741). The port's round
+// keeps the pages the round can touch, W per slot (2 at decode_block 8,
+// ps 16), dequantized in a window [N, W, ps, HKV, D] in q's dtype, and
+// its sub-steps write their rows there. Logical page i of slot n with
+// win_first[n] <= i < win_first[n] + W is then read from the window,
+// unscaled. So that every split reads one dtype (one tile layout, one
+// cp.async width), the int8 splits skip the window's pages (their rows
+// are neither copied nor scored; a split whose live pages all lie in the
+// window writes an empty partial), and one more split per (slot, kv
+// head), paged_attn_window_kernel, runs the same split in q's dtype over
+// the window's W * ps <= 64 rows, into the workspace's last partial
+// [N, HKV, splits + 1, G, D + 2]. The combine merges every partial by
+// exp(m_s - M) as before. Three launches, one call.
+//
+// No kernel syncs with the host or allocates memory: the wrapper takes
+// the workspace from PyTorch's caching allocator, so a call can be
 // captured by a CUDA graph.
 #include <cmath>
 
@@ -70,11 +88,18 @@ struct PagedArgs {
   const int* lengths;
   const float* k_scales;
   const float* v_scales;
-  float* ws;       // [N, HKV, splits, G, D + 2]: acc[D], m, l per head
+  const void* k_win;     // [N, W, ps, HKV, D] in q's dtype, or null (W = 0)
+  const void* v_win;
+  const int* win_first;  // [N]: the window's first logical page
+  float* ws;       // [N, HKV, parts, G, D + 2]: acc[D], m, l per head
   void* out;
-  int h, hkv, p, ps, pps, splits;
+  int h, hkv, p, ps, pps, splits, w;   // parts = splits + (w > 0)
   float scale;
 };
+
+__host__ __device__ __forceinline__ int n_parts(const PagedArgs& a) {
+  return a.splits + (a.w > 0 ? 1 : 0);
+}
 
 // byte offset of 16-byte chunk c of row t in a [kSplitKeys][D] tile of T
 template <typename T>
@@ -135,10 +160,12 @@ constexpr size_t split_smem_bytes() {
              sizeof(float);
 }
 
-// kG: the group size G rounded up to 1, 2, 4 or 8 (register arrays)
-template <typename TQ, typename TKV, bool kQuant, int kG>
-__global__ void __launch_bounds__(kThreads)
-    paged_attn_split_kernel(PagedArgs a) {
+// One split of one (slot, kv head): the body of the three split kernels
+// below. kG: the group size G rounded up to 1, 2, 4 or 8 (register
+// arrays); kWindow: this block is the window's split (TKV = TQ, the
+// window's rows).
+template <typename TQ, typename TKV, bool kQuant, int kG, bool kWindow>
+__device__ __forceinline__ void split_body(const PagedArgs& a) {
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int kRowBytes = kD * sizeof(TKV);
   constexpr int kChunks = kRowBytes / 16;
@@ -150,41 +177,67 @@ __global__ void __launch_bounds__(kThreads)
 
   const int n = blockIdx.x;
   const int hk = blockIdx.y;
-  const int split = blockIdx.z;
+  const int split = kWindow ? a.splits : blockIdx.z;
   const int g_size = a.h / a.hkv;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int len = a.lengths[n];
   // the slot's pages: those holding a key below len, and at least one
   const int n_pages = min(max((len + a.ps - 1) / a.ps, 1), a.p);
-  const int first_page = split * a.pps;
-  float* part = a.ws + ((static_cast<int64_t>(n) * a.hkv + hk) * a.splits +
+  // an int8 split skips the window's pages; a split over pages in q's
+  // dtype knows of no window (its code is the one without a window)
+  constexpr bool kSkips = kQuant && !kWindow;
+  // the window's logical pages [win0, win0 + w) (none without a window)
+  const int win0 = (kSkips || kWindow) && a.w > 0 ? a.win_first[n] : 0;
+  // this block's run of logical pages; the window's split runs over the
+  // window (computed even when len is 0, as split 0 is without one)
+  const int first_page = kWindow ? win0 : split * a.pps;
+  const int run = kWindow ? a.w : min(a.pps, n_pages - first_page);
+  const bool empty =
+      kWindow ? win0 * a.ps >= max(len, 1)
+              : first_page >= n_pages ||
+                    (kSkips && first_page >= win0 &&
+                     first_page + run <= win0 + a.w);
+  const int parts = kSkips || kWindow ? n_parts(a) : a.splits;
+  float* part = a.ws + ((static_cast<int64_t>(n) * a.hkv + hk) * parts +
                         split) * g_size * (kD + 2);
-  if (first_page >= n_pages) {                 // an empty partial
+  if (empty) {                                 // an empty partial
     if (tid < g_size) {
       part[tid * (kD + 2) + kD] = -INFINITY;
       part[tid * (kD + 2) + kD + 1] = 0.f;
     }
     return;
   }
-  const int t_live = min(a.pps, n_pages - first_page) * a.ps;
+  const int t_live = run * a.ps;
   const int key0 = first_page * a.ps;
+  // row t of the run lies in the window (an int8 split skips it)
+  auto in_window = [&](int t) {
+    if constexpr (kSkips) {
+      const int page = first_page + t / a.ps;
+      return page >= win0 && page < win0 + a.w;
+    } else {
+      return false;
+    }
+  };
 
-  // every K and V row of the run in flight at once
+  // every K and V row of the run in flight at once: from the slot's
+  // pages through its table, or from the slot's window
   const int* pages = a.table + static_cast<int64_t>(n) * a.p + first_page;
   const int64_t row_stride = static_cast<int64_t>(a.hkv) * kD;
+  const TKV* k_src = static_cast<const TKV*>(kWindow ? a.k_win : a.k_pages);
+  const TKV* v_src = static_cast<const TKV*>(kWindow ? a.v_win : a.v_pages);
   const uint32_t k_sm = hopper::smem_u32(k_t);
   const uint32_t v_sm = hopper::smem_u32(v_t);
   for (int i = tid; i < t_live * kChunks; i += kThreads) {
     const int t = i / kChunks, c = i % kChunks;
-    const int64_t at =
-        (static_cast<int64_t>(pages[t / a.ps]) * a.ps + t % a.ps) *
-            row_stride + hk * kD + c * (16 / static_cast<int>(sizeof(TKV)));
+    const int64_t page = kWindow ? static_cast<int64_t>(n) * a.w + t / a.ps
+                                 : static_cast<int64_t>(pages[t / a.ps]);
+    const int64_t at = (page * a.ps + t % a.ps) * row_stride + hk * kD +
+                       c * (16 / static_cast<int>(sizeof(TKV)));
     const uint32_t off = chunk_at<TKV>(t, c);
-    hopper::cp_async_16(k_sm + off, static_cast<const TKV*>(a.k_pages) + at,
-                        true);
-    hopper::cp_async_16(v_sm + off, static_cast<const TKV*>(a.v_pages) + at,
-                        true);
+    const bool load = !in_window(t);         // skipped rows are zero-filled
+    hopper::cp_async_16(k_sm + off, k_src + at, load);
+    hopper::cp_async_16(v_sm + off, v_src + at, load);
   }
   hopper::cp_async_commit();
   if (kQuant && tid < t_live) {
@@ -241,7 +294,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int g = 0; g < kG; ++g)
         if (g < g_size)
-          sp[g * kSplitKeys + t] = key0 + t < len ? s[g] : PTT_NEG_INF;
+          sp[g * kSplitKeys + t] =
+              key0 + t < len && !in_window(t) ? s[g] : PTT_NEG_INF;
     }
   }
   __syncthreads();
@@ -309,6 +363,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// pages in q's dtype
+template <typename TQ, typename TKV, int kG>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_split_kernel(PagedArgs a) {
+  split_body<TQ, TKV, false, kG, false>(a);
+}
+
+// int8 pages (the window's pages skipped)
+template <typename TQ, int kG>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_int8_split_kernel(PagedArgs a) {
+  split_body<TQ, int8_t, true, kG, false>(a);
+}
+
+// the decode round's float window, one split per (slot, kv head)
+template <typename TQ, int kG>
+__global__ void __launch_bounds__(kThreads)
+    paged_attn_window_kernel(PagedArgs a) {
+  split_body<TQ, TQ, false, kG, true>(a);
+}
+
 template <typename TQ>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_combine_kernel(PagedArgs a) {
@@ -319,14 +394,15 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;                  // output column
   const int warp = tid >> 5, lane = tid & 31;
   const int g_size = a.h / a.hkv;
+  const int parts = n_parts(a);
   const int64_t stride = static_cast<int64_t>(g_size) * (kD + 2);  // a split
   const float* head =
-      a.ws + (static_cast<int64_t>(n) * a.hkv + h / g_size) * a.splits *
+      a.ws + (static_cast<int64_t>(n) * a.hkv + h / g_size) * parts *
                  stride + (h % g_size) * (kD + 2);
 
   // M: the largest m_s of the splits with l_s > 0, every split at once
   float m = -INFINITY;
-  for (int s = tid; s < a.splits; s += kThreads)
+  for (int s = tid; s < parts; s += kThreads)
     if (head[s * stride + kD + 1] > 0.f) m = fmaxf(m, head[s * stride + kD]);
   m = ptt_warp_max(m);
   if (lane == 0) warp_part[warp] = m;
@@ -338,7 +414,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // each split's weight, and L = sum_s l_s w_s
   float l = 0.f;
-  for (int s = tid; s < a.splits; s += kThreads) {
+  for (int s = tid; s < parts; s += kThreads) {
     const float ls = head[s * stride + kD + 1];
     const float w = ls > 0.f ? expf(head[s * stride + kD] - m) : 0.f;
     w_s[s] = w;
@@ -353,7 +429,7 @@ __global__ void __launch_bounds__(kThreads)
 
   float o = 0.f;
 #pragma unroll 4
-  for (int s = 0; s < a.splits; ++s) {
+  for (int s = 0; s < parts; ++s) {
     const float w = w_s[s];
     if (w > 0.f) o = fmaf(head[s * stride + tid], w, o);
   }
@@ -361,22 +437,44 @@ __global__ void __launch_bounds__(kThreads)
       ptt_from_float<TQ>(o / l);
 }
 
-template <typename TQ, typename TKV, bool kQuant, int kG>
-int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
+enum class Split { kFloat, kInt8, kWindow };
+
+// one split kernel over `blocks` splits of every (slot, kv head)
+template <Split kS, typename TQ, typename TKV, int kG>
+cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
+                          cudaStream_t stream) {
   constexpr size_t smem = split_smem_bytes<TKV, kG>();
+  void (*kernel)(PagedArgs);
+  if constexpr (kS == Split::kInt8)
+    kernel = paged_attn_int8_split_kernel<TQ, kG>;
+  else if constexpr (kS == Split::kWindow)
+    kernel = paged_attn_window_kernel<TQ, kG>;
+  else
+    kernel = paged_attn_split_kernel<TQ, TKV, kG>;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t e =
-        ptt_allow_smem(paged_attn_split_kernel<TQ, TKV, kQuant, kG>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const cudaError_t e = ptt_allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  paged_attn_split_kernel<TQ, TKV, kQuant, kG>
-      <<<dim3(n, a.hkv, a.splits), kThreads, smem, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
+  kernel<<<dim3(n, a.hkv, blocks), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, bool kQuant, int kG>
+int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
+  cudaError_t e =
+      launch_splits<kQuant ? Split::kInt8 : Split::kFloat, TQ, TKV, kG>(
+          a, n, a.splits, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if constexpr (kQuant) {           // the window's split, in q's dtype
+    if (a.w > 0) {
+      e = launch_splits<Split::kWindow, TQ, TQ, kG>(a, n, 1, stream);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
   paged_attn_combine_kernel<TQ>
-      <<<dim3(n, a.h), kThreads, a.splits * sizeof(float), stream>>>(a);
+      <<<dim3(n, a.h), kThreads, n_parts(a) * sizeof(float), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,16 +491,20 @@ int launch(const PagedArgs& a, int n, cudaStream_t stream) {
 }  // namespace
 
 // `pps` pages per split (pps * ps <= 64) and `splits` = ceil(p / pps)
-// blocks per (slot, kv head); `ws` is the fp32 workspace
-// [n, hkv, splits, h / hkv, 130].
+// blocks per (slot, kv head); `w` window pages (0: no window; int8 pages
+// only, w * ps <= 64); `ws` is the fp32 workspace
+// [n, hkv, splits + (w > 0), h / hkv, 130].
 PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, const void* k_scales,
-                                   const void* v_scales, void* ws, void* out,
-                                   int n, int h, int hkv, int p, int ps,
-                                   int pps, int splits, float scale,
-                                   int q_dtype, int kv_dtype, void* stream) {
-  if (pps < 1 || pps * ps > kSplitKeys || splits != (p + pps - 1) / pps)
+                                   const void* v_scales, const void* k_win,
+                                   const void* v_win, const void* win_first,
+                                   void* ws, void* out, int n, int h, int hkv,
+                                   int p, int ps, int pps, int splits, int w,
+                                   float scale, int q_dtype, int kv_dtype,
+                                   void* stream) {
+  if (pps < 1 || pps * ps > kSplitKeys || splits != (p + pps - 1) / pps ||
+      w < 0 || w * ps > kSplitKeys || (w > 0 && kv_dtype != PTT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -411,6 +513,9 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               static_cast<const int*>(lengths),
               static_cast<const float*>(k_scales),
               static_cast<const float*>(v_scales),
+              k_win,
+              v_win,
+              static_cast<const int*>(win_first),
               static_cast<float*>(ws),
               out,
               h,
@@ -419,6 +524,7 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               ps,
               pps,
               splits,
+              w,
               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == PTT_F32 && kv_dtype == PTT_F32)

@@ -23,6 +23,12 @@ Three forward modes:
   depends on `start`, so the chunk replays from a CUDA graph at any
   start (`serving/prefill_graph.py`).
 
+A layer's `kv_pages` entry is a `generation.LayerKV` (or a plain (k, v)
+pair). Over int8 pages it carries their scales: the chunk's gather
+dequantizes and its touched pages are requantized whole; the decode
+forward writes its row into the round's float window, which the paged
+kernel reads in place of the window's int8 pages.
+
 Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
 (loss, logits) with the loss from `F.cross_entropy` (the fused CE
 kernels), and `config.use_recompute=True` recomputes each decoder layer
@@ -43,7 +49,7 @@ from ..nn.common_layers import Embedding, Linear
 from ..nn.layer import Layer
 from ..nn.norm import RMSNorm
 from ..ops import kernels
-from .generation import (as_offset, chunk_rows, offset_grid,
+from .generation import (LayerKV, as_offset, chunk_rows, offset_grid,
                          update_kv_cache)
 
 
@@ -150,10 +156,14 @@ class LlamaAttention(Layer):
         v = self.v_proj(hidden).view(b, s, nkv, hd)
         if kv_pages is None:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        elif offset.dim() == 0:
+            return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
+        kv = LayerKV(*kv_pages)
+        scales = None if kv.k_scales is None else (kv.k_scales, kv.v_scales)
+        if offset.dim() == 0:
             if b != 1:
                 raise ValueError('a paged chunk forward takes one slot')
-            k_all, v_all = chunk_rows(*kv_pages, k, v, table, offset, floor)
+            k_all, v_all = chunk_rows(kv.k, kv.v, k, v, table, offset, floor,
+                                      scales)
             used = (offset + s).to(torch.int32).reshape(1)
             out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True,
                                               seqused_k=used)
@@ -161,11 +171,29 @@ class LlamaAttention(Layer):
             if s != 1 or offset.dim() != 1:
                 raise ValueError('the paged decode forward takes one token '
                                  'per slot and a [N] position offset')
-            k_pages, v_pages = kv_pages
-            update_kv_cache(k_pages, v_pages, k, v, table, offset)
             lengths = (offset + 1).to(torch.int32)
-            out = kernels.paged_attention(q[:, 0], k_pages, v_pages, table,
-                                          lengths)[:, None]
+            if scales is None:
+                update_kv_cache(kv.k, kv.v, k, v, table, offset)
+                out = kernels.paged_attention(q[:, 0], kv.k, kv.v, table,
+                                              lengths)
+            else:
+                if kv.k_win is None:
+                    raise ValueError('a decode forward over int8 pages '
+                                     'writes into the round\'s float window '
+                                     '(serving/decode_graph.py)')
+                # the new row goes into the window, never into an int8
+                # page: the round's end requantizes the touched pages
+                ps = kv.k.shape[1]
+                n = torch.arange(b, device=offset.device)
+                w = torch.div(offset, ps, rounding_mode='floor') - \
+                    kv.win_first
+                kv.k_win[n, w, offset % ps] = k[:, 0].to(kv.k_win.dtype)
+                kv.v_win[n, w, offset % ps] = v[:, 0].to(kv.v_win.dtype)
+                out = kernels.paged_attention(
+                    q[:, 0], kv.k, kv.v, table, lengths,
+                    k_scales=kv.k_scales, v_scales=kv.v_scales,
+                    k_win=kv.k_win, v_win=kv.v_win, win_first=kv.win_first)
+            out = out[:, None]
         return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
 
 

@@ -80,7 +80,7 @@ _ARGTYPES = {
     'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
-    'paged_attention_fwd': [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+    'paged_attention_fwd': [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
     'adapter_matmul_fwd': [_P] * 7 + [_I] * 8 + [_P],
     'multi_tensor_adam': [_I] + [_P] * 4 + [_F] * 6 + [_I, _P] + [_I] * 4
     + [_P],
@@ -542,13 +542,17 @@ def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
-                              k_scales=None, v_scales=None, sm_scale=None):
+                              k_scales=None, v_scales=None, sm_scale=None,
+                              k_win=None, v_win=None, win_first=None):
     """Plain version, the JAX package's `paged_attention_reference` in
     torch: gather every page of the table, dequantize, masked attend.
 
     q [N, H, D]; k/v_pages [num_pages, ps, HKV, D]; table [N, P] int32;
     lengths [N] int32; k/v_scales [num_pages, HKV] f32 for int8 pages.
-    A slot with length 0 gets the uniform average of its gathered pages."""
+    With the window k/v_win [N, W, ps, HKV, D] and win_first [N] int32,
+    logical page i of slot n with win_first[n] <= i < win_first[n] + W
+    is read from the window (no scale) in place of its page. A slot with
+    length 0 gets the uniform average of its gathered pages."""
     n, h, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     p = table.shape[1]
@@ -561,6 +565,17 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
         k = k * k_scales[idx][:, :, None, :, None]
     if v_scales is not None:
         v = v * v_scales[idx][:, :, None, :, None]
+    if k_win is not None:
+        # window pages past the table go to a spare page P, dropped after
+        w = k_win.shape[1]
+        at = win_first.long()[:, None] + torch.arange(w, device=q.device)
+        at = torch.where(at < p, at, p)
+        rows = torch.arange(n, device=q.device)[:, None]
+        k = torch.cat([k, k[:, :1]], dim=1)
+        v = torch.cat([v, v[:, :1]], dim=1)
+        k[rows, at] = k_win.float()
+        v[rows, at] = v_win.float()
+        k, v = k[:, :p], v[:, :p]
     k = k.reshape(n, p * ps, hkv, d)
     v = v.reshape(n, p * ps, hkv, d)
     g = h // hkv
@@ -582,7 +597,8 @@ def paged_split(p: int, ps: int):
 
 
 def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
-                    v_scales=None, sm_scale=None):
+                    v_scales=None, sm_scale=None, k_win=None, v_win=None,
+                    win_first=None):
     """Decode attention over a page-table KV pool (shapes as in
     `paged_attention_reference`). On the card a slot with length 0
     computes its first page only (finite, meaningless: callers mask
@@ -590,19 +606,33 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     kernel splits each slot's context into runs of at most
     PAGED_SPLIT_KEYS keys (`paged_split`) and combines them in a second
     kernel, over an fp32 workspace it takes from the caching allocator;
-    it takes pages of at most PAGED_SPLIT_KEYS rows."""
+    it takes pages of at most PAGED_SPLIT_KEYS rows.
+
+    Over int8 pages a decode round passes its float window (k/v_win in
+    q.dtype, win_first int32 on the device): the int8 splits skip the
+    window's pages, and one more split per (slot, kv head) attends the
+    window's W * ps <= PAGED_SPLIT_KEYS rows, so each split reads one
+    dtype. The call counts once."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
+    window = (k_win, v_win, win_first)
+    if any(t is None for t in window) != all(t is None for t in window):
+        raise ValueError('pass k_win, v_win and win_first together or none')
+    if k_win is not None and k_scales is None:
+        raise ValueError('the float window is read over int8 pages only')
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q, k_pages, v_pages, table, lengths, k_scales, v_scales):
+    if _on_cpu(q, k_pages, v_pages, table, lengths, k_scales, v_scales,
+               k_win, v_win, win_first):
         return paged_attention_reference(
             q, k_pages, v_pages, table, lengths, k_scales=k_scales,
-            v_scales=v_scales, sm_scale=sm_scale)
+            v_scales=v_scales, sm_scale=sm_scale, k_win=k_win, v_win=v_win,
+            win_first=win_first)
     n, h, d = q.shape
     num_pages, ps, hkv = k_pages.shape[:3]
     p = table.shape[1]
     quant = k_scales is not None
+    w = 0 if k_win is None else k_win.shape[1]
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f'paged kernel takes an f32 or bf16 query, got {q.dtype}')
     _require(k_pages.dtype == v_pages.dtype
@@ -624,28 +654,41 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
                  and tuple(k_scales.shape) == (num_pages, hkv)
                  and tuple(v_scales.shape) == (num_pages, hkv),
                  'scales must be f32 [num_pages, HKV]')
+    if w:
+        _require(k_win.dtype == q.dtype and v_win.dtype == q.dtype
+                 and tuple(k_win.shape) == (n, w, ps, hkv, d)
+                 and tuple(v_win.shape) == (n, w, ps, hkv, d)
+                 and win_first.dtype == torch.int32
+                 and tuple(win_first.shape) == (n,),
+                 'the window must be [N, W, ps, HKV, D] in q.dtype, with '
+                 'win_first int32 [N]')
+        _require(w * ps <= PAGED_SPLIT_KEYS,
+                 f'the window holds at most {PAGED_SPLIT_KEYS} rows, got '
+                 f'W={w} pages of {ps}')
     _require(1 <= ps <= PAGED_SPLIT_KEYS and p >= 1,
              f'paged kernel takes pages of 1..{PAGED_SPLIT_KEYS} rows and a '
              f'table of >= 1 page, got ps={ps} P={p}')
     tensors = [q, k_pages, v_pages, table, lengths] + (
-        [k_scales, v_scales] if quant else [])
+        [k_scales, v_scales] if quant else []) + (
+        [k_win, v_win, win_first] if w else [])
     _require(all(t.is_contiguous() for t in tensors),
              'paged kernel takes contiguous tensors')
-    _require(_aligned16(k_pages, v_pages),
-             'paged kernel needs 16-byte-aligned page pools')
+    _require(_aligned16(k_pages, v_pages, *([k_win, v_win] if w else [])),
+             'paged kernel needs 16-byte-aligned page pools and windows')
     out = torch.empty_like(q)
     if n == 0:
         return out
     pps, splits = paged_split(p, ps)
-    ws = torch.empty((n, hkv, splits, h // hkv, d + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = torch.empty((n, hkv, splits + (1 if w else 0), h // hkv, d + 2),
+                     dtype=torch.float32, device=q.device)
     lib, fn = _entry('paged_attention', 'paged_attention_fwd')
+    ptr = (lambda t: None if t is None else t.data_ptr())
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), lengths.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None, ws.data_ptr(),
-            out.data_ptr(), n, h, hkv, p, ps, pps, splits, float(sm_scale),
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], _stream(q))
+            table.data_ptr(), lengths.data_ptr(), ptr(k_scales),
+            ptr(v_scales), ptr(k_win), ptr(v_win), ptr(win_first),
+            ws.data_ptr(), out.data_ptr(), n, h, hkv, p, ps, pps, splits, w,
+            float(sm_scale), _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pages.dtype], _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
     LAUNCHES['paged_attention'] += 1
     return out

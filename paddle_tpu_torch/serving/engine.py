@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV pool
 (counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
-`kv_page_size` set, unquantized, with the prefix cache and chunked
-prefill, without int8 KV or a draft model).
+`kv_page_size` set, unquantized or with `kv_quant='int8'`, with the
+prefix cache and chunked prefill, without a draft model).
 
 One engine is one event loop: `step()` admits queued requests into free
 slots (reserving every page each can touch, and requeueing on
@@ -52,6 +52,25 @@ floor are device buffers, so one chunk graph serves every start.
 bodies uncaptured on the card (the eager twin of the tests and
 `chip_smoke.py`); on the CPU nothing is captured.
 
+With `kv_quant='int8'` the pages are int8 with per-(page, kv head)
+scales (`kv_pool.PagedSlotPool(quant='int8')`): a whole prefill
+quantizes each page it touches from its rows and zeros past the bucket,
+a chunk requantizes the pages it touches from the slot's dequantized
+row, and a decode round keeps the pages it can touch in a float window
+that its sub-steps write and the paged kernel reads, requantizing the
+touched ones at the round's end (`decode_graph.DecodeStep`), which is
+what the JAX engine's gather, compute and scatter of touched pages
+does. Shared prefix pages are never requantized: the floor keeps a
+chunk's writes off them, and the full hit's last page is split off
+first.
+
+A request whose admission or prefill chunk raises fails alone
+(`FAILED`, counted in `stats()['failed']`): its slot, pages, prefix
+node and adapter pin are released and the engine keeps serving, as the
+JAX engine does. A failed graph capture or replay (`GraphError`) and a
+CUDA error are not a request's failure: what the device holds is in
+doubt, so they escape `step()`.
+
 Greedy requests take the raw argmax, so their tokens never depend on
 batch neighbours; sampling requests draw from their own
 `torch.Generator`, seeded from `SamplingParams.seed`, between replays.
@@ -78,11 +97,18 @@ from ..nlp.generation import cached_forward
 from ..framework import generator as _generator
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
-from .decode_graph import DecodeStep
+from .decode_graph import DecodeStep, GraphError
 from .kv_pool import PagePoolExhausted, PagedSlotPool
 from .prefill_graph import PrefillStep
 from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .scheduler import FCFSScheduler
+
+
+def _device_fault(exc: Exception) -> bool:
+    """A failed graph capture or replay, or a CUDA error (PyTorch's or a
+    kernel wrapper's): fatal to the engine, not one request's failure."""
+    return isinstance(exc, GraphError) or 'CUDA error' in str(exc) or \
+        type(exc).__name__ == 'AcceleratorError'
 
 
 class InferenceEngine:
@@ -114,6 +140,9 @@ class InferenceEngine:
         prefill_chunk_tokens: prompts longer than this prefill one chunk
             (at its length bucket) per `step()`; None = whole prefills
             (a prefix hit's suffix is then one chunk).
+        kv_quant: 'int8' stores the paged KV as int8 with per-(page, kv
+            head) absmax scales (half the bytes of bf16 KV); None keeps
+            it in the model's dtype.
     """
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 256,
@@ -124,7 +153,8 @@ class InferenceEngine:
                  max_wait_s: Optional[float] = None,
                  kv_page_size: int = 16, kv_pages: Optional[int] = None,
                  adapter_bank=None, prefix_cache=None,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 kv_quant: Optional[str] = None):
         cfg = getattr(model, 'config', None)
         max_pos = getattr(cfg, 'max_position_embeddings', None)
         if max_pos is not None and max_length > max_pos:
@@ -144,7 +174,7 @@ class InferenceEngine:
         self.adapter_bank = adapter_bank
         self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
                                   page_size=int(kv_page_size),
-                                  num_pages=kv_pages)
+                                  num_pages=kv_pages, quant=kv_quant)
         self.scheduler = FCFSScheduler(max_prefill_tokens,
                                        max_wait_s=max_wait_s)
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
@@ -192,7 +222,8 @@ class InferenceEngine:
         self._decode = DecodeStep(
             self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
             self.pool.max_length, self.decode_block, self.device,
-            None if adapter_bank is None else adapter_bank.device_arrays())
+            None if adapter_bank is None else adapter_bank.device_arrays(),
+            scales=self.pool.scales, compute_dtype=self.pool.compute_dtype)
         # (kind, bucket) -> PrefillStep, built at first use
         self._prefill_steps: dict = {}
         self._prefill_pool = None       # the prefill graphs' memory pool
@@ -311,12 +342,18 @@ class InferenceEngine:
         return toks
 
     def _queue_round(self) -> torch.Tensor:
+        """Stage the round's host state (`_stage_round`) and queue its
+        sub-steps (`DecodeStep.run`); returns the device [num_slots,
+        decode_block] token buffer."""
+        return self._stage_round().run(self._active & ~self._greedy,
+                                       self._gens)
+
+    def _stage_round(self) -> DecodeStep:
         """Stage the round's host state into the sub-step's static
-        buffers and queue its sub-steps (`DecodeStep`); returns the
-        device [num_slots, decode_block] token buffer. Inactive slots
-        have their table row redirected to the null page, so their
-        writes land nowhere real. Captures the sub-step first when this
-        is the engine's first round on the card."""
+        buffers; returns the step. Inactive slots have their table row
+        redirected to the null page, so their writes land nowhere real.
+        Captures the sub-step first when this is the engine's first round
+        on the card."""
         step = self._decode
         if self._capture_decode and step.graph is None:
             t0 = time.perf_counter()
@@ -330,7 +367,7 @@ class InferenceEngine:
         if self.adapter_bank is not None:
             staged['rows'] = self._adapter_rows
         step.stage(**staged)
-        return step.run(self._active & ~self._greedy, self._gens)
+        return step
 
     def run(self) -> int:
         """Drive until queue and slots drain; returns iterations."""
@@ -384,9 +421,7 @@ class InferenceEngine:
             except AdapterUnavailable as exc:
                 # evicted since submit: a request-level failure; the
                 # engine keeps serving everyone else
-                self.pool.free(slot)
-                h._fail(exc)
-                self._counts['failed'] += 1
+                self._fail_request(slot, h, exc)
                 continue
             except PagePoolExhausted:
                 # not a failure: free the slot (which drops any attached
@@ -398,6 +433,12 @@ class InferenceEngine:
                     self.scheduler.requeue(back)
                 self._counts['requeued'] += len(admitted) - idx
                 break
+            except Exception as exc:
+                # a request-level failure (the JAX engine's _admit): fail
+                # this handle, keep serving everyone else
+                if _device_fault(exc):
+                    raise
+                self._fail_request(slot, h, exc)
 
     def _prefix_ns(self, h: RequestHandle):
         """The prefix-cache namespace of this request's KV: an adapter
@@ -471,7 +512,8 @@ class InferenceEngine:
         the whole prompt (short and cold), or enter the chunked-prefill
         state machine (a suffix, or a long prompt). Raises
         AdapterUnavailable or PagePoolExhausted with nothing of the
-        request left in the engine."""
+        request left in the engine; `_admit` fails the request on any
+        other exception (`_fail_request`)."""
         s = len(h.prompt_tokens)
         self._pin_adapter(slot, h)
         try:
@@ -515,7 +557,8 @@ class InferenceEngine:
                 kind, bucket, self.model, self.pool.pages,
                 self.pool.pages_per_slot, self.device,
                 None if self.adapter_bank is None
-                else self.adapter_bank.device_arrays())
+                else self.adapter_bank.device_arrays(),
+                scales=self.pool.scales)
         if self._capture_prefill and step.graph is None:
             if self._prefill_pool is None:
                 self._prefill_pool = torch.cuda.graph_pool_handle()
@@ -565,7 +608,12 @@ class InferenceEngine:
         decode in the same step."""
         for slot in list(self._prefilling):
             h, cursor = self._prefilling[slot]
-            self._prefill_chunk(slot, h, cursor)
+            try:
+                self._prefill_chunk(slot, h, cursor)
+            except Exception as exc:
+                if _device_fault(exc):
+                    raise
+                self._fail_request(slot, h, exc)
 
     def _prefill_chunk(self, slot: int, h: RequestHandle, cursor: int):
         """Prefill the prompt window [start, start + bucket) of `slot`
@@ -629,20 +677,37 @@ class InferenceEngine:
             h._adapter_pin = None
         self._adapter_rows[slot] = 0
 
+    def _detach_slot(self, slot: int, h: RequestHandle):
+        """The slot teardown that failure and retirement share (the JAX
+        engine's `_detach_slot`): drop the engine's references to `h`,
+        release its prefix node and unpin its adapter. The pool slot is
+        freed by the caller: retirement first hands its pages to the
+        prefix cache."""
+        self._slot_req.pop(slot, None)
+        self._active[slot] = False
+        self._prefilling.pop(slot, None)
+        self._greedy[slot] = True
+        self._gens[slot] = None
+        if h._prefix_node is not None:
+            self.prefix_cache.release(h._prefix_node)
+            h._prefix_node = None
+        self._unpin_adapter(slot, h)
+
+    def _fail_request(self, slot: int, h: RequestHandle, exc: Exception):
+        """Fail `h` alone: detach it, free its slot and pages, mark the
+        handle FAILED with `exc` and count it."""
+        self._detach_slot(slot, h)
+        self.pool.free(slot)
+        h._fail(exc)
+        self._counts['failed'] += 1
+
     def _retire(self, slot: int, h: RequestHandle, now: float):
         """Finish `h`, release its prefix pin and adapter, hand the
         prompt's full pages to the prefix cache (a `PageHold`: its rows
         [0, prompt_len) are the prompt's prefill KV, under the request's
         namespace) and free the slot; held pages survive the free."""
         h._finish(now)
-        if h._prefix_node is not None:
-            self.prefix_cache.release(h._prefix_node)
-            h._prefix_node = None
-        self._unpin_adapter(slot, h)
-        del self._slot_req[slot]
-        self._active[slot] = False
-        self._greedy[slot] = True
-        self._gens[slot] = None
+        self._detach_slot(slot, h)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(h.prompt_tokens, slot,
                                      namespace=self._prefix_ns(h))

@@ -1,5 +1,5 @@
-"""Paged KV pool (counterpart of `paddle_tpu/serving/kv_pool.py`, the
-unquantized `PagedSlotPool`).
+"""Paged KV pool (counterpart of `paddle_tpu/serving/kv_pool.py`,
+`PagedSlotPool`, unquantized or with `quant='int8'`).
 
 KV storage is one [num_pages, page_size, HKV, D] tensor per layer for K
 and one for V, on the model's device. A slot owns a page list (a row of
@@ -23,6 +23,13 @@ Prefill shapes are length-bucketed: a prompt of length s runs at the
 smallest bucket >= s (right-padded; pad KV lands above the live position,
 where the decode lengths mask it until the slot's own decode overwrites
 it).
+
+With `quant='int8'` the pages are int8 with one f32 scale per (page, kv
+head) (`scales`, per layer (k_scales, v_scales) [num_pages, HKV], 1.0 at
+start): reads dequantize into `compute_dtype`, the model's dtype, and
+every write requantizes the pages it touches, whole, at their fresh
+absmax scale (`nlp.generation.write_pages`); pages it does not touch
+are never rewritten, so a settled page does not drift.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import numpy as np
 import torch
 
 from ..nlp.generation import gather_rows, update_kv_cache
+
+KV_QUANT_MODES = (None, 'int8')
 
 
 class PromptTooLongError(ValueError):
@@ -67,25 +76,35 @@ def _normalize_buckets(buckets, max_length: int) -> Tuple[int, ...]:
 
 
 def scatter_pages(pages, table: torch.Tensor, slab, start,
-                  floor=None) -> None:
+                  floor=None, scales=None) -> None:
     """Write a contiguous per-layer K/V slab into the pool, in place.
 
     `pages` is the pool's per-layer [(k_pages, v_pages)], `slab` the
     per-layer [(k, v)] rows [N, L, HKV, D] starting at position start[n]
     of slot row n of `table` [N, P]. Rows on unreserved entries fall on
     the null page, and so do rows whose page ends at or below `floor`
-    (rows, scalar or [N]; the prefix-attach boundary)."""
-    for (k_pages, v_pages), (k, v) in zip(pages, slab):
-        update_kv_cache(k_pages, v_pages, k, v, table, start, floor)
+    (rows, scalar or [N]; the prefix-attach boundary). With `scales`
+    (the int8 pool's per-layer (k_scales, v_scales)) each page the span
+    touches is requantized whole from the slab's rows and zeros in the
+    rest of the page, as the JAX whole prefill writes it from a zero slab;
+    windows outside the span go to the null page."""
+    for i, ((k_pages, v_pages), (k, v)) in enumerate(zip(pages, slab)):
+        update_kv_cache(k_pages, v_pages, k, v, table, start, floor,
+                        None if scales is None else scales[i])
 
 
-def gather_pages(pages, table_row: torch.Tensor, length: int) -> list:
+def gather_pages(pages, table_row: torch.Tensor, length: int,
+                 scales=None, dtype=None) -> list:
     """The slot's rows [0, length) as contiguous per-layer (k, v)
     [1, length, HKV, D], read through its page table row `table_row`
-    [1, P] (counterpart of the JAX `gather_pages`, unquantized)."""
-    return [(gather_rows(k_pages, table_row, length),
-             gather_rows(v_pages, table_row, length))
-            for k_pages, v_pages in pages]
+    [1, P] (counterpart of the JAX `gather_pages`); with `scales` (the
+    int8 pool's per-layer (k_scales, v_scales)) dequantized into
+    `dtype`."""
+    if scales is None:
+        scales = [(None, None)] * len(pages)
+    return [(gather_rows(k_pages, table_row, length, ks, dtype),
+             gather_rows(v_pages, table_row, length, vs, dtype))
+            for (k_pages, v_pages), (ks, vs) in zip(pages, scales)]
 
 
 class PageHold:
@@ -116,11 +135,13 @@ class PagedSlotPool:
     page.
 
     Storage is `model.init_cache(num_pages, page_size)`, in the model's
-    dtype."""
+    dtype, or with `quant='int8'` int8 pages of the same shape (zeros)
+    and their f32 scales (ones)."""
 
     def __init__(self, model, num_slots: int, max_length: int,
                  buckets: Optional[Sequence[int]] = None,
-                 *, page_size: int = 16, num_pages: Optional[int] = None):
+                 *, page_size: int = 16, num_pages: Optional[int] = None,
+                 quant: Optional[str] = None):
         if num_slots < 1:
             raise ValueError('num_slots must be >= 1')
         if max_length < 2:
@@ -131,6 +152,9 @@ class PagedSlotPool:
             raise ValueError(
                 f'max_length {max_length} must be a multiple of '
                 f'page_size {page_size} (the page table is dense)')
+        if quant not in KV_QUANT_MODES:
+            raise ValueError(f"kv quant mode {quant!r} not supported "
+                             f"(None or 'int8')")
         self.num_slots = int(num_slots)
         self.max_length = int(max_length)
         self.page_size = int(page_size)
@@ -143,9 +167,29 @@ class PagedSlotPool:
                 f'num_pages {self.num_pages} cannot seat even one '
                 f'max-length request ({self.pages_per_slot} pages + '
                 f'the null page)')
-        self.pages = model.init_cache(self.num_pages, self.page_size)
-        self.page_bytes = sum(k.nbytes + v.nbytes
-                              for k, v in self.pages) // self.num_pages
+        self.quant = quant
+        if quant == 'int8':
+            # the layout of one page, then int8 pages and f32 scales
+            one = model.init_cache(1, self.page_size)
+            self.compute_dtype = one[0][0].dtype
+            self.pages = [tuple(torch.zeros((self.num_pages,) + t.shape[1:],
+                                            dtype=torch.int8,
+                                            device=t.device) for t in kv)
+                          for kv in one]
+            self.scales = [tuple(torch.ones((self.num_pages, t.shape[2]),
+                                            dtype=torch.float32,
+                                            device=t.device) for t in kv)
+                           for kv in one]
+        else:
+            self.pages = model.init_cache(self.num_pages, self.page_size)
+            self.compute_dtype = self.pages[0][0].dtype
+            self.scales = None
+        # a page's bytes: K and V of every layer, and their scales
+        self.page_bytes = sum(t.nbytes for kv in self.pages for t in kv)
+        if self.scales is not None:
+            self.page_bytes += sum(t.nbytes for kv in self.scales
+                                   for t in kv)
+        self.page_bytes //= self.num_pages
         self.pool_bytes = self.page_bytes * self.num_pages
         self.buckets = _normalize_buckets(buckets, self.max_length)
         # host-side address map + refcounts: entry 0 = unreserved/null
@@ -275,9 +319,9 @@ class PagedSlotPool:
             raise PagePoolExhausted(
                 'no free page for a copy-on-write split')
         npid = self._free_pages.pop()
-        for k_pages, v_pages in self.pages:
-            k_pages[npid].copy_(k_pages[pid])
-            v_pages[npid].copy_(v_pages[pid])
+        for kv in self.pages + (self.scales or []):
+            for t in kv:
+                t[npid].copy_(t[pid])
         self._page_refs[npid] = 1
         self.page_table[slot, i] = npid
         self._decref(pid)
@@ -345,6 +389,7 @@ class PagedSlotPool:
                 'shared_pages': int(np.sum(self._page_refs[1:] > 1)),
                 'holds_live': self._holds_live,
                 'cow_splits': self._cow_splits,
+                'kv_quant': self.quant,
                 'buckets': list(self.buckets),
                 'page_bytes': self.page_bytes,
                 'pool_bytes': self.pool_bytes,

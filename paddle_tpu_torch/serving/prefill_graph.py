@@ -15,13 +15,19 @@ with an adapter bank the slot's bank row [1]. A call refills them with
 The bodies:
 - `whole`: the causal no-cache forward of the bucket (`prefill_kv`), its
   per-layer K/V slab scattered into the slot's pages from row 0 (pad
-  rows past the reservation land on the null page);
+  rows past the reservation land on the null page); over int8 pages
+  each page the bucket touches is quantized whole from the slab's rows
+  and zeros past the bucket, as the JAX prefill writes it from a zero
+  slab, so rows an earlier occupant left in the page never reach its
+  scale;
 - `chunk`: the chunk forward of `nlp.generation.chunk_rows`: per layer,
   the slot's whole table row gathered into a fixed-shape buffer, the
   chunk's fresh rows written into it at [start, start + bucket) and
   into the pages above `floor`, and the causal flash kernel over the
   buffer with the key count start + bucket read from device memory. No
   host value depends on the start, so one graph serves every start.
+  Over int8 pages the gather dequantizes and the touched pages above
+  the floor are requantized whole from the gathered row.
 
 Capture, on a CUDA device, is `GraphStep.capture`: a warm-up over zeroed
 buffers (every write lands on the null page 0) on a side stream, then
@@ -55,11 +61,12 @@ class PrefillStep(GraphStep):
         table_width: P, the page table's width.
         adapter_arrays: `AdapterBank.device_arrays()`, or None without a
             bank.
+        scales: the int8 pool's per-layer (k_scales, v_scales), or None.
     """
 
     def __init__(self, kind: str, bucket: int, model, pages,
                  table_width: int, device: torch.device,
-                 adapter_arrays=None):
+                 adapter_arrays=None, scales=None):
         if kind not in KINDS:
             raise ValueError(f'prefill kind {kind!r} is not one of {KINDS}')
         self.kind, self.bucket = kind, int(bucket)
@@ -69,6 +76,7 @@ class PrefillStep(GraphStep):
                      else f'paged_prefill_{self.bucket}')
         self._model = model
         self._pages = pages
+        self._scales = scales
         self._arrays = adapter_arrays
         spec = {'ids': ((1, self.bucket), torch.int64),
                 'table': ((1, table_width), torch.int32)}
@@ -84,9 +92,13 @@ class PrefillStep(GraphStep):
         b = self.buf
         with adapter_scope(self._arrays, b.get('rows')):
             if self.kind == 'chunk':
+                layers = (self._pages if self._scales is None else
+                          [kv + sc for kv, sc in zip(self._pages,
+                                                     self._scales)])
                 self._model.prefill_kv(b['ids'], start=b['start'],
-                                       kv_pages=self._pages,
+                                       kv_pages=layers,
                                        table=b['table'], floor=b['floor'])
             else:
                 scatter_pages(self._pages, b['table'],
-                              self._model.prefill_kv(b['ids']), self._zero)
+                              self._model.prefill_kv(b['ids']), self._zero,
+                              scales=self._scales)

@@ -367,9 +367,14 @@ class RadixPrefixCache:
         after a donated decode program failed mid-call, where every
         retained row is already invalid. Pins are left intact: the
         failing requests release them during their own teardown, and a
-        released node that was force-evicted is simply unowned."""
+        released node that was force-evicted is simply unowned.
+        Entries go least recently used first: the JAX cache walks its
+        owner set, whose order follows object ids, and a fixed order
+        keeps the pool's free list, so which pages later requests reuse,
+        the same from run to run (an int8 page requantizes the stale rows
+        a reused page still holds with its live ones)."""
         if force:
-            for n in list(self._owners):
+            for n in sorted(self._owners, key=lambda n: n.last_use):
                 self._evict_node(n)
             return
         while self.evict_lru():

@@ -229,6 +229,52 @@ def test_paged_split_kernel_matches_plain(cuda, dtype, quant, case):
                                             k_scales=ks, v_scales=vs), dtype)
 
 
+# (length, window's first page): the round's first row at offsets 0, 9
+# and 15 of its page, a length-1 slot, a window at the table's end (its
+# second page past the table), a window in a split's middle, and an
+# inactive slot (its table row the null page, parked at the last row)
+_WINDOW_SLOTS = ((1, 0), (10, 0), (16, 0), (17, 1), (160, 9), (100, 6),
+                 (70, 4), (160, 9))
+
+
+@pytest.mark.parametrize('w', [1, 2])
+@pytest.mark.parametrize('dtype,hkv', [
+    (torch.float32, 4), (torch.bfloat16, 4), (torch.float32, 1),
+    (torch.bfloat16, 2)])
+def test_paged_kernel_with_window_matches_plain(cuda, dtype, hkv, w):
+    """Over int8 pages with the decode round's float window: the window
+    holds other values than the int8 pages it stands for, so a kernel
+    that read those pages, or a window page past its slot's length,
+    fails; one call counts one launch."""
+    g = torch.Generator(device=cuda).manual_seed(hkv + 10 * w)
+    n, h, p, ps = len(_WINDOW_SLOTS), 8, 10, 16
+    num_pages = n * p + 1
+    q = _randn(g, dtype, n, h, 128)
+    shape = (num_pages, ps, hkv, 128)
+    kp, vp = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+              + 1e-3 for _ in range(2))
+    kw, vw = (_randn(g, dtype, n, w, ps, hkv, 128) for _ in range(2))
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0
+    lens = torch.tensor([ln for ln, _ in _WINDOW_SLOTS], device=cuda,
+                        dtype=torch.int32)
+    first = torch.tensor([f for _, f in _WINDOW_SLOTS], device=cuda,
+                         dtype=torch.int32)
+    kw_args = dict(k_scales=ks, v_scales=vs, k_win=kw, v_win=vw,
+                   win_first=first)
+    before = K.LAUNCHES['paged_attention']
+    got = K.paged_attention(q, kp, vp, table, lens, **kw_args)
+    assert K.LAUNCHES['paged_attention'] == before + 1
+    want = K.paged_attention_reference(q, kp, vp, table, lens, **kw_args)
+    _close_attention(got, want, dtype)
+    without = K.paged_attention_reference(q, kp, vp, table, lens,
+                                          k_scales=ks, v_scales=vs)
+    assert not torch.allclose(got.float(), without.float(), atol=1e-2)
+
+
 def test_paged_wrapper_raises_on_pages_past_a_split(cuda):
     """A page of more rows than a split holds (PAGED_SPLIT_KEYS) has no
     kernel: the wrapper raises and launches nothing."""
@@ -939,6 +985,115 @@ def test_a_failed_prefill_capture_raises(cuda, monkeypatch):
     assert eng.stats()['traces'] == {}
     assert eng._prefill_steps[('whole', 8)].graph is None
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# int8 paged KV: the captured round with its window, and a failing chunk
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('prefix,banked', [(False, False), (True, False),
+                                           (True, True)])
+def test_int8_graph_engine_equals_its_eager_twin(cuda, prefix, banked):
+    """`kv_quant='int8'` (bf16 model): the engine that replays its
+    decode round (the window's fill, the sub-steps, the requantize) and
+    its prefills from CUDA graphs gives its eager twin's tokens and
+    launch counts, with and without the prefix cache and chunks and an
+    adapter bank; the paged kernel runs once per layer of every sub-step
+    and `traces` keeps the JAX engine's keys."""
+    from paddle_tpu_torch.serving import (SAMPLING, AdapterBank,
+                                          make_adapter_factors)
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(14, cuda))
+    bank = ids = None
+    if banked:
+        bank = AdapterBank(model, capacity=2, rank=8,
+                           targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+        for i in range(2):
+            bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
+        ids = ['ad0', None, 'ad1', 'ad0', None, 'ad1']
+    g = torch.Generator().manual_seed(15)
+    rand = lambda n: torch.randint(1, 512, (n,), generator=g).tolist()
+    system = rand(40)
+    prompts = [system + rand(n) for n in (3, 20, 9)] + [rand(100), rand(5),
+                                                         system + rand(50)]
+    params = [SamplingParams(max_new_tokens=14, eos_token_id=-1)
+              for _ in prompts]
+    params[2] = SamplingParams(max_new_tokens=14, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=3)
+    opts = dict(prefix_cache=0.5, prefill_chunk_tokens=32) if prefix else {}
+    runs = []
+    for graph in (True, False):
+        eng = InferenceEngine(model, num_slots=3, max_length=128,
+                              decode_block=4, adapter_bank=bank,
+                              kv_quant='int8', **opts)
+        eng._capture_decode = eng._capture_prefill = graph
+        toks = []
+        for _ in range(2):      # the first pass captures what it uses
+            if prefix:
+                eng.prefix_cache.clear(force=True)
+            eng.reset_stats()
+            K.reset_launch_counts()
+            toks.append([h.tokens for h in eng.generate_many(
+                prompts, params, adapter_ids=ids)])
+        assert toks[0] == toks[1]
+        runs.append((toks[1], dict(K.LAUNCHES), eng))
+    (graph_toks, graph_launches, graph_eng), (eager_toks, eager_launches,
+                                              eager_eng) = runs
+    assert graph_toks == eager_toks
+    assert graph_launches == eager_launches
+    st = graph_eng.stats()
+    assert graph_launches['paged_attention'] == 2 * st['decode_steps']
+    assert st['traces'] == _traces(graph_eng)
+    assert eager_eng.stats()['traces'] == {}
+    assert st['pool']['kv_quant'] == 'int8'
+    if prefix:
+        assert st['chunk_rounds'] > 0 and st['prefix_cache']['hits'] > 0
+        graph_eng.prefix_cache.clear(force=True)
+    assert graph_eng.pool.free_page_count == graph_eng.pool.num_pages - 1
+
+
+@pytest.mark.parametrize('quant', [None, 'int8'])
+def test_a_failing_chunk_fails_alone_on_the_graph_engine(cuda, quant):
+    """On the graph engine a request whose second chunk raises (an
+    injected Python exception) fails alone, its pages come back, and a
+    later request replays the same chunk graph and gets its eager twin's
+    tokens."""
+    from paddle_tpu_torch.serving import FAILED, FINISHED
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(16, cuda))
+    g = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (100, 12, 90)]
+    sp = SamplingParams(max_new_tokens=8, eos_token_id=-1)
+    kw = dict(num_slots=3, max_length=128, decode_block=4,
+              prefill_chunk_tokens=32, kv_quant=quant)
+    eng = InferenceEngine(model, **kw)
+    chunk = eng._prefill_chunk
+    calls = []
+
+    def failing(slot, h, cursor):
+        if h.prompt_tokens == prompts[0]:
+            calls.append(cursor)
+            if len(calls) == 2:
+                raise RuntimeError('injected')
+        return chunk(slot, h, cursor)
+
+    eng._prefill_chunk = failing
+    hs = eng.generate_many(prompts[:2], sp)
+    assert [h.status for h in hs] == [FAILED, FINISHED]
+    assert eng.stats()['failed'] == 1
+    assert eng.pool.free_page_count == eng.pool.num_pages - 1
+    step = eng._prefill_steps[('chunk', 32)]
+    assert step.graph is not None
+    again = eng.generate_many(prompts, sp)     # the injection is spent
+    twin = InferenceEngine(model, **kw)
+    twin._capture_decode = twin._capture_prefill = False
+    want = twin.generate_many(prompts, sp)
+    assert [h.status for h in again] == [FINISHED] * 3
+    assert [h.tokens for h in again] == [h.tokens for h in want]
+    assert eng._prefill_steps[('chunk', 32)] is step
+    assert eng.stats()['traces']['paged_chunk_prefill_32'] == 1
 
 
 # ---------------------------------------------------------------------------

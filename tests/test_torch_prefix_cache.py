@@ -190,6 +190,53 @@ def test_snapshot_and_budget_match_jax(kv_model):
     assert tc.held_pages == 2 and tc.reclaimable_pages == 2
 
 
+# the reference's refused insert (paddle_tpu/serving/prefix_cache.py:
+# 322-376, the port's copy at serving/prefix_cache.py:277): with every
+# entry pinned, B's insert walks and splits the trie, is refused (6
+# pages > the budget of 4) and leaves its new leaf with no owner; the
+# later lookup(B) descends into that bare leaf and misses the 32 shared
+# tokens cached beside it, also after a forced clear and A retired
+# again. Both caches must give the same readings, so that a fix on
+# either side shows here.
+A_TOKENS, B_TOKENS = SYS + _toks(16, 50), SYS + _toks(16, 70)
+REFUSED_INSERT = [
+    ('retire', A_TOKENS, None), ('pin', 'a', A_TOKENS, None),
+    ('retire', B_TOKENS, None), ('unpin', 'a'), ('lookup', B_TOKENS, None),
+    ('clear', True), ('retire', A_TOKENS, None), ('lookup', B_TOKENS, None),
+    ('clear', True), ('lookup', A_TOKENS, None)]
+
+
+def test_refused_insert_leaves_the_same_trie_as_jax(kv_model):
+    jp = jpool.PagedSlotPool(_JaxKV(), 4, 64, page_size=16, num_pages=9)
+    tp = PagedSlotPool(kv_model, 4, 64, page_size=16, num_pages=9)
+    jc, tc = JaxPagedCache(jp, 1.0), PagedPrefixCache(tp, 1.0)
+    want = _run_trie(jp, jc, REFUSED_INSERT)
+    got = _run_trie(tp, tc, REFUSED_INSERT)
+    assert got == want
+    assert tc.snapshot() == jc.snapshot()
+    assert tc.budget_pages == jc.budget_pages == 4
+
+
+def test_forced_clear_frees_pages_in_lru_order(kv_model):
+    """`clear(force=True)` releases its entries least recently used
+    first, pinned ones included: the pool's free list comes out in the
+    order an LRU clear gives, whatever the objects' ids (int8 pages keep
+    stale rows that the next occupant requantizes, so which page a
+    request reuses must not vary from run to run)."""
+    orders = []
+    for force in (True, False):
+        tp = PagedSlotPool(kv_model, 4, 64, page_size=16, num_pages=13)
+        tc = PagedPrefixCache(tp, 1.0)
+        _run_trie(tp, tc, [('retire', _toks(32, 3), None),
+                           ('retire', _toks(32, 1), None),
+                           ('retire', _toks(32, 2), None),
+                           ('lookup', _toks(32, 3), None)])
+        tc.clear(force=force)
+        assert tp.free_page_count == tp.num_pages - 1
+        orders.append(list(tp._free_pages))
+    assert orders[0] == orders[1]
+
+
 # ---------------------------------------------------------------------------
 # the engine against the JAX engine
 # ---------------------------------------------------------------------------
