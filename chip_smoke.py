@@ -8,8 +8,10 @@
                                            # time, port in TREE
     python3 chip_smoke.py --int8-rmse      # int8 KV's logit error by
                                            # depth
-    python3 chip_smoke.py --paged-ms TREE  # the paged kernel over float
-                                           # pages, port in TREE
+    python3 chip_smoke.py --paged-ms TREE [OUT]  # the paged kernel over
+                                           # float pages, port in TREE
+                                           # (OUT: its outputs saved)
+    python3 chip_smoke.py --paged-bits A B # two saved outputs bit-equal?
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -26,7 +28,10 @@ result line):
    captured chunk's call), int8 pages, int8 pages with the decode
    round's float window (window starts at row offsets 0, 9 and 15 of a
    page, a length-1 slot, an inactive slot on the null page; f32 and
-   bf16, HKV 32 and 8), ignored CE rows, and adapter
+   bf16, HKV 32 and 8), the speculative verify's k + 1 = 5 query rows
+   per slot (f32 and bf16 at the serve shape, HKV 8, over int8 pages with
+   the round's window of W = 2 pages, spans that cross a page boundary,
+   an inactive slot), ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit); then the multi-tensor sum of
    squares and Adam update over the training rung's tensors of one
@@ -56,7 +61,17 @@ result line):
    first decode sub-step's logits equal (to 1e-4) those of the float
    engine over its pages roundtripped through int8 (the JAX bench's
    int8 arm) and lie within the bench's relative RMSE bound of 0.05 of
-   float KV;
+   float KV; then speculative decoding (k = 4) at the same size: the
+   spec engine's tokens equal the plain engine's (greedy and a seeded
+   sampling request) with an independent 1-layer draft and with the
+   target as its own draft, graph == eager, and so with the prefix
+   cache and chunks and behind a bank; with int8 KV graph == eager (the
+   plain int8 engine's tokens logged: the verify's rejected rows enter
+   the touched pages' requantize scales); `traces` exactly the
+   round and the prefill and draft-prefill buckets run; a swap to
+   perturbed weights and a restore give the pre-swap tokens bit for bit
+   with `traces` unchanged; `drain()` finishes every accepted request,
+   one parked mid-chunk included; `evict_all()` frees every page;
 4. train consistency: the same width at 2 layers in f32 (TF32 off), one
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
@@ -131,6 +146,21 @@ result line):
    holds at its 4 layers, not at 32), every page free after a forced
    clear; pool bytes, decode tok/s, TTFT and peak used
    pages logged beside phases 6 and 6c;
+6e. serve-spec: phase 6's model, requests and engine settings (k = 4,
+   decode rounds of one speculation round) with two drafts in turn, the
+   bench's same-width 2-layer random draft and the model itself, each on
+   the graph engine and its eager twin: tokens equal between the twins,
+   the verify kernel once per layer of every round, `traces` exactly the
+   round and the buckets run; decode tok/s, TTFT, tokens per round per
+   greedy slot and the acceptance rate logged beside phase 6, and how
+   many requests get phase 6's tokens (bf16: a 5-row verify can round
+   differently from a 1-row step; a reading, not a gate);
+6f. drain and swap: a fresh phase-6 engine: `swap_weights` to a host
+   copy of the weights with one layer perturbed and `restore_weights`
+   (their seconds logged), after which the 12 requests get phase 6's
+   tokens; `evict_all()` after two steps hands back all 12 with every
+   page free; `drain()` after two steps finishes all 12 with phase 6's
+   tokens;
    then the host time of one adapted projection (hook, wrapper and
    launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
@@ -152,7 +182,9 @@ result line):
    round, graph and eager, profiled in three windows (the window's
    fill, the sub-steps, the requantize of the touched pages): the
    sub-steps must run the int8 split, window and combine kernels, and
-   the fill and requantize device work;
+   the fill and requantize device work; then one speculation round of
+   phase 6e's 2-layer-draft engine, graph (one replayed round) and eager
+   (the draft sub-steps and the verify in windows of their own);
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
@@ -165,7 +197,10 @@ result line):
    the decode ones also with L2 flushed before each call.
 
 Phases 5, 5b and 6 run before any profiling: once torch.profiler has
-run in a process, every later launch costs the host more.
+run in a process, every later launch costs the host more. Phases 6e and
+6f run right after phase 6, before 6b-6d, while only phase 6's engines
+hold device memory, and free their engines; phase 7 builds fresh spec
+engines once the serve engines are freed.
 
 The last lines are the card's name and power limit, a JSON line with the
 kernel table, and `{"ok": true, "device": {...}}`.
@@ -214,6 +249,10 @@ REPLACES = {
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, int8 '
         'pages; the float window is the JAX decode round\'s float view, '
         'paddle_tpu/serving/engine.py:698-741)',
+    'paged_attention_verify':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, k + 1 '
+        'query rows per slot; the JAX verify is a gather and dense '
+        'attention, paddle_tpu/serving/engine.py:811-835)',
     'softmax_ce_fwd': 'paddle_tpu/ops/pallas_kernels.py:494 (_ce_fwd_kernel)',
     'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
     'adapter_matmul':
@@ -234,6 +273,7 @@ SOURCES = {
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention_verify': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
@@ -258,6 +298,10 @@ INT8_KERNELS = ('paged_attn_int8_split_kernel', 'paged_attn_window_kernel',
                 'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
 ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
+SPEC_KERNELS = SERVE_KERNELS + ('paged_attention_verify',)
+# speculative decoding: k draft tokens a round (bench.py:372), so the
+# verify's k + 1 query rows per slot
+SPEC_K = 4
 # Llama's projections; the bank's default targets name the JAX package's
 # qkv_proj/out_proj
 ADAPTER_TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj')
@@ -644,6 +688,7 @@ def kernel_cases() -> list:
             rep=dtype == torch.bfloat16 and hkv == 32 and not quant)
 
     _paged_window_cases(add, gen, table, lengths)
+    _paged_verify_cases(add, gen)
 
     # RMSNorm: decode (8 rows), prefill (1024 rows) and a training batch
     # (2 x 2048 rows), width 4096
@@ -720,6 +765,78 @@ def _paged_window_cases(add, gen, serve_table, serve_lengths) -> None:
             + below * hkv * 128 * 2 + 2 * int(win_first.sum()) * hkv * 4
             + in_win * hkv * 128 * kw.element_size() * 2,
             4 * 128 * h * int(lengths.sum()), rep=rep)
+
+
+# the verify's key count of query row 0 per slot at the serve shape: rows
+# 510 .. 514 and 14 .. 18 cross a page boundary, 1020 .. 1024 end at the
+# slot's last row
+VERIFY_LENGTHS = (1020, 1000, 777, 510, 254, 100, 14, 1)
+
+
+def _paged_verify_cases(add, gen) -> None:
+    """The paged kernel over k + 1 = 5 query rows per slot (the
+    speculative verify) at the serve shape (8 slots, H 32, ctx <= 1024):
+    f32 and bf16, HKV 32 and 8, over int8 pages with the round's window
+    of W = window_count(5, 16) = 2 pages (filled with other values than
+    the pages it stands for), and with an inactive slot (its table row
+    the null page, parked at the slot's last row). Row t of slot n sees
+    lengths[n] + t keys. Bytes: the union of the rows the 5 rows see,
+    read once (the kernel folds them into one block), q, out, table and
+    lengths; with the window the int8 rows below it and their scales and
+    the window's rows in q's dtype."""
+    from paddle_tpu_torch.nlp.generation import window_count
+    from paddle_tpu_torch.ops import kernels as K
+    n, h, ps, p, t = 8, 32, 16, 64, SPEC_K + 1
+    num_pages = n * p + 1
+    table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    parked = table.clone()
+    parked[-1] = 0
+    lengths = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device=DEV)
+    last = [ln + t - 1 for ln in VERIFY_LENGTHS]        # keys of row T - 1
+    w = window_count(t, ps)
+    first = torch.div(lengths - 1, ps, rounding_mode='floor').to(torch.int32)
+    for dtype, hkv, mode, tbl, rep in (
+            (torch.float32, 32, 'float', table, False),
+            (torch.bfloat16, 32, 'float', table, True),
+            (torch.float32, 8, 'float', table, False),
+            (torch.bfloat16, 8, 'float', table, False),
+            (torch.bfloat16, 32, 'int8_window', table, False),
+            (torch.float32, 8, 'int8_window', table, False),
+            (torch.bfloat16, 32, 'float', parked, False)):
+        q = _randn((n, t, h, 128), dtype, gen)
+        shape = (num_pages, ps, hkv, 128)
+        kw = {}
+        elt = torch.tensor([], dtype=dtype).element_size()
+        if mode == 'float':
+            kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
+            moved = sum(last) * hkv * 128 * elt * 2
+        else:
+            kp, vp = (torch.randint(-127, 128, shape, generator=gen,
+                                    device=DEV, dtype=torch.int8)
+                      for _ in range(2))
+            kw = dict(zip(('k_scales', 'v_scales'), (
+                torch.rand((num_pages, hkv), generator=gen, device=DEV)
+                / 127 + 1e-3 for _ in range(2))))
+            wshape = (n, w, ps, hkv, 128)
+            kw.update(k_win=_randn(wshape, dtype, gen),
+                      v_win=_randn(wshape, dtype, gen), win_first=first)
+            below = int(first.long().sum()) * ps
+            moved = (below * hkv * 128 * 2 + 2 * int(first.sum()) * hkv * 4
+                     + (sum(last) - below) * hkv * 128 * elt * 2)
+        args = (q, kp, vp, tbl, lengths)
+        add('paged_attention_verify',
+            f'paged verify {str(dtype)[6:]} N=8 T={t} H=32 HKV={hkv} '
+            f'ctx<=1024' + (f' int8 pages + window W={w}'
+                            if mode != 'float' else '')
+            + (' inactive slot' if tbl is parked else ''), dtype,
+            lambda a=args, kw=kw: K.paged_attention(*a, **kw),
+            lambda a=args, kw=kw: K.paged_attention_reference(*a, **kw),
+            None,
+            moved + nbytes(q, q, tbl, lengths)
+            + (nbytes(first) if mode != 'float' else 0),
+            4 * 128 * h * sum(ln + i for ln in VERIFY_LENGTHS
+                              for i in range(t)), rep=rep)
 
 
 def _training_cases(add, gen) -> None:
@@ -1245,6 +1362,190 @@ def check_adapter_consistency(cfg):
     torch.cuda.empty_cache()
 
 
+def perturbed_state(model, scale: float = 0.05) -> dict:
+    """A host (CPU) copy of `model`'s state with layer 0's MLP down
+    projection moved by `scale` times a seeded normal draw: weights a
+    swap can publish."""
+    state = {k: v.detach().to('cpu', copy=True)
+             for k, v in model.state_dict().items()}
+    w = state['llama.layers.0.mlp.down_proj.weight']
+    gen = torch.Generator().manual_seed(0)
+    w += (scale * torch.randn(w.shape, generator=gen)).to(w.dtype)
+    return state
+
+
+def draft_config(cfg, layers: int):
+    """The target's config cut to `layers` layers: a same-width draft, as
+    the JAX bench builds it (bench.py:366)."""
+    return type(cfg)(**{**cfg.__dict__, 'num_hidden_layers': layers})
+
+
+def spec_traces(eng, whole, draft, chunk=()) -> dict:
+    """The `traces` of a speculating graph engine that ran whole prefills
+    at the buckets `whole`, draft prefills at `draft` and chunks at
+    `chunk`."""
+    return {eng._decode_name: 1,
+            **{f'paged_prefill_{b}': 1 for b in whole},
+            **{f'draft_prefill_{b}': 1 for b in draft},
+            **{f'paged_chunk_prefill_{b}': 1 for b in chunk}}
+
+
+def check_spec_consistency(cfg) -> None:
+    """Speculative decoding (k = SPEC_K) at 2 layers of Llama-2-7B width in
+    f32: with an independent 1-layer draft and with the target as its own
+    draft, the graph engine's tokens equal its eager twin's and the plain
+    engine's (greedy, and a seeded sampling request, which draws one token
+    a round from the verify's first row with its own generator); the
+    same with int8 KV, with the prefix cache and chunked prefill, and
+    behind a bank of two adapters; `traces` exactly the round and the
+    prefill and draft-prefill buckets run. Then on the graph engine: a
+    swap to perturbed weights and a restore give the pre-swap tokens bit
+    for bit with `traces` unchanged; `evict_all()` after a step hands
+    every request back with every page free; `drain()` after a step
+    finishes every accepted request, one parked mid-chunk included, with
+    the plain engine's tokens."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.serving import (FINISHED, SAMPLING,
+                                          InferenceEngine, SamplingParams)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                             generator=ptt.generator(0, DEV))
+    draft = LlamaForCausalLM(draft_config(cfg, 1), device=DEV,
+                             dtype='float32', generator=ptt.generator(8, DEV))
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+               for s in (5, 16, 37, 130)]
+    greedy = SamplingParams(max_new_tokens=16, eos_token_id=-1)
+    sampled = SamplingParams(max_new_tokens=16, eos_token_id=-1,
+                             strategy=SAMPLING, temperature=0.8, top_p=0.9,
+                             seed=5)
+    prompts, params = prompts + prompts[2:3], [greedy] * 4 + [sampled]
+    kw = dict(num_slots=8, max_length=1024, kv_page_size=16)
+    spec_kw = dict(num_draft_tokens=SPEC_K, **kw)
+    buckets = sorted({8, 16, 64, 256})        # the buckets of the prompts
+
+    def plain_tokens(prompts, params, ids=None, **opts):
+        return [h.tokens for h in InferenceEngine(
+            model, decode_block=8, **kw, **opts).generate_many(
+                prompts, params, adapter_ids=ids)]
+
+    for quant in (None, 'int8'):
+        want = plain_tokens(prompts, params, kv_quant=quant)
+        for label, d in (('independent 1-layer draft', draft),
+                         ('self-draft', model)):
+            if quant and d is model:
+                continue
+            tag = f'spec-consistency ({label}' + (', int8 KV)' if quant
+                                                  else ')')
+            eng = InferenceEngine(model, draft_model=d, kv_quant=quant,
+                                  **spec_kw)
+            got = graph_equals_eager(eng, prompts, params, tag)
+            # over int8 pages the verify's rejected rows enter each touched
+            # page's requantize scale (as in the JAX engine), so the plain
+            # engine's tokens are a reading there, not a gate
+            same = sum(a == b for a, b in zip(got, want))
+            if got != want and not quant:
+                raise AssertionError(f'{tag}: spec engine {got} != plain '
+                                     f'engine {want}')
+            if eng.stats()['traces'] != spec_traces(eng, buckets, buckets):
+                raise AssertionError(f'{tag}: captures '
+                                     f'{eng.stats()["traces"]}')
+            log(f'[{tag}] 2 layers f32, {len(prompts)} requests x 16 tokens '
+                f'(one sampling): {same} of {len(prompts)} equal the plain '
+                f'engine\'s; spec {eng.stats()["spec"]}')
+    # the prefix cache and chunked prefill: suffix hits in chunks, a cold
+    # prompt in four chunks, a full hit with its COW split
+    warm, trace = prefix_trace(cfg.vocab_size, np.random.RandomState(6))
+    pre = [trace[i] for i in (0, 3, 5, 6, 11)]
+    pre_params = [greedy] * len(pre)
+    pre_params[1] = sampled
+    want = [h.tokens for h in InferenceEngine(
+        model, decode_block=8, **kw).generate_many(pre, pre_params)]
+    eng = InferenceEngine(model, draft_model=draft, **PREFIX_OPTS, **spec_kw)
+    eng.generate_many([warm], greedy)
+    runs = []
+    for e in (eng, eager_twin(eng, **PREFIX_OPTS)):
+        if e is not eng:
+            e.generate_many([warm], greedy)
+        runs.append([h.tokens for h in e.generate_many(pre, pre_params)])
+        st = e.stats()
+        if st['prefix_cache']['hits'] < 4 or st['pool']['cow_splits'] != 1 \
+                or st['chunk_rounds'] < 7:
+            raise AssertionError(
+                f'spec prefix consistency: hits {st["prefix_cache"]["hits"]}'
+                f', COW {st["pool"]["cow_splits"]}, chunk rounds '
+                f'{st["chunk_rounds"]}: the trace missed a path')
+        pages_free_after_clear(e, 'spec-prefix-consistency')
+    if not runs[0] == runs[1] == want:
+        raise AssertionError(f'spec prefix consistency: graph {runs[0]}, '
+                             f'eager {runs[1]}, plain {want}')
+    log(f'[spec-prefix-consistency] {len(pre)} requests (suffix hits in '
+        f'chunks, a cold prompt in chunks, a full hit, one sampling): graph '
+        f'(captures {eng.stats()["traces"]}) == eager == the plain engine')
+    del eng, runs
+    # behind a bank: the verify runs under the adapters, the draft not
+    ids = [None, 'ad0', 'ad1', 'ad0', None]
+    bank = adapter_bank(model, 2, 2, 0.05)
+    want = plain_tokens(prompts, params, adapter_bank=bank, ids=ids)
+    eng = InferenceEngine(model, draft_model=draft, adapter_bank=bank,
+                          **spec_kw)
+    got = [h.tokens for h in eng.generate_many(prompts, params,
+                                               adapter_ids=ids)]
+    twin = [h.tokens for h in eager_twin(eng).generate_many(
+        prompts, params, adapter_ids=ids)]
+    if not got == twin == want:
+        raise AssertionError(f'spec bank consistency: graph {got}, eager '
+                             f'{twin}, plain {want}')
+    log(f'[spec-bank-consistency] mixed wave {ids}: graph == eager == the '
+        f'plain banked engine')
+    del eng, bank
+    # swap and restore, evict, drain on the graph engine
+    eng = InferenceEngine(model, draft_model=draft,
+                          prefill_chunk_tokens=256, **spec_kw)
+    long = np.random.RandomState(3).randint(3, cfg.vocab_size,
+                                            (900,)).tolist()
+    before = [h.tokens for h in eng.generate_many(prompts, params)]
+    traces = dict(eng.stats()['traces'])
+    prev = eng.swap_weights(perturbed_state(model), version=1)
+    moved = sum(a != b for a, b in zip(
+        [h.tokens for h in eng.generate_many(prompts, params)], before))
+    eng.restore_weights(prev)
+    again = [h.tokens for h in eng.generate_many(prompts, params)]
+    if again != before or eng.stats()['traces'] != traces or not moved:
+        raise AssertionError(f'spec swap: {moved} requests moved by the '
+                             f'swap; after the restore {again} (before '
+                             f'{before}), captures {eng.stats()["traces"]} '
+                             f'(before {traces})')
+    log(f'[spec-swap] swap to perturbed weights moved {moved} of '
+        f'{len(prompts)} requests; the restore gives the pre-swap tokens bit '
+        f'for bit, captures unchanged {traces}')
+    hs = [eng.submit(p, sp) for p, sp in zip(prompts + [long],
+                                             params + [greedy])]
+    eng.step()
+    out = eng.evict_all()
+    if sorted(h.request_id for h in out) != sorted(h.request_id for h in hs) \
+            or eng.pool.free_page_count != eng.pool.num_pages - 1:
+        raise AssertionError(f'spec evict_all: {len(out)} of {len(hs)} '
+                             f'handles back, {eng.pool.used_page_count} pages '
+                             f'still used')
+    want = plain_tokens(prompts + [long], params + [greedy],
+                        prefill_chunk_tokens=256)
+    hs = [eng.submit(p, sp) for p, sp in zip(prompts + [long],
+                                             params + [greedy])]
+    eng.step()
+    parked = len(eng._prefilling)
+    if not parked or not eng.drain() or \
+            any(h.status != FINISHED for h in hs) or \
+            [h.tokens for h in hs] != want:
+        raise AssertionError(f'spec drain: {parked} parked mid-chunk; '
+                             f'{[h.status for h in hs]}')
+    log(f'[spec-drain] evict_all() after a step: {len(out)} handles back, '
+        f'every page free; drain() after a step ({parked} request parked '
+        f'mid-chunk) finished all {len(hs)} with the plain engine\'s tokens')
+    del eng, model, draft
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: training on the card against training on the CPU
 # ---------------------------------------------------------------------------
@@ -1675,7 +1976,9 @@ def eager_twin(eng, **kw):
                            decode_block=eng.decode_block,
                            kv_page_size=eng.pool.page_size,
                            adapter_bank=eng.adapter_bank,
-                           kv_quant=eng.pool.quant, **kw)
+                           kv_quant=eng.pool.quant,
+                           draft_model=eng.draft_model,
+                           num_draft_tokens=eng.spec_k, **kw)
     twin._capture_decode = twin._capture_prefill = False
     return twin
 
@@ -1697,13 +2000,18 @@ def graph_equals_eager(eng, prompts, params, tag: str, **kw) -> list:
 
 def expected_traces(eng, buckets) -> dict:
     """The `traces` of `eng` after its prefills ran at `buckets`
-    ({(kind, bucket)}): one capture of the decode sub-step and one per
-    prefill bucket and kind (the JAX engine's names), or none at all for
-    what runs eagerly."""
-    out = {'paged_decode_step': 1} if eng._capture_decode else {}
+    ({(kind, bucket)}): one capture of the decode sub-step (or of a
+    speculating engine's round) and one per prefill bucket and kind (the
+    JAX engine's names; with a draft also its draft prefill at each
+    whole bucket), or none at all for what runs eagerly."""
+    out = {eng._decode_name: 1} if eng._capture_decode else {}
     if eng._capture_prefill:
-        out.update({(f'paged_chunk_prefill_{b}' if kind == 'chunk'
-                     else f'paged_prefill_{b}'): 1 for kind, b in buckets})
+        names = {'whole': 'paged_prefill', 'chunk': 'paged_chunk_prefill',
+                 'draft': 'draft_prefill'}
+        if eng.draft_model is not None:
+            buckets = set(buckets) | {('draft', b) for kind, b in buckets
+                                      if kind == 'whole'}
+        out.update({f'{names[kind]}_{b}': 1 for kind, b in buckets})
     return out
 
 
@@ -2454,10 +2762,181 @@ def serve_int8(served, prefixed) -> dict:
     return res
 
 
-def paged_float_ms(readings: int = 5) -> list:
+# ---------------------------------------------------------------------------
+# phase 6e: serve with speculative decoding; 6f: drain, evict and swap
+# ---------------------------------------------------------------------------
+
+def first_difference(a, b):
+    """The first position where two token lists differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def serve_spec(served) -> dict:
+    """Phase 6's model, requests and engine settings with a draft model
+    (k = SPEC_K), two drafts in turn: the JAX bench's same-width 2-layer
+    draft with random weights (bench.py:361-370) and the model itself
+    (the acceptance ceiling). Each on the graph engine and its eager twin
+    (`_run_serve`, `serve_eager`): equal tokens, the verify kernel once
+    per layer of every round (replays counted). Logs decode tok/s, TTFT,
+    tokens per round per greedy slot and the acceptance rate beside phase
+    6, and how many requests get phase 6's tokens (a reading: in bf16 a
+    5-row verify can round differently from a 1-row step). With the
+    2-layer draft also the wall of one round with every slot busy, graph
+    and eager, before any profiling (phase 7's idle shares use it). Runs
+    right after phase 6, while only its engines hold device memory, and
+    frees its engines. Returns {'draft2': run, 'self': run, 'model',
+    'draft'}."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine
+    model = served['engine'].model
+    layers = model.config.num_hidden_layers
+    draft = LlamaForCausalLM(draft_config(model.config, 2), device=DEV,
+                             dtype='bfloat16',
+                             generator=ptt.generator(4321, DEV))
+    greedy = [j for j, sp in enumerate(served['params'])
+              if sp.strategy != 'sampling']
+    out = {}
+    for key, d, label in (('draft2', draft, '2-layer random draft'),
+                          ('self', model, 'self-draft')):
+        tag = f'serve-spec {label}'
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                              kv_page_size=16, draft_model=d,
+                              num_draft_tokens=SPEC_K)
+        res = _run_serve(eng, served['prompts'], served['params'], None,
+                         SPEC_KERNELS, tag, base)
+        spec = eng.stats()['spec']
+        want = layers * res['decode_steps']
+        if res['launches']['paged_attention_verify'] != want or \
+                spec['rounds'] != res['decode_steps']:
+            raise AssertionError(
+                f'{tag}: {res["launches"]["paged_attention_verify"]} verify '
+                f'launches, want {layers} x {res["decode_steps"]} rounds')
+        eager = serve_eager(eng, res, served['prompts'], served['params'],
+                            None, SPEC_KERNELS, tag)
+        if key == 'draft2':
+            for run, e in ((res, eng), (eager, eager['engine'])):
+                run['round_wall_s'] = spec_round_wall(e, served['prompts'])
+        per_round = 1 + spec['accepted'] / max(spec['proposed'] / SPEC_K, 1)
+        same = [j for j in range(len(res['tokens']))
+                if res['tokens'][j] == served['tokens'][j]]
+        diffs = {j: first_difference(res['tokens'][j], served['tokens'][j])
+                 for j in range(len(res['tokens'])) if j not in same}
+        log(f'[{tag}] k={SPEC_K}: {spec["rounds"]} rounds, acceptance rate '
+            f'{spec["acceptance_rate"]:.4f}, {per_round:.3f} tokens per round '
+            f'per greedy slot; decode {res["decode_tok_per_s"]:.1f} tok/s = '
+            f'{res["decode_tok_per_s"] / served["decode_tok_per_s"]:.3f} x '
+            f'phase 6\'s {served["decode_tok_per_s"]:.1f} (same process), '
+            f'TTFT mean {res["ttft_mean_s"]:.3f} s p50 '
+            f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s (phase '
+            f'6: {served["ttft_mean_s"]:.3f} / {served["ttft_p50_s"]:.3f} / '
+            f'{served["ttft_max_s"]:.3f})')
+        log(f'[{tag}] {len(same)} of {len(res["tokens"])} requests '
+            f'({sum(j in same for j in greedy)} of {len(greedy)} greedy) get '
+            f'phase 6\'s tokens; first differing position by request '
+            f'{diffs}')
+        res.update(engine=eng, eager=eager, spec=spec,
+                   tokens_per_round=per_round)
+        release(res)
+        out[key] = res
+    out.update(model=model, draft=draft, prompts=served['prompts'])
+    return out
+
+
+def spec_round_wall(eng, prompts) -> float:
+    """Seconds of one speculation round of `eng` with every slot busy
+    (its first round admits and prefills them), unprofiled; the engine
+    is drained after."""
+    n = eng.pool.num_slots
+    for p in prompts[:n]:
+        eng.submit(p, max_new_tokens=4 * (SPEC_K + 1), eos_token_id=-1)
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    wall = time.perf_counter() - t0
+    eng.run()
+    return wall
+
+
+def drain_swap(served) -> dict:
+    """On a fresh engine with phase 6's settings: `swap_weights` to a host
+    copy of the weights with layer 0's MLP perturbed, then
+    `restore_weights` (each one's seconds logged: 13.5 GB each way, the
+    swap also taking the host copy of the old weights), after which the
+    12 requests get phase 6's tokens with nothing captured again;
+    `evict_all()` after two steps hands back all 12 with every page
+    free; `drain()` after two steps finishes all 12 with phase 6's
+    tokens."""
+    from paddle_tpu_torch.serving import FINISHED, InferenceEngine
+    model = served['engine'].model
+    prompts, params = served['prompts'], served['params']
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16)
+    eng.generate_many(prompts, params)          # captures what it uses
+    traces = dict(eng.stats()['traces'])
+    t0 = time.perf_counter()
+    state = perturbed_state(model)
+    t_state = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prev = eng.swap_weights(state, version=1)
+    t_swap = time.perf_counter() - t0
+    moved = sum(h.tokens != want for h, want in zip(
+        eng.generate_many(prompts, params), served['tokens']))
+    t0 = time.perf_counter()
+    eng.restore_weights(prev)
+    t_restore = time.perf_counter() - t0
+    del state, prev
+    back = [h.tokens for h in eng.generate_many(prompts, params)]
+    if back != served['tokens'] or eng.stats()['traces'] != traces:
+        raise AssertionError(f'swap: after the restore the tokens differ '
+                             f'from phase 6 or captures moved '
+                             f'({eng.stats()["traces"]} vs {traces})')
+    gb = nbytes(*model.parameters()) / 1e9
+    log(f'[swap] {gb:.2f} GB of weights: the host copy of the new weights '
+        f'took {t_state:.3f} s; swap_weights {t_swap:.3f} s (a host copy of '
+        f'the old weights, then the new ones copied in place), '
+        f'restore_weights {t_restore:.3f} s; the swap moved {moved} of '
+        f'{len(prompts)} requests, and after the restore all get phase 6\'s '
+        f'tokens; captures unchanged')
+    hs = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    eng.step()
+    eng.step()
+    out = eng.evict_all()
+    if sorted(h.request_id for h in out) != sorted(h.request_id for h in hs) \
+            or eng.pool.free_page_count != eng.pool.num_pages - 1:
+        raise AssertionError(f'evict_all: {len(out)} of {len(hs)} handles, '
+                             f'{eng.pool.used_page_count} pages still used')
+    hs = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    eng.step()
+    eng.step()
+    t0 = time.perf_counter()
+    ok = eng.drain()
+    t_drain = time.perf_counter() - t0
+    if not ok or any(h.status != FINISHED for h in hs) or \
+            [h.tokens for h in hs] != served['tokens']:
+        raise AssertionError('drain: not every request finished with phase '
+                             '6\'s tokens')
+    log(f'[drain] evict_all() after two steps: {len(out)} handles back, all '
+        f'{eng.pool.num_pages - 1} pages free; drain() after two steps '
+        f'finished all {len(hs)} requests in {t_drain:.3f} s with phase 6\'s '
+        f'tokens')
+    del eng
+    torch.cuda.empty_cache()
+    return dict(swap_s=t_swap, restore_s=t_restore, state_s=t_state)
+
+
+def paged_float_ms(readings: int = 5, outputs=None) -> list:
     """[(case, [device ms per call] x readings)] of the paged kernel over
     pages in q's dtype at phase 2's serve shape (8 slots, H 32, context
-    up to 1024): bf16 and f32 at HKV 32, bf16 at HKV 8 (`queued_ms`)."""
+    up to 1024): bf16 and f32 at HKV 32, bf16 at HKV 8 (`queued_ms`);
+    where the port takes several query rows per slot, also the verify's
+    5 rows, bf16 at HKV 32 and 8. With `outputs` (a dict) each one-row
+    case's output goes there, on the host, for a bit comparison of two
+    trees (`--paged-bits`)."""
     from paddle_tpu_torch.ops import kernels as K
     gen = torch.Generator(device=DEV).manual_seed(0)
     n, h, ps, p = 8, 32, 16, 64
@@ -2476,6 +2955,19 @@ def paged_float_ms(readings: int = 5) -> list:
                 K.paged_attention(q, kp, vp, table, lengths))
         out.append((f'{str(dtype)[6:]} HKV={hkv}',
                     [queued_ms(call) for _ in range(readings)]))
+        if outputs is not None:
+            outputs[out[-1][0]] = call().cpu()
+    if hasattr(K, 'PAGED_MAX_ROWS'):
+        # row 0's key count, so that the last row sees the decode's count
+        rows0 = (lengths - SPEC_K).clamp(min=1).to(torch.int32)
+        for hkv in (32, 8):
+            q = _randn((n, SPEC_K + 1, h, 128), torch.bfloat16, gen)
+            kp, vp = (_randn((num_pages, ps, hkv, 128), torch.bfloat16, gen)
+                      for _ in range(2))
+            call = (lambda q=q, kp=kp, vp=vp:
+                    K.paged_attention(q, kp, vp, table, rows0))
+            out.append((f'verify T={SPEC_K + 1} bf16 HKV={hkv}',
+                        [queued_ms(call) for _ in range(readings)]))
     return out
 
 
@@ -2598,11 +3090,36 @@ def _breakdown(windows, wall_s: float, label: str) -> float:
     return busy
 
 
+PROFILE_TRIES = 3
+
+
+def marked_window(body):
+    """A torch.profiler window (CUDA activity) around `body`, its result
+    synchronized. CUPTI has missed the first kernels of a window, most
+    often of one opened right after another (the sum of squares of the
+    update window after the training step's), so a host pause and a GPU
+    sleep of ~1 us (`spin_kernel`) go first."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        body()
+        torch.cuda.synchronize()
+    return prof
+
+
+def missing_kernels(prof, kernels) -> list:
+    """The names of `kernels` of which the window holds no device event."""
+    seen = {e.name for e in _device_events(prof)}
+    return [k for k in kernels if not any(k in n for n in seen)]
+
+
 def require_kernels(prof, kernels, label: str, absent=()) -> None:
     """Fail unless the profiled window ran a device event of each of
     `kernels`, and none of `absent` (by name)."""
     seen = {e.name for e in _device_events(prof)}
-    missing = [k for k in kernels if not any(k in n for n in seen)]
+    missing = missing_kernels(prof, kernels)
     if missing:
         raise AssertionError(f'profile: the {label} ran no device event of '
                              f'{missing}')
@@ -2670,7 +3187,6 @@ def profile_int8(run) -> None:
     RMSNorm, and not the float split kernel; the fill and the requantize
     must run device work. Device ms by group, the two bodies each a group
     of their own."""
-    from torch.profiler import ProfilerActivity, profile
     for e, label in ((run['engine'], 'int8 decode round, graph'),
                      (run['eager']['engine'], 'int8 decode round, eager')):
         n = e.pool.num_slots
@@ -2691,13 +3207,7 @@ def profile_int8(run) -> None:
                                     for _ in range(e.decode_block)]),
                     ('int8 window requantize',
                      lambda: step.run_side('_round_end'))):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    # CUPTI has missed a window's first kernel: a marker
-                    # of ~1 us goes first
-                    torch.cuda._sleep(1000)
-                    torch.cuda.synchronize()
-                    body()
-                    torch.cuda.synchronize()
+                prof = marked_window(body)
                 windows.append((prof, group))
                 if group is not None and not any(
                         'spin_kernel' not in ev.name
@@ -2711,6 +3221,50 @@ def profile_int8(run) -> None:
                         label, absent=('paged_attn_split_kernel',
                                        'paged_attn_kernel'))
         e.run()
+
+
+def profile_spec(spec) -> None:
+    """One speculation round of phase 6e's 2-layer-draft engine with every
+    slot busy, profiled, on fresh engines (phase 6e freed its own): on
+    the graph engine one replayed round (device ms by kernel group), on
+    its eager twin the draft's k sub-steps and the verify with the
+    acceptance in windows of their own (the draft's kernels are the
+    target's, so only a window tells them apart); idle shares against
+    the unprofiled round walls phase 6e took. Each must run the
+    split-context paged kernels and RMSNorm."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    run = spec['draft2']
+    for graph, wall, label in (
+            (True, run['round_wall_s'], 'spec round, graph'),
+            (False, run['eager']['round_wall_s'], 'spec round, eager')):
+        e = InferenceEngine(spec['model'], num_slots=8, max_length=1024,
+                            kv_page_size=16, draft_model=spec['draft'],
+                            num_draft_tokens=SPEC_K)
+        e._capture_decode = e._capture_prefill = graph
+        n = e.pool.num_slots
+        for p in spec['prompts'][:n]:
+            e.submit(p, max_new_tokens=4 * (SPEC_K + 1), eos_token_id=-1)
+        e.step()                # admit + prefill all, first round
+        windows = []
+        with torch.inference_mode():
+            step = e._stage_round()
+            if step.graph is not None:
+                bodies = ((None, step.run_once),)
+            else:
+                drafts = []
+                bodies = (('draft (k sub-steps)',
+                           lambda: drafts.append(step._propose())),
+                          (None, lambda: step._verify(drafts[0])))
+            for group, body in bodies:
+                windows.append((marked_window(body), group))
+        _breakdown(windows, wall, f'{label} ({n} slots, k={SPEC_K}, 2-layer '
+                                  f'draft; wall of an unprofiled round)')
+        for prof, _ in windows:
+            require_kernels(prof, PAGED_KERNELS + ('rms_norm_kernel',),
+                            label)
+        e.run()
+        del e
+        torch.cuda.empty_cache()
 
 
 def profile_prefills(prefixed) -> None:
@@ -2795,41 +3349,47 @@ def profile_train(step, batch, step_s: float, label: str) -> None:
     windows: the forward and backward, and the optimizer update. The
     update window must run the multi-tensor Adam kernel (and, under a
     global-norm clip, the sum of squares); its device ms is logged beside
-    `update_bound_ms`. The idle share is taken against `step_s`, the step
-    time measured before any profiling (a step run after the profiler has
-    been used costs the host more; its wall is logged beside it)."""
-    from torch.profiler import ProfilerActivity, profile
+    `update_bound_ms`. Where the profiler recorded no event of a required
+    kernel, the next step is profiled in its place, up to PROFILE_TRIES
+    steps; the last one is checked and read. The idle share is taken
+    against `step_s`, the step time measured before any profiling (a step
+    run after the profiler has been used costs the host more; its wall is
+    logged beside it)."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step(batch, batch))
     wall_now = time.perf_counter() - t0
     x = torch.as_tensor(batch, device=DEV)
-    with profile(activities=[ProfilerActivity.CUDA]) as fwd_bwd:
-        next_token_loss(step.layer(x), x).backward()
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as update:
-        # CUPTI has missed a window's first kernel (the sum of squares
-        # here): a marker of ~1 us goes first
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+    clipped = isinstance(step.optimizer._grad_clip, ClipGradByGlobalNorm)
+    step_kernels = ('flash_fwd_wgmma_kernel', 'flash_bwd_dq_wgmma_kernel',
+                    'flash_bwd_dkv_wgmma_kernel')
+    update_kernels = (('multi_tensor_adam_kernel',)
+                      + (('multi_tensor_sumsq_kernel',) if clipped else ()))
+
+    def update_body():
         step.optimizer.update(step._params)
         for _, p in step._params:
             p.grad = None
-        torch.cuda.synchronize()
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        fwd_bwd = marked_window(
+            lambda: next_token_loss(step.layer(x), x).backward())
+        update = marked_window(update_body)
+        missing = (missing_kernels(fwd_bwd, step_kernels)
+                   + missing_kernels(update, update_kernels))
+        if not missing or attempt == PROFILE_TRIES:
+            break
+        log(f'[profile]   training step, {label}: the profiler recorded no '
+            f'event of {missing} in step {attempt} of {PROFILE_TRIES}; '
+            f'profiling the next step')
     _breakdown([(fwd_bwd, None), (update, 'optimizer')], step_s,
                f'training step, {label} (batch {TRAIN_BATCH} x {TRAIN_SEQ}; '
                f'wall = the step time of its phase)')
     log(f'[profile]   (an unprofiled step run now, after the serve '
         f'profile, took {wall_now * 1e3:.2f} ms)')
-    require_kernels(fwd_bwd, ('flash_fwd_wgmma_kernel',
-                              'flash_bwd_dq_wgmma_kernel',
-                              'flash_bwd_dkv_wgmma_kernel'),
-                    'training step')
-    clipped = isinstance(step.optimizer._grad_clip, ClipGradByGlobalNorm)
-    require_kernels(update, ('multi_tensor_adam_kernel',)
-                    + (('multi_tensor_sumsq_kernel',) if clipped else ()),
-                    f'update window ({label})')
+    require_kernels(fwd_bwd, step_kernels, 'training step')
+    require_kernels(update, update_kernels, f'update window ({label})')
     dev = sum(e.time_range.elapsed_us() for e in _device_events(update)
               if 'spin_kernel' not in e.name) / 1e3
     log(f'[profile]   update window ({label}): device {dev:.3f} ms, bound '
@@ -2893,16 +3453,27 @@ def main() -> int:
             f' us of host time per call')
         return 0
     if sys.argv[1:2] == ['--paged-ms']:
-        # python3 chip_smoke.py --paged-ms TREE: paged_float_ms() of the
-        # port in TREE (to set an earlier tree beside this one)
+        # python3 chip_smoke.py --paged-ms TREE [OUT]: paged_float_ms() of
+        # the port in TREE (to set an earlier tree beside this one); OUT
+        # keeps its one-row outputs
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
         from paddle_tpu_torch.ops import _build
         _build.SOURCES = ('paged_attention',)     # the one source it runs
         _build.build_all()
+        outputs = {} if len(sys.argv) > 3 else None
         log(f'[paged] {sys.argv[2]}: ' + '; '.join(
             f'{label}: ' + ' '.join('not measured' if ms is None else
                                     f'{ms:.4f}' for ms in times)
-            for label, times in paged_float_ms()) + ' ms per call')
+            for label, times in paged_float_ms(outputs=outputs))
+            + ' ms per call')
+        if outputs is not None:
+            torch.save(outputs, sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ['--paged-bits']:
+        # python3 chip_smoke.py --paged-bits A B: two --paged-ms outputs
+        a, b = (torch.load(f) for f in sys.argv[2:4])
+        for label in a:
+            log(f'[paged] {label}: bit-equal {torch.equal(a[label], b[label])}')
         return 0
     if sys.argv[1:2] == ['--int8-rmse']:
         # python3 chip_smoke.py --int8-rmse: int8 KV's logit error by depth
@@ -2942,12 +3513,15 @@ def main() -> int:
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_prefix_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_int8_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_spec_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
     rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
     trained = train(rung)
     pretrained = pretrain(trained, rung)
     res = serve(LlamaConfig.llama2_7b())
+    spec = serve_spec(res)
+    drain_swap(res)
     adapted = serve_adapters(res)
     prefixed = serve_prefix(res)
     int8 = serve_int8(res, prefixed)
@@ -2956,6 +3530,8 @@ def main() -> int:
     profile_serve(res, adapted, prefixed)
     profile_int8(int8)
     release(res, adapted, prefixed, prefixed['eager_prefill'], int8)
+    profile_spec(spec)
+    del spec['model'], spec['draft']
     profile_train(pretrained['step'], trained['batch'],
                   pretrained['step_s'], 'Llama 2 pretraining optimizer')
     pretrained['step'].optimizer._slots.clear()
@@ -2974,7 +3550,8 @@ def main() -> int:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
-                                   prefixed, int8))
+                                   prefixed, int8, spec['draft2'],
+                                   spec['self']))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

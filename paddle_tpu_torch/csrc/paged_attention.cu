@@ -1,13 +1,16 @@
-// Paged attention for decode: one query token per slot attends over the
-// KV rows that the slot's page table scatters across the page pool.
+// Paged attention for decode: T query tokens per slot (T = 1 for a decode
+// sub-step, k + 1 for a speculative verify) attend over the KV rows that
+// the slot's page table scatters across the page pool.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py:_paged_attn_kernel (called
 // through paged_attention / _paged_attention_pallas). Same function:
-// q [N, H, D] (one decode query per slot), pages [num_pages, ps, HKV, D]
+// q [N, T, H, D] (T decode queries per slot), pages [num_pages, ps, HKV, D]
 // in f32, bf16 or int8 (int8 dequantized by a per-(page, kv head) f32
 // scale), table [N, P] int32 (page 0 is the null page), lengths [N]
-// int32; GQA folds query heads as [HKV, G] (head = hkv * G + g); keys at
-// or past lengths[n] are masked; pages wholly past the length are not
+// int32; GQA folds query heads as [HKV, G] (head = hkv * G + g); query
+// row t of slot n sees the keys below lengths[n] + t (the JAX verify's
+// slot-causal mask, paddle_tpu/serving/engine.py:832-833; T = 1 is the
+// decode kernel's mask); pages wholly past the last row's count are not
 // read, but the slot's first page is always computed so an idle slot
 // still finishes with finite values. Output is q.dtype.
 //
@@ -22,7 +25,10 @@
 // scheme). Two kernels per call:
 //
 // - paged_attn_split_kernel (paged_attn_int8_split_kernel for int8
-//   pages), grid (N, HKV, splits), 128 threads. Each
+//   pages), grid (N, HKV, splits), 128 threads. The T x G query rows
+//   of a (slot, kv head) are folded into one block, so each K and V row
+//   is read once for all of them (a verify of T = 5 rows reads the bytes
+//   of a decode call). Each
 //   block owns a fixed run of `pps` pages (at most kSplitKeys = 64 keys:
 //   4 pages at ps = 16) of one (slot, kv head); the split count comes
 //   from the table width P, never from the lengths, so the host reads
@@ -34,13 +40,17 @@
 //   values each) into shared memory, chunk c of row t stored at chunk
 //   c ^ (t % 8), so that the 16-byte reads below are free of bank
 //   conflicts. Thread (row slot r = tid / 16, 8-column group tid % 16)
-//   then takes rows r, r + 8, ...: the scores q . k of the G query heads,
-//   summed over each row's 16 threads by shuffles (int8 dequantized per
-//   element, as it is read); the split's max and sum per head, one warp
-//   per head across the block; P V into 8 x G fp32 registers, summed
-//   over the 8 row slots by a shuffle and shared memory. It writes fp32
-//   (acc[G][D], m, l) to the workspace [N, HKV, splits, G, D + 2].
-// - paged_attn_combine_kernel, grid (N, H), one thread per output
+//   then takes rows r, r + 8, ...: the scores q . k of up to 8 query
+//   rows at a time (a pass: T x G <= 8 rows are one pass, as in decode;
+//   up to 32 rows take 2 to 4 passes of equal width, and a pass holds
+//   just its rows in registers), each summed over a key row's 16
+//   threads by shuffles (int8 dequantized per element, as it is read),
+//   under each query row's own mask; the split's max and sum per query
+//   row, one warp per row across the block; P V, a pass at a time, into
+//   8 fp32 registers per row, summed over the 8 row slots by a shuffle
+//   and shared memory. It writes fp32 (acc[D], m, l) per query row to the
+//   workspace [N, HKV, splits, T x G, D + 2].
+// - paged_attn_combine_kernel, grid (N, H, T), one thread per output
 //   column: out = sum_s acc_s exp(m_s - M) / sum_s l_s exp(m_s - M) over
 //   the splits with l_s > 0 (M their largest m_s), in q's dtype. The
 //   splits' weights are computed all at once and reduced across the
@@ -93,7 +103,7 @@ struct PagedArgs {
   const int* win_first;  // [N]: the window's first logical page
   float* ws;       // [N, HKV, parts, G, D + 2]: acc[D], m, l per head
   void* out;
-  int h, hkv, p, ps, pps, splits, w;   // parts = splits + (w > 0)
+  int t, h, hkv, p, ps, pps, splits, w;   // parts = splits + (w > 0)
   float scale;
 };
 
@@ -151,20 +161,23 @@ __device__ __forceinline__ void row8(const int8_t* tile, int t, int dg,
   for (int e = 0; e < 8; ++e) x[e] = static_cast<float>(bytes[e]);
 }
 
-template <typename TKV, int kG>
+template <typename TKV, int kG, int kRows>
 constexpr size_t split_smem_bytes() {
-  // K and V tiles, the warps' partial P V [kWarps][kG][D], scores then
-  // probabilities [kG][kSplitKeys], and the rows' k and v scales
+  // K and V tiles, the warps' partial P V [kWarps][kG][D] of a pass,
+  // scores then probabilities [kRows][kSplitKeys], and the rows' k and v
+  // scales
   return 2 * kSplitKeys * kD * sizeof(TKV) +
-         (kWarps * kG * kD + kG * kSplitKeys + 2 * kSplitKeys) *
+         (kWarps * kG * kD + kRows * kSplitKeys + 2 * kSplitKeys) *
              sizeof(float);
 }
 
 // One split of one (slot, kv head): the body of the three split kernels
-// below. kG: the group size G rounded up to 1, 2, 4 or 8 (register
-// arrays); kWindow: this block is the window's split (TKV = TQ, the
-// window's rows).
-template <typename TQ, typename TKV, bool kQuant, int kG, bool kWindow>
+// below. kG: query rows per pass (register arrays), T x G in one pass, or
+// ceil(T x G / passes) in 2 to 4 passes; kRows: the rows T x G, at most
+// (kG in one pass, else 32); kWindow: this block is the window's split
+// (TKV = TQ, the window's rows).
+template <typename TQ, typename TKV, bool kQuant, int kG, int kRows,
+          bool kWindow>
 __device__ __forceinline__ void split_body(const PagedArgs& a) {
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int kRowBytes = kD * sizeof(TKV);
@@ -173,17 +186,22 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
   const TKV* v_t = reinterpret_cast<const TKV*>(smem + kSplitKeys * kRowBytes);
   float* red = reinterpret_cast<float*>(smem + 2 * kSplitKeys * kRowBytes);
   float* sp = red + kWarps * kG * kD;
-  float* row_scale = sp + kG * kSplitKeys;     // [2][kSplitKeys]: k, v
+  float* row_scale = sp + kRows * kSplitKeys;  // [2][kSplitKeys]: k, v
 
   const int n = blockIdx.x;
   const int hk = blockIdx.y;
   const int split = kWindow ? a.splits : blockIdx.z;
   const int g_size = a.h / a.hkv;
+  // query row r: t = r / G; one pass holds exactly kG rows (`launch`)
+  const int rows = kRows == kG ? kG : a.t * g_size;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int len = a.lengths[n];
-  // the slot's pages: those holding a key below len, and at least one
-  const int n_pages = min(max((len + a.ps - 1) / a.ps, 1), a.p);
+  const int len = a.lengths[n];                // keys of query row t = 0
+  const int len_last = len + a.t - 1;          // ... and of row T - 1
+  // no row sees past the table (a window page past it, at a slot's end)
+  const int keys = a.p * a.ps;
+  // the slot's pages: those holding a key below len_last, and at least one
+  const int n_pages = min(max((len_last + a.ps - 1) / a.ps, 1), a.p);
   // an int8 split skips the window's pages; a split over pages in q's
   // dtype knows of no window (its code is the one without a window)
   constexpr bool kSkips = kQuant && !kWindow;
@@ -194,15 +212,15 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
   const int first_page = kWindow ? win0 : split * a.pps;
   const int run = kWindow ? a.w : min(a.pps, n_pages - first_page);
   const bool empty =
-      kWindow ? win0 * a.ps >= max(len, 1)
+      kWindow ? win0 * a.ps >= max(len_last, 1)
               : first_page >= n_pages ||
                     (kSkips && first_page >= win0 &&
                      first_page + run <= win0 + a.w);
   const int parts = kSkips || kWindow ? n_parts(a) : a.splits;
   float* part = a.ws + ((static_cast<int64_t>(n) * a.hkv + hk) * parts +
-                        split) * g_size * (kD + 2);
+                        split) * rows * (kD + 2);
   if (empty) {                                 // an empty partial
-    if (tid < g_size) {
+    if (tid < rows) {
       part[tid * (kD + 2) + kD] = -INFINITY;
       part[tid * (kD + 2) + kD + 1] = 0.f;
     }
@@ -246,63 +264,102 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
     row_scale[kSplitKeys + tid] = a.v_scales[at];
   }
 
-  // this thread's 8 columns of each query head of the group, times scale
+  // this thread's 8 columns of query rows r0 .. r0 + kG - 1 (row r: query
+  // t = r / G, head hk * G + r % G), times scale
   const int dg = tid & 15, rs = tid >> 4;
-  const TQ* qn = static_cast<const TQ*>(a.q) +
-                 (static_cast<int64_t>(n) * a.h + hk * g_size) * kD;
+  // the pass's rows padded to a power of two for the reduce-scatter
+  // below, and the row of the pass whose score this lane ends with
+  constexpr int kP = kG == 1 ? 1 : kG == 2 ? 2 : kG <= 4 ? 4 : 8;
+  int lane_g = 0;
+#pragma unroll
+  for (int st = 0; st < 4; ++st)
+    if ((kP >> st) >= 2 && (dg & (8 >> st))) lane_g += (kP >> st) / 2;
+  const bool writer = (dg & (16 / kP - 1)) == 0 && lane_g < kG;
   float qf[kG][8];
+  auto load_q = [&](int r0) {
 #pragma unroll
-  for (int g = 0; g < kG; ++g)
+    for (int g = 0; g < kG; ++g) {
+      const int r = r0 + g;
+      const TQ* qr = static_cast<const TQ*>(a.q) +
+                     ((static_cast<int64_t>(n) * a.t + r / g_size) * a.h +
+                      hk * g_size + r % g_size) * kD;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      qf[g][e] = g < g_size
-                     ? ptt_to_float(qn[g * kD + group_col<TKV>(dg, e)]) *
-                           a.scale
-                     : 0.f;
+      for (int e = 0; e < 8; ++e)
+        qf[g][e] = r < rows
+                       ? ptt_to_float(qr[group_col<TKV>(dg, e)]) * a.scale
+                       : 0.f;
+    }
+  };
+  load_q(0);
 
   hopper::cp_async_wait<0>();
   __syncthreads();
 
   // scores of rows rs, rs + 8, ...: each row's 16 threads sum by shuffles
-  // (a trip count uniform over the block, so every lane shuffles)
+  // (a trip count uniform over the block, so every lane shuffles), one
+  // pass of kG query rows at a time, each row under its own mask
   const int n_iter = (t_live + kRowSlots - 1) / kRowSlots;
-  for (int i = 0; i < n_iter; ++i) {
-    const int t = rs + kRowSlots * i;
-    const bool valid = t < t_live;
-    float kf[8];
-    if (valid) {
-      row8(k_t, t, dg, kf);
-      if (kQuant) {
+  for (int r0 = 0; r0 < rows; r0 += kG) {
+    if (r0 > 0) load_q(r0);
+    // this lane's query row and its key count (none past the table)
+    const int r = r0 + lane_g;
+    const bool writes = writer && r < rows;
+    const int count = writes ? min(len + r / g_size, keys) : 0;
+    for (int i = 0; i < n_iter; ++i) {
+      const int t = rs + kRowSlots * i;
+      const bool valid = t < t_live;
+      float kf[8];
+      if (valid) {
+        row8(k_t, t, dg, kf);
+        if (kQuant) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] *= row_scale[t];
+          for (int e = 0; e < 8; ++e) kf[e] *= row_scale[t];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = 0.f;
       }
-    } else {
+      // this thread's part of each row's dot product, padded to kP rows
+      float v[kP];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = 0.f;
-    }
-    float s[kG];
+      for (int g = 0; g < kP; ++g) {
+        float x = 0.f;
+        if (g < kG) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      float v = 0.f;
+          for (int e = 0; e < 8; ++e) x = fmaf(qf[g][e], kf[e], x);
+        }
+        v[g] = x;
+      }
+      // reduce-scatter over the key row's 16 lanes: at each step of the
+      // butterfly a lane keeps half of its rows and adds its partner's
+      // half of them, so the sums are those of a plain 16-lane
+      // reduction, bit for bit, in kP - 1 + log2(16 / kP) shuffles, not
+      // 4 kP; lane dg ends with the whole score of query row r
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v = fmaf(qf[g][e], kf[e], v);
+      for (int st = 0; st < 4; ++st) {
+        const int o = 8 >> st, m = kP >> st;     // m: rows still held
+        if (m >= 2) {
+          const bool hi = (dg & o) != 0;
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      s[g] = v;
-    }
-    if (valid && dg == 0) {
-#pragma unroll
-      for (int g = 0; g < kG; ++g)
-        if (g < g_size)
-          sp[g * kSplitKeys + t] =
-              key0 + t < len && !in_window(t) ? s[g] : PTT_NEG_INF;
+          for (int i = 0; i < m / 2; ++i) {
+            const float send = hi ? v[i] : v[i + m / 2];
+            const float keep = hi ? v[i + m / 2] : v[i];
+            v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+          }
+        } else {
+          v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+        }
+      }
+      if (valid && writes)
+        sp[r * kSplitKeys + t] =
+            key0 + t < count && !in_window(t) ? v[0] : PTT_NEG_INF;
     }
   }
   __syncthreads();
 
-  // the split's max and sum per query head, one warp per head; the
+  // the split's max and sum per query row, one warp per row; the
   // probabilities replace the scores
-  for (int g = warp; g < g_size; g += kWarps) {
+  for (int g = warp; g < rows; g += kWarps) {
     float* row = sp + g * kSplitKeys;
     const float s0 = lane < t_live ? row[lane] : -INFINITY;
     const float s1 = lane + 32 < t_live ? row[lane + 32] : -INFINITY;
@@ -318,70 +375,74 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
   }
   __syncthreads();
 
-  // P V over the same rows, then summed over the 8 row slots
-  float acc[kG][8];
-#pragma unroll
-  for (int g = 0; g < kG; ++g)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  for (int t = rs; t < t_live; t += kRowSlots) {
-    float vf[8];
-    row8(v_t, t, dg, vf);
-    if (kQuant) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vf[e] *= row_scale[kSplitKeys + t];
-    }
-#pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      if (g < g_size) {
-        const float p = sp[g * kSplitKeys + t];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kG; ++g)
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
-  if (lane < 16) {
+  // P V over the same rows, a pass of kG query rows at a time, then
+  // summed over the 8 row slots
+  for (int r0 = 0; r0 < rows; r0 += kG) {
+    float acc[kG][8];
 #pragma unroll
     for (int g = 0; g < kG; ++g)
-      if (g < g_size) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          red[(warp * kG + g) * kD + group_col<TKV>(dg, e)] = acc[g][e];
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int t = rs; t < t_live; t += kRowSlots) {
+      float vf[8];
+      row8(v_t, t, dg, vf);
+      if (kQuant) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vf[e] *= row_scale[kSplitKeys + t];
       }
-  }
-  __syncthreads();
-  for (int g = 0; g < g_size; ++g) {           // thread tid: column tid
-    float o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += red[(w * kG + g) * kD + tid];
-    part[g * (kD + 2) + tid] = o;
+      for (int g = 0; g < kG; ++g) {
+        if (r0 + g < rows) {
+          const float p = sp[(r0 + g) * kSplitKeys + t];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
+    if (lane < 16) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+        if (r0 + g < rows) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            red[(warp * kG + g) * kD + group_col<TKV>(dg, e)] = acc[g][e];
+        }
+    }
+    __syncthreads();
+    for (int g = 0; g < kG && r0 + g < rows; ++g) {  // thread tid: column tid
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) o += red[(w * kG + g) * kD + tid];
+      part[(r0 + g) * (kD + 2) + tid] = o;
+    }
+    if (r0 + kG < rows) __syncthreads();         // red is the next pass's
   }
 }
 
 // pages in q's dtype
-template <typename TQ, typename TKV, int kG>
+template <typename TQ, typename TKV, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_split_kernel(PagedArgs a) {
-  split_body<TQ, TKV, false, kG, false>(a);
+  split_body<TQ, TKV, false, kG, kRows, false>(a);
 }
 
 // int8 pages (the window's pages skipped)
-template <typename TQ, int kG>
+template <typename TQ, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_int8_split_kernel(PagedArgs a) {
-  split_body<TQ, int8_t, true, kG, false>(a);
+  split_body<TQ, int8_t, true, kG, kRows, false>(a);
 }
 
 // the decode round's float window, one split per (slot, kv head)
-template <typename TQ, int kG>
+template <typename TQ, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_window_kernel(PagedArgs a) {
-  split_body<TQ, TQ, false, kG, true>(a);
+  split_body<TQ, TQ, false, kG, kRows, true>(a);
 }
 
 template <typename TQ>
@@ -391,14 +452,16 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float warp_part[kWarps];
   const int n = blockIdx.x;
   const int h = blockIdx.y;                     // query head
+  const int qt = blockIdx.z;                    // query row of the slot
   const int tid = threadIdx.x;                  // output column
   const int warp = tid >> 5, lane = tid & 31;
   const int g_size = a.h / a.hkv;
   const int parts = n_parts(a);
-  const int64_t stride = static_cast<int64_t>(g_size) * (kD + 2);  // a split
+  // a split's partials: T x G rows of D + 2
+  const int64_t stride = static_cast<int64_t>(a.t) * g_size * (kD + 2);
   const float* head =
       a.ws + (static_cast<int64_t>(n) * a.hkv + h / g_size) * parts *
-                 stride + (h % g_size) * (kD + 2);
+                 stride + (qt * g_size + h % g_size) * (kD + 2);
 
   // M: the largest m_s of the splits with l_s > 0, every split at once
   float m = -INFINITY;
@@ -433,24 +496,24 @@ __global__ void __launch_bounds__(kThreads)
     const float w = w_s[s];
     if (w > 0.f) o = fmaf(head[s * stride + tid], w, o);
   }
-  static_cast<TQ*>(a.out)[(static_cast<int64_t>(n) * a.h + h) * kD + tid] =
-      ptt_from_float<TQ>(o / l);
+  static_cast<TQ*>(a.out)[((static_cast<int64_t>(n) * a.t + qt) * a.h + h) *
+                               kD + tid] = ptt_from_float<TQ>(o / l);
 }
 
 enum class Split { kFloat, kInt8, kWindow };
 
 // one split kernel over `blocks` splits of every (slot, kv head)
-template <Split kS, typename TQ, typename TKV, int kG>
+template <Split kS, typename TQ, typename TKV, int kG, int kRows>
 cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
                           cudaStream_t stream) {
-  constexpr size_t smem = split_smem_bytes<TKV, kG>();
+  constexpr size_t smem = split_smem_bytes<TKV, kG, kRows>();
   void (*kernel)(PagedArgs);
   if constexpr (kS == Split::kInt8)
-    kernel = paged_attn_int8_split_kernel<TQ, kG>;
+    kernel = paged_attn_int8_split_kernel<TQ, kG, kRows>;
   else if constexpr (kS == Split::kWindow)
-    kernel = paged_attn_window_kernel<TQ, kG>;
+    kernel = paged_attn_window_kernel<TQ, kG, kRows>;
   else
-    kernel = paged_attn_split_kernel<TQ, TKV, kG>;
+    kernel = paged_attn_split_kernel<TQ, TKV, kG, kRows>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = ptt_allow_smem(kernel, smem);
@@ -461,50 +524,67 @@ cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool kQuant, int kG>
+template <typename TQ, typename TKV, bool kQuant, int kG, int kRows>
 int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
-  cudaError_t e =
-      launch_splits<kQuant ? Split::kInt8 : Split::kFloat, TQ, TKV, kG>(
-          a, n, a.splits, stream);
+  cudaError_t e = launch_splits<kQuant ? Split::kInt8 : Split::kFloat, TQ,
+                                TKV, kG, kRows>(a, n, a.splits, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (kQuant) {           // the window's split, in q's dtype
     if (a.w > 0) {
-      e = launch_splits<Split::kWindow, TQ, TQ, kG>(a, n, 1, stream);
+      e = launch_splits<Split::kWindow, TQ, TQ, kG, kRows>(a, n, 1, stream);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
   }
   paged_attn_combine_kernel<TQ>
-      <<<dim3(n, a.h), kThreads, n_parts(a) * sizeof(float), stream>>>(a);
+      <<<dim3(n, a.h, a.t), kThreads, n_parts(a) * sizeof(float),
+         stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// by the query rows R = T x G of a (slot, kv head): R <= 8 in one pass
+// of R rows; up to 32 in ceil(R / 8) passes of ceil(R / passes) rows
 template <typename TQ, typename TKV, bool kQuant>
 int launch(const PagedArgs& a, int n, cudaStream_t stream) {
-  const int g = a.h / a.hkv;
-  if (g == 1) return launch_split<TQ, TKV, kQuant, 1>(a, n, stream);
-  if (g == 2) return launch_split<TQ, TKV, kQuant, 2>(a, n, stream);
-  if (g <= 4) return launch_split<TQ, TKV, kQuant, 4>(a, n, stream);
-  if (g <= 8) return launch_split<TQ, TKV, kQuant, 8>(a, n, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int r = a.t * (a.h / a.hkv);
+  switch (r) {
+    case 1: return launch_split<TQ, TKV, kQuant, 1, 1>(a, n, stream);
+    case 2: return launch_split<TQ, TKV, kQuant, 2, 2>(a, n, stream);
+    case 3: return launch_split<TQ, TKV, kQuant, 3, 3>(a, n, stream);
+    case 4: return launch_split<TQ, TKV, kQuant, 4, 4>(a, n, stream);
+    case 5: return launch_split<TQ, TKV, kQuant, 5, 5>(a, n, stream);
+    case 6: return launch_split<TQ, TKV, kQuant, 6, 6>(a, n, stream);
+    case 7: return launch_split<TQ, TKV, kQuant, 7, 7>(a, n, stream);
+    case 8: return launch_split<TQ, TKV, kQuant, 8, 8>(a, n, stream);
+    default: break;
+  }
+  if (r > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int passes = (r + 7) / 8;
+  switch ((r + passes - 1) / passes) {   // 5 .. 8
+    case 5: return launch_split<TQ, TKV, kQuant, 5, 32>(a, n, stream);
+    case 6: return launch_split<TQ, TKV, kQuant, 6, 32>(a, n, stream);
+    case 7: return launch_split<TQ, TKV, kQuant, 7, 32>(a, n, stream);
+    default: return launch_split<TQ, TKV, kQuant, 8, 32>(a, n, stream);
+  }
 }
 
 }  // namespace
 
-// `pps` pages per split (pps * ps <= 64) and `splits` = ceil(p / pps)
-// blocks per (slot, kv head); `w` window pages (0: no window; int8 pages
-// only, w * ps <= 64); `ws` is the fp32 workspace
-// [n, hkv, splits + (w > 0), h / hkv, 130].
+// `t` query rows per slot (t x h / hkv <= 32); `pps` pages per split
+// (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot, kv
+// head); `w` window pages (0: no window; int8 pages only, w * ps <= 64);
+// `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h / hkv, 130].
 PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, const void* k_scales,
                                    const void* v_scales, const void* k_win,
                                    const void* v_win, const void* win_first,
-                                   void* ws, void* out, int n, int h, int hkv,
-                                   int p, int ps, int pps, int splits, int w,
-                                   float scale, int q_dtype, int kv_dtype,
-                                   void* stream) {
-  if (pps < 1 || pps * ps > kSplitKeys || splits != (p + pps - 1) / pps ||
-      w < 0 || w * ps > kSplitKeys || (w > 0 && kv_dtype != PTT_INT8))
+                                   void* ws, void* out, int n, int t, int h,
+                                   int hkv, int p, int ps, int pps, int splits,
+                                   int w, float scale, int q_dtype,
+                                   int kv_dtype, void* stream) {
+  if (t < 1 || pps < 1 || pps * ps > kSplitKeys ||
+      splits != (p + pps - 1) / pps || w < 0 || w * ps > kSplitKeys ||
+      (w > 0 && kv_dtype != PTT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -518,6 +598,7 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               static_cast<const int*>(win_first),
               static_cast<float*>(ws),
               out,
+              t,
               h,
               hkv,
               p,

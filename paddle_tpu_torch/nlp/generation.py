@@ -211,9 +211,11 @@ def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 def cached_forward(model):
     """The decode-forward contract: returns
-    ``fwd(tok [N, 1], pages, pos [N], table [N, P]) -> logits [N, 1, V]``.
-    Each slot's pending token sits at position pos[n]: its K/V are written
-    into the slot's pages and it attends to the rows [0, pos[n]] through
+    ``fwd(tok [N, S], pages, pos [N], table [N, P]) -> logits [N, S, V]``.
+    Slot n's S tokens sit at positions pos[n] + i (S = 1: the pending
+    token of a decode sub-step; S = k + 1: the pending token and k draft
+    tokens of a speculative verify): their K/V are written into the
+    slot's pages and token i attends to the rows [0, pos[n] + i] through
     the paged-attention kernel. `pages` is the per-layer list of
     (k_pages, v_pages) and is updated in place."""
     def fwd(tok, pages, pos, table):

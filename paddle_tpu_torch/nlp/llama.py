@@ -8,9 +8,10 @@ Three forward modes:
   K/V rows (`LlamaModel.forward` returns them) and scatters them into
   pages;
 - with `kv_pages`, `table` and a [N] `position_offset`, each batch row is
-  one decode slot whose pending token sits at `position_offset[n]`: its
-  K/V rows are written into the slot's pages and it attends through the
-  paged-attention kernel to positions [0, position_offset[n]];
+  one decode slot whose S tokens (1 in a decode sub-step, k + 1 in a
+  speculative verify) sit at positions position_offset[n] + i: their K/V
+  rows are written into the slot's pages and token i attends through the
+  paged-attention kernel to positions [0, position_offset[n] + i];
 - with `kv_pages`, a [1, P] `table` and a scalar `position_offset`
   `start` (an int or a 0-d tensor), the S tokens are one prompt chunk of
   one slot at positions [start, start + S) (the engine's suffix and
@@ -26,7 +27,7 @@ Three forward modes:
 A layer's `kv_pages` entry is a `generation.LayerKV` (or a plain (k, v)
 pair). Over int8 pages it carries their scales: the chunk's gather
 dequantizes and its touched pages are requantized whole; the decode
-forward writes its row into the round's float window, which the paged
+forward writes its rows into the round's float window, which the paged
 kernel reads in place of the window's int8 pages.
 
 Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
@@ -168,32 +169,36 @@ class LlamaAttention(Layer):
             out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True,
                                               seqused_k=used)
         else:
-            if s != 1 or offset.dim() != 1:
-                raise ValueError('the paged decode forward takes one token '
-                                 'per slot and a [N] position offset')
+            if offset.dim() != 1:
+                raise ValueError('the paged decode forward takes a [N] '
+                                 'position offset')
+            # token i of slot n sees the keys below offset[n] + 1 + i; one
+            # token per slot passes the kernel a 3-D query, several a 4-D
             lengths = (offset + 1).to(torch.int32)
+            qs = q[:, 0] if s == 1 else q
             if scales is None:
                 update_kv_cache(kv.k, kv.v, k, v, table, offset)
-                out = kernels.paged_attention(q[:, 0], kv.k, kv.v, table,
-                                              lengths)
+                out = kernels.paged_attention(qs, kv.k, kv.v, table, lengths)
             else:
                 if kv.k_win is None:
                     raise ValueError('a decode forward over int8 pages '
                                      'writes into the round\'s float window '
                                      '(serving/decode_graph.py)')
-                # the new row goes into the window, never into an int8
+                # the new rows go into the window, never into an int8
                 # page: the round's end requantizes the touched pages
                 ps = kv.k.shape[1]
-                n = torch.arange(b, device=offset.device)
-                w = torch.div(offset, ps, rounding_mode='floor') - \
-                    kv.win_first
-                kv.k_win[n, w, offset % ps] = k[:, 0].to(kv.k_win.dtype)
-                kv.v_win[n, w, offset % ps] = v[:, 0].to(kv.v_win.dtype)
+                n = torch.arange(b, device=offset.device)[:, None]
+                at = offset_grid(offset, s)                     # [N, S]
+                w = torch.div(at, ps, rounding_mode='floor') - \
+                    kv.win_first[:, None]
+                kv.k_win[n, w, at % ps] = k.to(kv.k_win.dtype)
+                kv.v_win[n, w, at % ps] = v.to(kv.v_win.dtype)
                 out = kernels.paged_attention(
-                    q[:, 0], kv.k, kv.v, table, lengths,
+                    qs, kv.k, kv.v, table, lengths,
                     k_scales=kv.k_scales, v_scales=kv.v_scales,
                     k_win=kv.k_win, v_win=kv.v_win, win_first=kv.win_first)
-            out = out[:, None]
+            if s == 1:
+                out = out[:, None]
         return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
 
 

@@ -38,7 +38,9 @@ bounds it on the H100, and what its design does about that. The flash
 forward, dq and dk/dv wrappers launch by dtype: bf16 on the tensor-core
 (wgmma) kernels, f32 on fp32 FMA kernels; any other dtype raises. One
 `paged_attention` call launches two device kernels (the split-context
-pass and its combine) and counts once.
+pass and its combine) and counts once: under `paged_attention` when q
+holds one query row per slot (decode), under `paged_attention_verify`
+when it holds several (a speculative verify).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ NEG_INF = torch.finfo(torch.float32).min
 
 LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dkv': 0, 'paged_attention': 0,
+            'paged_attention_verify': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
             'adapter_matmul': 0, 'multi_tensor_adam': 0,
             'multi_tensor_sumsq': 0}
@@ -63,7 +66,7 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
-_MAX_GROUP = 8           # paged kernel: query heads per kv head, at most
+PAGED_MAX_ROWS = 32      # paged kernel: query rows T x G per kv head, at most
 PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
 ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
 ADAPTER_MAX_BATCH = 1024  # adapter kernel: rows per call, at most
@@ -80,7 +83,7 @@ _ARGTYPES = {
     'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
-    'paged_attention_fwd': [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
+    'paged_attention_fwd': [_P] * 12 + [_I] * 9 + [_F, _I, _I, _P],
     'adapter_matmul_fwd': [_P] * 7 + [_I] * 8 + [_P],
     'multi_tensor_adam': [_I] + [_P] * 4 + [_F] * 6 + [_I, _P] + [_I] * 4
     + [_P],
@@ -547,13 +550,19 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
     """Plain version, the JAX package's `paged_attention_reference` in
     torch: gather every page of the table, dequantize, masked attend.
 
-    q [N, H, D]; k/v_pages [num_pages, ps, HKV, D]; table [N, P] int32;
-    lengths [N] int32; k/v_scales [num_pages, HKV] f32 for int8 pages.
-    With the window k/v_win [N, W, ps, HKV, D] and win_first [N] int32,
-    logical page i of slot n with win_first[n] <= i < win_first[n] + W
-    is read from the window (no scale) in place of its page. A slot with
-    length 0 gets the uniform average of its gathered pages."""
-    n, h, d = q.shape
+    q [N, H, D] (one query per slot) or [N, T, H, D] (T queries per slot,
+    a speculative verify: query row t attends the keys below
+    lengths[n] + t, the JAX verify's mask `k_slot <= pos + t`);
+    k/v_pages [num_pages, ps, HKV, D]; table [N, P] int32; lengths [N]
+    int32, the key count of query row 0; k/v_scales [num_pages, HKV] f32
+    for int8 pages. With the window k/v_win [N, W, ps, HKV, D] and
+    win_first [N] int32, logical page i of slot n with win_first[n] <= i
+    < win_first[n] + W is read from the window (no scale) in place of its
+    page. A query row with no key gets the uniform average of its
+    gathered pages."""
+    rows4 = q.dim() == 4
+    q4 = q if rows4 else q[:, None]
+    n, t, h, d = q4.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     p = table.shape[1]
     if sm_scale is None:
@@ -578,14 +587,20 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
         k, v = k[:, :p], v[:, :p]
     k = k.reshape(n, p * ps, hkv, d)
     v = v.reshape(n, p * ps, hkv, d)
+    # the T x G query rows of each kv head, row r = t * G + g
     g = h // hkv
-    qf = q.float().reshape(n, hkv, g, d) * sm_scale
+    qf = q4.float().reshape(n, t, hkv, g, d).transpose(1, 2).reshape(
+        n, hkv, t * g, d) * sm_scale
     s = torch.einsum('nkgd,nskd->nkgs', qf, k)
-    live = torch.arange(p * ps, device=q.device)[None, :] < lengths[:, None]
-    s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+    count = lengths[:, None] + torch.arange(
+        t * g, device=q.device)[None, :] // g                  # [N, T x G]
+    live = torch.arange(p * ps, device=q.device)[None, None, :] < \
+        count[:, :, None]
+    s = s.masked_fill(~live[:, None], NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum('nkgs,nskd->nkgd', w, v)
-    return o.reshape(n, h, d).to(q.dtype)
+    o = o.reshape(n, hkv, t, g, d).transpose(1, 2).reshape(n, t, h, d)
+    return (o if rows4 else o[:, 0]).to(q.dtype)
 
 
 def paged_split(p: int, ps: int):
@@ -600,19 +615,23 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
                     v_scales=None, sm_scale=None, k_win=None, v_win=None,
                     win_first=None):
     """Decode attention over a page-table KV pool (shapes as in
-    `paged_attention_reference`). On the card a slot with length 0
-    computes its first page only (finite, meaningless: callers mask
-    such slots), where the plain version averages all its pages. The
-    kernel splits each slot's context into runs of at most
-    PAGED_SPLIT_KEYS keys (`paged_split`) and combines them in a second
-    kernel, over an fp32 workspace it takes from the caching allocator;
-    it takes pages of at most PAGED_SPLIT_KEYS rows.
+    `paged_attention_reference`): q [N, H, D], or [N, T, H, D] for T
+    query rows per slot (the speculative verify), row t seeing the keys
+    below lengths[n] + t. On the card a query row with no key computes
+    its slot's first page only (finite, meaningless: callers mask such
+    slots), where the plain version averages all its pages. The kernel
+    folds the T x G query rows of a (slot, kv head) into one block (at
+    most PAGED_MAX_ROWS), splits each slot's context into runs of at
+    most PAGED_SPLIT_KEYS keys (`paged_split`) and combines them in a
+    second kernel, over an fp32 workspace it takes from the caching
+    allocator; it takes pages of at most PAGED_SPLIT_KEYS rows.
 
     Over int8 pages a decode round passes its float window (k/v_win in
     q.dtype, win_first int32 on the device): the int8 splits skip the
     window's pages, and one more split per (slot, kv head) attends the
     window's W * ps <= PAGED_SPLIT_KEYS rows, so each split reads one
-    dtype. The call counts once."""
+    dtype. The call counts once: under `paged_attention` for a 3-D q,
+    under `paged_attention_verify` for a 4-D one."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
     window = (k_win, v_win, win_first)
@@ -628,7 +647,9 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             q, k_pages, v_pages, table, lengths, k_scales=k_scales,
             v_scales=v_scales, sm_scale=sm_scale, k_win=k_win, v_win=v_win,
             win_first=win_first)
-    n, h, d = q.shape
+    _require(q.dim() in (3, 4), f'paged kernel takes q [N, H, D] or '
+             f'[N, T, H, D], got {tuple(q.shape)}')
+    n, t, h, d = q.shape if q.dim() == 4 else (q.shape[0], 1) + q.shape[1:]
     num_pages, ps, hkv = k_pages.shape[:3]
     p = table.shape[1]
     quant = k_scales is not None
@@ -642,9 +663,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
              and tuple(v_pages.shape) == tuple(k_pages.shape),
              f'paged kernel is built for head_dim {_HEAD_DIM}, got '
              f'q {tuple(q.shape)} pages {tuple(k_pages.shape)}')
-    _require(hkv >= 1 and h % hkv == 0 and h // hkv <= _MAX_GROUP,
-             f'paged kernel takes at most {_MAX_GROUP} query heads per kv '
-             f'head, got H={h} HKV={hkv}')
+    _require(hkv >= 1 and h % hkv == 0 and t >= 1
+             and t * (h // hkv) <= PAGED_MAX_ROWS,
+             f'paged kernel takes at most {PAGED_MAX_ROWS} query rows (T x '
+             f'H / HKV) per kv head, got T={t} H={h} HKV={hkv}')
     _require(table.dtype == torch.int32 and lengths.dtype == torch.int32
              and tuple(table.shape) == (n, p) and tuple(lengths.shape) == (n,),
              'table [N, P] and lengths [N] must be int32')
@@ -679,18 +701,19 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     if n == 0:
         return out
     pps, splits = paged_split(p, ps)
-    ws = torch.empty((n, hkv, splits + (1 if w else 0), h // hkv, d + 2),
-                     dtype=torch.float32, device=q.device)
+    ws = torch.empty((n, hkv, splits + (1 if w else 0), t * (h // hkv),
+                      d + 2), dtype=torch.float32, device=q.device)
     lib, fn = _entry('paged_attention', 'paged_attention_fwd')
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lengths.data_ptr(), ptr(k_scales),
             ptr(v_scales), ptr(k_win), ptr(v_win), ptr(win_first),
-            ws.data_ptr(), out.data_ptr(), n, h, hkv, p, ps, pps, splits, w,
-            float(sm_scale), _DTYPE_CODE[q.dtype],
+            ws.data_ptr(), out.data_ptr(), n, t, h, hkv, p, ps, pps, splits,
+            w, float(sm_scale), _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[k_pages.dtype], _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
-    LAUNCHES['paged_attention'] += 1
+    LAUNCHES['paged_attention_verify' if q.dim() == 4
+             else 'paged_attention'] += 1
     return out
 
 

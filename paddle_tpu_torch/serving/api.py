@@ -82,6 +82,10 @@ class RequestHandle:
     request-level failure never kills the engine). Latency marks:
     ``ttft`` (submit -> first token) and ``tpot`` (mean inter-token time
     after the first) are available once the request finishes.
+
+    ``weight_version`` is stamped at admission with the engine's live
+    weight version; a weight swap needs a drained engine, so every token
+    of the response was decoded under that one version.
     """
 
     def __init__(self, prompt_tokens: List[int], params: SamplingParams,
@@ -103,6 +107,9 @@ class RequestHandle:
         # while it runs) and the rows attached
         self._prefix_node = None
         self._prefix_len = 0
+        # the weight version this request decodes under (stamped at
+        # admission; None while still queued)
+        self.weight_version: Optional[int] = None
         self._eos = -1
         self._t_submit = time.perf_counter()
         self._t_first: Optional[float] = None

@@ -49,6 +49,16 @@ slot's end) goes to the null page, so the last page is written once,
 from the window the sub-steps wrote. An inactive slot's staged table row
 is the null page, so its window writes land there.
 
+With a draft model the round is `SpecStep`, the port's counterpart of
+the JAX engine's compiled speculation round (`paddle_tpu/serving/
+engine.py:_paged_spec_fn`, :792-856), captured once as one graph: k
+draft sub-steps, each the draft's decode forward over its row pool read
+as pages (`kv_pool.SlotPool`) and a greedy argmax on the device, then
+one verify of [pending, d_1 .. d_k] through the target's paged forward,
+k + 1 query rows per slot in one paged-kernel call per layer, and the
+longest-prefix acceptance. Over int8 pages its window covers the k + 1
+rows of the verify.
+
 `GraphStep` is what the sub-step shares with the captured prefill
 (`prefill_graph.PrefillStep`): the static buffers and their pinned
 staging, the capture and the replay.
@@ -226,13 +236,15 @@ class DecodeStep(GraphStep):
         scales: the int8 pool's per-layer (k_scales, v_scales), or None
             for pages in the model's dtype.
         compute_dtype: the window's dtype (the model's), with `scales`.
+        extra: more static buffers, {name: (shape, dtype)}.
     """
 
     what = 'decode sub-step'
 
     def __init__(self, fwd, pages, num_slots: int, table_width: int,
                  max_length: int, decode_block: int, device: torch.device,
-                 adapter_arrays=None, scales=None, compute_dtype=None):
+                 adapter_arrays=None, scales=None, compute_dtype=None,
+                 extra=None):
         self._fwd = fwd
         self._max_len = int(max_length)
         self._arrays = adapter_arrays
@@ -248,6 +260,7 @@ class DecodeStep(GraphStep):
             # set by the round's begin, not staged
             spec['win_first'] = ((n,), torch.int32)
             spec['pos0'] = ((n,), torch.int64)
+        spec.update(extra or {})
         super().__init__(spec, device)
         self.out = torch.zeros((n, decode_block), dtype=torch.int64,
                                device=device)
@@ -328,3 +341,113 @@ class DecodeStep(GraphStep):
         if self._windows is not None:
             self.run_side('_round_end')
         return self.out
+
+
+class SpecStep(DecodeStep):
+    """One speculating engine's round over static buffers on `device`: k
+    draft proposals and one verify of k + 1 rows (the JAX
+    `_paged_spec_fn`), replayed from one CUDA graph on the card.
+
+    The body, all on the device:
+    - k draft sub-steps: the draft's decode forward of the current token
+      at position min(pos + j, max_length - 1) over its row pool read as
+      pages through the staged identity table `d_table` (an inactive
+      slot writes its junk row into its own draft row, above its live
+      length, as in JAX), then the argmax;
+    - the verify: the target's paged forward of [pending, d_1 .. d_k] at
+      positions pos .. pos + k over the masked table, inside
+      `adapter_scope` with a bank (the draft stays outside it, as in
+      JAX): each slot's k + 1 rows written into its pages (over int8
+      pages into the round's window) and one paged-kernel call per layer
+      with q [N, k + 1, H, D], row t seeing the keys [0, pos + t];
+    - the acceptance: `choice` the verify's argmax per row, `match` the
+      drafts that equal it, stopping at eos and zero for sampling rows,
+      a = sum(cumprod(match)), the tokens [N, k + 1] (the accepted drafts
+      then the target's own next token) and the counts a + 1 [N], both
+      zero for inactive slots.
+    Sampling rows then draw one token from the verify's first-row logits
+    with their own generator, between the replay and the fetch
+    (`draw_rows`); their count is 1.
+
+    Over int8 pages the window holds W = `window_count(k + 1, ps)` pages
+    per slot and layer; its fill and requantize run around the replay, as
+    in `DecodeStep`, and the requantize rewrites every page the span
+    [pos, pos + k + 1) touches, rejected rows included, as the JAX
+    scatter does.
+
+    Args (beyond `DecodeStep`'s, with `k` in place of decode_block):
+        draft_fwd: the draft model's `cached_forward`.
+        draft_pages: the draft pool's per-layer (k_pages, v_pages)
+            (`SlotPool.pages`).
+    """
+
+    what = 'speculation round'
+
+    def __init__(self, fwd, pages, num_slots: int, table_width: int,
+                 max_length: int, k: int, device: torch.device, draft_fwd,
+                 draft_pages, adapter_arrays=None, scales=None,
+                 compute_dtype=None):
+        n = num_slots
+        super().__init__(
+            fwd, pages, n, table_width, max_length, k + 1, device,
+            adapter_arrays, scales, compute_dtype,
+            extra={'eos': ((n,), torch.int64),
+                   'greedy': ((n,), torch.bool),
+                   'd_table': ((n, max_length // draft_pages[0][0].shape[1]),
+                               torch.int32)})
+        self.k = int(k)
+        self._draft_fwd = draft_fwd
+        self._draft_pages = draft_pages
+        self.counts = torch.zeros(n, dtype=torch.int64, device=device)
+
+    def _body(self) -> torch.Tensor:
+        return self._verify(self._propose())
+
+    def _propose(self) -> torch.Tensor:
+        """The k draft sub-steps; returns the drafts [N, k]."""
+        b = self.buf
+        pos, cur = b['pos'], b['tok']
+        drafts = []
+        for j in range(self.k):
+            p = torch.clamp(pos + j, max=self._max_len - 1)
+            cur = self._draft_fwd(cur[:, None], self._draft_pages, p,
+                                  b['d_table'])[:, -1].argmax(dim=-1)
+            drafts.append(cur)
+        return torch.stack(drafts, dim=1)
+
+    def _verify(self, drafts: torch.Tensor) -> torch.Tensor:
+        """The verify of [pending, drafts] and the acceptance, into `out`
+        and `counts`; returns the first row's fp32 logits [N, V]."""
+        b, k = self.buf, self.k
+        pos = b['pos']
+        block = torch.cat([b['tok'][:, None], drafts], dim=1)  # [N, k + 1]
+        with adapter_scope(self._arrays, b.get('rows')):
+            logits = self._fwd(block, self._pages, pos, b['table']).float()
+        choice = logits.argmax(dim=-1)                          # [N, k + 1]
+        match = ((drafts == choice[:, :k]) & (drafts != b['eos'][:, None])
+                 & b['greedy'][:, None])
+        a = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        nxt = choice.gather(1, a[:, None])
+        j = torch.arange(k + 1, device=pos.device)[None, :]
+        ext = torch.cat([drafts, drafts[:, -1:]], dim=1)
+        toks = torch.where(j < a[:, None], ext,
+                           torch.where(j == a[:, None], nxt, 0))
+        self.out.copy_(torch.where(b['active'][:, None], toks, 0))
+        self.counts.copy_(torch.where(b['active'], a + 1, 0))
+        return logits[:, 0]
+
+    def run(self, sampling: np.ndarray, generators) -> tuple:
+        """Queue the round over the staged buffers (a graph replay once
+        captured, else the body); rows flagged in the host array
+        `sampling` then draw their one token from the verify's first-row
+        logits. Returns the static ([N, k + 1] tokens, [N] counts)
+        buffers; waits for nothing."""
+        b = self.buf
+        if self._windows is not None:
+            self.run_side('_round_begin')
+        logits = self.run_once()
+        draw_rows(logits, self.out[:, 0], b['temp'], b['topk'], b['topp'],
+                  np.flatnonzero(sampling), generators)
+        if self._windows is not None:
+            self.run_side('_round_end')
+        return self.out, self.counts

@@ -1,7 +1,8 @@
 """Continuous-batching inference engine over the paged KV pool
 (counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
 `kv_page_size` set, unquantized or with `kv_quant='int8'`, with the
-prefix cache and chunked prefill, without a draft model).
+prefix cache, chunked prefill and speculative decoding with a draft
+model, graceful drain, eviction and in-place weight swaps).
 
 One engine is one event loop: `step()` admits queued requests into free
 slots (reserving every page each can touch, and requeueing on
@@ -71,6 +72,26 @@ JAX engine does. A failed graph capture or replay (`GraphError`) and a
 CUDA error are not a request's failure: what the device holds is in
 doubt, so they escape `step()`.
 
+With a `draft_model` each round is one speculation round
+(`decode_graph.SpecStep`, the JAX `_paged_spec_fn`, captured as one
+graph `paged_spec_decode_k{k}`): the draft proposes k tokens greedily
+from its own KV, a row pool slot for slot with the paged pool
+(`kv_pool.SlotPool`, filled at activation by a whole-bucket draft
+prefill, `draft_prefill_<bucket>`), and the target verifies the pending
+token and the k drafts in one forward of k + 1 rows per slot, each
+greedy slot emitting its longest accepted prefix and the target's own
+next token: the tokens of plain greedy decoding, in fewer target
+passes. Sampling slots draw one token a round from the verify's first
+row. Every request reserves k rows of headroom past its budget.
+
+Graceful drain (`drain`, `begin_drain`, or a `PreemptionHandler` wired
+in by `enable_graceful_drain`) stops admitting and finishes every
+accepted request, failing the stragglers past a deadline; `evict_all`
+hands every accepted request back untouched. `swap_weights` copies a
+published state into the live parameters in place (a drained engine
+only), so every captured graph reads the new weights and nothing is
+captured again; `restore_weights` copies the old ones back.
+
 Greedy requests take the raw argmax, so their tokens never depend on
 batch neighbours; sampling requests draw from their own
 `torch.Generator`, seeded from `SamplingParams.seed`, between replays.
@@ -97,11 +118,23 @@ from ..nlp.generation import cached_forward
 from ..framework import generator as _generator
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
-from .decode_graph import DecodeStep, GraphError
-from .kv_pool import PagePoolExhausted, PagedSlotPool
+from .decode_graph import DecodeStep, GraphError, SpecStep
+from .kv_pool import PagePoolExhausted, PagedSlotPool, SlotPool
 from .prefill_graph import PrefillStep
 from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .scheduler import FCFSScheduler
+
+
+def _host_tensor(value) -> torch.Tensor:
+    """A published weight (a tensor, a numpy array or anything
+    `np.asarray` reads, e.g. a JAX array) as a tensor; numpy bfloat16
+    goes through float32, which holds it exactly."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    arr = np.asarray(getattr(value, 'value', value))
+    if arr.dtype.name == 'bfloat16':
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.require(arr, requirements=('C', 'W')))
 
 
 def _device_fault(exc: Exception) -> bool:
@@ -143,6 +176,15 @@ class InferenceEngine:
         kv_quant: 'int8' stores the paged KV as int8 with per-(page, kv
             head) absmax scales (half the bytes of bf16 KV); None keeps
             it in the model's dtype.
+        draft_model: a smaller causal LM on the engine's device for
+            speculative decoding: each round it proposes
+            `num_draft_tokens` tokens greedily from its own row KV pool
+            and the model verifies them in one forward of k + 1 rows per
+            slot (greedy output identical to plain greedy). Sampling
+            requests decode one token per round.
+        num_draft_tokens: draft proposals per speculation round (k).
+        weight_version: the initial weight-version tag, stamped on every
+            request at admission; `swap_weights` moves it.
     """
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 256,
@@ -154,7 +196,8 @@ class InferenceEngine:
                  kv_page_size: int = 16, kv_pages: Optional[int] = None,
                  adapter_bank=None, prefix_cache=None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 kv_quant: Optional[str] = None):
+                 kv_quant: Optional[str] = None, draft_model=None,
+                 num_draft_tokens: int = 4, weight_version: int = 0):
         cfg = getattr(model, 'config', None)
         max_pos = getattr(cfg, 'max_position_embeddings', None)
         if max_pos is not None and max_length > max_pos:
@@ -167,6 +210,9 @@ class InferenceEngine:
         self.model = model
         self.device = model.device
         self._fwd = cached_forward(model)
+        # monotone weight-version tag, moved by swap_weights; every
+        # request is stamped with the version it decodes under
+        self.weight_version = int(weight_version)
         self.eos_token_id = int(
             getattr(cfg, 'eos_token_id', -1) if eos_token_id is None
             else eos_token_id)
@@ -200,6 +246,36 @@ class InferenceEngine:
                 'prefix cache budget rounds to zero pages; raise the '
                 'fraction or the pool size (retention must leave capacity '
                 'for decode)')
+        if self.prefix_cache is not None:
+            self.prefix_cache.set_version(self.weight_version)
+        self.draft_model = draft_model
+        self.spec_k = int(num_draft_tokens)
+        # a speculation round verifies [pos, pos + k]: every request needs
+        # k rows past its token budget
+        self._headroom = self.spec_k if draft_model is not None else 0
+        self.draft_pool: Optional[SlotPool] = None
+        if draft_model is not None:
+            if self.spec_k < 1:
+                raise ValueError('num_draft_tokens must be >= 1')
+            d_pos = getattr(getattr(draft_model, 'config', None),
+                            'max_position_embeddings', None)
+            if d_pos is not None and max_length > d_pos:
+                raise ValueError(
+                    f'max_length {max_length} exceeds the DRAFT model\'s '
+                    f'max_position_embeddings {d_pos}')
+            if draft_model.device != self.device:
+                raise ValueError(
+                    f'the draft model is on {draft_model.device}, the '
+                    f'engine on {self.device}')
+            draft_model.eval()
+            # the draft's KV: one row per slot, slot for slot with the
+            # paged pool (never allocated or freed on its own)
+            self.draft_pool = SlotPool(draft_model, num_slots, max_length,
+                                       buckets, page_size=int(kv_page_size))
+        self._draining = False
+        self._drain_t0 = 0.0
+        self._drain_deadline_s: Optional[float] = None
+        self._preempt = None
         # slot -> [handle, prefill cursor]: slots mid-chunked-prefill
         # (inactive for decode until the cursor reaches the prompt end)
         self._prefilling: dict = {}
@@ -213,17 +289,31 @@ class InferenceEngine:
         self._topk = np.zeros(n, np.int64)
         self._topp = np.ones(n, np.float32)
         self._greedy = np.ones(n, bool)
+        self._eos_arr = np.full(n, -1, np.int64)   # spec acceptance stop
         self._gens: List[Optional[torch.Generator]] = [None] * n
         self._adapter_rows = np.zeros(n, np.int32)  # 0 = base adapter
         self._slot_req: dict = {}               # slot -> RequestHandle
         self._counts = collections.Counter()
         self._seconds = collections.Counter()
         self._trace_counts = collections.Counter()
-        self._decode = DecodeStep(
-            self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
-            self.pool.max_length, self.decode_block, self.device,
-            None if adapter_bank is None else adapter_bank.device_arrays(),
-            scales=self.pool.scales, compute_dtype=self.pool.compute_dtype)
+        arrays = (None if adapter_bank is None
+                  else adapter_bank.device_arrays())
+        if draft_model is None:
+            self._decode = DecodeStep(
+                self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
+                self.pool.max_length, self.decode_block, self.device,
+                arrays, scales=self.pool.scales,
+                compute_dtype=self.pool.compute_dtype)
+            self._decode_name = 'paged_decode_step'
+        else:
+            self._decode = SpecStep(
+                self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
+                self.pool.max_length, self.spec_k, self.device,
+                cached_forward(draft_model), self.draft_pool.pages, arrays,
+                scales=self.pool.scales,
+                compute_dtype=self.pool.compute_dtype)
+            # the JAX engine's trace name (engine.py:806)
+            self._decode_name = f'paged_spec_decode_k{self.spec_k}'
         # (kind, bucket) -> PrefillStep, built at first use
         self._prefill_steps: dict = {}
         self._prefill_pool = None       # the prefill graphs' memory pool
@@ -259,7 +349,8 @@ class InferenceEngine:
         """Queue one request; returns its live handle. Validation errors
         raise here. `adapter_id` decodes the request under that LoRA
         adapter of the engine's bank (None = base model); an adapter the
-        bank does not hold raises `AdapterUnavailable` here."""
+        bank does not hold raises `AdapterUnavailable` here. A draining
+        engine refuses every new request (RuntimeError)."""
         if params is None:
             params = SamplingParams(**kwargs)
         elif kwargs:
@@ -272,13 +363,22 @@ class InferenceEngine:
                     f'with adapter_bank=')
             if not self.adapter_bank.available(adapter_id):
                 raise AdapterUnavailable(adapter_id, 'not resident')
+        self._check_drain()
+        if self._draining:
+            raise RuntimeError(
+                'engine is draining (preemption signal received): not '
+                'admitting new requests')
         toks = self._normalize_prompt(prompt)
         self.pool.bucket_for(len(toks))   # raises when no bucket fits
-        if len(toks) + params.max_new_tokens > self.pool.max_length:
+        headroom = self._headroom
+        if len(toks) + params.max_new_tokens + headroom \
+                > self.pool.max_length:
             raise ValueError(
                 f'prompt ({len(toks)}) + max_new_tokens '
-                f'({params.max_new_tokens}) exceeds the slot length '
-                f'({self.pool.max_length})')
+                f'({params.max_new_tokens})'
+                + (f' + speculation headroom ({headroom})' if headroom
+                   else '')
+                + f' exceeds the slot length ({self.pool.max_length})')
         h = RequestHandle(toks, params, engine=self)
         h.adapter_id = adapter_id
         if priority is not None:
@@ -299,24 +399,33 @@ class InferenceEngine:
     def step(self) -> int:
         """One scheduler iteration: admit queued requests into free slots
         (prefilling the whole ones), advance every mid-prefill slot one
-        chunk, then advance every active slot one decode round. Returns
-        the number of requests that progressed."""
+        chunk, then advance every active slot one decode round (one
+        speculation round with a draft model). Returns the number of
+        requests that progressed."""
+        self._check_drain()
         self._admit()
         self._advance_prefills()
         n = len(self._slot_req)
         if not np.any(self._active):
             return n            # chunk-prefill-only progress this round
         t0 = time.perf_counter()
-        toks = self._decode_round()
+        if self.draft_model is not None:
+            toks, counts = self._spec_round()
+        else:
+            toks, counts = self._decode_round(), None
         now = time.perf_counter()
         self._seconds['decode'] += now - t0
         self._counts['decode_rounds'] += 1
         for slot, h in list(self._slot_req.items()):
             if not self._active[slot]:
                 continue            # mid-chunked-prefill: no tokens yet
+            c = self.decode_block if counts is None else int(counts[slot])
+            if counts is not None and self._greedy[slot]:
+                self._counts['spec_proposed'] += self.spec_k
+                self._counts['spec_accepted'] += c - 1
             done = False
             emitted = 0
-            for j in range(self.decode_block):
+            for j in range(c):
                 t = int(toks[slot, j])
                 h._emit(t, now)
                 emitted += 1
@@ -327,8 +436,8 @@ class InferenceEngine:
             if done:
                 self._retire(slot, h, now)
             else:
-                self._tok[slot] = toks[slot, -1]
-                self._pos[slot] += self.decode_block
+                self._tok[slot] = toks[slot, c - 1]
+                self._pos[slot] += c
                 self.pool.note_written(slot, self._pos[slot] + 1)
         return n
 
@@ -341,31 +450,49 @@ class InferenceEngine:
         self._counts['decode_steps'] += self.decode_block
         return toks
 
-    def _queue_round(self) -> torch.Tensor:
-        """Stage the round's host state (`_stage_round`) and queue its
-        sub-steps (`DecodeStep.run`); returns the device [num_slots,
-        decode_block] token buffer."""
+    def _spec_round(self) -> tuple:
+        """One speculation round over every slot (`SpecStep`): returns the
+        host ([num_slots, k + 1] tokens, [num_slots] accepted counts + 1)
+        (the fetch waits for the round). One verify pass: one decode
+        step."""
+        with torch.inference_mode():
+            toks, counts = self._queue_round()
+            toks = toks.to('cpu', copy=True).numpy()
+            counts = counts.to('cpu', copy=True).numpy()
+        self._counts['decode_steps'] += 1
+        self._counts['spec_rounds'] += 1
+        return toks, counts
+
+    def _queue_round(self):
+        """Stage the round's host state (`_stage_round`) and queue it
+        (`DecodeStep.run`, or `SpecStep.run` with a draft model); returns
+        the device [num_slots, decode_block] token buffer, or with a
+        draft model the ([num_slots, k + 1] tokens, [num_slots] counts)
+        buffers."""
         return self._stage_round().run(self._active & ~self._greedy,
                                        self._gens)
 
     def _stage_round(self) -> DecodeStep:
-        """Stage the round's host state into the sub-step's static
-        buffers; returns the step. Inactive slots have their table row
-        redirected to the null page, so their writes land nowhere real.
-        Captures the sub-step first when this is the engine's first round
-        on the card."""
+        """Stage the round's host state into the sub-step's (or the
+        speculation round's) static buffers; returns the step. Inactive
+        slots have their table row redirected to the null page, so their
+        writes land nowhere real. Captures the step first when this is
+        the engine's first round on the card."""
         step = self._decode
         if self._capture_decode and step.graph is None:
             t0 = time.perf_counter()
             step.capture()
             self._seconds['capture'] += time.perf_counter() - t0
-            self._trace_counts['paged_decode_step'] += 1
+            self._trace_counts[self._decode_name] += 1
         staged = dict(
             tok=self._tok, pos=self._pos, active=self._active,
             table=np.where(self._active[:, None], self.pool.page_table, 0),
             temp=self._temp, topk=self._topk, topp=self._topp)
         if self.adapter_bank is not None:
             staged['rows'] = self._adapter_rows
+        if self.draft_model is not None:
+            staged.update(eos=self._eos_arr, greedy=self._greedy,
+                          d_table=self.draft_pool.table)
         step.stage(**staged)
         return step
 
@@ -398,6 +525,176 @@ class InferenceEngine:
                    for p, sp, aid in zip(prompts, params, adapter_ids)]
         self.run()
         return handles
+
+    # ------------------------------------------------------------------
+    # graceful drain (preemption) and eviction
+    # ------------------------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def enable_graceful_drain(self, handler=None, deadline_s: float = 30.0,
+                              signals=None):
+        """Wire a `resilience.PreemptionHandler` into the engine: once it
+        is flagged (SIGTERM by default, the eviction grace window),
+        `submit` refuses new requests, every accepted request, queued or
+        in flight, still finishes, and `drain()` bounds that by
+        `deadline_s`. Pass a ready handler to share one; returns the
+        handler in use."""
+        if handler is None:
+            import signal as _signal
+            from ..resilience.preemption import PreemptionHandler
+            handler = PreemptionHandler(
+                signals=signals or (_signal.SIGTERM,)).install()
+        self._preempt = handler
+        self._drain_deadline_s = float(deadline_s)
+        return handler
+
+    def _check_drain(self):
+        if (not self._draining and self._preempt is not None
+                and self._preempt.requested):
+            self._begin_drain()
+
+    def begin_drain(self):
+        """Stop admitting new submissions now, without driving decode:
+        the non-blocking half of `drain()`; later `step()`s finish the
+        accepted requests."""
+        self._begin_drain()
+
+    def _begin_drain(self):
+        if self._draining:
+            return
+        self._draining = True
+        self._drain_t0 = time.monotonic()
+
+    def _fail_remaining(self, exc: BaseException):
+        """Fail every accepted request, queued and in flight, with `exc`
+        (a drain past its deadline), freeing their slots."""
+        for h in self.scheduler.drain():
+            h._fail(exc)
+            self._counts['failed'] += 1
+        for slot, h in list(self._slot_req.items()):
+            self._fail_request(slot, h, exc)
+
+    def evict_all(self) -> List[RequestHandle]:
+        """Take every accepted request, queued and in flight, out of the
+        engine without failing it, and return the handles (queued first,
+        then by slot): the failover hand-off, whose orphans are submitted
+        elsewhere. Their slots and pages are freed; the engine stays
+        serviceable."""
+        out = self.scheduler.drain()
+        for slot, h in list(self._slot_req.items()):
+            self._detach_slot(slot, h)
+            self.pool.free(slot)
+            out.append(h)
+        return out
+
+    def drain(self, deadline_s: Optional[float] = None) -> bool:
+        """Stop admitting new submissions and drive decode until every
+        accepted request (queued and in flight) finishes, bounded by the
+        deadline (default: `enable_graceful_drain`'s; None = no bound).
+        Past the deadline the stragglers FAIL with a TimeoutError rather
+        than being dropped silently. Returns True when everything
+        finished in time."""
+        if deadline_s is None:
+            deadline_s = self._drain_deadline_s
+        self._begin_drain()
+        while self.has_work:
+            if deadline_s is not None and \
+                    time.monotonic() - self._drain_t0 > deadline_s:
+                self._fail_remaining(TimeoutError(
+                    f'drain deadline {deadline_s}s exceeded'))
+                return False
+            self.step()
+        return True
+
+    # ------------------------------------------------------------------
+    # weight swaps (the trainer-to-serving hot swap)
+    # ------------------------------------------------------------------
+    def _require_drained(self, what: str):
+        if self._slot_req or self.scheduler.queue_depth > 0:
+            raise RuntimeError(
+                f'{what} requires a drained engine, but '
+                f'{len(self._slot_req)} slot(s) are decoding and '
+                f'{self.scheduler.queue_depth} request(s) are queued '
+                f'(drain through the router/updater first)')
+
+    def _live_tensors(self) -> list:
+        """(name, tensor, kind, required) of every parameter and buffer of
+        the model: a swap must name each parameter; buffers may be
+        absent and keep their values."""
+        out = [(name, t, 'parameter' if t.requires_grad
+                else 'frozen parameter', True)
+               for name, t in self.model.named_parameters()]
+        out += [(name, t, 'buffer', False)
+                for name, t in self.model.named_buffers()]
+        return out
+
+    def swap_weights(self, state, *, version: int, strict: bool = True):
+        """Replace the model's weights with a published snapshot
+        (``{name: array}`` as `state_dict()` gives it: numpy arrays or
+        tensors), in place, on a drained engine (no queued or in-flight
+        request: that is what makes the per-request `weight_version` a
+        whole-response guarantee).
+
+        Every value is checked against its live tensor's shape before
+        anything is written (a refused swap changes nothing), then cast
+        to its dtype and copied into it under `torch.no_grad()`. The
+        parameters keep their storage, which is what every captured CUDA
+        graph reads, so nothing is captured again (`stats()['traces']`
+        does not move). `strict=True` demands every parameter; buffers
+        may be absent and keep their values. The draft model of a
+        speculating engine is not swapped, unless it is the model itself.
+
+        Returns the previous weights as a token for `restore_weights`: a
+        host (CPU) copy of every swapped tensor and the previous version
+        (the JAX engine keeps its old device arrays by reference; an
+        in-place copy cannot)."""
+        self._require_drained('swap_weights')
+        staged = []
+        for name, live, kind, required in self._live_tensors():
+            if name not in state:
+                if strict and required:
+                    raise KeyError(f'published weights missing {kind} '
+                                   f'{name!r}: refusing a partial swap')
+                continue
+            new = _host_tensor(state[name])
+            if tuple(new.shape) != tuple(live.shape):
+                raise ValueError(
+                    f'{kind} {name!r} shape {tuple(new.shape)} does not '
+                    f'match the live tensor {tuple(live.shape)}: swapping '
+                    f'it would change the shapes every captured graph was '
+                    f'recorded at')
+            staged.append((name, live, new))
+        prev = ({name: live.detach().to('cpu', copy=True)
+                 for name, live, _ in staged}, self.weight_version)
+        self._copy_weights((live, new) for _, live, new in staged)
+        self._set_weight_version(version)
+        return prev
+
+    def restore_weights(self, prev):
+        """Roll back to the weights `swap_weights` returned `prev` for,
+        copying its host copy back in place (a drained engine only). The
+        prefix cache's entries of the restored version serve again (they
+        were never flushed, only shadowed)."""
+        self._require_drained('restore_weights')
+        host, version = prev
+        live = dict((name, t) for name, t, _, _ in self._live_tensors())
+        self._copy_weights((live[name], t) for name, t in host.items())
+        self._set_weight_version(version)
+
+    def _copy_weights(self, pairs):
+        with torch.no_grad():
+            for live, new in pairs:
+                live.copy_(new)
+        self._sync()
+
+    def _set_weight_version(self, version: int):
+        self.weight_version = int(version)
+        if self.prefix_cache is not None:
+            # no flush: entries of other versions go stale and are
+            # reclaimed lazily; this version's survivors serve again
+            self.prefix_cache.set_version(self.weight_version)
 
     # ------------------------------------------------------------------
     # admission / retirement
@@ -450,9 +747,10 @@ class InferenceEngine:
 
     def _seat_paged(self, slot: int, h: RequestHandle, s: int) -> tuple:
         """Attach the longest page-aligned cached prefix read-only, then
-        reserve every page the request can touch (prompt + token budget)
-        all-or-nothing, reclaiming zero-ref cache holds under pressure;
-        on a full-prompt hit split off the page of the last prompt row.
+        reserve every page the request can touch (prompt + token budget
+        + speculation headroom) all-or-nothing, reclaiming zero-ref cache
+        holds under pressure; on a full-prompt hit split off the page of
+        the last prompt row.
         Raises PagePoolExhausted with the prefix node released (the
         caller frees the slot, which drops the attached pages). Returns
         (node, cursor): cursor is the page-aligned count of prefix rows
@@ -473,8 +771,9 @@ class InferenceEngine:
         try:
             if node is not None:
                 self.pool.attach_prefix(slot, node.slot, cursor // ps)
-            self._reserve_pages(slot, min(s + h.params.max_new_tokens,
-                                          self.pool.max_length))
+            self._reserve_pages(slot, min(
+                s + h.params.max_new_tokens + self._headroom,
+                self.pool.max_length))
             if cursor >= s:
                 # full hit: the pending-token re-forward at s - 1 writes
                 # into the last shared page; copy-on-write it first
@@ -526,6 +825,9 @@ class InferenceEngine:
             h._prefix_len = cursor
         self._slot_req[slot] = h
         h.status = RUNNING
+        # stamped once, here: a swap needs a drained engine, so every
+        # token of this request decodes under this version
+        h.weight_version = self.weight_version
         if cursor >= s:
             # full hit: the pages are shared already; the first decode
             # round re-forwards the last prompt token
@@ -552,7 +854,11 @@ class InferenceEngine:
         on the card, captured then (counted in `traces` under the JAX
         engine's name, once)."""
         step = self._prefill_steps.get((kind, bucket))
-        if step is None:
+        if step is None and kind == 'draft':
+            step = self._prefill_steps[(kind, bucket)] = PrefillStep(
+                kind, bucket, self.draft_model, self.draft_pool.pages,
+                self.draft_pool.pages_per_slot, self.device)
+        elif step is None:
             step = self._prefill_steps[(kind, bucket)] = PrefillStep(
                 kind, bucket, self.model, self.pool.pages,
                 self.pool.pages_per_slot, self.device,
@@ -571,17 +877,19 @@ class InferenceEngine:
     def _run_prefill(self, slot: int, kind: str, window, bucket: int,
                      **staged):
         """Stage the right-padded `window` of prompt tokens, the slot's
-        table row, its bank row (with a bank) and `staged` into the
-        (kind, bucket) step and run it; returns when the device is done
-        (the prefill's wall is timed over it)."""
+        table row (for 'draft' its draft row's identity row), its bank
+        row (with a bank, not for 'draft') and `staged` into the (kind,
+        bucket) step and run it; returns when the device is done (the
+        prefill's wall is timed over it)."""
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :len(window)] = window
-        if self.adapter_bank is not None:
+        table = (self.draft_pool.table if kind == 'draft'
+                 else self.pool.page_table)[slot:slot + 1]
+        if self.adapter_bank is not None and kind != 'draft':
             staged['rows'] = self._adapter_rows[slot:slot + 1]
         with torch.inference_mode():
             step = self._prefill_step(kind, bucket)
-            step.stage(ids=ids, table=self.pool.page_table[slot:slot + 1],
-                       **staged)
+            step.stage(ids=ids, table=table, **staged)
             step.run_once()
         self._sync()
 
@@ -644,8 +952,11 @@ class InferenceEngine:
 
     def _activate(self, slot: int, h: RequestHandle):
         """Arm the slot for decode: the pending token is the last prompt
-        token at position s - 1."""
+        token at position s - 1. With a draft model the prompt is
+        prefilled into the slot's draft row first."""
         p = h.params
+        if self.draft_model is not None:
+            self._draft_prefill(slot, h)
         greedy = p.strategy == GREEDY
         self._tok[slot] = h.prompt_tokens[-1]
         self._pos[slot] = len(h.prompt_tokens) - 1
@@ -654,8 +965,20 @@ class InferenceEngine:
         self._topk[slot] = p.top_k
         self._topp[slot] = p.top_p
         self._greedy[slot] = greedy
+        self._eos_arr[slot] = h._eos
         self._gens[slot] = None if greedy else _generator(
             h.request_id if p.seed is None else p.seed, self.device)
+
+    def _draft_prefill(self, slot: int, h: RequestHandle):
+        """Prefill the prompt's whole bucket into the slot's draft row (the
+        JAX `_draft_prefill`), through the draft `PrefillStep` of its
+        bucket: unchunked and uncached, since the draft is small. Rows
+        past the bucket become zero."""
+        s = len(h.prompt_tokens)
+        t0 = time.perf_counter()
+        self._run_prefill(slot, 'draft', h.prompt_tokens,
+                          self.pool.bucket_for(s))
+        self._seconds['prefill'] += time.perf_counter() - t0
 
     def _pin_adapter(self, slot: int, h: RequestHandle):
         """Pin the request's adapter and point the slot's row at its bank
@@ -744,6 +1067,7 @@ class InferenceEngine:
             'capture_seconds': self._seconds['capture'],
             'queue_depth': self.scheduler.queue_depth,
             'active_slots': len(self._slot_req),
+            'weight_version': self.weight_version,
             'kv_layout': 'paged',
             'traces': dict(self._trace_counts),
             'pool': self.pool.stats(),
@@ -752,6 +1076,16 @@ class InferenceEngine:
             out['prefix_cache'] = self.prefix_cache.stats()
         if self.adapter_bank is not None:
             out['adapters'] = self.adapter_bank.stats()
+        if self.draft_model is not None:
+            proposed = c['spec_proposed']
+            out['spec'] = {
+                'k': self.spec_k,
+                'rounds': c['spec_rounds'],
+                'proposed': proposed,
+                'accepted': c['spec_accepted'],
+                'acceptance_rate': (c['spec_accepted'] / proposed
+                                    if proposed else 0.0),
+            }
         return out
 
     def reset_stats(self):

@@ -1,5 +1,6 @@
-"""Paged KV pool (counterpart of `paddle_tpu/serving/kv_pool.py`,
-`PagedSlotPool`, unquantized or with `quant='int8'`).
+"""KV pools (counterpart of `paddle_tpu/serving/kv_pool.py`): the paged
+`PagedSlotPool`, unquantized or with `quant='int8'`, and the row
+`SlotPool` that holds a speculating engine's draft KV.
 
 KV storage is one [num_pages, page_size, HKV, D] tensor per layer for K
 and one for V, on the model's device. A slot owns a page list (a row of
@@ -105,6 +106,96 @@ def gather_pages(pages, table_row: torch.Tensor, length: int,
     return [(gather_rows(k_pages, table_row, length, ks, dtype),
              gather_rows(v_pages, table_row, length, vs, dtype))
             for (k_pages, v_pages), (ks, vs) in zip(pages, scales)]
+
+
+class SlotPool:
+    """Row KV pool (counterpart of the JAX `SlotPool`,
+    `paddle_tpu/serving/kv_pool.py:145-326`): one [max_length, HKV, D] row
+    per slot and layer, in the model's dtype, that belongs to one slot
+    for good. A speculating engine keeps its draft model's KV here, slot
+    for slot with the target's paged pool (never allocated or freed on
+    its own: slot i of both pools always serves one request).
+
+    The rows are also pages, so the draft's decode forward attends
+    through the same paged kernel as the target's: each layer's storage
+    `pages` is [1 + N * L / ps, ps, HKV, D] (page 0 a null page that no
+    row maps), `cache` its rows [N, L, HKV, D] (a view, no copy), and
+    `table` the fixed identity page table, `table[n, j] = 1 + n * (L /
+    ps) + j`. A write through a zeroed table lands on the null page, as
+    in the paged pool.
+    """
+
+    def __init__(self, model, num_slots: int, max_length: int,
+                 buckets: Optional[Sequence[int]] = None,
+                 *, page_size: int = 16):
+        if num_slots < 1:
+            raise ValueError('num_slots must be >= 1')
+        if max_length < 2:
+            raise ValueError('max_length must be >= 2')
+        if max_length % page_size != 0:
+            raise ValueError(
+                f'max_length {max_length} must be a multiple of '
+                f'page_size {page_size} (the rows are read as pages)')
+        self.num_slots = int(num_slots)
+        self.max_length = int(max_length)
+        self.page_size = int(page_size)
+        self.pages_per_slot = self.max_length // self.page_size
+        self.pages = model.init_cache(
+            1 + self.num_slots * self.pages_per_slot, self.page_size)
+        self.cache = [tuple(t[1:].view(self.num_slots, self.max_length,
+                                       *t.shape[2:]) for t in kv)
+                      for kv in self.pages]
+        self.table = (1 + np.arange(self.num_slots * self.pages_per_slot,
+                                    dtype=np.int32)).reshape(
+            self.num_slots, self.pages_per_slot)
+        self.row_bytes = sum(t[0].nbytes for kv in self.cache for t in kv)
+        self.pool_bytes = self.row_bytes * self.num_slots
+        self.buckets = _normalize_buckets(buckets, self.max_length)
+
+    def row(self, slot: int) -> list:
+        """Slot `slot`'s per-layer (k, v) rows [1, max_length, HKV, D] (a
+        view)."""
+        return [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.cache]
+
+    def set_row(self, slot: int, row) -> None:
+        """Replace slot `slot`'s row with the per-layer (k, v) [1, S, HKV,
+        D], S <= max_length, cast to the pool's dtype; the rows past S
+        become zero (a whole-row replace, as the JAX `set_row` stores a
+        zero slab's prefill)."""
+        table = torch.as_tensor(self.table[slot:slot + 1],
+                                device=self.pages[0][0].device)
+        scatter_pages(self.pages, table, pad_rows(row, self.max_length), 0)
+
+    def reset_rows(self) -> None:
+        """Zero every row."""
+        for kv in self.pages:
+            for t in kv:
+                t.zero_()
+
+    def bucket_for(self, length: int) -> int:
+        """Smallest bucket >= length; `PromptTooLongError` past the
+        largest."""
+        i = bisect.bisect_left(self.buckets, length)
+        if i == len(self.buckets):
+            raise PromptTooLongError(
+                f'prompt length {length} exceeds the largest prefill '
+                f'bucket {self.buckets[-1]} (max_length {self.max_length})')
+        return self.buckets[i]
+
+    def stats(self) -> dict:
+        return {'num_slots': self.num_slots, 'max_length': self.max_length,
+                'buckets': list(self.buckets), 'row_bytes': self.row_bytes,
+                'pool_bytes': self.pool_bytes}
+
+
+def pad_rows(slab, length: int) -> list:
+    """The per-layer (k, v) rows [B, S, HKV, D] followed by zeros up to
+    `length` rows."""
+    def pad(x):
+        out = x.new_zeros((x.shape[0], length) + tuple(x.shape[2:]))
+        out[:, :x.shape[1]] = x
+        return out
+    return [(pad(k), pad(v)) for k, v in slab]
 
 
 class PageHold:

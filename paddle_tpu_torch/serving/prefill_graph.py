@@ -20,6 +20,11 @@ The bodies:
   and zeros past the bucket, as the JAX prefill writes it from a zero
   slab, so rows an earlier occupant left in the page never reach its
   scale;
+- `draft`: a speculating engine's draft prefill (the JAX
+  `_draft_prefill_fn`): the draft model's causal no-cache forward of the
+  bucket, its K/V rows followed by zeros up to the slot's length written
+  through the slot's identity table row into the draft's row pool
+  (`kv_pool.SlotPool`), a whole-row replace;
 - `chunk`: the chunk forward of `nlp.generation.chunk_rows`: per layer,
   the slot's whole table row gathered into a fixed-shape buffer, the
   chunk's fresh rows written into it at [start, start + bucket) and
@@ -46,18 +51,20 @@ import torch
 
 from .adapters.apply import adapter_scope
 from .decode_graph import GraphStep
-from .kv_pool import scatter_pages
+from .kv_pool import pad_rows, scatter_pages
 
-KINDS = ('whole', 'chunk')
+KINDS = ('whole', 'chunk', 'draft')
 
 
 class PrefillStep(GraphStep):
-    """One engine's prefill of `kind` ('whole' or 'chunk') at `bucket`
-    tokens over static buffers on `device`.
+    """One engine's prefill of `kind` ('whole', 'chunk' or 'draft') at
+    `bucket` tokens over static buffers on `device`.
 
     Args:
-        model: the engine's model (`prefill_kv`).
-        pages: the pool's per-layer (k_pages, v_pages), updated in place.
+        model: the engine's model (`prefill_kv`), or for 'draft' its
+            draft model.
+        pages: the pool's per-layer (k_pages, v_pages), updated in place
+            (for 'draft' the draft's `SlotPool.pages`).
         table_width: P, the page table's width.
         adapter_arrays: `AdapterBank.device_arrays()`, or None without a
             bank.
@@ -71,9 +78,10 @@ class PrefillStep(GraphStep):
             raise ValueError(f'prefill kind {kind!r} is not one of {KINDS}')
         self.kind, self.bucket = kind, int(bucket)
         self.what = f'{kind} prefill at bucket {self.bucket}'
-        # the JAX engine's trace names (engine.py:751, 776)
-        self.name = (f'paged_chunk_prefill_{self.bucket}' if kind == 'chunk'
-                     else f'paged_prefill_{self.bucket}')
+        # the JAX engine's trace names (engine.py:610, 751, 776)
+        self.name = {'whole': 'paged_prefill', 'chunk': 'paged_chunk_prefill',
+                     'draft': 'draft_prefill'}[kind] + f'_{self.bucket}'
+        self._rows = table_width * pages[0][0].shape[1]
         self._model = model
         self._pages = pages
         self._scales = scales
@@ -98,6 +106,9 @@ class PrefillStep(GraphStep):
                 self._model.prefill_kv(b['ids'], start=b['start'],
                                        kv_pages=layers,
                                        table=b['table'], floor=b['floor'])
+            elif self.kind == 'draft':
+                scatter_pages(self._pages, b['table'], pad_rows(
+                    self._model.prefill_kv(b['ids']), self._rows), self._zero)
             else:
                 scatter_pages(self._pages, b['table'],
                               self._model.prefill_kv(b['ids']), self._zero,

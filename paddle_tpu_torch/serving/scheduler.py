@@ -47,6 +47,13 @@ class FCFSScheduler:
         touched: latency measures from the first submit."""
         self._queue.insert(0, handle)
 
+    def drain(self) -> List[RequestHandle]:
+        """Pop and return every queued request (a drain past its deadline
+        fails them; `evict_all` hands them back)."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
     def _effective_priority(self, handle: RequestHandle,
                             now: float) -> int:
         p = int(getattr(handle, 'priority', PRIORITY_NORMAL))

@@ -296,8 +296,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         K.rms_norm(torch.zeros((2, 8), device=cuda, dtype=torch.float16),
                    torch.ones(8, device=cuda, dtype=torch.float16))
-    q = torch.zeros((1, 16, 128), device=cuda)
-    pages = torch.zeros((3, 16, 1, 128), device=cuda)   # 16 heads per kv
+    # more query heads per kv head than the kernel's PAGED_MAX_ROWS rows
+    q = torch.zeros((1, K.PAGED_MAX_ROWS + 8, 128), device=cuda)
+    pages = torch.zeros((3, 16, 1, 128), device=cuda)
     with pytest.raises(ValueError):
         K.paged_attention(q, pages, pages,
                           torch.ones((1, 1), device=cuda, dtype=torch.int32),
@@ -1310,3 +1311,179 @@ def test_adamw_update_syncs_nothing(cuda, amsgrad):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert all(torch.isfinite(p).all() for _, p in card)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the paged kernel over k + 1 query rows per slot,
+# the captured speculation round, and weight swaps
+# ---------------------------------------------------------------------------
+
+# (length of query row 0, window's first page) per slot: a span inside a
+# page, spans that cross a page boundary (14 .. 18, 29 .. 33), a span
+# that reaches the table's last row, length 1, and an inactive slot on
+# the null page parked at its last row
+_VERIFY_SLOTS = ((5, 0), (15, 0), (30, 1), (156, 9), (1, 0), (160, 9))
+
+
+@pytest.mark.parametrize('t_rows,h,hkv', [(5, 8, 8), (5, 8, 2), (3, 16, 2),
+                                          (2, 16, 1)])
+@pytest.mark.parametrize('mode', ['float', 'int8', 'int8_window'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_kernel_with_query_rows_matches_plain(cuda, dtype, mode,
+                                                    t_rows, h, hkv):
+    """q [N, T, H, D], T x G query rows per kv head (5, 20, 24 and 32),
+    each row t seeing lengths + t keys: float pages, int8 pages, and int8
+    pages with a float window of 2 pages that holds other values than the
+    pages it stands for; one call counts one verify launch."""
+    g = torch.Generator(device=cuda).manual_seed(t_rows * h + hkv)
+    n, p, ps = len(_VERIFY_SLOTS), 10, 16
+    num_pages = n * p + 1
+    q = _randn(g, dtype, n, t_rows, h, 128)
+    shape = (num_pages, ps, hkv, 128)
+    kw = {}
+    if mode == 'float':
+        kp, vp = _randn(g, dtype, *shape), _randn(g, dtype, *shape)
+    else:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                                dtype=torch.int8) for _ in range(2))
+        kw = dict(zip(('k_scales', 'v_scales'), (
+            torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+            + 1e-3 for _ in range(2))))
+    if mode == 'int8_window':
+        kw.update(k_win=_randn(g, dtype, n, 2, ps, hkv, 128),
+                  v_win=_randn(g, dtype, n, 2, ps, hkv, 128),
+                  win_first=torch.tensor([f for _, f in _VERIFY_SLOTS],
+                                         device=cuda, dtype=torch.int32))
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0
+    lens = torch.tensor([ln for ln, _ in _VERIFY_SLOTS], device=cuda,
+                        dtype=torch.int32)
+    before = dict(K.LAUNCHES)
+    got = K.paged_attention(q, kp, vp, table, lens, **kw)
+    assert K.LAUNCHES['paged_attention_verify'] == \
+        before['paged_attention_verify'] + 1
+    assert K.LAUNCHES['paged_attention'] == before['paged_attention']
+    _close_attention(got, K.paged_attention_reference(q, kp, vp, table, lens,
+                                                      **kw), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_paged_one_query_row_equals_the_decode_call(cuda, dtype):
+    """q [N, 1, H, D] runs the decode call's arithmetic: bit-equal to q
+    [N, H, D]."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, p, ps, hkv = 4, 8, 16, 2
+    q = _randn(g, dtype, n, 8, 128)
+    kp, vp = (_randn(g, dtype, n * p + 1, ps, hkv, 128) for _ in range(2))
+    table = (torch.randperm(n * p, generator=g, device=cuda) + 1).to(
+        torch.int32).reshape(n, p)
+    lens = torch.tensor([1, 17, 64, 128], device=cuda, dtype=torch.int32)
+    flat = K.paged_attention(q, kp, vp, table, lens)
+    rows = K.paged_attention(q[:, None].contiguous(), kp, vp, table, lens)
+    assert torch.equal(rows[:, 0], flat)
+
+
+def test_paged_wrapper_raises_past_its_query_rows(cuda):
+    """More than PAGED_MAX_ROWS query rows per kv head have no kernel:
+    the wrapper raises and launches nothing."""
+    q = torch.zeros((1, 5, 8, 128), device=cuda)      # 5 x 8 = 40 rows
+    pages = torch.zeros((3, 16, 1, 128), device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match='query rows'):
+        K.paged_attention(q, pages, pages,
+                          torch.ones((1, 1), device=cuda, dtype=torch.int32),
+                          torch.ones(1, device=cuda, dtype=torch.int32))
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize('quant,banked', [(None, False), ('int8', False),
+                                          (None, True)])
+def test_spec_graph_engine_equals_eager_and_plain(cuda, quant, banked):
+    """The speculating engine (f32, an independent 1-layer draft, k = 4)
+    replaying its round and its prefills (the draft's too) from CUDA
+    graphs gives its eager twin's tokens and launch counts, a seeded
+    sampling request included, and over float pages greedy requests the
+    plain engine's tokens (over int8 pages the verify's rejected rows
+    enter each touched page's requantize scale, as in the JAX engine, so
+    they may differ); one verify launch per layer of every round;
+    `traces` holds the round once and each prefill step built."""
+    from paddle_tpu_torch.serving import (SAMPLING, AdapterBank,
+                                          make_adapter_factors)
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda,
+                             generator=generator(21, cuda))
+    draft_cfg = _graph_cfg()
+    draft_cfg.num_hidden_layers = 1
+    draft = LlamaForCausalLM(draft_cfg, device=cuda,
+                             generator=generator(22, cuda))
+    bank = ids = None
+    if banked:
+        bank = AdapterBank(model, capacity=2, rank=8,
+                           targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+        for i in range(2):
+            bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
+        ids = ['ad0', None, 'ad1', None, 'ad0']
+    g = torch.Generator().manual_seed(23)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 40, 17, 100, 9)]
+    params = [SamplingParams(max_new_tokens=14, eos_token_id=-1)
+              for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=14, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=3)
+    kw = dict(num_slots=3, max_length=128, kv_quant=quant, adapter_bank=bank)
+    runs = []
+    for graph in (True, False):
+        eng = InferenceEngine(model, draft_model=draft, num_draft_tokens=4,
+                              **kw)
+        eng._capture_decode = eng._capture_prefill = graph
+        toks = []
+        for _ in range(2):      # the first pass captures what it uses
+            eng.reset_stats()
+            K.reset_launch_counts()
+            toks.append([h.tokens for h in eng.generate_many(
+                prompts, params, adapter_ids=ids)])
+        assert toks[0] == toks[1]
+        runs.append((toks[1], dict(K.LAUNCHES), eng))
+    (graph_toks, graph_launches, graph_eng), (eager_toks, eager_launches,
+                                              _) = runs
+    assert graph_toks == eager_toks
+    assert graph_launches == eager_launches
+    st = graph_eng.stats()
+    assert graph_launches['paged_attention_verify'] == 2 * st['spec']['rounds']
+    assert st['traces'] == {'paged_spec_decode_k4': 1, **{
+        step.name: 1 for step in graph_eng._prefill_steps.values()}}
+    if quant is None:
+        plain = InferenceEngine(model, decode_block=4, **kw).generate_many(
+            prompts, params, adapter_ids=ids)
+        for j, h in enumerate(plain):
+            if j != 3:
+                assert h.tokens == graph_toks[j]
+
+
+def test_swap_and_restore_on_the_graph_engine(cuda):
+    """On the graph engine a swap copies the new weights into the live
+    parameters (the captured graphs read them: the tokens equal a fresh
+    engine's on those weights) and a restore gives the old tokens bit for
+    bit; nothing is captured again."""
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(24, cuda))
+    other = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(25, cuda))
+    state = {k: v.cpu() for k, v in other.state_dict().items()}
+    g = torch.Generator().manual_seed(26)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (7, 60)]
+    sp = SamplingParams(max_new_tokens=10, eos_token_id=-1)
+    eng = InferenceEngine(model, num_slots=2, max_length=128, decode_block=4)
+    before = [h.tokens for h in eng.generate_many(prompts, sp)]
+    traces = dict(eng.stats()['traces'])
+    prev = eng.swap_weights(state, version=1)
+    after = [h.tokens for h in eng.generate_many(prompts, sp)]
+    fresh = InferenceEngine(other, num_slots=2, max_length=128,
+                            decode_block=4)
+    assert after == [h.tokens for h in fresh.generate_many(prompts, sp)]
+    assert after != before
+    eng.restore_weights(prev)
+    assert [h.tokens for h in eng.generate_many(prompts, sp)] == before
+    assert eng.stats()['traces'] == traces

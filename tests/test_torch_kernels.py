@@ -176,6 +176,73 @@ def test_paged_split_model_matches_reference(case):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+# the verify's query rows: T rows per slot, row t seeing lengths + t keys;
+# (lengths, T): a span inside one page, one that crosses a page boundary
+# (ps 8), one that reaches the table's last row, and T = 1
+VERIFY_CASES = {'t5': 5, 't5_gqa': 5, 't3_int8': 3, 't5_int8_window': 5,
+                't2_int8_gqa': 2, 't1': 1}
+
+
+@pytest.mark.parametrize('case', sorted(VERIFY_CASES))
+def test_paged_plain_with_query_rows_matches_reference_per_row(case):
+    """The T-row plain version (q [N, T, H, D]) against the JAX
+    `paged_attention_reference` applied to each row t alone with lengths
+    + t, over pages that already hold the block's rows: float pages, int8
+    pages, and int8 pages with the round's float window (the window's
+    rows written into float copies of its pages for the JAX side)."""
+    t_rows = VERIFY_CASES[case]
+    quant = 'int8' in case
+    hkv = 1 if 'gqa' in case else 4
+    n, p, ps = 4, 4, 8
+    rng = np.random.default_rng(len(case) + t_rows)
+    _, kp, vp, _, _, ks, vs = _paged_case(seed=len(case), hkv=hkv, n=n,
+                                          p=p, ps=ps, num_pages=20,
+                                          quant=quant)
+    # every slot its own pages: a window's pages belong to one slot
+    table = (rng.permutation(19)[:n * p] + 1).reshape(n, p).astype(np.int32)
+    lengths = np.array([3, 6, p * ps - t_rows + 1, 1], np.int32)
+    q = _np((n, t_rows, 4, 16), rng)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    tt = lambda a: None if a is None else torch.from_numpy(a)
+    win = {}
+    jk, jv, jks, jvs = kp, vp, ks, vs
+    if 'window' in case:
+        w = 2
+        first = np.minimum((lengths - 1) // ps, p - 1).astype(np.int32)
+        kw, vw = (_np((n, w, ps, hkv, 16), rng) for _ in range(2))
+        win = dict(k_win=tt(kw), v_win=tt(vw), win_first=tt(first))
+        # the JAX side: float pages holding the window's rows in place of
+        # the int8 pages they stand for
+        from paddle_tpu import quantization as jquant
+        jk, jv = (np.array(jquant.kv_dequantize_page(
+            jnp.asarray(x), jnp.asarray(sc), jnp.float32))
+            for x, sc in ((kp, ks), (vp, vs)))
+        for i in range(n):
+            for c in range(w):
+                if first[i] + c < p:
+                    pid = table[i, first[i] + c]
+                    jk[pid], jv[pid] = kw[i, c], vw[i, c]
+        jks = jvs = None
+    got = K.paged_attention(tt(q), tt(kp), tt(vp), tt(table), tt(lengths),
+                            k_scales=tt(ks), v_scales=tt(vs), **win).numpy()
+    assert got.shape == q.shape
+    for r in range(t_rows):
+        want = np.asarray(pk.paged_attention_reference(
+            j(q[:, r]), j(jk), j(jv), j(table), j(lengths + r),
+            k_scales=j(jks), v_scales=j(jvs)))
+        np.testing.assert_allclose(got[:, r], want, rtol=1e-5, atol=1e-6)
+
+
+def test_paged_one_query_row_is_the_decode_call_bit_for_bit():
+    """q [N, 1, H, D] gives the 3-D call's output exactly."""
+    q, kp, vp, table, lengths, _, _ = _paged_case(seed=4, hkv=2)
+    t = torch.from_numpy
+    flat = K.paged_attention(t(q), t(kp), t(vp), t(table), t(lengths))
+    rows = K.paged_attention(t(q)[:, None], t(kp), t(vp), t(table),
+                             t(lengths))
+    assert torch.equal(rows[:, 0], flat)
+
+
 def test_paged_entries_past_length_are_inert():
     """Table entries past a slot's length may point anywhere: the output
     does not change when they move to the null page."""
