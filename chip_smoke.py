@@ -161,6 +161,29 @@ result line):
    tokens; `evict_all()` after two steps hands back all 12 with every
    page free; `drain()` after two steps finishes all 12 with phase 6's
    tokens;
+6g. adapter store and weight store: (a) phase 6b's wave behind a
+   store-backed bank (f32, rank 8, capacity 4; its store a fresh
+   directory under the gitignored `build/stores/`, removed at the end):
+   ad0..ad2 published once each with 6b's factors, every request's
+   tokens == 6b's through pins that load from the store; ad0 v2
+   published while an ad0 request decodes (that request keeps 6b's
+   tokens; a new one gets v2 in another slot, with the tokens of a fresh
+   bank `load`ed with v2); a corrupt v3 quarantined while v2 keeps
+   serving; a capacity-2 bank with three adapters in flight (each
+   request gets its tokens alone, some admission requeued); `traces`
+   unchanged after each engine's warm-up and the adapter kernel once per
+   adapted projection of every prefill and decode sub-step; one publish,
+   each hot load and its slot copy, the round that admits the v2 request
+   beside a round that admits nothing, and the pool's and the bank's
+   bytes logged. (b) the weight store at Llama-2-7B width and 2 bf16
+   layers (1.33 GB a version; 32 layers would write 13.5 GB a version to
+   disk) on a graph engine: `WeightPublisher` publishes v1, then a
+   perturbed v2 and a v3 with one bf16 NaN; v2 is loaded, passes
+   `finite_weights_gate`, is swapped in and passes a `CanaryGate` whose
+   tokens come from a fresh engine on v2's weights; the gate refuses v3,
+   which is quarantined (latest is v2 again), and `restore_weights` gives
+   v1's tokens; publish and load GB/s, the sha256 and the swap seconds
+   logged;
    then the host time of one adapted projection (hook, wrapper and
    launch) at the decode shape;
 7. profile: one decode round with every slot busy (wall time, then a
@@ -199,8 +222,9 @@ result line):
 Phases 5, 5b and 6 run before any profiling: once torch.profiler has
 run in a process, every later launch costs the host more. Phases 6e and
 6f run right after phase 6, before 6b-6d, while only phase 6's engines
-hold device memory, and free their engines; phase 7 builds fresh spec
-engines once the serve engines are freed.
+hold device memory, and free their engines; 6g runs after 6b and frees
+its engines before 6c; phase 7 builds fresh spec engines once the serve
+engines are freed.
 
 The last lines are the card's name and power limit, a JSON line with the
 kernel table, and `{"ok": true, "device": {...}}`.
@@ -212,8 +236,10 @@ import gc
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2929,6 +2955,353 @@ def drain_swap(served) -> dict:
     return dict(swap_s=t_swap, restore_s=t_restore, state_s=t_state)
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: the adapter store and the weight store
+# ---------------------------------------------------------------------------
+
+# where 6g's stores live while it runs (inside the checkout's build
+# directory, which .gitignore lists); each run makes and removes its own
+STORE_ROOT = Path(__file__).resolve().parent / 'build' / 'stores'
+
+
+def _store_dir(prefix: str) -> Path:
+    STORE_ROOT.mkdir(parents=True, exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=STORE_ROOT))
+
+
+def _flip_payload(store, version: int) -> None:
+    """Flip one byte in the middle of a committed version's payload (a torn
+    write or bit rot, which its sha256 manifest must catch)."""
+    payload = Path(store.directory) / f'step_{version}' / 'tree.npz'
+    raw = bytearray(payload.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    payload.write_bytes(bytes(raw))
+
+
+def _timed_loads(bank) -> list:
+    """Wrap `bank`'s store load and slot write to log each one's seconds
+    (synchronised): [(adapter, version, load s or None on a reject,
+    slot-copy s)]."""
+    loads = []
+    load, write = bank._load_version, bank._write_slot
+
+    def timed_write(*args):
+        t0 = time.perf_counter()
+        write(*args)
+        torch.cuda.synchronize()
+        loads[-1][3] = time.perf_counter() - t0
+
+    def timed_load(adapter_id, store, version):
+        loads.append([adapter_id, version, None, None])
+        t0 = time.perf_counter()
+        slot = load(adapter_id, store, version)
+        torch.cuda.synchronize()
+        if slot is not None:
+            loads[-1][2] = time.perf_counter() - t0
+        return slot
+
+    bank._load_version, bank._write_slot = timed_load, timed_write
+    return loads
+
+
+def _count_launches(run: dict, launches: dict) -> None:
+    """Add a segment's kernel launches into `run['launches']`."""
+    for k, n in launches.items():
+        run['launches'][k] = run['launches'].get(k, 0) + n
+
+
+def serve_adapter_store(served, adapted) -> dict:
+    """Phase 6b's model, prompts, parameters and mix behind a store-backed
+    bank (f32, rank 8, capacity 4, q/k/v/o_proj, its store a fresh
+    directory removed at the end): ad0..ad2 published once each with 6b's
+    factors, the 12 requests served through pins that load them from the
+    store (every request's tokens == 6b's); then ad0 v2 published while an
+    ad0 request decodes (it keeps 6b's tokens; a new ad0 request gets v2,
+    in another slot, with the tokens of a fresh bank `load`ed with v2); a
+    corrupt v3 (quarantined, v2 keeps serving); then a capacity-2 bank on
+    the same store with three adapters in flight (each request gets its
+    tokens alone, some admission requeued). Nothing is captured after
+    each engine's warm-up, and the adapter kernel runs once per adapted
+    projection of every prefill and decode sub-step. Logs one publish,
+    each hot load (store read + sha256 + slot copy) and its slot copy,
+    the round that admits the v2 request beside one that admits nothing,
+    and the pool's and the bank's bytes. Frees its engines."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (AdapterBank, InferenceEngine,
+                                          WeightStore, make_adapter_factors)
+    model = served['engine'].model
+    prompts, params, ids = served['prompts'], served['params'], adapted['ids']
+    root = _store_dir('adapters-')
+    tag = 'adapter-store'
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        bank = AdapterBank(model, capacity=4, rank=8, targets=ADAPTER_TARGETS,
+                           dtype='float32', store_dir=str(root))
+        publish_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            bank.publish(f'ad{i}', make_adapter_factors(bank, seed=i + 1))
+            publish_s.append(time.perf_counter() - t0)
+        ad_mb = sum(nbytes(torch.from_numpy(x)) for a_b in
+                    make_adapter_factors(bank, seed=1).values()
+                    for x in a_b) / 1e6
+        loads = _timed_loads(bank)
+        eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                              decode_block=8, kv_page_size=16,
+                              adapter_bank=bank)
+        res = _run_serve(eng, prompts, params, ids, ADAPTER_KERNELS, tag,
+                         base)
+        sites = len(bank.sites)
+        want = sites * (res['prefills'] + res['decode_steps'])
+        if res['tokens'] != adapted['tokens'] or \
+                res['launches']['adapter_matmul'] != want:
+            raise AssertionError(
+                f'{tag}: tokens differ from 6b on requests '
+                f'{[j for j, (a, b) in enumerate(zip(res["tokens"], adapted["tokens"])) if a != b]}'
+                f' or {res["launches"]["adapter_matmul"]} adapter launches '
+                f'!= {want}')
+        traces = dict(eng.stats()['traces'])
+        log(f'[{tag}] published ad0..ad2 (v1 each, {ad_mb:.1f} MB of f32 '
+            f'factors a version) in {", ".join(f"{s:.3f}" for s in publish_s)}'
+            f' s; the wave\'s pins loaded them from the store: '
+            + '; '.join(f'{a} v{v} {t * 1e3:.1f} ms (slot copy '
+                        f'{c * 1e3:.2f} ms)' for a, v, t, c in loads)
+            + f'; all 12 requests == phase 6b\'s tokens, {want} adapter '
+            f'launches = {sites} x ({res["prefills"]} prefills + '
+            f'{res["decode_steps"]} sub-steps)')
+
+        # a publish while an ad0 request decodes, then a corrupt version
+        j = ids.index('ad0')
+        prompt, sp = prompts[j], params[j]
+        loads.clear()
+        eng.reset_stats()
+        K.reset_launch_counts()
+        h1 = eng.submit(prompt, sp, adapter_id='ad0')
+        eng.step()                       # admit, prefill, one round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        plain_round = time.perf_counter() - t0
+        if h1.done or h1.adapter_version != 1:
+            raise AssertionError(f'{tag}: the v1 request is not mid-decode')
+        t0 = time.perf_counter()
+        v2 = bank.publish('ad0', make_adapter_factors(bank, seed=11))
+        publish_v2 = time.perf_counter() - t0
+        h2 = eng.submit(prompt, sp, adapter_id='ad0')
+        t0 = time.perf_counter()
+        eng.step()                       # admits h2: hot load + prefill
+        admit_round = time.perf_counter() - t0
+        slot1, slot2 = h1._adapter_pin, h2._adapter_pin
+        eng.run()
+        store = WeightStore(str(root / 'ad0'))
+        t0 = time.perf_counter()
+        store.mgr.verify(v2)
+        verify_s = time.perf_counter() - t0
+        hot = list(loads)
+        v3 = bank.publish('ad0', make_adapter_factors(bank, seed=12))
+        _flip_payload(store, v3)
+        h3 = eng.submit(prompt, sp, adapter_id='ad0')
+        eng.run()
+        st = eng.stats()
+        launches = {k: K.LAUNCHES[k] for k in ADAPTER_KERNELS}
+        _count_launches(res, launches)
+        want = sites * (st['prefills'] + st['decode_steps'])
+
+        # the v2 reference: a fresh bank `load`ed with v2, eager, a pool of
+        # one request's pages
+        ref_bank = AdapterBank(model, capacity=4, rank=8,
+                               targets=ADAPTER_TARGETS, dtype='float32')
+        ref_bank.load('ad0', make_adapter_factors(ref_bank, seed=11))
+        ref = InferenceEngine(model, num_slots=8, max_length=1024,
+                              decode_block=8, kv_page_size=16,
+                              kv_pages=1 + 1024 // 16, adapter_bank=ref_bank)
+        ref._capture_decode = ref._capture_prefill = False
+        v2_tokens = ref.generate_many([prompt], sp,
+                                      adapter_ids='ad0')[0].tokens
+        del ref, ref_bank
+        problems = []
+        if h1.tokens != adapted['tokens'][j]:
+            problems.append('the v1 request left 6b\'s tokens')
+        if (h2.adapter_version, h2.tokens) != (v2, v2_tokens) or \
+                slot2 in (None, slot1):
+            problems.append(f'the new request got v{h2.adapter_version} in '
+                            f'slot {slot2} (v1 in {slot1})')
+        if (h3.adapter_version, h3.tokens) != (v2, v2_tokens) or \
+                store.quarantined() != [v3]:
+            problems.append(f'after the corrupt v3: v{h3.adapter_version}, '
+                            f'quarantined {store.quarantined()}')
+        if st['traces'] != traces or launches['adapter_matmul'] != want:
+            problems.append(f'captures {st["traces"]} (after the warm-up '
+                            f'{traces}), {launches["adapter_matmul"]} '
+                            f'adapter launches, want {want}')
+        if problems:
+            raise AssertionError(f'{tag}: ' + '; '.join(problems))
+        pool_gb = eng.pool.pool_bytes / 1e9
+        bank_mb = nbytes(*[t for s in bank.sites
+                           for t in (bank._a[s], bank._b[s])],
+                         bank._scale) / 1e6
+        log(f'[{tag}] ad0 v2 published in {publish_v2:.3f} s while a v1 '
+            f'request decoded (slot {slot1}); the round that admitted the v2 '
+            f'request (hot load, prefill of {len(prompt)} tokens, decode '
+            f'round) {admit_round * 1e3:.1f} ms beside a round that admitted '
+            f'nothing {plain_round * 1e3:.1f} ms; its hot load '
+            + '; '.join(f'{a} v{v} {t * 1e3:.1f} ms (slot copy '
+                        f'{c * 1e3:.2f} ms)' for a, v, t, c in hot)
+            + f', the sha256 of the version alone {verify_s * 1e3:.1f} ms; '
+            f'v1 request == 6b\'s tokens, v2 request in slot {slot2} == a '
+            f'fresh bank loaded with v2; corrupt v3 quarantined '
+            f'({store.quarantined()}), v2 still served; captures unchanged; '
+            f'{want} adapter launches = {sites} x ({st["prefills"]} prefills'
+            f' + {st["decode_steps"]} sub-steps); KV pool {pool_gb:.2f} GB, '
+            f'bank {bank_mb:.1f} MB')
+        del eng, bank, h1, h2, h3
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # saturated: three adapters in flight on two slots
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        sat_bank = AdapterBank(model, capacity=2, rank=8,
+                               targets=ADAPTER_TARGETS, dtype='float32',
+                               store_dir=str(root))
+        sat = InferenceEngine(model, num_slots=8, max_length=1024,
+                              decode_block=8, kv_page_size=16,
+                              adapter_bank=sat_bank)
+        order = [ids.index(a) for a in ('ad0', 'ad1', 'ad2')]
+        run = _run_serve(sat, [prompts[j] for j in order],
+                         [params[j] for j in order], ['ad0', 'ad1', 'ad2'],
+                         ADAPTER_KERNELS, f'{tag} saturated', base)
+        st = sat.stats()
+        alone = [v2_tokens] + [adapted['tokens'][j] for j in order[1:]]
+        want = sites * (run['prefills'] + run['decode_steps'])
+        if run['tokens'] != alone or st['requeued'] < 1 or st['failed'] or \
+                run['launches']['adapter_matmul'] != want:
+            raise AssertionError(
+                f'{tag} saturated: tokens == alone '
+                f'{[a == b for a, b in zip(run["tokens"], alone)]}, '
+                f'requeued {st["requeued"]}, failed {st["failed"]}, '
+                f'{run["launches"]["adapter_matmul"]} adapter launches, '
+                f'want {want}')
+        _count_launches(res, run['launches'])
+        log(f'[{tag} saturated] 3 adapters in flight on 2 slots: '
+            f'{st["requeued"]} admissions requeued, none failed; every '
+            f'request == its tokens alone (ad0 at v2); {want} adapter '
+            f'launches')
+        del sat, sat_bank
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def weight_store_swap(served) -> dict:
+    """The weight store at Llama-2-7B width, 2 bf16 layers (a version of
+    the full 32 layers is 13.5 GB; two would write 27 GB to disk), on a
+    graph engine of phase 6's settings: v1 published from the model by
+    `WeightPublisher`, v2 a copy with layer 0's MLP perturbed, v3 a copy
+    with one bf16 NaN. v2: load (sha256 checked), `finite_weights_gate`
+    (passes), `swap_weights`, and a `CanaryGate` whose expected tokens come
+    from a fresh engine on a model given v2's weights (passes). v3: load,
+    the gate refuses it, `quarantine`, the store's latest is v2 again, and
+    `restore_weights` gives v1's tokens. Nothing is captured after the
+    warm-up. Logs publish and load GB/s, the sha256 seconds and the swap
+    seconds. Frees what it made."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (CanaryGate, InferenceEngine,
+                                          SamplingParams, WeightPublisher,
+                                          WeightStore, finite_weights_gate)
+    tag = 'weight-store'
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(1234, DEV))
+    gb = nbytes(*model.parameters()) / 1e9
+    prompts = served['prompts'][:4]
+    sp = SamplingParams(max_new_tokens=8, eos_token_id=-1)
+    root = _store_dir('weights-')
+    try:
+        K.reset_launch_counts()
+        eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                              decode_block=8, kv_page_size=16)
+        v1_tokens = [h.tokens for h in eng.generate_many(prompts, sp)]
+        traces = dict(eng.stats()['traces'])
+        store = WeightStore(str(root))
+        t0 = time.perf_counter()
+        WeightPublisher(model, store).publish(step=0)      # v1
+        publish_s = time.perf_counter() - t0
+        state = perturbed_state(model)
+        v2 = store.publish(state, meta={'step': 1})
+        name = 'llama.layers.1.self_attn.q_proj.weight'
+        nan = state[name].clone()
+        nan.view(-1)[nan.numel() // 3] = float('nan')
+        v3 = store.publish({**state, name: nan}, meta={'step': 2})
+        del state, nan
+        t0 = time.perf_counter()
+        store.mgr.verify(v2)
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = store.load(v2)
+        load_s = time.perf_counter() - t0
+        gate = finite_weights_gate(eng, v2, tree)
+        t0 = time.perf_counter()
+        prev = eng.swap_weights(tree, version=v2)
+        swap_s = time.perf_counter() - t0
+        fresh_model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                                       generator=ptt.generator(1, DEV))
+        fresh_model.load_state_dict({
+            k: v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+            for k, v in tree.items()})
+        fresh = InferenceEngine(fresh_model, num_slots=8, max_length=1024,
+                                decode_block=8, kv_page_size=16)
+        expect = fresh.generate_many([prompts[0]], sp)[0].tokens
+        del fresh, fresh_model, tree
+        canary = CanaryGate(prompts[0], max_new_tokens=8, expect=expect)(
+            eng, v2, None)
+        moved = [h.tokens for h in eng.generate_many(prompts, sp)]
+        tree3 = store.load(v3)
+        refused = finite_weights_gate(eng, v3, tree3)
+        del tree3
+        if not refused[0]:
+            store.quarantine(v3, refused[1])
+        latest = store.latest_version()
+        eng.restore_weights(prev)
+        back = [h.tokens for h in eng.generate_many(prompts, sp)]
+        launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
+        problems = []
+        if gate != (True, '') or canary != (True, ''):
+            problems.append(f'v2: gate {gate}, canary {canary}')
+        if moved == v1_tokens:
+            problems.append('v2 moved no token')
+        if refused[0] or store.quarantined() != [v3] or latest != v2:
+            problems.append(f'v3: gate {refused}, quarantined '
+                            f'{store.quarantined()}, latest {latest}')
+        if back != v1_tokens or eng.stats()['traces'] != traces:
+            problems.append(f'after the restore: tokens == v1 '
+                            f'{back == v1_tokens}, captures '
+                            f'{eng.stats()["traces"]} vs {traces}')
+        if problems:
+            raise AssertionError(f'{tag}: ' + '; '.join(problems))
+        log(f'[{tag}] Llama-2-7B width at 2 bf16 layers, {gb:.3f} GB a '
+            f'version: WeightPublisher.publish {publish_s:.3f} s '
+            f'({gb / publish_s:.3f} GB/s: the host copy, the npz write, the '
+            f'sha256); load {load_s:.3f} s ({gb / load_s:.3f} GB/s, the '
+            f'sha256 alone {verify_s:.3f} s); swap_weights {swap_s:.3f} s; '
+            f'v2 passed the finite gate and the canary (tokens {expect}), '
+            f'moved the tokens; v3 refused ({refused[1]}), quarantined, '
+            f'latest v{latest}; the restore gave v1\'s tokens, captures '
+            f'unchanged')
+        del eng, prev, store
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches}
+
+
 def paged_float_ms(readings: int = 5, outputs=None) -> list:
     """[(case, [device ms per call] x readings)] of the paged kernel over
     pages in q's dtype at phase 2's serve shape (8 slots, H 32, context
@@ -3523,6 +3896,11 @@ def main() -> int:
     spec = serve_spec(res)
     drain_swap(res)
     adapted = serve_adapters(res)
+    t6g = time.perf_counter()
+    stored = serve_adapter_store(res, adapted)
+    weights = weight_store_swap(res)
+    log(f'[weight-store] phase 6g (both stores) took '
+        f'{time.perf_counter() - t6g:.1f} s')
     prefixed = serve_prefix(res)
     int8 = serve_int8(res, prefixed)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
@@ -3550,8 +3928,8 @@ def main() -> int:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
-                                   prefixed, int8, spec['draft2'],
-                                   spec['self']))
+                                   stored, weights, prefixed, int8,
+                                   spec['draft2'], spec['self']))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -12,11 +12,17 @@ It serves Llama through the paged continuous-batching engine
 (`jit.TrainStep` + the optimizers of `optimizer`, LR schedules from
 `optimizer.lr` and gradient clips from `nn`, with `F.cross_entropy` and
 `use_recompute`; Adam/AdamW update through one multi-tensor kernel).
+`save`/`load` write and read the JAX package's npz container, and
+`utils.CheckpointManager` and `serving.WeightStore` its checkpoint and
+weight-version layouts.
 """
-from . import (dtype, framework, jit, nlp, nn, ops, optimizer, regularizer,
-               serving, weights)
+from . import (dtype, flags, framework, jit, nlp, nn, ops, optimizer,
+               regularizer, resilience, serving, utils, weights)
+from .flags import get_flags, set_flags
 from .framework import generator, resolve_device, seed
+from .serialization import load, save
 
-__all__ = ['dtype', 'framework', 'jit', 'nlp', 'nn', 'ops', 'optimizer',
-           'regularizer', 'serving', 'weights', 'generator', 'resolve_device',
-           'seed']
+__all__ = ['dtype', 'flags', 'framework', 'jit', 'nlp', 'nn', 'ops',
+           'optimizer', 'regularizer', 'resilience', 'serving', 'utils',
+           'weights', 'generator', 'get_flags', 'load', 'resolve_device',
+           'save', 'seed', 'set_flags']

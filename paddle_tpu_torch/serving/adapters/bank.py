@@ -11,20 +11,30 @@ index, so any mix of adapters runs through the same kernels:
   without an adapter get an exactly-zero delta;
 - a host-side slot table maps adapter_id -> (slot, version), with
   reference-count pinning while a request decodes under an adapter and
-  LRU eviction of slots that no request pins.
+  LRU eviction of slots that no request pins;
+- hot-load and publish ride the versioned, sha256-manifested
+  `WeightStore` (one per adapter id, under `store_dir/<adapter_id>/`):
+  publishing v2 while v1 requests decode never touches v1's slot (v1
+  finishes bit-exact; new pins load v2 into a fresh slot), and a
+  corrupt or mis-shaped version is quarantined while the bank keeps
+  serving the version it has.
 
 Slot writes are in-place `copy_`s into the packed tensors, the port's
 counterpart of the JAX bank's functional `.at[slot].set`: the tensors
-keep their shapes, dtypes and storage, so `device_arrays()` stays valid
-across any sequence of loads and evictions.
+keep their shapes, dtypes and storage, which is what the captured decode
+and prefill graphs read, so `device_arrays()` stays valid and nothing is
+captured again across any sequence of loads, hot loads, evictions and
+quarantines. A store load copies into its slot on the current stream
+between engine rounds, from host arrays (a blocking copy).
 
-Not ported yet (ROADMAP.md, Queue 1): the store-backed half of the JAX
-bank (`store_dir=`, `publish`, hot-swap to a newer version on `pin`,
-quarantine of a corrupt manifest), and the adapter metrics and events.
-Without a store, `pin` never loads, so it never finds the bank full.
+Not ported yet (ROADMAP.md, Queue 1, item 2): the adapter metrics and
+the `adapter_publish` / `adapter_load` / `adapter_load_reject` /
+`adapter_evict` events.
 """
 from __future__ import annotations
 
+import os
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +42,7 @@ import torch
 
 from ... import dtype as _dtype
 from ...ops import kernels
+from ..hotswap import WeightLoadError, WeightStore
 from . import apply as _apply
 
 #: attribute-name suffixes of the projections that receive adapters by
@@ -40,14 +51,14 @@ from . import apply as _apply
 #: names its targets)
 DEFAULT_TARGETS = ('qkv_proj', 'out_proj')
 
-_NOT_PORTED = ('the store-backed adapter bank (store_dir=, publish) is not '
-               'ported yet (ROADMAP.md, Queue 1); load factors with '
-               'AdapterBank.load')
+_ADAPTER_ID_RE = re.compile(r'^[A-Za-z0-9._\-]+$')
 
 
 class AdapterUnavailable(KeyError):
     """Typed miss: the bank cannot pin the named adapter (never loaded,
-    or evicted). `transient=True` marks a bank full of pinned slots."""
+    store empty or corrupt, or bank full of pinned slots).
+    `transient=True` marks the bank full of pinned slots: pins free as
+    requests retire, so the engine requeues instead of failing."""
 
     def __init__(self, adapter_id: str, detail: str = '',
                  transient: bool = False):
@@ -68,14 +79,16 @@ class AdapterBank:
     one more row: the zero base adapter at slot 0). `rank` is the shared
     LoRA rank, at most `kernels.ADAPTER_MAX_RANK`; factors of any other
     rank are rejected at load. The tensors live on the model's device in
-    `dtype` (the scale in f32).
+    `dtype` (the scale in f32). With `store_dir`, each adapter id has a
+    `WeightStore` (keeping `keep_versions` versions) under
+    `store_dir/<adapter_id>/`: `publish` commits versions there and `pin`
+    loads the latest servable one.
     """
 
     def __init__(self, model, capacity: int = 8, rank: int = 8, *,
                  targets: Sequence[str] = DEFAULT_TARGETS,
-                 dtype='float32', store_dir: Optional[str] = None):
-        if store_dir is not None:
-            raise NotImplementedError(_NOT_PORTED)
+                 dtype='float32', store_dir: Optional[str] = None,
+                 keep_versions: int = 4):
         if capacity < 1:
             raise ValueError(f'capacity must be >= 1, got {capacity}')
         if rank < 1:
@@ -87,6 +100,8 @@ class AdapterBank:
         self.rank = int(rank)
         self.dtype = _dtype.to_torch_dtype(dtype)
         self.targets = tuple(targets)
+        self.store_dir = store_dir
+        self.keep_versions = int(keep_versions)
         # site name -> (in_features, out_features), insertion-ordered
         self.sites: Dict[str, Tuple[int, int]] = {}
         self._tagged: List[Any] = []
@@ -116,6 +131,7 @@ class AdapterBank:
         self._lru: List[int] = [0] * rows
         self._refs[0] = 1          # slot 0 is never evictable
         self._by_key: Dict[str, int] = {}                 # id -> slot
+        self._stores: Dict[str, WeightStore] = {}
         self._tick = 0
 
     # -- model tagging ------------------------------------------------------
@@ -164,16 +180,32 @@ class AdapterBank:
         return slot, self._versions[slot]
 
     def available(self, adapter_id: str) -> bool:
-        """True if a pin() could succeed right now (the adapter is
-        resident)."""
-        return adapter_id in self._by_key
+        """True if a pin() could succeed right now: resident, or the
+        store holds a committed, non-quarantined version."""
+        if adapter_id in self._by_key:
+            return True
+        store = self._store(adapter_id, create=False)
+        return store is not None and store.latest_version() is not None
 
     def pin(self, adapter_id: str) -> Tuple[int, int]:
         """Pin `adapter_id` for one request; returns (slot, version).
-        Raises `AdapterUnavailable` when the adapter is not resident."""
+        Loads from the store on a miss, and hot-swaps to the store's
+        latest version when it is newer than the resident one (the old
+        slot keeps serving its pinned requests bit-exact). Raises
+        `AdapterUnavailable` when nothing servable exists, transient when
+        the load finds every slot pinned."""
         slot = self._by_key.get(adapter_id)
+        store = self._store(adapter_id, create=False)
+        if store is not None:
+            latest = store.latest_version()    # servable: not quarantined
+            if latest is not None and (
+                    slot is None or latest > self._versions[slot]):
+                loaded = self._load_version(adapter_id, store, latest)
+                if loaded is not None:
+                    slot = loaded
         if slot is None:
-            raise AdapterUnavailable(adapter_id, 'not loaded')
+            raise AdapterUnavailable(
+                adapter_id, 'not loaded and no servable store version')
         self._refs[slot] += 1
         self._tick += 1
         self._lru[slot] = self._tick
@@ -229,7 +261,68 @@ class AdapterBank:
     def publish(self, adapter_id: str, factors: Dict[str, Tuple[Any, Any]],
                 *, alpha: Optional[float] = None,
                 meta: Optional[Dict[str, Any]] = None) -> int:
-        raise NotImplementedError(_NOT_PORTED)
+        """Commit a new adapter version through the `WeightStore` plane
+        (sha256 manifests, monotone versions, writer markers), factors
+        flattened as `{'<site>::a', '<site>::b'}` with `alpha` and the
+        adapter id in the version's meta (the JAX bank's layout). The
+        bank does NOT swap eagerly: the next `pin()` picks the version
+        up, so live requests are never touched."""
+        self._check_factors(adapter_id, factors)
+        store = self._store(adapter_id, create=True)
+        flat = {}
+        for site, (a, b) in factors.items():
+            flat[f'{site}::a'], flat[f'{site}::b'] = a, b
+        m = dict(meta or {})
+        m['adapter'] = adapter_id
+        m['alpha'] = float(self.rank if alpha is None else alpha)
+        return store.publish(flat, meta=m)
+
+    def _store(self, adapter_id: str,
+               create: bool = False) -> Optional[WeightStore]:
+        if self.store_dir is None:
+            return None
+        st = self._stores.get(adapter_id)
+        if st is not None:
+            return st
+        if not _ADAPTER_ID_RE.match(adapter_id):
+            raise ValueError(f'bad adapter id {adapter_id!r} (want '
+                             f'[A-Za-z0-9._-]+; it names a directory)')
+        d = os.path.join(self.store_dir, adapter_id)
+        if not create and not os.path.isdir(d):
+            return None
+        st = WeightStore(d, keep_versions=self.keep_versions)
+        self._stores[adapter_id] = st
+        return st
+
+    def _load_version(self, adapter_id: str, store: WeightStore,
+                      version: int) -> Optional[int]:
+        """Try to load one store version into a slot. On a corrupt or
+        mis-shaped version: quarantine it and return None; the bank keeps
+        serving whatever it has."""
+        try:
+            flat = store.load(version)
+            meta = store.meta(version)
+            factors = self._unflatten(adapter_id, flat)
+        except (WeightLoadError, ValueError, KeyError) as e:
+            store.quarantine(version, f'adapter load failed: {e}')
+            return None
+        slot = self._alloc_slot(adapter_id)
+        alpha = meta.get('alpha')
+        self._write_slot(slot, adapter_id, factors,
+                         None if alpha is None else float(alpha), version)
+        return slot
+
+    def _unflatten(self, adapter_id: str, flat: Dict[str, Any]
+                   ) -> Dict[str, Tuple[Any, Any]]:
+        factors = {}
+        for site in self.sites:
+            a, b = flat.get(f'{site}::a'), flat.get(f'{site}::b')
+            if a is None or b is None:
+                raise ValueError(f'manifest missing factors for target '
+                                 f'site {site!r}')
+            factors[site] = (a, b)
+        self._check_factors(adapter_id, factors)
+        return factors
 
     def _check_factors(self, adapter_id: str,
                        factors: Dict[str, Tuple[Any, Any]]):
@@ -255,7 +348,9 @@ class AdapterBank:
                     factors: Dict[str, Tuple[Any, Any]],
                     alpha: Optional[float], version: int):
         # in place: the packed tensors keep their storage (the JAX
-        # bank's `.at[slot].set`)
+        # bank's `.at[slot].set`), which the captured graphs read. From
+        # host memory the copy blocks until the device has the bytes, so
+        # the host arrays may go as soon as it returns
         with torch.no_grad():
             for site, (a, b) in factors.items():
                 self._a[site][slot].copy_(torch.as_tensor(a))

@@ -116,6 +116,7 @@ import torch
 
 from ..nlp.generation import cached_forward
 from ..framework import generator as _generator
+from ..resilience.retry import is_cuda_error
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
 from .decode_graph import DecodeStep, GraphError, SpecStep
@@ -139,9 +140,9 @@ def _host_tensor(value) -> torch.Tensor:
 
 def _device_fault(exc: Exception) -> bool:
     """A failed graph capture or replay, or a CUDA error (PyTorch's or a
-    kernel wrapper's): fatal to the engine, not one request's failure."""
-    return isinstance(exc, GraphError) or 'CUDA error' in str(exc) or \
-        type(exc).__name__ == 'AcceleratorError'
+    kernel wrapper's, `is_cuda_error`): fatal to the engine, not one
+    request's failure."""
+    return isinstance(exc, GraphError) or is_cuda_error(exc)
 
 
 class InferenceEngine:
@@ -166,7 +167,9 @@ class InferenceEngine:
             admission then requeues on page exhaustion.
         adapter_bank: a `serving.AdapterBank` attached to this model;
             enables `submit(..., adapter_id=)`. A request pins its
-            adapter at admission and unpins it at retirement.
+            adapter at admission (a store-backed bank may load it then)
+            and unpins it at retirement; a bank full of pinned slots
+            requeues the request.
         prefix_cache: a `PagedPrefixCache` over this engine's pool, or a
             fraction of the pool's pages it may hold (True = 0.5); None
             or False = no cache.
@@ -349,8 +352,9 @@ class InferenceEngine:
         """Queue one request; returns its live handle. Validation errors
         raise here. `adapter_id` decodes the request under that LoRA
         adapter of the engine's bank (None = base model); an adapter the
-        bank does not hold raises `AdapterUnavailable` here. A draining
-        engine refuses every new request (RuntimeError)."""
+        bank neither holds nor can load from its store raises
+        `AdapterUnavailable` here. A draining engine refuses every new
+        request (RuntimeError)."""
         if params is None:
             params = SamplingParams(**kwargs)
         elif kwargs:
@@ -362,7 +366,9 @@ class InferenceEngine:
                     f'adapter_id={adapter_id!r} needs an engine built '
                     f'with adapter_bank=')
             if not self.adapter_bank.available(adapter_id):
-                raise AdapterUnavailable(adapter_id, 'not resident')
+                raise AdapterUnavailable(
+                    adapter_id, 'not resident and no servable store '
+                                'version')
         self._check_drain()
         if self._draining:
             raise RuntimeError(
@@ -716,8 +722,18 @@ class InferenceEngine:
             try:
                 self._begin_request(slot, h)
             except AdapterUnavailable as exc:
-                # evicted since submit: a request-level failure; the
-                # engine keeps serving everyone else
+                if exc.transient:
+                    # the bank is full of pinned slots: pins free as
+                    # in-flight requests retire, so this is back-pressure,
+                    # not a failure. Requeue this handle alone at the queue
+                    # front and keep admitting the rest
+                    self.pool.free(slot)
+                    self.scheduler.requeue(h)
+                    self._counts['requeued'] += 1
+                    continue
+                # evicted since submit, or nothing servable in its store:
+                # a request-level failure; the engine keeps serving
+                # everyone else
                 self._fail_request(slot, h, exc)
                 continue
             except PagePoolExhausted:

@@ -279,12 +279,15 @@ def test_ctor_validation(models):
 
 
 def test_store_backed_half_is_not_ported(models, tmp_path):
+    """The store-backed half is ported now (tests/test_torch_adapter_store.py
+    holds it against the JAX bank): `store_dir=` builds, `publish`
+    commits a version, and the adapter is servable but not resident."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        AdapterBank(tm, targets=TARGETS, store_dir=str(tmp_path))
-    bank = _bank(tm, 1)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        bank.publish('ad9', _factors(bank, 9))
+    bank = AdapterBank(tm, capacity=2, rank=4, targets=TARGETS,
+                       store_dir=str(tmp_path))
+    assert bank.publish('ad9', _factors(bank, 9)) == 1
+    assert bank.available('ad9') and bank.lookup('ad9') is None
+    assert bank.pin('ad9') == (1, 1)
 
 
 def test_sites_and_statics_match_jax(models):

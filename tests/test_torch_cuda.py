@@ -1487,3 +1487,127 @@ def test_swap_and_restore_on_the_graph_engine(cuda):
     eng.restore_weights(prev)
     assert [h.tokens for h in eng.generate_many(prompts, sp)] == before
     assert eng.stats()['traces'] == traces
+
+
+# ---------------------------------------------------------------------------
+# the store-backed adapter bank under the captured graphs
+# ---------------------------------------------------------------------------
+
+_TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj')
+
+
+def _store_case(cuda, seed):
+    """A 2-layer bf16 model and prompts of buckets 8, 32 and 64."""
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(seed, cuda))
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 17, 40, 9)]
+    return model, prompts
+
+
+def _bank_engine(model, store_dir=None, capacity=3, capture=True, load=()):
+    """An engine of 3 slots over a rank-8 f32 bank on q/k/v/o_proj (with
+    `store_dir`, store-backed), `load` = [(adapter id, seed)] loaded
+    directly; `capture` False runs it eagerly."""
+    from paddle_tpu_torch.serving import AdapterBank, make_adapter_factors
+    bank = AdapterBank(model, capacity=capacity, rank=8, targets=_TARGETS,
+                       store_dir=store_dir)
+    for aid, seed in load:
+        bank.load(aid, make_adapter_factors(bank, seed, scale=0.1),
+                  version=1)
+    eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
+                          adapter_bank=bank)
+    eng._capture_decode = eng._capture_prefill = capture
+    return eng
+
+
+def _publish(bank, aid, seed):
+    from paddle_tpu_torch.serving import make_adapter_factors
+    return bank.publish(aid, make_adapter_factors(bank, seed, scale=0.1))
+
+
+def test_store_backed_bank_hot_loads_under_the_graphs(cuda, tmp_path):
+    """The graph engine over a store-backed bank: a mixed wave whose pins
+    load from the store gives the tokens of a bank `load`ed directly; a
+    publish while a v1 request decodes leaves it bit-exact and serves a
+    new request v2 from another slot (the tokens of a bank holding only
+    v2); a corrupt v3 is quarantined and v2 keeps serving. Nothing is
+    captured again after the warm-up, and the adapter kernel launches
+    once per adapted projection of every prefill and decode sub-step."""
+    from paddle_tpu_torch.serving import WeightStore
+    model, prompts = _store_case(cuda, 31)
+    ids = [None, 'ad0', 'ad1', 'ad0']
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    # the references first: their launches must not enter the count
+    ref = _bank_engine(model, capture=False, load=[('ad0', 1), ('ad1', 2)])
+    want = [h.tokens for h in ref.generate_many(prompts, sp,
+                                                adapter_ids=ids)]
+    v1_want = ref.generate_many([prompts[2]], sp,
+                                adapter_ids='ad0')[0].tokens
+    v2_want = _bank_engine(model, capture=False, load=[('ad0', 11)]) \
+        .generate_many([prompts[2]], sp, adapter_ids='ad0')[0].tokens
+    eng = _bank_engine(model, str(tmp_path))
+    bank = eng.adapter_bank
+    _publish(bank, 'ad0', 1)
+    _publish(bank, 'ad1', 2)
+    eng.generate_many(prompts, SamplingParams(max_new_tokens=1,
+                                              eos_token_id=-1),
+                      adapter_ids=ids)
+    traces = dict(eng.stats()['traces'])
+    eng.reset_stats()
+    K.reset_launch_counts()
+    assert [h.tokens for h in eng.generate_many(prompts, sp,
+                                                adapter_ids=ids)] == want
+    h1 = eng.submit(prompts[2], sp, adapter_id='ad0')
+    eng.step()
+    eng.step()
+    slot1 = h1._adapter_pin
+    assert not h1.done and h1.adapter_version == 1
+    assert _publish(bank, 'ad0', 11) == 2
+    h2 = eng.submit(prompts[2], sp, adapter_id='ad0')
+    eng.step()
+    assert h2._adapter_pin not in (None, slot1)
+    eng.run()
+    assert h1.tokens == v1_want
+    assert (h2.adapter_version, h2.tokens) == (2, v2_want)
+    _publish(bank, 'ad0', 12)
+    payload = tmp_path / 'ad0' / 'step_3' / 'tree.npz'
+    raw = bytearray(payload.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    payload.write_bytes(bytes(raw))
+    h3 = eng.submit(prompts[2], sp, adapter_id='ad0')
+    eng.run()
+    assert (h3.adapter_version, h3.tokens) == (2, v2_want)
+    assert WeightStore(str(tmp_path / 'ad0')).quarantined() == [3]
+    st = eng.stats()
+    assert st['traces'] == traces
+    assert K.LAUNCHES['adapter_matmul'] == 8 * (st['prefills'] +
+                                                st['decode_steps']) > 0
+
+
+def test_store_backed_bank_full_of_pins_requeues_on_the_card(cuda,
+                                                             tmp_path):
+    """Three adapters in flight on a bank of two slots, on the graph
+    engine: the third admission is requeued (not failed) until a pin
+    frees, and every request gets the tokens it gets served alone."""
+    model, prompts = _store_case(cuda, 32)
+    ids = ['ad0', 'ad1', 'ad2']
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    eng = _bank_engine(model, str(tmp_path), capacity=2)
+    for i, aid in enumerate(ids):
+        _publish(eng.adapter_bank, aid, i + 1)
+    eng.generate_many(prompts[:3], SamplingParams(max_new_tokens=1,
+                                                  eos_token_id=-1),
+                      adapter_ids=ids)
+    traces = dict(eng.stats()['traces'])
+    eng.reset_stats()
+    got = [h.tokens for h in eng.generate_many(prompts[:3], sp,
+                                               adapter_ids=ids)]
+    st = eng.stats()
+    assert st['requeued'] > 0 and st['failed'] == 0
+    assert st['traces'] == traces
+    for j, aid in enumerate(ids):
+        alone = _bank_engine(model, capture=False, load=[(aid, j + 1)])
+        assert got[j] == alone.generate_many(
+            [prompts[j]], sp, adapter_ids=aid)[0].tokens, aid

@@ -121,3 +121,25 @@ def test_training_entry_points_run_where_the_model_is(monkeypatch):
     assert step.optimizer._slots and all(
         s['moment1'].device.type == 'cpu'
         for s in step.optimizer._slots.values())
+
+
+def test_weight_store_plane_imports_no_ml_dtypes(tmp_path):
+    """The card's machine has no `ml_dtypes`: the port reads and writes
+    bf16 leaves through torch, so importing (and using) its serialization,
+    checkpoint manager and weight store loads neither `ml_dtypes` nor jax
+    nor anything of `paddle_tpu`."""
+    code = ('import sys, torch\n'
+            'import paddle_tpu_torch.serialization\n'
+            'import paddle_tpu_torch.utils.checkpoint\n'
+            'from paddle_tpu_torch.serving.hotswap import WeightStore\n'
+            'store = WeightStore(sys.argv[1])\n'
+            'v = store.publish({"w": torch.ones(2, dtype=torch.bfloat16)})\n'
+            'assert store.load(v)["w"].dtype == torch.bfloat16\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("ml_dtypes", "jax", "jaxlib", "paddle_tpu"))\n'
+            'print(bad)\n'
+            'sys.exit(1 if bad else 0)\n')
+    res = subprocess.run([sys.executable, '-c', code, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
