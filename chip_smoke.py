@@ -6,6 +6,9 @@
                                            # projection, port in TREE
     python3 chip_smoke.py --train-ms TREE  # the training rung's step
                                            # time, port in TREE
+    python3 chip_smoke.py --profile-train pretrain|bench  # phase 7's
+                                           # training-step profile on a
+                                           # fresh rung
     python3 chip_smoke.py --int8-rmse      # int8 KV's logit error by
                                            # depth
     python3 chip_smoke.py --paged-ms TREE [OUT]  # the paged kernel over
@@ -186,6 +189,29 @@ result line):
    logged;
    then the host time of one adapted projection (hook, wrapper and
    launch) at the decode shape;
+6h. observe: the serving observability layer on phase 6's graph engine
+   and 12 requests (every phase runs instrumented, as
+   `FLAGS_observability` defaults to on): (a) the port's HTTP server on an
+   ephemeral port of 127.0.0.1, scraped at 4 Hz by a background client
+   during the wave, every body parsed line by line (Prometheus
+   exposition format); the serving counters of the scrapes before and
+   after the wave and /summary?format=json's serving section must move
+   by exactly `stats()`, the tokens must be phase 6's and nothing may be
+   captured; (b) the goodput ledger's categories plus its residual
+   within 1% of its wall (serving_prefill and serving_decode logged),
+   every request's phase waterfall within 1% of its E2E, and the
+   fair-share decode seconds within 1% of `stats()`'s decode seconds;
+   /healthz 200, 503 `draining` after `begin_drain()` on an eager twin
+   (phase 6's engine keeps serving later phases), still 503 after
+   `drain()`, 200 after `clear_degraded('draining')`; /programs, /slo
+   and /fleet/metrics 404; (d) a request whose admission raises fails
+   alone and writes one flight bundle (flight.json naming
+   `serving_request_failed`, events, trace, metrics, summary, goodput,
+   requests) under a fresh PADDLE_FLIGHT_DIR; (c) decode tok/s with the
+   layer off and on, 3 interleaved pairs on the engine: the least
+   off/on ratio less 1 (bench.py's estimator) must stay at or below 3%
+   (bench.py's guard), and the host time the layer adds to a round is
+   logged;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, each replayed from its graph and run
@@ -201,7 +227,12 @@ result line):
    training step the wgmma forward, dq and dk/dv kernels, and its update
    window (phase 5b's optimizer, then phase 5's) the multi-tensor Adam
    kernel (5b's also the sum of squares), its device ms logged beside
-   the bound of the bytes the update must move; then one int8 decode
+   the bound of the bytes the update must move (where the profiler
+   recorded no event of a required kernel, the next step is profiled,
+   up to 3 with pauses between, then the same profile runs in a fresh
+   process on a fresh rung, `--profile-train`, up to 2, held to the same
+   gates);
+   then one int8 decode
    round, graph and eager, profiled in three windows (the window's
    fill, the sub-steps, the requantize of the touched pages): the
    sub-steps must run the int8 split, window and combine kernels, and
@@ -223,8 +254,9 @@ Phases 5, 5b and 6 run before any profiling: once torch.profiler has
 run in a process, every later launch costs the host more. Phases 6e and
 6f run right after phase 6, before 6b-6d, while only phase 6's engines
 hold device memory, and free their engines; 6g runs after 6b and frees
-its engines before 6c; phase 7 builds fresh spec engines once the serve
-engines are freed.
+its engines before 6c, and 6h after 6g; phase 7 builds fresh spec
+engines once the serve engines are freed. The flight recorder writes
+its bundles under the gitignored `build/flight/`.
 
 The last lines are the card's name and power limit, a JSON line with the
 kernel table, and `{"ok": true, "device": {...}}`.
@@ -236,6 +268,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -3302,6 +3335,420 @@ def weight_store_swap(served) -> dict:
     return {'launches': launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6h: the serving observability layer at full width
+# ---------------------------------------------------------------------------
+
+# where the flight recorder writes its bundles in this run (inside the
+# checkout's gitignored build directory); 6h (d) points it at a fresh
+# directory of its own and removes it
+FLIGHT_ROOT = Path(__file__).resolve().parent / 'build' / 'flight'
+# the scrape rate of 6h (a), bench.py:scrape_overhead_ab's
+SCRAPE_HZ = 4.0
+# the reference's guard on the instrumentation's cost (bench.py:517)
+OBS_OVERHEAD_MAX = 0.03
+OBS_PAIRS = 3
+# one exposition line: a sample `name{labels} value` (HELP/TYPE apart)
+_EXPO_SAMPLE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+                r'(\{[a-zA-Z_][a-zA-Z0-9_]*="([^"\\\n]|\\[\\"n])*"'
+                r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\\n]|\\[\\"n])*")*\})?'
+                r' (NaN|[+-]Inf|-?[0-9]+(\.[0-9]+)?([eE][+-]?[0-9]+)?)$')
+_EXPO_COMMENT = r'^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .*$'
+
+
+def parse_exposition(body: str) -> dict:
+    """{sample with its labels: value} of a /metrics body; raises on any
+    line that is neither a sample nor a HELP/TYPE comment."""
+    import re
+    sample, comment = re.compile(_EXPO_SAMPLE), re.compile(_EXPO_COMMENT)
+    out = {}
+    for line in body.splitlines():
+        if comment.match(line):
+            continue
+        if not sample.match(line):
+            raise ValueError(f'bad exposition line {line!r}')
+        key, value = line.rsplit(' ', 1)
+        out[key] = float(value)
+    return out
+
+
+def http_get(url: str) -> tuple:
+    """(status, body) of one GET, 5 s at most."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class Scraper:
+    """A background client scraping `/metrics` at `hz`, each body
+    parse-checked (bench.py:scrape_overhead_ab's client)."""
+
+    def __init__(self, url: str, hz: float = SCRAPE_HZ):
+        import threading
+        self.url, self.hz = f'{url}/metrics', hz
+        self.scrapes = self.failures = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                status, body = http_get(self.url)
+                if status != 200:
+                    raise ValueError(f'status {status}')
+                parse_exposition(body)
+            except Exception as exc:
+                self.failures += 1
+                self.errors.append(f'{type(exc).__name__}: {exc}'[:200])
+            self.scrapes += 1
+            self._stop.wait(1.0 / self.hz)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def _serving_counters(url: str) -> dict:
+    """The serving counters of one scrape, summed over labels."""
+    m = parse_exposition(http_get(f'{url}/metrics')[1])
+
+    def total(name, **labels):
+        want = [f'{k}="{v}"' for k, v in labels.items()]
+        return sum(v for k, v in m.items()
+                   if (k == name or k.startswith(name + '{'))
+                   and all(w in k for w in want))
+    return {
+        'submitted': total('paddle_serving_requests_total',
+                           status='submitted'),
+        'completed': total('paddle_serving_requests_total',
+                           status='completed'),
+        'failed': total('paddle_serving_requests_total', status='failed'),
+        'tokens': total('paddle_serving_tokens_total'),
+        'prefills': total('paddle_serving_prefills_total'),
+        'decode_rounds': total('paddle_serving_decode_rounds_total'),
+        'decode_steps': total('paddle_serving_decode_steps_total'),
+        'chunk_rounds': total('paddle_serving_chunk_rounds_total'),
+    }
+
+
+def _summary_serving(url: str) -> dict:
+    sv = json.loads(http_get(f'{url}/summary?format=json')[1])['serving']
+    return {'submitted': sv['submitted'], 'completed': sv['completed'],
+            'failed': sv['failed'], 'tokens': sv['tokens'],
+            'prefills': sv['prefills'], 'decode_steps': sv['decode_steps'],
+            'chunk_rounds': sv['chunk']['rounds']}
+
+
+def _wave(eng, prompts, params) -> tuple:
+    """Phase 6's 12 requests on `eng` from fresh stats: (handles,
+    stats)."""
+    eng.reset_stats()
+    handles = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    while eng.has_work:
+        eng.step()
+    return handles, eng.stats()
+
+
+def _check_closed(summary: dict, tag: str, frac: float = 0.01) -> float:
+    """A finished request's waterfall against its E2E: returns the
+    unexplained share."""
+    e2e = summary['e2e_s']
+    gap = summary['residual_s'] + summary['overcount_s']
+    if gap > frac * e2e:
+        raise AssertionError(f'{tag}: request {summary["request_id"]} '
+                             f'leaves {gap * 1e3:.3f} ms of {e2e * 1e3:.3f} '
+                             f'ms unexplained: {summary}')
+    return gap / e2e
+
+
+def observe_wave(eng, prompts, params, want_tokens, srv) -> dict:
+    """6h (a) and (b): the wave under a 4 Hz scraper; the counters of the
+    scrapes before and after it, and the /summary serving section's
+    change, against `stats()`; then both ledgers' closure."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.ops import kernels as K
+    traces = dict(eng.stats()['traces'])
+    before, sum_before = _serving_counters(srv.url), \
+        _summary_serving(srv.url)
+    obs.get_ledger().reset()
+    obs.get_request_ledger().reset()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Scraper(srv.url) as scraper:
+        handles, st = _wave(eng, prompts, params)
+    wall = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
+    after, sum_after = _serving_counters(srv.url), _summary_serving(srv.url)
+    if scraper.failures or scraper.scrapes < 2:
+        raise AssertionError(f'observability: {scraper.failures} of '
+                             f'{scraper.scrapes} scrapes failed to parse: '
+                             f'{scraper.errors[:3]}')
+    want = {k: st[k] for k in after}
+    got = {k: after[k] - before[k] for k in after}
+    got_sum = {k: sum_after[k] - sum_before[k] for k in sum_after}
+    if got != want or got_sum != {k: st[k] for k in sum_after}:
+        raise AssertionError(f'observability: /metrics moved by {got}, '
+                             f'/summary by {got_sum}, stats() {want}')
+    if [h.tokens for h in handles] != want_tokens:
+        raise AssertionError('observability: the instrumented wave\'s '
+                             'tokens differ from phase 6\'s')
+    if st['traces'] != traces or min(launches.values()) <= 0:
+        raise AssertionError(f'observability: captures {st["traces"]} '
+                             f'(before {traces}), launches {launches}')
+    log(f'[observe] 12 requests in {wall:.3f} s under a {SCRAPE_HZ:g} Hz '
+        f'scraper: {scraper.scrapes} scrapes, {scraper.failures} parse '
+        f'failures; /metrics and /summary moved by stats() exactly '
+        f'({got}); tokens == phase 6\'s; captures unchanged {st["traces"]}; '
+        f'launches {launches}')
+    # (b) the ledgers
+    gp = obs.get_ledger().report()
+    cats = gp['categories']
+    books = sum(cats.values()) + gp['residual_seconds']
+    if abs(books - gp['wall_seconds']) > 0.01 * gp['wall_seconds'] or \
+            gp['overcount_seconds'] > 0:
+        raise AssertionError(f'observability: the goodput books do not '
+                             f'close: {gp}')
+    shares = [_check_closed(h._ledger_rec.summary(), 'request ledger')
+              for h in handles]
+    closure = obs.get_request_ledger().report()['closure']
+    if abs(closure['decode_fair_s'] - st['decode_seconds']) > \
+            0.01 * st['decode_seconds'] or closure['finished'] != 12:
+        raise AssertionError(f'observability: fair-share decode '
+                             f'{closure["decode_fair_s"]:.6f} s against the '
+                             f'engine\'s {st["decode_seconds"]:.6f} s, '
+                             f'{closure["finished"]} finished')
+    log(f'[observe] goodput ledger: wall {gp["wall_seconds"]:.4f} s, '
+        f'serving_prefill {cats["serving_prefill"]:.4f} s, serving_decode '
+        f'{cats["serving_decode"]:.4f} s, residual '
+        f'{gp["residual_seconds"]:.4f} s '
+        f'({gp["fractions"]["residual"]:.2%}); stats() prefill '
+        f'{st["prefill_seconds"]:.4f} s, decode {st["decode_seconds"]:.4f} s')
+    log(f'[observe] request ledger: 12 records closed, largest '
+        f'unexplained share {max(shares):.4%}; fair-share decode '
+        f'{closure["decode_fair_s"]:.6f} s == the engine decode wall '
+        f'{closure["engine_decode_wall_s"]:.6f} s (stats() '
+        f'{st["decode_seconds"]:.6f} s)')
+    return {'scrapes': scraper.scrapes, 'scrape_failures': scraper.failures,
+            'wall_s': wall, 'goodput': gp, 'closure': closure,
+            'max_unexplained_share': max(shares), 'launches': launches}
+
+
+def check_health(eng, srv) -> None:
+    """/healthz 200 (once the holds of earlier phases' drains are
+    cleared), then 503 `draining` from `begin_drain()` on an engine of
+    its own (the eager twin of phase 6's, which later phases keep serving
+    on), still 503 after `drain()`, 200 after
+    `clear_degraded('draining')`."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import FINISHED, SamplingParams
+    # a drained engine keeps /healthz at 503 until its holder clears it
+    # (the process is expected to exit): the engines earlier phases
+    # drained (3's spec consistency, 6f) are done, so clear their holds
+    held = obs.health()['degraded'].get('draining', {}).get('count', 0)
+    obs.clear_degraded('draining', force=True)
+    log(f'[observe] cleared {held} hold(s) of `draining` left by the '
+        f'engines earlier phases drained')
+    twin = eager_twin(eng)
+    seen = [http_get(f'{srv.url}/healthz')]
+    hs = [twin.submit(list(range(3, 40)), SamplingParams(
+        max_new_tokens=4, eos_token_id=-1)) for _ in range(2)]
+    twin.step()
+    twin.begin_drain()
+    seen.append(http_get(f'{srv.url}/healthz'))
+    if not twin.drain() or any(h.status != FINISHED for h in hs):
+        raise AssertionError('observability: the drain did not finish')
+    seen.append(http_get(f'{srv.url}/healthz'))
+    obs.clear_degraded('draining')
+    seen.append(http_get(f'{srv.url}/healthz'))
+    states = [(code, json.loads(body)['status']) for code, body in seen]
+    if states != [(200, 'ok'), (503, 'draining'), (503, 'draining'),
+                  (200, 'ok')]:
+        raise AssertionError(f'observability: /healthz went {states}')
+    missing = [r for r in ('/programs', '/slo', '/fleet/metrics')
+               if http_get(srv.url + r)[0] != 404]
+    if missing:
+        raise AssertionError(f'observability: {missing} did not answer 404')
+    log(f'[observe] /healthz {" -> ".join(f"{c} {s}" for c, s in states)} '
+        f'(begin_drain, drain, clear_degraded); /programs, /slo, '
+        f'/fleet/metrics 404')
+
+
+def check_flight(eng, prompts, params) -> None:
+    """6h (d): a request whose admission raises fails alone and the flight
+    recorder writes one bundle for it under a fresh PADDLE_FLIGHT_DIR."""
+    import os
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import FAILED, FINISHED
+    FLIGHT_ROOT.mkdir(parents=True, exist_ok=True)
+    flight = Path(tempfile.mkdtemp(prefix='6h_', dir=FLIGHT_ROOT))
+    rec = obs.get_flight_recorder()
+    env, interval = os.environ.get('PADDLE_FLIGHT_DIR'), rec.min_interval_s
+    os.environ['PADDLE_FLIGHT_DIR'] = str(flight)
+    rec.min_interval_s = 0.0          # no debounce against earlier dumps
+    begin = eng._begin_request
+
+    def refused(slot, h):
+        if h.prompt_tokens == prompts[1]:
+            raise RuntimeError('injected admission failure')
+        return begin(slot, h)
+    eng._begin_request = refused
+    try:
+        hs = eng.generate_many(prompts[:2], params[:2])
+    finally:
+        del eng._begin_request
+        rec.min_interval_s = interval
+        if env is None:
+            del os.environ['PADDLE_FLIGHT_DIR']
+        else:
+            os.environ['PADDLE_FLIGHT_DIR'] = env
+    bundles = sorted(flight.iterdir())
+    files = sorted(p.name for p in bundles[0].iterdir()) if bundles else []
+    want = {'flight.json', 'events.jsonl', 'trace.json', 'metrics.json',
+            'summary.txt', 'goodput.json', 'requests.json'}
+    if [h.status for h in hs] != [FINISHED, FAILED] or len(bundles) != 1 \
+            or not want <= set(files):
+        raise AssertionError(f'observability: statuses '
+                             f'{[h.status for h in hs]}, bundles {bundles}, '
+                             f'files {files}')
+    doc = json.loads((bundles[0] / 'flight.json').read_text())
+    if doc['reason'] != 'serving_request_failed' or \
+            doc['trigger']['attrs']['error'] != 'RuntimeError':
+        raise AssertionError(f'observability: flight.json names '
+                             f'{doc["reason"]}: {doc["trigger"]}')
+    log(f'[observe] a refused admission failed alone; one flight bundle '
+        f'{bundles[0].name} with {files}')
+    shutil.rmtree(flight, ignore_errors=True)
+
+
+def round_hooks_us(slots: int = 8, block: int = 8,
+                   rounds: int = 2000) -> float:
+    """Host µs of the observability calls one decode round of `slots`
+    busy slots makes (`InferenceEngine.step` and `_decode_round`: the
+    round's span, the liveness beat, the request ledger's `note_round`
+    over the slots' records, the round's counters and occupancy, each
+    slot's token count, the goodput ledger's attribution of the span),
+    timed alone on the host over `rounds` rounds, into a registry, event
+    log and ledgers of their own."""
+    from paddle_tpu_torch import observability as obs
+    reg, log_ = obs.MetricsRegistry(), obs.EventLog()
+    obs.GoodputLedger(log=log_).start()
+    led = obs.RequestLedger()
+    recs = [led.open(i, time.perf_counter()) for i in range(slots)]
+    ids = list(range(slots))
+    steps = reg.counter('paddle_serving_decode_steps_total')
+    count = reg.counter('paddle_serving_decode_rounds_total')
+    occ = reg.histogram('paddle_serving_slot_occupancy',
+                        buckets=(0.125, 0.25, 0.5, 1.0))
+    tokens = reg.counter('paddle_serving_tokens_total')
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        with obs.Span('smoke.round_hooks', _log=log_, slots=slots,
+                      requests=ids):
+            pass
+        obs.note_progress('decode')
+        if obs.enabled():
+            steps.inc(block)
+        led.note_round(0.07, recs, 'decode', absorb=True)
+        if obs.enabled():
+            count.inc()
+            occ.observe(1.0)
+            tokens.inc(0)
+            for _ in range(slots):
+                tokens.inc(block)
+    return (time.perf_counter() - t0) / rounds * 1e6
+
+
+def obs_overhead(eng, prompts, params) -> dict:
+    """6h (c): decode tok/s of phase 6's wave with observability off (the
+    flag and the request ledger) and on, OBS_PAIRS interleaved pairs on
+    one engine (off-on, then on-off, ...); the overhead is the least
+    off/on ratio of a pair less 1 (bench.py:582-585's estimator), and the
+    host time the layer adds to a round the pair's difference of the mean
+    round wall."""
+    from paddle_tpu_torch import observability as obs
+    pairs = []
+    for i in range(OBS_PAIRS):
+        arms = {}
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            if on:
+                obs.enable()
+                obs.get_request_ledger().enable()
+            else:
+                obs.disable()
+                obs.get_request_ledger().disable()
+            try:
+                _, st = _wave(eng, prompts, params)
+            finally:
+                obs.enable()
+                obs.get_request_ledger().enable()
+            arms[on] = (st['tokens'] / st['decode_seconds'],
+                        st['decode_seconds'] / st['decode_rounds'])
+        pairs.append(arms)
+    ratios = [p[False][0] / p[True][0] for p in pairs]
+    added_us = sorted((p[True][1] - p[False][1]) * 1e6 for p in pairs)
+    overhead = min(ratios) - 1
+    for i, p in enumerate(pairs):
+        log(f'[observe] pair {i}: decode off {p[False][0]:.1f} tok/s, on '
+            f'{p[True][0]:.1f} tok/s (off/on {ratios[i]:.4f}); round wall '
+            f'off {p[False][1] * 1e3:.3f} ms, on {p[True][1] * 1e3:.3f} ms')
+    hooks = round_hooks_us(eng.pool.num_slots, eng.decode_block)
+    wall_on = sum(p[True][1] for p in pairs) / len(pairs)
+    log(f'[observe] overhead on decode tok/s (least off/on ratio of '
+        f'{OBS_PAIRS} adjacent pairs, less 1): {overhead:.4%}; host time '
+        f'the layer adds to a round (on - off round wall, by pair): '
+        f'{", ".join(f"{u:.1f}" for u in added_us)} us; the hooks of one '
+        f'{eng.pool.num_slots}-slot round timed alone on the host: '
+        f'{hooks:.1f} us ({hooks / (wall_on * 1e6):.4%} of the on arm\'s '
+        f'mean round wall)')
+    if overhead > OBS_OVERHEAD_MAX:
+        raise AssertionError(f'observability costs {overhead:.2%} of decode '
+                             f'tok/s, above {OBS_OVERHEAD_MAX:.0%}')
+    return {'overhead': overhead, 'ratios': ratios, 'added_us': added_us,
+            'pairs': pairs, 'round_hooks_us': hooks}
+
+
+def serve_observed(served) -> dict:
+    """Phase 6h on phase 6's graph engine (Llama-2-7B, bf16, 8 slots,
+    max_length 1024) and its 12 requests: (a) the port's server on an
+    ephemeral port scraped at 4 Hz during the wave, every body parsed,
+    the serving counters and /summary's serving section moved by exactly
+    `stats()`, the tokens phase 6's and nothing captured; (b) the goodput
+    ledger, every request's waterfall and the fair-share decode book
+    closed within 1%; /healthz through a drain on an engine of its own;
+    (d) a refused admission's flight bundle; (c) the layer's cost on
+    decode tok/s in interleaved pairs."""
+    from paddle_tpu_torch import observability as obs
+    eng, prompts, params = served['engine'], served['prompts'], \
+        served['params']
+    srv = obs.start_server(0, host='127.0.0.1')
+    try:
+        log(f'[observe] server at {srv.url}')
+        res = observe_wave(eng, prompts, params, served['tokens'], srv)
+        check_health(eng, srv)
+    finally:
+        srv.stop()
+    check_flight(eng, prompts, params)
+    res.update(obs_overhead(eng, prompts, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    import threading
+    left = sorted(t.name for t in threading.enumerate()
+                  if t is not threading.main_thread())
+    if left:
+        raise AssertionError(f'observability: threads left running: {left}')
+    log('[observe] the server and the scraper left no thread running')
+    return res
+
+
 def paged_float_ms(readings: int = 5, outputs=None) -> list:
     """[(case, [device ms per call] x readings)] of the paged kernel over
     pages in q's dtype at phase 2's serve shape (8 slots, H 32, context
@@ -3464,22 +3911,55 @@ def _breakdown(windows, wall_s: float, label: str) -> float:
 
 
 PROFILE_TRIES = 3
+PROFILE_PAUSE_S = 2.0           # host pause before a retried window, x tries
+FRESH_PROFILE_TRIES = 2         # `--profile-train` in a process of its own
+FRESH_PROFILE_TIMEOUT_S = 300
+TRAIN_RECIPES = {'pretrain': 'Llama 2 pretraining optimizer',
+                 'bench': 'bench optimizer'}
 
 
 def marked_window(body):
     """A torch.profiler window (CUDA activity) around `body`, its result
-    synchronized. CUPTI has missed the first kernels of a window, most
-    often of one opened right after another (the sum of squares of the
-    update window after the training step's), so a host pause and a GPU
-    sleep of ~1 us (`spin_kernel`) go first."""
+    synchronized; the CUDA-event ms of `body` is kept as `event_ms`.
+    CUPTI has missed the first kernels of a window, most often of one
+    opened right after another (the sum of squares of the update window
+    after the training step's), so a host pause and a GPU sleep of ~1 us
+    (`spin_kernel`) go first."""
     from torch.profiler import ProfilerActivity, profile
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(0.05)
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        a.record()
         body()
+        b.record()
         torch.cuda.synchronize()
+    prof.event_ms = a.elapsed_time(b)
     return prof
+
+
+def window_note(prof, events: int = 0) -> str:
+    """A `marked_window`'s device events by the profiler's clock (their
+    count and first start to last end, `spin_kernel` left out) beside the
+    CUDA-event ms of its body; where the profiler lost or misread events
+    the two part. With `events`, the first `events` of them in order
+    (start and length in ms, name)."""
+    ev = sorted((e for e in _device_events(prof)
+                 if 'spin_kernel' not in e.name),
+                key=lambda e: e.time_range.start)
+    if not ev:
+        return f'no device event, {prof.event_ms:.3f} ms by CUDA events'
+    t0 = ev[0].time_range.start
+    span = (max(e.time_range.end for e in ev) - t0) / 1e3
+    note = (f'{len(ev)} device events over {span:.3f} ms by the profiler, '
+            f'{prof.event_ms:.3f} ms by CUDA events')
+    if events:
+        note += ': ' + '; '.join(
+            f'{(e.time_range.start - t0) / 1e3:.3f}'
+            f'+{e.time_range.elapsed_us() / 1e3:.3f} {e.name[:48]}'
+            for e in ev[:events])
+    return note
 
 
 def missing_kernels(prof, kernels) -> list:
@@ -3717,18 +4197,27 @@ def update_bound_ms(opt, named) -> float:
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def profile_train(step, batch, step_s: float, label: str) -> None:
-    """One training step of `step` (phase 5's or 5b's) in two profiled
-    windows: the forward and backward, and the optimizer update. The
-    update window must run the multi-tensor Adam kernel (and, under a
-    global-norm clip, the sum of squares); its device ms is logged beside
-    `update_bound_ms`. Where the profiler recorded no event of a required
-    kernel, the next step is profiled in its place, up to PROFILE_TRIES
-    steps; the last one is checked and read. The idle share is taken
-    against `step_s`, the step time measured before any profiling (a step
-    run after the profiler has been used costs the host more; its wall is
-    logged beside it)."""
+def profile_train(step, batch, step_s: float, recipe: str,
+                  fresh_process: bool = True) -> None:
+    """One training step of `step` (phase 5's or 5b's: `recipe` of
+    TRAIN_RECIPES) in two profiled windows: the forward and backward, and
+    the optimizer update. The update window must run the multi-tensor
+    Adam kernel (and, under a global-norm clip, the sum of squares); its
+    device ms is logged beside `update_bound_ms`. Where the profiler
+    recorded no event of a required kernel, the next step is profiled in
+    its place after a pause of PROFILE_PAUSE_S x the tries so far, up to
+    PROFILE_TRIES steps. On some machines a process that has profiled
+    for a while loses the first kernels of most later windows (there,
+    the sum of squares and its finish), while a fresh process records
+    them: so if the last step still misses one (and `fresh_process`),
+    the same profile runs in a process of its own on a fresh rung of
+    `recipe` (`--profile-train`), held to the same gates, up to
+    FRESH_PROFILE_TRIES times, and the first that exits 0 decides. The
+    idle share is taken against `step_s`, the step time measured before
+    any profiling (a step run after the profiler has been used costs the
+    host more; its wall is logged beside it)."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    label = TRAIN_RECIPES[recipe]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     float(step(batch, batch))
@@ -3746,19 +4235,41 @@ def profile_train(step, batch, step_s: float, label: str) -> None:
             p.grad = None
 
     for attempt in range(1, PROFILE_TRIES + 1):
+        time.sleep(PROFILE_PAUSE_S * (attempt - 1))
         fwd_bwd = marked_window(
             lambda: next_token_loss(step.layer(x), x).backward())
         update = marked_window(update_body)
         missing = (missing_kernels(fwd_bwd, step_kernels)
                    + missing_kernels(update, update_kernels))
-        if not missing or attempt == PROFILE_TRIES:
+        if not missing:
             break
         log(f'[profile]   training step, {label}: the profiler recorded no '
-            f'event of {missing} in step {attempt} of {PROFILE_TRIES}; '
-            f'profiling the next step')
+            f'event of {missing} in step {attempt} of {PROFILE_TRIES} '
+            f'(forward and backward: {window_note(fwd_bwd)}; update: '
+            f'{window_note(update, events=12)})')
+    if missing and fresh_process:
+        torch.cuda.empty_cache()
+        for attempt in range(1, FRESH_PROFILE_TRIES + 1):
+            log(f'[profile]   training step, {label}: profiling it in a '
+                f'fresh process ({attempt} of {FRESH_PROFILE_TRIES})')
+            child = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 '--profile-train', recipe], capture_output=True,
+                text=True, timeout=FRESH_PROFILE_TIMEOUT_S)
+            for line in child.stdout.splitlines():
+                log(f'[fresh] {line}')
+            if not child.returncode:
+                return
+            log(f'[fresh] exit {child.returncode}: {child.stderr[-2000:]}')
+        raise AssertionError(
+            f'profile: the training step ({label}) ran no device event of '
+            f'{missing} in {PROFILE_TRIES} steps here, nor in '
+            f'{FRESH_PROFILE_TRIES} fresh processes')
     _breakdown([(fwd_bwd, None), (update, 'optimizer')], step_s,
                f'training step, {label} (batch {TRAIN_BATCH} x {TRAIN_SEQ}; '
                f'wall = the step time of its phase)')
+    log(f'[profile]   forward and backward: {window_note(fwd_bwd)}; update: '
+        f'{window_note(update)}')
     log(f'[profile]   (an unprofiled step run now, after the serve '
         f'profile, took {wall_now * 1e3:.2f} ms)')
     require_kernels(fwd_bwd, step_kernels, 'training step')
@@ -3771,11 +4282,12 @@ def profile_train(step, batch, step_s: float, label: str) -> None:
         f'state at 3.35 TB/s)')
 
 
-def rung_step_s(steps: int = TRAIN_STEPS) -> tuple:
-    """(seconds per step, peak device bytes) of phase 5's rung and recipe
-    (AdamW lr 3e-4, bf16 moments), host clock over `steps` steps after
-    TRAIN_WARMUP. Uses only the port's public API, so it also times an
-    earlier tree."""
+def rung_step(recipe: str = 'bench') -> tuple:
+    """(TrainStep, 4 batches of RandomState(0)): phase 5's rung (seed 0)
+    under `recipe`: 'bench' is phase 5's optimizer (AdamW lr 3e-4, bf16
+    moments), 'pretrain' phase 5b's (`pretraining_optimizer`, bf16
+    moments, its scheduler left at step 0). Uses only the port's public
+    API, so it also builds the rung of an earlier tree."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
@@ -3783,12 +4295,22 @@ def rung_step_s(steps: int = TRAIN_STEPS) -> tuple:
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
     model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
                              generator=ptt.generator(0, DEV))
-    step = TrainStep(model, next_token_loss, AdamW(
-        learning_rate=TRAIN_LR, parameters=model.parameters(),
-        moment_dtype='bfloat16'))
+    if recipe == 'pretrain':
+        opt, _ = pretraining_optimizer(
+            model.named_parameters(), PRETRAIN_PEAK_LR, PRETRAIN_WARMUP,
+            PRETRAIN_T_MAX, start_lr=0.0, moment_dtype='bfloat16')
+    else:
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                    moment_dtype='bfloat16')
     rng = np.random.RandomState(0)
-    batches = [rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
-               for _ in range(4)]
+    return (TrainStep(model, next_token_loss, opt),
+            [rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+             for _ in range(4)])
+
+
+def rung_step_s(step, batches, steps: int = TRAIN_STEPS) -> tuple:
+    """(seconds per step, peak device bytes) of `rung_step`'s (step,
+    batches), host clock over `steps` steps after TRAIN_WARMUP."""
     for i in range(TRAIN_WARMUP):
         float(step(batches[i % 4], batches[i % 4]))
     torch.cuda.reset_peak_memory_stats()
@@ -3854,14 +4376,27 @@ def main() -> int:
         _build.build_all()
         int8_rmse_by_depth()
         return 0
+    if sys.argv[1:2] == ['--profile-train']:
+        # python3 chip_smoke.py --profile-train pretrain|bench: phase 7's
+        # training-step profile on a fresh rung of that recipe, in this
+        # process (profile_train's fallback)
+        from paddle_tpu_torch.ops import _build
+        _build.build_all()
+        step, batches = rung_step(sys.argv[2])
+        step_s, _ = rung_step_s(step, batches)
+        log(f'[profile] a fresh rung, {TRAIN_RECIPES[sys.argv[2]]}: '
+            f'{step_s * 1e3:.1f} ms/step')
+        profile_train(step, batches[0], step_s, sys.argv[2],
+                      fresh_process=False)
+        return 0
     if sys.argv[1:2] == ['--train-ms']:
-        # python3 chip_smoke.py --train-ms TREE: rung_step_s() of the port
-        # in the checkout TREE
+        # python3 chip_smoke.py --train-ms TREE: the rung's step time of
+        # the port in the checkout TREE
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
         from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.nlp import LlamaConfig
         _build.build_all()
-        dt, peak = rung_step_s()
+        dt, peak = rung_step_s(*rung_step())
         flops = train_flops_per_step(
             LlamaConfig.llama2_7b(num_hidden_layers=8), TRAIN_BATCH,
             TRAIN_SEQ)
@@ -3870,6 +4405,10 @@ def main() -> int:
             f'memory {peak / 1e9:.2f} GB in all')
         return 0
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
+    # the flight recorder's bundles (a failed request in phase 3, ...) stay
+    # inside the checkout's gitignored build directory
+    FLIGHT_ROOT.mkdir(parents=True, exist_ok=True)
+    os.environ.setdefault('PADDLE_FLIGHT_DIR', str(FLIGHT_ROOT))
     log(f'[env] torch {torch.__version__} cuda {torch.version.cuda} '
         f'device {torch.cuda.get_device_name(0)}')
     # every comparison below runs fp32 products in full fp32
@@ -3901,6 +4440,9 @@ def main() -> int:
     weights = weight_store_swap(res)
     log(f'[weight-store] phase 6g (both stores) took '
         f'{time.perf_counter() - t6g:.1f} s')
+    t6h = time.perf_counter()
+    observed = serve_observed(res)
+    log(f'[observe] phase 6h took {time.perf_counter() - t6h:.1f} s')
     prefixed = serve_prefix(res)
     int8 = serve_int8(res, prefixed)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
@@ -3911,10 +4453,10 @@ def main() -> int:
     profile_spec(spec)
     del spec['model'], spec['draft']
     profile_train(pretrained['step'], trained['batch'],
-                  pretrained['step_s'], 'Llama 2 pretraining optimizer')
+                  pretrained['step_s'], 'pretrain')
     pretrained['step'].optimizer._slots.clear()
     profile_train(trained['step'], trained['batch'], trained['step_s'],
-                  'bench optimizer')
+                  'bench')
     release(trained, pretrained)
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)

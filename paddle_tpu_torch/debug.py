@@ -1,0 +1,240 @@
+"""The observability report (counterpart of `observability_summary` in
+`paddle_tpu/debug.py`).
+
+`observability_summary()` is one report over the shared registry: the
+serving engine's traffic (requests, queue, slots, tokens, TTFT/TPOT,
+prefills, decode steps, the prefix cache, chunked prefill and
+speculation), the adapter bank, retries, checkpoints, the goodput
+ledger, the request ledger's closure and the hottest host spans with
+the event log's drops. It is what the HTTP server's /summary renders
+(`as_dict=True` for ?format=json) and what a flight bundle's
+`summary.txt` holds. The sections and keys are the JAX report's; the
+sections the port has no source for yet (dispatch, jit, collectives,
+offload, steps, memory, router, elastic, roofline, programs, the
+program store) are left out, and `adapters` and `requests` are the
+port's own.
+"""
+from __future__ import annotations
+
+from . import observability as _obs
+
+
+def _observability_data(max_rows: int = 10) -> dict:
+    """The machine-readable structure behind observability_summary():
+    one JSON-able dict per section, read off the same registry snapshot
+    the text report formats."""
+    reg = _obs.get_registry()
+    snap = reg.snapshot()   # runs the collectors first
+    spans = reg.get('paddle_span_seconds')
+    span_rows = []
+    if spans is not None:
+        for key, child in sorted(spans.children(),
+                                 key=lambda kv: -kv[1].sum)[:max_rows]:
+            span_rows.append({
+                'name': key[0], 'calls': child.count,
+                'total_s': child.sum,
+                'avg_ms': (child.sum / child.count * 1e3
+                           if child.count else 0.0)})
+    log = _obs.get_event_log()
+    closure = _obs.get_request_ledger().report(top=0)['closure']
+    return {
+        'process_index': snap['process_index'],
+        'resilience': {
+            'retries': int(_labeled_total(
+                reg, 'paddle_resilience_retries_total')),
+            'rollbacks': int(reg.value(
+                'paddle_resilience_rollbacks_total')),
+            'skipped_batches': int(reg.value(
+                'paddle_resilience_skipped_batches_total')),
+            'preempt_saves': int(reg.value(
+                'paddle_resilience_preempt_saves_total')),
+            'hangs': int(reg.value('paddle_resilience_hangs_total'))},
+        'checkpoints': {
+            'saves': int(reg.value('paddle_checkpoint_saves_total')),
+            'save_bytes': int(reg.value(
+                'paddle_checkpoint_save_bytes_total')),
+            'restores': int(reg.value('paddle_checkpoint_restores_total')),
+            'restore_bytes': int(reg.value(
+                'paddle_checkpoint_restore_bytes_total'))},
+        'serving': {
+            'submitted': int(reg.value('paddle_serving_requests_total',
+                                       status='submitted')),
+            'completed': int(reg.value('paddle_serving_requests_total',
+                                       status='completed')),
+            'failed': int(reg.value('paddle_serving_requests_total',
+                                    status='failed')),
+            'queue_depth': int(reg.value('paddle_serving_queue_depth')),
+            'active_slots': int(reg.value('paddle_serving_active_slots')),
+            'slots': int(reg.value('paddle_serving_slots')),
+            'tokens': int(reg.value('paddle_serving_tokens_total')),
+            'ttft_avg_ms': _hist_avg_ms(reg, 'paddle_serving_ttft_seconds'),
+            'tpot_avg_ms': _hist_avg_ms(reg, 'paddle_serving_tpot_seconds'),
+            'ttft_quantiles_ms': _hist_quantiles_ms(
+                reg, 'paddle_serving_ttft_seconds'),
+            'tpot_quantiles_ms': _hist_quantiles_ms(
+                reg, 'paddle_serving_tpot_seconds'),
+            'prefills': int(_labeled_total(
+                reg, 'paddle_serving_prefills_total')),
+            'decode_steps': int(reg.value(
+                'paddle_serving_decode_steps_total')),
+            'prefix': {
+                'hits': int(reg.value(
+                    'paddle_serving_prefix_hits_total')),
+                'misses': int(reg.value(
+                    'paddle_serving_prefix_misses_total')),
+                'tokens_reused': int(reg.value(
+                    'paddle_serving_prefix_tokens_reused_total')),
+                'retained_slots': int(reg.value(
+                    'paddle_serving_prefix_retained_slots')),
+                'evictions': int(reg.value(
+                    'paddle_serving_prefix_evictions_total'))},
+            'chunk': {
+                'rounds': int(reg.value(
+                    'paddle_serving_chunk_rounds_total')),
+                'tokens': int(reg.value(
+                    'paddle_serving_chunk_tokens_total'))},
+            'spec': {
+                'rounds': int(reg.value(
+                    'paddle_serving_spec_rounds_total')),
+                'proposed': int(reg.value(
+                    'paddle_serving_spec_proposed_total')),
+                'accepted': int(reg.value(
+                    'paddle_serving_spec_accepted_total'))}},
+        'adapters': {
+            'loads': int(reg.value('paddle_adapter_loads_total')),
+            'evictions': int(reg.value('paddle_adapter_evictions_total')),
+            'pinned': int(reg.value('paddle_adapter_pinned')),
+            'requests': int(_labeled_total(
+                reg, 'paddle_adapter_requests_total'))},
+        'goodput': _obs.get_ledger().report(),
+        'requests': closure,
+        'spans': span_rows,
+        'events': {'logged': len(log), 'dropped': log.dropped,
+                   'flight_dumps': int(_labeled_total(
+                       reg, 'paddle_flight_dumps_total'))},
+    }
+
+
+def observability_summary(max_rows: int = 10, as_dict: bool = False):
+    """One report over the shared observability registry: where this
+    process's requests, tokens and seconds went.
+
+    Sections always print (zeros included) so tooling can grep fields.
+    `as_dict=True` returns the machine-readable structure backing the
+    text (the /summary?format=json payload); both views are rendered
+    from the SAME snapshot so their headline counters always agree.
+    """
+    d = _observability_data(max_rows)
+    if as_dict:
+        return d
+    lines = [f'observability summary (process {d["process_index"]})']
+    rs = d['resilience']
+    lines.append(
+        f'  resilience: {rs["retries"]} retries  '
+        f'{rs["rollbacks"]} rollbacks  '
+        f'{rs["skipped_batches"]} skipped batches  '
+        f'{rs["preempt_saves"]} preempt saves  '
+        f'{rs["hangs"]} hangs')
+    ck = d['checkpoints']
+    lines.append(
+        f'  checkpoints: {ck["saves"]} saves ({ck["save_bytes"]} bytes)  '
+        f'{ck["restores"]} restores ({ck["restore_bytes"]} bytes)')
+    sv = d['serving']
+    lines.append(
+        f'  serving: {sv["submitted"]} requests '
+        f'({sv["completed"]} done, {sv["failed"]} failed)  '
+        f'queue {sv["queue_depth"]}  '
+        f'slots {sv["active_slots"]}/{sv["slots"]}  '
+        f'{sv["tokens"]} tokens')
+    lines.append(
+        f'    ttft avg {sv["ttft_avg_ms"]:.2f} ms  '
+        f'tpot avg {sv["tpot_avg_ms"]:.2f} ms  '
+        f'{sv["prefills"]} prefills  '
+        f'{sv["decode_steps"]} decode steps')
+    if sv['ttft_quantiles_ms']:
+        ttft_q = '  '.join(f'p{float(q) * 100:g} {v:.2f}'
+                           for q, v in sorted(
+                               sv['ttft_quantiles_ms'].items(),
+                               key=lambda kv: float(kv[0])))
+        tpot_q = '  '.join(f'p{float(q) * 100:g} {v:.2f}'
+                           for q, v in sorted(
+                               sv['tpot_quantiles_ms'].items(),
+                               key=lambda kv: float(kv[0])))
+        lines.append(f'    ttft ms: {ttft_q}'
+                     + (f'  |  tpot ms: {tpot_q}' if tpot_q else ''))
+    px, chk, spc = sv['prefix'], sv['chunk'], sv['spec']
+    hit_rate = (px['hits'] / (px['hits'] + px['misses'])
+                if px['hits'] + px['misses'] else 0.0)
+    lines.append(
+        f'    prefix cache: {px["hits"]} hits / {px["misses"]} misses '
+        f'({hit_rate:.1%})  {px["tokens_reused"]} tokens reused  '
+        f'{px["retained_slots"]} retained  {px["evictions"]} evicted')
+    spec_rate = (spc['accepted'] / spc['proposed']
+                 if spc['proposed'] else 0.0)
+    lines.append(
+        f'    chunked prefill: {chk["rounds"]} rounds '
+        f'{chk["tokens"]} tokens  |  speculation: {spc["rounds"]} '
+        f'rounds  accept {spc["accepted"]}/{spc["proposed"]} '
+        f'({spec_rate:.1%})')
+    ad = d['adapters']
+    lines.append(
+        f'  adapters: {ad["loads"]} loads  {ad["evictions"]} evictions  '
+        f'{ad["pinned"]} pinned  {ad["requests"]} requests')
+    gp = d['goodput']
+    lines.append(
+        f'  goodput: {gp["wall_seconds"]:.1f} s wall  '
+        f'{gp["attributed_seconds"]:.1f} s attributed  '
+        f'residual {gp["fractions"]["residual"]:.1%}'
+        + (f'  (+{gp["overcount_seconds"]:.1f} s concurrent overcount)'
+           if gp['overcount_seconds'] > 0 else ''))
+    for cat, secs in gp['categories'].items():
+        if secs > 0:
+            lines.append(f'    {cat:<20}{secs:>10.3f} s '
+                         f'{gp["fractions"][cat]:>7.1%}')
+    rq = d['requests']
+    lines.append(
+        f'  requests: {rq["finished"]} finished  '
+        f'{rq["attributed_s"]:.3f} s attributed  '
+        f'{rq["residual_s"]:.3f} s residual  '
+        f'decode fair {rq["decode_fair_s"]:.3f} s of '
+        f'{rq["engine_decode_wall_s"]:.3f} s engine decode  '
+        f'{rq["slow_requests"]} slow')
+    lines.append(f'  host spans: {len(d["spans"])} region(s), '
+                 f'event log {d["events"]["logged"]} events '
+                 f'({d["events"]["dropped"]} dropped, '
+                 f'{d["events"]["flight_dumps"]} flight dumps)')
+    for row in d['spans']:
+        lines.append(f'    {row["name"]:<32} {row["calls"]:>6} calls '
+                     f'{row["total_s"]:>10.4f} s  avg '
+                     f'{row["avg_ms"]:>8.2f} ms')
+    return '\n'.join(lines)
+
+
+def _labeled_total(reg, name: str) -> float:
+    """Sum a labeled counter family across all label values."""
+    fam = reg.get(name)
+    if fam is None:
+        return 0.0
+    return fam.total()
+
+
+def _hist_avg_ms(reg, name: str) -> float:
+    """Mean of an unlabeled histogram family, in milliseconds."""
+    fam = reg.get(name)
+    if fam is None:
+        return 0.0
+    child = fam._children.get(())
+    if child is None or not child.count:
+        return 0.0
+    return child.sum / child.count * 1e3
+
+
+def _hist_quantiles_ms(reg, name: str) -> dict:
+    """Windowed p50/p95/p99 of an unlabeled histogram, in ms."""
+    fam = reg.get(name)
+    if fam is None:
+        return {}
+    child = fam._children.get(())
+    if child is None:
+        return {}
+    return {q: v * 1e3 for q, v in child.window_quantiles().items()}

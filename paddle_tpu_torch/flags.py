@@ -4,7 +4,11 @@ paddle/phi/core/flags.cc, paddle.get_flags).
 A copy of the JAX package's dict-backed registry with the same names,
 defaults and getter/setter API. In the port the fault-tolerance flags are
 read by `resilience/retry.py` (`FLAGS_ft_max_retries` and the backoff
-delays); the others are kept for API parity.
+delays), `FLAGS_observability` gates the metrics, events and spans of
+`observability/` and `FLAGS_concurrency_sanitizer` sets the mode of
+`analysis/runtime/concurrency.py` (both registered below, so an env var
+of the same name sets them, as in the JAX package); the others are kept
+for API parity.
 """
 from __future__ import annotations
 
@@ -91,3 +95,9 @@ def register_flag(name: str, default: Any) -> None:
 def flag(name: str) -> Any:
     """Internal fast-path getter."""
     return _FLAGS[_canon(name)]
+
+
+# the observability gate (observability/metrics.py) and the concurrency
+# sanitizer's mode ('off' | 'report' | 'strict')
+register_flag('FLAGS_observability', True)
+register_flag('FLAGS_concurrency_sanitizer', 'off')

@@ -1,0 +1,76 @@
+"""paddle_tpu_torch.observability: the metrics + tracing layer
+(counterpart of `paddle_tpu/observability`).
+
+One process-wide `MetricsRegistry` (labeled Counter/Gauge/Histogram),
+one bounded `EventLog` of real-timestamped spans/events, the exporters
+(Prometheus text, JSONL, chrome trace), the goodput ledger (every
+wall-clock second), the per-request ledger (every millisecond of a
+request), the always-on flight recorder (a postmortem bundle per
+anomaly) and the HTTP endpoint (`start_server`: /metrics, /healthz,
+/summary, /events, /trace, /goodput, /requests). The serving engine,
+scheduler, prefix cache, adapter bank, weight store, checkpoints and
+retries report here under the JAX package's names, labels and HELP
+texts, so the same dashboards and tests read both packages.
+
+Everything is pure Python and imports nothing of JAX. Not here yet
+(ROADMAP.md, Queue 1): the program catalog and step telemetry
+(`cost.py`, `telemetry.py`), and the fleet plane (`wire.py`,
+`shipper.py`, `aggregator.py`, `slo.py`).
+
+`install()` runs at import: the flight recorder, the goodput ledger and
+the request ledger's scrape-time collector hook the default event log
+and registry. All hooks are no-ops while observability is disabled
+(`disable()` / `FLAGS_observability`).
+"""
+from __future__ import annotations
+
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      DEFAULT_BUCKETS, QUANTILES, SlidingWindow,
+                      count_suppressed, enable, enabled, disable,
+                      get_registry, process_uid)
+from .events import (EVENT_SCHEMA, EventLog, Span, declare_event, emit,
+                     get_event_log, span)
+from .exporters import (chrome_track_metadata, read_jsonl,
+                        to_chrome_trace, to_jsonl, to_prometheus_text)
+from .goodput import (CATEGORIES as GOODPUT_CATEGORIES, GoodputLedger,
+                      get_ledger)
+from .reqledger import (BLOCKED_REASONS, PHASES as REQUEST_PHASES,
+                        RequestLedger, RequestRecord,
+                        get_ledger as get_request_ledger)
+from .flight import FlightRecorder, get_flight_recorder
+from .server import (ObservabilityServer, clear_degraded, degraded_states,
+                     hang_suspected, health, note_degraded, note_progress,
+                     note_weight_version, start_server, weight_versions)
+from . import flight as _flight
+from . import goodput as _goodput
+from . import reqledger as _reqledger
+
+__all__ = [
+    'Counter', 'Gauge', 'Histogram', 'MetricsRegistry', 'DEFAULT_BUCKETS',
+    'QUANTILES', 'SlidingWindow', 'count_suppressed',
+    'enable', 'enabled', 'disable', 'get_registry', 'process_uid',
+    'EVENT_SCHEMA', 'EventLog', 'Span', 'declare_event', 'emit',
+    'get_event_log', 'span',
+    'read_jsonl', 'to_chrome_trace', 'to_jsonl', 'to_prometheus_text',
+    'chrome_track_metadata',
+    'GOODPUT_CATEGORIES', 'GoodputLedger', 'get_ledger',
+    'BLOCKED_REASONS', 'REQUEST_PHASES', 'RequestLedger',
+    'RequestRecord', 'get_request_ledger',
+    'FlightRecorder', 'get_flight_recorder',
+    'ObservabilityServer', 'clear_degraded', 'degraded_states',
+    'hang_suspected', 'health', 'install', 'note_degraded',
+    'note_progress', 'note_weight_version', 'start_server',
+    'weight_versions',
+]
+
+
+def install():
+    """Idempotent: hook the always-on flight recorder and goodput ledger
+    on the default event log and register the goodput and request
+    ledgers' scrape-time collectors (runs at package import)."""
+    _flight.install()
+    _goodput.install()
+    _reqledger.install()
+
+
+install()

@@ -1,6 +1,6 @@
 """Preemption handling: SIGTERM/SIGINT -> a "drain and exit cleanly" flag
-(counterpart of `paddle_tpu/resilience/preemption.py`, without its
-observability events: the port has no observability layer yet).
+(counterpart of `paddle_tpu/resilience/preemption.py`). A caught signal
+emits `preemption_signal`.
 
 Spot and preemptible fleets deliver eviction as a signal with a grace
 window. The handler only *flags*; the serving engine polls `requested`
@@ -15,6 +15,8 @@ from __future__ import annotations
 import signal
 import threading
 from typing import Callable, Optional, Sequence
+
+from .. import observability as _obs
 
 
 class PreemptionHandler:
@@ -54,6 +56,7 @@ class PreemptionHandler:
             raise KeyboardInterrupt
         self._requested = True
         self._signum = signum
+        _obs.emit('preemption_signal', signum=int(signum))
         if self.callback is not None:
             self.callback(signum)
 

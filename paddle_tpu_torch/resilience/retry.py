@@ -19,11 +19,10 @@ once. This module is the one place that judgment lives:
 - `RetryPolicy`: max_retries / exponential backoff / jitter, defaulting
   from the FLAGS_ft_* registry (`flags.py`).
 - `retry(policy, site)` and `call_with_retry(fn, ...)`: the wrappers
-  around checkpoint and weight-store I/O.
-
-Not ported yet (ROADMAP.md, Queue 1, item 2): the JAX module's retry
-notes (the `paddle_resilience_retries_total{site}` counter, the `retry`
-event) and the `resilience.backoff` span around each sleep.
+  around checkpoint and weight-store I/O. Every retry increments
+  `paddle_resilience_retries_total{site}` and emits a `retry` event, and
+  each backoff sleep runs in a `resilience.backoff` span (the goodput
+  ledger's `retry_backoff`), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -34,6 +33,7 @@ import time
 from typing import Any, Callable, Optional, Tuple, Type
 
 from .. import flags as _flags
+from .. import observability as _obs
 
 
 class TransientError(RuntimeError):
@@ -194,12 +194,22 @@ class RetryPolicy:
         return self.classify(exc)
 
 
+def _note_retry(site: str, attempt: int, exc: BaseException, delay: float):
+    if not _obs.enabled():
+        return
+    _obs.get_registry().counter(
+        'paddle_resilience_retries_total',
+        'transient-error retries by call site',
+        ('site',)).labels(site=site).inc()
+    _obs.emit('retry', site=site, attempt=attempt,
+              error=type(exc).__name__, delay_s=round(delay, 4))
+
+
 def call_with_retry(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
                     site: str = 'generic', **kwargs) -> Any:
     """Run `fn(*args, **kwargs)`, re-attempting transient failures per
     `policy`. Fatal errors and exhausted budgets re-raise the original
-    exception unchanged. `site` names the call site (the JAX package
-    labels its retry notes with it)."""
+    exception unchanged. `site` labels the retry's counter and event."""
     policy = policy or RetryPolicy()
     attempt = 0
     while True:
@@ -209,8 +219,13 @@ def call_with_retry(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
             if attempt >= policy.max_retries or not policy.retryable(exc):
                 raise
             d = policy.delay(attempt)
+            _note_retry(site, attempt, exc, d)
             if d > 0:
-                policy.sleep(d)
+                # spanned so the goodput ledger books backoff sleeps as
+                # `retry_backoff`, not unattributed residual
+                with _obs.span('resilience.backoff', site=site,
+                               attempt=attempt):
+                    policy.sleep(d)
             attempt += 1
 
 

@@ -27,9 +27,12 @@ captured again across any sequence of loads, hot loads, evictions and
 quarantines. A store load copies into its slot on the current stream
 between engine rounds, from host arrays (a blocking copy).
 
-Not ported yet (ROADMAP.md, Queue 1, item 2): the adapter metrics and
-the `adapter_publish` / `adapter_load` / `adapter_load_reject` /
-`adapter_evict` events.
+Observability (the JAX bank's): `paddle_adapter_loads_total`,
+`paddle_adapter_evictions_total`, the `paddle_adapter_pinned` gauge and
+`paddle_adapter_requests_total{adapter}`, and the events
+`adapter_publish`, `adapter_load`, `adapter_load_reject` (a quarantined
+version) and `adapter_evict`. The engine emits `adapter_bank_saturated`
+when a pin finds every slot pinned and the request is requeued.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ... import dtype as _dtype
+from ... import observability as _obs
 from ...ops import kernels
 from ..hotswap import WeightLoadError, WeightStore
 from . import apply as _apply
@@ -133,6 +137,19 @@ class AdapterBank:
         self._by_key: Dict[str, int] = {}                 # id -> slot
         self._stores: Dict[str, WeightStore] = {}
         self._tick = 0
+        reg = _obs.get_registry()
+        self._m_loads = reg.counter(
+            'paddle_adapter_loads_total',
+            'adapters loaded into a bank slot (fresh or hot-swap)')
+        self._m_evict = reg.counter(
+            'paddle_adapter_evictions_total',
+            'zero-ref adapter slots reclaimed by LRU eviction')
+        self._m_pinned = reg.gauge(
+            'paddle_adapter_pinned',
+            'bank slots currently pinned by in-flight requests')
+        self._m_requests = reg.counter(
+            'paddle_adapter_requests_total',
+            'requests admitted per adapter', ('adapter',))
 
     # -- model tagging ------------------------------------------------------
 
@@ -209,6 +226,9 @@ class AdapterBank:
         self._refs[slot] += 1
         self._tick += 1
         self._lru[slot] = self._tick
+        if _obs.enabled():
+            self._m_requests.labels(adapter=adapter_id).inc()
+            self._m_pinned.set(self._pinned_count())
         return slot, self._versions[slot]
 
     def unpin(self, slot: int):
@@ -217,6 +237,8 @@ class AdapterBank:
         if self._refs[slot] <= 0:
             raise RuntimeError(f'unpin of unpinned bank slot {slot}')
         self._refs[slot] -= 1
+        if _obs.enabled():
+            self._m_pinned.set(self._pinned_count())
 
     def _pinned_count(self) -> int:
         return sum(1 for s in range(1, self.capacity + 1)
@@ -236,6 +258,10 @@ class AdapterBank:
                 transient=True)
         victim = min(victims, key=lambda s: self._lru[s])
         old = self._keys[victim]
+        _obs.emit('adapter_evict', adapter=old, slot=victim,
+                  version=self._versions[victim])
+        if _obs.enabled():
+            self._m_evict.inc()
         if old is not None and self._by_key.get(old) == victim:
             del self._by_key[old]
         self._keys[victim] = None
@@ -275,7 +301,9 @@ class AdapterBank:
         m = dict(meta or {})
         m['adapter'] = adapter_id
         m['alpha'] = float(self.rank if alpha is None else alpha)
-        return store.publish(flat, meta=m)
+        version = store.publish(flat, meta=m)
+        _obs.emit('adapter_publish', adapter=adapter_id, version=version)
+        return version
 
     def _store(self, adapter_id: str,
                create: bool = False) -> Optional[WeightStore]:
@@ -305,6 +333,8 @@ class AdapterBank:
             factors = self._unflatten(adapter_id, flat)
         except (WeightLoadError, ValueError, KeyError) as e:
             store.quarantine(version, f'adapter load failed: {e}')
+            _obs.emit('adapter_load_reject', adapter=adapter_id,
+                      version=version, reason=str(e)[:200])
             return None
         slot = self._alloc_slot(adapter_id)
         alpha = meta.get('alpha')
@@ -362,6 +392,10 @@ class AdapterBank:
         self._by_key[adapter_id] = slot
         self._tick += 1
         self._lru[slot] = self._tick
+        if _obs.enabled():
+            self._m_loads.inc()
+        _obs.emit('adapter_load', adapter=adapter_id, slot=slot,
+                  version=int(version))
 
     # -- introspection ---------------------------------------------------------
 

@@ -7,13 +7,18 @@ OSDI'22), so the unit of user interaction is a `RequestHandle` — a live
 view of one request's tokens/status that the caller can poll, `stream()`
 per token, or block on with `result()`. `SamplingParams` is plain data;
 the engine lowers it into per-slot tensors so one decode round serves
-heterogeneous requests.
+heterogeneous requests. A handle's `request_id` is its `trace_id`: the
+engine threads it through the request's spans and events, and its
+request-ledger record (`_ledger_rec`) marks the first token and closes
+when the request finishes or fails.
 """
 from __future__ import annotations
 
 import itertools
 import time
 from typing import List, Optional
+
+from ..observability import reqledger as _reqledger
 
 GREEDY = 'greedy_search'
 SAMPLING = 'sampling'
@@ -114,21 +119,40 @@ class RequestHandle:
         self._t_submit = time.perf_counter()
         self._t_first: Optional[float] = None
         self._t_done: Optional[float] = None
+        # the open `serving.queue` span (submit to admission), and the
+        # request-ledger record (observability.reqledger; None while the
+        # ledger is off), owned by the thread driving the engine
+        self._queue_span = None
+        self._ledger_rec = None
+
+    @property
+    def trace_id(self) -> int:
+        """The id threaded through this request's spans/events in the
+        observability trace view."""
+        return self.request_id
 
     # -- engine-side transitions -------------------------------------------
     def _emit(self, token: int, now: float):
         if self._t_first is None:
             self._t_first = now
+            if self._ledger_rec is not None:
+                self._ledger_rec.mark_first(now)
         self.tokens.append(int(token))
 
     def _finish(self, now: Optional[float] = None):
         self.status = FINISHED
         self._t_done = time.perf_counter() if now is None else now
+        if self._ledger_rec is not None:
+            _reqledger.get_ledger().finalize(self, now=self._t_done,
+                                             outcome='completed')
 
     def _fail(self, exc: BaseException):
         self.status = FAILED
         self.error = exc
         self._t_done = time.perf_counter()
+        if self._ledger_rec is not None:
+            _reqledger.get_ledger().finalize(self, now=self._t_done,
+                                             outcome='failed')
 
     # -- user-side views ---------------------------------------------------
     @property

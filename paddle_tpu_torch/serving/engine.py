@@ -104,6 +104,39 @@ sub-step runs inside `adapter_scope` over the bank's tensors and those
 rows, and each prefill or chunk inside a scope over its step's static
 row, staged with the slot's, so one batch mixes base and adapted
 requests.
+
+Observability, hooked where the JAX paged engine hooks its own and under
+its names (`observability/`):
+- metrics: `paddle_serving_requests_total{status}` (submitted,
+  rejected, completed, failed), `_tokens_total`, `_prefills_total
+  {bucket}`, `_prefill_tokens_total`, `_decode_steps_total`,
+  `_decode_rounds_total`, `_chunk_rounds_total`, `_chunk_tokens_total`,
+  `_spec_rounds_total`, `_spec_proposed_total`, `_spec_accepted_total`,
+  `paddle_spec_*{source="engine"}`, the `_slots` / `_active_slots`
+  gauges, the `_slot_occupancy` histogram per round and the TTFT/TPOT
+  histograms; `paddle_weight_version{scope}` after a swap;
+- spans: `serving.queue` (submit to admission), `serving.prefill`,
+  `serving.prefill_chunk`, `serving.draft_prefill`,
+  `serving.decode_round` / `serving.spec_round` and `serving.drain`.
+  A round's span holds its token fetch, which waits for the device (a
+  graph replay returns at launch), and a prefill's span its device
+  sync, so the goodput ledger's `serving_decode` and `serving_prefill`
+  hold device time, not the residual;
+- events: `serving_request_failed`, `page_pool_exhausted`,
+  `adapter_bank_saturated`, `paged_cow`, `prefix_hit`,
+  `serving_drain_begin`, `serving_drain_complete`;
+- the request ledger: a record per request opened at `submit`, its
+  queue wait sampled by reason at each requeue (`pool_exhausted`,
+  `adapter_pinned`), its prefix lookup, admission, prefill and
+  prefill-wait, and each round's wall in both books (`note_round`);
+- `/healthz`: `note_degraded('draining', scope=obs_scope)` from the
+  drain's start (cleared by the caller, `clear_degraded`), a `decode`
+  progress beat per round, and the weight version per scope.
+Every gauge reads host state (the host page table, `_active`,
+`pool.occupancy`); nothing reads a device tensor for a metric. The JAX
+event `serving_pool_recovered` has no counterpart: it follows a failed
+donated program, whose pool rows the JAX engine rebuilds; in the port a
+failed capture or replay is fatal to the engine (`GraphError`).
 """
 from __future__ import annotations
 
@@ -114,7 +147,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..nlp.generation import cached_forward
+from ..observability import reqledger as _reqledger
 from ..framework import generator as _generator
 from ..resilience.retry import is_cuda_error
 from .adapters.bank import AdapterUnavailable
@@ -125,6 +160,8 @@ from .prefill_graph import PrefillStep
 from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .scheduler import FCFSScheduler
 
+# occupancy is a ratio; the latency-shaped default buckets are wrong here
+_OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 def _host_tensor(value) -> torch.Tensor:
     """A published weight (a tensor, a numpy array or anything
@@ -279,6 +316,10 @@ class InferenceEngine:
         self._drain_t0 = 0.0
         self._drain_deadline_s: Optional[float] = None
         self._preempt = None
+        # observability scope of the degraded-state and weight-version
+        # notes: None = the whole process; a router tags each replica's
+        # engine 'replica:N'
+        self.obs_scope: Optional[str] = None
         # slot -> [handle, prefill cursor]: slots mid-chunked-prefill
         # (inactive for decode until the cursor reaches the prompt end)
         self._prefilling: dict = {}
@@ -326,6 +367,69 @@ class InferenceEngine:
         # chip_smoke.py)
         self._capture_decode = self.device.type == 'cuda'
         self._capture_prefill = self.device.type == 'cuda'
+        self._init_metrics()
+
+    def _init_metrics(self):
+        """The JAX engine's metric families (engine.py `_init_metrics`)."""
+        reg = _obs.get_registry()
+        self._m_requests = reg.counter(
+            'paddle_serving_requests_total',
+            'serving requests by lifecycle event', ('status',))
+        self._m_tokens = reg.counter(
+            'paddle_serving_tokens_total', 'generated tokens')
+        self._m_prefills = reg.counter(
+            'paddle_serving_prefills_total', 'prefills by length bucket',
+            ('bucket',))
+        self._m_prefill_tokens = reg.counter(
+            'paddle_serving_prefill_tokens_total',
+            'real (unpadded) prompt tokens prefilled')
+        self._m_decode_steps = reg.counter(
+            'paddle_serving_decode_steps_total',
+            'single-token decode sub-steps executed')
+        self._m_rounds = reg.counter(
+            'paddle_serving_decode_rounds_total',
+            'compiled decode-block invocations')
+        self._m_slots = reg.gauge(
+            'paddle_serving_slots', 'KV slot capacity')
+        self._m_active = reg.gauge(
+            'paddle_serving_active_slots', 'slots currently decoding')
+        self._m_occupancy = reg.histogram(
+            'paddle_serving_slot_occupancy',
+            'occupied-slot fraction per decode round',
+            buckets=_OCCUPANCY_BUCKETS)
+        self._m_ttft = reg.histogram(
+            'paddle_serving_ttft_seconds',
+            'submit -> first token latency')
+        self._m_tpot = reg.histogram(
+            'paddle_serving_tpot_seconds',
+            'mean inter-token latency per finished request')
+        self._m_chunk_rounds = reg.counter(
+            'paddle_serving_chunk_rounds_total',
+            'chunked-prefill rounds executed')
+        self._m_chunk_tokens = reg.counter(
+            'paddle_serving_chunk_tokens_total',
+            'prompt tokens prefilled via chunk rounds')
+        self._m_spec_rounds = reg.counter(
+            'paddle_serving_spec_rounds_total',
+            'speculation rounds (draft + verify) executed')
+        self._m_spec_proposed = reg.counter(
+            'paddle_serving_spec_proposed_total',
+            'draft tokens proposed to the verifier')
+        self._m_spec_accepted = reg.counter(
+            'paddle_serving_spec_accepted_total',
+            'draft tokens accepted by the verifier')
+        # the paddle_spec_* family, labeled by source
+        self._m_spec_shared = reg.counter(
+            'paddle_spec_rounds_total',
+            'speculative-decode rounds by source', ('source',))
+        self._m_spec_shared_prop = reg.counter(
+            'paddle_spec_proposed_drafts_total',
+            'draft tokens proposed by source', ('source',))
+        self._m_spec_shared_acc = reg.counter(
+            'paddle_spec_accepted_drafts_total',
+            'draft tokens accepted by source', ('source',))
+        if _obs.enabled():
+            self._m_slots.set(self.pool.num_slots)
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -371,6 +475,8 @@ class InferenceEngine:
                                 'version')
         self._check_drain()
         if self._draining:
+            if _obs.enabled():
+                self._m_requests.labels(status='rejected').inc()
             raise RuntimeError(
                 'engine is draining (preemption signal received): not '
                 'admitting new requests')
@@ -392,6 +498,16 @@ class InferenceEngine:
         h._eos = int(self.eos_token_id if params.eos_token_id is None
                      else params.eos_token_id)
         self._counts['submitted'] += 1
+        if _obs.enabled():
+            self._m_requests.labels(status='submitted').inc()
+            # queue span: begins now, ends at admission; request_id is
+            # the trace id every span and event of the request carries
+            h._queue_span = _obs.Span('serving.queue',
+                                      request_id=h.request_id).begin()
+        if _reqledger.enabled():
+            rec = _reqledger.get_ledger().open_for(h)
+            if rec is not None:
+                rec.queue_enter(h._t_submit, 'priority_queued')
         self.scheduler.submit(h)
         return h
 
@@ -421,7 +537,20 @@ class InferenceEngine:
             toks, counts = self._decode_round(), None
         now = time.perf_counter()
         self._seconds['decode'] += now - t0
+        # the ledger before the emission loop, so the round that produced
+        # a request's first token lands in its TTFT sub-book (mark_first
+        # fires in _emit): every active participant waited the round's
+        # whole wall (waterfall), and the wall splits evenly (fair share)
+        _reqledger.get_ledger().note_round(
+            now - t0, [h._ledger_rec for slot, h in self._slot_req.items()
+                       if self._active[slot]],
+            'spec_verify' if self.draft_model is not None else 'decode',
+            now=now, absorb=True)
         self._counts['decode_rounds'] += 1
+        if _obs.enabled():
+            self._m_rounds.inc()
+            self._m_occupancy.observe(self.pool.occupancy)
+            self._m_tokens.inc(0)   # the family exists even idle
         for slot, h in list(self._slot_req.items()):
             if not self._active[slot]:
                 continue            # mid-chunked-prefill: no tokens yet
@@ -429,8 +558,16 @@ class InferenceEngine:
             if counts is not None and self._greedy[slot]:
                 self._counts['spec_proposed'] += self.spec_k
                 self._counts['spec_accepted'] += c - 1
+                if _obs.enabled():
+                    self._m_spec_proposed.inc(self.spec_k)
+                    self._m_spec_accepted.inc(c - 1)
+                    self._m_spec_shared_prop.labels(
+                        source='engine').inc(self.spec_k)
+                    self._m_spec_shared_acc.labels(
+                        source='engine').inc(c - 1)
             done = False
             emitted = 0
+            first = not h.tokens
             for j in range(c):
                 t = int(toks[slot, j])
                 h._emit(t, now)
@@ -439,6 +576,10 @@ class InferenceEngine:
                     done = True
                     break
             self._counts['tokens'] += emitted
+            if _obs.enabled():
+                self._m_tokens.inc(emitted)
+                if first:
+                    self._m_ttft.observe(h.ttft)
             if done:
                 self._retire(slot, h, now)
             else:
@@ -449,24 +590,40 @@ class InferenceEngine:
 
     def _decode_round(self) -> np.ndarray:
         """`decode_block` paged sub-steps over every slot; returns the
-        [num_slots, decode_block] tokens (the fetch waits for the
-        round)."""
-        with torch.inference_mode():
-            toks = self._queue_round().to('cpu', copy=True).numpy()
+        [num_slots, decode_block] tokens. The `serving.decode_round` span
+        holds the fetch, which waits for the round."""
+        with _obs.span('serving.decode_round',
+                       slots=len(self._slot_req),
+                       requests=[h.request_id
+                                 for h in self._slot_req.values()]):
+            with torch.inference_mode():
+                toks = self._queue_round().to('cpu', copy=True).numpy()
+        _obs.note_progress('decode')   # /healthz decode liveness beat
         self._counts['decode_steps'] += self.decode_block
+        if _obs.enabled():
+            self._m_decode_steps.inc(self.decode_block)
         return toks
 
     def _spec_round(self) -> tuple:
         """One speculation round over every slot (`SpecStep`): returns the
-        host ([num_slots, k + 1] tokens, [num_slots] accepted counts + 1)
-        (the fetch waits for the round). One verify pass: one decode
-        step."""
-        with torch.inference_mode():
-            toks, counts = self._queue_round()
-            toks = toks.to('cpu', copy=True).numpy()
-            counts = counts.to('cpu', copy=True).numpy()
+        host ([num_slots, k + 1] tokens, [num_slots] accepted counts + 1).
+        The `serving.spec_round` span holds the fetch, which waits for the
+        round. One verify pass: one decode step."""
+        with _obs.span('serving.spec_round',
+                       slots=len(self._slot_req), k=self.spec_k,
+                       requests=[h.request_id
+                                 for h in self._slot_req.values()]):
+            with torch.inference_mode():
+                toks, counts = self._queue_round()
+                toks = toks.to('cpu', copy=True).numpy()
+                counts = counts.to('cpu', copy=True).numpy()
+        _obs.note_progress('decode')
         self._counts['decode_steps'] += 1
         self._counts['spec_rounds'] += 1
+        if _obs.enabled():
+            self._m_decode_steps.inc(1)
+            self._m_spec_rounds.inc()
+            self._m_spec_shared.labels(source='engine').inc()
         return toks, counts
 
     def _queue_round(self):
@@ -572,6 +729,11 @@ class InferenceEngine:
             return
         self._draining = True
         self._drain_t0 = time.monotonic()
+        info = {'queued': self.scheduler.queue_depth,
+                'in_flight': len(self._slot_req)}
+        # /healthz is 503 from here on: the engine is leaving the pool
+        _obs.note_degraded('draining', info, scope=self.obs_scope)
+        _obs.emit('serving_drain_begin', **info)
 
     def _fail_remaining(self, exc: BaseException):
         """Fail every accepted request, queued and in flight, with `exc`
@@ -579,8 +741,12 @@ class InferenceEngine:
         for h in self.scheduler.drain():
             h._fail(exc)
             self._counts['failed'] += 1
+            if _obs.enabled():
+                self._m_requests.labels(status='failed').inc()
         for slot, h in list(self._slot_req.items()):
             self._fail_request(slot, h, exc)
+        if _obs.enabled():
+            self._m_active.set(len(self._slot_req))
 
     def evict_all(self) -> List[RequestHandle]:
         """Take every accepted request, queued and in flight, out of the
@@ -593,6 +759,12 @@ class InferenceEngine:
             self._detach_slot(slot, h)
             self.pool.free(slot)
             out.append(h)
+        for h in out:
+            if h._queue_span is not None:   # no open queue span leaks
+                h._queue_span.end()
+                h._queue_span = None
+        if _obs.enabled():
+            self._m_active.set(len(self._slot_req))
         return out
 
     def drain(self, deadline_s: Optional[float] = None) -> bool:
@@ -601,18 +773,29 @@ class InferenceEngine:
         deadline (default: `enable_graceful_drain`'s; None = no bound).
         Past the deadline the stragglers FAIL with a TimeoutError rather
         than being dropped silently. Returns True when everything
-        finished in time."""
+        finished in time. /healthz stays `draining` afterwards (the
+        process is expected to exit; `clear_degraded('draining')` takes
+        it back)."""
         if deadline_s is None:
             deadline_s = self._drain_deadline_s
         self._begin_drain()
-        while self.has_work:
-            if deadline_s is not None and \
-                    time.monotonic() - self._drain_t0 > deadline_s:
-                self._fail_remaining(TimeoutError(
-                    f'drain deadline {deadline_s}s exceeded'))
-                return False
-            self.step()
-        return True
+        timed_out = False
+        # the drain span books this window as `preemption_drain` in the
+        # goodput ledger, minus the nested decode/prefill spans, which
+        # stay productive serving time
+        with _obs.span('serving.drain'):
+            while self.has_work:
+                if deadline_s is not None and \
+                        time.monotonic() - self._drain_t0 > deadline_s:
+                    timed_out = True
+                    self._fail_remaining(TimeoutError(
+                        f'drain deadline {deadline_s}s exceeded'))
+                    break
+                self.step()
+        _obs.emit('serving_drain_complete',
+                  timed_out=timed_out,
+                  seconds=round(time.monotonic() - self._drain_t0, 3))
+        return not timed_out
 
     # ------------------------------------------------------------------
     # weight swaps (the trainer-to-serving hot swap)
@@ -701,6 +884,15 @@ class InferenceEngine:
             # no flush: entries of other versions go stale and are
             # reclaimed lazily; this version's survivors serve again
             self.prefix_cache.set_version(self.weight_version)
+        _obs.note_weight_version(self.weight_version,
+                                 scope=self.obs_scope)
+        if _obs.enabled():
+            _obs.get_registry().gauge(
+                'paddle_weight_version',
+                'live weight version per serving scope',
+                ('scope',)).labels(
+                    scope=self.obs_scope or 'engine').set(
+                        self.weight_version)
 
     # ------------------------------------------------------------------
     # admission / retirement
@@ -713,6 +905,26 @@ class InferenceEngine:
         if self.prefill_chunk_tokens:
             prompt_len = min(prompt_len, self.prefill_chunk_tokens)
         return self.pool.bucket_for(prompt_len)
+
+    def _requeue_blocked(self, handles, reason: str):
+        """Requeue `handles` at the queue front in their order (first
+        submit time kept) and sample the blocking reason into each one's
+        ledger record: the queue time since its last mark books under the
+        reason just observed, and a new interval opens."""
+        now = time.perf_counter()
+        for h in handles:
+            rec = h._ledger_rec
+            if rec is not None:
+                if rec._q_mark is None and now > rec._last_touch:
+                    # this handle reached _begin_request (queue_exit ran)
+                    # before the seat aborted: the aborted seating work
+                    # (a store load that found the bank full, the page
+                    # reservation walk) is admission time, not residual
+                    rec.add('admission', now - rec._last_touch, now=now)
+                rec.queue_block(now, reason)
+        for back in reversed(handles):
+            self.scheduler.requeue(back)
+        self._counts['requeued'] += len(handles)
 
     def _admit(self):
         admitted = self.scheduler.admissible(self.pool.free_count,
@@ -728,30 +940,35 @@ class InferenceEngine:
                     # not a failure. Requeue this handle alone at the queue
                     # front and keep admitting the rest
                     self.pool.free(slot)
-                    self.scheduler.requeue(h)
-                    self._counts['requeued'] += 1
+                    _obs.emit('adapter_bank_saturated',
+                              request_id=h.request_id,
+                              adapter_id=h.adapter_id, detail=str(exc))
+                    self._requeue_blocked([h], 'adapter_pinned')
                     continue
                 # evicted since submit, or nothing servable in its store:
                 # a request-level failure; the engine keeps serving
                 # everyone else
-                self._fail_request(slot, h, exc)
+                self._fail_request(slot, h, exc, event=True)
                 continue
-            except PagePoolExhausted:
+            except PagePoolExhausted as exc:
                 # not a failure: free the slot (which drops any attached
                 # prefix pages) and send this handle and everything
                 # behind it back to the queue front in order; pages free
                 # up as in-flight requests retire
                 self.pool.free(slot)
-                for back in reversed(admitted[idx:]):
-                    self.scheduler.requeue(back)
-                self._counts['requeued'] += len(admitted) - idx
+                _obs.emit('page_pool_exhausted', request_id=h.request_id,
+                          queued=self.scheduler.queue_depth,
+                          detail=str(exc))
+                self._requeue_blocked(admitted[idx:], 'pool_exhausted')
                 break
             except Exception as exc:
                 # a request-level failure (the JAX engine's _admit): fail
                 # this handle, keep serving everyone else
                 if _device_fault(exc):
                     raise
-                self._fail_request(slot, h, exc)
+                self._fail_request(slot, h, exc, event=True)
+        if _obs.enabled():
+            self._m_active.set(len(self._slot_req))
 
     def _prefix_ns(self, h: RequestHandle):
         """The prefix-cache namespace of this request's KV: an adapter
@@ -774,6 +991,7 @@ class InferenceEngine:
         ps = self.pool.page_size
         node, cursor = None, 0
         if self.prefix_cache is not None:
+            t_pfx = time.perf_counter()
             node, matched = self.prefix_cache.lookup(
                 h.prompt_tokens, namespace=self._prefix_ns(h))
             if node is not None:
@@ -784,6 +1002,9 @@ class InferenceEngine:
                     node = None
                 else:
                     self.prefix_cache.acquire(node)
+            if h._ledger_rec is not None:
+                t1 = time.perf_counter()
+                h._ledger_rec.add('prefix_lookup', t1 - t_pfx, now=t1)
         try:
             if node is not None:
                 self.pool.attach_prefix(slot, node.slot, cursor // ps)
@@ -795,7 +1016,9 @@ class InferenceEngine:
                 # into the last shared page; copy-on-write it first
                 while True:
                     try:
-                        self.pool.ensure_exclusive(slot, s - 1)
+                        if self.pool.ensure_exclusive(slot, s - 1):
+                            _obs.emit('paged_cow', slot=slot,
+                                      request_id=h.request_id, pos=s - 1)
                         break
                     except PagePoolExhausted:
                         if self.prefix_cache is None or \
@@ -829,6 +1052,12 @@ class InferenceEngine:
         AdapterUnavailable or PagePoolExhausted with nothing of the
         request left in the engine; `_admit` fails the request on any
         other exception (`_fail_request`)."""
+        t_adm0 = time.perf_counter()
+        rec = h._ledger_rec
+        pfx0 = 0.0
+        if rec is not None:
+            rec.queue_exit(t_adm0)   # queue_wait ends; admission begins
+            pfx0 = rec.phases['prefix_lookup']
         s = len(h.prompt_tokens)
         self._pin_adapter(slot, h)
         try:
@@ -839,11 +1068,23 @@ class InferenceEngine:
         if node is not None:
             h._prefix_node = node
             h._prefix_len = cursor
+        if h._queue_span is not None:
+            h._queue_span.end()   # admission closes the queue span
+            h._queue_span = None
         self._slot_req[slot] = h
         h.status = RUNNING
         # stamped once, here: a swap needs a drained engine, so every
         # token of this request decodes under this version
         h.weight_version = self.weight_version
+        if rec is not None:
+            # admission = seating work since queue exit, minus the
+            # prefix-lookup seconds already booked inside this window
+            t1 = time.perf_counter()
+            rec.add('admission', (t1 - t_adm0)
+                    - (rec.phases['prefix_lookup'] - pfx0), now=t1)
+        if node is not None:
+            _obs.emit('prefix_hit', request_id=h.request_id,
+                      matched=h._prefix_len, prompt_len=s, slot=slot)
         if cursor >= s:
             # full hit: the pages are shared already; the first decode
             # round re-forwards the last prompt token
@@ -919,12 +1160,27 @@ class InferenceEngine:
         s = len(h.prompt_tokens)
         bucket = self.pool.bucket_for(s)
         t0 = time.perf_counter()
-        self._run_prefill(slot, 'whole', h.prompt_tokens, bucket)
+        with _obs.span('serving.prefill', request_id=h.request_id,
+                       bucket=bucket, slot=slot, prompt_len=s):
+            self._run_prefill(slot, 'whole', h.prompt_tokens, bucket)
         self._seconds['prefill'] += time.perf_counter() - t0
         self.pool.note_written(slot, s)
+        self._note_prefill(h, t0)
         self._counts['prefills'] += 1
         self._counts['prefill_tokens'] += s
         self._counts['prefill_bucket_tokens'] += bucket
+        if _obs.enabled():
+            self._m_prefills.labels(bucket=bucket).inc()
+            self._m_prefill_tokens.inc(s)
+
+    def _note_prefill(self, h: RequestHandle, t0: float):
+        """Ledger: the prefill that just ran (since `t0`) books as
+        `prefill` for its owner and `prefill_wait` for every other seated
+        request: the chunked-prefill convoy, named instead of smeared."""
+        now = time.perf_counter()
+        _reqledger.get_ledger().note_prefill(
+            now - t0, h._ledger_rec,
+            [o._ledger_rec for o in self._slot_req.values()], now=now)
 
     def _advance_prefills(self):
         """Drive every mid-prefill slot forward one chunk (in admission
@@ -937,7 +1193,7 @@ class InferenceEngine:
             except Exception as exc:
                 if _device_fault(exc):
                     raise
-                self._fail_request(slot, h, exc)
+                self._fail_request(slot, h, exc, event=True)
 
     def _prefill_chunk(self, slot: int, h: RequestHandle, cursor: int):
         """Prefill the prompt window [start, start + bucket) of `slot`
@@ -953,15 +1209,24 @@ class InferenceEngine:
         bucket = self.pool.bucket_for(c)
         start = min(cursor, self.pool.max_length - bucket)
         t0 = time.perf_counter()
-        self._run_prefill(slot, 'chunk', h.prompt_tokens[start:start + bucket],
-                          bucket, start=start, floor=h._prefix_len)
+        with _obs.span('serving.prefill_chunk', request_id=h.request_id,
+                       bucket=bucket, slot=slot, start=start,
+                       cursor=cursor, prompt_len=s):
+            self._run_prefill(slot, 'chunk',
+                              h.prompt_tokens[start:start + bucket],
+                              bucket, start=start, floor=h._prefix_len)
         self._seconds['prefill'] += time.perf_counter() - t0
         new_cursor = min(start + bucket, s)
         self.pool.note_written(slot, new_cursor)
+        self._note_prefill(h, t0)
         self._prefilling[slot][1] = new_cursor
         self._counts['chunk_rounds'] += 1
         self._counts['prefill_tokens'] += new_cursor - cursor
         self._counts['prefill_bucket_tokens'] += bucket
+        if _obs.enabled():
+            self._m_chunk_rounds.inc()
+            self._m_chunk_tokens.inc(new_cursor - cursor)
+            self._m_prefill_tokens.inc(new_cursor - cursor)
         if new_cursor >= s:
             del self._prefilling[slot]
             self._activate(slot, h)
@@ -991,10 +1256,13 @@ class InferenceEngine:
         bucket: unchunked and uncached, since the draft is small. Rows
         past the bucket become zero."""
         s = len(h.prompt_tokens)
+        bucket = self.pool.bucket_for(s)
         t0 = time.perf_counter()
-        self._run_prefill(slot, 'draft', h.prompt_tokens,
-                          self.pool.bucket_for(s))
+        with _obs.span('serving.draft_prefill', request_id=h.request_id,
+                       bucket=bucket, slot=slot):
+            self._run_prefill(slot, 'draft', h.prompt_tokens, bucket)
         self._seconds['prefill'] += time.perf_counter() - t0
+        self._note_prefill(h, t0)
 
     def _pin_adapter(self, slot: int, h: RequestHandle):
         """Pin the request's adapter and point the slot's row at its bank
@@ -1032,13 +1300,22 @@ class InferenceEngine:
             h._prefix_node = None
         self._unpin_adapter(slot, h)
 
-    def _fail_request(self, slot: int, h: RequestHandle, exc: Exception):
+    def _fail_request(self, slot: int, h: RequestHandle, exc: Exception,
+                      event: bool = False):
         """Fail `h` alone: detach it, free its slot and pages, mark the
-        handle FAILED with `exc` and count it."""
+        handle FAILED with `exc` and count it; `event` emits
+        `serving_request_failed` (a failed admission or chunk; a drain
+        past its deadline emits none, as in the JAX engine)."""
         self._detach_slot(slot, h)
         self.pool.free(slot)
         h._fail(exc)
         self._counts['failed'] += 1
+        if _obs.enabled():
+            self._m_requests.labels(status='failed').inc()
+            if event:
+                _obs.emit('serving_request_failed',
+                          request_id=h.request_id,
+                          error=type(exc).__name__)
 
     def _retire(self, slot: int, h: RequestHandle, now: float):
         """Finish `h`, release its prefix pin and adapter, hand the
@@ -1052,6 +1329,12 @@ class InferenceEngine:
                                      namespace=self._prefix_ns(h))
         self.pool.free(slot)
         self._counts['completed'] += 1
+        if _obs.enabled():
+            self._m_requests.labels(status='completed').inc()
+            self._m_active.set(len(self._slot_req))
+            tpot = h.tpot
+            if tpot is not None:
+                self._m_tpot.observe(tpot)
 
     # ------------------------------------------------------------------
     # introspection

@@ -27,11 +27,17 @@ docstring of `finite_weights_gate` and not its code: the JAX gate tests
 port's gate checks every floating leaf, bf16 included (ROADMAP.md,
 Queue 3).
 
-Not ported yet (ROADMAP.md, Queue 1, item 2): `ReplicaUpdater` (the
-rolling swap across a Router's replicas; the port has no router), and
-the `weight_publish` / `weight_version_quarantined` /
-`weight_writer_stale` events and `paddle_weight_*` / `paddle_swap_*`
-metrics.
+Observability (the JAX store's): the events `weight_publish`,
+`weight_version_quarantined` and `weight_writer_stale`, the counters
+`paddle_weight_publish_total`, `paddle_weight_publish_bytes_total`,
+`paddle_weight_writer_stale_total` and `paddle_swap_quarantined_total`,
+and the `paddle_weight_published_version` gauge; a serving engine's
+swap notes its `weight_version` (`/healthz`, `paddle_weight_version`).
+
+Not ported yet (ROADMAP.md, Queue 1): `ReplicaUpdater`, the rolling
+swap across a Router's replicas (the port has no router yet), with its
+`hotswap.*` spans and `paddle_swap_total` / `_rollbacks_total` /
+`_seconds`.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from .. import serialization
 from ..utils.checkpoint import CheckpointManager
 
@@ -124,6 +131,18 @@ class WeightStore:
             save_interval_steps=1, retry_policy=retry_policy)
         self.directory = self.mgr.directory
         self.stale_writer_s = float(stale_writer_s)
+        reg = _obs.get_registry()
+        self._m_published = reg.counter(
+            'paddle_weight_publish_total', 'weight versions published')
+        self._m_publish_bytes = reg.counter(
+            'paddle_weight_publish_bytes_total',
+            'host payload bytes published to the weight store')
+        self._m_published_version = reg.gauge(
+            'paddle_weight_published_version',
+            'latest committed (non-quarantined) weight version')
+        self._m_quarantined = reg.counter(
+            'paddle_swap_quarantined_total',
+            'weight versions quarantined (failed gate or load)')
 
     # -- bookkeeping --------------------------------------------------------
     def _dir(self, version: int) -> str:
@@ -188,19 +207,27 @@ class WeightStore:
         except OSError:
             return None
 
-    def _sweep_stale_writer(self):
+    def _sweep_stale_writer(self, marker: Dict[str, Any]):
         """Remove a dead publisher's droppings: the marker and any
         orphan step tmp directories. Committed versions are untouched:
         the atomic-rename commit means a killed writer can only leave
         uncommitted state behind."""
+        swept = 0
         for name in sorted(os.listdir(self.directory)):
             if name.startswith('step_') and name.endswith('.tmp'):
-                shutil.rmtree(os.path.join(self.directory, name),
-                              ignore_errors=True)
+                path = os.path.join(self.directory, name)
+                shutil.rmtree(path, ignore_errors=True)
+                swept += not os.path.exists(path)
         try:
             os.unlink(self._writer_path())
         except OSError:
             pass
+        _obs.emit('weight_writer_stale', pid=marker.get('pid'),
+                  started=marker.get('started'), swept_tmp=swept)
+        if _obs.enabled():
+            _obs.get_registry().counter(
+                'paddle_weight_writer_stale_total',
+                'dead mid-commit publishers detected and swept').inc()
 
     def _claim_writer(self, version: int):
         """Take the writer marker for this commit. A stale marker (dead
@@ -227,7 +254,7 @@ class WeightStore:
                     f'live publishers on one store is a deployment bug '
                     f'- or raise stale_writer_s if this is a wedged '
                     f'remote writer')
-            self._sweep_stale_writer()
+            self._sweep_stale_writer(marker)
         tmp = f'{self._writer_path()}.{os.getpid()}.tmp'
         with open(tmp, 'w') as f:
             json.dump({'pid': os.getpid(), 'started': time.time(),
@@ -259,6 +286,8 @@ class WeightStore:
                 raise ValueError(
                     f'weight versions are monotone: {version} <= '
                     f'latest committed {vs[-1]}')
+        nbytes = sum(int(a.nbytes) for a in host.values()
+                     if hasattr(a, 'nbytes'))
         self._claim_writer(version)
         try:
             self.mgr.save(version,
@@ -266,6 +295,13 @@ class WeightStore:
                            'meta': dict(meta or {})}, force=True)
         finally:
             self._release_writer()
+        _obs.emit('weight_publish', version=version, bytes=nbytes,
+                  **{k: v for k, v in (meta or {}).items()
+                     if isinstance(v, (int, float, str))})
+        if _obs.enabled():
+            self._m_published.inc()
+            self._m_publish_bytes.inc(nbytes)
+            self._m_published_version.set(version)
         return version
 
     def load(self, version: int) -> Dict[str, Any]:
@@ -303,10 +339,19 @@ class WeightStore:
         ages it out. Idempotent."""
         version = int(version)
         d = self._dir(version)
-        if os.path.isdir(d) and not self.is_quarantined(version):
+        already = self.is_quarantined(version)
+        if os.path.isdir(d) and not already:
             with open(os.path.join(d, self._MARKER), 'w') as f:
                 json.dump({'version': version, 'reason': str(reason),
                            'at': time.time()}, f)
+        if not already:
+            _obs.emit('weight_version_quarantined', version=version,
+                      reason=str(reason))
+            if _obs.enabled():
+                self._m_quarantined.inc()
+                latest = self.latest_version()
+                if latest is not None:
+                    self._m_published_version.set(latest)
 
     def stats(self) -> Dict[str, Any]:
         return {

@@ -305,6 +305,12 @@ class PagedSlotPool:
         return self.num_slots - len(self._free)
 
     @property
+    def occupancy(self) -> float:
+        """Occupied-slot fraction, read from the host free list (the
+        engine's `paddle_serving_slot_occupancy` per round)."""
+        return self.used_count / self.num_slots
+
+    @property
     def free_page_count(self) -> int:
         return len(self._free_pages)
 

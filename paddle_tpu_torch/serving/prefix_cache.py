@@ -1,5 +1,4 @@
-"""Radix prefix cache (a copy of `paddle_tpu/serving/prefix_cache.py`
-without its metrics and events; every counter `stats()` reports stays).
+"""Radix prefix cache (a copy of `paddle_tpu/serving/prefix_cache.py`).
 
 Shared prompt prefixes prefill once: prefill KV is kept keyed by the
 token-id prefix tree and each request reuses the longest cached prefix
@@ -38,11 +37,20 @@ Namespaces: `lookup` and `insert` take a hashable `namespace` (the
 engine passes `(adapter_id, adapter_version)` for adapter requests,
 None for base ones). Each namespace has its own trie root, so two
 adapters never share a prefix; budget, LRU and pinning stay global.
+
+Observability (the JAX cache's): `paddle_serving_prefix_hits_total`,
+`_misses_total`, `_tokens_reused_total`, `_inserts_total`,
+`_evictions_total`, `_stale_evictions_total` and the
+`paddle_serving_prefix_retained_slots` gauge, and a `prefix_evict` event
+per reclaimed entry; `snapshot_all()` is the flight recorder's
+`prefix_cache.json`.
 """
 from __future__ import annotations
 
 import weakref
 from typing import Dict, List, Optional, Tuple
+
+from .. import observability as _obs
 
 
 # live caches, for flight-recorder bundles (prefix_cache.json)
@@ -116,7 +124,34 @@ class RadixPrefixCache:
         self._counts = {'hits': 0, 'misses': 0, 'inserts': 0,
                         'evictions': 0, 'tokens_reused': 0,
                         'stale_evictions': 0}
+        self._init_metrics()
         _live_caches.add(self)
+
+    def _init_metrics(self):
+        reg = _obs.get_registry()
+        self._m_hits = reg.counter(
+            'paddle_serving_prefix_hits_total',
+            'submissions served a cached prefix')
+        self._m_misses = reg.counter(
+            'paddle_serving_prefix_misses_total',
+            'submissions with no usable cached prefix')
+        self._m_reused = reg.counter(
+            'paddle_serving_prefix_tokens_reused_total',
+            'prompt tokens whose prefill was skipped via the cache')
+        self._m_inserts = reg.counter(
+            'paddle_serving_prefix_inserts_total',
+            'prefixes retained at retirement')
+        self._m_evictions = reg.counter(
+            'paddle_serving_prefix_evictions_total',
+            'retained prefixes evicted (LRU / pool pressure)')
+        self._m_stale_evictions = reg.counter(
+            'paddle_serving_prefix_stale_evictions_total',
+            'old-weight-version prefixes lazily reclaimed after a swap')
+        self._m_retained = reg.gauge(
+            'paddle_serving_prefix_retained_slots',
+            'pool slots currently pinned by cached prefixes')
+        if _obs.enabled():
+            self._m_retained.set(0)
 
 
     # -- bookkeeping --------------------------------------------------------
@@ -226,8 +261,13 @@ class RadixPrefixCache:
             self._touch(best[0])
             self._counts['hits'] += 1
             self._counts['tokens_reused'] += best[1]
+            if _obs.enabled():
+                self._m_hits.inc()
+                self._m_reused.inc(best[1])
             return best
         self._counts['misses'] += 1
+        if _obs.enabled():
+            self._m_misses.inc()
         return (None, 0)
 
     # -- pinning ------------------------------------------------------------
@@ -324,6 +364,9 @@ class RadixPrefixCache:
         self._owners.add(node)
         self._touch(node)
         self._counts['inserts'] += 1
+        if _obs.enabled():
+            self._m_inserts.inc()
+            self._m_retained.set(len(self._owners))
         return True
 
     # -- eviction -----------------------------------------------------------
@@ -332,6 +375,7 @@ class RadixPrefixCache:
         """Free `victim`'s retained slot back into the pool and drop it
         from the owner set. `prune=False` keeps the (now structural)
         node in the trie — the insert path re-owns it in place."""
+        slot, kv_len = self._entry_repr(victim.slot), victim.kv_len
         self._release_entry(victim.slot)
         victim.slot = None
         victim.kv_len = 0
@@ -347,6 +391,13 @@ class RadixPrefixCache:
         self._counts['evictions'] += 1
         if stale:
             self._counts['stale_evictions'] += 1
+        if _obs.enabled():
+            self._m_evictions.inc()
+            if stale:
+                self._m_stale_evictions.inc()
+            self._m_retained.set(len(self._owners))
+        _obs.emit('prefix_evict', slot=slot, kv_len=kv_len, stale=stale,
+                  retained=len(self._owners))
 
     def evict_lru(self) -> bool:
         """Free one ZERO-REF retained prefix back into the pool: stale

@@ -13,9 +13,15 @@ checkpoints.
 Backends: always 'npz'. `backend='orbax'` raises as the JAX manager does
 when orbax is missing (the port does not use orbax), and
 `backend='native'` raises until the host C++ shard writer is ported
-(ROADMAP.md, Queue 1, item 4). Not ported yet (Queue 1, item 2): the
-`checkpoint_save`/`checkpoint_restore` spans, the `checkpoint_corrupt`
-event and the `paddle_checkpoint_*` counters.
+(ROADMAP.md, Queue 1, item 4).
+
+Observability (the JAX manager's): each save runs in a `checkpoint_save`
+span and each restore in a `checkpoint_restore` span (the goodput
+ledger's categories of the same names), counted with their payload bytes
+in `paddle_checkpoint_saves_total` / `_save_bytes_total` /
+`_restores_total` / `_restore_bytes_total`; a step skipped on a checksum
+mismatch emits `checkpoint_corrupt` (a flight-recorder trigger) and
+counts in `paddle_checkpoint_corrupt_total`.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from .. import serialization
 from ..resilience.retry import RetryPolicy, call_with_retry
 
@@ -51,6 +58,17 @@ def _payload_checksums(d: str) -> Dict[str, str]:
                     h.update(chunk)
             out[os.path.relpath(path, d)] = h.hexdigest()
     return out
+
+
+def _tree_bytes(tree: Any) -> int:
+    """Payload size of a host tree (the leaves with `nbytes`: arrays and
+    tensors)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    nbytes = getattr(tree, 'nbytes', None)
+    return int(nbytes) if nbytes is not None else 0
 
 
 def _to_host(tree: Any) -> Any:
@@ -142,8 +160,17 @@ class CheckpointManager:
         self._gc()
 
     def _write(self, step: int, host_tree: Any, cursor=None):
-        call_with_retry(self._write_once, step, host_tree, cursor,
-                        policy=self._retry_policy, site='checkpoint_save')
+        nbytes = _tree_bytes(host_tree)
+        with _obs.span('checkpoint_save', step=step, bytes=nbytes):
+            call_with_retry(self._write_once, step, host_tree, cursor,
+                            policy=self._retry_policy,
+                            site='checkpoint_save')
+        if _obs.enabled():
+            reg = _obs.get_registry()
+            reg.counter('paddle_checkpoint_saves_total',
+                        'committed checkpoint saves').inc()
+            reg.counter('paddle_checkpoint_save_bytes_total',
+                        'checkpoint payload bytes written').inc(nbytes)
 
     def save(self, step: int, tree: Any, force: bool = False,
              dataloader: Any = None):
@@ -224,10 +251,24 @@ class CheckpointManager:
             if not self.verify(candidate):
                 # half-written/corrupt payload: never restore it; fall
                 # back to the previous committed step
+                _obs.emit('checkpoint_corrupt', step=candidate,
+                          directory=self._step_dir(candidate))
+                if _obs.enabled():
+                    _obs.get_registry().counter(
+                        'paddle_checkpoint_corrupt_total',
+                        'checkpoints skipped on checksum mismatch').inc()
                 continue
-            tree = call_with_retry(self._read_tree, candidate,
-                                   policy=self._retry_policy,
-                                   site='checkpoint_restore')
+            with _obs.span('checkpoint_restore', step=candidate):
+                tree = call_with_retry(self._read_tree, candidate,
+                                       policy=self._retry_policy,
+                                       site='checkpoint_restore')
+            if _obs.enabled():
+                reg = _obs.get_registry()
+                reg.counter('paddle_checkpoint_restores_total',
+                            'checkpoint restores').inc()
+                reg.counter('paddle_checkpoint_restore_bytes_total',
+                            'checkpoint payload bytes read').inc(
+                                _tree_bytes(tree))
             return candidate, tree
         raise RuntimeError(
             f'every committed checkpoint under {self.directory} failed '

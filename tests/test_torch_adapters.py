@@ -39,11 +39,19 @@ from paddle_tpu_torch.serving import (FAILED, FINISHED, AdapterBank,
                                       SamplingParams, make_adapter_factors)
 from paddle_tpu_torch.serving.adapters import DEFAULT_TARGETS, adapter_scope
 from paddle_tpu_torch.weights import from_jax_adapter_arrays, from_jax_state
+from test_torch_observability import isolated_observability
 
 NO_EOS = -1
 TARGETS = ('q_proj', 'k_proj', 'v_proj', 'o_proj')   # Llama's projections
 TORCH_DTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 JAX_DTYPE = {'float32': jnp.float32, 'bfloat16': jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _isolated_observability(tmp_path_factory):
+    """A failed request's flight bundle goes to a temp directory, and
+    both packages' observability state is reset around this module."""
+    yield from isolated_observability(tmp_path_factory)
 
 
 @pytest.fixture(autouse=True, scope='module')

@@ -1611,3 +1611,108 @@ def test_store_backed_bank_full_of_pins_requeues_on_the_card(cuda,
         alone = _bank_engine(model, capture=False, load=[(aid, j + 1)])
         assert got[j] == alone.generate_many(
             [prompts[j]], sp, adapter_ids=aid)[0].tokens, aid
+
+
+# ---------------------------------------------------------------------------
+# observability: the graph engine reports what its eager twin reports
+# ---------------------------------------------------------------------------
+
+def _obs_view(obs, before=None) -> dict:
+    """The registry's non-time samples: counters (less `before`'s, for a
+    run's change), gauges, and histogram counts (the occupancy
+    histogram by its buckets too)."""
+    out = {}
+    for m in obs.get_registry().snapshot()['metrics']:
+        name = m['name']
+        timed = 'seconds' in name or 'fraction' in name
+        if not name.startswith('paddle_serving') or (
+                timed and m['type'] != 'histogram'):
+            continue
+        for s in m['samples']:
+            key = (name, tuple(sorted(s['labels'].items())))
+            if m['type'] == 'histogram':
+                out[key] = ((s['count'],) if timed else
+                            (s['count'], tuple(s['buckets'].values())))
+            else:
+                out[key] = s['value']
+    if before is not None:
+        for key, v in before.items():
+            if key[0].endswith('_total'):
+                out[key] = out[key] - v
+            elif isinstance(v, tuple):
+                out[key] = tuple(a - b for a, b in zip(out[key], v)) \
+                    if len(v) == 1 else (out[key][0] - v[0], tuple(
+                        a - b for a, b in zip(out[key][1], v[1])))
+    return out
+
+
+def _obs_events(obs, handles) -> list:
+    """The event log's events and spans, time fields removed, request ids
+    mapped to submission order."""
+    ids = {h.request_id: i for i, h in enumerate(handles)}
+    out = []
+    for e in obs.get_event_log().events():
+        attrs = dict(e.get('attrs') or {})
+        attrs.pop('seconds', None)
+        if 'request_id' in attrs:
+            attrs['request_id'] = ids.get(attrs['request_id'])
+        if 'requests' in attrs:
+            attrs['requests'] = [ids.get(r) for r in attrs['requests']]
+        out.append((e['name'], e.get('depth'), attrs))
+    return out
+
+
+def _observed_run(model, capture, prompts, params, **kw):
+    """Warm an engine up (a graph engine captures its decode step and
+    every prefill bucket it will use), then serve `prompts` from a clean
+    event log: (the run's metric changes, its events, its tokens)."""
+    from paddle_tpu_torch import observability as obs
+    eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
+                          **kw)
+    eng._capture_decode = eng._capture_prefill = capture
+    eng.generate_many([prompts[0][:3]],
+                      SamplingParams(max_new_tokens=4, eos_token_id=-1))
+    eng.generate_many(prompts, SamplingParams(max_new_tokens=1,
+                                              eos_token_id=-1))
+    traces = dict(eng.stats()['traces'])
+    before = _obs_view(obs)
+    obs.get_event_log().clear()
+    hs = eng.generate_many(prompts, params)
+    assert eng.stats()['traces'] == traces     # nothing captured again
+    assert traces == (_traces(eng) if capture else {})
+    return _obs_view(obs, before), _obs_events(obs, hs), \
+        [h.tokens for h in hs]
+
+
+@pytest.mark.parametrize('kind', ['plain', 'prefix', 'int8'])
+def test_graph_engine_observability_equals_its_eager_twin(cuda, kind):
+    """With observability on, the graph engine and its eager twin leave
+    the same serving counters, gauges and histogram counts, and the same
+    events and spans in the same order with the same non-time fields;
+    the graph engine captures nothing in the observed run."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import SAMPLING
+    obs.enable()
+    kw = {'plain': {}, 'int8': {'kv_quant': 'int8'},
+          'prefix': {'prefix_cache': 0.5, 'prefill_chunk_tokens': 32}}[kind]
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(21, cuda))
+    g = torch.Generator().manual_seed(22)
+    system = torch.randint(1, 512, (40,), generator=g).tolist()
+    prompts = [system + torch.randint(1, 512, (s,), generator=g).tolist()
+               if kind == 'prefix' and i % 2 else
+               torch.randint(1, 512, (s,), generator=g).tolist()
+               for i, s in enumerate((3, 17, 70, 9, 25, 5))]
+    params = [SamplingParams(max_new_tokens=12, eos_token_id=-1)
+              for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=12, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=7)
+    graph = _observed_run(model, True, prompts, params, **kw)
+    eager = _observed_run(model, False, prompts, params, **kw)
+    assert graph[0] == eager[0]
+    assert graph[1] == eager[1]
+    assert graph[2] == eager[2]
+    names = {name for name, _, _ in graph[1]}
+    assert {'serving.queue', 'serving.decode_round'} <= names
+    assert graph[0][('paddle_serving_tokens_total', ())] == 6 * 12

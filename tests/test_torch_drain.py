@@ -42,8 +42,16 @@ from paddle_tpu_torch.resilience import PreemptionHandler
 from paddle_tpu_torch.serving import (FAILED, FINISHED, RUNNING,
                                       InferenceEngine, SamplingParams)
 from paddle_tpu_torch.weights import from_jax_state
+from test_torch_observability import isolated_observability
 
 NO_EOS = -1
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _isolated_observability(tmp_path_factory):
+    """A failed request's flight bundle goes to a temp directory, and
+    both packages' observability state is reset around this module."""
+    yield from isolated_observability(tmp_path_factory)
 
 
 @pytest.fixture(autouse=True, scope='module')
