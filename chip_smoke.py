@@ -3573,13 +3573,13 @@ def check_health(eng, srv) -> None:
     if states != [(200, 'ok'), (503, 'draining'), (503, 'draining'),
                   (200, 'ok')]:
         raise AssertionError(f'observability: /healthz went {states}')
-    missing = [r for r in ('/programs', '/slo', '/fleet/metrics')
-               if http_get(srv.url + r)[0] != 404]
-    if missing:
-        raise AssertionError(f'observability: {missing} did not answer 404')
+    codes = {r: http_get(srv.url + r)[0]
+             for r in ('/programs', '/slo', '/fleet/metrics')}
+    if codes != {'/programs': 200, '/slo': 503, '/fleet/metrics': 404}:
+        raise AssertionError(f'observability: routes answered {codes}')
     log(f'[observe] /healthz {" -> ".join(f"{c} {s}" for c, s in states)} '
-        f'(begin_drain, drain, clear_degraded); /programs, /slo, '
-        f'/fleet/metrics 404')
+        f'(begin_drain, drain, clear_degraded); /programs 200, /slo 503 '
+        f'(no SLO engine registered), /fleet/metrics 404')
 
 
 def check_flight(eng, prompts, params) -> None:
@@ -3613,7 +3613,8 @@ def check_flight(eng, prompts, params) -> None:
     bundles = sorted(flight.iterdir())
     files = sorted(p.name for p in bundles[0].iterdir()) if bundles else []
     want = {'flight.json', 'events.jsonl', 'trace.json', 'metrics.json',
-            'summary.txt', 'goodput.json', 'requests.json'}
+            'summary.txt', 'goodput.json', 'requests.json', 'programs.json',
+            'slo.json'}
     if [h.status for h in hs] != [FINISHED, FAILED] or len(bundles) != 1 \
             or not want <= set(files):
         raise AssertionError(f'observability: statuses '
@@ -3747,6 +3748,582 @@ def serve_observed(served) -> dict:
         raise AssertionError(f'observability: threads left running: {left}')
     log('[observe] the server and the scraper left no thread running')
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6i: replicated serving in one process at full width
+# ---------------------------------------------------------------------------
+
+FLEET_PAIRS = 3
+ROUTER_OVERHEAD_MAX = 0.03       # bench.py router_ab's tier-1 guard
+FLEET_ENGINE = dict(num_slots=8, max_length=1024, decode_block=8,
+                    kv_page_size=16)
+FLEET_QOS = 'paid:priority=high;free:priority=low,concurrency=4'
+FLEET_SHED_DEPTH = 8
+
+
+def _fleet_engine(model):
+    """A graph engine of phase 6's settings over `model`."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    return InferenceEngine(model, **FLEET_ENGINE)
+
+
+def _warm(eng, prompts, adapter_ids=None) -> None:
+    """`_run_serve`'s warm-up: one short request (the decode graph's
+    capture) and every prompt for one token (each prefill bucket's)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    one = SamplingParams(max_new_tokens=1, eos_token_id=-1)
+    eng.generate_many([prompts[0][:8]], one)
+    eng.generate_many(prompts, one, adapter_ids=adapter_ids)
+
+
+def _wave_s(fn) -> tuple:
+    """(seconds, result) of `fn()`, between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _last_seq(obs) -> int:
+    events = obs.get_event_log().events()
+    return events[-1]['seq'] if events else -1
+
+
+def _router_events(obs, since: int) -> list:
+    """The fleet's events logged after sequence number `since`."""
+    return [e['name'] for e in obs.get_event_log().events()
+            if e['seq'] > since and e['name'].startswith(
+                ('router_', 'breaker_', 'request_shed', 'autoscale_',
+                 'weight_swap', 'weight_rollback', 'slo_'))]
+
+
+def _release_replica(eng, scope) -> None:
+    """Give an engine reused from an earlier phase back its observability
+    scope and clear the holds a router phase left on it."""
+    from paddle_tpu_torch import observability as obs
+    if eng.obs_scope is not None:
+        obs.clear_degraded('draining', scope=eng.obs_scope, force=True)
+        obs.clear_degraded('weight_swap', scope=eng.obs_scope, force=True)
+    eng.obs_scope = scope
+
+
+def fleet_router_overhead(eng, prompts, params, want) -> dict:
+    """6i (a): phase 6's engine bare, then behind a one-replica Router, in
+    `FLEET_PAIRS` interleaved pairs; the overhead is the least ratio less
+    1 (bench.py:router_ab's estimator), gated at 3%."""
+    from paddle_tpu_torch.serving import Replica, Router
+    scope = eng.obs_scope
+    router = Router([Replica(0, eng)])
+    tokens = sum(p.max_new_tokens for p in params)
+    ratios, bare_s, r1_s = [], [], []
+    try:
+        for _ in range(FLEET_PAIRS):
+            b, hs = _wave_s(lambda: eng.generate_many(prompts, params))
+            r, rhs = _wave_s(lambda: router.generate_many(prompts, params))
+            for got in ([h.tokens for h in hs], [h.tokens for h in rhs]):
+                if got != want:
+                    raise AssertionError('serve-fleet (a): a wave did not '
+                                         'give phase 6\'s tokens')
+            bare_s.append(b)
+            r1_s.append(r)
+            ratios.append(r / b)
+    finally:
+        _release_replica(eng, scope)
+    overhead = min(ratios) - 1
+    log(f'[serve-fleet] (a) bare vs 1-replica router, {FLEET_PAIRS} '
+        f'interleaved pairs of the 12 requests: bare '
+        f'{", ".join(f"{tokens / s:.1f}" for s in bare_s)} tok/s, router '
+        f'{", ".join(f"{tokens / s:.1f}" for s in r1_s)} tok/s; ratios '
+        f'{", ".join(f"{x:.4f}" for x in ratios)}; overhead (least ratio '
+        f'- 1) {overhead * 100:+.2f}% (prediction +0.1 to +0.5%, gate '
+        f'{ROUTER_OVERHEAD_MAX * 100:.0f}%)')
+    if overhead > ROUTER_OVERHEAD_MAX:
+        raise AssertionError(f'serve-fleet (a): router overhead '
+                             f'{overhead * 100:.2f}% > '
+                             f'{ROUTER_OVERHEAD_MAX * 100:.0f}%')
+    return {'overhead': overhead, 'r1_tok_s': tokens / min(r1_s),
+            'bare_tok_s': tokens / min(bare_s)}
+
+
+def _catalog_sums(cat) -> dict:
+    """{program: (invocations, host seconds, FLOPs total, bytes total)}."""
+    return {r.name: (r.invocations, r.host_seconds,
+                     r.flops * r.invocations, r.bytes_accessed * r.invocations)
+            for r in cat.records()}
+
+
+def fleet_two_replicas(eng, spare, prompts, params, want, r1_tok_s) -> dict:
+    """6i (b) and (h): phase 6's engine and `spare` (a graph engine over
+    its own copy of the weights, warmed) behind one Router: every greedy
+    request's tokens equal the one-replica router's. The goodput
+    ledger's window (the MFU baseline) is reset just before, and the
+    roofline of the window printed after."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import cost
+    from paddle_tpu_torch.serving import GREEDY, Replica, Router
+    scope = eng.obs_scope
+    router = Router([Replica(0, eng), Replica(1, spare)])
+    cat = obs.program_catalog()
+    try:
+        obs.get_ledger().reset()
+        before = _catalog_sums(cat)
+        dt, hs = _wave_s(lambda: router.generate_many(prompts, params))
+        after = _catalog_sums(cat)
+        roof = cost.roofline_summary(max_rows=8)
+    finally:
+        _release_replica(eng, scope)
+    got = [h.tokens for h in hs]
+    greedy = [i for i, p in enumerate(params) if p.strategy == GREEDY]
+    wrong = [i for i in greedy if got[i] != want[i]]
+    placed = [h.replica_id for h in hs]
+    if wrong or set(placed) != {0, 1}:
+        raise AssertionError(f'serve-fleet (b): requests {wrong} differ from '
+                             f'the one-replica router; placements {placed}')
+    tokens = sum(p.max_new_tokens for p in params)
+    tok_s = tokens / dt
+    log(f'[serve-fleet] (b) 2 replicas (replica 1 over its own copy of the '
+        f'weights): {tok_s:.1f} tok/s, scaling_2_replica '
+        f'{tok_s / r1_tok_s:.3f} (prediction 0.9-1.3: one card, one host '
+        f'thread, each round waits for its fetch); placements {placed}; '
+        f'greedy tokens == the 1-replica router for all {len(greedy)}; the '
+        f'sampled request {"==" if got == want else "!="} too')
+    name = 'serving.paged_decode_block'
+    d = [a - b for a, b in zip(after[name], before.get(name, (0, 0, 0, 0)))]
+    peaks = roof['peak_flops'], roof['peak_hbm_bytes_per_s']
+    hbm = d[3] / d[1] / peaks[1] if peaks[1] else None
+    mfu = d[2] / d[1] / peaks[0] if peaks[0] else None
+    log(f'[serve-fleet] (h) roofline_summary() over (b)\'s window: '
+        f'{json.dumps(roof, default=str)}')
+    log(f'[serve-fleet] (h) {name} in (b): {d[0]} rounds, {d[1]:.3f} s in '
+        f'them; {d[3] / d[0] / 1e9:.2f} GB and {d[2] / d[0] / 1e12:.3f} '
+        f'TFLOP a round (analytic); HBM roof share '
+        f'{"not measured" if hbm is None else f"{hbm:.3f}"} (prediction '
+        f'0.70-0.85), MFU {"not measured" if mfu is None else f"{mfu:.4f}"}'
+        f' (prediction < 0.02)')
+    return {'tok_s': tok_s, 'scaling': tok_s / r1_tok_s, 'tokens': got,
+            'hbm_share': hbm, 'mfu': mfu, 'roofline': roof}
+
+
+def fleet_chaos(eng, spare, prompts, params, want) -> None:
+    """6i (c): the two replicas of (b), breakers that open at one failure
+    and half-open after 0.5 s; replica 0 raises a TransientError at its
+    3rd step. No request is lost, every failed-over request's tokens
+    equal (b)'s, and the log holds `router_failover` and the breaker's
+    open -> half_open -> closed (a probe request after the cooldown)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.resilience import TransientError
+    from paddle_tpu_torch.serving import (CircuitBreaker, FINISHED, Replica,
+                                          Router)
+    scope = eng.obs_scope
+    breaker = dict(failure_threshold=1, reset_after_s=0.5)
+    router = Router([Replica(0, eng, CircuitBreaker('0', **breaker)),
+                     Replica(1, spare, CircuitBreaker('1', **breaker))])
+    since = _last_seq(obs)
+    calls, real = [0], eng.step
+
+    def dying():
+        calls[0] += 1
+        if calls[0] == 3:
+            raise TransientError('UNAVAILABLE: injected replica loss')
+        return real()
+    eng.step = dying
+    try:
+        dt, hs = _wave_s(lambda: router.generate_many(prompts, params))
+        del eng.step
+        time.sleep(breaker['reset_after_s'] + 0.05)
+        probe = router.submit(prompts[0], params[0])
+        router.run()
+    finally:
+        eng.__dict__.pop('step', None)
+        _release_replica(eng, scope)
+    lost = [i for i, h in enumerate(hs)
+            if not (h.status == FINISHED or h.error is not None)]
+    moved = [i for i, h in enumerate(hs) if h.failovers]
+    wrong = [i for i in moved if hs[i].tokens != want[i]]
+    events = _router_events(obs, since)
+    need = ['breaker_open', 'router_failover', 'breaker_half_open',
+            'breaker_closed']
+    if lost or not moved or wrong or \
+            [e for e in events if e in need] != need or \
+            probe.status != FINISHED or probe.replica_id != 0:
+        raise AssertionError(f'serve-fleet (c): lost {lost}, failed over '
+                             f'{moved} (differing {wrong}), events {events}, '
+                             f'probe {probe}')
+    tokens = sum(p.max_new_tokens for p in params)
+    log(f'[serve-fleet] (c) replica 0 lost at its 3rd step: 0 lost, '
+        f'{len(moved)} requests failed over to replica 1 with (b)\'s tokens, '
+        f'{tokens / dt:.1f} tok/s through the loss; events {events}; the '
+        f'probe after the 0.5 s cooldown closed the breaker')
+
+
+def fleet_qos(eng, prompts, params) -> None:
+    """6i (d): phase 6's engine behind a Router with a protected `paid`
+    tenant and a `free` one capped at 4 in flight, shed past 8 queued;
+    the 12 requests twice, one router round after every second
+    submission (bench.py:router_ab's qos arm steps after each one, but
+    its requests are shorter: at 32 tokens a request, one round per
+    arrival never fills the free tenant's cap). At least one typed
+    rejection with a `retry_after_s`, and every accepted paid request
+    finishes."""
+    from paddle_tpu_torch.serving import (AdmissionRejected, FINISHED,
+                                          Replica, Router)
+    scope = eng.obs_scope
+    router = Router([Replica(0, eng)], tenants=FLEET_QOS,
+                    shed_queue_depth=FLEET_SHED_DEPTH)
+    accepted, shed = [], []
+    try:
+        for i, (p, sp) in enumerate(zip(prompts * 2, params * 2)):
+            tenant = 'paid' if i % 3 == 0 else 'free'
+            try:
+                accepted.append((tenant, router.submit(p, sp,
+                                                       tenant=tenant)))
+            except AdmissionRejected as exc:
+                shed.append((tenant, exc.reason, exc.retry_after_s))
+            if i % 2:
+                router.step()
+        router.run()
+    finally:
+        _release_replica(eng, scope)
+
+    def p50(tenant):
+        vals = sorted(h.ttft for t, h in accepted
+                      if t == tenant and h.ttft is not None)
+        return vals[len(vals) // 2] * 1e3 if vals else None
+    unfinished = [t for t, h in accepted
+                  if t == 'paid' and h.status != FINISHED]
+    if not shed or any(r is None for _, _, r in shed) or unfinished:
+        raise AssertionError(f'serve-fleet (d): shed {shed}, unfinished '
+                             f'paid {unfinished}')
+    hi, lo = p50('paid'), p50('free')
+    log(f'[serve-fleet] (d) QoS ({FLEET_QOS}, shed at {FLEET_SHED_DEPTH} '
+        f'queued): {len(accepted)} accepted, {len(shed)} rejected '
+        f'({sorted({r for _, r, _ in shed})}, retry_after_s '
+        f'{sorted({round(x, 3) for _, _, x in shed})}); p50 TTFT paid '
+        f'{hi:.1f} ms, free {lo:.1f} ms')
+
+
+def _loadgen_trace(vocab):
+    """bench.py:adapters_smoke's trace: Poisson rate 8 for 4 s, seed 77,
+    prompts 8, outputs 6, `paid` (ad0/ad1/base) and `free` (base)."""
+    from paddle_tpu_torch.loadgen import (FixedLength, PoissonSchedule,
+                                          TenantClass, make_trace)
+    from paddle_tpu_torch.serving import PRIORITY_HIGH, PRIORITY_LOW
+    tenants = [
+        TenantClass(name='paid', weight=2.0, priority=PRIORITY_HIGH,
+                    adapters=(('ad0', 2.0), ('ad1', 1.0), (None, 1.0))),
+        TenantClass(name='free', weight=1.0, priority=PRIORITY_LOW)]
+    return make_trace(PoissonSchedule(8.0), 4.0, seed=77,
+                      prompt_lengths=FixedLength(8),
+                      output_lengths=FixedLength(6), tenants=tenants,
+                      vocab_size=vocab)
+
+
+def fleet_loadgen(banked) -> None:
+    """6i (e): the adapters_smoke trace replayed (time_scale 0.2) through a
+    Router onto phase 6b's banked engine, an SLOEngine of the default
+    objectives polled once per router round; /slo and /programs served
+    beside it. The trace is identical across two builds, nothing is
+    dropped, at least 2 adapters serve, /slo and /programs answer 200 and
+    parse, and /programs lists every program the engine captured once,
+    its invocations in the replay equal to the engine's own calls."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.loadgen import LoadReplayer, trace_stats
+    from paddle_tpu_torch.serving import (PRIORITY_HIGH, PRIORITY_LOW,
+                                          Replica, Router, TenantRegistry)
+    from paddle_tpu_torch.serving.engine import program_name
+    trace = _loadgen_trace(banked.model.config.vocab_size)
+    same = _loadgen_trace(banked.model.config.vocab_size) == trace
+    reg = TenantRegistry()
+    reg.add('paid', priority=PRIORITY_HIGH)
+    reg.add('free', priority=PRIORITY_LOW)
+    scope = banked.obs_scope
+    router = Router([Replica(0, banked)], tenants=reg)
+    slo = obs.SLOEngine(obs.default_objectives(2.0))
+    obs.set_slo_engine(slo)
+    step = router.step
+
+    def polled():
+        n = step()
+        slo.poll()
+        return n
+    router.step = polled
+    cat = obs.program_catalog()
+    inv0 = {r.name: r.invocations for r in cat.records()}
+    calls0 = dict(banked._program_calls)
+    srv = obs.start_server(0, host='127.0.0.1')
+    try:
+        t0 = time.perf_counter()
+        report = LoadReplayer(router, trace, time_scale=0.2,
+                              max_wall_s=60.0).run().report(slo_ttft_s=2.0)
+        wall = time.perf_counter() - t0
+        slo_code, slo_body = http_get(f'{srv.url}/slo')
+        prog_code, prog_body = http_get(f'{srv.url}/programs?format=json')
+        text_code, _ = http_get(f'{srv.url}/programs')
+    finally:
+        srv.stop()
+        obs.set_slo_engine(None)
+        _release_replica(banked, scope)
+    stats = trace_stats(trace)
+    slo_doc = json.loads(slo_body) if slo_code == 200 else None
+    rows = json.loads(prog_body)['programs'] if prog_code == 200 else []
+    names = [r['name'] for r in rows]
+    bad = []
+    for key in banked.stats()['traces']:
+        name = program_name(key)
+        row = [r for r in rows if r['name'] == name]
+        done = banked._program_calls[name] - calls0.get(name, 0)
+        if len(row) != 1 or \
+                row[0]['invocations'] - inv0.get(name, 0) != done:
+            bad.append((name, names.count(name), row and
+                        row[0]['invocations'] - inv0.get(name, 0), done))
+    problems = []
+    if not same:
+        problems.append('the trace differs across two builds')
+    if report['dropped'] or report['completed'] != report['offered']:
+        problems.append(f'report {report}')
+    if len(stats.get('by_adapter', {})) < 2:
+        problems.append(f'adapters served {stats.get("by_adapter")}')
+    if slo_doc is None or text_code != 200 or not rows or bad:
+        problems.append(f'/slo {slo_code}, /programs {prog_code}/'
+                        f'{text_code}, catalog vs engine {bad}')
+    if problems:
+        raise AssertionError('serve-fleet (e): ' + '; '.join(problems))
+    burn = {o['name']: (o['burn_short'], o['alerting'])
+            for o in slo_doc['objectives']}
+    log(f'[serve-fleet] (e) loadgen (adapters_smoke trace, '
+        f'{stats["requests"]} requests, adapters {stats["by_adapter"]}) '
+        f'through a Router onto the banked engine in {wall:.2f} s: '
+        f'{report["completed"]} completed, 0 dropped, TTFT p50 '
+        f'{report["ttft_p50_s"]} s p99 {report["ttft_p99_s"]} s, SLO '
+        f'attainment {report["slo_attainment"]}; /slo 200 (burn short, '
+        f'alerting: {burn}); /programs 200 lists each of the engine\'s '
+        f'{len(banked.stats()["traces"])} captured programs once with its '
+        f'replay calls')
+
+
+def fleet_autoscale(eng, prompts, params) -> dict:
+    """6i (f): an Autoscaler (force=True, 1 to 2 replicas) over a Router
+    on phase 6's engine; its factory builds a graph engine over a copy of
+    the weights and warms it (the captures). The 12 requests as a
+    burst, the 12 again at the scale-up, then quiet: exactly one scale_up and one scale_down, every
+    request finished through the drain, and the goodput ledger closed
+    within 1% with the provision booked under scale_up."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import (Autoscaler, AutoscalerConfig,
+                                          FINISHED, Replica, Router,
+                                          replica_model)
+
+    def factory():
+        new = _fleet_engine(replica_model(eng.model))
+        _warm(new, prompts)
+        torch.cuda.synchronize()
+        return new
+    scope = eng.obs_scope
+    router = Router([Replica(0, eng)], signal_window_s=2.0)
+    scaler = Autoscaler(router, factory, AutoscalerConfig(
+        min_replicas=1, max_replicas=2, slo_ttft_s=100.0,
+        up_queue_per_replica=2.0, down_queue_per_replica=0.5,
+        cooldown_s=1.0, provision_cooldown_factor=0.0, down_stable_s=1.0),
+        force=True)
+    since = _last_seq(obs)
+    obs.get_ledger().reset()
+    t0 = time.perf_counter()
+    try:
+        hs = [router.submit(p, sp) for p, sp in zip(prompts, params)]
+        decisions = []
+        while time.perf_counter() - t0 < 45.0:
+            decisions.append(scaler.poll())
+            if decisions[-1] == 'scale_up':
+                # the burst's second half lands on the grown fleet
+                hs += [router.submit(p, sp) for p, sp in zip(prompts,
+                                                             params)]
+            router.step()
+            if not router._live:
+                if len(router.replicas) == 1 and 'scale_down' in decisions:
+                    break
+                time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        gp = obs.get_ledger().report()
+    finally:
+        _release_replica(eng, scope)
+    events = _router_events(obs, since)
+    up, down = decisions.count('scale_up'), decisions.count('scale_down')
+    gap = abs(sum(gp['categories'].values()) + gp['residual_seconds']
+              - gp['wall_seconds'])
+    unfinished = [i for i, h in enumerate(hs) if h.status != FINISHED]
+    if up != 1 or down != 1 or unfinished or len(router.replicas) != 1 or \
+            gap > 0.01 * gp['wall_seconds'] or \
+            gp['categories']['scale_up'] <= 0 or \
+            'autoscale_down_complete' not in events:
+        raise AssertionError(f'serve-fleet (f): scale_up {up}, scale_down '
+                             f'{down}, unfinished {unfinished}, replicas '
+                             f'{len(router.replicas)}, ledger {gp}, events '
+                             f'{events}')
+    placed = collections.Counter(h.replica_id for h in hs)
+    log(f'[serve-fleet] (f) autoscaler over a burst of {len(hs)} requests '
+        f'then quiet, {wall:.2f} s: 1 scale_up (provision: build + '
+        f'captures {scaler.provision_ema_s:.2f} s), 1 scale_down drained '
+        f'and removed, placements {dict(placed)}, all finished; goodput '
+        f'books close within {gap / gp["wall_seconds"] * 100:.3f}% of '
+        f'{gp["wall_seconds"]:.2f} s: scale_up '
+        f'{gp["categories"]["scale_up"]:.3f} s, scale_down '
+        f'{gp["categories"]["scale_down"]:.6f} s; events {events}')
+    del hs
+    return {'provision_s': scaler.provision_ema_s}
+
+
+def fleet_rolling_swap(served) -> None:
+    """6i (g): `ReplicaUpdater` over a 2-replica Router on the 2-layer
+    Llama-2-7B-width model of 6g (b) (a full-depth version would write
+    13.5 GB to disk): v1 the model's weights, v2 a perturbed copy, v3 a
+    copy with one bf16 NaN. Rolling to v2 under traffic (a pump submits
+    while replicas drain): the fleet is mixed mid-roll (the finite gate,
+    wrapped, reads the fleet's versions as each replica is gated), every
+    request
+    finishes, the fleet version is 2 after it and nothing is captured
+    again; v3 is refused by the gate on replica 0, rolled back,
+    quarantined, and the fleet stays on 2."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (FINISHED, ReplicaSet,
+                                          ReplicaUpdater, Router,
+                                          SamplingParams, WeightPublisher,
+                                          WeightStore, finite_weights_gate)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(1234, DEV))
+    prompts = served['prompts'][:6]
+    sp = SamplingParams(max_new_tokens=8, eos_token_id=-1)
+    root = _store_dir('fleet-')
+    try:
+        rs = ReplicaSet(model, 2, **FLEET_ENGINE)
+        router = Router(rs)
+        for r in rs:            # each replica captures every bucket used
+            r.engine.generate_many(prompts, sp)
+        traces = [dict(r.engine.stats()['traces']) for r in rs]
+        store = WeightStore(str(root))
+        WeightPublisher(model, store).publish(step=0)           # v1
+        state = perturbed_state(model)
+        v2 = store.publish(state, meta={'step': 1})
+        name = 'llama.layers.1.self_attn.q_proj.weight'
+        nan = state[name].clone()
+        nan.view(-1)[nan.numel() // 3] = float('nan')
+        v3_state = {**state, name: nan}
+        del state, nan
+        seen, pumped = [], []
+
+        def pump():
+            if len(pumped) < 18:
+                pumped.append(router.submit(prompts[len(pumped) % 6], sp))
+
+        def gate(engine, version, tree):
+            # runs on each swapped replica before it rejoins: the fleet's
+            # versions at that moment
+            seen.append(dict(updater.current_versions()))
+            return finite_weights_gate(engine, version, tree)
+        updater = ReplicaUpdater(router, store, gates=[gate],
+                                 traffic_pump=pump)
+        # requests in flight when the roll begins: replica 0's drain
+        # steps the fleet, and the pump keeps submitting meanwhile
+        pumped += [router.submit(p, sp) for p in prompts]
+        t0 = time.perf_counter()
+        res2 = updater.update_to(v2)
+        roll_s = time.perf_counter() - t0
+        router.run()
+        fleet2 = updater.fleet_version
+        v3 = store.publish(v3_state, meta={'step': 2})
+        del v3_state
+        res3 = updater.poll()
+        mixed = any(len(set(v.values())) > 1 for v in seen)
+        problems = []
+        if res2['outcome'] != 'completed' or fleet2 != v2 or not mixed:
+            problems.append(f'v2: {res2}, fleet {fleet2}, mixed {mixed}')
+        if any(h.status != FINISHED for h in pumped) or not pumped:
+            problems.append(f'pumped {[h.status for h in pumped]}')
+        if res3 is None or res3['outcome'] != 'aborted' or \
+                [r['outcome'] for r in res3['replicas']] != ['rolled_back'] \
+                or store.quarantined() != [v3] or \
+                updater.fleet_version != v2:
+            problems.append(f'v3: {res3}, quarantined '
+                            f'{store.quarantined()}, fleet '
+                            f'{updater.fleet_version}')
+        if [dict(r.engine.stats()['traces']) for r in rs] != traces or \
+                any(r['real_compiles'] for r in res2['replicas']):
+            problems.append(f'a graph was captured again: '
+                            f'{[r.engine.stats()["traces"] for r in rs]} '
+                            f'vs {traces}')
+        if problems:
+            raise AssertionError('serve-fleet (g): ' + '; '.join(problems))
+        log(f'[serve-fleet] (g) ReplicaUpdater on 2 replicas of the 2-layer '
+            f'Llama-2-7B-width model: v{v2} rolled in {roll_s:.2f} s under '
+            f'traffic ({len(pumped)} requests pumped, all finished; drain '
+            f'rounds {[r["drain_rounds"] for r in res2["replicas"]]}, '
+            f'recaptures {[r["real_compiles"] for r in res2["replicas"]]}), '
+            f'mixed mid-roll, fleet version {fleet2}; v{v3} (one bf16 NaN) '
+            f'refused on replica 0, rolled back, quarantined, fleet stays '
+            f'v{updater.fleet_version}')
+        del rs, router, updater, store, pumped
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_fleet(served, adapted) -> dict:
+    """Phase 6i: replicated serving in one process on Llama-2-7B (bf16,
+    full depth), phase 6's 12 requests: (a) the router's overhead on
+    phase 6's engine, (b) two replicas (the second over its own copy of
+    the weights) with (h) the roofline of that window, (c) failover
+    through a replica loss, (d) QoS shedding, (e) a loadgen replay under
+    the SLO engine onto the banked engine of 6b, (f) the autoscaler, (g)
+    the rolling weight swap at 2 layers. Counts the serving kernels'
+    launches over the whole phase; frees what it built."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import replica_model
+    eng, prompts, params = served['engine'], served['prompts'], \
+        served['params']
+    want = served['tokens']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    a = fleet_router_overhead(eng, prompts, params, want)
+    t1 = time.perf_counter()
+    spare = _fleet_engine(replica_model(eng.model))
+    _warm(spare, prompts)
+    torch.cuda.synchronize()
+    log(f'[serve-fleet] replica 1: a copy of the weights and a graph engine, '
+        f'warmed (captures) in {time.perf_counter() - t1:.2f} s')
+    b = fleet_two_replicas(eng, spare, prompts, params, want, a['r1_tok_s'])
+    fleet_chaos(eng, spare, prompts, params, b['tokens'])
+    del spare
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_qos(eng, prompts, params)
+    fleet_loadgen(adapted['engine'])
+    f = fleet_autoscale(eng, prompts, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_rolling_swap(served)
+    launches = {k: K.LAUNCHES[k] for k in ADAPTER_KERNELS}
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f'serve-fleet: kernels never launched: '
+                             f'{missing}')
+    took = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f'[serve-fleet] kernel launches over the phase: {launches}')
+    log(f'[serve-fleet] phase 6i took {took:.1f} s (budget 120 s), peak '
+        f'device memory {peak:.2f} GB above the {base / 1e9:.2f} GB held '
+        f'before it')
+    if took > 120.0:
+        raise AssertionError(f'serve-fleet: {took:.1f} s > 120 s')
+    return {'launches': launches, 'overhead': a['overhead'],
+            'scaling': b['scaling'], 'provision_s': f['provision_s']}
 
 
 def paged_float_ms(readings: int = 5, outputs=None) -> list:
@@ -4443,6 +5020,7 @@ def main() -> int:
     t6h = time.perf_counter()
     observed = serve_observed(res)
     log(f'[observe] phase 6h took {time.perf_counter() - t6h:.1f} s')
+    fleet = serve_fleet(res, adapted)
     prefixed = serve_prefix(res)
     int8 = serve_int8(res, prefixed)
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
@@ -4470,7 +5048,7 @@ def main() -> int:
         r = rows[name]
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
-                                   stored, weights, prefixed, int8,
+                                   stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self']))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],

@@ -14,19 +14,23 @@ It serves Llama through the paged continuous-batching engine
 `use_recompute`; Adam/AdamW update through one multi-tensor kernel).
 `save`/`load` write and read the JAX package's npz container, and
 `utils.CheckpointManager` and `serving.WeightStore` its checkpoint and
-weight-version layouts. `observability` reports what the serving path
-does (metrics, events, spans, the goodput and request ledgers, the
-flight recorder, an HTTP endpoint) under the JAX package's names.
+weight-version layouts. `serving.Router` serves replicas in one process
+(tenancy, failover, the autoscaler, the rolling weight swap), and
+`loadgen` replays seeded traffic through it. `observability` reports
+what the serving and training paths do (metrics, events, spans, the
+goodput and request ledgers, the program catalog and roofline, the SLO
+engine, the flight recorder, an HTTP endpoint) under the JAX package's
+names.
 """
-from . import (analysis, debug, dtype, flags, framework, jit, nlp, nn,
-               observability, ops, optimizer, regularizer, resilience,
+from . import (analysis, debug, dtype, flags, framework, jit, loadgen, nlp,
+               nn, observability, ops, optimizer, regularizer, resilience,
                serving, utils, weights)
 from .flags import get_flags, set_flags
 from .framework import generator, resolve_device, seed
 from .serialization import load, save
 
 __all__ = ['analysis', 'debug', 'dtype', 'flags', 'framework', 'jit',
-           'nlp', 'nn', 'observability', 'ops', 'optimizer',
+           'loadgen', 'nlp', 'nn', 'observability', 'ops', 'optimizer',
            'regularizer', 'resilience', 'serving', 'utils',
            'weights', 'generator', 'get_flags', 'load', 'resolve_device',
            'save', 'seed', 'set_flags']

@@ -4,15 +4,16 @@
 `observability_summary()` is one report over the shared registry: the
 serving engine's traffic (requests, queue, slots, tokens, TTFT/TPOT,
 prefills, decode steps, the prefix cache, chunked prefill and
-speculation), the adapter bank, retries, checkpoints, the goodput
-ledger, the request ledger's closure and the hottest host spans with
+speculation), training steps and the memory watermark, the adapter
+bank, retries, checkpoints, the serving router (per-replica breaker,
+load and health), the goodput ledger, the roofline and the program
+catalog, the request ledger's closure and the hottest host spans with
 the event log's drops. It is what the HTTP server's /summary renders
 (`as_dict=True` for ?format=json) and what a flight bundle's
 `summary.txt` holds. The sections and keys are the JAX report's; the
 sections the port has no source for yet (dispatch, jit, collectives,
-offload, steps, memory, router, elastic, roofline, programs, the
-program store) are left out, and `adapters` and `requests` are the
-port's own.
+offload, elastic, the program store) are left out, and `adapters` and
+`requests` are the port's own.
 """
 from __future__ import annotations
 
@@ -39,6 +40,17 @@ def _observability_data(max_rows: int = 10) -> dict:
     closure = _obs.get_request_ledger().report(top=0)['closure']
     return {
         'process_index': snap['process_index'],
+        'steps': {
+            'total': int(reg.value('paddle_steps_total')),
+            'steps_per_sec': reg.value('paddle_steps_per_sec'),
+            'tokens_per_sec': reg.value('paddle_tokens_per_sec'),
+            'loss_last': reg.value('paddle_loss_last'),
+            # trailing-window step-time percentiles off the train.step
+            # span histogram
+            'step_time_quantiles_ms': _span_quantiles_ms(reg, 'train.step')
+            or _span_quantiles_ms(reg, 'step.compute')},
+        'memory': {
+            'watermark_bytes': reg.value('paddle_memory_watermark_bytes')},
         'resilience': {
             'retries': int(_labeled_total(
                 reg, 'paddle_resilience_retries_total')),
@@ -106,7 +118,10 @@ def _observability_data(max_rows: int = 10) -> dict:
             'pinned': int(reg.value('paddle_adapter_pinned')),
             'requests': int(_labeled_total(
                 reg, 'paddle_adapter_requests_total'))},
+        'router': _router_data(reg),
         'goodput': _obs.get_ledger().report(),
+        'roofline': _obs.roofline_summary(max_rows=max_rows),
+        'programs': _obs.program_catalog().top_programs(n=max_rows),
         'requests': closure,
         'spans': span_rows,
         'events': {'logged': len(log), 'dropped': log.dropped,
@@ -128,6 +143,20 @@ def observability_summary(max_rows: int = 10, as_dict: bool = False):
     if as_dict:
         return d
     lines = [f'observability summary (process {d["process_index"]})']
+    st = d['steps']
+    lines.append(
+        f'  steps: {st["total"]} total  '
+        f'{st["steps_per_sec"]:.2f} steps/s  '
+        f'{st["tokens_per_sec"]:.1f} tokens/s  '
+        f'loss {st["loss_last"]:.4f}')
+    if st['step_time_quantiles_ms']:
+        qs = st['step_time_quantiles_ms']
+        lines.append('    step time ' + '  '.join(
+            f'p{float(q) * 100:g} {v:.2f} ms' for q, v in sorted(
+                qs.items(), key=lambda kv: float(kv[0]))))
+    lines.append(
+        f'  memory: watermark '
+        f'{d["memory"]["watermark_bytes"] / 2**20:.1f} MiB')
     rs = d['resilience']
     lines.append(
         f'  resilience: {rs["retries"]} retries  '
@@ -180,6 +209,16 @@ def observability_summary(max_rows: int = 10, as_dict: bool = False):
     lines.append(
         f'  adapters: {ad["loads"]} loads  {ad["evictions"]} evictions  '
         f'{ad["pinned"]} pinned  {ad["requests"]} requests')
+    rt = d['router']
+    lines.append(
+        f'  router: {rt["replicas"]} replicas '
+        f'({rt["available"]} available)  queue {rt["queue_depth"]}  '
+        f'{rt["failovers"]} failovers  {rt["shed"]} shed')
+    for row in rt['per_replica']:
+        states = ','.join(row['health_states']) or 'healthy'
+        lines.append(
+            f'    replica {row["replica"]}: breaker {row["breaker"]}  '
+            f'{states}  outstanding {row["outstanding_tokens"]} tokens')
     gp = d['goodput']
     lines.append(
         f'  goodput: {gp["wall_seconds"]:.1f} s wall  '
@@ -191,6 +230,34 @@ def observability_summary(max_rows: int = 10, as_dict: bool = False):
         if secs > 0:
             lines.append(f'    {cat:<20}{secs:>10.3f} s '
                          f'{gp["fractions"][cat]:>7.1%}')
+    rf = d['roofline']
+    if rf['mfu'] is not None:
+        lines.append(
+            f'  roofline: MFU {rf["mfu"]:.3f} on {rf["device_kind"]} '
+            f'(peak {rf["peak_flops"] / 1e12:.0f} TFLOP/s, '
+            f'{rf["source"]})  '
+            f'{rf["bound_counts"]["compute"]} compute-bound / '
+            f'{rf["bound_counts"]["bandwidth"]} bandwidth-bound '
+            f'programs')
+        for row in rf['programs']:
+            bound = row['bound'] or '?'
+            lines.append(f'    {row["name"][:31]:<32} mfu '
+                         f'{row["mfu"]:.3f}  {bound}-bound  '
+                         f'{row["host_seconds"]:.3f} s')
+    else:
+        lines.append(
+            f'  roofline: MFU unknown (device {rf["device_kind"]!r} '
+            f'not in the peak table; set PADDLE_PEAK_FLOPS / '
+            f'PADDLE_PEAK_HBM_GBPS)')
+    lines.append(f'  programs: {len(d["programs"])} tracked '
+                 f'(top by host time)')
+    for p in d['programs']:
+        lines.append(
+            f'    {p["name"][:31]:<32} {p["invocations"]:>6} calls '
+            f'{p["host_seconds"]:>9.3f} s  '
+            f'{p["flops"] / 1e9:>9.3f} GFLOP  '
+            f'{p["bytes_accessed"] / 1e9:>8.3f} GB  '
+            f'peak {p["peak_memory_bytes"] / 2**20:>8.1f} MiB')
     rq = d['requests']
     lines.append(
         f'  requests: {rq["finished"]} finished  '
@@ -208,6 +275,44 @@ def observability_summary(max_rows: int = 10, as_dict: bool = False):
                      f'{row["total_s"]:>10.4f} s  avg '
                      f'{row["avg_ms"]:>8.2f} ms')
     return '\n'.join(lines)
+
+
+def _router_data(reg) -> dict:
+    """Serving-router view: fleet counters + per-replica breaker state,
+    load, and active degraded states (the /summary per-replica health)."""
+    breaker_names = {0: 'closed', 1: 'half_open', 2: 'open'}
+    per_replica = []
+    fam = reg.get('paddle_router_breaker_state')
+    out_fam = reg.get('paddle_router_outstanding_tokens')
+    if fam is not None:
+        for (rid,), child in sorted(fam.children()):
+            outstanding = 0
+            if out_fam is not None:
+                oc = out_fam._children.get((rid,))
+                outstanding = int(oc.value) if oc is not None else 0
+            per_replica.append({
+                'replica': rid,
+                'breaker': breaker_names.get(int(child.value),
+                                             str(child.value)),
+                'outstanding_tokens': outstanding,
+                'health_states': sorted(
+                    _obs.degraded_states(scope=f'replica:{rid}')),
+            })
+    outcomes: dict = {}
+    req_fam = reg.get('paddle_router_requests_total')
+    if req_fam is not None:
+        for (tenant, outcome), child in req_fam.children():
+            outcomes[outcome] = outcomes.get(outcome, 0) + int(child.value)
+    return {
+        'replicas': int(reg.value('paddle_router_replicas')),
+        'available': int(reg.value('paddle_router_available_replicas')),
+        'queue_depth': int(reg.value('paddle_router_queue_depth')),
+        'failovers': int(_labeled_total(
+            reg, 'paddle_router_failovers_total')),
+        'shed': int(_labeled_total(reg, 'paddle_router_shed_total')),
+        'outcomes': outcomes,
+        'per_replica': per_replica,
+    }
 
 
 def _labeled_total(reg, name: str) -> float:
@@ -235,6 +340,17 @@ def _hist_quantiles_ms(reg, name: str) -> dict:
     if fam is None:
         return {}
     child = fam._children.get(())
+    if child is None:
+        return {}
+    return {q: v * 1e3 for q, v in child.window_quantiles().items()}
+
+
+def _span_quantiles_ms(reg, span_name: str) -> dict:
+    """Windowed quantiles of one `paddle_span_seconds{name=}` child."""
+    fam = reg.get('paddle_span_seconds')
+    if fam is None:
+        return {}
+    child = fam._children.get((span_name,))
     if child is None:
         return {}
     return {q: v * 1e3 for q, v in child.window_quantiles().items()}

@@ -6,7 +6,8 @@ defaults and getter/setter API. In the port the fault-tolerance flags are
 read by `resilience/retry.py` (`FLAGS_ft_max_retries` and the backoff
 delays), `FLAGS_observability` gates the metrics, events and spans of
 `observability/` and `FLAGS_concurrency_sanitizer` sets the mode of
-`analysis/runtime/concurrency.py` (both registered below, so an env var
+`analysis/runtime/concurrency.py`, and the `FLAGS_autoscale*` flags
+configure `serving/autoscaler.py` (all registered below, so an env var
 of the same name sets them, as in the JAX package); the others are kept
 for API parity.
 """
@@ -101,3 +102,9 @@ def flag(name: str) -> Any:
 # sanitizer's mode ('off' | 'report' | 'strict')
 register_flag('FLAGS_observability', True)
 register_flag('FLAGS_concurrency_sanitizer', 'off')
+# the serving autoscaler (serving/autoscaler.py): the poll loop's gate,
+# the fleet bounds and the default decision cooldown
+register_flag('FLAGS_autoscale', True)
+register_flag('FLAGS_autoscale_min_replicas', 1)
+register_flag('FLAGS_autoscale_max_replicas', 4)
+register_flag('FLAGS_autoscale_cooldown_s', 10.0)

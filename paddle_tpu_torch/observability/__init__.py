@@ -6,20 +6,23 @@ one bounded `EventLog` of real-timestamped spans/events, the exporters
 (Prometheus text, JSONL, chrome trace), the goodput ledger (every
 wall-clock second), the per-request ledger (every millisecond of a
 request), the always-on flight recorder (a postmortem bundle per
-anomaly) and the HTTP endpoint (`start_server`: /metrics, /healthz,
-/summary, /events, /trace, /goodput, /requests). The serving engine,
+anomaly), the program catalog and roofline (`cost.py`), per-step
+training telemetry (`telemetry.py`), the SLO engine (`slo.py`:
+declarative objectives with multi-window burn-rate alerts) and the HTTP
+endpoint (`start_server`: /metrics, /healthz, /summary, /events, /trace,
+/programs, /goodput, /slo, /requests). The serving engine,
 scheduler, prefix cache, adapter bank, weight store, checkpoints and
 retries report here under the JAX package's names, labels and HELP
 texts, so the same dashboards and tests read both packages.
 
 Everything is pure Python and imports nothing of JAX. Not here yet
-(ROADMAP.md, Queue 1): the program catalog and step telemetry
-(`cost.py`, `telemetry.py`), and the fleet plane (`wire.py`,
-`shipper.py`, `aggregator.py`, `slo.py`).
+(ROADMAP.md, Queue 1): the cross-process fleet plane (`wire.py`,
+`shipper.py`, `aggregator.py`) and with it `/fleet/metrics` and
+`/fleet/trace`.
 
-`install()` runs at import: the flight recorder, the goodput ledger and
-the request ledger's scrape-time collector hook the default event log
-and registry. All hooks are no-ops while observability is disabled
+`install()` runs at import: the flight recorder, the goodput ledger,
+the program catalog's and the request ledger's scrape-time collectors
+hook the default event log and registry. All hooks are no-ops while observability is disabled
 (`disable()` / `FLAGS_observability`).
 """
 from __future__ import annotations
@@ -32,6 +35,14 @@ from .events import (EVENT_SCHEMA, EventLog, Span, declare_event, emit,
                      get_event_log, span)
 from .exporters import (chrome_track_metadata, read_jsonl,
                         to_chrome_trace, to_jsonl, to_prometheus_text)
+from .slo import (Objective, SLOEngine, default_objectives,
+                  get_engine as get_slo_engine,
+                  set_engine as set_slo_engine)
+from .telemetry import (StepTelemetry, collective_totals,
+                        device_memory_bytes, note_jit_cache_entry)
+from .cost import (MfuWindow, ProgramCatalog, ProgramRecord,
+                   aggregate_mfu, device_peaks, record_roofline,
+                   roofline_summary, get_catalog as program_catalog)
 from .goodput import (CATEGORIES as GOODPUT_CATEGORIES, GoodputLedger,
                       get_ledger)
 from .reqledger import (BLOCKED_REASONS, PHASES as REQUEST_PHASES,
@@ -41,6 +52,7 @@ from .flight import FlightRecorder, get_flight_recorder
 from .server import (ObservabilityServer, clear_degraded, degraded_states,
                      hang_suspected, health, note_degraded, note_progress,
                      note_weight_version, start_server, weight_versions)
+from . import cost as _cost
 from . import flight as _flight
 from . import goodput as _goodput
 from . import reqledger as _reqledger
@@ -53,6 +65,12 @@ __all__ = [
     'get_event_log', 'span',
     'read_jsonl', 'to_chrome_trace', 'to_jsonl', 'to_prometheus_text',
     'chrome_track_metadata',
+    'Objective', 'SLOEngine', 'default_objectives', 'get_slo_engine',
+    'set_slo_engine',
+    'StepTelemetry', 'collective_totals', 'device_memory_bytes',
+    'note_jit_cache_entry',
+    'MfuWindow', 'ProgramCatalog', 'ProgramRecord', 'program_catalog',
+    'aggregate_mfu', 'device_peaks', 'record_roofline', 'roofline_summary',
     'GOODPUT_CATEGORIES', 'GoodputLedger', 'get_ledger',
     'BLOCKED_REASONS', 'REQUEST_PHASES', 'RequestLedger',
     'RequestRecord', 'get_request_ledger',
@@ -66,8 +84,10 @@ __all__ = [
 
 def install():
     """Idempotent: hook the always-on flight recorder and goodput ledger
-    on the default event log and register the goodput and request
-    ledgers' scrape-time collectors (runs at package import)."""
+    on the default event log and register the program catalog's, the
+    goodput and the request ledgers' scrape-time collectors (runs at
+    package import)."""
+    _cost.install()
     _flight.install()
     _goodput.install()
     _reqledger.install()

@@ -13,13 +13,12 @@ trigger is an `EventLog` listener watching for the anomaly events of
   events.jsonl   the event-log tail (spans around the anomaly)
   trace.json     the same window as a chrome trace
   metrics.json   full registry snapshot
-  goodput.json   goodput-ledger books
+  programs.json  ProgramCatalog snapshot (per-program cost attribution)
+  goodput.json   goodput-ledger books + roofline/MFU attribution
   requests.json  request-ledger report (per-request phase waterfalls)
   prefix_cache.json  serving prefix-cache state (when serving)
-  summary.txt    debug.observability_summary()
-
-`programs.json` and the roofline half of `goodput.json` come with the
-program catalog (`cost.py`), `slo.json` with the SLO engine.
+  slo.json       SLO burn-rate state + the event log's drop count
+  summary.txt    debug.observability_summary() + the catalog report
 
 Bundles go under `dump_dir`: the one given, else `PADDLE_FLIGHT_DIR`
 read at dump time, else a per-process directory under the temp dir.
@@ -137,10 +136,11 @@ class FlightRecorder:
 
     # -- the postmortem bundle ----------------------------------------------
     def _headline_counters(self, reg) -> Dict[str, float]:
-        # the JAX recorder's serving headline counters (its training,
-        # compile and program-store ones have no source in the port yet)
+        # the JAX recorder's step and serving headline counters (its
+        # compile, resilience and program-store ones have no source in
+        # the port yet)
         out = {}
-        for name in ('paddle_serving_tokens_total',
+        for name in ('paddle_steps_total', 'paddle_serving_tokens_total',
                      'paddle_serving_decode_steps_total'):
             out[name] = reg.value(name)
         return out
@@ -148,6 +148,7 @@ class FlightRecorder:
     def dump(self, dir: Optional[str] = None, reason: str = 'manual',
              trigger: Optional[Dict[str, Any]] = None) -> str:
         """Write one postmortem bundle; returns its directory."""
+        from .cost import get_catalog
         from .events import get_event_log
         from .exporters import to_chrome_trace
         with self._lock:
@@ -186,11 +187,17 @@ class FlightRecorder:
             to_chrome_trace(log, os.path.join(path, 'trace.json'))
             with open(os.path.join(path, 'metrics.json'), 'w') as f:
                 json.dump(reg.snapshot(), f, indent=1)
+            cat = get_catalog()
+            with open(os.path.join(path, 'programs.json'), 'w') as f:
+                json.dump(cat.snapshot(), f, indent=1, default=str)
             try:
-                # where the seconds went INTO this incident
+                # where the seconds went INTO this incident: the ledger
+                # + roofline books
+                from .cost import roofline_summary
                 from .goodput import get_ledger
                 with open(os.path.join(path, 'goodput.json'), 'w') as f:
-                    json.dump({'goodput': get_ledger().report()},
+                    json.dump({'goodput': get_ledger().report(),
+                               'roofline': roofline_summary()},
                               f, indent=1, default=str)
             except Exception:
                 _metrics.count_suppressed('flight.bundle_section')
@@ -222,13 +229,28 @@ class FlightRecorder:
                           'w') as f:
                     json.dump(caches, f, indent=1, default=str)
             try:
+                # SLO posture: burn-rate state at the moment of the
+                # incident plus the event ring's drop count (the breach
+                # bundle's own evidence section; the fleet aggregator's
+                # per-process counts come with it)
+                from .slo import get_engine
+                slo_doc: Dict[str, Any] = {
+                    'local_events_dropped': log.dropped}
+                engine = get_engine()
+                if engine is not None:
+                    slo_doc['slo'] = engine.report()
+                with open(os.path.join(path, 'slo.json'), 'w') as f:
+                    json.dump(slo_doc, f, indent=1, default=str)
+            except Exception:
+                _metrics.count_suppressed('flight.bundle_section')
+            try:
                 from .. import debug
                 summary = debug.observability_summary() + '\n'
             except Exception:
                 _metrics.count_suppressed('flight.bundle_section')
                 summary = ''   # partial bundle beats none mid-crash
             with open(os.path.join(path, 'summary.txt'), 'w') as f:
-                f.write(summary)
+                f.write(summary + cat.report() + '\n')
             self.dumps.append(path)
             if _metrics.enabled():
                 reg.counter('paddle_flight_dumps_total',

@@ -1,6 +1,6 @@
 """Goodput ledger: explain every wall-clock second of a run (a copy of
-`paddle_tpu/observability/goodput.py`; its MFU window comes with the
-program catalog of `cost.py`).
+`paddle_tpu/observability/goodput.py`, with the MFU window that the
+program catalog's roofline (`cost.py`) divides through).
 
 A ledger that classifies 100% of wall time into productive vs. overhead
 categories, with the unexplained remainder reported as an explicit
@@ -136,6 +136,10 @@ class GoodputLedger:
         self._last_step: Dict[int, float] = {}
         self._t0 = _events._now()
         self._running = False
+        # per-program invocation counts at window start: the MFU
+        # baseline (cost.record_roofline / aggregate_mfu divide the
+        # window's executed FLOPs by the window's WALL seconds)
+        self._mfu_baseline: Dict[str, int] = {}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, reset: bool = False) -> 'GoodputLedger':
@@ -160,13 +164,29 @@ class GoodputLedger:
         return self._running
 
     def reset(self):
-        """Open a fresh window: zero every category, forget intervals and
-        restart the wall clock at now."""
+        """Open a fresh window: zero every category, forget intervals,
+        restart the wall clock at now, and re-baseline the MFU window
+        (per-program invocation counts as of now)."""
+        try:
+            from .cost import get_catalog
+            baseline = {r.name: r.invocations
+                        for r in get_catalog().records()}
+        except Exception:  # paddle-lint: disable=swallowed-exception -- catalog optional at reset; empty baseline just disables per-program MFU deltas
+            baseline = {}
         with self._lock:
             self._seconds = {c: 0.0 for c in CATEGORIES}
             self._intervals.clear()
             self._last_step.clear()
             self._t0 = _events._now()
+            self._mfu_baseline = baseline
+
+    def mfu_window(self) -> 'Tuple[float, Dict[str, int]]':
+        """(wall seconds since the last reset, invocation baseline at
+        that reset) — the window cost.py's MFU/roofline math divides
+        through."""
+        with self._lock:
+            return (max(_events._now() - self._t0, 0.0),
+                    dict(self._mfu_baseline))
 
     # -- attribution ---------------------------------------------------------
     def on_event(self, event: Dict[str, Any]):

@@ -14,13 +14,17 @@ shared registry and event log the way every scraper expects:
              resumes from a sequence number / timestamp cursor,
              ?trace_id=N keeps one request's events)
   /trace     chrome://tracing JSON of the event log
-  /goodput   goodput-ledger report (?format=json for the dict)
+  /programs  ProgramCatalog report (?format=json for top_programs())
+  /goodput   goodput-ledger report + roofline/MFU attribution
+             (?format=json for the dict)
+  /slo       SLO engine report: burn rates, budget remaining, breaches
+             (requires `slo.set_engine`, 503 otherwise; ?poll=1 polls
+             first)
   /requests  the per-request latency ledger (?top=N slowest waterfalls)
 
-`/programs`, `/slo`, `/fleet/metrics` and `/fleet/trace` answer 404,
-their body naming the port's slice that brings them (ROADMAP.md, Queue
-1): the program catalog (`cost.py`), the SLO engine and the fleet
-aggregator.
+`/fleet/metrics` and `/fleet/trace` answer 404, their body naming the
+port's slice that brings them (ROADMAP.md, Queue 1): the cross-process
+fleet aggregator.
 
 `start_server(port)` binds `0.0.0.0` by default, as the JAX server does;
 port 0 binds an ephemeral port (`.port`, `.url`). Handlers only READ
@@ -235,7 +239,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _index(self):
         self._send('paddle_tpu_torch observability: /metrics /healthz '
-                   '/summary /events /trace /goodput /requests\n')
+                   '/summary /events /trace /programs /goodput /slo '
+                   '/requests\n')
 
     def _not_ported(self, what: str):
         self._send(f'{urlparse(self.path).path} is not served yet: it '
@@ -312,7 +317,13 @@ class _Handler(BaseHTTPRequestHandler):
                    content_type='application/json')
 
     def _programs(self):
-        self._not_ported('the program catalog (observability/cost.py)')
+        from .cost import get_catalog
+        cat = get_catalog()
+        if self._query().get('format') == 'json':
+            self._send(json.dumps({'programs': cat.top_programs(n=50)})
+                       + '\n', content_type='application/json')
+        else:
+            self._send(cat.report() + '\n')
 
     def _fleet_metrics(self):
         self._not_ported('the fleet aggregator '
@@ -323,13 +334,24 @@ class _Handler(BaseHTTPRequestHandler):
                          '(observability/aggregator.py)')
 
     def _slo(self):
-        self._not_ported('the SLO engine (observability/slo.py)')
+        from .slo import get_engine
+        engine = get_engine()
+        if engine is None:
+            self._send('no SLO engine registered (see '
+                       'observability.slo.set_engine)\n', status=503)
+            return
+        if self._query().get('poll') == '1':
+            engine.poll()
+        self._send(json.dumps(engine.report(), indent=1, default=str)
+                   + '\n', content_type='application/json')
 
     def _goodput(self):
+        from .cost import roofline_summary
         from .goodput import get_ledger
         ledger = get_ledger()
         if self._query().get('format') == 'json':
-            self._send(json.dumps({'goodput': ledger.report()})
+            self._send(json.dumps({'goodput': ledger.report(),
+                                   'roofline': roofline_summary()})
                        + '\n', content_type='application/json')
         else:
             self._send(ledger.report_text() + '\n')

@@ -24,10 +24,12 @@ GREEDY = 'greedy_search'
 SAMPLING = 'sampling'
 
 # priority classes (lower = more urgent); the scheduler orders admission
-# by (priority, FCFS-within-class)
+# by (priority, FCFS-within-class); the router maps tenants onto these
 PRIORITY_HIGH = 0
 PRIORITY_NORMAL = 1
 PRIORITY_LOW = 2
+PRIORITY_NAMES = {'high': PRIORITY_HIGH, 'normal': PRIORITY_NORMAL,
+                  'low': PRIORITY_LOW}
 
 _request_ids = itertools.count()
 

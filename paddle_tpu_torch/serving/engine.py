@@ -149,6 +149,7 @@ import torch
 
 from .. import observability as _obs
 from ..nlp.generation import cached_forward
+from ..observability import cost as _cost
 from ..observability import reqledger as _reqledger
 from ..framework import generator as _generator
 from ..resilience.retry import is_cuda_error
@@ -162,6 +163,21 @@ from .scheduler import FCFSScheduler
 
 # occupancy is a ratio; the latency-shaped default buckets are wrong here
 _OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+
+def program_name(trace_key: str) -> str:
+    """The JAX program name a `stats()['traces']` key is cataloged under
+    (`observability.cost`): the decode sub-step's graph serves the JAX
+    engine's whole decode block, the others keep their key."""
+    if trace_key == 'paged_decode_step':
+        return 'serving.paged_decode_block'
+    return f'serving.{trace_key}'
+
+
+def _model_cost(model, kv_itemsize: int) -> _cost.TransformerCost:
+    return _cost.TransformerCost(
+        model.config, torch.empty((), dtype=model.dtype).element_size(),
+        kv_itemsize)
 
 def _host_tensor(value) -> torch.Tensor:
     """A published weight (a tensor, a numpy array or anything
@@ -340,6 +356,14 @@ class InferenceEngine:
         self._counts = collections.Counter()
         self._seconds = collections.Counter()
         self._trace_counts = collections.Counter()
+        # program name -> invocations booked in the catalog by this
+        # engine (a round, a prefill, a chunk: as the JAX engine calls
+        # its programs)
+        self._program_calls = collections.Counter()
+        self._cost = _model_cost(model, self.pool.pages[0][0].element_size())
+        self._draft_cost = (None if draft_model is None else
+                            _model_cost(draft_model, torch.empty(
+                                (), dtype=draft_model.dtype).element_size()))
         arrays = (None if adapter_bank is None
                   else adapter_bank.device_arrays())
         if draft_model is None:
@@ -592,12 +616,16 @@ class InferenceEngine:
         """`decode_block` paged sub-steps over every slot; returns the
         [num_slots, decode_block] tokens. The `serving.decode_round` span
         holds the fetch, which waits for the round."""
+        cost = self._round_cost() if _obs.enabled() else None
+        t0 = time.perf_counter()
         with _obs.span('serving.decode_round',
                        slots=len(self._slot_req),
                        requests=[h.request_id
                                  for h in self._slot_req.values()]):
             with torch.inference_mode():
                 toks = self._queue_round().to('cpu', copy=True).numpy()
+        self._book_program(self._decode_name, time.perf_counter() - t0,
+                           cost)
         _obs.note_progress('decode')   # /healthz decode liveness beat
         self._counts['decode_steps'] += self.decode_block
         if _obs.enabled():
@@ -609,6 +637,8 @@ class InferenceEngine:
         host ([num_slots, k + 1] tokens, [num_slots] accepted counts + 1).
         The `serving.spec_round` span holds the fetch, which waits for the
         round. One verify pass: one decode step."""
+        cost = self._round_cost() if _obs.enabled() else None
+        t0 = time.perf_counter()
         with _obs.span('serving.spec_round',
                        slots=len(self._slot_req), k=self.spec_k,
                        requests=[h.request_id
@@ -617,6 +647,8 @@ class InferenceEngine:
                 toks, counts = self._queue_round()
                 toks = toks.to('cpu', copy=True).numpy()
                 counts = counts.to('cpu', copy=True).numpy()
+        self._book_program(self._decode_name, time.perf_counter() - t0,
+                           cost)
         _obs.note_progress('decode')
         self._counts['decode_steps'] += 1
         self._counts['spec_rounds'] += 1
@@ -643,10 +675,7 @@ class InferenceEngine:
         the engine's first round on the card."""
         step = self._decode
         if self._capture_decode and step.graph is None:
-            t0 = time.perf_counter()
-            step.capture()
-            self._seconds['capture'] += time.perf_counter() - t0
-            self._trace_counts[self._decode_name] += 1
+            self._capture(self._decode_name, step.capture)
         staged = dict(
             tok=self._tok, pos=self._pos, active=self._active,
             table=np.where(self._active[:, None], self.pool.page_table, 0),
@@ -1125,11 +1154,71 @@ class InferenceEngine:
         if self._capture_prefill and step.graph is None:
             if self._prefill_pool is None:
                 self._prefill_pool = torch.cuda.graph_pool_handle()
-            t0 = time.perf_counter()
-            step.capture(self._prefill_pool)
-            self._seconds['capture'] += time.perf_counter() - t0
-            self._trace_counts[step.name] += 1
+            self._capture(step.name,
+                          lambda: step.capture(self._prefill_pool))
         return step
+
+    def _capture(self, key: str, capture):
+        """Run `capture()` (a graph capture), count it in `traces` under
+        `key` and book it in the program catalog: its seconds as the
+        program's compile and what it added to the memory pool as its
+        peak memory."""
+        t0 = time.perf_counter()
+        m0 = torch.cuda.memory_reserved(self.device)
+        capture()
+        dt = time.perf_counter() - t0
+        self._seconds['capture'] += dt
+        self._trace_counts[key] += 1
+        if _obs.enabled():
+            cat = _cost.get_catalog()
+            name = program_name(key)
+            cat.note_compile(name, dt, kind='serving')
+            cat.note_memory(name, max(
+                torch.cuda.memory_reserved(self.device) - m0, 0),
+                kind='serving')
+
+    def _book_program(self, key: str, seconds: float, cost):
+        """Book one call of the program of `key` in the catalog: its host
+        wall and its analytic (FLOPs, bytes); `cost` is None while
+        observability is off (nothing is booked then)."""
+        name = program_name(key)
+        self._program_calls[name] += 1
+        if cost is not None and _obs.enabled():
+            cat = _cost.get_catalog()
+            cat.note_invocation(name, seconds, kind='serving')
+            cat.note_cost(name, *cost, kind='serving')
+
+    def _round_cost(self) -> tuple:
+        """Analytic (FLOPs, bytes) of the round about to run, from the
+        staged positions: every slot's row runs the matmuls (the batch is
+        static), each active slot attends its keys so far at each
+        sub-step, and a speculation round adds k draft sub-steps and a
+        verify of k + 1 rows per slot."""
+        n = self.pool.num_slots
+        last = self.pool.max_length - 1
+        pos = self._pos[self._active].astype(np.int64)
+
+        def keys(t: int) -> int:     # keys of every active slot's row t
+            return int(np.minimum(pos + t, last).sum()) + pos.size
+        if self.draft_model is None:
+            steps = [self._cost.forward(n, keys(j), keys(j), n)
+                     for j in range(self.decode_block)]
+        else:
+            k = self.spec_k
+            steps = [self._draft_cost.forward(n, keys(j), keys(j), n)
+                     for j in range(k)]
+            steps.append(self._cost.forward(
+                n * (k + 1), sum(keys(t) for t in range(k + 1)), keys(k),
+                n * (k + 1)))
+        return (sum(f for f, _ in steps), sum(b for _, b in steps))
+
+    def _prefill_cost(self, kind: str, bucket: int, start: int) -> tuple:
+        """Analytic (FLOPs, bytes) of one prefill at `bucket` rows: causal
+        attention over the bucket, a chunk's rows also over the `start`
+        rows before it; no LM head (a prefill writes K/V only)."""
+        cost = self._draft_cost if kind == 'draft' else self._cost
+        keys = bucket * start + bucket * (bucket + 1) // 2
+        return cost.forward(bucket, keys, start, bucket, head=False)
 
     def _run_prefill(self, slot: int, kind: str, window, bucket: int,
                      **staged):
@@ -1144,11 +1233,16 @@ class InferenceEngine:
                  else self.pool.page_table)[slot:slot + 1]
         if self.adapter_bank is not None and kind != 'draft':
             staged['rows'] = self._adapter_rows[slot:slot + 1]
+        t0 = time.perf_counter()
         with torch.inference_mode():
             step = self._prefill_step(kind, bucket)
             step.stage(ids=ids, table=table, **staged)
             step.run_once()
         self._sync()
+        self._book_program(step.name, time.perf_counter() - t0,
+                           self._prefill_cost(kind, bucket,
+                                              int(staged.get('start', 0)))
+                           if _obs.enabled() else None)
 
     def _whole_prefill(self, slot: int, h: RequestHandle):
         """Prefill the right-padded prompt bucket through the causal flash

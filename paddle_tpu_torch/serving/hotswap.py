@@ -34,10 +34,11 @@ Observability (the JAX store's): the events `weight_publish`,
 and the `paddle_weight_published_version` gauge; a serving engine's
 swap notes its `weight_version` (`/healthz`, `paddle_weight_version`).
 
-Not ported yet (ROADMAP.md, Queue 1): `ReplicaUpdater`, the rolling
-swap across a Router's replicas (the port has no router yet), with its
-`hotswap.*` spans and `paddle_swap_total` / `_rollbacks_total` /
-`_seconds`.
+- `ReplicaUpdater`: the serving side. Rolls a new version across a
+  `Router`'s replicas one at a time (cordon, drain, swap, health gate,
+  rejoin; a failed gate restores, quarantines and aborts), under the
+  `hotswap.*` spans with `paddle_swap_total` / `_rollbacks_total` /
+  `_seconds` and the `weight_swap_*` / `weight_rollback` events.
 """
 from __future__ import annotations
 
@@ -475,3 +476,219 @@ class CanaryGate:
         if not toks:
             return False, 'canary produced no tokens'
         return True, ''
+
+
+# ---------------------------------------------------------------------------
+# serving side
+# ---------------------------------------------------------------------------
+
+class ReplicaUpdater:
+    """Rolls published weight versions across a `Router`'s replicas,
+    one at a time, with zero dropped requests and zero recaptures (a
+    copy of the JAX package's `ReplicaUpdater`).
+
+    Each replica is cordoned (its scoped `weight_swap` degraded state
+    takes it out of placement), drained by stepping the whole router,
+    swapped (`engine.swap_weights`, an in-place copy into that replica's
+    own parameters: `router.replica_model`), health-gated and rejoined;
+    a failed gate restores its previous weights, quarantines the version
+    and aborts the roll. Where the JAX updater counts new program-store
+    keys and real XLA compiles across a swap, the port counts the
+    swapped engine's new CUDA-graph captures (`stats()['traces']`):
+    `new_program_keys` is the number of graphs captured for the first
+    time, `real_compiles` the number of captures, and both stay 0.
+
+    Args:
+        router: the live `Router` (its replicas are the swap targets;
+            its `step()` keeps the WHOLE fleet serving while one
+            replica drains).
+        store: the `WeightStore` the trainer publishes into.
+        gates: health-gate callables `(engine, version, tree) ->
+            (ok, detail)` run after the swap, before rejoin; the first
+            failure reverts the replica and quarantines the version.
+            Default: `[finite_weights_gate]`.
+        max_drain_rounds: router rounds to wait for a replica to go
+            idle before declaring the swap stuck (`SwapFailed`).
+        traffic_pump: optional zero-arg callable invoked once per drain
+            round — the hook tests (and request-generating callers) use
+            to keep submitting traffic WHILE a swap is in flight.
+    """
+
+    def __init__(self, router, store: WeightStore, *,
+                 gates: Optional[Sequence[Callable]] = None,
+                 max_drain_rounds: int = 100000,
+                 traffic_pump: Optional[Callable[[], None]] = None):
+        self.router = router
+        self.store = store
+        self.gates = list(gates) if gates is not None \
+            else [finite_weights_gate]
+        self.max_drain_rounds = int(max_drain_rounds)
+        self.traffic_pump = traffic_pump
+        reg = _obs.get_registry()
+        self._m_swaps = reg.counter(
+            'paddle_swap_total', 'per-replica weight swaps by outcome',
+            ('outcome',))
+        self._m_rollbacks = reg.counter(
+            'paddle_swap_rollbacks_total',
+            'replicas reverted to their previous weights after a '
+            'failed health gate')
+        self._m_seconds = reg.histogram(
+            'paddle_swap_seconds',
+            'per-replica drain+swap+verify+rejoin wall time')
+
+    # -- introspection ------------------------------------------------------
+    def current_versions(self) -> Dict[int, int]:
+        return {r.id: r.engine.weight_version
+                for r in self.router.replicas}
+
+    @property
+    def fleet_version(self) -> Optional[int]:
+        """The single version every replica serves, or None while the
+        fleet is mixed (mid-rollout)."""
+        vs = set(self.current_versions().values())
+        return vs.pop() if len(vs) == 1 else None
+
+    # -- the rolling swap ---------------------------------------------------
+    def poll(self) -> Optional[Dict[str, Any]]:
+        """Swap to the store's latest servable version when any replica
+        is behind it; returns the `update_to` result or None."""
+        latest = self.store.latest_version()
+        if latest is None:
+            return None
+        if all(r.engine.weight_version >= latest
+               for r in self.router.replicas):
+            return None
+        return self.update_to(latest)
+
+    def update_to(self, version: int) -> Dict[str, Any]:
+        """Roll `version` across the fleet. One replica at a time; a
+        gate failure quarantines the version and ABORTS the rollout —
+        replicas not yet swapped never see a version another replica
+        just rejected."""
+        version = int(version)
+        result: Dict[str, Any] = {'version': version,
+                                  'outcome': 'completed', 'replicas': []}
+        with _obs.span('hotswap.swap', version=version):
+            with _obs.span('hotswap.load', version=version):
+                try:
+                    tree = self.store.load(version)
+                except Exception as exc:
+                    # a version that cannot even load is quarantined the
+                    # same as one that fails its gate — no replica was
+                    # touched, nothing to roll back
+                    self.store.quarantine(version,
+                                          f'load failed: {exc}')
+                    if _obs.enabled():
+                        self._m_swaps.labels(outcome='load_failed').inc()
+                    result['outcome'] = 'load_failed'
+                    result['error'] = f'{type(exc).__name__}: {exc}'
+                    return result
+            for replica in list(self.router.replicas):
+                r = self._swap_replica(replica, version, tree)
+                result['replicas'].append(r)
+                if r['outcome'] == 'rolled_back':
+                    result['outcome'] = 'aborted'
+                    break
+        return result
+
+    def _drive_drain(self, engine) -> int:
+        rounds = 0
+        while engine.has_work:
+            if self.traffic_pump is not None:
+                self.traffic_pump()
+            self.router.step()
+            rounds += 1
+            if rounds > self.max_drain_rounds:
+                raise SwapFailed(
+                    -1, -1, f'replica did not drain within '
+                            f'{self.max_drain_rounds} router rounds')
+        return rounds
+
+    def _swap_replica(self, replica, version: int,
+                      tree: Dict[str, Any]) -> Dict[str, Any]:
+        eng = replica.engine
+        from_version = eng.weight_version
+        res: Dict[str, Any] = {
+            'replica': replica.id, 'from_version': from_version,
+            'to_version': version, 'outcome': 'completed',
+            'drain_rounds': 0, 'new_program_keys': 0, 'real_compiles': 0,
+        }
+        if from_version == version:
+            res['outcome'] = 'already_current'
+            return res
+        _obs.emit('weight_swap_begin', replica=replica.id,
+                  from_version=from_version, to_version=version)
+        # cordon: the scoped degraded state takes this replica out of
+        # placement through the SAME machinery /healthz and the router
+        # already share — in-flight and queued work keeps decoding
+        _obs.note_degraded('weight_swap',
+                           {'from_version': from_version,
+                            'to_version': version}, scope=replica.scope)
+        t0 = time.perf_counter()
+        cleared = False
+        try:
+            with _obs.span('hotswap.drain', replica=replica.id,
+                           version=version):
+                try:
+                    res['drain_rounds'] = self._drive_drain(eng)
+                except SwapFailed as exc:
+                    raise SwapFailed(version, replica.id,
+                                     str(exc)) from None
+            traces0 = dict(eng.stats()['traces'])
+            with _obs.span('hotswap.load', replica=replica.id,
+                           version=version):
+                prev = eng.swap_weights(tree, version=version)
+            ok, detail = True, ''
+            with _obs.span('hotswap.verify', replica=replica.id,
+                           version=version):
+                for gate in self.gates:
+                    try:
+                        verdict = gate(eng, version, tree)
+                        ok, detail = (verdict if isinstance(verdict,
+                                                            tuple)
+                                      else (bool(verdict), ''))
+                    except Exception as exc:
+                        ok = False
+                        detail = f'{type(exc).__name__}: {exc}'
+                    if not ok:
+                        break
+                # zero recaptures: the swap copies into the live
+                # parameters, so no graph (gates included) is captured
+                # again
+                traces1 = eng.stats()['traces']
+                res['new_program_keys'] = len(set(traces1) - set(traces0))
+                res['real_compiles'] = int(sum(traces1.values())
+                                           - sum(traces0.values()))
+            if ok:
+                with _obs.span('hotswap.rejoin', replica=replica.id,
+                               version=version):
+                    _obs.clear_degraded('weight_swap',
+                                        scope=replica.scope)
+                    cleared = True
+                dt = time.perf_counter() - t0
+                _obs.emit('weight_swap_complete', replica=replica.id,
+                          from_version=from_version, to_version=version,
+                          drain_rounds=res['drain_rounds'],
+                          seconds=round(dt, 4))
+                if _obs.enabled():
+                    self._m_swaps.labels(outcome='completed').inc()
+                    self._m_seconds.observe(dt)
+            else:
+                with _obs.span('hotswap.rollback', replica=replica.id,
+                               version=version):
+                    eng.restore_weights(prev)
+                self.store.quarantine(version, detail)
+                _obs.emit('weight_swap_failed', replica=replica.id,
+                          version=version, reason=detail)
+                _obs.emit('weight_rollback', replica=replica.id,
+                          to_version=from_version)
+                if _obs.enabled():
+                    self._m_swaps.labels(outcome='rolled_back').inc()
+                    self._m_rollbacks.inc()
+                    self._m_seconds.observe(time.perf_counter() - t0)
+                res['outcome'] = 'rolled_back'
+                res['reason'] = detail
+        finally:
+            if not cleared:
+                _obs.clear_degraded('weight_swap', scope=replica.scope)
+        return res

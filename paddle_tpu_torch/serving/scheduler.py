@@ -62,6 +62,10 @@ class FCFSScheduler:
         self._queue.append(handle)
         self._note_depth()
 
+    def pending(self) -> List[RequestHandle]:
+        """Snapshot of the queued handles (router introspection)."""
+        return list(self._queue)
+
     def requeue(self, handle: RequestHandle):
         """Put an already-admitted handle back at the queue FRONT (the
         engine could not seat it: its page reservation hit

@@ -1716,3 +1716,84 @@ def test_graph_engine_observability_equals_its_eager_twin(cuda, kind):
     names = {name for name, _, _ in graph[1]}
     assert {'serving.queue', 'serving.decode_round'} <= names
     assert graph[0][('paddle_serving_tokens_total', ())] == 6 * 12
+
+
+# ---------------------------------------------------------------------------
+# replicated serving in one process: the router over graph engines
+# ---------------------------------------------------------------------------
+
+def _fleet_case(cuda):
+    """A 2-layer bf16 model, 8 prompts of buckets 8 to 64, a budget of 10."""
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(31, cuda))
+    g = torch.Generator().manual_seed(32)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 60, 17, 33, 9, 41, 3, 28)]
+    return model, prompts, SamplingParams(max_new_tokens=10,
+                                          eos_token_id=-1)
+
+
+def test_two_replica_router_on_the_card_equals_one(cuda):
+    """Two graph-engine replicas behind a Router (replica 1 over its own
+    copy of the weights, on the card) give every request the tokens of a
+    one-replica router, and each replica's programs are booked in the
+    catalog under the JAX names."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import ReplicaSet, Router
+    obs.enable()
+    model, prompts, sp = _fleet_case(cuda)
+    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    one = Router(ReplicaSet(model, 1, **kw)).generate_many(prompts, sp)
+    rs = ReplicaSet(model, 2, **kw)
+    two = Router(rs).generate_many(prompts, sp)
+    assert [h.tokens for h in two] == [h.tokens for h in one]
+    assert {h.replica_id for h in two} == {0, 1}
+    p0, p1 = (dict(r.engine.model.named_parameters()) for r in rs)
+    assert all(p0[n].data_ptr() != p1[n].data_ptr() for n in p0)
+    assert rs[0].engine.model is model
+    for r in rs:
+        assert r.engine.stats()['traces'].get('paged_decode_step') == 1
+        assert r.engine._program_calls['serving.paged_decode_block'] > 0
+    names = {rec.name for rec in obs.program_catalog().records()}
+    assert 'serving.paged_decode_block' in names
+
+
+def test_router_failover_on_the_card_loses_nothing(cuda):
+    """Replica 0 of two graph engines raises a transient error at its 3rd
+    step: its requests fail over to replica 1, none is lost, and every
+    request's tokens equal the undisturbed run's; a CUDA error instead
+    fails the orphans with the typed ReplicaFailure."""
+    from paddle_tpu_torch.resilience import TransientError
+    from paddle_tpu_torch.serving import ReplicaSet, Router
+    model, prompts, sp = _fleet_case(cuda)
+    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    calm = [h.tokens for h in Router(ReplicaSet(model, 2, **kw))
+            .generate_many(prompts, sp)]
+    for exc, transient in (
+            (TransientError('UNAVAILABLE: injected replica loss'), True),
+            (RuntimeError('CUDA error: an illegal memory access was '
+                          'encountered'), False)):
+        rs = ReplicaSet(model, 2, **kw)
+        router = Router(rs)
+        victim, calls = rs[0].engine, [0]
+        real = victim.step
+
+        def dying(real=real, calls=calls, exc=exc):
+            calls[0] += 1
+            if calls[0] == 3:
+                raise exc
+            return real()
+        victim.step = dying
+        hs = router.generate_many(prompts, sp)
+        assert all(h.status == 'FINISHED' or (h.status == 'FAILED'
+                                              and h.error is not None)
+                   for h in hs)
+        if transient:
+            assert [h.tokens for h in hs] == calm
+            assert sum(h.failovers for h in hs) > 0
+        else:
+            failed = [h for h in hs if h.status == 'FAILED']
+            assert failed and all(type(h.error).__name__ ==
+                                  'ReplicaFailure' for h in failed)
+            assert all(h.tokens == calm[i] for i, h in enumerate(hs)
+                       if h.status == 'FINISHED')

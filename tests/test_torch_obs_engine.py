@@ -14,14 +14,20 @@ engine's, on the CPU, over the tiny GQA Llama carried across by
   keys and the same number of rounds, and both ledgers closed within 1%
   (every finished request's waterfall against its E2E, the fair-share
   decode book against the engine decode wall, the goodput categories
-  plus residual against the wall) in both packages.
+  plus residual against the wall) in both packages. The program
+  catalog's families mirror a process-wide catalog (and its FLOPs and
+  bytes are XLA's in the JAX package, an analytic count in the port):
+  they are compared as each program's invocations during the trace.
 - With observability off the port's engine changes no metric and logs
   no event.
 - The port's HTTP server beside a live engine on 127.0.0.1:0: `/metrics`
   parses line by line under the exposition format, its serving counters
   and `/summary?format=json`'s serving section equal `stats()`,
   `/healthz` goes 200 -> 503 `draining` -> 200, `/goodput`,
-  `/requests`, `/trace` answer, `/programs` and `/slo` answer 404.
+  `/requests`, `/trace` answer, `/programs` and `/slo` answer 200 with
+  bodies of the JAX server's shape (the same programs with the same
+  invocations, the same SLO report), `/fleet/metrics` and `/fleet/trace`
+  answer 404 naming ROADMAP.md.
 - A failed admission writes one flight bundle with its files, under a
   temp directory.
 - Lint: every `emit('...')` literal in `paddle_tpu_torch/` is declared
@@ -241,6 +247,12 @@ PORT_EVENTS, PORT_SPANS = _port_vocabulary()
 # compiles, which the port has no counterpart of (it captures CUDA
 # graphs, counted in stats()['traces'])
 JAX_ONLY = re.compile(r'^(program_|jit\.|donation_)')
+# the program catalog's scrape-time mirror (observability/cost.py)
+CATALOG_FAMILIES = frozenset((
+    'paddle_program_invocations_total', 'paddle_program_host_seconds_total',
+    'paddle_program_compile_seconds_total', 'paddle_program_flops',
+    'paddle_program_bytes_accessed', 'paddle_program_peak_memory_bytes',
+    'paddle_program_mfu', 'paddle_roofline_bound', 'paddle_mfu'))
 _TIME_KEYS = {'ts', 'dur', 'tid', 'seq', 'seconds', 'delay_s'}
 
 
@@ -326,7 +338,11 @@ def _run(kit, trace, monkeypatch):
     _reset(kit.obs)
     rounds = _Rounds(kit.req, monkeypatch)
     base = kit.obs.events._span_state.depth
+    calls0 = _program_calls(kit.obs)
     hs = trace(kit)
+    calls = {name: n - calls0.get(name, 0)
+             for name, n in _program_calls(kit.obs).items()
+             if n != calls0.get(name, 0)}
     ids = {h.request_id: i for i, h in enumerate(hs)}
     events, other = _events(kit.obs, ids, base)
     led = kit.obs.get_request_ledger()
@@ -350,12 +366,18 @@ def _run(kit, trace, monkeypatch):
     assert gp['overcount_seconds'] == 0.0
     assert gp['categories']['serving_decode'] > 0
     names = {m['name'] for m in kit.obs.get_registry().snapshot()['metrics']
-             if m['name'].startswith('paddle_')}
+             if m['name'].startswith('paddle_')
+             and m['name'] not in CATALOG_FAMILIES}
     return types.SimpleNamespace(
         events=events, other=other, records=records, closure=closure,
         tokens=[len(h.tokens) for h in hs], handles=hs,
         finished=closure['finished'], names=names,
-        metrics=_metrics(kit.obs, names))
+        metrics=_metrics(kit.obs, names), programs=calls)
+
+
+def _program_calls(obs):
+    """{program: invocations} of the package's program catalog."""
+    return {r.name: r.invocations for r in obs.program_catalog().records()}
 
 
 @pytest.mark.parametrize('trace', sorted(TRACES))
@@ -374,6 +396,7 @@ def test_engine_observability_equals_jax(models, tmp_path, monkeypatch,
     pm = p.metrics
     jm = {k: v for k, v in j.metrics.items() if k[0] in p.names}
     assert pm == jm
+    assert p.programs == j.programs and p.programs
     assert p.events == j.events
     assert p.records == j.records
     assert p.tokens == j.tokens
@@ -441,13 +464,36 @@ def _get(url):
 
 
 def test_server_beside_a_live_engine(models, tmp_path):
-    kit = _kits(models, tmp_path)['torch']
+    kits = _kits(models, tmp_path)
+    kit = kits['torch']
     _reset(pobs)
+    _reset(jobs)
     srv = pobs.start_server(0, host='127.0.0.1')
+    jsrv = jobs.start_server(0, host='127.0.0.1')
     try:
         assert srv.url.startswith('http://127.0.0.1:')
-        eng = _engine(kit, prefix_cache=0.5, prefill_chunk_tokens=16)
-        eng.generate_many(_prompts([20, 40, 9, 33], seed=9), _sp(kit))
+        calls0 = {'torch': _program_calls(pobs), 'jax': _program_calls(jobs)}
+        for k in (kits['jax'], kit):    # the port's engine stays `eng`
+            eng = _engine(k, prefix_cache=0.5, prefill_chunk_tokens=16)
+            eng.generate_many(_prompts([20, 40, 9, 33], seed=9), _sp(k))
+        # /programs: the programs this trace ran, with the same
+        # invocations, in both servers' bodies
+        ran = {}
+        for name, server in (('torch', srv), ('jax', jsrv)):
+            status, body = _get(f'{server.url}/programs?format=json')
+            assert status == 200
+            rows = {r['name']: r for r in json.loads(body)['programs']}
+            ran[name] = {n: r['invocations'] - calls0[name].get(n, 0)
+                         for n, r in rows.items()
+                         if r['invocations'] != calls0[name].get(n, 0)}
+            assert {'mfu', 'roofline_bound', 'arithmetic_intensity',
+                    'flops', 'bytes_accessed', 'peak_memory_bytes',
+                    'compile_count', 'kind'} <= set(next(iter(
+                        rows.values())))
+            status, body = _get(f'{server.url}/programs')
+            assert status == 200 and body.startswith('program catalog:')
+        assert ran['torch'] == ran['jax'] and \
+            'serving.paged_decode_block' in ran['torch']
         st = eng.stats()
         status, body = _get(f'{srv.url}/metrics')
         assert status == 200
@@ -494,13 +540,30 @@ def test_server_beside_a_live_engine(models, tmp_path):
         trace = json.loads(_get(f'{srv.url}/trace')[1])
         assert any(e['name'] == 'serving.decode_round'
                    for e in trace['traceEvents'])
-        for route in ('/programs', '/slo', '/fleet/metrics',
-                      '/fleet/trace'):
+        # /slo: 503 with no engine registered, then the same report
+        for obs_mod, server in ((pobs, srv), (jobs, jsrv)):
+            assert _get(f'{server.url}/slo')[0] == 503
+        bodies = []
+        for obs_mod, server in ((pobs, srv), (jobs, jsrv)):
+            obs_mod.set_slo_engine(obs_mod.SLOEngine(
+                obs_mod.default_objectives(0.5), clock=lambda: 100.0,
+                flight=False))
+            try:
+                status, body = _get(f'{server.url}/slo?poll=1')
+            finally:
+                obs_mod.set_slo_engine(None)
+            assert status == 200
+            bodies.append(json.loads(body))
+        assert bodies[0] == bodies[1]
+        assert [o['name'] for o in bodies[0]['objectives']] == [
+            'ttft_p99', 'availability', 'shed_rate']
+        for route in ('/fleet/metrics', '/fleet/trace'):
             status, body = _get(srv.url + route)
             assert status == 404 and 'ROADMAP.md' in body, route
         assert _get(f'{srv.url}/nope')[0] == 404
     finally:
         srv.stop()
+        jsrv.stop()
 
 
 def test_failed_admission_writes_one_flight_bundle(models, tmp_path,
