@@ -15,6 +15,7 @@
                                            # float pages, port in TREE
                                            # (OUT: its outputs saved)
     python3 chip_smoke.py --paged-bits A B # two saved outputs bit-equal?
+    python3 chip_smoke.py --procs          # phase 6, then phase 6j alone
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -203,15 +204,23 @@ result line):
    fair-share decode seconds within 1% of `stats()`'s decode seconds;
    /healthz 200, 503 `draining` after `begin_drain()` on an eager twin
    (phase 6's engine keeps serving later phases), still 503 after
-   `drain()`, 200 after `clear_degraded('draining')`; /programs, /slo
-   and /fleet/metrics 404; (d) a request whose admission raises fails
-   alone and writes one flight bundle (flight.json naming
+   `drain()`, 200 after `clear_degraded('draining')`; /programs 200,
+   /slo 503 (no SLO engine) and /fleet/metrics 503 (no aggregator);
+   (d) a request whose admission raises fails alone and writes one
+   flight bundle (flight.json naming
    `serving_request_failed`, events, trace, metrics, summary, goodput,
    requests) under a fresh PADDLE_FLIGHT_DIR; (c) decode tok/s with the
    layer off and on, 3 interleaved pairs on the engine: the least
    off/on ratio less 1 (bench.py's estimator) must stay at or below 3%
    (bench.py's guard), and the host time the layer adds to a round is
    logged;
+6i. serve-fleet: replicated serving in one process on phase 6's model
+   and requests: (a) the router's overhead on phase 6's engine, (b) two
+   replicas, the second over its own weight copy, with (h) the roofline
+   of that window, (c) failover through an injected replica loss, (d)
+   QoS shedding, (e) a loadgen replay under the SLO engine onto 6b's
+   banked engine, (f) the autoscaler, (g) the rolling weight swap at 2
+   layers;
 7. profile: one decode round with every slot busy (wall time, then a
    torch.profiler breakdown of the next round's device time) on the
    plain and on the banked engine, each replayed from its graph and run
@@ -239,6 +248,39 @@ result line):
    the fill and requantize device work; then one speculation round of
    phase 6e's 2-layer-draft engine, graph (one replayed round) and eager
    (the draft sub-steps and the verify in windows of their own);
+6j. serve-procs (after phase 7, once the training rungs are freed:
+   the parent then holds least of the card): the process fleet on
+   Llama-2-7B (bf16, full width and depth). Two replica processes
+   (`python -m paddle_tpu_torch.serving.replica_main`, started together
+   by a `Supervisor` with `subprocess`, never a fork), each building
+   phase 6's model from its seed (`replica_llama`) behind an engine of
+   phase 6's settings that captures the decode round and every prefill
+   bucket before it binds its socket, and ships its telemetry into a
+   spool: (a) each child gives phase 6's tokens for the 12 requests, the
+   sampled one too, from phase 6's weights (a parameter digest), with
+   nothing captured or compiled after its ready-marks; (b) an in-process
+   engine against one child, 3 interleaved pairs of the 12 requests, the
+   least ratio less 1 reported beside parity (not gated); (g) the
+   parent's `Aggregator`: each child's request and token counters equal
+   its `stats()` and the merged ones their sum, /fleet/metrics parses,
+   /fleet/trace holds each child's spans on its own process track; (c)
+   a Router over both, one child SIGKILLed mid-decode: 0 lost, phase 6's
+   tokens, the child respawned and serving phase 6's tokens; (d) a child
+   SIGSTOPped: killed at the heartbeat deadline (PROCS_HEARTBEAT_S,
+   above a full-depth swap) and respawned, events in order; (e) that
+   fresh child serves phase 6's tokens with 0 captures and 0 compiles
+   after its ready-marks; (h) beside (c)-(e), on a thread of its own, at
+   2 of 32 layers (a full-depth version writes 13.5 GB to disk): two
+   children that started with the first two boot on v1 of a weight
+   store, and `RolloutLoop` runs 2 iterations (the parent's `TrainStep`
+   at full width, `WeightPublisher`, `ReplicaUpdater` swapping each
+   version in by version): rollouts carry the version they were
+   generated under, no child captures after a swap; (f) an Autoscaler
+   whose `signal_source` is a `FleetSignalSource` spawns a third
+   process on a burst and drains and retires it when quiet, 0 dropped.
+   The children's
+   kernel launches (their `stats()`) join the kernels line; the free
+   device memory is logged before each spawn; budget PROCS_BUDGET_S;
 8. timing: each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
@@ -255,7 +297,9 @@ run in a process, every later launch costs the host more. Phases 6e and
 6f run right after phase 6, before 6b-6d, while only phase 6's engines
 hold device memory, and free their engines; 6g runs after 6b and frees
 its engines before 6c, and 6h after 6g; phase 7 builds fresh spec
-engines once the serve engines are freed. The flight recorder writes
+engines once the serve engines are freed, and 6j runs once the training
+rungs are freed too (its in-process engine of (b) runs in a process the
+profiler has run in). The flight recorder writes
 its bundles under the gitignored `build/flight/`.
 
 The last lines are the card's name and power limit, a JSON line with the
@@ -2136,7 +2180,9 @@ def serve(cfg) -> dict:
                      base)
     eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
                         'serve')
-    res.update(engine=eng, eager=eager, prompts=prompts, params=params)
+    from paddle_tpu_torch.weights import param_digest
+    res.update(engine=eng, eager=eager, prompts=prompts, params=params,
+               digest=param_digest(model))
     return res
 
 
@@ -3575,11 +3621,12 @@ def check_health(eng, srv) -> None:
         raise AssertionError(f'observability: /healthz went {states}')
     codes = {r: http_get(srv.url + r)[0]
              for r in ('/programs', '/slo', '/fleet/metrics')}
-    if codes != {'/programs': 200, '/slo': 503, '/fleet/metrics': 404}:
+    if codes != {'/programs': 200, '/slo': 503, '/fleet/metrics': 503}:
         raise AssertionError(f'observability: routes answered {codes}')
     log(f'[observe] /healthz {" -> ".join(f"{c} {s}" for c, s in states)} '
         f'(begin_drain, drain, clear_degraded); /programs 200, /slo 503 '
-        f'(no SLO engine registered), /fleet/metrics 404')
+        f'(no SLO engine registered), /fleet/metrics 503 (no fleet '
+        f'aggregator registered)')
 
 
 def check_flight(eng, prompts, params) -> None:
@@ -4326,6 +4373,640 @@ def serve_fleet(served, adapted) -> dict:
             'scaling': b['scaling'], 'provision_s': f['provision_s']}
 
 
+PROCS_BUDGET_S = 150.0
+PROCS_PAIRS = 3
+# above the longest call that holds a replica's engine lock: a decode
+# round takes ~71 ms and a full-depth swap_weights 7.3-7.8 s (PERF.md,
+# PR 12); healthz itself never takes that lock
+PROCS_HEARTBEAT_S = 10.0
+PROCS_SPAWN_TIMEOUT_S = 300.0
+PROCS_SHIP_WAIT_S = 10.0
+ROLLOUT_ITERS = 2
+
+
+def replica_llama(device: str = 'cuda', layers=None):
+    """The replica processes' model factory (`chip_smoke.py:replica_llama`,
+    also what the parent builds to compare with): phase 6's Llama-2-7B in
+    bf16 from the same seed, so every process holds the same weights;
+    `layers` cuts the depth."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b() if layers is None else \
+        LlamaConfig.llama2_7b(num_hidden_layers=layers)
+    return LlamaForCausalLM(cfg, device=device, dtype='bfloat16',
+                            generator=ptt.generator(1234, device))
+
+
+PROCS_FACTORY = f'{Path(__file__).resolve()}:replica_llama'
+
+
+class _ChildLaunches:
+    """Each replica process's kernel launches, read from its `stats()`
+    (the newest reading per process uid): the children's share of the
+    kernels line. A killed child's reading is the one taken before the
+    kill."""
+
+    def __init__(self):
+        self.by_uid = {}
+
+    def read(self, rr) -> dict:
+        st = rr.stats()
+        self.by_uid[st['uid']] = st['launches']
+        return st
+
+    def total(self) -> dict:
+        out = collections.Counter()
+        for launches in self.by_uid.values():
+            out.update(launches)
+        return dict(out)
+
+
+def _procs_supervisor(run: Path, name: str, spec):
+    """A Supervisor of phase 6j: heartbeat every second, a hang declared
+    after PROCS_HEARTBEAT_S, respawns after 0.5-4 s (a dead child is
+    reaped, and its device memory released, before its backoff starts),
+    the free device memory logged before each spawn."""
+    from paddle_tpu_torch.serving import Supervisor
+    sup = None
+
+    def popen(argv, env, log_path):
+        free, total = torch.cuda.mem_get_info()
+        log(f'[serve-procs] spawn {Path(log_path).stem}: device memory '
+            f'free {free / 1e9:.2f} of {total / 1e9:.2f} GB (this process '
+            f'holds {torch.cuda.memory_reserved() / 1e9:.2f} GB)')
+        return sup._default_popen(argv, env, log_path)
+    sup = Supervisor(str(run / name), spec, heartbeat_interval_s=1.0,
+                     heartbeat_timeout_s=PROCS_HEARTBEAT_S,
+                     spawn_timeout_s=PROCS_SPAWN_TIMEOUT_S,
+                     backoff_base_s=0.5, backoff_cap_s=4.0, max_restarts=3,
+                     restart_window_s=600.0, popen_fn=popen)
+    return sup
+
+
+def _spawn_all(children) -> list:
+    """Spawn every (supervisor, name) of `children` at once (one thread
+    each; each spawn blocks until its child is warm and bound); returns
+    their RemoteReplicas in order, and logs the seconds and each child's
+    own account of its warm-up (the last line it wrote)."""
+    import threading
+    out, errs = {}, []
+    t0 = time.perf_counter()
+
+    def one(sup, name):
+        try:
+            out[name] = sup.spawn(name)
+        except BaseException as exc:      # re-raised below, in this thread
+            errs.append(exc)
+    threads = [threading.Thread(target=one, args=c) for c in children]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    log(f'[serve-procs] spawned {[n for _, n in children]} together in '
+        f'{time.perf_counter() - t0:.2f} s (process start to a warm, '
+        f'bound socket)')
+    for sup, name in children:
+        lines = (Path(sup.run_dir) / f'{name}.log').read_text().splitlines()
+        log(f'[serve-procs]   {name}: {lines[-1] if lines else "no log"}')
+    return [out[n] for _, n in children]
+
+
+def _check_ready(rr, st, digest, tag: str) -> None:
+    """A child's ready-marks: every graph captured at boot (the decode
+    round and each prefill bucket, nothing else), no kernel source
+    compiled, the parameters' digest `digest` (None: not checked); and
+    its serving window since: no capture, no compile."""
+    want = {'paged_decode_step': 1, **{f'paged_prefill_{b}': 1
+                                       for b in st['pool']['buckets']}}
+    problems = []
+    if st['traces_at_ready'] != want:
+        problems.append(f'captured at boot {st["traces_at_ready"]}, want '
+                        f'{want}')
+    if st['traces'] != st['traces_at_ready']:
+        problems.append(f'captured while serving: {st["traces"]} vs '
+                        f'{st["traces_at_ready"]} at ready')
+    if st['kernel_builds'] or st['kernel_builds_at_ready']:
+        problems.append(f'compiled {st["kernel_builds"]} kernel sources')
+    if digest is not None and st['param_digest'] != digest:
+        problems.append(f'parameter digest {st["param_digest"][:16]} != '
+                        f'{digest[:16]}')
+    if problems:
+        raise AssertionError(f'serve-procs {tag} ({rr.name}, pid '
+                             f'{rr.pid}): ' + '; '.join(problems))
+
+
+def _child_logs(run: Path) -> None:
+    """The last lines of every replica process's log under `run` (a
+    failing phase prints them before its directory goes)."""
+    for path in sorted(run.glob('*/*.log')):
+        tail = path.read_text(errors='replace').splitlines()[-30:]
+        log(f'[serve-procs] {path.parent.name}/{path.name}, last lines:\n'
+            + '\n'.join(tail))
+
+
+def _tokens(handles) -> list:
+    return [h.tokens for h in handles]
+
+
+def procs_parity(children, prompts, params, want, digest, seen) -> None:
+    """6j (a): each child serves phase 6's 12 requests with phase 6's
+    tokens, request by request (the seeded sampling one included), from
+    phase 6's weights (digest), warm and without compiling."""
+    for rr in children:
+        got = _tokens(rr.generate_many(prompts, params))
+        wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if wrong:
+            raise AssertionError(f'serve-procs (a): child {rr.name} differs '
+                                 f'from phase 6 at requests {wrong}')
+        _check_ready(rr, seen.read(rr), digest, '(a)')
+    log(f'[serve-procs] (a) {len(children)} replica processes: every one '
+        f'of the 12 requests gets phase 6\'s tokens (the sampled one too); '
+        f'parameter digests == phase 6\'s; the decode round and every '
+        f'prefill bucket captured at boot, nothing captured or compiled '
+        f'since')
+
+
+def procs_rpc_overhead(rr, prompts, params, want, digest) -> dict:
+    """6j (b): an in-process engine of phase 6's settings over a model of
+    its own (the same seed) against one replica process, `PROCS_PAIRS`
+    interleaved pairs of the 12 requests: the least ratio less 1
+    (bench.py:fleet_rpc_overhead_ab's estimator, both arms warmed by a
+    wave off the clock first), reported beside parity."""
+    from paddle_tpu_torch.weights import param_digest
+    model = replica_llama(DEV)
+    if param_digest(model) != digest:
+        raise AssertionError('serve-procs (b): the parent\'s model is not '
+                             'phase 6\'s')
+    eng = _fleet_engine(model)
+    _warm(eng, prompts)
+    eng.generate_many(prompts, params)    # both arms warm, off the clock
+    rr.generate_many(prompts, params)
+    tokens = sum(p.max_new_tokens for p in params)
+    local, remote, ratios = [], [], []
+    for _ in range(PROCS_PAIRS):
+        a, ha = _wave_s(lambda: eng.generate_many(prompts, params))
+        b, hb = _wave_s(lambda: rr.generate_many(prompts, params))
+        if _tokens(ha) != want or _tokens(hb) != want:
+            raise AssertionError('serve-procs (b): a wave did not give '
+                                 'phase 6\'s tokens')
+        local.append(a)
+        remote.append(b)
+        ratios.append(b / a)
+    overhead = min(ratios) - 1
+    log(f'[serve-procs] (b) in-process engine vs one replica process, '
+        f'{PROCS_PAIRS} interleaved pairs of the 12 requests: in-process '
+        f'{", ".join(f"{tokens / s:.1f}" for s in local)} tok/s, process '
+        f'{", ".join(f"{tokens / s:.1f}" for s in remote)} tok/s; ratios '
+        f'{", ".join(f"{x:.4f}" for x in ratios)}; RPC overhead (least '
+        f'ratio - 1) {overhead * 100:+.2f}% (reported, not gated), parity '
+        f'True')
+    return {'overhead': overhead, 'local_tok_s': tokens / min(local),
+            'remote_tok_s': tokens / min(remote)}
+
+
+def procs_fleet_plane(agg, children, seen) -> None:
+    """6j (g): the parent's Aggregator over the children's spool: each
+    child's request and token counters equal its own `stats()`, and the
+    merged ones their sum; /fleet/metrics parses, with a section per
+    child, and /fleet/trace holds each child's spans on a process track
+    of its own."""
+    from paddle_tpu_torch import observability as obs
+    stats = {st['uid']: st for st in (seen.read(rr) for rr in children)}
+    want = {'paddle_serving_tokens_total': {u: float(s['tokens'])
+                                            for u, s in stats.items()},
+            'paddle_serving_requests_total': {
+                u: float(s['completed']) for u, s in stats.items()}}
+    labels = {'paddle_serving_tokens_total': {},
+              'paddle_serving_requests_total': {'status': 'completed'}}
+    deadline = time.perf_counter() + PROCS_SHIP_WAIT_S
+    while True:
+        agg.poll()
+        got = {name: {u: v for u, v in agg.per_process_value(
+            name, **labels[name]).items() if u in stats}
+            for name in want}
+        if got == want or time.perf_counter() > deadline:
+            break
+        time.sleep(0.25)
+    merged = {}
+    for m in agg.merged()['metrics']:
+        if m['name'] in want:
+            merged[m['name']] = sum(
+                s['value'] for s in m['samples']
+                if all(s['labels'].get(k) == v
+                       for k, v in labels[m['name']].items()))
+    sums = {name: sum(v.values()) for name, v in want.items()}
+    if got != want or merged != sums:
+        raise AssertionError(f'serve-procs (g): per process {got}, want '
+                             f'{want}; merged {merged}, want {sums}')
+    srv = obs.start_server(0, host='127.0.0.1')
+    try:
+        status, body = http_get(srv.url + '/fleet/metrics')
+        samples = parse_exposition(body)
+        t_status, t_body = http_get(srv.url + '/fleet/trace')
+    finally:
+        srv.stop()
+    fleet_tokens = samples.get(
+        'paddle_serving_tokens_total{process="fleet"}')
+    trace = json.loads(t_body) if t_status == 200 else {}
+    names = {e['pid']: e['args']['name'] for e in trace.get('traceEvents', ())
+             if e.get('ph') == 'M' and e['name'] == 'process_name'}
+    tracks = collections.defaultdict(set)
+    for e in trace.get('traceEvents', ()):
+        if e.get('ph') == 'X':
+            tracks[names.get(e['pid'])].add(e['name'])
+    missing = [u for u in stats
+               if not tracks.get(f'process {u}', set())
+               & {'serving.decode_round', 'serving.prefill'}]
+    if status != 200 or fleet_tokens != sums['paddle_serving_tokens_total'] \
+            or missing:
+        raise AssertionError(f'serve-procs (g): /fleet/metrics {status}, '
+                             f'fleet tokens {fleet_tokens}; /fleet/trace '
+                             f'{t_status}, children without serving spans '
+                             f'on their track: {missing}')
+    log(f'[serve-procs] (g) the parent\'s aggregator over the spool: tokens '
+        f'{want["paddle_serving_tokens_total"]}, completed requests '
+        f'{want["paddle_serving_requests_total"]} per child == their own '
+        f'stats(), merged {sums}; /fleet/metrics parsed ({len(samples)} '
+        f'samples), /fleet/trace: {len(trace["traceEvents"])} events on '
+        f'{len(names)} process tracks, each child\'s decode and prefill '
+        f'spans on its own; clock offsets '
+        f'{trace["metadata"]["clock_offsets"]}')
+
+
+def _wait_restart(sup, restarted, what: str) -> None:
+    deadline = time.perf_counter() + PROCS_SPAWN_TIMEOUT_S
+    while not restarted and time.perf_counter() < deadline:
+        sup.poll()
+        time.sleep(0.05)
+    if not restarted:
+        raise AssertionError(f'serve-procs: {what}: no respawn')
+
+
+def procs_sigkill(sup, r0, r1, prompts, params, want, seen) -> object:
+    """6j (c): a Router over both children; r1 SIGKILLed once both
+    decode: 0 lost, every request's tokens phase 6's (failed over ones
+    included), the supervisor respawns r1, and the respawned child
+    serves phase 6's tokens. Returns the respawned child."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import FINISHED, Replica, Router
+    restarted = []
+    sup.on_restart = lambda name, replica: restarted.append(replica)
+    router = Router([Replica(0, r0), Replica(1, r1)])
+    since = _last_seq(obs)
+    t0 = time.perf_counter()
+    hs = [router.submit(p, sp) for p, sp in zip(prompts, params)]
+    while not (r0._slot_req and r1._slot_req and any(
+            h.tokens and not h.done for h in hs)):
+        router.step()
+        if all(h.done for h in hs):
+            raise AssertionError('serve-procs (c): the wave ended before '
+                                 'both children decoded')
+    seen.read(r1)
+    sup.kill(r1.name)
+    while any(not h.done for h in hs):
+        router.step()
+    wave = time.perf_counter() - t0
+    lost = [i for i, h in enumerate(hs) if h.status != FINISHED]
+    moved = [i for i, h in enumerate(hs) if h.failovers]
+    wrong = [i for i, h in enumerate(hs) if h.tokens != want[i]]
+    t1 = time.perf_counter()
+    _wait_restart(sup, restarted, '(c)')
+    respawn = time.perf_counter() - t1
+    fresh = restarted[0]
+    got = _tokens(fresh.generate_many(prompts, params))
+    events = [e['name'] for e in obs.get_event_log().events()
+              if e['seq'] > since and e['name'].startswith(
+                  ('router_failover', 'replica_'))]
+    if lost or not moved or wrong or got != want or \
+            'router_failover' not in events or fresh.pid == r1.pid:
+        raise AssertionError(f'serve-procs (c): lost {lost}, failed over '
+                             f'{moved}, differing {wrong}, respawned child '
+                             f'== phase 6 {got == want}, events {events}')
+    sup.on_restart = None
+    log(f'[serve-procs] (c) SIGKILL of {r1.name} (pid {r1.pid}) mid-decode: '
+        f'0 lost, {len(moved)} requests failed over to {r0.name} with '
+        f'phase 6\'s tokens, the wave in {wave:.2f} s; respawned as pid '
+        f'{fresh.pid} in {respawn:.2f} s (backoff included), which serves '
+        f'phase 6\'s tokens; events {events}')
+    return fresh
+
+
+def procs_sigstop(sup, rr, seen) -> object:
+    """6j (d): `rr` SIGSTOPped: the heartbeat misses, the supervisor
+    declares a hang at PROCS_HEARTBEAT_S, SIGKILLs it and respawns it,
+    with its events in order. Returns the respawned child."""
+    import signal
+    from paddle_tpu_torch import observability as obs
+    restarted = []
+    sup.on_restart = lambda name, replica: restarted.append(replica)
+    seen.read(rr)
+    since = _last_seq(obs)
+    t0 = time.perf_counter()
+    os.kill(rr.pid, signal.SIGSTOP)
+    _wait_restart(sup, restarted, '(d)')
+    took = time.perf_counter() - t0
+    sup.on_restart = None
+    events = [e['name'] for e in obs.get_event_log().events()
+              if e['seq'] > since and e['name'].startswith('replica_')]
+    want = ['replica_hang', 'replica_crash', 'replica_restart',
+            'replica_spawn', 'replica_ready']
+    fresh = restarted[0]
+    if events != want or os.path.exists(f'/proc/{rr.pid}') or \
+            not fresh.healthz()['ok']:
+        raise AssertionError(f'serve-procs (d): events {events}, want '
+                             f'{want}; old pid alive '
+                             f'{os.path.exists(f"/proc/{rr.pid}")}')
+    log(f'[serve-procs] (d) SIGSTOP of {rr.name} (pid {rr.pid}): hang '
+        f'declared at the {PROCS_HEARTBEAT_S:.0f} s heartbeat deadline, '
+        f'SIGKILLed and respawned as pid {fresh.pid}, {took:.2f} s in all; '
+        f'events {events}')
+    return fresh
+
+
+def procs_warm_start(rr, prompts, params, want, digest, seen) -> None:
+    """6j (e): a fresh child (respawned in (d)): phase 6's 12 requests
+    with phase 6's tokens, and after its ready-marks 0 captures and 0
+    kernel compiles."""
+    t0 = time.perf_counter()
+    got = _tokens(rr.generate_many(prompts, params))
+    wave = time.perf_counter() - t0
+    st = seen.read(rr)
+    if got != want:
+        raise AssertionError('serve-procs (e): a fresh child differs from '
+                             'phase 6')
+    _check_ready(rr, st, digest, '(e)')
+    log(f'[serve-procs] (e) fresh child pid {rr.pid}: phase 6\'s tokens, '
+        f'first wave {wave:.2f} s; captures after its ready-marks '
+        f'{sum(st["traces"].values()) - st["captures_at_ready"]}, kernel '
+        f'sources compiled {st["kernel_builds"]}')
+
+
+def procs_autoscale(sup, r0, router_spool, prompts, params, seen) -> None:
+    """6j (f): an Autoscaler (1 to 2 replicas) over a Router on r0 whose
+    `signal_source` is a `FleetSignalSource` over the routers' spool (the
+    parent ships its router's signals there before each read): the burst
+    scales up by spawning a real process, the quiet drains and retires
+    one, and every request finishes."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import (Autoscaler, AutoscalerConfig,
+                                          FINISHED, Replica, Router)
+    router = Router([Replica(0, r0)], signal_window_s=2.0)
+    shipper = obs.Shipper(str(router_spool), uid=f'router-{os.getpid()}')
+    source = obs.FleetSignalSource(obs.Aggregator(str(router_spool)),
+                                   router=router, fresh_s=30.0)
+    sources = []
+
+    def read():
+        shipper.ship_now()
+        sig = source()
+        sources.append(sig['source'])
+        return sig
+    scaler = Autoscaler(router, sup.replica_factory(), AutoscalerConfig(
+        min_replicas=1, max_replicas=2, slo_ttft_s=100.0,
+        up_queue_per_replica=2.0, down_queue_per_replica=0.5,
+        cooldown_s=1.0, provision_cooldown_factor=0.0, down_stable_s=1.0),
+        force=True, signal_source=read)
+    retire = sup.retire
+
+    def read_and_retire(name, deadline_s=30.0):
+        # the retired child's launches, read before it exits
+        rr = sup.replicas().get(name)
+        if rr is not None:
+            seen.read(rr)
+        retire(name, deadline_s=deadline_s)
+    sup.retire = read_and_retire
+    before = set(sup.stats())
+    t0 = time.perf_counter()
+    hs = [router.submit(p, sp) for p, sp in zip(prompts, params)]
+    decisions = []
+    try:
+        while time.perf_counter() - t0 < 90.0:
+            decisions.append(scaler.poll())
+            if decisions[-1] == 'scale_up':
+                hs += [router.submit(p, sp)
+                       for p, sp in zip(prompts, params)]
+            router.step()
+            if not router._live:
+                if len(router.replicas) == 1 and 'scale_down' in decisions:
+                    break
+                time.sleep(0.05)
+    finally:
+        del sup.retire
+    wall = time.perf_counter() - t0
+    added = sorted(set(sup.stats()) - before)
+    states = {n: sup.stats()[n]['state'] for n in added}
+    up, down = decisions.count('scale_up'), decisions.count('scale_down')
+    unfinished = [i for i, h in enumerate(hs) if h.status != FINISHED]
+    if up != 1 or down != 1 or unfinished or len(router.replicas) != 1 \
+            or router.replicas[0].engine is not r0 or \
+            list(states.values()) != ['stopped'] or 'fleet' not in sources:
+        raise AssertionError(f'serve-procs (f): scale_up {up}, scale_down '
+                             f'{down}, unfinished {unfinished}, replicas '
+                             f'{len(router.replicas)}, spawned {states}, '
+                             f'signal sources {collections.Counter(sources)}')
+    log(f'[serve-procs] (f) autoscaler over a burst of {len(hs)} requests '
+        f'then quiet, {wall:.2f} s: 1 scale_up spawned {added} (provision '
+        f'{scaler.provision_ema_s:.2f} s: process start to a warm socket), '
+        f'1 scale_down drained and retired it ({states}), placements '
+        f'{dict(collections.Counter(h.replica_id for h in hs))}, all '
+        f'finished; signal reads by source '
+        f'{dict(collections.Counter(sources))}')
+
+
+def procs_rollout(model, publisher, v1, children, prompts) -> dict:
+    """6j (h), at 2 of 32 layers (a full-depth version writes 13.5 GB to
+    disk): the parent's 2-layer Llama-2-7B-width `model` trains through
+    `TrainStep` (AdamW), `publisher` publishes each step to its store,
+    and `RolloutLoop` runs ROLLOUT_ITERS iterations over a Router of
+    `children` (replica processes that booted on v1 of that store):
+    each publish is swapped in by version (`ReplicaUpdater`), each
+    iteration's rollouts carry the version they were generated under,
+    and no child captures or compiles after its boot. Returns the
+    parent's launches and the children's stats."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.loop import RolloutLoop, response_lm_loss
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import Replica, ReplicaUpdater, Router
+    vocab = model.config.vocab_size
+    ready = [rr.stats() for rr in children]
+    # replica ids (and so observability scopes) of their own: this loop
+    # runs beside (c)-(e)'s Router over replicas 0 and 1
+    router = Router([Replica(10 + i, rr) for i, rr in enumerate(children)])
+    step = TrainStep(model, response_lm_loss(vocab), AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        multi_precision=True))
+    rng = np.random.RandomState(16)
+    lengths = [len(p) for p in prompts[:4]]
+    loop = RolloutLoop(
+        train_step=step, router=router, publisher=publisher,
+        updater=ReplicaUpdater(router, publisher.store),
+        prompt_fn=lambda i: [rng.randint(3, vocab, (n,)).tolist()
+                             for n in lengths],
+        reward_fn=lambda p, r: float(np.mean([t % 2 for t in r])),
+        rollouts_per_iter=4, keep_best=2, max_new_tokens=16)
+    versions = []
+    generate = loop.generate
+
+    def recorded(i):
+        out = generate(i)
+        versions.append([r.weight_version for r in out])
+        return out
+    loop.generate = recorded
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = loop.run(ROLLOUT_ITERS)
+    took = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    after = [rr.stats() for rr in children]
+    want_versions = [[v1 + i] * 4 for i in range(ROLLOUT_ITERS)]
+    swaps = [h['swap'] for h in hist]
+    problems = []
+    if versions != want_versions:
+        problems.append(f'rollout versions {versions}, want {want_versions}')
+    if swaps != [{'version': v1 + i + 1, 'outcome': 'completed'}
+                 for i in range(ROLLOUT_ITERS)] or \
+            [st['weight_version'] for st in after] != [v1 + ROLLOUT_ITERS] * 2:
+        problems.append(f'swaps {swaps}, children on '
+                        f'{[st["weight_version"] for st in after]}')
+    for a, b in zip(ready, after):
+        if b['traces'] != a['traces_at_ready'] or b['kernel_builds']:
+            problems.append(f'child {b["uid"]} captured {b["traces"]} vs '
+                            f'{a["traces_at_ready"]} or compiled '
+                            f'{b["kernel_builds"]}')
+    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) <= 0]
+    if missing or not all(np.isfinite(h['loss']) for h in hist):
+        problems.append(f'kernels never launched {missing}, losses '
+                        f'{[h["loss"] for h in hist]}')
+    if problems:
+        raise AssertionError('serve-procs (h): ' + '; '.join(problems))
+    log(f'[serve-procs] (h) RolloutLoop, {ROLLOUT_ITERS} iterations over 2 '
+        f'replica processes of the 2-layer Llama-2-7B-width model: '
+        f'{took:.2f} s; losses {[round(h["loss"], 4) for h in hist]}, mean '
+        f'rewards {[round(h["mean_reward"], 4) for h in hist]}; rollouts '
+        f'generated under versions {versions}; swaps by version {swaps}; '
+        f'the children captured nothing after boot and compiled nothing')
+    return {'launches': launches, 'children': after}
+
+
+def serve_procs(served) -> dict:
+    """Phase 6j: the process fleet on Llama-2-7B (bf16, full width and
+    depth), two replica processes under a `Supervisor`, each an engine of
+    phase 6's settings that captured its graphs before binding, phase 6's
+    12 requests: (a) parity, (b) the RPC overhead, (g) the fleet plane,
+    (c) SIGKILL mid-decode, (d) SIGSTOP and (e) a fresh child's warm
+    start, beside (h) the rollout loop at 2 layers swapping by version
+    (its two children start with the first two, on v1 published first),
+    then (f) the autoscaler spawning and retiring a process. Counts the
+    parent's and the children's kernel launches; stops every process it
+    started."""
+    import threading
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (ReplicaSpec, WeightPublisher,
+                                          WeightStore)
+    prompts, params, want = served['prompts'], served['params'], \
+        served['tokens']
+    digest = served['digest']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = _store_dir('procs-')
+    spool = run / 'spool'
+    agg = obs.set_aggregator(obs.Aggregator(str(spool)))
+    seen = _ChildLaunches()
+    small = replica_llama(DEV, layers=2)
+    publisher = WeightPublisher(small, WeightStore(str(run / 'weights')))
+    t1 = time.perf_counter()
+    v1 = publisher.publish(step=0)
+    log(f'[serve-procs] (h) v{v1} of the 2-layer model published in '
+        f'{time.perf_counter() - t1:.2f} s')
+    sup = _procs_supervisor(run, 'serve', ReplicaSpec(
+        PROCS_FACTORY, engine_kwargs=FLEET_ENGINE, spool_dir=str(spool),
+        device=DEV))
+    sup2 = _procs_supervisor(run, 'rollout', ReplicaSpec(
+        PROCS_FACTORY, model_kwargs={'layers': 2},
+        engine_kwargs=FLEET_ENGINE, weight_store_dir=str(run / 'weights'),
+        spool_dir=str(spool), device=DEV))
+    rollout, thread = {}, None
+
+    def run_rollout(children):
+        try:
+            rollout['h'] = procs_rollout(small, publisher, v1, children,
+                                         prompts)
+        except BaseException as exc:      # re-raised by the main thread
+            rollout['error'] = exc
+    try:
+        r0, r1, s0, s1 = _spawn_all([(sup, 'r0'), (sup, 'r1'),
+                                     (sup2, 's0'), (sup2, 's1')])
+        procs_parity([r0, r1], prompts, params, want, digest, seen)
+        b = procs_rpc_overhead(r0, prompts, params, want, digest)
+        gc.collect()                  # the in-process engine of (b)
+        torch.cuda.empty_cache()
+        procs_fleet_plane(agg, [r0, r1], seen)
+        parent = dict(K.LAUNCHES)
+        # (h) trains and swaps (store-bound: each 1.33 GB version is
+        # written once and read three times) on a thread of its own while
+        # (c)-(e) kill and respawn the serve fleet's processes; it is done
+        # before (f), whose autoscaler reads the router gauges both set
+        thread = threading.Thread(target=run_rollout, args=([s0, s1],),
+                                  name='serve-procs-rollout')
+        thread.start()
+        r1 = procs_sigkill(sup, r0, r1, prompts, params, want, seen)
+        r1 = procs_sigstop(sup, r1, seen)
+        procs_warm_start(r1, prompts, params, want, digest, seen)
+        thread.join()
+        if 'error' in rollout:
+            raise rollout['error']
+        sup2.stop_all(deadline_s=30.0)
+        gc.collect()                  # (h)'s trainer
+        torch.cuda.empty_cache()
+        procs_autoscale(sup, r0, run / 'router_spool', prompts, params,
+                        seen)
+        for rr in (r0, r1):
+            seen.read(rr)
+    except BaseException:
+        _child_logs(run)
+        raise
+    finally:
+        if thread is not None:
+            thread.join()
+        sup.stop_all(deadline_s=30.0)
+        sup2.stop_all(deadline_s=30.0)
+        obs.set_aggregator(None)
+        shutil.rmtree(run, ignore_errors=True)
+    h = rollout['h']
+    del small, publisher
+    gc.collect()
+    torch.cuda.empty_cache()
+    children = collections.Counter(seen.total())
+    for st in h['children']:
+        children.update(st['launches'])
+    missing = [k for k in SERVE_KERNELS if children[k] <= 0]
+    if missing:
+        raise AssertionError(f'serve-procs: kernels the children never '
+                             f'launched: {missing}')
+    mine = collections.Counter(parent) + collections.Counter(h['launches'])
+    launches = dict(mine + children)
+    took = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    free, total = torch.cuda.mem_get_info()
+    log(f'[serve-procs] kernel launches over the phase: parent '
+        f'{dict(mine)}, children {dict(children)}')
+    log(f'[serve-procs] phase 6j took {took:.1f} s (budget '
+        f'{PROCS_BUDGET_S:.0f} s), the parent\'s peak device memory '
+        f'{peak:.2f} GB above the {base / 1e9:.2f} GB held before it; '
+        f'device memory free after {free / 1e9:.2f} of {total / 1e9:.2f} GB')
+    if took > PROCS_BUDGET_S:
+        raise AssertionError(f'serve-procs: {took:.1f} s > '
+                             f'{PROCS_BUDGET_S:.0f} s')
+    return {'launches': launches, 'overhead': b['overhead']}
+
+
 def paged_float_ms(readings: int = 5, outputs=None) -> list:
     """[(case, [device ms per call] x readings)] of the paged kernel over
     pages in q's dtype at phase 2's serve shape (8 slots, H 32, context
@@ -4982,6 +5663,14 @@ def main() -> int:
             f'memory {peak / 1e9:.2f} GB in all')
         return 0
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
+    if sys.argv[1:2] == ['--procs']:
+        # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
+        # tokens, without the phases between
+        build()
+        res = serve(LlamaConfig.llama2_7b())
+        release(res)
+        log(f'[serve-procs] launches {serve_procs(res)["launches"]}')
+        return 0
     # the flight recorder's bundles (a failed request in phase 3, ...) stay
     # inside the checkout's gitignored build directory
     FLIGHT_ROOT.mkdir(parents=True, exist_ok=True)
@@ -5036,6 +5725,7 @@ def main() -> int:
     profile_train(trained['step'], trained['batch'], trained['step_s'],
                   'bench')
     release(trained, pretrained)
+    procs = serve_procs(res)
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
     rows = time_kernels(cases + opt_cases)
@@ -5049,7 +5739,7 @@ def main() -> int:
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
-                                   spec['draft2'], spec['self']))
+                                   spec['draft2'], spec['self'], procs))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -15,22 +15,25 @@ It serves Llama through the paged continuous-batching engine
 `save`/`load` write and read the JAX package's npz container, and
 `utils.CheckpointManager` and `serving.WeightStore` its checkpoint and
 weight-version layouts. `serving.Router` serves replicas in one process
-(tenancy, failover, the autoscaler, the rolling weight swap), and
-`loadgen` replays seeded traffic through it. `observability` reports
+or in replica processes under a `serving.Supervisor` (tenancy, failover,
+the autoscaler, the rolling weight swap), `loadgen` replays seeded
+traffic through it, and `loop.RolloutLoop` closes training onto serving
+(serve, score, train, publish, swap). `observability` reports
 what the serving and training paths do (metrics, events, spans, the
 goodput and request ledgers, the program catalog and roofline, the SLO
-engine, the flight recorder, an HTTP endpoint) under the JAX package's
-names.
+engine, the flight recorder, an HTTP endpoint, and the fleet plane
+that merges them across processes) under the JAX package's names.
 """
-from . import (analysis, debug, dtype, flags, framework, jit, loadgen, nlp,
-               nn, observability, ops, optimizer, regularizer, resilience,
-               serving, utils, weights)
+from . import (analysis, debug, dtype, flags, framework, jit, loadgen, loop,
+               nlp, nn, observability, ops, optimizer, regularizer,
+               resilience, serving, utils, weights)
 from .flags import get_flags, set_flags
 from .framework import generator, resolve_device, seed
 from .serialization import load, save
 
 __all__ = ['analysis', 'debug', 'dtype', 'flags', 'framework', 'jit',
-           'loadgen', 'nlp', 'nn', 'observability', 'ops', 'optimizer',
+           'loadgen', 'loop', 'nlp', 'nn', 'observability', 'ops',
+           'optimizer',
            'regularizer', 'resilience', 'serving', 'utils',
            'weights', 'generator', 'get_flags', 'load', 'resolve_device',
            'save', 'seed', 'set_flags']

@@ -10,15 +10,22 @@ anomaly), the program catalog and roofline (`cost.py`), per-step
 training telemetry (`telemetry.py`), the SLO engine (`slo.py`:
 declarative objectives with multi-window burn-rate alerts) and the HTTP
 endpoint (`start_server`: /metrics, /healthz, /summary, /events, /trace,
-/programs, /goodput, /slo, /requests). The serving engine,
-scheduler, prefix cache, adapter bank, weight store, checkpoints and
-retries report here under the JAX package's names, labels and HELP
-texts, so the same dashboards and tests read both packages.
+/programs, /goodput, /slo, /requests, /fleet/metrics, /fleet/trace).
+The serving engine, scheduler, prefix cache, adapter bank, weight store,
+checkpoints and retries report here under the JAX package's names,
+labels and HELP texts, so the same dashboards and tests read both
+packages.
 
-Everything is pure Python and imports nothing of JAX. Not here yet
-(ROADMAP.md, Queue 1): the cross-process fleet plane (`wire.py`,
-`shipper.py`, `aggregator.py`) and with it `/fleet/metrics` and
-`/fleet/trace`.
+Cross-process (the fleet plane): `wire` is the versioned JSONL segment
+format (the JAX package's bytes), `Shipper` spools a process's metric
+deltas, events, spans and request waterfalls to a shared directory,
+and `Aggregator` tails spools into one merged view
+(`merge_snapshots`), stitches skew-corrected cross-process traces and
+feeds `FleetSignalSource` (the autoscaler's `signal_source`, the SLO
+engine's `view_fn`); `set_aggregator` registers it for the server's
+`/fleet/metrics` and `/fleet/trace`.
+
+Everything is pure Python and imports nothing of JAX.
 
 `install()` runs at import: the flight recorder, the goodput ledger,
 the program catalog's and the request ledger's scrape-time collectors
@@ -30,11 +37,18 @@ from __future__ import annotations
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       DEFAULT_BUCKETS, QUANTILES, SlidingWindow,
                       count_suppressed, enable, enabled, disable,
-                      get_registry, process_uid)
+                      get_registry, merge_snapshots, process_uid)
 from .events import (EVENT_SCHEMA, EventLog, Span, declare_event, emit,
                      get_event_log, span)
-from .exporters import (chrome_track_metadata, read_jsonl,
-                        to_chrome_trace, to_jsonl, to_prometheus_text)
+from .exporters import (chrome_track_metadata, fleet_to_prometheus_text,
+                        read_jsonl, to_chrome_trace, to_jsonl,
+                        to_prometheus_text)
+from .wire import (WIRE_VERSION, WireError, decode_segment,
+                   encode_segment, make_segment, metrics_delta,
+                   read_segment, write_segment)
+from .shipper import Shipper
+from .aggregator import (Aggregator, FleetSignalSource, get_aggregator,
+                         set_aggregator)
 from .slo import (Objective, SLOEngine, default_objectives,
                   get_engine as get_slo_engine,
                   set_engine as set_slo_engine)
@@ -60,11 +74,16 @@ from . import reqledger as _reqledger
 __all__ = [
     'Counter', 'Gauge', 'Histogram', 'MetricsRegistry', 'DEFAULT_BUCKETS',
     'QUANTILES', 'SlidingWindow', 'count_suppressed',
-    'enable', 'enabled', 'disable', 'get_registry', 'process_uid',
+    'enable', 'enabled', 'disable', 'get_registry', 'merge_snapshots',
+    'process_uid',
     'EVENT_SCHEMA', 'EventLog', 'Span', 'declare_event', 'emit',
     'get_event_log', 'span',
     'read_jsonl', 'to_chrome_trace', 'to_jsonl', 'to_prometheus_text',
-    'chrome_track_metadata',
+    'chrome_track_metadata', 'fleet_to_prometheus_text',
+    'WIRE_VERSION', 'WireError', 'decode_segment', 'encode_segment',
+    'make_segment', 'metrics_delta', 'read_segment', 'write_segment',
+    'Shipper', 'Aggregator', 'FleetSignalSource', 'get_aggregator',
+    'set_aggregator',
     'Objective', 'SLOEngine', 'default_objectives', 'get_slo_engine',
     'set_slo_engine',
     'StepTelemetry', 'collective_totals', 'device_memory_bytes',

@@ -1,6 +1,6 @@
-"""Exporters: Prometheus text, JSONL, chrome://tracing JSON (a copy of
-`paddle_tpu/observability/exporters.py`; the fleet exposition,
-`fleet_to_prometheus_text`, comes with the aggregator).
+"""Exporters: Prometheus text, JSONL, chrome://tracing JSON and the
+fleet aggregator's exposition (a copy of
+`paddle_tpu/observability/exporters.py`).
 
 One registry + one event log, three standard surfaces: a Prometheus
 scrape body for dashboards, JSONL lines for plain-file tailing, and a
@@ -190,3 +190,42 @@ def to_chrome_trace(event_log=None, path: Optional[str] = None
         with open(path, 'w') as f:
             json.dump(doc, f)
     return doc
+
+
+def fleet_to_prometheus_text(aggregator) -> str:
+    """Prometheus exposition of an Aggregator's fleet view: the merged
+    samples labeled `process="fleet"`, then each per-process state's
+    samples labeled with its process_uid — the `/fleet/metrics` body.
+    This is where `paddle_events_dropped_total{process=...}` becomes a
+    per-process labeled series (locally it is unlabeled — existing
+    single-process scrapes depend on that)."""
+    sections = [('fleet', aggregator.merged())]
+    sections.extend(sorted(aggregator.per_process_snapshots().items()))
+    # group by family across sections: the exposition format wants all
+    # of a metric's lines contiguous under one HELP/TYPE
+    families: Dict[str, Dict[str, Any]] = {}
+    for proc_label, snap in sections:
+        for m in snap.get('metrics', []):
+            fam = families.setdefault(m['name'], {
+                'type': m['type'], 'help': m['help'], 'rows': []})
+            fam['rows'].extend((proc_label, s) for s in m['samples'])
+    lines = []
+    for name, fam in families.items():
+        lines.append(f'# HELP {name} {_escape_help(fam["help"])}')
+        lines.append(f'# TYPE {name} {fam["type"]}')
+        for proc_label, s in fam['rows']:
+            proc = {'process': str(proc_label)}
+            if fam['type'] == 'histogram':
+                for bound, count in s['buckets'].items():
+                    lines.append(
+                        f'{name}_bucket'
+                        f'{_fmt_labels(s["labels"], {**proc, "le": bound})}'
+                        f' {count}')
+                lines.append(f'{name}_sum{_fmt_labels(s["labels"], proc)}'
+                             f' {_num(s["sum"])}')
+                lines.append(f'{name}_count{_fmt_labels(s["labels"], proc)}'
+                             f' {s["count"]}')
+            else:
+                lines.append(f'{name}{_fmt_labels(s["labels"], proc)}'
+                             f' {_num(s["value"])}')
+    return '\n'.join(lines) + '\n'

@@ -16,8 +16,8 @@ Design rules:
   create-or-get by label values, and every mutation takes one registry
   RLock.
 - `snapshot()` is plain data (JSON-able) and carries the process index
-  and a process uid (the fleet aggregator's merge, `merge_snapshots`,
-  comes with it).
+  and a process uid, so snapshots of several processes merge into one
+  fleet view (`merge_snapshots`, the fleet aggregator's rule set).
 """
 from __future__ import annotations
 
@@ -522,3 +522,81 @@ def count_suppressed(site: str, registry: Optional[MetricsRegistry] = None):
             ('site',)).labels(site=site).inc()
     except Exception:
         pass   # the error sink itself must never throw
+
+
+def merge_snapshots(snapshots: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Merge per-host registry snapshots into one fleet view.
+
+    Snapshots are deduped by process identity first — the
+    `(process_uid, process_index)` pair. all_gather_object on a
+    single-controller mesh returns world-size copies of the one local
+    snapshot (same uid AND index — merging those must not multiply
+    counters), while the fleet wire plane ships snapshots from distinct
+    processes that may share a process_index but never a uid. Counters
+    and histogram sums/counts add across hosts; gauges take the max
+    (the fleet-wide watermark reading). The merged view lists the
+    surviving `processes` (indexes) and `process_uids`.
+    """
+    by_proc: Dict[Any, Dict[str, Any]] = {}
+    for s in snapshots:
+        # (uid, index) pair: gathered copies of one snapshot share both
+        # and collapse; distinct processes differ in uid even when their
+        # process_index collides; snapshots taken from several
+        # registries inside one process differ in index.
+        key = (s.get('process_uid'), int(s.get('process_index', 0)))
+        by_proc.setdefault(key, s)
+    merged: Dict[str, Dict[str, Any]] = {}
+    for snap in by_proc.values():
+        for m in snap.get('metrics', []):
+            tgt = merged.setdefault(m['name'], {
+                'name': m['name'], 'type': m['type'], 'help': m['help'],
+                'samples': {}})
+            for s in m['samples']:
+                key = tuple(sorted(s['labels'].items()))
+                cur = tgt['samples'].get(key)
+                if cur is None:
+                    tgt['samples'][key] = {k: (dict(v) if isinstance(v, dict)
+                                               else v)
+                                           for k, v in s.items()}
+                elif m['type'] == 'counter':
+                    cur['value'] += s['value']
+                elif m['type'] == 'gauge':
+                    cur['value'] = max(cur['value'], s['value'])
+                else:
+                    cur['sum'] += s['sum']
+                    cur['count'] += s['count']
+                    for b, c in s['buckets'].items():
+                        cur['buckets'][b] = cur['buckets'].get(b, 0) + c
+                    # windowed quantiles can't be re-sketched from two
+                    # windows; report the fleet-wide WORST per quantile
+                    for q, v in (s.get('quantiles') or {}).items():
+                        qd = cur.setdefault('quantiles', {})
+                        qd[q] = max(qd.get(q, v), v)
+    _recompute_goodput_fractions(merged)
+    return {'processes': sorted({idx for _, idx in by_proc}),
+            'process_uids': sorted({uid for uid, _ in by_proc
+                                    if uid is not None}),
+            'metrics': [{**m, 'samples': list(m['samples'].values())}
+                        for m in merged.values()]}
+
+
+def _recompute_goodput_fractions(merged: Dict[str, Dict[str, Any]]):
+    """Goodput fractions are ratios, so the gauge-max merge rule is
+    wrong for them: after counters merge (per-category seconds and wall
+    seconds SUM across hosts), recompute every
+    `paddle_goodput_fraction{category}` as merged-seconds / merged-wall
+    — no double count, fractions still sum to ~1 fleet-wide."""
+    secs = merged.get('paddle_goodput_seconds_total')
+    wall_fam = merged.get('paddle_goodput_wall_seconds_total')
+    frac = merged.get('paddle_goodput_fraction')
+    if not (secs and wall_fam and frac):
+        return
+    wall = sum(s['value'] for s in wall_fam['samples'].values())
+    if wall <= 0:
+        return
+    by_cat = {dict(key).get('category'): s['value']
+              for key, s in secs['samples'].items()}
+    for key, s in frac['samples'].items():
+        cat = dict(key).get('category')
+        if cat in by_cat:
+            s['value'] = by_cat[cat] / wall

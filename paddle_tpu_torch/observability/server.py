@@ -20,11 +20,13 @@ shared registry and event log the way every scraper expects:
   /slo       SLO engine report: burn rates, budget remaining, breaches
              (requires `slo.set_engine`, 503 otherwise; ?poll=1 polls
              first)
-  /requests  the per-request latency ledger (?top=N slowest waterfalls)
-
-`/fleet/metrics` and `/fleet/trace` answer 404, their body naming the
-port's slice that brings them (ROADMAP.md, Queue 1): the cross-process
-fleet aggregator.
+  /requests  the per-request latency ledger (?top=N slowest waterfalls;
+             with a fleet aggregator, its merged waterfalls under 'fleet')
+  /fleet/metrics  Prometheus text of the fleet view (merged + one
+             labeled section per process); requires a registered
+             Aggregator (`aggregator.set_aggregator`), 503 otherwise
+  /fleet/trace    skew-corrected cross-process chrome trace
+             (?trace_id=N stitches one request's waterfall)
 
 `start_server(port)` binds `0.0.0.0` by default, as the JAX server does;
 port 0 binds an ephemeral port (`.port`, `.url`). Handlers only READ
@@ -239,13 +241,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _index(self):
         self._send('paddle_tpu_torch observability: /metrics /healthz '
-                   '/summary /events /trace /programs /goodput /slo '
-                   '/requests\n')
-
-    def _not_ported(self, what: str):
-        self._send(f'{urlparse(self.path).path} is not served yet: it '
-                   f'comes with {what} (ROADMAP.md, Queue 1)\n',
-                   status=404)
+                   '/summary /events /trace /programs /goodput '
+                   '/fleet/metrics /fleet/trace /slo /requests\n')
 
     def _metrics(self):
         from .exporters import to_prometheus_text
@@ -326,12 +323,35 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(cat.report() + '\n')
 
     def _fleet_metrics(self):
-        self._not_ported('the fleet aggregator '
-                         '(observability/aggregator.py)')
+        from .aggregator import get_aggregator
+        from .exporters import fleet_to_prometheus_text
+        agg = get_aggregator()
+        if agg is None:
+            self._send('no fleet aggregator registered (see '
+                       'observability.aggregator.set_aggregator)\n',
+                       status=503)
+            return
+        agg.poll()
+        self._send(fleet_to_prometheus_text(agg),
+                   content_type='text/plain; version=0.0.4')
 
     def _fleet_trace(self):
-        self._not_ported('the fleet aggregator '
-                         '(observability/aggregator.py)')
+        from .aggregator import get_aggregator
+        agg = get_aggregator()
+        if agg is None:
+            self._send('no fleet aggregator registered (see '
+                       'observability.aggregator.set_aggregator)\n',
+                       status=503)
+            return
+        agg.poll()
+        trace_id = self._query().get('trace_id')
+        if trace_id is not None:
+            try:
+                trace_id = int(trace_id)
+            except ValueError:
+                pass   # string trace ids pass through as-is
+        self._send(json.dumps(agg.stitch_trace(trace_id=trace_id)),
+                   content_type='application/json')
 
     def _slo(self):
         from .slo import get_engine
@@ -360,7 +380,9 @@ class _Handler(BaseHTTPRequestHandler):
         """The per-request latency ledger: ?top=N caps the slowest-K
         waterfalls returned (default all retained); the payload carries
         the per-phase p50/p99 decomposition and the p99-driver ranking
-        — 'where did my p99 go' as data."""
+        — 'where did my p99 go' as data. When a fleet aggregator is
+        registered, its merged cross-process waterfalls ride along
+        under 'fleet'."""
         from .reqledger import get_ledger
         q = self._query()
         top = None
@@ -372,6 +394,12 @@ class _Handler(BaseHTTPRequestHandler):
                            status=400)
                 return
         body = get_ledger().report(top=top)
+        from .aggregator import get_aggregator
+        agg = get_aggregator()
+        if agg is not None:
+            agg.poll()
+            fleet = agg.requests()
+            body['fleet'] = fleet[-(top or len(fleet) or 1):]
         self._send(json.dumps(body, indent=1, default=str) + '\n',
                    content_type='application/json')
 

@@ -31,8 +31,6 @@ machinery this repo already has:
   `capture_s` — a breach must never leave an unbounded profiler
   running), where the JAX package starts `jax.profiler.trace`; the
   capture writes a chrome trace into the capture directory.
-- `view_fn=None` reads the local registry snapshot; the fleet
-  aggregator's merged view (`aggregator.py`) is not ported yet.
 
 Gauges published per objective: `paddle_slo_error_budget_remaining`
 (1.0 = untouched budget, 0.0 = fully burned over the long window),
@@ -164,7 +162,8 @@ class SLOEngine:
         objectives: the declarative objective list.
         view_fn: zero-arg callable returning a merged metrics doc (an
             `Aggregator.merged()`; None → the local registry snapshot,
-            which shares the shape).
+            which shares the shape), or an
+            `aggregator.FleetSignalSource`, whose `merged_view` it reads.
         clock: injectable monotonic clock — windows and tests run on it.
         short_window_s / long_window_s / burn_alert: the multi-window
             burn-rate alert shape.
@@ -190,6 +189,8 @@ class SLOEngine:
         names = [o.name for o in self.objectives]
         if len(set(names)) != len(names):
             raise ValueError(f'duplicate objective names in {names}')
+        if hasattr(view_fn, 'merged_view'):       # a FleetSignalSource
+            view_fn = view_fn.merged_view
         self._view_fn = view_fn
         self._clock = clock
         self.short_window_s = float(short_window_s)

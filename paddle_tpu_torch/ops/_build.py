@@ -6,7 +6,9 @@ Each `paddle_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for Hopper
 `<repo>/build/paddle_tpu_torch/<key>/`, where `<key>` hashes the
 sources, the flags and the compiler path, so an edited kernel is rebuilt
 and an unchanged one is reused. All sources compile in parallel, one
-`nvcc` process each.
+`nvcc` process each. `COMPILES` counts the sources this process compiled:
+a process that finds every library built (a replica process started by
+a parent that built them) compiles nothing, and reports 0.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# sources this process has handed to nvcc (a replica's warm-start gate)
+COMPILES = 0
 
 
 def _nvcc() -> str:
@@ -60,6 +64,7 @@ def build_all() -> Dict[str, str]:
     `lib<name>.log` (see `build_log`). Raises RuntimeError with the
     compiler's output if a source fails to build.
     """
+    global COMPILES
     nvcc = _nvcc()
     out_dir = _build_dir(nvcc)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -73,6 +78,7 @@ def build_all() -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)
+    COMPILES += len(procs)
     logs, failed = {}, []
     for name, (proc, tmp, lib) in procs.items():
         logs[name] = proc.communicate()[0]

@@ -136,15 +136,19 @@ class Autoscaler:
         replica_factory: zero-arg callable returning a fresh
             `InferenceEngine` with the SAME weights/geometry as the
             existing replicas, over a model of its own:
-            `lambda: InferenceEngine(replica_model(model), **kw)`.
+            `lambda: InferenceEngine(replica_model(model), **kw)`, or
+            `Supervisor.replica_factory()`, which spawns a replica
+            process and returns its `RemoteReplica`.
         config: AutoscalerConfig (default: from flags).
         clock: injectable monotonic clock (tests).
         force: run even while `FLAGS_autoscale` is off (benches that
             A/B the loop explicitly).
         signal_source: optional zero-arg callable returning a
-            `window_signals()`-shaped dict (the JAX package plugs in its
-            fleet aggregator's `FleetSignalSource` here, which the port
-            does not have yet). None keeps the local read.
+            `window_signals()`-shaped dict: plug in an
+            `observability.aggregator.FleetSignalSource` so decisions
+            read the fleet view (routers and replicas in other
+            processes) instead of the local router's registry. None
+            keeps the local read.
     """
 
     def __init__(self, router: Router,

@@ -1158,6 +1158,31 @@ class InferenceEngine:
                           lambda: step.capture(self._prefill_pool))
         return step
 
+    def preload_programs(self) -> dict:
+        """Capture now, before any request, every graph this engine can
+        replay: the decode sub-step (or the speculation round) and a
+        prefill graph at every bucket of each kind it may run (whole;
+        chunk when it chunks or caches prefixes; draft with a draft
+        model). The counterpart of the JAX engine's `preload_programs`,
+        which loads its persisted executables from the program store: a
+        replica process calls it before it binds its socket, so its
+        serving window captures nothing. Returns `stats()['traces']`
+        after (empty where nothing is captured, as on the CPU)."""
+        kinds = ['whole']
+        if self.prefill_chunk_tokens or self.prefix_cache is not None:
+            kinds.append('chunk')
+        if self.draft_model is not None:
+            kinds.append('draft')
+        with torch.inference_mode():
+            if self._capture_decode and self._decode.graph is None:
+                self._capture(self._decode_name, self._decode.capture)
+            if self._capture_prefill:
+                for kind in kinds:
+                    for bucket in self.pool.buckets:
+                        self._prefill_step(kind, bucket)
+        self._sync()
+        return dict(self._trace_counts)
+
     def _capture(self, key: str, capture):
         """Run `capture()` (a graph capture), count it in `traces` under
         `key` and book it in the program catalog: its seconds as the

@@ -2,9 +2,13 @@
 
 Both packages use Paddle's parameter names and layouts (`Linear.weight`
 is [in, out] in both), so the conversion is a checked copy by name.
+`param_digest` fingerprints a model's weights where they live, so two
+processes can show they serve the same numbers without moving them.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import Mapping
 
 import numpy as np
@@ -58,3 +62,22 @@ def from_jax_adapter_arrays(arrays: Mapping, bank) -> None:
     bank."""
     _copy_by_name(_flat_bank(arrays), _flat_bank(bank.device_arrays()),
                   'adapter arrays do not match the bank')
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def param_digest(model: torch.nn.Module) -> str:
+    """sha256 of every `state_dict` entry's name, dtype, shape and two
+    sums of its raw bits (reinterpreted as integers, widened to int64:
+    their sum and their sum of squares, wrapping), computed on the
+    tensors' own device. Equal weights give equal digests on any device;
+    a changed value changes them."""
+    rows = []
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            bits = t.detach().contiguous().view(
+                _BITS[t.element_size()]).to(torch.int64)
+            rows.append([name, str(t.dtype), list(t.shape),
+                         int(bits.sum()), int((bits * bits).sum())])
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()

@@ -305,6 +305,13 @@ _TELEMETRY = ('paddle_steps_total', 'paddle_tokens_total',
 
 def _train(kit, steps=3):
     reset_observability(kit.obs)
+    # the baseline after a registry snapshot, as the reading below is:
+    # the JAX catalog mirrors its eager dispatch cache's per-op counts
+    # (`paddle_tpu._dispatch.stats()['per_op']`, left by any earlier
+    # test in the process that ran eager ops) into `eager:<op>` records
+    # at every snapshot (`cost._sync_dispatch`), so a baseline read
+    # before the first mirror counts them as this run's calls
+    kit.obs.get_registry().snapshot()
     before = _calls(kit.obs)
     tel = kit.obs.StepTelemetry()
     rng = np.random.RandomState(0)

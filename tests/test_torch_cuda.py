@@ -1797,3 +1797,50 @@ def test_router_failover_on_the_card_loses_nothing(cuda):
                                   'ReplicaFailure' for h in failed)
             assert all(h.tokens == calm[i] for i, h in enumerate(hs)
                        if h.status == 'FINISHED')
+
+
+def test_replica_process_on_the_card_serves_the_in_process_tokens(
+        cuda, tmp_path):
+    """A replica process (`replica_main` on the card, started by a
+    `Supervisor`) over the weights of an in-process graph engine,
+    published to a `WeightStore`: every request's tokens equal the
+    in-process engine's; at its ready-marks it had captured the decode
+    step and every prefill bucket, compiled no kernel source, and its
+    serving window captures nothing; its kernels launched."""
+    import os
+    from paddle_tpu_torch.serving import (ReplicaSpec, Supervisor,
+                                          WeightStore)
+    from paddle_tpu_torch.weights import param_digest
+    model, prompts, sp = _fleet_case(cuda)
+    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    want = [h.tokens for h in InferenceEngine(model, **kw).generate_many(
+        prompts, sp)]
+    WeightStore(str(tmp_path / 'w')).publish(model.state_dict())
+    cfg = _graph_cfg()
+    factory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'test_torch_fleet_factory.py') + ':tiny_llama'
+    spec = ReplicaSpec(factory, model_kwargs=dict(
+        dtype='bfloat16', vocab_size=cfg.vocab_size,
+        hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size,
+        num_hidden_layers=cfg.num_hidden_layers,
+        num_attention_heads=cfg.num_attention_heads,
+        num_key_value_heads=cfg.num_key_value_heads,
+        max_position_embeddings=cfg.max_position_embeddings),
+        engine_kwargs=kw, weight_store_dir=str(tmp_path / 'w'))
+    sup = Supervisor(str(tmp_path / 'run'), spec)
+    try:
+        rr = sup.spawn('c0')
+        got = [h.tokens for h in rr.generate_many(prompts, sp)]
+        st = rr.stats()
+    finally:
+        sup.stop_all()
+    assert got == want
+    assert st['param_digest'] == param_digest(model)
+    buckets = st['pool']['buckets']
+    assert st['traces_at_ready'] == {'paged_decode_step': 1, **{
+        f'paged_prefill_{b}': 1 for b in buckets}}
+    assert st['traces'] == st['traces_at_ready']
+    assert st['kernel_builds'] == st['kernel_builds_at_ready'] == 0
+    for name in ('flash_attention_fwd', 'paged_attention', 'rms_norm'):
+        assert st['launches'][name] > 0

@@ -27,7 +27,8 @@ engine's, on the CPU, over the tiny GQA Llama carried across by
   `/requests`, `/trace` answer, `/programs` and `/slo` answer 200 with
   bodies of the JAX server's shape (the same programs with the same
   invocations, the same SLO report), `/fleet/metrics` and `/fleet/trace`
-  answer 404 naming ROADMAP.md.
+  answer 503 with the JAX server's body while no fleet aggregator is
+  registered.
 - A failed admission writes one flight bundle with its files, under a
   temp directory.
 - Lint: every `emit('...')` literal in `paddle_tpu_torch/` is declared
@@ -559,7 +560,8 @@ def test_server_beside_a_live_engine(models, tmp_path):
             'ttft_p99', 'availability', 'shed_rate']
         for route in ('/fleet/metrics', '/fleet/trace'):
             status, body = _get(srv.url + route)
-            assert status == 404 and 'ROADMAP.md' in body, route
+            assert (status, body) == _get(jsrv.url + route), route
+            assert status == 503 and 'set_aggregator' in body, route
         assert _get(f'{srv.url}/nope')[0] == 404
     finally:
         srv.stop()
