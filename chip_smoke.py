@@ -16,6 +16,8 @@
                                            # (OUT: its outputs saved)
     python3 chip_smoke.py --paged-bits A B # two saved outputs bit-equal?
     python3 chip_smoke.py --procs          # phase 6, then phase 6j alone
+    python3 chip_smoke.py --train-rungs    # phase 2's cases at the rungs'
+                                           # shapes, phases 4, 5 and 5c-5f
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -42,7 +44,11 @@ result line):
    decoder layer plus lm_head (bf16 with bf16 moments, and bf16 with
    fp32 masters and moments; a global-norm clip scale below 1, and
    amsgrad), every updated p, m, v (master, max) held to the plain
-   version (the cases are freed after the check and rebuilt for 8);
+   version; and the training kernels at phase 5c's rungs' shapes, bf16:
+   flash forward, dq and dk/dv at B=4 S=2048 H=16 and B=1 S=4096 H=32,
+   RMSNorm over 8192 x 2048, CE forward and backward at [8188, 50304]
+   (both these sets of cases are freed after the check and rebuilt for
+   8);
 3. consistency: the engine (its decode sub-step and each prefill bucket
    replayed from a CUDA graph) at 2 layers of Llama-2-7B width in f32,
    greedy; each request's first 16 tokens must equal a no-cache
@@ -80,10 +86,15 @@ result line):
    forward and backward of the next-token loss on the card (kernels) and
    on the CPU (plain versions) with the same weights: the losses and
    every parameter's gradient must agree, and again on the card with
-   `use_recompute=True`; then two `TrainStep`s on each under Llama 2's
-   AdamW recipe (global-norm clip, LinearWarmup around a cosine stepped
-   after each step): the losses, and each parameter's update over the
-   two steps, must agree;
+   `use_recompute=True`, and under 'dots' and 'dots_no_batch' against
+   the CPU; a model with tied word embeddings the same way (no recompute
+   and 'dots_no_batch'), and in bf16 on the card against f32 on the card
+   (gradients to a relative norm error of 0.05); then two `TrainStep`s
+   on each under Llama 2's AdamW recipe (global-norm clip, LinearWarmup
+   around a cosine stepped after each step): the losses, and each
+   parameter's update over the two steps, must agree; then two
+   `TrainStep`s with `AdamW(offload='host')` and two in HBM on the card:
+   parameters and moments bit-equal, every offloaded slot pinned;
 5. train: the JAX bench's `llama2_7b_shape_8L` rung (Llama-2-7B width,
    8 layers, bf16, recompute, batch 2 x seq 2048, AdamW lr 3e-4 with bf16
    moments) through `TrainStep`, 2 warm-up and 6 timed steps on 4
@@ -100,6 +111,36 @@ result line):
    warm-up and 6 timed steps, the scheduler stepped after each; each
    step's lr must be the schedule's, the loss finite, and the sum of
    squares and Adam kernels must both launch;
+5c. rungs: the JAX bench's headline `gpt3_1p3b` exactly as
+   bench.py:_run_config builds it (GPT-3 XL geometry on the Llama block,
+   'dots_no_batch', batch 4 x 2048, bf16, AdamW lr 3e-4, bf16 moments and
+   no masters above 1e9 parameters), then `llama2_7b_shape_8L` with
+   'dots_no_batch' at 1 x 4096, each 2 warm-up and 6 timed steps on 4
+   rotating batches (step time, tokens/s, MFU by bench.py's count over 989
+   TFLOP/s, peak memory; every training kernel launched, the loss
+   finite); then phase 5's rung under 'dots_no_batch' and True in 2
+   interleaved pairs, and the GEMMs one backward dispatches under each
+   policy (a dispatch-mode count): 'dots_no_batch' and 'dots' only the
+   gradients' two per projection, True more;
+5d. offload: bench.py's `llama2_7b_shape_16L` (16 layers, full
+   recompute, 1 x 2048, AdamW offload='host'), 1 warm-up and 3 timed
+   steps, then its in-HBM twin: every slot a pinned host tensor, the
+   H2D and D2H counters moving by the slots' bytes each step, the peak
+   device memory below the twin's by at least 0.9 x the slots' bytes;
+   both step times logged;
+5e. fault tolerance: phase 5's rung under `FaultTolerantStep(
+   snapshot_interval=1)`: a batch poisoned through the loss (x NaN) rolls
+   back once and is skipped, the parameters and slots bit-equal to the
+   snapshot, later losses finite (the snapshot seconds logged); with
+   skip_budget=0 a poisoned batch raises `SkipBudgetExhausted` after
+   `skip_budget_exhausted`; a `StepWatchdog` of 0.5 s over a step slowed
+   by 1.5 s fires once, emits `hang_suspected` and clears on return;
+5f. fit: `Model(LlamaForCausalLM)` at Llama-2-7B width, 2 of 32 layers,
+   bf16, over a shuffled `DataLoader` of seeded tokens: 8 steps of `fit`
+   with `ckpt_dir` (the gitignored build/fit_ckpt, removed after),
+   `ckpt_interval=4`, fault tolerance and `step_timeout`; a fresh Model
+   with `resume='auto'` from the step-4 checkpoint gives steps 5-8's
+   losses bit for bit;
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
    the 8-slot paged engine, which replays its decode sub-step and each
    prefill bucket from captured CUDA graphs, 12 requests (prompts 13-700
@@ -292,8 +333,9 @@ result line):
    fused `torch.optim.AdamW`; neither computes the same function), and
    the decode ones also with L2 flushed before each call.
 
-Phases 5, 5b and 6 run before any profiling: once torch.profiler has
-run in a process, every later launch costs the host more. Phases 6e and
+Phases 5, 5b, 5c-5f and 6 run before any profiling: once torch.profiler
+has run in a process, every later launch costs the host more; 5c-5f free
+their rungs before phase 6. Phases 6e and
 6f run right after phase 6, before 6b-6d, while only phase 6's engines
 hold device memory, and free their engines; 6g runs after 6b and frees
 its engines before 6c, and 6h after 6g; phase 7 builds fresh spec
@@ -322,6 +364,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, published
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
@@ -416,6 +459,13 @@ PRETRAIN_KERNELS = TRAIN_KERNELS + ('multi_tensor_sumsq',)
 # _run_config at :116-191)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 2048, 6, 2
 TRAIN_LR = 3e-4
+# phase 5c: the JAX bench's headline rung, gpt3_1p3b (bench.py:41-73):
+# GPT-3 XL geometry on the Llama block, 'dots_no_batch', batch 4 x 2048
+GPT3_SHAPE = dict(vocab_size=50304, hidden_size=2048,
+                  intermediate_size=5504, num_hidden_layers=24,
+                  num_attention_heads=16, num_key_value_heads=16,
+                  max_position_embeddings=4096)
+GPT3_BATCH = 4
 # Llama 2's pretraining optimizer (Touvron et al. 2023, section 2.2 and
 # Table 1): AdamW(0.9, 0.95, eps 1e-5), decay 0.1, global-norm clip 1.0,
 # 2000 warm-up steps, cosine to 10% of the peak lr
@@ -942,90 +992,130 @@ def _paged_verify_cases(add, gen) -> None:
                               for i in range(t)), rep=rep)
 
 
+def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
+    """The flash forward with its LSE and the two backward kernels at
+    [B, S, H(KV), 128], causal, against their plain versions, with SDPA
+    (forward, and its whole backward) as the library call."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    tag = f'{str(dtype)[6:]} B={b} S={s} H={h} HKV={hkv} causal'
+    q = _randn((b, s, h, 128), dtype, gen)
+    k = _randn((b, s, hkv, 128), dtype, gen)
+    v = _randn((b, s, hkv, 128), dtype, gen)
+    dout = _randn((b, s, h, 128), dtype, gen)
+    out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
+    _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, True)
+    pairs = b * h * live_pairs(s, s, True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=hkv != h)
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa_bwd(o=sdpa_out, ins=(qt, kt, vt), g=dout_t):
+        return torch.autograd.grad(o, ins, g, retain_graph=True)
+
+    add('flash_attention_fwd', f'flash fwd+lse {tag}', dtype,
+        lambda q=q, k=k, v=v: K.flash_attention_fwd(
+            q, k, v, True, return_lse=True),
+        lambda q=q, k=k, v=v: K.attention_reference(
+            q, k, v, causal=True, return_lse=True),
+        lambda qt=qt, kt=kt, vt=vt, g=hkv != h:
+            F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(),
+                is_causal=True, enable_gqa=g),
+        nbytes(q, k, v, q, lse), 2 * 2 * 128 * pairs)
+    add('flash_attention_bwd_dq', f'flash bwd dq {tag}', dtype,
+        lambda a=(q, k, v, out, lse, dout):
+            K.flash_attention_bwd_dq(*a, True),
+        lambda a=(q, k, v, out, lse, dout):
+            K.attention_bwd_dq_reference(*a, True),
+        sdpa_bwd,
+        nbytes(q, k, v, out, dout, lse, q, delta),
+        3 * 2 * 128 * pairs, rep=rep)
+    add('flash_attention_bwd_dkv', f'flash bwd dk/dv {tag}', dtype,
+        lambda a=(q, k, v, lse, delta, dout):
+            K.flash_attention_bwd_dkv(*a, True),
+        lambda a=(q, k, v, lse, delta, dout):
+            K.attention_bwd_dkv_reference(*a, True),
+        sdpa_bwd,
+        nbytes(q, k, v, dout, lse, delta, k, v),
+        4 * 2 * 128 * pairs, rep=rep)
+
+
+def _ce_case(add, gen, dtype, n, vocab, rep=False) -> None:
+    """The CE forward and backward at [n, vocab] with ignored rows, against
+    their plain versions, with `F.cross_entropy` (and its backward) as the
+    library call."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    x = (3 * torch.randn((n, vocab), generator=gen, device=DEV)).to(dtype)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    lab[::7] = 0                        # ignored rows: safe label 0 ...
+    # an O(1) upstream gradient of either sign, so that both the
+    # softmax and the one-hot term of dlogits stand far above the limit
+    g = torch.randn((n,), generator=gen, device=DEV)
+    g[::7] = 0.0                        # ... and no gradient
+    _, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+    xg = x.detach().requires_grad_()
+    lab64 = lab.long()
+    lib_nll = F.cross_entropy(xg, lab64, reduction='none')
+    tag = f'{str(dtype)[6:]} N={n} V={vocab}'
+    add('softmax_ce_fwd', f'ce fwd {tag}', dtype,
+        lambda x=x, lab=lab: K.softmax_cross_entropy_fwd(x, lab),
+        lambda x=x, lab=lab: K.softmax_cross_entropy_fwd_reference(x, lab),
+        lambda x=x, lab=lab64: F.cross_entropy(x, lab, reduction='none'),
+        nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep)
+    add('softmax_ce_bwd', f'ce bwd {tag}', dtype,
+        lambda a=(x, lab, lse, g): K.softmax_cross_entropy_bwd(*a),
+        lambda a=(x, lab, lse, g):
+            K.softmax_cross_entropy_bwd_reference(*a),
+        lambda o=lib_nll, x=xg, g=g:
+            torch.autograd.grad(o, x, g, retain_graph=True),
+        nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
+
+
 def _training_cases(add, gen) -> None:
     """The training path's kernels: flash forward with its LSE and the
     two backward kernels at the training shape (B=2, S=2048, H=32,
     causal), plus a GQA and a ragged case; the CE forward and backward
     at [4094, 32000] with ignored rows."""
-    from paddle_tpu_torch.ops import kernels as K
-    F = torch.nn.functional
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, hkv in ((TRAIN_BATCH, TRAIN_SEQ, 32), (1, 1024, 8),
                           (1, 1000, 32)):
-            tag = f'{str(dtype)[6:]} B={b} S={s} H=32 HKV={hkv} causal'
-            rep = dtype == torch.bfloat16 and s == TRAIN_SEQ
-            q = _randn((b, s, 32, 128), dtype, gen)
-            k = _randn((b, s, hkv, 128), dtype, gen)
-            v = _randn((b, s, hkv, 128), dtype, gen)
-            dout = _randn((b, s, 32, 128), dtype, gen)
-            out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
-            _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout,
-                                                    True)
-            pairs = b * 32 * live_pairs(s, s, True)
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            sdpa_out = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=hkv != 32)
-            dout_t = dout.transpose(1, 2)
-
-            def sdpa_bwd(o=sdpa_out, ins=(qt, kt, vt), g=dout_t):
-                return torch.autograd.grad(o, ins, g, retain_graph=True)
-
-            add('flash_attention_fwd', f'flash fwd+lse {tag}', dtype,
-                lambda q=q, k=k, v=v: K.flash_attention_fwd(
-                    q, k, v, True, return_lse=True),
-                lambda q=q, k=k, v=v: K.attention_reference(
-                    q, k, v, causal=True, return_lse=True),
-                lambda qt=qt, kt=kt, vt=vt, g=hkv != 32:
-                    F.scaled_dot_product_attention(
-                        qt.detach(), kt.detach(), vt.detach(),
-                        is_causal=True, enable_gqa=g),
-                nbytes(q, k, v, q, lse), 2 * 2 * 128 * pairs)
-            add('flash_attention_bwd_dq', f'flash bwd dq {tag}', dtype,
-                lambda a=(q, k, v, out, lse, dout):
-                    K.flash_attention_bwd_dq(*a, True),
-                lambda a=(q, k, v, out, lse, dout):
-                    K.attention_bwd_dq_reference(*a, True),
-                sdpa_bwd,
-                nbytes(q, k, v, out, dout, lse, q, delta),
-                3 * 2 * 128 * pairs, rep=rep)
-            add('flash_attention_bwd_dkv', f'flash bwd dk/dv {tag}', dtype,
-                lambda a=(q, k, v, lse, delta, dout):
-                    K.flash_attention_bwd_dkv(*a, True),
-                lambda a=(q, k, v, lse, delta, dout):
-                    K.attention_bwd_dkv_reference(*a, True),
-                sdpa_bwd,
-                nbytes(q, k, v, dout, lse, delta, k, v),
-                4 * 2 * 128 * pairs, rep=rep)
-
-    n, vocab = TRAIN_BATCH * (TRAIN_SEQ - 1), 32000
+            _flash_train_case(add, gen, dtype, b, s, 32, hkv,
+                              rep=dtype == torch.bfloat16 and s == TRAIN_SEQ)
     for dtype in (torch.float32, torch.bfloat16):
-        x = (3 * torch.randn((n, vocab), generator=gen, device=DEV)).to(dtype)
-        lab = torch.randint(0, vocab, (n,), generator=gen, device=DEV,
-                            dtype=torch.int32)
-        lab[::7] = 0                        # ignored rows: safe label 0 ...
-        # an O(1) upstream gradient of either sign, so that both the
-        # softmax and the one-hot term of dlogits stand far above the limit
-        g = torch.randn((n,), generator=gen, device=DEV)
-        g[::7] = 0.0                        # ... and no gradient
-        _, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
-        xg = x.detach().requires_grad_()
-        lab64 = lab.long()
-        lib_nll = F.cross_entropy(xg, lab64, reduction='none')
-        tag = f'{str(dtype)[6:]} N={n} V={vocab}'
-        rep = dtype == torch.bfloat16
-        add('softmax_ce_fwd', f'ce fwd {tag}', dtype,
-            lambda x=x, lab=lab: K.softmax_cross_entropy_fwd(x, lab),
-            lambda x=x, lab=lab: K.softmax_cross_entropy_fwd_reference(x, lab),
-            lambda x=x, lab=lab64: F.cross_entropy(x, lab, reduction='none'),
-            nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep)
-        add('softmax_ce_bwd', f'ce bwd {tag}', dtype,
-            lambda a=(x, lab, lse, g): K.softmax_cross_entropy_bwd(*a),
-            lambda a=(x, lab, lse, g):
-                K.softmax_cross_entropy_bwd_reference(*a),
-            lambda o=lib_nll, x=xg, g=g:
-                torch.autograd.grad(o, x, g, retain_graph=True),
-            nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
+        _ce_case(add, gen, dtype, TRAIN_BATCH * (TRAIN_SEQ - 1), 32000,
+                 rep=dtype == torch.bfloat16)
+
+
+def rung_cases() -> list:
+    """The training kernels at the shapes of phase 5c's rungs, bf16: flash
+    forward, dq and dk/dv at GPT-3 XL's B=4 S=2048 H=16 and the 7B rung's
+    B=1 S=4096 H=32 (causal, no GQA); RMSNorm over GPT-3 XL's 8192 x 2048;
+    CE forward and backward at [8188, 50304] (4 x 2047 next-token rows of
+    GPT-3 XL's padded vocab). Their ~2 GB are freed after phase 2's check
+    and made again for phase 8 (phase 6j's children leave the parent
+    little room)."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    cases, add = _case_list()
+    dtype = torch.bfloat16
+    for b, s, h in ((GPT3_BATCH, TRAIN_SEQ, 16), (1, 4096, 32)):
+        _flash_train_case(add, gen, dtype, b, s, h, h)
+    x = _randn((GPT3_BATCH * TRAIN_SEQ, 2048), dtype, gen)
+    w = (1 + 0.1 * torch.randn(2048, generator=gen, device=DEV)).to(dtype)
+    add('rms_norm', f'rms_norm bf16 rows={x.shape[0]} width=2048', dtype,
+        lambda x=x, w=w: K.rms_norm(x, w, 1e-6),
+        lambda x=x, w=w: K.rms_norm_reference(x, w, 1e-6),
+        lambda x=x, w=w: F.rms_norm(x, (2048,), w, 1e-6),
+        nbytes(x, x, w), 4 * x.numel())
+    _ce_case(add, gen, dtype, GPT3_BATCH * (TRAIN_SEQ - 1),
+             GPT3_SHAPE['vocab_size'])
+    return cases
 
 
 ADAPTER_COMPOSITE = ('composite of several PyTorch calls (index_select x2, '
@@ -1720,7 +1810,133 @@ def check_train_consistency(cfg) -> None:
             or errs[worst] > TRAIN_GRAD_RTOL:
         raise AssertionError('train consistency: recompute changes the '
                              'gradients')
-    del model, g_card, g_cpu, g_remat
+    del g_remat
+    for policy in ('dots', 'dots_no_batch'):
+        model.config.use_recompute = policy
+        loss_p, g_p = _loss_and_grads(model, ids)
+        rel = abs(loss_p - loss_cpu) / abs(loss_cpu)
+        errs = _grad_errors(g_p, g_cpu)
+        worst = max(errs, key=errs.get)
+        log(f'[train-consistency] use_recompute={policy!r} on the card: '
+            f'loss {loss_p:.6f} (rel {rel:.2e} vs the CPU), worst gradient '
+            f'rel error vs the CPU plain run {errs[worst]:.2e} ({worst})')
+        if rel > TRAIN_LOSS_RTOL or errs[worst] > TRAIN_GRAD_RTOL:
+            raise AssertionError(f'train consistency: {policy!r} on the card '
+                                 f'and the CPU disagree')
+        del g_p
+    del model, g_card, g_cpu
+    torch.cuda.empty_cache()
+    check_tied_consistency(cfg, ids)
+
+
+# tied embeddings in bf16 on the card against the same model in f32 on the
+# card: each gradient to a relative norm error of 0.05 (bf16 activations
+# and products over 2 layers of 4096 wide; the head's and the gather's
+# gradients both round in bf16 before their sum)
+TIED_BF16_GRAD_RTOL = 0.05
+
+
+def check_tied_consistency(cfg, ids) -> None:
+    """Tied word embeddings at phase 4's size: the f32 tied model's loss
+    and gradients on the card (kernels) against the CPU plain run (the
+    phase's limits), under no recompute and 'dots_no_batch'; then the same
+    weights in bf16 on the card against the f32 card run
+    (TIED_BF16_GRAD_RTOL). The embedding's gradient sums the gather's and
+    the head's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    tied = LlamaConfig(**{**cfg.__dict__, 'tie_word_embeddings': True,
+                          'use_recompute': False})
+    model = LlamaForCausalLM(tied, device=DEV, dtype='float32',
+                             generator=ptt.generator(8, DEV))
+    if model.lm_head is not None:
+        raise AssertionError('tied consistency: the tied model has a head')
+    on_cpu = LlamaForCausalLM(tied, device='cpu', dtype='float32')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            model.state_dict().items()})
+    loss_cpu, g_cpu = _loss_and_grads(on_cpu, ids)
+    del on_cpu
+    for policy in (False, 'dots_no_batch'):
+        model.config.use_recompute = policy
+        loss_card, g_card = _loss_and_grads(model, ids)
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        errs = _grad_errors(g_card, g_cpu)
+        worst = max(errs, key=errs.get)
+        log(f'[train-consistency] tied embeddings, recompute {policy!r}: '
+            f'loss card {loss_card:.6f} cpu {loss_cpu:.6f} (rel {rel:.2e}); '
+            f'embedding gradient rel error '
+            f'{errs["llama.embed_tokens.weight"]:.2e}, worst {errs[worst]:.2e}'
+            f' ({worst})')
+        if rel > TRAIN_LOSS_RTOL or errs[worst] > TRAIN_GRAD_RTOL:
+            raise AssertionError('tied consistency: card and CPU disagree')
+    model.config.use_recompute = False
+    half = LlamaForCausalLM(tied, device=DEV, dtype='bfloat16')
+    half.load_state_dict(model.state_dict())
+    loss_bf16, g_bf16 = _loss_and_grads(half, ids)
+    errs = _grad_errors({k: v.float() for k, v in g_bf16.items()}, g_card)
+    worst = max(errs, key=errs.get)
+    log(f'[train-consistency] tied embeddings in bf16 on the card: loss '
+        f'{loss_bf16:.4f} vs f32 {loss_card:.4f}; embedding gradient rel '
+        f'error {errs["llama.embed_tokens.weight"]:.2e}, worst '
+        f'{errs[worst]:.2e} ({worst}; limit {TIED_BF16_GRAD_RTOL})')
+    if not np.isfinite(loss_bf16) or errs[worst] > TIED_BF16_GRAD_RTOL:
+        raise AssertionError('tied consistency: bf16 on the card strays '
+                             'from f32')
+    del model, half, g_cpu, g_card, g_bf16
+    torch.cuda.empty_cache()
+
+
+def check_offload_steps(cfg) -> None:
+    """Two `TrainStep`s of AdamW(offload='host') and two of AdamW in HBM
+    at phase 4's size (f32, the same weights and batches): the parameters
+    and every moment bit-equal (the same kernel on the same values), every
+    offloaded slot a pinned host tensor, and the multi-tensor Adam kernel
+    launched by the offloaded update."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(10)
+    batches = [rng.randint(0, cfg.vocab_size, (1, 128)) for _ in range(2)]
+    steps, losses = {}, {}
+    for offload in (None, 'host'):
+        model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                                 generator=ptt.generator(7, DEV))
+        step = TrainStep(model, next_token_loss, AdamW(
+            learning_rate=1e-3, parameters=model.parameters(),
+            offload=offload))
+        K.reset_launch_counts()
+        losses[offload] = [float(step(b, b)) for b in batches]
+        launches = K.LAUNCHES['multi_tensor_adam']
+        steps[offload] = step
+    if launches <= 0:
+        raise AssertionError('offload steps: the offloaded update launched '
+                             'no multi-tensor Adam kernel')
+    hbm, off = steps[None], steps['host']
+    differ = [n for (n, a), (_, b) in zip(hbm.layer.named_parameters(),
+                                          off.layer.named_parameters())
+              if not torch.equal(a, b)]
+    want, got = hbm.opt_state(), off.opt_state()
+    unpinned = []
+    for n, slots in want['slots'].items():
+        for k, v in slots.items():
+            g = got['slots'][n][k]
+            if not (g.device.type == 'cpu' and g.is_pinned()):
+                unpinned.append(f'{n}.{k}')
+            if not torch.equal(g, v.cpu()):
+                differ.append(f'{n}.{k}')
+    log(f'[train-offload] 2 layers f32, 2 TrainSteps each: losses in HBM '
+        f'{losses[None]}, offloaded {losses["host"]}; parameters and '
+        f'moments bit-equal: {not differ}; slots pinned on the host: '
+        f'{not unpinned}; multi_tensor_adam launches {launches}; '
+        f'{time.perf_counter() - t0:.1f} s')
+    if differ or unpinned or losses[None] != losses['host']:
+        raise AssertionError(f'offload steps: differ {differ[:4]}, not '
+                             f'pinned {unpinned[:4]}')
+    del steps, hbm, off, want, got
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1979,6 +2195,477 @@ def pretrain(trained: dict, cfg) -> dict:
     opt._slots.clear()
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 5c-5f: the bench's rungs, offload, fault tolerance, Model.fit
+# ---------------------------------------------------------------------------
+
+# the rungs of bench.py this port could not run before: its headline
+# (bench.py:_configs, :48-73) and the first 7B rung (_7b_configs, :97-99),
+# each (name, config, batch, seq, warm-up steps, timed steps)
+def headline_rungs() -> list:
+    from paddle_tpu_torch.nlp import LlamaConfig
+    return [('gpt3_1p3b', LlamaConfig(use_recompute='dots_no_batch',
+                                      **GPT3_SHAPE),
+             GPT3_BATCH, TRAIN_SEQ, 2, 6),
+            ('llama2_7b_shape_8L', LlamaConfig.llama2_7b(
+                num_hidden_layers=8, use_recompute='dots_no_batch'),
+             1, 4096, 2, 6)]
+
+
+AB_PAIRS = 2             # interleaved (dots_no_batch, True) pairs
+AB_STEPS = 3             # timed steps per reading, after one warm-up
+OFFLOAD_LAYERS = 16      # bench.py:_7b_configs' deep rung (:109-111)
+OFFLOAD_SEQ = 2048
+OFFLOAD_MIN_SAVING = 0.9  # of the slots' bytes, HBM peak below the twin's
+FIT_LAYERS = 2           # 5f: Llama-2-7B width, 2 of 32 layers
+FIT_SAMPLES, FIT_BATCH, FIT_SEQ = 16, 2, 2048
+FIT_ROOT = Path(__file__).resolve().parent / 'build' / 'fit_ckpt'
+GEMM_OPS = ('mm', 'addmm', 'bmm', 'baddbmm')
+
+
+def bench_optimizer(model, offload=None):
+    """bench.py:_run_config's AdamW (:128-135): lr 3e-4; above 1e9
+    parameters bf16 moments and no masters, else fp32 masters and
+    moments."""
+    from paddle_tpu_torch.optimizer import AdamW
+    big = sum(p.numel() for p in model.parameters()) > 1e9
+    return AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                 multi_precision=not big,
+                 moment_dtype='bfloat16' if big else None, offload=offload)
+
+
+def run_rung(name, cfg, batch, seq, warmup, steps, offload=None,
+             kernels=TRAIN_KERNELS) -> dict:
+    """One bench rung as bench.py:_run_config builds it (seed 0, bf16,
+    `bench_optimizer`, 4 rotating batches of RandomState(0)): `warmup`
+    steps, then `steps` timed ones (host clock to a synchronized loss) with
+    the peak device memory and the kernel launches read around them. Fatal
+    unless every kernel of `kernels` launched and the loss is finite."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(0, DEV))
+    opt = bench_optimizer(model, offload)
+    step = TrainStep(model, next_token_loss, opt)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size, (batch, seq))
+               for _ in range(4)]
+    n_params = sum(p.numel() for p in model.parameters())
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        loss = step(batches[i % 4], batches[i % 4])
+    float(loss)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = step(batches[i % 4], batches[i % 4])
+    host = (time.perf_counter() - t0) / steps
+    final = float(loss)
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing or not np.isfinite(final):
+        raise AssertionError(f'{name}: kernels never launched {missing}, '
+                             f'loss {final}')
+    flops = train_flops_per_step(cfg, batch, seq)
+    res = dict(name=name, step_s=dt, host_s=host,
+               tokens_per_s=batch * seq / dt,
+               mfu=flops / dt / PEAK_OPS_PER_S[torch.bfloat16], loss=final,
+               peak_gb=peak / 1e9, launches=launches,
+               params_b=n_params / 1e9, step=step, batches=batches)
+    log(f'[rungs] {name}: {cfg.num_hidden_layers} layers x '
+        f'{cfg.hidden_size}, {n_params / 1e9:.3f} B params bf16, recompute '
+        f'{cfg.use_recompute!r}, batch {batch} x {seq}, moments '
+        f'{opt._moment_dtype}, offload {offload}; built in {built:.1f} s, '
+        f'{warmup} warm-up steps in {warm_s:.2f} s; {steps} steps: '
+        f'{dt * 1e3:.1f} ms/step (the card finished '
+        f'{(dt - host) * steps * 1e3:.1f} ms after the host\'s last launch:'
+        f' near 0, the card waits on the host), '
+        f'{res["tokens_per_s"]:.0f} tokens/s, MFU '
+        f'{res["mfu"]:.4f} ({flops / 1e12:.1f} TFLOP/step by bench.py\'s '
+        f'count vs 989 TFLOP/s), loss {final:.4f}, peak device memory '
+        f'{res["peak_gb"]:.2f} GB in all')
+    log(f'[rungs] {name}: kernel launches on the timed steps {launches}')
+    return res
+
+
+def flush() -> None:
+    """Collect what the caller dropped and give its device memory, and
+    the pinned host memory it held, back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, '_host_emptyCache'):
+        torch._C._host_emptyCache()
+
+
+class GemmCount(TorchDispatchMode):
+    """The GEMMs a region dispatches, by aten op (a dispatch mode sees the
+    ops below autograd, and never those a selective recompute policy
+    serves from its cache)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in GEMM_OPS:
+            self.counts[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def backward_gemms(model, ids, policy) -> int:
+    """The GEMMs one backward of the next-token loss dispatches under
+    `policy` (the model's grads dropped after)."""
+    model.config.use_recompute = policy
+    x = torch.as_tensor(ids, device=DEV)
+    loss = next_token_loss(model(x), x)
+    with GemmCount() as count:
+        loss.backward()
+    for p in model.parameters():
+        p.grad = None
+    return sum(count.counts.values())
+
+
+def train_rungs(trained: dict) -> dict:
+    """Phase 5c: the bench's headline rungs (`headline_rungs`), then phase
+    5's rung (its model, a fresh `bench_optimizer`) under 'dots_no_batch'
+    and under True in AB_PAIRS interleaved pairs, and the GEMMs one
+    backward dispatches under each policy: every projection's two
+    gradient products (and the head's) under 'dots_no_batch', and no
+    forward product rerun; True reruns them."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels as K
+    out = {'launches': collections.Counter()}
+    for name, cfg, b, seq, warm, steps in headline_rungs():
+        r = run_rung(name, cfg, b, seq, warm, steps)
+        out['launches'].update(r['launches'])
+        out[name] = {k: v for k, v in r.items()
+                     if k not in ('step', 'batches')}
+        del r
+        flush()
+    model = trained['step'].layer
+    layers = model.config.num_hidden_layers
+    grads = 2 * (7 * layers + 1)
+    gemms = {p: backward_gemms(model, trained['batch'], p)
+             for p in ('dots_no_batch', 'dots', True, False)}
+    log(f'[rungs] GEMMs one backward dispatches at phase 5\'s rung: '
+        + ', '.join(f'{p!r} {n}' for p, n in gemms.items())
+        + f' (the gradients\' products: {grads})')
+    if gemms['dots_no_batch'] != grads or gemms['dots'] != grads \
+            or gemms[True] <= grads:
+        raise AssertionError(f'rungs: the policies rerun the wrong GEMMs: '
+                             f'{gemms}')
+    step = TrainStep(model, next_token_loss, bench_optimizer(model))
+    batches = trained['batches']
+    readings = collections.defaultdict(list)
+    K.reset_launch_counts()
+    for policy in ('dots_no_batch', True) * AB_PAIRS:
+        model.config.use_recompute = policy
+        float(step(batches[0], batches[0]))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(AB_STEPS):
+            loss = step(batches[i % 4], batches[i % 4])
+        host = (time.perf_counter() - t0) / AB_STEPS
+        final = float(loss)
+        dt = (time.perf_counter() - t0) / AB_STEPS
+        if not np.isfinite(final):
+            raise AssertionError(f'rungs: A/B loss {final} under {policy!r}')
+        readings[policy].append((dt, torch.cuda.max_memory_allocated(),
+                                 host))
+    model.config.use_recompute = True
+    out['launches'].update(K.LAUNCHES)
+    flops = train_flops_per_step(model.config, TRAIN_BATCH, TRAIN_SEQ)
+    ab = {}
+    for policy, rs in readings.items():
+        dts = [dt for dt, _, _ in rs]
+        ab[repr(policy)] = dict(step_s=dts,
+                                host_s=[h for _, _, h in rs],
+                                peak_gb=max(p for _, p, _ in rs) / 1e9,
+                                mfu=[flops / dt / PEAK_OPS_PER_S[
+                                    torch.bfloat16] for dt in dts])
+        log(f'[rungs] phase 5\'s rung, recompute {policy!r}: '
+            + ' '.join(f'{dt * 1e3:.1f}' for dt in dts) + ' ms/step (MFU '
+            + ' '.join(f'{m:.4f}' for m in ab[repr(policy)]['mfu'])
+            + '; the card finished '
+            + ' '.join(f'{(dt - h) * AB_STEPS * 1e3:.1f}' for dt, _, h in rs)
+            + f' ms after the host\'s last launch), peak device memory '
+            f'{ab[repr(policy)]["peak_gb"]:.2f} GB')
+    out['ab'] = ab
+    out['gemms'] = {repr(k): v for k, v in gemms.items()}
+    step.optimizer._slots.clear()
+    del step
+    flush()
+    return out
+
+
+def train_offload() -> dict:
+    """Phase 5d: bench.py's deep rung (llama2_7b_shape_16L: 16 layers,
+    full recompute, 1 x 2048, AdamW offload='host', 1 warm-up and 3 timed
+    steps), then its in-HBM twin on the same card. Fatal unless every slot
+    is a pinned host tensor, the transfer counters move by the slots'
+    bytes each step both ways, and the offloaded rung's peak device memory
+    lies below the twin's by at least OFFLOAD_MIN_SAVING of the slots'
+    bytes."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.nlp import LlamaConfig
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=OFFLOAD_LAYERS,
+                                use_recompute=True)
+    reg = obs.get_registry()
+
+    def moved():
+        return {d: reg.counter(f'paddle_offload_{d}_bytes_total', '').value
+                for d in ('h2d', 'd2h')}
+    t0 = time.perf_counter()
+    before = moved()
+    off = run_rung('llama2_7b_shape_16L offload', cfg, 1, OFFLOAD_SEQ, 1, 3,
+                   offload='host')
+    after = moved()
+    opt = off['step'].optimizer
+    opt._settle()
+    slots = [v for s in opt._slots.values() for v in s.values()]
+    slot_bytes = sum(v.numel() * v.element_size() for v in slots)
+    unpinned = sum(1 for v in slots if v.is_cuda or not v.is_pinned())
+    per_step = {d: (after[d] - before[d]) / 4 for d in after}
+    log(f'[offload] {len(slots)} slots, {slot_bytes / 1e9:.2f} GB, on the '
+        f'host and pinned: {unpinned == 0}; per step H2D '
+        f'{per_step["h2d"] / 1e9:.3f} GB, D2H {per_step["d2h"] / 1e9:.3f} GB '
+        f'(the slots\' bytes: {slot_bytes / 1e9:.3f} GB); ring '
+        f'{sum(t.numel() * t.element_size() for r in opt._engine._ring for t in r.values()) / 1e9:.2f} GB')
+    if unpinned or any(v != slot_bytes for v in per_step.values()):
+        raise AssertionError(f'offload: {unpinned} slots not pinned on the '
+                             f'host, per-step bytes {per_step} != '
+                             f'{slot_bytes}')
+    res = {'offload': {k: v for k, v in off.items()
+                       if k not in ('step', 'batches')},
+           'slot_gb': slot_bytes / 1e9,
+           'launches': collections.Counter(off['launches'])}
+    del off, opt, slots
+    flush()
+    twin = run_rung('llama2_7b_shape_16L in HBM', cfg, 1, OFFLOAD_SEQ, 1, 3)
+    res['hbm'] = {k: v for k, v in twin.items()
+                  if k not in ('step', 'batches')}
+    res['launches'].update(twin['launches'])
+    del twin
+    flush()
+    saving = res['hbm']['peak_gb'] - res['offload']['peak_gb']
+    log(f'[offload] peak device memory offloaded '
+        f'{res["offload"]["peak_gb"]:.2f} GB vs in HBM '
+        f'{res["hbm"]["peak_gb"]:.2f} GB: {saving:.2f} GB saved of '
+        f'{res["slot_gb"]:.2f} GB of slots (required >= '
+        f'{OFFLOAD_MIN_SAVING}); step {res["offload"]["step_s"] * 1e3:.1f} '
+        f'vs {res["hbm"]["step_s"] * 1e3:.1f} ms; phase 5d took '
+        f'{time.perf_counter() - t0:.1f} s')
+    if saving < OFFLOAD_MIN_SAVING * res['slot_gb']:
+        raise AssertionError(f'offload: saved {saving:.2f} GB < '
+                             f'{OFFLOAD_MIN_SAVING} x {res["slot_gb"]:.2f}')
+    return res
+
+
+def fault_tolerance(trained: dict) -> dict:
+    """Phase 5e: phase 5's rung (its model, a fresh `bench_optimizer`)
+    under `FaultTolerantStep(snapshot_interval=1)` (NaN/Inf detection;
+    each snapshot's seconds logged): two good steps, a batch poisoned
+    through the loss (loss x NaN, so the update writes NaNs), which must
+    give one rollback and one skipped batch with the parameters and
+    slots bit-equal to the snapshot, then two finite steps; with
+    skip_budget=0 a poisoned batch must raise SkipBudgetExhausted after
+    `skip_budget_exhausted` is emitted; a `StepWatchdog` with a 0.5 s
+    deadline under a step slowed by 1.5 s must fire once, emit
+    `hang_suspected` with /healthz's hang state set, and clear on
+    return."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.observability import server
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.resilience import (FaultTolerantStep,
+                                             SkipBudgetExhausted,
+                                             StepWatchdog)
+    t_phase = time.perf_counter()
+    model = trained['step'].layer
+    batches = trained['batches']
+    mode = {'scale': 1.0, 'sleep': 0.0}
+
+    def poisoned_loss(logits, labels):
+        if mode['sleep']:
+            time.sleep(mode['sleep'])
+        return next_token_loss(logits, labels) * mode['scale']
+    opt = bench_optimizer(model)
+    step = TrainStep(model, poisoned_loss, opt)
+    ft = FaultTolerantStep(step, snapshot_interval=1, check_spikes=False)
+    snap_s = []
+    capture = ft._capture
+
+    def timed_capture():
+        t0 = time.perf_counter()
+        snap = capture()
+        snap_s.append(time.perf_counter() - t0)
+        return snap
+    ft._capture = timed_capture
+    K.reset_launch_counts()
+    losses = [float(ft(batches[i], batches[i])) for i in range(2)]
+    mode['scale'] = float('nan')
+    bad = float(ft(batches[2], batches[2]))
+    mode['scale'] = 1.0
+    if not (ft.rollbacks == 1 and ft.skipped_batches == 1
+            and ft.last_step_skipped and math.isnan(bad)):
+        raise AssertionError(f'fault tolerance: {ft.stats()} after a NaN '
+                             f'batch')
+    snap = ft.snapshot_tensors()
+    live = {('param', n): p for n, p in model.named_parameters()}
+    live.update({('slot', n, k): v for n, sl in step.opt_state()['slots']
+                 .items() for k, v in sl.items()})
+    snap_gb = sum(v.numel() * v.element_size() for v in snap.values()) / 1e9
+    differ = [k for k, v in live.items()
+              if not torch.equal(v, snap[k].to(v.device))]
+    if differ or set(snap) != set(live):
+        raise AssertionError(f'fault tolerance: the restore differs from '
+                             f'the snapshot at {differ[:4]}')
+    losses += [float(ft(batches[i], batches[i])) for i in (2, 3)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'fault tolerance: losses {losses}')
+    log(f'[fault-tolerance] phase 5\'s rung under FaultTolerantStep('
+        f'snapshot_interval=1): losses {[round(x, 4) for x in losses]}, the '
+        f'NaN batch rolled back ({ft.stats()}); parameters and slots '
+        f'bit-equal to the snapshot ({len(snap)} tensors, {snap_gb:.2f} GB, '
+        f'pinned); snapshot seconds ' + ' '.join(f'{x:.3f}' for x in snap_s)
+        + ' (the first allocates the pinned buffers)')
+    # a budget of 0: the first bad batch ends the run
+    ft0 = FaultTolerantStep(step, skip_budget=0, check_spikes=False)
+    ft0._host = ft._host            # the same pinned buffers
+    seq = _last_seq(obs)
+    mode['scale'] = float('nan')
+    try:
+        ft0(batches[0], batches[0])
+    except SkipBudgetExhausted as e:
+        raised = str(e)
+    else:
+        raise AssertionError('fault tolerance: skip_budget=0 did not raise')
+    finally:
+        mode['scale'] = 1.0
+    names = [e['name'] for e in obs.get_event_log().events()
+             if e['seq'] > seq]
+    if 'skip_budget_exhausted' not in names or \
+            names.index('skip_budget_exhausted') < names.index('bad_step'):
+        raise AssertionError(f'fault tolerance: events {names}')
+    log(f'[fault-tolerance] skip_budget=0: SkipBudgetExhausted ({raised}) '
+        f'after events {names}')
+    # the watchdog over a slowed step
+    seen = []
+    dog = StepWatchdog(0.5, poll_interval=0.05, on_hang=lambda elapsed:
+                       seen.append((elapsed, server.hang_suspected())))
+    mode['sleep'] = 1.5
+    try:
+        with dog.watch():
+            float(step(batches[0], batches[0]))
+    finally:
+        mode['sleep'] = 0.0
+        dog.stop()
+    hangs = [e for e in obs.get_event_log().events()
+             if e['name'] == 'hang_suspected' and e['seq'] > seq]
+    log(f'[fault-tolerance] StepWatchdog(0.5 s) over a step slowed by 1.5 s:'
+        f' fired {dog.fired}, hang_suspected events {len(hangs)}, /healthz '
+        f'hang state during {[h for _, h in seen]} and after '
+        f'{server.hang_suspected()}; phase 5e took '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    if dog.fired != 1 or len(hangs) != 1 or seen[0][1] is not True \
+            or server.hang_suspected():
+        raise AssertionError('fault tolerance: the watchdog did not fire '
+                             'once and clear')
+    res = {'losses': losses, 'snapshot_s': snap_s, 'snapshot_gb': snap_gb,
+           'launches': dict(K.LAUNCHES)}
+    opt._slots.clear()
+    del ft, ft0, step, opt, snap, live, capture, timed_capture
+    flush()
+    return res
+
+
+def fit_resume() -> dict:
+    """Phase 5f: `Model(LlamaForCausalLM)` at Llama-2-7B width and FIT_LAYERS
+    of 32 layers (a checkpoint of all 32 would write 40 GB to disk twice),
+    bf16, AdamW lr 3e-4 with bf16 moments, the next-token loss, over a
+    DataLoader of FIT_SAMPLES seeded token rows (batch FIT_BATCH, shuffle):
+    `fit` of 8 steps with `ckpt_dir` (the gitignored build/fit_ckpt),
+    `ckpt_interval=4`, fault tolerance (NaN/Inf: a spike test would see
+    the resumed run's fresh window) and `step_timeout`; then a fresh Model
+    of other random weights with `resume='auto'` from the step-4
+    checkpoint must give steps 5-8's losses bit for bit. The directory is
+    removed after."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=FIT_LAYERS)
+    rows = np.random.RandomState(12).randint(0, cfg.vocab_size,
+                                             (FIT_SAMPLES, FIT_SEQ))
+    shutil.rmtree(FIT_ROOT, ignore_errors=True)
+    kw = dict(batch_size=FIT_BATCH, epochs=1, shuffle=True, verbose=0,
+              ckpt_dir=str(FIT_ROOT), ckpt_interval=4,
+              fault_tolerance={'check_spikes': False}, step_timeout=120.0)
+
+    def model(seed):
+        net = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                               generator=ptt.generator(seed, DEV))
+        return ptt.Model(net).prepare(
+            AdamW(learning_rate=TRAIN_LR, parameters=net.parameters(),
+                  moment_dtype='bfloat16'), next_token_loss)
+    try:
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        full = model(11).fit(io.TensorDataset([rows, rows]), **kw)['loss']
+        launches = dict(K.LAUNCHES)
+        fit_s = time.perf_counter() - t0
+        steps = sorted(os.listdir(FIT_ROOT))
+        ckpt_gb = sum(f.stat().st_size for f in (FIT_ROOT / 'step_4')
+                      .iterdir()) / 1e9
+        if steps != ['step_4', 'step_8'] or len(full) != 8:
+            raise AssertionError(f'fit: {len(full)} steps, checkpoints '
+                                 f'{steps}')
+        shutil.rmtree(FIT_ROOT / 'step_8')
+        flush()
+        t0 = time.perf_counter()
+        rest = model(99).fit(io.TensorDataset([rows, rows]),
+                             **dict(kw, resume='auto'))['loss']
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(FIT_ROOT, ignore_errors=True)
+    flush()
+    log(f'[fit] Model.fit at {FIT_LAYERS} of 32 Llama-2-7B layers, bf16, '
+        f'batch {FIT_BATCH} x {FIT_SEQ}: 8 steps with checkpoints at 4 and '
+        f'8 ({ckpt_gb:.2f} GB each) in {fit_s:.1f} s, losses '
+        + ' '.join(f'{x:.6f}' for x in full) + f'; resumed from step 4 in '
+        f'{resume_s:.1f} s: ' + ' '.join(f'{x:.6f}' for x in rest)
+        + f'; bit-equal {rest == full[4:]}')
+    if rest != full[4:] or not all(np.isfinite(full)):
+        raise AssertionError(f'fit: the resumed losses {rest} are not steps '
+                             f'5-8 of {full}')
+    return {'losses': full, 'resumed': rest, 'fit_s': fit_s,
+            'resume_s': resume_s, 'ckpt_gb': ckpt_gb, 'launches': launches}
+
+
+def rest_of_training(trained: dict) -> dict:
+    """Phases 5c-5f, each timed."""
+    out = {}
+    for key, fn in (('5c', lambda: train_rungs(trained)),
+                    ('5d', train_offload),
+                    ('5e', lambda: fault_tolerance(trained)),
+                    ('5f', fit_resume)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        log(f'[rest-of-training] phase {key} took '
+            f'{time.perf_counter() - t0:.1f} s')
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5663,6 +6350,30 @@ def main() -> int:
             f'memory {peak / 1e9:.2f} GB in all')
         return 0
     from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
+    if sys.argv[1:2] == ['--train-rungs']:
+        # python3 chip_smoke.py --train-rungs: phase 2's training kernels at
+        # the rungs' shapes (checked and timed), phase 4, phase 5, then
+        # phases 5c-5f alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        cases = rung_cases()
+        check_kernels(cases)
+        cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+        check_train_consistency(cfg)
+        check_train_steps(cfg)
+        check_offload_steps(cfg)
+        trained = train(LlamaConfig.llama2_7b(num_hidden_layers=8,
+                                              use_recompute=True))
+        rest = rest_of_training(trained)
+        release(trained)
+        time_kernels(cases)
+        log(f'[train-rungs] launches ' + json.dumps({
+            k: sum(r['launches'].get(k, 0) for r in rest.values())
+            for k in TRAIN_KERNELS}))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -5686,6 +6397,7 @@ def main() -> int:
     cases = kernel_cases()
     check_kernels(cases)
     check_kernels(optimizer_cases())    # freed here, rebuilt for phase 8
+    check_kernels(rung_cases())         # the same
     torch.cuda.empty_cache()
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -5694,9 +6406,11 @@ def main() -> int:
     check_spec_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_offload_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
     rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
     trained = train(rung)
     pretrained = pretrain(trained, rung)
+    rest = rest_of_training(trained)
     res = serve(LlamaConfig.llama2_7b())
     spec = serve_spec(res)
     drain_swap(res)
@@ -5728,7 +6442,9 @@ def main() -> int:
     procs = serve_procs(res)
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
-    rows = time_kernels(cases + opt_cases)
+    rungs = rung_cases()
+    check_kernels(rungs)
+    rows = time_kernels(cases + opt_cases + rungs)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -5739,7 +6455,8 @@ def main() -> int:
         launches = sum(run['launches'].get(name, 0)
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
-                                   spec['draft2'], spec['self'], procs))
+                                   spec['draft2'], spec['self'], procs,
+                                   *rest.values()))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

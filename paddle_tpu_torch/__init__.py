@@ -23,17 +23,25 @@ what the serving and training paths do (metrics, events, spans, the
 goodput and request ledgers, the program catalog and roofline, the SLO
 engine, the flight recorder, an HTTP endpoint, and the fleet plane
 that merges them across processes) under the JAX package's names.
+
+Training runs the JAX bench's rungs: selective recompute
+(`use_recompute='dots'|'dots_no_batch'`), tied word embeddings, Adam's
+slots offloaded to pinned host memory (`offload='host'`), the fault-
+tolerant step and its watchdog (`resilience`), and `Model.fit` (`hapi`)
+over `io.DataLoader` with `metric`s, callbacks, checkpoints and resume.
 """
-from . import (analysis, debug, dtype, flags, framework, jit, loadgen, loop,
-               nlp, nn, observability, ops, optimizer, regularizer,
-               resilience, serving, utils, weights)
+from . import (analysis, debug, dtype, flags, framework, io, jit, loadgen,
+               loop, metric, nlp, nn, observability, ops, optimizer,
+               regularizer, resilience, serving, utils, weights)
+from . import hapi
 from .flags import get_flags, set_flags
 from .framework import generator, resolve_device, seed
+from .hapi import Model
+from .hapi import callbacks_mod as callbacks
 from .serialization import load, save
 
-__all__ = ['analysis', 'debug', 'dtype', 'flags', 'framework', 'jit',
-           'loadgen', 'loop', 'nlp', 'nn', 'observability', 'ops',
-           'optimizer',
-           'regularizer', 'resilience', 'serving', 'utils',
-           'weights', 'generator', 'get_flags', 'load', 'resolve_device',
-           'save', 'seed', 'set_flags']
+__all__ = ['analysis', 'callbacks', 'debug', 'dtype', 'flags', 'framework',
+           'hapi', 'io', 'jit', 'loadgen', 'loop', 'metric', 'nlp', 'nn',
+           'observability', 'ops', 'optimizer', 'regularizer', 'resilience',
+           'serving', 'utils', 'weights', 'Model', 'generator', 'get_flags',
+           'load', 'resolve_device', 'save', 'seed', 'set_flags']

@@ -14,8 +14,16 @@ the event log's drops. It is what the HTTP server's /summary renders
 sections the port has no source for yet (dispatch, jit, collectives,
 offload, elastic, the program store) are left out, and `adapters` and
 `requests` are the port's own.
+
+`LossSpikeDetector` (the JAX module's, copied) flags a training loss
+that leaves its trailing window; the fault-tolerant step and
+`hapi.MetricsLoggerCallback` run it.
 """
 from __future__ import annotations
+
+import collections
+import math
+from typing import Deque, List
 
 from . import observability as _obs
 
@@ -354,3 +362,46 @@ def _span_quantiles_ms(reg, span_name: str) -> dict:
     if child is None:
         return {}
     return {q: v * 1e3 for q, v in child.window_quantiles().items()}
+
+
+class LossSpikeDetector:
+    """Windowed spike detector: flags a step whose loss exceeds
+    mean + k*std of the trailing window, or is non-finite.
+
+    Flagged values are EXCLUDED from the trailing window: a spike (or a
+    level shift that registers as one) must not inflate its own baseline
+    mean/std, which would mask every later spike. Each flagged step also
+    emits a `loss_spike` event into the observability EventLog."""
+
+    def __init__(self, window: int = 20, threshold_sigma: float = 6.0,
+                 min_steps: int = 5):
+        self.window: Deque[float] = collections.deque(maxlen=window)
+        self.k = threshold_sigma
+        self.min_steps = min_steps
+        self.spikes: List[int] = []
+        self._step = 0
+
+    def _note_spike(self, value: float):
+        self.spikes.append(self._step)
+        _obs.emit('loss_spike', step=self._step, loss=value,
+                  window=len(self.window))
+
+    def update(self, loss: float) -> bool:
+        """Returns True if this step is a spike."""
+        v = float(loss)
+        self._step += 1
+        if not math.isfinite(v):
+            self._note_spike(v)
+            return True
+        spiked = False
+        if len(self.window) >= self.min_steps:
+            mean = sum(self.window) / len(self.window)
+            var = sum((x - mean) ** 2 for x in self.window) \
+                / len(self.window)
+            std = math.sqrt(var)
+            if v > mean + self.k * max(std, 1e-12):
+                spiked = True
+                self._note_spike(v)
+        if not spiked:
+            self.window.append(v)
+        return spiked

@@ -6,6 +6,13 @@ so the port's step is the same sequence run as it stands: no `jit`
 counterpart and no `torch.compile`. The kernels under the model are
 what runs on the card.
 
+An optimizer built with `offload='host'` keeps its slots in pinned host
+memory and streams the update through HBM (`optimizer/offload.py`), as
+the JAX step's offload path runs its `OffloadEngine` after the jitted
+gradient step. `opt_state()` and `load_opt_state()` read and write the
+optimizer's state in the JAX step's `_opt_state` layout, which the fault-
+tolerant step's snapshots and `hapi.Model`'s checkpoints hold.
+
 Observability, as the JAX step reports: each call runs under the
 `train.step` span (the goodput ledger's `step_compute`), the first call
 notes `paddle_jit_cache_entries{kind="train_step"}` (the JAX step's one
@@ -23,6 +30,7 @@ import torch
 
 from .. import observability as _obs
 from ..observability import cost as _cost
+from ..weights import _copy_by_name
 
 
 def _to_device(value, device: torch.device):
@@ -80,6 +88,36 @@ class TrainStep:
                                 kind='train')
             cat.note_cost('train_step', *self._cost(inputs), kind='train')
         return loss.detach()
+
+    def opt_state(self) -> dict:
+        """The optimizer's state in the JAX step's `_opt_state` layout:
+        {'step': updates so far, 'slots': {parameter name: {slot name:
+        tensor}}}, parameters without slots yet left out. The tensors are
+        the optimizer's own (on the card, or the host buffers of an
+        offloaded optimizer, its copies settled): a caller that keeps
+        them copies them."""
+        opt = self.optimizer
+        opt._settle()
+        return {'step': opt._step_count,
+                'slots': {n: opt._slots[p] for n, p in self._params
+                          if p in opt._slots}}
+
+    def load_opt_state(self, state) -> None:
+        """Copy `state` (`opt_state()`'s layout, with tensors or numpy
+        arrays: a JAX step's `_opt_state` on the host loads too) into the
+        optimizer's slots in place, made first where missing, so no slot
+        moves. None, or no slots: the state before the first update."""
+        opt = self.optimizer
+        if state is None or not state.get('slots'):
+            opt.reset_state()
+            return
+        opt._settle()
+        opt._prepare_slots([p for _, p in self._params])
+        for n, p in self._params:
+            if n in state['slots']:
+                _copy_by_name(state['slots'][n], opt._slots_for(p),
+                              f'optimizer slots of {n} do not match')
+        opt._step_count = int(np.asarray(state['step']))
 
     def _cost(self, inputs) -> tuple:
         """Analytic (FLOPs, bytes) of one step. A layer with a

@@ -32,16 +32,37 @@ kernel reads in place of the window's int8 pages.
 
 Training: `LlamaForCausalLM.forward(input_ids, labels=...)` returns
 (loss, logits) with the loss from `F.cross_entropy` (the fused CE
-kernels), and `config.use_recompute=True` recomputes each decoder layer
-in the backward (`torch.utils.checkpoint`), trading one more forward of
-each layer for holding only the layer inputs.
+kernels). `config.use_recompute` recomputes each decoder layer in the
+backward (`torch.utils.checkpoint`, non-reentrant), as the JAX model's
+`jax.checkpoint` does:
+- `True` keeps only the layer inputs and reruns the whole layer;
+- `'dots_no_batch'` (`jax.checkpoint_policies.
+  dots_with_no_batch_dims_saveable`) keeps the outputs of the weight
+  matmuls (`aten.mm`/`aten.addmm`, which a [B, S, H] @ [H, O] product
+  reaches through a view) and reruns attention and the elementwise ops;
+- `'dots'` (`dots_saveable`) also keeps the batched dots
+  (`aten.bmm`/`aten.baddbmm`).
+The policies are torch's selective checkpoint contexts, which see the
+ops below autograd. On the card attention is the flash kernels'
+`autograd.Function`, whose kernels are no aten op: both policies rerun
+it, as the JAX program on a TPU reruns the Pallas call, which is no
+`dot_general`. On the CPU the plain attention's two bmm are what
+`'dots'` keeps. The kernels rerun in the recompute count their launches
+again.
+
+`tie_word_embeddings=True` has no `lm_head`: the logits are
+`h @ embed_tokens.weight.T` (`_logits`), so the embedding's gradient sums
+the gather's and the head's, and every forward mode (training, the
+engine's prefill, chunk and decode, their captured graphs) reads it.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import dtype as _dtype
 from ..framework import resolve_device
@@ -64,11 +85,10 @@ class LlamaConfig:
                  rope_theta=10000.0, tie_word_embeddings=False,
                  pad_token_id=0, bos_token_id=1, eos_token_id=2,
                  use_recompute=False, **kwargs):
-        if isinstance(use_recompute, str):
-            raise NotImplementedError(
-                f'use_recompute={use_recompute!r}: selective recompute '
-                f'policies are not ported yet (ROADMAP.md, Queue 1); use '
-                f'True (whole decoder layers) or False')
+        if isinstance(use_recompute, str) \
+                and use_recompute not in SAVED_OPS:
+            raise ValueError(f'use_recompute={use_recompute!r}: take True, '
+                             f'False or one of {sorted(SAVED_OPS)}')
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -82,7 +102,8 @@ class LlamaConfig:
         self.pad_token_id = pad_token_id
         self.bos_token_id = bos_token_id
         self.eos_token_id = eos_token_id
-        self.use_recompute = bool(use_recompute)
+        self.use_recompute = use_recompute if isinstance(
+            use_recompute, str) else bool(use_recompute)
         for k, v in kwargs.items():
             setattr(self, k, v)
 
@@ -109,6 +130,28 @@ class LlamaConfig:
         kw.setdefault('num_key_value_heads', 2)
         kw.setdefault('max_position_embeddings', 256)
         return cls(**kw)
+
+
+_aten = torch.ops.aten
+# the ops whose outputs a selective recompute policy keeps: the weight
+# matmuls, and under 'dots' the batched dots as well
+SAVED_OPS = {
+    'dots_no_batch': frozenset({_aten.mm.default, _aten.addmm.default}),
+    'dots': frozenset({_aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+}
+
+
+def recompute_context(policy: str):
+    """The `context_fn` of `torch.utils.checkpoint` for a selective
+    recompute policy of `SAVED_OPS`: its ops' outputs are saved, every
+    other op is rerun in the backward."""
+    saved = SAVED_OPS[policy]
+
+    def keep(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, keep)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -269,15 +312,18 @@ class LlamaModel(Layer):
 
         With `config.use_recompute` and grad enabled (training, no pages)
         each layer runs under `torch.utils.checkpoint`: its activations
-        are dropped after the forward and recomputed in the backward."""
+        (all of them, or those a policy does not keep) are dropped after
+        the forward and recomputed in the backward."""
         h = self.embed_tokens(input_ids)
-        remat = (self.config.use_recompute and kv_pages is None
-                 and torch.is_grad_enabled())
+        policy = self.config.use_recompute
+        remat = policy and kv_pages is None and torch.is_grad_enabled()
+        extra = ({'context_fn': recompute_context(policy)}
+                 if isinstance(policy, str) else {})
         kvs = []
         for i, layer in enumerate(self.layers):
             if remat:
                 h, kv = checkpoint(layer, h, position_offset,
-                                   use_reentrant=False)
+                                   use_reentrant=False, **extra)
             else:
                 h, kv = layer(h, position_offset=position_offset,
                               kv_pages=None if kv_pages is None
@@ -292,15 +338,13 @@ class LlamaForCausalLM(Layer):
                  dtype='float32',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.tie_word_embeddings:
-            raise ValueError('tied word embeddings are not ported yet')
         self.config = config
         self.llama = LlamaModel(config, device=device, dtype=dtype,
                                 generator=generator)
         emb = self.llama.embed_tokens.weight
-        self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              device=emb.device, dtype=emb.dtype,
-                              generator=generator)
+        self.lm_head = None if config.tie_word_embeddings else Linear(
+            config.hidden_size, config.vocab_size, device=emb.device,
+            dtype=emb.dtype, generator=generator)
 
     @property
     def device(self) -> torch.device:
@@ -310,6 +354,11 @@ class LlamaForCausalLM(Layer):
     def dtype(self) -> torch.dtype:
         return self.llama.embed_tokens.weight.dtype
 
+    def _logits(self, h):
+        if self.lm_head is not None:
+            return self.lm_head(h)
+        return torch.matmul(h, self.llama.embed_tokens.weight.t())
+
     def forward(self, input_ids, position_offset=None, kv_pages=None,
                 table=None, labels=None, floor=None):
         """Logits [B, S, V]; see the module docstring for the three modes.
@@ -318,7 +367,7 @@ class LlamaForCausalLM(Layer):
         shift, as in the JAX package)."""
         h, _ = self.llama(input_ids, position_offset=position_offset,
                           kv_pages=kv_pages, table=table, floor=floor)
-        logits = self.lm_head(h)
+        logits = self._logits(h)
         if labels is None:
             return logits
         loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),

@@ -39,6 +39,10 @@ under its `named_parameters()` name, as the JAX `TrainStep` does.
 `state_dict()` has the JAX format ({'step', 'slots' in parameter order,
 'LR_Scheduler'}), so a JAX optimizer's `state_dict()` loads into its
 twin here with `set_state_dict`, cast to the port's dtypes and devices.
+
+`Adam`/`AdamW(offload='host')` keep the slots in pinned host memory and
+stream the update through HBM (`optimizer/offload.py`); `state_dict()`
+reads the host slots and `set_state_dict()` copies into them.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from ..regularizer import L1Decay, L2Decay
 from ..weights import _copy_by_name
 from . import lr
 from .lr import LRScheduler
+from .offload import OffloadEngine
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 _f32 = np.float32
@@ -132,6 +137,20 @@ class Optimizer:
             slots = self._slots[p] = self._new_slots(p)
         return slots
 
+    def _prepare_slots(self, params) -> None:
+        """Make the slots of `params` that an update would make (an
+        offloaded optimizer allocates all of them at once)."""
+
+    def _settle(self) -> None:
+        """Wait until every slot is where it is read (the offload
+        engine's copies back to the host); nothing to wait for here."""
+
+    def reset_state(self) -> None:
+        """Forget the slots and the step count: the state before the
+        first update (a rollback to a snapshot taken before it)."""
+        self._slots.clear()
+        self._step_count = 0
+
     def _with_grads(self, named, fused_global_clip: bool = False):
         """([(name, param)] with a grad, their grads, clip scale): the
         grads clipped by `grad_clip`, except that with `fused_global_clip`
@@ -208,6 +227,7 @@ class Optimizer:
         None or {slot name: numpy array}, 'LR_Scheduler' under a
         scheduler}: the JAX package's format (bf16 slots as fp32 arrays,
         which hold them exactly)."""
+        self._settle()
         out = {'step': self._step_count, 'slots': []}
         for p in self._params():
             s = self._slots.get(p)
@@ -220,14 +240,17 @@ class Optimizer:
     def set_state_dict(self, sd: dict) -> None:
         """Load a `state_dict()` of this class, here or from the JAX
         package: each parameter's slots (numpy arrays, bf16 ones
-        included) are copied into new slots of the port's dtypes on the
-        parameter's device; their names and shapes must match."""
+        included) are copied, cast to the port's dtypes, into its slots
+        where they live (made first where missing: on the parameter's
+        device, or the host buffers of an offloaded optimizer); their
+        names and shapes must match."""
+        self._settle()
         self._step_count = int(sd.get('step', 0))
+        self._prepare_slots(self._params())
         for p, s in zip(self._params(), sd.get('slots', [])):
             if s is not None:
-                slots = self._new_slots(p)
-                _copy_by_name(s, slots, 'optimizer slots do not match')
-                self._slots[p] = slots
+                _copy_by_name(s, self._slots_for(p),
+                              'optimizer slots do not match')
         if 'LR_Scheduler' in sd and isinstance(self._learning_rate,
                                                LRScheduler):
             self._learning_rate.set_state_dict(sd['LR_Scheduler'])
@@ -329,9 +352,14 @@ class Adam(Optimizer):
                  amsgrad=False, moment_dtype=None, offload=None, name=None):
         """moment_dtype: storage dtype of m and v (default fp32); the
         moment update computes in fp32 either way. lazy_mode is accepted
-        and ignored, as in the JAX package."""
-        if offload is not None:
-            raise _not_ported(f'offload={offload!r}')
+        and ignored, as in the JAX package. offload='host' keeps the
+        slots in pinned host memory and streams each update through HBM
+        (`optimizer/offload.py`)."""
+        if offload not in (None, 'host'):
+            raise ValueError(f"offload must be None or 'host', got "
+                             f"{offload!r}")
+        if offload is not None and type(self) not in (Adam, AdamW):
+            raise _not_ported(f'{type(self).__name__}(offload={offload!r})')
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
         self._beta1, self._beta2 = float(beta1), float(beta2)
@@ -339,6 +367,22 @@ class Adam(Optimizer):
         self._amsgrad = bool(amsgrad)
         self._moment_dtype = (_dtype.to_torch_dtype(moment_dtype)
                               if moment_dtype else torch.float32)
+        self._engine = OffloadEngine(self) if offload else None
+
+    def _prepare_slots(self, params) -> None:
+        if self._engine is not None and not self._engine.initialized:
+            self._engine.init(list(params))
+
+    def _settle(self) -> None:
+        if self._engine is not None:
+            self._engine.settle()
+
+    def reset_state(self) -> None:
+        if self._engine is not None and self._engine.initialized:
+            self._engine.reset()
+            self._step_count = 0
+            return
+        super().reset_state()
 
     def _init_slots(self, p):
         names = ('moment1', 'moment2') + (('moment2_max',) if self._amsgrad
@@ -360,6 +404,8 @@ class Adam(Optimizer):
     def update(self, named):
         if type(self) not in (Adam, AdamW):     # a rule of its own
             return super().update(named)
+        named = list(named)
+        self._prepare_slots([p for _, p in named])
         pairs, grads, scale = self._with_grads(named, fused_global_clip=True)
         lr = _f32(self.get_lr())
         self._step_count += 1
@@ -373,6 +419,12 @@ class Adam(Optimizer):
             coeff = self._coeff_for(name)
             decay.append(float(lr * _f32(coeff)) if decoupled and coeff
                          else coeff)
+        if self._engine is not None:
+            self._engine.update([p for _, p in pairs], grads, decay,
+                                lr_t=float(lr_t),
+                                decay_mode='decoupled' if decoupled
+                                else self._decay_mode, clip_scale=scale)
+            return
         slots = [self._slots_for(p) for _, p in pairs]
         K.multi_tensor_adam(
             [p for _, p in pairs], grads, [s['moment1'] for s in slots],

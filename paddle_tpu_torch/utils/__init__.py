@@ -1,5 +1,6 @@
 """Utilities (counterpart of `paddle_tpu.utils`): step-indexed checkpoints
-(`CheckpointManager`)."""
+(`CheckpointManager`) and the JSONL metric log (`logging.SummaryWriter`)."""
+from . import logging
 from .checkpoint import CheckpointManager
 
-__all__ = ['CheckpointManager']
+__all__ = ['CheckpointManager', 'logging']

@@ -17,15 +17,21 @@ import torch
 
 def _copy_by_name(src: Mapping, dst: Mapping[str, torch.Tensor],
                   what: str) -> None:
-    """Copy each numpy array src[name] into the tensor dst[name], cast to
-    its dtype and device. Every name must match on both sides, with equal
-    shapes."""
+    """Copy each numpy array (or tensor) src[name] into the tensor
+    dst[name], cast to its dtype and device. Every name must match on both
+    sides, with equal shapes."""
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
     if missing or extra:
         raise KeyError(f'{what}: missing {missing}, unexpected {extra}')
     with torch.no_grad():
         for name, t in dst.items():
+            if isinstance(src[name], torch.Tensor):     # bf16 ones included
+                if tuple(src[name].shape) != tuple(t.shape):
+                    raise ValueError(f'{name}: shape {tuple(src[name].shape)}'
+                                     f' != {tuple(t.shape)}')
+                t.copy_(src[name])
+                continue
             arr = np.asarray(src[name])
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f'{name}: shape {tuple(arr.shape)} != '

@@ -1844,3 +1844,197 @@ def test_replica_process_on_the_card_serves_the_in_process_tokens(
     assert st['kernel_builds'] == st['kernel_builds_at_ready'] == 0
     for name in ('flash_attention_fwd', 'paged_attention', 'rms_norm'):
         assert st['launches'][name] > 0
+
+
+# ---------------------------------------------------------------------------
+# the rest of training: host-offloaded optimizer state, selective
+# recompute, tied embeddings, the fault-tolerant step
+# ---------------------------------------------------------------------------
+
+def _small_llama(cuda, dtype='float32', **kw):
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, **kw)
+    return LlamaForCausalLM(cfg, device=cuda, dtype=dtype,
+                            generator=generator(4, cuda))
+
+
+def _next_token_loss(logits, labels):
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           labels[:, 1:].reshape(-1))
+
+
+def _offload_pair(cuda, chunk=None, **opt_kw):
+    """The same bf16 model twice on the card, one AdamW in HBM and one
+    offloaded (its ring cut to `chunk` elements)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.offload import OffloadEngine
+    steps = []
+    for offload in (None, 'host'):
+        model = _small_llama(cuda, 'bfloat16')
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    offload=offload, **opt_kw)
+        if offload and chunk:
+            opt._engine = OffloadEngine(opt, chunk=chunk)
+        steps.append(TrainStep(model, _next_token_loss, opt))
+    return steps
+
+
+@pytest.mark.parametrize('opt_kw', [dict(moment_dtype='bfloat16'),
+                                    dict(multi_precision=True),
+                                    dict(amsgrad=True, grad_clip='global')])
+def test_offload_equals_in_hbm_bit_for_bit_on_the_card(cuda, opt_kw):
+    """Two steps each: parameters and every slot bit-equal, the offloaded
+    slots pinned host tensors, the ring cut into many groups."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    if opt_kw.get('grad_clip') == 'global':
+        opt_kw = dict(opt_kw, grad_clip=ClipGradByGlobalNorm(0.5))
+    hbm, off = _offload_pair(cuda, chunk=1 << 16, **opt_kw)
+    ids = torch.randint(0, 512, (2, 96), generator=torch.Generator()
+                        .manual_seed(0))
+    for _ in range(2):
+        assert float(hbm(ids, ids)) == float(off(ids, ids))
+    for (n, a), (_, b) in zip(hbm.layer.named_parameters(),
+                              off.layer.named_parameters()):
+        assert torch.equal(a, b), n
+    want, got = hbm.opt_state(), off.opt_state()
+    for n, slots in want['slots'].items():
+        for k, v in slots.items():
+            g = got['slots'][n][k]
+            assert g.device.type == 'cpu' and g.is_pinned(), (n, k)
+            assert torch.equal(g, v.cpu()), (n, k)
+
+
+def test_offload_update_syncs_nothing(cuda):
+    """After the first update (which allocates the pinned buffers and
+    copies the masters), an offloaded update never waits for the card:
+    the copies are pinned and ordered by events."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.offload import OffloadEngine
+    params = [torch.randn(n, device=cuda).bfloat16().requires_grad_()
+              for n in (1, 7, 4096, 3 * K.MT_CHUNK + 5)]
+    opt = AdamW(learning_rate=1e-3, parameters=params,
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True,
+                offload='host')
+    opt._engine = OffloadEngine(opt, chunk=1 << 15)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    torch.cuda.synchronize()
+    groups = len(opt._engine._groups(params))
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(2):
+            opt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert groups >= 3      # the widest parameter spans two ring groups
+    assert K.LAUNCHES['multi_tensor_adam'] == 2 * groups
+    assert all(torch.isfinite(p).all() for p in params)
+    opt._settle()
+    assert all(v.is_pinned() for s in opt._slots.values() for v in s.values())
+
+
+def _backward_mm(cuda, policy):
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import collections
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+    model = _small_llama(cuda, 'bfloat16', use_recompute=policy)
+    ids = torch.randint(0, 512, (2, 128), device=cuda)
+    loss = _next_token_loss(model(ids), ids)
+    K.reset_launch_counts()
+    with Count() as count:
+        loss.backward()
+    return count.ops, dict(K.LAUNCHES)
+
+
+def test_recompute_policies_on_the_card(cuda):
+    """The backward's weight matmuls by policy (2 layers x 7 projections,
+    plus the head): 'dots_no_batch' and 'dots' dispatch only the
+    gradients' two per projection, True also reruns the forward's; no
+    policy sees a bmm (attention is the flash kernels), and every
+    recompute reruns the flash forward and RMSNorm kernels."""
+    grads = 2 * (7 * 2 + 1)
+    ops = {p: _backward_mm(cuda, p) for p in (False, True, 'dots',
+                                               'dots_no_batch')}
+    assert ops[False][0]['mm'] == grads
+    assert ops['dots_no_batch'][0]['mm'] == ops['dots'][0]['mm'] == grads
+    assert ops[True][0]['mm'] == grads + 6 * 2
+    for p, (o, launches) in ops.items():
+        assert o['bmm'] == 0, p
+        assert launches['flash_attention_bwd_dq'] == 2, p
+        assert launches['flash_attention_fwd'] == (0 if p is False else 2), p
+        assert (launches['rms_norm'] > 0) == (p is not False), p
+
+
+@pytest.mark.parametrize('policy', [False, 'dots_no_batch'])
+def test_tied_model_on_the_card_matches_the_cpu(cuda, policy):
+    """f32, TF32 off: the tied model's loss and every gradient (the
+    embedding's sums the gather's and the head's) on the card equal the
+    CPU plain run's."""
+    model = _small_llama(cuda, tie_word_embeddings=True,
+                         use_recompute=policy)
+    assert model.lm_head is None
+    cpu = LlamaForCausalLM(model.config, device='cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ids = torch.randint(0, 512, (2, 96), generator=torch.Generator()
+                        .manual_seed(1))
+    out = []
+    for m in (model, cpu):
+        loss = _next_token_loss(m(ids.to(m.device)), ids.to(m.device))
+        loss.backward()
+        out.append((float(loss), {n: p.grad.float().cpu()
+                                  for n, p in m.named_parameters()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4 * abs(out[1][0])
+    for n, g in out[1][1].items():
+        assert (out[0][1][n] - g).norm() <= 1e-3 * g.norm(), n
+
+
+@pytest.mark.parametrize('offload', [None, 'host'])
+def test_fault_tolerant_step_restores_bit_for_bit_on_the_card(cuda,
+                                                              offload):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import FaultTolerantStep
+    model = _small_llama(cuda, 'bfloat16')
+    scale = {'v': 1.0}
+
+    def loss_fn(logits, labels):
+        return _next_token_loss(logits, labels) * scale['v']
+    ft = FaultTolerantStep(TrainStep(model, loss_fn, AdamW(
+        learning_rate=1e-3, parameters=model.parameters(),
+        moment_dtype='bfloat16', offload=offload)), check_spikes=False)
+    ids = torch.randint(0, 512, (2, 96), device=cuda)
+    ft(ids, ids)
+    ft(ids, ids)
+
+    def live():
+        out = {('param', n): p for n, p in model.named_parameters()}
+        out.update({('slot', n, k): v for n, s in ft.opt_state()['slots']
+                    .items() for k, v in s.items()})
+        return out
+    before = {k: v.detach().cpu().clone() for k, v in live().items()}
+    scale['v'] = float('nan')
+    ft(ids, ids)
+    scale['v'] = 1.0
+    assert ft.rollbacks == 1 and ft.last_step_skipped
+    torch.cuda.synchronize()
+    snap = ft.snapshot_tensors()
+    for key, v in live().items():
+        assert snap[key].dtype == v.dtype
+        assert (not v.is_cuda) or snap[key].is_pinned()
+        assert torch.equal(v.detach().cpu(), before[key]), key
+        assert torch.equal(snap[key], before[key]), key
+    assert torch.isfinite(ft(ids, ids))

@@ -183,8 +183,22 @@ def test_eager_api():
 
 @pytest.mark.parametrize('kw', [dict(offload='host')])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        AdamW(parameters=[torch.zeros(1)], **kw)
+    """`offload='host'`, which this test once saw refused, now builds the
+    host-offload engine, whose update equals the in-HBM one bit for bit;
+    any other value raises ValueError, as in the JAX package. Parity with
+    the JAX engine is in tests/test_torch_offload.py."""
+    with pytest.raises(ValueError, match="offload must be None or 'host'"):
+        AdamW(parameters=[torch.zeros(1)], offload='disk')
+    got = []
+    for opts in ({}, kw):
+        p = torch.nn.Parameter(torch.linspace(-1, 1, 300))
+        opt = AdamW(learning_rate=0.1, parameters=[p], **opts)
+        assert (opt._engine is not None) == bool(opts)
+        for _ in range(2):
+            p.grad = p.detach() * 3 - 1
+            opt.step()
+        got.append(p.detach().clone())
+    assert torch.equal(got[0], got[1])
 
 
 def _close_slots(opt, state, rtol=1e-6, atol=1e-7):

@@ -161,8 +161,21 @@ def test_labels_forward_matches_jax():
 
 @pytest.mark.parametrize('policy', ['dots', 'dots_no_batch'])
 def test_selective_recompute_policies_are_not_ported(policy):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        LlamaConfig.tiny(use_recompute=policy)
+    """The selective policies, which this test once saw refused, now
+    run: the config keeps the policy, and the backward under it gives
+    the plain backward's gradients bit for bit (the recompute reruns the
+    same ops on the same values). Parity with the JAX policies is in
+    tests/test_torch_recompute.py."""
+    assert LlamaConfig.tiny(use_recompute=policy).use_recompute == policy
+    ids = torch.from_numpy(_batches(1)[0])
+    grads = []
+    for remat in (False, policy):
+        _, tm = _models(remat)
+        loss, _ = tm(ids, labels=ids)
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in tm.named_parameters()})
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
 
 
 def test_train_step_takes_numpy_and_tensor_inputs():
