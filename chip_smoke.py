@@ -18,16 +18,21 @@
     python3 chip_smoke.py --procs          # phase 6, then phase 6j alone
     python3 chip_smoke.py --train-rungs    # phase 2's cases at the rungs'
                                            # shapes, phases 4, 5 and 5c-5f
+    python3 chip_smoke.py --eager          # phase 2's fp16 flash cases,
+                                           # the op sweep and phase 5g
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. build: compile every kernel source under `paddle_tpu_torch/csrc/` with
    nvcc (sm_90a), all sources at once; log each kernel's registers and
-   spills, and require HGMMA (wgmma) instructions in the bf16 flash
-   forward, dq and dk/dv kernels (`cuobjdump -sass`);
+   spills, and require HGMMA (wgmma) instructions in the bf16 and the
+   fp16 instantiations of the flash forward, dq and dk/dv kernels
+   (`cuobjdump -sass`);
 2. kernels: hold each kernel against its plain PyTorch version on the
    card, in f32 and bf16, at the serving and training paths' shapes
+   (the flash forward, dq and dk/dv in fp16 too, `auto_cast(dtype=
+   'float16')`'s path, below)
    (plus GQA, ragged lengths, the flash forward at the chunk shapes sq <
    sk of CHUNK_SHAPES, and again with the key count sk read from device
    memory over a 1024-row buffer whose rows past it are NaN (the
@@ -46,9 +51,9 @@ result line):
    amsgrad), every updated p, m, v (master, max) held to the plain
    version; and the training kernels at phase 5c's rungs' shapes, bf16:
    flash forward, dq and dk/dv at B=4 S=2048 H=16 and B=1 S=4096 H=32,
-   RMSNorm over 8192 x 2048, CE forward and backward at [8188, 50304]
-   (both these sets of cases are freed after the check and rebuilt for
-   8);
+   RMSNorm over 8192 x 2048, CE forward and backward at [8188, 50304];
+   and the fp16 flash cases (`fp16_cases`) (these three sets of cases
+   are freed after the check and rebuilt for 8);
 3. consistency: the engine (its decode sub-step and each prefill bucket
    replayed from a CUDA graph) at 2 layers of Llama-2-7B width in f32,
    greedy; each request's first 16 tokens must equal a no-cache
@@ -141,6 +146,17 @@ result line):
    `ckpt_interval=4`, fault tolerance and `step_timeout`; a fresh Model
    with `resume='auto'` from the step-4 checkpoint gives steps 5-8's
    losses bit for bit;
+5g. eager: phase 5's rung
+   (Llama-2-7B width, 8 layers, recompute, 2 x 2048) in the canonical
+   eager loop on port Tensors (`to_tensor`, `loss, _ = model(x,
+   labels=y)`, `backward`, `opt.step()`, `opt.clear_grad()`), 3 steps
+   from the same seeded weights and batches in each arm: O0 in f32, O1
+   bf16 (step-1 loss within EAGER_O1_LOSS_RTOL of O0's), O1 fp16 under
+   `GradScaler` (scale and found_inf logged, losses finite, exactly 16
+   fp16 flash forwards, 8 dq and 8 dk/dv a step and no other flash
+   launch), O2 bf16 through `decorate` eagerly and through
+   `jit.TrainStep` (equal losses; step ms side by side: the eager API's
+   host cost); every tensor freed before phase 6;
 6. serve: Llama-2-7B (32 layers, bf16, random weights from a seed) behind
    the 8-slot paged engine, which replays its decode sub-step and each
    prefill bucket from captured CUDA graphs, 12 requests (prompts 13-700
@@ -322,7 +338,10 @@ result line):
    The children's
    kernel launches (their `stats()`) join the kernels line; the free
    device memory is logged before each spawn; budget PROCS_BUDGET_S;
-8. timing: each kernel case of phase 2 timed (device time per call:
+8. op sweep and timing: every case of the op library's table
+   (tests/torch_op_cases.py) on the card against the CPU, the count
+   logged (after 6j: the linear-algebra libraries keep their
+   workspaces); then each kernel case of phase 2 timed (device time per call:
    CUDA events around calls queued behind a GPU-side sleep, which hides
    the host's launch gaps; beside it the event time of back-to-back
    calls, the host's launch rate for a small kernel), with its plain
@@ -350,6 +369,7 @@ kernel table, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import itertools
 import json
@@ -368,6 +388,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, published
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
+                  torch.float16: 989e12,    # dense fp16 tensor cores
                   torch.float32: 67e12}     # fp32 outside the tensor cores
 # kernel vs plain, per output and by the output's dtype, two readings:
 # rel_max = max|kernel - plain| / max|plain| and rel_norm = |kernel -
@@ -378,9 +399,12 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
 # probabilities to bf16 (as the JAX package's does), about 3e-3 of the
 # output's norm. A kernel that leaves out a term (delta, the softmax
 # term of CE) or is off by 2% fails the limits (tests/test_torch_smoke.py
-# holds this check to such kernels on the CPU). The readings that set
-# each limit are in PERF.md, section 2.
-TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -7)}
+# holds this check to such kernels on the CPU). fp16 keeps 3 more
+# mantissa bits than bf16 at the same rounding points, so its limits are
+# 8 times tighter, with the same headroom over its readings. The readings
+# that set each limit are in PERF.md, section 2.
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -7),
+       torch.float16: (2 ** -9, 2 ** -10)}
 REPLACES = {
     'flash_attention_fwd':
         'paddle_tpu/ops/pallas_kernels.py:89 (_flash_fwd_kernel)',
@@ -388,6 +412,13 @@ REPLACES = {
         'paddle_tpu/ops/pallas_kernels.py:226 (_flash_bwd_dq_kernel)',
     'flash_attention_bwd_dkv':
         'paddle_tpu/ops/pallas_kernels.py:272 (_flash_bwd_dkv_kernel)',
+    'flash_attention_fwd_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:89 (_flash_fwd_kernel, fp16 under '
+        'auto_cast(dtype=\'float16\'))',
+    'flash_attention_bwd_dq_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:226 (_flash_bwd_dq_kernel, fp16)',
+    'flash_attention_bwd_dkv_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:272 (_flash_bwd_dkv_kernel, fp16)',
     'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
@@ -416,6 +447,11 @@ SOURCES = {
     'flash_attention_fwd': 'paddle_tpu_torch/csrc/flash_attention.cu',
     'flash_attention_bwd_dq': 'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'flash_attention_bwd_dkv': 'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'flash_attention_fwd_fp16': 'paddle_tpu_torch/csrc/flash_attention.cu',
+    'flash_attention_bwd_dq_fp16':
+        'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'flash_attention_bwd_dkv_fp16':
+        'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
@@ -426,10 +462,14 @@ SOURCES = {
     'multi_tensor_adam': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
     'multi_tensor_sumsq': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
 }
-# the tensor-core (wgmma) kernels that bf16 inputs run on, by source
-WGMMA_KERNELS = {'flash_attention': ('flash_fwd_wgmma_kernel',),
-                 'flash_attention_bwd': ('flash_bwd_dq_wgmma_kernel',
-                                         'flash_bwd_dkv_wgmma_kernel')}
+# the tensor-core (wgmma) kernels that bf16 and fp16 inputs run on, by
+# source: each template's two instantiations (their mangled names)
+WGMMA_KERNELS = {
+    'flash_attention': tuple(f'flash_fwd_wgmma_kernelI{t}' for t in
+                             ('13__nv_bfloat16', '6__half')),
+    'flash_attention_bwd': tuple(
+        f'flash_bwd_{k}_wgmma_kernelI{t}' for k in ('dq', 'dkv')
+        for t in ('13__nv_bfloat16', '6__half'))}
 # (sq, sk) of the flash forward on the suffix / chunk prefill path: a
 # 256-token chunk after a 512-row prefix and after 768 rows, a 64-token
 # suffix after 512, and an 8-token one
@@ -589,6 +629,9 @@ def compare(name: str, got, want) -> dict:
         raise AssertionError(f'{name}: kernel gives {got.dtype} '
                              f'{tuple(got.shape)}, plain {want.dtype} '
                              f'{tuple(want.shape)}')
+    off = ~torch.isfinite(want)
+    if off.any():
+        got, want = overflow_matches(name, got, want, off)
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: kernel output has non-finite values')
     lim_max, lim_norm = TOL[want.dtype]
@@ -599,6 +642,36 @@ def compare(name: str, got, want) -> dict:
                              f'rel_norm {r["rel_norm"]:.3e} (limit '
                              f'{lim_norm:.3e})')
     return r
+
+
+# of the plain version's infs, the share the kernel may give as a finite
+# value at the edge of the dtype's range instead (or the other way): its
+# sums run in another order, so a value that lands within rounding of
+# the largest finite one may round the other way; a kernel that clamps
+# gives the edge value at every overflow and fails
+OVERFLOW_EDGE_SHARE = 0.01
+
+
+def overflow_matches(name, got, want, off):
+    """Where the plain output is inf or NaN (an fp16 overflow, which
+    must reach the loss scaler), the kernel's must be too, never a
+    clamped value; returns the elements finite in both, for the limits."""
+    fmax = torch.finfo(want.dtype).max
+    edge = fmax * (1 - torch.finfo(want.dtype).eps)
+    same = ((torch.isposinf(got) == torch.isposinf(want))
+            & (torch.isneginf(got) == torch.isneginf(want))
+            & (torch.isnan(got) == torch.isnan(want)))
+    near = (torch.where(torch.isfinite(got), got.abs(), 0) >= edge) \
+        | (torch.where(torch.isfinite(want), want.abs(), 0) >= edge)
+    excused = int((~same & near).sum())
+    if bool((~same & ~near).any()) \
+            or excused > OVERFLOW_EDGE_SHARE * int(off.sum()):
+        raise AssertionError(
+            f'{name}: kernel is not inf/NaN exactly where the plain version '
+            f'is ({int((~same).sum())} of {int(off.sum())} places differ, '
+            f'{excused} at the edge of the range)')
+    keep = torch.isfinite(got) & torch.isfinite(want)
+    return got[keep], want[keep]
 
 
 def readings(got, want) -> dict:
@@ -725,22 +798,9 @@ def kernel_cases() -> list:
     for dtype in (torch.float32, torch.bfloat16):
         for s, hkv in ((8, 32), (100, 32), (512, 32), (1024, 32),
                        (100, 8), (512, 8)):
-            q = _randn((1, s, 32, 128), dtype, gen)
-            k = _randn((1, s, hkv, 128), dtype, gen)
-            v = _randn((1, s, hkv, 128), dtype, gen)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            add('flash_attention_fwd',
-                f'flash {str(dtype)[6:]} S={s} H=32 HKV={hkv}', dtype,
-                lambda q=q, k=k, v=v: K.flash_attention_fwd(q, k, v,
-                                                            causal=True),
-                lambda q=q, k=k, v=v: K.attention_reference(q, k, v,
-                                                            causal=True),
-                lambda qt=qt, kt=kt, vt=vt, g=hkv != 32:
-                    F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True,
-                                                   enable_gqa=g),
-                nbytes(q, k, v, q), 4 * 128 * 32 * (s * (s + 1) // 2),
-                rep=dtype == torch.bfloat16 and s == 1024 and hkv == 32)
+            _flash_serve_case(add, gen, dtype, s, hkv,
+                              rep=dtype == torch.bfloat16 and s == 1024
+                              and hkv == 32)
 
     # flash attention at the chunk shapes: a suffix or chunk of sq queries
     # over the slot's sk = start + sq rows, causal aligned bottom-right;
@@ -992,6 +1052,69 @@ def _paged_verify_cases(add, gen) -> None:
                               for i in range(t)), rep=rep)
 
 
+def _flash_serve_case(add, gen, dtype, s, hkv, rep=False) -> None:
+    """The flash forward at a prefill bucket [1, S, 32, 128] (HKV kv
+    heads), causal, with SDPA as the library call."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    q = _randn((1, s, 32, 128), dtype, gen)
+    k = _randn((1, s, hkv, 128), dtype, gen)
+    v = _randn((1, s, hkv, 128), dtype, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    add('flash_attention_fwd' + _fp16_key(dtype),
+        f'flash {str(dtype)[6:]} S={s} H=32 HKV={hkv}', dtype,
+        lambda q=q, k=k, v=v: K.flash_attention_fwd(q, k, v, causal=True),
+        lambda q=q, k=k, v=v: K.attention_reference(q, k, v, causal=True),
+        lambda qt=qt, kt=kt, vt=vt, g=hkv != 32:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=g),
+        nbytes(q, k, v, q), 4 * 128 * 32 * (s * (s + 1) // 2), rep=rep)
+
+
+def fp16_cases() -> list:
+    """The fp16 flash kernels, `auto_cast(dtype='float16')`'s path: the
+    forward at the serve bucket 1024 and at S=100 GQA, the forward with
+    its LSE, dq and dk/dv at the training shape and a ragged GQA one, and
+    a dq past fp16's range (inf where the plain version's is). Their
+    ~0.2 GB are freed after phase 2's check and made again for phase 8,
+    as `rung_cases`' (phase 6j's children leave the parent little room)."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    cases, add = _case_list()
+    h = torch.float16
+    for s, hkv in ((1024, 32), (100, 8)):
+        _flash_serve_case(add, gen, h, s, hkv, rep=s == 1024)
+    for b, s, hkv in ((TRAIN_BATCH, TRAIN_SEQ, 32), (1, 1000, 8)):
+        _flash_train_case(add, gen, h, b, s, 32, hkv, rep=s == TRAIN_SEQ)
+    _fp16_overflow_case(add, gen)
+    return cases
+
+
+def _fp16_key(dtype) -> str:
+    """The fp16 flash cases report under the `_fp16` names (the wrappers'
+    LAUNCHES keys)."""
+    return '_fp16' if dtype == torch.float16 else ''
+
+
+def _fp16_overflow_case(add, gen) -> None:
+    """An fp16 dq whose products leave fp16's range: the kernel must give
+    inf exactly where the plain version does (`compare`), for GradScaler."""
+    from paddle_tpu_torch.ops import kernels as K
+    h = torch.float16
+    q = _randn((1, 256, 32, 128), h, gen)
+    k = (200 * torch.randn((1, 256, 32, 128), generator=gen,
+                           device=DEV)).to(h)
+    v = _randn((1, 256, 32, 128), h, gen)
+    dout = (300 * torch.randn((1, 256, 32, 128), generator=gen,
+                              device=DEV)).to(h)
+    out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
+    a = (q, k, v, out, lse, dout)
+    add('flash_attention_bwd_dq_fp16', 'flash bwd dq fp16 past 65504 (inf)',
+        h, lambda a=a: K.flash_attention_bwd_dq(*a, True)[0],
+        lambda a=a: K.attention_bwd_dq_reference(*a, True)[0], None,
+        nbytes(q, k, v, out, dout, lse, q), 3 * 2 * 128 * 32 * live_pairs(
+            256, 256, True))
+
+
 def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
     """The flash forward with its LSE and the two backward kernels at
     [B, S, H(KV), 128], causal, against their plain versions, with SDPA
@@ -999,6 +1122,7 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
     tag = f'{str(dtype)[6:]} B={b} S={s} H={h} HKV={hkv} causal'
+    key = _fp16_key(dtype)
     q = _randn((b, s, h, 128), dtype, gen)
     k = _randn((b, s, hkv, 128), dtype, gen)
     v = _randn((b, s, hkv, 128), dtype, gen)
@@ -1015,7 +1139,7 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
     def sdpa_bwd(o=sdpa_out, ins=(qt, kt, vt), g=dout_t):
         return torch.autograd.grad(o, ins, g, retain_graph=True)
 
-    add('flash_attention_fwd', f'flash fwd+lse {tag}', dtype,
+    add('flash_attention_fwd' + key, f'flash fwd+lse {tag}', dtype,
         lambda q=q, k=k, v=v: K.flash_attention_fwd(
             q, k, v, True, return_lse=True),
         lambda q=q, k=k, v=v: K.attention_reference(
@@ -1025,7 +1149,7 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
                 qt.detach(), kt.detach(), vt.detach(),
                 is_causal=True, enable_gqa=g),
         nbytes(q, k, v, q, lse), 2 * 2 * 128 * pairs)
-    add('flash_attention_bwd_dq', f'flash bwd dq {tag}', dtype,
+    add('flash_attention_bwd_dq' + key, f'flash bwd dq {tag}', dtype,
         lambda a=(q, k, v, out, lse, dout):
             K.flash_attention_bwd_dq(*a, True),
         lambda a=(q, k, v, out, lse, dout):
@@ -1033,7 +1157,7 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
         sdpa_bwd,
         nbytes(q, k, v, out, dout, lse, q, delta),
         3 * 2 * 128 * pairs, rep=rep)
-    add('flash_attention_bwd_dkv', f'flash bwd dk/dv {tag}', dtype,
+    add('flash_attention_bwd_dkv' + key, f'flash bwd dk/dv {tag}', dtype,
         lambda a=(q, k, v, lse, delta, dout):
             K.flash_attention_bwd_dkv(*a, True),
         lambda a=(q, k, v, lse, delta, dout):
@@ -2652,6 +2776,197 @@ def fit_resume() -> dict:
                              f'5-8 of {full}')
     return {'losses': full, 'resumed': rest, 'fit_s': fit_s,
             'resume_s': resume_s, 'ckpt_gb': ckpt_gb, 'launches': launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 5g: the eager Paddle API on the training rung, and the op sweep
+# ---------------------------------------------------------------------------
+
+EAGER_STEPS = 3
+# O1 bf16's first loss against O0 f32's, relative (phase 4 holds bf16
+# gradients to 0.05 of f32's; a loss, one mean over 4096 tokens, to less)
+EAGER_O1_LOSS_RTOL = 0.01
+# the fp16 flash launches of one O1 step on the 8-layer rung with
+# recompute: a forward per layer and its rerun, one dq and one dk/dv
+EAGER_FP16_LAUNCHES = {'flash_attention_fwd_fp16': 16,
+                       'flash_attention_bwd_dq_fp16': 8,
+                       'flash_attention_bwd_dkv_fp16': 8}
+EAGER_SEED = 11
+
+
+def _place() -> str:
+    """The eager API's name of DEV."""
+    return 'gpu' if DEV == 'cuda' else 'cpu'
+
+
+def _eager_batches(cfg):
+    """(inputs, next-token labels) of EAGER_STEPS seeded batches."""
+    rng = np.random.RandomState(EAGER_SEED)
+    out = []
+    for _ in range(EAGER_STEPS):
+        ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+        out.append((ids, np.roll(ids, -1, axis=1)))
+    return out
+
+
+def _eager_arm(cfg, batches, tag, dtype='float32', amp=None, scaler=None,
+               decorate=False, train_step=False) -> dict:
+    """One arm of phase 5g: the rung's model from EAGER_SEED, AdamW, and
+    EAGER_STEPS steps of the canonical eager loop (`loss, _ = model(x,
+    labels=y)`, `backward`, `opt.step()`, `opt.clear_grad()`) on port
+    Tensors, or of a `jit.TrainStep` over the same loss; the step losses,
+    step ms (host clock, synchronised) and kernel launches. Frees the
+    model and optimizer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(cfg, device=DEV, dtype=dtype,
+                             generator=ptt.generator(EAGER_SEED, DEV))
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters())
+    if decorate:
+        model, opt = ptt.amp.decorate(model, opt, level='O2',
+                                      dtype='bfloat16')
+    vocab = cfg.vocab_size
+    step = TrainStep(model, lambda logits, y: PF.cross_entropy(
+        logits.reshape(-1, vocab), y.reshape(-1)), opt) if train_step \
+        else None
+    ctx = (lambda: ptt.amp.auto_cast(**amp)) if amp else \
+        contextlib.nullcontext
+    losses, times, scales = [], [], []
+    K.reset_launch_counts()
+    for ids, lab in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step is not None:
+            with ctx():
+                loss = step(ids, lab)
+        else:
+            x = ptt.to_tensor(ids, place=_place())
+            y = ptt.to_tensor(lab, place=_place())
+            with ctx():
+                loss, _ = model(x, labels=y)
+            if scaler is not None:
+                scaler.scale(loss).backward()
+                scaler.unscale_(opt)
+                scales.append((scaler.get_loss_scaling(),
+                               scaler._found_inf))
+                scaler.step(opt)
+                scaler.update()
+            else:
+                loss.backward()
+                opt.step()
+            opt.clear_grad()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(K.LAUNCHES)
+    del model, opt, step, loss
+    flush()
+    log(f'[eager] {tag}: losses ' + ' '.join(f'{x:.6f}' for x in losses)
+        + '; step ms ' + ' '.join(f'{t:.1f}' for t in times)
+        + (('; loss scale, found_inf ' + ' '.join(
+            f'{sc:.0f}/{fi}' for sc, fi in scales)) if scaler else '')
+        + '; flash launches ' + json.dumps(
+            {k: n for k, n in launches.items() if k.startswith('flash')}))
+    return {'losses': losses, 'ms': times, 'launches': launches,
+            'scales': scales}
+
+
+def eager_dygraph(cfg) -> dict:
+    """Phase 5g: the rung in four arms of the eager API, every tensor
+    freed at the end."""
+    import paddle_tpu_torch as ptt
+    t0 = time.perf_counter()
+    batches = _eager_batches(cfg)
+    o0 = _eager_arm(cfg, batches, 'O0 f32')
+    o1 = _eager_arm(cfg, batches, 'O1 bf16', amp=dict(dtype='bfloat16'))
+    rel = abs(o1['losses'][0] - o0['losses'][0]) / abs(o0['losses'][0])
+    log(f'[eager] O1 bf16 step-1 loss vs O0 f32: rel {rel:.3e} (limit '
+        f'{EAGER_O1_LOSS_RTOL})')
+    if rel > EAGER_O1_LOSS_RTOL or not all(np.isfinite(o1['losses'])):
+        raise AssertionError(f'eager: O1 bf16 loss {o1["losses"][0]} vs O0 '
+                             f'{o0["losses"][0]} (rel {rel:.3e})')
+    f16 = _eager_arm(cfg, batches, 'O1 fp16 + GradScaler',
+                     amp=dict(dtype='float16'),
+                     scaler=ptt.amp.GradScaler())
+    want = {k: n * EAGER_STEPS for k, n in EAGER_FP16_LAUNCHES.items()}
+    got = {k: f16['launches'][k] for k in want}
+    bf = {k: f16['launches'][k[:-5]] for k in want}
+    if got != want or any(bf.values()) \
+            or not all(np.isfinite(f16['losses'])):
+        raise AssertionError(f'eager: O1 fp16 launched {got} fp16 flash '
+                             f'kernels (want {want}) and {bf} others, '
+                             f'losses {f16["losses"]}')
+    o2 = _eager_arm(cfg, batches, 'O2 bf16 (decorate), eager',
+                    amp=dict(level='O2'), decorate=True)
+    o2s = _eager_arm(cfg, batches, 'O2 bf16 (decorate), TrainStep',
+                     amp=dict(level='O2'), decorate=True, train_step=True)
+    if o2['losses'] != o2s['losses']:
+        raise AssertionError(f'eager: O2 eager losses {o2["losses"]} != '
+                             f'TrainStep {o2s["losses"]}')
+    host = [a - b for a, b in zip(o2['ms'][1:], o2s['ms'][1:])]
+    log(f'[eager] O2 eager == TrainStep bit for bit; step ms after the '
+        f'first: eager ' + ' '.join(f'{t:.1f}' for t in o2['ms'][1:])
+        + ' vs TrainStep ' + ' '.join(f'{t:.1f}' for t in o2s['ms'][1:])
+        + ' (eager - TrainStep ' + ' '.join(f'{d:+.1f}' for d in host)
+        + ' ms)')
+    launches = collections.Counter()
+    for arm in (o0, o1, f16, o2, o2s):
+        launches.update(arm['launches'])
+    took = time.perf_counter() - t0
+    log(f'[eager] phase 5g took {took:.1f} s; device memory held after '
+        f'it {torch.cuda.memory_allocated() / 1e9:.2f} GB')
+    return {'launches': dict(launches), 'o1_rel': rel, 'seconds': took,
+            'arms': {'O0': o0, 'O1': o1, 'fp16': f16, 'O2': o2,
+                     'O2_step': o2s}}
+
+
+def op_sweep() -> int:
+    """Every case of the op library's table (tests/torch_op_cases.py) run
+    on the card and on the CPU from the same seeded inputs: equal
+    integer and bool outputs, float ones to rtol 1e-4 (or 10 times a
+    case's own), TF32 off. Returns the number of cases checked."""
+    import paddle_tpu_torch as ptt
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tests'))
+    from torch_op_cases import CASES
+
+    def leaves(out):
+        if isinstance(out, (list, tuple)):
+            return [x for o in out for x in leaves(o)]
+        return [out]
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x.numpy() if hasattr(x, 'numpy') else x)
+
+    t0 = time.perf_counter()
+    n = 0
+    for case in CASES:
+        arrays = case.inputs()
+        outs = []
+        for place in (_place(), 'cpu'):
+            with ptt.device_guard(place):
+                ts = [ptt.to_tensor(a) for a in arrays]
+                outs.append([host(x) for x in leaves(case.run(ptt, ts))])
+        for g, w in zip(*outs):
+            if g.dtype.kind in 'fc':
+                np.testing.assert_allclose(
+                    g, w, rtol=max(10 * case.rtol, 1e-4),
+                    atol=max(10 * case.atol, 1e-5), equal_nan=True,
+                    err_msg=f'op sweep: {case.name} on the card vs the CPU')
+            else:
+                np.testing.assert_array_equal(
+                    g, w, err_msg=f'op sweep: {case.name} on the card vs '
+                    f'the CPU')
+        n += 1
+    log(f'[eager] op sweep: {n} cases of {len({c.name for c in CASES})} '
+        f'ops on the card equal the CPU in '
+        f'{time.perf_counter() - t0:.1f} s')
+    return n
 
 
 def rest_of_training(trained: dict) -> dict:
@@ -6374,6 +6689,22 @@ def main() -> int:
             for k in TRAIN_KERNELS}))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--eager']:
+        # python3 chip_smoke.py --eager: phase 2's fp16 flash cases, the op
+        # sweep and phase 5g alone, then the fp16 cases timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        fp16 = fp16_cases()
+        check_kernels(fp16)
+        op_sweep()
+        eager = eager_dygraph(LlamaConfig.llama2_7b(num_hidden_layers=8,
+                                                    use_recompute=True))
+        time_kernels(fp16)
+        log(f'[eager] launches {json.dumps(eager["launches"])}')
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -6398,6 +6729,7 @@ def main() -> int:
     check_kernels(cases)
     check_kernels(optimizer_cases())    # freed here, rebuilt for phase 8
     check_kernels(rung_cases())         # the same
+    check_kernels(fp16_cases())         # the same
     torch.cuda.empty_cache()
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -6411,6 +6743,9 @@ def main() -> int:
     trained = train(rung)
     pretrained = pretrain(trained, rung)
     rest = rest_of_training(trained)
+    log(f'[eager] device memory held before phase 5g '
+        f'{torch.cuda.memory_allocated() / 1e9:.2f} GB')
+    eager = eager_dygraph(rung)
     res = serve(LlamaConfig.llama2_7b())
     spec = serve_spec(res)
     drain_swap(res)
@@ -6440,11 +6775,16 @@ def main() -> int:
                   'bench')
     release(trained, pretrained)
     procs = serve_procs(res)
+    # after 6j: the linear-algebra libraries' workspaces stay in the
+    # process, and 6j's children leave the parent little room
+    n_ops = op_sweep()
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
     rungs = rung_cases()
     check_kernels(rungs)
-    rows = time_kernels(cases + opt_cases + rungs)
+    f16 = fp16_cases()
+    check_kernels(f16)
+    rows = time_kernels(cases + opt_cases + rungs + f16)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -6456,7 +6796,7 @@ def main() -> int:
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self'], procs,
-                                   *rest.values()))
+                                   eager, *rest.values()))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,
@@ -6464,6 +6804,8 @@ def main() -> int:
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
             'shape': r['shape']})
+    log(f'[eager] op sweep {n_ops} cases; phase 5g {eager["seconds"]:.1f} '
+        f's, O1 bf16 vs O0 f32 step-1 loss rel {eager["o1_rel"]:.3e}')
     log(f'[done] {time.perf_counter() - t0:.1f} s')
     print(smi)
     print(json.dumps({'kernels': table}))

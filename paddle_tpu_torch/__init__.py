@@ -29,19 +29,35 @@ Training runs the JAX bench's rungs: selective recompute
 slots offloaded to pinned host memory (`offload='host'`), the fault-
 tolerant step and its watchdog (`resilience`), and `Model.fit` (`hapi`)
 over `io.DataLoader` with `metric`s, callbacks, checkpoints and resume.
+
+The eager Paddle API (slice 18): `Tensor` (a wrapper of a torch tensor)
+and `Parameter`, `to_tensor` and the op library of `ops` (creation,
+math, reduction, manipulation, search, linalg; every op through
+`tensor.apply_op`), torch's autograd behind `backward`, `grad`,
+`no_grad`, `PyLayer`, `jacobian` and `hessian` (`autograd`), places and
+`set_device`, and mixed precision (`amp.auto_cast`, `amp.decorate`,
+`amp.GradScaler`) with fp16 flash-attention kernels.
 """
-from . import (analysis, debug, dtype, flags, framework, io, jit, loadgen,
-               loop, metric, nlp, nn, observability, ops, optimizer,
-               regularizer, resilience, serving, utils, weights)
+# the op surface first: the modules imported below keep their names
+from .ops import *  # noqa: F401,F403
+from . import (analysis, autograd, debug, dtype, flags, framework, io, jit,
+               loadgen, loop, metric, nlp, nn, observability, ops, optimizer,
+               regularizer, resilience, serving, tensor, utils, weights)
+from . import amp
 from . import hapi
+from .autograd import (PyLayer, PyLayerContext, enable_grad, grad,
+                       is_grad_enabled, no_grad, set_grad_enabled)
+from .dtype import (bfloat16, bool_, complex64, complex128, finfo, float16,
+                    float32, float64, iinfo, int8, int16, int32, int64, uint8)
 from .flags import get_flags, set_flags
-from .framework import generator, resolve_device, seed
+from .framework import (CPUPlace, CUDAPlace, Place, TPUPlace, XLAPlace,
+                        device_guard, generator, get_default_dtype,
+                        get_device, get_place, resolve_device, seed,
+                        set_default_dtype, set_device, synchronize)
 from .hapi import Model
 from .hapi import callbacks_mod as callbacks
+from .ops import linalg
 from .serialization import load, save
+from .tensor import Parameter, Tensor, set_printoptions
 
-__all__ = ['analysis', 'callbacks', 'debug', 'dtype', 'flags', 'framework',
-           'hapi', 'io', 'jit', 'loadgen', 'loop', 'metric', 'nlp', 'nn',
-           'observability', 'ops', 'optimizer', 'regularizer', 'resilience',
-           'serving', 'utils', 'weights', 'Model', 'generator', 'get_flags',
-           'load', 'resolve_device', 'save', 'seed', 'set_flags']
+bool = bool_  # paddle.bool

@@ -21,7 +21,11 @@
 //
 // Two kernels, chosen by dtype (the wrapper never mixes them):
 //
-// bf16: flash_fwd_wgmma_kernel, on the tensor cores. One block of two
+// bf16 and fp16: flash_fwd_wgmma_kernel<T>, on the tensor cores, one
+// template over the element type (fp16 is what auto_cast(dtype=
+// 'float16') sends; everything below reads the same for it, with fp16
+// in place of bf16: P is rounded to fp16, whose narrower range turns an
+// overflow into inf, which reaches GradScaler unclamped). One block of two
 // warpgroups per (128 query rows, head, batch); each warpgroup owns 64
 // rows. The Q tile and a two-stage ring of 64-key K and V tiles sit in
 // shared memory in the 128-byte-swizzled layout of hopper.cuh (~97 KB),
@@ -112,6 +116,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_fwd_wgmma_kernel(FlashArgs a) {
   using namespace hopper;
@@ -126,13 +131,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int q0 = qt * kWBQ;
   const int sk = keys_of(a, b);
   const int offset = sk - a.sq;                // bottom-right causal alignment
-  const auto* qb = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb +
-                   h * a.q_sh;
-  const auto* kb = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb +
-                   hk * a.k_sh;
-  const auto* vb = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb +
-                   hk * a.v_sh;
-  auto* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const auto* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const auto* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const auto* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  auto* ob = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -176,7 +178,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kD / 16; ++k)
-        wgmma_m64n64k16_ss(s, desc_kmajor(q_s, kWBQ, wg * 64, k),
+        wgmma_m64n64k16_ss<T>(s, desc_kmajor(q_s, kWBQ, wg * 64, k),
                            desc_kmajor(k_s, kWBK, 0, k), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -225,12 +227,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
         o[4 * j + 3] *= alpha1;
       }
       uint32_t p[4][4];
-      acc_to_a(s, p);
+      acc_to_a<T>(s, p);
 
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWBK / 16; ++k)
-        wgmma_m64n128k16_rs(o, p[k], desc_mnmajor(v_s, kWBK, k));
+        wgmma_m64n128k16_rs<T>(o, p[k], desc_mnmajor(v_s, kWBK, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -246,10 +248,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const int c = 8 * j + col;
     if (row0 < a.sq)
       *reinterpret_cast<uint32_t*>(ob + row0 * a.o_ss + c) =
-          pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+          pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     if (row0 + 8 < a.sq)
       *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * a.o_ss + c) =
-          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+          pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   if (a.lse != nullptr && (lane & 3) == 0) {
     float* lb = a.lse + (static_cast<int64_t>(b) * a.h + h) * a.sq;
@@ -258,15 +260,17 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
+template <typename T>
 int launch_wgmma(const FlashArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
-    const cudaError_t e = ptt_allow_smem(flash_fwd_wgmma_kernel, kWSmemBytes);
+    const cudaError_t e =
+        ptt_allow_smem(flash_fwd_wgmma_kernel<T>, kWSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kWBQ - 1) / kWBQ, a.h, batch);
-  flash_fwd_wgmma_kernel<<<grid, kWThreads, kWSmemBytes, stream>>>(a);
+  flash_fwd_wgmma_kernel<T><<<grid, kWThreads, kWSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -475,6 +479,7 @@ PTT_EXPORT int flash_attention_fwd(
               v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == PTT_F32) return launch_fma(a, batch, s);
-  if (dtype == PTT_BF16) return launch_wgmma(a, batch, s);
+  if (dtype == PTT_BF16) return launch_wgmma<__nv_bfloat16>(a, batch, s);
+  if (dtype == PTT_F16) return launch_wgmma<__half>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,6 +23,12 @@
 // four (S, dP, dV, dK: 137 GFLOP, 0.14 ms), against about 0.06 ms each to
 // move their tensors once.
 //
+// The two tensor-core kernels are templates over the element type: bf16,
+// and fp16 for auto_cast(dtype='float16'). An fp16 instantiation reads
+// as the bf16 one below with fp16 in place of bf16 (wgmma .f16, the same
+// rounding points); P and dS keep their precision and lose range, so a
+// gradient past 65504 is written as inf, never clamped, for GradScaler.
+//
 // - dq kernel, bf16: flash_bwd_dq_wgmma_kernel, on the tensor cores. One
 //   block of two warpgroups per (128 query rows, head, batch); each
 //   warpgroup owns 64 rows and keeps its dQ accumulator (64 x 128 fp32)
@@ -449,7 +455,7 @@ constexpr size_t kWDqSmemBytes =
     2 * kWDqTileBytes + 4 * kWDqKVBytes + 2 * kWDqRows * 4 + 1024;
 
 // sum of the eight products of two rows of 8 bf16 values, in fp32
-__device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y) {
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, __nv_bfloat16) {
   const auto* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
   const auto* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
   float sum = 0.f;
@@ -463,6 +469,22 @@ __device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y) {
   return sum;
 }
 
+// the same for fp16 rows
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, __half) {
+  const auto* xs = reinterpret_cast<const __half2*>(&x);
+  const auto* ys = reinterpret_cast<const __half2*>(&y);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __half22float2(xs[i]);
+    const float2 yf = __half22float2(ys[i]);
+    sum = fmaf(xf.x, yf.x, sum);
+    sum = fmaf(xf.y, yf.y, sum);
+  }
+  return sum;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_bwd_dq_wgmma_kernel(BwdArgs a) {
   using namespace hopper;
@@ -487,11 +509,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int64_t kv_base = static_cast<int64_t>(b) * a.sk * kv_row +
                           static_cast<int64_t>(hk) * kD;
   const int64_t row_base = (static_cast<int64_t>(b) * a.h + h) * a.sq + q0;
-  const auto* qg = static_cast<const __nv_bfloat16*>(a.q) + q_base;
-  const auto* og = static_cast<const __nv_bfloat16*>(a.o) + q_base;
-  const auto* dog = static_cast<const __nv_bfloat16*>(a.dout) + q_base;
-  const auto* kg = static_cast<const __nv_bfloat16*>(a.k) + kv_base;
-  const auto* vg = static_cast<const __nv_bfloat16*>(a.v) + kv_base;
+  const auto* qg = static_cast<const T*>(a.q) + q_base;
+  const auto* og = static_cast<const T*>(a.o) + q_base;
+  const auto* dog = static_cast<const T*>(a.dout) + q_base;
+  const auto* kg = static_cast<const T*>(a.k) + kv_base;
+  const auto* vg = static_cast<const T*>(a.v) + kv_base;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -521,7 +543,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       const uint4* o16 = reinterpret_cast<const uint4*>(og + at);
       const uint4* do16 = reinterpret_cast<const uint4*>(dog + at);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) part += dot8_bf16(do16[i], o16[i]);
+      for (int i = 0; i < 8; ++i) part += dot8(do16[i], o16[i], T());
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     if (half == 0) {
@@ -564,11 +586,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kD / 16; ++k)
-        wgmma_m64n64k16_ss(s, desc_kmajor(q_s, kWDqRows, wg * 64, k),
+        wgmma_m64n64k16_ss<T>(s, desc_kmajor(q_s, kWDqRows, wg * 64, k),
                            desc_kmajor(k_s, kWDqKeys, 0, k), k > 0);
 #pragma unroll
       for (int k = 0; k < kD / 16; ++k)
-        wgmma_m64n64k16_ss(dp, desc_kmajor(do_s, kWDqRows, wg * 64, k),
+        wgmma_m64n64k16_ss<T>(dp, desc_kmajor(do_s, kWDqRows, wg * 64, k),
                            desc_kmajor(v_s, kWDqKeys, 0, k), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -595,13 +617,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
               p * (dp[4 * j + e] - (hi ? delta1 : delta0)) * a.scale;
         }
       uint32_t da[4][4];
-      acc_to_a(s, da);
+      acc_to_a<T>(s, da);
 
       // dQ += dS K, K read MN-major
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWDqKeys / 16; ++k)
-        wgmma_m64n128k16_rs(dq, da[k], desc_mnmajor(k_s, kWDqKeys, k));
+        wgmma_m64n128k16_rs<T>(dq, da[k], desc_mnmajor(k_s, kWDqKeys, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -609,16 +631,16 @@ __global__ void __launch_bounds__(kWThreads, 1)
     __syncthreads();   // every warpgroup is done with this stage
   }
 
-  auto* dqb = static_cast<__nv_bfloat16*>(a.dq) + q_base;
+  auto* dqb = static_cast<T*>(a.dq) + q_base;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int c = 8 * j + col;
     if (row0 < a.sq)
       *reinterpret_cast<uint32_t*>(dqb + row0 * q_row + c) =
-          pack_bf16(dq[4 * j], dq[4 * j + 1]);
+          pack2<T>(dq[4 * j], dq[4 * j + 1]);
     if (row0 + 8 < a.sq)
       *reinterpret_cast<uint32_t*>(dqb + (row0 + 8) * q_row + c) =
-          pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
+          pack2<T>(dq[4 * j + 2], dq[4 * j + 3]);
   }
 }
 
@@ -634,6 +656,7 @@ constexpr uint32_t kWStatBytes = 2 * kWBQ * 4;
 constexpr size_t kWDkvSmemBytes =
     2 * kWKVBytes + 2 * (kWStageBytes + kWStatBytes) + 1024;
 
+template <typename T>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_bwd_dkv_wgmma_kernel(BwdArgs a) {
   using namespace hopper;
@@ -654,8 +677,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int64_t kv_row = static_cast<int64_t>(a.hkv) * kD;
   const int64_t kv_base = static_cast<int64_t>(b) * a.sk * kv_row +
                           static_cast<int64_t>(hk) * kD;
-  const auto* qg = static_cast<const __nv_bfloat16*>(a.q);
-  const auto* dog = static_cast<const __nv_bfloat16*>(a.dout);
+  const auto* qg = static_cast<const T*>(a.q);
+  const auto* dog = static_cast<const T*>(a.dout);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -664,9 +687,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int col = 2 * (lane & 3);
 
   load_tile_async<kWBKV, kWThreads>(
-      k_s, static_cast<const __nv_bfloat16*>(a.k) + kv_base, kv_row, k0, a.sk);
+      k_s, static_cast<const T*>(a.k) + kv_base, kv_row, k0, a.sk);
   load_tile_async<kWBKV, kWThreads>(
-      v_s, static_cast<const __nv_bfloat16*>(a.v) + kv_base, kv_row, k0, a.sk);
+      v_s, static_cast<const T*>(a.v) + kv_base, kv_row, k0, a.sk);
 
   // the (query head of the group, q tile) pairs this block visits: for
   // each head, the q tiles from the first one that sees key k0
@@ -727,11 +750,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kD / 16; ++k)
-        wgmma_m64n64k16_ss(s, desc_kmajor(k_s, kWBKV, wg * 64, k),
+        wgmma_m64n64k16_ss<T>(s, desc_kmajor(k_s, kWBKV, wg * 64, k),
                            desc_kmajor(q_t, kWBQ, 0, k), k > 0);
 #pragma unroll
       for (int k = 0; k < kD / 16; ++k)
-        wgmma_m64n64k16_ss(dp, desc_kmajor(v_s, kWBKV, wg * 64, k),
+        wgmma_m64n64k16_ss<T>(dp, desc_kmajor(v_s, kWBKV, wg * 64, k),
                            desc_kmajor(do_t, kWBQ, 0, k), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -759,17 +782,17 @@ __global__ void __launch_bounds__(kWThreads, 1)
           dp[4 * j + e] = p * (dp[4 * j + e] - delta_t[qi]) * a.scale;
         }
       uint32_t pa[4][4], da[4][4];
-      acc_to_a(s, pa);
-      acc_to_a(dp, da);
+      acc_to_a<T>(s, pa);
+      acc_to_a<T>(dp, da);
 
       // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWBQ / 16; ++k)
-        wgmma_m64n128k16_rs(dv, pa[k], desc_mnmajor(do_t, kWBQ, k));
+        wgmma_m64n128k16_rs<T>(dv, pa[k], desc_mnmajor(do_t, kWBQ, k));
 #pragma unroll
       for (int k = 0; k < kWBQ / 16; ++k)
-        wgmma_m64n128k16_rs(dk, da[k], desc_mnmajor(q_t, kWBQ, k));
+        wgmma_m64n128k16_rs<T>(dk, da[k], desc_mnmajor(q_t, kWBQ, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -778,24 +801,24 @@ __global__ void __launch_bounds__(kWThreads, 1)
     __syncthreads();   // every warpgroup is done with this stage
   }
 
-  auto* dkb = static_cast<__nv_bfloat16*>(a.dk) + kv_base;
-  auto* dvb = static_cast<__nv_bfloat16*>(a.dv) + kv_base;
+  auto* dkb = static_cast<T*>(a.dk) + kv_base;
+  auto* dvb = static_cast<T*>(a.dv) + kv_base;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int c = 8 * j + col;
     if (key0 < a.sk) {
       const int64_t at = key0 * kv_row + c;
       *reinterpret_cast<uint32_t*>(dkb + at) =
-          pack_bf16(dk[4 * j], dk[4 * j + 1]);
+          pack2<T>(dk[4 * j], dk[4 * j + 1]);
       *reinterpret_cast<uint32_t*>(dvb + at) =
-          pack_bf16(dv[4 * j], dv[4 * j + 1]);
+          pack2<T>(dv[4 * j], dv[4 * j + 1]);
     }
     if (key0 + 8 < a.sk) {
       const int64_t at = (key0 + 8) * kv_row + c;
       *reinterpret_cast<uint32_t*>(dkb + at) =
-          pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+          pack2<T>(dk[4 * j + 2], dk[4 * j + 3]);
       *reinterpret_cast<uint32_t*>(dvb + at) =
-          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+          pack2<T>(dv[4 * j + 2], dv[4 * j + 3]);
     }
   }
 }
@@ -813,16 +836,18 @@ int launch_dq(const BwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
 int launch_dq_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dq_wgmma_kernel, kWDqSmemBytes);
+        ptt_allow_smem(flash_bwd_dq_wgmma_kernel<T>, kWDqSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kWDqRows - 1) / kWDqRows, a.h, batch);
-  flash_bwd_dq_wgmma_kernel<<<grid, kWThreads, kWDqSmemBytes, stream>>>(a);
+  flash_bwd_dq_wgmma_kernel<T>
+      <<<grid, kWThreads, kWDqSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -839,16 +864,18 @@ int launch_dkv(const BwdArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
 int launch_dkv_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dkv_wgmma_kernel, kWDkvSmemBytes);
+        ptt_allow_smem(flash_bwd_dkv_wgmma_kernel<T>, kWDkvSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sk + kWBKV - 1) / kWBKV, a.hkv, batch);
-  flash_bwd_dkv_wgmma_kernel<<<grid, kWThreads, kWDkvSmemBytes, stream>>>(a);
+  flash_bwd_dkv_wgmma_kernel<T>
+      <<<grid, kWThreads, kWDkvSmemBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,7 +902,8 @@ PTT_EXPORT int flash_attention_bwd_dq(const void* q, const void* k,
                               nullptr, sq, sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == PTT_F32) return launch_dq(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dq_wgmma(a, batch, s);
+  if (dtype == PTT_BF16) return launch_dq_wgmma<__nv_bfloat16>(a, batch, s);
+  if (dtype == PTT_F16) return launch_dq_wgmma<__half>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -892,6 +920,7 @@ PTT_EXPORT int flash_attention_bwd_dkv(const void* q, const void* k,
                               sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == PTT_F32) return launch_dkv(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dkv_wgmma(a, batch, s);
+  if (dtype == PTT_BF16) return launch_dkv_wgmma<__nv_bfloat16>(a, batch, s);
+  if (dtype == PTT_F16) return launch_dkv_wgmma<__half>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

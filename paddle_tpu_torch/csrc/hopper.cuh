@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // 16-byte cp.async copies into 128-byte-swizzled shared-memory tiles,
-// wgmma shared-memory descriptors, and the two bf16 wgmma shapes the
-// attention kernels issue, as raw PTX.
+// wgmma shared-memory descriptors, and the two wgmma shapes the
+// attention kernels issue, as raw PTX, for bf16 or fp16 operands (the
+// element type T, __nv_bfloat16 or __half; both accumulate in fp32).
 //
-// Tile layout. A tile holds R rows (R a multiple of 8) of D = 128 bf16
+// Tile layout. A tile holds R rows (R a multiple of 8) of D = 128 16-bit
 // values, stored as two halves of 64 columns ([2][R][64]), each row of a
 // half 128 bytes, with the 16-byte chunk c of row r stored at chunk
 // c ^ (r % 8): the 128-byte swizzle (Swizzle<3,4,3>) that wgmma's
@@ -19,6 +20,8 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <type_traits>
 
 namespace hopper {
 
@@ -61,21 +64,21 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy rows [row0, row0 + R) of a [rows_valid, 128] bf16 matrix with row
-// stride `stride` (elements; base and stride 16-byte aligned) into the
-// swizzled R-row tile at `dst`, zero-filling rows past rows_valid. All
-// `threads` threads of the block take part.
-template <int R, int kThreads>
-__device__ __forceinline__ void load_tile_async(uint32_t dst,
-                                                const __nv_bfloat16* src,
+// Copy rows [row0, row0 + R) of a [rows_valid, 128] bf16 or fp16 matrix
+// with row stride `stride` (elements; base and stride 16-byte aligned)
+// into the swizzled R-row tile at `dst`, zero-filling rows past
+// rows_valid. All `threads` threads of the block take part.
+template <int R, int kThreads, typename T>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const T* src,
                                                 int64_t stride, int row0,
                                                 int rows_valid) {
+  static_assert(sizeof(T) == 2, "tiles hold 16-bit values");
 #pragma unroll
   for (int i = 0; i < R * 16 / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
     const int r = idx >> 4, chunk = idx & 15;
     const bool valid = row0 + r < rows_valid;
-    const __nv_bfloat16* p =
+    const T* p =
         src + (valid ? static_cast<int64_t>(row0 + r) * stride : 0) +
         chunk * 8;
     cp_async_16(dst + tile_chunk(R, r, chunk), p, valid);
@@ -129,69 +132,96 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// round to nearest: a value past fp16's range becomes inf (never
+// clamped), so an overflow reaches the loss scaler
+__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats as one register of T pairs
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) return pack_half(lo, hi);
+  else return pack_bf16(lo, hi);
+}
+
 // The m64nNk16 accumulator of one warpgroup: thread t (warp w = t / 32,
 // lane l) holds rows 16w + l/4 (elements 4j, 4j+1) and 16w + l/4 + 8
 // (4j+2, 4j+3) of columns 8j + 2(l%4) + {0, 1}. The bf16 A fragment of
 // the k-th 16-column step is elements 8k .. 8k+7 of that accumulator,
-// packed in pairs.
-template <int NACC>
+// packed in pairs (fp16 alike, with T = __half).
+template <typename T = __nv_bfloat16, int NACC>
 __device__ __forceinline__ void acc_to_a(const float (&acc)[NACC],
                                          uint32_t (&a)[NACC / 8][4]) {
 #pragma unroll
   for (int k = 0; k < NACC / 8; ++k)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[k][i] = pack_bf16(acc[8 * k + 2 * i], acc[8 * k + 2 * i + 1]);
+      a[k][i] = pack2<T>(acc[8 * k + 2 * i], acc[8 * k + 2 * i + 1]);
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+#define PTT_ACC32                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define PTT_ACC64                                                          \
+  PTT_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),           \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PTT_WGMMA_SS(TY)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                 \
+      : PTT_ACC32                                                          \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define PTT_WGMMA_RS(TY)                                                   \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
+      : PTT_ACC64                                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory,
+// T the operands' type (bf16 or fp16)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                    uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (std::is_same<T, __half>::value) PTT_WGMMA_SS("f16");
+  else PTT_WGMMA_SS("bf16");
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (bf16 pairs),
-// B MN-major in shared memory (wgmma's transposed-B mode)
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (T pairs), B
+// MN-major in shared memory (wgmma's transposed-B mode)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) PTT_WGMMA_RS("f16");
+  else PTT_WGMMA_RS("bf16");
 }
+
+#undef PTT_WGMMA_SS
+#undef PTT_WGMMA_RS
+#undef PTT_ACC64
+#undef PTT_ACC32
 
 // the rounded-up 1024-byte-aligned start of dynamic shared memory (the
 // swizzle is a function of the address; kernels allocate 1 KB extra)

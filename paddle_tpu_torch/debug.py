@@ -18,6 +18,11 @@ offload, elastic, the program store) are left out, and `adapters` and
 `LossSpikeDetector` (the JAX module's, copied) flags a training loss
 that leaves its trailing window; the fault-tolerant step and
 `hapi.MetricsLoggerCallback` run it.
+
+`check_numerics` raises `NumericsError` on a NaN or Inf in a tensor, and
+`enable_check_numerics` scans every eager op's output at the op choke
+point (`tensor.apply_op`'s hook; FLAGS_check_nan_inf), as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -25,7 +30,60 @@ import collections
 import math
 from typing import Deque, List
 
+import torch
+
+from . import flags as _flags
 from . import observability as _obs
+
+
+class NumericsError(RuntimeError):
+    pass
+
+
+def check_numerics(x, name: str = 'tensor', raise_on_error: bool = True):
+    """Raise (or print) on NaN or Inf values in a tensor, with their
+    counts; integer tensors pass. Reads the counts on the host."""
+    from .tensor import to_torch
+    val = to_torch(x)
+    if not isinstance(val, torch.Tensor):
+        val = torch.as_tensor(val)
+    if not val.is_floating_point():
+        return x
+    f32 = val.detach().float()
+    n_nan = int(torch.isnan(f32).sum())
+    n_inf = int(torch.isinf(f32).sum())
+    if n_nan or n_inf:
+        msg = (f'check_numerics({name}): {n_nan} NaN, {n_inf} Inf of '
+               f'{f32.numel()} values, shape {tuple(f32.shape)}')
+        if raise_on_error:
+            raise NumericsError(msg)
+        print(msg)
+    return x
+
+
+def _scan_outputs(out, op_name):
+    if isinstance(out, (list, tuple)):
+        for o in out:
+            _scan_outputs(o, op_name)
+        return
+    from .tensor import Tensor
+    if isinstance(out, (Tensor, torch.Tensor)):
+        check_numerics(out, name=op_name or 'op')
+
+
+def enable_check_numerics(level: int = 0):
+    """Scan every eager op's output for NaN/Inf at the op choke point
+    (FLAGS_check_nan_inf=1). Heavy: a host read per op; debugging only."""
+    from . import tensor as tmod
+    _flags.set_flags({'FLAGS_check_nan_inf': True,
+                      'FLAGS_check_nan_inf_level': level})
+    tmod._numerics_hook = _scan_outputs
+
+
+def disable_check_numerics():
+    from . import tensor as tmod
+    _flags.set_flags({'FLAGS_check_nan_inf': False})
+    tmod._numerics_hook = None
 
 
 def _observability_data(max_rows: int = 10) -> dict:

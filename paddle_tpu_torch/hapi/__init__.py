@@ -10,15 +10,18 @@ packages), `resume` from them bit for bit, `fault_tolerance`
 (`resilience.FaultTolerantStep`), `step_timeout`
 (`resilience.StepWatchdog`) and `handle_preemption`
 (`resilience.PreemptionHandler`). eval and predict run the network under
-`torch.no_grad`, batches moved to its device.
+`torch.no_grad`, batches moved to its device. `prepare(amp_configs=)`
+takes 'O1' (training and evaluation batches under `amp.auto_cast`) and
+'O2' (`amp.decorate`: the model cast once, fp32 masters in the
+optimizer), as the JAX Model does.
 
-Not ported yet (ROADMAP.md, Queue 1): `amp_configs` other than None and
-'O0' (`amp/`), `fit(elastic=...)` (`resilience/elastic.py`, which waits
-for `distributed/`). `accumulate_grad_batches > 1` raises, as in the JAX
-package.
+Not ported yet (ROADMAP.md, Queue 1): `fit(elastic=...)`
+(`resilience/elastic.py`, which waits for `distributed/`).
+`accumulate_grad_batches > 1` raises, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, List, Optional
 
@@ -124,11 +127,24 @@ class Model:
                 amp_configs=None):
         if loss is not None and not callable(loss):
             raise TypeError('loss must be callable (a loss Layer or fn)')
+        self._amp_level = 'O0'
+        self._amp_dtype = 'bfloat16'
         if amp_configs:
-            level = (amp_configs if isinstance(amp_configs, str)
-                     else dict(amp_configs).get('level', 'O1'))
-            if level != 'O0':
-                raise _not_ported(f'amp_configs level {level!r} (amp/)')
+            from .. import amp as _amp
+            cfg = ({'level': amp_configs} if isinstance(amp_configs, str)
+                   else dict(amp_configs))
+            level = cfg.get('level', 'O1')
+            self._amp_dtype = cfg.get('dtype', 'bfloat16')
+            if level == 'O2':
+                out = _amp.decorate(self.network, optimizer, level='O2',
+                                    dtype=self._amp_dtype)
+                if optimizer is not None:
+                    self.network, optimizer = out
+                else:
+                    self.network = out
+            elif level not in ('O0', 'O1'):
+                raise ValueError(f'bad amp level {level!r}')
+            self._amp_level = level
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -156,13 +172,22 @@ class Model:
         return self._train_step
 
     # -- batch-level API ----------------------------------------------------
+    def _amp_ctx(self):
+        """auto_cast around a training or evaluation batch under O1 (O2
+        runs the decorated model as it is), as the JAX Model does."""
+        if getattr(self, '_amp_level', 'O0') == 'O1':
+            from .. import amp as _amp
+            return _amp.auto_cast(level='O1', dtype=self._amp_dtype)
+        return contextlib.nullcontext()
+
     def train_batch(self, inputs, labels=None, update=True):
         self.network.train()
         step = self._ft_step if self._ft_step is not None \
             else self._ensure_step()
         ins = tuple(_to_list(inputs)) if isinstance(inputs, (list, tuple)) \
             else (inputs,)
-        loss = step(ins if len(ins) > 1 else ins[0], labels)
+        with self._amp_ctx():
+            loss = step(ins if len(ins) > 1 else ins[0], labels)
         return [float(loss)]
 
     def _forward(self, ins):
@@ -173,7 +198,8 @@ class Model:
 
     def eval_batch(self, inputs, labels=None):
         self.network.eval()
-        out = self._forward(_to_list(inputs))
+        with self._amp_ctx():
+            out = self._forward(_to_list(inputs))
         res = {}
         if self._loss is not None and labels is not None:
             with torch.no_grad():

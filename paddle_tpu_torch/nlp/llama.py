@@ -64,6 +64,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import amp as _amp
 from .. import dtype as _dtype
 from ..framework import resolve_device
 from ..nn import functional as F
@@ -313,7 +314,9 @@ class LlamaModel(Layer):
         With `config.use_recompute` and grad enabled (training, no pages)
         each layer runs under `torch.utils.checkpoint`: its activations
         (all of them, or those a policy does not keep) are dropped after
-        the forward and recomputed in the backward."""
+        the forward and recomputed in the backward, under the AMP policy
+        the forward ran under (a backward outside `auto_cast` recomputes
+        the same casts)."""
         h = self.embed_tokens(input_ids)
         policy = self.config.use_recompute
         remat = policy and kv_pages is None and torch.is_grad_enabled()
@@ -322,8 +325,9 @@ class LlamaModel(Layer):
         kvs = []
         for i, layer in enumerate(self.layers):
             if remat:
-                h, kv = checkpoint(layer, h, position_offset,
-                                   use_reentrant=False, **extra)
+                h, kv = checkpoint(_amp.keep_policy(layer), h,
+                                   position_offset, use_reentrant=False,
+                                   **extra)
             else:
                 h, kv = layer(h, position_offset=position_offset,
                               kv_pages=None if kv_pages is None

@@ -1,51 +1,114 @@
-"""Functional ops of the serving and training slices (counterpart of the
-matching subset of `paddle_tpu/nn/functional.py`), in Paddle's layouts:
-`linear` takes W as [in, out], attention takes [batch, seq, heads,
-head_dim]."""
-from __future__ import annotations
+"""Functional ops (counterpart of the matching subset of
+`paddle_tpu/nn/functional.py`), in Paddle's layouts: `linear` takes W as
+[in, out], attention takes [batch, seq, heads, head_dim].
 
-from typing import Optional
+Each entry runs through `tensor.apply_op` under the JAX function's op
+name, so `amp.auto_cast` casts it by the JAX package's lists (`linear`
+and `scaled_dot_product_attention` to the low dtype, `rms_norm`,
+`cross_entropy`, `softmax` and `log_softmax` to fp32), and a Tensor in
+gives a Tensor out while plain torch tensors (the serving and training
+paths) pass through as they are.
+"""
+from __future__ import annotations
 
 import torch
 
+from ..dtype import convert_dtype
 from ..ops import kernels
+from ..tensor import apply_op
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ W + b with W [in, out] (Paddle's layout)."""
+def _linear(x, weight, bias=None):
+    if x.dtype != weight.dtype:       # jnp's promotion (an O2 model, f32 in)
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
 
-def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return weight[ids.long()]
+def linear(x, weight, bias=None, name=None):
+    """y = x @ W + b with W [in, out] (Paddle's layout)."""
+    if bias is None:
+        return apply_op(_linear, x, weight, _name='linear')
+    return apply_op(_linear, x, weight, bias, _name='linear')
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.silu(x)
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    def f(ids, w):
+        out = w[ids.long()]
+        if padding_idx is not None:
+            pi = padding_idx if padding_idx >= 0 else w.shape[0] + padding_idx
+            out = out.masked_fill((ids == pi)[..., None], 0)
+        return out
+    return apply_op(f, x, weight, _name='embedding')
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             epsilon: float = 1e-6) -> torch.Tensor:
+def silu(x, name=None):
+    return apply_op(torch.nn.functional.silu, x, _name='silu')
+
+
+swish = silu
+
+
+def relu(x, name=None):
+    return apply_op(torch.relu, x, _name='relu')
+
+
+def gelu(x, approximate=False, name=None):
+    return apply_op(lambda v: torch.nn.functional.gelu(
+        v, approximate='tanh' if approximate else 'none'), x, _name='gelu')
+
+
+def sigmoid(x, name=None):
+    return apply_op(torch.sigmoid, x, _name='sigmoid')
+
+
+def tanh(x, name=None):
+    return apply_op(torch.tanh, x, _name='tanh')
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    def f(v):
+        if dtype is not None:
+            v = v.to(convert_dtype(dtype))
+        return torch.softmax(v, dim=axis)
+    return apply_op(f, x, _name='softmax')
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    def f(v):
+        if dtype is not None:
+            v = v.to(convert_dtype(dtype))
+        return torch.log_softmax(v, dim=axis)
+    return apply_op(f, x, _name='log_softmax')
+
+
+def rms_norm(x, weight, epsilon: float = 1e-6, name=None):
     """RMSNorm over the last dim through the RMSNorm kernel
     (differentiable; its backward is plain torch)."""
-    return kernels.rms_norm(x, weight, epsilon)
+    return apply_op(lambda v, w: kernels.rms_norm(v, w, epsilon), x, weight,
+                    _name='rms_norm')
+
+
+def _attention(query, key, value, attn_mask=None, is_causal=False):
+    if attn_mask is None:
+        return kernels.flash_attention(query, key, value, causal=is_causal)
+    return kernels.attention_reference(query, key, value, mask=attn_mask,
+                                       causal=is_causal)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal: bool = False):
+                                 is_causal: bool = False, name=None):
     """Attention in [B, S, H, D] with the semantics of the JAX package's
     `_attention_xla` (GQA as [HKV, G], fp32 softmax, probabilities cast to
     q.dtype before PV, bottom-right causal alignment). Without a mask it
     goes through the flash kernels (`kernels.flash_attention`: the forward
     kernel alone, or the differentiable `FlashAttention` when a gradient
-    is needed); a masked call takes the plain version, as the JAX package
-    sends masked attention to XLA on every backend."""
-    if attn_mask is None:
-        return kernels.flash_attention(query, key, value, causal=is_causal)
-    return kernels.attention_reference(query, key, value, mask=attn_mask,
-                                       causal=is_causal)
+    is needed; f32, bf16, and fp16 under auto_cast(dtype='float16')); a
+    masked call takes the plain version, as the JAX package sends masked
+    attention to XLA on every backend."""
+    return apply_op(_attention, query, key, value, attn_mask, is_causal,
+                    _name='scaled_dot_product_attention')
 
 
 def _reduce(per: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -59,7 +122,7 @@ def _reduce(per: torch.Tensor, reduction: str) -> torch.Tensor:
 def cross_entropy(input, label, weight=None, ignore_index: int = -100,
                   reduction: str = 'mean', soft_label: bool = False,
                   axis: int = -1, use_softmax: bool = True,
-                  label_smoothing: float = 0.0) -> torch.Tensor:
+                  label_smoothing: float = 0.0, name=None):
     """Paddle's `F.cross_entropy` (the JAX package's semantics).
 
     Hard integer labels over [N, V] logits (the LM loss) go through the
@@ -70,7 +133,13 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
     view (such as `logits[:, :-1]` flattened) is copied here first. Soft
     labels, class weights, label smoothing and other ranks are plain
     torch, as the JAX package keeps them outside its kernel."""
-    logits, lab = input, label
+    return apply_op(_cross_entropy, input, label, weight, ignore_index,
+                    reduction, soft_label, axis, use_softmax,
+                    label_smoothing, _name='cross_entropy')
+
+
+def _cross_entropy(logits, lab, weight, ignore_index, reduction, soft_label,
+                   axis, use_softmax, label_smoothing):
     fused = (use_softmax and not soft_label and weight is None
              and not label_smoothing and logits.dim() == 2
              and axis in (-1, 1) and not lab.is_floating_point())

@@ -30,13 +30,18 @@ same function written as tensor code. A wrapper takes the plain version
 only for tensors that lie on the CPU, which is how the CPU tests run;
 for a CUDA tensor it launches its kernel or raises, and never falls
 back. `LAUNCHES` counts kernel launches, one per launch and nowhere
-else, so a run can show that its path went through the kernels; a CUDA
-graph's replays count through `CapturedLaunches`.
+else, so a run can show that its path went through the kernels (the
+flash kernels' fp16 launches under `<name>_fp16`); a CUDA graph's
+replays count through `CapturedLaunches`.
 
 Each CUDA source starts with a note: the TPU kernel it replaces, what
 bounds it on the H100, and what its design does about that. The flash
-forward, dq and dk/dv wrappers launch by dtype: bf16 on the tensor-core
-(wgmma) kernels, f32 on fp32 FMA kernels; any other dtype raises. One
+forward, dq and dk/dv wrappers launch by dtype: bf16 and fp16 on the
+tensor-core (wgmma) kernels (one template over the element type; fp16
+is what `amp.auto_cast(dtype='float16')` sends them), f32 on fp32 FMA
+kernels; any other dtype raises. RMSNorm, CE, the paged kernel and the
+adapter kernel take f32 and bf16 only: AMP keeps the first two in f32
+(its black list), and the serving path runs no fp16 model. One
 `paged_attention` call launches two device kernels (the split-context
 pass and its combine) and counts once: under `paged_attention` when q
 holds one query row per slot (decode), under `paged_attention_verify`
@@ -56,7 +61,9 @@ from . import _build
 NEG_INF = torch.finfo(torch.float32).min
 
 LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
-            'flash_attention_bwd_dkv': 0, 'paged_attention': 0,
+            'flash_attention_bwd_dkv': 0, 'flash_attention_fwd_fp16': 0,
+            'flash_attention_bwd_dq_fp16': 0,
+            'flash_attention_bwd_dkv_fp16': 0, 'paged_attention': 0,
             'paged_attention_verify': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
             'adapter_matmul': 0, 'multi_tensor_adam': 0,
@@ -66,6 +73,9 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
 _HEAD_DIM = 128          # the kernels are compiled for D = 128
+# the flash kernels' dtypes: fp16 for auto_cast(dtype='float16'); every
+# other CUDA kernel refuses fp16
+_FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 PAGED_MAX_ROWS = 32      # paged kernel: query rows T x G per kv head, at most
 PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
 ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
@@ -90,6 +100,12 @@ _ARGTYPES = {
     'multi_tensor_sumsq_partial': [_I] + [_P] * 6,
     'multi_tensor_sumsq_finish': [_P, _I, _P, _P],
 }
+
+
+def _fp16_key(dtype) -> str:
+    """The fp16 flash launches count under keys of their own (`_fp16`),
+    so a run can tell the fp16 instantiations from the bf16 ones."""
+    return '_fp16' if dtype == torch.float16 else ''
 
 
 def reset_launch_counts() -> None:
@@ -304,8 +320,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seqused_k: Optional[torch.Tensor] = None):
     """Attention over [B, S, H, D] (strided; the last dim contiguous).
     With `return_lse` returns (out, lse) with the fp32 logsumexp of each
-    row's scaled logits as [B, H, Sq], the backward's residual. bf16
-    runs on the tensor-core kernel, which needs 16-byte-aligned base
+    row's scaled logits as [B, H, Sq], the backward's residual. bf16 and
+    fp16 run on the tensor-core kernel, which needs 16-byte-aligned base
     pointers and strides; f32 on the FMA kernel.
 
     `seqused_k`, an int32 [B] tensor on q's device, gives each batch its
@@ -321,9 +337,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    seqused_k=seqused_k)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _require(q.dtype in (torch.float32, torch.bfloat16)
+    _require(q.dtype in _FLASH_DTYPES
              and k.dtype == q.dtype and v.dtype == q.dtype,
-             'flash kernel takes q, k, v all f32 or all bf16')
+             'flash kernel takes q, k, v all f32, all bf16 or all fp16')
     _require(d == _HEAD_DIM and k.shape[3] == d and v.shape[3] == d,
              f'flash kernel is built for head_dim {_HEAD_DIM}, got {d}')
     _require(k.shape[0] == b and tuple(v.shape) == tuple(k.shape)
@@ -333,9 +349,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(q.stride(3) == 1 and k.stride(3) == 1 and v.stride(3) == 1,
              'flash kernel needs the head dim contiguous')
     _require(not causal or sq <= sk, 'causal flash needs sq <= sk')
-    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v),
-             'bf16 flash kernel needs 16-byte-aligned q, k, v base pointers '
-             'and strides')
+    _require(q.dtype == torch.float32 or _aligned16(q, k, v),
+             'bf16/fp16 flash kernel needs 16-byte-aligned q, k, v base '
+             'pointers and strides')
     _require(seqused_k is None
              or (seqused_k.dtype == torch.int32
                  and tuple(seqused_k.shape) == (b,)
@@ -358,7 +374,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
             _stream(q))
     _build.check(lib, rc, 'flash_attention_fwd')
-    LAUNCHES['flash_attention_fwd'] += 1
+    LAUNCHES['flash_attention_fwd' + _fp16_key(q.dtype)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -427,9 +443,10 @@ def attention_bwd_reference(q, k, v, out, lse, dout, causal=False):
 def _check_bwd(q, k, v, lse, dout, causal):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _require(q.dtype in (torch.float32, torch.bfloat16)
+    _require(q.dtype in _FLASH_DTYPES
              and all(t.dtype == q.dtype for t in (k, v, dout)),
-             'flash backward takes q, k, v, dout all f32 or all bf16')
+             'flash backward takes q, k, v, dout all f32, all bf16 or all '
+             'fp16')
     _require(d == _HEAD_DIM and k.shape[3] == d
              and tuple(v.shape) == tuple(k.shape) and k.shape[0] == b
              and hkv >= 1 and h % hkv == 0
@@ -447,16 +464,16 @@ def _check_bwd(q, k, v, lse, dout, causal):
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
     """The dq kernel: (dq [B, Sq, H, D] in q.dtype, delta [B, H, Sq]
     fp32). Contiguous inputs; out and lse from `flash_attention_fwd`.
-    bf16 runs on the tensor-core kernel (16-byte-aligned inputs), f32 on
-    the FMA kernel."""
+    bf16 and fp16 run on the tensor-core kernel (16-byte-aligned inputs),
+    f32 on the FMA kernel."""
     if _on_cpu(q, k, v, out, lse, dout):
         return attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
     _check_bwd(q, k, v, lse, dout, causal)
     _require(tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype
              and out.is_contiguous(), 'flash backward: out like q')
-    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v, out, dout),
-             'bf16 dq kernel needs 16-byte-aligned q, k, v, out, dout base '
-             'pointers')
+    _require(q.dtype == torch.float32 or _aligned16(q, k, v, out, dout),
+             'bf16/fp16 dq kernel needs 16-byte-aligned q, k, v, out, dout '
+             'base pointers')
     b, sq, h, _ = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -468,15 +485,15 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
             b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
             int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
     _build.check(lib, rc, 'flash_attention_bwd_dq')
-    LAUNCHES['flash_attention_bwd_dq'] += 1
+    LAUNCHES['flash_attention_bwd_dq' + _fp16_key(q.dtype)] += 1
     return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     """The dk/dv kernel: (dk, dv) [B, Sk, HKV, D] in k.dtype, each summed
     over its kv head's query group. `delta` comes from the dq kernel.
-    bf16 runs on the tensor-core kernel (16-byte-aligned inputs), f32 on
-    the FMA kernel."""
+    bf16 and fp16 run on the tensor-core kernel (16-byte-aligned inputs),
+    f32 on the FMA kernel."""
     if _on_cpu(q, k, v, lse, delta, dout):
         return attention_bwd_dkv_reference(q, k, v, lse, delta, dout,
                                            causal)
@@ -484,9 +501,9 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     _require(delta.dtype == torch.float32 and delta.shape == lse.shape
              and delta.is_contiguous(),
              'flash backward takes delta as f32 [B, H, Sq]')
-    _require(q.dtype != torch.bfloat16 or _aligned16(q, k, v, dout),
-             'bf16 dk/dv kernel needs 16-byte-aligned q, k, v, dout base '
-             'pointers')
+    _require(q.dtype == torch.float32 or _aligned16(q, k, v, dout),
+             'bf16/fp16 dk/dv kernel needs 16-byte-aligned q, k, v, dout '
+             'base pointers')
     b, sq, h, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0 or sq == 0:
@@ -497,7 +514,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
             b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
             int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
     _build.check(lib, rc, 'flash_attention_bwd_dkv')
-    LAUNCHES['flash_attention_bwd_dkv'] += 1
+    LAUNCHES['flash_attention_bwd_dkv' + _fp16_key(q.dtype)] += 1
     return dk, dv
 
 

@@ -18,21 +18,24 @@ import torch
 def _copy_by_name(src: Mapping, dst: Mapping[str, torch.Tensor],
                   what: str) -> None:
     """Copy each numpy array (or tensor) src[name] into the tensor
-    dst[name], cast to its dtype and device. Every name must match on both
-    sides, with equal shapes."""
+    dst[name] in place, cast to its dtype and device: a port `Parameter`
+    or eager `Tensor` keeps its identity (and an optimizer's hold on it).
+    Every name must match on both sides, with equal shapes."""
+    from .tensor import to_torch
     missing = sorted(set(dst) - set(src))
     extra = sorted(set(src) - set(dst))
     if missing or extra:
         raise KeyError(f'{what}: missing {missing}, unexpected {extra}')
     with torch.no_grad():
         for name, t in dst.items():
-            if isinstance(src[name], torch.Tensor):     # bf16 ones included
-                if tuple(src[name].shape) != tuple(t.shape):
-                    raise ValueError(f'{name}: shape {tuple(src[name].shape)}'
+            t, val = to_torch(t), to_torch(src[name])
+            if isinstance(val, torch.Tensor):     # bf16 ones included
+                if tuple(val.shape) != tuple(t.shape):
+                    raise ValueError(f'{name}: shape {tuple(val.shape)}'
                                      f' != {tuple(t.shape)}')
-                t.copy_(src[name])
+                t.copy_(val)
                 continue
-            arr = np.asarray(src[name])
+            arr = np.asarray(val)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f'{name}: shape {tuple(arr.shape)} != '
                                  f'{tuple(t.shape)}')

@@ -107,8 +107,10 @@ def test_flash_kernel_bf16_strided_view(cuda, causal):
 def test_bf16_attention_raises_on_a_misaligned_view(cuda):
     """The wgmma kernels copy 16 bytes at a time: a bf16 view whose
     storage starts one element past an aligned buffer is refused, by the
-    forward, the dq and the dk/dv kernel, as is fp16; the same bf16
-    values aligned are taken, one launch per call."""
+    forward, the dq and the dk/dv kernel, and so is such an fp16 view
+    (the fp16 instantiations, `auto_cast(dtype='float16')`'s path); the
+    same values aligned are taken, one launch per call, fp16 counted
+    under the `_fp16` keys."""
     b, s, h = 1, 16, 2
     buf = torch.zeros(b * s * h * 128 + 1, device=cuda, dtype=torch.bfloat16)
     x = buf[1:].view(b, s, h, 128)
@@ -123,14 +125,22 @@ def test_bf16_attention_raises_on_a_misaligned_view(cuda):
         K.flash_attention_bwd_dkv(x, x, x, lse, lse, x, True)
     assert K.LAUNCHES == before
     y = x.clone()
-    with pytest.raises(ValueError):          # fp16: neither kernel takes it
-        K.flash_attention_fwd(y.half(), y.half(), y.half(), causal=True)
-    with pytest.raises(ValueError):
-        K.flash_attention_bwd_dq(y.half(), y.half(), y.half(), y.half(),
-                                 lse, y.half(), True)
-    with pytest.raises(ValueError):
-        K.flash_attention_bwd_dkv(y.half(), y.half(), y.half(), lse, lse,
-                                  y.half(), True)
+    hb = torch.zeros_like(buf, dtype=torch.float16)
+    hx = hb[1:].view(b, s, h, 128)           # fp16, misaligned
+    with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_fwd(hx, hx, hx, causal=True)
+    with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_bwd_dq(hx, hx, hx, hx, lse, hx, True)
+    with pytest.raises(ValueError, match='16-byte'):
+        K.flash_attention_bwd_dkv(hx, hx, hx, lse, lse, hx, True)
+    assert K.LAUNCHES == before
+    hy = hx.clone()
+    K.flash_attention_fwd(hy, hy, hy, causal=True)
+    K.flash_attention_bwd_dq(hy, hy, hy, hy, lse, hy, True)
+    K.flash_attention_bwd_dkv(hy, hy, hy, lse, lse, hy, True)
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        assert K.LAUNCHES[name + '_fp16'] == before[name + '_fp16'] + 1
     K.flash_attention_fwd(y, y, y, causal=True)
     K.flash_attention_bwd_dq(y, y, y, y, lse, y, True)
     K.flash_attention_bwd_dkv(y, y, y, lse, lse, y, True)
@@ -2038,3 +2048,166 @@ def test_fault_tolerant_step_restores_bit_for_bit_on_the_card(cuda,
         assert torch.equal(v.detach().cpu(), before[key]), key
         assert torch.equal(snap[key], before[key]), key
     assert torch.isfinite(ft(ids, ids))
+
+
+# chip_smoke.TOL[fp16]: the bf16 limits 8 times tighter (3 more mantissa
+# bits at the same rounding points)
+REL_F16 = (2 ** -9, 2 ** -10)
+
+
+def _close_f16(got, want):
+    diff, want = got.double() - want.double(), want.double()
+    assert diff.abs().max() <= REL_F16[0] * want.abs().max()
+    assert diff.norm() <= REL_F16[1] * want.norm()
+
+
+@pytest.mark.parametrize('sq,sk,hkv,causal', [
+    (130, 130, 8, True), (1000, 1000, 1, True), (70, 90, 4, True),
+    (63, 200, 2, False), (1, 130, 1, True)])
+def test_fp16_flash_kernels_match_plain(cuda, sq, sk, hkv, causal):
+    """The fp16 instantiations of the wgmma forward (with its LSE), dq
+    and dk/dv against the plain versions, ragged, GQA, sq < sk; their
+    launches count under the `_fp16` keys only."""
+    dt = torch.float16
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q, dout = _randn(g, dt, 2, sq, 8, 128), _randn(g, dt, 2, sq, 8, 128)
+    k, v = _randn(g, dt, 2, sk, hkv, 128), _randn(g, dt, 2, sk, hkv, 128)
+    before = dict(K.LAUNCHES)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    want, want_lse = K.attention_reference(q, k, v, causal=causal,
+                                           return_lse=True)
+    assert out.dtype == dt
+    _close_f16(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    got = K.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    for i, (a, b) in enumerate(zip(
+            got, K.attention_bwd_reference(q, k, v, out, lse, dout,
+                                           causal))):
+        assert a.dtype == dt
+        if sk > 1 or i == 2:
+            _close_f16(a, b)
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        assert K.LAUNCHES[name] == before[name]
+        assert K.LAUNCHES[name + '_fp16'] == before[name + '_fp16'] + 1
+
+
+def test_fp16_overflow_reaches_inf(cuda):
+    """A dq past fp16's range is inf where the plain version's is, not
+    clamped: what GradScaler must see."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(g, torch.float16, 1, 256, 8, 128)
+    k = (200 * _randn(g, torch.float32, 1, 256, 8, 128)).half()
+    v = _randn(g, torch.float16, 1, 256, 8, 128)
+    dout = (300 * _randn(g, torch.float32, 1, 256, 8, 128)).half()
+    out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
+    dq, _ = K.flash_attention_bwd_dq(q, k, v, out, lse, dout, True)
+    want, _ = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, True)
+    assert torch.isinf(want).any() and not torch.isnan(dq).any()
+    # a place may differ only where the finite side is within rounding of
+    # 65504 (sums in another order), at most 1% of the infs
+    differ = torch.isinf(dq) != torch.isinf(want)
+    edge = 65504 * (1 - 2 ** -10)
+    finite = torch.where(torch.isinf(dq), want, dq).float().abs()
+    assert bool((finite[differ] >= edge).all())
+    assert int(differ.sum()) <= 0.01 * int(torch.isinf(want).sum())
+
+
+def test_fp16_is_refused_outside_the_flash_kernels(cuda):
+    """RMSNorm, CE, the paged kernel and the adapter kernel take no fp16
+    CUDA tensor (AMP keeps the first two in fp32; no fp16 model is
+    served), and none falls back to its plain version."""
+    h = torch.float16
+    x = torch.ones((4, 128), device=cuda, dtype=h)
+    with pytest.raises(ValueError):
+        K.rms_norm(x, torch.ones(128, device=cuda, dtype=h))
+    with pytest.raises(ValueError):
+        K.softmax_cross_entropy_fwd(x, torch.zeros(4, device=cuda,
+                                                   dtype=torch.int32))
+    pages = torch.zeros((3, 16, 2, 128), device=cuda, dtype=h)
+    with pytest.raises(ValueError):
+        K.paged_attention(torch.zeros((2, 2, 128), device=cuda, dtype=h),
+                          pages, pages,
+                          torch.ones((2, 2), device=cuda, dtype=torch.int32),
+                          torch.ones(2, device=cuda, dtype=torch.int32))
+    bank = torch.zeros((2, 128, 8), device=cuda, dtype=h)
+    with pytest.raises(ValueError):
+        K.adapter_matmul(torch.ones((2, 1, 128), device=cuda, dtype=h), bank,
+                         torch.zeros((2, 8, 64), device=cuda, dtype=h),
+                         torch.zeros(2, device=cuda, dtype=torch.int32),
+                         torch.ones(2, device=cuda))
+
+
+def _dygraph_losses(model, batches, opt_cls, amp=None, scaler=None):
+    """The canonical eager loop on port Tensors; the step losses."""
+    import paddle_tpu_torch as ptt
+    opt = opt_cls(learning_rate=1e-3, parameters=model.parameters())
+    place = 'cpu' if model.device.type == 'cpu' else 'gpu'
+    losses = []
+    for ids in batches:
+        x = ptt.to_tensor(ids, place=place)
+        with (ptt.amp.auto_cast(**amp) if amp else _null()):
+            loss, _ = model(x, labels=x)
+        if scaler is not None:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        else:
+            loss.backward()
+            opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses
+
+
+def _null():
+    import contextlib
+    return contextlib.nullcontext()
+
+
+def test_dygraph_step_on_card_matches_cpu(cuda):
+    """Three eager f32 steps (to_tensor, model(x, labels=x), backward,
+    AdamW step, clear_grad) of 2 layers on the card and on the CPU:
+    losses agree to 1e-4, and the card's ran the kernels."""
+    import numpy as np
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1)
+    on_card = LlamaForCausalLM(cfg, device=cuda, generator=generator(5, cuda))
+    on_cpu = LlamaForCausalLM(cfg, device='cpu')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, 512, (2, 96)) for _ in range(3)]
+    K.reset_launch_counts()
+    card = _dygraph_losses(on_card, batches, AdamW)
+    assert K.LAUNCHES['flash_attention_bwd_dkv'] == 2 * 3
+    cpu = _dygraph_losses(on_cpu, batches, AdamW)
+    torch.testing.assert_close(torch.tensor(card), torch.tensor(cpu),
+                               rtol=1e-4, atol=0)
+
+
+def test_amp_fp16_step_runs_the_fp16_kernels(cuda):
+    """O1 fp16 under GradScaler: finite losses, the fp16 flash kernels
+    launched once per layer and step (forward, dq, dk/dv), the bf16/f32
+    ones not at all, RMSNorm and CE in fp32."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1)
+    model = LlamaForCausalLM(cfg, device=cuda, generator=generator(6, cuda))
+    rng = np.random.RandomState(1)
+    batches = [rng.randint(0, 512, (2, 96)) for _ in range(3)]
+    K.reset_launch_counts()
+    scaler = ptt.amp.GradScaler(init_loss_scaling=2.0 ** 12)
+    losses = _dygraph_losses(model, batches, AdamW,
+                             amp=dict(dtype='float16'), scaler=scaler)
+    assert all(np.isfinite(losses))
+    assert K.LAUNCHES['flash_attention_fwd_fp16'] == 2 * 3
+    assert K.LAUNCHES['flash_attention_bwd_dq_fp16'] == 2 * 3
+    assert K.LAUNCHES['flash_attention_bwd_dkv_fp16'] == 2 * 3
+    assert K.LAUNCHES['flash_attention_fwd'] == 0
+    assert K.LAUNCHES['rms_norm'] > 0 and K.LAUNCHES['softmax_ce_fwd'] == 3

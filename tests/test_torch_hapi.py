@@ -201,9 +201,21 @@ def test_summary_counts_parameters_and_flops(capsys):
 
 def test_unported_options_name_roadmap():
     _, tm = _classifiers()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Model(TorchNet()).prepare(amp_configs='O2')
+    # amp_configs is ported: O2 prepares (the network cast to bf16, fp32
+    # masters in the optimizer) and trains
+    net = TorchNet()
+    o2 = Model(net).prepare(
+        AdamW(learning_rate=LR, parameters=net.parameters()),
+        tnn.CrossEntropyLoss(), amp_configs='O2')
+    assert net.fc1.weight.dtype == torch.bfloat16
+    assert o2._optimizer._multi_precision
+    x, y = _data(16)
+    hist = o2.fit(tio.TensorDataset([x, y]), batch_size=8, verbose=0)
+    assert len(hist['loss']) == 2 and np.isfinite(hist['loss']).all()
+    assert net.fc1.weight.dtype == torch.bfloat16
     Model(TorchNet()).prepare(amp_configs={'level': 'O0'})
+    with pytest.raises(ValueError, match='amp level'):
+        Model(TorchNet()).prepare(amp_configs='O3')
     x, y = _data(8)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tm.fit(tio.TensorDataset([x, y]), elastic=True, verbose=0)

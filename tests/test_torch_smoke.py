@@ -135,10 +135,11 @@ def _repeat_kv(a):
 
 
 def _forward_tensor_core(a, rescale=True, tile=64):
-    """The bf16 tensor-core forward's arithmetic: fp32 logits, an online
+    """The tensor-core forward's arithmetic: fp32 logits, an online
     softmax over `tile`-key blocks (the running max rescales the sums
-    and the output by alpha unless `rescale` is False), P rounded to
-    bf16 before P V, fp32 sums, O / l rounded once; the LSE m + log l."""
+    and the output by alpha unless `rescale` is False), P rounded to the
+    input dtype (bf16 or fp16) before P V, fp32 sums, O / l rounded
+    once; the LSE m + log l."""
     k, v = _repeat_kv(a)
     s = torch.einsum('bqhd,bkhd->bhqk', a['q'].float(), k) / math.sqrt(D)
     s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
@@ -152,15 +153,16 @@ def _forward_tensor_core(a, rescale=True, tile=64):
         p = torch.exp(st - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + torch.einsum(
-            'bhqk,bkhd->bhqd', p.bfloat16().float(), v[:, k0:k0 + tile])
+            'bhqk,bkhd->bhqd', p.to(a['q'].dtype).float(),
+            v[:, k0:k0 + tile])
         m = m_new
     out = (o / l[..., None]).transpose(1, 2).to(a['q'].dtype)
     return out, m + torch.log(l)
 
 
 def _dkv_tensor_core(a, first_head_only=False):
-    """The bf16 tensor-core dk/dv kernel's arithmetic: P^T and dS^T in
-    fp32, rounded to bf16 before the dV and dK products, fp32 sums over
+    """The tensor-core dk/dv kernel's arithmetic: P^T and dS^T in fp32,
+    rounded to the input dtype before the dV and dK products, fp32 sums over
     every query head of each GQA group (or, as a fault, only the first
     head of each group), each gradient rounded once."""
     k, v = _repeat_kv(a)
@@ -172,22 +174,24 @@ def _dkv_tensor_core(a, first_head_only=False):
     if first_head_only:
         first = (torch.arange(H) % (H // HKV) == 0).float()[None, :, None, None]
         p, ds = p * first, ds * first
-    dk = torch.einsum('bhqk,bqhd->bkhd', ds.bfloat16().float(), q)
-    dv = torch.einsum('bhqk,bqhd->bkhd', p.bfloat16().float(), do)
+    low = a['q'].dtype
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds.to(low).float(), q)
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(low).float(), do)
     return (K._fold_group(dk, HKV).to(a['k'].dtype),
             K._fold_group(dv, HKV).to(a['v'].dtype))
 
 
 def _dq_tensor_core(a):
-    """The bf16 tensor-core dq kernel's arithmetic: S and dP in fp32, dS
-    rounded to bf16 before dQ += dS K, fp32 sums, dQ rounded once."""
+    """The tensor-core dq kernel's arithmetic: S and dP in fp32, dS
+    rounded to the input dtype (bf16 or fp16) before dQ += dS K, fp32
+    sums, dQ rounded once."""
     k, v = _repeat_kv(a)
     q, do = a['q'].float(), a['dout'].float()
     s = torch.einsum('bqhd,bkhd->bhqk', q, k) / math.sqrt(D)
     p = torch.exp(s - a['lse'][..., None]).tril()
     dp = torch.einsum('bqhd,bkhd->bhqk', do, v)
     ds = p * (dp - a['delta'][..., None]) / math.sqrt(D)
-    dq = torch.einsum('bhqk,bkhd->bqhd', ds.bfloat16().float(), k)
+    dq = torch.einsum('bhqk,bkhd->bqhd', ds.to(a['q'].dtype).float(), k)
     return dq.to(a['q'].dtype)
 
 
@@ -332,7 +336,7 @@ def _mutant(case, dtype):
         p = torch.exp(s - a['lse'][..., None])
         dp = torch.einsum('bqhd,bkhd->bhqk', a['dout'].float(), v)
         ds = p * (dp - a['delta'][..., None]) / math.sqrt(D)
-        dq = torch.einsum('bhqk,bkhd->bqhd', ds.bfloat16().float(), k)
+        dq = torch.einsum('bhqk,bkhd->bqhd', ds.to(dtype).float(), k)
         return dq.to(dtype), a['dq']
     e = _attention_fp64(a, delta_term=False)
     name = {'dq_without_delta': 'dq', 'dk_without_delta': 'dk'}[case]
@@ -359,6 +363,54 @@ def test_compare_rejects_a_wrong_kernel(case, dtype):
     got, want = _mutant(case, dtype)
     with pytest.raises(AssertionError, match='rel_max'):
         smoke.compare(case, got, want)
+
+
+@pytest.mark.parametrize('kernel', ['forward', 'dkv', 'dq'])
+def test_compare_accepts_the_fp16_tensor_core_rounding_order(kernel):
+    """The fp16 instantiations of the wgmma kernels round at the bf16
+    kernels' points, to fp16: that order passes the fp16 limits, and so
+    does one rounding of the exact result."""
+    a = _attention(torch.float16)
+    if kernel == 'forward':
+        smoke.compare(kernel, _forward_tensor_core(a), (a['out'], a['lse']))
+    elif kernel == 'dkv':
+        smoke.compare(kernel, _dkv_tensor_core(a), (a['dk'], a['dv']))
+    else:
+        smoke.compare(kernel, _dq_tensor_core(a), a['dq'])
+    e = _attention_fp64(a)
+    for name in ('dq', 'dk', 'dv'):
+        smoke.compare(name, e[name], a[name])
+
+
+@pytest.mark.parametrize('case', [
+    'forward_probs_rounded_to_bf16', 'forward_without_rescale',
+    'dq_without_delta', 'dk_without_delta', 'dq_gain_2pct',
+    'dkv_first_head_of_each_group_only', 'dq_without_the_causal_mask'])
+def test_compare_rejects_a_wrong_fp16_kernel(case):
+    """The fp16 limits fail the redesign's faults, and a kernel that
+    rounds like the bf16 one (P to bf16) though its inputs are fp16."""
+    got, want = _mutant(case, torch.float16)
+    with pytest.raises(AssertionError, match='rel_max'):
+        smoke.compare(case, got, want)
+
+
+def test_compare_takes_an_overflow_only_as_the_plain_versions_inf():
+    """An fp16 gradient past 65504 is inf in the plain version; the
+    kernel must give inf at exactly those places (GradScaler reads it),
+    never a clamped finite value, and no inf elsewhere."""
+    a = _attention(torch.float16)
+    want = a['dq'].clone()
+    want[0, 3, 1, :4] = float('inf')
+    want[0, 5, 0, 7] = -float('inf')
+    smoke.compare('dq overflow', want.clone(), want)
+    clamped = want.clone()
+    clamped[0, 3, 1, :4] = 65504.0
+    with pytest.raises(AssertionError, match='inf/NaN exactly'):
+        smoke.compare('dq clamped', clamped, want)
+    extra = want.clone()
+    extra[0, 9, 2, 0] = float('inf')
+    with pytest.raises(AssertionError, match='inf/NaN exactly'):
+        smoke.compare('dq extra inf', extra, want)
 
 
 def _adapter(dtype):
