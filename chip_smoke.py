@@ -20,6 +20,8 @@
                                            # shapes, phases 4, 5 and 5c-5f
     python3 chip_smoke.py --eager          # phase 2's fp16 flash cases,
                                            # the op sweep and phase 5g
+    python3 chip_smoke.py --gpt            # phase 2's D = 64 cases and
+                                           # phase 9 (the GPT family)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -338,6 +340,20 @@ result line):
    The children's
    kernel launches (their `stats()`) join the kernels line; the free
    device memory is logged before each spawn; budget PROCS_BUDGET_S;
+9. the GPT family (`gpt_family`, after the op sweep of 8): gpt-serve,
+   GPT-3 XL (24 layers x 2048, 16 heads x 128, bf16, random weights)
+   behind the paged engine with its decode and prefill graphs, phase 6's
+   12 requests (graph tokens == eager twin's), a wave through a bank with
+   the default targets (`qkv_proj`, `out_proj`) and `generate()` greedy
+   on two prompts == the engine (in f32 over the same weights), decode
+   tok/s and the analytic catalog's HBM roof share logged; gpt2-serve,
+   the same at GPT-2 small (12 heads x 64: the D = 64 flash and paged
+   kernels); gpt-train, GPT-3 XL at 4 x 2048 bf16 with AdamW, 3 steps,
+   finite losses, ms a step and MFU by `TransformerCost`; bert,
+   BERT-base bf16 B=8 S=512 unmasked: an encode and 3 fine-tune steps of
+   `BertForSequenceClassification` with hidden dropout on, each D = 64
+   flash kernel launched once per layer and step. Phase 2 holds the
+   D = 64 kernels (`head64_cases`) to their plain versions first;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -419,6 +435,18 @@ REPLACES = {
         'paddle_tpu/ops/pallas_kernels.py:226 (_flash_bwd_dq_kernel, fp16)',
     'flash_attention_bwd_dkv_fp16':
         'paddle_tpu/ops/pallas_kernels.py:272 (_flash_bwd_dkv_kernel, fp16)',
+    'flash_attention_fwd_d64':
+        'paddle_tpu/ops/pallas_kernels.py:89 (_flash_fwd_kernel, head_dim '
+        '64)',
+    'flash_attention_bwd_dq_d64':
+        'paddle_tpu/ops/pallas_kernels.py:226 (_flash_bwd_dq_kernel, '
+        'head_dim 64)',
+    'flash_attention_bwd_dkv_d64':
+        'paddle_tpu/ops/pallas_kernels.py:272 (_flash_bwd_dkv_kernel, '
+        'head_dim 64)',
+    'paged_attention_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, head_dim '
+        '64)',
     'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
@@ -452,6 +480,12 @@ SOURCES = {
         'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'flash_attention_bwd_dkv_fp16':
         'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'flash_attention_fwd_d64': 'paddle_tpu_torch/csrc/flash_attention.cu',
+    'flash_attention_bwd_dq_d64':
+        'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'flash_attention_bwd_dkv_d64':
+        'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
+    'paged_attention_d64': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
@@ -463,13 +497,15 @@ SOURCES = {
     'multi_tensor_sumsq': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
 }
 # the tensor-core (wgmma) kernels that bf16 and fp16 inputs run on, by
-# source: each template's two instantiations (their mangled names)
+# source: each template's instantiations by dtype and head width D (their
+# mangled names)
 WGMMA_KERNELS = {
-    'flash_attention': tuple(f'flash_fwd_wgmma_kernelI{t}' for t in
-                             ('13__nv_bfloat16', '6__half')),
+    'flash_attention': tuple(f'flash_fwd_wgmma_kernelI{t}Li{d}E' for t in
+                             ('13__nv_bfloat16', '6__half')
+                             for d in (128, 64)),
     'flash_attention_bwd': tuple(
-        f'flash_bwd_{k}_wgmma_kernelI{t}' for k in ('dq', 'dkv')
-        for t in ('13__nv_bfloat16', '6__half'))}
+        f'flash_bwd_{k}_wgmma_kernelI{t}Li{d}E' for k in ('dq', 'dkv')
+        for t in ('13__nv_bfloat16', '6__half') for d in (128, 64))}
 # (sq, sk) of the flash forward on the suffix / chunk prefill path: a
 # 256-token chunk after a 512-row prefix and after 768 rows, a 64-token
 # suffix after 512, and an 8-token one
@@ -1052,23 +1088,27 @@ def _paged_verify_cases(add, gen) -> None:
                               for i in range(t)), rep=rep)
 
 
-def _flash_serve_case(add, gen, dtype, s, hkv, rep=False) -> None:
-    """The flash forward at a prefill bucket [1, S, 32, 128] (HKV kv
-    heads), causal, with SDPA as the library call."""
+def _flash_serve_case(add, gen, dtype, s, hkv, rep=False, h=32, d=128,
+                      b=1, causal=True) -> None:
+    """The flash forward at a prefill bucket [B, S, H, D] (HKV kv heads;
+    by default [1, S, 32, 128], causal), with SDPA as the library call."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
-    q = _randn((1, s, 32, 128), dtype, gen)
-    k = _randn((1, s, hkv, 128), dtype, gen)
-    v = _randn((1, s, hkv, 128), dtype, gen)
+    q = _randn((b, s, h, d), dtype, gen)
+    k = _randn((b, s, hkv, d), dtype, gen)
+    v = _randn((b, s, hkv, d), dtype, gen)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    add('flash_attention_fwd' + _fp16_key(dtype),
-        f'flash {str(dtype)[6:]} S={s} H=32 HKV={hkv}', dtype,
-        lambda q=q, k=k, v=v: K.flash_attention_fwd(q, k, v, causal=True),
-        lambda q=q, k=k, v=v: K.attention_reference(q, k, v, causal=True),
-        lambda qt=qt, kt=kt, vt=vt, g=hkv != 32:
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    add('flash_attention_fwd' + _fp16_key(dtype) + _d64_key(d),
+        f'flash {str(dtype)[6:]} ' + (f'B={b} ' if b > 1 else '')
+        + f'S={s} H={h} HKV={hkv} D={d}' + ('' if causal else ' full'),
+        dtype,
+        lambda q=q, k=k, v=v: K.flash_attention_fwd(q, k, v, causal=causal),
+        lambda q=q, k=k, v=v: K.attention_reference(q, k, v, causal=causal),
+        lambda qt=qt, kt=kt, vt=vt, g=hkv != h:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=g),
-        nbytes(q, k, v, q), 4 * 128 * 32 * (s * (s + 1) // 2), rep=rep)
+        nbytes(q, k, v, q), 4 * d * h * b * live_pairs(s, s, causal),
+        rep=rep)
 
 
 def fp16_cases() -> list:
@@ -1095,6 +1135,12 @@ def _fp16_key(dtype) -> str:
     return '_fp16' if dtype == torch.float16 else ''
 
 
+def _d64_key(d: int) -> str:
+    """The D = 64 attention cases report under the `_d64` names (the
+    wrappers' LAUNCHES keys, after any `_fp16`)."""
+    return '_d64' if d == 64 else ''
+
+
 def _fp16_overflow_case(add, gen) -> None:
     """An fp16 dq whose products leave fp16's range: the kernel must give
     inf exactly where the plain version does (`compare`), for GradScaler."""
@@ -1115,25 +1161,28 @@ def _fp16_overflow_case(add, gen) -> None:
             256, 256, True))
 
 
-def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
+def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
+                      causal=True, rep_fwd=False) -> None:
     """The flash forward with its LSE and the two backward kernels at
-    [B, S, H(KV), 128], causal, against their plain versions, with SDPA
-    (forward, and its whole backward) as the library call."""
+    [B, S, H(KV), D] (D = 128 unless given; causal unless `causal` is
+    False), against their plain versions, with SDPA (forward, and its
+    whole backward) as the library call."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
-    tag = f'{str(dtype)[6:]} B={b} S={s} H={h} HKV={hkv} causal'
-    key = _fp16_key(dtype)
-    q = _randn((b, s, h, 128), dtype, gen)
-    k = _randn((b, s, hkv, 128), dtype, gen)
-    v = _randn((b, s, hkv, 128), dtype, gen)
-    dout = _randn((b, s, h, 128), dtype, gen)
-    out, lse = K.flash_attention_fwd(q, k, v, True, return_lse=True)
-    _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, True)
-    pairs = b * h * live_pairs(s, s, True)
+    tag = (f'{str(dtype)[6:]} B={b} S={s} H={h} HKV={hkv} D={d} '
+           + ('causal' if causal else 'full'))
+    key = _fp16_key(dtype) + _d64_key(d)
+    q = _randn((b, s, h, d), dtype, gen)
+    k = _randn((b, s, hkv, d), dtype, gen)
+    v = _randn((b, s, hkv, d), dtype, gen)
+    dout = _randn((b, s, h, d), dtype, gen)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
+    pairs = b * h * live_pairs(s, s, causal)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=hkv != h)
+        qt, kt, vt, is_causal=causal, enable_gqa=hkv != h)
     dout_t = dout.transpose(1, 2)
 
     def sdpa_bwd(o=sdpa_out, ins=(qt, kt, vt), g=dout_t):
@@ -1141,30 +1190,30 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False) -> None:
 
     add('flash_attention_fwd' + key, f'flash fwd+lse {tag}', dtype,
         lambda q=q, k=k, v=v: K.flash_attention_fwd(
-            q, k, v, True, return_lse=True),
+            q, k, v, causal, return_lse=True),
         lambda q=q, k=k, v=v: K.attention_reference(
-            q, k, v, causal=True, return_lse=True),
+            q, k, v, causal=causal, return_lse=True),
         lambda qt=qt, kt=kt, vt=vt, g=hkv != h:
             F.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach(),
-                is_causal=True, enable_gqa=g),
-        nbytes(q, k, v, q, lse), 2 * 2 * 128 * pairs)
+                is_causal=causal, enable_gqa=g),
+        nbytes(q, k, v, q, lse), 2 * 2 * d * pairs, rep=rep_fwd)
     add('flash_attention_bwd_dq' + key, f'flash bwd dq {tag}', dtype,
         lambda a=(q, k, v, out, lse, dout):
-            K.flash_attention_bwd_dq(*a, True),
+            K.flash_attention_bwd_dq(*a, causal),
         lambda a=(q, k, v, out, lse, dout):
-            K.attention_bwd_dq_reference(*a, True),
+            K.attention_bwd_dq_reference(*a, causal),
         sdpa_bwd,
         nbytes(q, k, v, out, dout, lse, q, delta),
-        3 * 2 * 128 * pairs, rep=rep)
+        3 * 2 * d * pairs, rep=rep)
     add('flash_attention_bwd_dkv' + key, f'flash bwd dk/dv {tag}', dtype,
         lambda a=(q, k, v, lse, delta, dout):
-            K.flash_attention_bwd_dkv(*a, True),
+            K.flash_attention_bwd_dkv(*a, causal),
         lambda a=(q, k, v, lse, delta, dout):
-            K.attention_bwd_dkv_reference(*a, True),
+            K.attention_bwd_dkv_reference(*a, causal),
         sdpa_bwd,
         nbytes(q, k, v, dout, lse, delta, k, v),
-        4 * 2 * 128 * pairs, rep=rep)
+        4 * 2 * d * pairs, rep=rep)
 
 
 def _ce_case(add, gen, dtype, n, vocab, rep=False) -> None:
@@ -1239,6 +1288,84 @@ def rung_cases() -> list:
         nbytes(x, x, w), 4 * x.numel())
     _ce_case(add, gen, dtype, GPT3_BATCH * (TRAIN_SEQ - 1),
              GPT3_SHAPE['vocab_size'])
+    return cases
+
+
+# the head_dim-64 shapes: GPT-2 small (12 heads x 64) serves 8 slots of
+# up to 1024 positions; BERT-base (12 x 64) encodes and fine-tunes at
+# B=8 S=512, unmasked (bidirectional)
+GPT2_HEADS, BERT_BATCH, BERT_SEQ = 12, 8, 512
+
+
+def head64_cases() -> list:
+    """The D = 64 kernels against their plain versions (phase 2): the
+    flash forward at GPT-2 small's prefill buckets (causal) and at a
+    ragged GQA length, at BERT-base's encode (B=8 S=512 H=12, full), and
+    with the key count read from device memory over a 1024-row buffer
+    whose rows past it are NaN; the forward with its LSE, dq and dk/dv
+    at BERT-base's fine-tune (full) and a ragged causal GQA shape; in
+    f32, bf16 and fp16. The paged kernel at GPT-2 small's decode (8
+    slots, H 12, ctx <= 1024, ps 16) with one query row and with T = 5
+    rows, f32 and bf16, and over GQA pages (HKV 4). The bf16 BERT and
+    GPT-2 cases report the `_d64` rows."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    cases, add = _case_list()
+    h, d = GPT2_HEADS, 64
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        bf = dtype == torch.bfloat16
+        for s, hkv in ((8, h), (100, h), (1024, h), (1000, 4)):
+            _flash_serve_case(add, gen, dtype, s, hkv, h=h, d=d)
+        _flash_serve_case(add, gen, dtype, BERT_SEQ, h, h=h, d=d,
+                          b=BERT_BATCH, causal=False, rep=bf)
+        for sq, sk in ((256, 768), (8, 520)):
+            q = _randn((1, sq, h, d), dtype, gen)
+            k = _randn((1, SLOT_ROWS, h, d), dtype, gen)
+            v = _randn((1, SLOT_ROWS, h, d), dtype, gen)
+            k[:, sk:] = float('nan')
+            v[:, sk:] = float('nan')
+            used = torch.tensor([sk], dtype=torch.int32, device=DEV)
+            add('flash_attention_fwd' + _fp16_key(dtype) + '_d64',
+                f'flash {str(dtype)[6:]} seqused_k chunk sq={sq} sk={sk} of '
+                f'{SLOT_ROWS} rows H={h} D={d}', dtype,
+                lambda q=q, k=k, v=v, u=used: K.flash_attention_fwd(
+                    q, k, v, causal=True, seqused_k=u),
+                lambda q=q, k=k, v=v, u=used: K.attention_reference(
+                    q, k, v, causal=True, seqused_k=u),
+                None,
+                nbytes(q, q, used) + 2 * sk * h * d * k.element_size(),
+                4 * d * h * live_pairs(sq, sk, True))
+        _flash_train_case(add, gen, dtype, BERT_BATCH, BERT_SEQ, h, h, d=d,
+                          causal=False, rep=bf)
+        _flash_train_case(add, gen, dtype, 1, 1000, h, 4, d=d)
+    n, ps, p = 8, 16, 64
+    num_pages = n * p + 1
+    table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
+                           dtype=torch.int32, device=DEV)
+    for dtype, hkv, t in ((torch.float32, h, 1), (torch.bfloat16, h, 1),
+                          (torch.bfloat16, 4, 1), (torch.float32, h, 5),
+                          (torch.bfloat16, h, 5)):
+        q = _randn((n, h, d) if t == 1 else (n, t, h, d), dtype, gen)
+        shape = (num_pages, ps, hkv, d)
+        kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
+        lens = lengths - (t - 1) if t > 1 else lengths
+        lens = lens.clamp(min=1).to(torch.int32)
+        last = [ln + t - 1 for ln in lens.tolist()]
+        args = (q, kp, vp, table, lens)
+        add('paged_attention' + ('_verify' if t > 1 else '') + '_d64',
+            f'paged {str(dtype)[6:]} N=8 T={t} H={h} HKV={hkv} D={d} '
+            f'ctx<=1024', dtype,
+            lambda a=args: K.paged_attention(*a),
+            lambda a=args: K.paged_attention_reference(*a),
+            None,
+            nbytes(q, q, table, lens) + sum(last) * hkv * d
+            * kp.element_size() * 2,
+            4 * d * h * sum(ln + i for ln in lens.tolist()
+                            for i in range(t)),
+            rep=t == 1 and dtype == torch.bfloat16 and hkv == h)
     return cases
 
 
@@ -6099,7 +6226,8 @@ def hook_host_us(calls: int = 200) -> float:
     from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.serving.adapters import apply
     gen = torch.Generator(device=DEV).manual_seed(3)
-    lin = Linear(4096, 4096, device=DEV, dtype=torch.bfloat16, generator=gen)
+    lin = Linear(4096, 4096, bias=False, device=DEV, dtype=torch.bfloat16,
+                 generator=gen)
     lin._adapter_site = 'site'
     arrays = {'factors': {'site': {
         'a': 0.05 * torch.randn((5, 4096, 8), generator=gen, device=DEV),
@@ -6582,6 +6710,295 @@ def rung_step_s(step, batches, steps: int = TRAIN_STEPS) -> tuple:
             torch.cuda.max_memory_allocated())
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the GPT family (GPT-3 XL and GPT-2 small served, GPT-3 XL
+# trained, BERT-base encoded and fine-tuned)
+# ---------------------------------------------------------------------------
+
+# GPT and BERT normalize with LayerNorm (plain torch, as the JAX package
+# leaves it to XLA): their serving path runs the attention kernels only
+GPT_SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention')
+GPT2_SERVE_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64')
+GPT_TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                     'flash_attention_bwd_dkv', 'softmax_ce_fwd',
+                     'softmax_ce_bwd', 'multi_tensor_adam')
+BERT_TRAIN_KERNELS = ('flash_attention_fwd_d64', 'flash_attention_bwd_dq_d64',
+                      'flash_attention_bwd_dkv_d64', 'softmax_ce_fwd',
+                      'softmax_ce_bwd', 'multi_tensor_adam')
+GPT_TRAIN_STEPS = 3
+GENERATE_PROMPTS = (0, 4)        # of SERVE_LENS: 13 and 96 tokens
+
+
+def _gpt_bank_wave(model, served, kernels, tag) -> dict:
+    """One wave of the served requests through an engine whose bank uses
+    the default targets (`qkv_proj`, `out_proj`: GPT's projections),
+    three adapters, request i under [base, ad0, ad1, ad2][i % 4]: the
+    adapter kernel launches once per adapted projection of every prefill
+    and decode forward, base requests get the plain engine's tokens, and
+    some adapted request differs."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (AdapterBank, InferenceEngine,
+                                          make_adapter_factors)
+    from paddle_tpu_torch.serving.adapters.bank import DEFAULT_TARGETS
+    bank = AdapterBank(model, capacity=4, rank=8, dtype='float32')
+    if set(s.rsplit('.', 1)[-1] for s in bank.sites) != set(DEFAULT_TARGETS):
+        raise AssertionError(f'{tag}: default-target bank adapts '
+                             f'{sorted(bank.sites)}')
+    for i in range(3):
+        bank.load(f'ad{i}', make_adapter_factors(bank, seed=i + 1,
+                                                 scale=0.05))
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, adapter_bank=bank)
+    prompts, params = served['prompts'], served['params']
+    ids = [(None, 'ad0', 'ad1', 'ad2')[i % 4] for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    res = _run_serve(eng, prompts, params, ids, kernels + ('adapter_matmul',),
+                     f'{tag} banked', torch.cuda.memory_allocated())
+    want = len(bank.sites) * (res['prefills'] + res['decode_steps'])
+    if res['launches']['adapter_matmul'] != want:
+        got = res['launches']['adapter_matmul']
+        raise AssertionError(f'{tag} banked: {got} adapter launches, want '
+                             f'{want}')
+    base = [j for j, a in enumerate(ids) if a is None]
+    wrong = [j for j in base if res['tokens'][j] != served['tokens'][j]]
+    changed = [j for j, a in enumerate(ids)
+               if a is not None and res['tokens'][j] != served['tokens'][j]]
+    if wrong or not changed:
+        raise AssertionError(f'{tag} banked: base requests {wrong} differ '
+                             f'from the plain engine, or no adapter changed '
+                             f'a token')
+    log(f'[{tag}] banked wave over {sorted(bank.sites)[:2]}...: '
+        f'{len(bank.sites)} sites, {want} adapter launches; base requests '
+        f'== the plain engine, {len(changed)} adapted requests changed')
+    bank.detach()
+    return res
+
+
+def _generate_equals_engine(model, served, tag) -> None:
+    """`generate()` greedy on two of the prompts against the engine, in
+    f32 over the served bf16 weights (upcast, so both see the same
+    numbers): `generate` attends through the plain masked attention over
+    its static cache, the engine through the flash and paged kernels at
+    another batch size, and in f32 the two orders of summation agree to
+    about 1e-6, far inside a greedy margin. The bf16 engine's tokens are
+    logged beside them."""
+    import copy
+    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    m32 = copy.deepcopy(model).float()
+    prompts = [served['prompts'][i] for i in GENERATE_PROMPTS]
+    eng = InferenceEngine(m32, num_slots=2, max_length=1024, decode_block=8,
+                          kv_page_size=16)
+    want = [h.tokens for h in eng.generate_many(
+        prompts, SamplingParams(max_new_tokens=32, eos_token_id=-1))]
+    got = [model_out.tolist() for model_out in (
+        m32.generate(torch.tensor([p], device=DEV), max_new_tokens=32,
+                     eos_token_id=-1)[0][0] for p in prompts)]
+    if got != want:
+        raise AssertionError(f'{tag}: generate() {got} != engine {want}')
+    same16 = [served['tokens'][i] == w for i, w in zip(GENERATE_PROMPTS,
+                                                        want)]
+    log(f'[{tag}] generate() greedy == the engine (f32 over the served '
+        f'weights) on prompts {list(GENERATE_PROMPTS)}, 32 tokens each; the '
+        f'bf16 engine\'s tokens equal them: {same16}')
+    del eng, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_gpt(cfg, tag: str, kernels, seed: int) -> dict:
+    """A GPT (bf16, random weights from `seed`) behind the paged engine
+    with its decode and prefill graphs, phase 6's 12 requests (a seeded
+    sampling one among them): the graph engine's tokens equal its eager
+    twin's, a default-target bank's wave (`_gpt_bank_wave`), and
+    `generate()` against the engine (`_generate_equals_engine`). Logs
+    decode tok/s and the analytic catalog's share of the HBM roof over
+    the counted run's decode blocks."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.nlp import GPTForCausalLM
+    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
+                                          SamplingParams)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                           generator=ptt.generator(seed, DEV))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16)
+    log(f'[{tag}] GPT {cfg.num_hidden_layers} layers x {cfg.hidden_size} '
+        f'({cfg.num_attention_heads} heads x {cfg.head_dim}) bf16 built in '
+        f'{time.perf_counter() - t0:.1f} s, '
+        f'{nbytes(*model.parameters()) / 1e9:.2f} GB of weights; KV pool '
+        f'{eng.pool.num_pages} pages, {eng.pool.pool_bytes / 1e9:.2f} GB')
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(3, cfg.vocab_size, (n,)).tolist()
+               for n in SERVE_LENS]
+    params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
+              for _ in prompts]
+    params[5] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=7)
+    cat = obs.program_catalog()
+    before = _catalog_sums(cat)
+    res = _run_serve(eng, prompts, params, None, kernels, tag, base)
+    after = _catalog_sums(cat)
+    name = 'serving.paged_decode_block'
+    d = [a - b for a, b in zip(after[name], before.get(name, (0, 0, 0, 0)))]
+    # the analytic bytes of a round (the warm-up's rounds included in the
+    # catalog's mean) over the counted run's rounds and decode seconds
+    round_bytes = d[3] / d[0]
+    res['hbm_share'] = (round_bytes * res['decode_rounds'] / res['decode_s']
+                        / HBM_BYTES_PER_S)
+    log(f'[{tag}] decode {res["decode_tok_per_s"]:.1f} tok/s; {name}: '
+        f'{round_bytes / 1e9:.2f} GB a round (analytic, TransformerCost), '
+        f'{res["decode_rounds"]} rounds in {res["decode_s"]:.3f} s: HBM roof '
+        f'share {res["hbm_share"]:.3f}')
+    eager = serve_eager(eng, res, prompts, params, None, kernels, tag)
+    res.update(prompts=prompts, params=params)
+    release(eager)
+    banked = _gpt_bank_wave(model, res, kernels, tag)
+    _generate_equals_engine(model, res, tag)
+    res['launches'] = {k: res['launches'].get(k, 0)
+                       + eager['launches'].get(k, 0)
+                       + banked['launches'].get(k, 0)
+                       for k in set(res['launches']) | set(banked['launches'])}
+    res.pop('engine', None)
+    return res
+
+
+def train_gpt() -> dict:
+    """GPT-3 XL (24 layers, d_model 2048, 16 heads x 128, vocab 50304,
+    tied head), bf16, batch 4 x 2048, AdamW (bf16 moments, as the JAX
+    bench above 1e9 parameters) through `TrainStep`: GPT_TRAIN_STEPS
+    steps on fresh batches, every loss finite, every training kernel
+    launched. Hidden dropout 0.1 is on; attention dropout is 0, since a
+    dropped attention takes the plain path in both packages. ms a step
+    and MFU by the analytic `TransformerCost` (two MLP matrices)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.observability.cost import TransformerCost
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig.gpt3_1p3b(attention_probs_dropout_prob=0.0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = GPTForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                           generator=ptt.generator(21, DEV))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                multi_precision=False, moment_dtype='bfloat16')
+    step = TrainStep(model, next_token_loss, opt)
+    rng = np.random.RandomState(21)
+    batches = [rng.randint(0, cfg.vocab_size, (GPT3_BATCH, TRAIN_SEQ))
+               for _ in range(GPT_TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(b, b)))
+        times.append(time.perf_counter() - t0)
+    launches = {k: K.LAUNCHES[k] for k in GPT_TRAIN_KERNELS}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'gpt-train: losses {losses}')
+    missing = [k for k, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f'gpt-train: kernels never launched: {missing}')
+    rows = GPT3_BATCH * TRAIN_SEQ
+    fwd, _ = TransformerCost(cfg, 2).forward(
+        rows, GPT3_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
+    step_s = float(np.mean(times[1:]))
+    mfu = 3 * fwd / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f'[gpt-train] GPT-3 XL {n_params / 1e9:.3f} B params bf16, batch '
+        f'{GPT3_BATCH} x {TRAIN_SEQ}: losses '
+        + ' '.join(f'{x:.4f}' for x in losses)
+        + f'; {step_s * 1e3:.1f} ms/step (steps 2-{GPT_TRAIN_STEPS}), MFU '
+        f'{mfu:.4f} (TransformerCost: {3 * fwd / 1e12:.1f} TFLOP a step vs '
+        f'989 TFLOP/s), peak device memory '
+        f'{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB; '
+        f'launches {launches}')
+    return {'losses': losses, 'step_s': step_s, 'mfu': mfu,
+            'launches': dict(K.LAUNCHES)}
+
+
+def bert_phase() -> dict:
+    """BERT-base (bf16, random weights): an encode of B=8 S=512 unmasked
+    (the D = 64 flash forward once per layer), then GPT_TRAIN_STEPS
+    fine-tune steps of `BertForSequenceClassification` (2 labels, hidden
+    dropout 0.1 on, attention dropout 0) through `TrainStep` with AdamW:
+    finite losses, and the D = 64 forward, dq and dk/dv kernels launched
+    once per layer and step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import BertConfig, BertForSequenceClassification
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig.bert_base(attention_probs_dropout_prob=0.0)
+    model = BertForSequenceClassification(cfg, device=DEV, dtype='bfloat16',
+                                          generator=ptt.generator(22, DEV))
+    rng = np.random.RandomState(22)
+    ids = torch.from_numpy(rng.randint(1, cfg.vocab_size,
+                                       (BERT_BATCH, BERT_SEQ))).to(DEV)
+    K.reset_launch_counts()
+    model.eval()
+    with torch.no_grad():
+        seq, pooled = model.bert(ids)
+    encode = K.LAUNCHES['flash_attention_fwd_d64']
+    if tuple(seq.shape) != (BERT_BATCH, BERT_SEQ, cfg.hidden_size) \
+            or not bool(torch.isfinite(seq).all()) \
+            or encode != cfg.num_hidden_layers:
+        raise AssertionError(f'bert: encode {tuple(seq.shape)}, '
+                             f'{encode} D=64 flash launches')
+    model.train()
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, lambda logits, lab: PF.cross_entropy(logits, lab),
+                     opt)
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(GPT_TRAIN_STEPS):
+        lab = rng.randint(0, 2, (BERT_BATCH,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, lab)))
+        times.append(time.perf_counter() - t0)
+    launches = {k: K.LAUNCHES[k] for k in BERT_TRAIN_KERNELS}
+    want = cfg.num_hidden_layers * GPT_TRAIN_STEPS
+    if not all(np.isfinite(losses)) or any(
+            launches[k] != want for k in BERT_TRAIN_KERNELS[:3]):
+        raise AssertionError(f'bert: losses {losses}, launches {launches} '
+                             f'(want {want} of each D=64 flash kernel)')
+    log(f'[bert] BERT-base bf16 B={BERT_BATCH} S={BERT_SEQ}: encode '
+        f'{encode} D=64 flash launches; fine-tune losses '
+        + ' '.join(f'{x:.4f}' for x in losses)
+        + f', {float(np.mean(times[1:])) * 1e3:.1f} ms/step (steps 2-'
+        f'{GPT_TRAIN_STEPS}); launches {launches}')
+    return {'losses': losses, 'launches': dict(K.LAUNCHES)}
+
+
+def gpt_family() -> dict:
+    """Phase 9: gpt-serve, gpt2-serve, gpt-train, bert; {name: result}
+    with each run's launch counts."""
+    from paddle_tpu_torch.nlp import GPTConfig
+    t0 = time.perf_counter()
+    out = {'gpt-serve': serve_gpt(GPTConfig.gpt3_1p3b(), 'gpt-serve',
+                                  GPT_SERVE_KERNELS, 1919)}
+    release(out['gpt-serve'])
+    out['gpt2-serve'] = serve_gpt(GPTConfig.gpt2_small(), 'gpt2-serve',
+                                  GPT2_SERVE_KERNELS, 1920)
+    release(out['gpt2-serve'])
+    out['gpt-train'] = train_gpt()
+    release(out['gpt-train'])
+    out['bert'] = bert_phase()
+    release(out['bert'])
+    log(f'[gpt-family] phase 9 took {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -6705,6 +7122,23 @@ def main() -> int:
         log(f'[eager] launches {json.dumps(eager["launches"])}')
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--gpt']:
+        # python3 chip_smoke.py --gpt: phase 2's D = 64 cases, then phase 9
+        # alone, then the D = 64 cases timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        d64 = head64_cases()
+        check_kernels(d64)
+        gpt = gpt_family()
+        time_kernels(d64)
+        log('[gpt] launches ' + json.dumps({
+            k: sum(r['launches'].get(k, 0) for r in gpt.values())
+            for k in GPT_TRAIN_KERNELS + BERT_TRAIN_KERNELS
+            + GPT2_SERVE_KERNELS + ('paged_attention', 'adapter_matmul')}))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -6730,6 +7164,7 @@ def main() -> int:
     check_kernels(optimizer_cases())    # freed here, rebuilt for phase 8
     check_kernels(rung_cases())         # the same
     check_kernels(fp16_cases())         # the same
+    check_kernels(head64_cases())       # the same
     torch.cuda.empty_cache()
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -6778,13 +7213,16 @@ def main() -> int:
     # after 6j: the linear-algebra libraries' workspaces stay in the
     # process, and 6j's children leave the parent little room
     n_ops = op_sweep()
+    gpt = gpt_family()
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
     rungs = rung_cases()
     check_kernels(rungs)
     f16 = fp16_cases()
     check_kernels(f16)
-    rows = time_kernels(cases + opt_cases + rungs + f16)
+    d64 = head64_cases()
+    check_kernels(d64)
+    rows = time_kernels(cases + opt_cases + rungs + f16 + d64)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -6796,7 +7234,7 @@ def main() -> int:
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self'], procs,
-                                   eager, *rest.values()))
+                                   eager, *rest.values(), *gpt.values()))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

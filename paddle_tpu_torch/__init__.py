@@ -37,6 +37,14 @@ math, reduction, manipulation, search, linalg; every op through
 `no_grad`, `PyLayer`, `jacobian` and `hessian` (`autograd`), places and
 `set_device`, and mixed precision (`amp.auto_cast`, `amp.decorate`,
 `amp.GradScaler`) with fp16 flash-attention kernels.
+
+The GPT family (slice 19): the rest of `nn` that it builds on (Paddle's
+constructors, `ParamAttr` and `nn.initializer`, the functional library
+but its vision entries, the norm, loss, container and transformer
+layers), `nlp.GPTForCausalLM` served by the paged engine and trained,
+`generate()` / `speculative_generate()` on every causal LM (`nlp.
+GenerationMixin`), BERT and ERNIE, and head_dim-64 flash and paged
+kernels.
 """
 # the op surface first: the modules imported below keep their names
 from .ops import *  # noqa: F401,F403
@@ -55,6 +63,7 @@ from .framework import (CPUPlace, CUDAPlace, Place, TPUPlace, XLAPlace,
                         get_device, get_place, resolve_device, seed,
                         set_default_dtype, set_device, synchronize)
 from .hapi import Model
+from .nn.layer import ParamAttr
 from .hapi import callbacks_mod as callbacks
 from .ops import linalg
 from .serialization import load, save

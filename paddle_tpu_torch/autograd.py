@@ -64,12 +64,26 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
          no_grad_vars=None):
     """paddle.grad: the gradients of `outputs` with respect to `inputs`,
     leaving every `.grad` untouched. With `create_graph` the results are
-    differentiable again, to any order."""
+    differentiable again, to any order. The tensors of `no_grad_vars`
+    are held constant: no gradient flows back through them (the JAX
+    package cuts its tape there), which is a hook that zeroes each one's
+    gradient during this call."""
+    if no_grad_vars is not None and not isinstance(no_grad_vars,
+                                                   (list, tuple)):
+        no_grad_vars = [no_grad_vars]
+    cut = [v.register_hook(torch.zeros_like)
+           for v in _values(no_grad_vars or []) if v.requires_grad]
+    try:
+        return _grad(outputs, inputs, grad_outputs, retain_graph,
+                     create_graph, allow_unused)
+    finally:
+        for handle in cut:
+            handle.remove()
+
+
+def _grad(outputs, inputs, grad_outputs, retain_graph, create_graph,
+          allow_unused):
     from .tensor import Tensor
-    if no_grad_vars:
-        raise NotImplementedError(
-            'paddle.grad(no_grad_vars=) is not ported yet (ROADMAP.md, '
-            'Queue 1)')
     single = not isinstance(inputs, (list, tuple))
     ins = _values([inputs] if single else inputs)
     outs_l = outputs if isinstance(outputs, (list, tuple)) else [outputs]

@@ -1,4 +1,5 @@
-// Flash attention forward over [B, S, H, D] strided tensors, D = 128.
+// Flash attention forward over [B, S, H, D] strided tensors, D = 128 or
+// D = 64 (every kernel below is a template over D, built for both).
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py:_flash_fwd_kernel (called
 // through flash_attention_fwd). It computes the same function: blockwise
@@ -63,14 +64,23 @@
 // design, kept for f32 only): the f32 consistency checks hold it to a
 // relative 1e-5, which TF32 tensor-core products (10-bit mantissa)
 // cannot meet. 256 threads per (64 query rows, head, batch), fp32 tiles
-// in shared memory, S = QK^T as 4x4 and O += PV as 4x8 register
-// micro-tiles, ~82 KB of shared memory.
+// in shared memory, S = QK^T as 4x4 and O += PV as 4x(D/16) register
+// micro-tiles, ~82 KB of shared memory at D = 128.
+//
+// D = 64 (GPT-2, BERT, ERNIE): the same kernels instantiated at D = 64.
+// A 64-wide bf16 row is exactly one 128-byte swizzle atom, so each tile
+// is one half of the D = 128 layout; Q K^T takes D / 16 = 4 steps of
+// m64n64k16, and P V is wgmma m64n64k16 with P from registers (the O
+// accumulator is 64 x 64 fp32, 32 registers a thread). The tiles are
+// not tuned for D = 64: the shared memory halves (~49 KB) and one block
+// still owns 128 query rows. A D outside {64, 128} is refused; the
+// wrapper sends D < 64 to the plain version before any launch, as the
+// JAX package sends it to XLA.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -97,9 +107,12 @@ struct FlashArgs {
 constexpr int kWBQ = 128;                 // two warpgroups x 64 query rows
 constexpr int kWBK = 64;                  // keys per K/V tile
 constexpr int kWThreads = 256;
-constexpr uint32_t kWQBytes = kWBQ * kD * 2;
-constexpr uint32_t kWKVBytes = kWBK * kD * 2;
-constexpr size_t kWSmemBytes = kWQBytes + 4 * kWKVBytes + 1024;
+template <int D>
+constexpr uint32_t kWQBytes = kWBQ * D * 2;
+template <int D>
+constexpr uint32_t kWKVBytes = kWBK * D * 2;
+template <int D>
+constexpr size_t kWSmemBytes = kWQBytes<D> + 4 * kWKVBytes<D> + 1024;
 
 // batch b's key count: sk_dev[b], or the host sk
 __device__ __forceinline__ int keys_of(const FlashArgs& a, int b) {
@@ -116,13 +129,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_fwd_wgmma_kernel(FlashArgs a) {
   using namespace hopper;
+  constexpr int kD = D;
+  constexpr uint32_t kKV = kWKVBytes<D>;
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t q_s = aligned_smem_base(smem);
-  const uint32_t kv_s = q_s + kWQBytes;   // stage s: K, then V
+  const uint32_t kv_s = q_s + kWQBytes<D>;   // stage s: K, then V
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
   const int h = blockIdx.y;
@@ -146,27 +161,27 @@ __global__ void __launch_bounds__(kWThreads, 1)
   if (a.causal) n_kt = min(n_kt, (q0 + kWBQ - 1 + offset) / kWBK + 1);
   const int wg_last_key = a.causal ? qw + 63 + offset : sk - 1;
 
-  load_tile_async<kWBQ, kWThreads>(q_s, qb, a.q_ss, q0, a.sq);
-  load_tile_async<kWBK, kWThreads>(kv_s, kb, a.k_ss, 0, sk);
-  load_tile_async<kWBK, kWThreads>(kv_s + kWKVBytes, vb, a.v_ss, 0, sk);
+  load_tile_async<kWBQ, kWThreads, D>(q_s, qb, a.q_ss, q0, a.sq);
+  load_tile_async<kWBK, kWThreads, D>(kv_s, kb, a.k_ss, 0, sk);
+  load_tile_async<kWBK, kWThreads, D>(kv_s + kKV, vb, a.v_ss, 0, sk);
   cp_async_commit();
 
-  float o[64];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = PTT_NEG_INF, m1 = PTT_NEG_INF;   // running max (log2 units)
   float l0 = 0.f, l1 = 0.f;                   // this thread's partial sums
   const float scale_log2 = a.scale * kLog2e;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kWBK;
-    const uint32_t k_s = kv_s + (kt & 1) * 2 * kWKVBytes;
-    const uint32_t v_s = k_s + kWKVBytes;
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kKV;
+    const uint32_t v_s = k_s + kKV;
     if (kt + 1 < n_kt) {   // the next tile flies while this one computes
-      const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kWKVBytes;
-      load_tile_async<kWBK, kWThreads>(nk, kb, a.k_ss, k0 + kWBK, sk);
-      load_tile_async<kWBK, kWThreads>(nk + kWKVBytes, vb, a.v_ss,
-                                       k0 + kWBK, sk);
+      const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kKV;
+      load_tile_async<kWBK, kWThreads, D>(nk, kb, a.k_ss, k0 + kWBK, sk);
+      load_tile_async<kWBK, kWThreads, D>(nk + kKV, vb, a.v_ss, k0 + kWBK,
+                                          sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -220,7 +235,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       l0 = l0 * alpha0 + ps0;
       l1 = l1 * alpha1 + ps1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         o[4 * j + 0] *= alpha0;
         o[4 * j + 1] *= alpha0;
         o[4 * j + 2] *= alpha1;
@@ -232,7 +247,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWBK / 16; ++k)
-        wgmma_m64n128k16_rs<T>(o, p[k], desc_mnmajor(v_s, kWBK, k));
+        wgmma_rs<T, D>(o, p[k], desc_mnmajor(v_s, kWBK, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -244,7 +259,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   l1 = quad_sum(l1);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + col;
     if (row0 < a.sq)
       *reinterpret_cast<uint32_t*>(ob + row0 * a.o_ss + c) =
@@ -260,17 +275,18 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_wgmma(const FlashArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_fwd_wgmma_kernel<T>, kWSmemBytes);
+        ptt_allow_smem(flash_fwd_wgmma_kernel<T, D>, kWSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kWBQ - 1) / kWBQ, a.h, batch);
-  flash_fwd_wgmma_kernel<T><<<grid, kWThreads, kWSmemBytes, stream>>>(a);
+  flash_fwd_wgmma_kernel<T, D>
+      <<<grid, kWThreads, kWSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,13 +297,14 @@ int launch_wgmma(const FlashArgs& a, int batch, cudaStream_t stream) {
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-constexpr int kQStride = kD + 1;   // +1 float: conflict-free column reads
-constexpr int kKVStride = kD + 1;
 constexpr int kPStride = kBK + 1;
-constexpr size_t kSmemFloats =
-    kBQ * kQStride + kBK * kKVStride + kBQ * kPStride + 3 * kBQ;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+// row strides D + 1 floats: conflict-free column reads
+template <int D>
+constexpr size_t kSmemBytes =
+    (kBQ * (D + 1) + kBK * (D + 1) + kBQ * kPStride + 3 * kBQ) *
+    sizeof(float);
 
+template <int kD>
 __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
                                           const float* src,
                                           int64_t row_stride, int row0,
@@ -302,8 +319,11 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(FlashArgs a) {
+  constexpr int kD = D, kQStride = D + 1, kKVStride = D + 1;
+  constexpr int kCols = D / 16;      // output columns a thread owns
   extern __shared__ float smem_f[];
   float* qs = smem_f;                       // [BQ][D+1]
   float* kv = qs + kBQ * kQStride;          // [BK][D+1], K then V
@@ -330,18 +350,18 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
 
-  load_tile(qs, kQStride, qb + static_cast<int64_t>(q0) * a.q_ss, a.q_ss, 0,
-            a.sq - q0);
+  load_tile<D>(qs, kQStride, qb + static_cast<int64_t>(q0) * a.q_ss, a.q_ss,
+               0, a.sq - q0);
   if (tid < kBQ) {
     m_s[tid] = PTT_NEG_INF;
     l_s[tid] = 0.f;
   }
 
-  float acc[4][8];
+  float acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
   int n_kt = (sk + kBK - 1) / kBK;
   if (a.causal) {
@@ -354,8 +374,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // previous PV done with kv and ps
-    load_tile(kv, kKVStride, kb + static_cast<int64_t>(k0) * a.k_ss, a.k_ss,
-              0, sk - k0);
+    load_tile<D>(kv, kKVStride, kb + static_cast<int64_t>(k0) * a.k_ss,
+                 a.k_ss, 0, sk - k0);
     __syncthreads();
 
     // S = Q K^T on a 4x4 micro-tile: rows ty + 16i, cols tx + 16j
@@ -393,8 +413,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // S complete; K no longer needed
 
     // V into the shared K/V tile while each warp runs the row softmax
-    load_tile(kv, kKVStride, vb + static_cast<int64_t>(k0) * a.v_ss, a.v_ss,
-              0, sk - k0);
+    load_tile<D>(kv, kKVStride, vb + static_cast<int64_t>(k0) * a.v_ss,
+                 a.v_ss, 0, sk - k0);
     for (int r = warp * (kBQ / 8); r < (warp + 1) * (kBQ / 8); ++r) {
       const float s0 = ps[r * kPStride + lane];
       const float s1 = ps[r * kPStride + lane + 32];
@@ -414,24 +434,26 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // O = alpha * O + P V on a 4x8 micro-tile: rows ty + 16i, cols tx + 16j
+    // O = alpha * O + P V on a 4 x (D/16) micro-tile: rows ty + 16i,
+    // cols tx + 16j
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float alpha = a_s[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll 4
     for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[8];
+      float pv[4], vv[kCols];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPStride + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vv[j] = kv[c * kKVStride + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j) vv[j] = kv[c * kKVStride + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < kCols; ++j)
+          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
   __syncthreads();
@@ -444,7 +466,7 @@ __global__ void __launch_bounds__(kThreads)
     const float inv_l = 1.f / l_s[r];
     float* orow = ob + static_cast<int64_t>(qpos) * a.o_ss;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) orow[tx + 16 * j] = acc[i][j] * inv_l;
+    for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] * inv_l;
   }
   if (a.lse != nullptr && tid < kBQ && q0 + tid < a.sq) {
     a.lse[(static_cast<int64_t>(b) * a.h + h) * a.sq + q0 + tid] =
@@ -452,16 +474,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int D>
 int launch_fma(const FlashArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
-    const cudaError_t e = ptt_allow_smem(flash_fwd_kernel, kSmemBytes);
+    const cudaError_t e = ptt_allow_smem(flash_fwd_kernel<D>, kSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, batch);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, stream>>>(a);
+  flash_fwd_kernel<D><<<grid, kThreads, kSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const FlashArgs& a, int batch, int dtype, cudaStream_t s) {
+  if (dtype == PTT_F32) return launch_fma<D>(a, batch, s);
+  if (dtype == PTT_BF16) return launch_wgmma<__nv_bfloat16, D>(a, batch, s);
+  if (dtype == PTT_F16) return launch_wgmma<__half, D>(a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -472,14 +503,14 @@ PTT_EXPORT int flash_attention_fwd(
     int sk, int h, int hkv, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, float scale, int causal, int dtype, void* stream) {
+    long long o_sh, float scale, int causal, int dtype, int d,
+    void* stream) {
   FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
               static_cast<const int*>(sk_dev),
               sq,   sk,   h,    hkv,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
               v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32) return launch_fma(a, batch, s);
-  if (dtype == PTT_BF16) return launch_wgmma<__nv_bfloat16>(a, batch, s);
-  if (dtype == PTT_F16) return launch_wgmma<__half>(a, batch, s);
+  if (d == 128) return launch<128>(a, batch, dtype, s);
+  if (d == 64) return launch<64>(a, batch, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

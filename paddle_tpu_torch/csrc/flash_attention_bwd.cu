@@ -1,5 +1,6 @@
-// Flash attention backward over contiguous [B, S, H, D] tensors, D = 128:
-// two kernels, the FlashAttention-2 scheme.
+// Flash attention backward over contiguous [B, S, H, D] tensors, D = 128
+// or D = 64: two kernels, the FlashAttention-2 scheme, each a template
+// over D built for both widths.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py:_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (called through flash_attention_bwd, under the
@@ -84,20 +85,30 @@
 //   S^T = K Q^T and dP^T = V dO^T together, P^T and dS^T into shared
 //   memory, then dV += P^T dO and dK += dS^T Q in registers. About
 //   166 KB of shared memory, one block per SM.
+//
+// D = 64 (GPT-2, BERT, ERNIE): the same four kernels at D = 64. A bf16
+// row of 64 is one 128-byte swizzle atom (hopper.cuh), the S and dP
+// products take D / 16 = 4 wgmma steps, and the second products (dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q) are wgmma m64n64k16 with the
+// register A operand, so each gradient accumulator is 64 x 64 fp32 (32
+// registers a thread: dQ in registers halves). The fp32 kernels' micro-
+// tiles are 4 x (D / 16). Shared memory about halves; the tiles are not
+// tuned for D = 64. A D outside {64, 128} is refused.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kB = 64;            // rows of a q or k tile
 constexpr int kThreads = 256;
-constexpr int kRS = kD + 1;       // row stride of a [64][D] fp32 tile
 constexpr int kPS = kB + 1;       // row stride of a [64][64] fp32 tile
+// a [64][D] fp32 tile has row stride D + 1
+template <int D>
 constexpr size_t kDqSmemBytes =
-    (3 * kB * kRS + kB * kPS + 2 * kB) * sizeof(float);
+    (3 * kB * (D + 1) + kB * kPS + 2 * kB) * sizeof(float);
+template <int D>
 constexpr size_t kDkvSmemBytes =
-    (4 * kB * kRS + 2 * kB * kPS + 2 * kB) * sizeof(float);
+    (4 * kB * (D + 1) + 2 * kB * kPS + 2 * kB) * sizeof(float);
 
 struct BwdArgs {
   const void* q;        // [B, Sq, H, D]
@@ -117,7 +128,7 @@ struct BwdArgs {
 
 // dst[r][c] = src[r * row_stride + c] for the 64 x D tile, zero past the
 // last valid row
-template <typename T>
+template <int kD, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t row_stride,
                                           int nrows_valid) {
@@ -126,13 +137,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     float val = 0.f;
     if (r < nrows_valid)
       val = ptt_to_float(src[static_cast<int64_t>(r) * row_stride + c]);
-    dst[r * kRS + c] = val;
+    dst[r * (kD + 1) + c] = val;
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(BwdArgs a) {
+  constexpr int kD = D, kRS = D + 1;
+  constexpr int kCols = D / 16;      // gradient columns a thread owns
   extern __shared__ float smem[];
   float* qs = smem;                   // [64][D+1] Q
   float* dos = qs + kB * kRS;         // [64][D+1] dO
@@ -165,8 +178,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
 
-  load_tile(qs, qb, q_row, q_valid);
-  load_tile(dos, dob, q_row, q_valid);
+  load_tile<D>(qs, qb, q_row, q_valid);
+  load_tile<D>(dos, dob, q_row, q_valid);
   __syncthreads();
 
   // delta = rowsum(dO * O) in fp32, one warp per 8 rows
@@ -185,11 +198,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float acc[4][8];
+  float acc[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
 
   int n_kt = (a.sk + kB - 1) / kB;
   if (a.causal) {
@@ -201,7 +214,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = kt * kB;
     const int k_valid = a.sk - k0;
     __syncthreads();  // the previous dQ update is done with kv and ds
-    load_tile(kv, vb + static_cast<int64_t>(k0) * kv_row, kv_row, k_valid);
+    load_tile<D>(kv, vb + static_cast<int64_t>(k0) * kv_row, kv_row,
+                 k_valid);
     __syncthreads();
 
     // dP = dO V^T on a 4x4 micro-tile: rows ty + 16i, cols tx + 16j
@@ -223,7 +237,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(x[i], y[j], dp[i][j]);
     }
     __syncthreads();  // done with V
-    load_tile(kv, kb + static_cast<int64_t>(k0) * kv_row, kv_row, k_valid);
+    load_tile<D>(kv, kb + static_cast<int64_t>(k0) * kv_row, kv_row,
+                 k_valid);
     __syncthreads();
 
     // S = Q K^T on the same micro-tile, then dS = P (dP - delta) scale
@@ -260,18 +275,19 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // dQ += dS K on a 4x8 micro-tile: rows ty + 16i, cols tx + 16j
+    // dQ += dS K on a 4 x (D/16) micro-tile: rows ty + 16i, cols tx + 16j
 #pragma unroll 4
     for (int c = 0; c < kB; ++c) {
-      float x[4], y[8];
+      float x[4], y[kCols];
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[i] = ds[(ty + 16 * i) * kPS + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) y[j] = kv[c * kRS + tx + 16 * j];
+      for (int j = 0; j < kCols; ++j) y[j] = kv[c * kRS + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+        for (int j = 0; j < kCols; ++j)
+          acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
     }
   }
 
@@ -282,13 +298,16 @@ __global__ void __launch_bounds__(kThreads)
     if (r >= q_valid) continue;
     T* row = dqb + static_cast<int64_t>(r) * q_row;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) row[tx + 16 * j] = ptt_from_float<T>(acc[i][j]);
+    for (int j = 0; j < kCols; ++j)
+      row[tx + 16 * j] = ptt_from_float<T>(acc[i][j]);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(BwdArgs a) {
+  constexpr int kD = D, kRS = D + 1;
+  constexpr int kCols = D / 16;      // gradient columns a thread owns
   extern __shared__ float smem[];
   float* ks = smem;                   // [64][D+1] K (whole block)
   float* vs = ks + kB * kRS;          // [64][D+1] V (whole block)
@@ -314,14 +333,14 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
-  load_tile(ks, static_cast<const T*>(a.k) + kv_base, kv_row, k_valid);
-  load_tile(vs, static_cast<const T*>(a.v) + kv_base, kv_row, k_valid);
+  load_tile<D>(ks, static_cast<const T*>(a.k) + kv_base, kv_row, k_valid);
+  load_tile<D>(vs, static_cast<const T*>(a.v) + kv_base, kv_row, k_valid);
 
-  float dk[4][8], dv[4][8];
+  float dk[4][kCols], dv[4][kCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       dk[i][j] = 0.f;
       dv[i][j] = 0.f;
     }
@@ -344,8 +363,9 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t row_base =
           (static_cast<int64_t>(b) * a.h + h) * a.sq + q0;
       __syncthreads();  // the previous q tile's updates are done
-      load_tile(qs, static_cast<const T*>(a.q) + q_base, q_row, q_valid);
-      load_tile(dos, static_cast<const T*>(a.dout) + q_base, q_row, q_valid);
+      load_tile<D>(qs, static_cast<const T*>(a.q) + q_base, q_row, q_valid);
+      load_tile<D>(dos, static_cast<const T*>(a.dout) + q_base, q_row,
+                   q_valid);
       if (tid < kB) {
         lse_s[tid] = tid < q_valid ? a.lse[row_base + tid] : 0.f;
         delta_s[tid] = tid < q_valid ? a.delta[row_base + tid] : 0.f;
@@ -403,21 +423,21 @@ __global__ void __launch_bounds__(kThreads)
       // dV += P^T dO and dK += dS^T Q: rows ty + 16i, cols tx + 16j
 #pragma unroll 2
       for (int c = 0; c < kB; ++c) {
-        float px[4], sx[4], oy[8], qy[8];
+        float px[4], sx[4], oy[kCols], qy[kCols];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           px[i] = pt[(ty + 16 * i) * kPS + c];
           sx[i] = dst[(ty + 16 * i) * kPS + c];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < kCols; ++j) {
           oy[j] = dos[c * kRS + tx + 16 * j];
           qy[j] = qs[c * kRS + tx + 16 * j];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < kCols; ++j) {
             dv[i][j] = fmaf(px[i], oy[j], dv[i][j]);
             dk[i][j] = fmaf(sx[i], qy[j], dk[i][j]);
           }
@@ -434,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
     T* krow = dkb + static_cast<int64_t>(r) * kv_row;
     T* vrow = dvb + static_cast<int64_t>(r) * kv_row;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       krow[tx + 16 * j] = ptt_from_float<T>(dk[i][j]);
       vrow[tx + 16 * j] = ptt_from_float<T>(dv[i][j]);
     }
@@ -447,12 +467,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // dq in bf16 on the tensor cores (see the note at the top)
 constexpr int kWDqRows = 128;         // queries per block: two warpgroups x 64
 constexpr int kWDqKeys = 64;          // keys per K / V tile
-constexpr uint32_t kWDqTileBytes = kWDqRows * kD * 2;
-constexpr uint32_t kWDqKVBytes = kWDqKeys * kD * 2;
+template <int D>
+constexpr uint32_t kWDqTileBytes = kWDqRows * D * 2;
+template <int D>
+constexpr uint32_t kWDqKVBytes = kWDqKeys * D * 2;
 // Q, dO, then the two K/V stages (each tile 1024-byte aligned, as the
 // swizzle needs), then lse[128] and delta[128]
+template <int D>
 constexpr size_t kWDqSmemBytes =
-    2 * kWDqTileBytes + 4 * kWDqKVBytes + 2 * kWDqRows * 4 + 1024;
+    2 * kWDqTileBytes<D> + 4 * kWDqKVBytes<D> + 2 * kWDqRows * 4 + 1024;
 
 // sum of the eight products of two rows of 8 bf16 values, in fp32
 __device__ __forceinline__ float dot8(uint4 x, uint4 y, __nv_bfloat16) {
@@ -484,16 +507,18 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y, __half) {
   return sum;
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_bwd_dq_wgmma_kernel(BwdArgs a) {
   using namespace hopper;
+  constexpr int kD = D;
+  constexpr uint32_t kKV = kWDqKVBytes<D>;
   extern __shared__ __align__(16) uint8_t smem_w[];
   const uint32_t q_s = aligned_smem_base(smem_w);
-  const uint32_t do_s = q_s + kWDqTileBytes;
-  const uint32_t kv_s = do_s + kWDqTileBytes;   // stage s: K, then V
+  const uint32_t do_s = q_s + kWDqTileBytes<D>;
+  const uint32_t kv_s = do_s + kWDqTileBytes<D>;   // stage s: K, then V
   float* lse_s = reinterpret_cast<float*>(
-      smem_w + (kv_s + 4 * kWDqKVBytes - smem_u32(smem_w)));
+      smem_w + (kv_s + 4 * kKV - smem_u32(smem_w)));
   float* delta_s = lse_s + kWDqRows;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
@@ -525,25 +550,26 @@ __global__ void __launch_bounds__(kWThreads, 1)
   if (a.causal) n_kt = min(n_kt, (q0 + kWDqRows - 1 + offset) / kWDqKeys + 1);
   const int wg_last_key = a.causal ? qw + 63 + offset : a.sk - 1;
 
-  load_tile_async<kWDqRows, kWThreads>(q_s, qg, q_row, q0, a.sq);
-  load_tile_async<kWDqRows, kWThreads>(do_s, dog, q_row, q0, a.sq);
-  load_tile_async<kWDqKeys, kWThreads>(kv_s, kg, kv_row, 0, a.sk);
-  load_tile_async<kWDqKeys, kWThreads>(kv_s + kWDqKVBytes, vg, kv_row, 0,
-                                       a.sk);
+  load_tile_async<kWDqRows, kWThreads, D>(q_s, qg, q_row, q0, a.sq);
+  load_tile_async<kWDqRows, kWThreads, D>(do_s, dog, q_row, q0, a.sq);
+  load_tile_async<kWDqKeys, kWThreads, D>(kv_s, kg, kv_row, 0, a.sk);
+  load_tile_async<kWDqKeys, kWThreads, D>(kv_s + kKV, vg, kv_row, 0, a.sk);
   cp_async_commit();
 
   // delta = rowsum(dO * O) in fp32 while the tiles fly: two threads per
-  // row, 64 columns each, by 16-byte loads
+  // row, D / 2 columns each, by 16-byte loads
   {
     const int r = tid >> 1, half = tid & 1;
     const bool valid = q0 + r < a.sq;
     float part = 0.f;
     if (valid) {
-      const int64_t at = static_cast<int64_t>(q0 + r) * q_row + half * 64;
+      const int64_t at =
+          static_cast<int64_t>(q0 + r) * q_row + half * (D / 2);
       const uint4* o16 = reinterpret_cast<const uint4*>(og + at);
       const uint4* do16 = reinterpret_cast<const uint4*>(dog + at);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) part += dot8(do16[i], o16[i], T());
+      for (int i = 0; i < D / 16; ++i)
+        part += dot8(do16[i], o16[i], T());
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     if (half == 0) {
@@ -558,21 +584,21 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const float delta0 = delta_s[row0 - q0];
   const float delta1 = delta_s[row0 + 8 - q0];
 
-  float dq[64];
+  float dq[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
   const float scale_log2 = a.scale * kLog2e;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kWDqKeys;
-    const uint32_t k_s = kv_s + (kt & 1) * 2 * kWDqKVBytes;
-    const uint32_t v_s = k_s + kWDqKVBytes;
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * kKV;
+    const uint32_t v_s = k_s + kKV;
     if (kt + 1 < n_kt) {   // the next tile flies while this one computes
-      const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kWDqKVBytes;
-      load_tile_async<kWDqKeys, kWThreads>(nk, kg, kv_row, k0 + kWDqKeys,
-                                           a.sk);
-      load_tile_async<kWDqKeys, kWThreads>(nk + kWDqKVBytes, vg, kv_row,
-                                           k0 + kWDqKeys, a.sk);
+      const uint32_t nk = kv_s + ((kt + 1) & 1) * 2 * kKV;
+      load_tile_async<kWDqKeys, kWThreads, D>(nk, kg, kv_row,
+                                              k0 + kWDqKeys, a.sk);
+      load_tile_async<kWDqKeys, kWThreads, D>(nk + kKV, vg, kv_row,
+                                              k0 + kWDqKeys, a.sk);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -623,7 +649,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWDqKeys / 16; ++k)
-        wgmma_m64n128k16_rs<T>(dq, da[k], desc_mnmajor(k_s, kWDqKeys, k));
+        wgmma_rs<T, D>(dq, da[k], desc_mnmajor(k_s, kWDqKeys, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -633,7 +659,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
 
   auto* dqb = static_cast<T*>(a.dq) + q_base;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + col;
     if (row0 < a.sq)
       *reinterpret_cast<uint32_t*>(dqb + row0 * q_row + c) =
@@ -647,24 +673,31 @@ __global__ void __launch_bounds__(kWThreads, 1)
 // dk/dv in bf16 on the tensor cores (see the note at the top)
 constexpr int kWBKV = 128;            // keys per block: two warpgroups x 64
 constexpr int kWBQ = 64;              // queries per Q / dO tile
-constexpr uint32_t kWKVBytes = kWBKV * kD * 2;
-constexpr uint32_t kWQBytes = kWBQ * kD * 2;
+template <int D>
+constexpr uint32_t kWKVBytes = kWBKV * D * 2;
+template <int D>
+constexpr uint32_t kWQBytes = kWBQ * D * 2;
 // a stage holds the Q and dO tiles (each 1024-byte aligned, as the
 // swizzle needs); the stages' lse[64] and delta[64] rows follow them
-constexpr uint32_t kWStageBytes = 2 * kWQBytes;
+template <int D>
+constexpr uint32_t kWStageBytes = 2 * kWQBytes<D>;
 constexpr uint32_t kWStatBytes = 2 * kWBQ * 4;
+template <int D>
 constexpr size_t kWDkvSmemBytes =
-    2 * kWKVBytes + 2 * (kWStageBytes + kWStatBytes) + 1024;
+    2 * kWKVBytes<D> + 2 * (kWStageBytes<D> + kWStatBytes) + 1024;
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_bwd_dkv_wgmma_kernel(BwdArgs a) {
   using namespace hopper;
+  constexpr int kD = D;
+  constexpr uint32_t kKVB = kWKVBytes<D>, kQB = kWQBytes<D>;
+  constexpr uint32_t kStB = kWStageBytes<D>;
   extern __shared__ __align__(16) uint8_t smem_w[];
   const uint32_t k_s = aligned_smem_base(smem_w);
-  const uint32_t v_s = k_s + kWKVBytes;
-  const uint32_t st_s = v_s + kWKVBytes;
-  const uint32_t stat_s = st_s + 2 * kWStageBytes;
+  const uint32_t v_s = k_s + kKVB;
+  const uint32_t st_s = v_s + kKVB;
+  const uint32_t stat_s = st_s + 2 * kStB;
   const uint8_t* k_at = smem_w + (k_s - smem_u32(smem_w));  // generic k_s
 
   const int kt = blockIdx.x;        // low key tiles carry the most causal work
@@ -686,9 +719,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   const int key0 = kw + warp * 16 + (lane >> 2);   // this thread: key0, +8
   const int col = 2 * (lane & 3);
 
-  load_tile_async<kWBKV, kWThreads>(
+  load_tile_async<kWBKV, kWThreads, D>(
       k_s, static_cast<const T*>(a.k) + kv_base, kv_row, k0, a.sk);
-  load_tile_async<kWBKV, kWThreads>(
+  load_tile_async<kWBKV, kWThreads, D>(
       v_s, static_cast<const T*>(a.v) + kv_base, kv_row, k0, a.sk);
 
   // the (query head of the group, q tile) pairs this block visits: for
@@ -703,10 +736,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
     const int q0 = (first_qt + it % per_head) * kWBQ;
     const int64_t q_base = static_cast<int64_t>(b) * a.sq * q_row +
                            static_cast<int64_t>(h) * kD;
-    const uint32_t st = st_s + stage * kWStageBytes;
-    load_tile_async<kWBQ, kWThreads>(st, qg + q_base, q_row, q0, a.sq);
-    load_tile_async<kWBQ, kWThreads>(st + kWQBytes, dog + q_base, q_row, q0,
-                                     a.sq);
+    const uint32_t st = st_s + stage * kStB;
+    load_tile_async<kWBQ, kWThreads, D>(st, qg + q_base, q_row, q0, a.sq);
+    load_tile_async<kWBQ, kWThreads, D>(st + kQB, dog + q_base, q_row,
+                                        q0, a.sq);
     if (tid < 2 * kWBQ) {   // lse (threads 0..63) and delta (64..127)
       const int r = tid & (kWBQ - 1);
       const bool valid = q0 + r < a.sq;
@@ -719,9 +752,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
   load_stage(0, 0);
   cp_async_commit();
 
-  float dk[64], dv[64];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < D / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -736,8 +769,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
     __syncthreads();
 
     const int q0 = (first_qt + it % per_head) * kWBQ;
-    const uint32_t q_t = st_s + stage * kWStageBytes;
-    const uint32_t do_t = q_t + kWQBytes;
+    const uint32_t q_t = st_s + stage * kStB;
+    const uint32_t do_t = q_t + kQB;
     const float* lse_t = reinterpret_cast<const float*>(
         k_at + (stat_s - k_s) + stage * kWStatBytes);
     const float* delta_t = lse_t + kWBQ;
@@ -789,10 +822,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kWBQ / 16; ++k)
-        wgmma_m64n128k16_rs<T>(dv, pa[k], desc_mnmajor(do_t, kWBQ, k));
+        wgmma_rs<T, D>(dv, pa[k], desc_mnmajor(do_t, kWBQ, k));
 #pragma unroll
       for (int k = 0; k < kWBQ / 16; ++k)
-        wgmma_m64n128k16_rs<T>(dk, da[k], desc_mnmajor(q_t, kWBQ, k));
+        wgmma_rs<T, D>(dk, da[k], desc_mnmajor(q_t, kWBQ, k));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -804,7 +837,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
   auto* dkb = static_cast<T*>(a.dk) + kv_base;
   auto* dvb = static_cast<T*>(a.dv) + kv_base;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + col;
     if (key0 < a.sk) {
       const int64_t at = key0 * kv_row + c;
@@ -823,60 +856,81 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
+template <int D>
 int launch_dq(const BwdArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dq_kernel<float>, kDqSmemBytes);
+        ptt_allow_smem(flash_bwd_dq_kernel<float, D>, kDqSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kB - 1) / kB, a.h, batch);
-  flash_bwd_dq_kernel<float><<<grid, kThreads, kDqSmemBytes, stream>>>(a);
+  flash_bwd_dq_kernel<float, D>
+      <<<grid, kThreads, kDqSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dq_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dq_wgmma_kernel<T>, kWDqSmemBytes);
+        ptt_allow_smem(flash_bwd_dq_wgmma_kernel<T, D>, kWDqSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sq + kWDqRows - 1) / kWDqRows, a.h, batch);
-  flash_bwd_dq_wgmma_kernel<T>
-      <<<grid, kWThreads, kWDqSmemBytes, stream>>>(a);
+  flash_bwd_dq_wgmma_kernel<T, D>
+      <<<grid, kWThreads, kWDqSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
 int launch_dkv(const BwdArgs& a, int batch, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dkv_kernel<float>, kDkvSmemBytes);
+        ptt_allow_smem(flash_bwd_dkv_kernel<float, D>, kDkvSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sk + kB - 1) / kB, a.hkv, batch);
-  flash_bwd_dkv_kernel<float><<<grid, kThreads, kDkvSmemBytes, stream>>>(a);
+  flash_bwd_dkv_kernel<float, D>
+      <<<grid, kThreads, kDkvSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_dkv_wgmma(const BwdArgs& a, int batch, cudaStream_t stream) {
   static bool smem_set = false;   // one flag per instantiation
   if (!smem_set) {
     const cudaError_t e =
-        ptt_allow_smem(flash_bwd_dkv_wgmma_kernel<T>, kWDkvSmemBytes);
+        ptt_allow_smem(flash_bwd_dkv_wgmma_kernel<T, D>, kWDkvSmemBytes<D>);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const dim3 grid((a.sk + kWBKV - 1) / kWBKV, a.hkv, batch);
-  flash_bwd_dkv_wgmma_kernel<T>
-      <<<grid, kWThreads, kWDkvSmemBytes, stream>>>(a);
+  flash_bwd_dkv_wgmma_kernel<T, D>
+      <<<grid, kWThreads, kWDkvSmemBytes<D>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_d(const BwdArgs& a, int batch, int dtype, cudaStream_t s) {
+  if (dtype == PTT_F32) return launch_dq<D>(a, batch, s);
+  if (dtype == PTT_BF16) return launch_dq_wgmma<__nv_bfloat16, D>(a, batch, s);
+  if (dtype == PTT_F16) return launch_dq_wgmma<__half, D>(a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_dkv_d(const BwdArgs& a, int batch, int dtype, cudaStream_t s) {
+  if (dtype == PTT_F32) return launch_dkv<D>(a, batch, s);
+  if (dtype == PTT_BF16)
+    return launch_dkv_wgmma<__nv_bfloat16, D>(a, batch, s);
+  if (dtype == PTT_F16) return launch_dkv_wgmma<__half, D>(a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* o,
@@ -897,13 +951,12 @@ PTT_EXPORT int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* delta, void* dq, int batch,
                                       int sq, int sk, int h, int hkv,
                                       float scale, int causal, int dtype,
-                                      void* stream) {
+                                      int d, void* stream) {
   const BwdArgs a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr,
                               nullptr, sq, sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32) return launch_dq(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dq_wgmma<__nv_bfloat16>(a, batch, s);
-  if (dtype == PTT_F16) return launch_dq_wgmma<__half>(a, batch, s);
+  if (d == 128) return launch_dq_d<128>(a, batch, dtype, s);
+  if (d == 64) return launch_dq_d<64>(a, batch, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -914,13 +967,13 @@ PTT_EXPORT int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int batch, int sq,
                                        int sk, int h, int hkv, float scale,
-                                       int causal, int dtype, void* stream) {
+                                       int causal, int dtype, int d,
+                                       void* stream) {
   const BwdArgs a = make_args(q, k, v, nullptr, dout, lse,
                               const_cast<void*>(delta), nullptr, dk, dv, sq,
                               sk, h, hkv, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32) return launch_dkv(a, batch, s);
-  if (dtype == PTT_BF16) return launch_dkv_wgmma<__nv_bfloat16>(a, batch, s);
-  if (dtype == PTT_F16) return launch_dkv_wgmma<__half>(a, batch, s);
+  if (d == 128) return launch_dkv_d<128>(a, batch, dtype, s);
+  if (d == 64) return launch_dkv_d<64>(a, batch, dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

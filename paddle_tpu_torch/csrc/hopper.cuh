@@ -4,18 +4,21 @@
 // attention kernels issue, as raw PTX, for bf16 or fp16 operands (the
 // element type T, __nv_bfloat16 or __half; both accumulate in fp32).
 //
-// Tile layout. A tile holds R rows (R a multiple of 8) of D = 128 16-bit
-// values, stored as two halves of 64 columns ([2][R][64]), each row of a
-// half 128 bytes, with the 16-byte chunk c of row r stored at chunk
-// c ^ (r % 8): the 128-byte swizzle (Swizzle<3,4,3>) that wgmma's
-// layout type 1 reads, given a tile base aligned to 1024 bytes. One
-// tile serves as either operand form:
+// Tile layout. A tile holds R rows (R a multiple of 8) of D = 128 or
+// D = 64 16-bit values, stored as D / 64 halves of 64 columns
+// ([D / 64][R][64]), each row of a half 128 bytes, with the 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8): the 128-byte swizzle
+// (Swizzle<3,4,3>) that wgmma's layout type 1 reads, given a tile base
+// aligned to 1024 bytes. A D = 64 row is exactly one swizzle atom, so
+// its tile is the first half of a D = 128 one and every offset below
+// holds for both. One tile serves as either operand form:
 // - K-major (the reduction runs along the row, over D): 8-row groups at
 //   1024 bytes (SBO); the k-th 16-column step starts 32 * (k % 4) bytes
 //   into half k / 4;
 // - MN-major (the reduction runs over rows; wgmma's transposed mode):
-//   the two 64-column halves at R * 128 bytes (LBO), 8-row groups at
-//   1024 bytes (SBO); the k-th 16-row step starts 2048 * k bytes in.
+//   the 64-column halves at R * 128 bytes (LBO, unread when D = 64),
+//   8-row groups at 1024 bytes (SBO); the k-th 16-row step starts
+//   2048 * k bytes in.
 #pragma once
 
 #include <cstdint>
@@ -64,19 +67,21 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy rows [row0, row0 + R) of a [rows_valid, 128] bf16 or fp16 matrix
-// with row stride `stride` (elements; base and stride 16-byte aligned)
-// into the swizzled R-row tile at `dst`, zero-filling rows past
-// rows_valid. All `threads` threads of the block take part.
-template <int R, int kThreads, typename T>
+// Copy rows [row0, row0 + R) of a [rows_valid, D] bf16 or fp16 matrix
+// (D = 128 or 64) with row stride `stride` (elements; base and stride
+// 16-byte aligned) into the swizzled R-row tile at `dst`, zero-filling
+// rows past rows_valid. All `threads` threads of the block take part.
+template <int R, int kThreads, int D = 128, typename T>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* src,
                                                 int64_t stride, int row0,
                                                 int rows_valid) {
   static_assert(sizeof(T) == 2, "tiles hold 16-bit values");
+  static_assert(D == 128 || D == 64, "tiles hold 64 or 128 columns");
+  constexpr int kChunks = D / 8;   // 16-byte chunks of a row
 #pragma unroll
-  for (int i = 0; i < R * 16 / kThreads; ++i) {
+  for (int i = 0; i < R * kChunks / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 4, chunk = idx & 15;
+    const int r = idx / kChunks, chunk = idx % kChunks;
     const bool valid = row0 + r < rows_valid;
     const T* p =
         src + (valid ? static_cast<int64_t>(row0 + r) * stride : 0) +
@@ -186,6 +191,16 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[NACC],
       "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                 \
       : PTT_ACC32                                                          \
       : "l"(da), "l"(db), "r"(accumulate))
+#define PTT_WGMMA_RS64(TY)                                                 \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31}, "                                              \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
+      : PTT_ACC32                                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 #define PTT_WGMMA_RS(TY)                                                   \
   asm volatile(                                                            \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
@@ -218,8 +233,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
   else PTT_WGMMA_RS("bf16");
 }
 
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (T pairs), B
+// MN-major in shared memory (the D = 64 kernels' P V, dS K, P^T dO and
+// dS^T Q)
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) PTT_WGMMA_RS64("f16");
+  else PTT_WGMMA_RS64("bf16");
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for the head width N = 128 or 64
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 128 || N == 64, "head widths 64 and 128");
+  if constexpr (N == 128) wgmma_m64n128k16_rs<T>(d, a, db);
+  else wgmma_m64n64k16_rs<T>(d, a, db);
+}
+
 #undef PTT_WGMMA_SS
 #undef PTT_WGMMA_RS
+#undef PTT_WGMMA_RS64
 #undef PTT_ACC64
 #undef PTT_ACC32
 

@@ -77,6 +77,15 @@
 // No kernel syncs with the host or allocates memory: the wrapper takes
 // the workspace from PyTorch's caching allocator, so a call can be
 // captured by a CUDA graph.
+//
+// Head widths: every kernel is a template over D, built for D = 128 and,
+// over pages in q's dtype (f32 or bf16), for D = 64 (GPT-2, BERT,
+// ERNIE). A key row is spread over D / 8 threads of 8 columns each (16
+// at D = 128, 8 at D = 64), so a block of 128 threads holds 128 / (D /
+// 8) key rows at a time, the score reduce-scatter runs over D / 8 lanes
+// and the combine has one thread per column. The int8 split and window
+// kernels stay at D = 128: an int8 call at D = 64 is refused (ROADMAP,
+// Queue 2).
 #include <cmath>
 
 #include "common.cuh"
@@ -84,11 +93,9 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSplitKeys = 64;             // K (and V) rows of a split, at most
-constexpr int kRowSlots = kThreads / 16;   // 16 threads x 8 columns per row
 
 struct PagedArgs {
   const void* q;
@@ -112,36 +119,40 @@ __host__ __device__ __forceinline__ int n_parts(const PagedArgs& a) {
 }
 
 // byte offset of 16-byte chunk c of row t in a [kSplitKeys][D] tile of T
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ int chunk_at(int t, int c) {
-  return t * kD * static_cast<int>(sizeof(T)) + ((c ^ (t & 7)) << 4);
+  return t * D * static_cast<int>(sizeof(T)) + ((c ^ (t & 7)) << 4);
 }
 
-// The 8 columns a thread of column group dg (0..15) owns: 8 dg .. 8 dg + 7,
-// except in f32 tiles (4 values per chunk), where they are chunks dg and
-// dg + 16, so that 8 neighbouring threads read 8 distinct bank groups.
-template <typename T>
+// The 8 columns a thread of column group dg (0 .. D/8 - 1) owns: 8 dg ..
+// 8 dg + 7, except in f32 tiles (4 values per chunk), where they are
+// chunks dg and dg + D/8, so that 8 neighbouring threads read 8 distinct
+// bank groups.
+template <int D, typename T>
 __device__ __forceinline__ int group_col(int dg, int e) {
-  if (sizeof(T) == 4) return (e < 4 ? 4 * dg : 64 + 4 * dg) + (e & 3);
+  if (sizeof(T) == 4) return (e < 4 ? 4 * dg : D / 2 + 4 * dg) + (e & 3);
   return 8 * dg + e;
 }
 
 // the 8 values of row t, column group dg, of a tile, as float
+template <int D>
 __device__ __forceinline__ void row8(const float* tile, int t, int dg,
                                      float (&x)[8]) {
   const auto* base = reinterpret_cast<const uint8_t*>(tile);
   const float4 lo = *reinterpret_cast<const float4*>(
-      base + chunk_at<float>(t, dg));
+      base + chunk_at<D, float>(t, dg));
   const float4 hi = *reinterpret_cast<const float4*>(
-      base + chunk_at<float>(t, dg + 16));
+      base + chunk_at<D, float>(t, dg + D / 8));
   x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
   x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
 
+template <int D>
 __device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
                                      int dg, float (&x)[8]) {
   const uint4 v = *reinterpret_cast<const uint4*>(
-      reinterpret_cast<const uint8_t*>(tile) + chunk_at<__nv_bfloat16>(t, dg));
+      reinterpret_cast<const uint8_t*>(tile) +
+      chunk_at<D, __nv_bfloat16>(t, dg));
   const auto* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -151,23 +162,24 @@ __device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
   }
 }
 
+template <int D>
 __device__ __forceinline__ void row8(const int8_t* tile, int t, int dg,
                                      float (&x)[8]) {
   const uint2 v = *reinterpret_cast<const uint2*>(
-      reinterpret_cast<const uint8_t*>(tile) + chunk_at<int8_t>(t, dg >> 1) +
+      reinterpret_cast<const uint8_t*>(tile) + chunk_at<D, int8_t>(t, dg >> 1) +
       (dg & 1) * 8);
   const auto* bytes = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
   for (int e = 0; e < 8; ++e) x[e] = static_cast<float>(bytes[e]);
 }
 
-template <typename TKV, int kG, int kRows>
+template <int D, typename TKV, int kG, int kRows>
 constexpr size_t split_smem_bytes() {
   // K and V tiles, the warps' partial P V [kWarps][kG][D] of a pass,
   // scores then probabilities [kRows][kSplitKeys], and the rows' k and v
   // scales
-  return 2 * kSplitKeys * kD * sizeof(TKV) +
-         (kWarps * kG * kD + kRows * kSplitKeys + 2 * kSplitKeys) *
+  return 2 * kSplitKeys * D * sizeof(TKV) +
+         (kWarps * kG * D + kRows * kSplitKeys + 2 * kSplitKeys) *
              sizeof(float);
 }
 
@@ -176,10 +188,13 @@ constexpr size_t split_smem_bytes() {
 // ceil(T x G / passes) in 2 to 4 passes; kRows: the rows T x G, at most
 // (kG in one pass, else 32); kWindow: this block is the window's split
 // (TKV = TQ, the window's rows).
-template <typename TQ, typename TKV, bool kQuant, int kG, int kRows,
+template <int D, typename TQ, typename TKV, bool kQuant, int kG, int kRows,
           bool kWindow>
 __device__ __forceinline__ void split_body(const PagedArgs& a) {
   extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kD = D;
+  constexpr int kLanes = D / 8;              // threads of a key row
+  constexpr int kRowSlots = kThreads / kLanes;
   constexpr int kRowBytes = kD * sizeof(TKV);
   constexpr int kChunks = kRowBytes / 16;
   const TKV* k_t = reinterpret_cast<const TKV*>(smem);
@@ -252,7 +267,7 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
                                  : static_cast<int64_t>(pages[t / a.ps]);
     const int64_t at = (page * a.ps + t % a.ps) * row_stride + hk * kD +
                        c * (16 / static_cast<int>(sizeof(TKV)));
-    const uint32_t off = chunk_at<TKV>(t, c);
+    const uint32_t off = chunk_at<D, TKV>(t, c);
     const bool load = !in_window(t);         // skipped rows are zero-filled
     hopper::cp_async_16(k_sm + off, k_src + at, load);
     hopper::cp_async_16(v_sm + off, v_src + at, load);
@@ -266,15 +281,18 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
 
   // this thread's 8 columns of query rows r0 .. r0 + kG - 1 (row r: query
   // t = r / G, head hk * G + r % G), times scale
-  const int dg = tid & 15, rs = tid >> 4;
+  const int dg = tid % kLanes, rs = tid / kLanes;
   // the pass's rows padded to a power of two for the reduce-scatter
   // below, and the row of the pass whose score this lane ends with
   constexpr int kP = kG == 1 ? 1 : kG == 2 ? 2 : kG <= 4 ? 4 : 8;
+  constexpr int kSteps = kLanes == 16 ? 4 : 3;   // log2(kLanes)
+  static_assert(kP <= kLanes, "a key row's lanes hold the pass's rows");
   int lane_g = 0;
 #pragma unroll
-  for (int st = 0; st < 4; ++st)
-    if ((kP >> st) >= 2 && (dg & (8 >> st))) lane_g += (kP >> st) / 2;
-  const bool writer = (dg & (16 / kP - 1)) == 0 && lane_g < kG;
+  for (int st = 0; st < kSteps; ++st)
+    if ((kP >> st) >= 2 && (dg & ((kLanes / 2) >> st)))
+      lane_g += (kP >> st) / 2;
+  const bool writer = (dg & (kLanes / kP - 1)) == 0 && lane_g < kG;
   float qf[kG][8];
   auto load_q = [&](int r0) {
 #pragma unroll
@@ -286,7 +304,7 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         qf[g][e] = r < rows
-                       ? ptt_to_float(qr[group_col<TKV>(dg, e)]) * a.scale
+                       ? ptt_to_float(qr[group_col<D, TKV>(dg, e)]) * a.scale
                        : 0.f;
     }
   };
@@ -310,7 +328,7 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
       const bool valid = t < t_live;
       float kf[8];
       if (valid) {
-        row8(k_t, t, dg, kf);
+        row8<D>(k_t, t, dg, kf);
         if (kQuant) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) kf[e] *= row_scale[t];
@@ -330,14 +348,15 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
         }
         v[g] = x;
       }
-      // reduce-scatter over the key row's 16 lanes: at each step of the
-      // butterfly a lane keeps half of its rows and adds its partner's
-      // half of them, so the sums are those of a plain 16-lane
-      // reduction, bit for bit, in kP - 1 + log2(16 / kP) shuffles, not
-      // 4 kP; lane dg ends with the whole score of query row r
+      // reduce-scatter over the key row's kLanes lanes: at each step of
+      // the butterfly a lane keeps half of its rows and adds its
+      // partner's half of them, so the sums are those of a plain
+      // kLanes-lane reduction, bit for bit, in kP - 1 + log2(kLanes /
+      // kP) shuffles, not kP log2(kLanes); lane dg ends with the whole
+      // score of query row r
 #pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        const int o = 8 >> st, m = kP >> st;     // m: rows still held
+      for (int st = 0; st < kSteps; ++st) {
+        const int o = (kLanes / 2) >> st, m = kP >> st;   // m: rows held
         if (m >= 2) {
           const bool hi = (dg & o) != 0;
 #pragma unroll
@@ -385,7 +404,7 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
       for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
     for (int t = rs; t < t_live; t += kRowSlots) {
       float vf[8];
-      row8(v_t, t, dg, vf);
+      row8<D>(v_t, t, dg, vf);
       if (kQuant) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) vf[e] *= row_scale[kSplitKeys + t];
@@ -399,22 +418,26 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
         }
       }
     }
+    // the warp's row slots (lanes kLanes apart) summed by shuffles
 #pragma unroll
-    for (int g = 0; g < kG; ++g)
+    for (int o = kLanes; o < 32; o <<= 1)
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
-    if (lane < 16) {
+      for (int g = 0; g < kG; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    if (lane < kLanes) {
 #pragma unroll
       for (int g = 0; g < kG; ++g)
         if (r0 + g < rows) {
 #pragma unroll
           for (int e = 0; e < 8; ++e)
-            red[(warp * kG + g) * kD + group_col<TKV>(dg, e)] = acc[g][e];
+            red[(warp * kG + g) * kD + group_col<D, TKV>(dg, e)] = acc[g][e];
         }
     }
     __syncthreads();
-    for (int g = 0; g < kG && r0 + g < rows; ++g) {  // thread tid: column tid
+    // thread tid: column tid
+    for (int g = 0; g < kG && r0 + g < rows && tid < kD; ++g) {
       float o = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) o += red[(w * kG + g) * kD + tid];
@@ -425,29 +448,31 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
 }
 
 // pages in q's dtype
-template <typename TQ, typename TKV, int kG, int kRows>
+template <int D, typename TQ, typename TKV, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_split_kernel(PagedArgs a) {
-  split_body<TQ, TKV, false, kG, kRows, false>(a);
+  split_body<D, TQ, TKV, false, kG, kRows, false>(a);
 }
 
 // int8 pages (the window's pages skipped)
-template <typename TQ, int kG, int kRows>
+template <int D, typename TQ, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_int8_split_kernel(PagedArgs a) {
-  split_body<TQ, int8_t, true, kG, kRows, false>(a);
+  split_body<D, TQ, int8_t, true, kG, kRows, false>(a);
 }
 
 // the decode round's float window, one split per (slot, kv head)
-template <typename TQ, int kG, int kRows>
+template <int D, typename TQ, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_window_kernel(PagedArgs a) {
-  split_body<TQ, TQ, false, kG, kRows, true>(a);
+  split_body<D, TQ, TQ, false, kG, kRows, true>(a);
 }
 
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
+// D threads, one per output column
+template <int D, typename TQ>
+__global__ void __launch_bounds__(D)
     paged_attn_combine_kernel(PagedArgs a) {
+  constexpr int kD = D, kThreads = D, kWarps = D / 32;
   extern __shared__ float w_s[];                // [splits]: exp(m_s - M)
   __shared__ float warp_part[kWarps];
   const int n = blockIdx.x;
@@ -503,17 +528,17 @@ __global__ void __launch_bounds__(kThreads)
 enum class Split { kFloat, kInt8, kWindow };
 
 // one split kernel over `blocks` splits of every (slot, kv head)
-template <Split kS, typename TQ, typename TKV, int kG, int kRows>
+template <int D, Split kS, typename TQ, typename TKV, int kG, int kRows>
 cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
                           cudaStream_t stream) {
-  constexpr size_t smem = split_smem_bytes<TKV, kG, kRows>();
+  constexpr size_t smem = split_smem_bytes<D, TKV, kG, kRows>();
   void (*kernel)(PagedArgs);
   if constexpr (kS == Split::kInt8)
-    kernel = paged_attn_int8_split_kernel<TQ, kG, kRows>;
+    kernel = paged_attn_int8_split_kernel<D, TQ, kG, kRows>;
   else if constexpr (kS == Split::kWindow)
-    kernel = paged_attn_window_kernel<TQ, kG, kRows>;
+    kernel = paged_attn_window_kernel<D, TQ, kG, kRows>;
   else
-    kernel = paged_attn_split_kernel<TQ, TKV, kG, kRows>;
+    kernel = paged_attn_split_kernel<D, TQ, TKV, kG, kRows>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = ptt_allow_smem(kernel, smem);
@@ -524,46 +549,46 @@ cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool kQuant, int kG, int kRows>
+template <int D, typename TQ, typename TKV, bool kQuant, int kG, int kRows>
 int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
-  cudaError_t e = launch_splits<kQuant ? Split::kInt8 : Split::kFloat, TQ,
-                                TKV, kG, kRows>(a, n, a.splits, stream);
+  cudaError_t e = launch_splits<D, kQuant ? Split::kInt8 : Split::kFloat,
+                                TQ, TKV, kG, kRows>(a, n, a.splits, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (kQuant) {           // the window's split, in q's dtype
     if (a.w > 0) {
-      e = launch_splits<Split::kWindow, TQ, TQ, kG, kRows>(a, n, 1, stream);
+      e = launch_splits<D, Split::kWindow, TQ, TQ, kG, kRows>(a, n, 1,
+                                                              stream);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
   }
-  paged_attn_combine_kernel<TQ>
-      <<<dim3(n, a.h, a.t), kThreads, n_parts(a) * sizeof(float),
-         stream>>>(a);
+  paged_attn_combine_kernel<D, TQ>
+      <<<dim3(n, a.h, a.t), D, n_parts(a) * sizeof(float), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // by the query rows R = T x G of a (slot, kv head): R <= 8 in one pass
 // of R rows; up to 32 in ceil(R / 8) passes of ceil(R / passes) rows
-template <typename TQ, typename TKV, bool kQuant>
+template <int D, typename TQ, typename TKV, bool kQuant>
 int launch(const PagedArgs& a, int n, cudaStream_t stream) {
   const int r = a.t * (a.h / a.hkv);
   switch (r) {
-    case 1: return launch_split<TQ, TKV, kQuant, 1, 1>(a, n, stream);
-    case 2: return launch_split<TQ, TKV, kQuant, 2, 2>(a, n, stream);
-    case 3: return launch_split<TQ, TKV, kQuant, 3, 3>(a, n, stream);
-    case 4: return launch_split<TQ, TKV, kQuant, 4, 4>(a, n, stream);
-    case 5: return launch_split<TQ, TKV, kQuant, 5, 5>(a, n, stream);
-    case 6: return launch_split<TQ, TKV, kQuant, 6, 6>(a, n, stream);
-    case 7: return launch_split<TQ, TKV, kQuant, 7, 7>(a, n, stream);
-    case 8: return launch_split<TQ, TKV, kQuant, 8, 8>(a, n, stream);
+    case 1: return launch_split<D, TQ, TKV, kQuant, 1, 1>(a, n, stream);
+    case 2: return launch_split<D, TQ, TKV, kQuant, 2, 2>(a, n, stream);
+    case 3: return launch_split<D, TQ, TKV, kQuant, 3, 3>(a, n, stream);
+    case 4: return launch_split<D, TQ, TKV, kQuant, 4, 4>(a, n, stream);
+    case 5: return launch_split<D, TQ, TKV, kQuant, 5, 5>(a, n, stream);
+    case 6: return launch_split<D, TQ, TKV, kQuant, 6, 6>(a, n, stream);
+    case 7: return launch_split<D, TQ, TKV, kQuant, 7, 7>(a, n, stream);
+    case 8: return launch_split<D, TQ, TKV, kQuant, 8, 8>(a, n, stream);
     default: break;
   }
   if (r > 32) return static_cast<int>(cudaErrorInvalidValue);
   const int passes = (r + 7) / 8;
   switch ((r + passes - 1) / passes) {   // 5 .. 8
-    case 5: return launch_split<TQ, TKV, kQuant, 5, 32>(a, n, stream);
-    case 6: return launch_split<TQ, TKV, kQuant, 6, 32>(a, n, stream);
-    case 7: return launch_split<TQ, TKV, kQuant, 7, 32>(a, n, stream);
-    default: return launch_split<TQ, TKV, kQuant, 8, 32>(a, n, stream);
+    case 5: return launch_split<D, TQ, TKV, kQuant, 5, 32>(a, n, stream);
+    case 6: return launch_split<D, TQ, TKV, kQuant, 6, 32>(a, n, stream);
+    case 7: return launch_split<D, TQ, TKV, kQuant, 7, 32>(a, n, stream);
+    default: return launch_split<D, TQ, TKV, kQuant, 8, 32>(a, n, stream);
   }
 }
 
@@ -572,7 +597,8 @@ int launch(const PagedArgs& a, int n, cudaStream_t stream) {
 // `t` query rows per slot (t x h / hkv <= 32); `pps` pages per split
 // (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot, kv
 // head); `w` window pages (0: no window; int8 pages only, w * ps <= 64);
-// `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h / hkv, 130].
+// `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h / hkv,
+// d + 2]; `d` is 128, or 64 over pages in q's dtype.
 PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, const void* k_scales,
@@ -581,10 +607,11 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    void* ws, void* out, int n, int t, int h,
                                    int hkv, int p, int ps, int pps, int splits,
                                    int w, float scale, int q_dtype,
-                                   int kv_dtype, void* stream) {
+                                   int kv_dtype, int d, void* stream) {
   if (t < 1 || pps < 1 || pps * ps > kSplitKeys ||
       splits != (p + pps - 1) / pps || w < 0 || w * ps > kSplitKeys ||
-      (w > 0 && kv_dtype != PTT_INT8))
+      (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64) ||
+      (d == 64 && kv_dtype == PTT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -609,12 +636,14 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == PTT_F32 && kv_dtype == PTT_F32)
-    return launch<float, float, false>(a, n, s);
+    return d == 64 ? launch<64, float, float, false>(a, n, s)
+                   : launch<128, float, float, false>(a, n, s);
   if (q_dtype == PTT_BF16 && kv_dtype == PTT_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(a, n, s);
+    return d == 64 ? launch<64, __nv_bfloat16, __nv_bfloat16, false>(a, n, s)
+                   : launch<128, __nv_bfloat16, __nv_bfloat16, false>(a, n, s);
   if (q_dtype == PTT_F32 && kv_dtype == PTT_INT8)
-    return launch<float, int8_t, true>(a, n, s);
+    return launch<128, float, int8_t, true>(a, n, s);
   if (q_dtype == PTT_BF16 && kv_dtype == PTT_INT8)
-    return launch<__nv_bfloat16, int8_t, true>(a, n, s);
+    return launch<128, __nv_bfloat16, int8_t, true>(a, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

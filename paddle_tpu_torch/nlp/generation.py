@@ -1,12 +1,14 @@
-"""Decode helpers shared by the model and the serving engine (counterpart
-of `paddle_tpu/nlp/generation.py:55-181`).
+"""Decode helpers shared by the models, the serving engine and
+`GenerationMixin` (counterpart of `paddle_tpu/nlp/generation.py`).
 
-The port keeps its KV in pages (`serving/kv_pool.py`): `update_kv_cache`
-writes new K/V rows into their pages through a page table and
-`gather_rows` reads a slot's rows back; `chunk_rows` builds a prompt
-chunk's attention rows; `cached_forward` is the decode forward the
-engine calls, `chunk_forward` the forward of one prompt chunk against
-the rows already in a slot's pages.
+The port's serving engine keeps its KV in pages (`serving/kv_pool.py`):
+`update_kv_cache` writes new K/V rows into their pages through a page
+table and `gather_rows` reads a slot's rows back; `chunk_rows` builds a
+prompt chunk's attention rows; `paged_attend` is the attention of a
+model's paged decode and chunk forward (the same for every causal LM);
+`cached_forward` is the decode forward the engine calls,
+`chunk_forward` the forward of one prompt chunk against the rows
+already in a slot's pages.
 
 With int8 pages (`kv_quant='int8'`) each helper also takes the pool's
 per-(page, kv head) f32 scales: reads dequantize, and a write
@@ -14,11 +16,28 @@ requantizes every page it touches, whole, at the page's fresh absmax
 scale (`write_pages`), as the JAX `scatter_pages` does. A layer's paged
 KV is a `LayerKV`: the pages, their scales for int8, and in a decode
 round the round's float window (`serving/decode_graph.py`).
+
+`GenerationMixin` gives every causal LM `generate()` (greedy, sampling
+with temperature / top_k / top_p, beam search) and
+`speculative_generate()` over a static dense KV cache, as the JAX
+package's (`paddle_tpu/nlp/generation.py:55-675`): the cache is
+`model.init_cache(batch, prompt + max_new_tokens)`, each step writes its
+rows at its slot (`update_static_cache`, in place) and attends through
+the slot-causal `decode_mask` (or `padded_decode_mask` for a padded
+batch). A masked step takes the plain attention, as the JAX package
+sends masked attention to XLA. The JAX decode is one compiled
+`while_loop`; here it is a Python loop that stops early once every
+sequence has emitted EOS (which reads one flag a step on the host).
+Sampling draws from a `torch.Generator` seeded by `seed` (else the
+framework's): Philox draws, so sampled tokens are the JAX package's
+only in distribution; greedy and beam tokens are the same.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..quantization import (kv_dequantize_page, kv_page_scales,
@@ -68,11 +87,72 @@ def offset_grid(offset: torch.Tensor, s: int) -> torch.Tensor:
 def decode_mask(q: torch.Tensor, k_cache: torch.Tensor,
                 offset) -> torch.Tensor:
     """[1, 1, Sq, L] boolean slot-causal mask over a length-L cache: the
-    query at slot offset + i sees key slots <= offset + i."""
+    query at slot offset + i sees key slots <= offset + i (`offset` an
+    int or a 0-d tensor)."""
     s, length = q.shape[1], k_cache.shape[1]
-    q_pos = int(offset) + torch.arange(s, device=q.device)
+    q_pos = as_offset(offset, q.device) + torch.arange(s, device=q.device)
     k_pos = torch.arange(length, device=q.device)
     return (k_pos[None, :] <= q_pos[:, None])[None, None]
+
+
+def padded_decode_mask(keep: torch.Tensor, cache_len: int, cache_offset,
+                       sq: int) -> torch.Tensor:
+    """[B, 1, Sq, L] boolean mask for decode over a static cache holding a
+    left- or right-padded prompt: slot-causal and the key slot not a pad
+    slot. `keep` [B, S_prompt] (True: a real token); generated slots are
+    always kept, and a query always sees its own slot, so a row of pads
+    never softmaxes over nothing."""
+    b, s_prompt = keep.shape
+    dev = keep.device
+    k_slot = torch.arange(cache_len, device=dev)
+    q_slot = as_offset(cache_offset, dev) + torch.arange(sq, device=dev)
+    causal = k_slot[None, :] <= q_slot[:, None]                 # [Sq, L]
+    keep_full = torch.cat([keep.bool(), torch.ones(
+        (b, cache_len - s_prompt), dtype=torch.bool, device=dev)], dim=1)
+    self_ok = k_slot[None, :] == q_slot[:, None]
+    return (causal[None] & (keep_full[:, None, :] | self_ok[None]))[:, None]
+
+
+def pad_mask(attention_mask) -> Optional[torch.Tensor]:
+    """A model's `attention_mask`: None, a [B, S] pad mask (turned into a
+    boolean [B, 1, 1, S], as the JAX models do), or a mask already
+    broadcastable over [B, H, Sq, Sk]."""
+    if attention_mask is None or attention_mask.dim() != 2:
+        return attention_mask
+    return (attention_mask > 0)[:, None, None, :]
+
+
+def update_static_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor, slot) -> tuple:
+    """Write K/V rows [B, S, HKV, D] into a static dense cache [B, L, HKV,
+    D] at slots slot + i (`slot` an int, a 0-d tensor, or [B] per-row
+    slots), in place; returns (k_cache, v_cache). The JAX package's
+    `update_kv_cache` (`paddle_tpu/nlp/generation.py:75-94`) over the
+    static cache; the paged pool's writer is `update_kv_cache` here."""
+    b, s = k.shape[:2]
+    pos = offset_grid(as_offset(slot, k.device), s).expand(b, s)
+    rows = torch.arange(b, device=k.device)[:, None]
+    k_cache[rows, pos] = k.to(k_cache.dtype)
+    v_cache[rows, pos] = v.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def attend_static(q, k, v, cache, offset, cache_offset=None,
+                  attn_mask=None) -> tuple:
+    """The attention of a static-cache forward (`GenerationMixin`): this
+    call's rows k/v written into the layer's `cache` at slot
+    `cache_offset` (default: the position `offset`), then q attends over
+    the whole cache under `attn_mask` or the slot-causal `decode_mask`,
+    through the plain attention (a masked call). Returns (out [B, S, H,
+    D], (k_cache, v_cache))."""
+    from ..nn import functional as F
+    slot = offset if cache_offset is None else as_offset(cache_offset,
+                                                         q.device)
+    k_cache, v_cache = update_static_cache(cache[0], cache[1], k, v, slot)
+    mask = attn_mask if attn_mask is not None else decode_mask(q, k_cache,
+                                                               slot)
+    out = F.scaled_dot_product_attention(q, k_cache, v_cache, attn_mask=mask)
+    return out, (k_cache, v_cache)
 
 
 def update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -209,6 +289,65 @@ def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     return k_all, v_all
 
 
+def paged_attend(q, k, v, kv_pages, table, offset, floor=None):
+    """The attention of a paged forward, for any causal LM: q [B, S, H, D]
+    and this call's new rows k/v [B, S, HKV, D] (after any position
+    embedding); `kv_pages` one layer's `LayerKV` (or (k, v) pages);
+    `offset` a [N] tensor (decode: slot n's S tokens at positions
+    offset[n] + i, written into its pages, token i attending through the
+    paged kernel to positions [0, offset[n] + i]) or a 0-d tensor
+    `start` (one slot's prompt chunk at [start, start + S): its rows
+    written into the pages, below `floor` to the null page, and attended
+    causally with the slot's earlier rows through the flash kernel over
+    the whole gathered row, its key count start + S read on the device).
+    Returns [B, S, H, D]. A chunk with head_dim < 64 takes the plain
+    attention, as the JAX package sends it to XLA."""
+    from ..ops import kernels
+    b, s = q.shape[:2]
+    kv = LayerKV(*kv_pages)
+    scales = None if kv.k_scales is None else (kv.k_scales, kv.v_scales)
+    if offset.dim() == 0:
+        if b != 1:
+            raise ValueError('a paged chunk forward takes one slot')
+        k_all, v_all = chunk_rows(kv.k, kv.v, k, v, table, offset, floor,
+                                  scales)
+        used = (offset + s).to(torch.int32).reshape(1)
+        if kernels.flash_head_dim_ok(q.shape[-1]):
+            return kernels.flash_attention_fwd(q, k_all, v_all, causal=True,
+                                               seqused_k=used)
+        return kernels.attention_reference(q, k_all, v_all, causal=True,
+                                           seqused_k=used)
+    if offset.dim() != 1:
+        raise ValueError('the paged decode forward takes a [N] position '
+                         'offset')
+    # token i of slot n sees the keys below offset[n] + 1 + i; one token
+    # per slot passes the kernel a 3-D query, several a 4-D (contiguous:
+    # a fused projection's q is a strided view)
+    lengths = (offset + 1).to(torch.int32)
+    qs = (q[:, 0] if s == 1 else q).contiguous()
+    if scales is None:
+        update_kv_cache(kv.k, kv.v, k, v, table, offset)
+        out = kernels.paged_attention(qs, kv.k, kv.v, table, lengths)
+    else:
+        if kv.k_win is None:
+            raise ValueError('a decode forward over int8 pages writes into '
+                             'the round\'s float window '
+                             '(serving/decode_graph.py)')
+        # the new rows go into the window, never into an int8 page: the
+        # round's end requantizes the touched pages
+        ps = kv.k.shape[1]
+        n = torch.arange(b, device=offset.device)[:, None]
+        at = offset_grid(offset, s)                              # [N, S]
+        w = torch.div(at, ps, rounding_mode='floor') - kv.win_first[:, None]
+        kv.k_win[n, w, at % ps] = k.to(kv.k_win.dtype)
+        kv.v_win[n, w, at % ps] = v.to(kv.v_win.dtype)
+        out = kernels.paged_attention(
+            qs, kv.k, kv.v, table, lengths, k_scales=kv.k_scales,
+            v_scales=kv.v_scales, k_win=kv.k_win, v_win=kv.v_win,
+            win_first=kv.win_first)
+    return out[:, None] if s == 1 else out
+
+
 def cached_forward(model):
     """The decode-forward contract: returns
     ``fwd(tok [N, S], pages, pos [N], table [N, P]) -> logits [N, S, V]``.
@@ -239,3 +378,399 @@ def chunk_forward(model):
         return model(ids, position_offset=start, kv_pages=pages,
                      table=table, floor=floor)
     return fwd
+
+
+# ---------------------------------------------------------------------------
+# GenerationMixin: generate() and speculative_generate() over a static cache
+# ---------------------------------------------------------------------------
+
+NEG_INF = torch.finfo(torch.float32).min
+
+# warn-once latch for the prompt-already-at-max_length case (tests reset it)
+_warned_max_length = [False]
+
+
+def _record_spec_stats(rounds: int, emitted: int, accepted: int,
+                       proposed: int, source: str = 'generate') -> None:
+    """Speculative-decode stats into the shared registry (`paddle_spec_*`,
+    labeled by source), as the JAX package's."""
+    from .. import observability as _obs
+    if not _obs.enabled():
+        return
+    reg = _obs.get_registry()
+    for name, doc, n in (
+            ('paddle_spec_rounds_total', 'speculative-decode rounds by '
+             'source', rounds),
+            ('paddle_spec_emitted_tokens_total', 'tokens emitted by '
+             'speculative decode by source', emitted),
+            ('paddle_spec_proposed_drafts_total', 'draft tokens proposed by '
+             'source', proposed),
+            ('paddle_spec_accepted_drafts_total', 'draft tokens accepted by '
+             'source', accepted)):
+        reg.counter(name, doc, ('source',)).labels(source=source).inc(n)
+
+
+def process_logits(logits: torch.Tensor, temperature: float, top_k: int,
+                   top_p: float) -> torch.Tensor:
+    """Filter [B, V] logits for sampling (fp32): temperature, then top_k,
+    then top_p (the smallest head whose mass reaches top_p; top-1 always
+    kept), filtered entries at the fp32 minimum."""
+    logits = logits.float()
+    if temperature != 1.0:
+        logits = logits / max(temperature, 1e-6)
+    v = logits.shape[-1]
+    if top_k and 0 < top_k < v:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, NEG_INF)
+    if top_p and top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        cutoff_idx = ((cum - probs) < top_p).sum(dim=-1) - 1
+        cutoff = srt.gather(-1, cutoff_idx[:, None])
+        logits = logits.masked_fill(logits < cutoff, NEG_INF)
+    return logits
+
+
+def _next_token(logits, generator, strategy, temperature, top_k, top_p):
+    """(the next token [B], its log-prob under the raw distribution)."""
+    if strategy == 'greedy_search':
+        tok = logits.argmax(dim=-1)
+    else:
+        probs = torch.softmax(process_logits(logits, temperature, top_k,
+                                             top_p), dim=-1)
+        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return tok, logp.gather(-1, tok[:, None])[:, 0]
+
+
+def _as_ids(x, device) -> torch.Tensor:
+    from ..tensor import to_torch
+    t = to_torch(x)
+    t = torch.as_tensor(np.asarray(t) if not isinstance(t, torch.Tensor)
+                        else t, device=device)
+    return t[None] if t.dim() == 1 else t
+
+
+class GenerationMixin:
+    """Mixed into the causal LMs (`GPTForCausalLM`, `LlamaForCausalLM`).
+    The host provides `init_cache(batch, length)` and a forward taking
+    (`position_offset`, `cache`, `cache_offset`, `attention_mask`,
+    `use_cache=True`) that returns (logits, caches); `device` and
+    `config` (its `eos_token_id`, `pad_token_id`, `vocab_size`,
+    `max_position_embeddings`)."""
+
+    def _step(self, tok, cache, pos, slot, mask):
+        return self(tok, position_offset=pos, cache=cache, cache_offset=slot,
+                    attention_mask=mask, use_cache=True)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 20,
+                 max_length: Optional[int] = None,
+                 decode_strategy: str = 'greedy_search',
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, num_beams: int = 1,
+                 length_penalty: float = 0.0,
+                 repetition_penalty: float = 1.0, min_new_tokens: int = 0,
+                 min_length: Optional[int] = None,
+                 eos_token_id: Optional[int] = None,
+                 pad_token_id: Optional[int] = None, use_cache: bool = True,
+                 seed: Optional[int] = None, attention_mask=None, **kwargs):
+        """Returns (generated ids [B, max_new_tokens] int64, per-sequence
+        score [B] fp32: the summed log-probs of the emitted tokens, or
+        for beam search the length-normalized beam score). Tokens after
+        EOS are `pad_token_id`. The JAX package's semantics
+        (`paddle_tpu/nlp/generation.py:416-510`), including the padded
+        prompt (`attention_mask` [B, S]: per-sequence position origins),
+        the repetition penalty, `min_new_tokens` and `max_length`."""
+        from ..tensor import Tensor
+        if decode_strategy not in ('greedy_search', 'sampling',
+                                   'beam_search'):
+            raise ValueError(f'unknown decode_strategy {decode_strategy!r}')
+        if decode_strategy == 'beam_search' and num_beams < 1:
+            raise ValueError('beam_search requires num_beams >= 1')
+        if kwargs:
+            raise TypeError(f'generate() got unexpected kwargs '
+                            f'{sorted(kwargs)}')
+        wrap = isinstance(input_ids, Tensor)
+        dev = self.device
+        ids = _as_ids(input_ids, dev).long()
+        b, s = ids.shape
+        padded = attention_mask is not None
+        if padded:
+            keep = _as_ids(attention_mask, dev).bool()
+            if tuple(keep.shape) != (b, s):
+                raise ValueError(f'attention_mask shape {tuple(keep.shape)} '
+                                 f'does not match input_ids shape {(b, s)}')
+        else:
+            keep = torch.ones((b, s), dtype=torch.bool, device=dev)
+        if max_length is not None:
+            max_new_tokens = int(max_length) - s
+            if max_new_tokens <= 0:
+                if not _warned_max_length[0]:
+                    _warned_max_length[0] = True
+                    warnings.warn(
+                        f'generate(): prompt length {s} already meets '
+                        f'max_length={int(max_length)}; returning 0 new '
+                        f'tokens. Use max_new_tokens= to request a budget '
+                        f'beyond the prompt.', UserWarning, stacklevel=2)
+                out = (torch.zeros((b, 0), dtype=torch.int64, device=dev),
+                       torch.zeros((b,), dtype=torch.float32, device=dev))
+                return tuple(Tensor(t) for t in out) if wrap else out
+        if min_length is not None:     # the upstream total-length minimum
+            min_new_tokens = max(int(min_length) - s, min_new_tokens)
+        if decode_strategy == 'beam_search' and (
+                repetition_penalty != 1.0 or min_new_tokens > 0):
+            raise NotImplementedError(
+                'repetition_penalty/min_new_tokens are supported for '
+                'greedy_search and sampling (not beam_search)')
+        cfg = getattr(self, 'config', None)
+        max_pos = getattr(cfg, 'max_position_embeddings', None)
+        if max_pos is not None and s + max_new_tokens > max_pos:
+            raise ValueError(
+                f'prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds '
+                f'max_position_embeddings ({max_pos})')
+        if eos_token_id is None:
+            eos_token_id = getattr(cfg, 'eos_token_id', -1)
+        if pad_token_id is None:
+            pad_token_id = getattr(cfg, 'pad_token_id', 0)
+        was_training = self.training
+        self.eval()
+        try:
+            if decode_strategy == 'beam_search':
+                out = self._beam_decode(ids, keep, padded, int(max_new_tokens),
+                                        int(num_beams), int(eos_token_id),
+                                        int(pad_token_id),
+                                        float(length_penalty))
+            else:
+                gen = None
+                if decode_strategy == 'sampling':
+                    if seed is not None:
+                        gen = torch.Generator(device=dev).manual_seed(
+                            int(seed))
+                    else:
+                        from ..framework import default_generator
+                        gen = default_generator(dev)
+                out = self._decode(ids, keep, padded, int(max_new_tokens),
+                                   decode_strategy, float(temperature),
+                                   int(top_k), float(top_p),
+                                   int(eos_token_id), int(pad_token_id),
+                                   float(repetition_penalty),
+                                   int(min_new_tokens), gen)
+        finally:
+            if was_training:
+                self.train()
+        return tuple(Tensor(t) for t in out) if wrap else out
+
+    def _prefill(self, ids, keep, padded, total):
+        b, s = ids.shape
+        cache = self.init_cache(b, total)
+        if padded:
+            offsets = keep.sum(dim=1) - s                      # [B]
+            mask = padded_decode_mask(keep, total, 0, s)
+        else:
+            offsets = torch.zeros((), dtype=torch.int64, device=ids.device)
+            mask = None
+        logits, cache = self._step(ids, cache, offsets, 0, mask)
+        return logits, cache, offsets
+
+    def _decode(self, ids, keep, padded, max_new_tokens, strategy,
+                temperature, top_k, top_p, eos_token_id, pad_token_id,
+                repetition_penalty, min_new_tokens, gen):
+        b, s = ids.shape
+        dev = ids.device
+        total = s + max_new_tokens
+        vocab = self.config.vocab_size
+
+        def processors(logits, seen, emit_idx):
+            # the CTRL repetition penalty over every token already in the
+            # sequence, and EOS suppressed until min_new_tokens
+            if repetition_penalty != 1.0:
+                pen = torch.where(logits > 0, logits / repetition_penalty,
+                                  logits * repetition_penalty)
+                logits = torch.where(seen, pen, logits)
+            if min_new_tokens > 0 and eos_token_id >= 0 \
+                    and emit_idx < min_new_tokens:
+                is_eos = torch.arange(logits.shape[-1],
+                                      device=dev) == eos_token_id
+                logits = logits.masked_fill(is_eos, NEG_INF)
+            return logits
+
+        track = repetition_penalty != 1.0
+        seen = None
+        if track:
+            contrib = (keep if padded else torch.ones_like(keep)).long()
+            seen = torch.zeros((b, vocab), dtype=torch.int64, device=dev)
+            seen.scatter_add_(1, ids, contrib)
+            seen = seen > 0
+        logits, cache, offsets = self._prefill(ids, keep, padded, total)
+        nxt, nxt_logp = _next_token(processors(logits[:, -1], seen, 0), gen,
+                                    strategy, temperature, top_k, top_p)
+        if track:
+            seen[torch.arange(b, device=dev), nxt] = True
+        out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int64,
+                         device=dev)
+        scores = torch.zeros((b,), dtype=torch.float32, device=dev)
+        finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        for i in range(max_new_tokens):
+            if bool(finished.all()):
+                break
+            tok = torch.where(finished, pad_token_id, nxt)
+            out[:, i] = tok
+            scores = scores + torch.where(finished, 0.0, nxt_logp)
+            finished = finished | (tok == eos_token_id)
+            if i + 1 == max_new_tokens:
+                break
+            mask = padded_decode_mask(keep, total, s + i, 1) \
+                if padded else None
+            logits, cache = self._step(tok[:, None], cache, offsets + s + i,
+                                       s + i, mask)
+            nxt, nxt_logp = _next_token(processors(logits[:, -1], seen,
+                                                   i + 1), gen, strategy,
+                                        temperature, top_k, top_p)
+            if track:
+                seen[torch.arange(b, device=dev), nxt] = True
+        return out, scores
+
+    def _beam_decode(self, ids, keep, padded, max_new_tokens, k,
+                     eos_token_id, pad_token_id, length_penalty):
+        """Beam search over the static cache: the K beams of the B
+        prompts decode as one [B * K] batch, reordered by a gather on
+        the cache's batch dim each step (the JAX `_beam_decode_jit`)."""
+        b, s = ids.shape
+        dev = ids.device
+        total = s + max_new_tokens
+        logits, cache, offsets = self._prefill(ids, keep, padded, total)
+        logp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)   # [B, V]
+        v = logp0.shape[-1]
+        scores, tok = torch.topk(logp0, k, dim=-1)                 # [B, K]
+        cache = [tuple(c.repeat_interleave(k, dim=0) for c in kv)
+                 for kv in cache]
+        offsets_bk = (offsets.expand(b) if offsets.dim() == 0
+                      else offsets).repeat_interleave(k)
+        keep_bk = keep.repeat_interleave(k, dim=0)
+        out = torch.full((b, k, max_new_tokens), pad_token_id,
+                         dtype=torch.int64, device=dev)
+        finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+        lengths = torch.zeros((b, k), dtype=torch.int64, device=dev)
+        pad_only = torch.full((v,), -1e9, device=dev)
+        pad_only[pad_token_id] = 0.0
+        for i in range(max_new_tokens):
+            if bool(finished.all()):
+                break
+            tok = torch.where(finished, pad_token_id, tok)
+            out[:, :, i] = tok
+            lengths = lengths + (~finished).long()
+            finished = finished | (tok == eos_token_id)
+            mask = padded_decode_mask(keep_bk, total, s + i, 1) \
+                if padded else None
+            logits, cache = self._step(tok.reshape(b * k, 1), cache,
+                                       offsets_bk + s + i, s + i, mask)
+            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            logp = logp.reshape(b, k, v)
+            # a finished beam has one candidate: its frozen score with pad
+            logp = torch.where(finished[:, :, None], pad_only, logp)
+            cand = scores[:, :, None] + logp
+            scores, flat = torch.topk(cand.reshape(b, k * v), k, dim=-1)
+            src = torch.div(flat, v, rounding_mode='floor')        # [B, K]
+            tok = flat % v
+            out = out.gather(1, src[:, :, None].expand(-1, -1,
+                                                       max_new_tokens))
+            finished = finished.gather(1, src)
+            lengths = lengths.gather(1, src)
+            flat_src = (torch.arange(b, device=dev)[:, None] * k
+                        + src).reshape(-1)
+            cache = [tuple(c.index_select(0, flat_src) for c in kv)
+                     for kv in cache]
+        norm = lengths.clamp(min=1).float() ** length_penalty
+        best = (scores / norm).argmax(dim=1)
+        best_out = out.gather(1, best[:, None, None].expand(
+            -1, 1, max_new_tokens))[:, 0]
+        best_score = (scores / norm).gather(1, best[:, None])[:, 0]
+        return best_out, best_score
+
+    @torch.no_grad()
+    def speculative_generate(self, draft_model, input_ids,
+                             max_new_tokens: int = 20,
+                             num_draft_tokens: int = 4,
+                             eos_token_id: Optional[int] = None,
+                             pad_token_id: Optional[int] = None):
+        """Greedy decode accelerated by a smaller draft model (batch 1):
+        the draft proposes k tokens, the target scores them in one cached
+        forward and keeps the longest agreeing prefix plus its own next
+        token, so the output equals `generate(decode_strategy=
+        'greedy_search')` for any draft. Returns (ids [1,
+        max_new_tokens], stats with `rounds`, `emitted`,
+        `target_forwards_saved` and `acceptance_rate`)."""
+        from ..tensor import Tensor
+        wrap = isinstance(input_ids, Tensor)
+        dev = self.device
+        ids = _as_ids(input_ids, dev).long()
+        if ids.shape[0] != 1:
+            raise ValueError('speculative_generate is a latency '
+                             'optimization for a single stream; batch '
+                             f'size must be 1, got {ids.shape[0]}')
+        cfg = getattr(self, 'config', None)
+        if eos_token_id is None:
+            eos_token_id = getattr(cfg, 'eos_token_id', -1)
+        if pad_token_id is None:
+            pad_token_id = getattr(cfg, 'pad_token_id', 0)
+        k = int(num_draft_tokens)
+        if k < 1:
+            raise ValueError('num_draft_tokens must be >= 1')
+        was_training, draft_was_training = self.training, draft_model.training
+        self.eval()
+        draft_model.eval()
+        try:
+            s = ids.shape[1]
+            total = s + max_new_tokens + k + 2
+            cache_t = self.init_cache(1, total)
+            cache_d = draft_model.init_cache(1, total)
+
+            def fwd(model, tok, cache, pos):
+                return model(tok, position_offset=pos, cache=cache,
+                             cache_offset=pos, use_cache=True)
+            logits, cache_t = fwd(self, ids, cache_t, 0)
+            _, cache_d = fwd(draft_model, ids, cache_d, 0)
+            v = int(logits[0, -1].argmax())              # the pending token
+            out = [v]
+            rounds = 0
+            e = 1
+            while e < max_new_tokens and v != eos_token_id:
+                p = s + e - 1                  # the slot of `v`
+                drafts, cur = [], v
+                for j in range(k):
+                    lg, cache_d = fwd(draft_model, torch.tensor(
+                        [[cur]], device=dev), cache_d, p + j)
+                    cur = int(lg[0, -1].argmax())
+                    drafts.append(cur)
+                block = torch.tensor([[v] + drafts], device=dev)
+                lg, cache_t = fwd(self, block, cache_t, p)
+                choice = lg[0].argmax(dim=-1).tolist()
+                a = 0
+                while a < k and drafts[a] == choice[a] \
+                        and drafts[a] != eos_token_id:
+                    a += 1
+                v = choice[a]
+                out.extend(drafts[:a] + [v])
+                e += a + 1
+                rounds += 1
+        finally:
+            if was_training:
+                self.train()
+            if draft_was_training:
+                draft_model.train()
+        out = out[:max_new_tokens]
+        out += [pad_token_id] * (max_new_tokens - len(out))
+        if eos_token_id >= 0 and eos_token_id in out:
+            first = out.index(eos_token_id)
+            out = out[:first + 1] + [pad_token_id] * (len(out) - first - 1)
+        rounds_i = max(rounds, 1)
+        emitted_i = min(e, max_new_tokens)
+        accepted = max(e - 1 - rounds_i, 0)
+        _record_spec_stats(rounds_i, emitted_i, accepted, rounds_i * k)
+        ids_out = torch.tensor([out], dtype=torch.int64, device=dev)
+        return (Tensor(ids_out) if wrap else ids_out), {
+            'rounds': rounds_i, 'emitted': emitted_i,
+            'target_forwards_saved': accepted,
+            'acceptance_rate': accepted / (rounds_i * k)}

@@ -24,6 +24,17 @@ Three forward modes:
   depends on `start`, so the chunk replays from a CUDA graph at any
   start (`serving/prefill_graph.py`).
 
+A fourth mode is `GenerationMixin`'s static dense cache: with `cache`
+(per-layer (K, V) [B, L, HKV, D] from `init_cache`) and `cache_offset`
+(the slot of the first token; `position_offset` is its logical position,
+which differs for a left-padded prompt) each layer writes its rows at
+their slots in place (`generation.update_static_cache`) and attends
+through the slot-causal `decode_mask` (or the caller's
+`attention_mask`), which takes the plain attention, as the JAX package
+sends masked attention to XLA; `use_cache=True` returns (logits,
+caches). `attention_mask` without a cache (a [B, S] pad mask or a
+[B, 1, Sq, Sk] boolean one) masks the causal forward the same way.
+
 A layer's `kv_pages` entry is a `generation.LayerKV` (or a plain (k, v)
 pair). Over int8 pages it carries their scales: the chunk's gather
 dequantizes and its touched pages are requantized whole; the decode
@@ -50,6 +61,9 @@ it, as the JAX program on a TPU reruns the Pallas call, which is no
 `'dots'` keeps. The kernels rerun in the recompute count their launches
 again.
 
+The projections are bias-free `Linear`s (`bias_attr=False`) and random
+weights are normal(0, 0.02) draws from `generator` (`INIT_STD`).
+
 `tie_word_embeddings=True` has no `lm_head`: the logits are
 `h @ embed_tokens.weight.T` (`_logits`), so the embedding's gradient sums
 the gather's and the head's, and every forward mode (training, the
@@ -65,15 +79,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import amp as _amp
-from .. import dtype as _dtype
-from ..framework import resolve_device
 from ..nn import functional as F
+from ..nn import initializer as I
 from ..nn.common_layers import Embedding, Linear
-from ..nn.layer import Layer
+from ..nn.layer import Layer, init_kwargs
 from ..nn.norm import RMSNorm
-from ..ops import kernels
-from .generation import (LayerKV, as_offset, chunk_rows, offset_grid,
-                         update_kv_cache)
+from .generation import (GenerationMixin, as_offset, attend_static,
+                         offset_grid, pad_mask, paged_attend)
+
+INIT_STD = 0.02   # normal init of random weights (the usual Llama range)
+
+
+def _linear(in_f: int, out_f: int, init: dict) -> Linear:
+    """A bias-free projection, normal(0, INIT_STD) from the generator."""
+    return Linear(in_f, out_f, weight_attr=I.Normal(0.0, INIT_STD),
+                  bias_attr=False, **init)
 
 
 class LlamaConfig:
@@ -181,15 +201,16 @@ class LlamaAttention(Layer):
         self.num_heads = config.num_attention_heads
         self.num_key_value_heads = config.num_key_value_heads
         self.head_dim = hd
-        self.q_proj = Linear(h, self.num_heads * hd, **init)
-        self.k_proj = Linear(h, self.num_key_value_heads * hd, **init)
-        self.v_proj = Linear(h, self.num_key_value_heads * hd, **init)
-        self.o_proj = Linear(self.num_heads * hd, h, **init)
+        self.q_proj = _linear(h, self.num_heads * hd, init)
+        self.k_proj = _linear(h, self.num_key_value_heads * hd, init)
+        self.v_proj = _linear(h, self.num_key_value_heads * hd, init)
+        self.o_proj = _linear(self.num_heads * hd, h, init)
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
-                table=None, floor=None):
+                table=None, floor=None, attn_mask=None, cache=None,
+                cache_offset=None):
         """Returns (output, (k, v)): k/v are this call's new rows after
-        RoPE, [B, S, HKV, D]."""
+        RoPE, [B, S, HKV, D], or with `cache` the updated (K, V) cache."""
         b, s, _ = hidden.shape
         nh, nkv, hd = self.num_heads, self.num_key_value_heads, self.head_dim
         offset = as_offset(position_offset, hidden.device)
@@ -199,50 +220,15 @@ class LlamaAttention(Layer):
         k = _rope(self.k_proj(hidden).view(b, s, nkv, hd), pos,
                   self.config.rope_theta)
         v = self.v_proj(hidden).view(b, s, nkv, hd)
+        if cache is not None:
+            out, kv = attend_static(q, k, v, cache, offset, cache_offset,
+                                    attn_mask)
+            return self.o_proj(out.reshape(b, s, nh * hd)), kv
         if kv_pages is None:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                 is_causal=True)
             return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
-        kv = LayerKV(*kv_pages)
-        scales = None if kv.k_scales is None else (kv.k_scales, kv.v_scales)
-        if offset.dim() == 0:
-            if b != 1:
-                raise ValueError('a paged chunk forward takes one slot')
-            k_all, v_all = chunk_rows(kv.k, kv.v, k, v, table, offset, floor,
-                                      scales)
-            used = (offset + s).to(torch.int32).reshape(1)
-            out = kernels.flash_attention_fwd(q, k_all, v_all, causal=True,
-                                              seqused_k=used)
-        else:
-            if offset.dim() != 1:
-                raise ValueError('the paged decode forward takes a [N] '
-                                 'position offset')
-            # token i of slot n sees the keys below offset[n] + 1 + i; one
-            # token per slot passes the kernel a 3-D query, several a 4-D
-            lengths = (offset + 1).to(torch.int32)
-            qs = q[:, 0] if s == 1 else q
-            if scales is None:
-                update_kv_cache(kv.k, kv.v, k, v, table, offset)
-                out = kernels.paged_attention(qs, kv.k, kv.v, table, lengths)
-            else:
-                if kv.k_win is None:
-                    raise ValueError('a decode forward over int8 pages '
-                                     'writes into the round\'s float window '
-                                     '(serving/decode_graph.py)')
-                # the new rows go into the window, never into an int8
-                # page: the round's end requantizes the touched pages
-                ps = kv.k.shape[1]
-                n = torch.arange(b, device=offset.device)[:, None]
-                at = offset_grid(offset, s)                     # [N, S]
-                w = torch.div(at, ps, rounding_mode='floor') - \
-                    kv.win_first[:, None]
-                kv.k_win[n, w, at % ps] = k.to(kv.k_win.dtype)
-                kv.v_win[n, w, at % ps] = v.to(kv.v_win.dtype)
-                out = kernels.paged_attention(
-                    qs, kv.k, kv.v, table, lengths,
-                    k_scales=kv.k_scales, v_scales=kv.v_scales,
-                    k_win=kv.k_win, v_win=kv.v_win, win_first=kv.win_first)
-            if s == 1:
-                out = out[:, None]
+        out = paged_attend(q, k, v, kv_pages, table, offset, floor)
         return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
 
 
@@ -251,9 +237,9 @@ class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, **init):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, i, **init)
-        self.up_proj = Linear(h, i, **init)
-        self.down_proj = Linear(i, h, **init)
+        self.gate_proj = _linear(h, i, init)
+        self.up_proj = _linear(h, i, init)
+        self.down_proj = _linear(i, h, init)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -273,18 +259,15 @@ class LlamaDecoderLayer(Layer):
             config.hidden_size, epsilon=config.rms_norm_eps, **norm_init)
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
-                table=None, floor=None):
+                table=None, floor=None, attn_mask=None, cache=None,
+                cache_offset=None):
         attn_out, kv = self.self_attn(
             self.input_layernorm(hidden), position_offset=position_offset,
-            kv_pages=kv_pages, table=table, floor=floor)
+            kv_pages=kv_pages, table=table, floor=floor, attn_mask=attn_mask,
+            cache=cache, cache_offset=cache_offset)
         h = hidden + attn_out
         h = h + self.mlp(self.post_attention_layernorm(h))
         return h, kv
-
-
-def _init_kwargs(device, dtype, generator):
-    return {'device': resolve_device(device),
-            'dtype': _dtype.to_torch_dtype(dtype), 'generator': generator}
 
 
 class LlamaModel(Layer):
@@ -297,10 +280,11 @@ class LlamaModel(Layer):
                  dtype='float32',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        init = _init_kwargs(device, dtype, generator)
+        init = init_kwargs(device, dtype, generator)
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      **init)
+        self.embed_tokens = Embedding(
+            config.vocab_size, config.hidden_size,
+            weight_attr=I.Normal(0.0, INIT_STD), **init)
         self.layers = torch.nn.ModuleList(
             LlamaDecoderLayer(config, **init)
             for _ in range(config.num_hidden_layers))
@@ -308,8 +292,10 @@ class LlamaModel(Layer):
                             device=init['device'], dtype=init['dtype'])
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
-                table=None, floor=None) -> Tuple[torch.Tensor, List[tuple]]:
-        """Returns (final hidden states, per-layer (k, v) new rows).
+                table=None, floor=None, attention_mask=None, cache=None,
+                cache_offset=None) -> Tuple[torch.Tensor, List[tuple]]:
+        """Returns (final hidden states, per-layer (k, v) new rows, or
+        with `cache` the updated caches).
 
         With `config.use_recompute` and grad enabled (training, no pages)
         each layer runs under `torch.utils.checkpoint`: its activations
@@ -318,8 +304,10 @@ class LlamaModel(Layer):
         the forward ran under (a backward outside `auto_cast` recomputes
         the same casts)."""
         h = self.embed_tokens(input_ids)
+        mask = pad_mask(attention_mask)
         policy = self.config.use_recompute
-        remat = policy and kv_pages is None and torch.is_grad_enabled()
+        remat = (policy and kv_pages is None and cache is None
+                 and mask is None and torch.is_grad_enabled())
         extra = ({'context_fn': recompute_context(policy)}
                  if isinstance(policy, str) else {})
         kvs = []
@@ -331,12 +319,15 @@ class LlamaModel(Layer):
             else:
                 h, kv = layer(h, position_offset=position_offset,
                               kv_pages=None if kv_pages is None
-                              else kv_pages[i], table=table, floor=floor)
+                              else kv_pages[i], table=table, floor=floor,
+                              attn_mask=mask,
+                              cache=None if cache is None else cache[i],
+                              cache_offset=cache_offset)
             kvs.append(kv)
         return self.norm(h), kvs
 
 
-class LlamaForCausalLM(Layer):
+class LlamaForCausalLM(Layer, GenerationMixin):
 
     def __init__(self, config: LlamaConfig, *, device=None,
                  dtype='float32',
@@ -346,9 +337,9 @@ class LlamaForCausalLM(Layer):
         self.llama = LlamaModel(config, device=device, dtype=dtype,
                                 generator=generator)
         emb = self.llama.embed_tokens.weight
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, device=emb.device,
-            dtype=emb.dtype, generator=generator)
+        self.lm_head = None if config.tie_word_embeddings else _linear(
+            config.hidden_size, config.vocab_size,
+            dict(device=emb.device, dtype=emb.dtype, generator=generator))
 
     @property
     def device(self) -> torch.device:
@@ -364,19 +355,24 @@ class LlamaForCausalLM(Layer):
         return torch.matmul(h, self.llama.embed_tokens.weight.t())
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
-                table=None, labels=None, floor=None):
-        """Logits [B, S, V]; see the module docstring for the three modes.
+                table=None, labels=None, floor=None, attention_mask=None,
+                cache=None, use_cache=False, cache_offset=None):
+        """Logits [B, S, V]; see the module docstring for the modes.
         With `labels` [B, S] returns (loss, logits), the loss being the
         mean cross-entropy of every position against its label (no
-        shift, as in the JAX package)."""
-        h, _ = self.llama(input_ids, position_offset=position_offset,
-                          kv_pages=kv_pages, table=table, floor=floor)
+        shift, as in the JAX package); with `use_cache` the updated
+        caches come last ((logits, caches) or (loss, logits, caches))."""
+        h, kvs = self.llama(input_ids, position_offset=position_offset,
+                            kv_pages=kv_pages, table=table, floor=floor,
+                            attention_mask=attention_mask, cache=cache,
+                            cache_offset=cache_offset)
         logits = self._logits(h)
-        if labels is None:
-            return logits
-        loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
-                               labels.reshape(-1))
-        return loss, logits
+        out = (logits,) if labels is None else (F.cross_entropy(
+            logits.reshape(-1, self.config.vocab_size), labels.reshape(-1)),
+            logits)
+        if use_cache:
+            out = out + (kvs,)
+        return out[0] if len(out) == 1 else out
 
     def prefill_kv(self, input_ids, start=None, kv_pages=None, table=None,
                    floor=None) -> List[tuple]:

@@ -12,6 +12,16 @@ Calling a Layer with eager `Tensor`s unwraps them, runs the module on
 torch tensors and wraps its outputs as Tensors (plain torch in, plain
 torch out); `to()` takes Paddle's dtype names and 'gpu' devices, as
 `amp.decorate` calls it.
+
+`create_parameter` takes Paddle's form (`shape, attr=None, dtype=None,
+is_bias=False, default_initializer=None`, with `ParamAttr`'s name,
+initializer, trainable and learning_rate) and the port's keywords
+`device=` and `generator=`. A parameter made without a device lies on
+the current place (`framework.current_device()`: `cuda` unless
+`set_device('cpu')` was called, raising without a card); its random
+draws come from `generator`, else the framework's generator of that
+device. `init_kwargs` gives a model constructor's layers their
+`device`, `dtype` and `generator`.
 """
 from __future__ import annotations
 
@@ -20,8 +30,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from .. import dtype as _dtype
+from .. import framework
 from ..dtype import _NAME_TO_DTYPE, convert_dtype
 from ..tensor import Parameter, _unwrap, _wrap
+from . import initializer as I
 
 
 def _torch_arg(a):
@@ -33,6 +46,51 @@ def _torch_arg(a):
         if name == 'gpu':
             return torch.device('cuda', int(idx or 0))
     return a
+
+
+class ParamAttr:
+    """Parameter configuration (Paddle's `paddle.ParamAttr`): name,
+    initializer, learning-rate multiplier, regularizer, trainable."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        if attr is None or isinstance(attr, ParamAttr):
+            return attr
+        if attr is False:
+            return False
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        if isinstance(attr, I.Initializer):
+            return ParamAttr(initializer=attr)
+        raise TypeError(f'cannot convert {attr!r} to ParamAttr')
+
+
+def init_kwargs(device, dtype, generator) -> dict:
+    """The `device`, `dtype` and `generator` a model constructor hands
+    its layers: device None is `cuda` (raising without a card), as every
+    entry point of the port."""
+    return {'device': framework.resolve_device(device),
+            'dtype': _dtype.to_torch_dtype(dtype), 'generator': generator}
+
+
+def _initializer(attr, default_initializer, is_bias):
+    if attr is not None and attr.initializer is not None:
+        return attr.initializer
+    if default_initializer is not None:
+        return default_initializer
+    if I._global_default(is_bias) is not None:
+        return I._global_default(is_bias)
+    return I.Constant(0.0) if is_bias else I.XavierUniform()
 
 
 class Layer(nn.Module):
@@ -49,18 +107,33 @@ class Layer(nn.Module):
         return super().to(*[_torch_arg(a) for a in args],
                           **{k: _torch_arg(v) for k, v in kwargs.items()})
 
-    @staticmethod
-    def create_parameter(shape: Sequence[int], *, device: torch.device,
-                         dtype: torch.dtype, std: Optional[float] = None,
-                         fill: Optional[float] = None,
+    def create_parameter(self, shape: Sequence[int], attr=None, dtype=None,
+                         is_bias: bool = False, default_initializer=None, *,
+                         device=None,
                          generator: Optional[torch.Generator] = None
-                         ) -> Parameter:
-        """A parameter of `shape`, made on `device`: normal(0, std) draws
-        from `generator`, or the constant `fill`."""
-        t = torch.empty(tuple(shape), device=device, dtype=dtype)
-        with torch.no_grad():
-            if fill is not None:
-                t.fill_(fill)
-            else:
-                t.normal_(0.0, std, generator=generator)
-        return Parameter(t)
+                         ) -> Optional[Parameter]:
+        """A parameter of `shape` in `dtype` (default: the framework's)
+        on `device` (default: the current place), filled by, in order:
+        `attr`'s initializer, `default_initializer`, the global
+        initializer, zeros for a bias, else Xavier-uniform (Paddle's
+        defaults). None when `attr` is False. Random draws come from
+        `generator`, else the framework's generator of the device."""
+        attr = ParamAttr._to_attr(attr)
+        if attr is False:
+            return None
+        dt = convert_dtype(dtype) if dtype is not None \
+            else framework.get_default_dtype()
+        dev = framework.current_device() if device is None \
+            else framework.resolve_device(device)
+        t = torch.empty(tuple(int(s) for s in shape), device=dev, dtype=dt)
+        _initializer(attr, default_initializer, is_bias).fill_(t, generator)
+        p = Parameter(t, name=(attr.name if attr else None) or '')
+        if attr is not None:
+            p.trainable = attr.trainable
+            p.optimize_attr = {'learning_rate': attr.learning_rate}
+            p.regularizer = attr.regularizer
+        return p
+
+    def add_parameter(self, name: str, parameter) -> Parameter:
+        self.register_parameter(name, parameter)
+        return parameter

@@ -210,16 +210,24 @@ class MfuWindow:
 class TransformerCost:
     """Analytic FLOPs and bytes of a decoder-only transformer's passes,
     from its config (`hidden_size`, `intermediate_size`,
-    `num_hidden_layers`, `num_attention_heads`, `num_key_value_heads`,
-    `vocab_size`; a gated MLP, as Llama's).
+    `num_hidden_layers`, `num_attention_heads`, `num_key_value_heads`
+    (`num_attention_heads` where the config has none), `vocab_size`,
+    `hidden_act`).
 
-    A pass over `rows` token rows costs 2 FLOPs per matmul parameter
-    per row (q/k/v/o and gate/up/down of every layer, and the LM head
-    when `head`), plus 4 x heads x head_dim FLOPs per layer for each
-    (query row, key) pair it attends (QK^T and PV). It reads every
-    matmul weight once and the K/V rows it attends, and writes the K/V
-    rows of its tokens. The embedding gather, the norms and activations
-    are left out: they are small beside the weights at serving widths."""
+    The MLP has three matrices (gate, up, down: Llama's SwiGLU, a config
+    without `hidden_act`, or any act but gelu and relu) or two (a plain
+    gelu / relu MLP: GPT's `linear1`, `linear2`). A pass over `rows`
+    token rows costs 2 FLOPs per matmul parameter per row (q/k/v/o and
+    the MLP of every layer, and the LM head when `head`), plus 4 x heads
+    x head_dim FLOPs per layer for each (query row, key) pair it attends
+    (QK^T and PV). It reads every matmul weight once and the K/V rows it
+    attends, and writes the K/V rows of its tokens. A model with learned
+    positions (a config without `rope_theta`: GPT) also reads one
+    position row per token row: 0.3% of GPT-3 XL's bytes at a 2048-row
+    prefill. The biases (9 x hidden a layer: 0.03% of GPT-3 XL's
+    weights), the embedding gather, the norms and activations are left
+    out: below 0.1% of the bytes, or small beside the weights at
+    serving widths."""
 
     def __init__(self, config, weight_itemsize: int = 2,
                  kv_itemsize: Optional[int] = None):
@@ -228,13 +236,18 @@ class TransformerCost:
         hk = int(getattr(config, 'num_key_value_heads', None) or hq)
         d = h // hq
         layers = int(config.num_hidden_layers)
-        self.layer_params = layers * (2 * h * hq * d + 2 * h * hk * d
-                                      + 3 * h * int(config.intermediate_size))
+        act = getattr(config, 'hidden_act', None)
+        self.mlp_matrices = 2 if act in ('gelu', 'relu') else 3
+        self.layer_params = layers * (
+            2 * h * hq * d + 2 * h * hk * d
+            + self.mlp_matrices * h * int(config.intermediate_size))
         self.head_params = h * int(config.vocab_size)
         self.weight_itemsize = int(weight_itemsize)
         self.attn_flops = 4 * hq * d * layers
         self.kv_row_bytes = 2 * hk * d * layers * int(
             weight_itemsize if kv_itemsize is None else kv_itemsize)
+        self.position_row_bytes = 0 if hasattr(config, 'rope_theta') \
+            else h * self.weight_itemsize
 
     def params(self, head: bool) -> int:
         return self.layer_params + (self.head_params if head else 0)
@@ -248,7 +261,8 @@ class TransformerCost:
         p = self.params(head)
         flops = 2.0 * p * rows + float(self.attn_flops) * keys
         nbytes = (float(p) * self.weight_itemsize
-                  + float(self.kv_row_bytes) * (kv_read + kv_written))
+                  + float(self.kv_row_bytes) * (kv_read + kv_written)
+                  + float(self.position_row_bytes) * rows)
         return flops, nbytes
 
 

@@ -46,6 +46,15 @@ adapter kernel take f32 and bf16 only: AMP keeps the first two in f32
 pass and its combine) and counts once: under `paged_attention` when q
 holds one query row per slot (decode), under `paged_attention_verify`
 when it holds several (a speculative verify).
+
+Head widths. The flash kernels (forward, dq, dk/dv, every dtype) and
+the paged kernel over pages in q's dtype are built for D = 128 and
+D = 64; the D = 64 launches count under keys of their own (`_d64`,
+after any `_fp16`). The int8 paged kernels are built for D = 128 only
+and refuse D = 64 (ROADMAP, Queue 2). Unmasked attention with D < 64
+takes the plain version on every device (`flash_head_dim_ok`), as the
+JAX package sends it to XLA (`paddle_tpu/ops/pallas.py:95`): a shape
+rule decided before any launch. Any other D raises on the card.
 """
 from __future__ import annotations
 
@@ -65,6 +74,12 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dq_fp16': 0,
             'flash_attention_bwd_dkv_fp16': 0, 'paged_attention': 0,
             'paged_attention_verify': 0,
+            'flash_attention_fwd_d64': 0, 'flash_attention_bwd_dq_d64': 0,
+            'flash_attention_bwd_dkv_d64': 0,
+            'flash_attention_fwd_fp16_d64': 0,
+            'flash_attention_bwd_dq_fp16_d64': 0,
+            'flash_attention_bwd_dkv_fp16_d64': 0,
+            'paged_attention_d64': 0, 'paged_attention_verify_d64': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
             'adapter_matmul': 0, 'multi_tensor_adam': 0,
             'multi_tensor_sumsq': 0}
@@ -72,7 +87,8 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
 # csrc/common.cuh: PttDtype
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
-_HEAD_DIM = 128          # the kernels are compiled for D = 128
+HEAD_DIMS = (64, 128)    # the attention kernels are built for these D
+FLASH_MIN_HEAD_DIM = 64  # unmasked attention below it is plain, as in JAX
 # the flash kernels' dtypes: fp16 for auto_cast(dtype='float16'); every
 # other CUDA kernel refuses fp16
 _FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -88,12 +104,12 @@ _F = ctypes.c_float
 _ARGTYPES = {
     'rms_norm_fwd': [_P, _P, _P, _I, _I, _F, _I, _P],
     'flash_attention_fwd': [_P] * 6 + [_I] * 5 + [_L] * 12
-    + [_F, _I, _I, _P],
-    'flash_attention_bwd_dq': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
-    'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _P],
+    'flash_attention_bwd_dq': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
+    'flash_attention_bwd_dkv': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
     'softmax_ce_fwd': [_P] * 4 + [_I] * 4 + [_P],
     'softmax_ce_bwd': [_P] * 5 + [_I] * 4 + [_P],
-    'paged_attention_fwd': [_P] * 12 + [_I] * 9 + [_F, _I, _I, _P],
+    'paged_attention_fwd': [_P] * 12 + [_I] * 9 + [_F, _I, _I, _I, _P],
     'adapter_matmul_fwd': [_P] * 7 + [_I] * 8 + [_P],
     'multi_tensor_adam': [_I] + [_P] * 4 + [_F] * 6 + [_I, _P] + [_I] * 4
     + [_P],
@@ -102,10 +118,21 @@ _ARGTYPES = {
 }
 
 
-def _fp16_key(dtype) -> str:
-    """The fp16 flash launches count under keys of their own (`_fp16`),
-    so a run can tell the fp16 instantiations from the bf16 ones."""
-    return '_fp16' if dtype == torch.float16 else ''
+def _key(name: str, dtype, d: int) -> str:
+    """The `LAUNCHES` key of an attention launch: the fp16 and the D = 64
+    instantiations count under keys of their own (`_fp16`, `_d64`), so a
+    run can tell them from the bf16 and D = 128 ones."""
+    return (name + ('_fp16' if dtype == torch.float16 else '')
+            + ('_d64' if d == 64 else ''))
+
+
+def flash_head_dim_ok(d: int) -> bool:
+    """True when unmasked attention of head width `d` takes the flash
+    kernels: D >= 64, the JAX package's rule for its Pallas kernel
+    (`paddle_tpu/ops/pallas.py:95`). Below it every device takes the
+    plain version; at or above it the card launches the kernel, which
+    is built for D in HEAD_DIMS and raises for any other."""
+    return d >= FLASH_MIN_HEAD_DIM
 
 
 def reset_launch_counts() -> None:
@@ -340,8 +367,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(q.dtype in _FLASH_DTYPES
              and k.dtype == q.dtype and v.dtype == q.dtype,
              'flash kernel takes q, k, v all f32, all bf16 or all fp16')
-    _require(d == _HEAD_DIM and k.shape[3] == d and v.shape[3] == d,
-             f'flash kernel is built for head_dim {_HEAD_DIM}, got {d}')
+    _require(d in HEAD_DIMS and k.shape[3] == d and v.shape[3] == d,
+             f'flash kernel is built for head_dim {HEAD_DIMS}, got {d}')
     _require(k.shape[0] == b and tuple(v.shape) == tuple(k.shape)
              and hkv >= 1 and h % hkv == 0,
              f'flash shapes q {tuple(q.shape)} k {tuple(k.shape)} '
@@ -372,9 +399,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             1.0 / math.sqrt(d), int(bool(causal)), _DTYPE_CODE[q.dtype],
-            _stream(q))
+            d, _stream(q))
     _build.check(lib, rc, 'flash_attention_fwd')
-    LAUNCHES['flash_attention_fwd' + _fp16_key(q.dtype)] += 1
+    LAUNCHES[_key('flash_attention_fwd', q.dtype, d)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -447,13 +474,13 @@ def _check_bwd(q, k, v, lse, dout, causal):
              and all(t.dtype == q.dtype for t in (k, v, dout)),
              'flash backward takes q, k, v, dout all f32, all bf16 or all '
              'fp16')
-    _require(d == _HEAD_DIM and k.shape[3] == d
+    _require(d in HEAD_DIMS and k.shape[3] == d
              and tuple(v.shape) == tuple(k.shape) and k.shape[0] == b
              and hkv >= 1 and h % hkv == 0
              and tuple(dout.shape) == tuple(q.shape),
              f'flash backward shapes q {tuple(q.shape)} k {tuple(k.shape)} '
-             f'v {tuple(v.shape)} dout {tuple(dout.shape)} (head_dim '
-             f'{_HEAD_DIM})')
+             f'v {tuple(v.shape)} dout {tuple(dout.shape)} (head_dim in '
+             f'{HEAD_DIMS})')
     _require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, sq),
              'flash backward takes lse as f32 [B, H, Sq]')
     _require(all(t.is_contiguous() for t in (q, k, v, lse, dout)),
@@ -483,9 +510,9 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
+            int(bool(causal)), _DTYPE_CODE[q.dtype], q.shape[3], _stream(q))
     _build.check(lib, rc, 'flash_attention_bwd_dq')
-    LAUNCHES['flash_attention_bwd_dq' + _fp16_key(q.dtype)] += 1
+    LAUNCHES[_key('flash_attention_bwd_dq', q.dtype, q.shape[3])] += 1
     return dq, delta
 
 
@@ -512,9 +539,9 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, k.shape[1], h, k.shape[2], 1.0 / math.sqrt(q.shape[3]),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
+            int(bool(causal)), _DTYPE_CODE[q.dtype], q.shape[3], _stream(q))
     _build.check(lib, rc, 'flash_attention_bwd_dkv')
-    LAUNCHES['flash_attention_bwd_dkv' + _fp16_key(q.dtype)] += 1
+    LAUNCHES[_key('flash_attention_bwd_dkv', q.dtype, q.shape[3])] += 1
     return dk, dv
 
 
@@ -676,10 +703,14 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     _require(k_pages.dtype == v_pages.dtype
              and k_pages.dtype == (torch.int8 if quant else q.dtype),
              'paged kernel takes pages in q.dtype, or int8 with scales')
-    _require(d == _HEAD_DIM and k_pages.shape[3] == d
+    _require(d in HEAD_DIMS and k_pages.shape[3] == d
              and tuple(v_pages.shape) == tuple(k_pages.shape),
-             f'paged kernel is built for head_dim {_HEAD_DIM}, got '
+             f'paged kernel is built for head_dim {HEAD_DIMS}, got '
              f'q {tuple(q.shape)} pages {tuple(k_pages.shape)}')
+    _require(not (quant and d == 64),
+             'the int8 paged kernels are built for head_dim 128 only; '
+             'int8 pages at head_dim 64 wait for their D = 64 '
+             'instantiation (ROADMAP, Queue 2)')
     _require(hkv >= 1 and h % hkv == 0 and t >= 1
              and t * (h // hkv) <= PAGED_MAX_ROWS,
              f'paged kernel takes at most {PAGED_MAX_ROWS} query rows (T x '
@@ -727,10 +758,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             ptr(v_scales), ptr(k_win), ptr(v_win), ptr(win_first),
             ws.data_ptr(), out.data_ptr(), n, t, h, hkv, p, ps, pps, splits,
             w, float(sm_scale), _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], _stream(q))
+            _DTYPE_CODE[k_pages.dtype], d, _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
-    LAUNCHES['paged_attention_verify' if q.dim() == 4
-             else 'paged_attention'] += 1
+    LAUNCHES[('paged_attention_verify' if q.dim() == 4
+              else 'paged_attention') + ('_d64' if d == 64 else '')] += 1
     return out
 
 

@@ -300,7 +300,7 @@ def test_paged_wrapper_raises_on_pages_past_a_split(cuda):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros((1, 8, 2, 64), device=cuda)   # head_dim 64
+    x = torch.zeros((1, 8, 2, 96), device=cuda)   # head_dim 96
     with pytest.raises(ValueError):
         K.flash_attention_fwd(x, x, x, causal=True)
     with pytest.raises(ValueError):
@@ -2211,3 +2211,115 @@ def test_amp_fp16_step_runs_the_fp16_kernels(cuda):
     assert K.LAUNCHES['flash_attention_bwd_dkv_fp16'] == 2 * 3
     assert K.LAUNCHES['flash_attention_fwd'] == 0
     assert K.LAUNCHES['rms_norm'] > 0 and K.LAUNCHES['softmax_ce_fwd'] == 3
+
+
+# ---------------------------------------------------------------------------
+# head_dim 64: the flash forward, dq and dk/dv and the paged kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize('sq,sk,hkv,causal', [
+    (130, 130, 12, True), (1000, 1000, 4, True), (70, 90, 3, True),
+    (512, 512, 12, False), (1, 130, 1, True)])
+def test_d64_flash_kernels_match_plain(cuda, dtype, sq, sk, hkv, causal):
+    """The D = 64 instantiations (f32 FMA, bf16 and fp16 wgmma): the
+    forward with its LSE, dq and dk/dv against the plain versions at
+    ragged, GQA and sq < sk shapes; launches count under the `_d64` keys
+    only."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + hkv)
+    q, dout = _randn(g, dtype, 2, sq, 12, 64), _randn(g, dtype, 2, sq, 12, 64)
+    k, v = _randn(g, dtype, 2, sk, hkv, 64), _randn(g, dtype, 2, sk, hkv, 64)
+    before = dict(K.LAUNCHES)
+    out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    want, want_lse = K.attention_reference(q, k, v, causal=causal,
+                                           return_lse=True)
+    close = _close_f16 if dtype == torch.float16 else (
+        lambda a, b: _close_attention(a, b, dtype))
+    close(out, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    got = K.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    for i, (a, b) in enumerate(zip(got, K.attention_bwd_reference(
+            q, k, v, out, lse, dout, causal))):
+        if sk > 1 or i == 2:
+            close(a, b)
+    key = '_fp16' if dtype == torch.float16 else ''
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        assert K.LAUNCHES[name + key] == before[name + key]
+        assert K.LAUNCHES[name + key + '_d64'] == \
+            before[name + key + '_d64'] + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hkv,t', [(12, 1), (4, 1), (12, 5), (3, 3)])
+def test_d64_paged_kernel_matches_plain(cuda, dtype, hkv, t):
+    """The D = 64 paged split and combine over float pages: one query row
+    (decode) and T rows (a verify), GQA, ragged lengths, a null-page
+    slot; launches under `paged_attention(_verify)_d64`."""
+    g = torch.Generator(device=cuda).manual_seed(hkv * 10 + t)
+    n, h, ps, p = 5, 12, 16, 8
+    pages = n * p + 1
+    table = (torch.randperm(pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    table[3] = 0
+    lengths = torch.tensor([1, 17, 100, 64, 128 - t], dtype=torch.int32,
+                           device=cuda)
+    q = _randn(g, dtype, n, h, 64) if t == 1 else _randn(g, dtype, n, t, h,
+                                                         64)
+    kp, vp = (_randn(g, dtype, pages, ps, hkv, 64) for _ in range(2))
+    key = ('paged_attention_verify' if t > 1 else 'paged_attention') + '_d64'
+    before = K.LAUNCHES[key]
+    got = K.paged_attention(q, kp, vp, table, lengths)
+    want = K.paged_attention_reference(q, kp, vp, table, lengths)
+    live = torch.ones(n, dtype=torch.bool, device=cuda)
+    live[3] = False
+    _close_attention(got[live], want[live], dtype)
+    assert K.LAUNCHES[key] == before + 1
+
+
+def test_d64_int8_pages_and_other_widths_raise(cuda):
+    """The int8 paged kernels are built for D = 128 only; a head_dim
+    outside {64, 128} raises in every attention wrapper."""
+    n = 2
+    table = torch.ones((n, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.ones(n, dtype=torch.int32, device=cuda)
+    q = torch.zeros((n, 4, 64), device=cuda)
+    pages = torch.zeros((2, 16, 4, 64), dtype=torch.int8, device=cuda)
+    sc = torch.ones((2, 4), device=cuda)
+    with pytest.raises(ValueError, match='Queue 2'):
+        K.paged_attention(q, pages, pages, table, lengths, k_scales=sc,
+                          v_scales=sc)
+    x = torch.zeros((1, 8, 2, 80), device=cuda)
+    with pytest.raises(ValueError, match='head_dim'):
+        K.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match='head_dim'):
+        K.paged_attention(x[:, 0], torch.zeros((2, 16, 2, 80), device=cuda),
+                          torch.zeros((2, 16, 2, 80), device=cuda),
+                          table[:1], lengths[:1])
+
+
+def test_gpt2_width_engine_on_card_matches_cpu(cuda):
+    """A 2-layer GPT of GPT-2 small's width (12 heads x 64) in f32: the
+    graph engine on the card (the D = 64 flash and paged kernels) gives
+    the CPU engine's greedy tokens."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(hidden_size=768, num_attention_heads=12,
+                    num_hidden_layers=2, vocab_size=512,
+                    max_position_embeddings=256)
+    on_card = GPTForCausalLM(cfg, device=cuda, generator=generator(3, cuda))
+    on_cpu = GPTForCausalLM(cfg, device='cpu')
+    on_cpu.load_state_dict({k: v.cpu() for k, v in
+                            on_card.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(1, 512, (s,), generator=g).tolist()
+               for s in (3, 17, 40, 9)]
+    sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    K.reset_launch_counts()
+    card = InferenceEngine(on_card, num_slots=3, max_length=128,
+                           decode_block=4).generate_many(prompts, sp)
+    assert K.LAUNCHES['flash_attention_fwd_d64'] > 0
+    assert K.LAUNCHES['paged_attention_d64'] > 0
+    cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
+                          decode_block=4).generate_many(prompts, sp)
+    assert [h.tokens for h in card] == [h.tokens for h in cpu]

@@ -378,8 +378,9 @@ def test_flash_attention_function_grads_match_attention_xla(sq, sk, h, hkv,
 
 
 def test_sdpa_takes_the_function_only_when_a_grad_is_needed():
+    # head_dim 64: below it sdpa takes the plain version (the JAX rule)
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(_np((1, 6, 2, 16), rng))
+    x = torch.from_numpy(_np((1, 6, 2, 64), rng))
     assert TF.scaled_dot_product_attention(x, x, x, is_causal=True) \
         .grad_fn is None
     xg = x.clone().requires_grad_()
