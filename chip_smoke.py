@@ -20,8 +20,12 @@
                                            # shapes, phases 4, 5 and 5c-5f
     python3 chip_smoke.py --eager          # phase 2's fp16 flash cases,
                                            # the op sweep and phase 5g
-    python3 chip_smoke.py --gpt            # phase 2's D = 64 cases and
-                                           # phase 9 (the GPT family)
+    python3 chip_smoke.py --gpt            # phase 2's D = 64 cases (int8
+                                           # pages too), phase 3's GPT-2-
+                                           # width int8 check and phase 9
+                                           # (the GPT family, served with
+                                           # int8 KV, prefix/chunks and a
+                                           # GPT draft too)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -44,7 +48,13 @@ result line):
    bf16, HKV 32 and 8), the speculative verify's k + 1 = 5 query rows
    per slot (f32 and bf16 at the serve shape, HKV 8, over int8 pages with
    the round's window of W = 2 pages, spans that cross a page boundary,
-   an inactive slot), ignored CE rows, and adapter
+   an inactive slot), the same at head_dim 64 (`head64_cases`, GPT-2
+   small's decode shape: 8 slots, H 12, ctx <= 1024, ps 16): the paged
+   kernel over float pages and over int8 pages, without a window and
+   with the round's W = 2 window (starts at row offsets 0, 9 and 15 of a
+   page, a length-1 slot, an inactive slot on the null page), f32 and
+   bf16 q, HKV 12 and 4, and the verify's T = 5 rows over int8 pages and
+   the window across a page boundary; ignored CE rows, and adapter
    rows on slot 0, whose delta must be exactly zero and whose fused
    y + delta must equal y bit for bit); then the multi-tensor sum of
    squares and Adam update over the training rung's tensors of one
@@ -78,7 +88,9 @@ result line):
    first decode sub-step's logits equal (to 1e-4) those of the float
    engine over its pages roundtripped through int8 (the JAX bench's
    int8 arm) and lie within the bench's relative RMSE bound of 0.05 of
-   float KV; then speculative decoding (k = 4) at the same size: the
+   float KV; the same int8 check again at 2 f32 layers of GPT-2 small's
+   width (12 heads x 64: the D = 64 int8 split and window kernels);
+   then speculative decoding (k = 4) at the same size: the
    spec engine's tokens equal the plain engine's (greedy and a seeded
    sampling request) with an independent 1-layer draft and with the
    target as its own draft, graph == eager, and so with the prefix
@@ -352,8 +364,22 @@ result line):
    finite losses, ms a step and MFU by `TransformerCost`; bert,
    BERT-base bf16 B=8 S=512 unmasked: an encode and 3 fine-tune steps of
    `BertForSequenceClassification` with hidden dropout on, each D = 64
-   flash kernel launched once per layer and step. Phase 2 holds the
-   D = 64 kernels (`head64_cases`) to their plain versions first;
+   flash kernel launched once per layer and step. With int8 KV, on the
+   served models (bf16, full width and depth): gpt2-serve-int8, GPT-2
+   small with `kv_quant='int8'` and phase 6's 12 requests (graph ==
+   eager twin, the D = 64 int8 paged call once per layer of every decode
+   sub-step, its KV bytes beside the bf16 pool's, the first decode
+   sub-step's relative logit RMSE against the bf16-KV engine at most
+   1.25 x the JAX bench's int8 arm on this model), then phase 6c's
+   serve-prefix trace on the int8 prefix/chunk engine (graph == eager,
+   every page free after a forced clear), then a 2-layer random GPT draft
+   of GPT-2 width, k = 4, over int8 KV (graph == eager; the T = 5 verify
+   over int8 pages and the window at D = 64 once per layer of every
+   round, the draft's float D = 64 paged kernel launched; the acceptance
+   and the requests that get the plain int8 engine's tokens logged);
+   gpt-serve-int8, GPT-3 XL the same way (the D = 128 int8 kernels; no
+   draft). Phase 2 holds the D = 64 kernels (`head64_cases`) to their
+   plain versions first;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -447,6 +473,14 @@ REPLACES = {
     'paged_attention_d64':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, head_dim '
         '64)',
+    'paged_attention_int8_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, int8 '
+        'pages at head_dim 64, with the decode round\'s float window)',
+    'paged_attention_verify_int8_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, k + 1 '
+        'query rows over int8 pages and the window at head_dim 64; the JAX '
+        'verify is a gather and dense attention, '
+        'paddle_tpu/serving/engine.py:811-835)',
     'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
@@ -486,6 +520,9 @@ SOURCES = {
     'flash_attention_bwd_dkv_d64':
         'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'paged_attention_d64': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention_int8_d64': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention_verify_int8_d64':
+        'paddle_tpu_torch/csrc/paged_attention.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
     'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
@@ -966,44 +1003,47 @@ WINDOW_PAGES = 2
 WINDOW_POS = (1023, 1001, 768, 521, 255, 96, 0, 1023)
 
 
-def _paged_window_cases(add, gen, serve_table, serve_lengths) -> None:
+def _paged_window_cases(add, gen, serve_table, serve_lengths, h=32, d=128,
+                        hkvs=(32, 8),
+                        key='paged_attention_int8_window') -> None:
     """The paged kernel over int8 pages with the decode round's float
-    window (f32 and bf16, HKV 32 and 8): the window holds the slot's
-    logical pages pos // 16 .. + 1, filled with other values than the
-    int8 pages there, so a kernel that read those pages fails. Then the
-    case phase 8 reports: bf16 at the serve shape of the bf16 case above
-    (its table and lengths, the window at each slot's last row). Bytes:
-    the live int8 rows below the window and their scales, the window's
-    live rows in q's dtype, q, out, table, lengths and win_first."""
+    window (f32 and bf16, H query heads over each of `hkvs`, head_dim
+    d): the window holds the slot's logical pages pos // 16 .. + 1,
+    filled with other values than the int8 pages there, so a kernel that
+    read those pages fails. Then the case phase 8 reports under `key`:
+    bf16 at the serve shape of the bf16 case above (its table and
+    lengths, the window at each slot's last row). Bytes: the live int8
+    rows below the window and their scales, the window's live rows in
+    q's dtype, q, out, table, lengths and win_first."""
     from paddle_tpu_torch.ops import kernels as K
-    n, h, ps, p = 8, 32, 16, 64
+    n, ps, p = 8, 16, 64
     num_pages = n * p + 1
     table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
              + 1).to(torch.int32).reshape(n, p)
     table[-1] = 0                        # the inactive slot: the null page
     pos = torch.tensor(WINDOW_POS, dtype=torch.int32, device=DEV)
     cases = [(dtype, hkv, table.contiguous(), pos, False)
-             for dtype, hkv in ((torch.float32, 32), (torch.bfloat16, 32),
-                                (torch.float32, 8), (torch.bfloat16, 8))]
-    cases.append((torch.bfloat16, 32, serve_table, serve_lengths - 1, True))
+             for hkv in hkvs for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((torch.bfloat16, h, serve_table, serve_lengths - 1, True))
+    width = '' if d == 128 else f' D={d}'
     for dtype, hkv, tbl, pos, rep in cases:
         lengths = (pos + 1).to(torch.int32)
         win_first = (pos // ps).to(torch.int32)
-        q = _randn((n, h, 128), dtype, gen)
-        shape = (num_pages, ps, hkv, 128)
+        q = _randn((n, h, d), dtype, gen)
+        shape = (num_pages, ps, hkv, d)
         kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=DEV,
                                 dtype=torch.int8) for _ in range(2))
         ks, vs = (torch.rand((num_pages, hkv), generator=gen, device=DEV)
                   / 127 + 1e-3 for _ in range(2))
-        wshape = (n, WINDOW_PAGES, ps, hkv, 128)
+        wshape = (n, WINDOW_PAGES, ps, hkv, d)
         kw, vw = _randn(wshape, dtype, gen), _randn(wshape, dtype, gen)
         args = (q, kp, vp, tbl, lengths)
         kw_args = dict(k_scales=ks, v_scales=vs, k_win=kw, v_win=vw,
                        win_first=win_first)
         below = int((win_first.long() * ps).sum())       # int8 rows
         in_win = int((lengths - win_first * ps).sum())   # window rows
-        add('paged_attention_int8_window',
-            f'paged {str(dtype)[6:]} N=8 H=32 HKV={hkv} int8 pages + '
+        add(key,
+            f'paged {str(dtype)[6:]} N=8 H={h} HKV={hkv}{width} int8 pages + '
             f'{str(dtype)[6:]} window W={WINDOW_PAGES} '
             + ('ctx<=1024 (serve)' if rep else
                'offsets 0/9/15, len 1, inactive slot'), dtype,
@@ -1011,9 +1051,9 @@ def _paged_window_cases(add, gen, serve_table, serve_lengths) -> None:
             lambda a=args, kw=kw_args: K.paged_attention_reference(*a, **kw),
             None,
             nbytes(q, q, tbl, lengths, win_first)
-            + below * hkv * 128 * 2 + 2 * int(win_first.sum()) * hkv * 4
-            + in_win * hkv * 128 * kw.element_size() * 2,
-            4 * 128 * h * int(lengths.sum()), rep=rep)
+            + below * hkv * d * 2 + 2 * int(win_first.sum()) * hkv * 4
+            + in_win * hkv * d * kw.element_size() * 2,
+            4 * d * h * int(lengths.sum()), rep=rep)
 
 
 # the verify's key count of query row 0 per slot at the serve shape: rows
@@ -1022,20 +1062,33 @@ def _paged_window_cases(add, gen, serve_table, serve_lengths) -> None:
 VERIFY_LENGTHS = (1020, 1000, 777, 510, 254, 100, 14, 1)
 
 
-def _paged_verify_cases(add, gen) -> None:
+# the verify cases at D = 128: (q dtype, HKV, pages: float or int8 with
+# the round's window, an inactive slot, the case phase 8 reports)
+VERIFY_KINDS = ((torch.float32, 32, 'float', False, False),
+                (torch.bfloat16, 32, 'float', False, True),
+                (torch.float32, 8, 'float', False, False),
+                (torch.bfloat16, 8, 'float', False, False),
+                (torch.bfloat16, 32, 'int8_window', False, False),
+                (torch.float32, 8, 'int8_window', False, False),
+                (torch.bfloat16, 32, 'float', True, False))
+
+
+def _paged_verify_cases(add, gen, h=32, d=128, kinds=VERIFY_KINDS,
+                        key='paged_attention_verify') -> None:
     """The paged kernel over k + 1 = 5 query rows per slot (the
-    speculative verify) at the serve shape (8 slots, H 32, ctx <= 1024):
-    f32 and bf16, HKV 32 and 8, over int8 pages with the round's window
-    of W = window_count(5, 16) = 2 pages (filled with other values than
-    the pages it stands for), and with an inactive slot (its table row
-    the null page, parked at the slot's last row). Row t of slot n sees
-    lengths[n] + t keys. Bytes: the union of the rows the 5 rows see,
-    read once (the kernel folds them into one block), q, out, table and
-    lengths; with the window the int8 rows below it and their scales and
-    the window's rows in q's dtype."""
+    speculative verify) at the serve shape (8 slots, H query heads, ctx
+    <= 1024, head_dim d), each of `kinds`: f32 and bf16, over float
+    pages or int8 pages with the round's window of W = window_count(5,
+    16) = 2 pages (filled with other values than the pages it stands
+    for), and with an inactive slot (its table row the null page, parked
+    at the slot's last row). Row t of slot n sees lengths[n] + t keys.
+    Bytes: the union of the rows the 5 rows see, read once (the kernel
+    folds them into one block), q, out, table and lengths; with the
+    window the int8 rows below it and their scales and the window's rows
+    in q's dtype."""
     from paddle_tpu_torch.nlp.generation import window_count
     from paddle_tpu_torch.ops import kernels as K
-    n, h, ps, p, t = 8, 32, 16, 64, SPEC_K + 1
+    n, ps, p, t = 8, 16, 64, SPEC_K + 1
     num_pages = n * p + 1
     table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
              + 1).to(torch.int32).reshape(n, p).contiguous()
@@ -1045,21 +1098,16 @@ def _paged_verify_cases(add, gen) -> None:
     last = [ln + t - 1 for ln in VERIFY_LENGTHS]        # keys of row T - 1
     w = window_count(t, ps)
     first = torch.div(lengths - 1, ps, rounding_mode='floor').to(torch.int32)
-    for dtype, hkv, mode, tbl, rep in (
-            (torch.float32, 32, 'float', table, False),
-            (torch.bfloat16, 32, 'float', table, True),
-            (torch.float32, 8, 'float', table, False),
-            (torch.bfloat16, 8, 'float', table, False),
-            (torch.bfloat16, 32, 'int8_window', table, False),
-            (torch.float32, 8, 'int8_window', table, False),
-            (torch.bfloat16, 32, 'float', parked, False)):
-        q = _randn((n, t, h, 128), dtype, gen)
-        shape = (num_pages, ps, hkv, 128)
+    width = '' if d == 128 else f' D={d}'
+    for dtype, hkv, mode, inactive, rep in kinds:
+        tbl = parked if inactive else table
+        q = _randn((n, t, h, d), dtype, gen)
+        shape = (num_pages, ps, hkv, d)
         kw = {}
         elt = torch.tensor([], dtype=dtype).element_size()
         if mode == 'float':
             kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
-            moved = sum(last) * hkv * 128 * elt * 2
+            moved = sum(last) * hkv * d * elt * 2
         else:
             kp, vp = (torch.randint(-127, 128, shape, generator=gen,
                                     device=DEV, dtype=torch.int8)
@@ -1067,25 +1115,25 @@ def _paged_verify_cases(add, gen) -> None:
             kw = dict(zip(('k_scales', 'v_scales'), (
                 torch.rand((num_pages, hkv), generator=gen, device=DEV)
                 / 127 + 1e-3 for _ in range(2))))
-            wshape = (n, w, ps, hkv, 128)
+            wshape = (n, w, ps, hkv, d)
             kw.update(k_win=_randn(wshape, dtype, gen),
                       v_win=_randn(wshape, dtype, gen), win_first=first)
             below = int(first.long().sum()) * ps
-            moved = (below * hkv * 128 * 2 + 2 * int(first.sum()) * hkv * 4
-                     + (sum(last) - below) * hkv * 128 * elt * 2)
+            moved = (below * hkv * d * 2 + 2 * int(first.sum()) * hkv * 4
+                     + (sum(last) - below) * hkv * d * elt * 2)
         args = (q, kp, vp, tbl, lengths)
-        add('paged_attention_verify',
-            f'paged verify {str(dtype)[6:]} N=8 T={t} H=32 HKV={hkv} '
+        add(key,
+            f'paged verify {str(dtype)[6:]} N=8 T={t} H={h} HKV={hkv}{width} '
             f'ctx<=1024' + (f' int8 pages + window W={w}'
                             if mode != 'float' else '')
-            + (' inactive slot' if tbl is parked else ''), dtype,
+            + (' inactive slot' if inactive else ''), dtype,
             lambda a=args, kw=kw: K.paged_attention(*a, **kw),
             lambda a=args, kw=kw: K.paged_attention_reference(*a, **kw),
             None,
             moved + nbytes(q, q, tbl, lengths)
             + (nbytes(first) if mode != 'float' else 0),
-            4 * 128 * h * sum(ln + i for ln in VERIFY_LENGTHS
-                              for i in range(t)), rep=rep)
+            4 * d * h * sum(ln + i for ln in VERIFY_LENGTHS
+                            for i in range(t)), rep=rep)
 
 
 def _flash_serve_case(add, gen, dtype, s, hkv, rep=False, h=32, d=128,
@@ -1306,8 +1354,14 @@ def head64_cases() -> list:
     at BERT-base's fine-tune (full) and a ragged causal GQA shape; in
     f32, bf16 and fp16. The paged kernel at GPT-2 small's decode (8
     slots, H 12, ctx <= 1024, ps 16) with one query row and with T = 5
-    rows, f32 and bf16, and over GQA pages (HKV 4). The bf16 BERT and
-    GPT-2 cases report the `_d64` rows."""
+    rows, f32 and bf16, and over GQA pages (HKV 4); over int8 pages
+    (f32 HKV 12, bf16 HKV 4), with the round's float window
+    (`_paged_window_cases`: offsets 0/9/15, a length-1 slot, an inactive
+    slot; f32 and bf16, HKV 12 and 4) and the verify's T = 5 rows over
+    int8 pages and the window (spans across a page boundary; bf16 HKV
+    12, f32 HKV 4, f32 with an inactive slot). The bf16 BERT and GPT-2
+    cases report the `_d64` rows, the bf16 serve-shape window and verify
+    cases the `_int8_d64` ones."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
     gen = torch.Generator(device=DEV).manual_seed(19)
@@ -1366,6 +1420,36 @@ def head64_cases() -> list:
             4 * d * h * sum(ln + i for ln in lens.tolist()
                             for i in range(t)),
             rep=t == 1 and dtype == torch.bfloat16 and hkv == h)
+    # int8 pages at D = 64 (their launches count under `_int8_d64`): a
+    # decode call without a window, then with the round's window, then
+    # the verify's 5 rows over int8 pages and the window
+    live_rows = int(lengths.sum())
+    for dtype, hkv in ((torch.float32, h), (torch.bfloat16, 4)):
+        q = _randn((n, h, d), dtype, gen)
+        shape = (num_pages, ps, hkv, d)
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, hkv), generator=gen, device=DEV)
+                  / 127 + 1e-3 for _ in range(2))
+        args = (q, kp, vp, table, lengths)
+        add('paged_attention_int8_d64',
+            f'paged {str(dtype)[6:]} N=8 H={h} HKV={hkv} D={d} ctx<=1024 '
+            f'int8 pages', dtype,
+            lambda a=args, ks=ks, vs=vs: K.paged_attention(
+                *a, k_scales=ks, v_scales=vs),
+            lambda a=args, ks=ks, vs=vs: K.paged_attention_reference(
+                *a, k_scales=ks, v_scales=vs),
+            None,
+            nbytes(q, q, table, lengths) + live_rows * hkv * d * 2
+            + 2 * n * p * hkv * 4,
+            4 * d * h * live_rows)
+    _paged_window_cases(add, gen, table, lengths, h=h, d=d, hkvs=(h, 4),
+                        key='paged_attention_int8_d64')
+    _paged_verify_cases(add, gen, h=h, d=d, kinds=(
+        (torch.bfloat16, h, 'int8_window', False, True),
+        (torch.float32, 4, 'int8_window', False, False),
+        (torch.float32, h, 'int8_window', True, False)),
+        key='paged_attention_verify_int8_d64')
     return cases
 
 
@@ -1654,8 +1738,17 @@ def check_consistency(cfg):
     torch.cuda.empty_cache()
 
 
-def check_int8_consistency(cfg):
-    """With `kv_quant='int8'` at 2 layers in f32: the graph engine's
+def causal_lm(cfg):
+    """The port's causal LM class for a config: GPT for a `GPTConfig`,
+    else Llama."""
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForCausalLM,
+                                      LlamaForCausalLM)
+    return GPTForCausalLM if isinstance(cfg, GPTConfig) else LlamaForCausalLM
+
+
+def check_int8_consistency(cfg, label: str = ''):
+    """With `kv_quant='int8'` at 2 layers in f32 (a Llama, or a GPT for a
+    `GPTConfig`; `label` tells the log lines apart): the graph engine's
     tokens equal its eager twin's, greedy and with a seeded sampling
     request; the same with the prefix cache and chunked prefill over the
     serve-prefix trace's paths (suffix hits in chunks, a cold prompt in
@@ -1666,11 +1759,11 @@ def check_int8_consistency(cfg):
     lie within INT8_RMSE_BOUND of float KV. The greedy tokens against
     float KV are logged (int8 rounding may move an argmax)."""
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.nlp import LlamaForCausalLM
     from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
                                           SamplingParams)
-    model = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
-                             generator=ptt.generator(0, DEV))
+    tag, ptag = f'int8-consistency{label}', f'int8-prefix-consistency{label}'
+    model = causal_lm(cfg)(cfg, device=DEV, dtype='float32',
+                           generator=ptt.generator(0, DEV))
     rng = np.random.RandomState(1)
     prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
                for s in (5, 16, 37, 130)]
@@ -1680,13 +1773,12 @@ def check_int8_consistency(cfg):
         temperature=0.8, top_p=0.9, seed=5)]
     eng = InferenceEngine(model, num_slots=8, max_length=1024,
                           decode_block=8, kv_page_size=16, kv_quant='int8')
-    got = graph_equals_eager(eng, prompts + prompts[2:3], params,
-                             'int8-consistency')
+    got = graph_equals_eager(eng, prompts + prompts[2:3], params, tag)
     dense = InferenceEngine(model, num_slots=8, max_length=1024,
                             decode_block=8, kv_page_size=16)
     ref = [h.tokens for h in dense.generate_many(prompts, greedy)]
     same = sum(a == b for a, b in zip(got, ref))
-    log(f'[int8-consistency] {same} of {len(prompts)} greedy requests get '
+    log(f'[{tag}] {same} of {len(prompts)} greedy requests get '
         f'the float-KV engine\'s 16 tokens')
     # the first decode sub-step of phase 6's prompts: the int8 engine
     # against the float engine over its pages roundtripped through int8
@@ -1698,13 +1790,13 @@ def check_int8_consistency(cfg):
     f = first_step_logits(dense, serve_prompts)
     rt = first_step_logits(dense, serve_prompts, roundtrip=True)
     exact, rmse = rel_rmse(q, rt), rel_rmse(q, f)
-    log(f'[int8-consistency] first decode sub-step of {len(serve_prompts)} '
+    log(f'[{tag}] first decode sub-step of {len(serve_prompts)} '
         f'prompts: relative logit RMSE {exact:.3e} against the float engine '
         f'over int8-roundtripped pages (limit {INT8_EXACT}), {rmse:.4e} '
         f'against float KV (the JAX bench\'s bound {INT8_RMSE_BOUND}; the '
         f'roundtripped pages: {rel_rmse(rt, f):.4e})')
     if not (exact <= INT8_EXACT and rmse <= INT8_RMSE_BOUND):
-        raise AssertionError(f'int8 consistency: relative logit RMSE '
+        raise AssertionError(f'{tag}: relative logit RMSE '
                              f'{exact:.3e} against the roundtripped pages, '
                              f'{rmse:.4e} against float KV')
     del eng, dense
@@ -1725,15 +1817,15 @@ def check_int8_consistency(cfg):
         if st['prefix_cache']['hits'] < 4 or st['pool']['cow_splits'] != 1 \
                 or st['chunk_rounds'] < 7:
             raise AssertionError(
-                f'int8 prefix consistency: hits '
+                f'{ptag}: hits '
                 f'{st["prefix_cache"]["hits"]}, COW '
                 f'{st["pool"]["cow_splits"]}, chunk rounds '
                 f'{st["chunk_rounds"]}: the trace missed a path')
-        pages_free_after_clear(e, 'int8-prefix-consistency')
+        pages_free_after_clear(e, ptag)
     if runs[0] != runs[1]:
-        raise AssertionError(f'int8 prefix consistency: graph engine '
+        raise AssertionError(f'{ptag}: graph engine '
                              f'{runs[0]} != eager twin {runs[1]}')
-    log(f'[int8-prefix-consistency] 2 layers f32, int8 KV, {len(prompts)} '
+    log(f'[{ptag}] 2 layers f32, int8 KV, {len(prompts)} '
         f'requests x 16 tokens (suffix hits in chunks, a cold prompt in '
         f'chunks, a full hit with its COW split, one sampling): graph '
         f'engine (captures {eng.stats()["traces"]}) == its eager twin')
@@ -3401,16 +3493,29 @@ def prefix_trace(vocab: int, rng) -> tuple:
                   + shared[10:] + cold[1:])
 
 
-def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
+def prefix_params(n: int) -> list:
+    """The serve-prefix trace's parameters: 32 greedy tokens each, request
+    3 sampling (seeded)."""
+    from paddle_tpu_torch.serving import SAMPLING, SamplingParams
+    params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
+              for _ in range(n)]
+    params[3] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=11)
+    return params
+
+
+def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
+                kernels=SERVE_KERNELS) -> dict:
     """The warm-up prompt alone (it seeds the cache), then the trace once
     (a graph engine captures the prefill buckets the trace uses, and a
     capture's warm-up launches count), then a fresh cache and the
     warm-up prompt again, so that the counted run starts from the same
     state, runs the same buckets and captures nothing. The counted run
     of `prompts` is stepped by hand to read the pool's peak of used
-    pages; launches of SERVE_KERNELS are read around it, and the flash
-    forward must have launched once per layer of every whole prefill and
-    chunk (graph replays counted). Every request must finish with 32
+    pages; launches of `kernels` (the flash forward's key first) are
+    read around it, and the flash forward must have launched once per
+    layer of every whole prefill and chunk (graph replays counted). Every request must finish with 32
     tokens in range, and `traces` must name exactly the decode sub-step
     and the (kind, bucket) of every prefill the runs ran, for what the
     engine captures."""
@@ -3460,7 +3565,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
         wall = time.perf_counter() - t0
     finally:
         del eng._run_prefill
-    launches = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
+    launches = {k: K.LAUNCHES[k] for k in kernels}
     for h in handles:
         if h.status != FINISHED or len(h.tokens) != 32 or \
                 not all(0 <= t < vocab for t in h.tokens):
@@ -3482,9 +3587,9 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int) -> dict:
                              f'the warm-up did not')
     layers = eng.model.config.num_hidden_layers
     want_flash = layers * (st['prefills'] + st['chunk_rounds'])
-    if launches['flash_attention_fwd'] != want_flash:
+    if launches[kernels[0]] != want_flash:
         raise AssertionError(
-            f'{tag}: {launches["flash_attention_fwd"]} flash launches, want '
+            f'{tag}: {launches[kernels[0]]} flash launches, want '
             f'{layers} x ({st["prefills"]} prefills + {st["chunk_rounds"]} '
             f'chunks) = {want_flash}')
     cache = st.get('prefix_cache', {})
@@ -3720,16 +3825,11 @@ def serve_prefix(served) -> dict:
     clear. Logs each engine beside the cold twins, the device memory
     each engine holds after its captures, and the walls of the prefills
     phase 7 profiles, captured and eager."""
-    from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
-                                          SamplingParams)
+    from paddle_tpu_torch.serving import InferenceEngine
     model = served['engine'].model
     warm, prompts = prefix_trace(model.config.vocab_size,
                                  np.random.RandomState(5))
-    params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
-              for _ in prompts]
-    params[3] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
-                               strategy=SAMPLING, temperature=0.8,
-                               top_p=0.9, seed=11)
+    params = prefix_params(len(prompts))
     runs = {}
     for tag, opts, decode_graph, prefill_graph in PREFIX_RUNS:
         r0 = reserved_gb()
@@ -3808,7 +3908,6 @@ def serve_prefix(served) -> dict:
         f'forward of {layers} layers')
     res['gather_ms'] = ms
     res['eager'], res['eager_prefill'] = eager, parent
-    res['params'] = params
     release(eager)
     return res
 
@@ -3887,18 +3986,91 @@ def rel_rmse(got, want) -> float:
     return float((got - want).norm() / ref.norm())
 
 
+def int8_logit_rmse(bf16, eng, prompts, tag: str) -> tuple:
+    """(rmse, ref_rmse): the first decode sub-step's relative logit RMSE
+    of `prompts` on the int8 engine `eng` against the float-KV engine
+    `bf16`, and that of the JAX bench's int8 arm (`bf16` over its pages
+    roundtripped through int8). Logged; the first must stay within
+    INT8_REF_SLACK times the second."""
+    want = first_step_logits(bf16, prompts)
+    got = first_step_logits(eng, prompts)
+    ref = first_step_logits(bf16, prompts, roundtrip=True)
+    rmse, ref_rmse = rel_rmse(got, want), rel_rmse(ref, want)
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    log(f'[{tag}] first decode sub-step of the {len(prompts)} prompts: '
+        f'relative logit RMSE {rmse:.4e} against the bf16-KV engine, the '
+        f'JAX bench\'s int8 arm (its pages roundtripped through int8) '
+        f'{ref_rmse:.4e} (limit {INT8_REF_SLACK} x that; the bench\'s '
+        f'4-layer bound {INT8_RMSE_BOUND}), against each other '
+        f'{rel_rmse(got, ref):.4e}; argmax equal on {agree} of '
+        f'{len(prompts)}')
+    if not rmse <= INT8_REF_SLACK * ref_rmse:
+        raise AssertionError(f'{tag}: relative logit RMSE {rmse:.4e} '
+                             f'> {INT8_REF_SLACK} x the bench\'s int8 arm\'s '
+                             f'{ref_rmse:.4e}')
+    return rmse, ref_rmse
+
+
+def int8_prefix_runs(model, tag: str, kernels=SERVE_KERNELS):
+    """(graph run, eager run) of phase 6c's serve-prefix trace and
+    parameters (`prefix_params`) on `model`
+    behind the int8 prefix/chunk engine (PREFIX_ENGINE + PREFIX_OPTS,
+    `kv_quant='int8'`) and its eager twin, each warmed as `_run_prefix`
+    says and every page free after a forced clear; their tokens must be
+    equal."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    warm, trace = prefix_trace(model.config.vocab_size,
+                               np.random.RandomState(5))
+    runs = []
+    for rtag, graph in ((f'{tag}-prefix', True),
+                        (f'{tag}-prefix eager', False)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        e = InferenceEngine(model, **PREFIX_ENGINE, **PREFIX_OPTS,
+                            kv_quant='int8')
+        e._capture_decode = e._capture_prefill = graph
+        runs.append(_run_prefix(e, warm, trace, prefix_params(len(trace)),
+                                rtag, base, kernels))
+        pages_free_after_clear(e, rtag)
+        del e
+    pre, pre_eager = runs
+    if pre['tokens'] != pre_eager['tokens']:
+        diff = {j: first_difference(a, b) for j, (a, b) in enumerate(
+            zip(pre['tokens'], pre_eager['tokens'])) if a != b}
+        raise AssertionError(f'{tag}-prefix: graph and eager tokens differ '
+                             f'in requests {diff} ({{request: first '
+                             f'position}}): graph {pre["tokens"]} eager '
+                             f'{pre_eager["tokens"]}')
+    log(f'[{tag}-prefix] graph == eager: the tokens of all {len(trace)} '
+        f'requests are equal (sampling included)')
+    return pre, pre_eager
+
+
+def check_int8_launches(runs, key: str, layers: int, tag: str) -> None:
+    """The int8 paged call (LAUNCHES `key`) once per layer of every decode
+    sub-step on each of `runs` ({tag: run}), replays counted."""
+    for rtag, run in runs.items():
+        if run['launches'][key] != layers * run['decode_steps']:
+            raise AssertionError(
+                f'{rtag}: {run["launches"][key]} int8 paged launches, want '
+                f'{layers} x {run["decode_steps"]} decode sub-steps')
+    first = next(iter(runs.values()))
+    log(f'[{tag}] int8 paged launches ({key}) = {layers} x decode sub-steps '
+        f'on all {len(runs)} runs ({first["launches"][key]} on the graph '
+        f'serve run, replays counted)')
+
+
 def serve_int8(served, prefixed) -> dict:
     """Phase 6's Llama-2-7B behind the same engine with `kv_quant='int8'`:
     phase 6's 12 requests (graph and eager twin), then phase 6c's
-    serve-prefix trace (`PREFIX_OPTS`, graph and eager twin, each warmed
-    as `_run_prefix` says). Gates: graph tokens equal eager tokens in
-    both; `traces` exactly the buckets run; the paged kernel launched
-    once per layer of every decode sub-step (replays counted); the first
-    decode sub-step's relative logit RMSE of phase 6's prompts against
-    phase 6's bf16-KV engine at most INT8_REF_SLACK times that of the
-    JAX bench's int8 arm (the bf16 engine over its pages roundtripped
-    through int8). Logs each beside phase 6 and 6c: pool bytes, decode
-    tok/s, TTFT, peak used pages."""
+    serve-prefix trace (`int8_prefix_runs`). Gates: graph tokens equal
+    eager tokens in both; `traces` exactly the buckets run; the paged
+    kernel launched once per layer of every decode sub-step (replays
+    counted); the first decode sub-step's relative logit RMSE of phase
+    6's prompts against phase 6's bf16-KV engine at most INT8_REF_SLACK
+    times that of the JAX bench's int8 arm (`int8_logit_rmse`). Logs
+    each beside phase 6 and 6c: pool bytes, decode tok/s, TTFT, peak
+    used pages."""
     from paddle_tpu_torch.serving import InferenceEngine
     bf16 = served['engine']
     model = bf16.model
@@ -3917,63 +4089,15 @@ def serve_int8(served, prefixed) -> dict:
                      base)
     eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
                         'serve-int8')
-    want = first_step_logits(bf16, prompts)
-    got = first_step_logits(eng, prompts)
-    ref = first_step_logits(bf16, prompts, roundtrip=True)
-    rmse, ref_rmse = rel_rmse(got, want), rel_rmse(ref, want)
-    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-    log(f'[serve-int8] first decode sub-step of the {len(prompts)} prompts: '
-        f'relative logit RMSE {rmse:.4e} against the bf16-KV engine, the '
-        f'JAX bench\'s int8 arm (its pages roundtripped through int8) '
-        f'{ref_rmse:.4e} (limit {INT8_REF_SLACK} x that; the bench\'s '
-        f'4-layer bound {INT8_RMSE_BOUND}), against each other '
-        f'{rel_rmse(got, ref):.4e}; argmax equal on {agree} of '
-        f'{len(prompts)}')
-    if not rmse <= INT8_REF_SLACK * ref_rmse:
-        raise AssertionError(f'serve-int8: relative logit RMSE {rmse:.4e} '
-                             f'> {INT8_REF_SLACK} x the bench\'s int8 arm\'s '
-                             f'{ref_rmse:.4e}')
+    rmse, ref_rmse = int8_logit_rmse(bf16, eng, prompts, 'serve-int8')
     same = sum(a == b for a, b in zip(res['tokens'], served['tokens']))
     log(f'[serve-int8] {same} of {len(prompts)} requests get the bf16-KV '
         f'engine\'s 32 tokens')
-    # the serve-prefix trace
-    warm, trace = prefix_trace(model.config.vocab_size,
-                               np.random.RandomState(5))
-    pparams = prefixed['params']
-    runs = {}
-    for tag, graph in (('serve-int8-prefix', True),
-                       ('serve-int8-prefix eager', False)):
-        torch.cuda.synchronize()
-        pbase = torch.cuda.memory_allocated()
-        e = InferenceEngine(model, **PREFIX_ENGINE, **PREFIX_OPTS,
-                            kv_quant='int8')
-        e._capture_decode = e._capture_prefill = graph
-        runs[tag] = _run_prefix(e, warm, trace, pparams, tag, pbase)
-        pages_free_after_clear(e, tag)
-        del e
-    pre, pre_eager = runs['serve-int8-prefix'], runs['serve-int8-prefix eager']
-    if pre['tokens'] != pre_eager['tokens']:
-        diff = {j: next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-                for j, (a, b) in enumerate(zip(pre['tokens'],
-                                               pre_eager['tokens'])) if a != b}
-        raise AssertionError(f'serve-int8-prefix: graph and eager tokens '
-                             f'differ in requests {diff} ({{request: first '
-                             f'position}}): graph {pre["tokens"]} eager '
-                             f'{pre_eager["tokens"]}')
-    log(f'[serve-int8-prefix] graph == eager: the tokens of all '
-        f'{len(trace)} requests are equal (sampling included)')
-    for tag, run in (('serve-int8', res), ('serve-int8 eager', eager),
-                     ('serve-int8-prefix', pre),
-                     ('serve-int8-prefix eager', pre_eager)):
-        want_paged = layers * run['decode_steps']
-        if run['launches']['paged_attention'] != want_paged:
-            raise AssertionError(
-                f'{tag}: {run["launches"]["paged_attention"]} paged launches,'
-                f' want {layers} x {run["decode_steps"]} decode sub-steps = '
-                f'{want_paged}')
-    log(f'[serve-int8] int8 paged launches = {layers} x decode sub-steps on '
-        f'all four runs ({res["launches"]["paged_attention"]} on the graph '
-        f'serve run, replays counted)')
+    pre, pre_eager = int8_prefix_runs(model, 'serve-int8')
+    check_int8_launches({'serve-int8': res, 'serve-int8 eager': eager,
+                         'serve-int8-prefix': pre,
+                         'serve-int8-prefix eager': pre_eager},
+                        'paged_attention', layers, 'serve-int8')
     for key, fmt in (('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
                      ('ttft_p50_s', '.3f'), ('ttft_max_s', '.3f'),
                      ('peak_pages', 'd'), ('prefill_s', '.3f'),
@@ -3987,8 +4111,8 @@ def serve_int8(served, prefixed) -> dict:
     log(f'[serve-int8-prefix] hits {pre["hits"]}, COW splits '
         f'{pre["cow_splits"]}, chunk rounds {pre["chunk_rounds"]} (bf16: '
         f'{prefixed["hits"]}, {prefixed["cow_splits"]}, '
-        f'{prefixed["chunk_rounds"]}); {prefix_same} of {len(trace)} '
-        f'requests get the bf16-KV tokens')
+        f'{prefixed["chunk_rounds"]}); {prefix_same} of '
+        f'{len(pre["tokens"])} requests get the bf16-KV tokens')
     res.update(engine=eng, eager=eager, prefix=pre, rmse=rmse,
                ref_rmse=ref_rmse, prompts=prompts)
     res['launches']['paged_attention_int8_window'] = \
@@ -6719,6 +6843,15 @@ def rung_step_s(step, batches, steps: int = TRAIN_STEPS) -> tuple:
 # leaves it to XLA): their serving path runs the attention kernels only
 GPT_SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention')
 GPT2_SERVE_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64')
+# with int8 KV: at D = 128 the paged call over int8 pages counts as any
+# paged call (GPT_SERVE_KERNELS; its row in the kernel table is
+# paged_attention_int8_window); at D = 64 under keys of its own; the GPT
+# draft's sub-steps run the float D = 64 paged kernel over its pool, the
+# verify the int8 one
+GPT2_INT8_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_int8_d64')
+GPT2_SPEC_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64',
+                     'paged_attention_verify_int8_d64')
+GPT_DRAFT_LAYERS = 2
 GPT_TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                      'flash_attention_bwd_dkv', 'softmax_ce_fwd',
                      'softmax_ce_bwd', 'multi_tensor_adam')
@@ -6812,7 +6945,8 @@ def serve_gpt(cfg, tag: str, kernels, seed: int) -> dict:
     twin's, a default-target bank's wave (`_gpt_bank_wave`), and
     `generate()` against the engine (`_generate_equals_engine`). Logs
     decode tok/s and the analytic catalog's share of the HBM roof over
-    the counted run's decode blocks."""
+    the counted run's decode blocks. The result holds the graph engine
+    under 'engine' (`serve_gpt_int8` serves its model again)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.nlp import GPTForCausalLM
@@ -6859,12 +6993,134 @@ def serve_gpt(cfg, tag: str, kernels, seed: int) -> dict:
     release(eager)
     banked = _gpt_bank_wave(model, res, kernels, tag)
     _generate_equals_engine(model, res, tag)
-    res['launches'] = {k: res['launches'].get(k, 0)
-                       + eager['launches'].get(k, 0)
-                       + banked['launches'].get(k, 0)
-                       for k in set(res['launches']) | set(banked['launches'])}
-    res.pop('engine', None)
+    res['launches'] = _summed(res, eager, banked)
+    res['engine'] = eng
     return res
+
+
+def _summed(*runs) -> dict:
+    """The runs' launch counts, summed by key."""
+    keys = set().union(*(r['launches'] for r in runs))
+    return {k: sum(r['launches'].get(k, 0) for r in runs) for k in keys}
+
+
+def serve_gpt_int8(served, tag: str, kernels, draft_seed=None) -> dict:
+    """`serve_gpt`'s model behind the same engine with `kv_quant='int8'`
+    (bf16, full width and depth): the served requests on the graph
+    engine and its eager twin, then phase 6c's serve-prefix trace
+    (`int8_prefix_runs`). Gates: graph tokens equal eager tokens in
+    both; `traces` exactly the buckets run; the int8 paged call
+    (`kernels[1]`) once per layer of every decode sub-step
+    (`check_int8_launches`); the first decode sub-step's logit RMSE
+    against the bf16-KV engine (`int8_logit_rmse`); every page free
+    after a forced clear. With `draft_seed`, then
+    `serve_gpt_spec_int8`. Logs the KV bytes beside the bf16 pool's,
+    decode tok/s and TTFT beside the bf16 run, the seconds it took. The
+    launches of every run are summed; at D = 128 the int8 paged calls
+    count under `paged_attention_int8_window`, the kernel table's row
+    for them."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    t0 = time.perf_counter()
+    bf16 = served['engine']
+    model = bf16.model
+    paged = kernels[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, kv_quant='int8')
+    log(f'[{tag}] KV pool {eng.pool.num_pages} pages, '
+        f'{eng.pool.pool_bytes / 1e9:.4f} GB int8 with scales, against '
+        f'{bf16.pool.pool_bytes / 1e9:.4f} GB bf16; window '
+        f'{sum(t.nbytes for kv in eng._decode._windows for t in kv) / 1e6:.1f}'
+        f' MB')
+    prompts, params = served['prompts'], served['params']
+    res = _run_serve(eng, prompts, params, None, kernels, tag, base)
+    eager = serve_eager(eng, res, prompts, params, None, kernels, tag)
+    release(eager)
+    rmse, ref_rmse = int8_logit_rmse(bf16, eng, prompts, tag)
+    del eng
+    same = sum(a == b for a, b in zip(res['tokens'], served['tokens']))
+    log(f'[{tag}] {same} of {len(prompts)} requests get the bf16-KV '
+        f'engine\'s 32 tokens')
+    pre, pre_eager = int8_prefix_runs(model, tag, kernels)
+    runs = {tag: res, f'{tag} eager': eager, f'{tag}-prefix': pre,
+            f'{tag}-prefix eager': pre_eager}
+    check_int8_launches(runs, paged, model.config.num_hidden_layers, tag)
+    log(f'[{tag}-prefix] hits {pre["hits"]}, COW splits '
+        f'{pre["cow_splits"]}, chunk rounds {pre["chunk_rounds"]}')
+    for key, fmt in (('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
+                     ('ttft_max_s', '.3f'), ('peak_pages', 'd'),
+                     ('peak_mem_gb', '.3f')):
+        log(f'[{tag}]   {key}: int8 {res[key]:{fmt}} (eager '
+            f'{eager[key]:{fmt}}) vs bf16 {served[key]:{fmt}}; prefix/chunk '
+            f'int8 {pre[key]:{fmt}} (eager {pre_eager[key]:{fmt}})')
+    out = {'tokens': res['tokens'], 'rmse': rmse, 'ref_rmse': ref_rmse,
+           'decode_tok_per_s': res['decode_tok_per_s'],
+           'launches': _summed(*runs.values())}
+    if paged == 'paged_attention':
+        out['launches']['paged_attention_int8_window'] = \
+            out['launches'].pop('paged_attention')
+    log(f'[{tag}] int8 serve and prefix/chunk runs took '
+        f'{time.perf_counter() - t0:.1f} s')
+    if draft_seed is not None:
+        spec = serve_gpt_spec_int8(served, out, f'{tag}-draft', draft_seed)
+        out['launches'] = _summed(out, spec)
+        out['spec'] = spec['spec']
+    return out
+
+
+def serve_gpt_spec_int8(served, int8_run, tag: str, seed: int) -> dict:
+    """`serve_gpt`'s model over int8 KV with a GPT_DRAFT_LAYERS-layer
+    random GPT draft of its width (bf16, weights from `seed`), k = SPEC_K,
+    the served requests on the graph engine and its eager twin: equal
+    tokens; the verify (k + 1 rows over int8 pages and the round's
+    window, `GPT2_SPEC_KERNELS[2]`) once per layer of every round; the
+    draft's float paged kernel launched. Logs the acceptance, decode
+    tok/s beside the plain int8 engine's, and how many requests get its
+    tokens (the verify's rejected rows enter the touched pages' requantize
+    scales, as in the JAX engine: a reading, not a gate)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import GPTForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine
+    t0 = time.perf_counter()
+    model = served['engine'].model
+    layers = model.config.num_hidden_layers
+    draft = GPTForCausalLM(draft_config(model.config, GPT_DRAFT_LAYERS),
+                           device=DEV, dtype='bfloat16',
+                           generator=ptt.generator(seed, DEV))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          kv_page_size=16, kv_quant='int8',
+                          draft_model=draft, num_draft_tokens=SPEC_K)
+    prompts, params = served['prompts'], served['params']
+    res = _run_serve(eng, prompts, params, None, GPT2_SPEC_KERNELS, tag,
+                     base)
+    spec = eng.stats()['spec']
+    verify = GPT2_SPEC_KERNELS[2]
+    if res['launches'][verify] != layers * res['decode_steps'] or \
+            spec['rounds'] != res['decode_steps']:
+        raise AssertionError(f'{tag}: {res["launches"][verify]} verify '
+                             f'launches, want {layers} x '
+                             f'{res["decode_steps"]} rounds')
+    eager = serve_eager(eng, res, prompts, params, None, GPT2_SPEC_KERNELS,
+                        tag)
+    release(eager)
+    same = sum(a == b for a, b in zip(res['tokens'], int8_run['tokens']))
+    per_round = 1 + spec['accepted'] / max(spec['proposed'] / SPEC_K, 1)
+    log(f'[{tag}] k={SPEC_K}, {GPT_DRAFT_LAYERS}-layer random draft: '
+        f'{spec["rounds"]} rounds, acceptance rate '
+        f'{spec["acceptance_rate"]:.4f}, {per_round:.3f} tokens per round '
+        f'per greedy slot; decode {res["decode_tok_per_s"]:.1f} tok/s '
+        f'against the plain int8 engine\'s '
+        f'{int8_run["decode_tok_per_s"]:.1f}; {same} of {len(prompts)} '
+        f'requests get the plain int8 engine\'s tokens; the draft\'s '
+        f'paged launches {res["launches"][GPT2_SPEC_KERNELS[1]]}, the '
+        f'verify\'s {res["launches"][verify]}; took '
+        f'{time.perf_counter() - t0:.1f} s')
+    del eng, draft
+    return {'spec': spec, 'tokens': res['tokens'],
+            'launches': _summed(res, eager)}
 
 
 def train_gpt() -> dict:
@@ -6981,16 +7237,22 @@ def bert_phase() -> dict:
 
 
 def gpt_family() -> dict:
-    """Phase 9: gpt-serve, gpt2-serve, gpt-train, bert; {name: result}
-    with each run's launch counts."""
+    """Phase 9: gpt-serve and gpt-serve-int8, gpt2-serve and
+    gpt2-serve-int8 (its prefix/chunk and GPT-draft runs included),
+    gpt-train, bert; {name: result} with each run's launch counts."""
     from paddle_tpu_torch.nlp import GPTConfig
     t0 = time.perf_counter()
-    out = {'gpt-serve': serve_gpt(GPTConfig.gpt3_1p3b(), 'gpt-serve',
-                                  GPT_SERVE_KERNELS, 1919)}
-    release(out['gpt-serve'])
-    out['gpt2-serve'] = serve_gpt(GPTConfig.gpt2_small(), 'gpt2-serve',
-                                  GPT2_SERVE_KERNELS, 1920)
-    release(out['gpt2-serve'])
+    out = {}
+    for name, cfg, kernels, int8_kernels, seed, draft_seed in (
+            ('gpt', GPTConfig.gpt3_1p3b(), GPT_SERVE_KERNELS,
+             GPT_SERVE_KERNELS, 1919, None),
+            ('gpt2', GPTConfig.gpt2_small(), GPT2_SERVE_KERNELS,
+             GPT2_INT8_KERNELS, 1920, 1921)):
+        served = out[f'{name}-serve'] = serve_gpt(cfg, f'{name}-serve',
+                                                  kernels, seed)
+        out[f'{name}-serve-int8'] = serve_gpt_int8(
+            served, f'{name}-serve-int8', int8_kernels, draft_seed)
+        release(served)
     out['gpt-train'] = train_gpt()
     release(out['gpt-train'])
     out['bert'] = bert_phase()
@@ -7081,7 +7343,8 @@ def main() -> int:
             f'{flops / dt / PEAK_OPS_PER_S[torch.bfloat16]:.4f}, peak device '
             f'memory {peak / 1e9:.2f} GB in all')
         return 0
-    from paddle_tpu_torch.nlp import LlamaConfig  # fails outside the repo
+    # fails outside the repo
+    from paddle_tpu_torch.nlp import GPTConfig, LlamaConfig
     if sys.argv[1:2] == ['--train-rungs']:
         # python3 chip_smoke.py --train-rungs: phase 2's training kernels at
         # the rungs' shapes (checked and timed), phase 4, phase 5, then
@@ -7123,20 +7386,21 @@ def main() -> int:
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
     if sys.argv[1:2] == ['--gpt']:
-        # python3 chip_smoke.py --gpt: phase 2's D = 64 cases, then phase 9
-        # alone, then the D = 64 cases timed
+        # python3 chip_smoke.py --gpt: phase 2's D = 64 cases, phase 3's
+        # int8 check at GPT-2 width, then phase 9 alone, then the D = 64
+        # cases timed
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
         build()
         d64 = head64_cases()
         check_kernels(d64)
+        check_int8_consistency(draft_config(GPTConfig.gpt2_small(), 2),
+                               ' gpt2-width')
         gpt = gpt_family()
         time_kernels(d64)
-        log('[gpt] launches ' + json.dumps({
-            k: sum(r['launches'].get(k, 0) for r in gpt.values())
-            for k in GPT_TRAIN_KERNELS + BERT_TRAIN_KERNELS
-            + GPT2_SERVE_KERNELS + ('paged_attention', 'adapter_matmul')}))
+        log('[gpt] launches ' + json.dumps(dict(sorted(
+            _summed(*gpt.values()).items()))))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
     if sys.argv[1:2] == ['--procs']:
@@ -7170,6 +7434,8 @@ def main() -> int:
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_prefix_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_int8_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    check_int8_consistency(draft_config(GPTConfig.gpt2_small(), 2),
+                           ' gpt2-width')
     check_spec_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))

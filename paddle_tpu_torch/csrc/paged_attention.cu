@@ -38,8 +38,9 @@
 //   from the table itself and puts every K and V row of its run in
 //   flight at once: 16-byte cp.async copies (4 f32, 8 bf16 or 16 int8
 //   values each) into shared memory, chunk c of row t stored at chunk
-//   c ^ (t % 8), so that the 16-byte reads below are free of bank
-//   conflicts. Thread (row slot r = tid / 16, 8-column group tid % 16)
+//   c ^ (t % 8) of its row (`chunk_at`; rows of 4 chunks below), so
+//   that the 16-byte reads below are free of bank conflicts. Thread (row
+//   slot r = tid / 16, 8-column group tid % 16)
 //   then takes rows r, r + 8, ...: the scores q . k of up to 8 query
 //   rows at a time (a pass: T x G <= 8 rows are one pass, as in decode;
 //   up to 32 rows take 2 to 4 passes of equal width, and a pass holds
@@ -78,14 +79,29 @@
 // the workspace from PyTorch's caching allocator, so a call can be
 // captured by a CUDA graph.
 //
-// Head widths: every kernel is a template over D, built for D = 128 and,
-// over pages in q's dtype (f32 or bf16), for D = 64 (GPT-2, BERT,
-// ERNIE). A key row is spread over D / 8 threads of 8 columns each (16
-// at D = 128, 8 at D = 64), so a block of 128 threads holds 128 / (D /
-// 8) key rows at a time, the score reduce-scatter runs over D / 8 lanes
-// and the combine has one thread per column. The int8 split and window
-// kernels stay at D = 128: an int8 call at D = 64 is refused (ROADMAP,
-// Queue 2).
+// Head widths: every kernel is a template over D, built for D = 128 and
+// D = 64 (GPT-2, BERT, ERNIE), over pages in q's dtype (f32 or bf16) and
+// over int8 pages with their window. A key row is spread over D / 8
+// threads of 8 columns each (16 at D = 128, 8 at D = 64), so a block of
+// 128 threads holds 128 / (D / 8) key rows at a time, the score
+// reduce-scatter runs over D / 8 lanes and the combine has one thread
+// per column.
+//
+// The tile layout of a 64-byte row (int8 at D = 64: 4 chunks). Every
+// other row is 128 bytes or more (8 chunks and up: bf16 at D = 64 and
+// int8 at D = 128 are 128 bytes, f32 at D = 64 256), and chunk c of row
+// t sits at c ^ (t & 7) inside its own row. XOR with t & 7 over 4 chunks
+// would reach chunks 4..7, which are the next row's bytes, so a 64-byte
+// row XORs with t & 3 and stays inside its 64 bytes: the tile is then
+// two rows per 128-byte line, each row's 4 chunks permuted within it.
+// Its reads stay free of bank conflicts. row8<D>(const int8_t*) gives a
+// thread 8 bytes, at chunk dg >> 1, offset (dg & 1) * 8, of one row; an
+// 8-byte shared load is served a half-warp (16 lanes) at a time, and
+// with 8 lanes a row the 16 lanes of a half-warp read rows t and t + 1
+// (t even, so a 128-byte-aligned line) whole: 16 distinct 8-byte words
+// of 128 contiguous bytes, all 32 banks once. The cp.async staging moves
+// 4 chunks a row (2 x 64 keys x 64 B = 8 KB of K and V a split), and 8
+// neighbouring threads store one whole line, permuted: conflict-free too.
 #include <cmath>
 
 #include "common.cuh"
@@ -118,10 +134,16 @@ __host__ __device__ __forceinline__ int n_parts(const PagedArgs& a) {
   return a.splits + (a.w > 0 ? 1 : 0);
 }
 
-// byte offset of 16-byte chunk c of row t in a [kSplitKeys][D] tile of T
+// byte offset of 16-byte chunk c of row t in a [kSplitKeys][D] tile of T:
+// swizzled inside the row, over 8 chunks, or over 4 in a 64-byte row (the
+// note above; tests/test_torch_smoke.py mirrors it)
 template <int D, typename T>
 __device__ __forceinline__ int chunk_at(int t, int c) {
-  return t * D * static_cast<int>(sizeof(T)) + ((c ^ (t & 7)) << 4);
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static_assert(kRowBytes == 64 || kRowBytes % 128 == 0,
+                "tile rows of 64 bytes or whole 128-byte lines");
+  constexpr int kMask = kRowBytes == 64 ? 3 : 7;
+  return t * kRowBytes + ((c ^ (t & kMask)) << 4);
 }
 
 // The 8 columns a thread of column group dg (0 .. D/8 - 1) owns: 8 dg ..
@@ -175,9 +197,10 @@ __device__ __forceinline__ void row8(const int8_t* tile, int t, int dg,
 
 template <int D, typename TKV, int kG, int kRows>
 constexpr size_t split_smem_bytes() {
-  // K and V tiles, the warps' partial P V [kWarps][kG][D] of a pass,
-  // scores then probabilities [kRows][kSplitKeys], and the rows' k and v
-  // scales
+  // K and V tiles (2 x 64 rows of D x sizeof(TKV) bytes: 8 KB for int8
+  // at D = 64, 64 KB for f32 at D = 128), the warps' partial P V
+  // [kWarps][kG][D] of a pass, scores then probabilities
+  // [kRows][kSplitKeys], and the rows' k and v scales
   return 2 * kSplitKeys * D * sizeof(TKV) +
          (kWarps * kG * D + kRows * kSplitKeys + 2 * kSplitKeys) *
              sizeof(float);
@@ -598,7 +621,7 @@ int launch(const PagedArgs& a, int n, cudaStream_t stream) {
 // (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot, kv
 // head); `w` window pages (0: no window; int8 pages only, w * ps <= 64);
 // `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h / hkv,
-// d + 2]; `d` is 128, or 64 over pages in q's dtype.
+// d + 2]; `d` is 128 or 64.
 PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* table,
                                    const void* lengths, const void* k_scales,
@@ -610,8 +633,7 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
                                    int kv_dtype, int d, void* stream) {
   if (t < 1 || pps < 1 || pps * ps > kSplitKeys ||
       splits != (p + pps - 1) / pps || w < 0 || w * ps > kSplitKeys ||
-      (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64) ||
-      (d == 64 && kv_dtype == PTT_INT8))
+      (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -642,8 +664,10 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
     return d == 64 ? launch<64, __nv_bfloat16, __nv_bfloat16, false>(a, n, s)
                    : launch<128, __nv_bfloat16, __nv_bfloat16, false>(a, n, s);
   if (q_dtype == PTT_F32 && kv_dtype == PTT_INT8)
-    return launch<128, float, int8_t, true>(a, n, s);
+    return d == 64 ? launch<64, float, int8_t, true>(a, n, s)
+                   : launch<128, float, int8_t, true>(a, n, s);
   if (q_dtype == PTT_BF16 && kv_dtype == PTT_INT8)
-    return launch<128, __nv_bfloat16, int8_t, true>(a, n, s);
+    return d == 64 ? launch<64, __nv_bfloat16, int8_t, true>(a, n, s)
+                   : launch<128, __nv_bfloat16, int8_t, true>(a, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -43,15 +43,18 @@ kernels; any other dtype raises. RMSNorm, CE, the paged kernel and the
 adapter kernel take f32 and bf16 only: AMP keeps the first two in f32
 (its black list), and the serving path runs no fp16 model. One
 `paged_attention` call launches two device kernels (the split-context
-pass and its combine) and counts once: under `paged_attention` when q
-holds one query row per slot (decode), under `paged_attention_verify`
+pass and its combine; over int8 pages with the decode round's window
+also the window's split) and counts once: under `paged_attention` when
+q holds one query row per slot (decode), under `paged_attention_verify`
 when it holds several (a speculative verify).
 
 Head widths. The flash kernels (forward, dq, dk/dv, every dtype) and
-the paged kernel over pages in q's dtype are built for D = 128 and
-D = 64; the D = 64 launches count under keys of their own (`_d64`,
-after any `_fp16`). The int8 paged kernels are built for D = 128 only
-and refuse D = 64 (ROADMAP, Queue 2). Unmasked attention with D < 64
+the paged kernels (over pages in q's dtype, and over int8 pages with
+the round's window) are built for D = 128 and D = 64; the D = 64
+launches count under keys of their own (`_d64`, after any `_fp16`; the
+paged call over int8 pages at D = 64 under `paged_attention_int8_d64`
+and `paged_attention_verify_int8_d64`, while at D = 128 it counts as
+any other paged call). Unmasked attention with D < 64
 takes the plain version on every device (`flash_head_dim_ok`), as the
 JAX package sends it to XLA (`paddle_tpu/ops/pallas.py:95`): a shape
 rule decided before any launch. Any other D raises on the card.
@@ -80,6 +83,8 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dq_fp16_d64': 0,
             'flash_attention_bwd_dkv_fp16_d64': 0,
             'paged_attention_d64': 0, 'paged_attention_verify_d64': 0,
+            'paged_attention_int8_d64': 0,
+            'paged_attention_verify_int8_d64': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
             'adapter_matmul': 0, 'multi_tensor_adam': 0,
             'multi_tensor_sumsq': 0}
@@ -674,8 +679,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     q.dtype, win_first int32 on the device): the int8 splits skip the
     window's pages, and one more split per (slot, kv head) attends the
     window's W * ps <= PAGED_SPLIT_KEYS rows, so each split reads one
-    dtype. The call counts once: under `paged_attention` for a 3-D q,
-    under `paged_attention_verify` for a 4-D one."""
+    dtype. Every kernel is built for head_dim 128 and 64. The call counts
+    once: under `paged_attention` for a 3-D q, under
+    `paged_attention_verify` for a 4-D one, with `_d64` at head_dim 64
+    (`_int8_d64` over int8 pages there)."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
     window = (k_win, v_win, win_first)
@@ -707,10 +714,6 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
              and tuple(v_pages.shape) == tuple(k_pages.shape),
              f'paged kernel is built for head_dim {HEAD_DIMS}, got '
              f'q {tuple(q.shape)} pages {tuple(k_pages.shape)}')
-    _require(not (quant and d == 64),
-             'the int8 paged kernels are built for head_dim 128 only; '
-             'int8 pages at head_dim 64 wait for their D = 64 '
-             'instantiation (ROADMAP, Queue 2)')
     _require(hkv >= 1 and h % hkv == 0 and t >= 1
              and t * (h // hkv) <= PAGED_MAX_ROWS,
              f'paged kernel takes at most {PAGED_MAX_ROWS} query rows (T x '
@@ -761,7 +764,8 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             _DTYPE_CODE[k_pages.dtype], d, _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
     LAUNCHES[('paged_attention_verify' if q.dim() == 4
-              else 'paged_attention') + ('_d64' if d == 64 else '')] += 1
+              else 'paged_attention')
+             + (('_int8_d64' if quant else '_d64') if d == 64 else '')] += 1
     return out
 
 

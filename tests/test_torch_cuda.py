@@ -2278,16 +2278,60 @@ def test_d64_paged_kernel_matches_plain(cuda, dtype, hkv, t):
     assert K.LAUNCHES[key] == before + 1
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('hkv,t,w', [(12, 1, 0), (4, 1, 2), (12, 1, 2),
+                                     (12, 5, 2), (3, 3, 1), (4, 5, 0)])
+def test_d64_int8_paged_kernel_matches_plain(cuda, dtype, hkv, t, w):
+    """The D = 64 int8 split kernel (its 64-byte tile rows) and, with the
+    decode round's float window, the D = 64 window kernel: one query row
+    and T rows, GQA, the window's first row at offsets 0, 9 and 15 of a
+    page, a length-1 slot, a window past the table's end, an inactive
+    slot on the null page; the window holds other values than the int8
+    pages it stands for. Launches under `paged_attention(_verify)
+    _int8_d64`."""
+    g = torch.Generator(device=cuda).manual_seed(hkv * 100 + t * 10 + w)
+    n, h, p, ps = len(_WINDOW_SLOTS), 12, 10, 16
+    num_pages = n * p + 1
+    q = _randn(g, dtype, n, h, 64) if t == 1 else _randn(g, dtype, n, t, h,
+                                                         64)
+    shape = (num_pages, ps, hkv, 64)
+    kp, vp = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((num_pages, hkv), generator=g, device=cuda) / 127
+              + 1e-3 for _ in range(2))
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0
+    lens = torch.tensor([ln for ln, _ in _WINDOW_SLOTS], device=cuda,
+                        dtype=torch.int32)
+    kw_args = dict(k_scales=ks, v_scales=vs)
+    if w:
+        kw_args.update(
+            k_win=_randn(g, dtype, n, w, ps, hkv, 64),
+            v_win=_randn(g, dtype, n, w, ps, hkv, 64),
+            win_first=torch.tensor([f for _, f in _WINDOW_SLOTS],
+                                   device=cuda, dtype=torch.int32))
+    key = ('paged_attention_verify' if t > 1 else 'paged_attention') + \
+        '_int8_d64'
+    before = dict(K.LAUNCHES)
+    got = K.paged_attention(q, kp, vp, table, lens, **kw_args)
+    assert K.LAUNCHES[key] == before[key] + 1
+    assert all(K.LAUNCHES[k] == before[k] for k in K.LAUNCHES if k != key)
+    _close_attention(got, K.paged_attention_reference(
+        q, kp, vp, table, lens, **kw_args), dtype)
+
+
 def test_d64_int8_pages_and_other_widths_raise(cuda):
-    """The int8 paged kernels are built for D = 128 only; a head_dim
-    outside {64, 128} raises in every attention wrapper."""
+    """Int8 pages take head_dim 64 and 128, as float pages do: at another
+    width the paged wrapper raises, and a head_dim outside {64, 128}
+    raises in every attention wrapper."""
     n = 2
     table = torch.ones((n, 1), dtype=torch.int32, device=cuda)
     lengths = torch.ones(n, dtype=torch.int32, device=cuda)
-    q = torch.zeros((n, 4, 64), device=cuda)
-    pages = torch.zeros((2, 16, 4, 64), dtype=torch.int8, device=cuda)
+    q = torch.zeros((n, 4, 80), device=cuda)
+    pages = torch.zeros((2, 16, 4, 80), dtype=torch.int8, device=cuda)
     sc = torch.ones((2, 4), device=cuda)
-    with pytest.raises(ValueError, match='Queue 2'):
+    with pytest.raises(ValueError, match='head_dim'):
         K.paged_attention(q, pages, pages, table, lengths, k_scales=sc,
                           v_scales=sc)
     x = torch.zeros((1, 8, 2, 80), device=cuda)

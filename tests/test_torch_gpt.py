@@ -39,6 +39,18 @@ def _reset_jax_metrics():
     jax_metrics.get_registry().reset()
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """The port's CPU engines run many small ops: beside JAX's own thread
+    pool in this process, torch's intra-op threads cost far more than
+    they give (a tiny engine's wave ran ~40x slower on 8 threads than on
+    one), so this module runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def gpt_pair(seed=5, scale=SCALE, **cfg):
     """(JAX model, port model) over the same weights: the JAX tiny GPT's
     matrices times `scale`."""
@@ -55,6 +67,16 @@ def gpt_pair(seed=5, scale=SCALE, **cfg):
 @pytest.fixture(scope='module')
 def pair():
     return gpt_pair()
+
+
+# a GPT of head_dim 64 (GPT-2's width per head): 2 layers, hidden 128, 2
+# heads x 64, vocab 128
+D64 = dict(hidden_size=128, num_attention_heads=2)
+
+
+@pytest.fixture(scope='module')
+def pair64():
+    return gpt_pair(**D64)
 
 
 def close(got, want, rtol=1e-5):
@@ -157,11 +179,19 @@ def _prompts(lens, seed=0):
 PROMPTS = _prompts([3, 9, 5, 14, 30, 17])
 
 
-@pytest.mark.parametrize('opts', [
-    {}, {'prefix_cache': 0.5, 'prefill_chunk_tokens': 16},
-    {'kv_quant': 'int8'}], ids=['plain', 'prefix_chunk', 'int8'])
-def test_engine_greedy_tokens_identical_to_jax(pair, opts):
-    jm, tm = pair
+PREFIX_CHUNK = {'prefix_cache': 0.5, 'prefill_chunk_tokens': 16}
+
+
+@pytest.mark.parametrize('opts,d64', [
+    ({}, False), (PREFIX_CHUNK, False), ({'kv_quant': 'int8'}, False),
+    ({'kv_quant': 'int8'}, True),
+    ({'kv_quant': 'int8', **PREFIX_CHUNK}, True)],
+    ids=['plain', 'prefix_chunk', 'int8', 'int8_d64', 'int8_prefix_chunk_d64'])
+def test_engine_greedy_tokens_identical_to_jax(request, opts, d64):
+    """The port's engine against the JAX engine, greedy: plain, with the
+    prefix cache and chunks, with int8 KV; at head_dim 64 with int8 KV,
+    and with the prefix cache and chunks too."""
+    jm, tm = request.getfixturevalue('pair64' if d64 else 'pair')
     je, te = _engines(jm, tm, **opts)
     # with the cache: a request sharing 24 tokens (a whole page) of one
     # served before it
@@ -175,19 +205,27 @@ def test_engine_greedy_tokens_identical_to_jax(pair, opts):
     assert len({tuple(h.tokens) for h in ht}) > 1
 
 
-def test_engine_with_gpt_draft_identical_to_jax(pair):
+@pytest.mark.parametrize('d64', [False, True], ids=['tiny', 'int8_d64'])
+def test_engine_with_gpt_draft_identical_to_jax(request, d64):
     """Speculative decoding with a 1-layer GPT draft: the tokens equal
-    the JAX spec engine's (and so the plain engine's)."""
-    jm, tm = pair
-    jd, td = gpt_pair(seed=9, num_hidden_layers=1)
+    the JAX spec engine's (and so, over float KV, the plain engine's),
+    and so do the spec counters; at head_dim 64 over int8 KV with the
+    prefix cache and chunks (the verify over int8 pages and the round's
+    window, the draft over its float pages)."""
+    jm, tm = request.getfixturevalue('pair64' if d64 else 'pair')
+    cfg = D64 if d64 else {}
+    opts = {'kv_quant': 'int8', **PREFIX_CHUNK} if d64 else {}
+    jd, td = gpt_pair(seed=9, num_hidden_layers=1, **cfg)
     je = JaxEngine(jm, num_slots=3, max_length=64, decode_block=2,
-                   kv_page_size=16, draft_model=jd, num_draft_tokens=3)
+                   kv_page_size=16, draft_model=jd, num_draft_tokens=3,
+                   **opts)
     te = InferenceEngine(tm, num_slots=3, max_length=64, decode_block=2,
                          kv_page_size=16, draft_model=td,
-                         num_draft_tokens=3)
-    hj = je.generate_many(PROMPTS, JaxParams(max_new_tokens=8,
+                         num_draft_tokens=3, **opts)
+    prompts = PROMPTS + [PROMPTS[4][:24] + PROMPTS[1]] if d64 else PROMPTS
+    hj = je.generate_many(prompts, JaxParams(max_new_tokens=8,
                                              eos_token_id=NO_EOS))
-    ht = te.generate_many(PROMPTS, SamplingParams(max_new_tokens=8,
+    ht = te.generate_many(prompts, SamplingParams(max_new_tokens=8,
                                                   eos_token_id=NO_EOS))
     assert [h.tokens for h in ht] == [h.tokens for h in hj]
     assert te.stats()['spec'] == je.stats()['spec']

@@ -108,10 +108,16 @@ def test_rms_plain_bf16_follows_functional_rounding():
 # ---------------------------------------------------------------------------
 
 def _paged_case(seed, h=4, hkv=4, n=4, p=4, ps=8, d=16, num_pages=20,
-                quant=False):
+                quant=False, distinct=False):
+    """(q, k_pages, v_pages, table, lengths, k_scales, v_scales) from a
+    seed; `distinct`: every slot on pages of its own (a window's pages
+    belong to one slot)."""
     rng = np.random.default_rng(seed)
     q = _np((n, h, d), rng)
     table = rng.integers(1, num_pages, (n, p)).astype(np.int32)
+    if distinct:
+        table = (rng.permutation(num_pages - 1)[:n * p] + 1).reshape(
+            n, p).astype(np.int32)
     lengths = rng.integers(1, p * ps + 1, (n,)).astype(np.int32)
     if quant:
         kp = rng.integers(-127, 128, (num_pages, ps, hkv, d)).astype(np.int8)
@@ -123,22 +129,65 @@ def _paged_case(seed, h=4, hkv=4, n=4, p=4, ps=8, d=16, num_pages=20,
             _np((num_pages, ps, hkv, d), rng), table, lengths, None, None)
 
 
-def _paged_both(q, kp, vp, table, lengths, ks, vs):
+def _jax_paged(q, kp, vp, table, lengths, ks, vs, window=None):
+    """The JAX `paged_attention_reference`; with `window` (`_window`'s)
+    over its float pages, which hold the window's rows."""
     j = lambda a: None if a is None else jnp.asarray(a)
-    t = lambda a: None if a is None else torch.from_numpy(a)
-    want = np.asarray(pk.paged_attention_reference(
+    if window is not None:
+        _, kp, vp = window
+        ks = vs = None
+    return np.asarray(pk.paged_attention_reference(
         j(q), j(kp), j(vp), j(table), j(lengths), k_scales=j(ks),
         v_scales=j(vs)))
+
+
+def _paged_both(q, kp, vp, table, lengths, ks, vs, window=None):
+    """(the port's plain version, the JAX `paged_attention_reference`);
+    with `window` the port reads the window in place of its pages."""
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    win = {} if window is None else window[0]
     got = K.paged_attention(t(q), t(kp), t(vp), t(table), t(lengths),
-                            k_scales=t(ks), v_scales=t(vs)).numpy()
-    return got, want
+                            k_scales=t(ks), v_scales=t(vs), **win).numpy()
+    return got, _jax_paged(q, kp, vp, table, lengths, ks, vs, window)
+
+
+def _window(kp, vp, ks, vs, table, lengths, rng, w=2):
+    """The decode round's float window over int8 pages: W pages per slot
+    from the page of its last key row, filled with other values than the
+    int8 pages they stand for. Returns (the port's window arguments, the
+    JAX side's float pages: the int8 pages dequantized, the window's rows
+    in place of the pages it stands for)."""
+    from paddle_tpu import quantization as jquant
+    n, p = table.shape
+    ps, hkv, d = kp.shape[1:]
+    first = np.minimum((lengths - 1) // ps, p - 1).astype(np.int32)
+    kw, vw = (_np((n, w, ps, hkv, d), rng) for _ in range(2))
+    jk, jv = (np.array(jquant.kv_dequantize_page(
+        jnp.asarray(x), jnp.asarray(sc), jnp.float32))
+        for x, sc in ((kp, ks), (vp, vs)))
+    for i in range(n):
+        for c in range(w):
+            if first[i] + c < p:
+                pid = table[i, first[i] + c]
+                jk[pid], jv[pid] = kw[i, c], vw[i, c]
+    t = torch.from_numpy
+    return dict(k_win=t(kw), v_win=t(vw), win_first=t(first)), jk, jv
 
 
 @pytest.mark.parametrize('case', ['f32', 'gqa', 'int8', 'int8_gqa',
-                                  'null_page', 'zero_length'])
+                                  'null_page', 'zero_length', 'int8_d64',
+                                  'int8_gqa_d64', 'int8_window_d64',
+                                  'int8_window_gqa_d64'])
 def test_paged_plain_matches_reference(case):
+    """The plain version against the JAX `paged_attention_reference`:
+    float and int8 pages at head_dim 16, GQA, a null-page slot, a slot of
+    length 0; int8 pages at head_dim 64 (GPT-2's), with GQA and with the
+    decode round's float window."""
     kw = {'gqa': dict(hkv=2), 'int8': dict(quant=True),
           'int8_gqa': dict(quant=True, hkv=1)}.get(case, {})
+    if case.endswith('_d64'):
+        kw = dict(quant=True, d=64, hkv=1 if 'gqa' in case else 4,
+                  distinct='window' in case)
     q, kp, vp, table, lengths, ks, vs = _paged_case(
         seed=len(case), **kw)
     if case == 'null_page':
@@ -146,33 +195,46 @@ def test_paged_plain_matches_reference(case):
         table[1] = 0
     if case == 'zero_length':
         lengths[2] = 0
-    got, want = _paged_both(q, kp, vp, table, lengths, ks, vs)
+    window = None
+    if 'window' in case:
+        window = _window(kp, vp, ks, vs, table, lengths,
+                         np.random.default_rng(len(case) + 1))
+    got, want = _paged_both(q, kp, vp, table, lengths, ks, vs, window)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize('case', ['f32', 'gqa', 'int8', 'gqa_int8',
-                                  'page_16'])
+                                  'page_16', 'int8_d64', 'gqa_int8_d64',
+                                  'int8_window_d64', 'gqa_int8_window_d64'])
 def test_paged_split_model_matches_reference(case):
     """The card kernel's split-and-combine arithmetic (per split m, l and
     P V, then the exp(m_s - M) rescale; `test_torch_smoke.
     paged_split_model`) against the JAX `paged_attention_reference`, over
     tables of 20 pages of 8 rows (splits of 8 pages; of 16 rows: splits
     of 4 pages): lengths at a split boundary and one on either side, a
-    full table and length 1."""
+    full table and length 1. At head_dim 64 over int8 pages, with GQA
+    and with the round's window (the int8 splits skip its pages, one
+    more split attends its rows)."""
     from test_torch_smoke import paged_split_model
     kw = {'gqa': dict(hkv=1), 'int8': dict(quant=True),
           'gqa_int8': dict(hkv=1, quant=True),
           'page_16': dict(ps=16)}.get(case, {})
+    if case.endswith('_d64'):
+        kw = dict(quant=True, d=64, hkv=1 if 'gqa' in case else 4,
+                  distinct=True)
     q, kp, vp, table, lengths, ks, vs = _paged_case(
-        seed=len(case) + 20, n=7, p=20, num_pages=60, **kw)
+        seed=len(case) + 20, n=7, p=20,
+        num_pages=141 if case.endswith('_d64') else 60, **kw)
     lengths[:] = [63, 64, 65, 128, 129, 160, 1]
-    j = lambda a: None if a is None else jnp.asarray(a)
+    window, win = None, {}
+    if 'window' in case:
+        window = _window(kp, vp, ks, vs, table, lengths,
+                         np.random.default_rng(len(case)))
+        win = window[0]
+    want = _jax_paged(q, kp, vp, table, lengths, ks, vs, window)
     t = lambda a: None if a is None else torch.from_numpy(a)
-    want = np.asarray(pk.paged_attention_reference(
-        j(q), j(kp), j(vp), j(table), j(lengths), k_scales=j(ks),
-        v_scales=j(vs)))
     got = paged_split_model(t(q), t(kp), t(vp), t(table), t(lengths),
-                            k_scales=t(ks), v_scales=t(vs)).numpy()
+                            k_scales=t(ks), v_scales=t(vs), **win).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -180,7 +242,8 @@ def test_paged_split_model_matches_reference(case):
 # (lengths, T): a span inside one page, one that crosses a page boundary
 # (ps 8), one that reaches the table's last row, and T = 1
 VERIFY_CASES = {'t5': 5, 't5_gqa': 5, 't3_int8': 3, 't5_int8_window': 5,
-                't2_int8_gqa': 2, 't1': 1}
+                't2_int8_gqa': 2, 't1': 1, 't3_int8_d64': 3,
+                't5_int8_window_d64': 5, 't2_int8_gqa_window_d64': 2}
 
 
 @pytest.mark.parametrize('case', sorted(VERIFY_CASES))
@@ -189,39 +252,27 @@ def test_paged_plain_with_query_rows_matches_reference_per_row(case):
     `paged_attention_reference` applied to each row t alone with lengths
     + t, over pages that already hold the block's rows: float pages, int8
     pages, and int8 pages with the round's float window (the window's
-    rows written into float copies of its pages for the JAX side)."""
+    rows written into float copies of its pages for the JAX side); at
+    head_dim 16 and, over int8 pages, at 64."""
     t_rows = VERIFY_CASES[case]
     quant = 'int8' in case
     hkv = 1 if 'gqa' in case else 4
+    d = 64 if case.endswith('_d64') else 16
     n, p, ps = 4, 4, 8
     rng = np.random.default_rng(len(case) + t_rows)
     _, kp, vp, _, _, ks, vs = _paged_case(seed=len(case), hkv=hkv, n=n,
-                                          p=p, ps=ps, num_pages=20,
+                                          p=p, ps=ps, d=d, num_pages=20,
                                           quant=quant)
     # every slot its own pages: a window's pages belong to one slot
     table = (rng.permutation(19)[:n * p] + 1).reshape(n, p).astype(np.int32)
     lengths = np.array([3, 6, p * ps - t_rows + 1, 1], np.int32)
-    q = _np((n, t_rows, 4, 16), rng)
+    q = _np((n, t_rows, 4, d), rng)
     j = lambda a: None if a is None else jnp.asarray(a)
     tt = lambda a: None if a is None else torch.from_numpy(a)
     win = {}
     jk, jv, jks, jvs = kp, vp, ks, vs
     if 'window' in case:
-        w = 2
-        first = np.minimum((lengths - 1) // ps, p - 1).astype(np.int32)
-        kw, vw = (_np((n, w, ps, hkv, 16), rng) for _ in range(2))
-        win = dict(k_win=tt(kw), v_win=tt(vw), win_first=tt(first))
-        # the JAX side: float pages holding the window's rows in place of
-        # the int8 pages they stand for
-        from paddle_tpu import quantization as jquant
-        jk, jv = (np.array(jquant.kv_dequantize_page(
-            jnp.asarray(x), jnp.asarray(sc), jnp.float32))
-            for x, sc in ((kp, ks), (vp, vs)))
-        for i in range(n):
-            for c in range(w):
-                if first[i] + c < p:
-                    pid = table[i, first[i] + c]
-                    jk[pid], jv[pid] = kw[i, c], vw[i, c]
+        win, jk, jv = _window(kp, vp, ks, vs, table, lengths, rng)
         jks = jvs = None
     got = K.paged_attention(tt(q), tt(kp), tt(vp), tt(table), tt(lengths),
                             k_scales=tt(ks), v_scales=tt(vs), **win).numpy()

@@ -209,19 +209,23 @@ def test_compare_accepts_the_tensor_core_rounding_order(kernel):
 
 
 def paged_split_model(q, k_pages, v_pages, table, lengths, k_scales=None,
-                      v_scales=None, rescale=True, drop_last_split=False,
-                      late_mask=False):
+                      v_scales=None, k_win=None, v_win=None, win_first=None,
+                      rescale=True, drop_last_split=False, late_mask=False):
     """The split-context paged kernel's arithmetic in plain torch, fp32.
 
     Each slot's pages run in splits of `K.paged_split` pages; a split
     past the slot's last page (ceil(length / ps), at least 1) holds
     nothing. Per live split and query head: the scores (keys at or past
     the length masked), m = their max, l = sum exp(s - m), acc = the
-    exp(s - m)-weighted sum of V rows. The combine: out = sum_s acc_s
-    w_s / sum_s l_s w_s with w_s = exp(m_s - M), M = max_s m_s. As
-    faults: `rescale=False` takes w_s = 1, `drop_last_split` leaves out
-    each slot's last live split, `late_mask` masks from one key past the
-    length."""
+    exp(s - m)-weighted sum of V rows. With the decode round's window
+    (int8 pages), the splits skip the window's logical pages [win_first,
+    win_first + W) (a split left with none holds nothing), and one more
+    partial attends the window's W * ps rows (keys at or past the length
+    or the table's end masked; none when the window starts at or past
+    the length). The combine: out = sum_s acc_s w_s / sum_s l_s w_s with
+    w_s = exp(m_s - M), M = max_s m_s. As faults: `rescale=False` takes
+    w_s = 1, `drop_last_split` leaves out each slot's last live split,
+    `late_mask` masks from one key past the length."""
     n, h, d = q.shape
     ps, hkv = k_pages.shape[1], k_pages.shape[2]
     p = table.shape[1]
@@ -229,24 +233,38 @@ def paged_split_model(q, k_pages, v_pages, table, lengths, k_scales=None,
     pps, splits = K.paged_split(p, ps)
     qf = q.float().reshape(n, hkv, g, d) / math.sqrt(d)
     out = torch.empty(n, hkv, g, d)
+
+    def part(i, k, v, keys, length):
+        s = torch.einsum('kgd,tkd->kgt', qf[i], k.reshape(-1, hkv, d))
+        s = s.masked_fill(keys >= length + late_mask, K.NEG_INF)
+        m = s.amax(dim=-1)
+        e = torch.exp(s - m[..., None])
+        return m, e.sum(dim=-1), torch.einsum('kgt,tkd->kgd', e,
+                                              v.reshape(-1, hkv, d))
+
     for i in range(n):
         length = int(lengths[i])
         n_pages = min(max(-(-length // ps), 1), p)
+        w0 = -1 if k_win is None else int(win_first[i])
+        w = 0 if k_win is None else k_win.shape[1]
         parts = []
         for first in range(0, min(splits * pps, n_pages), pps):
-            ids = table[i, first:min(first + pps, n_pages)].long()
+            pages = [c for c in range(first, min(first + pps, n_pages))
+                     if not w0 <= c < w0 + w]
+            if not pages:
+                continue
+            ids = table[i, pages].long()
             k, v = k_pages[ids].float(), v_pages[ids].float()
             if k_scales is not None:
                 k = k * k_scales[ids][:, None, :, None]
                 v = v * v_scales[ids][:, None, :, None]
-            k, v = k.reshape(-1, hkv, d), v.reshape(-1, hkv, d)
-            keys = first * ps + torch.arange(k.shape[0])
-            s = torch.einsum('kgd,tkd->kgt', qf[i], k)
-            s = s.masked_fill(keys >= length + late_mask, K.NEG_INF)
-            m = s.amax(dim=-1)
-            e = torch.exp(s - m[..., None])
-            parts.append((m, e.sum(dim=-1), torch.einsum('kgt,tkd->kgd', e,
-                                                         v)))
+            keys = (torch.tensor(pages)[:, None] * ps
+                    + torch.arange(ps)).reshape(-1)
+            parts.append(part(i, k, v, keys, length))
+        if w and w0 * ps < max(length, 1):
+            keys = w0 * ps + torch.arange(w * ps)
+            parts.append(part(i, k_win[i].float(), v_win[i].float(), keys,
+                              min(length, p * ps)))
         if drop_last_split and len(parts) > 1:
             parts = parts[:-1]
         m, l, acc = (torch.stack(x) for x in zip(*parts))
@@ -296,6 +314,96 @@ def test_paged_split_model_matches_plain(case):
     args = _paged(case)
     smoke.compare(case, paged_split_model(*args),
                   K.paged_attention_reference(*args))
+
+
+# the paged kernel's instantiations: (D, bytes of a KV element) of its
+# split tiles (pages in q's dtype, f32 or bf16, int8 pages) at D = 128
+# and 64; a split's tile holds PAGED_SPLIT_KEYS rows
+PAGED_TILES = [(d, elt) for d in (128, 64) for elt in (4, 2, 1)]
+
+
+def chunk_at(d, elt, t, c):
+    """Byte offset of 16-byte chunk c of row t in a split's tile: a
+    mirror of `chunk_at` in paddle_tpu_torch/csrc/paged_attention.cu
+    (the chunk swizzled inside its row over 8 chunks, over 4 in a 64-byte
+    row)."""
+    row = d * elt
+    return t * row + ((c ^ (t & (3 if row == 64 else 7))) << 4)
+
+
+def chunk_at_before(d, elt, t, c):
+    """The layout before int8 pages at D = 64 were built: XOR with t & 7
+    whatever the row's width."""
+    return t * d * elt + ((c ^ (t & 7)) << 4)
+
+
+def tile_faults(layout, d, elt):
+    """What is wrong with `layout` for a (D, element bytes) tile: a chunk
+    outside its own row, two chunks on the same 16 bytes, or a warp's
+    shared access that meets a bank twice. The split kernel's threads:
+    D / 8 lanes a key row, lane dg's row slot tid // (D / 8); cp.async
+    stores 16 bytes a thread (8 threads a pass of the memory), the reads
+    `row8` 16 bytes (f32: chunks dg and dg + D / 8; bf16: chunk dg) or 8
+    (int8: chunk dg >> 1 at (dg & 1) * 8; 16 threads a pass)."""
+    rows, chunks, lanes = K.PAGED_SPLIT_KEYS, d * elt // 16, d // 8
+    faults = []
+    seen = {}
+    for t in range(rows):
+        for c in range(chunks):
+            off = layout(d, elt, t, c)
+            if not t * chunks * 16 <= off < (t + 1) * chunks * 16:
+                faults.append(f'row {t} chunk {c} at {off}: outside its row')
+            if off in seen:
+                faults.append(f'row {t} chunk {c} on {seen[off]}\'s bytes')
+            seen[off] = (t, c)
+
+    def conflicts(addrs, size):
+        # one pass of the memory: 128 bytes, 32 banks of 4 bytes; a bank
+        # met by two distinct words is a conflict
+        per = 128 // size
+        for i in range(0, len(addrs), per):
+            words = {a // size for a in addrs[i:i + per]}
+            banks = [b for w in words for b in
+                     range(w * size // 4 % 32, w * size // 4 % 32 + size // 4)]
+            if len(banks) != len(set(banks)):
+                return True
+        return False
+
+    stores = [layout(d, elt, i // chunks, i % chunks)
+              for i in range(32 * (rows * chunks // 32))]
+    if any(conflicts(stores[w:w + 32], 16) for w in range(0, len(stores), 32)):
+        faults.append('cp.async stores meet a bank twice')
+    for warp in range(128 // 32):
+        for i in range(rows // (128 // lanes)):
+            tids = range(32 * warp, 32 * warp + 32)
+            rs = [tid // lanes + 128 // lanes * i for tid in tids]
+            dg = [tid % lanes for tid in tids]
+            if elt == 1:
+                reads = [[layout(d, elt, t, g >> 1) + (g & 1) * 8
+                          for t, g in zip(rs, dg)]]
+            elif elt == 2:
+                reads = [[layout(d, elt, t, g) for t, g in zip(rs, dg)]]
+            else:
+                reads = [[layout(d, elt, t, g + o) for t, g in zip(rs, dg)]
+                         for o in (0, d // 8)]
+            if any(conflicts(r, 8 if elt == 1 else 16) for r in reads):
+                faults.append(f'row8 reads of warp {warp} meet a bank twice')
+    return faults
+
+
+@pytest.mark.parametrize('d,elt', PAGED_TILES)
+def test_paged_tile_layout_keeps_rows_apart_without_bank_conflicts(d, elt):
+    """Every built (D, KV dtype): each (row, chunk) of a split's tile on
+    its own 16 bytes inside its row, and the staging stores and the
+    `row8` reads free of bank conflicts. The layout before int8 pages at
+    D = 64 (XOR with t & 7 on every row) fails there: it puts a 64-byte
+    row's chunks into the next row's bytes."""
+    assert tile_faults(chunk_at, d, elt) == []
+    if d * elt == 64:
+        assert any('outside its row' in f
+                   for f in tile_faults(chunk_at_before, d, elt))
+    else:
+        assert tile_faults(chunk_at_before, d, elt) == []
 
 
 def _mutant(case, dtype):
