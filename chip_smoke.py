@@ -26,6 +26,10 @@
                                            # (the GPT family, served with
                                            # int8 KV, prefix/chunks and a
                                            # GPT draft too)
+    python3 chip_smoke.py --fp16           # phase 2's fp16 cases, phase
+                                           # 6's bf16 serve run, phase 10
+                                           # (fp16 models) and the fp16
+                                           # cases timed
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -64,8 +68,14 @@ result line):
    version; and the training kernels at phase 5c's rungs' shapes, bf16:
    flash forward, dq and dk/dv at B=4 S=2048 H=16 and B=1 S=4096 H=32,
    RMSNorm over 8192 x 2048, CE forward and backward at [8188, 50304];
-   and the fp16 flash cases (`fp16_cases`) (these three sets of cases
-   are freed after the check and rebuilt for 8);
+   and the fp16 cases (`fp16_cases`: the flash kernels, and RMSNorm,
+   CE forward and backward, the paged kernel over fp16 pages and over
+   int8 pages with an fp16 window at D = 128 and 64, T = 1 and 5, and the
+   adapter kernel with an f32 and an fp16 bank, at phase 10's shapes;
+   CE's fp16 dlogits at a mean loss's g = 1/N, where they round to 0 or
+   to subnormals, held one by one to the plain version's subnormals, and
+   logits at +-65504) (these three sets of cases are freed after the
+   check and rebuilt for 8);
 3. consistency: the engine (its decode sub-step and each prefill bucket
    replayed from a CUDA graph) at 2 layers of Llama-2-7B width in f32,
    greedy; each request's first 16 tokens must equal a no-cache
@@ -380,6 +390,27 @@ result line):
    gpt-serve-int8, GPT-3 XL the same way (the D = 128 int8 kernels; no
    draft). Phase 2 holds the D = 64 kernels (`head64_cases`) to their
    plain versions first;
+10. fp16 (`fp16_phase`, after phase 9): a model cast to fp16 on the
+   card. Llama-2-7B (32 layers, fp16, phase 6's seed) behind phase 6's
+   graph engine and its eager twin with phase 6's 12 requests, then
+   phase 6b's banked wave (an f32 bank, the JAX bank's default), then
+   with `kv_quant='int8'` (int8 pages, the round's window in fp16):
+   graph tokens == eager tokens in every arm, every launch an fp16
+   kernel's (no bf16 key rises), the first decode sub-step's logits
+   finite, the int8 arm's relative logit RMSE within 1.25 x the JAX
+   bench's int8 arm, the fp16 adapter kernel once per adapted projection
+   of every prefill and decode sub-step; decode and prefill tok/s, TTFT
+   and KV GB logged beside phase 6's bf16 figures. At 4 layers of the
+   same width, one f32 model's bf16 and fp16 casts: the fp16 engine's
+   first-step logit RMSE against the f32 engine no larger than the bf16
+   engine's. GPT-3 XL (D = 128) and GPT-2 small (D = 64) in fp16 the same
+   way (no bank), each then with a 2-layer fp16 GPT draft (k = 4; over
+   float KV at D = 128, the fp16 verify; over int8 KV at D = 64). An
+   fp16 TrainStep at Llama-2-7B width, 2 layers, 1 x 2048, AdamW with
+   fp32 masters, 3 steps: finite losses, step 1 within 1e-3 of the f32
+   loss of the same weights and batch, the fp16 RMSNorm, CE and flash
+   kernels launched; ms a step, MFU and the share of lm_head's gradient
+   that is exactly 0 logged;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -496,6 +527,36 @@ REPLACES = {
     'softmax_ce_bwd': 'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel)',
     'adapter_matmul':
         'paddle_tpu/ops/pallas_kernels.py:851 (_adapter_matmul_kernel)',
+    'rms_norm_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel, fp16: a model '
+        'cast with to(dtype=\'float16\'))',
+    'softmax_ce_fwd_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:494 (_ce_fwd_kernel, fp16 logits: '
+        'paddle_tpu/nn/functional.py:1012-1016)',
+    'softmax_ce_bwd_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:531 (_ce_bwd_kernel, fp16 dlogits)',
+    'paged_attention_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 q '
+        'and pages)',
+    'paged_attention_int8_window_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 q '
+        'over int8 pages, with the decode round\'s fp16 window)',
+    'paged_attention_verify_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, k + 1 '
+        'fp16 query rows per slot; the JAX verify, '
+        'paddle_tpu/serving/engine.py:811-835)',
+    'paged_attention_fp16_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 at '
+        'head_dim 64)',
+    'paged_attention_int8_fp16_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 q '
+        'over int8 pages and the fp16 window at head_dim 64)',
+    'paged_attention_verify_int8_fp16_d64':
+        'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, k + 1 '
+        'fp16 query rows over int8 pages and the window at head_dim 64)',
+    'adapter_matmul_fp16':
+        'paddle_tpu/ops/pallas_kernels.py:851 (_adapter_matmul_kernel, fp16 '
+        'x: paddle_tpu/serving/adapters/apply.py:99)',
     'multi_tensor_adam':
         'no Pallas site: the Adam/AdamW update XLA fuses inside the JAX '
         'TrainStep (paddle_tpu/jit/__init__.py:269-273, '
@@ -519,19 +580,36 @@ SOURCES = {
         'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
     'flash_attention_bwd_dkv_d64':
         'paddle_tpu_torch/csrc/flash_attention_bwd.cu',
-    'paged_attention_d64': 'paddle_tpu_torch/csrc/paged_attention.cu',
-    'paged_attention_int8_d64': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention_d64': 'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
+    'paged_attention_int8_d64':
+        'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'paged_attention_verify_int8_d64':
-        'paddle_tpu_torch/csrc/paged_attention.cu',
+        'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
-    'paged_attention': 'paddle_tpu_torch/csrc/paged_attention.cu',
-    'paged_attention_int8_window': 'paddle_tpu_torch/csrc/paged_attention.cu',
-    'paged_attention_verify': 'paddle_tpu_torch/csrc/paged_attention.cu',
+    'paged_attention': 'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
+    'paged_attention_int8_window':
+        'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
+    'paged_attention_verify': 'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
-    'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul.cu',
+    'adapter_matmul': 'paddle_tpu_torch/csrc/adapter_matmul_bf16.cu',
     'multi_tensor_adam': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
     'multi_tensor_sumsq': 'paddle_tpu_torch/csrc/multi_tensor_adam.cu',
+    'rms_norm_fp16': 'paddle_tpu_torch/csrc/rms_norm.cu',
+    'softmax_ce_fwd_fp16': 'paddle_tpu_torch/csrc/cross_entropy.cu',
+    'softmax_ce_bwd_fp16': 'paddle_tpu_torch/csrc/cross_entropy.cu',
+    'paged_attention_fp16': 'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'paged_attention_int8_window_fp16':
+        'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'paged_attention_verify_fp16':
+        'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'paged_attention_fp16_d64':
+        'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'paged_attention_int8_fp16_d64':
+        'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'paged_attention_verify_int8_fp16_d64':
+        'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
+    'adapter_matmul_fp16': 'paddle_tpu_torch/csrc/adapter_matmul_fp16.cu',
 }
 # the tensor-core (wgmma) kernels that bf16 and fp16 inputs run on, by
 # source: each template's instantiations by dtype and head width D (their
@@ -572,6 +650,8 @@ PRETRAIN_KERNELS = TRAIN_KERNELS + ('multi_tensor_sumsq',)
 # _run_config at :116-191)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 2, 2048, 6, 2
 TRAIN_LR = 3e-4
+# phase 10's fp16 TrainStep: Llama-2-7B width, 2 layers, batch 1 x 2048
+FP16_TRAIN_LAYERS, FP16_TRAIN_SEQ = 2, 2048
 # phase 5c: the JAX bench's headline rung, gpt3_1p3b (bench.py:41-73):
 # GPT-3 XL geometry on the Llama block, 'dots_no_batch', batch 4 x 2048
 GPT3_SHAPE = dict(vocab_size=50304, hidden_size=2048,
@@ -800,14 +880,16 @@ def build():
     for name in _build.SOURCES:    # ptxas -v of this build or the cached one
         for line in _build.build_log(name).splitlines():
             if ('entry function' in line or 'registers' in line
-                    or 'spill' in line or 'Performance Loss' in line):
+                    or 'spill' in line or 'Performance Loss' in line
+                    or 'compiled in' in line):
                 log(f'[build] {name}: {line.strip()}')
-    for source, label in (
-            ('adapter_matmul', 'adapter_sgmv_kernel: {n} instantiations (x '
-                               'and bank dtype x padded rank x vector path)'),
-            ('multi_tensor_adam', 'multi_tensor_adam.cu: {n} kernels (param '
-                                  'dtype x moment dtype x master x amsgrad,'
-                                  ' the sum of squares and its finish)')):
+    summaries = [(f'adapter_matmul_{x}', f'adapter_sgmv_kernel, {x} x: '
+                  '{n} instantiations (bank dtype x padded rank x vector '
+                  'path)') for x in ('f32', 'bf16', 'fp16')]
+    summaries.append(('multi_tensor_adam', 'multi_tensor_adam.cu: {n} '
+                      'kernels (param dtype x moment dtype x master x '
+                      'amsgrad, the sum of squares and its finish)'))
+    for source, label in summaries:
         regs, spills = [], []
         for line in _build.build_log(source).splitlines():
             if 'Used' in line and 'registers' in line:
@@ -843,12 +925,14 @@ def _case_list():
     cases = []
 
     def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False,
-            zero_rows=None, zero_base=None, yardstick=None, cold=False):
+            zero_rows=None, zero_base=None, yardstick=None, cold=False,
+            subnormal=False):
         b_ms, by = bound_ms(moved, ops, dtype)
         cases.append(dict(kernel=kernel, name=name, dtype=dtype, run=run,
                           plain=plain, lib=lib, bound_ms=b_ms, bound_by=by,
                           rep=rep, zero_rows=zero_rows, zero_base=zero_base,
-                          yardstick=yardstick, cold=cold))
+                          yardstick=yardstick, cold=cold,
+                          subnormal=subnormal))
     return cases, add
 
 
@@ -861,7 +945,8 @@ def kernel_cases() -> list:
     `zero_rows` rows whose output must equal `zero_base` bit for bit;
     `yardstick` a (label, call) of PyTorch that is timed beside the kernel
     though it is not one call of the same function; `cold` a case also
-    timed with L2 flushed."""
+    timed with L2 flushed; `subnormal` an fp16 output whose subnormals
+    are checked one by one (`check_subnormals`)."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -937,41 +1022,15 @@ def kernel_cases() -> list:
              + 1).to(torch.int32).reshape(n, p).contiguous()
     lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
                            dtype=torch.int32, device=DEV)
-    live_rows = int(lengths.sum())
     for dtype, hkv, quant in ((torch.float32, 32, False),
                               (torch.bfloat16, 32, False),
                               (torch.float32, 8, False),
                               (torch.bfloat16, 8, False),
                               (torch.float32, 32, True),
                               (torch.bfloat16, 8, True)):
-        q = _randn((n, h, 128), dtype, gen)
-        shape = (num_pages, ps, hkv, 128)
-        if quant:
-            kp = torch.randint(-127, 128, shape, generator=gen, device=DEV,
-                               dtype=torch.int8)
-            vp = torch.randint(-127, 128, shape, generator=gen, device=DEV,
-                               dtype=torch.int8)
-            ks = torch.rand((num_pages, hkv), generator=gen,
-                            device=DEV) / 127 + 1e-3
-            vs = torch.rand((num_pages, hkv), generator=gen,
-                            device=DEV) / 127 + 1e-3
-        else:
-            kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
-            ks = vs = None
-        args = (q, kp, vp, table, lengths)
-        row_bytes = hkv * 128 * kp.element_size() * 2
-        add('paged_attention',
-            f'paged {str(dtype)[6:]} N=8 H=32 HKV={hkv} ctx<=1024'
-            + (' int8 pages' if quant else ''), dtype,
-            lambda a=args, ks=ks, vs=vs: K.paged_attention(
-                *a, k_scales=ks, v_scales=vs),
-            lambda a=args, ks=ks, vs=vs: K.paged_attention_reference(
-                *a, k_scales=ks, v_scales=vs),
-            None,
-            nbytes(q, q, table, lengths) + live_rows * row_bytes
-            + (2 * n * p * hkv * 4 if quant else 0),
-            4 * 128 * h * live_rows,
-            rep=dtype == torch.bfloat16 and hkv == 32 and not quant)
+        _paged_decode_case(add, gen, dtype, hkv, quant, table, lengths,
+                           rep=dtype == torch.bfloat16 and hkv == 32
+                           and not quant)
 
     _paged_window_cases(add, gen, table, lengths)
     _paged_verify_cases(add, gen)
@@ -995,6 +1054,47 @@ def kernel_cases() -> list:
     return cases
 
 
+def _paged_decode_case(add, gen, dtype, hkv, quant, table, lengths,
+                       key='paged_attention', rep=False) -> None:
+    """The paged kernel at the decode shape (8 slots, H 32, D 128, ctx
+    <= 1024 by `lengths`, pages of 16 through `table`): q in `dtype` over
+    pages in q's dtype, or over int8 pages with their scales (no window).
+    Bytes: q, out, table, lengths, the live K/V rows (and every scale of
+    the table's pages)."""
+    from paddle_tpu_torch.ops import kernels as K
+    n, p = table.shape
+    h, ps = 32, 16
+    num_pages = n * p + 1
+    live_rows = int(lengths.sum())
+    q = _randn((n, h, 128), dtype, gen)
+    shape = (num_pages, ps, hkv, 128)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                           dtype=torch.int8)
+        ks = torch.rand((num_pages, hkv), generator=gen,
+                        device=DEV) / 127 + 1e-3
+        vs = torch.rand((num_pages, hkv), generator=gen,
+                        device=DEV) / 127 + 1e-3
+    else:
+        kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
+        ks = vs = None
+    args = (q, kp, vp, table, lengths)
+    row_bytes = hkv * 128 * kp.element_size() * 2
+    add(key,
+        f'paged {str(dtype)[6:]} N=8 H=32 HKV={hkv} ctx<=1024'
+        + (' int8 pages' if quant else ''), dtype,
+        lambda a=args, ks=ks, vs=vs: K.paged_attention(
+            *a, k_scales=ks, v_scales=vs),
+        lambda a=args, ks=ks, vs=vs: K.paged_attention_reference(
+            *a, k_scales=ks, v_scales=vs),
+        None,
+        nbytes(q, q, table, lengths) + live_rows * row_bytes
+        + (2 * n * p * hkv * 4 if quant else 0),
+        4 * 128 * h * live_rows, rep=rep)
+
+
 # the int8 decode round's window: W pages per slot at decode_block 8,
 # ps 16 (`window_count`); row offsets 0, 9 and 15 of the round's first
 # row in its page, a length-1 slot, and an inactive slot (its table row
@@ -1004,17 +1104,18 @@ WINDOW_POS = (1023, 1001, 768, 521, 255, 96, 0, 1023)
 
 
 def _paged_window_cases(add, gen, serve_table, serve_lengths, h=32, d=128,
-                        hkvs=(32, 8),
-                        key='paged_attention_int8_window') -> None:
+                        hkvs=(32, 8), key='paged_attention_int8_window',
+                        dtypes=(torch.float32, torch.bfloat16)) -> None:
     """The paged kernel over int8 pages with the decode round's float
-    window (f32 and bf16, H query heads over each of `hkvs`, head_dim
-    d): the window holds the slot's logical pages pos // 16 .. + 1,
-    filled with other values than the int8 pages there, so a kernel that
-    read those pages fails. Then the case phase 8 reports under `key`:
-    bf16 at the serve shape of the bf16 case above (its table and
-    lengths, the window at each slot's last row). Bytes: the live int8
-    rows below the window and their scales, the window's live rows in
-    q's dtype, q, out, table, lengths and win_first."""
+    window (q and the window in each of `dtypes`, H query heads over
+    each of `hkvs`, head_dim d): the window holds the slot's logical
+    pages pos // 16 .. + 1, filled with other values than the int8 pages
+    there, so a kernel that read those pages fails. Then the case phase
+    8 reports under `key`: the last of `dtypes` at the serve shape of
+    the decode case above (its table and lengths, the window at each
+    slot's last row). Bytes: the live int8 rows below the window and
+    their scales, the window's live rows in q's dtype, q, out, table,
+    lengths and win_first."""
     from paddle_tpu_torch.ops import kernels as K
     n, ps, p = 8, 16, 64
     num_pages = n * p + 1
@@ -1023,8 +1124,8 @@ def _paged_window_cases(add, gen, serve_table, serve_lengths, h=32, d=128,
     table[-1] = 0                        # the inactive slot: the null page
     pos = torch.tensor(WINDOW_POS, dtype=torch.int32, device=DEV)
     cases = [(dtype, hkv, table.contiguous(), pos, False)
-             for hkv in hkvs for dtype in (torch.float32, torch.bfloat16)]
-    cases.append((torch.bfloat16, h, serve_table, serve_lengths - 1, True))
+             for hkv in hkvs for dtype in dtypes]
+    cases.append((dtypes[-1], h, serve_table, serve_lengths - 1, True))
     width = '' if d == 128 else f' D={d}'
     for dtype, hkv, tbl, pos, rep in cases:
         lengths = (pos + 1).to(torch.int32)
@@ -1160,12 +1261,29 @@ def _flash_serve_case(add, gen, dtype, s, hkv, rep=False, h=32, d=128,
 
 
 def fp16_cases() -> list:
-    """The fp16 flash kernels, `auto_cast(dtype='float16')`'s path: the
-    forward at the serve bucket 1024 and at S=100 GQA, the forward with
-    its LSE, dq and dk/dv at the training shape and a ragged GQA one, and
-    a dq past fp16's range (inf where the plain version's is). Their
-    ~0.2 GB are freed after phase 2's check and made again for phase 8,
-    as `rung_cases`' (phase 6j's children leave the parent little room)."""
+    """The fp16 kernels. The flash kernels, `auto_cast(dtype='float16')`'s
+    path and an fp16 model's prefill and training: the forward at the
+    serve bucket 1024 and at S=100 GQA, the forward with its LSE, dq and
+    dk/dv at the training shape and a ragged GQA one, and a dq past
+    fp16's range (inf where the plain version's is). Then the kernels of
+    a model cast to fp16 (phase 10): RMSNorm at the decode, prefill and
+    training rows (width 4096); CE forward and backward at the fp16
+    training step's [2047, 32000] with its mean loss's g = 1/N (dlogits
+    at or below fp16's subnormal range, checked one by one), with g =
+    1/16 (almost all of them subnormal), at [4094, 32000] with O(1)
+    gradients and ignored rows, and with logits at +-65504; the paged
+    kernel at the decode shape over fp16 pages (HKV 32 and 8), over int8
+    pages with the round's fp16 window (offsets 0/9/15, a length-1 slot,
+    an inactive slot; the serve shape), the verify's T = 5 rows over
+    fp16 pages and over int8 pages and the window; the same at GPT-2
+    small's head_dim 64 (fp16 pages, int8 pages and the window, the
+    verify over them); the adapter kernel's delta and fused add with an
+    fp16 x over an f32 bank and over an fp16 bank at the decode, prefill
+    and ragged shapes. Their ~2 GB are freed after phase 2's check and
+    made again for phase 8, as `rung_cases`' (phase 6j's children leave
+    the parent little room)."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
     gen = torch.Generator(device=DEV).manual_seed(18)
     cases, add = _case_list()
     h = torch.float16
@@ -1174,6 +1292,41 @@ def fp16_cases() -> list:
     for b, s, hkv in ((TRAIN_BATCH, TRAIN_SEQ, 32), (1, 1000, 8)):
         _flash_train_case(add, gen, h, b, s, 32, hkv, rep=s == TRAIN_SEQ)
     _fp16_overflow_case(add, gen)
+
+    for r in (8, 1024, FP16_TRAIN_SEQ):
+        x = _randn((r, 4096), h, gen)
+        w = (1 + 0.1 * torch.randn(4096, generator=gen, device=DEV)).to(h)
+        add('rms_norm_fp16', f'rms_norm float16 rows={r} width=4096', h,
+            lambda x=x, w=w: K.rms_norm(x, w, 1e-6),
+            lambda x=x, w=w: K.rms_norm_reference(x, w, 1e-6),
+            lambda x=x, w=w: F.rms_norm(x, (4096,), w, 1e-6),
+            nbytes(x, x, w), 4 * x.numel(), rep=r == 1024)
+    # the training step's mean loss (most dlogits round to 0, the rest to
+    # subnormals), then g = 1/16, which puts almost every one of them in
+    # fp16's subnormal range
+    _ce_case(add, gen, h, FP16_TRAIN_SEQ - 1, 32000, rep=True,
+             g_value=1 / (FP16_TRAIN_SEQ - 1))
+    _ce_case(add, gen, h, 512, 32000, g_value=1 / 16)
+    _ce_case(add, gen, h, TRAIN_BATCH * (TRAIN_SEQ - 1), 32000)
+    _ce_case(add, gen, h, 512, 32000, near_max=True)
+
+    n, p = 8, 64
+    table = (torch.randperm(n * p, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
+                           dtype=torch.int32, device=DEV)
+    for hkv in (32, 8):
+        _paged_decode_case(add, gen, h, hkv, False, table, lengths,
+                           key='paged_attention_fp16', rep=hkv == 32)
+    _paged_window_cases(add, gen, table, lengths, dtypes=(h,),
+                        key='paged_attention_int8_window_fp16')
+    _paged_verify_cases(add, gen, kinds=(
+        (h, 32, 'float', False, True), (h, 8, 'float', False, False),
+        (h, 32, 'int8_window', False, False),
+        (h, 32, 'float', True, False)), key='paged_attention_verify_fp16')
+    _head64_fp16_paged_cases(add, gen)
+    _adapter_cases(add, gen, pairs=((h, torch.float32), (h, h)),
+                   key='adapter_matmul_fp16')
     return cases
 
 
@@ -1264,37 +1417,54 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
         4 * 2 * d * pairs, rep=rep)
 
 
-def _ce_case(add, gen, dtype, n, vocab, rep=False) -> None:
+def _ce_case(add, gen, dtype, n, vocab, rep=False, g_value=None,
+             near_max=False) -> None:
     """The CE forward and backward at [n, vocab] with ignored rows, against
     their plain versions, with `F.cross_entropy` (and its backward) as the
-    library call."""
+    library call. With `g_value`, unit-scale logits and that gradient on
+    every row instead (1/n: a mean loss over the rows, the training
+    step's), so that fp16 dlogits p g (p ~ 1/V) fall to fp16's subnormal
+    range or below it; with `near_max`, seven logits a row at fp16's
+    largest value 65504 (and one at -65504 every third row). fp16 cases
+    report under the `_fp16` names."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
-    x = (3 * torch.randn((n, vocab), generator=gen, device=DEV)).to(dtype)
+    scale = 3.0 if g_value is None else 1.0
+    x = (scale * torch.randn((n, vocab), generator=gen, device=DEV)).to(dtype)
+    if near_max:
+        x[:, :7] = 65504.0
+        x[::3, 7] = -65504.0
     lab = torch.randint(0, vocab, (n,), generator=gen, device=DEV,
                         dtype=torch.int32)
-    lab[::7] = 0                        # ignored rows: safe label 0 ...
-    # an O(1) upstream gradient of either sign, so that both the
-    # softmax and the one-hot term of dlogits stand far above the limit
-    g = torch.randn((n,), generator=gen, device=DEV)
-    g[::7] = 0.0                        # ... and no gradient
+    if g_value is not None:
+        g = torch.full((n,), g_value, device=DEV)
+    else:
+        lab[::7] = 0                    # ignored rows: safe label 0 ...
+        # an O(1) upstream gradient of either sign, so that both the
+        # softmax and the one-hot term of dlogits stand far above the limit
+        g = torch.randn((n,), generator=gen, device=DEV)
+        g[::7] = 0.0                    # ... and no gradient
     _, lse = K.softmax_cross_entropy_fwd_reference(x, lab)
     xg = x.detach().requires_grad_()
     lab64 = lab.long()
     lib_nll = F.cross_entropy(xg, lab64, reduction='none')
-    tag = f'{str(dtype)[6:]} N={n} V={vocab}'
-    add('softmax_ce_fwd', f'ce fwd {tag}', dtype,
+    tag = (f'{str(dtype)[6:]} N={n} V={vocab}'
+           + ('' if g_value is None else f' g={g_value:.3g}')
+           + (' logits at +-65504' if near_max else ''))
+    key = _fp16_key(dtype)
+    add('softmax_ce_fwd' + key, f'ce fwd {tag}', dtype,
         lambda x=x, lab=lab: K.softmax_cross_entropy_fwd(x, lab),
         lambda x=x, lab=lab: K.softmax_cross_entropy_fwd_reference(x, lab),
         lambda x=x, lab=lab64: F.cross_entropy(x, lab, reduction='none'),
         nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep)
-    add('softmax_ce_bwd', f'ce bwd {tag}', dtype,
+    add('softmax_ce_bwd' + key, f'ce bwd {tag}', dtype,
         lambda a=(x, lab, lse, g): K.softmax_cross_entropy_bwd(*a),
         lambda a=(x, lab, lse, g):
             K.softmax_cross_entropy_bwd_reference(*a),
         lambda o=lib_nll, x=xg, g=g:
             torch.autograd.grad(o, x, g, retain_graph=True),
-        nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep)
+        nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep,
+        subnormal=dtype == torch.float16)
 
 
 def _training_cases(add, gen) -> None:
@@ -1402,47 +1572,14 @@ def head64_cases() -> list:
     for dtype, hkv, t in ((torch.float32, h, 1), (torch.bfloat16, h, 1),
                           (torch.bfloat16, 4, 1), (torch.float32, h, 5),
                           (torch.bfloat16, h, 5)):
-        q = _randn((n, h, d) if t == 1 else (n, t, h, d), dtype, gen)
-        shape = (num_pages, ps, hkv, d)
-        kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
-        lens = lengths - (t - 1) if t > 1 else lengths
-        lens = lens.clamp(min=1).to(torch.int32)
-        last = [ln + t - 1 for ln in lens.tolist()]
-        args = (q, kp, vp, table, lens)
-        add('paged_attention' + ('_verify' if t > 1 else '') + '_d64',
-            f'paged {str(dtype)[6:]} N=8 T={t} H={h} HKV={hkv} D={d} '
-            f'ctx<=1024', dtype,
-            lambda a=args: K.paged_attention(*a),
-            lambda a=args: K.paged_attention_reference(*a),
-            None,
-            nbytes(q, q, table, lens) + sum(last) * hkv * d
-            * kp.element_size() * 2,
-            4 * d * h * sum(ln + i for ln in lens.tolist()
-                            for i in range(t)),
-            rep=t == 1 and dtype == torch.bfloat16 and hkv == h)
+        _paged_d64_float_case(add, gen, dtype, hkv, t, table, lengths,
+                              rep=t == 1 and dtype == torch.bfloat16
+                              and hkv == h)
     # int8 pages at D = 64 (their launches count under `_int8_d64`): a
     # decode call without a window, then with the round's window, then
     # the verify's 5 rows over int8 pages and the window
-    live_rows = int(lengths.sum())
     for dtype, hkv in ((torch.float32, h), (torch.bfloat16, 4)):
-        q = _randn((n, h, d), dtype, gen)
-        shape = (num_pages, ps, hkv, d)
-        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=DEV,
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand((num_pages, hkv), generator=gen, device=DEV)
-                  / 127 + 1e-3 for _ in range(2))
-        args = (q, kp, vp, table, lengths)
-        add('paged_attention_int8_d64',
-            f'paged {str(dtype)[6:]} N=8 H={h} HKV={hkv} D={d} ctx<=1024 '
-            f'int8 pages', dtype,
-            lambda a=args, ks=ks, vs=vs: K.paged_attention(
-                *a, k_scales=ks, v_scales=vs),
-            lambda a=args, ks=ks, vs=vs: K.paged_attention_reference(
-                *a, k_scales=ks, v_scales=vs),
-            None,
-            nbytes(q, q, table, lengths) + live_rows * hkv * d * 2
-            + 2 * n * p * hkv * 4,
-            4 * d * h * live_rows)
+        _paged_d64_int8_case(add, gen, dtype, hkv, table, lengths)
     _paged_window_cases(add, gen, table, lengths, h=h, d=d, hkvs=(h, 4),
                         key='paged_attention_int8_d64')
     _paged_verify_cases(add, gen, h=h, d=d, kinds=(
@@ -1451,6 +1588,89 @@ def head64_cases() -> list:
         (torch.float32, h, 'int8_window', True, False)),
         key='paged_attention_verify_int8_d64')
     return cases
+
+
+def _paged_d64_float_case(add, gen, dtype, hkv, t, table, lengths,
+                          rep=False) -> None:
+    """The paged kernel at GPT-2 small's decode (8 slots, H 12, D 64,
+    ctx <= 1024 by `lengths`, pages of 16) over pages in q's dtype, with
+    t query rows a slot (t = 5: the verify, lengths less 4); reported
+    under the call's LAUNCHES key."""
+    from paddle_tpu_torch.ops import kernels as K
+    n, p = table.shape
+    h, d, ps = GPT2_HEADS, 64, 16
+    num_pages = n * p + 1
+    q = _randn((n, h, d) if t == 1 else (n, t, h, d), dtype, gen)
+    shape = (num_pages, ps, hkv, d)
+    kp, vp = _randn(shape, dtype, gen), _randn(shape, dtype, gen)
+    lens = lengths - (t - 1) if t > 1 else lengths
+    lens = lens.clamp(min=1).to(torch.int32)
+    last = [ln + t - 1 for ln in lens.tolist()]
+    args = (q, kp, vp, table, lens)
+    add('paged_attention' + ('_verify' if t > 1 else '') + _fp16_key(dtype)
+        + '_d64',
+        f'paged {str(dtype)[6:]} N=8 T={t} H={h} HKV={hkv} D={d} '
+        f'ctx<=1024', dtype,
+        lambda a=args: K.paged_attention(*a),
+        lambda a=args: K.paged_attention_reference(*a),
+        None,
+        nbytes(q, q, table, lens) + sum(last) * hkv * d
+        * kp.element_size() * 2,
+        4 * d * h * sum(ln + i for ln in lens.tolist() for i in range(t)),
+        rep=rep)
+
+
+def _paged_d64_int8_case(add, gen, dtype, hkv, table, lengths) -> None:
+    """The paged kernel at GPT-2 small's decode shape over int8 pages and
+    their scales, no window (its launches under `_int8_d64`)."""
+    from paddle_tpu_torch.ops import kernels as K
+    n, p = table.shape
+    h, d, ps = GPT2_HEADS, 64, 16
+    num_pages = n * p + 1
+    live_rows = int(lengths.sum())
+    q = _randn((n, h, d), dtype, gen)
+    shape = (num_pages, ps, hkv, d)
+    kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((num_pages, hkv), generator=gen, device=DEV)
+              / 127 + 1e-3 for _ in range(2))
+    args = (q, kp, vp, table, lengths)
+    add('paged_attention_int8' + _fp16_key(dtype) + '_d64',
+        f'paged {str(dtype)[6:]} N=8 H={h} HKV={hkv} D={d} ctx<=1024 '
+        f'int8 pages', dtype,
+        lambda a=args, ks=ks, vs=vs: K.paged_attention(
+            *a, k_scales=ks, v_scales=vs),
+        lambda a=args, ks=ks, vs=vs: K.paged_attention_reference(
+            *a, k_scales=ks, v_scales=vs),
+        None,
+        nbytes(q, q, table, lengths) + live_rows * hkv * d * 2
+        + 2 * n * p * hkv * 4,
+        4 * d * h * live_rows)
+
+
+def _head64_fp16_paged_cases(add, gen) -> None:
+    """The fp16 paged kernels at GPT-2 small's decode shape (phase 10's
+    D = 64 path): fp16 pages (HKV 12, reported, and 4), the verify's
+    T = 5 rows over them, int8 pages without and with the round's fp16
+    window (`_paged_window_cases`, the serve-shape case reported), and
+    the verify over int8 pages and the window (reported)."""
+    h, f16 = GPT2_HEADS, torch.float16
+    n, p = 8, 64
+    table = (torch.randperm(n * p, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
+                           dtype=torch.int32, device=DEV)
+    for hkv, t in ((h, 1), (4, 1), (h, 5)):
+        _paged_d64_float_case(add, gen, f16, hkv, t, table, lengths,
+                              rep=t == 1 and hkv == h)
+    _paged_d64_int8_case(add, gen, f16, 4, table, lengths)
+    _paged_window_cases(add, gen, table, lengths, h=h, d=64, hkvs=(h, 4),
+                        key='paged_attention_int8_fp16_d64', dtypes=(f16,))
+    _paged_verify_cases(add, gen, h=h, d=64, kinds=(
+        (f16, h, 'int8_window', False, True),
+        (f16, 4, 'int8_window', False, False),
+        (f16, h, 'int8_window', True, False)),
+        key='paged_attention_verify_int8_fp16_d64')
 
 
 ADAPTER_COMPOSITE = ('composite of several PyTorch calls (index_select x2, '
@@ -1467,12 +1687,18 @@ def adapter_composite(x, a_bank, b_bank, rows, scale):
     return (out * scale.index_select(0, idx)[:, None, None]).to(x.dtype)
 
 
-def _adapter_cases(add, gen) -> None:
+def _adapter_cases(add, gen, pairs=((torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)),
+                   key='adapter_matmul') -> None:
     """adapter_matmul (the delta) and adapter_matmul_add (y + delta, what
     the serve path's hook calls) at the serve path's shapes: decode (8
     slots, T=1) and prefill (one row, T=1024) at H = O = 4096 and rank 8,
-    with rows mixing slot 0 and repeated slots, x and the bank each in f32
-    and bf16; and a ragged case (H=4000, O=1000, rank 16). y is of the
+    with rows mixing slot 0 and repeated slots, x and the bank in each of
+    the (x, bank) dtype `pairs`; and a ragged case (H=4000, O=1000, rank
+    16). The case reported under `key` is the decode add of the pair
+    whose bank is f32 and whose x is not (the serve path's hook). y is of the
     delta's scale, so that an add that drops or doubles the delta fails.
     The bytes count the factors and scale of each distinct adapted slot
     the rows use, once (slot 0's rows read none), and x, rows and the
@@ -1482,45 +1708,44 @@ def _adapter_cases(add, gen) -> None:
     for b, t, h, r, o, rows in ((8, 1, 4096, 8, 4096, [0, 1, 2, 1, 0, 3, 3, 1]),
                                 (1, 1024, 4096, 8, 4096, [3]),
                                 (6, 5, 4000, 16, 1000, [0, 2, 2, 1, 0, 4])):
-        for x_dtype in (torch.float32, torch.bfloat16):
-            for w_dtype in (torch.float32, torch.bfloat16):
-                x = _randn((b, t, h), x_dtype, gen)
-                a = (0.05 * torch.randn((slots, h, r), generator=gen,
-                                        device=DEV)).to(w_dtype)
-                bb = (0.05 * torch.randn((slots, r, o), generator=gen,
-                                         device=DEV)).to(w_dtype)
-                a[0], bb[0] = 0, 0
-                scale = torch.rand(slots, generator=gen, device=DEV) + 0.5
-                scale[0] = 0.0
-                y = (0.5 * torch.randn((b, t, o), generator=gen,
-                                       device=DEV)).to(x_dtype)
-                rows_t = torch.tensor(rows, dtype=torch.int32, device=DEV)
-                used = len(set(rows) - {0})   # slot 0 reads no factors
-                moved = (nbytes(x, rows_t) + b * t * o * x.element_size()
-                         + used * ((h * r + r * o) * a.element_size() + 4))
-                args = (x, a, bb, rows_t, scale)
-                tag = (f'x {str(x_dtype)[6:]} bank {str(w_dtype)[6:]} '
-                       f'B={b} T={t} H={h} R={r} O={o}')
-                dtype = (torch.bfloat16 if torch.float32 not in
-                         (x_dtype, w_dtype) else torch.float32)
-                decode_rep = (t == 1 and x_dtype == torch.bfloat16
-                              and w_dtype == torch.float32)
-                add('adapter_matmul', f'adapter {tag}', dtype,
-                    lambda a=args: K.adapter_matmul(*a),
-                    lambda a=args: K.adapter_matmul_reference(*a), None,
-                    moved, 2 * b * t * r * (h + o), zero_rows=rows_t == 0,
-                    zero_base=torch.zeros_like(y),
-                    yardstick=(ADAPTER_COMPOSITE,
-                               lambda a=args: adapter_composite(*a)),
-                    cold=t == 1)
-                add('adapter_matmul', f'adapter + y {tag}', dtype,
-                    lambda a=args, y=y: K.adapter_matmul_add(y, *a),
-                    lambda a=args, y=y: K.adapter_matmul_add_reference(y, *a),
-                    None, moved + nbytes(y), 2 * b * t * r * (h + o),
-                    rep=decode_rep, zero_rows=rows_t == 0, zero_base=y,
-                    yardstick=(ADAPTER_COMPOSITE, lambda a=args, y=y:
-                               y + adapter_composite(*a)),
-                    cold=t == 1)
+        for x_dtype, w_dtype in pairs:
+            x = _randn((b, t, h), x_dtype, gen)
+            a = (0.05 * torch.randn((slots, h, r), generator=gen,
+                                    device=DEV)).to(w_dtype)
+            bb = (0.05 * torch.randn((slots, r, o), generator=gen,
+                                     device=DEV)).to(w_dtype)
+            a[0], bb[0] = 0, 0
+            scale = torch.rand(slots, generator=gen, device=DEV) + 0.5
+            scale[0] = 0.0
+            y = (0.5 * torch.randn((b, t, o), generator=gen,
+                                   device=DEV)).to(x_dtype)
+            rows_t = torch.tensor(rows, dtype=torch.int32, device=DEV)
+            used = len(set(rows) - {0})   # slot 0 reads no factors
+            moved = (nbytes(x, rows_t) + b * t * o * x.element_size()
+                     + used * ((h * r + r * o) * a.element_size() + 4))
+            args = (x, a, bb, rows_t, scale)
+            tag = (f'x {str(x_dtype)[6:]} bank {str(w_dtype)[6:]} '
+                   f'B={b} T={t} H={h} R={r} O={o}')
+            dtype = (x_dtype if torch.float32 not in
+                     (x_dtype, w_dtype) else torch.float32)
+            decode_rep = (t == 1 and x_dtype != torch.float32
+                          and w_dtype == torch.float32)
+            add(key, f'adapter {tag}', dtype,
+                lambda a=args: K.adapter_matmul(*a),
+                lambda a=args: K.adapter_matmul_reference(*a), None,
+                moved, 2 * b * t * r * (h + o), zero_rows=rows_t == 0,
+                zero_base=torch.zeros_like(y),
+                yardstick=(ADAPTER_COMPOSITE,
+                           lambda a=args: adapter_composite(*a)),
+                cold=t == 1)
+            add(key, f'adapter + y {tag}', dtype,
+                lambda a=args, y=y: K.adapter_matmul_add(y, *a),
+                lambda a=args, y=y: K.adapter_matmul_add_reference(y, *a),
+                None, moved + nbytes(y), 2 * b * t * r * (h + o),
+                rep=decode_rep, zero_rows=rows_t == 0, zero_base=y,
+                yardstick=(ADAPTER_COMPOSITE, lambda a=args, y=y:
+                           y + adapter_composite(*a)),
+                cold=t == 1)
 
 
 FOREACH_NORM = ('torch._foreach_norm, then the sum of the squared norms '
@@ -1556,7 +1781,9 @@ def optimizer_cases() -> list:
     settings (step 10, lr 3e-4, decay 0.1 except on norms) in four
     variants: bf16 params and moments under the clip (the rung's, the
     JSON row), the same with amsgrad and no clip, and bf16 params with
-    fp32 masters and moments, with the clip and with amsgrad. The kernel
+    fp32 masters and moments, with the clip and with amsgrad; then fp16
+    params and grads (the bf16 grads rounded to fp16) with fp32 masters
+    and moments under the clip, phase 10's fp16 TrainStep. The kernel
     and the plain version each update their own copy of the same state
     in place and return it; every output is compared."""
     from paddle_tpu_torch.nlp import LlamaConfig
@@ -1585,7 +1812,7 @@ def optimizer_cases() -> list:
               decay=[0.0 if 'norm' in name else float(lr * np.float32(0.1))
                      for name, _ in shapes], decay_mode='decoupled')
 
-    def make_state(m_dtype, master, ams):
+    def make_state(m_dtype, master, ams, p_dtype=torch.bfloat16):
         """(params, m, v, masters, vmax) as after some steps, the same
         values at every call."""
         g = torch.Generator(device=DEV).manual_seed(9)
@@ -1594,31 +1821,36 @@ def optimizer_cases() -> list:
             x = scale * torch.randn(shape, generator=g, device=DEV)
             return (x.abs() if positive else x).to(dtype)
 
-        ps = [rand(s, torch.bfloat16, 0.02) for _, s in shapes]
+        ps = [rand(s, p_dtype, 0.02) for _, s in shapes]
         return (ps, [rand(s, m_dtype, 1e-3) for _, s in shapes],
                 [rand(s, m_dtype, 1e-4, True) for _, s in shapes],
                 [p.float() for p in ps] if master else [None] * len(ps),
                 [rand(s, m_dtype, 1e-4, True) for _, s in shapes] if ams
                 else None)
 
-    def step(fn, state, scale):
+    def step(fn, state, scale, gs):
         ps, m, v, masters, vmax = state
-        fn(ps, grads, m, v, masters, vmax or [None] * len(ps),
+        fn(ps, gs, m, v, masters, vmax or [None] * len(ps),
            clip_scale=scale, **kw)
         return tuple(x for ts in (ps, m, v, masters, vmax or ())
                      for x in ts if x is not None)
 
-    for m_dtype, master, ams in ((torch.bfloat16, False, False),
-                                 (torch.bfloat16, False, True),
-                                 (torch.float32, True, False),
-                                 (torch.float32, True, True)):
+    grads16 = [g.half() for g in grads]
+    for p_dtype, m_dtype, master, ams in (
+            (torch.bfloat16, torch.bfloat16, False, False),
+            (torch.bfloat16, torch.bfloat16, False, True),
+            (torch.bfloat16, torch.float32, True, False),
+            (torch.bfloat16, torch.float32, True, True),
+            (torch.float16, torch.float32, True, False)):
         scale = None if ams else clip
-        mine, ref = (make_state(m_dtype, master, ams) for _ in range(2))
+        gs = grads16 if p_dtype == torch.float16 else grads
+        mine, ref = (make_state(m_dtype, master, ams, p_dtype)
+                     for _ in range(2))
         moved = (2 * nbytes(*(x for ts in mine[1:] if ts for x in ts
                               if x is not None))
-                 + nbytes(*mine[0]) * (1 if master else 2) + nbytes(*grads)
+                 + nbytes(*mine[0]) * (1 if master else 2) + nbytes(*gs)
                  + (4 if scale is not None else 0))
-        tag = (f'adam bf16 params, {str(m_dtype)[6:]} moments'
+        tag = (f'adam {str(p_dtype)[6:]} params, {str(m_dtype)[6:]} moments'
                + (', fp32 masters' if master else '')
                + (', amsgrad' if ams else ', global clip scale < 1')
                + f', one layer + lm_head ({n / 1e6:.1f} M)')
@@ -1633,9 +1865,10 @@ def optimizer_cases() -> list:
                                       weight_decay=0.1, fused=True)
             yard = (FUSED_ADAMW, fused.step)
         add('multi_tensor_adam', tag, torch.float32,
-            lambda st=mine, sc=scale: step(K.multi_tensor_adam, st, sc),
-            lambda st=ref, sc=scale: step(K.multi_tensor_adam_reference,
-                                          st, sc),
+            lambda st=mine, sc=scale, gs=gs: step(K.multi_tensor_adam, st,
+                                                  sc, gs),
+            lambda st=ref, sc=scale, gs=gs: step(
+                K.multi_tensor_adam_reference, st, sc, gs),
             None, moved, 15 * n, rep=rep, yardstick=yard)
     return cases
 
@@ -1655,9 +1888,44 @@ def check_kernels(cases) -> None:
             log(f'[kernels] {c["name"]}: {int(rows.sum())} rows on slot 0 '
                 f'bit-equal to ' + ('y' if c['zero_base'].any()
                                     else 'zero'))
+        if c['subnormal']:
+            check_subnormals(c['name'], got, c['plain']())
         c['max_abs_err'] = r['max_abs_err']
         log(f'[kernels] {c["name"]}: max_abs_err {r["max_abs_err"]:.3e} '
             f'rel_max {r["rel_max"]:.3e} rel_norm {r["rel_norm"]:.3e}')
+
+
+# fp16's subnormal spacing (2^-24), and how far the count of an fp16
+# output's nonzero subnormals may stray from the plain version's: their
+# exp runs in another implementation, and a value within an f32 ulp of a
+# rounding midpoint may round the other way
+FP16_SUBNORMAL_STEP = 2.0 ** -24
+SUBNORMAL_COUNT_SHARE = 0.005
+
+
+def check_subnormals(name, got, want) -> None:
+    """An fp16 output's subnormals kept as the plain version keeps them
+    (`.to(torch.float16)`, no flush to zero): as many nonzero ones to
+    SUBNORMAL_COUNT_SHARE, each within one subnormal step where both are
+    subnormal (the relative limits of `compare` cannot see them: they
+    lie below 2^-14 of an output whose largest values are ~1). Logs the
+    share of the output that is subnormal."""
+    tiny = torch.finfo(torch.float16).tiny
+    sub = (got != 0) & (got.abs() < tiny)
+    want_sub = (want != 0) & (want.abs() < tiny)
+    n, n_want = int(sub.sum()), int(want_sub.sum())
+    both = sub & want_sub
+    step = float((got[both].float() - want[both].float()).abs().max()) \
+        if bool(both.any()) else 0.0
+    log(f'[kernels] {name}: {n} nonzero subnormal outputs ({n_want} in the '
+        f'plain version, {n_want / want.numel():.4f} of the output), '
+        f'largest difference between them {step:.3e}; exact zeros '
+        f'{int((got == 0).sum())} (plain {int((want == 0).sum())})')
+    if abs(n - n_want) > SUBNORMAL_COUNT_SHARE * max(n_want, 1) \
+            or step > FP16_SUBNORMAL_STEP:
+        raise AssertionError(f'{name}: fp16 subnormals not kept as the '
+                             f'plain version keeps them ({n} vs {n_want}, '
+                             f'largest difference {step:.3e})')
 
 
 def time_kernels(cases) -> dict:
@@ -3241,6 +3509,7 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         peak_pages = max(peak_pages, eng.pool.used_page_count)
     wall = time.perf_counter() - t0
     launches = {k: K.LAUNCHES[k] for k in kernels}
+    every = dict(K.LAUNCHES)
 
     st = eng.stats()
     for h in handles:
@@ -3275,6 +3544,7 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         'ttft_p50_s': ttft[len(ttft) // 2], 'peak_pages': peak_pages,
         'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
         'launches': launches, 'tokens': [h.tokens for h in handles],
+        'every_launch': every,
     }
     log(f'[{tag}] {len(handles)} requests in {wall:.2f} s: prefill '
         f'{res["prefill_tok_per_s"]:.0f} tok/s ({st["prefill_tokens"]} '
@@ -3403,7 +3673,7 @@ def serve(cfg) -> dict:
                         'serve')
     from paddle_tpu_torch.weights import param_digest
     res.update(engine=eng, eager=eager, prompts=prompts, params=params,
-               digest=param_digest(model))
+               digest=param_digest(model), kv_gb=eng.pool.pool_bytes / 1e9)
     return res
 
 
@@ -3989,16 +4259,21 @@ def rel_rmse(got, want) -> float:
 def int8_logit_rmse(bf16, eng, prompts, tag: str) -> tuple:
     """(rmse, ref_rmse): the first decode sub-step's relative logit RMSE
     of `prompts` on the int8 engine `eng` against the float-KV engine
-    `bf16`, and that of the JAX bench's int8 arm (`bf16` over its pages
-    roundtripped through int8). Logged; the first must stay within
-    INT8_REF_SLACK times the second."""
+    `bf16` (bf16, or any float dtype), and that of the JAX bench's int8
+    arm (`bf16` over its pages roundtripped through int8). Logged; the
+    first must stay within INT8_REF_SLACK times the second, and every
+    logit of both engines must be finite."""
     want = first_step_logits(bf16, prompts)
     got = first_step_logits(eng, prompts)
+    if not (bool(torch.isfinite(want).all())
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f'{tag}: non-finite first-step logits')
     ref = first_step_logits(bf16, prompts, roundtrip=True)
     rmse, ref_rmse = rel_rmse(got, want), rel_rmse(ref, want)
     agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    kv = str(bf16.model.dtype)[6:]
     log(f'[{tag}] first decode sub-step of the {len(prompts)} prompts: '
-        f'relative logit RMSE {rmse:.4e} against the bf16-KV engine, the '
+        f'relative logit RMSE {rmse:.4e} against the {kv}-KV engine, the '
         f'JAX bench\'s int8 arm (its pages roundtripped through int8) '
         f'{ref_rmse:.4e} (limit {INT8_REF_SLACK} x that; the bench\'s '
         f'4-layer bound {INT8_RMSE_BOUND}), against each other '
@@ -7014,7 +7289,7 @@ def serve_gpt_int8(served, tag: str, kernels, draft_seed=None) -> dict:
     (`check_int8_launches`); the first decode sub-step's logit RMSE
     against the bf16-KV engine (`int8_logit_rmse`); every page free
     after a forced clear. With `draft_seed`, then
-    `serve_gpt_spec_int8`. Logs the KV bytes beside the bf16 pool's,
+    `serve_gpt_spec`. Logs the KV bytes beside the bf16 pool's,
     decode tok/s and TTFT beside the bf16 run, the seconds it took. The
     launches of every run are summed; at D = 128 the int8 paged calls
     count under `paged_attention_int8_window`, the kernel table's row
@@ -7063,21 +7338,24 @@ def serve_gpt_int8(served, tag: str, kernels, draft_seed=None) -> dict:
     log(f'[{tag}] int8 serve and prefix/chunk runs took '
         f'{time.perf_counter() - t0:.1f} s')
     if draft_seed is not None:
-        spec = serve_gpt_spec_int8(served, out, f'{tag}-draft', draft_seed)
+        spec = serve_gpt_spec(served, out, f'{tag}-draft', draft_seed)
         out['launches'] = _summed(out, spec)
         out['spec'] = spec['spec']
     return out
 
 
-def serve_gpt_spec_int8(served, int8_run, tag: str, seed: int) -> dict:
-    """`serve_gpt`'s model over int8 KV with a GPT_DRAFT_LAYERS-layer
-    random GPT draft of its width (bf16, weights from `seed`), k = SPEC_K,
-    the served requests on the graph engine and its eager twin: equal
-    tokens; the verify (k + 1 rows over int8 pages and the round's
-    window, `GPT2_SPEC_KERNELS[2]`) once per layer of every round; the
-    draft's float paged kernel launched. Logs the acceptance, decode
-    tok/s beside the plain int8 engine's, and how many requests get its
-    tokens (the verify's rejected rows enter the touched pages' requantize
+def serve_gpt_spec(served, int8_run, tag: str, seed: int,
+                   kernels=GPT2_SPEC_KERNELS, dtype='bfloat16',
+                   kv_quant='int8') -> dict:
+    """`serve_gpt`'s model over int8 KV (or `kv_quant`'s) with a
+    GPT_DRAFT_LAYERS-layer random GPT draft of its width (in `dtype`,
+    weights from `seed`), k = SPEC_K, the served requests on the graph
+    engine and its eager twin: equal tokens; the verify (k + 1 rows over
+    int8 pages and the round's window, `kernels[2]`) once per layer of
+    every round; the draft's float paged kernel (`kernels[1]`) launched.
+    Logs the acceptance, decode tok/s beside the plain engine's of the
+    same KV (`int8_run`), and how many requests get its tokens (over int8
+    pages the verify's rejected rows enter the touched pages' requantize
     scales, as in the JAX engine: a reading, not a gate)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.nlp import GPTForCausalLM
@@ -7086,25 +7364,23 @@ def serve_gpt_spec_int8(served, int8_run, tag: str, seed: int) -> dict:
     model = served['engine'].model
     layers = model.config.num_hidden_layers
     draft = GPTForCausalLM(draft_config(model.config, GPT_DRAFT_LAYERS),
-                           device=DEV, dtype='bfloat16',
+                           device=DEV, dtype=dtype,
                            generator=ptt.generator(seed, DEV))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     eng = InferenceEngine(model, num_slots=8, max_length=1024,
-                          kv_page_size=16, kv_quant='int8',
+                          kv_page_size=16, kv_quant=kv_quant,
                           draft_model=draft, num_draft_tokens=SPEC_K)
     prompts, params = served['prompts'], served['params']
-    res = _run_serve(eng, prompts, params, None, GPT2_SPEC_KERNELS, tag,
-                     base)
+    res = _run_serve(eng, prompts, params, None, kernels, tag, base)
     spec = eng.stats()['spec']
-    verify = GPT2_SPEC_KERNELS[2]
+    verify = kernels[2]
     if res['launches'][verify] != layers * res['decode_steps'] or \
             spec['rounds'] != res['decode_steps']:
         raise AssertionError(f'{tag}: {res["launches"][verify]} verify '
                              f'launches, want {layers} x '
                              f'{res["decode_steps"]} rounds')
-    eager = serve_eager(eng, res, prompts, params, None, GPT2_SPEC_KERNELS,
-                        tag)
+    eager = serve_eager(eng, res, prompts, params, None, kernels, tag)
     release(eager)
     same = sum(a == b for a, b in zip(res['tokens'], int8_run['tokens']))
     per_round = 1 + spec['accepted'] / max(spec['proposed'] / SPEC_K, 1)
@@ -7112,15 +7388,14 @@ def serve_gpt_spec_int8(served, int8_run, tag: str, seed: int) -> dict:
         f'{spec["rounds"]} rounds, acceptance rate '
         f'{spec["acceptance_rate"]:.4f}, {per_round:.3f} tokens per round '
         f'per greedy slot; decode {res["decode_tok_per_s"]:.1f} tok/s '
-        f'against the plain int8 engine\'s '
+        f'against the plain {kv_quant or "float"}-KV engine\'s '
         f'{int8_run["decode_tok_per_s"]:.1f}; {same} of {len(prompts)} '
-        f'requests get the plain int8 engine\'s tokens; the draft\'s '
-        f'paged launches {res["launches"][GPT2_SPEC_KERNELS[1]]}, the '
-        f'verify\'s {res["launches"][verify]}; took '
-        f'{time.perf_counter() - t0:.1f} s')
+        f'requests get its tokens; the draft\'s paged launches '
+        f'{res["launches"][kernels[1]]}, the verify\'s '
+        f'{res["launches"][verify]}; took {time.perf_counter() - t0:.1f} s')
     del eng, draft
     return {'spec': spec, 'tokens': res['tokens'],
-            'launches': _summed(res, eager)}
+            'launches': _summed(res, eager), 'runs': (res, eager)}
 
 
 def train_gpt() -> dict:
@@ -7261,6 +7536,376 @@ def gpt_family() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: fp16 models (a model cast with to(dtype='float16'))
+# ---------------------------------------------------------------------------
+
+FP16_SERVE_KERNELS = ('flash_attention_fwd_fp16', 'paged_attention_fp16',
+                      'rms_norm_fp16')
+FP16_GPT_KERNELS = ('flash_attention_fwd_fp16', 'paged_attention_fp16')
+FP16_GPT_SPEC_KERNELS = FP16_GPT_KERNELS + ('paged_attention_verify_fp16',)
+FP16_GPT2_KERNELS = ('flash_attention_fwd_fp16_d64',
+                     'paged_attention_fp16_d64')
+FP16_GPT2_SPEC_KERNELS = FP16_GPT2_KERNELS + (
+    'paged_attention_verify_int8_fp16_d64',)
+FP16_TRAIN_KERNELS = ('flash_attention_fwd_fp16',
+                      'flash_attention_bwd_dq_fp16',
+                      'flash_attention_bwd_dkv_fp16', 'rms_norm_fp16',
+                      'softmax_ce_fwd_fp16', 'softmax_ce_bwd_fp16',
+                      'multi_tensor_adam')
+# the 4-layer logit check: the fp16 engine against the f32 one, beside
+# the bf16 engine's, over one set of weights
+FP16_RMSE_LAYERS = 4
+# the fp16 TrainStep against an f32 TrainStep from the same weights on
+# the same batches. Step 1 (before any update): the fp16 loss within
+# FP16_TRAIN_LOSS_RTOL of the f32 one (the logits round at 2^-11
+# relative; read 5.2e-6 at ln V ~ 10.4 less the target logit).
+# Steps 2-3: the fp16 loss within FP16_TRAIN_UPDATE_SHARE of what the
+# f32 updates moved the f32 loss on that batch (its loss after the
+# updates less its loss at the initial weights). fp16 without loss
+# scaling cannot follow f32 closely: 88% of its dlogits round to 0, so
+# its gradient differs from f32's, and Adam's first step, about
+# lr sign(g), moves every element by lr whatever its size (read 0.273
+# and 0.156 of moves of -0.0044 and -0.0153 nats). A skipped fp16
+# update reads 1, a reversed one about 2
+FP16_TRAIN_LOSS_RTOL = 1e-4
+FP16_TRAIN_UPDATE_SHARE = 0.5
+
+
+def fp16_only(launches: dict, tag: str) -> None:
+    """Every launch in `launches` (a LAUNCHES copy, as `_run_serve`'s
+    `every_launch`) is an fp16 kernel's: no key without `_fp16` rose, but
+    the multi-tensor update's (one key for every dtype)."""
+    other = {k: n for k, n in launches.items() if n and '_fp16' not in k
+             and not k.startswith('multi_tensor')}
+    if other:
+        raise AssertionError(f'{tag}: launches outside the fp16 kernels: '
+                             f'{other}')
+
+
+def _fp16_prompts(vocab: int) -> tuple:
+    """Phase 6's 12 requests over `vocab`: SERVE_LENS prompts from seed 2,
+    32 new tokens, the sixth a seeded sampling one."""
+    from paddle_tpu_torch.serving import SAMPLING, SamplingParams
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(3, vocab, (n,)).tolist() for n in SERVE_LENS]
+    params = [SamplingParams(max_new_tokens=32, eos_token_id=-1)
+              for _ in prompts]
+    params[5] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
+                               strategy=SAMPLING, temperature=0.8,
+                               top_p=0.9, seed=7)
+    return prompts, params
+
+
+def _fp16_bank_wave(eng, res, prompts, params, kernels, tag) -> list:
+    """Phase 6b's wave on the fp16 model: a three-adapter f32 bank (the
+    JAX bank's default dtype) on q/k/v/o_proj, request i under [base,
+    ad0, ad1, ad2][i % 4], graph and eager twin. Gates: equal tokens, the
+    fp16 adapter kernel once per adapted projection of every prefill and
+    decode sub-step, base requests the plain fp16 engine's tokens, some
+    adapted request differs, every launch an fp16 kernel's."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    model = eng.model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    bank = adapter_bank(model, 3, 4)
+    beng = InferenceEngine(model, num_slots=8, max_length=1024,
+                           decode_block=8, kv_page_size=16,
+                           adapter_bank=bank)
+    ids = [(None, 'ad0', 'ad1', 'ad2')[i % 4] for i in range(len(prompts))]
+    kernels = kernels + ('adapter_matmul_fp16',)
+    banked = _run_serve(beng, prompts, params, ids, kernels,
+                        f'{tag} banked', base)
+    eager = serve_eager(beng, banked, prompts, params, ids, kernels,
+                        f'{tag} banked')
+    for run, how in ((banked, 'graph'), (eager, 'eager')):
+        fp16_only(run['every_launch'], f'{tag} banked ({how})')
+        want = len(bank.sites) * (run['prefills'] + run['decode_steps'])
+        if run['launches']['adapter_matmul_fp16'] != want:
+            raise AssertionError(f'{tag} banked ({how}): '
+                                 f'{run["launches"]["adapter_matmul_fp16"]}'
+                                 f' fp16 adapter launches, want {want}')
+    plain = [j for j, a in enumerate(ids) if a is None]
+    wrong = [j for j in plain if banked['tokens'][j] != res['tokens'][j]]
+    changed = [j for j, a in enumerate(ids)
+               if a is not None and banked['tokens'][j] != res['tokens'][j]]
+    if wrong or not changed:
+        raise AssertionError(f'{tag} banked: base requests {wrong} differ '
+                             f'from the bank-less engine, or no adapter '
+                             f'changed a token')
+    log(f'[{tag} banked] f32 bank over {len(bank.sites)} projections of the '
+        f'fp16 model: fp16 adapter launches = sites x (prefills + decode '
+        f'sub-steps) in both runs, base requests == the bank-less engine, '
+        f'{len(changed)} adapted requests changed')
+    release(eager)
+    bank.detach()
+    del beng
+    return [banked, eager]
+
+
+def serve_fp16(model, tag: str, kernels, int8_key: str, bf16=None,
+               bank=False) -> dict:
+    """An fp16 `model` behind the 8-slot paged engine (decode block 8,
+    pages of 16) with its decode and prefill graphs, phase 6's 12
+    requests (`_fp16_prompts`), graph and eager twin; with `bank`, phase
+    6b's wave (`_fp16_bank_wave`); then the same engine with
+    `kv_quant='int8'` (int8 pages, the round's window in fp16), graph and
+    eager twin. Gates: graph tokens equal eager tokens in every arm;
+    every launch an fp16 kernel's (`fp16_only`); the first decode
+    sub-step's logits finite on both KV kinds and the int8 engine's
+    within INT8_REF_SLACK of the JAX bench's int8 arm (`int8_logit_rmse`);
+    the int8 paged call (`int8_key`) once per layer of every decode
+    sub-step. Logs decode and prefill tok/s, TTFT and the KV pool's GB
+    beside `bf16` (phase 6's run of the bf16 model) where given. At D =
+    128 the int8 arm's paged launches count under
+    `paged_attention_int8_window_fp16`, its row in the kernel table."""
+    from paddle_tpu_torch.serving import InferenceEngine
+    t0 = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    prompts, params = _fp16_prompts(model.config.vocab_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16)
+    res = _run_serve(eng, prompts, params, None, kernels, tag, base)
+    eager = serve_eager(eng, res, prompts, params, None, kernels, tag)
+    runs = [res, eager]
+    release(eager)
+    if bank:
+        runs += _fp16_bank_wave(eng, res, prompts, params, kernels, tag)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng8 = InferenceEngine(model, num_slots=8, max_length=1024,
+                           decode_block=8, kv_page_size=16, kv_quant='int8')
+    k8 = (kernels[0], int8_key) + kernels[2:]
+    r8 = _run_serve(eng8, prompts, params, None, k8, f'{tag}-int8', base)
+    e8 = serve_eager(eng8, r8, prompts, params, None, k8, f'{tag}-int8')
+    release(e8)
+    rmse, ref_rmse = int8_logit_rmse(eng, eng8, prompts, f'{tag}-int8')
+    check_int8_launches({f'{tag}-int8': r8, f'{tag}-int8 eager': e8},
+                        int8_key, layers, f'{tag}-int8')
+    for run in runs + [r8, e8]:
+        fp16_only(run['every_launch'], tag)
+    if int8_key == 'paged_attention_fp16':
+        for run in (r8, e8):
+            run['launches']['paged_attention_int8_window_fp16'] = \
+                run['launches'].pop(int8_key)
+    kv = (eng.pool.pool_bytes / 1e9, eng8.pool.pool_bytes / 1e9)
+    for key, fmt in (('decode_tok_per_s', '.1f'), ('prefill_tok_per_s', '.0f'),
+                     ('ttft_mean_s', '.3f'), ('ttft_max_s', '.3f')):
+        log(f'[{tag}]   {key}: fp16 {res[key]:{fmt}} (int8 KV '
+            f'{r8[key]:{fmt}})' + (f' vs bf16 {bf16[key]:{fmt}} (phase 6, '
+                                   f'same run)' if bf16 else ''))
+    log(f'[{tag}]   KV pool: fp16 {kv[0]:.3f} GB, int8 with scales '
+        f'{kv[1]:.3f} GB' + (f' vs bf16 {bf16["kv_gb"]:.3f} GB (phase 6)'
+                             if bf16 else '') + f'; took '
+        f'{time.perf_counter() - t0:.1f} s')
+    del eng8
+    return {'engine': eng, 'prompts': prompts, 'params': params,
+            'tokens': res['tokens'], 'decode_tok_per_s':
+                res['decode_tok_per_s'], 'rmse': rmse, 'ref_rmse': ref_rmse,
+            'int8_tokens': r8['tokens'], 'int8_tok_per_s':
+                r8['decode_tok_per_s'], 'launches': _summed(*runs, r8, e8)}
+
+
+def fp16_logit_rmse() -> dict:
+    """Llama-2-7B width at FP16_RMSE_LAYERS layers: an f32 model (random
+    weights from phase 6's seed), its bf16 and its fp16 cast, each behind
+    an eager engine of phase 6's settings (the graphs give the eager
+    tokens, phase 10's serve runs show); the first decode sub-step's
+    logits of phase 6's prompts. The fp16 engine's relative logit RMSE
+    against the f32 engine must be no larger than the bf16 engine's."""
+    import copy
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import InferenceEngine
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=FP16_RMSE_LAYERS)
+    m32 = LlamaForCausalLM(cfg, device=DEV, dtype='float32',
+                           generator=ptt.generator(1234, DEV))
+    prompts, _ = _fp16_prompts(cfg.vocab_size)
+    logits = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        m = m32 if dt == torch.float32 else copy.deepcopy(m32).to(dt)
+        eng = InferenceEngine(m, num_slots=8, max_length=1024,
+                              decode_block=8, kv_page_size=16)
+        eng._capture_decode = eng._capture_prefill = False
+        logits[dt] = first_step_logits(eng, prompts)
+        if not bool(torch.isfinite(logits[dt]).all()):
+            raise AssertionError(f'fp16-rmse: {dt} logits not finite')
+        del eng, m
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = logits[torch.float32]
+    r16 = rel_rmse(logits[torch.float16], want)
+    rbf = rel_rmse(logits[torch.bfloat16], want)
+    agree = {str(dt)[6:]: int((logits[dt].argmax(-1) == want.argmax(-1))
+                              .sum()) for dt in (torch.bfloat16,
+                                                 torch.float16)}
+    log(f'[fp16-rmse] Llama-2-7B width, {FP16_RMSE_LAYERS} layers, the first '
+        f'decode sub-step of {len(prompts)} prompts against the f32 engine: '
+        f'relative logit RMSE fp16 {r16:.4e}, bf16 {rbf:.4e} (fp16 / bf16 '
+        f'{r16 / rbf:.4f}); argmax equal to f32 on {agree} of '
+        f'{len(prompts)}')
+    if not r16 <= rbf:
+        raise AssertionError(f'fp16-rmse: the fp16 engine\'s logit RMSE '
+                             f'{r16:.4e} exceeds the bf16 engine\'s {rbf:.4e}')
+    return {'rmse_fp16': r16, 'rmse_bf16': rbf, 'launches': {}}
+
+
+def train_fp16() -> dict:
+    """Llama-2-7B width at FP16_TRAIN_LAYERS layers in fp16 (random weights
+    from a seed), batch 1 x FP16_TRAIN_SEQ, AdamW with multi_precision
+    (fp32 masters, moments f32) through `TrainStep`, 3 steps on fresh
+    batches, no loss scaling (as the JAX TrainStep). First the same
+    weights in f32: their loss on each batch, then 3 steps of an f32
+    TrainStep with the same AdamW on the same batches; and one backward
+    of the fp16 model on the first batch: the share of lm_head's gradient
+    that is exactly 0 (fp16 dlogits p g round to 0 below 2^-25). Gates:
+    every loss finite, step 1's within FP16_TRAIN_LOSS_RTOL of the f32
+    step's, steps 2-3 within FP16_TRAIN_UPDATE_SHARE of the f32 updates'
+    move of the loss, the fp16 RMSNorm, CE forward and backward and flash
+    forward, dq and dk/dv kernels and the multi-tensor update launched,
+    no other dtype's. Logs ms a step and MFU (bench.py's count over 989
+    TFLOP/s)."""
+    import copy
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=FP16_TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM(cfg, device=DEV, dtype='float16',
+                             generator=ptt.generator(23, DEV))
+    rng = np.random.RandomState(23)
+    batches = [rng.randint(0, cfg.vocab_size, (1, FP16_TRAIN_SEQ))
+               for _ in range(3)]
+    m32 = copy.deepcopy(model).float()
+    with torch.no_grad():
+        initial32 = []
+        for b in batches:
+            ids = torch.as_tensor(b, device=DEV)
+            initial32.append(float(next_token_loss(m32(ids), ids)))
+    step32 = TrainStep(m32, next_token_loss,
+                       AdamW(learning_rate=TRAIN_LR,
+                             parameters=m32.parameters()))
+    losses32 = [float(step32(b, b)) for b in batches]
+    del step32, m32
+    ids = torch.as_tensor(batches[0], device=DEV)
+    loss = next_token_loss(model(ids), ids)
+    loss.backward()
+    zero = float((model.lm_head.weight.grad == 0).float().mean())
+    model.zero_grad(set_to_none=True)
+    del loss
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, next_token_loss, opt)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(b, b)))
+        times.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    rel = abs(losses[0] - losses32[0]) / abs(losses32[0])
+    moved = [l32 - l0 for l32, l0 in zip(losses32[1:], initial32[1:])]
+    shares = [abs(l16 - l32) / abs(mv) for l16, l32, mv in
+              zip(losses[1:], losses32[1:], moved)]
+    step_s = float(np.mean(times[1:]))
+    flops = train_flops_per_step(cfg, 1, FP16_TRAIN_SEQ)
+    mfu = flops / step_s / PEAK_OPS_PER_S[torch.float16]
+    log(f'[fp16-train] Llama-2-7B width, {FP16_TRAIN_LAYERS} layers fp16, '
+        f'batch 1 x {FP16_TRAIN_SEQ}, AdamW multi_precision: losses '
+        + ' '.join(f'{x:.6f}' for x in losses)
+        + '; the f32 TrainStep from the same weights '
+        + ' '.join(f'{x:.6f}' for x in losses32)
+        + ', the f32 initial weights on each batch '
+        + ' '.join(f'{x:.6f}' for x in initial32)
+        + f'; step 1 rel {rel:.3e} (limit {FP16_TRAIN_LOSS_RTOL}); steps '
+        f'2-3: the f32 updates moved the loss by '
+        + ' '.join(f'{x:+.6f}' for x in moved)
+        + ', the fp16 loss off the f32 one by '
+        + ' '.join(f'{x:.4f}' for x in shares)
+        + f' of that (limit {FP16_TRAIN_UPDATE_SHARE}); '
+        f'{step_s * 1e3:.1f} ms/step '
+        f'(steps 2-3), MFU {mfu:.4f} ({flops / 1e12:.1f} TFLOP a step by '
+        f'bench.py\'s count vs 989 TFLOP/s), peak device memory '
+        f'{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB; '
+        f'lm_head\'s gradient exactly 0 on {zero:.4f} of its elements; '
+        f'launches ' + json.dumps({k: launches[k] for k in
+                                   FP16_TRAIN_KERNELS}))
+    if not all(np.isfinite(losses)) or not rel <= FP16_TRAIN_LOSS_RTOL \
+            or not all(x <= FP16_TRAIN_UPDATE_SHARE for x in shares):
+        raise AssertionError(f'fp16-train: losses {losses}, f32 {losses32} '
+                             f'from {initial32}')
+    missing = [k for k in FP16_TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f'fp16-train: kernels never launched: '
+                             f'{missing}')
+    fp16_only(launches, 'fp16-train')
+    del step, opt, model
+    return {'losses': losses, 'losses32': losses32, 'initial32': initial32,
+            'shares': shares, 'step_s': step_s, 'mfu': mfu,
+            'zero_share': zero, 'launches': launches}
+
+
+def fp16_phase(served=None) -> dict:
+    """Phase 10: fp16 models on the card. Llama-2-7B (32 layers, fp16,
+    phase 6's seed) served with float KV, behind a bank, and with int8
+    KV (`serve_fp16`, beside phase 6's bf16 figures in `served`); the
+    4-layer logit check (`fp16_logit_rmse`); GPT-3 XL (D = 128) and GPT-2
+    small (D = 64) in fp16 with float and int8 KV, and a 2-layer fp16
+    draft over each (float KV at D = 128: the fp16 verify; int8 KV at
+    D = 64); the fp16 TrainStep (`train_fp16`). {name: result}."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                      LlamaForCausalLM)
+    t0 = time.perf_counter()
+    out = {}
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(), device=DEV,
+                             dtype='float16',
+                             generator=ptt.generator(1234, DEV))
+    log(f'[llama-fp16] Llama 32 layers x 4096 fp16, '
+        f'{nbytes(*model.parameters()) / 1e9:.2f} GB of weights')
+    out['llama-fp16'] = serve_fp16(model, 'llama-fp16', FP16_SERVE_KERNELS,
+                                   'paged_attention_fp16', bf16=served,
+                                   bank=True)
+    del model
+    release(out['llama-fp16'])
+    out['fp16-rmse'] = fp16_logit_rmse()
+    for name, cfg, kernels, int8_key, seed, spec in (
+            ('gpt-fp16', GPTConfig.gpt3_1p3b(), FP16_GPT_KERNELS,
+             'paged_attention_fp16', 1919,
+             (FP16_GPT_SPEC_KERNELS, None, 'plain')),
+            ('gpt2-fp16', GPTConfig.gpt2_small(), FP16_GPT2_KERNELS,
+             'paged_attention_int8_fp16_d64', 1920,
+             (FP16_GPT2_SPEC_KERNELS, 'int8', 'int8'))):
+        model = GPTForCausalLM(cfg, device=DEV, dtype='float16',
+                               generator=ptt.generator(seed, DEV))
+        run = out[name] = serve_fp16(model, name, kernels, int8_key)
+        spec_kernels, kv_quant, ref = spec
+        ref_run = run if ref == 'plain' else {
+            'tokens': run['int8_tokens'],
+            'decode_tok_per_s': run['int8_tok_per_s']}
+        drafted = serve_gpt_spec(run, ref_run, f'{name}-draft',
+                                      seed + 100, kernels=spec_kernels,
+                                      dtype='float16', kv_quant=kv_quant)
+        for r in drafted['runs']:
+            fp16_only(r['every_launch'], f'{name}-draft')
+        run['launches'] = _summed(run, drafted)
+        del model
+        release(run)
+    out['fp16-train'] = train_fp16()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'[fp16] phase 10 took {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -7271,6 +7916,55 @@ def release(*runs) -> None:
             release(run['eager'])
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def build_seconds(layout: str, flags: tuple) -> float:
+    """Build every kernel source from scratch into a fresh directory under
+    build/, nvcc given `flags` beyond `_build.NVCC_FLAGS`, and log the
+    seconds. `layout` 'split' builds the sources as shipped (the paged and
+    adapter kernels one library per q or x dtype); 'single' builds each
+    of those two as one source holding its three dtypes' instantiations
+    (each entry renamed, so that the three can share one library)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.ops import _build
+    root = _build.BUILD_ROOT.parent
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        csrc = Path(tmp) / 'csrc'
+        shutil.copytree(_build.CSRC, csrc)
+        sources = _build.SOURCES
+        if layout == 'single':
+            for name, macro in (('paged_attention', 'PTT_PAGED_ATTENTION_FWD'),
+                                ('adapter_matmul', 'PTT_ADAPTER_MATMUL_FWD')):
+                body = [f'#include "{name}.cuh"']
+                for t, code in (('float', 'PTT_F32'),
+                                ('__nv_bfloat16', 'PTT_BF16'),
+                                ('__half', 'PTT_F16')):
+                    body += [f'#define {name}_fwd {name}_fwd_{code}',
+                             f'{macro}({t}, {code})', f'#undef {name}_fwd']
+                (csrc / f'{name}.cu').write_text('\n'.join(body) + '\n')
+                sources = tuple(n for n in sources
+                                if not n.startswith(name + '_')) + (name,)
+        elif layout != 'split':
+            raise ValueError(f'--build-s: layout {layout!r}')
+        saved = _build.CSRC, _build.SOURCES, _build.BUILD_ROOT, \
+            _build.NVCC_FLAGS
+        _build.CSRC, _build.SOURCES = csrc, sources
+        _build.BUILD_ROOT = Path(tmp) / 'build'
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + flags
+        try:
+            t0 = time.perf_counter()
+            logs = _build.build_all()
+            total = time.perf_counter() - t0
+        finally:
+            _build.CSRC, _build.SOURCES, _build.BUILD_ROOT, \
+                _build.NVCC_FLAGS = saved
+    log(f'[build-s] {layout} ({len(sources)} sources), extra nvcc flags '
+        f'{list(flags)}: {total:.1f} s; ' + '; '.join(
+            f'{n} {logs[n].strip().splitlines()[-1].split()[-2]} s'
+            for n in sources))
+    return total
 
 
 def main() -> int:
@@ -7292,7 +7986,9 @@ def main() -> int:
         # keeps its one-row outputs
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
         from paddle_tpu_torch.ops import _build
-        _build.SOURCES = ('paged_attention',)     # the one source it runs
+        # the paged kernel's sources only (one, or one per dtype)
+        _build.SOURCES = tuple(n for n in _build.SOURCES
+                               if n.startswith('paged_attention'))
         _build.build_all()
         outputs = {} if len(sys.argv) > 3 else None
         log(f'[paged] {sys.argv[2]}: ' + '; '.join(
@@ -7302,6 +7998,11 @@ def main() -> int:
             + ' ms per call')
         if outputs is not None:
             torch.save(outputs, sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ['--build-s']:
+        # python3 chip_smoke.py --build-s split|single [NVCC_FLAG ...]:
+        # every kernel source built from scratch, timed (build_seconds)
+        build_seconds(sys.argv[2], tuple(sys.argv[3:]))
         return 0
     if sys.argv[1:2] == ['--paged-bits']:
         # python3 chip_smoke.py --paged-bits A B: two --paged-ms outputs
@@ -7403,6 +8104,24 @@ def main() -> int:
             _summed(*gpt.values()).items()))))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--fp16']:
+        # python3 chip_smoke.py --fp16: phase 2's fp16 cases, phase 6's
+        # bf16 serve run (its figures beside phase 10's; released first),
+        # then phase 10 alone, then the fp16 cases timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        f16 = fp16_cases()
+        check_kernels(f16)
+        res = serve(LlamaConfig.llama2_7b())
+        release(res)
+        fp16 = fp16_phase(res)
+        time_kernels(f16)
+        log('[fp16] launches ' + json.dumps(dict(sorted(
+            _summed(*fp16.values()).items()))))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -7422,7 +8141,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log('[env] TF32 off for matmul and cuDNN')
     t0 = time.perf_counter()
+
+    def mark(label: str) -> None:
+        """The seconds since t0 after a group of phases (the budget's
+        breakdown)."""
+        log(f'[time] {label}: {time.perf_counter() - t0:.1f} s')
+
     build()
+    mark('build')
     cases = kernel_cases()
     check_kernels(cases)
     check_kernels(optimizer_cases())    # freed here, rebuilt for phase 8
@@ -7430,6 +8156,7 @@ def main() -> int:
     check_kernels(fp16_cases())         # the same
     check_kernels(head64_cases())       # the same
     torch.cuda.empty_cache()
+    mark('phase 2')
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_adapter_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_prefix_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -7440,17 +8167,21 @@ def main() -> int:
     check_train_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_train_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
     check_offload_steps(LlamaConfig.llama2_7b(num_hidden_layers=2))
+    mark('phases 3-4')
     rung = LlamaConfig.llama2_7b(num_hidden_layers=8, use_recompute=True)
     trained = train(rung)
     pretrained = pretrain(trained, rung)
+    mark('phases 5-5b')
     rest = rest_of_training(trained)
     log(f'[eager] device memory held before phase 5g '
         f'{torch.cuda.memory_allocated() / 1e9:.2f} GB')
     eager = eager_dygraph(rung)
+    mark('phases 5c-5g')
     res = serve(LlamaConfig.llama2_7b())
     spec = serve_spec(res)
     drain_swap(res)
     adapted = serve_adapters(res)
+    mark('phases 6, 6e, 6f, 6b')
     t6g = time.perf_counter()
     stored = serve_adapter_store(res, adapted)
     weights = weight_store_swap(res)
@@ -7460,8 +8191,10 @@ def main() -> int:
     observed = serve_observed(res)
     log(f'[observe] phase 6h took {time.perf_counter() - t6h:.1f} s')
     fleet = serve_fleet(res, adapted)
+    mark('phases 6g-6i')
     prefixed = serve_prefix(res)
     int8 = serve_int8(res, prefixed)
+    mark('phases 6c, 6d')
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res, adapted, prefixed)
@@ -7475,11 +8208,15 @@ def main() -> int:
     profile_train(trained['step'], trained['batch'], trained['step_s'],
                   'bench')
     release(trained, pretrained)
+    mark('phase 7')
     procs = serve_procs(res)
+    mark('phase 6j')
     # after 6j: the linear-algebra libraries' workspaces stay in the
     # process, and 6j's children leave the parent little room
     n_ops = op_sweep()
     gpt = gpt_family()
+    fp16 = fp16_phase(res)
+    mark('phases 8 (op sweep), 9, 10')
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
     rungs = rung_cases()
@@ -7488,7 +8225,9 @@ def main() -> int:
     check_kernels(f16)
     d64 = head64_cases()
     check_kernels(d64)
+    mark('phase 8 (checks again)')
     rows = time_kernels(cases + opt_cases + rungs + f16 + d64)
+    mark('phase 8 (timing)')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -7500,7 +8239,8 @@ def main() -> int:
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self'], procs,
-                                   eager, *rest.values(), *gpt.values()))
+                                   eager, *rest.values(), *gpt.values(),
+                                   *fp16.values()))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -16,6 +16,20 @@
 // add then adds that rounded delta to y in fp32 and rounds once more to
 // y's dtype, which is what torch and XLA do for y + delta.
 //
+// Dtypes: x (and y) f32, bf16 or fp16; the bank f32 or bf16 under an f32
+// or bf16 x, f32 or fp16 under an fp16 x (an fp16 model's bank keeps the
+// JAX bank's f32 default, or is made in the model's dtype). Three
+// libraries share this header, one for each dtype of x, so that the
+// compiler builds them in parallel: adapter_matmul_f32.cu,
+// adapter_matmul_bf16.cu and adapter_matmul_fp16.cu; each exports
+// `adapter_matmul_fwd` (`PTT_ADAPTER_MATMUL_FWD`), and ops/kernels.py
+// picks the library by x's dtype. An fp16 instantiation is the bf16 one
+// with another 2-byte element: the bulk copies move bytes (16-byte
+// granules, whatever the element), Raw8 widens an fp16 of a packed pair
+// by __half2float (ptt_half_bits_to_float), and the 16-byte stores pack
+// pairs by __floats2half2_rn, which rounds to nearest even as
+// ptt_from_float<__half> does.
+//
 // Bound on the H100: bytes, and at the serving path's shapes the launch
 // itself. The work is 2 * T * R * (H + O) flops per row: 134 MFLOP for a
 // prefill call (T = 1024, H = O = 4096, rank 8), about 2 us at the 67
@@ -81,9 +95,12 @@
 //  - One launch, no global scratch, no atomics, nothing to reset between
 //    calls. Ragged H, O and rank are masked; a padded rank entry is exactly
 //    0 in h1 and is not summed into the output.
+#pragma once
+
 #include <algorithm>
 #include <climits>
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -125,7 +142,7 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
 // time once the loops are unrolled).
 template <typename T>
 struct Raw8 {
-  static constexpr int kWords = sizeof(T) / 2;   // 1 (bf16) or 2 (f32)
+  static constexpr int kWords = sizeof(T) / 2;   // 1 (bf16, fp16), 2 (f32)
   uint4 w[kWords];
 
   __device__ __forceinline__ static unsigned& part(uint4& u, int k) {
@@ -137,6 +154,11 @@ struct Raw8 {
   __device__ __forceinline__ float operator[](int j) const {
     if constexpr (sizeof(T) == 4) {
       return __uint_as_float(part(w[j / 4], j % 4));
+    } else if constexpr (std::is_same<T, __half>::value) {
+      // fp16 2k in the low half of word k, 2k + 1 in the high half
+      const unsigned b = part(w[0], j / 2);
+      return ptt_half_bits_to_float(
+          static_cast<unsigned short>(j % 2 ? b >> 16 : b & 0xffffu));
     } else {   // bf16 2k in the low half of word k, 2k + 1 in the high half
       const unsigned b = part(w[0], j / 2);
       return __uint_as_float(j % 2 ? b & 0xffff0000u : b << 16);
@@ -164,7 +186,7 @@ __device__ __forceinline__ void load8(const T* p, int64_t i, int64_t n,
     if constexpr (sizeof(T) == 4) {
       Raw8<T>::part(r.w[j / 4], j % 4) = __float_as_uint(p[i + j]);
     } else {
-      const unsigned bits = __bfloat16_as_ushort(p[i + j]);
+      const unsigned bits = ptt_as_ushort(p[i + j]);
       Raw8<T>::part(r.w[0], j / 2) |= j % 2 ? bits << 16 : bits;
     }
   }
@@ -181,10 +203,10 @@ __device__ __forceinline__ void store8(T* __restrict__ p, int64_t i,
           make_float4(v[4], v[5], v[6], v[7]);
     } else {
       uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+      auto* h = reinterpret_cast<typename PttPair<T>::type*>(&u);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        h[k] = PttPair<T>::pack(v[2 * k], v[2 * k + 1]);
       *reinterpret_cast<uint4*>(p + i) = u;
     }
   } else {
@@ -682,10 +704,16 @@ cudaError_t launch_rank(const Args& p) {
   return cudaErrorInvalidValue;
 }
 
+// the bank: f32, or x's 16-bit type's family (bf16 under an f32 or bf16
+// x, fp16 under an fp16 x)
 template <typename TX>
 cudaError_t launch_bank(const Args& p, int w_dtype) {
   if (w_dtype == PTT_F32) return launch_rank<TX, float>(p);
-  if (w_dtype == PTT_BF16) return launch_rank<TX, __nv_bfloat16>(p);
+  if constexpr (std::is_same<TX, __half>::value) {
+    if (w_dtype == PTT_F16) return launch_rank<TX, __half>(p);
+  } else {
+    if (w_dtype == PTT_BF16) return launch_rank<TX, __nv_bfloat16>(p);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -693,17 +721,19 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-}  // namespace
-
-// delta (y == nullptr) or y + delta into out [batch, tokens, out_features]
-PTT_EXPORT int adapter_matmul_fwd(const void* x, const void* a_bank,
-                                  const void* b_bank, const void* rows,
-                                  const void* scale, const void* y, void* out,
-                                  int batch, int tokens, int hidden, int rank,
-                                  int out_features, int slots, int x_dtype,
-                                  int w_dtype, void* stream) {
+// `adapter_matmul_fwd` of the library for x of type TX (dtype code
+// kCode): delta (y == nullptr) or y + delta into out [batch, tokens,
+// out_features]; the bank f32 or x's 16-bit family (`launch_bank`); any
+// other dtype is cudaErrorInvalidValue
+template <typename TX, int kCode>
+int adapter_matmul_entry(const void* x, const void* a_bank,
+                         const void* b_bank, const void* rows,
+                         const void* scale, const void* y, void* out,
+                         int batch, int tokens, int hidden, int rank,
+                         int out_features, int slots, int x_dtype,
+                         int w_dtype, void* stream) {
   if (batch <= 0 || batch > kMaxBatch || tokens <= 0 || hidden < 0 ||
-      out_features <= 0 || rank < 1 || slots < 1)
+      out_features <= 0 || rank < 1 || slots < 1 || x_dtype != kCode)
     return static_cast<int>(cudaErrorInvalidValue);
   int flags = 0;
   if (aligned16(x) && hidden % kVec == 0) flags |= kVecX;
@@ -716,13 +746,19 @@ PTT_EXPORT int adapter_matmul_fwd(const void* x, const void* a_bank,
                static_cast<const float*>(scale), y, out, batch, tokens,
                hidden, rank, out_features, slots, flags,
                static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (x_dtype == PTT_F32) {
-    err = launch_bank<float>(p, w_dtype);
-  } else if (x_dtype == PTT_BF16) {
-    err = launch_bank<__nv_bfloat16>(p, w_dtype);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_bank<TX>(p, w_dtype));
 }
+
+}  // namespace
+
+// the library's exported entry, for x of type TX (dtype code CODE)
+#define PTT_ADAPTER_MATMUL_FWD(TX, CODE)                                    \
+  PTT_EXPORT int adapter_matmul_fwd(                                        \
+      const void* x, const void* a_bank, const void* b_bank,                \
+      const void* rows, const void* scale, const void* y, void* out,        \
+      int batch, int tokens, int hidden, int rank, int out_features,        \
+      int slots, int x_dtype, int w_dtype, void* stream) {                  \
+    return adapter_matmul_entry<TX, CODE>(                                  \
+        x, a_bank, b_bank, rows, scale, y, out, batch, tokens, hidden,      \
+        rank, out_features, slots, x_dtype, w_dtype, stream);               \
+  }

@@ -7,6 +7,7 @@
 #include <cfloat>
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 // dtype codes shared with paddle_tpu_torch/ops/kernels.py
@@ -19,6 +20,9 @@ enum PttDtype { PTT_F32 = 0, PTT_BF16 = 1, PTT_INT8 = 2, PTT_F16 = 3 };
 __device__ __forceinline__ float ptt_to_float(float v) { return v; }
 __device__ __forceinline__ float ptt_to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float ptt_to_float(__half v) {
+  return __half2float(v);
 }
 __device__ __forceinline__ float ptt_to_float(int8_t v) {
   return static_cast<float>(v);
@@ -34,6 +38,55 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 ptt_from_float<__nv_bfloat16>(
     float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch/XLA cast
+}
+// Conversions to and from fp16 go through the intrinsics only, never an
+// implicit conversion (PyTorch's own builds define the __CUDA_NO_HALF_*
+// macros that remove those). __float2half_rn rounds to nearest even and
+// keeps fp16's subnormals (cvt.rn.f16.f32, which has no flush-to-zero
+// form), as torch's .to(torch.float16) does; a value past 65504 becomes
+// inf, never clamped.
+template <>
+__device__ __forceinline__ __half ptt_from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// The 16-bit types' raw bits (a 16-bit element kept in a 32-bit word),
+// and an fp16's bits back to float.
+__device__ __forceinline__ unsigned short ptt_as_ushort(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ unsigned short ptt_as_ushort(__half v) {
+  return __half_as_ushort(v);
+}
+__device__ __forceinline__ float ptt_half_bits_to_float(
+    unsigned short bits) {
+  return __half2float(__ushort_as_half(bits));
+}
+
+// Packed pairs of a 16-bit type T (bf16 or fp16): PttPair<T>::type is
+// __nv_bfloat162 or __half2, `pack` rounds two floats into one (to
+// nearest even, subnormals kept) and ptt_to_float2 widens one.
+template <typename T>
+struct PttPair;
+template <>
+struct PttPair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type pack(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+template <>
+struct PttPair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ type pack(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+__device__ __forceinline__ float2 ptt_to_float2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float2 ptt_to_float2(__half2 v) {
+  return __half22float2(v);
 }
 
 __device__ __forceinline__ float ptt_warp_sum(float v) {

@@ -11,6 +11,13 @@
 //   callers pass 0 for ignored rows and mask the loss themselves.
 // - backward: dx = (exp(x - lse) - onehot(label)) * g, computed in fp32
 //   and written in the logits dtype. g is 0 on ignored rows.
+// Logits in f32, bf16 or fp16 (the JAX package sends fp16 logits to its
+// fused CE when the vocab is >= 8192, paddle_tpu/nn/functional.py:1012).
+// In fp16 the backward's values at a mean loss over a large vocab (p ~
+// 1/V times g ~ 1/N) lie at or below fp16's subnormal range (at [2047,
+// 32000]: 88% round to 0, 12% to subnormals): each is rounded by
+// __float2half_rn / __floats2half2_rn, which keep subnormals, as the
+// plain version's .to(torch.float16) does; no build flag flushes them.
 // The residuals are the logits and the fp32 lse: no fp32 [N, V] buffer
 // exists. The Pallas kernels' [N, 1] column vectors and the padding of N
 // and V to block multiples are TPU tiling; these kernels mask their own
@@ -51,18 +58,25 @@ __device__ __forceinline__ void load8(const float* p, int n, bool vec,
   for (int e = 0; e < kVec; ++e) v[e] = e < n ? p[e] : -INFINITY;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, int n,
-                                      bool vec, float* v) {
+// the 16-bit types (bf16, fp16): one 16-byte load, widened by pairs
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, int n, bool vec,
+                                      float* v) {
+  using Pair = typename PttPair<T>::type;
   if (vec && n >= kVec) {
     const uint4 raw = reinterpret_cast<const uint4*>(p)[0];
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    const Pair* h = reinterpret_cast<const Pair*>(&raw);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) v[e] = __bfloat162float(h[e]);
+    for (int e = 0; e < kVec / 2; ++e) {
+      const float2 f = ptt_to_float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
     return;
   }
 #pragma unroll
   for (int e = 0; e < kVec; ++e)
-    v[e] = e < n ? __bfloat162float(p[e]) : -INFINITY;
+    v[e] = e < n ? ptt_to_float(p[e]) : -INFINITY;
 }
 
 __device__ __forceinline__ void store8(float* p, int n, bool vec,
@@ -77,19 +91,24 @@ __device__ __forceinline__ void store8(float* p, int n, bool vec,
     if (e < n) p[e] = v[e];
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, int n, bool vec,
+// the 16-bit types: each value rounded to nearest even (subnormals
+// kept), packed by pairs into one 16-byte store
+template <typename T>
+__device__ __forceinline__ void store8(T* p, int n, bool vec,
                                        const float* v) {
+  using Pair = typename PttPair<T>::type;
   if (vec && n >= kVec) {
     uint4 raw;
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+    Pair* h = reinterpret_cast<Pair*>(&raw);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) h[e] = __float2bfloat16(v[e]);
+    for (int e = 0; e < kVec / 2; ++e)
+      h[e] = PttPair<T>::pack(v[2 * e], v[2 * e + 1]);
     reinterpret_cast<uint4*>(p)[0] = raw;
     return;
   }
 #pragma unroll
   for (int e = 0; e < kVec; ++e)
-    if (e < n) p[e] = __float2bfloat16(v[e]);
+    if (e < n) p[e] = ptt_from_float<T>(v[e]);
 }
 
 // merge the softmax partial (m2, s2) into (m, s); m == -inf is empty
@@ -190,6 +209,9 @@ PTT_EXPORT int softmax_ce_fwd(const void* logits, const void* labels,
     ce_fwd_kernel<__nv_bfloat16><<<n, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), lab, nl, ls, vocab,
         vec != 0);
+  } else if (dtype == PTT_F16) {
+    ce_fwd_kernel<__half><<<n, kThreads, 0, s>>>(
+        static_cast<const __half*>(logits), lab, nl, ls, vocab, vec != 0);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -214,6 +236,10 @@ PTT_EXPORT int softmax_ce_bwd(const void* logits, const void* labels,
     ce_bwd_kernel<__nv_bfloat16><<<n, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), lab, ls, gr,
         static_cast<__nv_bfloat16*>(dx), vocab, vec != 0);
+  } else if (dtype == PTT_F16) {
+    ce_bwd_kernel<__half><<<n, kThreads, 0, s>>>(
+        static_cast<const __half*>(logits), lab, ls, gr,
+        static_cast<__half*>(dx), vocab, vec != 0);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,7 +5,7 @@
 // Replaces: paddle_tpu/ops/pallas_kernels.py:_paged_attn_kernel (called
 // through paged_attention / _paged_attention_pallas). Same function:
 // q [N, T, H, D] (T decode queries per slot), pages [num_pages, ps, HKV, D]
-// in f32, bf16 or int8 (int8 dequantized by a per-(page, kv head) f32
+// in f32, bf16, fp16 or int8 (int8 dequantized by a per-(page, kv head) f32
 // scale), table [N, P] int32 (page 0 is the null page), lengths [N]
 // int32; GQA folds query heads as [HKV, G] (head = hkv * G + g); query
 // row t of slot n sees the keys below lengths[n] + t (the JAX verify's
@@ -75,13 +75,26 @@
 // [N, HKV, splits + 1, G, D + 2]. The combine merges every partial by
 // exp(m_s - M) as before. Three launches, one call.
 //
+// Three libraries share this header, one for each dtype of q, so that
+// the compiler builds them in parallel: paged_attention_f32.cu,
+// paged_attention_bf16.cu and paged_attention_fp16.cu, each with the
+// instantiations for pages in q's dtype and for int8 pages with the
+// window in q's dtype, at D = 64 and 128. Each exports
+// `paged_attention_fwd` (`PTT_PAGED_ATTENTION_FWD`); ops/kernels.py picks
+// the library by q's dtype.
+//
 // No kernel syncs with the host or allocates memory: the wrapper takes
 // the workspace from PyTorch's caching allocator, so a call can be
 // captured by a CUDA graph.
 //
-// Head widths: every kernel is a template over D, built for D = 128 and
-// D = 64 (GPT-2, BERT, ERNIE), over pages in q's dtype (f32 or bf16) and
-// over int8 pages with their window. A key row is spread over D / 8
+// Head widths and dtypes: every kernel is a template over D, built for
+// D = 128 and D = 64 (GPT-2, BERT, ERNIE), over pages in q's dtype (f32,
+// bf16 or fp16) and over int8 pages with their window in q's dtype. An
+// fp16 instantiation reads as the bf16 one: a 2-byte element, so the
+// same tile layout and cp.async width, its packed pairs widened by
+// __half22float2 (row8), scores, partials and LSE in fp32, int8 pages
+// dequantized as scale x int8 in fp32, and one rounding of the output to
+// fp16 (__float2half_rn) in the combine. A key row is spread over D / 8
 // threads of 8 columns each (16 at D = 128, 8 at D = 64), so a block of
 // 128 threads holds 128 / (D / 8) key rows at a time, the score
 // reduce-scatter runs over D / 8 lanes and the combine has one thread
@@ -102,6 +115,8 @@
 // of 128 contiguous bytes, all 32 banks once. The cp.async staging moves
 // 4 chunks a row (2 x 64 keys x 64 B = 8 KB of K and V a split), and 8
 // neighbouring threads store one whole line, permuted: conflict-free too.
+#pragma once
+
 #include <cmath>
 
 #include "common.cuh"
@@ -169,19 +184,31 @@ __device__ __forceinline__ void row8(const float* tile, int t, int dg,
   x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
 
-template <int D>
-__device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
-                                     int dg, float (&x)[8]) {
+// bf16 or fp16 (T): one 16-byte chunk, four packed pairs
+template <int D, typename T>
+__device__ __forceinline__ void row8_16(const T* tile, int t, int dg,
+                                        float (&x)[8]) {
   const uint4 v = *reinterpret_cast<const uint4*>(
-      reinterpret_cast<const uint8_t*>(tile) +
-      chunk_at<D, __nv_bfloat16>(t, dg));
-  const auto* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
+      reinterpret_cast<const uint8_t*>(tile) + chunk_at<D, T>(t, dg));
+  const auto* pairs = reinterpret_cast<const typename PttPair<T>::type*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
+    const float2 f = ptt_to_float2(pairs[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+
+template <int D>
+__device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
+                                     int dg, float (&x)[8]) {
+  row8_16<D>(tile, t, dg, x);
+}
+
+template <int D>
+__device__ __forceinline__ void row8(const __half* tile, int t, int dg,
+                                     float (&x)[8]) {
+  row8_16<D>(tile, t, dg, x);
 }
 
 template <int D>
@@ -615,25 +642,26 @@ int launch(const PagedArgs& a, int n, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-// `t` query rows per slot (t x h / hkv <= 32); `pps` pages per split
-// (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot, kv
-// head); `w` window pages (0: no window; int8 pages only, w * ps <= 64);
-// `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h / hkv,
-// d + 2]; `d` is 128 or 64.
-PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
-                                   const void* v_pages, const void* table,
-                                   const void* lengths, const void* k_scales,
-                                   const void* v_scales, const void* k_win,
-                                   const void* v_win, const void* win_first,
-                                   void* ws, void* out, int n, int t, int h,
-                                   int hkv, int p, int ps, int pps, int splits,
-                                   int w, float scale, int q_dtype,
-                                   int kv_dtype, int d, void* stream) {
+// `paged_attention_fwd` of the library for q of type TQ (dtype code
+// kCode): `t` query rows per slot (t x h / hkv <= 32); `pps` pages per
+// split (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot,
+// kv head); `w` window pages (0: no window; int8 pages only, w * ps <=
+// 64); `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h /
+// hkv, d + 2]; `d` is 128 or 64. Pages are in q's dtype, or int8 (the
+// window then in q's dtype); any other dtype is cudaErrorInvalidValue.
+template <typename TQ, int kCode>
+int paged_attention_entry(const void* q, const void* k_pages,
+                          const void* v_pages, const void* table,
+                          const void* lengths, const void* k_scales,
+                          const void* v_scales, const void* k_win,
+                          const void* v_win, const void* win_first, void* ws,
+                          void* out, int n, int t, int h, int hkv, int p,
+                          int ps, int pps, int splits, int w, float scale,
+                          int q_dtype, int kv_dtype, int d, void* stream) {
   if (t < 1 || pps < 1 || pps * ps > kSplitKeys ||
       splits != (p + pps - 1) / pps || w < 0 || w * ps > kSplitKeys ||
-      (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64))
+      (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64) ||
+      q_dtype != kCode || (kv_dtype != kCode && kv_dtype != PTT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -657,17 +685,26 @@ PTT_EXPORT int paged_attention_fwd(const void* q, const void* k_pages,
               w,
               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == PTT_F32 && kv_dtype == PTT_F32)
-    return d == 64 ? launch<64, float, float, false>(a, n, s)
-                   : launch<128, float, float, false>(a, n, s);
-  if (q_dtype == PTT_BF16 && kv_dtype == PTT_BF16)
-    return d == 64 ? launch<64, __nv_bfloat16, __nv_bfloat16, false>(a, n, s)
-                   : launch<128, __nv_bfloat16, __nv_bfloat16, false>(a, n, s);
-  if (q_dtype == PTT_F32 && kv_dtype == PTT_INT8)
-    return d == 64 ? launch<64, float, int8_t, true>(a, n, s)
-                   : launch<128, float, int8_t, true>(a, n, s);
-  if (q_dtype == PTT_BF16 && kv_dtype == PTT_INT8)
-    return d == 64 ? launch<64, __nv_bfloat16, int8_t, true>(a, n, s)
-                   : launch<128, __nv_bfloat16, int8_t, true>(a, n, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype == PTT_INT8)
+    return d == 64 ? launch<64, TQ, int8_t, true>(a, n, s)
+                   : launch<128, TQ, int8_t, true>(a, n, s);
+  return d == 64 ? launch<64, TQ, TQ, false>(a, n, s)
+                 : launch<128, TQ, TQ, false>(a, n, s);
 }
+
+}  // namespace
+
+// the library's exported entry, for q of type TQ (dtype code CODE)
+#define PTT_PAGED_ATTENTION_FWD(TQ, CODE)                                   \
+  PTT_EXPORT int paged_attention_fwd(                                       \
+      const void* q, const void* k_pages, const void* v_pages,              \
+      const void* table, const void* lengths, const void* k_scales,         \
+      const void* v_scales, const void* k_win, const void* v_win,           \
+      const void* win_first, void* ws, void* out, int n, int t, int h,      \
+      int hkv, int p, int ps, int pps, int splits, int w, float scale,      \
+      int q_dtype, int kv_dtype, int d, void* stream) {                     \
+    return paged_attention_entry<TQ, CODE>(                                 \
+        q, k_pages, v_pages, table, lengths, k_scales, v_scales, k_win,     \
+        v_win, win_first, ws, out, n, t, h, hkv, p, ps, pps, splits, w,     \
+        scale, q_dtype, kv_dtype, d, stream);                               \
+  }

@@ -6,7 +6,12 @@
 // nn/functional.py:rms_norm -> ops/pallas.py:rms_norm, which normalizes
 // in fp32, casts to x.dtype, and only then multiplies by the weight in
 // x.dtype. The Pallas kernel multiplies by the weight before its cast;
-// the two differ only in where one bf16 rounding falls.
+// the two differ only in where one bf16 rounding falls. fp16 (a model
+// cast with `to(dtype='float16')`) follows the same order as bf16: the
+// sum of squares and the normalization in fp32, one rounding of the
+// normalized row to fp16 (__float2half_rn), then the product with the
+// fp16 weight in fp32 and a second rounding; the plain version
+// (kernels.rms_norm_reference) does the same.
 //
 // Bound on the H100: bytes. Each element is read once, squared and
 // summed (a handful of flops), then written once, so the kernel can do
@@ -68,6 +73,10 @@ PTT_EXPORT int rms_norm_fwd(const void* x, const void* w, void* out, int rows,
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w),
         static_cast<__nv_bfloat16*>(out), width, eps);
+  } else if (dtype == PTT_F16) {
+    rms_norm_kernel<__half><<<rows, kThreads, 0, s>>>(
+        static_cast<const __half*>(x), static_cast<const __half*>(w),
+        static_cast<__half*>(out), width, eps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

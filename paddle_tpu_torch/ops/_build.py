@@ -17,14 +17,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'paddle_tpu_torch'
 SOURCES = ('rms_norm', 'flash_attention', 'flash_attention_bwd',
-           'paged_attention', 'cross_entropy', 'adapter_matmul',
-           'multi_tensor_adam')
+           'paged_attention_f32', 'paged_attention_bf16',
+           'paged_attention_fp16', 'cross_entropy', 'adapter_matmul_f32',
+           'adapter_matmul_bf16', 'adapter_matmul_fp16', 'multi_tensor_adam')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
@@ -60,33 +63,50 @@ def build_all() -> Dict[str, str]:
 
     Returns {source name: nvcc's output} for the sources compiled by this
     call (`-Xptxas=-v` makes that the registers, shared memory and spills
-    of each kernel); the output is also kept beside each library as
-    `lib<name>.log` (see `build_log`). Raises RuntimeError with the
-    compiler's output if a source fails to build.
+    of each kernel), each ending with the seconds from the start of the
+    build to that source's end (`compiled in ... s`); the output is also
+    kept beside each library as `lib<name>.log` (see `build_log`).
+    Raises RuntimeError with the compiler's output if a source fails to
+    build.
     """
     global COMPILES
     nvcc = _nvcc()
     out_dir = _build_dir(nvcc)
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in SOURCES:
         lib = out_dir / f'lib{name}.so'
         if lib.exists():
             continue
         tmp = out_dir / f'lib{name}.so.tmp{os.getpid()}'
         cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        # nvcc's output goes to a file, not a pipe: pipes are read one
+        # process at a time, and one that ptxas -v fills (over 64 KB for
+        # a source of many kernels) would stall its compile until then
+        out = tempfile.TemporaryFile(mode='w+', dir=out_dir)
+        procs[name] = (subprocess.Popen(cmd, stdout=out,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
+                       out, tmp, lib)
     COMPILES += len(procs)
     logs, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(name)
-            continue
-        lib.with_suffix('.log').write_text(logs[name])
-        os.replace(tmp, lib)
+    pending = dict(procs)
+    while pending:
+        for name, (proc, out, tmp, lib) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            del pending[name]
+            out.seek(0)
+            logs[name] = (out.read() + f'compiled in '
+                          f'{time.perf_counter() - t0:.1f} s\n')
+            out.close()
+            if proc.returncode != 0:
+                failed.append(name)
+                continue
+            lib.with_suffix('.log').write_text(logs[name])
+            os.replace(tmp, lib)
+        if pending:
+            time.sleep(0.1)
     if failed:
         raise RuntimeError('nvcc failed for ' + ', '.join(failed) + ':\n'
                            + '\n'.join(logs[n] for n in failed))

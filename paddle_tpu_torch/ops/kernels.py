@@ -30,18 +30,24 @@ same function written as tensor code. A wrapper takes the plain version
 only for tensors that lie on the CPU, which is how the CPU tests run;
 for a CUDA tensor it launches its kernel or raises, and never falls
 back. `LAUNCHES` counts kernel launches, one per launch and nowhere
-else, so a run can show that its path went through the kernels (the
-flash kernels' fp16 launches under `<name>_fp16`); a CUDA graph's
-replays count through `CapturedLaunches`.
+else, so a run can show that its path went through the kernels (every
+kernel's fp16 launches under `<name>_fp16`, the multi-tensor ones
+aside); a CUDA graph's replays count through `CapturedLaunches`.
 
 Each CUDA source starts with a note: the TPU kernel it replaces, what
-bounds it on the H100, and what its design does about that. The flash
-forward, dq and dk/dv wrappers launch by dtype: bf16 and fp16 on the
-tensor-core (wgmma) kernels (one template over the element type; fp16
-is what `amp.auto_cast(dtype='float16')` sends them), f32 on fp32 FMA
-kernels; any other dtype raises. RMSNorm, CE, the paged kernel and the
-adapter kernel take f32 and bf16 only: AMP keeps the first two in f32
-(its black list), and the serving path runs no fp16 model. One
+bounds it on the H100, and what its design does about that. The paged
+and adapter kernels are built as one library per dtype of q or x (three
+`.cu` files over one `.cuh` each, `_by_dtype`), so that nvcc builds their
+many instantiations in parallel. Every kernel takes f32, bf16 and fp16
+(`_FLOAT_DTYPES`): a model cast with `to(dtype='float16')` is served and
+trained in fp16, and `amp.auto_cast(dtype='float16')` sends the flash
+kernels fp16. The flash
+forward, dq and dk/dv launch bf16 and fp16 on the tensor-core (wgmma)
+kernels (one template over the element type), f32 on fp32 FMA kernels;
+RMSNorm, CE, the paged kernel and the adapter kernel are templates over
+the element type with fp32 arithmetic inside. Any other dtype, or
+inputs of mixed dtypes a kernel was not built for (fp16 q over bf16
+pages, an fp16 x over a bf16 bank), raise. One
 `paged_attention` call launches two device kernels (the split-context
 pass and its combine; over int8 pages with the decode round's window
 also the window's split) and counts once: under `paged_attention` when
@@ -54,7 +60,8 @@ the round's window) are built for D = 128 and D = 64; the D = 64
 launches count under keys of their own (`_d64`, after any `_fp16`; the
 paged call over int8 pages at D = 64 under `paged_attention_int8_d64`
 and `paged_attention_verify_int8_d64`, while at D = 128 it counts as
-any other paged call). Unmasked attention with D < 64
+any other paged call; an fp16 q puts `_fp16` before the `_d64`, as in
+`paged_attention_int8_fp16_d64`). Unmasked attention with D < 64
 takes the plain version on every device (`flash_head_dim_ok`), as the
 JAX package sends it to XLA (`paddle_tpu/ops/pallas.py:95`): a shape
 rule decided before any launch. Any other D raises on the card.
@@ -85,8 +92,15 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'paged_attention_d64': 0, 'paged_attention_verify_d64': 0,
             'paged_attention_int8_d64': 0,
             'paged_attention_verify_int8_d64': 0,
+            'paged_attention_fp16': 0, 'paged_attention_verify_fp16': 0,
+            'paged_attention_fp16_d64': 0,
+            'paged_attention_verify_fp16_d64': 0,
+            'paged_attention_int8_fp16_d64': 0,
+            'paged_attention_verify_int8_fp16_d64': 0,
             'rms_norm': 0, 'softmax_ce_fwd': 0, 'softmax_ce_bwd': 0,
-            'adapter_matmul': 0, 'multi_tensor_adam': 0,
+            'adapter_matmul': 0, 'rms_norm_fp16': 0,
+            'softmax_ce_fwd_fp16': 0, 'softmax_ce_bwd_fp16': 0,
+            'adapter_matmul_fp16': 0, 'multi_tensor_adam': 0,
             'multi_tensor_sumsq': 0}
 
 # csrc/common.cuh: PttDtype
@@ -94,9 +108,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
 HEAD_DIMS = (64, 128)    # the attention kernels are built for these D
 FLASH_MIN_HEAD_DIM = 64  # unmasked attention below it is plain, as in JAX
-# the flash kernels' dtypes: fp16 for auto_cast(dtype='float16'); every
-# other CUDA kernel refuses fp16
-_FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# every float kernel's dtypes: fp16 for a model cast to fp16 and for
+# auto_cast(dtype='float16')'s flash calls
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 PAGED_MAX_ROWS = 32      # paged kernel: query rows T x G per kv head, at most
 PAGED_SPLIT_KEYS = 64    # paged kernel: keys per split and rows per page, at most
 ADAPTER_MAX_RANK = 64    # adapter kernel: LoRA rank, at most
@@ -123,8 +137,8 @@ _ARGTYPES = {
 }
 
 
-def _key(name: str, dtype, d: int) -> str:
-    """The `LAUNCHES` key of an attention launch: the fp16 and the D = 64
+def _key(name: str, dtype, d: Optional[int] = None) -> str:
+    """The `LAUNCHES` key of a launch: the fp16 and (attention's) D = 64
     instantiations count under keys of their own (`_fp16`, `_d64`), so a
     run can tell them from the bf16 and D = 128 ones."""
     return (name + ('_fp16' if dtype == torch.float16 else '')
@@ -176,6 +190,17 @@ def _entry(source: str, fn: str):
     return lib, f
 
 
+_DTYPE_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16',
+                 torch.float16: 'fp16'}
+
+
+def _by_dtype(source: str, dtype) -> str:
+    """The library of a kernel built one per dtype (the paged and adapter
+    kernels: `<source>_f32.cu`, `<source>_bf16.cu`, `<source>_fp16.cu`,
+    so that nvcc builds them in parallel)."""
+    return f'{source}_{_DTYPE_SUFFIX[dtype]}'
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -220,7 +245,8 @@ def _needs_grad(*tensors) -> bool:
 def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
                        eps: float = 1e-6) -> torch.Tensor:
     """Plain version: normalize in fp32, cast to x.dtype, then multiply by
-    the weight (the JAX model's `F.rms_norm` order)."""
+    the weight in x.dtype (the JAX model's `F.rms_norm` order, bf16 and
+    fp16 alike)."""
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * weight
@@ -233,8 +259,8 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
     if _on_cpu(x, weight):
         return rms_norm_reference(x, weight, eps)
     width = x.shape[-1]
-    _require(x.dtype in (torch.float32, torch.bfloat16),
-             f'rms_norm kernel takes f32 or bf16, got {x.dtype}')
+    _require(x.dtype in _FLOAT_DTYPES,
+             f'rms_norm kernel takes f32, bf16 or fp16, got {x.dtype}')
     _require(weight.dtype == x.dtype and tuple(weight.shape) == (width,),
              'rms_norm weight must be [width] in x.dtype')
     _require(x.is_contiguous() and weight.is_contiguous(),
@@ -247,7 +273,7 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
     rc = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, width,
             float(eps), _DTYPE_CODE[x.dtype], _stream(x))
     _build.check(lib, rc, 'rms_norm_fwd')
-    LAUNCHES['rms_norm'] += 1
+    LAUNCHES[_key('rms_norm', x.dtype)] += 1
     return out
 
 
@@ -369,7 +395,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    seqused_k=seqused_k)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _require(q.dtype in _FLASH_DTYPES
+    _require(q.dtype in _FLOAT_DTYPES
              and k.dtype == q.dtype and v.dtype == q.dtype,
              'flash kernel takes q, k, v all f32, all bf16 or all fp16')
     _require(d in HEAD_DIMS and k.shape[3] == d and v.shape[3] == d,
@@ -475,7 +501,7 @@ def attention_bwd_reference(q, k, v, out, lse, dout, causal=False):
 def _check_bwd(q, k, v, lse, dout, causal):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    _require(q.dtype in _FLASH_DTYPES
+    _require(q.dtype in _FLOAT_DTYPES
              and all(t.dtype == q.dtype for t in (k, v, dout)),
              'flash backward takes q, k, v, dout all f32, all bf16 or all '
              'fp16')
@@ -681,8 +707,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     window's W * ps <= PAGED_SPLIT_KEYS rows, so each split reads one
     dtype. Every kernel is built for head_dim 128 and 64. The call counts
     once: under `paged_attention` for a 3-D q, under
-    `paged_attention_verify` for a 4-D one, with `_d64` at head_dim 64
-    (`_int8_d64` over int8 pages there)."""
+    `paged_attention_verify` for a 4-D one, with `_fp16` for an fp16 q
+    and `_d64` at head_dim 64 (`_int8_d64` over int8 pages there).
+    Pages are in q's dtype (f32, bf16 or fp16), or int8 with a window in
+    q's dtype."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
     window = (k_win, v_win, win_first)
@@ -705,8 +733,8 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     p = table.shape[1]
     quant = k_scales is not None
     w = 0 if k_win is None else k_win.shape[1]
-    _require(q.dtype in (torch.float32, torch.bfloat16),
-             f'paged kernel takes an f32 or bf16 query, got {q.dtype}')
+    _require(q.dtype in _FLOAT_DTYPES,
+             f'paged kernel takes an f32, bf16 or fp16 query, got {q.dtype}')
     _require(k_pages.dtype == v_pages.dtype
              and k_pages.dtype == (torch.int8 if quant else q.dtype),
              'paged kernel takes pages in q.dtype, or int8 with scales')
@@ -754,7 +782,8 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     pps, splits = paged_split(p, ps)
     ws = torch.empty((n, hkv, splits + (1 if w else 0), t * (h // hkv),
                       d + 2), dtype=torch.float32, device=q.device)
-    lib, fn = _entry('paged_attention', 'paged_attention_fwd')
+    lib, fn = _entry(_by_dtype('paged_attention', q.dtype),
+                     'paged_attention_fwd')
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), lengths.data_ptr(), ptr(k_scales),
@@ -763,9 +792,9 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             w, float(sm_scale), _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[k_pages.dtype], d, _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
-    LAUNCHES[('paged_attention_verify' if q.dim() == 4
-              else 'paged_attention')
-             + (('_int8_d64' if quant else '_d64') if d == 64 else '')] += 1
+    LAUNCHES[_key(('paged_attention_verify' if q.dim() == 4
+                   else 'paged_attention')
+                  + ('_int8' if quant and d == 64 else ''), q.dtype, d)] += 1
     return out
 
 
@@ -800,8 +829,8 @@ def _check_ce(logits, labels):
     _require(logits.dim() == 2 and logits.shape[1] >= 1,
              f'CE kernel takes logits [N, V >= 1], got {tuple(logits.shape)}')
     n, v = logits.shape
-    _require(logits.dtype in (torch.float32, torch.bfloat16),
-             f'CE kernel takes f32 or bf16 logits, got {logits.dtype}')
+    _require(logits.dtype in _FLOAT_DTYPES,
+             f'CE kernel takes f32, bf16 or fp16 logits, got {logits.dtype}')
     _require(labels.dtype == torch.int32 and tuple(labels.shape) == (n,),
              'CE kernel takes labels as int32 [N]')
     _require(logits.is_contiguous() and labels.is_contiguous(),
@@ -830,7 +859,7 @@ def softmax_cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor):
             lse.data_ptr(), n, v, int(_rows_aligned(v, logits)),
             _DTYPE_CODE[logits.dtype], _stream(logits))
     _build.check(lib, rc, 'softmax_ce_fwd')
-    LAUNCHES['softmax_ce_fwd'] += 1
+    LAUNCHES[_key('softmax_ce_fwd', logits.dtype)] += 1
     return nll, lse
 
 
@@ -852,7 +881,7 @@ def softmax_cross_entropy_bwd(logits, labels, lse, g):
             int(_rows_aligned(v, logits, dx)), _DTYPE_CODE[logits.dtype],
             _stream(logits))
     _build.check(lib, rc, 'softmax_ce_bwd')
-    LAUNCHES['softmax_ce_bwd'] += 1
+    LAUNCHES[_key('softmax_ce_bwd', logits.dtype)] += 1
     return dx
 
 
@@ -910,7 +939,12 @@ def adapter_matmul_add_reference(y, x, a_bank, b_bank, rows, scale):
                                         scale).reshape(y.shape)
 
 
-_ADAPTER_DTYPES = (torch.float32, torch.bfloat16)
+# the adapter kernel's bank dtypes by x's dtype: f32, or x's 16-bit
+# family (the JAX bank's default is f32, `dtype=` the model's)
+_ADAPTER_BANK_DTYPES = {
+    torch.float32: (torch.float32, torch.bfloat16),
+    torch.bfloat16: (torch.float32, torch.bfloat16),
+    torch.float16: (torch.float32, torch.float16)}
 
 
 def _adapter_dims(x, a_bank, b_bank, rows, scale) -> tuple:
@@ -939,10 +973,11 @@ def _adapter_launch(x, a_bank, b_bank, rows, scale, y, out, dims) -> None:
     """Check what the kernel takes and launch it: out = delta (y None) or
     y + delta. One launch, counted once."""
     bsz, t, h, c, r, o = dims
-    if not (x.dtype in _ADAPTER_DTYPES and a_bank.dtype in _ADAPTER_DTYPES
+    if not (a_bank.dtype in _ADAPTER_BANK_DTYPES.get(x.dtype, ())
             and b_bank.dtype == a_bank.dtype):
-        raise ValueError(f'adapter kernel takes x and the bank in f32 or '
-                         f'bf16, got {x.dtype}, {a_bank.dtype}, '
+        raise ValueError(f'adapter kernel takes x in f32 or bf16 with the '
+                         f'bank in f32 or bf16, or x in fp16 with the bank '
+                         f'in f32 or fp16; got {x.dtype}, {a_bank.dtype}, '
                          f'{b_bank.dtype}')
     if rows.dtype != torch.int32 or scale.dtype != torch.float32:
         raise ValueError('adapter kernel takes rows int32 and scale f32')
@@ -955,21 +990,23 @@ def _adapter_launch(x, a_bank, b_bank, rows, scale, y, out, dims) -> None:
                          f'rows, got {bsz}')
     if out.numel() == 0:
         return
-    lib, fn = _entry('adapter_matmul', 'adapter_matmul_fwd')
+    lib, fn = _entry(_by_dtype('adapter_matmul', x.dtype),
+                     'adapter_matmul_fwd')
     rc = fn(x.data_ptr(), a_bank.data_ptr(), b_bank.data_ptr(),
             rows.data_ptr(), scale.data_ptr(),
             None if y is None else y.data_ptr(), out.data_ptr(), bsz, t, h,
             r, o, c, _DTYPE_CODE[x.dtype], _DTYPE_CODE[a_bank.dtype],
             _stream(x))
     _build.check(lib, rc, 'adapter_matmul_fwd')
-    LAUNCHES['adapter_matmul'] += 1
+    LAUNCHES[_key('adapter_matmul', x.dtype)] += 1
 
 
 def adapter_matmul(x, a_bank, b_bank, rows, scale):
     """Per-row LoRA delta over a packed adapter bank (shapes as in
     `adapter_matmul_reference`; the JAX package's signature). The kernel
     reads each row's slot on the device and groups the rows by slot. It
-    takes x and the bank in f32 or bf16 (independently), rows int32 in
+    takes x and the bank in f32 or bf16 (independently), or x in fp16
+    with the bank in f32 or fp16 (`_ADAPTER_BANK_DTYPES`), rows int32 in
     [0, C) (outside it the row's delta is NaN), scale f32, all
     contiguous, a rank of at most ADAPTER_MAX_RANK and at most
     ADAPTER_MAX_BATCH rows."""

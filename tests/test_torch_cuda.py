@@ -303,9 +303,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((1, 8, 2, 96), device=cuda)   # head_dim 96
     with pytest.raises(ValueError):
         K.flash_attention_fwd(x, x, x, causal=True)
-    with pytest.raises(ValueError):
-        K.rms_norm(torch.zeros((2, 8), device=cuda, dtype=torch.float16),
-                   torch.ones(8, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):          # f64: no kernel for it
+        K.rms_norm(torch.zeros((2, 8), device=cuda, dtype=torch.float64),
+                   torch.ones(8, device=cuda, dtype=torch.float64))
     # more query heads per kv head than the kernel's PAGED_MAX_ROWS rows
     q = torch.zeros((1, K.PAGED_MAX_ROWS + 8, 128), device=cuda)
     pages = torch.zeros((3, 16, 1, 128), device=cuda)
@@ -461,8 +461,8 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):          # strided logits
         K.softmax_cross_entropy_fwd(x[:, :8], torch.zeros(
             4, device=cuda, dtype=torch.int32))
-    with pytest.raises(ValueError):          # fp16 logits
-        K.softmax_cross_entropy_fwd(x.half(), torch.zeros(
+    with pytest.raises(ValueError):          # f64 logits
+        K.softmax_cross_entropy_fwd(x.double(), torch.zeros(
             4, device=cuda, dtype=torch.int32))
 
 
@@ -614,8 +614,12 @@ def test_adapter_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x, a, b, rows, scale = _adapter_case(g, 2, 1, 64, 4, 32, 3,
                                          torch.float32, torch.float32, [0, 1])
-    with pytest.raises(ValueError):          # fp16 x
-        K.adapter_matmul(x.half(), a, b, rows, scale)
+    with pytest.raises(ValueError):          # fp16 x over a bf16 bank
+        K.adapter_matmul(x.half(), a.bfloat16(), b.bfloat16(), rows, scale)
+    with pytest.raises(ValueError):          # bf16 x over an fp16 bank
+        K.adapter_matmul(x.bfloat16(), a.half(), b.half(), rows, scale)
+    with pytest.raises(ValueError):          # f64 x
+        K.adapter_matmul(x.double(), a, b, rows, scale)
     with pytest.raises(ValueError):          # int64 rows
         K.adapter_matmul(x, a, b, rows.long(), scale)
     with pytest.raises(ValueError):          # strided x
@@ -2113,29 +2117,223 @@ def test_fp16_overflow_reaches_inf(cuda):
     assert int(differ.sum()) <= 0.01 * int(torch.isinf(want).sum())
 
 
-def test_fp16_is_refused_outside_the_flash_kernels(cuda):
-    """RMSNorm, CE, the paged kernel and the adapter kernel take no fp16
-    CUDA tensor (AMP keeps the first two in fp32; no fp16 model is
-    served), and none falls back to its plain version."""
+def _launched(key, before):
+    """The launches under `key` since `before` (a copy of LAUNCHES), and
+    no other key moved."""
+    moved = {k: n - before[k] for k, n in K.LAUNCHES.items()
+             if n != before[k]}
+    assert set(moved) <= {key}, moved
+    return moved.get(key, 0)
+
+
+@pytest.mark.parametrize('rows,width', [(8, 4096), (1024, 4096), (7, 2048),
+                                        (3, 1000)])
+def test_fp16_rms_norm_kernel_matches_plain(cuda, rows, width):
+    """The fp16 RMSNorm kernel (a model cast to fp16) against its plain
+    version, aligned and ragged widths, rows near fp16's range; counted
+    under `rms_norm_fp16` only."""
+    g = torch.Generator(device=cuda).manual_seed(rows + width)
+    x = (3 * _randn(g, torch.float32, rows, width)).half()
+    x[0, :4] = 60000.0
+    w = (1 + 0.1 * _randn(g, torch.float32, width)).half()
+    before = dict(K.LAUNCHES)
+    got = K.rms_norm(x, w)
+    assert _launched('rms_norm_fp16', before) == 1
+    assert got.dtype == torch.float16
+    _close_f16(got, K.rms_norm_reference(x, w))
+
+
+@pytest.mark.parametrize('case', ['unit', 'subnormal', 'near_max'])
+@pytest.mark.parametrize('n,v', [(300, 32000), (5, 129)])
+def test_fp16_ce_kernels_match_plain(cuda, n, v, case):
+    """fp16 logits through the CE kernels: unit scale; g = 1/16 at unit
+    logits, which puts most dlogits (p g, p ~ 1/V) in fp16's subnormal
+    range at V = 32000, and the kernel keeps them as `.to(torch.float16)`
+    does (as many nonzero subnormals, each within one subnormal step);
+    logits at fp16's largest value. nll and lse stay f32; launches count
+    under the `_fp16` keys."""
+    g = torch.Generator(device=cuda).manual_seed(n + v + len(case))
+    scale = 1.0 if case == 'subnormal' else 3.0
+    x = (scale * _randn(g, torch.float32, n, v)).half()
+    if case == 'near_max':
+        x[:, :7] = 65504.0
+        x[::3, 7] = -65504.0
+    lab = torch.randint(0, v, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    up = (torch.full((n,), 1.0 / 16, device=cuda) if case == 'subnormal'
+          else torch.randn(n, generator=g, device=cuda))
+    before = dict(K.LAUNCHES)
+    nll, lse = K.softmax_cross_entropy_fwd(x, lab)
+    assert _launched('softmax_ce_fwd_fp16', before) == 1
+    want_nll, want_lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+    torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    before = dict(K.LAUNCHES)
+    dx = K.softmax_cross_entropy_bwd(x, lab, lse, up)
+    assert _launched('softmax_ce_bwd_fp16', before) == 1
+    want = K.softmax_cross_entropy_bwd_reference(x, lab, lse, up)
+    assert dx.dtype == torch.float16
+    _close_f16(dx, want)
+    tiny = torch.finfo(torch.float16).tiny
+    sub = (dx != 0) & (dx.abs() < tiny)
+    want_sub = (want != 0) & (want.abs() < tiny)
+    assert abs(int(sub.sum()) - int(want_sub.sum())) <= 0.005 * max(
+        int(want_sub.sum()), 1)
+    both = sub & want_sub
+    if bool(both.any()):
+        assert float((dx[both].float() - want[both].float()).abs().max()) \
+            <= 2.0 ** -24
+    if case == 'subnormal' and v == 32000:
+        assert float(want_sub.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize('d', [64, 128])
+@pytest.mark.parametrize('t', [1, 5])
+@pytest.mark.parametrize('pages', ['fp16', 'int8_window'])
+def test_fp16_paged_kernel_matches_plain(cuda, pages, t, d):
+    """An fp16 q over fp16 pages, or over int8 pages with the round's
+    fp16 window (starts at row offsets 0, 9 and 15, a length-1 slot, an
+    inactive slot on the null page), T = 1 (decode) and 5 (verify), at
+    head_dim 64 and 128: against the plain version, counted under the
+    call's `_fp16` key only."""
+    g = torch.Generator(device=cuda).manual_seed(d + t + len(pages))
+    n, h, hkv, ps, p = 8, 8, 2, 16, 10
+    num_pages = n * p + 1
+    q = _randn(g, torch.float16, *((n, h, d) if t == 1 else (n, t, h, d)))
+    shape = (num_pages, ps, hkv, d)
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0
+    lens = torch.tensor([1, 10, 16, 26, 160 - t + 1, 100, 70, 150],
+                        device=cuda, dtype=torch.int32)
+    kw = {}
+    if pages == 'fp16':
+        kp, vp = (_randn(g, torch.float16, *shape) for _ in range(2))
+    else:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, hkv), generator=g, device=cuda)
+                  / 127 + 1e-3 for _ in range(2))
+        first = torch.div(lens - 1, ps, rounding_mode='floor').to(torch.int32)
+        kw = dict(k_scales=ks, v_scales=vs, win_first=first,
+                  k_win=_randn(g, torch.float16, n, 2, ps, hkv, d),
+                  v_win=_randn(g, torch.float16, n, 2, ps, hkv, d))
+    key = K._key(('paged_attention_verify' if t > 1 else 'paged_attention')
+                 + ('_int8' if pages != 'fp16' and d == 64 else ''),
+                 torch.float16, d)
+    before = dict(K.LAUNCHES)
+    got = K.paged_attention(q, kp, vp, table, lens, **kw)
+    assert _launched(key, before) == 1
+    assert got.dtype == torch.float16 and got.shape == q.shape
+    _close_f16(got, K.paged_attention_reference(q, kp, vp, table, lens,
+                                                **kw))
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('w_dtype', [torch.float32, torch.float16])
+@pytest.mark.parametrize('shape', ['decode', 'prefill', 'ragged',
+                                   'tiled_rounds'])
+def test_fp16_adapter_kernel_matches_plain(cuda, shape, w_dtype, fused):
+    """An fp16 x over an f32 bank (the JAX bank's default) and over an
+    fp16 bank, the delta and the fused add, against their plain
+    versions; rows on slot 0 give an exact zero delta and y bit for bit;
+    counted under `adapter_matmul_fp16` only."""
+    b, t, h, r, o, rows = _ADAPTER_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(b * t + r + 1)
+    args = _adapter_case(g, b, t, h, r, o, max(5, max(rows) + 1),
+                         torch.float16, w_dtype, rows)
+    y = _randn(g, torch.float16, b, t, o)
+    before = dict(K.LAUNCHES)
+    if fused:
+        got, want = (K.adapter_matmul_add(y, *args),
+                     K.adapter_matmul_add_reference(y, *args))
+    else:
+        got, want = K.adapter_matmul(*args), K.adapter_matmul_reference(*args)
+    assert _launched('adapter_matmul_fp16', before) == 1
+    assert got.dtype == torch.float16 and got.shape == want.shape
+    _close_f16(got, want)
+    base = args[3] == 0
+    assert torch.equal(got[base], (y if fused else torch.zeros_like(y))[base])
+
+
+def test_fp16_mismatched_dtypes_raise(cuda):
+    """What no kernel was built for raises and launches nothing: fp16 q
+    over bf16 pages, a bf16 window over int8 pages under an fp16 q, a
+    bf16 weight under fp16 RMSNorm, an fp16 x over a bf16 bank."""
     h = torch.float16
-    x = torch.ones((4, 128), device=cuda, dtype=h)
+    table = torch.ones((2, 2), device=cuda, dtype=torch.int32)
+    lens = torch.ones(2, device=cuda, dtype=torch.int32)
+    q = torch.zeros((2, 4, 128), device=cuda, dtype=h)
+    before = dict(K.LAUNCHES)
+    bf_pages = torch.zeros((3, 16, 2, 128), device=cuda,
+                           dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        K.rms_norm(x, torch.ones(128, device=cuda, dtype=h))
+        K.paged_attention(q, bf_pages, bf_pages, table, lens)
+    i8 = torch.zeros((3, 16, 2, 128), device=cuda, dtype=torch.int8)
+    sc = torch.ones((3, 2), device=cuda)
+    win = torch.zeros((2, 1, 16, 2, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        K.softmax_cross_entropy_fwd(x, torch.zeros(4, device=cuda,
-                                                   dtype=torch.int32))
-    pages = torch.zeros((3, 16, 2, 128), device=cuda, dtype=h)
+        K.paged_attention(q, i8, i8, table, lens, k_scales=sc, v_scales=sc,
+                          k_win=win, v_win=win,
+                          win_first=torch.zeros(2, device=cuda,
+                                                dtype=torch.int32))
     with pytest.raises(ValueError):
-        K.paged_attention(torch.zeros((2, 2, 128), device=cuda, dtype=h),
-                          pages, pages,
-                          torch.ones((2, 2), device=cuda, dtype=torch.int32),
-                          torch.ones(2, device=cuda, dtype=torch.int32))
-    bank = torch.zeros((2, 128, 8), device=cuda, dtype=h)
+        K.rms_norm(torch.ones((4, 128), device=cuda, dtype=h),
+                   torch.ones(128, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
-        K.adapter_matmul(torch.ones((2, 1, 128), device=cuda, dtype=h), bank,
-                         torch.zeros((2, 8, 64), device=cuda, dtype=h),
+        K.adapter_matmul(torch.ones((2, 1, 128), device=cuda, dtype=h),
+                         torch.zeros((2, 128, 8), device=cuda,
+                                     dtype=torch.bfloat16),
+                         torch.zeros((2, 8, 64), device=cuda,
+                                     dtype=torch.bfloat16),
                          torch.zeros(2, device=cuda, dtype=torch.int32),
                          torch.ones(2, device=cuda))
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize('opts', [{}, {'kv_quant': 'int8'}],
+                         ids=['float_kv', 'int8_kv'])
+def test_fp16_engine_graph_equals_eager(cuda, opts):
+    """An fp16 Llama (2 layers, head_dim 128) behind the graph engine and
+    its eager twin, with a bank of two adapters (f32, the JAX bank's
+    default): equal tokens, greedy and a seeded sampling request; the
+    fp16 kernels launched and no other paged, RMSNorm or adapter key."""
+    from paddle_tpu_torch.serving import SAMPLING, AdapterBank, \
+        make_adapter_factors
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=256)
+    model = LlamaForCausalLM(cfg, device=cuda, dtype='float16',
+                             generator=generator(3, cuda))
+    bank = AdapterBank(model, capacity=3, rank=8, dtype='float32',
+                       targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
+    for i in range(2):
+        bank.load(f'ad{i}', make_adapter_factors(bank, seed=i + 1,
+                                                 scale=0.05))
+    prompts = [[(7 * i + j) % 500 + 3 for j in range(n)]
+               for i, n in enumerate((5, 40, 17, 90))]
+    params = [SamplingParams(max_new_tokens=12, eos_token_id=-1)] * 3 + [
+        SamplingParams(max_new_tokens=12, eos_token_id=-1,
+                       strategy=SAMPLING, temperature=0.8, seed=4)]
+    ids = [None, 'ad0', 'ad1', 'ad0']
+    runs = []
+    for graph in (True, False):
+        eng = InferenceEngine(model, num_slots=4, max_length=256,
+                              decode_block=4, kv_page_size=16,
+                              adapter_bank=bank, **opts)
+        eng._capture_decode = eng._capture_prefill = graph
+        K.reset_launch_counts()
+        runs.append([h.tokens for h in eng.generate_many(
+            prompts, params, adapter_ids=ids)])
+        assert K.LAUNCHES['rms_norm_fp16'] > 0
+        assert K.LAUNCHES['paged_attention_fp16'] > 0
+        assert K.LAUNCHES['adapter_matmul_fp16'] > 0
+        assert K.LAUNCHES['flash_attention_fwd_fp16'] > 0
+        for k in ('rms_norm', 'paged_attention', 'adapter_matmul',
+                  'flash_attention_fwd'):
+            assert K.LAUNCHES[k] == 0, k
+    assert runs[0] == runs[1]
+    bank.detach()
 
 
 def _dygraph_losses(model, batches, opt_cls, amp=None, scaler=None):

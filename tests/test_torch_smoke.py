@@ -324,7 +324,7 @@ PAGED_TILES = [(d, elt) for d in (128, 64) for elt in (4, 2, 1)]
 
 def chunk_at(d, elt, t, c):
     """Byte offset of 16-byte chunk c of row t in a split's tile: a
-    mirror of `chunk_at` in paddle_tpu_torch/csrc/paged_attention.cu
+    mirror of `chunk_at` in paddle_tpu_torch/csrc/paged_attention.cuh
     (the chunk swizzled inside its row over 8 chunks, over 4 in a 64-byte
     row)."""
     row = d * elt
@@ -404,6 +404,26 @@ def test_paged_tile_layout_keeps_rows_apart_without_bank_conflicts(d, elt):
                    for f in tile_faults(chunk_at_before, d, elt))
     else:
         assert tile_faults(chunk_at_before, d, elt) == []
+
+
+# the paged kernel's built (D, KV dtype) pairs: pages in q's dtype (f32,
+# bf16, fp16) and int8 pages, at D = 128 and 64 (`paged_attention_entry`
+# in csrc/paged_attention.cuh, one library per q dtype); fp16 is a 2-byte
+# element and takes the bf16 tile layout
+PAGED_TILE_DTYPES = [(d, dt) for d in (128, 64) for dt in (
+    torch.float32, torch.bfloat16, torch.float16, torch.int8)]
+
+
+@pytest.mark.parametrize('d,dtype', PAGED_TILE_DTYPES,
+                         ids=[f'{d}-{str(dt)[6:]}'
+                              for d, dt in PAGED_TILE_DTYPES])
+def test_paged_tile_layout_holds_for_every_built_dtype(d, dtype):
+    """Each (D, KV dtype) the kernel is built for, fp16 pages included,
+    has a tile of its element's width (`PAGED_TILES`) whose layout keeps
+    rows apart without bank conflicts."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert (d, elt) in PAGED_TILES
+    assert tile_faults(chunk_at, d, elt) == []
 
 
 def _mutant(case, dtype):
