@@ -27,9 +27,12 @@
                                            # int8 KV, prefix/chunks and a
                                            # GPT draft too)
     python3 chip_smoke.py --fp16           # phase 2's fp16 cases, phase
-                                           # 6's bf16 serve run, phase 10
-                                           # (fp16 models) and the fp16
+                                           # 10 (fp16 models) and the fp16
                                            # cases timed
+    python3 chip_smoke.py --t5             # phase 2's T5 cases, phase 11
+                                           # (T5, the tokenizer, jit
+                                           # export) and the T5 cases
+                                           # timed
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -74,8 +77,11 @@ result line):
    adapter kernel with an f32 and an fp16 bank, at phase 10's shapes;
    CE's fp16 dlogits at a mean loss's g = 1/N, where they round to 0 or
    to subnormals, held one by one to the plain version's subnormals, and
-   logits at +-65504) (these three sets of cases are freed after the
-   check and rebuilt for 8);
+   logits at +-65504); and the T5 cases (`t5_cases`: the flash forward
+   with its LSE, dq and dk/dv at D = 64, non-causal, B=8 H=16 over 512
+   keys with 128, 1 and 100 queries, bf16 and f32; RMSNorm bf16 over
+   [4096, 1024]; CE bf16 at [1024, 32128] with ignored rows) (these
+   sets of cases are freed after the check and rebuilt for 8);
 3. consistency: the engine (its decode sub-step and each prefill bucket
    replayed from a CUDA graph) at 2 layers of Llama-2-7B width in f32,
    greedy; each request's first 16 tokens must equal a no-cache
@@ -328,7 +334,9 @@ result line):
    sub-steps must run the int8 split, window and combine kernels, and
    the fill and requantize device work; then one speculation round of
    phase 6e's 2-layer-draft engine, graph (one replayed round) and eager
-   (the draft sub-steps and the verify in windows of their own);
+   (the draft sub-steps and the verify in windows of their own); then
+   phase 11's T5-large: a greedy generate of 4 tokens and a training
+   step (`t5_profile`), each broken down with its idle share;
 6j. serve-procs (after phase 7, once the training rungs are freed:
    the parent then holds least of the card): the process fleet on
    Llama-2-7B (bf16, full width and depth). Two replica processes
@@ -391,8 +399,9 @@ result line):
    draft). Phase 2 holds the D = 64 kernels (`head64_cases`) to their
    plain versions first;
 10. fp16 (`fp16_phase`, after phase 9): a model cast to fp16 on the
-   card. Llama-2-7B (32 layers, fp16, phase 6's seed) behind phase 6's
-   graph engine and its eager twin with phase 6's 12 requests, then
+   card. Llama-2-7B's width at 8 of its 32 layers (fp16, phase 6's seed)
+   behind phase 6's graph engine and its eager twin with phase 6's 12
+   requests, then
    phase 6b's banked wave (an f32 bank, the JAX bank's default), then
    with `kv_quant='int8'` (int8 pages, the round's window in fp16):
    graph tokens == eager tokens in every arm, every launch an fp16
@@ -400,7 +409,7 @@ result line):
    finite, the int8 arm's relative logit RMSE within 1.25 x the JAX
    bench's int8 arm, the fp16 adapter kernel once per adapted projection
    of every prefill and decode sub-step; decode and prefill tok/s, TTFT
-   and KV GB logged beside phase 6's bf16 figures. At 4 layers of the
+   and KV GB logged. At 4 layers of the
    same width, one f32 model's bf16 and fp16 casts: the fp16 engine's
    first-step logit RMSE against the f32 engine no larger than the bf16
    engine's. GPT-3 XL (D = 128) and GPT-2 small (D = 64) in fp16 the same
@@ -411,6 +420,27 @@ result line):
    loss of the same weights and batch, the fp16 RMSNorm, CE and flash
    kernels launched; ms a step, MFU and the share of lm_head's gradient
    that is exactly 0 logged;
+11. t5 (`t5_phase`, after phase 5g, before phase 6): a
+   `FastBPETokenizer` (its merge loop in host C++, built with g++ at
+   first use) trained on SURVEY.md and PAPER.md encodes 8 prompts of
+   64-512 tokens of README.md, padded with their mask (every encode on
+   the native path; the Python path's ids equal; both paths' ms logged);
+   at T5-large width and 2 + 2 layers in f32: cached greedy == an argmax
+   over uncached forwards, beam 1 == greedy, the card's logits (padded
+   and unmasked) against a float64 run no further than twice the CPU's
+   f32, the buckets gathered on the card == the CPU's, a self-draft
+   `speculative_generate` == greedy, and a TrainStep's step-1 loss card
+   == CPU to 1e-4; T5-large (24 + 24 layers, bf16, random weights)
+   generates 64 tokens for the 8 prompts greedy, with 4 beams and
+   sampling under a seed (tok/s, encoder ms, decoder ms per token);
+   trains 3 steps (AdamW, recompute, batch 8 x 512 -> 128, no encoder
+   mask) with exact launch counts a step of the RMSNorm, D = 64 flash
+   forward, dq, dk/dv and CE kernels (ms a step, tokens/s, MFU, peak
+   memory); t5_v1_1_base (gated, untied) forward and greedy in bf16, and
+   its 2 + 2 f32 logits as T5-large's; `jit.save` of T5-large's
+   `T5Model` at 2 + 2 layers, bf16, a dynamic batch, loaded without its
+   class: equal to eager bit for bit at batch 4, the RMSNorm and D = 64
+   flash kernels launched inside the program;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -425,9 +455,10 @@ result line):
    fused `torch.optim.AdamW`; neither computes the same function), and
    the decode ones also with L2 flushed before each call.
 
-Phases 5, 5b, 5c-5f and 6 run before any profiling: once torch.profiler
-has run in a process, every later launch costs the host more; 5c-5f free
-their rungs before phase 6. Phases 6e and
+Phases 5, 5b, 5c-5g, 11 and 6 run in that order before any profiling:
+once torch.profiler has run in a process, every later launch costs the
+host more; 5c-5f free their rungs before phase 6, and phase 11 frees its
+models; phase 11's profile windows run in phase 7. Phases 6e and
 6f run right after phase 6, before 6b-6d, while only phase 6's engines
 hold device memory, and free their engines; 6g runs after 6b and frees
 its engines before 6c, and 6h after 6g; phase 7 builds fresh spec
@@ -443,6 +474,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import gc
 import itertools
 import json
@@ -515,7 +547,7 @@ REPLACES = {
     'rms_norm': 'paddle_tpu/ops/pallas_kernels.py:434 (_rms_fwd_kernel)',
     'paged_attention':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel)',
-    'paged_attention_int8_window':
+    'paged_attention_int8':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, int8 '
         'pages; the float window is the JAX decode round\'s float view, '
         'paddle_tpu/serving/engine.py:698-741)',
@@ -538,7 +570,7 @@ REPLACES = {
     'paged_attention_fp16':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 q '
         'and pages)',
-    'paged_attention_int8_window_fp16':
+    'paged_attention_int8_fp16':
         'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, fp16 q '
         'over int8 pages, with the decode round\'s fp16 window)',
     'paged_attention_verify_fp16':
@@ -587,7 +619,7 @@ SOURCES = {
         'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'rms_norm': 'paddle_tpu_torch/csrc/rms_norm.cu',
     'paged_attention': 'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
-    'paged_attention_int8_window':
+    'paged_attention_int8':
         'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'paged_attention_verify': 'paddle_tpu_torch/csrc/paged_attention_bf16.cu',
     'softmax_ce_fwd': 'paddle_tpu_torch/csrc/cross_entropy.cu',
@@ -599,7 +631,7 @@ SOURCES = {
     'softmax_ce_fwd_fp16': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'softmax_ce_bwd_fp16': 'paddle_tpu_torch/csrc/cross_entropy.cu',
     'paged_attention_fp16': 'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
-    'paged_attention_int8_window_fp16':
+    'paged_attention_int8_fp16':
         'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
     'paged_attention_verify_fp16':
         'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
@@ -611,6 +643,21 @@ SOURCES = {
         'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
     'adapter_matmul_fp16': 'paddle_tpu_torch/csrc/adapter_matmul_fp16.cu',
 }
+# the kernel table's rows at phase 11's shapes (T5-large): {row: (the
+# kernel's LAUNCHES key, whose launches the row reports; the shape)}
+T5_ROWS = {
+    'flash_attention_fwd_d64_t5': ('flash_attention_fwd_d64',
+                                   'T5 cross-attention: non-causal, Sq != Sk'),
+    'flash_attention_bwd_dq_d64_t5': ('flash_attention_bwd_dq_d64',
+                                      'T5 cross-attention\'s backward'),
+    'flash_attention_bwd_dkv_d64_t5': ('flash_attention_bwd_dkv_d64',
+                                       'T5 cross-attention\'s backward'),
+    'rms_norm_t5': ('rms_norm', 'T5\'s norms at width 1024'),
+    'softmax_ce_fwd_t5': ('softmax_ce_fwd', 'T5\'s loss over V = 32128'),
+    'softmax_ce_bwd_t5': ('softmax_ce_bwd', 'T5\'s loss over V = 32128')}
+REPLACES.update({row: f'{REPLACES[key]}; {shape}'
+                 for row, (key, shape) in T5_ROWS.items()})
+SOURCES.update({row: SOURCES[key] for row, (key, _) in T5_ROWS.items()})
 # the tensor-core (wgmma) kernels that bf16 and fp16 inputs run on, by
 # source: each template's instantiations by dtype and head width D (their
 # mangled names)
@@ -634,6 +681,9 @@ PAGED_KERNELS = ('paged_attn_split_kernel', 'paged_attn_combine_kernel')
 INT8_KERNELS = ('paged_attn_int8_split_kernel', 'paged_attn_window_kernel',
                 'paged_attn_combine_kernel')
 SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention', 'rms_norm')
+# ... over int8 pages: the paged call counts under its `_int8` key
+INT8_SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention_int8',
+                      'rms_norm')
 ADAPTER_KERNELS = SERVE_KERNELS + ('adapter_matmul',)
 SPEC_KERNELS = SERVE_KERNELS + ('paged_attention_verify',)
 # speculative decoding: k draft tokens a round (bench.py:372), so the
@@ -921,18 +971,20 @@ def _randn(shape, dtype, gen):
 def _case_list():
     """(cases, add): `add(kernel, name, dtype, run, plain, lib, moved, ops,
     ...)` appends one kernel check to `cases`, its bound from the bytes
-    moved and the operations at the peak rate of `dtype`'s arithmetic."""
+    moved and the operations at the peak rate of `dtype`'s arithmetic; a
+    `rep` case reports the kernel table's row `row` (default: the
+    kernel's LAUNCHES key)."""
     cases = []
 
     def add(kernel, name, dtype, run, plain, lib, moved, ops, rep=False,
             zero_rows=None, zero_base=None, yardstick=None, cold=False,
-            subnormal=False):
+            subnormal=False, row=None):
         b_ms, by = bound_ms(moved, ops, dtype)
         cases.append(dict(kernel=kernel, name=name, dtype=dtype, run=run,
                           plain=plain, lib=lib, bound_ms=b_ms, bound_by=by,
                           rep=rep, zero_rows=zero_rows, zero_base=zero_base,
                           yardstick=yardstick, cold=cold,
-                          subnormal=subnormal))
+                          subnormal=subnormal, row=row or kernel))
     return cases, add
 
 
@@ -1104,7 +1156,7 @@ WINDOW_POS = (1023, 1001, 768, 521, 255, 96, 0, 1023)
 
 
 def _paged_window_cases(add, gen, serve_table, serve_lengths, h=32, d=128,
-                        hkvs=(32, 8), key='paged_attention_int8_window',
+                        hkvs=(32, 8), key='paged_attention_int8',
                         dtypes=(torch.float32, torch.bfloat16)) -> None:
     """The paged kernel over int8 pages with the decode round's float
     window (q and the window in each of `dtypes`, H query heads over
@@ -1201,6 +1253,9 @@ def _paged_verify_cases(add, gen, h=32, d=128, kinds=VERIFY_KINDS,
     first = torch.div(lengths - 1, ps, rounding_mode='floor').to(torch.int32)
     width = '' if d == 128 else f' D={d}'
     for dtype, hkv, mode, inactive, rep in kinds:
+        # over int8 pages the call counts under the `_int8` key
+        name = key if mode == 'float' or '_int8' in key else key.replace(
+            'verify', 'verify_int8')
         tbl = parked if inactive else table
         q = _randn((n, t, h, d), dtype, gen)
         shape = (num_pages, ps, hkv, d)
@@ -1223,7 +1278,7 @@ def _paged_verify_cases(add, gen, h=32, d=128, kinds=VERIFY_KINDS,
             moved = (below * hkv * d * 2 + 2 * int(first.sum()) * hkv * 4
                      + (sum(last) - below) * hkv * d * elt * 2)
         args = (q, kp, vp, tbl, lengths)
-        add(key,
+        add(name,
             f'paged verify {str(dtype)[6:]} N=8 T={t} H={h} HKV={hkv}{width} '
             f'ctx<=1024' + (f' int8 pages + window W={w}'
                             if mode != 'float' else '')
@@ -1319,7 +1374,7 @@ def fp16_cases() -> list:
         _paged_decode_case(add, gen, h, hkv, False, table, lengths,
                            key='paged_attention_fp16', rep=hkv == 32)
     _paged_window_cases(add, gen, table, lengths, dtypes=(h,),
-                        key='paged_attention_int8_window_fp16')
+                        key='paged_attention_int8_fp16')
     _paged_verify_cases(add, gen, kinds=(
         (h, 32, 'float', False, True), (h, 8, 'float', False, False),
         (h, 32, 'int8_window', False, False),
@@ -1363,23 +1418,27 @@ def _fp16_overflow_case(add, gen) -> None:
 
 
 def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
-                      causal=True, rep_fwd=False) -> None:
+                      causal=True, rep_fwd=False, sk=None,
+                      row_suffix='') -> None:
     """The flash forward with its LSE and the two backward kernels at
-    [B, S, H(KV), D] (D = 128 unless given; causal unless `causal` is
-    False), against their plain versions, with SDPA (forward, and its
-    whole backward) as the library call."""
+    q [B, S, H, D] over k/v [B, sk (default S), HKV, D] (D = 128 unless
+    given; causal unless `causal` is False), against their plain
+    versions, with SDPA (forward, and its whole backward) as the library
+    call. A `rep` case reports the rows named by the kernels' keys and
+    `row_suffix`."""
     from paddle_tpu_torch.ops import kernels as K
     F = torch.nn.functional
-    tag = (f'{str(dtype)[6:]} B={b} S={s} H={h} HKV={hkv} D={d} '
-           + ('causal' if causal else 'full'))
+    sk = s if sk is None else sk
+    tag = (f'{str(dtype)[6:]} B={b} S={s}' + (f' Sk={sk}' if sk != s else '')
+           + f' H={h} HKV={hkv} D={d} ' + ('causal' if causal else 'full'))
     key = _fp16_key(dtype) + _d64_key(d)
     q = _randn((b, s, h, d), dtype, gen)
-    k = _randn((b, s, hkv, d), dtype, gen)
-    v = _randn((b, s, hkv, d), dtype, gen)
+    k = _randn((b, sk, hkv, d), dtype, gen)
+    v = _randn((b, sk, hkv, d), dtype, gen)
     dout = _randn((b, s, h, d), dtype, gen)
     out, lse = K.flash_attention_fwd(q, k, v, causal, return_lse=True)
     _, delta = K.attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
-    pairs = b * h * live_pairs(s, s, causal)
+    pairs = b * h * live_pairs(s, sk, causal)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(
@@ -1398,7 +1457,8 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
             F.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach(),
                 is_causal=causal, enable_gqa=g),
-        nbytes(q, k, v, q, lse), 2 * 2 * d * pairs, rep=rep_fwd)
+        nbytes(q, k, v, q, lse), 2 * 2 * d * pairs, rep=rep_fwd,
+        row='flash_attention_fwd' + key + row_suffix)
     add('flash_attention_bwd_dq' + key, f'flash bwd dq {tag}', dtype,
         lambda a=(q, k, v, out, lse, dout):
             K.flash_attention_bwd_dq(*a, causal),
@@ -1406,7 +1466,8 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
             K.attention_bwd_dq_reference(*a, causal),
         sdpa_bwd,
         nbytes(q, k, v, out, dout, lse, q, delta),
-        3 * 2 * d * pairs, rep=rep)
+        3 * 2 * d * pairs, rep=rep,
+        row='flash_attention_bwd_dq' + key + row_suffix)
     add('flash_attention_bwd_dkv' + key, f'flash bwd dk/dv {tag}', dtype,
         lambda a=(q, k, v, lse, delta, dout):
             K.flash_attention_bwd_dkv(*a, causal),
@@ -1414,11 +1475,12 @@ def _flash_train_case(add, gen, dtype, b, s, h, hkv, rep=False, d=128,
             K.attention_bwd_dkv_reference(*a, causal),
         sdpa_bwd,
         nbytes(q, k, v, dout, lse, delta, k, v),
-        4 * 2 * d * pairs, rep=rep)
+        4 * 2 * d * pairs, rep=rep,
+        row='flash_attention_bwd_dkv' + key + row_suffix)
 
 
 def _ce_case(add, gen, dtype, n, vocab, rep=False, g_value=None,
-             near_max=False) -> None:
+             near_max=False, row_suffix='') -> None:
     """The CE forward and backward at [n, vocab] with ignored rows, against
     their plain versions, with `F.cross_entropy` (and its backward) as the
     library call. With `g_value`, unit-scale logits and that gradient on
@@ -1456,7 +1518,8 @@ def _ce_case(add, gen, dtype, n, vocab, rep=False, g_value=None,
         lambda x=x, lab=lab: K.softmax_cross_entropy_fwd(x, lab),
         lambda x=x, lab=lab: K.softmax_cross_entropy_fwd_reference(x, lab),
         lambda x=x, lab=lab64: F.cross_entropy(x, lab, reduction='none'),
-        nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep)
+        nbytes(x, lab, lse, lse), 4 * x.numel(), rep=rep,
+        row='softmax_ce_fwd' + key + row_suffix)
     add('softmax_ce_bwd' + key, f'ce bwd {tag}', dtype,
         lambda a=(x, lab, lse, g): K.softmax_cross_entropy_bwd(*a),
         lambda a=(x, lab, lse, g):
@@ -1464,7 +1527,8 @@ def _ce_case(add, gen, dtype, n, vocab, rep=False, g_value=None,
         lambda o=lib_nll, x=xg, g=g:
             torch.autograd.grad(o, x, g, retain_graph=True),
         nbytes(x, lab, lse, g, x), 4 * x.numel(), rep=rep,
-        subnormal=dtype == torch.float16)
+        subnormal=dtype == torch.float16,
+        row='softmax_ce_bwd' + key + row_suffix)
 
 
 def _training_cases(add, gen) -> None:
@@ -1953,7 +2017,7 @@ def time_kernels(cases) -> dict:
                 f'each call ' + (f'{cold:.4f} ms' if cold is not None else
                                  'not measured (the host fell behind)'))
         if c['rep']:
-            rows[c['kernel']] = dict(
+            rows[c['row']] = dict(
                 shape=c['name'], max_abs_err=c['max_abs_err'], ms=ms,
                 plain_ms=plain, bound_ms=c['bound_ms'],
                 bound_by=c['bound_by'], library_ms=lib)
@@ -3673,7 +3737,7 @@ def serve(cfg) -> dict:
                         'serve')
     from paddle_tpu_torch.weights import param_digest
     res.update(engine=eng, eager=eager, prompts=prompts, params=params,
-               digest=param_digest(model), kv_gb=eng.pool.pool_bytes / 1e9)
+               digest=param_digest(model))
     return res
 
 
@@ -4286,7 +4350,7 @@ def int8_logit_rmse(bf16, eng, prompts, tag: str) -> tuple:
     return rmse, ref_rmse
 
 
-def int8_prefix_runs(model, tag: str, kernels=SERVE_KERNELS):
+def int8_prefix_runs(model, tag: str, kernels=INT8_SERVE_KERNELS):
     """(graph run, eager run) of phase 6c's serve-prefix trace and
     parameters (`prefix_params`) on `model`
     behind the int8 prefix/chunk engine (PREFIX_ENGINE + PREFIX_OPTS,
@@ -4360,9 +4424,9 @@ def serve_int8(served, prefixed) -> dict:
         f'{sum(t.nbytes for kv in eng._decode._windows for t in kv) / 1e6:.1f}'
         f' MB')
     prompts, params = served['prompts'], served['params']
-    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve-int8',
-                     base)
-    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
+    res = _run_serve(eng, prompts, params, None, INT8_SERVE_KERNELS,
+                     'serve-int8', base)
+    eager = serve_eager(eng, res, prompts, params, None, INT8_SERVE_KERNELS,
                         'serve-int8')
     rmse, ref_rmse = int8_logit_rmse(bf16, eng, prompts, 'serve-int8')
     same = sum(a == b for a, b in zip(res['tokens'], served['tokens']))
@@ -4372,7 +4436,7 @@ def serve_int8(served, prefixed) -> dict:
     check_int8_launches({'serve-int8': res, 'serve-int8 eager': eager,
                          'serve-int8-prefix': pre,
                          'serve-int8-prefix eager': pre_eager},
-                        'paged_attention', layers, 'serve-int8')
+                        'paged_attention_int8', layers, 'serve-int8')
     for key, fmt in (('decode_tok_per_s', '.1f'), ('ttft_mean_s', '.3f'),
                      ('ttft_p50_s', '.3f'), ('ttft_max_s', '.3f'),
                      ('peak_pages', 'd'), ('prefill_s', '.3f'),
@@ -4390,8 +4454,6 @@ def serve_int8(served, prefixed) -> dict:
         f'{len(pre["tokens"])} requests get the bf16-KV tokens')
     res.update(engine=eng, eager=eager, prefix=pre, rmse=rmse,
                ref_rmse=ref_rmse, prompts=prompts)
-    res['launches']['paged_attention_int8_window'] = \
-        res['launches'].pop('paged_attention')
     return res
 
 
@@ -7118,11 +7180,10 @@ def rung_step_s(step, batches, steps: int = TRAIN_STEPS) -> tuple:
 # leaves it to XLA): their serving path runs the attention kernels only
 GPT_SERVE_KERNELS = ('flash_attention_fwd', 'paged_attention')
 GPT2_SERVE_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64')
-# with int8 KV: at D = 128 the paged call over int8 pages counts as any
-# paged call (GPT_SERVE_KERNELS; its row in the kernel table is
-# paged_attention_int8_window); at D = 64 under keys of its own; the GPT
-# draft's sub-steps run the float D = 64 paged kernel over its pool, the
-# verify the int8 one
+# with int8 KV the paged call counts under its `_int8` key at both
+# widths; the GPT draft's sub-steps run the float D = 64 paged kernel
+# over its pool, the verify the int8 one
+GPT_INT8_KERNELS = ('flash_attention_fwd', 'paged_attention_int8')
 GPT2_INT8_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_int8_d64')
 GPT2_SPEC_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64',
                      'paged_attention_verify_int8_d64')
@@ -7291,9 +7352,7 @@ def serve_gpt_int8(served, tag: str, kernels, draft_seed=None) -> dict:
     after a forced clear. With `draft_seed`, then
     `serve_gpt_spec`. Logs the KV bytes beside the bf16 pool's,
     decode tok/s and TTFT beside the bf16 run, the seconds it took. The
-    launches of every run are summed; at D = 128 the int8 paged calls
-    count under `paged_attention_int8_window`, the kernel table's row
-    for them."""
+    launches of every run are summed."""
     from paddle_tpu_torch.serving import InferenceEngine
     t0 = time.perf_counter()
     bf16 = served['engine']
@@ -7332,9 +7391,6 @@ def serve_gpt_int8(served, tag: str, kernels, draft_seed=None) -> dict:
     out = {'tokens': res['tokens'], 'rmse': rmse, 'ref_rmse': ref_rmse,
            'decode_tok_per_s': res['decode_tok_per_s'],
            'launches': _summed(*runs.values())}
-    if paged == 'paged_attention':
-        out['launches']['paged_attention_int8_window'] = \
-            out['launches'].pop('paged_attention')
     log(f'[{tag}] int8 serve and prefix/chunk runs took '
         f'{time.perf_counter() - t0:.1f} s')
     if draft_seed is not None:
@@ -7520,7 +7576,7 @@ def gpt_family() -> dict:
     out = {}
     for name, cfg, kernels, int8_kernels, seed, draft_seed in (
             ('gpt', GPTConfig.gpt3_1p3b(), GPT_SERVE_KERNELS,
-             GPT_SERVE_KERNELS, 1919, None),
+             GPT_INT8_KERNELS, 1919, None),
             ('gpt2', GPTConfig.gpt2_small(), GPT2_SERVE_KERNELS,
              GPT2_INT8_KERNELS, 1920, 1921)):
         served = out[f'{name}-serve'] = serve_gpt(cfg, f'{name}-serve',
@@ -7556,6 +7612,9 @@ FP16_TRAIN_KERNELS = ('flash_attention_fwd_fp16',
 # the 4-layer logit check: the fp16 engine against the f32 one, beside
 # the bf16 engine's, over one set of weights
 FP16_RMSE_LAYERS = 4
+# phase 10 serves Llama-2-7B's width at 8 of its 32 layers: cut to keep
+# the whole smoke inside its time limit once phase 11 joined it
+FP16_LLAMA_LAYERS = 8
 # the fp16 TrainStep against an f32 TrainStep from the same weights on
 # the same batches. Step 1 (before any update): the fp16 loss within
 # FP16_TRAIN_LOSS_RTOL of the f32 one (the logits round at 2^-11
@@ -7643,7 +7702,7 @@ def _fp16_bank_wave(eng, res, prompts, params, kernels, tag) -> list:
     return [banked, eager]
 
 
-def serve_fp16(model, tag: str, kernels, int8_key: str, bf16=None,
+def serve_fp16(model, tag: str, kernels, int8_key: str,
                bank=False) -> dict:
     """An fp16 `model` behind the 8-slot paged engine (decode block 8,
     pages of 16) with its decode and prefill graphs, phase 6's 12
@@ -7655,10 +7714,7 @@ def serve_fp16(model, tag: str, kernels, int8_key: str, bf16=None,
     sub-step's logits finite on both KV kinds and the int8 engine's
     within INT8_REF_SLACK of the JAX bench's int8 arm (`int8_logit_rmse`);
     the int8 paged call (`int8_key`) once per layer of every decode
-    sub-step. Logs decode and prefill tok/s, TTFT and the KV pool's GB
-    beside `bf16` (phase 6's run of the bf16 model) where given. At D =
-    128 the int8 arm's paged launches count under
-    `paged_attention_int8_window_fp16`, its row in the kernel table."""
+    sub-step. Logs decode and prefill tok/s, TTFT and the KV pool's GB."""
     from paddle_tpu_torch.serving import InferenceEngine
     t0 = time.perf_counter()
     layers = model.config.num_hidden_layers
@@ -7686,20 +7742,13 @@ def serve_fp16(model, tag: str, kernels, int8_key: str, bf16=None,
                         int8_key, layers, f'{tag}-int8')
     for run in runs + [r8, e8]:
         fp16_only(run['every_launch'], tag)
-    if int8_key == 'paged_attention_fp16':
-        for run in (r8, e8):
-            run['launches']['paged_attention_int8_window_fp16'] = \
-                run['launches'].pop(int8_key)
     kv = (eng.pool.pool_bytes / 1e9, eng8.pool.pool_bytes / 1e9)
     for key, fmt in (('decode_tok_per_s', '.1f'), ('prefill_tok_per_s', '.0f'),
                      ('ttft_mean_s', '.3f'), ('ttft_max_s', '.3f')):
         log(f'[{tag}]   {key}: fp16 {res[key]:{fmt}} (int8 KV '
-            f'{r8[key]:{fmt}})' + (f' vs bf16 {bf16[key]:{fmt}} (phase 6, '
-                                   f'same run)' if bf16 else ''))
+            f'{r8[key]:{fmt}})')
     log(f'[{tag}]   KV pool: fp16 {kv[0]:.3f} GB, int8 with scales '
-        f'{kv[1]:.3f} GB' + (f' vs bf16 {bf16["kv_gb"]:.3f} GB (phase 6)'
-                             if bf16 else '') + f'; took '
-        f'{time.perf_counter() - t0:.1f} s')
+        f'{kv[1]:.3f} GB; took {time.perf_counter() - t0:.1f} s')
     del eng8
     return {'engine': eng, 'prompts': prompts, 'params': params,
             'tokens': res['tokens'], 'decode_tok_per_s':
@@ -7853,11 +7902,11 @@ def train_fp16() -> dict:
             'zero_share': zero, 'launches': launches}
 
 
-def fp16_phase(served=None) -> dict:
-    """Phase 10: fp16 models on the card. Llama-2-7B (32 layers, fp16,
-    phase 6's seed) served with float KV, behind a bank, and with int8
-    KV (`serve_fp16`, beside phase 6's bf16 figures in `served`); the
-    4-layer logit check (`fp16_logit_rmse`); GPT-3 XL (D = 128) and GPT-2
+def fp16_phase() -> dict:
+    """Phase 10: fp16 models on the card. Llama-2-7B's width at
+    FP16_LLAMA_LAYERS of its 32 layers (fp16, phase 6's seed) served with
+    float KV, behind a bank, and with int8 KV (`serve_fp16`); the 4-layer
+    logit check (`fp16_logit_rmse`); GPT-3 XL (D = 128) and GPT-2
     small (D = 64) in fp16 with float and int8 KV, and a 2-layer fp16
     draft over each (float KV at D = 128: the fp16 verify; int8 KV at
     D = 64); the fp16 TrainStep (`train_fp16`). {name: result}."""
@@ -7866,20 +7915,19 @@ def fp16_phase(served=None) -> dict:
                                       LlamaForCausalLM)
     t0 = time.perf_counter()
     out = {}
-    model = LlamaForCausalLM(LlamaConfig.llama2_7b(), device=DEV,
-                             dtype='float16',
-                             generator=ptt.generator(1234, DEV))
-    log(f'[llama-fp16] Llama 32 layers x 4096 fp16, '
+    model = LlamaForCausalLM(
+        LlamaConfig.llama2_7b(num_hidden_layers=FP16_LLAMA_LAYERS),
+        device=DEV, dtype='float16', generator=ptt.generator(1234, DEV))
+    log(f'[llama-fp16] Llama {FP16_LLAMA_LAYERS} of 32 layers x 4096 fp16, '
         f'{nbytes(*model.parameters()) / 1e9:.2f} GB of weights')
     out['llama-fp16'] = serve_fp16(model, 'llama-fp16', FP16_SERVE_KERNELS,
-                                   'paged_attention_fp16', bf16=served,
-                                   bank=True)
+                                   'paged_attention_int8_fp16', bank=True)
     del model
     release(out['llama-fp16'])
     out['fp16-rmse'] = fp16_logit_rmse()
     for name, cfg, kernels, int8_key, seed, spec in (
             ('gpt-fp16', GPTConfig.gpt3_1p3b(), FP16_GPT_KERNELS,
-             'paged_attention_fp16', 1919,
+             'paged_attention_int8_fp16', 1919,
              (FP16_GPT_SPEC_KERNELS, None, 'plain')),
             ('gpt2-fp16', GPTConfig.gpt2_small(), FP16_GPT2_KERNELS,
              'paged_attention_int8_fp16_d64', 1920,
@@ -7904,6 +7952,624 @@ def fp16_phase(served=None) -> dict:
     torch.cuda.empty_cache()
     log(f'[fp16] phase 10 took {time.perf_counter() - t0:.1f} s')
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: T5 (encoder-decoder generation and training), the tokenizer
+# with its host C++, and a jit-exported program
+# ---------------------------------------------------------------------------
+
+# T5-large served and trained at full width and depth: batch 8, encoder
+# 512 tokens, decoder 128 (training) or 64 new tokens (generation)
+T5_BATCH, T5_ENC, T5_DEC, T5_NEW, T5_BEAMS = 8, 512, 128, 64, 4
+T5_PROMPT_LENS = (64, 100, 128, 200, 256, 320, 400, 512)
+# the tokenizer trains on text in the repo (nothing is downloaded); the
+# prompts come from another file
+T5_CORPUS, T5_PROMPT_TEXT, T5_TOKENIZER_VOCAB = (
+    ('SURVEY.md', 'PAPER.md'), 'README.md', 2000)
+# the f32 gates run at 2 + 2 layers of full width: greedy against an
+# argmax over uncached forwards, the card's logits and a TrainStep's
+# losses against the port on the CPU (batch 2), speculative == greedy
+T5_CHECK_LAYERS, T5_CHECK_NEW, T5_CHECK_BATCH = 2, 16, 2
+T5_LOSS_RTOL = 1e-4
+# the f32 logits at 2 + 2 layers: T5's tied head gives logits ~0.04 from a
+# 1024-term sum that cancels, so f32 itself lies 1.6e-5 to 2.9e-5 (rel_norm,
+# rel_max) from float64 there, past the kernels' 1e-5 limit (measured on
+# the CPU). The card's logits are held to a float64 run of the CPU copy,
+# no further from it than T5_F64_SLACK x the CPU's own f32 logits are,
+# and never past T5_F32_CEIL, which also bounds the card against the CPU
+# (readings 1.6e-5 to 6.1e-5), so the limit cannot widen with the CPU's
+T5_F64_SLACK = 2.0
+T5_F32_CEIL = 1e-4
+T5_TRAIN_STEPS = 3
+T5_TRAIN_KERNELS = ('rms_norm', 'flash_attention_fwd_d64',
+                    'flash_attention_bwd_dq_d64',
+                    'flash_attention_bwd_dkv_d64', 'softmax_ce_fwd',
+                    'softmax_ce_bwd')
+T5_EXPORT_ROOT = Path(__file__).resolve().parent / 'build' / 't5_export'
+
+
+def t5_cases() -> list:
+    """Phase 2's cases at T5-large's shapes: the flash forward with its
+    LSE, dq and dk/dv at the cross-attention's D = 64, non-causal, B=8,
+    H=16 over Sk=512 keys, Sq = 128 (training's decoder; the bf16 case
+    reports the `_t5` rows), 1 and 100 (a partial last query tile), bf16
+    and f32; RMSNorm bf16 over [4096, 1024]; CE forward and backward bf16
+    at [1024, 32128] with ignored rows."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    cases, add = _case_list()
+    for dtype in (torch.bfloat16, torch.float32):
+        for sq in (T5_DEC, 1, 100):
+            rep = dtype == torch.bfloat16 and sq == T5_DEC
+            _flash_train_case(add, gen, dtype, T5_BATCH, sq, 16, 16, d=64,
+                              causal=False, sk=T5_ENC, rep=rep, rep_fwd=rep,
+                              row_suffix='_t5')
+    dtype = torch.bfloat16
+    x = _randn((T5_BATCH * T5_ENC, 1024), dtype, gen)
+    w = (1 + 0.1 * torch.randn(1024, generator=gen, device=DEV)).to(dtype)
+    add('rms_norm', f'rms_norm bf16 rows={x.shape[0]} width=1024', dtype,
+        lambda x=x, w=w: K.rms_norm(x, w, 1e-6),
+        lambda x=x, w=w: K.rms_norm_reference(x, w, 1e-6),
+        lambda x=x, w=w: F.rms_norm(x, (1024,), w, 1e-6),
+        nbytes(x, x, w), 4 * x.numel(), rep=True, row='rms_norm_t5')
+    _ce_case(add, gen, dtype, T5_BATCH * T5_DEC, 32128, rep=True,
+             row_suffix='_t5')
+    return cases
+
+
+def t5_step_launches(cfg) -> dict:
+    """Each training kernel's launches in one step of a T5 without an
+    encoder mask: RMSNorm 2 per encoder block, 3 per decoder block and the
+    2 final norms; the flash forward once per decoder block (its
+    cross-attention, D = 64) and dq and dk/dv once each; CE once each
+    way. `use_recompute` reruns each block's forward in the backward:
+    its norms and its flash forward again."""
+    enc, dec = cfg.num_layers, cfg.num_decoder_layers
+    rerun = 1 if cfg.use_recompute else 0
+    return {'rms_norm': (2 * enc + 3 * dec) * (1 + rerun) + 2,
+            'flash_attention_fwd_d64': dec * (1 + rerun),
+            'flash_attention_bwd_dq_d64': dec,
+            'flash_attention_bwd_dkv_d64': dec,
+            'softmax_ce_fwd': 1, 'softmax_ce_bwd': 1}
+
+
+def t5_train_flops(cfg, b: int, s_enc: int, s_dec: int) -> float:
+    """Model FLOPs of one training step (3 x the forward; the recompute's
+    extra forward not counted), written out in PERF.md: per encoder
+    token and layer 8 d i (q, k, v, o) + 4 s_enc i (the scores and PV of
+    all s_enc keys) + the FF; per decoder token and layer 8 d i + 4 s_dec
+    i (self-attention over all s_dec keys, as the masked plain attention
+    computes) + 4 d i (cross q, o) + 4 s_enc i + the FF, and 4 d i per
+    encoder token and decoder layer (cross k, v); the head 2 d V per
+    decoder token. The FF is 4 d f, or 6 d f gated. d = d_model, i =
+    heads x d_kv, f = d_ff."""
+    d, i, f, v = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff, \
+        cfg.vocab_size
+    ff = (6 if cfg.is_gated_act else 4) * d * f
+    enc = b * s_enc * cfg.num_layers * (8 * d * i + 4 * s_enc * i + ff)
+    dec = b * s_dec * cfg.num_decoder_layers * (
+        8 * d * i + 4 * s_dec * i + 4 * d * i + 4 * s_enc * i + ff)
+    cross_kv = b * s_enc * cfg.num_decoder_layers * 4 * d * i
+    head = b * s_dec * 2 * d * v
+    return 3.0 * (enc + dec + cross_kv + head)
+
+
+def t5_tokenize() -> dict:
+    """A `FastBPETokenizer` trained on T5_CORPUS (vocab
+    T5_TOKENIZER_VOCAB), then 8 prompts of T5_PROMPT_LENS tokens, each
+    from its own stretch of T5_PROMPT_TEXT, padded to T5_ENC with their
+    attention mask. Gates: every encode took the native path
+    (`fast_tokenizer.ENCODES`), and the Python path gives the same ids.
+    Logs the training seconds and both paths' ms per batch encode (the
+    best of 3)."""
+    from paddle_tpu_torch.nlp import fast_tokenizer as fast
+    from paddle_tpu_torch.nlp.tokenizer import BPETokenizer
+    root = Path(__file__).resolve().parent
+    lines = [line for name in T5_CORPUS
+             for line in (root / name).read_text().splitlines()]
+    t0 = time.perf_counter()
+    tok = fast.FastBPETokenizer().train_from_iterator(
+        lines, vocab_size=T5_TOKENIZER_VOCAB)
+    train_s = time.perf_counter() - t0
+    words = (root / T5_PROMPT_TEXT).read_text().split()
+    per = len(words) // len(T5_PROMPT_LENS)
+    texts = [' '.join(words[i * per:(i + 1) * per])
+             for i in range(len(T5_PROMPT_LENS))]
+    before = dict(fast.ENCODES)
+    ms = {}
+    # the Python path: the parent's merge loop (FastBPETokenizer's own
+    # tokenize is the native one)
+    for path, encode in (('native', lambda t, n: tok.encode(t,
+                                                            max_length=n)),
+                         ('python', lambda t, n: tok.convert_tokens_to_ids(
+                             BPETokenizer.tokenize(tok, t))[:n])):
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = [encode(t, n) for t, n in zip(texts, T5_PROMPT_LENS)]
+            dt = (time.perf_counter() - t0) * 1e3
+            best = dt if best is None else min(best, dt)
+        ms[path] = (best, got)
+    native, python = ms['native'][1], ms['python'][1]
+    if fast.ENCODES['native'] - before['native'] != 3 * len(texts) \
+            or fast.ENCODES['python'] != before['python']:
+        raise AssertionError(f't5-tokenize: encodes by path '
+                             f'{fast.ENCODES} (before {before}): the native '
+                             f'path did not serve every encode')
+    if native != python or [len(x) for x in native] != list(T5_PROMPT_LENS):
+        raise AssertionError('t5-tokenize: native and Python ids differ, or '
+                             'a prompt is short')
+    ids = np.full((len(texts), T5_ENC), tok.pad_token_id, np.int64)
+    mask = np.zeros((len(texts), T5_ENC), np.int64)
+    for j, row in enumerate(native):
+        ids[j, :len(row)] = row
+        mask[j, :len(row)] = 1
+    log(f'[t5-tokenize] FastBPETokenizer trained on {" + ".join(T5_CORPUS)} '
+        f'({len(lines)} lines) to {len(tok.vocab)} tokens, {len(tok.merges)} '
+        f'merges in {train_s:.2f} s; 8 prompts of {T5_PROMPT_LENS} tokens '
+        f'from {T5_PROMPT_TEXT}: batch encode {ms["native"][0]:.3f} ms native '
+        f'(C++), {ms["python"][0]:.3f} ms Python (best of 3; equal ids); '
+        f'encodes by path {fast.ENCODES}')
+    return {'tok': tok, 'ids': ids, 'mask': mask, 'train_s': train_s,
+            'native_ms': ms['native'][0], 'python_ms': ms['python'][0]}
+
+
+def _t5_depth(cfg, layers: int):
+    """`cfg` cut to `layers` encoder and decoder blocks (its presets fix
+    num_layers, as the JAX package's do)."""
+    cfg.num_layers = cfg.num_decoder_layers = layers
+    return cfg
+
+
+def _t5_model(cfg, dtype, seed, cls=None):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import T5ForConditionalGeneration
+    return (cls or T5ForConditionalGeneration)(
+        cfg, device=DEV, dtype=dtype, generator=ptt.generator(seed, DEV))
+
+
+def _on_cpu_copy(model):
+    """A CPU model of the same class and config with `model`'s weights."""
+    cpu = type(model)(model.config, device='cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def t5_checks(prep) -> None:
+    """T5-large at 2 + 2 layers and full width in f32 (random weights):
+    greedy decode over the static cache of prep's 8 padded prompts equals
+    an argmax over uncached decoder forwards, and num_beams=1 equals
+    greedy; the card's logits (padded prompts, then unmasked: the flash
+    cross-attention) lie within T5_F64_SLACK x the CPU copy's f32 logits'
+    distance from its float64 run, capped at T5_F32_CEIL, and within
+    T5_F32_CEIL of the CPU's f32 logits (`f32_like_cpu`); the
+    relative-position buckets the forward gathers on the card equal the
+    CPU's exactly (and the f32 expression itself computed on the card,
+    logged); a self-draft `speculative_generate`
+    gives greedy's tokens; a TrainStep (AdamW, recompute) on the card
+    and on the CPU from the same weights and batch (T5_CHECK_BATCH x
+    T5_ENC -> T5_DEC, no encoder mask): step 1's loss within
+    T5_LOSS_RTOL, step 2's logged."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import T5Config
+    from paddle_tpu_torch.nlp.t5 import _relative_position_bucket
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    cfg = _t5_depth(T5Config.t5_large(dropout_rate=0.0, use_recompute=True),
+                    T5_CHECK_LAYERS)
+    model = _t5_model(cfg, 'float32', 2202).eval()
+    cpu = _on_cpu_copy(model).eval()
+    ids = torch.from_numpy(prep['ids']).to(DEV)
+    mask = torch.from_numpy(prep['mask']).to(DEV)
+    greedy, _ = model.generate(ids, max_new_tokens=T5_CHECK_NEW,
+                               attention_mask=mask, eos_token_id=-1)
+    with torch.no_grad():
+        enc = model.encode(ids, attention_mask=mask)
+        dec = torch.zeros((ids.shape[0], 1), dtype=torch.int64, device=DEV)
+        for _ in range(T5_CHECK_NEW):
+            nxt = model(decoder_input_ids=dec, encoder_output=enc,
+                        attention_mask=mask)[:, -1].argmax(-1)
+            dec = torch.cat([dec, nxt[:, None]], dim=1)
+    if not torch.equal(greedy, dec[:, 1:]):
+        raise AssertionError(f't5-check: cached greedy {greedy.tolist()} != '
+                             f'uncached argmax {dec[:, 1:].tolist()}')
+    beam1, _ = model.generate(ids, max_new_tokens=T5_CHECK_NEW,
+                              attention_mask=mask, eos_token_id=-1,
+                              decode_strategy='beam_search', num_beams=1)
+    if not torch.equal(beam1, greedy):
+        raise AssertionError('t5-check: num_beams=1 != greedy')
+    b, w = T5_CHECK_BATCH, 128
+    readings_ = {}
+    for label, m in (('padded', mask[:b, :w]), ('unmasked', None)):
+        readings_[label] = f32_like_cpu(
+            f't5-check logits {label}', model, cpu,
+            dict(input_ids=ids[:b, :w], decoder_input_ids=dec[:b],
+                 attention_mask=m))
+    for stack in ('encoder', 'decoder'):
+        attn = getattr(model.t5, stack).block[0].self_attn
+        cattn = getattr(cpu.t5, stack).block[0].self_attn
+        for sq, sk, off in ((T5_ENC, T5_ENC, 0), (1, T5_NEW + 1, T5_NEW)):
+            if not torch.equal(attn.buckets(sq, sk, off).cpu(),
+                               cattn.buckets(sq, sk, off)):
+                raise AssertionError(f't5-check: {stack} buckets differ '
+                                     f'on the card')
+    rel = torch.arange(-256, 257)
+    flips = {}
+    for bi in (True, False):
+        on_card = _relative_position_bucket(
+            rel.to(DEV), bi, cfg.relative_attention_num_buckets,
+            cfg.relative_attention_max_distance).cpu()
+        host = _relative_position_bucket(
+            rel, bi, cfg.relative_attention_num_buckets,
+            cfg.relative_attention_max_distance)
+        flips['bidirectional' if bi else 'causal'] = int(
+            (on_card != host).sum())
+    spec, stats = model.speculative_generate(
+        model, ids[:1], max_new_tokens=T5_CHECK_NEW,
+        attention_mask=mask[:1], eos_token_id=-1)
+    if not torch.equal(spec, greedy[:1]):
+        raise AssertionError(f't5-check: self-draft speculative '
+                             f'{spec.tolist()} != greedy '
+                             f'{greedy[:1].tolist()}')
+    rng = np.random.RandomState(22)
+    src = rng.randint(2, cfg.vocab_size, (b, T5_ENC))
+    tgt = rng.randint(2, cfg.vocab_size, (b, T5_DEC))
+    dec_in = np.concatenate([np.zeros((b, 1), np.int64), tgt[:, :-1]], 1)
+    losses = []
+    for m in (model, cpu):
+        m.train()
+        step = TrainStep(m, t5_loss(cfg.vocab_size), AdamW(
+            learning_rate=TRAIN_LR, parameters=m.parameters()))
+        losses.append([float(step((src, dec_in), tgt)) for _ in range(2)])
+    rel1 = abs(losses[0][0] - losses[1][0]) / abs(losses[1][0])
+    if not rel1 <= T5_LOSS_RTOL:
+        raise AssertionError(f't5-check: step-1 loss card {losses[0][0]} vs '
+                             f'CPU {losses[1][0]} (rel {rel1:.3e})')
+    log(f'[t5-check] T5-large width, {T5_CHECK_LAYERS} + {T5_CHECK_LAYERS} '
+        f'layers f32: cached greedy ({T5_CHECK_NEW} tokens x '
+        f'{ids.shape[0]} padded prompts) == an argmax over uncached '
+        f'forwards, beam 1 == greedy, self-draft speculative == greedy '
+        f'({stats["rounds"]} rounds); logits ' + ', '.join(
+            f'{k}: {_f64_note(r)}' for k, r in readings_.items())
+        + f'; buckets gathered on the card == CPU; the f32 bucket expression '
+        f'computed on the card differs from the host at {flips} of 513 '
+        f'positions; TrainStep losses card {losses[0]} vs CPU {losses[1]} '
+        f'(step 1 rel {rel1:.3e}, limit {T5_LOSS_RTOL}; step 2 rel '
+        f'{abs(losses[0][1] - losses[1][1]) / abs(losses[1][1]):.3e}); '
+        f'{time.perf_counter() - t0:.1f} s')
+    del model, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_like_cpu(label: str, model, cpu, kw) -> dict:
+    """The card's f32 output of `model(**kw)` against a float64 run of
+    its CPU copy `cpu`, within T5_F64_SLACK x the CPU's own f32 output's
+    distance from it and within T5_F32_CEIL, and against the CPU's f32
+    output within T5_F32_CEIL, by rel_max and by rel_norm; raises past
+    either. Returns the three readings (card and CPU against float64,
+    card against CPU)."""
+    host_kw = {k: None if v is None else v.cpu() for k, v in kw.items()}
+    with torch.no_grad():
+        got = model(**kw).cpu().double()
+        f32 = cpu(**host_kw).double()
+        f64 = copy.deepcopy(cpu).double()(**host_kw)
+    r = {'card': readings(got, f64), 'cpu': readings(f32, f64),
+         'card_vs_cpu': readings(got, f32)}
+    over = []
+    for m in ('rel_max', 'rel_norm'):
+        for name, limit in (
+                ('card', min(T5_F64_SLACK * r['cpu'][m], T5_F32_CEIL)),
+                ('card_vs_cpu', T5_F32_CEIL)):
+            if r[name][m] > limit:
+                over.append(f'{name} {m} {r[name][m]:.3e} > {limit:.3e}')
+    if over:
+        raise AssertionError(f'{label}: f32 past its limit: '
+                             f'{"; ".join(over)} ({_f64_note(r)})')
+    return r
+
+
+def _f64_note(r: dict) -> str:
+    return (f'rel_max / rel_norm against float64: card '
+            f'{r["card"]["rel_max"]:.3e} / {r["card"]["rel_norm"]:.3e}, CPU '
+            f'{r["cpu"]["rel_max"]:.3e} / {r["cpu"]["rel_norm"]:.3e}; card '
+            f'vs CPU {r["card_vs_cpu"]["rel_max"]:.3e} / '
+            f'{r["card_vs_cpu"]["rel_norm"]:.3e}')
+
+
+def t5_loss(vocab: int):
+    from paddle_tpu_torch.nn import functional as F
+    return lambda logits, labels: F.cross_entropy(
+        logits.reshape(-1, vocab), labels.reshape(-1))
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def t5_serve(prep) -> dict:
+    """T5-large (24 + 24 layers, bf16, random weights) generates T5_NEW
+    tokens for prep's 8 padded prompts: greedy, beam search (T5_BEAMS
+    beams) and sampling under a seed (twice: equal tokens), with
+    eos_token_id -1 (a random model's EOS would end rows at random: every
+    row then runs all T5_NEW steps, so the timings count the same work);
+    the greedy ids decoded to text. Logs tok/s, the encoder's ms and the
+    decoder's ms per token (the wall less the encoder, over T5_NEW)."""
+    from paddle_tpu_torch.nlp import T5Config
+    from paddle_tpu_torch.ops import kernels as K
+    cfg = T5Config.t5_large(dropout_rate=0.0)
+    model = _t5_model(cfg, 'bfloat16', 2201).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(prep['ids']).to(DEV)
+    mask = torch.from_numpy(prep['mask']).to(DEV)
+    model.generate(ids, max_new_tokens=2, attention_mask=mask,
+                   eos_token_id=-1)                       # warm-up
+    with torch.no_grad():
+        enc_s = min(_wall(lambda: model.encode(ids, attention_mask=mask))[1]
+                    for _ in range(3))
+    K.reset_launch_counts()
+    runs = {}
+    for label, kw in (('greedy', {}),
+                      ('beam', dict(decode_strategy='beam_search',
+                                    num_beams=T5_BEAMS)),
+                      ('sampling', dict(decode_strategy='sampling', top_k=50,
+                                        top_p=0.9, temperature=0.8,
+                                        seed=7))):
+        (out, scores), wall = _wall(lambda kw=kw: model.generate(
+            ids, max_new_tokens=T5_NEW, attention_mask=mask,
+            eos_token_id=-1, **kw))
+        if tuple(out.shape) != (T5_BATCH, T5_NEW) \
+                or not torch.isfinite(scores).all():
+            raise AssertionError(f't5-serve {label}: ids {tuple(out.shape)},'
+                                 f' scores {scores.tolist()}')
+        runs[label] = dict(tokens=out, wall=wall)
+    launches = dict(K.LAUNCHES)
+    again, _ = model.generate(ids, max_new_tokens=T5_NEW, attention_mask=mask,
+                              eos_token_id=-1, decode_strategy='sampling',
+                              top_k=50, top_p=0.9, temperature=0.8, seed=7)
+    if not torch.equal(again, runs['sampling']['tokens']):
+        raise AssertionError('t5-serve: sampling under one seed gave other '
+                             'tokens')
+    if launches['rms_norm'] <= 0:
+        raise AssertionError('t5-serve: the RMSNorm kernel never launched')
+    texts = [prep['tok'].decode(row)
+             for row in runs['greedy']['tokens'].tolist()]
+    out = {'launches': launches, 'enc_ms': enc_s * 1e3}
+    for label, r in runs.items():
+        out[f'{label}_tok_s'] = T5_BATCH * T5_NEW / r['wall']
+        out[f'{label}_dec_ms'] = (r['wall'] - enc_s) * 1e3 / T5_NEW
+        log(f'[t5-serve] {label}: {out[f"{label}_tok_s"]:.1f} tok/s '
+            f'({T5_BATCH} x {T5_NEW} tokens in {r["wall"]:.3f} s), decoder '
+            f'{out[f"{label}_dec_ms"]:.2f} ms per token')
+    log(f'[t5-serve] T5-large {n_params / 1e6:.1f} M params bf16, 8 padded '
+        f'prompts of {T5_PROMPT_LENS} tokens: encoder {enc_s * 1e3:.2f} ms; '
+        f'greedy row 0 decodes to {texts[0][:60]!r} (ids past the '
+        f'tokenizer\'s {len(prep["tok"].vocab)} are <unk>); launches '
+        f'rms_norm {launches["rms_norm"]}')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def t5_train() -> dict:
+    """T5-large (bf16, `use_recompute=True`, dropout 0) through `TrainStep`
+    with `bench_optimizer`'s AdamW: T5_TRAIN_STEPS steps of batch
+    T5_BATCH, encoder T5_ENC and decoder T5_DEC tokens, no encoder mask
+    (the cross-attention takes the D = 64 flash forward, dq and dk/dv,
+    non-causal, Sq T5_DEC over Sk T5_ENC). Gates: finite losses; each
+    step launches exactly `t5_step_launches` of every training kernel,
+    and the multi-tensor Adam update. Logs ms a step (steps 2-3),
+    tokens/s (encoder + decoder), peak memory, MFU by `t5_train_flops`."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import T5Config
+    from paddle_tpu_torch.ops import kernels as K
+    cfg = T5Config.t5_large(dropout_rate=0.0, use_recompute=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = _t5_model(cfg, 'bfloat16', 2203)
+    step = TrainStep(model, t5_loss(cfg.vocab_size), bench_optimizer(model))
+    rng = np.random.RandomState(23)
+    want = t5_step_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], collections.Counter()
+    for i in range(T5_TRAIN_STEPS):
+        src = rng.randint(2, cfg.vocab_size, (T5_BATCH, T5_ENC))
+        tgt = rng.randint(2, cfg.vocab_size, (T5_BATCH, T5_DEC))
+        dec = np.concatenate([np.zeros((T5_BATCH, 1), np.int64),
+                              tgt[:, :-1]], 1)
+        K.reset_launch_counts()
+        loss, dt = _wall(lambda: float(step((src, dec), tgt)))
+        losses.append(loss)
+        times.append(dt)
+        got = {k: K.LAUNCHES[k] for k in want}
+        total.update(K.LAUNCHES)
+        if got != want or K.LAUNCHES['multi_tensor_adam'] <= 0:
+            raise AssertionError(f't5-train step {i + 1}: launches {got} '
+                                 f'(multi_tensor_adam '
+                                 f'{K.LAUNCHES["multi_tensor_adam"]}), want '
+                                 f'{want}')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f't5-train: losses {losses}')
+    step_s = float(np.mean(times[1:]))
+    flops = t5_train_flops(cfg, T5_BATCH, T5_ENC, T5_DEC)
+    mfu = flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+    tok_s = T5_BATCH * (T5_ENC + T5_DEC) / step_s
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f'[t5-train] T5-large bf16, recompute, batch {T5_BATCH} x '
+        f'{T5_ENC} -> {T5_DEC}: losses ' + ' '.join(f'{x:.4f}' for x in losses)
+        + f'; {step_s * 1e3:.1f} ms/step (steps 2-{T5_TRAIN_STEPS}), '
+        f'{tok_s:.0f} tokens/s, MFU {mfu:.4f} ({flops / 1e12:.2f} TFLOP a '
+        f'step by t5_train_flops vs 989 TFLOP/s), peak device memory '
+        f'{peak:.2f} GB; launches a step {want} (exact) and multi_tensor_adam '
+        f'{K.LAUNCHES["multi_tensor_adam"]}')
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'losses': losses, 'step_s': step_s, 'mfu': mfu, 'tok_s': tok_s,
+            'peak_gb': peak, 'launches': dict(total)}
+
+
+def t5_v1_1(prep) -> dict:
+    """t5_v1_1_base (gated-gelu, untied head), bf16, random weights: one
+    forward of prep's padded prompts against T5_DEC decoder tokens
+    (finite logits of [8, T5_DEC, V]) and greedy generate of T5_NEW // 4
+    tokens (finite scores); the same forward at 2 + 2 layers in f32, the
+    card's logits held as `f32_like_cpu` holds them."""
+    from paddle_tpu_torch.nlp import T5Config
+    from paddle_tpu_torch.ops import kernels as K
+    ids = torch.from_numpy(prep['ids']).to(DEV)
+    mask = torch.from_numpy(prep['mask']).to(DEV)
+    dec = torch.randint(2, 32128, (T5_BATCH, T5_DEC), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(4))
+    K.reset_launch_counts()
+    model = _t5_model(T5Config.t5_v1_1_base(dropout_rate=0.0), 'bfloat16',
+                      2204).eval()
+    with torch.no_grad():
+        logits = model(input_ids=ids, decoder_input_ids=dec,
+                       attention_mask=mask)
+    toks, scores = model.generate(ids, max_new_tokens=T5_NEW // 4,
+                                  attention_mask=mask, eos_token_id=-1)
+    if tuple(logits.shape) != (T5_BATCH, T5_DEC, 32128) \
+            or not torch.isfinite(logits).all() \
+            or not torch.isfinite(scores).all():
+        raise AssertionError('t5-v1_1: non-finite logits or scores')
+    launches = dict(K.LAUNCHES)
+    del model
+    small = _t5_model(_t5_depth(T5Config.t5_v1_1_base(dropout_rate=0.0),
+                                T5_CHECK_LAYERS), 'float32', 2205).eval()
+    cpu = _on_cpu_copy(small).eval()
+    r = f32_like_cpu('t5-v1_1 logits', small, cpu,
+                     dict(input_ids=ids[:2, :128],
+                          decoder_input_ids=dec[:2, :16]))
+    log(f'[t5-v1_1] t5_v1_1_base bf16 (gated-gelu, untied head): forward '
+        f'[8, {T5_DEC}, 32128] finite, greedy {tuple(toks.shape)}; at '
+        f'{T5_CHECK_LAYERS} + {T5_CHECK_LAYERS} layers f32 the logits\' '
+        + _f64_note(r))
+    del small, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches}
+
+
+def t5_export() -> dict:
+    """`jit.save` of T5-large's `T5Model` eval forward at 2 + 2 layers,
+    bf16, with a dynamic batch (InputSpec [None, T5_ENC] and [None,
+    T5_DEC]), into the gitignored build/t5_export/ (removed after), then
+    `jit.load` without the class. Gates: the program holds the RMSNorm
+    and flash export ops; at batch 4 (the export's example is 2) its
+    decoder and encoder states equal the eager forward's bit for bit, and
+    its run launches the RMSNorm kernel 2 x 2 + 3 x 2 + 2 times and the
+    D = 64 flash forward twice (the decoder's cross-attention). Logs the
+    save and load seconds and the files' sizes."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nlp import T5Config, T5Model
+    from paddle_tpu_torch.ops import kernels as K
+    cfg = _t5_depth(T5Config.t5_large(dropout_rate=0.0), T5_CHECK_LAYERS)
+    model = _t5_model(cfg, 'bfloat16', 2206, cls=T5Model).eval()
+    T5_EXPORT_ROOT.mkdir(parents=True, exist_ok=True)
+    path = str(T5_EXPORT_ROOT / 't5_large_2x2')
+    t0 = time.perf_counter()
+    jit.save(model, path, input_spec=[jit.InputSpec([None, T5_ENC], 'int64'),
+                                      jit.InputSpec([None, T5_DEC], 'int64')])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = jit.load(path)
+    load_s = time.perf_counter() - t0
+    sizes = {ext: os.path.getsize(path + ext) for ext in
+             ('.pdmodel.pt2', '.pdiparams.npz', '.pdmodel.json')}
+    ops = [str(n.target) for n in loaded._program.graph.nodes
+           if n.op == 'call_function']
+    held = {op: ops.count(f'paddle_tpu_torch.{op}.default')
+            for op in ('rms_norm_fwd', 'flash_attention_fwd')}
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    ids = torch.randint(2, cfg.vocab_size, (4, T5_ENC), device=DEV,
+                        generator=gen)
+    dec = torch.randint(2, cfg.vocab_size, (4, T5_DEC), device=DEV,
+                        generator=gen)
+    K.reset_launch_counts()
+    got = loaded(ids, dec)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    with torch.no_grad():
+        want = model(ids, dec)
+    norms = 2 * cfg.num_layers + 3 * cfg.num_decoder_layers + 2
+    if held != {'rms_norm_fwd': norms,
+                'flash_attention_fwd': cfg.num_decoder_layers}:
+        raise AssertionError(f't5-export: the program holds {held}')
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError('t5-export: the loaded program differs from '
+                             'the eager forward')
+    if launches['rms_norm'] != norms or \
+            launches['flash_attention_fwd_d64'] != cfg.num_decoder_layers:
+        raise AssertionError(f't5-export: the loaded program launched '
+                             f'{ {k: n for k, n in launches.items() if n} }')
+    log(f'[t5-export] T5Model (T5-large width, {cfg.num_layers} + '
+        f'{cfg.num_decoder_layers} layers, bf16) saved in {save_s:.2f} s '
+        f'(files {sizes} bytes: the program holds no weights) and loaded '
+        f'without its class in {load_s:.2f} s; at batch 4 its states equal '
+        f'the eager forward bit for bit; it launched rms_norm '
+        f'{launches["rms_norm"]} and flash_attention_fwd_d64 '
+        f'{launches["flash_attention_fwd_d64"]} times')
+    shutil.rmtree(T5_EXPORT_ROOT)
+    del model, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'save_s': save_s, 'load_s': load_s}
+
+
+def t5_phase() -> tuple:
+    """Phase 11: the tokenizer (`t5_tokenize`), the f32 gates
+    (`t5_checks`), T5-large served (`t5_serve`) and trained (`t5_train`),
+    t5_v1_1_base (`t5_v1_1`) and the exported program (`t5_export`).
+    Returns ({name: result} with each run's launch counts (the checks'
+    aside), the tokenized prompts for `t5_profile`)."""
+    t0 = time.perf_counter()
+    prep = t5_tokenize()
+    t5_checks(prep)
+    out = {'t5-serve': t5_serve(prep), 't5-train': t5_train(),
+           't5-v1_1': t5_v1_1(prep), 't5-export': t5_export()}
+    log(f'[t5] phase 11 took {time.perf_counter() - t0:.1f} s')
+    return out, prep
+
+
+def t5_profile(prep) -> None:
+    """Phase 7's T5 windows: torch.profiler over a greedy generate of 4
+    tokens of prep's prompts on T5-large (bf16) and over a training step
+    of `t5_train`'s setup (after one unprofiled step), each broken down
+    by kernel group with the device's idle share (`_breakdown`)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nlp import T5Config
+    ids = torch.from_numpy(prep['ids']).to(DEV)
+    mask = torch.from_numpy(prep['mask']).to(DEV)
+    model = _t5_model(T5Config.t5_large(dropout_rate=0.0), 'bfloat16',
+                      2201).eval()
+    model.generate(ids, max_new_tokens=2, attention_mask=mask,
+                   eos_token_id=-1)                       # warm-up
+    prof = marked_window(lambda: model.generate(
+        ids, max_new_tokens=4, attention_mask=mask, eos_token_id=-1))
+    _breakdown([(prof, None)], prof.event_ms / 1e3,
+               't5-serve greedy generate, 4 tokens')
+    del model
+    cfg = T5Config.t5_large(dropout_rate=0.0, use_recompute=True)
+    model = _t5_model(cfg, 'bfloat16', 2203)
+    step = TrainStep(model, t5_loss(cfg.vocab_size), bench_optimizer(model))
+    rng = np.random.RandomState(23)
+    src = rng.randint(2, cfg.vocab_size, (T5_BATCH, T5_ENC))
+    tgt = rng.randint(2, cfg.vocab_size, (T5_BATCH, T5_DEC))
+    dec = np.concatenate([np.zeros((T5_BATCH, 1), np.int64), tgt[:, :-1]], 1)
+    step((src, dec), tgt)                                 # warm-up
+    prof = marked_window(lambda: step((src, dec), tgt))
+    _breakdown([(prof, None)], prof.event_ms / 1e3, 't5-train step')
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def release(*runs) -> None:
@@ -8105,21 +8771,34 @@ def main() -> int:
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
     if sys.argv[1:2] == ['--fp16']:
-        # python3 chip_smoke.py --fp16: phase 2's fp16 cases, phase 6's
-        # bf16 serve run (its figures beside phase 10's; released first),
-        # then phase 10 alone, then the fp16 cases timed
+        # python3 chip_smoke.py --fp16: phase 2's fp16 cases, then phase
+        # 10 alone, then the fp16 cases timed
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
         build()
         f16 = fp16_cases()
         check_kernels(f16)
-        res = serve(LlamaConfig.llama2_7b())
-        release(res)
-        fp16 = fp16_phase(res)
+        fp16 = fp16_phase()
         time_kernels(f16)
         log('[fp16] launches ' + json.dumps(dict(sorted(
             _summed(*fp16.values()).items()))))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
+    if sys.argv[1:2] == ['--t5']:
+        # python3 chip_smoke.py --t5: phase 2's T5 cases, then phase 11
+        # alone, then the T5 cases timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        t5c = t5_cases()
+        check_kernels(t5c)
+        t5, prep = t5_phase()
+        time_kernels(t5c)
+        t5_profile(prep)
+        log('[t5] launches ' + json.dumps(dict(sorted(
+            _summed(*t5.values()).items()))))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
     if sys.argv[1:2] == ['--procs']:
@@ -8155,6 +8834,7 @@ def main() -> int:
     check_kernels(rung_cases())         # the same
     check_kernels(fp16_cases())         # the same
     check_kernels(head64_cases())       # the same
+    check_kernels(t5_cases())           # the same
     torch.cuda.empty_cache()
     mark('phase 2')
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -8177,6 +8857,10 @@ def main() -> int:
         f'{torch.cuda.memory_allocated() / 1e9:.2f} GB')
     eager = eager_dygraph(rung)
     mark('phases 5c-5g')
+    # phase 11 runs before any profiling (later launches cost the host
+    # more) and before phase 6 builds its engines
+    t5, t5_prep = t5_phase()
+    mark('phase 11')
     res = serve(LlamaConfig.llama2_7b())
     spec = serve_spec(res)
     drain_swap(res)
@@ -8208,6 +8892,7 @@ def main() -> int:
     profile_train(trained['step'], trained['batch'], trained['step_s'],
                   'bench')
     release(trained, pretrained)
+    t5_profile(t5_prep)
     mark('phase 7')
     procs = serve_procs(res)
     mark('phase 6j')
@@ -8215,7 +8900,7 @@ def main() -> int:
     # process, and 6j's children leave the parent little room
     n_ops = op_sweep()
     gpt = gpt_family()
-    fp16 = fp16_phase(res)
+    fp16 = fp16_phase()
     mark('phases 8 (op sweep), 9, 10')
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
@@ -8225,8 +8910,10 @@ def main() -> int:
     check_kernels(f16)
     d64 = head64_cases()
     check_kernels(d64)
+    t5c = t5_cases()
+    check_kernels(t5c)
     mark('phase 8 (checks again)')
-    rows = time_kernels(cases + opt_cases + rungs + f16 + d64)
+    rows = time_kernels(cases + opt_cases + rungs + f16 + d64 + t5c)
     mark('phase 8 (timing)')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -8235,12 +8922,13 @@ def main() -> int:
     table = []
     for name in REPLACES:
         r = rows[name]
-        launches = sum(run['launches'].get(name, 0)
+        key = T5_ROWS.get(name, (name,))[0]
+        launches = sum(run['launches'].get(key, 0)
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self'], procs,
                                    eager, *rest.values(), *gpt.values(),
-                                   *fp16.values()))
+                                   *fp16.values(), *t5.values()))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

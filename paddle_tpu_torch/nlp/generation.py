@@ -31,9 +31,19 @@ sequence has emitted EOS (which reads one flag a step on the host).
 Sampling draws from a `torch.Generator` seeded by `seed` (else the
 framework's): Philox draws, so sampled tokens are the JAX package's
 only in distribution; greedy and beam tokens are the same.
+
+`Seq2SeqGenerationMixin` gives an encoder-decoder (T5) the same
+`generate()` and `speculative_generate()`
+(`paddle_tpu/nlp/generation.py:675-1100`): the encoder and each decoder
+layer's cross K/V run once per call, then single-token decoder steps
+over the static self-attention cache, reusing `_next_token`,
+`process_logits` and `update_static_cache`. Both mixins run the same
+loops (`_sample_loop`, `_beam_loop`, `_speculate`), each over the
+one-step forward the mixin supplies.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import NamedTuple, Optional
 
@@ -452,6 +462,170 @@ def _as_ids(x, device) -> torch.Tensor:
     return t[None] if t.dim() == 1 else t
 
 
+def _sampling_generator(strategy: str, seed, device):
+    """The generator a sampling decode draws from: seeded by `seed`, else
+    the framework's of `device`; None for greedy."""
+    if strategy != 'sampling':
+        return None
+    if seed is not None:
+        return torch.Generator(device=device).manual_seed(int(seed))
+    from ..framework import default_generator
+    return default_generator(device)
+
+
+@contextlib.contextmanager
+def _evaluating(*models):
+    """Each model in eval mode for the block, its training mode restored
+    after."""
+    was = [m.training for m in models]
+    for m in models:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, w in zip(models, was):
+            if w:
+                m.train()
+
+
+def _sample_loop(logits, step, pick, max_new_tokens, eos_token_id,
+                 pad_token_id):
+    """The greedy/sampling decode shared by both mixins, from the first
+    position's logits [B, V]: `pick(logits, i) -> (token [B], log-prob
+    [B])` chooses emitted token i, `step(tok [B], i) -> logits [B, V]`
+    feeds it back. A finished row emits pad; the loop stops once every
+    row has emitted EOS. Returns (ids [B, max_new_tokens], summed
+    log-probs [B] fp32)."""
+    b = logits.shape[0]
+    dev = logits.device
+    nxt, nxt_logp = pick(logits, 0)
+    out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int64,
+                     device=dev)
+    scores = torch.zeros((b,), dtype=torch.float32, device=dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        if bool(finished.all()):
+            break
+        tok = torch.where(finished, pad_token_id, nxt)
+        out[:, i] = tok
+        scores = scores + torch.where(finished, 0.0, nxt_logp)
+        finished = finished | (tok == eos_token_id)
+        if i + 1 == max_new_tokens:
+            break
+        nxt, nxt_logp = pick(step(tok, i), i + 1)
+    return out, scores
+
+
+def _beam_loop(logits, step, reorder, k, max_new_tokens, eos_token_id,
+               pad_token_id, length_penalty):
+    """Beam search shared by both mixins, from the first position's
+    logits [B, V]: the K beams of the B rows decode as one [B * K] batch.
+    `step(tok [B * K], i) -> logits [B * K, V]` feeds emitted token i;
+    `reorder(src [B * K])` gathers the caller's caches to the surviving
+    beams' rows after each step. Returns (the best beam's ids [B,
+    max_new_tokens], its length-normalized score [B])."""
+    logp0 = torch.log_softmax(logits.float(), dim=-1)          # [B, V]
+    b, v = logp0.shape
+    dev = logp0.device
+    scores, tok = torch.topk(logp0, k, dim=-1)                 # [B, K]
+    out = torch.full((b, k, max_new_tokens), pad_token_id,
+                     dtype=torch.int64, device=dev)
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((b, k), dtype=torch.int64, device=dev)
+    pad_only = torch.full((v,), -1e9, device=dev)
+    pad_only[pad_token_id] = 0.0
+    for i in range(max_new_tokens):
+        if bool(finished.all()):
+            break
+        tok = torch.where(finished, pad_token_id, tok)
+        out[:, :, i] = tok
+        lengths = lengths + (~finished).long()
+        finished = finished | (tok == eos_token_id)
+        logp = torch.log_softmax(step(tok.reshape(b * k), i).float(), dim=-1)
+        # a finished beam has one candidate: its frozen score with pad
+        logp = torch.where(finished[:, :, None], pad_only,
+                           logp.reshape(b, k, v))
+        cand = scores[:, :, None] + logp
+        scores, flat = torch.topk(cand.reshape(b, k * v), k, dim=-1)
+        src = torch.div(flat, v, rounding_mode='floor')        # [B, K]
+        tok = flat % v
+        out = out.gather(1, src[:, :, None].expand(-1, -1, max_new_tokens))
+        finished = finished.gather(1, src)
+        lengths = lengths.gather(1, src)
+        reorder((torch.arange(b, device=dev)[:, None] * k + src).reshape(-1))
+    norm = lengths.clamp(min=1).float() ** length_penalty
+    best = (scores / norm).argmax(dim=1)
+    best_out = out.gather(1, best[:, None, None].expand(
+        -1, 1, max_new_tokens))[:, 0]
+    return best_out, (scores / norm).gather(1, best[:, None])[:, 0]
+
+
+def _speculate(first, draft_next, target_choices, base, k, max_new_tokens,
+               eos_token_id, pad_token_id):
+    """The speculative accept loop shared by both mixins (batch 1), from
+    the target's first greedy token: each round the draft proposes k
+    tokens (`draft_next(token, slot) -> its next greedy token`), the
+    target scores the pending token and the drafts in one forward
+    (`target_choices(tokens, slot) -> its greedy token after each`) and
+    keeps the longest agreeing prefix plus its own next token. The
+    pending token after e emitted ones sits at slot `base + e`. Returns
+    (ids, a list of max_new_tokens with pad after the first EOS, stats
+    with `rounds`, `emitted`, `target_forwards_saved` and
+    `acceptance_rate`)."""
+    v = first                                  # the pending token
+    out = [v]
+    rounds = 0
+    e = 1
+    while e < max_new_tokens and v != eos_token_id:
+        p = base + e                           # the slot of `v`
+        drafts, cur = [], v
+        for j in range(k):
+            cur = draft_next(cur, p + j)
+            drafts.append(cur)
+        choice = target_choices([v] + drafts, p)
+        a = 0
+        while a < k and drafts[a] == choice[a] \
+                and drafts[a] != eos_token_id:
+            a += 1
+        v = choice[a]
+        out.extend(drafts[:a] + [v])
+        e += a + 1
+        rounds += 1
+    out = out[:max_new_tokens]
+    out += [pad_token_id] * (max_new_tokens - len(out))
+    if eos_token_id >= 0 and eos_token_id in out:
+        first_eos = out.index(eos_token_id)
+        out = out[:first_eos + 1] + [pad_token_id] * (len(out)
+                                                      - first_eos - 1)
+    rounds_i = max(rounds, 1)
+    emitted_i = min(e, max_new_tokens)
+    # e stays unclamped: a final round's overshoot drafts still count as
+    # accepted, as in the JAX package
+    accepted = max(e - 1 - rounds_i, 0)
+    _record_spec_stats(rounds_i, emitted_i, accepted, rounds_i * k)
+    return out, {'rounds': rounds_i, 'emitted': emitted_i,
+                 'target_forwards_saved': accepted,
+                 'acceptance_rate': accepted / (rounds_i * k)}
+
+
+def _spec_args(model, ids, num_draft_tokens, eos_token_id, pad_token_id):
+    """(k, eos, pad) of a speculative call, checked: batch 1, k >= 1;
+    eos and pad default to the model config's."""
+    if ids.shape[0] != 1:
+        raise ValueError('speculative_generate is a latency '
+                         'optimization for a single stream; batch '
+                         f'size must be 1, got {ids.shape[0]}')
+    cfg = getattr(model, 'config', None)
+    if eos_token_id is None:
+        eos_token_id = getattr(cfg, 'eos_token_id', -1)
+    if pad_token_id is None:
+        pad_token_id = getattr(cfg, 'pad_token_id', 0)
+    k = int(num_draft_tokens)
+    if k < 1:
+        raise ValueError('num_draft_tokens must be >= 1')
+    return k, int(eos_token_id), int(pad_token_id)
+
+
 class GenerationMixin:
     """Mixed into the causal LMs (`GPTForCausalLM`, `LlamaForCausalLM`).
     The host provides `init_cache(batch, length)` and a forward taking
@@ -534,32 +708,21 @@ class GenerationMixin:
             eos_token_id = getattr(cfg, 'eos_token_id', -1)
         if pad_token_id is None:
             pad_token_id = getattr(cfg, 'pad_token_id', 0)
-        was_training = self.training
-        self.eval()
-        try:
+        with _evaluating(self):
             if decode_strategy == 'beam_search':
                 out = self._beam_decode(ids, keep, padded, int(max_new_tokens),
                                         int(num_beams), int(eos_token_id),
                                         int(pad_token_id),
                                         float(length_penalty))
             else:
-                gen = None
-                if decode_strategy == 'sampling':
-                    if seed is not None:
-                        gen = torch.Generator(device=dev).manual_seed(
-                            int(seed))
-                    else:
-                        from ..framework import default_generator
-                        gen = default_generator(dev)
                 out = self._decode(ids, keep, padded, int(max_new_tokens),
                                    decode_strategy, float(temperature),
                                    int(top_k), float(top_p),
                                    int(eos_token_id), int(pad_token_id),
                                    float(repetition_penalty),
-                                   int(min_new_tokens), gen)
-        finally:
-            if was_training:
-                self.train()
+                                   int(min_new_tokens),
+                                   _sampling_generator(decode_strategy, seed,
+                                                       dev))
         return tuple(Tensor(t) for t in out) if wrap else out
 
     def _prefill(self, ids, keep, padded, total):
@@ -604,33 +767,23 @@ class GenerationMixin:
             seen.scatter_add_(1, ids, contrib)
             seen = seen > 0
         logits, cache, offsets = self._prefill(ids, keep, padded, total)
-        nxt, nxt_logp = _next_token(processors(logits[:, -1], seen, 0), gen,
+
+        def pick(logits, emit_idx):
+            nxt, logp = _next_token(processors(logits, seen, emit_idx), gen,
                                     strategy, temperature, top_k, top_p)
-        if track:
-            seen[torch.arange(b, device=dev), nxt] = True
-        out = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.int64,
-                         device=dev)
-        scores = torch.zeros((b,), dtype=torch.float32, device=dev)
-        finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-        for i in range(max_new_tokens):
-            if bool(finished.all()):
-                break
-            tok = torch.where(finished, pad_token_id, nxt)
-            out[:, i] = tok
-            scores = scores + torch.where(finished, 0.0, nxt_logp)
-            finished = finished | (tok == eos_token_id)
-            if i + 1 == max_new_tokens:
-                break
+            if track:
+                seen[torch.arange(b, device=dev), nxt] = True
+            return nxt, logp
+
+        def step(tok, i):
+            nonlocal cache
             mask = padded_decode_mask(keep, total, s + i, 1) \
                 if padded else None
             logits, cache = self._step(tok[:, None], cache, offsets + s + i,
                                        s + i, mask)
-            nxt, nxt_logp = _next_token(processors(logits[:, -1], seen,
-                                                   i + 1), gen, strategy,
-                                        temperature, top_k, top_p)
-            if track:
-                seen[torch.arange(b, device=dev), nxt] = True
-        return out, scores
+            return logits[:, -1]
+        return _sample_loop(logits[:, -1], step, pick, max_new_tokens,
+                            eos_token_id, pad_token_id)
 
     def _beam_decode(self, ids, keep, padded, max_new_tokens, k,
                      eos_token_id, pad_token_id, length_penalty):
@@ -638,56 +791,28 @@ class GenerationMixin:
         prompts decode as one [B * K] batch, reordered by a gather on
         the cache's batch dim each step (the JAX `_beam_decode_jit`)."""
         b, s = ids.shape
-        dev = ids.device
         total = s + max_new_tokens
         logits, cache, offsets = self._prefill(ids, keep, padded, total)
-        logp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)   # [B, V]
-        v = logp0.shape[-1]
-        scores, tok = torch.topk(logp0, k, dim=-1)                 # [B, K]
         cache = [tuple(c.repeat_interleave(k, dim=0) for c in kv)
                  for kv in cache]
         offsets_bk = (offsets.expand(b) if offsets.dim() == 0
                       else offsets).repeat_interleave(k)
         keep_bk = keep.repeat_interleave(k, dim=0)
-        out = torch.full((b, k, max_new_tokens), pad_token_id,
-                         dtype=torch.int64, device=dev)
-        finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
-        lengths = torch.zeros((b, k), dtype=torch.int64, device=dev)
-        pad_only = torch.full((v,), -1e9, device=dev)
-        pad_only[pad_token_id] = 0.0
-        for i in range(max_new_tokens):
-            if bool(finished.all()):
-                break
-            tok = torch.where(finished, pad_token_id, tok)
-            out[:, :, i] = tok
-            lengths = lengths + (~finished).long()
-            finished = finished | (tok == eos_token_id)
+
+        def step(tok, i):
+            nonlocal cache
             mask = padded_decode_mask(keep_bk, total, s + i, 1) \
                 if padded else None
-            logits, cache = self._step(tok.reshape(b * k, 1), cache,
+            logits, cache = self._step(tok[:, None], cache,
                                        offsets_bk + s + i, s + i, mask)
-            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
-            logp = logp.reshape(b, k, v)
-            # a finished beam has one candidate: its frozen score with pad
-            logp = torch.where(finished[:, :, None], pad_only, logp)
-            cand = scores[:, :, None] + logp
-            scores, flat = torch.topk(cand.reshape(b, k * v), k, dim=-1)
-            src = torch.div(flat, v, rounding_mode='floor')        # [B, K]
-            tok = flat % v
-            out = out.gather(1, src[:, :, None].expand(-1, -1,
-                                                       max_new_tokens))
-            finished = finished.gather(1, src)
-            lengths = lengths.gather(1, src)
-            flat_src = (torch.arange(b, device=dev)[:, None] * k
-                        + src).reshape(-1)
-            cache = [tuple(c.index_select(0, flat_src) for c in kv)
+            return logits[:, -1]
+
+        def reorder(src):
+            nonlocal cache
+            cache = [tuple(c.index_select(0, src) for c in kv)
                      for kv in cache]
-        norm = lengths.clamp(min=1).float() ** length_penalty
-        best = (scores / norm).argmax(dim=1)
-        best_out = out.gather(1, best[:, None, None].expand(
-            -1, 1, max_new_tokens))[:, 0]
-        best_score = (scores / norm).gather(1, best[:, None])[:, 0]
-        return best_out, best_score
+        return _beam_loop(logits[:, -1], step, reorder, k, max_new_tokens,
+                          eos_token_id, pad_token_id, length_penalty)
 
     @torch.no_grad()
     def speculative_generate(self, draft_model, input_ids,
@@ -706,71 +831,251 @@ class GenerationMixin:
         wrap = isinstance(input_ids, Tensor)
         dev = self.device
         ids = _as_ids(input_ids, dev).long()
-        if ids.shape[0] != 1:
-            raise ValueError('speculative_generate is a latency '
-                             'optimization for a single stream; batch '
-                             f'size must be 1, got {ids.shape[0]}')
+        k, eos_token_id, pad_token_id = _spec_args(
+            self, ids, num_draft_tokens, eos_token_id, pad_token_id)
+        with _evaluating(self, draft_model):
+            s = ids.shape[1]
+            total = s + max_new_tokens + k + 2
+            target = [self, self.init_cache(1, total)]
+            draft = [draft_model, draft_model.init_cache(1, total)]
+
+            def fwd(entry, tok, pos):
+                model, cache = entry
+                logits, entry[1] = model(tok, position_offset=pos,
+                                         cache=cache, cache_offset=pos,
+                                         use_cache=True)
+                return logits[0]
+
+            def row(toks):
+                return torch.tensor([toks], device=dev)
+            first = int(fwd(target, ids, 0)[-1].argmax())
+            fwd(draft, ids, 0)
+            out, stats = _speculate(
+                first, lambda t, p: int(fwd(draft, row([t]), p)[-1].argmax()),
+                lambda ts, p: fwd(target, row(ts), p).argmax(dim=-1).tolist(),
+                s - 1, k, max_new_tokens, eos_token_id, pad_token_id)
+        ids_out = torch.tensor([out], dtype=torch.int64, device=dev)
+        return (Tensor(ids_out) if wrap else ids_out), stats
+
+
+# ---------------------------------------------------------------------------
+# Seq2SeqGenerationMixin: the encoder-decoder generate() (T5)
+# ---------------------------------------------------------------------------
+
+class Seq2SeqGenerationMixin:
+    """Mixed into encoder-decoder models (T5), the counterpart of the JAX
+    package's (`paddle_tpu/nlp/generation.py:675-1100`). The host class
+    provides `device`, `config` (its `eos_token_id`, `pad_token_id`,
+    `decoder_start_token_id`), a forward taking (`decoder_input_ids`,
+    `encoder_output`, `encoder_cross_kv`, `attention_mask`, `cache`,
+    `cache_offset`, `use_cache=True`) that returns (logits, caches), and
+
+    - ``encode(input_ids, attention_mask=None) -> encoder hidden``,
+    - ``cross_kv(encoder_hidden) -> per-decoder-layer (k, v)``,
+    - ``init_cache(batch_size, max_length) -> self-attention caches``.
+
+    A call encodes once and computes each layer's cross K/V once; the
+    decoder then runs single-token steps over the static self-attention
+    cache (decoder slot 0 holds the start token, emitted token i slot 1 +
+    i) in a Python loop, where the JAX package runs one compiled
+    `while_loop`; greedy and sampling stop early once every sequence has
+    emitted EOS (one flag read on the host a step). Sampling draws from
+    a `torch.Generator` (seeded by `seed`, else the framework's), so its
+    tokens are the JAX package's only in distribution; greedy, beam and
+    speculative tokens are the same."""
+
+    def _s2s_prepare(self, input_ids, attention_mask):
+        """(ids [B, S] int64, keep [B, S] int64) on the model's device."""
+        dev = self.device
+        ids = _as_ids(input_ids, dev).long()
+        if attention_mask is None:
+            return ids, torch.ones_like(ids)
+        keep = _as_ids(attention_mask, dev).long()
+        if tuple(keep.shape) != tuple(ids.shape):
+            raise ValueError(f'attention_mask shape {tuple(keep.shape)} '
+                             f'does not match input_ids shape '
+                             f'{tuple(ids.shape)}')
+        return ids, keep
+
+    def _s2s_step(self, tok, enc_h, cross, keep, cache, slot):
+        return self(decoder_input_ids=tok, encoder_output=enc_h,
+                    encoder_cross_kv=cross, attention_mask=keep,
+                    cache=cache, cache_offset=slot, use_cache=True)
+
+    def _s2s_encoded(self, ids, keep, total):
+        """(encoder states, cross K/V, a fresh cache of `total`
+        slots)."""
+        enc_h = self.encode(ids, attention_mask=keep)
+        return enc_h, self.cross_kv(enc_h), self.init_cache(ids.shape[0],
+                                                            total)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 20,
+                 max_length: Optional[int] = None,
+                 decode_strategy: str = 'greedy_search',
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, num_beams: int = 1,
+                 length_penalty: float = 0.0, min_new_tokens: int = 0,
+                 eos_token_id: Optional[int] = None,
+                 pad_token_id: Optional[int] = None,
+                 decoder_start_token_id: Optional[int] = None,
+                 use_cache: bool = True, seed: Optional[int] = None,
+                 attention_mask=None, **kwargs):
+        """Returns (generated ids [B, max_new_tokens] int64, per-sequence
+        score [B] fp32: the summed log-probs of the emitted tokens, or for
+        beam search the length-normalized beam score). `input_ids` are
+        the encoder's inputs (`attention_mask` [B, S] their padding);
+        decoding starts from `decoder_start_token_id`; tokens after EOS
+        are `pad_token_id`; `max_length` counts the start token."""
+        from ..tensor import Tensor
+        if decode_strategy not in ('greedy_search', 'sampling',
+                                   'beam_search'):
+            raise ValueError(f'unknown decode_strategy {decode_strategy!r}')
+        if decode_strategy == 'beam_search' and num_beams < 1:
+            raise ValueError('beam_search requires num_beams >= 1')
+        if decode_strategy == 'beam_search' and min_new_tokens > 0:
+            raise NotImplementedError(
+                'min_new_tokens is supported for greedy_search and '
+                'sampling (not beam_search)')
+        if kwargs:
+            raise TypeError(f'generate() got unexpected kwargs '
+                            f'{sorted(kwargs)}')
+        wrap = isinstance(input_ids, Tensor)
+        ids, keep = self._s2s_prepare(input_ids, attention_mask)
+        if max_length is not None:
+            max_new_tokens = max(int(max_length) - 1, 1)
         cfg = getattr(self, 'config', None)
         if eos_token_id is None:
             eos_token_id = getattr(cfg, 'eos_token_id', -1)
         if pad_token_id is None:
             pad_token_id = getattr(cfg, 'pad_token_id', 0)
-        k = int(num_draft_tokens)
-        if k < 1:
-            raise ValueError('num_draft_tokens must be >= 1')
-        was_training, draft_was_training = self.training, draft_model.training
-        self.eval()
-        draft_model.eval()
-        try:
-            s = ids.shape[1]
-            total = s + max_new_tokens + k + 2
-            cache_t = self.init_cache(1, total)
-            cache_d = draft_model.init_cache(1, total)
+        if decoder_start_token_id is None:
+            decoder_start_token_id = getattr(cfg, 'decoder_start_token_id',
+                                             0)
+        with _evaluating(self):
+            if decode_strategy == 'beam_search':
+                out = self._s2s_beam_decode(
+                    ids, keep, int(max_new_tokens), int(num_beams),
+                    int(eos_token_id), int(pad_token_id),
+                    int(decoder_start_token_id), float(length_penalty))
+            else:
+                out = self._s2s_decode(
+                    ids, keep, int(max_new_tokens), decode_strategy,
+                    float(temperature), int(top_k), float(top_p),
+                    int(eos_token_id), int(pad_token_id),
+                    int(decoder_start_token_id), int(min_new_tokens),
+                    _sampling_generator(decode_strategy, seed, ids.device))
+        return tuple(Tensor(t) for t in out) if wrap else out
 
-            def fwd(model, tok, cache, pos):
-                return model(tok, position_offset=pos, cache=cache,
-                             cache_offset=pos, use_cache=True)
-            logits, cache_t = fwd(self, ids, cache_t, 0)
-            _, cache_d = fwd(draft_model, ids, cache_d, 0)
-            v = int(logits[0, -1].argmax())              # the pending token
-            out = [v]
-            rounds = 0
-            e = 1
-            while e < max_new_tokens and v != eos_token_id:
-                p = s + e - 1                  # the slot of `v`
-                drafts, cur = [], v
-                for j in range(k):
-                    lg, cache_d = fwd(draft_model, torch.tensor(
-                        [[cur]], device=dev), cache_d, p + j)
-                    cur = int(lg[0, -1].argmax())
-                    drafts.append(cur)
-                block = torch.tensor([[v] + drafts], device=dev)
-                lg, cache_t = fwd(self, block, cache_t, p)
-                choice = lg[0].argmax(dim=-1).tolist()
-                a = 0
-                while a < k and drafts[a] == choice[a] \
-                        and drafts[a] != eos_token_id:
-                    a += 1
-                v = choice[a]
-                out.extend(drafts[:a] + [v])
-                e += a + 1
-                rounds += 1
-        finally:
-            if was_training:
-                self.train()
-            if draft_was_training:
-                draft_model.train()
-        out = out[:max_new_tokens]
-        out += [pad_token_id] * (max_new_tokens - len(out))
-        if eos_token_id >= 0 and eos_token_id in out:
-            first = out.index(eos_token_id)
-            out = out[:first + 1] + [pad_token_id] * (len(out) - first - 1)
-        rounds_i = max(rounds, 1)
-        emitted_i = min(e, max_new_tokens)
-        accepted = max(e - 1 - rounds_i, 0)
-        _record_spec_stats(rounds_i, emitted_i, accepted, rounds_i * k)
+    def _s2s_decode(self, ids, keep, max_new_tokens, strategy, temperature,
+                    top_k, top_p, eos_token_id, pad_token_id, start_id,
+                    min_new_tokens, gen):
+        b = ids.shape[0]
+        dev = ids.device
+
+        def processors(logits, emit_idx):
+            # EOS suppressed until min_new_tokens
+            if min_new_tokens > 0 and eos_token_id >= 0 \
+                    and emit_idx < min_new_tokens:
+                is_eos = torch.arange(logits.shape[-1],
+                                      device=dev) == eos_token_id
+                logits = logits.masked_fill(is_eos, NEG_INF)
+            return logits
+
+        enc_h, cross, cache = self._s2s_encoded(ids, keep, 1 + max_new_tokens)
+        start = torch.full((b, 1), start_id, dtype=torch.int64, device=dev)
+        logits, cache = self._s2s_step(start, enc_h, cross, keep, cache, 0)
+
+        def pick(logits, emit_idx):
+            return _next_token(processors(logits, emit_idx), gen, strategy,
+                               temperature, top_k, top_p)
+
+        def step(tok, i):
+            nonlocal cache
+            logits, cache = self._s2s_step(tok[:, None], enc_h, cross, keep,
+                                           cache, 1 + i)
+            return logits[:, -1]
+        return _sample_loop(logits[:, -1], step, pick, max_new_tokens,
+                            eos_token_id, pad_token_id)
+
+    def _s2s_beam_decode(self, ids, keep, max_new_tokens, k, eos_token_id,
+                         pad_token_id, start_id, length_penalty):
+        """Beam search: the encoder runs once, then the cross K/V, the
+        self-attention cache and the encoder mask are repeated to a
+        [B * K] batch, reordered by a gather on the cache's batch dim
+        each step (the JAX `_s2s_beam_decode_jit`, its last step's
+        reorder included)."""
+        b = ids.shape[0]
+        dev = ids.device
+        enc_h, cross, cache = self._s2s_encoded(ids, keep, 1 + max_new_tokens)
+        start = torch.full((b, 1), start_id, dtype=torch.int64, device=dev)
+        logits, cache = self._s2s_step(start, enc_h, cross, keep, cache, 0)
+
+        def rep(t):
+            return t.repeat_interleave(k, dim=0)
+        cache = [tuple(rep(c) for c in kv) for kv in cache]
+        cross = [tuple(rep(c) for c in kv) for kv in cross]
+        enc_h, keep = rep(enc_h), rep(keep)
+
+        def step(tok, i):
+            nonlocal cache
+            logits, cache = self._s2s_step(tok[:, None], enc_h, cross, keep,
+                                           cache, 1 + i)
+            return logits[:, -1]
+
+        def reorder(src):
+            nonlocal cache
+            cache = [tuple(c.index_select(0, src) for c in kv)
+                     for kv in cache]
+        return _beam_loop(logits[:, -1], step, reorder, k, max_new_tokens,
+                          eos_token_id, pad_token_id, length_penalty)
+
+    @torch.no_grad()
+    def speculative_generate(self, draft_model, input_ids,
+                             max_new_tokens: int = 20,
+                             num_draft_tokens: int = 4,
+                             eos_token_id: Optional[int] = None,
+                             pad_token_id: Optional[int] = None,
+                             decoder_start_token_id: Optional[int] = None,
+                             attention_mask=None):
+        """Greedy seq2seq decode accelerated by a smaller encoder-decoder
+        draft (batch 1): both models encode the same inputs once; the
+        draft proposes k tokens, the target scores them in one cached
+        forward and keeps the longest agreeing prefix plus its own next
+        token, so the output equals `generate(decode_strategy=
+        'greedy_search')` for any draft. Returns (ids [1,
+        max_new_tokens], stats with `rounds`, `emitted`,
+        `target_forwards_saved` and `acceptance_rate`)."""
+        from ..tensor import Tensor
+        wrap = isinstance(input_ids, Tensor)
+        ids, keep = self._s2s_prepare(input_ids, attention_mask)
+        k, eos_token_id, pad_token_id = _spec_args(
+            self, ids, num_draft_tokens, eos_token_id, pad_token_id)
+        if decoder_start_token_id is None:
+            decoder_start_token_id = getattr(self.config,
+                                             'decoder_start_token_id', 0)
+        dev = ids.device
+        with _evaluating(self, draft_model):
+            total = 1 + max_new_tokens + k + 2
+            start = int(decoder_start_token_id)
+            models = []
+            for m in (self, draft_model):
+                kp = keep.to(m.device)
+                models.append([m, *m._s2s_encoded(ids.to(m.device), kp,
+                                                  total), kp])
+
+            def fwd(entry, toks, slot):
+                m, enc_h, cross, cache, kp = entry
+                logits, entry[3] = m._s2s_step(
+                    torch.tensor([toks], device=m.device), enc_h, cross, kp,
+                    cache, slot)
+                return logits[0]
+            target, draft = models
+            first = int(fwd(target, [start], 0)[-1].argmax())
+            fwd(draft, [start], 0)
+            out, stats = _speculate(
+                first, lambda t, p: int(fwd(draft, [t], p)[-1].argmax()),
+                lambda ts, p: fwd(target, ts, p).argmax(dim=-1).tolist(),
+                0, k, max_new_tokens, eos_token_id, pad_token_id)
         ids_out = torch.tensor([out], dtype=torch.int64, device=dev)
-        return (Tensor(ids_out) if wrap else ids_out), {
-            'rounds': rounds_i, 'emitted': emitted_i,
-            'target_forwards_saved': accepted,
-            'acceptance_rate': accepted / (rounds_i * k)}
+        return (Tensor(ids_out) if wrap else ids_out), stats

@@ -34,6 +34,18 @@ else, so a run can show that its path went through the kernels (every
 kernel's fp16 launches under `<name>_fp16`, the multi-tensor ones
 aside); a CUDA graph's replays count through `CapturedLaunches`.
 
+Export (`jit.save`, over `torch.export`): the wrappers an exported
+eval forward reaches, `rms_norm_fwd`, `flash_attention_fwd` and
+`softmax_cross_entropy_fwd`, are registered at import as the custom ops
+`paddle_tpu_torch::rms_norm_fwd`, `::flash_attention_fwd` and
+`::softmax_ce_fwd`, each with a fake (shape) version. While
+`torch.compiler.is_exporting()` the wrapper records its op, whose body
+is the wrapper itself, so a loaded program launches the same kernels
+on the card (and takes the plain versions on the CPU); at any other
+time the wrapper runs as it is, so the main path and CUDA-graph capture
+never see the ops. Every other wrapper raises while exporting: a
+program never holds a plain version in place of a kernel.
+
 Each CUDA source starts with a note: the TPU kernel it replaces, what
 bounds it on the H100, and what its design does about that. The paged
 and adapter kernels are built as one library per dtype of q or x (three
@@ -57,11 +69,13 @@ when it holds several (a speculative verify).
 Head widths. The flash kernels (forward, dq, dk/dv, every dtype) and
 the paged kernels (over pages in q's dtype, and over int8 pages with
 the round's window) are built for D = 128 and D = 64; the D = 64
-launches count under keys of their own (`_d64`, after any `_fp16`; the
-paged call over int8 pages at D = 64 under `paged_attention_int8_d64`
-and `paged_attention_verify_int8_d64`, while at D = 128 it counts as
-any other paged call; an fp16 q puts `_fp16` before the `_d64`, as in
-`paged_attention_int8_fp16_d64`). Unmasked attention with D < 64
+launches count under keys of their own (`_d64`, after any `_fp16`). A
+paged call over int8 pages counts under an `_int8` key at both widths:
+`paged_attention_int8` and `paged_attention_verify_int8` at D = 128,
+`paged_attention_int8_d64` and `paged_attention_verify_int8_d64` at
+D = 64; an fp16 q puts `_fp16` after the `_int8`, as in
+`paged_attention_int8_fp16` and `paged_attention_int8_fp16_d64`.
+Unmasked attention with D < 64
 takes the plain version on every device (`flash_head_dim_ok`), as the
 JAX package sends it to XLA (`paddle_tpu/ops/pallas.py:95`): a shape
 rule decided before any launch. Any other D raises on the card.
@@ -90,8 +104,11 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'flash_attention_bwd_dq_fp16_d64': 0,
             'flash_attention_bwd_dkv_fp16_d64': 0,
             'paged_attention_d64': 0, 'paged_attention_verify_d64': 0,
+            'paged_attention_int8': 0, 'paged_attention_verify_int8': 0,
             'paged_attention_int8_d64': 0,
             'paged_attention_verify_int8_d64': 0,
+            'paged_attention_int8_fp16': 0,
+            'paged_attention_verify_int8_fp16': 0,
             'paged_attention_fp16': 0, 'paged_attention_verify_fp16': 0,
             'paged_attention_fp16_d64': 0,
             'paged_attention_verify_fp16_d64': 0,
@@ -140,9 +157,21 @@ _ARGTYPES = {
 def _key(name: str, dtype, d: Optional[int] = None) -> str:
     """The `LAUNCHES` key of a launch: the fp16 and (attention's) D = 64
     instantiations count under keys of their own (`_fp16`, `_d64`), so a
-    run can tell them from the bf16 and D = 128 ones."""
+    run can tell them from the bf16 and D = 128 ones. A paged call over
+    int8 pages passes `name` with its `_int8` (`paged_key`)."""
     return (name + ('_fp16' if dtype == torch.float16 else '')
             + ('_d64' if d == 64 else ''))
+
+
+def paged_key(q_dim: int, int8: bool, dtype, d: int) -> str:
+    """The `LAUNCHES` key of a `paged_attention` call: a 4-D q (several
+    query rows per slot, the speculative verify) counts under
+    `paged_attention_verify`, a 3-D one under `paged_attention`; over
+    int8 pages `_int8` follows, at D = 128 as at 64, then any `_fp16`
+    and `_d64` (`_key`)."""
+    return _key(('paged_attention_verify' if q_dim == 4
+                 else 'paged_attention') + ('_int8' if int8 else ''),
+                dtype, d)
 
 
 def flash_head_dim_ok(d: int) -> bool:
@@ -233,6 +262,16 @@ def _aligned16(*tensors) -> bool:
                        for st in t.stride()[:-1]) for t in tensors)
 
 
+def _refuse_export(name: str) -> None:
+    """Raise while `torch.export` traces: `name` has no export op, and
+    an exported program must not hold its plain version in its place."""
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            f'{name} has no export op (paddle_tpu_torch::rms_norm_fwd, '
+            f'::flash_attention_fwd and ::softmax_ce_fwd do): an exported '
+            f'program would not launch its kernel')
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)
@@ -256,6 +295,8 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim of x (any leading shape), weight [width],
     through the kernel (no gradient)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.paddle_tpu_torch.rms_norm_fwd(x, weight, float(eps))
     if _on_cpu(x, weight):
         return rms_norm_reference(x, weight, eps)
     width = x.shape[-1]
@@ -388,7 +429,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seqused_k[b] - Sq. The kernel reads the counts on the device, so the
     call waits for nothing and replays in a CUDA graph at any counts;
     the caller keeps Sq <= seqused_k[b] <= Sk (causal) or
-    1 <= seqused_k[b] <= Sk."""
+    1 <= seqused_k[b] <= Sk. While exporting it records its op, which
+    returns no LSE (an eval forward needs none)."""
+    if torch.compiler.is_exporting():
+        if return_lse:
+            _refuse_export('flash_attention_fwd(return_lse=True)')
+        return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+            q, k, v, bool(causal), seqused_k)
     if _on_cpu(q, k, v, seqused_k):
         return attention_reference(q, k, v, causal=causal,
                                    return_lse=return_lse,
@@ -524,6 +571,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False):
     fp32). Contiguous inputs; out and lse from `flash_attention_fwd`.
     bf16 and fp16 run on the tensor-core kernel (16-byte-aligned inputs),
     f32 on the FMA kernel."""
+    _refuse_export('flash_attention_bwd_dq')
     if _on_cpu(q, k, v, out, lse, dout):
         return attention_bwd_dq_reference(q, k, v, out, lse, dout, causal)
     _check_bwd(q, k, v, lse, dout, causal)
@@ -552,6 +600,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, dout, causal=False):
     over its kv head's query group. `delta` comes from the dq kernel.
     bf16 and fp16 run on the tensor-core kernel (16-byte-aligned inputs),
     f32 on the FMA kernel."""
+    _refuse_export('flash_attention_bwd_dkv')
     if _on_cpu(q, k, v, lse, delta, dout):
         return attention_bwd_dkv_reference(q, k, v, lse, delta, dout,
                                            causal)
@@ -706,9 +755,9 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     window's pages, and one more split per (slot, kv head) attends the
     window's W * ps <= PAGED_SPLIT_KEYS rows, so each split reads one
     dtype. Every kernel is built for head_dim 128 and 64. The call counts
-    once: under `paged_attention` for a 3-D q, under
-    `paged_attention_verify` for a 4-D one, with `_fp16` for an fp16 q
-    and `_d64` at head_dim 64 (`_int8_d64` over int8 pages there).
+    once (`paged_key`): under `paged_attention` for a 3-D q, under
+    `paged_attention_verify` for a 4-D one, then `_int8` over int8
+    pages, `_fp16` for an fp16 q and `_d64` at head_dim 64.
     Pages are in q's dtype (f32, bf16 or fp16), or int8 with a window in
     q's dtype."""
     if (k_scales is None) != (v_scales is None):
@@ -720,6 +769,7 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
         raise ValueError('the float window is read over int8 pages only')
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    _refuse_export('paged_attention')
     if _on_cpu(q, k_pages, v_pages, table, lengths, k_scales, v_scales,
                k_win, v_win, win_first):
         return paged_attention_reference(
@@ -792,9 +842,7 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             w, float(sm_scale), _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[k_pages.dtype], d, _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
-    LAUNCHES[_key(('paged_attention_verify' if q.dim() == 4
-                   else 'paged_attention')
-                  + ('_int8' if quant and d == 64 else ''), q.dtype, d)] += 1
+    LAUNCHES[paged_key(q.dim(), quant, q.dtype, d)] += 1
     return out
 
 
@@ -847,6 +895,9 @@ def _rows_aligned(v: int, *tensors) -> bool:
 def softmax_cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor):
     """(nll [N] f32, lse [N] f32) for contiguous logits [N, V] and int32
     labels [N], reading the logits once."""
+    if torch.compiler.is_exporting():
+        return tuple(torch.ops.paddle_tpu_torch.softmax_ce_fwd(logits,
+                                                               labels))
     if _on_cpu(logits, labels):
         return softmax_cross_entropy_fwd_reference(logits, labels)
     n, v = _check_ce(logits, labels)
@@ -866,6 +917,7 @@ def softmax_cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor):
 def softmax_cross_entropy_bwd(logits, labels, lse, g):
     """dlogits [N, V] in the logits dtype: (softmax - onehot) * g, with
     lse from the forward and g [N] f32."""
+    _refuse_export('softmax_ce_bwd')
     if _on_cpu(logits, labels, lse, g):
         return softmax_cross_entropy_bwd_reference(logits, labels, lse, g)
     n, v = _check_ce(logits, labels)
@@ -1011,6 +1063,7 @@ def adapter_matmul(x, a_bank, b_bank, rows, scale):
     contiguous, a rank of at most ADAPTER_MAX_RANK and at most
     ADAPTER_MAX_BATCH rows."""
     dims = _adapter_dims(x, a_bank, b_bank, rows, scale)
+    _refuse_export('adapter_matmul')
     if _on_cpu(x, a_bank, b_bank, rows, scale):
         return adapter_matmul_reference(x, a_bank, b_bank, rows, scale)
     bsz, t, _, _, _, o = dims
@@ -1031,6 +1084,7 @@ def adapter_matmul_add(y, x, a_bank, b_bank, rows, scale):
         raise ValueError(f'adapter_matmul_add takes y in x.dtype '
                          f'{x.dtype} as [{bsz}, {t}, {o}] (or [{bsz}, {o}] '
                          f'for one token), got {y.dtype} {tuple(y.shape)}')
+    _refuse_export('adapter_matmul_add')
     if _on_cpu(y, x, a_bank, b_bank, rows, scale):
         return adapter_matmul_add_reference(y, x, a_bank, b_bank, rows,
                                             scale)
@@ -1106,6 +1160,7 @@ def multi_tensor_sumsq(tensors) -> torch.Tensor:
     fp32, as a 0-d fp32 tensor on their device; on the card the value is
     never read by the host. An empty list gives a CPU zero."""
     tensors = list(tensors)
+    _refuse_export('multi_tensor_sumsq')
     if not tensors or _on_cpu(*tensors):
         return multi_tensor_sumsq_reference(tensors)
     _mt_check(tensors, 'multi_tensor_sumsq')
@@ -1196,6 +1251,7 @@ def multi_tensor_adam(params, grads, m, v, masters=None, vmax=None, *,
         return
     held = [t for ts in (params, grads, m, v, masters, vmax) for t in ts
             if t is not None]
+    _refuse_export('multi_tensor_adam')
     if _on_cpu(*held, clip_scale):
         return multi_tensor_adam_reference(
             params, grads, m, v, masters, vmax, lr_t=lr_t, beta1=beta1,
@@ -1246,3 +1302,46 @@ def multi_tensor_adam(params, grads, m, v, masters=None, vmax=None, *,
                     int(has_master), int(ams), stream)
             _build.check(lib, rc, 'multi_tensor_adam')
             LAUNCHES['multi_tensor_adam'] += 1
+
+
+# ---------------------------------------------------------------------------
+# export ops: what an exported eval forward records in place of a wrapper
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op('paddle_tpu_torch::rms_norm_fwd', mutates_args=())
+def _rms_norm_fwd_op(x: torch.Tensor, weight: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    return rms_norm_fwd(x, weight, eps)
+
+
+@_rms_norm_fwd_op.register_fake
+def _(x, weight, eps):
+    return x.new_empty(x.shape)
+
+
+@torch.library.custom_op('paddle_tpu_torch::flash_attention_fwd',
+                         mutates_args=())
+def _flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            seqused_k: Optional[torch.Tensor]
+                            ) -> torch.Tensor:
+    return flash_attention_fwd(q, k, v, causal, seqused_k=seqused_k)
+
+
+@_flash_attention_fwd_op.register_fake
+def _(q, k, v, causal, seqused_k):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op('paddle_tpu_torch::softmax_ce_fwd', mutates_args=())
+def _softmax_ce_fwd_op(logits: torch.Tensor,
+                       labels: torch.Tensor) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    return softmax_cross_entropy_fwd(logits, labels)
+
+
+@_softmax_ce_fwd_op.register_fake
+def _(logits, labels):
+    n = logits.shape[0]
+    return (logits.new_empty((n,), dtype=torch.float32),
+            logits.new_empty((n,), dtype=torch.float32))

@@ -65,6 +65,8 @@ staging, the capture and the replay.
 """
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -169,13 +171,21 @@ class GraphStep:
         """Capture the body as a CUDA graph, its memory from `pool` (a
         `torch.cuda.graph_pool_handle()` shared with other graphs, or
         None for a pool of its own): a warm-up over zeroed buffers on a
-        side stream, then the capture on that stream."""
+        side stream, then the capture on that stream.
+
+        The garbage collector is off while it captures: cyclic garbage
+        can hold the CUDA graphs of engines dropped earlier, and a
+        collection inside the capture frees them there, which
+        invalidates the capture under way (the body's next cuBLAS call
+        then fails with CUBLAS_STATUS_INTERNAL_ERROR)."""
         for t in self.buf.values():
             t.zero_()        # the warm-up writes only the null page
         dev = self.device
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         graphs = {}
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             for name in ('_body',) + tuple(self.side):
                 body = getattr(self, name)
@@ -190,6 +200,9 @@ class GraphStep:
             raise GraphError(
                 f'capturing the {self.what} as a CUDA graph failed: '
                 f'{exc}') from exc
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self._out, self._launches = graphs.pop('_body')
         self._side_graphs = graphs
 

@@ -232,9 +232,10 @@ def test_paged_split_kernel_matches_plain(cuda, dtype, quant, case):
     if case == 'length_0':
         table[0] = table[0, 0]
     lens = torch.tensor(lengths, device=cuda, dtype=torch.int32)
-    before = K.LAUNCHES['paged_attention']
+    key = 'paged_attention_int8' if quant else 'paged_attention'
+    before = K.LAUNCHES[key]
     got = K.paged_attention(q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
-    assert K.LAUNCHES['paged_attention'] == before + 1
+    assert K.LAUNCHES[key] == before + 1
     _close(got, K.paged_attention_reference(q, kp, vp, table, lens,
                                             k_scales=ks, v_scales=vs), dtype)
 
@@ -255,7 +256,7 @@ def test_paged_kernel_with_window_matches_plain(cuda, dtype, hkv, w):
     """Over int8 pages with the decode round's float window: the window
     holds other values than the int8 pages it stands for, so a kernel
     that read those pages, or a window page past its slot's length,
-    fails; one call counts one launch."""
+    fails; one call counts one launch, under `paged_attention_int8`."""
     g = torch.Generator(device=cuda).manual_seed(hkv + 10 * w)
     n, h, p, ps = len(_WINDOW_SLOTS), 8, 10, 16
     num_pages = n * p + 1
@@ -275,9 +276,11 @@ def test_paged_kernel_with_window_matches_plain(cuda, dtype, hkv, w):
                          dtype=torch.int32)
     kw_args = dict(k_scales=ks, v_scales=vs, k_win=kw, v_win=vw,
                    win_first=first)
-    before = K.LAUNCHES['paged_attention']
+    before = dict(K.LAUNCHES)
     got = K.paged_attention(q, kp, vp, table, lens, **kw_args)
-    assert K.LAUNCHES['paged_attention'] == before + 1
+    assert K.LAUNCHES['paged_attention_int8'] == \
+        before['paged_attention_int8'] + 1
+    assert K.LAUNCHES['paged_attention'] == before['paged_attention']
     want = K.paged_attention_reference(q, kp, vp, table, lens, **kw_args)
     _close_attention(got, want, dtype)
     without = K.paged_attention_reference(q, kp, vp, table, lens,
@@ -1058,7 +1061,8 @@ def test_int8_graph_engine_equals_its_eager_twin(cuda, prefix, banked):
     assert graph_toks == eager_toks
     assert graph_launches == eager_launches
     st = graph_eng.stats()
-    assert graph_launches['paged_attention'] == 2 * st['decode_steps']
+    assert graph_launches['paged_attention_int8'] == 2 * st['decode_steps']
+    assert graph_launches['paged_attention'] == 0
     assert st['traces'] == _traces(graph_eng)
     assert eager_eng.stats()['traces'] == {}
     assert st['pool']['kv_quant'] == 'int8'
@@ -1348,7 +1352,9 @@ def test_paged_kernel_with_query_rows_matches_plain(cuda, dtype, mode,
     """q [N, T, H, D], T x G query rows per kv head (5, 20, 24 and 32),
     each row t seeing lengths + t keys: float pages, int8 pages, and int8
     pages with a float window of 2 pages that holds other values than the
-    pages it stands for; one call counts one verify launch."""
+    pages it stands for; one call counts one verify launch
+    (`paged_attention_verify`, over int8 pages
+    `paged_attention_verify_int8`)."""
     g = torch.Generator(device=cuda).manual_seed(t_rows * h + hkv)
     n, p, ps = len(_VERIFY_SLOTS), 10, 16
     num_pages = n * p + 1
@@ -1373,11 +1379,11 @@ def test_paged_kernel_with_query_rows_matches_plain(cuda, dtype, mode,
     table[-1] = 0
     lens = torch.tensor([ln for ln, _ in _VERIFY_SLOTS], device=cuda,
                         dtype=torch.int32)
+    key = 'paged_attention_verify' + ('' if mode == 'float' else '_int8')
     before = dict(K.LAUNCHES)
     got = K.paged_attention(q, kp, vp, table, lens, **kw)
-    assert K.LAUNCHES['paged_attention_verify'] == \
-        before['paged_attention_verify'] + 1
-    assert K.LAUNCHES['paged_attention'] == before['paged_attention']
+    assert K.LAUNCHES[key] == before[key] + 1
+    assert all(K.LAUNCHES[k] == before[k] for k in K.LAUNCHES if k != key)
     _close_attention(got, K.paged_attention_reference(q, kp, vp, table, lens,
                                                       **kw), dtype)
 
@@ -1464,7 +1470,8 @@ def test_spec_graph_engine_equals_eager_and_plain(cuda, quant, banked):
     assert graph_toks == eager_toks
     assert graph_launches == eager_launches
     st = graph_eng.stats()
-    assert graph_launches['paged_attention_verify'] == 2 * st['spec']['rounds']
+    verify = 'paged_attention_verify' + ('_int8' if quant else '')
+    assert graph_launches[verify] == 2 * st['spec']['rounds']
     assert st['traces'] == {'paged_spec_decode_k4': 1, **{
         step.name: 1 for step in graph_eng._prefill_steps.values()}}
     if quant is None:
@@ -1473,6 +1480,57 @@ def test_spec_graph_engine_equals_eager_and_plain(cuda, quant, banked):
         for j, h in enumerate(plain):
             if j != 3:
                 assert h.tokens == graph_toks[j]
+
+
+def test_capture_runs_no_collection_of_a_dropped_engine(cuda):
+    """A dropped graph engine that a reference cycle holds lives on until
+    the collector runs. A collection inside a new engine's capture would free
+    its graphs there and invalidate that capture (the body's next cuBLAS
+    call then fails), so the collector is off while a capture runs: with
+    the dropped engine's collection due at every forward of the capture,
+    none runs, the new engine gives the dropped one's tokens, and the
+    collector is on again afterwards and frees the dropped engine."""
+    import gc
+    import weakref
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda,
+                             generator=generator(31, cuda))
+    prompts = [[5, 6, 7, 8, 9], [1, 2, 3]]
+    params = SamplingParams(max_new_tokens=6, eos_token_id=-1)
+
+    def serve():
+        eng = InferenceEngine(model, num_slots=2, max_length=64)
+        eng._capture_decode = eng._capture_prefill = True
+        return eng, [h.tokens for h in eng.generate_many(prompts, params)]
+
+    collector_on = []
+
+    def collect_in_capture(module, args):
+        if torch.cuda.is_current_stream_capturing():
+            collector_on.append(gc.isenabled())
+            if gc.isenabled():     # what a collection due now would do
+                gc.collect()
+
+    eng, want = serve()
+    dropped = weakref.ref(eng)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1 << 30)      # no collection but the hook's
+    try:
+        cycle = [eng]
+        cycle.append(cycle)
+        del eng, cycle
+        assert dropped() is not None
+        hook = model.register_forward_pre_hook(collect_in_capture)
+        try:
+            _, got = serve()
+        finally:
+            hook.remove()
+    finally:
+        gc.set_threshold(*threshold)
+    assert collector_on and not any(collector_on)
+    assert gc.isenabled()
+    assert got == want
+    gc.collect()
+    assert dropped() is None
 
 
 def test_swap_and_restore_on_the_graph_engine(cuda):
@@ -2219,8 +2277,7 @@ def test_fp16_paged_kernel_matches_plain(cuda, pages, t, d):
                   k_win=_randn(g, torch.float16, n, 2, ps, hkv, d),
                   v_win=_randn(g, torch.float16, n, 2, ps, hkv, d))
     key = K._key(('paged_attention_verify' if t > 1 else 'paged_attention')
-                 + ('_int8' if pages != 'fp16' and d == 64 else ''),
-                 torch.float16, d)
+                 + ('_int8' if pages != 'fp16' else ''), torch.float16, d)
     before = dict(K.LAUNCHES)
     got = K.paged_attention(q, kp, vp, table, lens, **kw)
     assert _launched(key, before) == 1
@@ -2326,7 +2383,8 @@ def test_fp16_engine_graph_equals_eager(cuda, opts):
         runs.append([h.tokens for h in eng.generate_many(
             prompts, params, adapter_ids=ids)])
         assert K.LAUNCHES['rms_norm_fp16'] > 0
-        assert K.LAUNCHES['paged_attention_fp16'] > 0
+        assert K.LAUNCHES['paged_attention' + ('_int8' if opts else '')
+                          + '_fp16'] > 0
         assert K.LAUNCHES['adapter_matmul_fp16'] > 0
         assert K.LAUNCHES['flash_attention_fwd_fp16'] > 0
         for k in ('rms_norm', 'paged_attention', 'adapter_matmul',
@@ -2565,3 +2623,128 @@ def test_gpt2_width_engine_on_card_matches_cpu(cuda):
     cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
                           decode_block=4).generate_many(prompts, sp)
     assert [h.tokens for h in card] == [h.tokens for h in cpu]
+
+
+# ---------------------------------------------------------------------------
+# T5: the cross-attention's flash shapes, the model card == CPU, jit export
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('sq', [1, 100, 128, 200])
+def test_t5_cross_attention_flash_kernels_match_plain(cuda, dtype, sq):
+    """T5's cross-attention: D = 64, non-causal, Sq queries over Sk = 512
+    keys (Sq = 100 and 200 end in a partial query tile; the dk/dv kernel
+    visits every query tile of each key tile): the forward with its LSE,
+    dq and dk/dv against their plain versions, under the `_d64` keys."""
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q, dout = _randn(g, dtype, 2, sq, 4, 64), _randn(g, dtype, 2, sq, 4, 64)
+    k, v = _randn(g, dtype, 2, 512, 4, 64), _randn(g, dtype, 2, 512, 4, 64)
+    before = dict(K.LAUNCHES)
+    out, lse = K.flash_attention_fwd(q, k, v, False, return_lse=True)
+    assert _launched('flash_attention_fwd_d64', before) == 1
+    want, want_lse = K.attention_reference(q, k, v, return_lse=True)
+    _close_attention(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    dq, delta = K.flash_attention_bwd_dq(q, k, v, out, lse, dout)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, lse, delta, dout)
+    wdq, wdk, wdv = K.attention_bwd_reference(q, k, v, out, lse, dout)
+    for got, w in ((dq, wdq), (dk, wdk), (dv, wdv)):
+        _close_attention(got, w, dtype)
+
+
+def _t5_pair(cuda, **kw):
+    from paddle_tpu_torch.nlp import T5Config, T5ForConditionalGeneration
+    cfg = T5Config.tiny(d_kv=64, vocab_size=512, **kw)
+    card = T5ForConditionalGeneration(cfg, device=cuda,
+                                      generator=generator(3, cuda)).eval()
+    cpu = T5ForConditionalGeneration(cfg, device='cpu').eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+@pytest.mark.parametrize('kw', [{}, {'feed_forward_proj': 'gated-gelu',
+                                     'tie_word_embeddings': False}])
+def test_t5_card_equals_cpu(cuda, kw):
+    """A tiny T5 at d_kv 64 (f32): logits padded and unmasked (the flash
+    cross-attention) and the loss with -100 labels equal the CPU's to
+    1e-4; greedy and 2-beam tokens are the CPU's."""
+    card, cpu = _t5_pair(cuda, **kw)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(2, 512, (2, 40), generator=g)
+    mask = torch.ones_like(ids)
+    mask[0, 30:] = 0
+    dec = torch.randint(2, 512, (2, 9), generator=g)
+    labels = dec.clone()
+    labels[1, -2:] = -100
+    with torch.no_grad():
+        for m in (mask, None):
+            got = card(input_ids=ids.to(cuda), decoder_input_ids=dec.to(cuda),
+                       attention_mask=None if m is None else m.to(cuda))
+            want = cpu(input_ids=ids, decoder_input_ids=dec, attention_mask=m)
+            _close(got.cpu(), want, torch.float32)
+        loss, _ = card(input_ids=ids.to(cuda), labels=labels.to(cuda))
+        want, _ = cpu(input_ids=ids, labels=labels)
+        _close(loss.cpu(), want, torch.float32)
+    for strat in ({}, {'decode_strategy': 'beam_search', 'num_beams': 2}):
+        got, _ = card.generate(ids.to(cuda), max_new_tokens=8,
+                               attention_mask=mask.to(cuda), eos_token_id=-1,
+                               **strat)
+        want, _ = cpu.generate(ids, max_new_tokens=8, attention_mask=mask,
+                               eos_token_id=-1, **strat)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_t5_training_step_launches_the_kernels(cuda):
+    """One backward of a tiny T5 (d_kv 64, recompute) without an encoder
+    mask: exactly 2 RMSNorms per encoder block and 3 per decoder block
+    plus 2, twice over for the blocks (the recompute), the D = 64 flash
+    forward twice per decoder block, dq and dk/dv once, CE once each
+    way; the gradients equal the CPU's."""
+    card, cpu = _t5_pair(cuda, use_recompute=True)
+    card.train()
+    cpu.train()
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(2, 512, (2, 40), generator=g)
+    labels = torch.randint(2, 512, (2, 12), generator=g)
+    K.reset_launch_counts()
+    loss, _ = card(input_ids=ids.to(cuda), labels=labels.to(cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    cfg = card.config
+    enc, dec = cfg.num_layers, cfg.num_decoder_layers
+    assert {k: n for k, n in K.LAUNCHES.items() if n} == {
+        'rms_norm': 2 * (2 * enc + 3 * dec) + 2,
+        'flash_attention_fwd_d64': 2 * dec,
+        'flash_attention_bwd_dq_d64': dec, 'flash_attention_bwd_dkv_d64': dec,
+        'softmax_ce_fwd': 1, 'softmax_ce_bwd': 1}
+    want, _ = cpu(input_ids=ids, labels=labels)
+    want.backward()
+    _close(loss.detach().cpu(), want.detach(), torch.float32)
+    grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        _close(p.grad.cpu(), grads[name].grad, torch.float32)
+
+
+def test_jit_exported_t5_launches_the_kernels(cuda, tmp_path):
+    """A T5Model (bf16, d_kv 64) saved with a dynamic batch and loaded
+    without its class equals the eager forward bit for bit on the card,
+    and its run launches the RMSNorm and D = 64 flash kernels."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nlp import T5Config, T5Model
+    cfg = T5Config.tiny(d_kv=64, vocab_size=512)
+    model = T5Model(cfg, device=cuda, dtype='bfloat16',
+                    generator=generator(7, cuda)).eval()
+    path = str(tmp_path / 't5')
+    jit.save(model, path, input_spec=[jit.InputSpec([None, 16], 'int64'),
+                                      jit.InputSpec([None, 6], 'int64')])
+    loaded = jit.load(path)
+    ids = torch.randint(2, 512, (3, 16), device=cuda)
+    dec = torch.randint(2, 512, (3, 6), device=cuda)
+    K.reset_launch_counts()
+    got = loaded(ids, dec)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['rms_norm'] == 2 * 2 + 3 * 2 + 2
+    assert K.LAUNCHES['flash_attention_fwd_d64'] == 2
+    with torch.no_grad():
+        want = model(ids, dec)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

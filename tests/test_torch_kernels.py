@@ -322,6 +322,41 @@ def test_cpu_dispatch_counts_no_launch():
     assert K.LAUNCHES == {name: 0 for name in K.LAUNCHES}
 
 
+# (head_dim, dtype, int8 pages, query rows per slot) -> the LAUNCHES key
+# of one paged call: over int8 pages `_int8` at both widths, then any
+# `_fp16`, then any `_d64`
+_PAGED_KEYS = {
+    (128, torch.bfloat16, False, 1): 'paged_attention',
+    (128, torch.bfloat16, False, 5): 'paged_attention_verify',
+    (128, torch.bfloat16, True, 1): 'paged_attention_int8',
+    (128, torch.bfloat16, True, 5): 'paged_attention_verify_int8',
+    (128, torch.float32, True, 1): 'paged_attention_int8',
+    (128, torch.float16, False, 1): 'paged_attention_fp16',
+    (128, torch.float16, False, 5): 'paged_attention_verify_fp16',
+    (128, torch.float16, True, 1): 'paged_attention_int8_fp16',
+    (128, torch.float16, True, 5): 'paged_attention_verify_int8_fp16',
+    (64, torch.bfloat16, False, 1): 'paged_attention_d64',
+    (64, torch.bfloat16, False, 5): 'paged_attention_verify_d64',
+    (64, torch.bfloat16, True, 1): 'paged_attention_int8_d64',
+    (64, torch.float32, True, 5): 'paged_attention_verify_int8_d64',
+    (64, torch.float16, False, 1): 'paged_attention_fp16_d64',
+    (64, torch.float16, True, 1): 'paged_attention_int8_fp16_d64',
+    (64, torch.float16, True, 5): 'paged_attention_verify_int8_fp16_d64',
+}
+
+
+@pytest.mark.parametrize('case', list(_PAGED_KEYS),
+                         ids=lambda c: '-'.join(map(str, c)))
+def test_paged_launch_key_names_int8_at_both_widths(case):
+    """The key a paged call counts under (`kernels.paged_key`, the
+    wrapper's): a run can tell an int8 call from a float one at D = 128
+    as at D = 64, and every key is one `LAUNCHES` holds."""
+    d, dtype, int8, t = case
+    key = K.paged_key(4 if t > 1 else 3, int8, dtype, d)
+    assert key == _PAGED_KEYS[case]
+    assert key in K.LAUNCHES
+
+
 @pytest.mark.parametrize('call', ['flash', 'rms', 'paged', 'sumsq', 'adam'])
 def test_wrappers_raise_off_cpu_and_cuda(call):
     """A tensor that is neither on the CPU nor on a CUDA device has no

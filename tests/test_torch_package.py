@@ -105,6 +105,34 @@ def test_training_modules_import_no_jax():
     assert set(_build.SOURCES) == sources
 
 
+def test_t5_tokenizer_and_jit_modules_import_no_jax():
+    """T5, the generation mixins, the tokenizers and jit, imported alone,
+    pull in no jax and nothing of `paddle_tpu`; the fast tokenizer builds
+    the port's own copy of the host C++ (csrc/host/), which includes no
+    file of the JAX package's csrc/, and no host source is a kernel
+    source the nvcc build takes."""
+    mods = ('paddle_tpu_torch.nlp.t5', 'paddle_tpu_torch.nlp.tokenizer',
+            'paddle_tpu_torch.nlp.fast_tokenizer', 'paddle_tpu_torch.jit',
+            'paddle_tpu_torch.nlp.transformers')
+    code = ('import sys\n'
+            + ''.join(f'import {m}\n' for m in mods)
+            + 'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "jaxlib", "paddle_tpu"))\n'
+              'sys.exit(1 if bad else 0)\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    from paddle_tpu_torch.nlp import fast_tokenizer
+    host = ROOT / 'paddle_tpu_torch' / 'csrc' / 'host'
+    assert fast_tokenizer.SRC == host / 'fast_tokenizer.cpp'
+    assert fast_tokenizer.LIB_PATH.parent == ROOT / 'build' / 'host'
+    for src in host.iterdir():
+        text = src.read_text()
+        assert 'paddle_tpu/' not in text.replace('paddle_tpu_torch/', '')
+        assert '#include "' not in text, src
+        assert src.stem not in _build.SOURCES
+
+
 def test_training_entry_points_run_where_the_model_is(monkeypatch):
     """TrainStep and the optimizers follow the model's device: `cuda`
     unless the model was made with device='cpu'."""
