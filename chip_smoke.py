@@ -15,6 +15,11 @@
                                            # float pages, port in TREE
                                            # (OUT: its outputs saved)
     python3 chip_smoke.py --paged-bits A B # two saved outputs bit-equal?
+    python3 chip_smoke.py --rms-ms TREE    # the RMSNorm kernel of the port
+                                           # in TREE beside this tree's
+    python3 chip_smoke.py --vision         # phase 12 alone (ResNet-50
+                                           # trained, the zoo, vision ops,
+                                           # an LSTM, CE at V = 1000)
     python3 chip_smoke.py --procs          # phase 6, then phase 6j alone
     python3 chip_smoke.py --train-rungs    # phase 2's cases at the rungs'
                                            # shapes, phases 4, 5 and 5c-5f
@@ -371,7 +376,8 @@ result line):
    kernel launches (their `stats()`) join the kernels line; the free
    device memory is logged before each spawn; budget PROCS_BUDGET_S;
 9. the GPT family (`gpt_family`, after the op sweep of 8): gpt-serve,
-   GPT-3 XL (24 layers x 2048, 16 heads x 128, bf16, random weights)
+   GPT-3 XL (8 of its 24 layers x 2048, 16 heads x 128, bf16, random
+   weights)
    behind the paged engine with its decode and prefill graphs, phase 6's
    12 requests (graph tokens == eager twin's), a wave through a bank with
    the default targets (`qkv_proj`, `out_proj`) and `generate()` greedy
@@ -383,7 +389,8 @@ result line):
    BERT-base bf16 B=8 S=512 unmasked: an encode and 3 fine-tune steps of
    `BertForSequenceClassification` with hidden dropout on, each D = 64
    flash kernel launched once per layer and step. With int8 KV, on the
-   served models (bf16, full width and depth): gpt2-serve-int8, GPT-2
+   served models (bf16, full width; GPT-2 at full depth):
+   gpt2-serve-int8, GPT-2
    small with `kv_quant='int8'` and phase 6's 12 requests (graph ==
    eager twin, the D = 64 int8 paged call once per layer of every decode
    sub-step, its KV bytes beside the bf16 pool's, the first decode
@@ -412,7 +419,8 @@ result line):
    and KV GB logged. At 4 layers of the
    same width, one f32 model's bf16 and fp16 casts: the fp16 engine's
    first-step logit RMSE against the f32 engine no larger than the bf16
-   engine's. GPT-3 XL (D = 128) and GPT-2 small (D = 64) in fp16 the same
+   engine's. GPT-3 XL (D = 128, 8 layers) and GPT-2 small (D = 64) in
+   fp16 the same
    way (no bank), each then with a 2-layer fp16 GPT draft (k = 4; over
    float KV at D = 128, the fp16 verify; over int8 KV at D = 64). An
    fp16 TrainStep at Llama-2-7B width, 2 layers, 1 x 2048, AdamW with
@@ -441,6 +449,22 @@ result line):
    `T5Model` at 2 + 2 layers, bf16, a dynamic batch, loaded without its
    class: equal to eager bit for bit at batch 4, the RMSNorm and D = 64
    flash kernels launched inside the program;
+12. vision (`vision_phase`, after phase 11, before phase 6): ResNet-50
+   at full width (25.6 M parameters, 224 x 224, 1000 classes, random
+   weights from a seed) built on the CPU and copied to the card, one f32
+   training step (Momentum 0.9, weight decay 1e-4, batch 4, BN in train
+   mode, TF32 off) on each: logits, loss, BN running statistics and
+   every parameter's update card == CPU within their limits; then
+   trained in bf16 (O1, f32 parameters) through `Model.fit` over an
+   `io.DataLoader`, batch 64, 2 warm-up and 5 timed steps (ms, images/s,
+   peak memory, MFU over `conv_linear_flops`), exactly one CE forward
+   and one CE backward launch a step and no RMSNorm launch; the bf16
+   eval forward (images/s); one constructor of each zoo family at batch
+   1, f32, card == CPU to 1e-4; `nms` over 2000 boxes, `roi_align` and
+   `roi_pool` over 128 boxes, `deform_conv2d` 64 -> 64 and a 2-layer
+   bidirectional LSTM with `sequence_length`, forward and backward, card
+   == CPU. Phase 2 holds CE at [64 | 256, 1000] and RMSNorm at the
+   redesign's shapes (`vision_cases`) to their plain versions;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -455,7 +479,7 @@ result line):
    fused `torch.optim.AdamW`; neither computes the same function), and
    the decode ones also with L2 flushed before each call.
 
-Phases 5, 5b, 5c-5g, 11 and 6 run in that order before any profiling:
+Phases 5, 5b, 5c-5g, 11, 12 and 6 run in that order before any profiling:
 once torch.profiler has run in a process, every later launch costs the
 host more; 5c-5f free their rungs before phase 6, and phase 11 frees its
 models; phase 11's profile windows run in phase 7. Phases 6e and
@@ -655,9 +679,18 @@ T5_ROWS = {
     'rms_norm_t5': ('rms_norm', 'T5\'s norms at width 1024'),
     'softmax_ce_fwd_t5': ('softmax_ce_fwd', 'T5\'s loss over V = 32128'),
     'softmax_ce_bwd_t5': ('softmax_ce_bwd', 'T5\'s loss over V = 32128')}
+# the rows at phase 12's shapes: decode's RMSNorm (the serving path's
+# most-launched kernel) and a classifier's CE over 1000 classes
+VISION_ROWS = {
+    'rms_norm_decode': ('rms_norm', 'decode: 8 rows of width 4096, bf16'),
+    'softmax_ce_fwd_v1000': ('softmax_ce_fwd',
+                             'ResNet-50\'s loss over 1000 classes'),
+    'softmax_ce_bwd_v1000': ('softmax_ce_bwd',
+                             'ResNet-50\'s loss over 1000 classes')}
+ROW_KEYS = {**T5_ROWS, **VISION_ROWS}
 REPLACES.update({row: f'{REPLACES[key]}; {shape}'
-                 for row, (key, shape) in T5_ROWS.items()})
-SOURCES.update({row: SOURCES[key] for row, (key, _) in T5_ROWS.items()})
+                 for row, (key, shape) in ROW_KEYS.items()})
+SOURCES.update({row: SOURCES[key] for row, (key, _) in ROW_KEYS.items()})
 # the tensor-core (wgmma) kernels that bf16 and fp16 inputs run on, by
 # source: each template's instantiations by dtype and head width D (their
 # mangled names)
@@ -807,6 +840,18 @@ def timed(fn):
         log('[timing]   the host could not keep ahead of the device; '
             'taking the events')
     return (ev if dev is None else dev), ev
+
+
+def device_ms(fn) -> float:
+    """`timed(fn)[0]` without the back-to-back event reading it drops:
+    the calls queued behind a sleep (`queued_ms`), or the CUDA-event ms
+    where the host could not keep ahead of the device."""
+    dev = queued_ms(fn)
+    if dev is None:
+        log('[timing]   the host could not keep ahead of the device; '
+            'taking the events')
+        return time_ms(fn)
+    return dev
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -2002,8 +2047,8 @@ def time_kernels(cases) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for c in cases:
         ms, ev = timed(c['run'])
-        plain, _ = timed(c['plain'])
-        lib = timed(c['lib'])[0] if c['lib'] is not None else None
+        plain = device_ms(c['plain'])
+        lib = device_ms(c['lib']) if c['lib'] is not None else None
         log(f'[timing] {c["name"]}: kernel {ms:.4f} ms (events {ev:.4f})  '
             f'plain {plain:.4f} ms  library '
             + (f'{lib:.4f} ms' if lib is not None else 'none')
@@ -7188,6 +7233,18 @@ GPT2_INT8_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_int8_d64')
 GPT2_SPEC_KERNELS = ('flash_attention_fwd_d64', 'paged_attention_d64',
                      'paged_attention_verify_int8_d64')
 GPT_DRAFT_LAYERS = 2
+# GPT-3 XL is served (phases 9 and 10) at 8 of its 24 layers, to keep the
+# whole smoke inside its time limit; gpt-train keeps all 24
+GPT_SERVE_LAYERS = 8
+
+
+def gpt3_xl_served():
+    """GPT-3 XL's width (d_model 2048, 16 heads x 128, vocab 50304) at
+    GPT_SERVE_LAYERS layers (the preset fixes its depth)."""
+    from paddle_tpu_torch.nlp import GPTConfig
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_hidden_layers = GPT_SERVE_LAYERS
+    return cfg
 GPT_TRAIN_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                      'flash_attention_bwd_dkv', 'softmax_ce_fwd',
                      'softmax_ce_bwd', 'multi_tensor_adam')
@@ -7575,7 +7632,7 @@ def gpt_family() -> dict:
     t0 = time.perf_counter()
     out = {}
     for name, cfg, kernels, int8_kernels, seed, draft_seed in (
-            ('gpt', GPTConfig.gpt3_1p3b(), GPT_SERVE_KERNELS,
+            ('gpt', gpt3_xl_served(), GPT_SERVE_KERNELS,
              GPT_INT8_KERNELS, 1919, None),
             ('gpt2', GPTConfig.gpt2_small(), GPT2_SERVE_KERNELS,
              GPT2_INT8_KERNELS, 1920, 1921)):
@@ -7926,7 +7983,7 @@ def fp16_phase() -> dict:
     release(out['llama-fp16'])
     out['fp16-rmse'] = fp16_logit_rmse()
     for name, cfg, kernels, int8_key, seed, spec in (
-            ('gpt-fp16', GPTConfig.gpt3_1p3b(), FP16_GPT_KERNELS,
+            ('gpt-fp16', gpt3_xl_served(), FP16_GPT_KERNELS,
              'paged_attention_int8_fp16', 1919,
              (FP16_GPT_SPEC_KERNELS, None, 'plain')),
             ('gpt2-fp16', GPTConfig.gpt2_small(), FP16_GPT2_KERNELS,
@@ -8572,6 +8629,595 @@ def t5_profile(prep) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12 (part): RMSNorm at the redesign's shapes
+# ---------------------------------------------------------------------------
+
+# the shapes the RMSNorm kernel is measured at: decode's 8 rows, prefill
+# and training rows at widths 4096 and 2048, T5-large's [4096, 1024]
+RMS_SHAPES = tuple((dt, r, w) for dt in (torch.bfloat16, torch.float16)
+                   for r, w in ((8, 4096), (1024, 4096), (2048, 4096),
+                                (4096, 4096), (8192, 2048), (4096, 1024))) \
+    + ((torch.float32, 8, 4096), (torch.float32, 1024, 4096))
+RMS_EPS = 1e-6
+
+
+def _rms_inputs(dtype, rows: int, width: int, gen) -> tuple:
+    x = _randn((rows, width), dtype, gen)
+    w = (1 + 0.1 * torch.randn(width, generator=gen, device=DEV)).to(dtype)
+    return x, w
+
+
+def rms_cases() -> list:
+    """RMSNorm at every shape of RMS_SHAPES (the bf16 decode shape reports
+    the kernel table's `rms_norm_decode` row), and on the one-element
+    path: a width that is not a multiple of the 16-byte vector, and a
+    view 2 or 4 bytes past an aligned buffer."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    cases, add = _case_list()
+
+    def one(x, w, tag, rep=False):
+        width = x.shape[-1]
+        add('rms_norm' + _fp16_key(x.dtype), f'rms_norm {tag}', x.dtype,
+            lambda x=x, w=w: K.rms_norm(x, w, RMS_EPS),
+            lambda x=x, w=w: K.rms_norm_reference(x, w, RMS_EPS),
+            lambda x=x, w=w: F.rms_norm(x, (width,), w, RMS_EPS),
+            nbytes(x, x, w), 4 * x.numel(), rep=rep, row='rms_norm_decode')
+
+    for dtype, r, width in RMS_SHAPES:
+        x, w = _rms_inputs(dtype, r, width, gen)
+        one(x, w, f'{str(dtype)[6:]} rows={r} width={width}',
+            rep=dtype == torch.bfloat16 and r == 8)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for r in (8, 1024):
+            x, w = _rms_inputs(dtype, r, 4100, gen)
+            one(x, w, f'{str(dtype)[6:]} rows={r} width=4100 (not a '
+                f'multiple of the vector)')
+            buf = _randn((r * 4096 + 1,), dtype, gen)
+            one(buf[1:].view(r, 4096), w[:4096].contiguous(),
+                f'{str(dtype)[6:]} rows={r} width=4096, x a view one '
+                f'element past an aligned buffer')
+    return cases
+
+
+def old_rms_kernel(tree: str):
+    """fn(x, w, eps) over the RMSNorm kernel of the port in the checkout
+    TREE, built by nvcc with the port's flags from that tree's
+    `csrc/rms_norm.cu` alone into build/rms_ms/ (its C entry as it stood
+    before the redesign: x, w, out, rows, width, eps, dtype, stream)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import kernels as K
+    src = Path(tree).resolve() / 'paddle_tpu_torch' / 'csrc' / 'rms_norm.cu'
+    out_dir = _build.BUILD_ROOT.parent / 'rms_ms'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / 'librms_norm_tree.so'
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib), str(src)],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f'{src}: {proc.stdout}{proc.stderr}')
+    fn = ctypes.CDLL(str(lib)).rms_norm_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p]
+
+    def run(x, w, eps):
+        y = torch.empty_like(x)
+        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                x.numel() // x.shape[-1], x.shape[-1], eps,
+                K._DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f'{tree}: rms_norm_fwd returned CUDA error {rc}')
+        return y
+    return run
+
+
+def _rms_timing_inputs(gen):
+    """(tag, x, w) at each of RMS_SHAPES, then on the one-element path:
+    width 4100 (not a multiple of the vector) and an x one element past
+    an aligned buffer, bf16 at 8 and 1024 rows and f32 at 1024."""
+    for dtype, r, width in RMS_SHAPES:
+        x, w = _rms_inputs(dtype, r, width, gen)
+        yield f'{str(dtype)[6:]} [{r}, {width}]', x, w
+    for dtype, r in ((torch.bfloat16, 8), (torch.bfloat16, 1024),
+                     (torch.float32, 1024)):
+        x, w = _rms_inputs(dtype, r, 4100, gen)
+        yield f'{str(dtype)[6:]} [{r}, 4100]', x, w
+        buf = _randn((r * 4096 + 1,), dtype, gen)
+        yield (f'{str(dtype)[6:]} [{r}, 4096] unaligned',
+               buf[1:].view(r, 4096), w[:4096].contiguous())
+
+
+def rms_ms(tree: str) -> list:
+    """At each of `_rms_timing_inputs`: both kernels held to the plain
+    version, then the bound, the kernel of the port in TREE ("old"), this
+    tree's ("new"), `F.rms_norm` and the plain version, in device ms per
+    call (`timed`: warm, the inputs in L2 from the call before), the two
+    kernels in turns old, new, new, old; then old, new and `F.rms_norm`
+    again with L2 flushed before each call (`queued_ms(before=)`: cold,
+    x and w read from device memory). Returns one dict a shape."""
+    from paddle_tpu_torch.ops import kernels as K
+    F = torch.nn.functional
+    old = old_rms_kernel(tree)
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    # written before each cold call: more than the H100's 50 MB of L2
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    one = torch.zeros(1, device=DEV)
+    gap = queued_ms(lambda: one.add_(1), before=flush.zero_)
+    log(f'[rms-ms] L2 flushed, events around each call: a one-element add '
+        f'reads ' + ('not measured' if gap is None else f'{gap:.4f} ms')
+        + ' (the launch gap inside each cold reading)')
+    out = []
+    for tag, x, w in _rms_timing_inputs(gen):
+        width = x.shape[-1]
+        want = K.rms_norm_reference(x, w, RMS_EPS)
+        compare(f'rms_norm new {tag}', K.rms_norm(x, w, RMS_EPS), want)
+        compare(f'rms_norm old {tag}', old(x, w, RMS_EPS), want)
+        new_fn = lambda x=x, w=w: K.rms_norm(x, w, RMS_EPS)
+        old_fn = lambda x=x, w=w: old(x, w, RMS_EPS)
+        lib_fn = lambda x=x, w=w: F.rms_norm(x, (width,), w, RMS_EPS)
+        o1, n1, n2, o2 = (timed(f)[0] for f in (old_fn, new_fn, new_fn,
+                                                 old_fn))
+        lib = timed(lib_fn)[0]
+        plain = timed(lambda x=x, w=w: K.rms_norm_reference(x, w,
+                                                            RMS_EPS))[0]
+        cold = {k: queued_ms(f, before=flush.zero_) for k, f in
+                (('old', old_fn), ('new', new_fn), ('lib', lib_fn))}
+        bound, _ = bound_ms(nbytes(x, x, w), 4 * x.numel(), x.dtype)
+        new, prev = (n1 + n2) / 2, (o1 + o2) / 2
+
+        def ms(v):
+            return 'not measured' if v is None else f'{v:.4f}'
+        log(f'[rms-ms] {tag}: bound {bound:.4f}  old {o1:.4f} {o2:.4f}  new '
+            f'{n1:.4f} {n2:.4f}  F.rms_norm {lib:.4f}  plain {plain:.4f} ms;'
+            f' new/bound {bound / new:.3f}, new/old {new / prev:.3f}, '
+            f'new/F.rms_norm {new / lib:.3f}; L2 flushed: old '
+            f'{ms(cold["old"])}  new {ms(cold["new"])}  F.rms_norm '
+            f'{ms(cold["lib"])} ms' + (
+                '' if cold['new'] is None else
+                f', new/bound {bound / cold["new"]:.3f}'))
+        out.append(dict(shape=tag, bound=bound, old=prev, new=new, lib=lib,
+                        plain=plain, cold=cold))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the vision slice (ResNet-50 at full width, the zoo, the vision
+# ops, an LSTM) and its kernel cases
+# ---------------------------------------------------------------------------
+
+VISION_F32_BATCH = 4
+VISION_BATCH = 64
+VISION_SIZE = 224
+# the LSTM: input, hidden, steps, batch
+VISION_LSTM = (256, 512, 128, 32)
+VISION_WARMUP, VISION_STEPS = 2, 5
+VISION_LR = 0.1           # the f32 step's: updates well above rounding
+VISION_TRAIN_LR = 0.01    # bf16 training: 7 steps on random labels
+# card vs CPU in f32, TF32 off: logits and every update by rel_norm, the
+# loss relative, BN running statistics by rel_norm; the zoo and the ops
+VISION_LOGITS_TOL, VISION_LOSS_TOL = 1e-4, 1e-5
+VISION_BN_TOL, VISION_UPDATE_TOL, VISION_ZOO_TOL = 1e-4, 1e-4, 1e-4
+VISION_F64_SLACK = 4.0     # card's update vs float64, x the CPU's own
+VISION_OPS_TOL = 1e-4
+VISION_KERNELS = ('softmax_ce_fwd', 'softmax_ce_bwd')
+# one constructor of each family, at its input size
+ZOO = (('resnext50_32x4d', 224), ('wide_resnet50_2', 224), ('vgg16', 224),
+       ('mobilenet_v1', 224), ('mobilenet_v2', 224),
+       ('mobilenet_v3_large', 224), ('shufflenet_v2_x1_0', 224),
+       ('squeezenet1_1', 224), ('densenet121', 224), ('googlenet', 224),
+       ('inception_v3', 299), ('alexnet', 224))
+
+
+def vision_cases() -> list:
+    """Phase 2's kernel cases at this slice's shapes: CE forward and
+    backward over a classifier's 1000 classes (f32 and bf16, 64 and 256
+    rows, with ignored rows, and with a mean loss's g = 1 / N on every
+    row; f32 [64, 1000] at g = 1/64 is ResNet-50's step under O1 and
+    reports the `_v1000` rows), then RMSNorm at RMS_SHAPES."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    cases, add = _case_list()
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (64, 256):
+            _ce_case(add, gen, dtype, n, 1000, row_suffix='_v1000')
+            _ce_case(add, gen, dtype, n, 1000, g_value=1.0 / n,
+                     rep=dtype == torch.float32 and n == 64,
+                     row_suffix='_v1000')
+    return cases + rms_cases()
+
+
+def conv_linear_flops(model, shape) -> float:
+    """Forward FLOPs of one batch of `shape` through `model`'s
+    convolutions and linear layers, from their shapes: 2 * Cin / groups
+    * Cout * kh * kw * Ho * Wo per image a convolution, 2 * in * out a
+    linear row (forward hooks read each output's shape on one forward of
+    zeros, batch 1, scaled to the batch)."""
+    from paddle_tpu_torch import nn
+    total = [0.0]
+
+    def conv(mod, inputs, out):
+        total[0] += (2.0 * mod.in_channels / mod.groups * mod.out_channels
+                     * math.prod(mod.kernel_size) * math.prod(out.shape[2:]))
+
+    def linear(mod, inputs, out):
+        total[0] += 2.0 * mod.in_features * mod.out_features \
+            * (out.numel() // out.shape[-1])
+    hooks = [m.register_forward_hook(conv) for m in model.modules()
+             if isinstance(m, nn.conv._ConvNd) and not m._transpose]
+    hooks += [m.register_forward_hook(linear) for m in model.modules()
+              if isinstance(m, nn.Linear)]
+    was_training = model.training
+    model.eval()
+    dev = next(model.parameters()).device
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1,) + tuple(shape[1:]), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    return total[0] * shape[0]
+
+
+def _resnet_step(model, x, y, dev) -> dict:
+    """One training step (Momentum 0.9, weight decay 1e-4, BN in train
+    mode) of `model` on the batch (x, y): logits, loss, every parameter's
+    update and the buffers after the step, on the host."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import functional as PF
+    model.train()
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = optimizer.Momentum(learning_rate=VISION_LR, momentum=0.9,
+                             parameters=model.parameters(),
+                             weight_decay=1e-4)
+    logits = model(torch.from_numpy(x).to(dev))
+    loss = PF.cross_entropy(logits, torch.from_numpy(y).to(dev))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return {'logits': logits.detach().cpu(), 'loss': float(loss.detach()),
+            'update': {k: (p.detach() - before[k]).cpu()
+                       for k, p in model.named_parameters()},
+            'buffers': {k: b.detach().cpu()
+                        for k, b in model.named_buffers()}}
+
+
+def vision_f32_step() -> dict:
+    """resnet50 built on the CPU from a seed and copied to the card; one
+    training step on each from the same weights and batch of 4, f32 (TF32
+    off), and on a float64 CPU copy: logits, loss and BN running
+    statistics held to the CPU's f32; every parameter's update held to
+    float64, within VISION_F64_SLACK x the CPU's own f32 distance from it
+    (at least VISION_UPDATE_TOL). f32 itself cannot hold an update to
+    1e-4 here: the CPU's f32 step lies up to 2.4e-2 from float64 on the
+    BatchNorm parameters of layers 1-3, whose gradients are sums of
+    nearly cancelling terms over 4 x 56 x 56 positions."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import vision
+    ptt.seed(23)
+    cpu = vision.resnet50(device='cpu')
+    card = copy.deepcopy(cpu).to(DEV)
+    exact = copy.deepcopy(cpu).double()
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((VISION_F32_BATCH, 3, VISION_SIZE,
+                             VISION_SIZE)).astype(np.float32)
+    y = rng.integers(0, 1000, VISION_F32_BATCH)
+    got = _resnet_step(card, x, y, DEV)
+    want = _resnet_step(cpu, x, y, 'cpu')
+    f64 = _resnet_step(exact, x.astype(np.float64), y, 'cpu')
+    upd = {k: (readings(got['update'][k], want['update'][k])['rel_norm'],
+               readings(got['update'][k], f64['update'][k])['rel_norm'],
+               readings(want['update'][k], f64['update'][k])['rel_norm'])
+           for k in want['update']}
+    over = [k for k, (_, card64, cpu64) in upd.items()
+            if card64 > max(VISION_UPDATE_TOL, VISION_F64_SLACK * cpu64)]
+    r = {'logits': readings(got['logits'], want['logits'])['rel_norm'],
+         'loss': abs(got['loss'] - want['loss']) / abs(want['loss']),
+         'bn': max(readings(got['buffers'][k], want['buffers'][k])
+                   ['rel_norm'] for k in want['buffers']
+                   if want['buffers'][k].is_floating_point()),
+         'update_vs_cpu': max(u[0] for u in upd.values()),
+         'update_vs_f64': max(u[1] for u in upd.values()),
+         'cpu_vs_f64': max(u[2] for u in upd.values()),
+         'ratio': max(u[1] / max(u[2], 1e-30) for u in upd.values())}
+    log(f'[vision] resnet50 f32 step, batch {VISION_F32_BATCH}, card vs CPU: '
+        f'logits rel_norm {r["logits"]:.3e} (limit {VISION_LOGITS_TOL}), '
+        f'loss {got["loss"]:.6f} vs {want["loss"]:.6f} rel {r["loss"]:.3e} '
+        f'(limit {VISION_LOSS_TOL}), BN running stats worst rel_norm '
+        f'{r["bn"]:.3e} (limit {VISION_BN_TOL}); updates over '
+        f'{len(upd)} parameters, worst rel_norm card vs CPU '
+        f'{r["update_vs_cpu"]:.3e}, card vs float64 {r["update_vs_f64"]:.3e},'
+        f' CPU vs float64 {r["cpu_vs_f64"]:.3e}, worst card / CPU distance '
+        f'from float64 {r["ratio"]:.2f} (limit {VISION_F64_SLACK}, floor '
+        f'{VISION_UPDATE_TOL}); float64 loss {f64["loss"]:.6f}')
+    if not (r['logits'] <= VISION_LOGITS_TOL and r['loss'] <= VISION_LOSS_TOL
+            and r['bn'] <= VISION_BN_TOL and not over):
+        raise AssertionError(f'vision: resnet50 f32 step past its limits: '
+                             f'{r}; updates past: '
+                             + ', '.join(f'{k} {upd[k]}' for k in over[:8]))
+    return r
+
+
+class _Images:
+    """A seeded dataset: image i is base[i % len(base)], labels drawn from
+    the same seed."""
+
+    def __init__(self, n: int, base: np.ndarray, labels: np.ndarray):
+        self.n, self.base, self.labels = n, base, labels
+
+    def __getitem__(self, i):
+        return self.base[i % len(self.base)], self.labels[i]
+
+    def __len__(self):
+        return self.n
+
+
+def vision_train() -> dict:
+    """resnet50 trained in bf16 (O1, f32 parameters) through
+    `Model(...).prepare(Momentum, CrossEntropyLoss, Accuracy)` and `fit`
+    over an `io.DataLoader` of seeded arrays: VISION_WARMUP steps, then
+    VISION_STEPS timed; exactly one CE forward and one CE backward launch
+    a step, no RMSNorm launch, a finite loss. Then the eval forward."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp, io, metric, nn, optimizer, vision
+    from paddle_tpu_torch.hapi import Callback
+    from paddle_tpu_torch.ops import kernels as K
+    ptt.seed(24)
+    net = vision.resnet50(device=DEV)
+    fwd_flops = conv_linear_flops(net, (VISION_BATCH, 3, VISION_SIZE,
+                                        VISION_SIZE))
+    rng = np.random.default_rng(24)
+    steps = VISION_WARMUP + VISION_STEPS
+    base = rng.standard_normal((VISION_BATCH, 3, VISION_SIZE,
+                                VISION_SIZE)).astype(np.float32)
+    labels = rng.integers(0, 1000, steps * VISION_BATCH)
+    loader = io.DataLoader(_Images(steps * VISION_BATCH, base, labels),
+                           batch_size=VISION_BATCH, shuffle=False)
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.t, self.launches, self.losses = [], [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t.append(time.perf_counter())
+            self.launches.append({k: K.LAUNCHES[k] for k in
+                                  VISION_KERNELS + ('rms_norm',)})
+            self.losses.append(float((logs or {}).get('loss', math.nan)))
+
+    model = ptt.Model(net)
+    model.prepare(optimizer.Momentum(learning_rate=VISION_TRAIN_LR,
+                                     momentum=0.9,
+                                     parameters=net.parameters(),
+                                     weight_decay=1e-4),
+                  nn.CrossEntropyLoss(), metric.Accuracy(),
+                  amp_configs={'level': 'O1', 'dtype': 'bfloat16'})
+    timer = Steps()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, callbacks=[timer])
+    launches = {k: K.LAUNCHES[k] for k in K.LAUNCHES if K.LAUNCHES[k]}
+    peak = torch.cuda.max_memory_allocated()
+    if len(timer.t) != steps:
+        raise AssertionError(f'vision: fit ran {len(timer.t)} steps, not '
+                             f'{steps}')
+    step_s = (timer.t[-1] - timer.t[VISION_WARMUP - 1]) / VISION_STEPS
+    per_step = [{k: b[k] - a[k] for k in a} for a, b in
+                zip([{k: 0 for k in timer.launches[0]}] + timer.launches,
+                    timer.launches)]
+    step_flops = 3 * fwd_flops
+    mfu = step_flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f'[vision] resnet50 bf16 O1 fit, batch {VISION_BATCH}, '
+        f'{VISION_SIZE} x {VISION_SIZE}: '
+        f'{VISION_WARMUP} warm-up steps ({timer.t[VISION_WARMUP - 1] - t0:.2f}'
+        f' s), then {step_s * 1e3:.1f} ms/step, '
+        f'{VISION_BATCH / step_s:.1f} images/s; {step_flops / 1e12:.3f} '
+        f'TFLOP a step (3 x the forward by conv_linear_flops, '
+        f'{fwd_flops / VISION_BATCH / 1e9:.3f} GFLOP an image), MFU '
+        f'{mfu:.4f}; peak device memory {peak / 1e9:.2f} GB; losses '
+        + ' '.join(f'{v:.4f}' for v in timer.losses)
+        + f'; launches a step {per_step}')
+    for i, d in enumerate(per_step):
+        if d['softmax_ce_fwd'] != 1 or d['softmax_ce_bwd'] != 1 \
+                or d['rms_norm'] != 0:
+            raise AssertionError(f'vision: step {i} launched {d}; want one '
+                                 f'CE forward, one CE backward, no RMSNorm')
+    if not all(math.isfinite(v) for v in timer.losses):
+        raise AssertionError(f'vision: non-finite loss {timer.losses}')
+
+    # the eval forward, bf16, batch 64
+    net.eval()
+    xb = torch.from_numpy(base).to(DEV)
+
+    def forward():
+        with torch.no_grad(), amp.auto_cast(level='O1', dtype='bfloat16'):
+            return net(xb)
+    out = forward()
+    if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (
+            VISION_BATCH, 1000):
+        raise AssertionError(f'vision: eval forward gave {tuple(out.shape)}'
+                             f' or non-finite logits')
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(VISION_STEPS):
+        forward()
+    torch.cuda.synchronize()
+    eval_s = (time.perf_counter() - t1) / VISION_STEPS
+    log(f'[vision] resnet50 bf16 eval forward, batch {VISION_BATCH}: '
+        f'{eval_s * 1e3:.1f} ms, {VISION_BATCH / eval_s:.1f} images/s')
+    return {'launches': launches, 'step_ms': step_s * 1e3,
+            'images_s': VISION_BATCH / step_s, 'mfu': mfu,
+            'peak_gb': peak / 1e9, 'eval_images_s': VISION_BATCH / eval_s,
+            'step_tflop': step_flops / 1e12}
+
+
+def vision_zoo() -> dict:
+    """One eval forward at batch 1, f32 (TF32 off), of one constructor of
+    each family on the card against its CPU copy from the same weights:
+    every output within VISION_ZOO_TOL by rel_norm."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import vision
+    out = {}
+    for i, (name, size) in enumerate(ZOO):
+        ptt.seed(100 + i)
+        cpu = getattr(vision, name)(device='cpu').eval()
+        card = copy.deepcopy(cpu).to(DEV).eval()
+        x = np.random.default_rng(i).standard_normal(
+            (1, 3, size, size)).astype(np.float32)
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(x))
+            got = card(torch.from_numpy(x).to(DEV))
+        pairs = list(zip(got, want)) if isinstance(want, tuple) \
+            else [(got, want)]
+        worst = max(readings(g.cpu(), w)['rel_norm'] for g, w in pairs)
+        finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+        log(f'[vision] zoo {name} ({size} x {size}, '
+            f'{sum(p.numel() for p in cpu.parameters()) / 1e6:.1f} M '
+            f'parameters): card vs CPU rel_norm {worst:.3e} over '
+            f'{len(pairs)} output(s)')
+        if worst > VISION_ZOO_TOL or not finite:
+            raise AssertionError(f'vision: {name} card vs CPU rel_norm '
+                                 f'{worst:.3e} (limit {VISION_ZOO_TOL}), '
+                                 f'finite {finite}')
+        out[name] = worst
+        del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu(label: str, got, want, tol: float = VISION_OPS_TOL):
+    r = readings(got.detach().cpu(), want.detach())['rel_norm']
+    if r > tol:
+        raise AssertionError(f'vision: {label} card vs CPU rel_norm {r:.3e}'
+                             f' (limit {tol})')
+    return r
+
+
+def vision_ops() -> dict:
+    """`vision.ops` and a recurrent layer on the card against the CPU:
+    nms over 2000 boxes (equal kept indices; plain and by category with a
+    score threshold and top_k), roi_align and roi_pool over a [2, 256, 50,
+    50] map and 128 boxes, deform_conv2d at 3 x 3, 64 -> 64 channels with
+    a mask, and a 2-layer bidirectional LSTM (input 256, hidden 512, 128
+    steps, batch 32, with sequence_length) forward and backward; each
+    timed on the card."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.default_rng(31)
+    res = {}
+    xy = rng.uniform(0, 480, (2000, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 96, (2000, 2))],
+                           1).astype(np.float32)
+    scores = rng.uniform(0, 1, 2000).astype(np.float32)
+    cats = rng.integers(0, 10, 2000)
+    for tag, kw in (('plain', {}), ('by category', {
+            'score_threshold': 0.3, 'top_k': 300,
+            'category_idxs': cats})):
+        def call(dev, kw=kw):
+            args = {k: torch.from_numpy(v).to(dev)
+                    if isinstance(v, np.ndarray) else v
+                    for k, v in kw.items()}
+            return V.nms(torch.from_numpy(boxes).to(dev),
+                         torch.from_numpy(scores).to(dev), 0.5, **args)
+        got, want = call(DEV), call('cpu')
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f'vision: nms {tag}: card keeps '
+                                 f'{got.numel()} boxes, CPU {want.numel()}')
+        res[f'nms {tag} ms'] = _wall(lambda: call(DEV))[1] * 1e3
+        log(f'[vision] nms {tag}, 2000 boxes: {got.numel()} kept, equal to '
+            f'the CPU; {res[f"nms {tag} ms"]:.2f} ms')
+    feat = rng.standard_normal((2, 256, 50, 50)).astype(np.float32)
+    xy = rng.uniform(0, 600, (128, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(16, 200, (128, 2))],
+                          1).astype(np.float32)
+    num = np.array([64, 64], np.int32)
+    for name, fn in (('roi_align', lambda f, r, n: V.roi_align(
+            f, r, n, 7, spatial_scale=1 / 16, sampling_ratio=2)),
+                     ('roi_pool', lambda f, r, n: V.roi_pool(
+                         f, r, n, 7, spatial_scale=1 / 16))):
+        def call(dev, fn=fn):
+            return fn(*(torch.from_numpy(a).to(dev)
+                        for a in (feat, rois, num)))
+        r = _card_vs_cpu(name, call(DEV), call('cpu'))
+        ms = time_ms(lambda: call(DEV), iters=10)
+        log(f'[vision] {name}, [2, 256, 50, 50], 128 boxes, 7 x 7: card vs '
+            f'CPU rel_norm {r:.3e}; {ms:.3f} ms')
+        res[name] = (r, ms)
+    x = rng.standard_normal((2, 64, 32, 32)).astype(np.float32)
+    off = rng.standard_normal((2, 18, 32, 32)).astype(np.float32)
+    mask = 1 / (1 + np.exp(-rng.standard_normal((2, 9, 32, 32)))).astype(
+        np.float32)
+    w = (rng.standard_normal((64, 64, 3, 3)) / 24).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+
+    def deform(dev):
+        return V.deform_conv2d(*(torch.from_numpy(a).to(dev)
+                                 for a in (x, off, w, b)), padding=1,
+                               mask=torch.from_numpy(mask).to(dev))
+    r = _card_vs_cpu('deform_conv2d', deform(DEV), deform('cpu'))
+    ms = time_ms(lambda: deform(DEV), iters=10)
+    log(f'[vision] deform_conv2d 3 x 3, 64 -> 64, [2, 64, 32, 32], with a '
+        f'mask: card vs CPU rel_norm {r:.3e}; {ms:.3f} ms')
+    res['deform_conv2d'] = (r, ms)
+
+    n_in, hidden, n_steps, batch = VISION_LSTM
+    ptt.seed(32)
+    cpu = nn.LSTM(n_in, hidden, num_layers=2, direction='bidirect',
+                  device='cpu')
+    card = copy.deepcopy(cpu).to(DEV)
+    xs = rng.standard_normal((batch, n_steps, n_in)).astype(np.float32)
+    lens = rng.integers(n_steps // 2, n_steps + 1, batch)
+    cot = rng.standard_normal((batch, n_steps, 2 * hidden)).astype(
+        np.float32)
+
+    def lstm(model, dev):
+        xt = torch.from_numpy(xs).to(dev).requires_grad_()
+        out, (h, c) = model(xt, sequence_length=torch.from_numpy(lens).to(
+            dev))
+        (out * torch.from_numpy(cot).to(dev)).sum().backward()
+        return out, h, c, xt.grad, model.weight_ih_l0.grad
+    got, want = lstm(card, DEV), lstm(cpu, 'cpu')
+    r = max(_card_vs_cpu(f'lstm {n}', g, w_) for n, g, w_ in zip(
+        ('output', 'h', 'c', 'dx', 'dW_ih_l0'), got, want))
+    card.zero_grad()
+
+    def fwd_bwd():
+        lstm(card, DEV)
+        card.zero_grad()
+    ms = _wall(fwd_bwd)[1] * 1e3
+    log(f'[vision] LSTM 2 layers, bidirectional, {n_in} -> {hidden}, '
+        f'{n_steps} steps, batch {batch}, sequence_length '
+        f'{int(lens.min())}..{int(lens.max())}: '
+        f'card vs CPU worst rel_norm {r:.3e} (output, h, c, dx, dW); '
+        f'forward + backward {ms:.1f} ms')
+    res['lstm'] = (r, ms)
+    return res
+
+
+def vision_phase() -> dict:
+    """Phase 12: the f32 step card vs CPU, bf16 training and the eval
+    forward, the zoo, the vision ops and the LSTM; logs its seconds and
+    returns each part's readings (the training run's launches under
+    'train')."""
+    t0 = time.perf_counter()
+    f32 = vision_f32_step()
+    train = vision_train()
+    zoo = vision_zoo()
+    ops_res = vision_ops()
+    log(f'[vision] phase 12 took {time.perf_counter() - t0:.1f} s')
+    return {'train': train, 'f32': f32, 'zoo': zoo, 'ops': ops_res}
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -8664,6 +9310,19 @@ def main() -> int:
             + ' ms per call')
         if outputs is not None:
             torch.save(outputs, sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ['--rms-ms']:
+        # python3 chip_smoke.py --rms-ms TREE: the RMSNorm kernel of the
+        # port in the checkout TREE beside this tree's, at RMS_SHAPES
+        from paddle_tpu_torch.ops import _build
+        _build.SOURCES = ('rms_norm',)
+        _build.build_all()
+        for line in _build.build_log('rms_norm').splitlines():
+            if 'registers' in line or 'spill' in line \
+                    or 'entry function' in line:
+                log(f'[build] rms_norm: {line.strip()}')
+        check_kernels(rms_cases())
+        rms_ms(sys.argv[2])
         return 0
     if sys.argv[1:2] == ['--build-s']:
         # python3 chip_smoke.py --build-s split|single [NVCC_FLAG ...]:
@@ -8801,6 +9460,20 @@ def main() -> int:
             _summed(*t5.values()).items()))))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--vision']:
+        # python3 chip_smoke.py --vision: phase 12's kernel cases, then
+        # phase 12 alone, then its cases timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        vc = vision_cases()
+        check_kernels(vc)
+        vis = vision_phase()
+        time_kernels(vc)
+        log('[vision] launches ' + json.dumps(vis['train']['launches']))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -8835,6 +9508,7 @@ def main() -> int:
     check_kernels(fp16_cases())         # the same
     check_kernels(head64_cases())       # the same
     check_kernels(t5_cases())           # the same
+    check_kernels(vision_cases())       # the same
     torch.cuda.empty_cache()
     mark('phase 2')
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -8861,6 +9535,8 @@ def main() -> int:
     # more) and before phase 6 builds its engines
     t5, t5_prep = t5_phase()
     mark('phase 11')
+    vis = vision_phase()
+    mark('phase 12')
     res = serve(LlamaConfig.llama2_7b())
     spec = serve_spec(res)
     drain_swap(res)
@@ -8912,8 +9588,10 @@ def main() -> int:
     check_kernels(d64)
     t5c = t5_cases()
     check_kernels(t5c)
+    vc = vision_cases()
+    check_kernels(vc)
     mark('phase 8 (checks again)')
-    rows = time_kernels(cases + opt_cases + rungs + f16 + d64 + t5c)
+    rows = time_kernels(cases + opt_cases + rungs + f16 + d64 + t5c + vc)
     mark('phase 8 (timing)')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -8922,13 +9600,14 @@ def main() -> int:
     table = []
     for name in REPLACES:
         r = rows[name]
-        key = T5_ROWS.get(name, (name,))[0]
+        key = ROW_KEYS.get(name, (name,))[0]
         launches = sum(run['launches'].get(key, 0)
                        for run in (res, trained, pretrained, adapted,
                                    stored, weights, fleet, prefixed, int8,
                                    spec['draft2'], spec['self'], procs,
                                    eager, *rest.values(), *gpt.values(),
-                                   *fp16.values(), *t5.values()))
+                                   *fp16.values(), *t5.values(),
+                                   vis['train']))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

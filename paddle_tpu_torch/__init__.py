@@ -39,18 +39,25 @@ math, reduction, manipulation, search, linalg; every op through
 `amp.GradScaler`) with fp16 flash-attention kernels.
 
 The GPT family (slice 19): the rest of `nn` that it builds on (Paddle's
-constructors, `ParamAttr` and `nn.initializer`, the functional library
-but its vision entries, the norm, loss, container and transformer
-layers), `nlp.GPTForCausalLM` served by the paged engine and trained,
+constructors, `ParamAttr` and `nn.initializer`, the functional library,
+the norm, loss, container and transformer layers),
+`nlp.GPTForCausalLM` served by the paged engine and trained,
 `generate()` / `speculative_generate()` on every causal LM (`nlp.
 GenerationMixin`), BERT and ERNIE, and head_dim-64 flash and paged
 kernels.
+
+The vision slice: convolution, pooling, resampling, padding
+and RNN layers with their functional entries, `nn.utils`, and `vision`
+(the model zoo from LeNet to InceptionV3, the detection ops,
+transforms, datasets), ResNet-50 trained through `Model.fit` with its
+loss on the CE kernels.
 """
 # the op surface first: the modules imported below keep their names
 from .ops import *  # noqa: F401,F403
 from . import (analysis, autograd, debug, dtype, flags, framework, io, jit,
                loadgen, loop, metric, nlp, nn, observability, ops, optimizer,
-               regularizer, resilience, serving, tensor, utils, weights)
+               regularizer, resilience, serving, tensor, utils, vision,
+               weights)
 from . import amp
 from . import hapi
 from .autograd import (PyLayer, PyLayerContext, enable_grad, grad,

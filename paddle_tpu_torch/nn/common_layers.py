@@ -10,9 +10,10 @@ Paddle's (`Linear(in, out, weight_attr=None, bias_attr=None)`, a bias
 unless `bias_attr=False`; Xavier-uniform weights; an Embedding's
 Xavier-normal table), plus the port's keywords `device=`, `dtype=` and
 `generator=` (`Layer.create_parameter`); `Linear(..., bias=False)` is
-`bias_attr=False`. The resampling and padding layers (`Pad*`,
-`Upsample*`, `PixelShuffle`, `Unfold`, `Fold`) wait for the vision
-slice.
+`bias_attr=False`. The resampling, padding and patch layers
+(`Upsample*`, `PixelShuffle`, `PixelUnshuffle`, `ChannelShuffle`,
+`Pad1D/2D/3D`, `ZeroPad2D`, `Unfold`, `Fold`) hold no parameters and
+call their functional entries, as the JAX layers do.
 """
 from __future__ import annotations
 
@@ -213,6 +214,8 @@ LogSigmoid = _act_layer('logsigmoid', 'LogSigmoid')
 GLU = _act_layer('glu', 'GLU')
 ThresholdedReLU = _act_layer('thresholded_relu', 'ThresholdedReLU')
 Maxout = _act_layer('maxout', 'Maxout')
+ChannelShuffle = _act_layer('channel_shuffle', 'ChannelShuffle')
+PixelUnshuffle = _act_layer('pixel_unshuffle', 'PixelUnshuffle')
 Softmax = _act_layer('softmax', 'Softmax')
 LogSoftmax = _act_layer('log_softmax', 'LogSoftmax')
 
@@ -283,3 +286,101 @@ __all__ = ['Linear', 'Embedding', 'Dropout', 'Dropout2D', 'Dropout3D',
            'GLU', 'ThresholdedReLU', 'Maxout', 'Softmax', 'LogSoftmax',
            'PReLU', 'RReLU', 'Sequential', 'LayerList', 'LayerDict',
            'ParameterList']
+
+
+# -- resampling, padding and patches ------------------------------------------
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode='nearest',
+                 align_corners=False, align_mode=0, data_format='NCHW',
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format='NCHW',
+                 name=None):
+        super().__init__(size, scale_factor, 'bilinear', True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format='NCHW',
+                 name=None):
+        super().__init__(size, scale_factor, 'nearest', False, 0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format='NCHW', name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode='constant', value=0.0, data_format=None,
+                 name=None):
+        super().__init__()
+        self.padding = [padding] * self._n2 if isinstance(padding, int) \
+            else list(padding)
+        self.mode, self.value = mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value)
+
+
+class Pad1D(_PadNd):
+    _n2 = 2
+
+
+class Pad2D(_PadNd):
+    _n2 = 4
+
+
+class Pad3D(_PadNd):
+    _n2 = 6
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format='NCHW', name=None):
+        super().__init__(padding, 'constant', 0.0, data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes, self.strides = kernel_sizes, strides
+        self.paddings, self.dilations = paddings, dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class Fold(Layer):
+    """col2im, the inverse of Unfold."""
+
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.kernel_sizes = kernel_sizes
+        self.strides, self.paddings = strides, paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, self.kernel_sizes,
+                      self.strides, self.paddings, self.dilations)

@@ -1094,3 +1094,694 @@ def adaptive_log_softmax_with_loss(input, label, head_weight, tail_weights,
         [head_bias] if head_bias is not None else []) + [
         w for pair in tail_weights for w in pair]
     return apply_op(f, *args, _name='adaptive_log_softmax_with_loss')
+
+
+# ---------------------------------------------------------------------------
+# convolution (the vision slice). The JAX package computes these with
+# lax.conv_general_dilated, outside any Pallas kernel; here they are
+# torch's conv ops (cuDNN on the card), with the JAX function's padding
+# rules: 'SAME' pads as XLA does (the odd cell on the high side, also at
+# stride > 1), explicit (lo, hi) pairs may differ, and the transposes
+# take Paddle's [in, out / groups, *k] weights with any output_padding.
+# ---------------------------------------------------------------------------
+
+def _tuplize(v, n):
+    if isinstance(v, numbers.Integral):
+        return (int(v),) * n
+    v = tuple(int(i) for i in v)
+    return v if len(v) == n else tuple(v) * (n // len(v))
+
+
+def _conv_padding(padding, n, stride, dilation, ksize):
+    """Paddle's padding spec as 'SAME' / 'VALID' or [(lo, hi)] per dim
+    (the JAX package's `_conv_padding`)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, numbers.Integral):
+        return [(int(padding), int(padding))] * n
+    padding = list(padding)
+    if len(padding) == n and all(isinstance(p, numbers.Integral)
+                                 for p in padding):
+        return [(int(p), int(p)) for p in padding]
+    if len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    flat = [p for p in padding if isinstance(p, (list, tuple))]
+    if flat:
+        return [(int(p[0]), int(p[1])) for p in flat[-n:]]
+    raise ValueError(f'bad padding {padding!r}')
+
+
+def _explicit_padding(pad, spatial, ksize, stride, dilation):
+    """'SAME' / 'VALID' as XLA resolves them: SAME keeps ceil(in /
+    stride) outputs and puts the odd padded cell on the high side."""
+    if pad == 'VALID':
+        return [(0, 0)] * len(spatial)
+    if pad != 'SAME':
+        return pad
+    out = []
+    for size, k, s, d in zip(spatial, ksize, stride, dilation):
+        total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+        out.append((total // 2, total - total // 2))
+    return out
+
+
+def _torch_pad(pairs):
+    """[(lo, hi)] per dim, first dim first, as F.pad's innermost-first
+    list."""
+    return [p for lo_hi in reversed(pairs) for p in lo_hi]
+
+
+_CONV = {1: _F.conv1d, 2: _F.conv2d, 3: _F.conv3d}
+_CONV_T = {1: _F.conv_transpose1d, 2: _F.conv_transpose2d,
+           3: _F.conv_transpose3d}
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
+             channel_last=False, name='conv'):
+    stride_t = _tuplize(stride, n)
+    dil_t = _tuplize(dilation, n)
+
+    def f(v, w, *b):
+        if channel_last:
+            v = torch.movedim(v, -1, 1)
+        pad = _explicit_padding(
+            _conv_padding(padding, n, stride_t, dil_t, w.shape[2:]),
+            v.shape[2:], w.shape[2:], stride_t, dil_t)
+        if all(lo == hi for lo, hi in pad):
+            conv_pad = tuple(lo for lo, _ in pad)
+        else:
+            v = _F.pad(v, _torch_pad(pad))
+            conv_pad = 0
+        out = _CONV[n](v, w, b[0] if b else None, stride_t, conv_pad, dil_t,
+                       groups)
+        return torch.movedim(out, 1, -1) if channel_last else out
+    args = (x, weight) if bias is None else (x, weight, bias)
+    return apply_op(f, *args, _name=name)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCL', name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
+                    channel_last=(data_format == 'NLC'), name='conv1d')
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCHW', name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
+                    channel_last=(data_format == 'NHWC'), name='conv2d')
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCDHW', name=None):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,
+                    channel_last=(data_format == 'NDHWC'), name='conv3d')
+
+
+def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                       dilation, groups, n, channel_last, name):
+    """The transpose as the JAX package defines it (the gradient of a
+    convolution): the full transposed convolution, cropped by `padding`
+    (lo, hi) and extended by `output_padding` on the high side, where
+    cells past the full result are zero before the bias. `output_size`
+    is taken and not read, as in the JAX function."""
+    stride_t = _tuplize(stride, n)
+    dil_t = _tuplize(dilation, n)
+    opad_t = _tuplize(output_padding, n)
+
+    def f(v, w, *b):
+        if channel_last:
+            v = torch.movedim(v, -1, 1)
+        pad = _conv_padding(padding, n, stride_t, dil_t, w.shape[2:])
+        if isinstance(pad, str):
+            if pad != 'VALID':
+                raise ValueError('SAME padding unsupported for '
+                                 'conv_transpose')
+            pad = [(0, 0)] * n
+        out = _CONV_T[n](v, w, None, stride_t, 0, 0, groups, dil_t)
+        sizes = [out.shape[2 + d] - lo - hi + opad
+                 for d, ((lo, hi), opad) in enumerate(zip(pad, opad_t))]
+        grow = [(max(-lo, 0), max(opad - hi, 0))
+                for (lo, hi), opad in zip(pad, opad_t)]
+        if any(g for pair in grow for g in pair):
+            out = _F.pad(out, _torch_pad(grow))
+        for d, ((lo, _), (glo, _), size) in enumerate(zip(pad, grow, sizes)):
+            out = out.narrow(2 + d, lo + glo, size)
+        if b:
+            out = out + b[0].reshape((1, -1) + (1,) * n)
+        return torch.movedim(out, 1, -1) if channel_last else out
+    args = (x, weight) if bias is None else (x, weight, bias)
+    return apply_op(f, *args, _name=name)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format='NCL', name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                              dilation, groups, 1, data_format == 'NLC',
+                              'conv1d_transpose')
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format='NCHW', output_size=None, name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                              dilation, groups, 2, data_format == 'NHWC',
+                              'conv2d_transpose')
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format='NCDHW', output_size=None, name=None):
+    return _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
+                              dilation, groups, 3, data_format == 'NDHWC',
+                              'conv3d_transpose')
+
+
+# ---------------------------------------------------------------------------
+# pooling: the JAX `_pool_nd` (a reduce_window over -inf or 0 padding).
+# `ceil_mode` adds high-side cells only where the last window starts
+# inside the input or its low padding; `exclusive` (the default) divides
+# by the window's cells inside the input; with it off, the regular
+# padding counts and the ceil-mode cells do not. As in the JAX function,
+# `data_format` and `divisor_override` are taken and not read.
+# ---------------------------------------------------------------------------
+
+def _ceil_mode_extra(spatial, k_t, s_t, pad):
+    extra = []
+    for i, h in enumerate(spatial):
+        lo, hi = pad[i]
+        eff = h + lo + hi - k_t[i]
+        out = -(-eff // s_t[i]) + 1
+        if (out - 1) * s_t[i] >= h + lo:
+            out -= 1
+        extra.append(max(0, (out - 1) * s_t[i] + k_t[i] - (h + lo + hi)))
+    return tuple(extra)
+
+
+def _window_sum(v, k_t, s_t):
+    """Sums over windows of k_t at strides s_t, no padding (1-D through
+    the 2-D op)."""
+    if len(k_t) == 1:
+        return _F.avg_pool2d(v.unsqueeze(-2), (1,) + k_t, (1,) + s_t,
+                             divisor_override=1).squeeze(-2)
+    op = _F.avg_pool2d if len(k_t) == 2 else _F.avg_pool3d
+    return op(v, k_t, s_t, divisor_override=1)
+
+
+def _window_max(v, k_t, s_t):
+    op = {1: _F.max_pool1d, 2: _F.max_pool2d, 3: _F.max_pool3d}[len(k_t)]
+    return op(v, k_t, s_t)
+
+
+def _pool_nd(x, kernel, stride, padding, n, maximum, ceil_mode=False,
+             count_include_pad=True, name='pool'):
+    k_t = _tuplize(kernel, n)
+    s_t = _tuplize(stride if stride is not None else kernel, n)
+
+    def f(v):
+        pad = _conv_padding(padding, n, s_t, (1,) * n, k_t)
+        if isinstance(pad, str):
+            raise ValueError('str padding unsupported in pool')
+        extra = _ceil_mode_extra(v.shape[2:], k_t, s_t, pad) if ceil_mode \
+            else (0,) * n
+        pads = [(lo, hi + e) for (lo, hi), e in zip(pad, extra)]
+        if maximum:
+            return _window_max(_F.pad(v, _torch_pad(pads),
+                                      value=float('-inf')), k_t, s_t)
+        out = _window_sum(_F.pad(v, _torch_pad(pads)), k_t, s_t)
+        if count_include_pad and not any(extra):
+            return out / float(_math.prod(k_t))
+        ones = torch.ones((1, 1) + tuple(v.shape[2:]), dtype=v.dtype,
+                          device=v.device)
+        if count_include_pad:
+            ones = _F.pad(ones, _torch_pad(pad), value=1.0)
+            cnt = _window_sum(_F.pad(ones, _torch_pad(
+                [(0, e) for e in extra])), k_t, s_t)
+        else:
+            cnt = _window_sum(_F.pad(ones, _torch_pad(pads)), k_t, s_t)
+        return out / cnt
+    return apply_op(f, x, _name=name)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 1, True, ceil_mode,
+                    name='max_pool1d')
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format='NCHW', name=None):
+    if return_mask:
+        return max_pool2d_with_index(x, kernel_size, stride, padding,
+                                     ceil_mode)
+    return _pool_nd(x, kernel_size, stride, padding, 2, True, ceil_mode,
+                    name='max_pool2d')
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format='NCDHW', name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 3, True, ceil_mode,
+                    name='max_pool3d')
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 1, False, ceil_mode,
+                    count_include_pad=not exclusive, name='avg_pool1d')
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format='NCHW',
+               name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 2, False, ceil_mode,
+                    count_include_pad=not exclusive, name='avg_pool2d')
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format='NCDHW',
+               name=None):
+    return _pool_nd(x, kernel_size, stride, padding, 3, False, ceil_mode,
+                    count_include_pad=not exclusive, name='avg_pool3d')
+
+
+_ADAPTIVE = {(1, False): _F.adaptive_avg_pool1d,
+             (2, False): _F.adaptive_avg_pool2d,
+             (3, False): _F.adaptive_avg_pool3d,
+             (1, True): _F.adaptive_max_pool1d,
+             (2, True): _F.adaptive_max_pool2d}
+
+
+def _adaptive_pool(x, output_size, n, maximum, name):
+    """Bins floor(i * in / out) to ceil((i + 1) * in / out) per dim over
+    the last n dims, the JAX function's (and torch's) bucketing."""
+    out_sz = _tuplize(output_size, n)
+    return apply_op(lambda v: _ADAPTIVE[(n, maximum)](v, out_sz), x,
+                    _name=name)
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    return _adaptive_pool(x, output_size, 1, False, 'adaptive_avg_pool1d')
+
+
+def adaptive_avg_pool2d(x, output_size, data_format='NCHW', name=None):
+    return _adaptive_pool(x, output_size, 2, False, 'adaptive_avg_pool2d')
+
+
+def adaptive_avg_pool3d(x, output_size, data_format='NCDHW', name=None):
+    return _adaptive_pool(x, output_size, 3, False, 'adaptive_avg_pool3d')
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    return _adaptive_pool(x, output_size, 1, True, 'adaptive_max_pool1d')
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    return _adaptive_pool(x, output_size, 2, True, 'adaptive_max_pool2d')
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
+                          ceil_mode=False, name=None):
+    """(out, flat H * W indices into the unpadded input) per (N, C)
+    plane, the first maximum of each window in row-major order: the mask
+    `max_unpool2d` consumes."""
+    k = _tuplize(kernel_size, 2)
+    s = _tuplize(stride if stride is not None else kernel_size, 2)
+    p = _conv_padding(padding, 2, s, (1, 1), k)
+
+    def f(v):
+        n, c, h, w = v.shape
+        extra = _ceil_mode_extra((h, w), k, s, list(p)) if ceil_mode \
+            else (0, 0)
+        vp = _F.pad(v, [p[1][0], p[1][1] + extra[1], p[0][0],
+                        p[0][1] + extra[0]], value=float('-inf'))
+        hp, wp = vp.shape[-2:]
+        ho = (hp - k[0]) // s[0] + 1
+        wo = (wp - k[1]) // s[1] + 1
+        dev = v.device
+        yy = (torch.arange(ho, device=dev) * s[0])[:, None, None, None] \
+            + torch.arange(k[0], device=dev)[None, None, :, None]
+        xx = (torch.arange(wo, device=dev) * s[1])[None, :, None, None] \
+            + torch.arange(k[1], device=dev)[None, None, None, :]
+        yy, xx = torch.broadcast_tensors(yy, xx)       # [Ho, Wo, kh, kw]
+        patches = vp[:, :, yy, xx].reshape(n, c, ho, wo, -1)
+        out, arg = patches.max(dim=-1)
+        flat = ((yy - p[0][0]) * w + (xx - p[1][0])).reshape(ho, wo, -1)
+        idx = flat.expand(n, c, ho, wo, flat.shape[-1]).gather(
+            -1, arg.unsqueeze(-1)).squeeze(-1)
+        return out, idx.to(torch.int32)
+    return apply_op(f, x, _name='max_pool2d_with_index')
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format='NCHW', name=None):
+    """Pooled values scattered back to their flat H * W positions
+    (`indices` from `max_pool2d(..., return_mask=True)`)."""
+    if data_format != 'NCHW':
+        raise NotImplementedError('max_unpool2d supports NCHW')
+    k = _tuplize(kernel_size, 2)
+    s = _tuplize(stride if stride is not None else kernel_size, 2)
+    p = _tuplize(padding, 2)
+
+    def f(v, idx):
+        n, c, ho, wo = v.shape
+        if output_size is not None:
+            out_h, out_w = [int(o) for o in output_size[-2:]]
+        else:
+            out_h = (ho - 1) * s[0] - 2 * p[0] + k[0]
+            out_w = (wo - 1) * s[1] - 2 * p[1] + k[1]
+        flat = torch.zeros((n, c, out_h * out_w), dtype=v.dtype,
+                           device=v.device)
+        flat = flat.scatter(2, idx.reshape(n, c, -1).long(),
+                            v.reshape(n, c, -1))
+        return flat.reshape(n, c, out_h, out_w)
+    return apply_op(f, x, indices, _name='max_unpool2d')
+
+
+# ---------------------------------------------------------------------------
+# padding, patches, sampling and layout
+# ---------------------------------------------------------------------------
+
+def _pad_index(size: int, lo: int, hi: int, mode: str, device):
+    """Source indices of a dim padded by (lo, hi) in a gathering mode
+    (numpy's 'reflect', 'edge' and 'wrap', as jnp.pad)."""
+    i = torch.arange(-lo, size + hi, device=device)
+    if mode == 'replicate':
+        return i.clamp(0, size - 1)
+    if mode == 'circular':
+        return i % size
+    if size == 1:
+        return torch.zeros_like(i)
+    period = 2 * (size - 1)
+    i = i.abs() % period
+    return torch.where(i > size - 1, period - i, i)
+
+
+def pad(x, pad, mode='constant', value=0.0, data_format='NCHW', name=None):
+    """Pad the last len(pad) // 2 dims, innermost dim first; a pad of
+    2 * ndim entries gives every dim's (lo, hi), first dim first (the
+    JAX function's two forms; `data_format` is not read)."""
+    pad_l = [int(p) for p in (pad.tolist() if hasattr(pad, 'tolist')
+                              else pad)]
+    if mode not in ('constant', 'reflect', 'replicate', 'circular'):
+        raise KeyError(mode)
+
+    def f(v):
+        if len(pad_l) == 2 * v.dim():
+            cfg = [(pad_l[2 * i], pad_l[2 * i + 1]) for i in range(v.dim())]
+        else:
+            k = len(pad_l) // 2
+            cfg = [(0, 0)] * (v.dim() - k) + [
+                (pad_l[2 * (k - 1 - i)], pad_l[2 * (k - 1 - i) + 1])
+                for i in range(k)]
+        if mode == 'constant':
+            return _F.pad(v, _torch_pad(cfg), value=float(value))
+        for d, (lo, hi) in enumerate(cfg):
+            if lo or hi:
+                v = v.index_select(d, _pad_index(v.shape[d], lo, hi, mode,
+                                                 v.device))
+        return v
+    return apply_op(f, x, _name='pad')
+
+
+def zeropad2d(x, padding, data_format='NCHW', name=None):
+    p = _tuplize(padding, 4)               # [left, right, top, bottom]
+
+    def f(v):
+        if data_format == 'NCHW':
+            return _F.pad(v, [p[0], p[1], p[2], p[3]])
+        return _F.pad(v, [0, 0, p[0], p[1], p[2], p[3]])
+    return apply_op(f, x, _name='zeropad2d')
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: NCHW -> [N, C * kh * kw, L], channel-major as
+    conv_general_dilated_patches orders it."""
+    k = _tuplize(kernel_sizes, 2)
+    s = _tuplize(strides, 2)
+    d = _tuplize(dilations, 2)
+
+    def f(v):
+        pd = _explicit_padding(_conv_padding(paddings, 2, s, d, k),
+                               v.shape[2:], k, s, d)
+        return _F.unfold(_F.pad(v, _torch_pad(pd)), k, d, 0, s)
+    return apply_op(f, x, _name='unfold')
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
+         dilations=1, name=None):
+    """col2im, the inverse of `unfold`: overlapping patches summed into
+    [N, C, oh, ow] (symmetric padding per dim, as the JAX function)."""
+    out_hw = _tuplize(output_sizes, 2)
+    k = _tuplize(kernel_sizes, 2)
+    s = _tuplize(strides, 2)
+    d = _tuplize(dilations, 2)
+    p = _tuplize(paddings, 2) if not isinstance(paddings, int) \
+        else (paddings, paddings)
+    return apply_op(lambda v: _F.fold(v, out_hw, k, d, p, s), x,
+                    _name='fold')
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """[N, 2, 3] affine matrices -> [N, H, W, 2] sampling grid in [-1, 1]
+    coordinates, in f32."""
+    h, w = int(out_shape[2]), int(out_shape[3])
+
+    def f(th):
+        dev = th.device
+        if align_corners:
+            ys = torch.linspace(-1, 1, h, device=dev)
+            xs = torch.linspace(-1, 1, w, device=dev)
+        else:
+            ys = (torch.arange(h, device=dev) + 0.5) * 2 / h - 1
+            xs = (torch.arange(w, device=dev) + 0.5) * 2 / w - 1
+        gy, gx = torch.meshgrid(ys, xs, indexing='ij')
+        base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+        return torch.einsum('hwk,nok->nhwo', base, th.float())
+    return apply_op(f, theta, _name='affine_grid')
+
+
+def grid_sample(x, grid, mode='bilinear', padding_mode='zeros',
+                align_corners=True, name=None):
+    """Sample NCHW `x` at [N, H', W', 2] grid locations in [-1, 1]: the
+    JAX function's gather and bilinear arithmetic (`zeros` blends each
+    in-bounds corner, `border` clamps, `reflection` reflects across the
+    cell borders)."""
+    if padding_mode not in ('zeros', 'border', 'reflection'):
+        raise ValueError(f'unsupported padding_mode {padding_mode!r}')
+
+    def f(xv, gv):
+        n, c, h, w = xv.shape
+        gx, gy = gv[..., 0], gv[..., 1]
+        if align_corners:
+            fx = (gx + 1) * 0.5 * (w - 1)
+            fy = (gy + 1) * 0.5 * (h - 1)
+        else:
+            fx = ((gx + 1) * w - 1) * 0.5
+            fy = ((gy + 1) * h - 1) * 0.5
+
+        def reflect(v, size):
+            span = 2 * (size - 1) if align_corners else 2 * size
+            if span == 0:
+                return torch.zeros_like(v)
+            v = v.abs() if align_corners else (v + 0.5).abs() - 0.5
+            v = torch.remainder(v, span)
+            if align_corners:
+                return torch.where(v > span / 2, span - v, v)
+            return torch.clamp(torch.where(v > span / 2 - 0.5,
+                                           span - 1 - v, v), 0, size - 1)
+
+        if padding_mode == 'border':
+            fx = torch.clamp(fx, 0, w - 1)
+            fy = torch.clamp(fy, 0, h - 1)
+        elif padding_mode == 'reflection':
+            fx = torch.clamp(reflect(fx, w), 0, w - 1)
+            fy = torch.clamp(reflect(fy, h), 0, h - 1)
+
+        flat = xv.reshape(n, c, h * w)
+
+        def gather(yy, xx):
+            yc = torch.clamp(yy, 0, h - 1).long()
+            xc = torch.clamp(xx, 0, w - 1).long()
+            idx = (yc * w + xc).reshape(n, 1, -1).expand(n, c, -1)
+            return flat.gather(2, idx).reshape((n, c) + tuple(yy.shape[1:]))
+
+        def inb(yy, xx):
+            return ((yy >= 0) & (yy <= h - 1) & (xx >= 0)
+                    & (xx <= w - 1)).unsqueeze(1)
+
+        if mode == 'nearest':
+            xi, yi = torch.round(fx), torch.round(fy)
+            out = gather(yi, xi)
+            if padding_mode == 'zeros':
+                out = torch.where(inb(yi, xi), out, 0.0)
+            return out.to(xv.dtype)
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        wx = (fx - x0).unsqueeze(1)
+        wy = (fy - y0).unsqueeze(1)
+        v00, v01 = gather(y0, x0), gather(y0, x0 + 1)
+        v10, v11 = gather(y0 + 1, x0), gather(y0 + 1, x0 + 1)
+        if padding_mode == 'zeros':
+            v00 = v00 * inb(y0, x0)
+            v01 = v01 * inb(y0, x0 + 1)
+            v10 = v10 * inb(y0 + 1, x0)
+            v11 = v11 * inb(y0 + 1, x0 + 1)
+        out = (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
+               + v10 * wy * (1 - wx) + v11 * wy * wx)
+        return out.to(xv.dtype)
+    return apply_op(f, x, grid, _name='grid_sample')
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format='NCHW',
+                   name=None):
+    """TSM: a `shift_ratio` share of the channels moves one segment back,
+    the next share one forward ([N * T, C, H, W], T = seg_num)."""
+    if data_format not in ('NCHW', 'NHWC'):
+        raise ValueError(f'unsupported data_format {data_format!r}')
+
+    def f(v):
+        if data_format == 'NHWC':
+            v = v.permute(0, 3, 1, 2)
+        nt, c, h, w = v.shape
+        v = v.reshape(nt // seg_num, seg_num, c, h, w)
+        fc = int(c * shift_ratio)
+        left = torch.cat([v[:, 1:, :fc], torch.zeros_like(v[:, :1, :fc])],
+                         dim=1)
+        right = torch.cat([torch.zeros_like(v[:, :1, fc:2 * fc]),
+                           v[:, :-1, fc:2 * fc]], dim=1)
+        out = torch.cat([left, right, v[:, :, 2 * fc:]], dim=2)
+        out = out.reshape(nt, c, h, w)
+        return out.permute(0, 2, 3, 1) if data_format == 'NHWC' else out
+    return apply_op(f, x, _name='temporal_shift')
+
+
+def pixel_shuffle(x, upscale_factor, data_format='NCHW', name=None):
+    r = int(upscale_factor)
+
+    def f(v):
+        n, c, h, w = v.shape
+        v = v.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return v.reshape(n, c // (r * r), h * r, w * r)
+    return apply_op(f, x, _name='pixel_shuffle')
+
+
+def pixel_unshuffle(x, downscale_factor, data_format='NCHW', name=None):
+    r = int(downscale_factor)
+
+    def f(v):
+        n, c, h, w = v.shape
+        v = v.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+        return v.reshape(n, c * r * r, h // r, w // r)
+    return apply_op(f, x, _name='pixel_unshuffle')
+
+
+def channel_shuffle(x, groups, data_format='NCHW', name=None):
+    def f(v):
+        if data_format == 'NCHW':
+            n, c, h, w = v.shape
+            return v.reshape(n, groups, c // groups, h, w) \
+                .transpose(1, 2).reshape(n, c, h, w)
+        n, h, w, c = v.shape
+        return v.reshape(n, h, w, groups, c // groups) \
+            .transpose(3, 4).reshape(n, h, w, c)
+    return apply_op(f, x, _name='channel_shuffle')
+
+
+# ---------------------------------------------------------------------------
+# interpolate: `jax.image.resize` as the JAX function calls it, not
+# torch's F.interpolate: 'nearest' takes floor((i + 0.5) * in / out)
+# (half-pixel centres); 'linear' / 'bilinear' / 'trilinear' and
+# 'bicubic' are separable weight matrices over half-pixel sample points
+# with the triangle or the Keys cubic kernel (a = -0.5), widened by the
+# scale when downsampling (antialiasing) and renormalized at the
+# borders; align_corners=True is a linear gather for every one of those
+# modes. `align_mode` and `data_format` are not read.
+# ---------------------------------------------------------------------------
+
+def _resize_kernel(method: str, x: torch.Tensor) -> torch.Tensor:
+    if method == 'linear':
+        return torch.clamp(1 - x.abs(), min=0)
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(in_size: int, out_size: int, method: str, device):
+    """jax.image's compute_weight_mat, [in, out] in f32."""
+    scale = out_size / in_size
+    inv = 1.0 / scale
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    src = torch.arange(in_size, dtype=torch.float32, device=device)
+    wts = _resize_kernel(method, (sample[None, :] - src[:, None]).abs()
+                         / kscale)
+    total = wts.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    wts = torch.where(total.abs() > eps,
+                      wts / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], wts, 0.0)
+
+
+def _resize(v: torch.Tensor, out_sz, method: str) -> torch.Tensor:
+    for d, o in enumerate(out_sz):
+        axis = 2 + d
+        m = v.shape[axis]
+        if m == o:
+            continue
+        if method == 'nearest':
+            idx = torch.floor((torch.arange(o, dtype=torch.float32,
+                                            device=v.device) + 0.5)
+                              * m / o).long()
+            v = v.index_select(axis, idx)
+        else:
+            w = _resize_weights(m, o, method, v.device).to(v.dtype)
+            v = torch.movedim(torch.tensordot(
+                torch.movedim(v, axis, -1), w, dims=1), -1, axis)
+    return v
+
+
+def interpolate(x, size=None, scale_factor=None, mode='nearest',
+                align_corners=False, align_mode=0, data_format='NCHW',
+                name=None):
+    def f(v):
+        spatial_in = v.shape[2:]
+        if size is not None:
+            out_sz = _tuplize(size, len(spatial_in))
+        else:
+            sf = scale_factor
+            if isinstance(sf, (int, float)):
+                sf = [sf] * len(spatial_in)
+            out_sz = tuple(int(s * f_) for s, f_ in zip(spatial_in, sf))
+        if mode == 'nearest':
+            return _resize(v, out_sz, 'nearest')
+        if mode not in ('bilinear', 'linear', 'trilinear', 'bicubic'):
+            raise ValueError(f'unsupported interpolate mode {mode!r}')
+        if not align_corners:
+            return _resize(v, out_sz,
+                           'cubic' if mode == 'bicubic' else 'linear')
+        out = v
+        for d, o in enumerate(out_sz):
+            axis = 2 + d
+            in_d = out.shape[axis]
+            if o == 1 or in_d == 1:
+                idx = torch.zeros((o,), dtype=torch.float32, device=v.device)
+            else:
+                idx = torch.arange(o, device=v.device) * ((in_d - 1)
+                                                          / (o - 1))
+            lo = torch.floor(idx).long()
+            hi = torch.clamp(lo + 1, max=in_d - 1)
+            shape = [1] * out.dim()
+            shape[axis] = o
+            w_hi = (idx - lo).to(v.dtype).reshape(shape)
+            out = out.index_select(axis, lo) * (1 - w_hi) \
+                + out.index_select(axis, hi) * w_hi
+        return out
+    return apply_op(f, x, _name='interpolate')
+
+
+def upsample(x, size=None, scale_factor=None, mode='nearest',
+             align_corners=False, align_mode=0, data_format='NCHW', name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners, align_mode,
+                       data_format)

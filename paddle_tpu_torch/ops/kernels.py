@@ -138,7 +138,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
-    'rms_norm_fwd': [_P, _P, _P, _I, _I, _F, _I, _P],
+    'rms_norm_fwd': [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     'flash_attention_fwd': [_P] * 6 + [_I] * 5 + [_L] * 12
     + [_F, _I, _I, _I, _P],
     'flash_attention_bwd_dq': [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _P],
@@ -291,6 +291,16 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * weight
 
 
+def rms_norm_vector_ok(x: torch.Tensor, weight: torch.Tensor,
+                       out: torch.Tensor) -> bool:
+    """Whether the RMSNorm kernel may move 16 bytes at a time: the width a
+    multiple of 16 / itemsize and x, weight and out 16-byte aligned.
+    Otherwise it runs the same kernel with one-element accesses."""
+    per = 16 // x.element_size()
+    return (x.shape[-1] % per == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, weight, out)))
+
+
 def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim of x (any leading shape), weight [width],
@@ -312,7 +322,8 @@ def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
         return out
     lib, fn = _entry('rms_norm', 'rms_norm_fwd')
     rc = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, width,
-            float(eps), _DTYPE_CODE[x.dtype], _stream(x))
+            float(eps), _DTYPE_CODE[x.dtype],
+            int(rms_norm_vector_ok(x, weight, out)), _stream(x))
     _build.check(lib, rc, 'rms_norm_fwd')
     LAUNCHES[_key('rms_norm', x.dtype)] += 1
     return out

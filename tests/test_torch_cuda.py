@@ -2748,3 +2748,143 @@ def test_jit_exported_t5_launches_the_kernels(cuda, tmp_path):
     with torch.no_grad():
         want = model(ids, dec)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the RMSNorm kernel's second design, CE at 1000 classes, ResNet-50
+# ---------------------------------------------------------------------------
+
+RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -7),
+           torch.float16: (2 ** -9, 2 ** -10)}
+
+
+def _rel_limits(got, want, dtype):
+    """chip_smoke's kernel limits: max|got - want| / max|want| and the
+    same in norms, by the output's dtype."""
+    diff, want = got.double() - want.double(), want.double()
+    lim_max, lim_norm = RMS_TOL[dtype]
+    assert diff.abs().max() <= lim_max * want.abs().max()
+    assert diff.norm() <= lim_norm * want.norm()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize('rows,width', [(8, 4096), (1024, 4096),
+                                        (2048, 4096), (4096, 4096),
+                                        (8192, 2048), (4096, 1024),
+                                        (3, 4100), (300, 1000),
+                                        (2, 40000), (2, 140000),
+                                        (300, 4100), (2, 9001),
+                                        (300, 16384), (300, 24576)])
+def test_rms_kernel_at_every_shape(cuda, dtype, rows, width):
+    """The second RMSNorm design against its plain version at the shapes
+    it is measured at, widths that are not a multiple of the vector (the
+    one-element accesses, two passes over the row: 4100 and 9001), more rows than the grid holds at once, and rows
+    too wide to live in registers (16384 in f32, 24576, 40000 and 140000:
+    the two-pass form); one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(rows + width)
+    x = _randn(g, dtype, rows, width)
+    w = (1 + 0.1 * _randn(g, torch.float32, width)).to(dtype)
+    key = 'rms_norm_fp16' if dtype == torch.float16 else 'rms_norm'
+    before = K.LAUNCHES[key]
+    _rel_limits(K.rms_norm(x, w), K.rms_norm_reference(x, w), dtype)
+    assert K.LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rms_kernel_on_an_unaligned_view(cuda, dtype):
+    """x a view one element past a 16-byte-aligned buffer (contiguous, so
+    the wrapper takes it): the one-element accesses, within the limits
+    of the plain version (the 16-byte path on an aligned copy sums the
+    squares in another order, so f32 outputs need not be bit-equal)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    buf = _randn(g, dtype, 64 * 4096 + 1)
+    x = buf[1:].view(64, 4096)
+    w = (1 + 0.1 * _randn(g, torch.float32, 4096)).to(dtype)
+    assert x.data_ptr() % 16 and not K.rms_norm_vector_ok(
+        x, w, torch.empty_like(x))
+    _rel_limits(K.rms_norm(x, w), K.rms_norm_reference(x, w), dtype)
+
+
+@pytest.mark.parametrize('rows', [8, 1024])
+def test_rms_kernel_in_a_cuda_graph(cuda, rows):
+    """The RMSNorm launch captured in a CUDA graph (its occupancy and SM
+    count read before the capture by a warm-up call) and replayed on new
+    inputs copied into the captured buffer: each replay equals an eager
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = _randn(g, torch.bfloat16, rows, 4096)
+    w = (1 + 0.1 * _randn(g, torch.float32, 4096)).to(torch.bfloat16)
+    K.rms_norm(x, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.rms_norm(x, w)
+    for seed in (1, 2):
+        x.copy_(_randn(torch.Generator(device=cuda).manual_seed(seed),
+                       torch.bfloat16, rows, 4096))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, K.rms_norm(x.clone(), w))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n', [64, 256])
+def test_ce_kernels_at_1000_classes(cuda, dtype, n):
+    """CE forward and backward at a classifier's [N, 1000], with ignored
+    rows and at a mean loss's g = 1 / N on every row."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = (3 * _randn(g, torch.float32, n, 1000)).to(dtype)
+    lab = torch.randint(0, 1000, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ignored = torch.randn(n, generator=g, device=cuda)
+    ignored[::7] = 0.0
+    for up in (ignored, torch.full((n,), 1.0 / n, device=cuda)):
+        nll, lse = K.softmax_cross_entropy_fwd(x, lab)
+        want_nll, want_lse = K.softmax_cross_entropy_fwd_reference(x, lab)
+        torch.testing.assert_close(nll, want_nll, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        _close(K.softmax_cross_entropy_bwd(x, lab, lse, up),
+               K.softmax_cross_entropy_bwd_reference(x, lab, lse, up), dtype)
+
+
+def test_resnet50_f32_on_the_card_equals_the_cpu(cuda):
+    """resnet50 at full width, batch 2, TF32 off: the eval forward's
+    logits card == CPU to 1e-4 by relative norm; in train mode the loss
+    to 1e-5, and the gradients of the classifier and the last convolution
+    held to a float64 CPU run within 4 x the CPU's own f32 distance from
+    it (at least 1e-4): f32 BatchNorm gradients at init carry errors far
+    above 1e-4 on any device (chip_smoke.vision_f32_step)."""
+    import copy
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import vision
+    ptt.seed(7)
+    cpu = vision.resnet50(device='cpu')
+    card = copy.deepcopy(cpu).to(cuda)
+    exact = copy.deepcopy(cpu).double()
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 3, 224, 224, generator=g)
+    y = torch.randint(0, 1000, (2,), generator=g)
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).norm()
+                     / b.double().norm())
+    cpu.eval()
+    card.eval()
+    with torch.no_grad():
+        assert rel(card(x.to(cuda)), cpu(x)) <= 1e-4
+    losses = []
+    for model, dev, dt in ((cpu, 'cpu', torch.float32),
+                           (card, cuda, torch.float32),
+                           (exact, 'cpu', torch.float64)):
+        model.train()
+        loss = F.cross_entropy(model(x.to(dev, dt)), y.to(dev))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    for name in ('fc.weight', 'layer4.2.conv3.weight'):
+        grads = [dict(m.named_parameters())[name].grad
+                 for m in (cpu, card, exact)]
+        assert rel(grads[1], grads[2]) <= max(1e-4,
+                                              4 * rel(grads[0], grads[2]))

@@ -103,6 +103,60 @@ def test_rms_plain_bf16_follows_functional_rounding():
                                atol=8e-3)
 
 
+RMS_LIMITS = {'float32': (1e-5, 1e-6), 'bfloat16': (8e-3, 8e-3),
+              'float16': (1e-3, 1e-3)}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
+@pytest.mark.parametrize('rows,width', [(8, 4096), (3, 1024), (2, 2048),
+                                        (5, 4100)])
+def test_rms_plain_at_the_kernel_widths_matches_functional(rows, width,
+                                                           dtype):
+    """The plain version (the wrapper's CPU route) at the RMSNorm kernel's
+    widths (decode's 8 rows of 4096, 1024, 2048, and 4100: not a multiple
+    of the 16-byte vector) against the JAX `F.rms_norm` in the same dtype.
+    Limits: f32 rtol 1e-5 and atol 1e-6; bf16 one rounding of a value
+    <= 4 (8e-3); fp16 one rounding (1e-3)."""
+    rng = np.random.default_rng(rows * width)
+    x = _np((rows, width), rng)
+    w = 1 + 0.1 * _np((width,), rng)
+    tdt = getattr(torch, dtype)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    got = K.rms_norm(xt, wt, 1e-6)
+    assert got.dtype == tdt
+    want = JF.rms_norm(Tensor(jnp.asarray(xt.float().numpy(), dtype)),
+                       Tensor(jnp.asarray(wt.float().numpy(), dtype)),
+                       epsilon=1e-6).numpy().astype(np.float32)
+    rtol, atol = RMS_LIMITS[dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol)
+
+
+def test_rms_vector_path_choice():
+    """The kernel moves 16 bytes at a time only when the width is a
+    multiple of 16 / itemsize and x, weight and out are 16-byte aligned;
+    otherwise it runs the same kernel with one-element accesses. A view
+    one element past an aligned buffer gives the plain result of its
+    copy."""
+    buf = torch.zeros(2 * 4096 + 8, dtype=torch.bfloat16)
+    w = torch.ones(4096, dtype=torch.bfloat16)
+    x = buf[:2 * 4096].view(2, 4096)
+    assert K.rms_norm_vector_ok(x, w, torch.empty_like(x))
+    odd = buf[1:2 * 4096 + 1].view(2, 4096)
+    assert not K.rms_norm_vector_ok(odd, w, torch.empty_like(x))
+    assert not K.rms_norm_vector_ok(buf[:2 * 4100].view(2, 4100),
+                                    torch.ones(4100, dtype=torch.bfloat16),
+                                    torch.empty(2, 4100,
+                                                dtype=torch.bfloat16))
+    f = torch.zeros(3, 1026)
+    assert not K.rms_norm_vector_ok(f, torch.ones(1026), f)
+    assert K.rms_norm_vector_ok(torch.zeros(3, 1024), torch.ones(1024),
+                                torch.zeros(3, 1024))
+    buf.normal_(generator=torch.Generator().manual_seed(0))
+    odd = buf[1:2 * 4096 + 1].view(2, 4096)
+    assert torch.equal(K.rms_norm(odd, w), K.rms_norm(odd.clone(), w))
+
+
 # ---------------------------------------------------------------------------
 # paged attention: plain version vs paged_attention_reference
 # ---------------------------------------------------------------------------
