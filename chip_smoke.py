@@ -21,6 +21,11 @@
                                            # trained, the zoo, vision ops,
                                            # an LSTM, CE at V = 1000)
     python3 chip_smoke.py --procs          # phase 6, then phase 6j alone
+    python3 chip_smoke.py --row            # phases 6, 6e, 6b, then 6k
+                                           # (the row engine) alone
+    python3 chip_smoke.py --host           # phase 13 alone (sharded
+                                           # checkpoints, the native
+                                           # collator, LazyGuard)
     python3 chip_smoke.py --train-rungs    # phase 2's cases at the rungs'
                                            # shapes, phases 4, 5 and 5c-5f
     python3 chip_smoke.py --eager          # phase 2's fp16 flash cases,
@@ -208,7 +213,10 @@ result line):
    finishes with the same tokens in both, the adapter kernel runs
    exactly once per adapted projection of every prefill and decode
    sub-step, base requests get phase 6's tokens and adapted ones
-   differ; then serve-prefix: the same model behind an engine with
+   differ; then serve-prefix: the same model cut to CUT_LAYERS = 8 of
+   its 32 layers (`serve(..., 'serve-cut')`, phase 6's seed,
+   graph and eager twin, whose tokens stand for phase 6's in 6c, 6d and
+   6f) behind an engine with
    `prefix_cache=0.25, prefill_chunk_tokens=256` on bench.py:stack_ab's
    shared-system-prompt trace at these lengths (a warm-up prompt of the
    512-token system prompt + 32 alone, then 16 requests: 13 suffix hits,
@@ -231,7 +239,8 @@ result line):
    the walls of a whole prefill at bucket 1024 and a 256-token chunk at
    start 512, captured and eager, and the device time of the captured
    chunk's whole-row gather;
-6d. serve-int8: phase 6's model, requests and engine with
+6d. serve-int8: the cut model (8 of 32 layers), phase 6's requests and
+   engine with
    `kv_quant='int8'`, graph and eager twin, then phase 6c's serve-prefix
    trace on the int8 prefix/chunk engine, graph and eager twin: tokens
    equal between the twins, `traces` exactly the buckets run, the paged
@@ -244,14 +253,16 @@ result line):
    pages logged beside phases 6 and 6c;
 6e. serve-spec: phase 6's model, requests and engine settings (k = 4,
    decode rounds of one speculation round) with two drafts in turn, the
-   bench's same-width 2-layer random draft and the model itself, each on
+   bench's same-width 2-layer random draft and the model itself (the
+   self-draft on the cut model, 8 of 32 layers), each on
    the graph engine and its eager twin: tokens equal between the twins,
    the verify kernel once per layer of every round, `traces` exactly the
    round and the buckets run; decode tok/s, TTFT, tokens per round per
    greedy slot and the acceptance rate logged beside phase 6, and how
    many requests get phase 6's tokens (bf16: a 5-row verify can round
    differently from a 1-row step; a reading, not a gate);
-6f. drain and swap: a fresh phase-6 engine: `swap_weights` to a host
+6f. drain and swap (on the cut model, 8 of 32 layers, and its tokens):
+   a fresh phase-6 engine: `swap_weights` to a host
    copy of the weights with one layer perturbed and `restore_weights`
    (their seconds logged), after which the 12 requests get phase 6's
    tokens; `evict_all()` after two steps hands back all 12 with every
@@ -465,6 +476,32 @@ result line):
    bidirectional LSTM with `sequence_length`, forward and backward, card
    == CPU. Phase 2 holds CE at [64 | 256, 1000] and RMSNorm at the
    redesign's shapes (`vision_cases`) to their plain versions;
+6k. serve-row (after 6b): the row engine, `InferenceEngine(model,
+   num_slots=8, max_length=1024, decode_block=8)` with no layout
+   argument (one KV row per slot, 4.29 GB at full width, read through
+   the paged kernel over its identity page table): phase 6's 12 requests
+   on the graph engine and its eager twin, every request's tokens equal
+   phase 6's paged engine's, phase 6's launch gates, `decode_step` and
+   one `prefill_<b>` per bucket captured once; the prefix cache (0.25: 2
+   retained slots) with 256-token chunks over phase 6c's trace, its
+   tokens equal a row engine's with the same chunks and no cache, row
+   copies = full-prompt hits, each `chunk_prefill_<b>` captured once;
+   phase 6e's 2-layer draft at k = 4, the tokens equal phase 6e's paged
+   speculating engine's; 8 requests of base and two adapters through
+   phase 6b's bank, the tokens equal phase 6b's paged engine's and the
+   adapter kernel launched; decode and prefill tok/s, TTFT, stranded
+   rows and row utilization logged beside phase 6's; at most 60 s;
+13. host (after phase 10): a Llama-2-7B-width 2-layer model's bf16
+   state (1.3 GB) through `save_sharded` / `load_sharded` under the
+   gitignored `build/`, loaded onto the card bit-equal, seconds and GB/s
+   beside `save` / `load` (npz), a `CheckpointManager(backend='native')`
+   save and restore; a `DataLoader(num_workers=2)` over 4 batches of 64
+   x 3 x 224 x 224 uint8 images and int64 labels served by the native
+   collator (no `io.native_collator` suppression) with the batches of a
+   `num_workers=0` loader, batches/s of both; the same model built under
+   `LazyGuard` allocates nothing, `initialize()` allocates exactly the
+   eager build's bytes, and one forward launches the RMSNorm and flash
+   kernels; both host libraries must build; at most 30 s;
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -3612,10 +3649,11 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
     t0 = time.perf_counter()
     handles = [eng.submit(p, sp, adapter_id=aid) for p, sp, aid in
                zip(prompts, params, adapter_ids or [None] * len(prompts))]
-    peak_pages = 0
+    peak_pages, rows = 0, pool_rows(eng.pool)
     while eng.has_work:
         eng.step()
-        peak_pages = max(peak_pages, eng.pool.used_page_count)
+        peak_pages = max(peak_pages, used_pages(eng.pool))
+        rows = max(rows, pool_rows(eng.pool))
     wall = time.perf_counter() - t0
     launches = {k: K.LAUNCHES[k] for k in kernels}
     every = dict(K.LAUNCHES)
@@ -3651,6 +3689,8 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         'decode_steps': st['decode_steps'],
         'ttft_mean_s': sum(ttft) / len(ttft), 'ttft_max_s': ttft[-1],
         'ttft_p50_s': ttft[len(ttft) // 2], 'peak_pages': peak_pages,
+        'peak_allocated_rows': rows[0], 'stranded_rows': rows[1],
+        'row_utilization': rows[2],
         'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
         'launches': launches, 'tokens': [h.tokens for h in handles],
         'every_launch': every,
@@ -3661,27 +3701,51 @@ def _run_serve(eng, prompts, params, adapter_ids, kernels, tag,
         f'{res["decode_tok_per_s"]:.1f} tok/s ({st["tokens"]} tokens in '
         f'{st["decode_seconds"]:.3f} s, {st["decode_rounds"]} rounds), TTFT '
         f'mean {res["ttft_mean_s"]:.3f} s p50 {res["ttft_p50_s"]:.3f} s max '
-        f'{res["ttft_max_s"]:.3f} s, pool peak {peak_pages} of '
-        f'{eng.pool.num_pages - 1} pages, peak device memory '
-        f'{res["peak_mem_gb"]:.2f} GB above the {base / 1e9:.2f} GB held '
-        f'before the engine was built; captures {st["traces"]}')
+        f'{res["ttft_max_s"]:.3f} s, {pool_peak_note(eng.pool, res)}, peak '
+        f'device memory {res["peak_mem_gb"]:.2f} GB above the '
+        f'{base / 1e9:.2f} GB held before the engine was built; captures '
+        f'{st["traces"]}')
     log(f'[{tag}] kernel launches on this run: {launches}')
     return res
+
+
+def used_pages(pool) -> int:
+    """Pages a paged pool has handed out (0 for a row pool, which holds
+    its rows for good)."""
+    return getattr(pool, 'used_page_count', 0)
+
+
+def pool_rows(pool) -> tuple:
+    """(allocated, stranded, utilization) of the pool's seated slots, from
+    its `stats()` (allocated rows: whole rows in a row pool, reserved
+    pages' rows in a paged one)."""
+    st = pool.stats()
+    alloc, written = st['allocated_rows'], st['written_rows']
+    return alloc, alloc - written, written / alloc if alloc else 1.0
+
+
+def pool_peak_note(pool, run: dict) -> str:
+    """The pool's peak for a log line: pages (paged) and rows (both)."""
+    pages = (f'pool peak {run["peak_pages"]} of {pool.num_pages - 1} pages, '
+             if hasattr(pool, 'num_pages') else 'row pool, ')
+    return (pages + f'at its most allocated {run["peak_allocated_rows"]} '
+            f'rows ({run["stranded_rows"]} stranded, utilization '
+            f'{run["row_utilization"]:.3f})')
 
 
 def eager_twin(eng, **kw):
     """An engine with `eng`'s model, bank and settings (and `kw`) that runs
     its decode sub-steps and its prefills uncaptured: the eager
-    reference of a graph engine."""
+    reference of a graph engine (a row engine's twin is a row engine)."""
     from paddle_tpu_torch.serving import InferenceEngine
+    layout = dict(kv_page_size=eng.pool.page_size,
+                  kv_quant=eng.pool.quant) if eng._paged else {}
     twin = InferenceEngine(eng.model, num_slots=eng.pool.num_slots,
                            max_length=eng.pool.max_length,
                            decode_block=eng.decode_block,
-                           kv_page_size=eng.pool.page_size,
                            adapter_bank=eng.adapter_bank,
-                           kv_quant=eng.pool.quant,
                            draft_model=eng.draft_model,
-                           num_draft_tokens=eng.spec_k, **kw)
+                           num_draft_tokens=eng.spec_k, **layout, **kw)
     twin._capture_decode = twin._capture_prefill = False
     return twin
 
@@ -3709,7 +3773,8 @@ def expected_traces(eng, buckets) -> dict:
     whole bucket), or none at all for what runs eagerly."""
     out = {eng._decode_name: 1} if eng._capture_decode else {}
     if eng._capture_prefill:
-        names = {'whole': 'paged_prefill', 'chunk': 'paged_chunk_prefill',
+        paged = 'paged_' if eng._paged else ''
+        names = {'whole': f'{paged}prefill', 'chunk': f'{paged}chunk_prefill',
                  'draft': 'draft_prefill'}
         if eng.draft_model is not None:
             buckets = set(buckets) | {('draft', b) for kind, b in buckets
@@ -3750,7 +3815,11 @@ def serve_eager(eng, res, prompts, params, adapter_ids, kernels,
     return eager
 
 
-def serve(cfg) -> dict:
+def serve(cfg, tag: str = 'serve') -> dict:
+    """Phase 6 (`tag` 'serve'): Llama-2-7B of `cfg` in bf16 from phase 6's
+    seed behind the graph engine (8 slots, pages of 16, decode_block 8)
+    and its eager twin, phase 6's 12 requests. With another `tag`, the
+    same at a cut depth: the model of the phases run at CUT_LAYERS."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.nlp import LlamaForCausalLM
     from paddle_tpu_torch.serving import (SAMPLING, InferenceEngine,
@@ -3763,7 +3832,7 @@ def serve(cfg) -> dict:
     base = torch.cuda.memory_allocated()
     eng = InferenceEngine(model, num_slots=8, max_length=1024,
                           decode_block=8, kv_page_size=16)
-    log(f'[serve] Llama {cfg.num_hidden_layers} layers x {cfg.hidden_size} '
+    log(f'[{tag}] Llama {cfg.num_hidden_layers} layers x {cfg.hidden_size} '
         f'bf16 built in {time.perf_counter() - t0:.1f} s, '
         f'{nbytes(*model.parameters()) / 1e9:.2f} GB of weights;'
         f' KV pool {eng.pool.num_pages} pages, '
@@ -3776,10 +3845,8 @@ def serve(cfg) -> dict:
     params[5] = SamplingParams(max_new_tokens=32, eos_token_id=-1,
                                strategy=SAMPLING, temperature=0.8,
                                top_p=0.9, seed=7)
-    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve',
-                     base)
-    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
-                        'serve')
+    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, tag, base)
+    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS, tag)
     from paddle_tpu_torch.weights import param_digest
     res.update(engine=eng, eager=eager, prompts=prompts, params=params,
                digest=param_digest(model))
@@ -3843,6 +3910,197 @@ def serve_adapters(served) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6k: the row engine (InferenceEngine's default layout)
+# ---------------------------------------------------------------------------
+
+ROW_ENGINE = dict(num_slots=8, max_length=1024, decode_block=8)
+ROW_BUDGET_S = 60.0
+ROW_ADAPTER_IDS = (None, 'ad0', 'ad1', None, 'ad1', 'ad0', None, 'ad0')
+
+
+def _same_tokens(tag: str, got: list, want: list, what: str) -> None:
+    """Every request's tokens of `got` equal `want`'s, or an error naming
+    the first request and position that differ."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            raise AssertionError(f'{tag}: request {j} differs from {what} '
+                                 f'first at {first_difference(a, b)}: {a} '
+                                 f'vs {b}')
+    if len(got) != len(want):
+        raise AssertionError(f'{tag}: {len(got)} requests, {what} has '
+                             f'{len(want)}')
+
+
+def serve_row(served, spec, adapted) -> dict:
+    """Phase 6k: the row engine (no layout argument: one KV row per slot,
+    read through the paged kernel over its identity page table) on phase
+    6's Llama-2-7B, with phase 6e's 2-layer draft and phase 6b's bank.
+
+    1. Phase 6's 12 requests through `_run_serve` (graph) and
+       `serve_eager`: each request's tokens equal phase 6's paged
+       engine's (the same flash, RMSNorm and paged kernels on the same K/V
+       values through a table of the same width), phase 6's launch gates,
+       `decode_step` and one `prefill_<b>` per bucket captured once, and
+       the eager twin's tokens equal.
+    2. The prefix cache (0.25: 2 retained slots) and 256-token chunks over
+       phase 6c's shared-prefix trace: the tokens equal a row engine's
+       with the same chunks and no cache (the system prompt is two whole
+       chunks, so both compute every row through the same chunks), the
+       row copies equal the full-prompt hits, each chunk bucket is
+       captured once, and the last prompt served again (retained last:
+       a full hit) takes one row copy and gets its tokens again.
+    3. Speculation with phase 6e's draft at k = SPEC_K: the tokens equal
+       phase 6e's paged speculating engine's (the same verify arithmetic);
+       how many equal step 1's is logged (a 5-row verify can round
+       differently from a 1-row step in bf16).
+    4. Eight requests, base and two adapters mixed, through phase 6b's
+       bank: the tokens equal phase 6b's paged engine's with the bank, and
+       the adapter kernel launches.
+    Logs the row pool's bytes beside the paged pool's, decode and prefill
+    tok/s and TTFT beside phase 6's, and the stranded rows and row
+    utilization at each pool's most allocated step beside the paged
+    pool's. The whole phase must take at
+    most ROW_BUDGET_S seconds."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    t_phase = time.perf_counter()
+    model = served['engine'].model
+    paged = served['engine'].pool
+    prompts, params = served['prompts'], served['params']
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, **ROW_ENGINE)
+    if eng.stats()['kv_layout'] != 'row':
+        raise AssertionError(f'serve-row: InferenceEngine(model) built a '
+                             f'{eng.stats()["kv_layout"]} engine')
+    log(f'[serve-row] row pool {eng.pool.num_slots} slots x '
+        f'{eng.pool.max_length} rows: {eng.pool.pool_bytes / 1e9:.2f} GB '
+        f'(the paged pool of phase 6: {paged.num_pages} pages, '
+        f'{paged.pool_bytes / 1e9:.2f} GB)')
+    res = _run_serve(eng, prompts, params, None, SERVE_KERNELS, 'serve-row',
+                     base)
+    _same_tokens('serve-row', res['tokens'], served['tokens'],
+                 'phase 6 (paged)')
+    eager = serve_eager(eng, res, prompts, params, None, SERVE_KERNELS,
+                        'serve-row')
+    log(f'[serve-row] every request\'s tokens equal phase 6\'s paged '
+        f'engine\'s (sampling included)')
+    for key, unit, fmt in (('decode_tok_per_s', 'tok/s', '.1f'),
+                           ('prefill_tok_per_s', 'tok/s', '.0f'),
+                           ('ttft_mean_s', 's', '.3f'),
+                           ('ttft_p50_s', 's', '.3f'),
+                           ('stranded_rows', 'rows', 'd'),
+                           ('row_utilization', '', '.3f')):
+        log(f'[serve-row]   {key}: row {res[key]:{fmt}} {unit}, paged '
+            f'(phase 6, same process) {served[key]:{fmt}} {unit}')
+    release(res)
+
+    # prefix cache and chunks, against the same chunks without a cache
+    warm, trace = prefix_trace(model.config.vocab_size,
+                               np.random.RandomState(5))
+    tparams = prefix_params(len(trace))
+    runs = {}
+    for tag, opts in (('serve-row prefix', PREFIX_OPTS),
+                      ('serve-row cold', {'prefill_chunk_tokens':
+                                          PREFIX_OPTS['prefill_chunk_tokens']
+                                          })):
+        base = torch.cuda.memory_allocated()
+        e = InferenceEngine(model, **ROW_ENGINE, **opts)
+        runs[tag] = _run_prefix(e, warm, trace, tparams, tag, base)
+        if opts is PREFIX_OPTS:
+            # the last prompt again: retained last, so a full-prompt hit,
+            # served by a copy of its row
+            copies = e.pool.stats()['row_copies']
+            again = e.generate_many(trace[-1:], tparams[-1:])[0]
+            runs[tag]['repeat'] = (again.tokens, again._prefix_len,
+                                   e.pool.stats()['row_copies'] - copies)
+        del e
+    pre, cold = runs['serve-row prefix'], runs['serve-row cold']
+    _same_tokens('serve-row prefix', pre['tokens'], cold['tokens'],
+                 'the row engine without a cache')
+    if pre['row_copies'] != pre['full_hits']:
+        raise AssertionError(f'serve-row prefix: {pre["row_copies"]} row '
+                             f'copies, {pre["full_hits"]} full-prompt hits')
+    toks, matched, copies = pre['repeat']
+    if matched != len(trace[-1]) or copies != 1 or toks != pre['tokens'][-1]:
+        raise AssertionError(f'serve-row prefix: the repeated last prompt '
+                             f'matched {matched} of {len(trace[-1])} tokens, '
+                             f'{copies} row copies, tokens {toks} vs '
+                             f'{pre["tokens"][-1]}')
+    if pre['hits'] < 1 or not any(k == 'chunk' for k, _ in pre['buckets']):
+        raise AssertionError(f'serve-row prefix: {pre["hits"]} hits, '
+                             f'prefills {pre["buckets"]}')
+    log(f'[serve-row prefix] tokens == the cold row engine\'s for all '
+        f'{len(trace)} requests; hits {pre["hits"]}, tokens reused '
+        f'{pre["tokens_reused"]}, evictions {pre["evictions"]}, row copies '
+        f'{pre["row_copies"]} = full hits {pre["full_hits"]} (and the repeated '
+        f'last prompt: a full hit, one row copy, its tokens again), prompt '
+        f'tokens computed {pre["prefill_tokens"]} vs {cold["prefill_tokens"]}, '
+        f'TTFT mean {pre["ttft_mean_s"]:.3f} vs {cold["ttft_mean_s"]:.3f} s, '
+        f'decode {pre["decode_tok_per_s"]:.1f} vs '
+        f'{cold["decode_tok_per_s"]:.1f} tok/s')
+
+    # speculation with phase 6e's draft
+    base = torch.cuda.memory_allocated()
+    e = InferenceEngine(model, num_slots=8, max_length=1024,
+                        draft_model=spec['draft'], num_draft_tokens=SPEC_K)
+    sres = _run_serve(e, prompts, params, None, SPEC_KERNELS,
+                      'serve-row spec', base)
+    if sres['launches']['paged_attention_verify'] != \
+            model.config.num_hidden_layers * sres['decode_steps']:
+        raise AssertionError(f'serve-row spec: '
+                             f'{sres["launches"]["paged_attention_verify"]} '
+                             f'verify launches for {sres["decode_steps"]} '
+                             f'rounds')
+    _same_tokens('serve-row spec', sres['tokens'], spec['draft2']['tokens'],
+                 'phase 6e\'s paged speculating engine')
+    same = sum(a == b for a, b in zip(sres['tokens'], served['tokens']))
+    log(f'[serve-row spec] k={SPEC_K}: tokens == phase 6e\'s paged '
+        f'speculating engine\'s for all {len(prompts)} requests; {same} of '
+        f'{len(prompts)} equal step 1\'s (plain decode); decode '
+        f'{sres["decode_tok_per_s"]:.1f} tok/s (6e paged '
+        f'{spec["draft2"]["decode_tok_per_s"]:.1f})')
+    del e
+    release(sres)
+
+    # adapters through phase 6b's bank, against phase 6b's paged engine
+    bank = adapted['engine'].adapter_bank
+    ids = list(ROW_ADAPTER_IDS)
+    few, fparams = prompts[:len(ids)], params[:len(ids)]
+    want = [h.tokens for h in adapted['engine'].generate_many(
+        few, fparams, adapter_ids=ids)]
+    base = torch.cuda.memory_allocated()
+    e = InferenceEngine(model, **ROW_ENGINE, adapter_bank=bank)
+    e.generate_many(few, [SamplingParams(max_new_tokens=1,
+                                         eos_token_id=-1)] * len(ids),
+                    adapter_ids=ids)
+    K.reset_launch_counts()
+    got = [h.tokens for h in e.generate_many(few, fparams, adapter_ids=ids)]
+    ad_launches = K.LAUNCHES['adapter_matmul']
+    _same_tokens('serve-row adapters', got, want, 'phase 6b\'s paged engine')
+    if ad_launches <= 0:
+        raise AssertionError('serve-row adapters: the adapter kernel never '
+                             'launched')
+    log(f'[serve-row adapters] {len(ids)} requests ({ids}): tokens == phase '
+        f'6b\'s paged engine\'s; {ad_launches} adapter launches')
+    del e
+    launches = collections.Counter(res['launches'])
+    for run in (eager, pre, sres):
+        launches.update(run['launches'])
+    launches['adapter_matmul'] += ad_launches
+    release(eager)
+    seconds = time.perf_counter() - t_phase
+    log(f'[serve-row] phase 6k took {seconds:.1f} s (budget '
+        f'{ROW_BUDGET_S:.0f} s)')
+    if seconds > ROW_BUDGET_S:
+        raise AssertionError(f'serve-row: phase 6k took {seconds:.1f} s, '
+                             f'over its {ROW_BUDGET_S:.0f} s budget')
+    return {'launches': dict(launches), 'seconds': seconds,
+            'decode_tok_per_s': res['decode_tok_per_s'],
+            'stranded_rows': res['stranded_rows']}
+
+
+# ---------------------------------------------------------------------------
 # phase 6c: serve with the prefix cache and chunked prefill
 # ---------------------------------------------------------------------------
 
@@ -3854,6 +4112,10 @@ PREFIX_ENGINE = dict(num_slots=8, max_length=1024, decode_block=8,
                      kv_page_size=16)
 PREFIX_OPTS = dict(prefix_cache=0.25, prefill_chunk_tokens=256)
 PREFIX_MIN_HITS = 13
+# the depth of the phases that run on a cut copy of phase 6's model
+# (6f, 6c, 6d and 6e's self-draft arm), which keeps the whole smoke
+# inside its time limit
+CUT_LAYERS = 8
 
 
 def prefix_trace(vocab: int, rng) -> tuple:
@@ -3899,8 +4161,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
     and the (kind, bucket) of every prefill the runs ran, for what the
     engine captures."""
     from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.serving import (FINISHED, PagedPrefixCache,
-                                          SamplingParams)
+    from paddle_tpu_torch.serving import FINISHED, SamplingParams
     vocab = eng.model.config.vocab_size
     sp_warm = SamplingParams(max_new_tokens=32, eos_token_id=-1)
     buckets = collections.Counter()
@@ -3924,7 +4185,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
             # they change the hits (tests/test_torch_prefix_cache.py:
             # test_refused_insert_leaves_the_same_trie_as_jax)
             eng.prefix_cache.clear(force=True)
-            eng.prefix_cache = PagedPrefixCache(
+            eng.prefix_cache = type(eng.prefix_cache)(
                 eng.pool, PREFIX_OPTS['prefix_cache'])
         eng.generate_many([warm], sp_warm)
         traces = eng.stats()['traces']
@@ -3932,7 +4193,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
         buckets.clear()
         eng.reset_stats()
         cache0 = eng.prefix_cache.stats() if eng.prefix_cache else {}
-        cow0 = eng.pool.stats()['cow_splits']
+        pool0 = eng.pool.stats()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3940,7 +4201,7 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
         peak_pages = 0
         while eng.has_work:
             eng.step()
-            peak_pages = max(peak_pages, eng.pool.used_page_count)
+            peak_pages = max(peak_pages, used_pages(eng.pool))
         wall = time.perf_counter() - t0
     finally:
         del eng._run_prefill
@@ -3981,7 +4242,12 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
         'evictions': cache.get('evictions', 0) - cache0.get('evictions', 0),
         'chunk_rounds': st['chunk_rounds'],
         'chunked_prefills': st['chunked_prefills'],
-        'cow_splits': st['pool']['cow_splits'] - cow0,
+        'cow_splits': (st['pool'].get('cow_splits', 0)
+                       - pool0.get('cow_splits', 0)),
+        'row_copies': (st['pool'].get('row_copies', 0)
+                       - pool0.get('row_copies', 0)),
+        'full_hits': sum(h._prefix_len >= len(h.prompt_tokens)
+                         for h in handles),
         'prefills': st['prefills'], 'requeued': st['requeued'],
         'prefill_tokens': st['prefill_tokens'],
         'prefill_s': st['prefill_seconds'],
@@ -4003,10 +4269,12 @@ def _run_prefix(eng, warm, prompts, params, tag: str, base: int,
         f'{res["prefills"]}, prompt tokens computed {res["prefill_tokens"]}'
         f' in {res["prefill_s"]:.3f} s, decode {res["decode_tok_per_s"]:.1f}'
         f' tok/s, TTFT mean {res["ttft_mean_s"]:.3f} s p50 '
-        f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s, pool '
-        f'peak {peak_pages} of {eng.pool.num_pages - 1} pages, requeued '
-        f'{res["requeued"]}, peak device memory {res["peak_mem_gb"]:.2f} GB '
-        f'above {base / 1e9:.2f} GB')
+        f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s, '
+        + (f'pool peak {peak_pages} of {eng.pool.num_pages - 1} pages'
+           if eng._paged else f'row copies {res["row_copies"]} (full hits '
+                              f'{res["full_hits"]})')
+        + f', requeued {res["requeued"]}, peak device memory '
+        f'{res["peak_mem_gb"]:.2f} GB above {base / 1e9:.2f} GB')
     log(f'[{tag}] kernel launches {launches} (flash = {layers} x every '
         f'prefill and chunk); prefills by (kind, bucket) {res["buckets"]}; '
         f'captures {traces} in {capture_s:.2f} s of the {warm_s:.2f} s '
@@ -4512,16 +4780,19 @@ def first_difference(a, b):
                 None if len(a) == len(b) else min(len(a), len(b)))
 
 
-def serve_spec(served) -> dict:
+def serve_spec(served, cut) -> dict:
     """Phase 6's model, requests and engine settings with a draft model
     (k = SPEC_K), two drafts in turn: the JAX bench's same-width 2-layer
-    draft with random weights (bench.py:361-370) and the model itself
-    (the acceptance ceiling). Each on the graph engine and its eager twin
+    draft with random weights (bench.py:361-370) on phase 6's model, and
+    the model itself (the acceptance ceiling) on the cut model of `cut`
+    (CUT_LAYERS of 32), beside that model's own run. Each
+    on the graph engine and its eager twin
     (`_run_serve`, `serve_eager`): equal tokens, the verify kernel once
     per layer of every round (replays counted). Logs decode tok/s, TTFT,
-    tokens per round per greedy slot and the acceptance rate beside phase
-    6, and how many requests get phase 6's tokens (a reading: in bf16 a
-    5-row verify can round differently from a 1-row step). With the
+    tokens per round per greedy slot and the acceptance rate beside its
+    model's plain run, and how many requests get that run's tokens (a
+    reading: in bf16 a 5-row verify can round differently from a 1-row
+    step). With the
     2-layer draft also the wall of one round with every slot busy, graph
     and eager, before any profiling (phase 7's idle shares use it). Runs
     right after phase 6, while only its engines hold device memory, and
@@ -4531,22 +4802,25 @@ def serve_spec(served) -> dict:
     from paddle_tpu_torch.nlp import LlamaForCausalLM
     from paddle_tpu_torch.serving import InferenceEngine
     model = served['engine'].model
-    layers = model.config.num_hidden_layers
     draft = LlamaForCausalLM(draft_config(model.config, 2), device=DEV,
                              dtype='bfloat16',
                              generator=ptt.generator(4321, DEV))
     greedy = [j for j, sp in enumerate(served['params'])
               if sp.strategy != 'sampling']
     out = {}
-    for key, d, label in (('draft2', draft, '2-layer random draft'),
-                          ('self', model, 'self-draft')):
+    for key, ref, d, label in (
+            ('draft2', served, draft, '2-layer random draft'),
+            ('self', cut, cut['engine'].model,
+             f'self-draft at {CUT_LAYERS} layers')):
         tag = f'serve-spec {label}'
+        target = ref['engine'].model
+        layers = target.config.num_hidden_layers
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        eng = InferenceEngine(model, num_slots=8, max_length=1024,
+        eng = InferenceEngine(target, num_slots=8, max_length=1024,
                               kv_page_size=16, draft_model=d,
                               num_draft_tokens=SPEC_K)
-        res = _run_serve(eng, served['prompts'], served['params'], None,
+        res = _run_serve(eng, ref['prompts'], ref['params'], None,
                          SPEC_KERNELS, tag, base)
         spec = eng.stats()['spec']
         want = layers * res['decode_steps']
@@ -4555,28 +4829,28 @@ def serve_spec(served) -> dict:
             raise AssertionError(
                 f'{tag}: {res["launches"]["paged_attention_verify"]} verify '
                 f'launches, want {layers} x {res["decode_steps"]} rounds')
-        eager = serve_eager(eng, res, served['prompts'], served['params'],
+        eager = serve_eager(eng, res, ref['prompts'], ref['params'],
                             None, SPEC_KERNELS, tag)
         if key == 'draft2':
             for run, e in ((res, eng), (eager, eager['engine'])):
-                run['round_wall_s'] = spec_round_wall(e, served['prompts'])
+                run['round_wall_s'] = spec_round_wall(e, ref['prompts'])
         per_round = 1 + spec['accepted'] / max(spec['proposed'] / SPEC_K, 1)
         same = [j for j in range(len(res['tokens']))
-                if res['tokens'][j] == served['tokens'][j]]
-        diffs = {j: first_difference(res['tokens'][j], served['tokens'][j])
+                if res['tokens'][j] == ref['tokens'][j]]
+        diffs = {j: first_difference(res['tokens'][j], ref['tokens'][j])
                  for j in range(len(res['tokens'])) if j not in same}
         log(f'[{tag}] k={SPEC_K}: {spec["rounds"]} rounds, acceptance rate '
             f'{spec["acceptance_rate"]:.4f}, {per_round:.3f} tokens per round '
             f'per greedy slot; decode {res["decode_tok_per_s"]:.1f} tok/s = '
-            f'{res["decode_tok_per_s"] / served["decode_tok_per_s"]:.3f} x '
-            f'phase 6\'s {served["decode_tok_per_s"]:.1f} (same process), '
+            f'{res["decode_tok_per_s"] / ref["decode_tok_per_s"]:.3f} x '
+            f'its model\'s {ref["decode_tok_per_s"]:.1f} (same process), '
             f'TTFT mean {res["ttft_mean_s"]:.3f} s p50 '
-            f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s (phase '
-            f'6: {served["ttft_mean_s"]:.3f} / {served["ttft_p50_s"]:.3f} / '
-            f'{served["ttft_max_s"]:.3f})')
+            f'{res["ttft_p50_s"]:.3f} s max {res["ttft_max_s"]:.3f} s (its '
+            f'model: {ref["ttft_mean_s"]:.3f} / {ref["ttft_p50_s"]:.3f} / '
+            f'{ref["ttft_max_s"]:.3f})')
         log(f'[{tag}] {len(same)} of {len(res["tokens"])} requests '
             f'({sum(j in same for j in greedy)} of {len(greedy)} greedy) get '
-            f'phase 6\'s tokens; first differing position by request '
+            f'its model\'s tokens; first differing position by request '
             f'{diffs}')
         res.update(engine=eng, eager=eager, spec=spec,
                    tokens_per_round=per_round)
@@ -9218,6 +9492,215 @@ def vision_phase() -> dict:
     return {'train': train, 'f32': f32, 'zoo': zoo, 'ops': ops_res}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the native host pieces
+# ---------------------------------------------------------------------------
+
+HOST_ROOT = Path(__file__).resolve().parent / 'build' / 'host_phase'
+HOST_BUDGET_S = 30.0
+HOST_LAYERS = 2             # Llama-2-7B width, 2 of 32 layers: ~1.3 GB bf16
+HOST_BATCHES, HOST_BATCH = 4, 64
+
+
+def _gbps(nbytes: int, seconds: float) -> str:
+    return f'{seconds:.3f} s ({nbytes / seconds / 1e9:.2f} GB/s)'
+
+
+def host_checkpoints(state: dict) -> None:
+    """`save_sharded` / `load_sharded` of `state` (bf16 tensors on the
+    card) under the gitignored build/, loaded back onto the card
+    bit-equal, timed beside `save` / `load` (npz) of the same state; then
+    one `CheckpointManager(backend='native')` save and restore. The files
+    are deleted after."""
+    from paddle_tpu_torch import serialization as ser
+    from paddle_tpu_torch.utils import CheckpointManager, ckpt_native
+    if not ckpt_native.available():
+        raise AssertionError('host: the native checkpoint sharder did not '
+                             'build')
+    size = nbytes(*state.values())
+    shutil.rmtree(HOST_ROOT, ignore_errors=True)
+    HOST_ROOT.mkdir(parents=True)
+    try:
+        walls = {}
+        for label, save, load, path in (
+                ('sharded', ser.save_sharded, ser.load_sharded,
+                 HOST_ROOT / 'sharded'),
+                ('npz', ser.save, ser.load, HOST_ROOT / 'state.npz')):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(state, str(path))
+            t1 = time.perf_counter()
+            back = load(str(path), device=DEV)
+            torch.cuda.synchronize()
+            walls[label] = (t1 - t0, time.perf_counter() - t1)
+            bad = [k for k, v in state.items()
+                   if back[k].device != v.device or back[k].dtype !=
+                   v.dtype or not torch.equal(back[k], v)]
+            if bad:
+                raise AssertionError(f'host: {label} load is not bit-equal '
+                                     f'on the card: {bad[:4]}')
+            del back
+        log(f'[host] {len(state)} bf16 tensors, {size / 1e9:.3f} GB, loaded '
+            f'back onto the card bit-equal; sharded save '
+            f'{_gbps(size, walls["sharded"][0])}, load '
+            f'{_gbps(size, walls["sharded"][1])}; npz save '
+            f'{_gbps(size, walls["npz"][0])}, load '
+            f'{_gbps(size, walls["npz"][1])} (page cache warm)')
+        mgr = CheckpointManager(str(HOST_ROOT / 'mgr'), backend='native')
+        small = {k: state[k] for k in list(state)[:4]}
+        mgr.save(1, {'params': small, 'step': 1})
+        tree = mgr.restore()
+        if tree['step'] != 1 or not all(
+                torch.equal(torch.as_tensor(tree['params'][k]).to(DEV), v)
+                for k, v in small.items()):
+            raise AssertionError('host: CheckpointManager(backend=native) '
+                                 'restored another tree')
+        log(f'[host] CheckpointManager(backend=\'native\'): step 1 saved '
+            f'and restored ({mgr.backend}, {len(small)} tensors)')
+    finally:
+        shutil.rmtree(HOST_ROOT, ignore_errors=True)
+
+
+class _HostImages:
+    """HOST_BATCHES x HOST_BATCH uint8 images [3, 224, 224] with int64
+    labels, made from a seed (a `paddle.io` map-style dataset)."""
+
+    def __init__(self, n: int):
+        rng = np.random.RandomState(13)
+        self.x = rng.randint(0, 256, (n, 3, 224, 224), dtype=np.uint8)
+        self.y = rng.randint(0, 1000, (n,)).astype(np.int64)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def host_collator() -> None:
+    """A `DataLoader(num_workers=2)` over HOST_BATCHES batches of
+    HOST_BATCH images: the native collator serves it (no
+    `io.native_collator` suppression counted) and its batches equal a
+    `num_workers=0` loader's; batches/s of both."""
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.io import native
+    if not native.available():
+        raise AssertionError('host: the native staging runtime did not '
+                             'build')
+    was = obs.enabled()
+    obs.enable()
+    reg = obs.get_registry()
+    site = dict(site='io.native_collator')
+    before = reg.value('paddle_suppressed_errors_total', **site)
+    data = _HostImages(HOST_BATCHES * HOST_BATCH)
+    batches, rates = {}, {}
+    for workers in (2, 0):
+        loader = pio.DataLoader(data, batch_size=HOST_BATCH,
+                                num_workers=workers)
+        if workers and loader._native is None:
+            raise AssertionError('host: the loader did not take the native '
+                                 'collator')
+        t0 = time.perf_counter()
+        batches[workers] = list(loader)
+        rates[workers] = len(batches[workers]) / (time.perf_counter() - t0)
+        del loader
+    if reg.value('paddle_suppressed_errors_total', **site) != before:
+        raise AssertionError('host: the native collator failed to start '
+                             '(io.native_collator counted)')
+    if not was:
+        obs.disable()
+    for (xa, ya), (xb, yb) in zip(batches[2], batches[0]):
+        if not (torch.equal(xa, xb) and torch.equal(ya, yb)):
+            raise AssertionError('host: native and Python batches differ')
+    log(f'[host] DataLoader over {HOST_BATCHES} batches of {HOST_BATCH} x '
+        f'3 x 224 x 224 uint8 + int64 labels: native collator (2 workers) '
+        f'{rates[2]:.1f} batches/s, Python (0 workers) {rates[0]:.1f} '
+        f'batches/s, equal batches')
+
+
+def host_lazy(cfg) -> None:
+    """A Llama-2-7B-width model of HOST_LAYERS layers built under
+    `LazyGuard` allocates nothing; `initialize()` of every parameter
+    raises the allocated bytes by exactly what the eager model's build
+    did; one forward then launches the RMSNorm and flash kernels."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    eager = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(7, DEV))
+    torch.cuda.synchronize()
+    eager_bytes = torch.cuda.memory_allocated() - m0
+    del eager
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    with ptt.LazyGuard():
+        lazy = LlamaForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                                generator=ptt.generator(7, DEV))
+    built = torch.cuda.memory_allocated() - m0
+    if built != 0 or any(p.device.type != 'meta'
+                         for p in lazy.parameters()):
+        raise AssertionError(f'host: the model built under LazyGuard '
+                             f'allocated {built} bytes')
+    for p in lazy.parameters():
+        p.initialize()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - m0
+    if grown != eager_bytes:
+        raise AssertionError(f'host: initialize() allocated {grown} bytes, '
+                             f'the eager model {eager_bytes}')
+    K.reset_launch_counts()
+    ids = torch.randint(3, cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(3)).to(DEV)
+    with torch.no_grad():
+        logits = lazy(ids)
+    torch.cuda.synchronize()
+    logits = logits[0] if isinstance(logits, tuple) else logits
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError('host: the initialized model gave non-finite '
+                             'logits')
+    missing = [k for k in ('rms_norm', 'flash_attention_fwd')
+               if K.LAUNCHES[k] <= 0]
+    if missing:
+        raise AssertionError(f'host: the forward launched no {missing}')
+    log(f'[host] LazyGuard: {cfg.num_hidden_layers}-layer Llama-2-7B-width '
+        f'model built with 0 bytes allocated; initialize() allocated '
+        f'{grown / 1e9:.3f} GB = the eager build; one forward launched '
+        f'rms_norm {K.LAUNCHES["rms_norm"]}, flash '
+        f'{K.LAUNCHES["flash_attention_fwd"]} times')
+
+
+def host_phase(cfg) -> dict:
+    """Phase 13: sharded checkpoints, the native collator and LazyGuard
+    (`host_checkpoints`, `host_collator`, `host_lazy`), in at most
+    HOST_BUDGET_S seconds. The state checkpointed is a
+    Llama-2-7B-width HOST_LAYERS-layer model's bf16 parameters."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    t0 = time.perf_counter()
+    small = draft_config(cfg, HOST_LAYERS)
+    model = LlamaForCausalLM(small, device=DEV, dtype='bfloat16',
+                             generator=ptt.generator(5, DEV))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    host_checkpoints(state)
+    del model, state
+    host_collator()
+    host_lazy(small)
+    seconds = time.perf_counter() - t0
+    log(f'[host] phase 13 took {seconds:.1f} s (budget '
+        f'{HOST_BUDGET_S:.0f} s)')
+    if seconds > HOST_BUDGET_S:
+        raise AssertionError(f'host: phase 13 took {seconds:.1f} s, over '
+                             f'its {HOST_BUDGET_S:.0f} s budget')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'seconds': seconds}
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -9474,6 +9957,24 @@ def main() -> int:
         log('[vision] launches ' + json.dumps(vis['train']['launches']))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--row']:
+        # python3 chip_smoke.py --row: phases 6, 6e and 6b (the model, the
+        # draft and the bank; 6e's self-draft arm on the cut model), then
+        # phase 6k alone
+        build()
+        res = serve(LlamaConfig.llama2_7b())
+        cut = serve(LlamaConfig.llama2_7b(num_hidden_layers=CUT_LAYERS),
+                    'serve-cut')
+        spec = serve_spec(res, cut)
+        adapted = serve_adapters(res)
+        row = serve_row(res, spec, adapted)
+        log(f'[serve-row] launches {json.dumps(row["launches"])}')
+        return 0
+    if sys.argv[1:2] == ['--host']:
+        # python3 chip_smoke.py --host: phase 13 alone
+        build()
+        host_phase(LlamaConfig.llama2_7b())
+        return 0
     if sys.argv[1:2] == ['--procs']:
         # python3 chip_smoke.py --procs: phase 6j on phase 6's requests and
         # tokens, without the phases between
@@ -9538,10 +10039,13 @@ def main() -> int:
     vis = vision_phase()
     mark('phase 12')
     res = serve(LlamaConfig.llama2_7b())
-    spec = serve_spec(res)
-    drain_swap(res)
+    cut = serve(LlamaConfig.llama2_7b(num_hidden_layers=CUT_LAYERS),
+                'serve-cut')
+    spec = serve_spec(res, cut)
+    drain_swap(cut)
     adapted = serve_adapters(res)
-    mark('phases 6, 6e, 6f, 6b')
+    rowed = serve_row(res, spec, adapted)
+    mark('phases 6, 6e, 6f, 6b, 6k')
     t6g = time.perf_counter()
     stored = serve_adapter_store(res, adapted)
     weights = weight_store_swap(res)
@@ -9552,14 +10056,14 @@ def main() -> int:
     log(f'[observe] phase 6h took {time.perf_counter() - t6h:.1f} s')
     fleet = serve_fleet(res, adapted)
     mark('phases 6g-6i')
-    prefixed = serve_prefix(res)
-    int8 = serve_int8(res, prefixed)
+    prefixed = serve_prefix(cut)
+    int8 = serve_int8(cut, prefixed)
     mark('phases 6c, 6d')
     log(f'[host] one adapted projection (hook + wrapper + launch, decode '
         f'shape): {hook_host_us():.2f} us of host time per call')
     profile_serve(res, adapted, prefixed)
     profile_int8(int8)
-    release(res, adapted, prefixed, prefixed['eager_prefill'], int8)
+    release(res, cut, adapted, prefixed, prefixed['eager_prefill'], int8)
     profile_spec(spec)
     del spec['model'], spec['draft']
     profile_train(pretrained['step'], trained['batch'],
@@ -9577,7 +10081,8 @@ def main() -> int:
     n_ops = op_sweep()
     gpt = gpt_family()
     fp16 = fp16_phase()
-    mark('phases 8 (op sweep), 9, 10')
+    host_phase(LlamaConfig.llama2_7b())
+    mark('phases 8 (op sweep), 9, 10, 13')
     opt_cases = optimizer_cases()
     check_kernels(opt_cases)
     rungs = rung_cases()
@@ -9603,7 +10108,8 @@ def main() -> int:
         key = ROW_KEYS.get(name, (name,))[0]
         launches = sum(run['launches'].get(key, 0)
                        for run in (res, trained, pretrained, adapted,
-                                   stored, weights, fleet, prefixed, int8,
+                                   rowed, stored, weights, fleet, prefixed,
+                                   int8,
                                    spec['draft2'], spec['self'], procs,
                                    eager, *rest.values(), *gpt.values(),
                                    *fp16.values(), *t5.values(),

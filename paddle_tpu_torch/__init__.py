@@ -51,6 +51,14 @@ and RNN layers with their functional entries, `nn.utils`, and `vision`
 (the model zoo from LeNet to InceptionV3, the detection ops,
 transforms, datasets), ResNet-50 trained through `Model.fit` with its
 loss on the CE kernels.
+
+The row engine and the host pieces: `serving.InferenceEngine` builds the
+JAX package's default layout, one KV row per slot, unless a page
+argument asks for pages; `serialization.save_sharded` / `load_sharded`,
+`utils.CheckpointManager(backend='native')` and the `DataLoader`'s
+native collator over the port's copies of the host C++; `flops`,
+`summary`, `LazyGuard` and `utils`' `unique_name`, `try_import` and
+`deprecated`.
 """
 # the op surface first: the modules imported below keep their names
 from .ops import *  # noqa: F401,F403
@@ -70,10 +78,11 @@ from .framework import (CPUPlace, CUDAPlace, Place, TPUPlace, XLAPlace,
                         get_device, get_place, resolve_device, seed,
                         set_default_dtype, set_device, synchronize)
 from .hapi import Model
-from .nn.layer import ParamAttr
+from .nn.layer import LazyGuard, ParamAttr
 from .hapi import callbacks_mod as callbacks
 from .ops import linalg
 from .serialization import load, save
 from .tensor import Parameter, Tensor, set_printoptions
+from .utils.flops import flops, summary
 
 bool = bool_  # paddle.bool

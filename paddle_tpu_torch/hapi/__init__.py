@@ -503,61 +503,18 @@ class Model:
 
     def summary(self, input_size=None, dtype=None):
         """Print the network and its parameter counts; returns
-        {'total_params', 'trainable_params'}. With `input_size` the
-        network also runs once on zeros of that shape (token ids for a
-        network with a `config.vocab_size`), each leaf module's output
-        shape is listed, and a network with a transformer config adds
-        'flops': the analytic FLOPs of that causal forward
-        (`observability.cost.TransformerCost`; the JAX package counts
-        them in `utils/flops.py`, which the port does not have)."""
+        {'total_params', 'trainable_params'}. With `input_size` it is
+        `utils.flops.summary` (one dry run on float32 zeros of that
+        shape and a table of each leaf layer's output shape), as in the
+        JAX package."""
+        if input_size is not None:
+            from ..utils.flops import summary as _summary
+            return _summary(self.network, input_size=input_size)
         total = int(sum(p.numel() for p in self.network.parameters()))
         trainable = int(sum(p.numel() for p in self.network.parameters()
                             if p.requires_grad))
-        lines = [repr(self.network)]
-        out = {'total_params': total, 'trainable_params': trainable}
-        if input_size is not None:
-            lines += self._shape_table(list(input_size))
-            cfg = getattr(self.network, 'config', None)
-            if getattr(cfg, 'intermediate_size', None) is not None \
-                    and len(input_size) == 2:
-                from ..observability.cost import TransformerCost
-                b, s = input_size
-                flops, _ = TransformerCost(cfg).forward(
-                    b * s, b * s * (s + 1) // 2, 0, b * s)
-                out['flops'] = int(flops)
-                lines.append(f'FLOPs (forward, analytic): {int(flops):,}')
-        lines += [f'Total params: {total:,}',
-                  f'Trainable params: {trainable:,}']
+        lines = [repr(self.network),
+                 f'Total params: {total:,}',
+                 f'Trainable params: {trainable:,}']
         print('\n'.join(lines))
-        return out
-
-    def _shape_table(self, input_size) -> List[str]:
-        rows, hooks = [], []
-        for path, sub in self.network.named_modules():
-            if next(sub.children(), None) is not None:
-                continue
-
-            def hook(mod, inputs, o, path=path):
-                o = o[0] if isinstance(o, (tuple, list)) else o
-                rows.append((path or type(mod).__name__, type(mod).__name__,
-                             list(getattr(o, 'shape', [])),
-                             sum(p.numel() for p in mod.parameters(
-                                 recurse=False))))
-            hooks.append(sub.register_forward_hook(hook))
-        was_training = self.network.training
-        self.network.eval()
-        cfg = getattr(self.network, 'config', None)
-        ids = getattr(cfg, 'vocab_size', None) is not None
-        try:
-            with torch.no_grad():
-                self.network(torch.zeros(input_size, device=self._device,
-                                         dtype=torch.int64 if ids
-                                         else torch.float32))
-        finally:
-            for h in hooks:
-                h.remove()
-            self.network.train(was_training)
-        header = f'{"Layer (type)":<40}{"Output Shape":<24}{"Param #":>12}'
-        return [header, '-' * len(header)] + [
-            f'{path + " (" + tname + ")":<40}{str(shape):<24}{n:>12,}'
-            for path, tname, shape, n in rows] + ['-' * len(header)]
+        return {'total_params': total, 'trainable_params': trainable}

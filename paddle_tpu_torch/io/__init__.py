@@ -10,11 +10,16 @@ threads fetch and collate in parallel and keep the batch order.
 
 Batches are CPU torch tensors (`default_collate_fn`: numpy rows stacked,
 ints as int64, floats as float32); `jit.TrainStep` moves them to the
-card. The JAX loader's native collator (host C++ in `csrc/staging.cpp`,
-`io/native.py`) is not ported (ROADMAP.md, Queue 1): the port collates in
-Python, as the JAX loader does where its native runtime is missing, and
-`_NativeCollator` raises. `DistributedBatchSampler` waits for
-`distributed/` (ROADMAP.md, Queue 1) and raises.
+card. As in the JAX loader, a loader with `num_workers > 0` and no
+custom `collate_fn` assembles each batch of flat numeric samples in a
+staging slot through the host C++ decoder pool (`_NativeCollator` over
+`io/native.py`, the port's copy of `csrc/staging.cpp`) where the native
+runtime builds, and in Python otherwise; a collator that fails to start
+is counted under `count_suppressed('io.native_collator')`. Either way
+the batch holds the Python collator's values (a tuple for a tuple or
+list sample, as the JAX native collator returns it).
+`DistributedBatchSampler` waits for `distributed/` (ROADMAP.md, Queue 1)
+and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..analysis.runtime import concurrency as _concurrency
+from . import native
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -290,12 +296,85 @@ def default_collate_fn(batch: List[Any]):
     raise TypeError(f'cannot collate {type(first).__name__}')
 
 
-class _NativeCollator:
-    """The JAX loader's batch assembly in a staging ring over its host C++
-    decoder pool (`csrc/staging.cpp`)."""
+def _flat_numeric_samples(sample) -> Optional[List[np.ndarray]]:
+    """If a sample is a flat tuple/list of fixed-dtype ndarrays (or
+    Python numbers), return them as arrays (the native path); else
+    None."""
+    items = sample if isinstance(sample, (tuple, list)) else (sample,)
+    out = []
+    for it in items:
+        if isinstance(it, np.ndarray) and it.dtype != object:
+            out.append(np.ascontiguousarray(it))
+        elif isinstance(it, (int, np.integer)):
+            out.append(np.asarray(it, np.int64))
+        elif isinstance(it, (float, np.floating)):
+            out.append(np.asarray(it, np.float32))
+        else:
+            return None
+    return out
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported('the native collator (csrc/staging.cpp)')
+
+class _NativeCollator:
+    """Assemble batches in a staging slot through the C++ decoder pool
+    (the JAX package's `_NativeCollator`): each sample's fields are copied
+    into the slot by the pool's threads, then each field's rows leave the
+    slot as one torch tensor."""
+
+    def __init__(self, n_threads: int, slot_bytes: int, n_slots: int = 4):
+        self.pool = native.DecoderPool(max(1, n_threads))
+        self.staging = native.StagingBuffer(slot_bytes, n_slots)
+
+    def collate(self, samples: List[List[np.ndarray]], structure):
+        nfields = len(samples[0])
+        bsz = len(samples)
+        # field layout inside the slot, 64-byte aligned
+        offsets, sizes, metas = [], [], []
+        ofs = 0
+        for f in range(nfields):
+            per = samples[0][f]
+            offsets.append(ofs)
+            sizes.append(per.nbytes)
+            metas.append(((bsz,) + per.shape, per.dtype))
+            ofs += (per.nbytes * bsz + 63) & ~63
+        if ofs > self.staging.slot_bytes:
+            return None  # batch too large for a slot: the caller collates
+        slot = self.staging.acquire()
+        if slot < 0:
+            return None
+        # an exception between acquire() and release() would leak the
+        # slot, and after n_slots leaks every worker blocks in acquire
+        try:
+            ticket = self.pool.ticket()
+        except Exception:
+            self.staging.release(slot)
+            raise
+        njobs = 0
+        try:
+            for f in range(nfields):
+                base = self.staging.addr(slot, offsets[f])
+                for b, s in enumerate(samples):
+                    arr = s[f]
+                    self.pool.submit_memcpy(
+                        arr.ctypes.data, base + b * sizes[f], arr.nbytes,
+                        ticket)
+                    njobs += 1
+            self.pool.wait(ticket, njobs)
+            out = []
+            for f in range(nfields):
+                shape, dtype = metas[f]
+                view = self.staging.view(
+                    slot, nbytes=int(np.prod(shape)) * dtype.itemsize,
+                    dtype=dtype, shape=shape, offset=offsets[f])
+                out.append(torch.from_numpy(np.array(view)))
+        finally:
+            # the pool's threads hold pointers to the ticket and the slot
+            # until every submitted job has run
+            self.pool.wait(ticket, njobs)
+            self.pool.ticket_free(ticket)
+            self.staging.release(slot)
+        if structure == 'single':
+            return out[0]
+        return tuple(out)
 
 
 class DataLoader:
@@ -320,6 +399,18 @@ class DataLoader:
             self.batch_sampler = BatchSampler(
                 dataset, shuffle=shuffle, batch_size=batch_size,
                 drop_last=drop_last)
+        self._native: Optional[_NativeCollator] = None
+        if (self.num_workers > 0 and not self._custom_collate
+                and native.available()):
+            try:
+                self._native = _NativeCollator(
+                    self.num_workers, slot_bytes=64 << 20)
+            except Exception:
+                # Python collation is the supported fallback, but counted:
+                # a fleet on the slow path unknowingly is a perf bug
+                from ..observability import count_suppressed
+                count_suppressed('io.native_collator')
+                self._native = None
         # mid-epoch resume cursor: epochs are deterministically seeded
         # via set_epoch, so {epoch, batch_idx} fully determines the
         # remaining sequence
@@ -376,6 +467,18 @@ class DataLoader:
         return [self.dataset[i] for i in indices]
 
     def _collate(self, raw: List[Any]):
+        if self._native is not None:
+            flat = [_flat_numeric_samples(s) for s in raw]
+            if all(f is not None for f in flat) and flat:
+                shapes0 = [(a.shape, a.dtype) for a in flat[0]]
+                if all([(a.shape, a.dtype) for a in f] == shapes0
+                       for f in flat):
+                    structure = ('single'
+                                 if not isinstance(raw[0], (tuple, list))
+                                 else 'tuple')
+                    out = self._native.collate(flat, structure)
+                    if out is not None:
+                        return out
         return self.collate_fn(raw)
 
     def _iter_sync(self):

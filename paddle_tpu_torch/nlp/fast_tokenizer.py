@@ -8,7 +8,8 @@ the byte fallback) runs in `paddle_tpu_torch/csrc/host/fast_tokenizer.cpp`,
 the port's own copy of the JAX package's source, bound with ctypes.
 The library is built with `g++ -O3` at first use into the git-ignored
 `build/host/` beside the package, and again when the source is newer
-than it, under a file lock, so concurrent processes build it once.
+than it, under a file lock, so concurrent processes build it once
+(`utils/host_lib.py`).
 
 Where no compiler or library is at hand, `encode` takes the reference's
 Python path. `ENCODES` counts which path each `encode` took
@@ -18,48 +19,13 @@ served it.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import os
-import subprocess
-from pathlib import Path
 from typing import List, Optional
 
-from ..analysis.runtime import concurrency as _concurrency
+from ..utils.host_lib import HostLib
 from .tokenizer import BPETokenizer
-
-SRC = Path(__file__).resolve().parent.parent / 'csrc' / 'host' / \
-    'fast_tokenizer.cpp'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'host'
-LIB_PATH = BUILD_DIR / 'libpaddle_tpu_torch_fast_tokenizer.so'
-CXX_FLAGS = ('-O3', '-fPIC', '-shared', '-std=c++17')
 
 # the path each encode() took
 ENCODES = {'native': 0, 'python': 0}
-
-_lock = _concurrency.Lock('fast_tokenizer._lock')
-_lib = None
-_tried = False
-
-
-def _stale() -> bool:
-    try:
-        return SRC.stat().st_mtime > LIB_PATH.stat().st_mtime
-    except FileNotFoundError:
-        return True
-
-
-def _build() -> None:
-    """Compile the library unless another process has (a file lock over
-    the check and the build; the library replaces the old one whole)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / 'fast_tokenizer.lock', 'w') as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _stale():
-            return
-        tmp = LIB_PATH.with_suffix(f'.so.tmp{os.getpid()}')
-        subprocess.run(['g++', *CXX_FLAGS, str(SRC), '-o', str(tmp)],
-                       check=True, capture_output=True)
-        os.replace(tmp, LIB_PATH)
 
 
 def _bind(lib):
@@ -77,27 +43,20 @@ def _bind(lib):
     return lib
 
 
+LIB = HostLib('paddle_tpu_torch_fast_tokenizer', 'fast_tokenizer.cpp',
+              _bind)
+SRC, LIB_PATH = LIB.src, LIB.path
+
+
 def get_lib():
     """The loaded library, built first where needed; None where it cannot
-    be built or loaded (tried once per process)."""
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        try:
-            if _stale():
-                _build()
-            _lib = _bind(ctypes.CDLL(str(LIB_PATH)))
-        except (OSError, subprocess.CalledProcessError):
-            # no compiler or no loadable library: `available()` says so
-            # and encode() takes the Python path, counted in ENCODES
-            _lib = None
-        return _lib
+    be built or loaded (tried once per process): `available()` says so
+    and encode() takes the Python path, counted in ENCODES."""
+    return LIB.get()
 
 
 def available() -> bool:
-    return get_lib() is not None
+    return LIB.available()
 
 
 class FastBPETokenizer(BPETokenizer):
@@ -154,10 +113,11 @@ class FastBPETokenizer(BPETokenizer):
         data = ' '.join(text.split()).encode('utf-8')
         cap = max(256, len(data) * 2)
         buf = (ctypes.c_int32 * cap)()
-        n = _lib.bpe_encode(h, data, len(data), buf, cap)
+        lib = get_lib()
+        n = lib.bpe_encode(h, data, len(data), buf, cap)
         if n > cap:      # a byte-fallback blowup: again with room for all
             buf = (ctypes.c_int32 * n)()
-            n = _lib.bpe_encode(h, data, len(data), buf, n)
+            n = lib.bpe_encode(h, data, len(data), buf, n)
         ids = list(buf[:n])
         if add_special_tokens:
             ids = [self.bos_token_id] + ids + [self.eos_token_id]
@@ -171,8 +131,9 @@ class FastBPETokenizer(BPETokenizer):
         return self.convert_ids_to_tokens(self.encode(text))
 
     def __del__(self):
-        if getattr(self, '_native', None) is not None and _lib is not None:
-            _lib.bpe_destroy(self._native)
+        if getattr(self, '_native', None) is not None and \
+                LIB._lib is not None:
+            LIB._lib.bpe_destroy(self._native)
             self._native = None
 
 

@@ -336,10 +336,9 @@ class LlamaForCausalLM(Layer, GenerationMixin):
         self.config = config
         self.llama = LlamaModel(config, device=device, dtype=dtype,
                                 generator=generator)
-        emb = self.llama.embed_tokens.weight
         self.lm_head = None if config.tie_word_embeddings else _linear(
             config.hidden_size, config.vocab_size,
-            dict(device=emb.device, dtype=emb.dtype, generator=generator))
+            init_kwargs(device, dtype, generator))
 
     @property
     def device(self) -> torch.device:

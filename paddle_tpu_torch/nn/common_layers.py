@@ -77,8 +77,18 @@ class Embedding(Layer):
             default_initializer=I.XavierNormal(), device=device,
             generator=generator)
         if padding_idx is not None:
-            with torch.no_grad():
-                self.weight[padding_idx] = 0
+            if self.weight.is_lazy:
+                # LazyGuard: initialize() zeroes the padding row too
+                fill, dev = self.weight.__dict__['_lazy_init']
+
+                def fill_with_pad_row(t, _fill=fill):
+                    _fill(t)
+                    with torch.no_grad():
+                        t[padding_idx] = 0
+                self.weight.defer_init(fill_with_pad_row, dev)
+            else:
+                with torch.no_grad():
+                    self.weight[padding_idx] = 0
 
     def forward(self, ids):
         return F.embedding(ids, self.weight, padding_idx=self.padding_idx)

@@ -252,6 +252,9 @@ def linear(x, weight, bias=None, name=None):
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     def f(ids, w):
+        if ids.is_floating_point() or ids.is_complex():
+            # the JAX package's gather refuses them (jnp.take)
+            raise ValueError('indices must have an integer type')
         out = w[ids.long()]
         if padding_idx is not None:
             pi = padding_idx if padding_idx >= 0 else w.shape[0] + padding_idx

@@ -22,6 +22,12 @@ the current place (`framework.current_device()`: `cuda` unless
 draws come from `generator`, else the framework's generator of that
 device. `init_kwargs` gives a model constructor's layers their
 `device`, `dtype` and `generator`.
+
+Inside a `LazyGuard`, `create_parameter` allocates nothing: each
+parameter lies on torch's `meta` device with its initializer, device and
+generator recorded, and `Parameter.initialize()` materializes it on that
+device (the JAX package's `LazyGuard`, whose parameters hold a
+ShapeDtypeStruct until `initialize()`).
 """
 from __future__ import annotations
 
@@ -35,6 +41,24 @@ from .. import framework
 from ..dtype import _NAME_TO_DTYPE, convert_dtype
 from ..tensor import Parameter, _unwrap, _wrap
 from . import initializer as I
+
+_LAZY_GUARDS: list = []
+
+
+class LazyGuard:
+    """Defer parameter materialization (upstream paddle.LazyGuard):
+    layers built inside the guard allocate no memory for their
+    parameters, which lie on the `meta` device until each one's
+    `initialize()` fills it, on the device it was made for, from its
+    recorded initializer and generator."""
+
+    def __enter__(self):
+        _LAZY_GUARDS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _LAZY_GUARDS.pop()
+        return False
 
 
 def _torch_arg(a):
@@ -125,9 +149,16 @@ class Layer(nn.Module):
             else framework.get_default_dtype()
         dev = framework.current_device() if device is None \
             else framework.resolve_device(device)
-        t = torch.empty(tuple(int(s) for s in shape), device=dev, dtype=dt)
-        _initializer(attr, default_initializer, is_bias).fill_(t, generator)
-        p = Parameter(t, name=(attr.name if attr else None) or '')
+        init = _initializer(attr, default_initializer, is_bias)
+        shape = tuple(int(s) for s in shape)
+        if _LAZY_GUARDS:
+            p = Parameter(torch.empty(shape, device='meta', dtype=dt),
+                          name=(attr.name if attr else None) or '')
+            p.defer_init(lambda t: init.fill_(t, generator), dev)
+        else:
+            t = torch.empty(shape, device=dev, dtype=dt)
+            init.fill_(t, generator)
+            p = Parameter(t, name=(attr.name if attr else None) or '')
         if attr is not None:
             p.trainable = attr.trainable
             p.optimize_attr = {'learning_rate': attr.learning_rate}

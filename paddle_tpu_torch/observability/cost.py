@@ -14,7 +14,9 @@ executable. A captured CUDA graph offers neither, so the port has no
 `CatalogedJit` / `wrap_jit`: the serving engine enrolls each program
 under the JAX program's name (`serving.paged_decode_block`,
 `serving.paged_prefill_<b>`, `serving.paged_chunk_prefill_<b>`,
-`serving.paged_spec_decode_k<k>`, `serving.draft_prefill_<b>`) with
+`serving.paged_spec_decode_k<k>`, `serving.draft_prefill_<b>`, and a row
+engine's `serving.decode_block`, `serving.prefill_<b>`,
+`serving.chunk_prefill_<b>`, `serving.spec_decode_k<k>`) with
 `note_compile` at its capture and `note_invocation` at each call, and
 `jit.TrainStep` as `train_step`. Their FLOPs and bytes come from an
 analytic count of the work (`note_cost`, `note` = 'analytic': 2 x

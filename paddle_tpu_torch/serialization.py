@@ -26,9 +26,12 @@ A numpy array with a bf16/fp8 dtype (made by a caller that has
 `ml_dtypes`) is written the same way; saving one needs no `ml_dtypes`
 here.
 
-Not ported yet (ROADMAP.md, Queue 1, item 4): `save_sharded` /
-`load_sharded`, which need the host C++ shard writer
-(`csrc/ckpt_sharder.cpp`).
+`save_sharded` / `load_sharded` write and read the JAX package's
+sharded directory (`tree.json`, the structure; `manifest.json` and
+`shard_<k>.bin`, the arrays) through the port's copy of the host C++
+shard writer (`utils/ckpt_native.py`). A bf16 or fp8 leaf travels as its
+raw same-width unsigned integers under its `np_dtype` name, as in the npz
+container, so a directory written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -50,10 +53,6 @@ _TORCH_ONLY = {torch.bfloat16: 'bfloat16',
 _BY_NAME = {name: dt for dt, name in _TORCH_ONLY.items()}
 # torch integer dtypes of each width (`.numpy()` takes these)
 _TORCH_INT = {1: torch.int8, 2: torch.int16}
-
-_NOT_PORTED = ('save_sharded/load_sharded need the host C++ shard writer '
-               '(csrc/ckpt_sharder.cpp), not ported yet (ROADMAP.md, Queue '
-               '1, item 4)')
 
 
 def _tag_key(k):
@@ -188,8 +187,33 @@ def load(path: str, return_numpy=False, device=None, **config) -> Any:
 
 
 def save_sharded(obj: Any, dirname: str, n_shards: int = 8):
-    raise NotImplementedError(_NOT_PORTED)
+    """Serialize like `save`, but through the parallel C++ shard writer:
+    arrays are size-balanced across `shard_<k>.bin` files written by one
+    thread each (no zip or CRC pass). Layout: tree.json (structure) +
+    manifest.json + shards."""
+    from .utils import ckpt_native
+    os.makedirs(dirname, exist_ok=True)
+    arrays: list = []
+    manifest = _flatten(obj, arrays, '<root>')
+    ckpt_native.write_shards(
+        dirname, {f'a{i}': a for i, a in enumerate(arrays)},
+        n_shards=n_shards)
+    tmp = os.path.join(dirname, 'tree.json.tmp')
+    with open(tmp, 'w') as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(dirname, 'tree.json'))
 
 
-def load_sharded(dirname: str, return_numpy=False) -> Any:
-    raise NotImplementedError(_NOT_PORTED)
+def load_sharded(dirname: str, return_numpy=False, device=None) -> Any:
+    """Restore an object tree saved by `save_sharded` (of either
+    package) through the parallel C++ shard reader; leaves come back as
+    `load` returns them (tensors on `device`, default `cuda`)."""
+    tree_file = os.path.join(dirname, 'tree.json')
+    if not os.path.isfile(tree_file):
+        raise FileNotFoundError(
+            f'{dirname!r} is not a sharded checkpoint (no tree.json)')
+    from .utils import ckpt_native
+    with open(tree_file) as f:
+        manifest = json.load(f)
+    return _unflatten(manifest, ckpt_native.read_shards(dirname),
+                      return_numpy, device)

@@ -1,6 +1,9 @@
-"""Serving (counterpart of `paddle_tpu.serving`): the paged
-continuous-batching `InferenceEngine`, its request API, the radix prefix
-cache over shared pages (`PagedPrefixCache`), multi-tenant LoRA adapters
+"""Serving (counterpart of `paddle_tpu.serving`): the continuous-batching
+`InferenceEngine` over one KV row per slot (`SlotPool`, the default) or
+a page table (`PagedSlotPool`, with `kv_page_size`, `kv_pages` or
+`kv_quant`), its request API, the radix prefix cache over retained rows
+(`RadixPrefixCache`) or shared pages (`PagedPrefixCache`), multi-tenant
+LoRA adapters
 (`AdapterBank`), versioned weights (`WeightStore`, `WeightPublisher`, the
 swap's health gates and the rolling `ReplicaUpdater`), and replicated
 serving in one process: a `Router` over a `ReplicaSet` with
@@ -39,8 +42,8 @@ from .hotswap import (CanaryGate, ReplicaUpdater, SwapFailed,
                       WeightLoadError, WeightPublisher, WeightStore,
                       finite_weights_gate)
 from .kv_pool import (PageHold, PagedSlotPool, PagePoolExhausted,
-                      PromptTooLongError, default_buckets, gather_pages,
-                      scatter_pages)
+                      PromptTooLongError, SlotPool, default_buckets,
+                      gather_pages, scatter_pages)
 from .prefix_cache import PagedPrefixCache, RadixPrefixCache
 from .remote import (FrameChecksumError, IncompleteFrameError,
                      RemoteFatalError, RemoteReplica, RemoteTransientError,
@@ -57,6 +60,7 @@ __all__ = ['FAILED', 'FINISHED', 'GREEDY', 'PRIORITY_HIGH', 'PRIORITY_LOW',
            'PRIORITY_NAMES', 'PRIORITY_NORMAL', 'QUEUED', 'RUNNING',
            'SAMPLING', 'RequestHandle', 'SamplingParams', 'InferenceEngine',
            'sample_rows', 'PageHold', 'PagedSlotPool', 'PagePoolExhausted',
+           'SlotPool',
            'PromptTooLongError', 'default_buckets', 'gather_pages',
            'scatter_pages', 'PagedPrefixCache', 'RadixPrefixCache',
            'FCFSScheduler', 'AdapterBank', 'AdapterUnavailable',

@@ -14,7 +14,8 @@ adapters, decoded together in one batch.
     bank = AdapterBank(model, capacity=8, rank=8,
                        targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
     bank.load('tenant-a', factors_a)
-    eng = InferenceEngine(model, num_slots=8, adapter_bank=bank)
+    eng = InferenceEngine(model, num_slots=8, kv_page_size=16,
+                          adapter_bank=bank)
     h = eng.submit(prompt, params, adapter_id='tenant-a')
 """
 from __future__ import annotations

@@ -406,7 +406,8 @@ class SpecStep(DecodeStep):
             adapter_arrays, scales, compute_dtype,
             extra={'eos': ((n,), torch.int64),
                    'greedy': ((n,), torch.bool),
-                   'd_table': ((n, max_length // draft_pages[0][0].shape[1]),
+                   'd_table': ((n, -(-max_length
+                                     // draft_pages[0][0].shape[1])),
                                torch.int32)})
         self.k = int(k)
         self._draft_fwd = draft_fwd

@@ -1,8 +1,25 @@
-"""Continuous-batching inference engine over the paged KV pool
-(counterpart of `paddle_tpu/serving/engine.py:InferenceEngine` with
-`kv_page_size` set, unquantized or with `kv_quant='int8'`, with the
-prefix cache, chunked prefill and speculative decoding with a draft
-model, graceful drain, eviction and in-place weight swaps).
+"""Continuous-batching inference engine (counterpart of
+`paddle_tpu/serving/engine.py:InferenceEngine`), with the prefix cache,
+chunked prefill and speculative decoding with a draft model, graceful
+drain, eviction and in-place weight swaps, over either KV layout of the
+JAX engine, chosen by its rule (:236-245):
+
+- row (the default: none of `kv_page_size`, `kv_pages`, `kv_quant`
+  given): one KV row of max_length per slot (`kv_pool.SlotPool`). The
+  rows are stored as pages under a fixed identity page table, so every
+  forward below reads and writes them through the same kernels and
+  bodies as the paged pool's, under the JAX row engine's names
+  (`decode_step`, `prefill_<b>`, `chunk_prefill_<b>`,
+  `spec_decode_k<k>`). The prefix cache (`RadixPrefixCache`) retains
+  whole slots: a hit's first chunk reads the retained row (its rows
+  below the chunk are copied into the slot's row first) and writes only
+  the slot's, a full hit copies the row (`copy_slot`), and retirement
+  hands the slot to the cache, which adopts it or lets it be freed.
+  Admission counts zero-ref retained slots as free (`_effective_free`),
+  evicts the least recently used one when the free list is empty, and
+  requeues the batch when a promised slot was pinned meanwhile;
+- paged (`kv_page_size`, default 16, `kv_pages` or `kv_quant`): what
+  follows.
 
 One engine is one event loop: `step()` admits queued requests into free
 slots (reserving every page each can touch, and requeueing on
@@ -152,7 +169,7 @@ from ..nlp.generation import cached_forward
 from ..observability import cost as _cost
 from ..observability import reqledger as _reqledger
 from ..framework import generator as _generator
-from ..resilience.retry import is_cuda_error
+from ..resilience.retry import RetryPolicy, call_with_retry, is_cuda_error
 from .adapters.bank import AdapterUnavailable
 from .api import GREEDY, RUNNING, RequestHandle, SamplingParams
 from .decode_graph import DecodeStep, GraphError, SpecStep
@@ -164,6 +181,23 @@ from .scheduler import FCFSScheduler
 # occupancy is a ratio; the latency-shaped default buckets are wrong here
 _OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
+# rows per page of the row pool's identity table: the paged engine's
+# default page, so a row engine drives the paged kernel through a table
+# of the paged engine's width
+ROW_PAGE_SIZE = 16
+
+
+def _to_device(step, **host) -> None:
+    """Host->device staging of a step's static buffers (module-level so
+    fault-injection tests can patch it; call sites wrap it in retry)."""
+    step.stage(**host)
+
+
+def _from_device(x: torch.Tensor) -> np.ndarray:
+    """Device->host fetch of a round's tokens (patchable, as
+    `_to_device`)."""
+    return x.to('cpu', copy=True).numpy()
+
 
 def program_name(trace_key: str) -> str:
     """The JAX program name a `stats()['traces']` key is cataloged under
@@ -171,6 +205,8 @@ def program_name(trace_key: str) -> str:
     engine's whole decode block, the others keep their key."""
     if trace_key == 'paged_decode_step':
         return 'serving.paged_decode_block'
+    if trace_key == 'decode_step':
+        return 'serving.decode_block'
     return f'serving.{trace_key}'
 
 
@@ -214,18 +250,28 @@ class InferenceEngine:
         buckets: prefill length buckets (default: powers of two).
         max_prefill_tokens: per-iteration prefill budget (scheduler).
         eos_token_id: default eos (-1 = never); per-request params win.
-        kv_page_size: rows per KV page; max_length must be a multiple.
-        kv_pages: total pages including the null page 0. Default
-            num_slots * pages_per_slot + 1; lower oversubscribes, and
-            admission then requeues on page exhaustion.
+        retry_policy: `resilience.RetryPolicy` for the host<->device
+            copies of a round and a prefill (sites serving.h2d /
+            serving.d2h); a CUDA error is never retried.
+        donate_pool: the JAX engine's pool-donation flag, kept and
+            reported in `stats()`; torch writes the pool in place, so it
+            changes nothing here.
+        kv_page_size: rows per KV page (paged engine; 16 when only
+            `kv_pages` or `kv_quant` is given); max_length must be a
+            multiple. Without it, `kv_pages` and `kv_quant` the engine
+            keeps one KV row per slot.
+        kv_pages: total pages including the null page 0 (paged engine).
+            Default num_slots * pages_per_slot + 1; lower oversubscribes,
+            and admission then requeues on page exhaustion.
         adapter_bank: a `serving.AdapterBank` attached to this model;
             enables `submit(..., adapter_id=)`. A request pins its
             adapter at admission (a store-backed bank may load it then)
             and unpins it at retirement; a bank full of pinned slots
             requeues the request.
-        prefix_cache: a `PagedPrefixCache` over this engine's pool, or a
-            fraction of the pool's pages it may hold (True = 0.5); None
-            or False = no cache.
+        prefix_cache: a `PagedPrefixCache` (paged engine) or a
+            `RadixPrefixCache` (row engine) over this engine's pool, or a
+            fraction of the pool's pages (paged) or slots (row) it may
+            hold (True = 0.5); None or False = no cache.
         prefill_chunk_tokens: prompts longer than this prefill one chunk
             (at its length bucket) per `step()`; None = whole prefills
             (a prefix hit's suffix is then one chunk).
@@ -248,12 +294,17 @@ class InferenceEngine:
                  buckets: Optional[Sequence[int]] = None,
                  max_prefill_tokens: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
+                 retry_policy: Optional[RetryPolicy] = None,
                  max_wait_s: Optional[float] = None,
-                 kv_page_size: int = 16, kv_pages: Optional[int] = None,
-                 adapter_bank=None, prefix_cache=None,
+                 prefix_cache=None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 kv_quant: Optional[str] = None, draft_model=None,
-                 num_draft_tokens: int = 4, weight_version: int = 0):
+                 draft_model=None, num_draft_tokens: int = 4,
+                 weight_version: int = 0,
+                 donate_pool: Optional[bool] = None,
+                 kv_page_size: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 kv_quant: Optional[str] = None,
+                 adapter_bank=None):
         cfg = getattr(model, 'config', None)
         max_pos = getattr(cfg, 'max_position_embeddings', None)
         if max_pos is not None and max_length > max_pos:
@@ -274,34 +325,57 @@ class InferenceEngine:
             else eos_token_id)
         self.decode_block = int(decode_block)
         self.adapter_bank = adapter_bank
-        self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
-                                  page_size=int(kv_page_size),
-                                  num_pages=kv_pages, quant=kv_quant)
+        # the JAX rule (engine.py:236-245): paged when any page argument
+        # is given, else one row per slot
+        self._paged = (kv_page_size is not None or kv_pages is not None
+                       or kv_quant is not None)
+        page_size = int(kv_page_size) if kv_page_size else 16
+        if self._paged:
+            self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
+                                      page_size=page_size,
+                                      num_pages=kv_pages, quant=kv_quant)
+        else:
+            self.pool = SlotPool(model, num_slots, max_length, buckets,
+                                 page_size=ROW_PAGE_SIZE)
         self.scheduler = FCFSScheduler(max_prefill_tokens,
                                        max_wait_s=max_wait_s)
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError('prefill_chunk_tokens must be >= 1')
         self.prefill_chunk_tokens = (int(prefill_chunk_tokens)
                                      if prefill_chunk_tokens else None)
+        self.pool.prefill_chunk_tokens = self.prefill_chunk_tokens
+        # the host<->device copies of a round and a prefill retry under
+        # this policy (sites serving.h2d / serving.d2h); a CUDA error is
+        # never transient (`resilience.is_transient`)
+        self._retry = retry_policy or RetryPolicy()
+        # torch writes the pool in place, so there is nothing to donate;
+        # the flag is kept and reported as the JAX engine reports it
+        self._donate_pool = True if donate_pool is None else bool(
+            donate_pool)
         if isinstance(prefix_cache, RadixPrefixCache):
-            if not isinstance(prefix_cache, PagedPrefixCache):
+            if self._paged != isinstance(prefix_cache, PagedPrefixCache):
                 raise ValueError(
                     'prefix cache layout does not match the pool: a '
                     'paged engine needs a PagedPrefixCache (and a row '
                     'engine a RadixPrefixCache)')
-            self.prefix_cache: Optional[PagedPrefixCache] = prefix_cache
+            self.prefix_cache: Optional[RadixPrefixCache] = prefix_cache
         elif prefix_cache:
-            self.prefix_cache = PagedPrefixCache(
+            cache_cls = (PagedPrefixCache if self._paged
+                         else RadixPrefixCache)
+            self.prefix_cache = cache_cls(
                 self.pool, 0.5 if prefix_cache is True
                 else float(prefix_cache))
         else:
             self.prefix_cache = None
-        if self.prefix_cache is not None and \
-                self.prefix_cache.budget_pages < 1:
-            raise ValueError(
-                'prefix cache budget rounds to zero pages; raise the '
-                'fraction or the pool size (retention must leave capacity '
-                'for decode)')
+        if self.prefix_cache is not None:
+            budget = (self.prefix_cache.budget_pages if self._paged
+                      else self.prefix_cache.budget_slots)
+            if budget < 1:
+                raise ValueError(
+                    'prefix cache budget rounds to zero '
+                    + ('pages' if self._paged else 'slots')
+                    + '; raise the fraction or the pool size (retention '
+                    'must leave capacity for decode)')
         if self.prefix_cache is not None:
             self.prefix_cache.set_version(self.weight_version)
         self.draft_model = draft_model
@@ -327,7 +401,7 @@ class InferenceEngine:
             # the draft's KV: one row per slot, slot for slot with the
             # paged pool (never allocated or freed on its own)
             self.draft_pool = SlotPool(draft_model, num_slots, max_length,
-                                       buckets, page_size=int(kv_page_size))
+                                       buckets, page_size=self.pool.page_size)
         self._draining = False
         self._drain_t0 = 0.0
         self._drain_deadline_s: Optional[float] = None
@@ -336,8 +410,10 @@ class InferenceEngine:
         # notes: None = the whole process; a router tags each replica's
         # engine 'replica:N'
         self.obs_scope: Optional[str] = None
-        # slot -> [handle, prefill cursor]: slots mid-chunked-prefill
-        # (inactive for decode until the cursor reaches the prompt end)
+        # slot -> [handle, prefill cursor, source row]: slots
+        # mid-chunked-prefill (inactive for decode until the cursor
+        # reaches the prompt end); the source is the retained row of a
+        # row engine's prefix hit until its first chunk, else the slot
         self._prefilling: dict = {}
         n = self.pool.num_slots
         # per-slot decode state + sampling params, host-authoritative
@@ -372,7 +448,8 @@ class InferenceEngine:
                 self.pool.max_length, self.decode_block, self.device,
                 arrays, scales=self.pool.scales,
                 compute_dtype=self.pool.compute_dtype)
-            self._decode_name = 'paged_decode_step'
+            self._decode_name = ('paged_decode_step' if self._paged
+                                 else 'decode_step')
         else:
             self._decode = SpecStep(
                 self._fwd, self.pool.pages, n, self.pool.pages_per_slot,
@@ -380,8 +457,9 @@ class InferenceEngine:
                 cached_forward(draft_model), self.draft_pool.pages, arrays,
                 scales=self.pool.scales,
                 compute_dtype=self.pool.compute_dtype)
-            # the JAX engine's trace name (engine.py:806)
-            self._decode_name = f'paged_spec_decode_k{self.spec_k}'
+            # the JAX engine's trace names (engine.py:640, 806)
+            self._decode_name = ('paged_' if self._paged else '') + \
+                f'spec_decode_k{self.spec_k}'
         # (kind, bucket) -> PrefillStep, built at first use
         self._prefill_steps: dict = {}
         self._prefill_pool = None       # the prefill graphs' memory pool
@@ -623,7 +701,7 @@ class InferenceEngine:
                        requests=[h.request_id
                                  for h in self._slot_req.values()]):
             with torch.inference_mode():
-                toks = self._queue_round().to('cpu', copy=True).numpy()
+                toks = self._fetch(self._queue_round())
         self._book_program(self._decode_name, time.perf_counter() - t0,
                            cost)
         _obs.note_progress('decode')   # /healthz decode liveness beat
@@ -645,8 +723,7 @@ class InferenceEngine:
                                  for h in self._slot_req.values()]):
             with torch.inference_mode():
                 toks, counts = self._queue_round()
-                toks = toks.to('cpu', copy=True).numpy()
-                counts = counts.to('cpu', copy=True).numpy()
+                toks, counts = self._fetch(toks), self._fetch(counts)
         self._book_program(self._decode_name, time.perf_counter() - t0,
                            cost)
         _obs.note_progress('decode')
@@ -657,6 +734,18 @@ class InferenceEngine:
             self._m_spec_rounds.inc()
             self._m_spec_shared.labels(source='engine').inc()
         return toks, counts
+
+    def _fetch(self, x: torch.Tensor) -> np.ndarray:
+        """A round's device buffer on the host (waits for the round),
+        retried under the engine's policy at site serving.d2h."""
+        return call_with_retry(_from_device, x, policy=self._retry,
+                               site='serving.d2h')
+
+    def _stage(self, step, **host) -> None:
+        """`step.stage(**host)`, retried under the engine's policy at site
+        serving.h2d."""
+        call_with_retry(_to_device, step, policy=self._retry,
+                        site='serving.h2d', **host)
 
     def _queue_round(self):
         """Stage the round's host state (`_stage_round`) and queue it
@@ -685,7 +774,7 @@ class InferenceEngine:
         if self.draft_model is not None:
             staged.update(eos=self._eos_arr, greedy=self._greedy,
                           d_table=self.draft_pool.table)
-        step.stage(**staged)
+        self._stage(step, **staged)
         return step
 
     def run(self) -> int:
@@ -955,11 +1044,39 @@ class InferenceEngine:
             self.scheduler.requeue(back)
         self._counts['requeued'] += len(handles)
 
+    def _effective_free(self) -> int:
+        """Slots admissible now: the free list, and in a row engine the
+        zero-ref retained prefixes the pool can reclaim on demand (the
+        JAX `_effective_free`). Paged retention pins pages, not slots, so
+        there the free list is the truth and page pressure surfaces at
+        reservation."""
+        free = self.pool.free_count
+        if self.prefix_cache is not None and not self._paged:
+            free += self.prefix_cache.reclaimable_count
+        return free
+
+    def _alloc_slot(self) -> int:
+        """`pool.alloc()`; in a row engine whose free list is empty the
+        least recently used zero-ref retained prefix yields its slot
+        first. Raises RuntimeError when nothing is free."""
+        if (not self._paged and self.pool.free_count == 0
+                and self.prefix_cache is not None):
+            self.prefix_cache.evict_lru()
+        return self.pool.alloc()
+
     def _admit(self):
-        admitted = self.scheduler.admissible(self.pool.free_count,
+        admitted = self.scheduler.admissible(self._effective_free(),
                                              self._admission_cost)
         for idx, h in enumerate(admitted):
-            slot = self.pool.alloc()
+            try:
+                slot = self._alloc_slot()
+            except RuntimeError:
+                # the reclaimable slot this batch was promised has been
+                # pinned since (a sibling admission hit its prefix): not
+                # a failure; this handle and the rest of the batch go
+                # back to the queue front in order
+                self._requeue_blocked(admitted[idx:], 'pool_exhausted')
+                break
             try:
                 self._begin_request(slot, h)
             except AdapterUnavailable as exc:
@@ -1059,6 +1176,23 @@ class InferenceEngine:
             raise
         return node, cursor
 
+    def _seat_row(self, h: RequestHandle) -> tuple:
+        """A row engine's prefix lookup (the JAX `_begin_request`'s row
+        branch): the longest cached prefix, acquired, and its length,
+        which need not be page-aligned (the retained row is read, never
+        shared). Returns (node, matched), or (None, 0)."""
+        if self.prefix_cache is None:
+            return None, 0
+        t_pfx = time.perf_counter()
+        node, matched = self.prefix_cache.lookup(
+            h.prompt_tokens, namespace=self._prefix_ns(h))
+        if node is not None:
+            self.prefix_cache.acquire(node)
+        if h._ledger_rec is not None:
+            t1 = time.perf_counter()
+            h._ledger_rec.add('prefix_lookup', t1 - t_pfx, now=t1)
+        return node, matched
+
     def _reserve_pages(self, slot: int, total: int):
         """`PagedSlotPool.reserve`, with zero-ref cache holds yielding
         their pages LRU-first until the reservation fits or nothing is
@@ -1089,11 +1223,17 @@ class InferenceEngine:
             pfx0 = rec.phases['prefix_lookup']
         s = len(h.prompt_tokens)
         self._pin_adapter(slot, h)
-        try:
-            node, cursor = self._seat_paged(slot, h, s)
-        except PagePoolExhausted:
-            self._unpin_adapter(slot, h)
-            raise
+        src = slot
+        if self._paged:
+            try:
+                node, cursor = self._seat_paged(slot, h, s)
+            except PagePoolExhausted:
+                self._unpin_adapter(slot, h)
+                raise
+        else:
+            node, cursor = self._seat_row(h)
+            if node is not None:
+                src = node.slot
         if node is not None:
             h._prefix_node = node
             h._prefix_len = cursor
@@ -1115,8 +1255,11 @@ class InferenceEngine:
             _obs.emit('prefix_hit', request_id=h.request_id,
                       matched=h._prefix_len, prompt_len=s, slot=slot)
         if cursor >= s:
-            # full hit: the pages are shared already; the first decode
-            # round re-forwards the last prompt token
+            # full hit: nothing to prefill. A row engine copies the
+            # retained row; a paged one shares its pages already. The
+            # first decode round re-forwards the last prompt token
+            if not self._paged:
+                self.pool.copy_slot(src, slot)
             self.pool.note_written(slot, s)
             self._activate(slot, h)
             return
@@ -1132,7 +1275,7 @@ class InferenceEngine:
         self._pos[slot] = self.pool.max_length - 1
         self._tok[slot] = 0
         self._active[slot] = False
-        self._prefilling[slot] = [h, cursor]
+        self._prefilling[slot] = [h, cursor, src]
         self._counts['chunked_prefills'] += 1
 
     def _prefill_step(self, kind: str, bucket: int) -> PrefillStep:
@@ -1150,7 +1293,7 @@ class InferenceEngine:
                 self.pool.pages_per_slot, self.device,
                 None if self.adapter_bank is None
                 else self.adapter_bank.device_arrays(),
-                scales=self.pool.scales)
+                scales=self.pool.scales, paged=self._paged)
         if self._capture_prefill and step.graph is None:
             if self._prefill_pool is None:
                 self._prefill_pool = torch.cuda.graph_pool_handle()
@@ -1261,8 +1404,12 @@ class InferenceEngine:
         t0 = time.perf_counter()
         with torch.inference_mode():
             step = self._prefill_step(kind, bucket)
-            step.stage(ids=ids, table=table, **staged)
+            self._stage(step, ids=ids, table=table, **staged)
             step.run_once()
+        if kind == 'draft':
+            self.draft_pool.note_row_write()
+        elif not self._paged:
+            self.pool.note_row_write()
         self._sync()
         self._book_program(step.name, time.perf_counter() - t0,
                            self._prefill_cost(kind, bucket,
@@ -1306,7 +1453,7 @@ class InferenceEngine:
         order). A slot whose cursor reaches the prompt end activates for
         decode in the same step."""
         for slot in list(self._prefilling):
-            h, cursor = self._prefilling[slot]
+            h, cursor, _ = self._prefilling[slot]
             try:
                 self._prefill_chunk(slot, h, cursor)
             except Exception as exc:
@@ -1320,10 +1467,15 @@ class InferenceEngine:
         `LlamaForCausalLM.prefill_kv` with the pool's pages): the chunk of
         up to `prefill_chunk_tokens` tokens from the cursor, at its length
         bucket. A window whose bucket would overrun the slot shifts its
-        start down and forwards rows below the cursor again; the floor
-        (the attach boundary) keeps those writes out of the shared
-        pages."""
+        start down and forwards rows below the cursor again. In a paged
+        engine the floor (the attach boundary) keeps those writes out of
+        the shared pages. In a row engine the first chunk of a prefix hit
+        reads the retained row (the source in `_prefilling`; its rows
+        below the window are copied into the slot's row first) and writes
+        only the slot's row; every write then stays in the slot's own row,
+        so the floor is 0."""
         s = len(h.prompt_tokens)
+        src = self._prefilling[slot][2]
         c = min(self.prefill_chunk_tokens or s, s - cursor)
         bucket = self.pool.bucket_for(c)
         start = min(cursor, self.pool.max_length - bucket)
@@ -1331,9 +1483,13 @@ class InferenceEngine:
         with _obs.span('serving.prefill_chunk', request_id=h.request_id,
                        bucket=bucket, slot=slot, start=start,
                        cursor=cursor, prompt_len=s):
+            if src != slot:
+                self.pool.copy_rows(src, slot, start)
+                self._prefilling[slot][2] = slot
             self._run_prefill(slot, 'chunk',
                               h.prompt_tokens[start:start + bucket],
-                              bucket, start=start, floor=h._prefix_len)
+                              bucket, start=start,
+                              floor=h._prefix_len if self._paged else 0)
         self._seconds['prefill'] += time.perf_counter() - t0
         new_cursor = min(start + bucket, s)
         self.pool.note_written(slot, new_cursor)
@@ -1437,16 +1593,20 @@ class InferenceEngine:
                           error=type(exc).__name__)
 
     def _retire(self, slot: int, h: RequestHandle, now: float):
-        """Finish `h`, release its prefix pin and adapter, hand the
-        prompt's full pages to the prefix cache (a `PageHold`: its rows
-        [0, prompt_len) are the prompt's prefill KV, under the request's
-        namespace) and free the slot; held pages survive the free."""
+        """Finish `h`, release its prefix pin and adapter and hand the
+        prompt's KV (rows [0, prompt_len), under the request's namespace)
+        to the prefix cache: a paged engine's cache holds the prompt's
+        full pages (a `PageHold`, which survives the slot's free), a row
+        engine's adopts the slot itself, which then stays allocated. The
+        slot is freed unless the cache adopted it."""
         h._finish(now)
         self._detach_slot(slot, h)
+        retained = False
         if self.prefix_cache is not None:
-            self.prefix_cache.insert(h.prompt_tokens, slot,
-                                     namespace=self._prefix_ns(h))
-        self.pool.free(slot)
+            retained = self.prefix_cache.insert(
+                h.prompt_tokens, slot, namespace=self._prefix_ns(h))
+        if not retained:
+            self.pool.free(slot)
         self._counts['completed'] += 1
         if _obs.enabled():
             self._m_requests.labels(status='completed').inc()
@@ -1486,7 +1646,8 @@ class InferenceEngine:
             'queue_depth': self.scheduler.queue_depth,
             'active_slots': len(self._slot_req),
             'weight_version': self.weight_version,
-            'kv_layout': 'paged',
+            'donate_pool': self._donate_pool,
+            'kv_layout': 'paged' if self._paged else 'row',
             'traces': dict(self._trace_counts),
             'pool': self.pool.stats(),
         }

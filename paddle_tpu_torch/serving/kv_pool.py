@@ -1,6 +1,6 @@
 """KV pools (counterpart of `paddle_tpu/serving/kv_pool.py`): the paged
 `PagedSlotPool`, unquantized or with `quant='int8'`, and the row
-`SlotPool` that holds a speculating engine's draft KV.
+`SlotPool`: the row engine's pool, and a speculating engine's draft KV.
 
 KV storage is one [num_pages, page_size, HKV, D] tensor per layer for K
 and one for V, on the model's device. A slot owns a page list (a row of
@@ -112,18 +112,33 @@ class SlotPool:
     """Row KV pool (counterpart of the JAX `SlotPool`,
     `paddle_tpu/serving/kv_pool.py:145-326`): one [max_length, HKV, D] row
     per slot and layer, in the model's dtype, that belongs to one slot
-    for good. A speculating engine keeps its draft model's KV here, slot
-    for slot with the target's paged pool (never allocated or freed on
-    its own: slot i of both pools always serves one request).
+    for good, and the slot free list. It is the row engine's pool (an
+    `InferenceEngine` built without `kv_page_size`, `kv_pages` or
+    `kv_quant`), and a speculating engine keeps its draft model's KV in
+    one, slot for slot with the target's pool (never allocated or freed
+    on its own: slot i of both pools always serves one request).
 
-    The rows are also pages, so the draft's decode forward attends
-    through the same paged kernel as the target's: each layer's storage
-    `pages` is [1 + N * L / ps, ps, HKV, D] (page 0 a null page that no
-    row maps), `cache` its rows [N, L, HKV, D] (a view, no copy), and
-    `table` the fixed identity page table, `table[n, j] = 1 + n * (L /
-    ps) + j`. A write through a zeroed table lands on the null page, as
-    in the paged pool.
+    The rows are also pages, so every forward reads and writes a row pool
+    through the same paged kernels as the paged pool: each layer's
+    storage `pages` is [1 + N * P, ps, HKV, D] with P = ceil(max_length /
+    ps) (page 0 a null page that no row maps), `cache` its rows [N, P *
+    ps, HKV, D] (a view, no copy), and `table` (also `page_table`) the
+    fixed identity page table, `table[n, j] = 1 + n * P + j`. Slot n + 1's
+    first page follows slot n's last, so a write is kept inside its row:
+    positions stop at max_length - 1, and a row past the table, or
+    through a zeroed table row, lands on the null page, as in the paged
+    pool. Rows past max_length (when ps does not divide it) are never
+    written.
+
+    The counters are the JAX pool's: `row_writes` counts the row
+    replacements (a whole prefill, a prefill chunk, `set_row`), and
+    `row_copies` / `copied_bytes` the whole-row copies of a full prefix
+    hit (`copy_slot`); the partial copy a prefix hit's first chunk makes
+    (`copy_rows`, the JAX chunk's read of the retained row) is not one.
     """
+
+    scales = None                # rows are never quantized
+    quant = None
 
     def __init__(self, model, num_slots: int, max_length: int,
                  buckets: Optional[Sequence[int]] = None,
@@ -132,30 +147,89 @@ class SlotPool:
             raise ValueError('num_slots must be >= 1')
         if max_length < 2:
             raise ValueError('max_length must be >= 2')
-        if max_length % page_size != 0:
-            raise ValueError(
-                f'max_length {max_length} must be a multiple of '
-                f'page_size {page_size} (the rows are read as pages)')
+        if page_size < 1:
+            raise ValueError('page_size must be >= 1')
         self.num_slots = int(num_slots)
         self.max_length = int(max_length)
         self.page_size = int(page_size)
-        self.pages_per_slot = self.max_length // self.page_size
+        self.pages_per_slot = -(-self.max_length // self.page_size)
         self.pages = model.init_cache(
             1 + self.num_slots * self.pages_per_slot, self.page_size)
-        self.cache = [tuple(t[1:].view(self.num_slots, self.max_length,
+        self.compute_dtype = self.pages[0][0].dtype
+        rows = self.pages_per_slot * self.page_size
+        self.cache = [tuple(t[1:].view(self.num_slots, rows,
                                        *t.shape[2:]) for t in kv)
                       for kv in self.pages]
         self.table = (1 + np.arange(self.num_slots * self.pages_per_slot,
                                     dtype=np.int32)).reshape(
             self.num_slots, self.pages_per_slot)
-        self.row_bytes = sum(t[0].nbytes for kv in self.cache for t in kv)
+        # the JAX row's bytes: [1, max_length, HKV, D] per layer, K and V
+        self.row_bytes = sum(t[0, :self.max_length].nbytes
+                             for kv in self.cache for t in kv)
         self.pool_bytes = self.row_bytes * self.num_slots
         self.buckets = _normalize_buckets(buckets, self.max_length)
+        self._free = sorted(range(self.num_slots), reverse=True)
+        # per-slot high-water mark of written rows (the stranded-capacity
+        # figure of `_capacity_stats`)
+        self._written = [0] * self.num_slots
+        # set by the engine, reported in stats() as the JAX pool does
+        self.prefill_chunk_tokens: Optional[int] = None
+        self._row_writes = 0
+        self._row_copies = 0
+        self._copied_bytes = 0
 
+    @property
+    def page_table(self) -> np.ndarray:
+        """The identity page table [N, P] (the paged pool's name for
+        it)."""
+        return self.table
+
+    # -- slot lifecycle ----------------------------------------------------
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return self.num_slots - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.used_count / self.num_slots
+
+    def alloc(self) -> int:
+        """Claim the lowest free slot index; raises when full (the
+        engine checks what it can free before admitting)."""
+        if not self._free:
+            raise RuntimeError('slot pool exhausted')
+        return self._free.pop()
+
+    def free(self, slot: int):
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(f'slot {slot} out of range')
+        if slot in self._free:
+            raise ValueError(f'slot {slot} is already free')
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+        self._written[slot] = 0
+
+    def note_written(self, slot: int, rows) -> None:
+        """High-water mark of the KV rows `slot` holds (the engine calls
+        it at prefill and after each decode round)."""
+        r = min(int(rows), self.max_length)
+        if r > self._written[slot]:
+            self._written[slot] = r
+
+    def allocated_rows(self, slot: int) -> int:
+        """KV rows a seated slot holds: its whole row."""
+        return self.max_length
+
+    # -- rows ----------------------------------------------------------------
     def row(self, slot: int) -> list:
         """Slot `slot`'s per-layer (k, v) rows [1, max_length, HKV, D] (a
         view)."""
-        return [(k[slot:slot + 1], v[slot:slot + 1]) for k, v in self.cache]
+        return [(k[slot:slot + 1, :self.max_length],
+                 v[slot:slot + 1, :self.max_length]) for k, v in self.cache]
 
     def set_row(self, slot: int, row) -> None:
         """Replace slot `slot`'s row with the per-layer (k, v) [1, S, HKV,
@@ -164,7 +238,37 @@ class SlotPool:
         zero slab's prefill)."""
         table = torch.as_tensor(self.table[slot:slot + 1],
                                 device=self.pages[0][0].device)
-        scatter_pages(self.pages, table, pad_rows(row, self.max_length), 0)
+        scatter_pages(self.pages, table, pad_rows(
+            row, self.pages_per_slot * self.page_size), 0)
+        self._row_writes += 1
+
+    write_slot = set_row
+
+    def note_row_write(self) -> None:
+        """Count a row replacement that a prefill wrote into the slot's
+        pages in place (the JAX engine's `set_row` of the prefill's
+        row)."""
+        self._row_writes += 1
+
+    def copy_slot(self, src: int, dst: int) -> None:
+        """Copy row `src` into row `dst` on the device (a full prefix hit:
+        the retained row becomes the new request's; the rows above the
+        prefix are stale and never read, since a forward reads only the
+        rows below its position)."""
+        for kv in self.cache:
+            for t in kv:
+                t[dst].copy_(t[src])
+        self._row_copies += 1
+        self._copied_bytes += self.row_bytes
+
+    def copy_rows(self, src: int, dst: int, rows: int) -> None:
+        """Copy rows [0, rows) of row `src` into row `dst` on the device:
+        what a prefix hit's first chunk reads of the retained row, which
+        it never writes (not counted as a row copy)."""
+        if rows > 0:
+            for kv in self.cache:
+                for t in kv:
+                    t[dst, :rows].copy_(t[src, :rows])
 
     def reset_rows(self) -> None:
         """Zero every row."""
@@ -182,10 +286,32 @@ class SlotPool:
                 f'bucket {self.buckets[-1]} (max_length {self.max_length})')
         return self.buckets[i]
 
+    def _capacity_stats(self) -> dict:
+        """Allocated against written rows over the used slots: a row slot
+        holds max_length rows however few it writes, and `stranded_rows`
+        is that waste (the JAX `_capacity_stats`)."""
+        used = [s for s in range(self.num_slots) if s not in self._free]
+        allocated = sum(self.allocated_rows(s) for s in used)
+        written = sum(self._written[s] for s in used)
+        return {
+            'allocated_rows': allocated,
+            'written_rows': written,
+            'stranded_rows': allocated - written,
+            'row_utilization': written / allocated if allocated else 1.0,
+            'slot_written_rows': {s: self._written[s] for s in used},
+        }
+
     def stats(self) -> dict:
         return {'num_slots': self.num_slots, 'max_length': self.max_length,
-                'buckets': list(self.buckets), 'row_bytes': self.row_bytes,
-                'pool_bytes': self.pool_bytes}
+                'used': self.used_count, 'free': self.free_count,
+                'buckets': list(self.buckets),
+                'prefill_chunk_tokens': self.prefill_chunk_tokens,
+                'row_bytes': self.row_bytes,
+                'pool_bytes': self.pool_bytes,
+                'row_writes': self._row_writes,
+                'row_copies': self._row_copies,
+                'copied_bytes': self._copied_bytes,
+                **self._capacity_stats()}
 
 
 def pad_rows(slab, length: int) -> list:

@@ -1,9 +1,12 @@
-"""The paged prefill over static device buffers, replayed from one
-captured CUDA graph per (kind, bucket) on the card (the port's
-counterpart of the JAX engine's compiled `paged_prefill_<b>` and
-`paged_chunk_prefill_<b>` programs, `paddle_tpu/serving/engine.py:
-394-402` and `_paged_prefill_fn` / `_paged_chunk_prefill_fn` at
-:743-790, traced once per bucket).
+"""The prefill over static device buffers, replayed from one captured
+CUDA graph per (kind, bucket) on the card (the port's counterpart of the
+JAX engine's compiled `paged_prefill_<b>` and `paged_chunk_prefill_<b>`
+programs, `paddle_tpu/serving/engine.py:394-402` and `_paged_prefill_fn`
+/ `_paged_chunk_prefill_fn` at :743-790, and of the row engine's
+`prefill_<b>` and `chunk_prefill_<b>`, `_prefill_fn` /
+`_chunk_prefill_fn` at :570-608, each traced once per bucket). A row
+pool is read and written through its identity page table
+(`kv_pool.SlotPool`), so the bodies serve both layouts.
 
 `PrefillStep` keeps every input of one prefill in a buffer allocated
 once per (kind, bucket): the right-padded prompt ids [1, bucket], the
@@ -69,18 +72,23 @@ class PrefillStep(GraphStep):
         adapter_arrays: `AdapterBank.device_arrays()`, or None without a
             bank.
         scales: the int8 pool's per-layer (k_scales, v_scales), or None.
+        paged: False for a row engine's pool (`kv_pool.SlotPool`, read
+            through its identity table): the bodies are the same, only
+            the names are the JAX row engine's (`prefill_<b>`,
+            `chunk_prefill_<b>`).
     """
 
     def __init__(self, kind: str, bucket: int, model, pages,
                  table_width: int, device: torch.device,
-                 adapter_arrays=None, scales=None):
+                 adapter_arrays=None, scales=None, paged: bool = True):
         if kind not in KINDS:
             raise ValueError(f'prefill kind {kind!r} is not one of {KINDS}')
         self.kind, self.bucket = kind, int(bucket)
         self.what = f'{kind} prefill at bucket {self.bucket}'
-        # the JAX engine's trace names (engine.py:610, 751, 776)
-        self.name = {'whole': 'paged_prefill', 'chunk': 'paged_chunk_prefill',
-                     'draft': 'draft_prefill'}[kind] + f'_{self.bucket}'
+        # the JAX engine's trace names (engine.py:581, 600, 613, 751, 776)
+        self.name = ('paged_' if paged and kind != 'draft' else '') + {
+            'whole': 'prefill', 'chunk': 'chunk_prefill',
+            'draft': 'draft_prefill'}[kind] + f'_{self.bucket}'
         self._rows = table_width * pages[0][0].shape[1]
         self._model = model
         self._pages = pages

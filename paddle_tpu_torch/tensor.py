@@ -348,6 +348,33 @@ class Parameter(torch.nn.Parameter):
 
     persistable = True
 
+    def defer_init(self, fill, device) -> None:
+        """Record how `initialize()` materializes this `meta` parameter:
+        `fill(t)` writes its values into an empty tensor on `device`
+        (`nn.LazyGuard`)."""
+        self.__dict__['_lazy_init'] = (fill, torch.device(device))
+
+    @property
+    def is_lazy(self) -> bool:
+        return '_lazy_init' in self.__dict__
+
+    def initialize(self):
+        """Materialize a parameter made under `LazyGuard` on its device,
+        from its recorded initializer and generator; a no-op for one made
+        eagerly. Returns the parameter."""
+        lazy = self.__dict__.pop('_lazy_init', None)
+        if lazy is not None:
+            fill, device = lazy
+            t = torch.empty(self.shape, dtype=self.dtype, device=device)
+            fill(t)
+            # a meta tensor cannot take another device's data in place:
+            # swap this object's contents with a materialized twin's, so
+            # every module that holds the parameter sees the new one
+            twin = Parameter(t, self.requires_grad)
+            twin.__dict__.update(self.__dict__)
+            torch.utils.swap_tensors(self, twin)
+        return self
+
     def clear_grad(self):
         self.grad = None
 

@@ -2,18 +2,19 @@
 `paddle_tpu/utils/checkpoint.py`; upstream: fleet checkpointing + the
 hapi Checkpoint callback).
 
-One `CheckpointManager` over the npz container of `serialization.py`: a
+One `CheckpointManager` over the containers of `serialization.py`: a
 checkpoint is a tree ({'params', 'opt_state', 'step', 'meta', ...}) of
-tensors, arrays and scalars, committed as `step_<n>/tree.npz` plus a
-`_COMMITTED` manifest holding each payload file's sha256 (atomic rename,
-so a killed writer never leaves a half-offered step). The layout is the
-JAX package's npz backend, so either package restores the other's
-checkpoints.
+tensors, arrays and scalars, committed as `step_<n>/tree.npz` (backend
+'npz') or `step_<n>/tree_sharded/` (backend 'native', `save_sharded`
+through the host C++ shard writer) plus a `_COMMITTED` manifest holding
+each payload file's sha256 (atomic rename, so a killed writer never
+leaves a half-offered step). The layouts are the JAX package's, so
+either package restores the other's checkpoints.
 
-Backends: always 'npz'. `backend='orbax'` raises as the JAX manager does
-when orbax is missing (the port does not use orbax), and
-`backend='native'` raises until the host C++ shard writer is ported
-(ROADMAP.md, Queue 1, item 4).
+Backends: 'npz' by default; `backend='native'` needs the shard writer
+(`utils/ckpt_native.available()`) and raises the JAX manager's
+RuntimeError without it; `backend='orbax'` raises as the JAX manager does
+when orbax is missing (the port does not use orbax).
 
 Observability (the JAX manager's): each save runs in a `checkpoint_save`
 span and each restore in a `checkpoint_restore` span (the goodput
@@ -92,7 +93,8 @@ class CheckpointManager:
     """Save/restore step-indexed checkpoints with retention.
 
     Args mirror the JAX manager's (max_to_keep, save_interval_steps,
-    async_save, backend, retry_policy); the backend is always 'npz'.
+    async_save, backend, retry_policy); the backend is 'npz' unless
+    'native' is asked for.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 5,
@@ -102,15 +104,17 @@ class CheckpointManager:
         if backend == 'orbax':
             raise RuntimeError('orbax backend requested but not importable')
         if backend == 'native':
-            raise NotImplementedError(
-                'native backend requested but the C++ checkpoint sharder is '
-                'not ported yet (ROADMAP.md, Queue 1, item 4)')
+            from . import ckpt_native
+            if not ckpt_native.available():
+                raise RuntimeError(
+                    'native backend requested but the C++ checkpoint '
+                    'sharder is unavailable (no compiler?)')
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
         self.async_save = async_save
-        self.backend = 'npz'
+        self.backend = 'native' if backend == 'native' else 'npz'
         self._pending: Optional[threading.Thread] = None
         # transient I/O failures (flaky mounts) are retried with backoff
         # before a save/restore is declared dead
@@ -147,7 +151,11 @@ class CheckpointManager:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        serialization.save(host_tree, os.path.join(tmp, 'tree.npz'))
+        if self.backend == 'native':
+            serialization.save_sharded(host_tree,
+                                       os.path.join(tmp, 'tree_sharded'))
+        else:
+            serialization.save(host_tree, os.path.join(tmp, 'tree.npz'))
         committed = {'step': step, 'backend': self.backend,
                      'checksums': _payload_checksums(tmp)}
         if cursor is not None:

@@ -284,7 +284,8 @@ def test_store_served_mixed_wave_identical_to_jax_and_to_load(models,
     loaded.load('ad0', 1, version=1)
     loaded.load('ad1', 2, version=1)
     ref = InferenceEngine(models[1], num_slots=4, max_length=64,
-                          decode_block=2, adapter_bank=loaded.port)
+                          decode_block=2, adapter_bank=loaded.port,
+                          kv_page_size=16)
     assert [h.tokens for h in ht] == [h.tokens for h in ref.generate_many(
         prompts, _sp(SamplingParams, 5), adapter_ids=ids)]
     assert pair.table()['pinned'] == 0

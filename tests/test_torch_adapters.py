@@ -518,10 +518,12 @@ def test_mixed_wave_identical_to_jax_and_to_each_adapter_alone(models):
     sp = SamplingParams(max_new_tokens=5, eos_token_id=NO_EOS)
     alone = {aid: [h.tokens for h in InferenceEngine(
         tm, num_slots=4, max_length=64, decode_block=2,
-        adapter_bank=_bank(tm)).generate_many(prompts, sp, adapter_ids=aid)]
+        adapter_bank=_bank(tm),
+        kv_page_size=16).generate_many(prompts, sp, adapter_ids=aid)]
         for aid in ('ad0', 'ad1')}
     base = [h.tokens for h in InferenceEngine(
-        tm, num_slots=4, max_length=64, decode_block=2).generate_many(
+        tm, num_slots=4, max_length=64, decode_block=2,
+        kv_page_size=16).generate_many(
         prompts, sp)]
     for j, (h, aid) in enumerate(zip(ht, ids)):
         assert h.tokens == (base[j] if aid is None else alone[aid][j])
@@ -535,20 +537,21 @@ def test_base_requests_identical_to_bank_less_engine(models):
     _, tm = models
     prompts = _prompts([5, 3, 9], seed=2)
     sp = SamplingParams(max_new_tokens=6, eos_token_id=NO_EOS)
-    bare = InferenceEngine(tm, num_slots=2, max_length=64, decode_block=2)
+    bare = InferenceEngine(tm, num_slots=2, max_length=64, decode_block=2,
+                           kv_page_size=16)
     banked = InferenceEngine(tm, num_slots=2, max_length=64, decode_block=2,
-                             adapter_bank=_bank(tm))
+                             adapter_bank=_bank(tm), kv_page_size=16)
     assert [h.tokens for h in banked.generate_many(prompts, sp)] == \
         [h.tokens for h in bare.generate_many(prompts, sp)]
 
 
 def test_submit_validation(models):
     _, tm = models
-    bare = InferenceEngine(tm, num_slots=2, max_length=64)
+    bare = InferenceEngine(tm, num_slots=2, max_length=64, kv_page_size=16)
     with pytest.raises(ValueError, match='adapter_bank'):
         bare.submit([1, 2, 3], max_new_tokens=2, adapter_id='ad0')
     banked = InferenceEngine(tm, num_slots=2, max_length=64,
-                             adapter_bank=_bank(tm, 1))
+                             adapter_bank=_bank(tm, 1), kv_page_size=16)
     with pytest.raises(AdapterUnavailable):
         banked.submit([1, 2, 3], max_new_tokens=2, adapter_id='ghost')
     with pytest.raises(ValueError, match='adapter id'):
@@ -559,7 +562,7 @@ def test_pins_released_and_stats_exposed(models):
     _, tm = models
     bank = _bank(tm, 2)
     eng = InferenceEngine(tm, num_slots=4, max_length=64, decode_block=2,
-                          adapter_bank=bank)
+                          adapter_bank=bank, kv_page_size=16)
     hs = eng.generate_many(_prompts([4, 5], seed=4),
                            SamplingParams(max_new_tokens=3,
                                           eos_token_id=NO_EOS),

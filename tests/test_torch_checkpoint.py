@@ -287,11 +287,16 @@ def test_retention_interval_and_missing_steps(tmp_path):
 
 @pytest.mark.parametrize('backend', ['orbax', 'native', 'npz'])
 def test_backends(tmp_path, backend):
-    """'npz' is the port's one backend; 'orbax' raises as the JAX manager
-    does without orbax, 'native' until the shard writer is ported."""
+    """'npz' is the port's default backend and 'native' the sharded one
+    over the host shard writer (a step saved and restored); 'orbax' raises
+    as the JAX manager does without orbax."""
     if backend == 'native':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            CheckpointManager(str(tmp_path), backend=backend)
+        mgr = CheckpointManager(str(tmp_path), backend=backend)
+        assert mgr.backend == 'native'
+        mgr.save(1, {'w': torch.arange(4.0), 'step': 1})
+        tree = mgr.restore()
+        assert np.array_equal(tree['w'], np.arange(4.0, dtype=np.float32))
+        assert (tmp_path / 'step_1' / 'tree_sharded').is_dir()
     elif backend == 'orbax':
         with pytest.raises(RuntimeError, match='orbax'):
             CheckpointManager(str(tmp_path), backend=backend)

@@ -335,11 +335,13 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
     K.reset_launch_counts()
     card = InferenceEngine(on_card, num_slots=3, max_length=128,
-                           decode_block=4).generate_many(prompts, sp)
+                           decode_block=4,
+                           kv_page_size=16).generate_many(prompts, sp)
     assert all(K.LAUNCHES[k] > 0 for k in ('flash_attention_fwd',
                                            'paged_attention', 'rms_norm'))
     cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
-                          decode_block=4).generate_many(prompts, sp)
+                          decode_block=4,
+                          kv_page_size=16).generate_many(prompts, sp)
     assert [h.tokens for h in card] == [h.tokens for h in cpu]
 
 
@@ -381,7 +383,7 @@ def test_prefix_chunk_engine_matches_cold_engine(cuda):
     out = []
     for kw in (dict(prefix_cache=0.5, prefill_chunk_tokens=32), {}):
         eng = InferenceEngine(model, num_slots=3, max_length=128,
-                              decode_block=4, **kw)
+                              decode_block=4, **kw, kv_page_size=16)
         eng.generate_many([first], sp)
         K.reset_launch_counts()
         out.append([h.tokens for h in eng.generate_many(wave, sp)])
@@ -672,8 +674,9 @@ def test_banked_engine_on_card_matches_engine_on_cpu(cuda):
             bank.load(f'ad{i}', make_adapter_factors(bank, i + 1, scale=0.1))
         K.reset_launch_counts()
         hs = InferenceEngine(model, num_slots=3, max_length=128,
-                             decode_block=4, adapter_bank=bank
-                             ).generate_many(prompts, sp, adapter_ids=ids)
+                             decode_block=4, adapter_bank=bank,
+                             kv_page_size=16).generate_many(
+                                 prompts, sp, adapter_ids=ids)
         tokens.append([h.tokens for h in hs])
         if model is on_card:
             assert K.LAUNCHES['adapter_matmul'] > 0
@@ -714,7 +717,7 @@ def _traces(eng) -> dict:
     """The `traces` a card engine must show: one capture of the decode
     sub-step and one of each prefill step it built, under the JAX
     engine's names."""
-    return {'paged_decode_step': 1,
+    return {eng._decode_name: 1,
             **{step.name: 1 for step in eng._prefill_steps.values()}}
 
 
@@ -726,7 +729,7 @@ def _serve_counted(model, bank, capture, prompts, params, ids):
     returns (tokens, LAUNCHES, engine). `capture` sets the decode and
     the prefill capture."""
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
-                          adapter_bank=bank)
+                          adapter_bank=bank, kv_page_size=16)
     eng._capture_decode = eng._capture_prefill = capture
     eng.generate_many([prompts[0][:3]],
                       SamplingParams(max_new_tokens=4, eos_token_id=-1))
@@ -798,7 +801,7 @@ def test_decode_round_syncs_nothing(cuda, capture):
                        targets=('q_proj', 'k_proj', 'v_proj', 'o_proj'))
     bank.load('ad0', make_adapter_factors(bank, 1, scale=0.1))
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
-                          adapter_bank=bank)
+                          adapter_bank=bank, kv_page_size=16)
     eng._capture_decode = eng._capture_prefill = capture
     for s, aid in ((5, 'ad0'), (9, None)):
         eng.submit(list(range(1, s + 1)), max_new_tokens=12,
@@ -903,7 +906,8 @@ def test_prefill_graph_equals_the_eager_prefill(cuda, dtype, banked):
     for graph in (True, False):
         eng = InferenceEngine(model, num_slots=3, max_length=128,
                               decode_block=4, adapter_bank=bank,
-                              prefix_cache=0.5, prefill_chunk_tokens=32)
+                              prefix_cache=0.5, prefill_chunk_tokens=32,
+                              kv_page_size=16)
         eng._capture_prefill = graph
         toks = []
         # the first pass captures what the trace uses (a capture's
@@ -943,7 +947,8 @@ def test_one_chunk_graph_at_three_starts_equals_the_eager_body(cuda):
                              generator=generator(11, cuda))
     engines = []
     for capture in (True, False):
-        eng = InferenceEngine(model, num_slots=2, max_length=128)
+        eng = InferenceEngine(model, num_slots=2, max_length=128,
+                              kv_page_size=16)
         eng._capture_prefill = capture
         slot = eng.pool.alloc()
         eng.pool.reserve(slot, 128)
@@ -996,7 +1001,7 @@ def test_a_failed_prefill_capture_raises(cuda, monkeypatch):
 
     monkeypatch.setattr(prefill_graph.PrefillStep, '_body',
                         body_with_a_host_read)
-    eng = InferenceEngine(model, num_slots=2, max_length=128)
+    eng = InferenceEngine(model, num_slots=2, max_length=128, kv_page_size=16)
     eng.submit(list(range(1, 6)), max_new_tokens=2, eos_token_id=-1)
     with pytest.raises(RuntimeError, match='capturing the whole prefill'):
         eng.step()
@@ -1044,7 +1049,7 @@ def test_int8_graph_engine_equals_its_eager_twin(cuda, prefix, banked):
     for graph in (True, False):
         eng = InferenceEngine(model, num_slots=3, max_length=128,
                               decode_block=4, adapter_bank=bank,
-                              kv_quant='int8', **opts)
+                              kv_quant='int8', **opts, kv_page_size=16)
         eng._capture_decode = eng._capture_prefill = graph
         toks = []
         for _ in range(2):      # the first pass captures what it uses
@@ -1087,7 +1092,7 @@ def test_a_failing_chunk_fails_alone_on_the_graph_engine(cuda, quant):
     sp = SamplingParams(max_new_tokens=8, eos_token_id=-1)
     kw = dict(num_slots=3, max_length=128, decode_block=4,
               prefill_chunk_tokens=32, kv_quant=quant)
-    eng = InferenceEngine(model, **kw)
+    eng = InferenceEngine(model, **kw, kv_page_size=16)
     chunk = eng._prefill_chunk
     calls = []
 
@@ -1106,7 +1111,7 @@ def test_a_failing_chunk_fails_alone_on_the_graph_engine(cuda, quant):
     step = eng._prefill_steps[('chunk', 32)]
     assert step.graph is not None
     again = eng.generate_many(prompts, sp)     # the injection is spent
-    twin = InferenceEngine(model, **kw)
+    twin = InferenceEngine(model, **kw, kv_page_size=16)
     twin._capture_decode = twin._capture_prefill = False
     want = twin.generate_many(prompts, sp)
     assert [h.status for h in again] == [FINISHED] * 3
@@ -1455,7 +1460,7 @@ def test_spec_graph_engine_equals_eager_and_plain(cuda, quant, banked):
     runs = []
     for graph in (True, False):
         eng = InferenceEngine(model, draft_model=draft, num_draft_tokens=4,
-                              **kw)
+                              **kw, kv_page_size=16)
         eng._capture_decode = eng._capture_prefill = graph
         toks = []
         for _ in range(2):      # the first pass captures what it uses
@@ -1475,7 +1480,8 @@ def test_spec_graph_engine_equals_eager_and_plain(cuda, quant, banked):
     assert st['traces'] == {'paged_spec_decode_k4': 1, **{
         step.name: 1 for step in graph_eng._prefill_steps.values()}}
     if quant is None:
-        plain = InferenceEngine(model, decode_block=4, **kw).generate_many(
+        plain = InferenceEngine(model, decode_block=4, **kw,
+                                kv_page_size=16).generate_many(
             prompts, params, adapter_ids=ids)
         for j, h in enumerate(plain):
             if j != 3:
@@ -1498,7 +1504,8 @@ def test_capture_runs_no_collection_of_a_dropped_engine(cuda):
     params = SamplingParams(max_new_tokens=6, eos_token_id=-1)
 
     def serve():
-        eng = InferenceEngine(model, num_slots=2, max_length=64)
+        eng = InferenceEngine(model, num_slots=2, max_length=64,
+                              kv_page_size=16)
         eng._capture_decode = eng._capture_prefill = True
         return eng, [h.tokens for h in eng.generate_many(prompts, params)]
 
@@ -1547,13 +1554,14 @@ def test_swap_and_restore_on_the_graph_engine(cuda):
     prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
                for n in (7, 60)]
     sp = SamplingParams(max_new_tokens=10, eos_token_id=-1)
-    eng = InferenceEngine(model, num_slots=2, max_length=128, decode_block=4)
+    eng = InferenceEngine(model, num_slots=2, max_length=128, decode_block=4,
+                          kv_page_size=16)
     before = [h.tokens for h in eng.generate_many(prompts, sp)]
     traces = dict(eng.stats()['traces'])
     prev = eng.swap_weights(state, version=1)
     after = [h.tokens for h in eng.generate_many(prompts, sp)]
     fresh = InferenceEngine(other, num_slots=2, max_length=128,
-                            decode_block=4)
+                            decode_block=4, kv_page_size=16)
     assert after == [h.tokens for h in fresh.generate_many(prompts, sp)]
     assert after != before
     eng.restore_weights(prev)
@@ -1589,7 +1597,7 @@ def _bank_engine(model, store_dir=None, capacity=3, capture=True, load=()):
         bank.load(aid, make_adapter_factors(bank, seed, scale=0.1),
                   version=1)
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
-                          adapter_bank=bank)
+                          adapter_bank=bank, kv_page_size=16)
     eng._capture_decode = eng._capture_prefill = capture
     return eng
 
@@ -1740,7 +1748,7 @@ def _observed_run(model, capture, prompts, params, **kw):
     event log: (the run's metric changes, its events, its tokens)."""
     from paddle_tpu_torch import observability as obs
     eng = InferenceEngine(model, num_slots=3, max_length=128, decode_block=4,
-                          **kw)
+                          **kw, kv_page_size=16)
     eng._capture_decode = eng._capture_prefill = capture
     eng.generate_many([prompts[0][:3]],
                       SamplingParams(max_new_tokens=4, eos_token_id=-1))
@@ -1814,7 +1822,7 @@ def test_two_replica_router_on_the_card_equals_one(cuda):
     from paddle_tpu_torch.serving import ReplicaSet, Router
     obs.enable()
     model, prompts, sp = _fleet_case(cuda)
-    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    kw = dict(num_slots=2, max_length=128, decode_block=4, kv_page_size=16)
     one = Router(ReplicaSet(model, 1, **kw)).generate_many(prompts, sp)
     rs = ReplicaSet(model, 2, **kw)
     two = Router(rs).generate_many(prompts, sp)
@@ -1838,7 +1846,7 @@ def test_router_failover_on_the_card_loses_nothing(cuda):
     from paddle_tpu_torch.resilience import TransientError
     from paddle_tpu_torch.serving import ReplicaSet, Router
     model, prompts, sp = _fleet_case(cuda)
-    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    kw = dict(num_slots=2, max_length=128, decode_block=4, kv_page_size=16)
     calm = [h.tokens for h in Router(ReplicaSet(model, 2, **kw))
             .generate_many(prompts, sp)]
     for exc, transient in (
@@ -1884,7 +1892,7 @@ def test_replica_process_on_the_card_serves_the_in_process_tokens(
                                           WeightStore)
     from paddle_tpu_torch.weights import param_digest
     model, prompts, sp = _fleet_case(cuda)
-    kw = dict(num_slots=2, max_length=128, decode_block=4)
+    kw = dict(num_slots=2, max_length=128, decode_block=4, kv_page_size=16)
     want = [h.tokens for h in InferenceEngine(model, **kw).generate_many(
         prompts, sp)]
     WeightStore(str(tmp_path / 'w')).publish(model.state_dict())
@@ -2617,11 +2625,13 @@ def test_gpt2_width_engine_on_card_matches_cpu(cuda):
     sp = SamplingParams(max_new_tokens=12, eos_token_id=-1)
     K.reset_launch_counts()
     card = InferenceEngine(on_card, num_slots=3, max_length=128,
-                           decode_block=4).generate_many(prompts, sp)
+                           decode_block=4,
+                           kv_page_size=16).generate_many(prompts, sp)
     assert K.LAUNCHES['flash_attention_fwd_d64'] > 0
     assert K.LAUNCHES['paged_attention_d64'] > 0
     cpu = InferenceEngine(on_cpu, num_slots=3, max_length=128,
-                          decode_block=4).generate_many(prompts, sp)
+                          decode_block=4,
+                          kv_page_size=16).generate_many(prompts, sp)
     assert [h.tokens for h in card] == [h.tokens for h in cpu]
 
 
@@ -2888,3 +2898,111 @@ def test_resnet50_f32_on_the_card_equals_the_cpu(cuda):
                  for m in (cpu, card, exact)]
         assert rel(grads[1], grads[2]) <= max(1e-4,
                                               4 * rel(grads[0], grads[2]))
+
+
+# ---------------------------------------------------------------------------
+# the row engine (InferenceEngine's default layout) and sharded checkpoints
+# ---------------------------------------------------------------------------
+
+def _row_case(cuda, seed=41):
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(seed, cuda))
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 70, 17, 33, 9, 120)]
+    from paddle_tpu_torch.serving import SAMPLING
+    params = [SamplingParams(max_new_tokens=12, eos_token_id=-1)] * 5 + [
+        SamplingParams(max_new_tokens=12, eos_token_id=-1,
+                       strategy=SAMPLING, temperature=0.8, seed=4)]
+    return model, prompts, params
+
+
+@pytest.mark.parametrize('capture', [True, False])
+def test_row_engine_on_the_card_equals_the_paged_engine(cuda, capture):
+    """bf16: the row engine (no layout argument) and the paged engine over
+    the same model give every request, a sampled one included, the same
+    tokens, through the same flash, RMSNorm and paged kernels; captured,
+    the row engine shows the JAX row engine's trace names once each."""
+    model, prompts, params = _row_case(cuda)
+    out = []
+    for kw in ({}, {'kv_page_size': 16}):
+        eng = InferenceEngine(model, num_slots=4, max_length=256,
+                              decode_block=4, **kw)
+        eng._capture_decode = eng._capture_prefill = capture
+        K.reset_launch_counts()
+        out.append([h.tokens for h in eng.generate_many(prompts, params)])
+        assert all(K.LAUNCHES[k] > 0 for k in (
+            'flash_attention_fwd', 'paged_attention', 'rms_norm'))
+        if not kw:
+            st = eng.stats()
+            assert st['kv_layout'] == 'row' and st['pool']['free'] == 4
+            want = _traces(eng) if capture else {}
+            assert st['traces'] == want
+            assert all(k == 'decode_step' or k.startswith('prefill_')
+                       for k in st['traces'])
+    assert out[0] == out[1]
+
+
+def test_row_prefix_cache_on_the_card_equals_the_same_chunks(cuda):
+    """bf16: a 64-token system prompt (two 32-token chunks) behind
+    suffixes, hit three times, and an exact repeat (a full hit, one row
+    copy), through the captured row engine with the prefix cache and
+    32-token chunks: the tokens of a row engine with the same chunks and
+    no cache (every row computed through the same chunks), so a retained
+    row was never written."""
+    model, _, _ = _row_case(cuda, seed=43)
+    g = torch.Generator().manual_seed(44)
+    rand = lambda n: torch.randint(1, 512, (n,), generator=g).tolist()
+    system = rand(64)
+    waves = [[system + rand(20)]] + [
+        [system + rand(n) for n in (3, 40, 9)] for _ in range(3)]
+    repeat = system + rand(30)
+    waves += [[repeat], [repeat]]     # retained, then a full hit
+    sp = SamplingParams(max_new_tokens=10, eos_token_id=-1)
+    out = []
+    for kw in (dict(prefix_cache=0.5, prefill_chunk_tokens=32),
+               dict(prefill_chunk_tokens=32)):
+        eng = InferenceEngine(model, num_slots=4, max_length=256,
+                              decode_block=4, **kw)
+        out.append([[h.tokens for h in eng.generate_many(w, sp)]
+                    for w in waves])
+        if 'prefix_cache' in kw:
+            st = eng.stats()
+            assert st['prefix_cache']['hits'] >= 9
+            assert st['pool']['row_copies'] == 1
+            assert st['traces'] == _traces(eng)
+            eng.prefix_cache.clear(force=True)
+            assert eng.pool.free_count == 4
+    assert out[0] == out[1]
+
+
+def test_row_end_beside_a_live_neighbour_on_the_card(cuda):
+    """A request that runs to the last row of its slot (the last round
+    runs past it) beside a neighbour in the next row: the neighbour's
+    tokens equal its tokens alone."""
+    model, _, _ = _row_case(cuda, seed=45)
+    g = torch.Generator().manual_seed(46)
+    first, second = (torch.randint(1, 512, (n,), generator=g).tolist()
+                     for n in (40, 7))
+    kw = dict(num_slots=2, max_length=64, decode_block=5)
+    eng = InferenceEngine(model, **kw)
+    hs = eng.generate_many([first, second], [
+        SamplingParams(max_new_tokens=24, eos_token_id=-1),
+        SamplingParams(max_new_tokens=40, eos_token_id=-1)])
+    alone = InferenceEngine(model, **kw).generate_many(
+        [second], SamplingParams(max_new_tokens=40, eos_token_id=-1))
+    assert len(hs[0].tokens) == 24 and hs[1].tokens == alone[0].tokens
+
+
+def test_sharded_checkpoint_loads_onto_the_card_bit_equal(cuda, tmp_path):
+    from paddle_tpu_torch import serialization as ser
+    g = torch.Generator(device=cuda).manual_seed(3)
+    state = {'w': torch.randn(300, 257, device=cuda, generator=g)
+             .bfloat16(),
+             'b': torch.randn(257, device=cuda, generator=g),
+             'i': torch.arange(11, device=cuda)}
+    ser.save_sharded(state, str(tmp_path / 'd'), n_shards=2)
+    back = ser.load_sharded(str(tmp_path / 'd'), device=cuda)
+    for k, v in state.items():
+        assert back[k].device.type == 'cuda' and back[k].dtype == v.dtype
+        assert torch.equal(back[k], v), k

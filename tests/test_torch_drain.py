@@ -189,7 +189,8 @@ def test_drain_deadline_fails_stragglers_not_silently(models):
 
 def test_step_picks_up_preemption_flag(models):
     _, tm = models
-    eng = InferenceEngine(tm, num_slots=2, max_length=64, decode_block=2)
+    eng = InferenceEngine(tm, num_slots=2, max_length=64, decode_block=2,
+                          kv_page_size=16)
     handler = PreemptionHandler()
     assert eng.enable_graceful_drain(handler=handler,
                                      deadline_s=60.0) is handler
@@ -198,7 +199,7 @@ def test_step_picks_up_preemption_flag(models):
     assert not eng.draining
     eng.run()                         # step() notices the flag
     assert eng.draining and h.status == FINISHED
-    eng2 = InferenceEngine(tm, num_slots=2, max_length=64)
+    eng2 = InferenceEngine(tm, num_slots=2, max_length=64, kv_page_size=16)
     eng2.begin_drain()
     with pytest.raises(RuntimeError, match='draining'):
         eng2.submit([1, 2, 3])
@@ -251,7 +252,7 @@ def test_evict_all_hands_back_every_request_and_frees_every_page(models):
              for h in out_t]
     eng.run()
     fresh = InferenceEngine(models[1], num_slots=2, max_length=64,
-                            decode_block=2).generate_many(
+                            decode_block=2, kv_page_size=16).generate_many(
         [h.prompt_tokens for h in out_t], _sp(SamplingParams, 6))
     assert [h.tokens for h in again] == [h.tokens for h in fresh]
 
@@ -336,7 +337,7 @@ def test_swap_and_restore_bit_exact_nothing_built(models, trained_state,
 
 def test_handles_stamped_with_admission_version(models, trained_state):
     eng = InferenceEngine(_port(_state(11)[1]), num_slots=2, max_length=64,
-                          decode_block=2, weight_version=41)
+                          decode_block=2, weight_version=41, kv_page_size=16)
     h1 = eng.submit(_prompts([5])[0], _sp(SamplingParams, 4))
     assert h1.weight_version is None        # queued: not admitted yet
     h1.result()

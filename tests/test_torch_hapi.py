@@ -189,14 +189,23 @@ def test_save_and_load_roundtrip(tmp_path):
 
 
 def test_summary_counts_parameters_and_flops(capsys):
-    _, tm = _models(False)
-    m = Model(tm)
-    plain = m.summary()
-    n = sum(p.numel() for p in tm.parameters())
-    assert plain == {'total_params': n, 'trainable_params': n}
-    full = m.summary(input_size=(2, 16))
-    assert full['total_params'] == n and full['flops'] > 2 * n * 32 * 0.9
-    assert 'Output Shape' in capsys.readouterr().out
+    """`Model.summary` against the JAX one on the same network: the
+    parameter counts, and with `input_size` the dict and the printed
+    table of `utils.flops.summary`; `flops` counts what the JAX one
+    does."""
+    jnet, tnet = _nets()
+    jm, tm = JaxModel(jnet), Model(tnet)
+    plain = tm.summary()
+    assert plain == jm.summary() == {'total_params': 180,
+                                     'trainable_params': 180}
+    capsys.readouterr()
+    full = tm.summary(input_size=(2, 6))
+    table = capsys.readouterr().out
+    assert full == jm.summary(input_size=(2, 6)) == plain
+    assert table == capsys.readouterr().out
+    assert 'fc2 (Linear)' in table and '[2, 4]' in table
+    assert ptt.flops(tnet, [2, 6]) == paddle.flops(jnet, [2, 6]) == \
+        2 * 2 * (6 * 16 + 16 * 4)
 
 
 def test_unported_options_name_roadmap():

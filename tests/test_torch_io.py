@@ -179,11 +179,18 @@ def test_collate_keeps_the_jax_dtypes_and_structure():
 
 
 def test_unported_io_paths_name_roadmap():
+    """DistributedBatchSampler waits for distributed/; the native
+    collator is ported: it assembles the Python collator's batch."""
     x, _ = _data()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tio.DistributedBatchSampler(tio.TensorDataset([x]), 4)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tio._NativeCollator(2, 1 << 20)
+    samples = [[np.full((2, 3), i, np.float32), np.asarray(i, np.int64)]
+               for i in range(4)]
+    got = tio._NativeCollator(2, 1 << 20).collate(samples, 'tuple')
+    want = tio.default_collate_fn(samples)
+    assert isinstance(got, tuple) and len(got) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_loader_worker_error_surfaces():

@@ -252,7 +252,7 @@ def test_prefill_under_an_adapter_writes_the_jax_engines_pages(models,
 
 def test_prefill_step_rejects_an_unknown_kind(models):
     _, tm = models
-    eng = InferenceEngine(tm, num_slots=1, max_length=MAX_LEN)
+    eng = InferenceEngine(tm, num_slots=1, max_length=MAX_LEN, kv_page_size=16)
     with pytest.raises(ValueError):
         PrefillStep('partial', 8, tm, eng.pool.pages,
                     eng.pool.pages_per_slot, eng.device)

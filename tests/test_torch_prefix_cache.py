@@ -430,7 +430,8 @@ def test_two_adapters_never_share_a_prefix_like_jax(models):
     assert pc['misses'] == 4 and pc['hits'] == 4
     for aid, toks in (('ad0', got[0:2]), ('ad1', got[2:4])):
         alone = InferenceEngine(tm, num_slots=3, max_length=96,
-                                decode_block=2, adapter_bank=_bank(tm))
+                                decode_block=2, adapter_bank=_bank(tm),
+                                kv_page_size=16)
         assert toks == [h.tokens for h in alone.generate_many(
             prompts, SamplingParams(max_new_tokens=6, eos_token_id=NO_EOS),
             adapter_ids=aid)]
@@ -460,12 +461,14 @@ def test_engine_validation_matches_jax(models):
                 dict(prefix_cache=RadixPrefixCache(pool, 0.5)),
                 dict(prefix_cache=0.01)):
         with pytest.raises(ValueError):
-            InferenceEngine(tm, num_slots=2, max_length=64, **bad)
+            InferenceEngine(tm, num_slots=2, max_length=64, kv_page_size=16,
+                            **bad)
     for bad in (dict(prefill_chunk_tokens=0), dict(prefix_cache=0.01)):
         with pytest.raises(ValueError):
             JaxEngine(jm, num_slots=2, max_length=64, kv_page_size=16,
                       **bad)
-    eng = InferenceEngine(tm, num_slots=2, max_length=64, prefix_cache=True)
+    eng = InferenceEngine(tm, num_slots=2, max_length=64, prefix_cache=True,
+                          kv_page_size=16)
     assert eng.prefix_cache.budget_pages == 4          # 0.5 of 8
     h = eng.submit([1, 2, 3], max_new_tokens=2, eos_token_id=NO_EOS)
     eng.run()

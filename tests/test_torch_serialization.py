@@ -146,9 +146,14 @@ def test_unserializable_input_raises_like_jax(tmp_path, bad):
 
 
 def test_missing_file_and_sharded_calls(tmp_path):
+    """A missing file raises as in JAX; the sharded calls round-trip (the
+    cross-package directories are tests/test_torch_native.py's), and a
+    directory without tree.json raises the JAX FileNotFoundError."""
     with pytest.raises(FileNotFoundError):
         ser.load(str(tmp_path / 'absent.npz'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ser.save_sharded({'w': torch.ones(2)}, str(tmp_path / 'sh'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ser.load_sharded(str(tmp_path / 'sh'))
+    ser.save_sharded({'w': torch.ones(2)}, str(tmp_path / 'sh'))
+    back = ser.load_sharded(str(tmp_path / 'sh'), device='cpu')
+    assert torch.equal(back['w'], torch.ones(2))
+    for load in (ser.load_sharded, jser.load_sharded):
+        with pytest.raises(FileNotFoundError, match='tree.json'):
+            load(str(tmp_path / 'absent'))

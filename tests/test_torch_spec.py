@@ -153,7 +153,7 @@ def test_sampling_rows_unaffected_by_speculation(models):
     sp = dict(max_new_tokens=8, strategy=SAMPLING, temperature=1.4,
               top_k=24, eos_token_id=NO_EOS)
     eng = InferenceEngine(tm, num_slots=3, max_length=MAX_LEN,
-                          draft_model=tm, num_draft_tokens=3)
+                          draft_model=tm, num_draft_tokens=3, kv_page_size=16)
     h1 = eng.submit(prompt, SamplingParams(seed=7, **sp))
     h2 = eng.submit(prompt, SamplingParams(seed=7, **sp))
     h3 = eng.submit(prompt, SamplingParams(max_new_tokens=8,
@@ -161,7 +161,8 @@ def test_sampling_rows_unaffected_by_speculation(models):
     eng.run()
     assert h1.tokens == h2.tokens and len(h1.tokens) == 8
     assert h3.tokens == _plain_greedy(models, [prompt], 8)[0]
-    plain = InferenceEngine(tm, num_slots=3, max_length=MAX_LEN)
+    plain = InferenceEngine(tm, num_slots=3, max_length=MAX_LEN,
+                            kv_page_size=16)
     assert plain.generate_many(
         [prompt], SamplingParams(seed=7, **sp))[0].tokens == h1.tokens
 
@@ -446,7 +447,8 @@ def test_behind_a_bank_equals_jax_and_plain(models):
     jeng, eng = _engines(models, jbank=_jax_bank(jm), bank=_bank(tm))
     want, got = _run_both(jeng, eng, prompts, 6, adapter_ids=ids)
     plain = InferenceEngine(tm, num_slots=3, max_length=MAX_LEN,
-                            decode_block=2, adapter_bank=_bank(tm))
+                            decode_block=2, adapter_bank=_bank(tm),
+                            kv_page_size=16)
     assert got == want == [h.tokens for h in plain.generate_many(
         prompts, SamplingParams(max_new_tokens=6, eos_token_id=NO_EOS),
         adapter_ids=ids)]

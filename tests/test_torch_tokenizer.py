@@ -17,6 +17,7 @@ from paddle_tpu_torch.nlp import fast_tokenizer as fast
 from paddle_tpu_torch.nlp.tokenizer import (BPETokenizer, PretrainedTokenizer,
                                             WhitespaceTokenizer,
                                             _validate_tokenizer_state)
+from paddle_tpu_torch.utils.host_lib import HostLib
 
 CORPUS = [
     'the quick brown fox jumps over the lazy dog',
@@ -154,8 +155,8 @@ def test_fast_bpe_python_path_without_the_library(bpe_pair, monkeypatch):
     """Where no library can be built, encode takes the Python path,
     counted under 'python', with the same ids."""
     _, tt = bpe_pair
-    monkeypatch.setattr(fast, '_lib', None)
-    monkeypatch.setattr(fast, '_tried', True)
+    monkeypatch.setattr(fast.LIB, '_lib', None)
+    monkeypatch.setattr(fast.LIB, '_tried', True)
     ft = _fast_of(tt)
     assert not fast.available()
     before = dict(fast.ENCODES)
@@ -167,21 +168,24 @@ def test_fast_bpe_python_path_without_the_library(bpe_pair, monkeypatch):
 
 def test_fast_library_builds_and_rebuilds_when_the_source_is_newer(
         tmp_path, monkeypatch):
+    """The fast tokenizer's build route (`utils/host_lib.py`), on a copy
+    of its source and library path under tmp_path."""
     src = tmp_path / 'fast_tokenizer.cpp'
     shutil.copy(fast.SRC, src)
-    monkeypatch.setattr(fast, 'SRC', src)
-    monkeypatch.setattr(fast, 'BUILD_DIR', tmp_path / 'build')
-    monkeypatch.setattr(fast, 'LIB_PATH', tmp_path / 'build' / 'lib.so')
-    assert fast._stale()
-    fast._build()
-    built = fast.LIB_PATH.stat().st_mtime
-    assert not fast._stale()
-    fast._build()                      # fresh: left as it is
-    assert fast.LIB_PATH.stat().st_mtime == built
+    lib = HostLib('fast_tokenizer', 'fast_tokenizer.cpp', fast._bind)
+    monkeypatch.setattr(lib, 'src', src)
+    monkeypatch.setattr(lib, 'path', tmp_path / 'build' / 'lib.so')
+    assert lib._stale()
+    lib._build()
+    built = lib.path.stat().st_mtime
+    assert not lib._stale()
+    lib._build()                       # fresh: left as it is
+    assert lib.path.stat().st_mtime == built
     # the source edited after the build: the library is older than it
-    os.utime(fast.LIB_PATH, (built - 10, built - 10))
-    assert fast._stale()
-    fast._build()
-    assert not fast._stale() and fast.LIB_PATH.stat().st_mtime > built - 10
-    assert (tmp_path / 'build' / 'fast_tokenizer.lock').exists()
+    os.utime(lib.path, (built - 10, built - 10))
+    assert lib._stale()
+    lib._build()
+    assert not lib._stale() and lib.path.stat().st_mtime > built - 10
+    assert (tmp_path / 'build' / 'lib.lock').exists()
     assert not list((tmp_path / 'build').glob('*.tmp*'))
+    assert lib.get() is not None and lib.get().bpe_create
