@@ -43,6 +43,14 @@
                                            # (T5, the tokenizer, jit
                                            # export) and the T5 cases
                                            # timed
+    python3 chip_smoke.py --kv-dtype       # phase 2's cases of the paged
+                                           # kernel over a pool in another
+                                           # float dtype, phase 6, phase
+                                           # 6l, those cases timed
+    python3 chip_smoke.py --api            # phase 14 alone (the public
+                                           # API packages on the card)
+    python3 chip_smoke.py --api-profile    # phase 14's profiler window
+                                           # in a fresh process
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -502,6 +510,18 @@ result line):
    `LazyGuard` allocates nothing, `initialize()` allocates exactly the
    eager build's bytes, and one forward launches the RMSNorm and flash
    kernels; both host libraries must build; at most 30 s;
+6l. serve-kv-dtype (right after phase 6): the KV pool in another float
+   dtype than the model's (`InferenceEngine(dtype=)`): phase 6's bf16
+   model with `dtype='float32'` (the JAX engine's default pool, twice
+   the KV bytes) on phase 6's 12 requests, graph and eager twin, every
+   request's tokens and the first decode sub-step's logits equal phase
+   6's bit for bit, the decode on the (bf16 q, f32 pages) kernel; then at 2 layers of
+   Llama-2-7B's width a model in f32, bf16 and fp16 behind engines with
+   each other pool dtype, float and int8 pages (every pair of the paged
+   kernel on the path), 2 requests x 8 tokens, graph == eager, the f32 model's first decode
+   sub-step within KV_DTYPE_RMSE of the port's plain path on the CPU
+   with the same pool dtype; at most 30 s (phase 2 holds the 48 cases of
+   those pairs, `kv_dtype_cases`, to their plain versions);
 8. op sweep and timing: every case of the op library's table
    (tests/torch_op_cases.py) on the card against the CPU, the count
    logged (after 6j: the linear-algebra libraries keep their
@@ -515,6 +535,20 @@ result line):
    multi-tensor ones beside PyTorch's nearest calls (`_foreach_norm`, the
    fused `torch.optim.AdamW`; neither computes the same function), and
    the decode ones also with L2 flushed before each call.
+14. api (last, after the timing: it runs the profiler): the public API
+   packages that compute on the card (`api_phase`): at Llama-2-7B's
+   layer width `incubate`'s fused_rms_norm == F.rms_norm and
+   fused_multi_head_attention forward and backward == its eager twin,
+   each launching its kernels once, a `static` program (fc -> F.rms_norm
+   -> causal attention) replayed by the Executor == the eager calls and
+   launching RMSNorm and the flash forward; BERT-base's
+   memory_efficient_attention (D = 64); GPT-2 small's PTQ weight-only
+   (greedy generate() of 32 tokens, first-step logits within
+   API_PTQ_RMSE of the float model) and 3 QAT steps (finite, falling
+   loss, the CE and D = 64 flash kernels); `device.cuda`'s memory
+   figures == torch.cuda's; fft, stft and sparse.matmul on the card ==
+   the CPU; a profiler window whose Chrome trace names the RMSNorm and
+   flash kernels; at most 45 s.
 
 Phases 5, 5b, 5c-5g, 11, 12 and 6 run in that order before any profiling:
 once torch.profiler has run in a process, every later launch costs the
@@ -704,6 +738,27 @@ SOURCES = {
         'paddle_tpu_torch/csrc/paged_attention_fp16.cu',
     'adapter_matmul_fp16': 'paddle_tpu_torch/csrc/adapter_matmul_fp16.cu',
 }
+# the paged kernel's pairs of a float q and a KV pool kept in another
+# float dtype (`InferenceEngine(dtype=)`): (q's dtype, the pages' or the
+# int8 pool's window's)
+KV_PAIRS = tuple((q, kv) for q in (torch.float32, torch.bfloat16,
+                                   torch.float16)
+                 for kv in (torch.float32, torch.bfloat16, torch.float16)
+                 if q != kv)
+_SHORT = {torch.float32: 'f32', torch.bfloat16: 'bf16', torch.float16: 'fp16'}
+# their rows (`kv_dtype_cases`: D = 128, one query row a slot), each under
+# its call's LAUNCHES key (`kernels.paged_key`)
+for _q, _kv in ((_SHORT[q], _SHORT[kv]) for q, kv in KV_PAIRS):
+    for _int8 in ('', '_int8'):
+        _row = f'paged_attention{_int8}_{_q}_kv{_kv}'
+        REPLACES[_row] = (
+            f'paddle_tpu/ops/pallas_kernels.py:701 (_paged_attn_kernel, '
+            f'{_q} q over ' + (f'int8 pages with the round\'s {_kv} window'
+                               if _int8 else f'{_kv} pages')
+            + '; the JAX pool in the engine\'s dtype, '
+            'paddle_tpu/serving/engine.py:206, 240-244, 295-296)')
+        SOURCES[_row] = (f'paddle_tpu_torch/csrc/paged_attention_{_q}_kv'
+                         f'{_kv}.cu')
 # the kernel table's rows at phase 11's shapes (T5-large): {row: (the
 # kernel's LAUNCHES key, whose launches the row reports; the shape)}
 T5_ROWS = {
@@ -1817,6 +1872,74 @@ def _head64_fp16_paged_cases(add, gen) -> None:
         (f16, 4, 'int8_window', False, False),
         (f16, h, 'int8_window', True, False)),
         key='paged_attention_verify_int8_fp16_d64')
+
+
+def kv_dtype_cases() -> list:
+    """The paged kernel over a pool in another float dtype than q's
+    (phase 2): each of KV_PAIRS over float pages in that dtype, and over
+    int8 pages with the decode round's window (W = 2) in it, at the serve
+    shape (8 slots, ctx <= 1024, pages of 16) of Llama-2-7B (H 32, D 128)
+    and of GPT-2 small (H 12, D 64), one query row a slot and the
+    verify's T = 5: 48 cases. Each pair's D = 128, T = 1 case reports its
+    row (its LAUNCHES key, `kernels.paged_key`)."""
+    from paddle_tpu_torch.ops import kernels as K
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    cases, add = _case_list()
+    n, ps, p = 8, 16, 64
+    num_pages = n * p + 1
+    table = (torch.randperm(num_pages - 1, generator=gen, device=DEV)[:n * p]
+             + 1).to(torch.int32).reshape(n, p).contiguous()
+    lengths = torch.tensor([1024, 1000, 777, 513, 256, 100, 17, 1],
+                           dtype=torch.int32, device=DEV)
+    for d, h in ((128, 32), (64, GPT2_HEADS)):
+        for t in (1, SPEC_K + 1):
+            lens = (lengths - (t - 1)).clamp(min=1).to(torch.int32)
+            last = [ln + t - 1 for ln in lens.tolist()]
+            first = torch.div(lens - 1, ps,
+                              rounding_mode='floor').to(torch.int32)
+            for qd, kvd in KV_PAIRS:
+                for int8 in (False, True):
+                    q = _randn((n, h, d) if t == 1 else (n, t, h, d), qd,
+                               gen)
+                    shape = (num_pages, ps, h, d)
+                    elt = torch.tensor([], dtype=kvd).element_size()
+                    kw = {}
+                    if int8:
+                        kp, vp = (torch.randint(
+                            -127, 128, shape, generator=gen, device=DEV,
+                            dtype=torch.int8) for _ in range(2))
+                        kw = dict(zip(('k_scales', 'v_scales'), (
+                            torch.rand((num_pages, h), generator=gen,
+                                       device=DEV) / 127 + 1e-3
+                            for _ in range(2))))
+                        wshape = (n, WINDOW_PAGES, ps, h, d)
+                        kw.update(k_win=_randn(wshape, kvd, gen),
+                                  v_win=_randn(wshape, kvd, gen),
+                                  win_first=first)
+                        below = int(first.long().sum()) * ps
+                        moved = (below * h * d * 2
+                                 + 2 * int(first.sum()) * h * 4
+                                 + (sum(last) - below) * h * d * elt * 2
+                                 + nbytes(first))
+                    else:
+                        kp, vp = (_randn(shape, kvd, gen)
+                                  for _ in range(2))
+                        moved = sum(last) * h * d * elt * 2
+                    args = (q, kp, vp, table, lens)
+                    add(K.paged_key(q.dim(), int8, qd, d, kvd),
+                        f'paged {_SHORT[qd]} q over '
+                        + (f'int8 pages + {_SHORT[kvd]} window W='
+                           f'{WINDOW_PAGES}' if int8 else
+                           f'{_SHORT[kvd]} pages')
+                        + f' N=8 T={t} H={h} D={d} ctx<=1024', qd,
+                        lambda a=args, kw=kw: K.paged_attention(*a, **kw),
+                        lambda a=args, kw=kw: K.paged_attention_reference(
+                            *a, **kw),
+                        None, moved + nbytes(q, q, table, lens),
+                        4 * d * h * sum(ln + i for ln in lens.tolist()
+                                        for i in range(t)),
+                        rep=d == 128 and t == 1)
+    return cases
 
 
 ADAPTER_COMPOSITE = ('composite of several PyTorch calls (index_select x2, '
@@ -3492,7 +3615,7 @@ def _eager_arm(cfg, batches, tag, dtype='float32', amp=None, scaler=None,
                 loss.backward()
                 opt.step()
             opt.clear_grad()
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(K.LAUNCHES)
@@ -3734,12 +3857,14 @@ def pool_peak_note(pool, run: dict) -> str:
 
 
 def eager_twin(eng, **kw):
-    """An engine with `eng`'s model, bank and settings (and `kw`) that runs
-    its decode sub-steps and its prefills uncaptured: the eager
-    reference of a graph engine (a row engine's twin is a row engine)."""
+    """An engine with `eng`'s model, bank, pool dtype and settings (and
+    `kw`) that runs its decode sub-steps and its prefills uncaptured: the
+    eager reference of a graph engine (a row engine's twin is a row
+    engine)."""
     from paddle_tpu_torch.serving import InferenceEngine
     layout = dict(kv_page_size=eng.pool.page_size,
                   kv_quant=eng.pool.quant) if eng._paged else {}
+    kw.setdefault('dtype', eng.pool.compute_dtype)
     twin = InferenceEngine(eng.model, num_slots=eng.pool.num_slots,
                            max_length=eng.pool.max_length,
                            decode_block=eng.decode_block,
@@ -4107,6 +4232,130 @@ def serve_row(served, spec, adapted) -> dict:
 # bench.py:stack_ab's shared-system-prompt trace (:1480) at the serve
 # cell's lengths, with paged_ab's / stack_ab's engine options
 PREFIX_SYSTEM, PREFIX_COLD = 512, 900
+# phase 6l: the KV pool in another float dtype than the model's
+# (`InferenceEngine(dtype=)`); its budget, the 2-layer runs' requests
+# (four of SERVE_LENS), and the first decode sub-step's limits against
+# the port's plain path on the CPU with the same pool dtype (relative
+# logit RMSE; int8 pages round through the pool's compute dtype too, so
+# a value near an int8 or a 16-bit boundary may round the other way on
+# one side)
+KV_DTYPE_BUDGET_S = 30.0
+KV_DTYPE_LENS = (13, 48)
+KV_DTYPE_RMSE = {None: 2e-3, 'int8': 2e-2}
+
+
+def _kv_dtype_launches(every: dict) -> dict:
+    """The launches of the paged kernel's pairs of another pool dtype."""
+    return {k: n for k, n in every.items() if '_kv' in k and n}
+
+
+def serve_kv_dtype(served) -> dict:
+    """Phase 6l. (a) Phase 6's bf16 Llama-2-7B (32 layers) behind the
+    graph engine with `dtype='float32'` (the JAX engine's default pool, at
+    twice phase 6's KV bytes) and its eager twin, phase 6's 12 requests:
+    graph == eager, and every request's tokens and the first decode
+    sub-step's logits equal phase 6's bit for bit: the decode runs the
+    (bf16 q, f32 pages) kernel, whose f32 tiles keep the 16-bit column
+    order, so it sums in the bf16 kernel's order over the same values
+    (the pool holds the bf16 rows exactly). (b) At 2 layers of Llama-2-7B's width, a model in each of
+    f32, bf16 and fp16 behind engines with each other pool dtype, float
+    and int8 pages (12 engines, each pair of the paged kernel on the
+    path): 2 requests x 8 tokens, graph == eager; for the f32 model the
+    first decode sub-step's logits within KV_DTYPE_RMSE of the port's
+    plain path on the CPU with the same pool dtype. Fails past
+    KV_DTYPE_BUDGET_S."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import InferenceEngine, SamplingParams
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    key = K.paged_key(3, False, torch.bfloat16, 128, torch.float32)
+    model = served['engine'].model
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(model, num_slots=8, max_length=1024,
+                          decode_block=8, kv_page_size=16, dtype='float32')
+    own = served['engine'].pool.pool_bytes
+    log(f'[serve-kv-dtype] phase 6\'s model with dtype=\'float32\': KV pool '
+        f'{eng.pool.pool_bytes / 1e9:.2f} GB of f32 pages (phase 6: '
+        f'{own / 1e9:.2f} GB, x{eng.pool.pool_bytes / own:.2f}); the decode '
+        f'counts under {key}')
+    kernels = ('flash_attention_fwd', key, 'rms_norm')
+    res = _run_serve(eng, served['prompts'], served['params'], None,
+                     kernels, 'serve-kv-dtype', base)
+    eager = serve_eager(eng, res, served['prompts'], served['params'], None,
+                        kernels, 'serve-kv-dtype')
+    for run in (res, eager):
+        launches.update(run['launches'])
+    same = [a == b for a, b in zip(res['tokens'], served['tokens'])]
+    wide = first_step_logits(eng, served['prompts'])
+    narrow = first_step_logits(served['engine'], served['prompts'])
+    d = (wide.double() - narrow.double()).abs().max().item()
+    log(f'[serve-kv-dtype] {sum(same)} of {len(same)} requests get phase '
+        f'6\'s tokens (bf16 pool); the first decode sub-step\'s logits '
+        + ('equal phase 6\'s bit for bit' if d == 0 else
+           f'differ from phase 6\'s by up to {d:.3e}'))
+    if not all(same) or d != 0:
+        raise AssertionError(
+            f'serve-kv-dtype: over an f32 pool the bf16 model must read the '
+            f'bits of its bf16 pool (the f32 tiles keep the 16-bit column '
+            f'order): requests differing '
+            f'{[i for i, ok in enumerate(same) if not ok]}, logits {d:.3e}')
+    del eng, eager
+    release(res)
+    # (b) every pair at 2 layers of the width
+    rng = np.random.RandomState(2)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+    prompts = [rng.randint(3, cfg.vocab_size, (s,)).tolist()
+               for s in KV_DTYPE_LENS]
+    params = SamplingParams(max_new_tokens=8, eos_token_id=-1)
+    names = {torch.float32: 'float32', torch.bfloat16: 'bfloat16',
+             torch.float16: 'float16'}
+    for mdt in (torch.float32, torch.bfloat16, torch.float16):
+        model = LlamaForCausalLM(cfg, device=DEV, dtype=names[mdt],
+                                 generator=ptt.generator(0, DEV))
+        cpu = (copy.deepcopy(model).to('cpu') if mdt == torch.float32
+               else None)
+        for pdt in (d for d in names if d != mdt):
+            for quant in (None, 'int8'):
+                tag = (f'kv-dtype {_SHORT[mdt]} model, {_SHORT[pdt]} '
+                       + ('int8 pool' if quant else 'pool'))
+                kw = dict(num_slots=8, max_length=1024, decode_block=8,
+                          kv_page_size=16, kv_quant=quant,
+                          dtype=names[pdt])
+                eng = InferenceEngine(model, **kw)
+                K.reset_launch_counts()
+                graph_equals_eager(eng, prompts, params, tag)
+                pair = K.paged_key(3, quant is not None, mdt, 128, pdt)
+                if K.LAUNCHES[pair] <= 0:
+                    raise AssertionError(f'{tag}: {pair} never launched')
+                launches.update({k: n for k, n in K.LAUNCHES.items() if n})
+                note = ''
+                if cpu is not None:
+                    got = first_step_logits(eng, prompts)
+                    want = first_step_logits(InferenceEngine(cpu, **kw),
+                                             prompts)
+                    err = rel_rmse(got.cpu(), want)
+                    note = (f'; first decode sub-step vs the CPU plain path '
+                            f'with the same pool: relative RMSE {err:.3e} '
+                            f'(limit {KV_DTYPE_RMSE[quant]})')
+                    if err > KV_DTYPE_RMSE[quant]:
+                        raise AssertionError(f'{tag}{note}')
+                log(f'[{tag}] {pair} launched {K.LAUNCHES[pair]} times'
+                    f'{note}')
+                del eng
+        del model, cpu
+        torch.cuda.empty_cache()
+    dt = time.perf_counter() - t0
+    log(f'[serve-kv-dtype] phase 6l took {dt:.1f} s (budget '
+        f'{KV_DTYPE_BUDGET_S:.0f} s); launches of the pairs '
+        + json.dumps(_kv_dtype_launches(launches)))
+    if dt > KV_DTYPE_BUDGET_S:
+        raise AssertionError(f'phase 6l took {dt:.1f} s, over its budget')
+    return {'launches': dict(launches)}
+
+
 PREFIX_SUFFIXES = (3, 30, 9, 44, 200, 380)
 PREFIX_ENGINE = dict(num_slots=8, max_length=1024, decode_block=8,
                      kv_page_size=16)
@@ -9701,6 +9950,366 @@ def host_phase(cfg) -> dict:
     return {'seconds': seconds}
 
 
+# phase 14: the public API packages on the card; its budget, the shapes
+# (Llama-2-7B's layer width, BERT-base's attention, GPT-2 small whole),
+# and the bound on PTQ's first-step logits (relative RMSE of int8
+# weight-only against the float model: per-channel absmax rounding moves
+# each weight by up to 1/254 of its column's largest)
+API_BUDGET_S = 45.0
+API_SEQ = 1024
+API_PTQ_RMSE = 0.05
+API_QAT_STEPS = 3
+API_TRACE_ROOT = Path(__file__).resolve().parent / 'build' / 'api_trace'
+
+
+def _launched(before: dict) -> dict:
+    from paddle_tpu_torch.ops import kernels as K
+    return {k: n - before.get(k, 0) for k, n in K.LAUNCHES.items()
+            if n != before.get(k, 0)}
+
+
+def _require_launches(tag: str, got: dict, want: dict) -> None:
+    """Each of `want`'s keys launched exactly as often in `got`."""
+    bad = {k: got.get(k, 0) for k, n in want.items() if got.get(k, 0) != n}
+    if bad:
+        raise AssertionError(f'{tag}: launches {got}, want {want}')
+
+
+def _mha_eager(x, qkv_w, lin_w):
+    """fused_multi_head_attention's chain (post-LN, no biases) written out
+    of the port's ops: the eager twin the fused entry must equal."""
+    from paddle_tpu_torch.nn import functional as PF
+    qkv = torch.einsum('bse,tnhe->tbsnh', x, qkv_w)
+    attn = PF.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+    out = x + attn.reshape(x.shape[0], x.shape[1], -1) @ lin_w
+    return PF.layer_norm(out, out.shape[-1])
+
+
+def api_layer_width(gen) -> dict:
+    """Llama-2-7B's layer width (4096, 32 heads x 128), bf16, 1024
+    tokens: fused_rms_norm == F.rms_norm (the RMSNorm kernel, held to its
+    plain version too); fused_multi_head_attention forward and backward
+    == its eager twin (the flash forward, dq and dk/dv kernels, each
+    launched once by each); a static program (fc -> F.rms_norm -> causal
+    attention) replayed by the Executor == the eager calls, launching
+    RMSNorm and the flash forward once a replay."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import kernels as K
+    bf = torch.bfloat16
+    launches = collections.Counter()
+    x = _randn((1, API_SEQ, 4096), bf, gen)
+    w = (1 + 0.1 * torch.randn(4096, generator=gen, device=DEV)).to(bf)
+    before = dict(K.LAUNCHES)
+    got = IF.fused_rms_norm(x, w, epsilon=1e-6)
+    _require_launches('api fused_rms_norm', _launched(before),
+                      {'rms_norm': 1})
+    if not torch.equal(got, PF.rms_norm(x, w, epsilon=1e-6)):
+        raise AssertionError('api: fused_rms_norm != F.rms_norm')
+    compare('api fused_rms_norm', got, K.rms_norm_reference(x, w, 1e-6))
+    launches.update(_launched(before))
+    qkv_w = (_randn((3, 32, 128, 4096), torch.float32, gen) * 0.02).to(bf)
+    lin_w = (_randn((4096, 4096), torch.float32, gen) * 0.02).to(bf)
+    outs, grads = [], []
+    for fused in (True, False):
+        xs = x.detach().clone().requires_grad_(True)
+        before = dict(K.LAUNCHES)
+        out = (IF.fused_multi_head_attention(xs, qkv_w, lin_w)
+               if fused else _mha_eager(xs, qkv_w, lin_w))
+        out.float().square().mean().backward()
+        _require_launches(f'api fused_multi_head_attention (fused {fused})',
+                          _launched(before),
+                          {'flash_attention_fwd': 1,
+                           'flash_attention_bwd_dq': 1,
+                           'flash_attention_bwd_dkv': 1})
+        launches.update(_launched(before))
+        outs.append(out.detach())
+        grads.append(xs.grad)
+    if not (torch.equal(*outs) and torch.equal(*grads)):
+        raise AssertionError('api: fused_multi_head_attention != its eager '
+                             'twin')
+    log(f'[api] Llama-2-7B layer width, bf16, {API_SEQ} tokens: '
+        f'fused_rms_norm == F.rms_norm; fused_multi_head_attention forward '
+        f'and backward == its eager twin, bit for bit')
+    ptt.set_device('gpu')
+    ptt.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            xd = static.data('x', [None, API_SEQ, 4096], 'bfloat16')
+            lin = ptt.nn.Linear(4096, 4096, dtype='bfloat16',
+                                generator=ptt.generator(3, DEV))
+            h = PF.rms_norm(lin(xd), w)
+            q = ptt.reshape(h, [-1, API_SEQ, 32, 128])
+            y = PF.scaled_dot_product_attention(q, q, q, is_causal=True)
+        feed = np.random.default_rng(0).standard_normal(
+            (2, API_SEQ, 4096)).astype(np.float32)
+        exe = static.Executor()
+        before = dict(K.LAUNCHES)
+        out, = exe.run(main, feed={'x': feed}, fetch_list=[y],
+                       return_numpy=False)
+        _require_launches('api static replay', _launched(before),
+                          {'rms_norm': 1, 'flash_attention_fwd': 1})
+        launches.update(_launched(before))
+    finally:
+        ptt.disable_static()
+    xe = torch.from_numpy(feed).to(DEV).to(bf)
+    he = PF.rms_norm(lin(xe), w).reshape(-1, API_SEQ, 32, 128)
+    want = PF.scaled_dot_product_attention(he, he, he, is_causal=True)
+    if not torch.equal(out.value, want):
+        raise AssertionError('api: the static program\'s replay != eager')
+    log(f'[api] static program (fc -> F.rms_norm -> causal attention, '
+        f'{len(main._ops)} ops recorded) replayed at batch 2 == eager, bit '
+        f'for bit; the replay launched RMSNorm and the flash forward once')
+    return {'launches': launches, 'program': (exe, main, feed, y)}
+
+
+def api_bert_attention(gen) -> dict:
+    """BERT-base's attention (B 8, S 512, 12 heads x 64, bf16):
+    memory_efficient_attention == F.scaled_dot_product_attention (the D =
+    64 flash forward, once each), held to the plain version."""
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import kernels as K
+    q, k, v = (_randn((BERT_BATCH, BERT_SEQ, GPT2_HEADS, 64), torch.bfloat16,
+                      gen) for _ in range(3))
+    before = dict(K.LAUNCHES)
+    got = inn.memory_efficient_attention(q, k, v)
+    want = PF.scaled_dot_product_attention(q, k, v)
+    launched = _launched(before)
+    _require_launches('api memory_efficient_attention', launched,
+                      {'flash_attention_fwd_d64': 2})
+    if not torch.equal(got, want):
+        raise AssertionError('api: memory_efficient_attention != SDPA')
+    r = compare('api memory_efficient_attention', got,
+                K.attention_reference(q, k, v))
+    log(f'[api] BERT-base attention: memory_efficient_attention == F.sdpa, '
+        f'rel_norm {r["rel_norm"]:.3e} of the plain version')
+    return {'launches': collections.Counter(launched)}
+
+
+def api_quantization(gen) -> dict:
+    """GPT-2 small at full width (bf16): PTQ weight-only (every Linear ->
+    QuantedLinear), a greedy generate() of 32 tokens from two prompts
+    (finite scores, tokens in range), the first-step logits within
+    API_PTQ_RMSE of the float model's; then API_QAT_STEPS AdamW steps of
+    the QAT model on one batch through the CE kernels: finite, falling
+    loss; QAT.convert gives QuantedLinears."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops import kernels as K
+    # dropout off, so that the attention trains on the flash kernels (as
+    # phase 9 trains)
+    cfg = GPTConfig.gpt2_small(hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device=DEV, dtype='bfloat16',
+                           generator=ptt.generator(12, DEV)).eval()
+    qm = Q.PTQ().quantize(model)
+    n_q = sum(isinstance(m, Q.QuantedLinear) for m in qm.modules())
+    floats = sum(p.nbytes for n, p in model.named_parameters()
+                 if n.endswith('weight') and p.dim() == 2
+                 and 'embeddings' not in n)
+    rng = np.random.RandomState(4)
+    prompts = torch.tensor(rng.randint(3, cfg.vocab_size, (2, 48)),
+                           device=DEV)
+    before = dict(K.LAUNCHES)
+    with torch.inference_mode():
+        toks, scores = qm.generate(prompts, max_new_tokens=32,
+                                   eos_token_id=-1)
+        lq = qm(prompts)[:, -1].float()
+        lf = model(prompts)[:, -1].float()
+    launches = collections.Counter(_launched(before))
+    if toks.shape != (2, 32) or not bool(torch.isfinite(scores).all()) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f'api PTQ: generate gave {toks.shape} '
+                             f'{scores}')
+    err = rel_rmse(lq, lf)
+    log(f'[api] GPT-2 small PTQ weight-only: {n_q} QuantedLinears, '
+        f'{Q.quanted_state_bytes(qm) / 1e6:.1f} MB of int8 weights and '
+        f'scales for {floats / 1e6:.1f} MB of bf16 ones; greedy generate() '
+        f'of 32 tokens x 2; first-step logits relative RMSE against the '
+        f'float model {err:.4f} (limit {API_PTQ_RMSE})')
+    if n_q != 4 * cfg.num_hidden_layers or err > API_PTQ_RMSE:
+        raise AssertionError(f'api PTQ: {n_q} layers, RMSE {err}')
+    del qm
+    qat = Q.QAT()
+    tm = qat.quantize(model.train())
+    opt = ptt.optimizer.AdamW(learning_rate=1e-3,
+                              parameters=tm.parameters())
+    ids = torch.tensor(rng.randint(3, cfg.vocab_size, (4, 256)),
+                       device=DEV)
+    losses = []
+    before = dict(K.LAUNCHES)
+    for _ in range(API_QAT_STEPS):
+        logits = tm(ids[:, :-1])
+        loss = PF.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                ids[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    launched = _launched(before)
+    launches.update(launched)
+    _require_launches('api QAT', {k: min(n, 1) for k, n in launched.items()},
+                      {'softmax_ce_fwd': 1, 'softmax_ce_bwd': 1,
+                       'flash_attention_fwd_d64': 1,
+                       'flash_attention_bwd_dq_d64': 1,
+                       'flash_attention_bwd_dkv_d64': 1})
+    converted = qat.convert(tm)
+    n_c = sum(isinstance(m, Q.QuantedLinear) for m in converted.modules())
+    log(f'[api] GPT-2 small QAT: {API_QAT_STEPS} AdamW steps on one batch of '
+        f'4 x 256, losses {[round(v, 4) for v in losses]}; convert -> {n_c} '
+        f'QuantedLinears')
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and n_c == n_q):
+        raise AssertionError(f'api QAT: losses {losses}, {n_c} layers')
+    return {'launches': launches}
+
+
+def api_numeric(gen) -> None:
+    """device.cuda's memory figures == torch.cuda's; fft, stft and
+    sparse.matmul on the card against the same calls on the CPU."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import fft, signal, sparse
+    d = ptt.device.cuda
+    torch.cuda.synchronize()
+    figures = {name: (getattr(d, name)(), getattr(torch.cuda, name)())
+               for name in ('memory_allocated', 'max_memory_allocated',
+                            'memory_reserved', 'max_memory_reserved')}
+    figures['device_memory_limit'] = (
+        d.device_memory_limit(),
+        torch.cuda.get_device_properties(0).total_memory)
+    figures['device_count'] = (d.device_count(), torch.cuda.device_count())
+    if any(a != b for a, b in figures.values()):
+        raise AssertionError(f'api device figures {figures}')
+    x = torch.randn(64, 4096, generator=gen, device=DEV) + 1j * torch.randn(
+        64, 4096, generator=gen, device=DEV)
+    sig = torch.randn(4, 16000, generator=gen, device=DEV)
+    win = torch.hann_window(512, device=DEV)
+    dense = torch.randn(4096, 64, generator=gen, device=DEV)
+    keep = torch.rand(4096, 4096, generator=gen, device=DEV) < 0.01
+    idx = keep.nonzero().t()
+    vals = torch.randn(idx.shape[1], generator=gen, device=DEV)
+    coo = sparse.sparse_coo_tensor(idx, vals, [4096, 4096])
+    coo_cpu = sparse.sparse_coo_tensor(idx.cpu(), vals.cpu(), [4096, 4096])
+    for label, got, want in (
+            ('fft', fft.fft(x), fft.fft(x.cpu())),
+            ('rfft2', fft.rfft2(x.real), fft.rfft2(x.real.cpu())),
+            ('stft', signal.stft(sig, 512, window=win),
+             signal.stft(sig.cpu(), 512, window=win.cpu())),
+            ('sparse.matmul', sparse.matmul(coo, dense),
+             sparse.matmul(coo_cpu, dense.cpu()))):
+        g, w = (getattr(t, 'value', t) for t in (got, want))
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        err = float((g.cpu().double() - w.double()).norm()
+                    / w.double().norm())
+        log(f'[api] {label} on the card vs the CPU: relative error '
+            f'{err:.3e}')
+        if err > 1e-5:
+            raise AssertionError(f'api {label}: {err}')
+    log(f'[api] device.cuda figures == torch.cuda\'s: '
+        + ', '.join(f'{k} {a}' for k, (a, _) in figures.items()))
+
+
+API_TRACE_KERNELS = ('rms_norm_kernel', 'flash_fwd_wgmma_kernel')
+
+
+def api_profile(calls, tries: int = PROFILE_TRIES) -> None:
+    """Phase 14's profiler: a `profiler.Profiler(trace_dir=)` window over
+    `calls` (run three times in a host region, after a host pause and a
+    GPU sleep: CUPTI has lost the first kernels of a window), whose Chrome
+    trace must name the host region and API_TRACE_KERNELS; up to `tries`
+    windows, each after a longer pause (a process that has profiled
+    before can lose a window's first kernels, phase 7)."""
+    from paddle_tpu_torch import profiler
+    for attempt in range(1, tries + 1):
+        shutil.rmtree(API_TRACE_ROOT, ignore_errors=True)
+        time.sleep(PROFILE_PAUSE_S * (attempt - 1))
+        torch.cuda.synchronize()
+        with profiler.Profiler(trace_dir=str(API_TRACE_ROOT)) as prof:
+            time.sleep(0.05)
+            torch.cuda._sleep(1000)
+            with profiler.RecordEvent('api_phase_window'):
+                for _ in range(3):
+                    calls()
+                torch.cuda.synchronize()
+        trace = Path(prof.trace_path)
+        names = ' '.join(e.get('name', '') for e in json.loads(
+            trace.read_text())['traceEvents'])
+        missing = [k for k in ('api_phase_window',) + API_TRACE_KERNELS
+                   if k not in names]
+        log(f'[api] profiler window {attempt} of {tries}: Chrome trace '
+            f'{trace} ({trace.stat().st_size / 1e6:.2f} MB) '
+            + (f'lacks {missing}' if missing else
+               'names the host region and the kernels'))
+        if not missing:
+            return
+    raise AssertionError(f'api profiler: the trace lacks {missing}')
+
+
+def api_trace_calls(gen):
+    """The calls phase 14's profiler window runs: incubate's fused RMSNorm
+    and causal attention (the RMSNorm and flash forward kernels)."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as PF
+    x = _randn((8, 4096), torch.bfloat16, gen)
+    w = torch.ones(4096, dtype=torch.bfloat16, device=DEV)
+    q = _randn((1, 512, 32, 128), torch.bfloat16, gen)
+
+    def calls():
+        IF.fused_rms_norm(x, w)
+        PF.scaled_dot_product_attention(q, q, q, is_causal=True)
+    return calls
+
+
+def api_phase() -> dict:
+    """Phase 14: the public API packages that compute on the card
+    (`api_layer_width`, `api_bert_attention`, `api_quantization`,
+    `api_numeric`), then the profiler: a window over the fused entries
+    and a replay of the static program (`api_profile`), its Chrome trace
+    required to name the RMSNorm and flash forward kernels and the host
+    region; where every window of this process misses one, the same
+    window in a fresh process (`--api-profile`). Runs last (a process
+    that has profiled launches slower). Fails past API_BUDGET_S."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    launches = collections.Counter()
+    width = api_layer_width(gen)
+    for run in (width, api_bert_attention(gen), api_quantization(gen)):
+        launches.update(run['launches'])
+    api_numeric(gen)
+    exe, main, feed, y = width['program']
+    fused = api_trace_calls(gen)
+
+    def calls():
+        fused()
+        exe.run(main, feed={'x': feed}, fetch_list=[y], return_numpy=False)
+    try:
+        api_profile(calls)
+    except AssertionError as e:
+        log(f'[api] {e}; the same window in a fresh process')
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), '--api-profile'],
+            capture_output=True, text=True, timeout=FRESH_PROFILE_TIMEOUT_S)
+        for line in child.stdout.splitlines():
+            log(f'[fresh] {line}')
+        if child.returncode != 0:
+            raise AssertionError(f'api profiler: the fresh process exited '
+                                 f'{child.returncode}: '
+                                 f'{child.stderr[-2000:]}') from e
+    dt = time.perf_counter() - t0
+    log(f'[api] phase 14 took {dt:.1f} s (budget {API_BUDGET_S:.0f} s); '
+        f'launches {json.dumps(dict(sorted(launches.items())))}')
+    if dt > API_BUDGET_S:
+        raise AssertionError(f'phase 14 took {dt:.1f} s, over its budget')
+    return {'launches': dict(launches)}
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -9957,6 +10566,39 @@ def main() -> int:
         log('[vision] launches ' + json.dumps(vis['train']['launches']))
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--kv-dtype']:
+        # python3 chip_smoke.py --kv-dtype: phase 2's cases of the paged
+        # kernel over a pool in another float dtype, phase 6, then phase
+        # 6l alone, then those cases' reported rows timed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        kvc = kv_dtype_cases()
+        check_kernels(kvc)
+        res = serve(LlamaConfig.llama2_7b())
+        kvd = serve_kv_dtype(res)
+        release(res)
+        time_kernels([c for c in kvc if c['rep']])
+        log('[kv-dtype] launches ' + json.dumps(
+            _kv_dtype_launches(kvd['launches'])))
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
+    if sys.argv[1:2] == ['--api-profile']:
+        # python3 chip_smoke.py --api-profile: phase 14's profiler window
+        # in a process that has not profiled (api_phase's fallback)
+        api_profile(api_trace_calls(
+            torch.Generator(device=DEV).manual_seed(14)))
+        return 0
+    if sys.argv[1:2] == ['--api']:
+        # python3 chip_smoke.py --api: phase 14 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        build()
+        api_phase()
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--row']:
         # python3 chip_smoke.py --row: phases 6, 6e and 6b (the model, the
         # draft and the bank; 6e's self-draft arm on the cut model), then
@@ -10010,6 +10652,7 @@ def main() -> int:
     check_kernels(head64_cases())       # the same
     check_kernels(t5_cases())           # the same
     check_kernels(vision_cases())       # the same
+    check_kernels(kv_dtype_cases())     # the same
     torch.cuda.empty_cache()
     mark('phase 2')
     check_consistency(LlamaConfig.llama2_7b(num_hidden_layers=2))
@@ -10039,13 +10682,14 @@ def main() -> int:
     vis = vision_phase()
     mark('phase 12')
     res = serve(LlamaConfig.llama2_7b())
+    kvd = serve_kv_dtype(res)
     cut = serve(LlamaConfig.llama2_7b(num_hidden_layers=CUT_LAYERS),
                 'serve-cut')
     spec = serve_spec(res, cut)
     drain_swap(cut)
     adapted = serve_adapters(res)
     rowed = serve_row(res, spec, adapted)
-    mark('phases 6, 6e, 6f, 6b, 6k')
+    mark('phases 6, 6l, 6e, 6f, 6b, 6k')
     t6g = time.perf_counter()
     stored = serve_adapter_store(res, adapted)
     weights = weight_store_swap(res)
@@ -10095,9 +10739,14 @@ def main() -> int:
     check_kernels(t5c)
     vc = vision_cases()
     check_kernels(vc)
+    kvc = [c for c in kv_dtype_cases() if c['rep']]
+    check_kernels(kvc)
     mark('phase 8 (checks again)')
-    rows = time_kernels(cases + opt_cases + rungs + f16 + d64 + t5c + vc)
+    rows = time_kernels(cases + opt_cases + rungs + f16 + d64 + t5c + vc
+                        + kvc)
     mark('phase 8 (timing)')
+    api = api_phase()
+    mark('phase 14')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -10113,7 +10762,7 @@ def main() -> int:
                                    spec['draft2'], spec['self'], procs,
                                    eager, *rest.values(), *gpt.values(),
                                    *fp16.values(), *t5.values(),
-                                   vis['train']))
+                                   vis['train'], kvd, api))
         table.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name],
             'replaces': REPLACES[name], 'launches': launches,

@@ -59,6 +59,15 @@ argument asks for pages; `serialization.save_sharded` / `load_sharded`,
 native collator over the port's copies of the host C++; `flops`,
 `summary`, `LazyGuard` and `utils`' `unique_name`, `try_import` and
 `deprecated`.
+
+The public packages that compute on the card: `device`, `profiler`
+(host regions and a torch.profiler device trace), `static` (programs
+recorded at `tensor.apply_op` and replayed by `Executor`), `incubate`
+(the fused entries over the port's kernels), `geometric`,
+`quantization` (PTQ, QAT and the observers), `fft`, `signal`, `sparse`,
+`version`, `sysconfig` and the top-level CUDA checks. A KV pool may be
+kept in another float dtype than the model's (`InferenceEngine(
+dtype=)`), read by the paged kernel's (q, pages) pair.
 """
 # the op surface first: the modules imported below keep their names
 from .ops import *  # noqa: F401,F403
@@ -68,17 +77,21 @@ from . import (analysis, autograd, debug, dtype, flags, framework, io, jit,
                weights)
 from . import amp
 from . import hapi
+from . import (device, fft, geometric, incubate, profiler, quantization,
+               signal, sparse, static, sysconfig, version)
 from .autograd import (PyLayer, PyLayerContext, enable_grad, grad,
                        is_grad_enabled, no_grad, set_grad_enabled)
 from .dtype import (bfloat16, bool_, complex64, complex128, finfo, float16,
                     float32, float64, iinfo, int8, int16, int32, int64, uint8)
 from .flags import get_flags, set_flags
-from .framework import (CPUPlace, CUDAPlace, Place, TPUPlace, XLAPlace,
-                        device_guard, generator, get_default_dtype,
-                        get_device, get_place, resolve_device, seed,
+from .framework import (CPUPlace, CUDAPlace, Generator, Place, TPUPlace,
+                        XLAPlace, device_guard, generator,
+                        get_default_dtype, get_device, get_place,
+                        is_compiled_with_cuda, resolve_device, seed,
                         set_default_dtype, set_device, synchronize)
 from .hapi import Model
 from .nn.layer import LazyGuard, ParamAttr
+from .regularizer import L1Decay, L2Decay
 from .hapi import callbacks_mod as callbacks
 from .ops import linalg
 from .serialization import load, save
@@ -86,3 +99,31 @@ from .tensor import Parameter, Tensor, set_printoptions
 from .utils.flops import flops, summary
 
 bool = bool_  # paddle.bool
+
+__version__ = version.full_version
+
+disable_static = static.disable_static
+enable_static = static.enable_static
+
+
+def is_compiled_with_rocm() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_custom_device(device_type: str = '') -> bool:
+    return False
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int (e.g. 90100), None without cuDNN."""
+    import torch
+    return (torch.backends.cudnn.version()
+            if torch.backends.cudnn.is_available() else None)
+
+
+def in_dynamic_mode() -> bool:
+    return not static.in_static_mode()

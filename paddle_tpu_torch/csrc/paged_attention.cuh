@@ -75,13 +75,20 @@
 // [N, HKV, splits + 1, G, D + 2]. The combine merges every partial by
 // exp(m_s - M) as before. Three launches, one call.
 //
-// Three libraries share this header, one for each dtype of q, so that
-// the compiler builds them in parallel: paged_attention_f32.cu,
-// paged_attention_bf16.cu and paged_attention_fp16.cu, each with the
+// Nine libraries share this header, so that the compiler builds them in
+// parallel. Three, one for each dtype of q (paged_attention_f32.cu,
+// paged_attention_bf16.cu and paged_attention_fp16.cu), hold the
 // instantiations for pages in q's dtype and for int8 pages with the
-// window in q's dtype, at D = 64 and 128. Each exports
-// `paged_attention_fwd` (`PTT_PAGED_ATTENTION_FWD`); ops/kernels.py picks
-// the library by q's dtype.
+// window in q's dtype, at D = 64 and 128. Six, one for each pair of a q
+// dtype and another float dtype P (paged_attention_<q>_kv<P>.cu), hold
+// those for pages in P and for int8 pages with the window in P: a KV pool
+// kept in another dtype than the model's (`InferenceEngine(dtype=)`, the
+// JAX engine's argument), whose int8 window is in the pool's compute
+// dtype. Every split reads its tile in the pages' (or the window's) type
+// and q in its own, widened to fp32 as it is loaded; the output is in q's
+// dtype. Each library exports `paged_attention_fwd`
+// (`PTT_PAGED_ATTENTION_KV_FWD`); ops/kernels.py picks the library by q's
+// dtype and the float dtype of the pages or of the window.
 //
 // No kernel syncs with the host or allocates memory: the wrapper takes
 // the workspace from PyTorch's caching allocator, so a call can be
@@ -118,6 +125,7 @@
 #pragma once
 
 #include <cmath>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -161,25 +169,38 @@ __device__ __forceinline__ int chunk_at(int t, int c) {
   return t * kRowBytes + ((c ^ (t & kMask)) << 4);
 }
 
+// True when an f32 tile is read under an f32 q: its columns interleave
+// (below). Under a 16-bit q an f32 tile (a pool kept in f32) keeps the
+// 16-bit tiles' columns, so that the q . k and P V sums run in the same
+// order over f32 pages as over the model's own 16-bit pages: a bf16 model
+// served from an f32 pool reads the same bits, as on the CPU, where both
+// read pages in f32. Its reads then take two wavefronts a quarter-warp.
+template <typename TQ, typename TKV>
+__host__ __device__ constexpr bool interleaved() {
+  return sizeof(TKV) == 4 && sizeof(TQ) == 4;
+}
+
 // The 8 columns a thread of column group dg (0 .. D/8 - 1) owns: 8 dg ..
-// 8 dg + 7, except in f32 tiles (4 values per chunk), where they are
-// chunks dg and dg + D/8, so that 8 neighbouring threads read 8 distinct
-// bank groups.
-template <int D, typename T>
+// 8 dg + 7, except in f32 tiles under an f32 q (4 values per chunk),
+// where they are chunks dg and dg + D/8, so that 8 neighbouring threads
+// read 8 distinct bank groups.
+template <int D, typename TQ, typename TKV>
 __device__ __forceinline__ int group_col(int dg, int e) {
-  if (sizeof(T) == 4) return (e < 4 ? 4 * dg : D / 2 + 4 * dg) + (e & 3);
+  if (interleaved<TQ, TKV>())
+    return (e < 4 ? 4 * dg : D / 2 + 4 * dg) + (e & 3);
   return 8 * dg + e;
 }
 
-// the 8 values of row t, column group dg, of a tile, as float
-template <int D>
+// the 8 values of row t, column group dg, of a tile, as float (kInter:
+// an f32 tile's interleaved columns, `group_col`)
+template <int D, bool kInter>
 __device__ __forceinline__ void row8(const float* tile, int t, int dg,
                                      float (&x)[8]) {
   const auto* base = reinterpret_cast<const uint8_t*>(tile);
   const float4 lo = *reinterpret_cast<const float4*>(
-      base + chunk_at<D, float>(t, dg));
+      base + chunk_at<D, float>(t, kInter ? dg : 2 * dg));
   const float4 hi = *reinterpret_cast<const float4*>(
-      base + chunk_at<D, float>(t, dg + D / 8));
+      base + chunk_at<D, float>(t, kInter ? dg + D / 8 : 2 * dg + 1));
   x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
   x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
@@ -199,19 +220,19 @@ __device__ __forceinline__ void row8_16(const T* tile, int t, int dg,
   }
 }
 
-template <int D>
+template <int D, bool kInter>
 __device__ __forceinline__ void row8(const __nv_bfloat16* tile, int t,
                                      int dg, float (&x)[8]) {
   row8_16<D>(tile, t, dg, x);
 }
 
-template <int D>
+template <int D, bool kInter>
 __device__ __forceinline__ void row8(const __half* tile, int t, int dg,
                                      float (&x)[8]) {
   row8_16<D>(tile, t, dg, x);
 }
 
-template <int D>
+template <int D, bool kInter>
 __device__ __forceinline__ void row8(const int8_t* tile, int t, int dg,
                                      float (&x)[8]) {
   const uint2 v = *reinterpret_cast<const uint2*>(
@@ -233,13 +254,22 @@ constexpr size_t split_smem_bytes() {
              sizeof(float);
 }
 
+// v rounded through T and back (float: v itself)
+template <typename T>
+__device__ __forceinline__ float round_through(float v) {
+  return ptt_to_float(ptt_from_float<T>(v));
+}
+
 // One split of one (slot, kv head): the body of the three split kernels
 // below. kG: query rows per pass (register arrays), T x G in one pass, or
 // ceil(T x G / passes) in 2 to 4 passes; kRows: the rows T x G, at most
 // (kG in one pass, else 32); kWindow: this block is the window's split
-// (TKV = TQ, the window's rows).
+// (TKV the window's type). TR: over int8 pages, the type each
+// dequantized value (one fp32 product scale x int8) is rounded through,
+// as the JAX gather dequantizes into the pool's compute dtype: float (no
+// rounding) where the window is in q's dtype, else the window's type.
 template <int D, typename TQ, typename TKV, bool kQuant, int kG, int kRows,
-          bool kWindow>
+          bool kWindow, typename TR = float>
 __device__ __forceinline__ void split_body(const PagedArgs& a) {
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int kD = D;
@@ -354,7 +384,8 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         qf[g][e] = r < rows
-                       ? ptt_to_float(qr[group_col<D, TKV>(dg, e)]) * a.scale
+                       ? ptt_to_float(qr[group_col<D, TQ, TKV>(dg, e)]) *
+                             a.scale
                        : 0.f;
     }
   };
@@ -378,10 +409,11 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
       const bool valid = t < t_live;
       float kf[8];
       if (valid) {
-        row8<D>(k_t, t, dg, kf);
+        row8<D, interleaved<TQ, TKV>()>(k_t, t, dg, kf);
         if (kQuant) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] *= row_scale[t];
+          for (int e = 0; e < 8; ++e)
+            kf[e] = round_through<TR>(kf[e] * row_scale[t]);
         }
       } else {
 #pragma unroll
@@ -454,10 +486,11 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
       for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
     for (int t = rs; t < t_live; t += kRowSlots) {
       float vf[8];
-      row8<D>(v_t, t, dg, vf);
+      row8<D, interleaved<TQ, TKV>()>(v_t, t, dg, vf);
       if (kQuant) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) vf[e] *= row_scale[kSplitKeys + t];
+        for (int e = 0; e < 8; ++e)
+          vf[e] = round_through<TR>(vf[e] * row_scale[kSplitKeys + t]);
       }
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
@@ -482,7 +515,8 @@ __device__ __forceinline__ void split_body(const PagedArgs& a) {
         if (r0 + g < rows) {
 #pragma unroll
           for (int e = 0; e < 8; ++e)
-            red[(warp * kG + g) * kD + group_col<D, TKV>(dg, e)] = acc[g][e];
+            red[(warp * kG + g) * kD + group_col<D, TQ, TKV>(dg, e)] =
+                acc[g][e];
         }
     }
     __syncthreads();
@@ -504,18 +538,19 @@ __global__ void __launch_bounds__(kThreads)
   split_body<D, TQ, TKV, false, kG, kRows, false>(a);
 }
 
-// int8 pages (the window's pages skipped)
-template <int D, typename TQ, int kG, int kRows>
+// int8 pages (the window's pages skipped), dequantized through TR
+template <int D, typename TQ, typename TR, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_int8_split_kernel(PagedArgs a) {
-  split_body<D, TQ, int8_t, true, kG, kRows, false>(a);
+  split_body<D, TQ, int8_t, true, kG, kRows, false, TR>(a);
 }
 
-// the decode round's float window, one split per (slot, kv head)
-template <int D, typename TQ, int kG, int kRows>
+// the decode round's float window (in TW: q's dtype, or the pool's
+// compute dtype), one split per (slot, kv head)
+template <int D, typename TQ, typename TW, int kG, int kRows>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_window_kernel(PagedArgs a) {
-  split_body<D, TQ, TQ, false, kG, kRows, true>(a);
+  split_body<D, TQ, TW, false, kG, kRows, true>(a);
 }
 
 // D threads, one per output column
@@ -577,16 +612,18 @@ __global__ void __launch_bounds__(D)
 
 enum class Split { kFloat, kInt8, kWindow };
 
-// one split kernel over `blocks` splits of every (slot, kv head)
-template <int D, Split kS, typename TQ, typename TKV, int kG, int kRows>
+// one split kernel over `blocks` splits of every (slot, kv head); TKV is
+// the tile's type (the window's for Split::kWindow); TR as in split_body
+template <int D, Split kS, typename TQ, typename TKV, int kG, int kRows,
+          typename TR = float>
 cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
                           cudaStream_t stream) {
   constexpr size_t smem = split_smem_bytes<D, TKV, kG, kRows>();
   void (*kernel)(PagedArgs);
   if constexpr (kS == Split::kInt8)
-    kernel = paged_attn_int8_split_kernel<D, TQ, kG, kRows>;
+    kernel = paged_attn_int8_split_kernel<D, TQ, TR, kG, kRows>;
   else if constexpr (kS == Split::kWindow)
-    kernel = paged_attn_window_kernel<D, TQ, kG, kRows>;
+    kernel = paged_attn_window_kernel<D, TQ, TKV, kG, kRows>;
   else
     kernel = paged_attn_split_kernel<D, TQ, TKV, kG, kRows>;
   static bool smem_set = false;
@@ -599,14 +636,19 @@ cudaError_t launch_splits(const PagedArgs& a, int n, int blocks,
   return cudaGetLastError();
 }
 
-template <int D, typename TQ, typename TKV, bool kQuant, int kG, int kRows>
+// TW: the window's dtype over int8 pages
+template <int D, typename TQ, typename TKV, bool kQuant, typename TW, int kG,
+          int kRows>
 int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
+  // int8 pages dequantize through the window's type when it is not q's
+  using TR = std::conditional_t<std::is_same_v<TW, TQ>, float, TW>;
   cudaError_t e = launch_splits<D, kQuant ? Split::kInt8 : Split::kFloat,
-                                TQ, TKV, kG, kRows>(a, n, a.splits, stream);
+                                TQ, TKV, kG, kRows, TR>(a, n, a.splits,
+                                                        stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if constexpr (kQuant) {           // the window's split, in q's dtype
+  if constexpr (kQuant) {           // the window's split, in TW
     if (a.w > 0) {
-      e = launch_splits<D, Split::kWindow, TQ, TQ, kG, kRows>(a, n, 1,
+      e = launch_splits<D, Split::kWindow, TQ, TW, kG, kRows>(a, n, 1,
                                                               stream);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
@@ -618,38 +660,41 @@ int launch_split(const PagedArgs& a, int n, cudaStream_t stream) {
 
 // by the query rows R = T x G of a (slot, kv head): R <= 8 in one pass
 // of R rows; up to 32 in ceil(R / 8) passes of ceil(R / passes) rows
-template <int D, typename TQ, typename TKV, bool kQuant>
+template <int D, typename TQ, typename TKV, bool kQuant, typename TW>
 int launch(const PagedArgs& a, int n, cudaStream_t stream) {
   const int r = a.t * (a.h / a.hkv);
   switch (r) {
-    case 1: return launch_split<D, TQ, TKV, kQuant, 1, 1>(a, n, stream);
-    case 2: return launch_split<D, TQ, TKV, kQuant, 2, 2>(a, n, stream);
-    case 3: return launch_split<D, TQ, TKV, kQuant, 3, 3>(a, n, stream);
-    case 4: return launch_split<D, TQ, TKV, kQuant, 4, 4>(a, n, stream);
-    case 5: return launch_split<D, TQ, TKV, kQuant, 5, 5>(a, n, stream);
-    case 6: return launch_split<D, TQ, TKV, kQuant, 6, 6>(a, n, stream);
-    case 7: return launch_split<D, TQ, TKV, kQuant, 7, 7>(a, n, stream);
-    case 8: return launch_split<D, TQ, TKV, kQuant, 8, 8>(a, n, stream);
+    case 1: return launch_split<D, TQ, TKV, kQuant, TW, 1, 1>(a, n, stream);
+    case 2: return launch_split<D, TQ, TKV, kQuant, TW, 2, 2>(a, n, stream);
+    case 3: return launch_split<D, TQ, TKV, kQuant, TW, 3, 3>(a, n, stream);
+    case 4: return launch_split<D, TQ, TKV, kQuant, TW, 4, 4>(a, n, stream);
+    case 5: return launch_split<D, TQ, TKV, kQuant, TW, 5, 5>(a, n, stream);
+    case 6: return launch_split<D, TQ, TKV, kQuant, TW, 6, 6>(a, n, stream);
+    case 7: return launch_split<D, TQ, TKV, kQuant, TW, 7, 7>(a, n, stream);
+    case 8: return launch_split<D, TQ, TKV, kQuant, TW, 8, 8>(a, n, stream);
     default: break;
   }
   if (r > 32) return static_cast<int>(cudaErrorInvalidValue);
   const int passes = (r + 7) / 8;
   switch ((r + passes - 1) / passes) {   // 5 .. 8
-    case 5: return launch_split<D, TQ, TKV, kQuant, 5, 32>(a, n, stream);
-    case 6: return launch_split<D, TQ, TKV, kQuant, 6, 32>(a, n, stream);
-    case 7: return launch_split<D, TQ, TKV, kQuant, 7, 32>(a, n, stream);
-    default: return launch_split<D, TQ, TKV, kQuant, 8, 32>(a, n, stream);
+    case 5: return launch_split<D, TQ, TKV, kQuant, TW, 5, 32>(a, n, stream);
+    case 6: return launch_split<D, TQ, TKV, kQuant, TW, 6, 32>(a, n, stream);
+    case 7: return launch_split<D, TQ, TKV, kQuant, TW, 7, 32>(a, n, stream);
+    default: return launch_split<D, TQ, TKV, kQuant, TW, 8, 32>(a, n, stream);
   }
 }
 
 // `paged_attention_fwd` of the library for q of type TQ (dtype code
-// kCode): `t` query rows per slot (t x h / hkv <= 32); `pps` pages per
-// split (pps * ps <= 64) and `splits` = ceil(p / pps) blocks per (slot,
-// kv head); `w` window pages (0: no window; int8 pages only, w * ps <=
-// 64); `ws` is the fp32 workspace [n, hkv, splits + (w > 0), t x h /
-// hkv, d + 2]; `d` is 128 or 64. Pages are in q's dtype, or int8 (the
-// window then in q's dtype); any other dtype is cudaErrorInvalidValue.
-template <typename TQ, int kCode>
+// kCode) over float pages of type TP (code kPageCode): `t` query rows per
+// slot (t x h / hkv <= 32); `pps` pages per split (pps * ps <= 64) and
+// `splits` = ceil(p / pps) blocks per (slot, kv head); `w` window pages
+// (0: no window; int8 pages only, w * ps <= 64); `ws` is the fp32
+// workspace [n, hkv, splits + (w > 0), t x h / hkv, d + 2]; `d` is 128 or
+// 64. Pages are in TP, or int8 (the window then in TP); any other dtype is
+// cudaErrorInvalidValue. A library of TP = TQ serves pages in q's dtype;
+// one of TP != TQ (paged_attention_<q>_kv<p>.cu) pages, or an int8 pool's
+// window, in another float dtype.
+template <typename TQ, int kCode, typename TP, int kPageCode>
 int paged_attention_entry(const void* q, const void* k_pages,
                           const void* v_pages, const void* table,
                           const void* lengths, const void* k_scales,
@@ -661,7 +706,7 @@ int paged_attention_entry(const void* q, const void* k_pages,
   if (t < 1 || pps < 1 || pps * ps > kSplitKeys ||
       splits != (p + pps - 1) / pps || w < 0 || w * ps > kSplitKeys ||
       (w > 0 && kv_dtype != PTT_INT8) || (d != 128 && d != 64) ||
-      q_dtype != kCode || (kv_dtype != kCode && kv_dtype != PTT_INT8))
+      q_dtype != kCode || (kv_dtype != kPageCode && kv_dtype != PTT_INT8))
     return static_cast<int>(cudaErrorInvalidValue);
   PagedArgs a{q,
               k_pages,
@@ -686,16 +731,17 @@ int paged_attention_entry(const void* q, const void* k_pages,
               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == PTT_INT8)
-    return d == 64 ? launch<64, TQ, int8_t, true>(a, n, s)
-                   : launch<128, TQ, int8_t, true>(a, n, s);
-  return d == 64 ? launch<64, TQ, TQ, false>(a, n, s)
-                 : launch<128, TQ, TQ, false>(a, n, s);
+    return d == 64 ? launch<64, TQ, int8_t, true, TP>(a, n, s)
+                   : launch<128, TQ, int8_t, true, TP>(a, n, s);
+  return d == 64 ? launch<64, TQ, TP, false, TP>(a, n, s)
+                 : launch<128, TQ, TP, false, TP>(a, n, s);
 }
 
 }  // namespace
 
-// the library's exported entry, for q of type TQ (dtype code CODE)
-#define PTT_PAGED_ATTENTION_FWD(TQ, CODE)                                   \
+// the library's exported entry, for q of type TQ (dtype code CODE) over
+// float pages, or an int8 pool's window, of type TP (code PCODE)
+#define PTT_PAGED_ATTENTION_KV_FWD(TQ, CODE, TP, PCODE)                     \
   PTT_EXPORT int paged_attention_fwd(                                       \
       const void* q, const void* k_pages, const void* v_pages,              \
       const void* table, const void* lengths, const void* k_scales,         \
@@ -703,8 +749,12 @@ int paged_attention_entry(const void* q, const void* k_pages,
       const void* win_first, void* ws, void* out, int n, int t, int h,      \
       int hkv, int p, int ps, int pps, int splits, int w, float scale,      \
       int q_dtype, int kv_dtype, int d, void* stream) {                     \
-    return paged_attention_entry<TQ, CODE>(                                 \
+    return paged_attention_entry<TQ, CODE, TP, PCODE>(                      \
         q, k_pages, v_pages, table, lengths, k_scales, v_scales, k_win,     \
         v_win, win_first, ws, out, n, t, h, hkv, p, ps, pps, splits, w,     \
         scale, q_dtype, kv_dtype, d, stream);                               \
   }
+
+// the entry for pages (or an int8 pool's window) in q's dtype
+#define PTT_PAGED_ATTENTION_FWD(TQ, CODE) \
+  PTT_PAGED_ATTENTION_KV_FWD(TQ, CODE, TQ, CODE)

@@ -1,0 +1,10 @@
+// Paged attention for decode, fp16 q over f32 pages (or int8 pages with
+// the decode round's window in f32): the instantiations of
+// paged_attention.cuh for a KV pool kept in another float dtype than the
+// model's (the kernels, their design and their bound are described
+// there).
+//
+// Replaces: paddle_tpu/ops/pallas_kernels.py:_paged_attn_kernel.
+#include "paged_attention.cuh"
+
+PTT_PAGED_ATTENTION_KV_FWD(__half, PTT_F16, float, PTT_F32)

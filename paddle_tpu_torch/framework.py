@@ -198,6 +198,43 @@ def get_default_dtype():
 # Seeds and generators
 # --------------------------------------------------------------------------
 
+class Generator:
+    """A random stream over a `torch.Generator` (the JAX package's
+    `Generator`, a threefry (seed, counter) stream): `manual_seed`, and
+    its state as {'seed', 'state'} (`state()`, `set_state()`), the torch
+    generator's own state bytes. `generator` is the torch generator to
+    draw from; `device` defaults to the CPU's."""
+
+    def __init__(self, seed: int = 0, device=None):
+        self.generator = torch.Generator(
+            device='cpu' if device is None else resolve_device(device))
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed: int) -> 'Generator':
+        self._seed = int(seed)
+        self.generator.manual_seed(self._seed)
+        return self
+
+    def state(self) -> dict:
+        return {'seed': self._seed, 'state': self.generator.get_state()}
+
+    def set_state(self, st: dict) -> None:
+        self._seed = int(st['seed'])
+        self.generator.set_state(st['state'])
+
+
+def get_cuda_rng_state() -> list:
+    """Each CUDA device's RNG state (upstream's per-device list; empty
+    without a card)."""
+    return torch.cuda.get_rng_state_all() if torch.cuda.is_available() \
+        else []
+
+
+def set_cuda_rng_state(state) -> None:
+    if state:
+        torch.cuda.set_rng_state_all(state)
+
+
 _seed = {'value': None}
 _generators: dict = {}
 

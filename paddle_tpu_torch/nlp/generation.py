@@ -71,6 +71,17 @@ class LayerKV(NamedTuple):
     win_first: Optional[torch.Tensor] = None
 
 
+def round_kv(x: torch.Tensor, dtype) -> torch.Tensor:
+    """`x` rounded through `dtype` (a KV pool's, or its compute dtype)
+    and back, or `x` itself when `dtype` is None or x's own: the values a
+    forward that writes its rows into such a pool, then attends them, as
+    the JAX forward does, reads back. Every bf16 and fp16 value is exact
+    in f32, so through a wider dtype this changes nothing."""
+    if dtype is None or dtype == x.dtype:
+        return x
+    return x.to(dtype).to(x.dtype)
+
+
 def window_count(span: int, page_size: int) -> int:
     """Pages a span of `span` consecutive rows can touch at any alignment
     (the JAX `scatter_pages` window count, `kv_pool.py:372`)."""
@@ -257,7 +268,8 @@ def gather_rows(pages: torch.Tensor, table_row: torch.Tensor,
 
 def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
                k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
-               start: torch.Tensor, floor=None, scales=None) -> tuple:
+               start: torch.Tensor, floor=None, scales=None,
+               dtype=None) -> tuple:
     """The attention rows of one prompt chunk (the JAX engine's
     `_paged_chunk_prefill_fn`, `paddle_tpu/serving/engine.py:763-790`),
     with no host value: the chunk's fresh K/V rows k/v [1, S, HKV, D] at
@@ -272,20 +284,26 @@ def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     start + S <= P * page_size.
 
     With `scales` (the int8 pool's (k_scales, v_scales)) the gather
-    dequantizes into k's dtype, and each page [start, start + S) touches
-    above the floor is requantized whole from the gathered row: its
-    older rows, the fresh ones and the rows past start + S, as the JAX
-    chunk's scatter does. The gather keeps its fixed shape."""
+    dequantizes into `dtype`, the pool's compute dtype (default k's),
+    and each page [start, start + S) touches above the floor is
+    requantized whole from the gathered row: its older rows, the fresh
+    ones and the rows past start + S, as the JAX chunk's scatter does.
+    The gather keeps its fixed shape. The row is built in the pool's
+    (compute) dtype, as the JAX chunk's gathered row is, and returned in
+    k's: a pool in another dtype than the model's rounds the fresh rows
+    through it, and a float gather is cast to q's dtype (exact whichever
+    side is wider)."""
     s = k.shape[1]
     pos = offset_grid(start, s)
     ks, vs = (None, None) if scales is None else scales
+    dt = k_pages.dtype if scales is None else (dtype or k.dtype)
     k_all = gather_rows(k_pages, table, scales=ks,
-                        dtype=k.dtype).index_copy_(1, pos, k)
+                        dtype=dt).index_copy_(1, pos, k.to(dt))
     v_all = gather_rows(v_pages, table, scales=vs,
-                        dtype=v.dtype).index_copy_(1, pos, v)
+                        dtype=dt).index_copy_(1, pos, v.to(dt))
     if scales is None:
         update_kv_cache(k_pages, v_pages, k, v, table, start, floor)
-        return k_all, v_all
+        return k_all.to(k.dtype), v_all.to(v.dtype)
     ps, p = k_pages.shape[1], table.shape[1]
     first = torch.div(start, ps, rounding_mode='floor').reshape(1)
     idx = first[:, None] + torch.arange(window_count(s, ps),
@@ -296,10 +314,11 @@ def chunk_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     for pages, sc, rows in ((k_pages, ks, k_all), (v_pages, vs, v_all)):
         slab = rows.unflatten(1, (p, ps))[:, idx[0].clamp(max=p - 1)]
         write_pages(pages, sc, slab, table, first, keep)
-    return k_all, v_all
+    return k_all.to(k.dtype), v_all.to(v.dtype)
 
 
-def paged_attend(q, k, v, kv_pages, table, offset, floor=None):
+def paged_attend(q, k, v, kv_pages, table, offset, floor=None,
+                 kv_dtype=None):
     """The attention of a paged forward, for any causal LM: q [B, S, H, D]
     and this call's new rows k/v [B, S, HKV, D] (after any position
     embedding); `kv_pages` one layer's `LayerKV` (or (k, v) pages);
@@ -311,7 +330,14 @@ def paged_attend(q, k, v, kv_pages, table, offset, floor=None):
     causally with the slot's earlier rows through the flash kernel over
     the whole gathered row, its key count start + S read on the device).
     Returns [B, S, H, D]. A chunk with head_dim < 64 takes the plain
-    attention, as the JAX package sends it to XLA."""
+    attention, as the JAX package sends it to XLA. `kv_dtype`: an int8
+    pool's compute dtype (its chunk's gather and fresh rows, `chunk_rows`);
+    float pages are read in their own dtype, and a decode reads the
+    round's window in the dtype it was made in.
+
+    The pool may hold another float dtype than the model's (the engine's
+    `dtype`): the decode reads the pages as they are, through the paged
+    kernel's pair for (q's dtype, the pages'), and returns q's dtype."""
     from ..ops import kernels
     b, s = q.shape[:2]
     kv = LayerKV(*kv_pages)
@@ -320,7 +346,7 @@ def paged_attend(q, k, v, kv_pages, table, offset, floor=None):
         if b != 1:
             raise ValueError('a paged chunk forward takes one slot')
         k_all, v_all = chunk_rows(kv.k, kv.v, k, v, table, offset, floor,
-                                  scales)
+                                  scales, kv_dtype)
         used = (offset + s).to(torch.int32).reshape(1)
         if kernels.flash_head_dim_ok(q.shape[-1]):
             return kernels.flash_attention_fwd(q, k_all, v_all, causal=True,

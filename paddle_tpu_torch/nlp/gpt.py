@@ -32,12 +32,13 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..dtype import to_torch_dtype
 from ..nn import functional as F
 from ..nn.common_layers import Dropout, Embedding, Linear
 from ..nn.layer import Layer, init_kwargs
 from ..nn.norm import LayerNorm
 from .generation import (GenerationMixin, as_offset, attend_static,
-                         offset_grid, pad_mask, paged_attend)
+                         offset_grid, pad_mask, paged_attend, round_kv)
 
 
 class GPTConfig:
@@ -118,9 +119,10 @@ class GPTAttention(Layer):
 
     def forward(self, hidden, position_offset=None, attn_mask=None,
                 cache=None, cache_offset=None, kv_pages=None, table=None,
-                floor=None):
+                floor=None, kv_dtype=None):
         """Returns (output, (k, v)): k/v are this call's new rows [B, S,
-        H, D], or with `cache` the updated (K, V) cache."""
+        H, D], or with `cache` the updated (K, V) cache; `kv_dtype` as in
+        `LlamaAttention.forward`."""
         b, s, _ = hidden.shape
         nh, hd = self.num_heads, self.head_dim
         offset = as_offset(position_offset, hidden.device)
@@ -130,8 +132,11 @@ class GPTAttention(Layer):
             out, kv = attend_static(q, k, v, cache, offset, cache_offset,
                                     attn_mask)
         elif kv_pages is not None:
-            out = paged_attend(q, k, v, kv_pages, table, offset, floor)
+            out = paged_attend(q, k, v, kv_pages, table, offset, floor,
+                               kv_dtype)
         else:
+            k, v = round_kv(k, kv_dtype), round_kv(v, kv_dtype)
+            kv = (k, v)
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=True,
                 dropout_p=self.dropout_p, training=self.training)
@@ -156,12 +161,12 @@ class GPTDecoderLayer(Layer):
 
     def forward(self, hidden, position_offset=None, attn_mask=None,
                 cache=None, cache_offset=None, kv_pages=None, table=None,
-                floor=None):
+                floor=None, kv_dtype=None):
         out, kv = self.attn(self.norm1(hidden),
                             position_offset=position_offset,
                             attn_mask=attn_mask, cache=cache,
                             cache_offset=cache_offset, kv_pages=kv_pages,
-                            table=table, floor=floor)
+                            table=table, floor=floor, kv_dtype=kv_dtype)
         h = hidden + self.dropout(out)
         h = h + self.dropout(self.linear2(self.act(self.linear1(
             self.norm2(h)))))
@@ -192,7 +197,8 @@ class GPTModel(Layer):
 
     def forward(self, input_ids, position_offset=None, attention_mask=None,
                 cache=None, cache_offset=None, kv_pages=None, table=None,
-                floor=None) -> Tuple[torch.Tensor, List[tuple]]:
+                floor=None,
+                kv_dtype=None) -> Tuple[torch.Tensor, List[tuple]]:
         """Returns (final hidden states, per-layer (k, v) new rows, or
         with `cache` the updated caches)."""
         offset = as_offset(position_offset, input_ids.device)
@@ -206,20 +212,22 @@ class GPTModel(Layer):
                           cache=None if cache is None else cache[i],
                           cache_offset=cache_offset,
                           kv_pages=None if kv_pages is None else kv_pages[i],
-                          table=table, floor=floor)
+                          table=table, floor=floor, kv_dtype=kv_dtype)
             kvs.append(kv)
         return self.final_norm(h), kvs
 
-    def init_cache(self, batch_size: int, max_length: int):
+    def init_cache(self, batch_size: int, max_length: int, dtype=None):
         """Per-layer (K, V) zeros [batch_size, max_length, H, D] on the
-        model's device and in its dtype (the paged pool calls this with
-        (num_pages, page_size))."""
+        model's device, in `dtype`, by default the model's (the paged pool
+        calls this with (num_pages, page_size); see
+        `LlamaForCausalLM.init_cache`)."""
         cfg = self.config
         w = self.word_embeddings.weight
+        dt = w.dtype if dtype is None else to_torch_dtype(dtype)
         shape = (batch_size, int(max_length), cfg.num_attention_heads,
                  cfg.head_dim)
-        return [(torch.zeros(shape, dtype=w.dtype, device=w.device),
-                 torch.zeros(shape, dtype=w.dtype, device=w.device))
+        return [(torch.zeros(shape, dtype=dt, device=w.device),
+                 torch.zeros(shape, dtype=dt, device=w.device))
                 for _ in range(cfg.num_hidden_layers)]
 
 
@@ -272,16 +280,16 @@ class GPTForCausalLM(Layer, GenerationMixin):
         return out[0] if len(out) == 1 else out
 
     def prefill_kv(self, input_ids, start=None, kv_pages=None, table=None,
-                   floor=None) -> List[tuple]:
+                   floor=None, kv_dtype=None) -> List[tuple]:
         """The serving engine's prefill, without logits (see
         `LlamaForCausalLM.prefill_kv`): each layer's (k, v) rows [B, S,
         H, D] of the causal forward from position 0, or with `kv_pages`
         the chunk forward at `start`, which writes its rows itself."""
         return self.gpt(input_ids, position_offset=start, kv_pages=kv_pages,
-                        table=table, floor=floor)[1]
+                        table=table, floor=floor, kv_dtype=kv_dtype)[1]
 
-    def init_cache(self, batch_size: int, max_length: int):
-        return self.gpt.init_cache(batch_size, max_length)
+    def init_cache(self, batch_size: int, max_length: int, dtype=None):
+        return self.gpt.init_cache(batch_size, max_length, dtype)
 
 
 __all__ = ['GPTConfig', 'GPTAttention', 'GPTDecoderLayer', 'GPTModel',

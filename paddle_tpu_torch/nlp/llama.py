@@ -79,13 +79,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import amp as _amp
+from ..dtype import to_torch_dtype
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.common_layers import Embedding, Linear
 from ..nn.layer import Layer, init_kwargs
 from ..nn.norm import RMSNorm
 from .generation import (GenerationMixin, as_offset, attend_static,
-                         offset_grid, pad_mask, paged_attend)
+                         offset_grid, pad_mask, paged_attend, round_kv)
 
 INIT_STD = 0.02   # normal init of random weights (the usual Llama range)
 
@@ -208,9 +209,12 @@ class LlamaAttention(Layer):
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
                 table=None, floor=None, attn_mask=None, cache=None,
-                cache_offset=None):
+                cache_offset=None, kv_dtype=None):
         """Returns (output, (k, v)): k/v are this call's new rows after
-        RoPE, [B, S, HKV, D], or with `cache` the updated (K, V) cache."""
+        RoPE, [B, S, HKV, D], or with `cache` the updated (K, V) cache.
+        `kv_dtype` is the dtype of the KV pool that a serving prefill
+        writes into: the rows it attends are rounded through it first
+        (`round_kv`), as the JAX forward attends the rows it wrote."""
         b, s, _ = hidden.shape
         nh, nkv, hd = self.num_heads, self.num_key_value_heads, self.head_dim
         offset = as_offset(position_offset, hidden.device)
@@ -225,10 +229,11 @@ class LlamaAttention(Layer):
                                     attn_mask)
             return self.o_proj(out.reshape(b, s, nh * hd)), kv
         if kv_pages is None:
+            k, v = round_kv(k, kv_dtype), round_kv(v, kv_dtype)
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                                  is_causal=True)
             return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
-        out = paged_attend(q, k, v, kv_pages, table, offset, floor)
+        out = paged_attend(q, k, v, kv_pages, table, offset, floor, kv_dtype)
         return self.o_proj(out.reshape(b, s, nh * hd)), (k, v)
 
 
@@ -260,11 +265,11 @@ class LlamaDecoderLayer(Layer):
 
     def forward(self, hidden, position_offset=None, kv_pages=None,
                 table=None, floor=None, attn_mask=None, cache=None,
-                cache_offset=None):
+                cache_offset=None, kv_dtype=None):
         attn_out, kv = self.self_attn(
             self.input_layernorm(hidden), position_offset=position_offset,
             kv_pages=kv_pages, table=table, floor=floor, attn_mask=attn_mask,
-            cache=cache, cache_offset=cache_offset)
+            cache=cache, cache_offset=cache_offset, kv_dtype=kv_dtype)
         h = hidden + attn_out
         h = h + self.mlp(self.post_attention_layernorm(h))
         return h, kv
@@ -293,7 +298,8 @@ class LlamaModel(Layer):
 
     def forward(self, input_ids, position_offset=None, kv_pages=None,
                 table=None, floor=None, attention_mask=None, cache=None,
-                cache_offset=None) -> Tuple[torch.Tensor, List[tuple]]:
+                cache_offset=None,
+                kv_dtype=None) -> Tuple[torch.Tensor, List[tuple]]:
         """Returns (final hidden states, per-layer (k, v) new rows, or
         with `cache` the updated caches).
 
@@ -322,7 +328,7 @@ class LlamaModel(Layer):
                               else kv_pages[i], table=table, floor=floor,
                               attn_mask=mask,
                               cache=None if cache is None else cache[i],
-                              cache_offset=cache_offset)
+                              cache_offset=cache_offset, kv_dtype=kv_dtype)
             kvs.append(kv)
         return self.norm(h), kvs
 
@@ -374,23 +380,30 @@ class LlamaForCausalLM(Layer, GenerationMixin):
         return out[0] if len(out) == 1 else out
 
     def prefill_kv(self, input_ids, start=None, kv_pages=None, table=None,
-                   floor=None) -> List[tuple]:
+                   floor=None, kv_dtype=None) -> List[tuple]:
         """The serving engine's prefill, without logits: the causal
         no-cache forward of a prompt from position 0, returning each
         layer's (k, v) rows [B, S, HKV, D] (after RoPE) for the page pool;
         or, with `kv_pages`, `table` [1, P] and a scalar `start` (an int or
         a 0-d tensor), the chunk forward of the module docstring, which
-        writes its rows into the pages itself."""
+        writes its rows into the pages itself. `kv_dtype`: the pool's
+        (compute) dtype, when it is not the model's; every row attended
+        is rounded through it."""
         return self.llama(input_ids, position_offset=start,
-                          kv_pages=kv_pages, table=table, floor=floor)[1]
+                          kv_pages=kv_pages, table=table, floor=floor,
+                          kv_dtype=kv_dtype)[1]
 
-    def init_cache(self, batch_size: int, max_length: int):
+    def init_cache(self, batch_size: int, max_length: int, dtype=None):
         """Per-layer (K, V) zeros [batch_size, max_length, HKV, D] on the
-        model's device and in its dtype (the paged pool calls this with
-        (num_pages, page_size))."""
+        model's device, in `dtype`, by default the model's (the paged pool
+        calls this with (num_pages, page_size)). The JAX package's default
+        is float32 whatever the model's dtype; the port keeps the model's
+        (ROADMAP, faults in the reference that the port does not
+        share)."""
         cfg = self.config
+        dt = self.dtype if dtype is None else to_torch_dtype(dtype)
         shape = (batch_size, int(max_length), cfg.num_key_value_heads,
                  cfg.head_dim)
-        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device))
                 for _ in range(cfg.num_hidden_layers)]

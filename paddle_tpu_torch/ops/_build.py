@@ -26,7 +26,10 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'paddle_tpu_torch'
 SOURCES = ('rms_norm', 'flash_attention', 'flash_attention_bwd',
            'paged_attention_f32', 'paged_attention_bf16',
-           'paged_attention_fp16', 'cross_entropy', 'adapter_matmul_f32',
+           'paged_attention_fp16', 'paged_attention_f32_kvbf16',
+           'paged_attention_f32_kvfp16', 'paged_attention_bf16_kvf32',
+           'paged_attention_bf16_kvfp16', 'paged_attention_fp16_kvf32',
+           'paged_attention_fp16_kvbf16', 'cross_entropy', 'adapter_matmul_f32',
            'adapter_matmul_bf16', 'adapter_matmul_fp16', 'multi_tensor_adam')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')

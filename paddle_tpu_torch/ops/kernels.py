@@ -58,8 +58,9 @@ forward, dq and dk/dv launch bf16 and fp16 on the tensor-core (wgmma)
 kernels (one template over the element type), f32 on fp32 FMA kernels;
 RMSNorm, CE, the paged kernel and the adapter kernel are templates over
 the element type with fp32 arithmetic inside. Any other dtype, or
-inputs of mixed dtypes a kernel was not built for (fp16 q over bf16
-pages, an fp16 x over a bf16 bank), raise. One
+inputs of mixed dtypes a kernel was not built for (an fp16 x over a
+bf16 bank), raise; the paged kernel is built for every pair of a float
+q and float pages (or an int8 pool's float window). One
 `paged_attention` call launches two device kernels (the split-context
 pass and its combine; over int8 pages with the decode round's window
 also the window's split) and counts once: under `paged_attention` when
@@ -120,6 +121,15 @@ LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
             'adapter_matmul_fp16': 0, 'multi_tensor_adam': 0,
             'multi_tensor_sumsq': 0}
 
+# the paged calls over pages, or an int8 pool's window, in another float
+# dtype than q's (`paged_key`): `_<q>_kv<dtype>` after any `_int8`
+_SUFFIXES = ('f32', 'bf16', 'fp16')
+LAUNCHES.update({
+    f'{base}{int8}_{q}_kv{kv}{d64}': 0
+    for base in ('paged_attention', 'paged_attention_verify')
+    for int8 in ('', '_int8') for q in _SUFFIXES for kv in _SUFFIXES
+    if q != kv for d64 in ('', '_d64')})
+
 # csrc/common.cuh: PttDtype
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float16: 3}
@@ -163,15 +173,22 @@ def _key(name: str, dtype, d: Optional[int] = None) -> str:
             + ('_d64' if d == 64 else ''))
 
 
-def paged_key(q_dim: int, int8: bool, dtype, d: int) -> str:
+def paged_key(q_dim: int, int8: bool, dtype, d: int,
+              kv_dtype=None) -> str:
     """The `LAUNCHES` key of a `paged_attention` call: a 4-D q (several
     query rows per slot, the speculative verify) counts under
     `paged_attention_verify`, a 3-D one under `paged_attention`; over
-    int8 pages `_int8` follows, at D = 128 as at 64, then any `_fp16`
-    and `_d64` (`_key`)."""
-    return _key(('paged_attention_verify' if q_dim == 4
-                 else 'paged_attention') + ('_int8' if int8 else ''),
-                dtype, d)
+    int8 pages `_int8` follows, at D = 128 as at 64; then any `_fp16` and
+    `_d64` (`_key`). When the float pages (or an int8 pool's window) are
+    in `kv_dtype`, another dtype than q's, the pair is named instead of
+    `_fp16`, each pair a key of its own: `_<q>_kv<pages>` (as in
+    `paged_attention_bf16_kvf32`, `paged_attention_int8_f32_kvfp16_d64`)."""
+    name = ('paged_attention_verify' if q_dim == 4
+            else 'paged_attention') + ('_int8' if int8 else '')
+    if kv_dtype is not None and kv_dtype != dtype:
+        return (f'{name}_{_DTYPE_SUFFIX[dtype]}_kv'
+                f'{_DTYPE_SUFFIX[kv_dtype]}' + ('_d64' if d == 64 else ''))
+    return _key(name, dtype, d)
 
 
 def flash_head_dim_ok(d: int) -> bool:
@@ -223,11 +240,15 @@ _DTYPE_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16',
                  torch.float16: 'fp16'}
 
 
-def _by_dtype(source: str, dtype) -> str:
+def _by_dtype(source: str, dtype, kv_dtype=None) -> str:
     """The library of a kernel built one per dtype (the paged and adapter
     kernels: `<source>_f32.cu`, `<source>_bf16.cu`, `<source>_fp16.cu`,
-    so that nvcc builds them in parallel)."""
-    return f'{source}_{_DTYPE_SUFFIX[dtype]}'
+    so that nvcc builds them in parallel); the paged kernel over pages in
+    another float dtype `kv_dtype` has one per pair
+    (`paged_attention_<q>_kv<pages>.cu`)."""
+    kv = ('' if kv_dtype is None or kv_dtype == dtype
+          else f'_kv{_DTYPE_SUFFIX[kv_dtype]}')
+    return f'{source}_{_DTYPE_SUFFIX[dtype]}{kv}'
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -693,7 +714,10 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
     for int8 pages. With the window k/v_win [N, W, ps, HKV, D] and
     win_first [N] int32, logical page i of slot n with win_first[n] <= i
     < win_first[n] + W is read from the window (no scale) in place of its
-    page. A query row with no key gets the uniform average of its
+    page; a window in another dtype than q's is the pool's compute dtype,
+    and the int8 pages' dequantized values are rounded through it. Pages
+    in any float dtype are read as they are, in f32, and the output is in
+    q's dtype. A query row with no key gets the uniform average of its
     gathered pages."""
     rows4 = q.dim() == 4
     q4 = q if rows4 else q[:, None]
@@ -709,6 +733,10 @@ def paged_attention_reference(q, k_pages, v_pages, table, lengths, *,
         k = k * k_scales[idx][:, :, None, :, None]
     if v_scales is not None:
         v = v * v_scales[idx][:, :, None, :, None]
+    if k_win is not None and k_win.dtype != q.dtype:
+        # the pool's compute dtype is not q's: int8 pages dequantize into
+        # it, as the JAX gather does (the kernel rounds each product)
+        k, v = k.to(k_win.dtype).float(), v.to(k_win.dtype).float()
     if k_win is not None:
         # window pages past the table go to a spare page P, dropped after
         w = k_win.shape[1]
@@ -769,8 +797,12 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     once (`paged_key`): under `paged_attention` for a 3-D q, under
     `paged_attention_verify` for a 4-D one, then `_int8` over int8
     pages, `_fp16` for an fp16 q and `_d64` at head_dim 64.
-    Pages are in q's dtype (f32, bf16 or fp16), or int8 with a window in
-    q's dtype."""
+    Pages are in any float dtype (f32, bf16 or fp16), or int8 with a
+    window in any float dtype: the pool's dtype, which a caller may keep
+    apart from the model's (`InferenceEngine(dtype=)`). Pages (or the
+    window) in another dtype than q's take a library of their own and
+    count under the pair's key (`_<q>_kv<pages>`, `paged_key`); the
+    output is in q's dtype."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError('pass both k_scales and v_scales or neither')
     window = (k_win, v_win, win_first)
@@ -797,8 +829,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     _require(q.dtype in _FLOAT_DTYPES,
              f'paged kernel takes an f32, bf16 or fp16 query, got {q.dtype}')
     _require(k_pages.dtype == v_pages.dtype
-             and k_pages.dtype == (torch.int8 if quant else q.dtype),
-             'paged kernel takes pages in q.dtype, or int8 with scales')
+             and (k_pages.dtype == torch.int8 if quant
+                  else k_pages.dtype in _FLOAT_DTYPES),
+             'paged kernel takes f32, bf16 or fp16 pages, or int8 pages '
+             'with scales')
     _require(d in HEAD_DIMS and k_pages.shape[3] == d
              and tuple(v_pages.shape) == tuple(k_pages.shape),
              f'paged kernel is built for head_dim {HEAD_DIMS}, got '
@@ -817,13 +851,13 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
                  and tuple(v_scales.shape) == (num_pages, hkv),
                  'scales must be f32 [num_pages, HKV]')
     if w:
-        _require(k_win.dtype == q.dtype and v_win.dtype == q.dtype
+        _require(k_win.dtype in _FLOAT_DTYPES and v_win.dtype == k_win.dtype
                  and tuple(k_win.shape) == (n, w, ps, hkv, d)
                  and tuple(v_win.shape) == (n, w, ps, hkv, d)
                  and win_first.dtype == torch.int32
                  and tuple(win_first.shape) == (n,),
-                 'the window must be [N, W, ps, HKV, D] in q.dtype, with '
-                 'win_first int32 [N]')
+                 'the window must be [N, W, ps, HKV, D] in f32, bf16 or '
+                 'fp16, with win_first int32 [N]')
         _require(w * ps <= PAGED_SPLIT_KEYS,
                  f'the window holds at most {PAGED_SPLIT_KEYS} rows, got '
                  f'W={w} pages of {ps}')
@@ -843,7 +877,10 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
     pps, splits = paged_split(p, ps)
     ws = torch.empty((n, hkv, splits + (1 if w else 0), t * (h // hkv),
                       d + 2), dtype=torch.float32, device=q.device)
-    lib, fn = _entry(_by_dtype('paged_attention', q.dtype),
+    # the float dtype the splits read besides int8: the pages', or an
+    # int8 pool's window's
+    kv_dtype = (k_win.dtype if w else q.dtype) if quant else k_pages.dtype
+    lib, fn = _entry(_by_dtype('paged_attention', q.dtype, kv_dtype),
                      'paged_attention_fwd')
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -853,7 +890,7 @@ def paged_attention(q, k_pages, v_pages, table, lengths, *, k_scales=None,
             w, float(sm_scale), _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[k_pages.dtype], d, _stream(q))
     _build.check(lib, rc, 'paged_attention_fwd')
-    LAUNCHES[paged_key(q.dim(), quant, q.dtype, d)] += 1
+    LAUNCHES[paged_key(q.dim(), quant, q.dtype, d, kv_dtype)] += 1
     return out
 
 

@@ -250,6 +250,14 @@ class InferenceEngine:
         buckets: prefill length buckets (default: powers of two).
         max_prefill_tokens: per-iteration prefill budget (scheduler).
         eos_token_id: default eos (-1 = never); per-request params win.
+        dtype: the KV pool's dtype (and the draft's pool's, and under
+            `kv_quant='int8'` the dtype the pages dequantize into): any
+            float dtype, whatever the model's. None keeps the model's
+            dtype; the JAX engine's None makes a float32 pool, a fault in
+            the reference that the port does not share (ROADMAP). Every
+            attention reads the K/V as the pool holds them: a decode
+            through the paged kernel's pair for (the model's dtype, the
+            pool's), a prefill over rows rounded through the pool's dtype.
         retry_policy: `resilience.RetryPolicy` for the host<->device
             copies of a round and a prefill (sites serving.h2d /
             serving.d2h); a CUDA error is never retried.
@@ -277,7 +285,7 @@ class InferenceEngine:
             (a prefix hit's suffix is then one chunk).
         kv_quant: 'int8' stores the paged KV as int8 with per-(page, kv
             head) absmax scales (half the bytes of bf16 KV); None keeps
-            it in the model's dtype.
+            it in `dtype`.
         draft_model: a smaller causal LM on the engine's device for
             speculative decoding: each round it proposes
             `num_draft_tokens` tokens greedily from its own row KV pool
@@ -294,7 +302,7 @@ class InferenceEngine:
                  buckets: Optional[Sequence[int]] = None,
                  max_prefill_tokens: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
-                 retry_policy: Optional[RetryPolicy] = None,
+                 dtype=None, retry_policy: Optional[RetryPolicy] = None,
                  max_wait_s: Optional[float] = None,
                  prefix_cache=None,
                  prefill_chunk_tokens: Optional[int] = None,
@@ -331,12 +339,12 @@ class InferenceEngine:
                        or kv_quant is not None)
         page_size = int(kv_page_size) if kv_page_size else 16
         if self._paged:
-            self.pool = PagedSlotPool(model, num_slots, max_length, buckets,
-                                      page_size=page_size,
+            self.pool = PagedSlotPool(model, num_slots, max_length, dtype,
+                                      buckets, page_size=page_size,
                                       num_pages=kv_pages, quant=kv_quant)
         else:
-            self.pool = SlotPool(model, num_slots, max_length, buckets,
-                                 page_size=ROW_PAGE_SIZE)
+            self.pool = SlotPool(model, num_slots, max_length, dtype,
+                                 buckets, page_size=ROW_PAGE_SIZE)
         self.scheduler = FCFSScheduler(max_prefill_tokens,
                                        max_wait_s=max_wait_s)
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
@@ -401,7 +409,8 @@ class InferenceEngine:
             # the draft's KV: one row per slot, slot for slot with the
             # paged pool (never allocated or freed on its own)
             self.draft_pool = SlotPool(draft_model, num_slots, max_length,
-                                       buckets, page_size=self.pool.page_size)
+                                       dtype, buckets,
+                                       page_size=self.pool.page_size)
         self._draining = False
         self._drain_t0 = 0.0
         self._drain_deadline_s: Optional[float] = None
@@ -438,8 +447,8 @@ class InferenceEngine:
         self._program_calls = collections.Counter()
         self._cost = _model_cost(model, self.pool.pages[0][0].element_size())
         self._draft_cost = (None if draft_model is None else
-                            _model_cost(draft_model, torch.empty(
-                                (), dtype=draft_model.dtype).element_size()))
+                            _model_cost(draft_model, self.draft_pool.pages[0][
+                                0].element_size()))
         arrays = (None if adapter_bank is None
                   else adapter_bank.device_arrays())
         if draft_model is None:
@@ -1286,14 +1295,16 @@ class InferenceEngine:
         if step is None and kind == 'draft':
             step = self._prefill_steps[(kind, bucket)] = PrefillStep(
                 kind, bucket, self.draft_model, self.draft_pool.pages,
-                self.draft_pool.pages_per_slot, self.device)
+                self.draft_pool.pages_per_slot, self.device,
+                kv_dtype=self.draft_pool.compute_dtype)
         elif step is None:
             step = self._prefill_steps[(kind, bucket)] = PrefillStep(
                 kind, bucket, self.model, self.pool.pages,
                 self.pool.pages_per_slot, self.device,
                 None if self.adapter_bank is None
                 else self.adapter_bank.device_arrays(),
-                scales=self.pool.scales, paged=self._paged)
+                scales=self.pool.scales, paged=self._paged,
+                kv_dtype=self.pool.compute_dtype)
         if self._capture_prefill and step.graph is None:
             if self._prefill_pool is None:
                 self._prefill_pool = torch.cuda.graph_pool_handle()

@@ -27,7 +27,7 @@ it).
 
 With `quant='int8'` the pages are int8 with one f32 scale per (page, kv
 head) (`scales`, per layer (k_scales, v_scales) [num_pages, HKV], 1.0 at
-start): reads dequantize into `compute_dtype`, the model's dtype, and
+start): reads dequantize into `compute_dtype`, the pool's dtype, and
 every write requantizes the pages it touches, whole, at their fresh
 absmax scale (`nlp.generation.write_pages`); pages it does not touch
 are never rewritten, so a settled page does not drift.
@@ -111,7 +111,9 @@ def gather_pages(pages, table_row: torch.Tensor, length: int,
 class SlotPool:
     """Row KV pool (counterpart of the JAX `SlotPool`,
     `paddle_tpu/serving/kv_pool.py:145-326`): one [max_length, HKV, D] row
-    per slot and layer, in the model's dtype, that belongs to one slot
+    per slot and layer, in `dtype` (default the model's: the JAX pool's
+    default is float32, a fault of the reference that the port does not
+    share, ROADMAP), that belongs to one slot
     for good, and the slot free list. It is the row engine's pool (an
     `InferenceEngine` built without `kv_page_size`, `kv_pages` or
     `kv_quant`), and a speculating engine keeps its draft model's KV in
@@ -141,7 +143,7 @@ class SlotPool:
     quant = None
 
     def __init__(self, model, num_slots: int, max_length: int,
-                 buckets: Optional[Sequence[int]] = None,
+                 dtype=None, buckets: Optional[Sequence[int]] = None,
                  *, page_size: int = 16):
         if num_slots < 1:
             raise ValueError('num_slots must be >= 1')
@@ -154,7 +156,7 @@ class SlotPool:
         self.page_size = int(page_size)
         self.pages_per_slot = -(-self.max_length // self.page_size)
         self.pages = model.init_cache(
-            1 + self.num_slots * self.pages_per_slot, self.page_size)
+            1 + self.num_slots * self.pages_per_slot, self.page_size, dtype)
         self.compute_dtype = self.pages[0][0].dtype
         rows = self.pages_per_slot * self.page_size
         self.cache = [tuple(t[1:].view(self.num_slots, rows,
@@ -351,12 +353,13 @@ class PagedSlotPool:
     free-list allocation, copy-on-write refcounts, page 0 as the null
     page.
 
-    Storage is `model.init_cache(num_pages, page_size)`, in the model's
-    dtype, or with `quant='int8'` int8 pages of the same shape (zeros)
-    and their f32 scales (ones)."""
+    Storage is `model.init_cache(num_pages, page_size, dtype)`, in
+    `dtype` (default the model's), or with `quant='int8'` int8 pages of
+    the same shape (zeros) and their f32 scales (ones), read and written
+    in `dtype` (`compute_dtype`)."""
 
     def __init__(self, model, num_slots: int, max_length: int,
-                 buckets: Optional[Sequence[int]] = None,
+                 dtype=None, buckets: Optional[Sequence[int]] = None,
                  *, page_size: int = 16, num_pages: Optional[int] = None,
                  quant: Optional[str] = None):
         if num_slots < 1:
@@ -387,7 +390,7 @@ class PagedSlotPool:
         self.quant = quant
         if quant == 'int8':
             # the layout of one page, then int8 pages and f32 scales
-            one = model.init_cache(1, self.page_size)
+            one = model.init_cache(1, self.page_size, dtype)
             self.compute_dtype = one[0][0].dtype
             self.pages = [tuple(torch.zeros((self.num_pages,) + t.shape[1:],
                                             dtype=torch.int8,
@@ -398,7 +401,8 @@ class PagedSlotPool:
                                             device=t.device) for t in kv)
                            for kv in one]
         else:
-            self.pages = model.init_cache(self.num_pages, self.page_size)
+            self.pages = model.init_cache(self.num_pages, self.page_size,
+                                          dtype)
             self.compute_dtype = self.pages[0][0].dtype
             self.scales = None
         # a page's bytes: K and V of every layer, and their scales

@@ -76,11 +76,15 @@ class PrefillStep(GraphStep):
             through its identity table): the bodies are the same, only
             the names are the JAX row engine's (`prefill_<b>`,
             `chunk_prefill_<b>`).
+        kv_dtype: the pool's compute dtype (`compute_dtype`), which may
+            differ from the model's: the forward attends its rows
+            rounded through it (`prefill_kv(kv_dtype=)`).
     """
 
     def __init__(self, kind: str, bucket: int, model, pages,
                  table_width: int, device: torch.device,
-                 adapter_arrays=None, scales=None, paged: bool = True):
+                 adapter_arrays=None, scales=None, paged: bool = True,
+                 kv_dtype=None):
         if kind not in KINDS:
             raise ValueError(f'prefill kind {kind!r} is not one of {KINDS}')
         self.kind, self.bucket = kind, int(bucket)
@@ -93,6 +97,7 @@ class PrefillStep(GraphStep):
         self._model = model
         self._pages = pages
         self._scales = scales
+        self._kv_dtype = kv_dtype
         self._arrays = adapter_arrays
         spec = {'ids': ((1, self.bucket), torch.int64),
                 'table': ((1, table_width), torch.int32)}
@@ -113,11 +118,14 @@ class PrefillStep(GraphStep):
                                                      self._scales)])
                 self._model.prefill_kv(b['ids'], start=b['start'],
                                        kv_pages=layers,
-                                       table=b['table'], floor=b['floor'])
+                                       table=b['table'], floor=b['floor'],
+                                       kv_dtype=self._kv_dtype)
             elif self.kind == 'draft':
                 scatter_pages(self._pages, b['table'], pad_rows(
-                    self._model.prefill_kv(b['ids']), self._rows), self._zero)
+                    self._model.prefill_kv(b['ids'], kv_dtype=self._kv_dtype),
+                    self._rows), self._zero)
             else:
                 scatter_pages(self._pages, b['table'],
-                              self._model.prefill_kv(b['ids']), self._zero,
-                              scales=self._scales)
+                              self._model.prefill_kv(
+                                  b['ids'], kv_dtype=self._kv_dtype),
+                              self._zero, scales=self._scales)

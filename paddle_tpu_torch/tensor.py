@@ -42,6 +42,11 @@ _amp_cast_hook = None
 # set by debug.enable_check_numerics: (outputs, op_name) -> None
 _numerics_hook = None
 
+# set by paddle_tpu_torch.static while a program records: (fn, op_name,
+# args, kwargs, outputs) -> None, the op as `apply_op` ran it (torch
+# values, before the AMP cast) for `Executor.run` to replay
+_record_hook = None
+
 _PRINT_OPTIONS = {'precision': 4, 'threshold': 40, 'edgeitems': 3,
                   'linewidth': 80}
 
@@ -443,11 +448,13 @@ def apply_op(fn: Callable, *args, _name: str = '', **kwargs):
     """Run the torch function `fn` over (args, kwargs), Tensors unwrapped
     (in nested lists, tuples and dicts too), the AMP cast policy applied
     to every torch tensor input by `_name`; outputs wrapped as Tensors
-    only when some input was a Tensor."""
+    only when some input was a Tensor. While a static program records
+    (`static.program_guard`), the op is recorded for its replay."""
     found = [False]
     args = _unwrap(args, found)
     if kwargs:
         kwargs = _unwrap(kwargs, found)
+    raw_args, raw_kwargs = args, kwargs
     if _amp_cast_hook is not None:
         vals = _leaves((args, kwargs), [])
         if vals:
@@ -455,6 +462,8 @@ def apply_op(fn: Callable, *args, _name: str = '', **kwargs):
             if cast is not vals:
                 args, kwargs = _replace((args, kwargs), iter(cast))
     out = fn(*args, **kwargs)
+    if _record_hook is not None:
+        _record_hook(fn, _name, raw_args, raw_kwargs, out)
     if found[0]:
         out = _wrap(out)
     if _numerics_hook is not None:

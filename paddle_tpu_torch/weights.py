@@ -3,7 +3,10 @@
 Both packages use Paddle's parameter names and layouts (`Linear.weight`
 is [in, out] in both), so the conversion is a checked copy by name.
 `param_digest` fingerprints a model's weights where they live, so two
-processes can show they serve the same numbers without moving them.
+processes can show they serve the same numbers without moving them. A
+quantized model's int8 weights and scales are buffers under the JAX
+names (`from_jax_state` copies them); its activation scales are
+attributes (`set_act_scales`).
 """
 from __future__ import annotations
 
@@ -51,6 +54,25 @@ def from_jax_state(state: Mapping[str, np.ndarray], model: torch.nn.Module
     must match on both sides, with equal shapes. Returns `model`."""
     _copy_by_name(state, model.state_dict(), 'state does not match the model')
     return model
+
+
+def set_act_scales(model: torch.nn.Module,
+                   scales: Mapping[str, object]) -> None:
+    """Set each `QuantedLinear`'s act_scale from `scales` ({layer name:
+    float or None}, e.g. the JAX model's, read from its `QuantedLinear`
+    sublayers by name). Every name must match on both sides; with
+    `from_jax_state` (the int8 weights and their scales are buffers) it
+    carries a quantized model across whole."""
+    from .quantization import QuantedLinear
+    layers = {name: layer for name, layer in model.named_modules()
+              if isinstance(layer, QuantedLinear)}
+    missing = sorted(set(layers) - set(scales))
+    extra = sorted(set(scales) - set(layers))
+    if missing or extra:
+        raise KeyError(f'act scales: missing {missing}, unexpected {extra}')
+    for name, layer in layers.items():
+        v = scales[name]
+        layer.act_scale = None if v is None else float(v)
 
 
 def _flat_bank(arrays: Mapping) -> dict:

@@ -288,6 +288,63 @@ def test_paged_kernel_with_window_matches_plain(cuda, dtype, hkv, w):
     assert not torch.allclose(got.float(), without.float(), atol=1e-2)
 
 
+_KV_PAIRS = [(q, kv) for q in (torch.float32, torch.bfloat16, torch.float16)
+             for kv in (torch.float32, torch.bfloat16, torch.float16)
+             if q != kv]
+# fp16 outputs: one fp16 rounding of unit-scale values (2^-11) and sums in
+# another order
+_KV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize('t', [1, 5])
+@pytest.mark.parametrize('d', [128, 64])
+@pytest.mark.parametrize('int8', [False, True], ids=['float', 'int8'])
+@pytest.mark.parametrize('pair', _KV_PAIRS,
+                         ids=lambda p: f'{p[0]}-{p[1]}'.replace('torch.', ''))
+def test_paged_kv_dtype_pairs(cuda, pair, int8, d, t):
+    """The paged kernel over a pool kept in another float dtype than q's
+    (`InferenceEngine(dtype=)`): float pages in that dtype, or int8 pages
+    with the decode round's window in it, for every (q, pool) pair, at
+    D = 128 and 64, one query row per slot and the verify's five; the
+    output in q's dtype, held to the plain version on the same inputs;
+    one call counts one launch under the pair's key (`_<q>_kv<pages>`)."""
+    qd, kvd = pair
+    g = torch.Generator(device=cuda).manual_seed(d + t + (7 if int8 else 0))
+    n, h, hkv, p, ps = len(_WINDOW_SLOTS), 8, 4, 10, 16
+    num_pages = n * p + 1
+    shape = (num_pages, ps, hkv, d)
+    q = _randn(g, qd, n, t, h, d) if t > 1 else _randn(g, qd, n, h, d)
+    table = (torch.randperm(num_pages - 1, generator=g, device=cuda)[:n * p]
+             + 1).to(torch.int32).reshape(n, p)
+    table[-1] = 0
+    # the verify's last row stays inside the table
+    lens = torch.tensor([min(ln, p * ps - t) for ln, _ in _WINDOW_SLOTS],
+                        device=cuda, dtype=torch.int32)
+    if int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device=cuda,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, hkv), generator=g, device=cuda)
+                  / 127 + 1e-3 for _ in range(2))
+        kw, vw = (_randn(g, kvd, n, 2, ps, hkv, d) for _ in range(2))
+        first = torch.tensor([f for _, f in _WINDOW_SLOTS],
+                             device=cuda, dtype=torch.int32)
+        kw_args = dict(k_scales=ks, v_scales=vs, k_win=kw, v_win=vw,
+                       win_first=first)
+    else:
+        kp, vp = _randn(g, kvd, *shape), _randn(g, kvd, *shape)
+        kw_args = {}
+    key = K.paged_key(q.dim(), int8, qd, d, kvd)
+    assert '_kv' in key and key in K.LAUNCHES
+    before = dict(K.LAUNCHES)
+    got = K.paged_attention(q, kp, vp, table, lens, **kw_args)
+    assert got.dtype == qd
+    assert {k: n_ - before[k] for k, n_ in K.LAUNCHES.items()
+            if n_ != before[k]} == {key: 1}
+    want = K.paged_attention_reference(q, kp, vp, table, lens, **kw_args)
+    torch.testing.assert_close(got.float(), want.float(), atol=_KV_TOL[qd],
+                               rtol=_KV_TOL[qd])
+
+
 def test_paged_wrapper_raises_on_pages_past_a_split(cuda):
     """A page of more rows than a split holds (PAGED_SPLIT_KEYS) has no
     kernel: the wrapper raises and launches nothing."""
@@ -2323,20 +2380,23 @@ def test_fp16_adapter_kernel_matches_plain(cuda, shape, w_dtype, fused):
 
 def test_fp16_mismatched_dtypes_raise(cuda):
     """What no kernel was built for raises and launches nothing: fp16 q
-    over bf16 pages, a bf16 window over int8 pages under an fp16 q, a
-    bf16 weight under fp16 RMSNorm, an fp16 x over a bf16 bank."""
+    over float64 pages, an int8 window over int8 pages under an fp16 q, a
+    bf16 weight under fp16 RMSNorm, an fp16 x over a bf16 bank. (fp16 q
+    over bf16 pages, or over int8 pages with a bf16 window, has a build
+    since the pool's dtype may differ from the model's:
+    `test_paged_kv_dtype_pairs`.)"""
     h = torch.float16
     table = torch.ones((2, 2), device=cuda, dtype=torch.int32)
     lens = torch.ones(2, device=cuda, dtype=torch.int32)
     q = torch.zeros((2, 4, 128), device=cuda, dtype=h)
     before = dict(K.LAUNCHES)
-    bf_pages = torch.zeros((3, 16, 2, 128), device=cuda,
-                           dtype=torch.bfloat16)
+    f64_pages = torch.zeros((3, 16, 2, 128), device=cuda,
+                            dtype=torch.float64)
     with pytest.raises(ValueError):
-        K.paged_attention(q, bf_pages, bf_pages, table, lens)
+        K.paged_attention(q, f64_pages, f64_pages, table, lens)
     i8 = torch.zeros((3, 16, 2, 128), device=cuda, dtype=torch.int8)
     sc = torch.ones((3, 2), device=cuda)
-    win = torch.zeros((2, 1, 16, 2, 128), device=cuda, dtype=torch.bfloat16)
+    win = torch.zeros((2, 1, 16, 2, 128), device=cuda, dtype=torch.int8)
     with pytest.raises(ValueError):
         K.paged_attention(q, i8, i8, table, lens, k_scales=sc, v_scales=sc,
                           k_win=win, v_win=win,
@@ -3006,3 +3066,149 @@ def test_sharded_checkpoint_loads_onto_the_card_bit_equal(cuda, tmp_path):
     for k, v in state.items():
         assert back[k].device.type == 'cuda' and back[k].dtype == v.dtype
         assert torch.equal(back[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the KV pool's dtype, and the public API packages on the card
+# ---------------------------------------------------------------------------
+
+def _first_step_logits(eng, prompts):
+    import chip_smoke
+    return chip_smoke.first_step_logits(eng, prompts)
+
+
+@pytest.mark.parametrize('paged', [True, False], ids=['paged', 'row'])
+def test_bf16_model_over_an_f32_pool_on_the_card(cuda, paged):
+    """A bf16 Llama served from an f32 pool (`dtype='float32'`, the JAX
+    engine's default pool): captured == eager (tokens and launches), the
+    decode through the (bf16 q, f32 pages) kernel alone; its tokens and
+    first decode step's logits equal the bf16 pool's bit for bit (the
+    pool holds the bf16 rows exactly, and the f32 tiles keep the 16-bit
+    column order, so every sum runs in the bf16 kernel's order)."""
+    model = LlamaForCausalLM(_graph_cfg(), device=cuda, dtype='bfloat16',
+                             generator=generator(21, cuda))
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 512, (s,), generator=g).tolist()
+               for s in (3, 17, 40, 9, 25)]
+    kw = dict(num_slots=3, max_length=128, decode_block=4,
+              **({'kv_page_size': 16} if paged else {}))
+    params = SamplingParams(max_new_tokens=12, eos_token_id=-1)
+    runs = {}
+    for capture in (True, False):
+        eng = InferenceEngine(model, dtype='float32', **kw)
+        assert eng.pool.pages[0][0].dtype == torch.float32
+        eng._capture_decode = eng._capture_prefill = capture
+        eng.generate_many(prompts, SamplingParams(max_new_tokens=1,
+                                                  eos_token_id=-1))
+        K.reset_launch_counts()
+        runs[capture] = ([h.tokens for h in eng.generate_many(prompts,
+                                                              params)],
+                         {k: n for k, n in K.LAUNCHES.items() if n})
+    assert runs[True] == runs[False]
+    launches = runs[True][1]
+    assert launches.get('paged_attention_bf16_kvf32', 0) > 0
+    assert 'paged_attention' not in launches
+    own = InferenceEngine(model, **kw)
+    assert [h.tokens for h in own.generate_many(prompts, params)] == \
+        runs[True][0]
+    wide = _first_step_logits(InferenceEngine(model, dtype='float32', **kw),
+                              prompts[:3])
+    assert torch.equal(wide, _first_step_logits(InferenceEngine(model, **kw),
+                                                prompts[:3]))
+
+
+def test_fused_entries_launch_the_kernels(cuda):
+    """incubate's fused_rms_norm is the RMSNorm kernel, and
+    fused_multi_head_attention the flash forward and, under a gradient,
+    the dq and dk/dv kernels (bf16, head_dim 128): equal to the same
+    calls on the CPU."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(g, torch.bfloat16, 4, 64, 256)
+    w = _randn(g, torch.bfloat16, 256)
+    before = dict(K.LAUNCHES)
+    got = IF.fused_rms_norm(x, w, epsilon=1e-6)
+    assert K.LAUNCHES['rms_norm'] == before['rms_norm'] + 1
+    _close(got.cpu(), IF.fused_rms_norm(x.cpu(), w.cpu(), epsilon=1e-6),
+           torch.bfloat16)
+    qkv_w = (_randn(g, torch.float32, 3, 2, 128, 256) * 0.05).bfloat16()
+    lin_w = (_randn(g, torch.float32, 256, 256) * 0.05).bfloat16()
+    xs = x.detach().requires_grad_(True)
+    before = dict(K.LAUNCHES)
+    out = IF.fused_multi_head_attention(xs, qkv_w, lin_w, pre_layer_norm=True)
+    out.float().square().sum().backward()
+    for key in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                'flash_attention_bwd_dkv'):
+        assert K.LAUNCHES[key] == before[key] + 1, key
+    xc = x.cpu().detach().requires_grad_(True)
+    ref = IF.fused_multi_head_attention(xc, qkv_w.cpu(), lin_w.cpu(),
+                                        pre_layer_norm=True)
+    ref.float().square().sum().backward()
+    _close(out.cpu(), ref, torch.bfloat16)
+    rel = (xs.grad.float().cpu() - xc.grad.float()).norm() / \
+        xc.grad.float().norm()
+    assert rel <= REL_BF16[1] * 4
+
+
+def test_static_program_replay_launches_the_kernels(cuda):
+    """A static program (fc -> F.rms_norm -> causal attention, bf16 at
+    head_dim 128) replayed by the Executor: equal to the eager calls on
+    the same feed bit for bit, and each replay launches the RMSNorm and
+    flash forward kernels once."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import static
+    ptt.set_device('gpu')
+    ptt.seed(4)
+    ptt.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            x = static.data('x', [None, 64, 256], 'bfloat16')
+            lin = ptt.nn.Linear(256, 256, dtype='bfloat16')
+            gamma = ptt.ones([256], dtype='bfloat16')
+            h = F.rms_norm(lin(x), gamma)
+            q = ptt.reshape(h, [-1, 64, 2, 128])
+            y = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+        feed = np.random.default_rng(0).standard_normal(
+            (3, 64, 256)).astype(np.float32)
+        exe = static.Executor()
+        before = dict(K.LAUNCHES)
+        out, = exe.run(main, feed={'x': feed}, fetch_list=[y],
+                       return_numpy=False)
+        assert K.LAUNCHES['rms_norm'] == before['rms_norm'] + 1
+        assert K.LAUNCHES['flash_attention_fwd'] == \
+            before['flash_attention_fwd'] + 1
+    finally:
+        ptt.disable_static()
+    xe = ptt.to_tensor(feed).astype('bfloat16')
+    he = F.rms_norm(lin(xe), gamma)
+    want = F.scaled_dot_product_attention(
+        ptt.reshape(he, [-1, 64, 2, 128]), ptt.reshape(he, [-1, 64, 2, 128]),
+        ptt.reshape(he, [-1, 64, 2, 128]), is_causal=True)
+    assert torch.equal(out.value, want.value)
+
+
+def test_profiler_trace_names_the_kernels(cuda, tmp_path):
+    """Profiler(trace_dir=) on the card: its Chrome trace holds the
+    launched kernels (RMSNorm and the flash forward) and the host
+    region around them."""
+    import json
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(g, torch.bfloat16, 8, 4096)
+    w = _randn(g, torch.bfloat16, 4096)
+    q = _randn(g, torch.bfloat16, 2, 256, 8, 128)
+    IF.fused_rms_norm(x, w)
+    F.scaled_dot_product_attention(q, q, q, is_causal=True)
+    torch.cuda.synchronize()
+    with profiler.Profiler(trace_dir=str(tmp_path)) as prof:
+        with profiler.RecordEvent('api_region'):
+            IF.fused_rms_norm(x, w)
+            F.scaled_dot_product_attention(q, q, q, is_causal=True)
+            torch.cuda.synchronize()
+    names = ' '.join(e.get('name', '') for e in json.loads(
+        open(prof.trace_path).read())['traceEvents'])
+    assert 'api_region' in names
+    assert 'rms_norm_kernel' in names and 'flash_fwd_wgmma_kernel' in names

@@ -171,3 +171,49 @@ def test_weight_store_plane_imports_no_ml_dtypes(tmp_path):
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the JAX package's public names the port does not have: the next
+# slice's packages, and JAX's own names
+NOT_PORTED = {'distributed', 'programs', 'distribution', 'audio', 'text',
+              'hub', 'onnx', 'jax', 'jnp', 'to_jax', 'FLOAT64'}
+API_MODULES = ('device', 'device.cuda', 'profiler', 'geometric',
+               'incubate', 'incubate.nn', 'incubate.nn.functional',
+               'incubate.autograd', 'incubate.optimizer', 'static',
+               'quantization', 'quantization.observers', 'fft', 'signal',
+               'sparse', 'version', 'sysconfig')
+
+
+def test_api_modules_import_no_jax():
+    """The public packages that compute on the card, imported alone, pull
+    in no jax and nothing of `paddle_tpu`."""
+    code = ('import sys\n'
+            + ''.join(f'import paddle_tpu_torch.{m}\n' for m in API_MODULES)
+            + 'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "jaxlib", "paddle_tpu"))\n'
+              'print(bad)\n'
+              'sys.exit(1 if bad else 0)\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_public_name_of_the_reference_exists():
+    """Every public name of `paddle_tpu`'s top level exists in the port,
+    but for NOT_PORTED; and each API module has its JAX counterpart's
+    `__all__` (or, without one, the public names it defines), but for
+    JAX's own."""
+    import importlib
+    import paddle_tpu
+    want = {n for n in dir(paddle_tpu) if not n.startswith('_')}
+    have = {n for n in dir(ptt) if not n.startswith('_')}
+    assert want - have == NOT_PORTED
+    for m in API_MODULES:
+        ref = importlib.import_module(f'paddle_tpu.{m}')
+        mod = importlib.import_module(f'paddle_tpu_torch.{m}')
+        names = getattr(ref, '__all__', None) or [
+            n for n in dir(ref) if not n.startswith('_') and getattr(
+                getattr(ref, n), '__module__', None) == ref.__name__]
+        missing = [n for n in names
+                   if n not in NOT_PORTED and not hasattr(mod, n)]
+        assert not missing, (m, missing)
