@@ -51,6 +51,8 @@
                                            # API packages on the card)
     python3 chip_smoke.py --api-profile    # phase 14's profiler window
                                            # in a fresh process
+    python3 chip_smoke.py --tail           # phase 15 alone (audio, text
+                                           # and distribution on the card)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -549,6 +551,18 @@ result line):
    figures == torch.cuda's; fft, stft and sparse.matmul on the card ==
    the CPU; a profiler window whose Chrome trace names the RMSNorm and
    flash kernels; at most 45 s.
+15. tail (after phase 14): the long-tail packages on the card
+   (`tail_phase`): `audio`'s LogMelSpectrogram and MFCC (n_fft 2048, hop
+   512, 128 mels, 40 coefficients) over 64 clips in ESC-50's format (5 s
+   mono at 44.1 kHz, `datasets._SyntheticAudio` from a seed) == the same
+   layers on the CPU (mel power rel norm 1e-5, log-mel 1e-3 dB within 60
+   dB of the peak, 1e-2 dB below), ms a batch and clips/s;
+   `text.viterbi_decode` at B 64, L 256, T 11 == the CPU (paths exactly,
+   scores rel 1e-5), ms a batch; every `distribution` family drawn 1e6
+   times from a CUDA generator (mean and variance within 5 standard
+   errors, one seed bit-equal twice), log_prob and entropy == the CPU,
+   Gamma's rsample gradient == the CPU's at the same draws; at most 30 s.
+   No kernel of the port runs here.
 
 Phases 5, 5b, 5c-5g, 11, 12 and 6 run in that order before any profiling:
 once torch.profiler has run in a process, every later launch costs the
@@ -10310,6 +10324,264 @@ def api_phase() -> dict:
     return {'launches': dict(launches)}
 
 
+# phase 15 (tail): the long-tail packages on the card at full width, in
+# at most TAIL_BUDGET_S. Audio: ESC-50's published clip format (5 s,
+# mono, 44.1 kHz); the mel power held to the CPU's by relative norm
+# (cuFFT and the CPU's FFT sum in another order, about 1e-7 of the
+# norm), log-mel by dB (10 log10 turns a relative error e into 4.3 e dB):
+# TAIL_DB_ATOL for every band within TAIL_DB_RANGE of the batch's peak
+# power, TAIL_DB_DEEP_ATOL below it (an fp32 FFT's error is relative to
+# the frame's energy: a band 70 dB below the peak reads 1.3e-3 dB from a
+# float64 reference on the card, 5.4e-4 on the CPU), and MFCC by
+# TAIL_DB_ATOL times sqrt(n_mels) (the orthonormal DCT moves a
+# coefficient by at most the norm of the bands' errors). Viterbi:
+# Conll05st's 9 tags plus BOS and EOS. Distributions: 1e6 draws of every
+# family from a CUDA generator, the sample mean and variance within
+# TAIL_SE standard errors of the family's own.
+TAIL_BUDGET_S = 30.0
+TAIL_CLIPS, TAIL_SR, TAIL_SECONDS = 64, 44100, 5.0
+TAIL_FEATURES = dict(sr=TAIL_SR, n_fft=2048, hop_length=512, n_mels=128)
+TAIL_MFCC = 40
+TAIL_MEL_RTOL = 1e-5
+TAIL_DB_ATOL = 1e-3
+TAIL_DB_RANGE = 60.0
+TAIL_DB_DEEP_ATOL = 1e-2
+TAIL_VITERBI = (64, 256, 11)          # B, L, T
+TAIL_DRAWS = 1_000_000
+TAIL_SE = 5.0
+TAIL_RTOL = 1e-5
+TAIL_SEED = 15
+
+
+def _tail_close(label: str, got, want, rtol: float = TAIL_RTOL) -> float:
+    """|got - want| <= rtol * max(|want|max, 1) elementwise (the CPU
+    tests' tolerance); returns the largest |got - want|."""
+    g = getattr(got, 'value', got).detach().cpu().double()
+    w = getattr(want, 'value', want).detach().cpu().double()
+    if g.shape != w.shape:
+        raise AssertionError(f'{label}: shape {tuple(g.shape)} vs '
+                             f'{tuple(w.shape)}')
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not err <= rtol * max(float(w.abs().max()), 1.0):
+        raise AssertionError(f'{label}: card vs CPU max abs err {err}')
+    return err
+
+
+def tail_audio(smi: str) -> dict:
+    """LogMelSpectrogram and MFCC over 64 ESC-50-format clips on the card
+    == the same layers on the CPU; ms a batch and clips/s."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.audio import datasets, features
+    clips = torch.from_numpy(datasets._SyntheticAudio(
+        TAIL_CLIPS, 50, TAIL_SR, TAIL_SECONDS, seed=TAIL_SEED).waveforms)
+    x = clips.to(DEV)
+    logmel = features.LogMelSpectrogram(**TAIL_FEATURES)
+    mfcc = features.MFCC(n_mfcc=TAIL_MFCC, **TAIL_FEATURES)
+    with ptt.device_guard('cpu'):
+        logmel_c = features.LogMelSpectrogram(**TAIL_FEATURES)
+        mfcc_c = features.MFCC(n_mfcc=TAIL_MFCC, **TAIL_FEATURES)
+    out = {}
+    with torch.no_grad():
+        mel, mel_c = logmel._melspectrogram(x), logmel_c._melspectrogram(
+            clips)
+        frames = 1 + clips.shape[1] // TAIL_FEATURES['hop_length']
+        if tuple(mel.shape) != (TAIL_CLIPS, TAIL_FEATURES['n_mels'],
+                                frames) or not bool(mel.isfinite().all()):
+            raise AssertionError(f'tail mel: shape {tuple(mel.shape)}')
+        diff = (mel.cpu().double() - mel_c.double()).norm()
+        out['mel_rel_norm'] = float(diff / mel_c.double().norm())
+        db, db_c = logmel(x), logmel_c(clips)
+        err = (db.cpu() - db_c).abs()
+        deep = db_c < db_c.max() - TAIL_DB_RANGE
+        out['db_max_abs'] = float(err[~deep].max())
+        out['db_deep_max_abs'] = float(err[deep].max()) if bool(
+            deep.any()) else 0.0
+        out['db_deep_count'] = int(deep.sum())
+        mf, mf_c = mfcc(x), mfcc_c(clips)
+        out['mfcc_max_abs'] = float((mf.cpu() - mf_c).abs().max())
+        mfcc_atol = TAIL_DB_ATOL * math.sqrt(TAIL_FEATURES['n_mels'])
+        if not (out['mel_rel_norm'] <= TAIL_MEL_RTOL
+                and out['db_max_abs'] <= TAIL_DB_ATOL
+                and out['db_deep_max_abs'] <= TAIL_DB_DEEP_ATOL
+                and out['mfcc_max_abs'] <= mfcc_atol
+                and tuple(mf.shape) == (TAIL_CLIPS, TAIL_MFCC, frames)):
+            raise AssertionError(f'tail audio card vs CPU: {out}')
+        for name, layer in (('logmel', logmel), ('mfcc', mfcc)):
+            ms = time_ms(lambda: layer(x), iters=5, warmup=1)
+            out[f'{name}_ms'] = ms
+            out[f'{name}_clips_s'] = TAIL_CLIPS / (ms / 1e3)
+    log(f'[tail] audio: {TAIL_CLIPS} clips x {clips.shape[1]} samples '
+        f'(5 s at 44.1 kHz), n_fft 2048, hop 512, 128 mels: mel power card '
+        f'vs CPU rel norm {out["mel_rel_norm"]:.3e} (limit '
+        f'{TAIL_MEL_RTOL:g}), log-mel max {out["db_max_abs"]:.3e} dB '
+        f'within {TAIL_DB_RANGE:g} dB of the peak (limit '
+        f'{TAIL_DB_ATOL:g}), {out["db_deep_max_abs"]:.3e} dB on the '
+        f'{out["db_deep_count"]} bands below (limit {TAIL_DB_DEEP_ATOL:g}), '
+        f'MFCC-40 max {out["mfcc_max_abs"]:.3e} '
+        f'dB; LogMelSpectrogram {out["logmel_ms"]:.3f} ms a batch, '
+        f'{out["logmel_clips_s"]:.1f} clips/s; MFCC {out["mfcc_ms"]:.3f} '
+        f'ms a batch, {out["mfcc_clips_s"]:.1f} clips/s ({smi})')
+    return out
+
+
+def tail_text(smi: str) -> dict:
+    """viterbi_decode at B = 64, L = 256, T = 11 on the card == the CPU
+    (paths exactly, scores rel 1e-5); ms a batch."""
+    from paddle_tpu_torch.text import viterbi_decode
+    b, length, tags = TAIL_VITERBI
+    rng = np.random.default_rng(TAIL_SEED)
+    pot = torch.from_numpy(rng.standard_normal((b, length, tags)).astype(
+        np.float32))
+    trans = torch.from_numpy(rng.standard_normal((tags, tags)).astype(
+        np.float32))
+    lens = torch.from_numpy(rng.integers(1, length + 1, b))
+    args = (pot.to(DEV), trans.to(DEV), lens.to(DEV))
+    scores, paths = viterbi_decode(*args)
+    scores_c, paths_c = viterbi_decode(pot, trans, lens)
+    if paths.dtype != torch.int64 or not torch.equal(paths.cpu(), paths_c):
+        raise AssertionError('tail viterbi: card paths differ from the CPU')
+    err = _tail_close('tail viterbi scores', scores, scores_c)
+    ms = time_ms(lambda: viterbi_decode(*args), iters=5, warmup=1)
+    log(f'[tail] viterbi B {b} L {length} T {tags} (lengths 1..{length}): '
+        f'paths == CPU, scores max abs err {err:.3e}; {ms:.3f} ms a batch '
+        f'(a host loop of {length} steps: launch-bound) ({smi})')
+    return {'viterbi_ms': ms}
+
+
+def _tail_families(D, t) -> list:
+    """(name, distribution) of every family, parameters from `t`."""
+    loc, scale = t([-0.5, 0.0, 1.5]), t([0.4, 1.0, 2.2])
+    alpha, beta = t([0.7, 1.5, 3.0]), t([1.2, 0.8, 2.5])
+    rate, prob = t([0.5, 1.3, 4.0]), t([0.2, 0.5, 0.8])
+    cov = t([[2.0, 0.3, 0.1], [0.3, 1.0, 0.2], [0.1, 0.2, 0.5]])
+    return [
+        ('Normal', D.Normal(loc, scale)),
+        ('Uniform', D.Uniform(loc, t([0.0, 1.0, 3.7]))),
+        ('Categorical', D.Categorical(t([[0.1, 0.5, -1.0],
+                                         [2.0, 0.0, 0.3]]))),
+        # not p = 0.5, where a Bernoulli's sample variance is a function
+        # of its sample mean at its stationary point (no standard error)
+        ('Bernoulli', D.Bernoulli(t([0.2, 0.35, 0.8]))),
+        ('Beta', D.Beta(alpha, beta)),
+        ('Dirichlet', D.Dirichlet(alpha)),
+        ('Gamma', D.Gamma(alpha, rate)),
+        ('Exponential', D.Exponential(rate)),
+        ('Geometric', D.Geometric(prob)),
+        ('Gumbel', D.Gumbel(loc, scale)),
+        ('Laplace', D.Laplace(loc, scale)),
+        ('LogNormal', D.LogNormal(loc, t([0.4, 0.5, 0.3]))),
+        ('Multinomial', D.Multinomial(6, t([0.2, 0.3, 0.5]))),
+        ('Poisson', D.Poisson(rate)),
+        ('StudentT', D.StudentT(t([5.0, 10.0, 30.0]), loc, scale)),
+        ('Binomial', D.Binomial(t([5.0, 10.0, 20.0]), prob)),
+        ('Cauchy', D.Cauchy(loc, scale)),
+        ('Chi2', D.Chi2(t([3.0, 5.0, 10.0]))),
+        ('ContinuousBernoulli', D.ContinuousBernoulli(t([0.2, 0.4995,
+                                                         0.8]))),
+        ('MultivariateNormal', D.MultivariateNormal(
+            loc, covariance_matrix=cov)),
+        ('LKJCholesky', D.LKJCholesky(3, t(2.0))),
+    ]
+
+
+def _tail_moments(name: str, dist, s: torch.Tensor) -> float:
+    """The largest deviation of the draws' statistics from the family's,
+    in standard errors."""
+    s = s.double()
+    n = s.shape[0]
+    if name == 'Categorical':
+        p = torch.softmax(dist.logits.value.double(), -1)
+        freq = torch.nn.functional.one_hot(s.long(), p.shape[-1]).double(
+        ).mean(0)
+        return float(((freq - p).abs() / (p * (1 - p) / n).sqrt()).max())
+    if name == 'Cauchy':
+        med = s.median(0).values
+        se = math.pi * dist.scale.value.double() / (2 * math.sqrt(n))
+        return float(((med - dist.loc.value.double()).abs() / se).max())
+    if name == 'LKJCholesky':
+        off = (s @ s.transpose(-1, -2))[:, 1, 0]
+        eta = float(dist.concentration.value)
+        var = 1.0 / (2 * (eta - 1 + 1.5) + 1)     # LKJ's marginal, d = 3
+        return float(off.mean().abs() / math.sqrt(var / n))
+    mean, var = s.mean(0), s.var(0)
+    m4 = ((s - mean) ** 4).mean(0)
+    se_var = ((m4 - var ** 2 * (n - 3) / (n - 1)) / n).sqrt()
+    dev_mean = (mean - dist.mean.value.double()).abs() / (var / n).sqrt()
+    dev_var = (var - dist.variance.value.double()).abs() / se_var
+    return float(torch.maximum(dev_mean, dev_var).max())
+
+
+def tail_distribution(smi: str) -> dict:
+    """Every family: 1e6 draws on the card from a CUDA generator, their
+    mean and variance within TAIL_SE standard errors of the family's,
+    one seed's draws bit-equal twice; log_prob (at the first 4096 draws)
+    and entropy on the card == the CPU; Gamma's rsample gradient on the
+    card == the CPU's implicit gradient at the same draws."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import distribution as D
+
+    def on(device):
+        return lambda v: ptt.to_tensor(np.asarray(v, np.float32),
+                                       place=device)
+    card = _tail_families(D, on('gpu'))
+    cpu = _tail_families(D, on('cpu'))
+    worst, worst_name, names = 0.0, '', []
+    for (name, d), (_, dc) in zip(card, cpu):
+        s = d.sample((TAIL_DRAWS,), seed=TAIL_SEED)
+        if s.value.device.type != 'cuda' or not bool(
+                s.value.isfinite().all()):
+            raise AssertionError(f'tail {name}: draws on {s.value.device}')
+        if not torch.equal(s.value, d.sample((TAIL_DRAWS,),
+                                             seed=TAIL_SEED).value):
+            raise AssertionError(f'tail {name}: one seed, two draws')
+        dev = _tail_moments(name, d, s.value)
+        if not dev <= TAIL_SE:
+            raise AssertionError(f'tail {name}: statistics {dev:.2f} '
+                                 f'standard errors off')
+        if dev > worst:
+            worst, worst_name = dev, name
+        # a Categorical's value has exactly the batch shape
+        head = s.value[0] if name == 'Categorical' else s.value[:4096]
+        _tail_close(f'tail {name} log_prob', d.log_prob(head),
+                    dc.log_prob(head.cpu()))
+        if name not in ('Multinomial', 'LKJCholesky'):
+            _tail_close(f'tail {name} entropy', d.entropy(), dc.entropy())
+        names.append(name)
+    a = ptt.to_tensor(np.linspace(0.3, 4.0, 4096, dtype=np.float32))
+    b = ptt.to_tensor(np.linspace(0.5, 2.0, 4096, dtype=np.float32))
+    a.stop_gradient = False
+    s = D.Gamma(a, b).rsample(seed=TAIL_SEED)
+    (g,) = ptt.grad(s.sum(), [a])
+    raw = (s.value * b.value).detach().cpu()
+    want = torch._standard_gamma_grad(a.value.detach().cpu(), raw) \
+        / b.value.cpu()
+    err = _tail_close('tail Gamma rsample gradient', g, want)
+    log(f'[tail] distribution: {len(names)} families x {TAIL_DRAWS} draws '
+        f'on the card, statistics within {worst:.2f} standard errors '
+        f'({worst_name}; limit {TAIL_SE:g}), seeds bit-equal, log_prob and '
+        f'entropy == CPU (rel {TAIL_RTOL:g}), Gamma rsample gradient max '
+        f'abs err '
+        f'{err:.3e} ({smi})')
+    return {'families': names, 'worst_se': worst}
+
+
+def tail_phase() -> dict:
+    """Phase 15: audio, text and distribution on the card (`tail_audio`,
+    `tail_text`, `tail_distribution`). Fails past TAIL_BUDGET_S."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {**tail_audio(smi), **tail_text(smi), **tail_distribution(smi)}
+    dt = time.perf_counter() - t0
+    log(f'[tail] phase 15 took {dt:.1f} s (budget {TAIL_BUDGET_S:.0f} s)')
+    if dt > TAIL_BUDGET_S:
+        raise AssertionError(f'phase 15 took {dt:.1f} s, over its budget')
+    out['seconds'] = dt
+    return out
+
+
 def release(*runs) -> None:
     """Drop the engines and train steps that the phases' results hold on
     the card (and the eager twins'), keeping their numbers."""
@@ -10599,6 +10871,14 @@ def main() -> int:
         api_phase()
         log(f'[done] {time.perf_counter() - t0:.1f} s')
         return 0
+    if sys.argv[1:2] == ['--tail']:
+        # python3 chip_smoke.py --tail: phase 15 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        tail_phase()
+        log(f'[done] {time.perf_counter() - t0:.1f} s')
+        return 0
     if sys.argv[1:2] == ['--row']:
         # python3 chip_smoke.py --row: phases 6, 6e and 6b (the model, the
         # draft and the bank; 6e's self-draft arm on the cut model), then
@@ -10747,6 +11027,8 @@ def main() -> int:
     mark('phase 8 (timing)')
     api = api_phase()
     mark('phase 14')
+    tail_phase()
+    mark('phase 15')
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

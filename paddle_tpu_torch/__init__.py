@@ -68,6 +68,13 @@ recorded at `tensor.apply_op` and replayed by `Executor`), `incubate`
 `version`, `sysconfig` and the top-level CUDA checks. A KV pool may be
 kept in another float dtype than the model's (`InferenceEngine(
 dtype=)`), read by the paged kernel's (q, pages) pair.
+
+The long tail: `audio` (windows, mel filterbanks and the feature layers
+over `signal.stft`), `text` (Viterbi decoding and the synthetic
+datasets), `distribution` (the families, transforms and KL pairs,
+sampled from `torch.Generator`s), `hub` (local hubconf.py) and `onnx`
+(the `torch.export` graph mapped to ONNX nodes, the kernels' export ops
+lowered to their plain versions' subgraphs).
 """
 # the op surface first: the modules imported below keep their names
 from .ops import *  # noqa: F401,F403
@@ -79,6 +86,7 @@ from . import amp
 from . import hapi
 from . import (device, fft, geometric, incubate, profiler, quantization,
                signal, sparse, static, sysconfig, version)
+from . import audio, distribution, hub, onnx, text
 from .autograd import (PyLayer, PyLayerContext, enable_grad, grad,
                        is_grad_enabled, no_grad, set_grad_enabled)
 from .dtype import (bfloat16, bool_, complex64, complex128, finfo, float16,

@@ -31,8 +31,9 @@ actually happens:
 Reports flow through the observability layer: a `sanitizer_violation`
 event (a flight-recorder trigger), `paddle_sanitizer_violations_total
 {kind}`, and in strict mode a `ConcurrencySanitizerError` raised at the
-offending acquire or access. (The JAX module's export of the observed
-graph, for its static lock-order pass over its own tree, is not copied.)
+offending acquire or access. `export_edges` writes the observed graph as
+the JAX package's JSON artifact (version 1, a list of {from, to, thread,
+stack} edges), and `load_edges` reads one back, from either package.
 
 Modes (``FLAGS_concurrency_sanitizer`` / env, or `enable()`):
   'off'     wrappers delegate with one integer check of overhead;
@@ -46,6 +47,7 @@ violation takes the very locks being sanitized).
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 import threading
@@ -557,6 +559,17 @@ def reset():
         _reported.clear()
 
 
+def observed_edges() -> List[Dict[str, Any]]:
+    """The acquisition graph as a list of {'from','to','thread','stack'}
+    edge dicts (the JSON artifact's payload)."""
+    with _state_lock:
+        out = []
+        for (a, b), w in sorted(_edge_witness.items()):
+            out.append({'from': a, 'to': b, 'thread': w['thread'],
+                        'stack': list(w['stack'])})
+        return out
+
+
 def stats() -> Dict[str, Any]:
     """Sanitizer posture + counters (debug summary / tests)."""
     with _state_lock:
@@ -569,3 +582,31 @@ def stats() -> Dict[str, Any]:
         return {'mode': mode(), 'lock_classes': len(nodes),
                 'edges': len(_edge_witness),
                 'violations': dict(by_kind)}
+
+
+def export_edges(path: str) -> str:
+    """Write the observed acquisition edges as the JSON artifact a static
+    lock-order pass merges (the JAX package's `load_edges` reads it).
+    Returns the path."""
+    doc = {'version': 1, 'tool': 'paddle_tpu_torch.analysis.runtime',
+           'edges': observed_edges()}
+    tmp = f'{path}.tmp'
+    with open(tmp, 'w') as f:
+        json.dump(doc, f, indent=1)
+    os.replace(tmp, path)
+    return path
+
+
+def load_edges(path: str) -> List[Dict[str, Any]]:
+    """Read an `export_edges` artifact back (raises on malformed input: a
+    lint consuming garbage must say so)."""
+    with open(path) as f:
+        doc = json.load(f)
+    edges = doc.get('edges')
+    if not isinstance(edges, list):
+        raise ValueError(f'{path}: not a runtime-edges artifact '
+                         f'(missing "edges" list)')
+    for e in edges:
+        if not (isinstance(e, dict) and 'from' in e and 'to' in e):
+            raise ValueError(f'{path}: malformed edge entry {e!r}')
+    return edges

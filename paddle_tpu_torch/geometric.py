@@ -6,7 +6,9 @@ through `tensor.apply_op`.
 The JAX package's semantics are kept: an empty segment of
 `segment_min` / `segment_max` holds the reduction's identity (+inf /
 -inf for floats, the integer type's max / min), while `send_u_recv` and
-`send_ue_recv` zero their empty buckets (upstream's rule); without
+`send_ue_recv` zero their empty buckets (upstream's rule: by value for
+floats, by edge count for ints, where the JAX package keeps the
+identity); without
 `out_size` the segment count is the largest id + 1, read on the host,
 and the message-passing ops keep at least x's rows.
 """
@@ -92,10 +94,18 @@ def _recv(msgs: torch.Tensor, dst: torch.Tensor, n: int, reduce_op: str):
         return _mean(msgs, dst, n)
     out = _reduce(msgs, dst, n, reduce_op)
     if reduce_op in ('min', 'max'):
-        # empty buckets come back at the identity; upstream zeroes them
-        out = torch.where(torch.isinf(out) if out.is_floating_point()
-                          else out == _identity(out.dtype, reduce_op),
-                          torch.zeros_like(out), out)
+        # empty buckets come back at the identity; upstream zeroes them.
+        # Floats find them by value (the JAX rule, so an inf message is
+        # zeroed too); ints by an edge count, since iinfo.max / iinfo.min
+        # is also a value a live bucket can hold
+        if out.is_floating_point():
+            empty = torch.isinf(out)
+        else:
+            ones = torch.ones_like(dst, dtype=torch.int64)
+            cnt = torch.zeros(n, dtype=torch.int64, device=out.device
+                              ).index_add(0, dst.long(), ones)
+            empty = (cnt == 0).reshape((n,) + (1,) * (out.dim() - 1))
+        out = torch.where(empty, torch.zeros_like(out), out)
     return out
 
 

@@ -305,6 +305,11 @@ _TELEMETRY = ('paddle_steps_total', 'paddle_tokens_total',
 
 def _train(kit, steps=3):
     reset_observability(kit.obs)
+    # an earlier test's `debug.reset_dispatch_stats()` leaves the JAX
+    # catalog's `eager:<op>` records at their old counts, which the mirror
+    # below rewrites only once the op is counted again (here, mid-run), so
+    # the window starts from an empty catalog
+    kit.obs.program_catalog().reset()
     # the baseline after a registry snapshot, as the reading below is:
     # the JAX catalog mirrors its eager dispatch cache's per-op counts
     # (`paddle_tpu._dispatch.stats()['per_op']`, left by any earlier

@@ -3212,3 +3212,117 @@ def test_profiler_trace_names_the_kernels(cuda, tmp_path):
         open(prof.trace_path).read())['traceEvents'])
     assert 'api_region' in names
     assert 'rms_norm_kernel' in names and 'flash_fwd_wgmma_kernel' in names
+
+
+# -- the long tail: geometric, audio, text, distribution ----------------------
+
+def test_geometric_int_buckets_on_the_card(cuda):
+    """The int32 min/max reproducer on the card: a live bucket at
+    INT32_MAX stays, the empty bucket is 0 (found by an edge count)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import geometric
+    lim = torch.iinfo(torch.int32)
+    x = torch.tensor([[lim.max], [5], [-3]], dtype=torch.int32, device=cuda)
+    src = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)
+    for op, live in (('min', [lim.max, -3]), ('max', [lim.max, 5])):
+        out = geometric.send_u_recv(ptt.Tensor(x), ptt.Tensor(src),
+                                    ptt.Tensor(dst), op, out_size=3)
+        assert out.value.device.type == 'cuda'
+        assert out.value.cpu().ravel().tolist() == live + [0]
+
+
+def test_audio_features_on_the_card_equal_the_cpu(cuda):
+    """LogMelSpectrogram and MFCC over four 1 s clips: the mel power
+    within rel norm 1e-5 of the CPU's, log-mel within 1e-3 dB."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.audio import features
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 16000, generator=g)
+    kw = dict(sr=16000, n_fft=512, hop_length=160, n_mels=64)
+    card = features.LogMelSpectrogram(**kw)
+    with ptt.device_guard('cpu'):
+        cpu = features.LogMelSpectrogram(**kw)
+        cpu_mfcc = features.MFCC(n_mfcc=20, **kw)
+    mfcc = features.MFCC(n_mfcc=20, **kw)
+    assert card._melspectrogram.fbank_matrix.is_cuda
+    with torch.no_grad():
+        mel = card._melspectrogram(x.to(cuda)).cpu().double()
+        mel_c = cpu._melspectrogram(x).double()
+        assert float((mel - mel_c).norm() / mel_c.norm()) <= 1e-5
+        assert float((card(x.to(cuda)).cpu() - cpu(x)).abs().max()) <= 1e-3
+        # the orthonormal DCT: at most 1e-3 dB times sqrt(64 mels)
+        assert float((mfcc(x.to(cuda)).cpu() - cpu_mfcc(x)).abs().max()) \
+            <= 1e-3 * 8
+
+
+def test_viterbi_on_the_card_equals_the_cpu(cuda):
+    from paddle_tpu_torch.text import viterbi_decode
+    g = torch.Generator().manual_seed(2)
+    pot, trans = torch.randn(8, 64, 11, generator=g), torch.randn(
+        11, 11, generator=g)
+    lens = torch.randint(1, 65, (8,), generator=g)
+    for bos_eos in (True, False):
+        s, p = viterbi_decode(pot.to(cuda), trans.to(cuda), lens.to(cuda),
+                              bos_eos)
+        sc, pc = viterbi_decode(pot, trans, lens, bos_eos)
+        assert p.is_cuda and torch.equal(p.cpu(), pc)
+        torch.testing.assert_close(s.cpu(), sc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('family', ['Normal', 'Gamma', 'Beta', 'Dirichlet',
+                                    'Poisson', 'Binomial', 'Multinomial',
+                                    'StudentT', 'LKJCholesky'])
+def test_distribution_draws_from_a_cuda_generator(cuda, family):
+    """Draws land on the card from a CUDA generator, one seed twice
+    bit-equal, the mean within 5 standard errors; log_prob at the draws
+    and entropy on the card == the CPU."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import distribution as D
+
+    def build(place):
+        t = lambda v: ptt.to_tensor(torch.tensor(v), place=place)  # noqa
+        return {
+            'Normal': lambda: D.Normal(t([0.5, -1.0]), t([1.0, 2.0])),
+            'Gamma': lambda: D.Gamma(t([0.7, 3.0]), t([1.3, 0.5])),
+            'Beta': lambda: D.Beta(t([0.7, 3.0]), t([1.2, 2.5])),
+            'Dirichlet': lambda: D.Dirichlet(t([0.7, 1.5, 3.0])),
+            'Poisson': lambda: D.Poisson(t([0.5, 4.0])),
+            'Binomial': lambda: D.Binomial(t([5.0, 20.0]), t([0.2, 0.8])),
+            'Multinomial': lambda: D.Multinomial(6, t([0.2, 0.3, 0.5])),
+            'StudentT': lambda: D.StudentT(t([5.0, 10.0]), t([0.0, 1.0]),
+                                           t([1.0, 2.0])),
+            'LKJCholesky': lambda: D.LKJCholesky(3, t(2.0)),
+        }[family]()
+    d, dc = build('gpu'), build('cpu')
+    s = d.sample((100000,), seed=7)
+    assert s.value.is_cuda
+    assert torch.equal(s.value, d.sample((100000,), seed=7).value)
+    if family != 'LKJCholesky':
+        v = s.value.double()
+        se = (v.var(0) / v.shape[0]).sqrt()
+        assert bool(((v.mean(0) - d.mean.value.double()).abs()
+                     <= 5 * se + 1e-9).all())
+    if family not in ('Multinomial', 'LKJCholesky'):      # no entropy
+        torch.testing.assert_close(d.entropy().value.cpu(),
+                                   dc.entropy().value, rtol=1e-5, atol=1e-5)
+    head = s.value[:512]
+    torch.testing.assert_close(d.log_prob(head).value.cpu(),
+                               dc.log_prob(head.cpu()).value, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_gamma_rsample_gradient_on_the_card_equals_the_cpu(cuda):
+    """Gamma's implicit-reparameterization gradient on the card == the
+    CPU's `_standard_gamma_grad` at the same draws."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import distribution as D
+    a = ptt.to_tensor(torch.linspace(0.3, 4.0, 4096), place='gpu')
+    b = ptt.to_tensor(torch.linspace(0.5, 2.0, 4096), place='gpu')
+    a.stop_gradient = False
+    s = D.Gamma(a, b).rsample(seed=3)
+    (g,) = ptt.grad(s.sum(), [a])
+    raw = (s.value * b.value).detach().cpu()
+    want = torch._standard_gamma_grad(a.value.detach().cpu(), raw) \
+        / b.value.cpu()
+    torch.testing.assert_close(g.value.cpu(), want, rtol=1e-5, atol=1e-6)

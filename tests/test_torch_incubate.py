@@ -419,6 +419,41 @@ def test_send_ue_recv_matches_jax(message_op, reduce_op):
         tgeo.send_ue_recv(tx, ty, ts, td, 'pow', reduce_op)
 
 
+@pytest.mark.parametrize('entry', ['send_u_recv', 'send_ue_recv',
+                                   'graph_send_recv'])
+@pytest.mark.parametrize('reduce_op', ['min', 'max'])
+def test_int_min_max_buckets_found_by_edge_count(entry, reduce_op):
+    """A live int32 bucket whose min is INT32_MAX stays INT32_MAX; the
+    empty bucket is 0 in the port (upstream's rule) and the identity in
+    the JAX package (`jnp.isinf` is False on ints)."""
+    lim = np.iinfo(np.int32)
+    x = np.array([[lim.max], [5], [-3]], np.int32)
+    src, dst = np.array([0, 1, 2], np.int32), np.array([0, 1, 1], np.int32)
+    y = np.zeros((3, 1), np.int32)
+    (jx, tx), (jy, ty) = _pair(x), _pair(y)
+    (js, ts), (jd, td) = _pair(src), _pair(dst)
+    if entry == 'send_u_recv':
+        want = jgeo.send_u_recv(jx, js, jd, reduce_op, out_size=3)
+        got = tgeo.send_u_recv(tx, ts, td, reduce_op, out_size=3)
+    elif entry == 'send_ue_recv':
+        want = jgeo.send_ue_recv(jx, jy, js, jd, 'add', reduce_op,
+                                 out_size=3)
+        got = tgeo.send_ue_recv(tx, ty, ts, td, 'add', reduce_op,
+                                out_size=3)
+    else:
+        from paddle_tpu import incubate as jinc
+        want = jinc.graph_send_recv(jx, js, jd, pool_type=reduce_op,
+                                    out_size=3)
+        got = tinc.graph_send_recv(tx, ts, td, pool_type=reduce_op,
+                                   out_size=3)
+    got, want = _np(got).ravel(), _np(want).ravel()
+    live = {'min': [lim.max, -3], 'max': [lim.max, 5]}[reduce_op]
+    np.testing.assert_array_equal(got[:2], want[:2])
+    np.testing.assert_array_equal(got[:2], live)
+    assert got[2] == 0
+    assert want[2] == (lim.max if reduce_op == 'min' else lim.min)
+
+
 def test_segment_sum_is_differentiable():
     rng = _rng(12)
     d = _f32(rng, 6, 3)

@@ -611,6 +611,44 @@ def test_sanitizer_report_reaches_metrics_and_events():
                    for e in obs.get_event_log().events())
 
 
+def _edges_artifact(conc, path):
+    conc.reset()
+    with conc.sanitized('report'):
+        a, b, c = (conc.Lock('Edge.a'), conc.Lock('Edge.b'),
+                   conc.Lock('Edge.c'))
+        with a:
+            with b:
+                with c:
+                    pass
+    out = conc.export_edges(str(path))
+    conc.reset()
+    return out
+
+
+@pytest.mark.parametrize('writer', ['torch', 'jax'])
+def test_edges_artifact_crosses_both_ways(writer, tmp_path):
+    """An edges artifact one package writes is read by the other's
+    `load_edges`, with the same edges; malformed input raises the same
+    errors in both."""
+    src, dst = (pconc, jconc) if writer == 'torch' else (jconc, pconc)
+    path = _edges_artifact(src, tmp_path / 'edges.json')
+    with open(path) as f:
+        doc = json.load(f)
+    assert doc['version'] == 1
+    got = dst.load_edges(path)
+    assert got == src.load_edges(path)
+    assert sorted((e['from'], e['to']) for e in got) == [
+        ('Edge.a', 'Edge.b'), ('Edge.a', 'Edge.c'), ('Edge.b', 'Edge.c')]
+    assert all(set(e) == {'from', 'to', 'thread', 'stack'} for e in got)
+    for bad, msg in (({'version': 1}, 'missing "edges" list'),
+                     ({'edges': [{'from': 'x'}]}, 'malformed edge entry')):
+        p = tmp_path / 'bad.json'
+        p.write_text(json.dumps(bad))
+        for conc in (pconc, jconc):
+            with pytest.raises(ValueError, match=msg):
+                conc.load_edges(str(p))
+
+
 def test_lock_names_match():
     """Every observability lock of the port is allocated under the JAX
     package's name."""
